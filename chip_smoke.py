@@ -1,0 +1,492 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``sitewhere_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py [--seed N] [--out PATH] [--profile]
+
+Phases, each printed as one JSON line:
+
+1. build   — compiles every CUDA kernel of the port from ``csrc/`` with
+             nvcc (all sources at once) and loads it.
+2. kernel  — holds each kernel against its plain PyTorch version on the
+             card at the main path's shapes and edge shapes, and times
+             kernel, plain version and the least time the card could take
+             (``bound_ms``, from the H100 SXM's published peaks).
+3. entry   — the Quickstart surface: ``Engine(..., device="cuda")``,
+             ``register_device``, ``process()`` of measurement, location
+             and alert requests, ``flush()``, ``get_device_state``; then the
+             same request stream through a CPU engine, whose state must be
+             identical, and scores of both within float32 tolerance.
+4. slice   — the main path at full width: the headline engine sizes, 80
+             batches of 16384 events (10,000 auto-registered tokens, 8192
+             analytics devices with 128-step windows of 100 channels)
+             through ``Engine.ingest_event_batch`` -> ``pipeline_step``, then
+             ``AnalyticsService.score_all`` over all 8192 windows
+             (window_features kernel -> normalization -> AnomalyModel, bf16).
+             Kernel launch counts are reset just before and read just after.
+
+Then a ``{"kernels": [...]}`` line, the card's name and power limit as
+nvidia-smi reports them, and as the last line
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
+that line; so does a machine without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from sitewhere_tpu_torch import cuda_build
+from sitewhere_tpu_torch.core.events import EpochBase, EventBatch
+from sitewhere_tpu_torch.core.types import AUX_LANES, NULL_ID, EventType
+from sitewhere_tpu_torch.engine import Engine, EngineConfig
+from sitewhere_tpu_torch.ingest.requests import DecodedRequest, RequestType
+from sitewhere_tpu_torch.models.anomaly import AnomalyConfig
+from sitewhere_tpu_torch.models.service import AnalyticsService
+from sitewhere_tpu_torch.ops import window_features as wf
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
+# FP32 (non-tensor-core) operations/s
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+KERNEL_TOL = 1e-4          # rtol = atol, kernel vs plain version, float32
+SCORE_TOL = 1e-4           # rtol, CUDA engine vs CPU engine scores, float32
+
+# the headline engine sizes of bench.py plus BASELINE config #4's model
+# width (100-sensor windows of 128 steps)
+SLICE_CONFIG = dict(device_capacity=1 << 15, token_capacity=1 << 16,
+                    assignment_capacity=1 << 16, store_capacity=1 << 18,
+                    batch_capacity=16384, channels=100,
+                    analytics_devices=8192, analytics_window=128)
+SLICE_TOKENS = 10_000
+SLICE_BATCHES = 80
+SLICE_MODEL = AnomalyConfig(sensors=100, window=128, hidden=256, lstm_hidden=256)
+
+KERNELS = [dict(name="window_features", route="cuda",
+                source="sitewhere_tpu_torch/csrc/window_features.cu",
+                replaces="sitewhere_tpu/ops/window_features.py:40")]
+
+
+class Failures(list):
+    def check(self, ok: bool, what: str) -> None:
+        if not ok:
+            self.append(what)
+
+
+def emit(record: dict, log: list) -> None:
+    log.append(record)
+    print(json.dumps(record), flush=True)
+
+
+class PinnedEpoch(EpochBase):
+    """A clock that stands still, so two engines stamp identical rows."""
+
+    def now_ms(self) -> int:
+        return 5_000
+
+
+def time_ms(fn, device: torch.device, reps: int = 30, warmup: int = 5) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` runs after ``warmup``
+    runs: CUDA events around each run on the card, the host clock on the
+    CPU."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def window_features_bound_ms(m: int, w: int, c: int) -> tuple[float, str]:
+    """Least time for [M, W, C] -> [M, C, 6]: each input byte read once and
+    each output byte written once, against ~8 float32 operations per input
+    element (Welford update, min, max) at the FP32 peak."""
+    t_bytes = (m * w * c * 4 + m * c * wf.NUM_FEATURES * 4) / PEAK_BYTES_PER_S
+    t_ops = 8 * m * w * c / PEAK_FP32_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# ------------------------------------------------------------------ phases
+def phase_build(log, fails) -> None:
+    t0 = time.perf_counter()
+    info = cuda_build.build([k["name"] for k in KERNELS])
+    for k in KERNELS:
+        cuda_build.load(k["name"])
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "kernels": {name: {"nvcc_s": v["seconds"],
+                             "ptxas": [ln for ln in v["ptxas"].splitlines()
+                                       if "registers" in ln or "spill" in ln]}
+                      for name, v in info.items()}}, log)
+
+
+def phase_kernel(device, log, fails, shape=(8192, 128, 100)) -> dict:
+    gen = torch.Generator(device=device).manual_seed(0)
+    m, w, c = shape
+    cases = {
+        "main": torch.randn(shape, device=device, generator=gen),
+        "ragged_m": torch.randn((1237, w, c), device=device, generator=gen),
+        "c8": torch.randn((max(m // 2, 1), w, 8), device=device, generator=gen),
+        "offset": (1e3 * torch.arange(1, w + 1, device=device)[None, :, None]
+                   + torch.randn((512, w, c), device=device, generator=gen)),
+    }
+    errs = {}
+    for name, x in cases.items():
+        got = wf.window_features(x)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ref = wf.window_features_reference(x)
+        errs[name] = (got - ref).abs().max().item()
+        fails.check(torch.allclose(got, ref, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+                    and bool(torch.isfinite(got).all()),
+                    f"window_features disagrees with its plain version on {name} "
+                    f"{tuple(x.shape)}: max abs err {errs[name]}")
+    x = cases["main"]
+    ms = time_ms(lambda: wf.window_features(x), device)
+    plain_ms = time_ms(lambda: wf.window_features_reference(x), device)
+    bound_ms, bound_by = window_features_bound_ms(*x.shape)
+    rec = {"phase": "kernel", "name": "window_features", "shape": list(x.shape),
+           "tol": KERNEL_TOL, "max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(rec, log)
+    return dict(max_abs_err=errs["main"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _entry_requests(rng) -> list[DecodedRequest]:
+    reqs = []
+    names = ["temp", "humidity", "pressure"]
+    for t in range(12):
+        for d in range(40):
+            reqs.append(DecodedRequest(
+                type=RequestType.DEVICE_MEASUREMENT, device_token=f"dev-{d}",
+                measurements={n: float(rng.standard_normal()) for n in names},
+                # absolute unix ms; PinnedEpoch(1e9) makes them 100 t + 0..2,
+                # so timestamps collide
+                event_ts_ms=10**12 + 100 * t + int(rng.integers(0, 3))))
+        k = int(rng.integers(0, 40))
+        reqs.append(DecodedRequest(type=RequestType.DEVICE_LOCATION,
+                                   device_token=f"dev-{k}",
+                                   latitude=float(rng.uniform(-90, 90)),
+                                   longitude=float(rng.uniform(-180, 180))))
+        reqs.append(DecodedRequest(type=RequestType.DEVICE_ALERT,
+                                   device_token=f"dev-{(k + 7) % 40}",
+                                   alert_type=f"a{t % 3}", alert_level=t % 4))
+    reqs.append(DecodedRequest(type=RequestType.DEVICE_MEASUREMENT,
+                               device_token="dev-3", tenant="other",
+                               measurements={"temp": 1.0}))   # dead letter
+    return reqs
+
+
+def _state_leaves(state):
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if dataclasses.is_dataclass(v):
+            for name, leaf in _state_leaves(v):
+                yield f"{f.name}.{name}", leaf
+        elif v is not None:
+            yield f.name, v
+
+
+def phase_entry(device, log, fails) -> None:
+    cfg = EngineConfig(device_capacity=1024, token_capacity=2048,
+                       assignment_capacity=2048, store_capacity=1 << 14,
+                       batch_capacity=256, channels=100, analytics_devices=64,
+                       analytics_window=128)
+    engines = {}
+    for dev in (device, torch.device("cpu")):
+        eng = Engine(cfg, device=dev)
+        eng.epoch = PinnedEpoch(1e9)
+        did = eng.register_device("sensor-1", device_type="thermostat")
+        eng.process(DecodedRequest(type=RequestType.DEVICE_MEASUREMENT,
+                                   device_token="sensor-1",
+                                   measurements={"temp": 21.5, "rpm": 900.0}))
+        eng.process(DecodedRequest(type=RequestType.DEVICE_LOCATION,
+                                   device_token="sensor-1", latitude=48.85,
+                                   longitude=2.35, elevation=35.0))
+        eng.process(DecodedRequest(type=RequestType.DEVICE_ALERT,
+                                   device_token="sensor-1", alert_type="overheat",
+                                   alert_level=2))
+        first = eng.flush()
+        for req in _entry_requests(np.random.default_rng(1)):
+            eng.process(req)
+        rest = eng.flush()
+        engines[dev.type] = (eng, did, first, rest)
+
+    eng, did, first, rest = engines[device.type]
+    st = eng.get_device_state("sensor-1")
+    fails.check(did == 0 and first["found"] == 3 and first["persisted"] == 3,
+                f"entry: first flush {first}")
+    fails.check(st["measurements"].get("temp", {}).get("value") == 21.5
+                and st["measurements"].get("rpm", {}).get("value") == 900.0,
+                f"entry: staged measurements {st['measurements']}")
+    loc = st["recent_locations"][0] if st["recent_locations"] else {}
+    fails.check(abs(loc.get("latitude", 0) - 48.85) < 1e-5
+                and abs(loc.get("longitude", 0) - 2.35) < 1e-5,
+                f"entry: recent location {st['recent_locations']}")
+    fails.check(st["recent_alerts"][:1] == [{"level": 2, "type": "overheat",
+                                             "ts_ms": 5_000}],
+                f"entry: recent alert {st['recent_alerts']}")
+    fails.check(st["event_counts"]["MEASUREMENT"] == 1
+                and st["event_counts"]["LOCATION"] == 1
+                and st["event_counts"]["ALERT"] == 1,
+                f"entry: event counts {st['event_counts']}")
+
+    # the same stream on the CPU: identical state, summaries and answers
+    ceng, _, cfirst, crest = engines["cpu"]
+    fails.check((first, rest) == (cfirst, crest),
+                f"entry: flush summaries differ from the CPU engine: {rest} vs {crest}")
+    differ = [name for (name, a), (_, b) in zip(_state_leaves(eng.state),
+                                                 _state_leaves(ceng.state))
+              if not torch.equal(a.cpu(), b)]
+    fails.check(not differ, f"entry: state differs from the CPU engine in {differ}")
+    tokens = ["sensor-1"] + [f"dev-{d}" for d in range(40)]
+    fails.check(all(eng.get_device_state(t) == ceng.get_device_state(t) for t in tokens),
+                "entry: get_device_state differs from the CPU engine")
+    fails.check(eng.metrics() == ceng.metrics(),
+                f"entry: metrics differ: {eng.metrics()} vs {ceng.metrics()}")
+
+    mcfg = AnomalyConfig(sensors=100, window=128, hidden=64, lstm_hidden=64,
+                         latent=16, dtype=torch.float32)
+    svc = AnalyticsService(eng, mcfg, min_fill=1)
+    csvc = AnalyticsService(ceng, mcfg, min_fill=1)
+    csvc.model.load_state_dict({k: v.cpu() for k, v in svc.model.state_dict().items()})
+    got, ref = svc.score_all(), csvc.score_all()
+    score_err = float(np.max(np.abs(got["scores"] - ref["scores"])))
+    fails.check(bool(np.array_equal(got["valid"], ref["valid"]))
+                and bool(np.allclose(got["scores"], ref["scores"],
+                                     rtol=SCORE_TOL, atol=1e-6)),
+                f"entry: scores differ from the CPU engine (max abs {score_err})")
+    emit({"phase": "entry", "device_state": st, "metrics": eng.metrics(),
+          "state_leaves_equal_cpu": not differ, "score_max_abs_err_vs_cpu": score_err,
+          "score_tol": SCORE_TOL}, log)
+
+
+def slice_batches(seed: int, n_batches: int, device, cfg: dict,
+                  n_tokens: int) -> tuple[list[EventBatch], int]:
+    """The full-width stream, built on the host with numpy and copied to the
+    card before the timed loop. Token ids 0..8191 appear first in batch 0,
+    so they auto-register as dense ids 0..8191: the analytics devices. Each
+    of them gets one measurement row per batch plus one more in 5120/8192
+    of the batches (rotating), so 80 batches give each 130 samples >= W;
+    no device gets more than 2 rows in one batch (<= W, no window-slot
+    collision). Tokens 8192..9999 send one measurement per batch; the rest
+    of each batch is locations, alerts and garbage tokens (negative or past
+    the token capacity), which must dead-letter. (Counts are for the full
+    width; they scale with ``cfg``.)"""
+    b, c, m = cfg["batch_capacity"], cfg["channels"], cfg["analytics_devices"]
+    rng = np.random.default_rng(seed)
+    n_extra = m * 5 // 8
+    n_other = n_tokens - m
+    n_misc = b - m - n_extra - n_other
+    n_loc, n_alert = n_misc * 5 // 10, n_misc * 3 // 10
+    n_bad = n_misc - n_loc - n_alert
+    batches, n_garbage = [], 0
+    for k in range(n_batches):
+        meas_tok = np.concatenate([
+            rng.permutation(m), (k * n_extra + np.arange(n_extra)) % m,
+            m + rng.permutation(n_other)]).astype(np.int32)
+        bad = np.concatenate([-1 - rng.integers(0, 1000, n_bad // 2),
+                              cfg["token_capacity"] + rng.integers(0, 1000, n_bad - n_bad // 2)])
+        misc_tok = np.concatenate([rng.integers(0, n_tokens, n_loc + n_alert), bad])
+        misc_type = np.repeat([int(EventType.LOCATION), int(EventType.ALERT),
+                               int(EventType.MEASUREMENT)], [n_loc, n_alert, n_bad])
+        order = rng.permutation(n_misc)
+        token = np.concatenate([meas_tok, misc_tok[order]]).astype(np.int32)
+        etype = np.concatenate([np.zeros(len(meas_tok), np.int32),
+                                misc_type[order]]).astype(np.int32)
+        values = rng.standard_normal((b, c), dtype=np.float32)
+        vmask = np.ones((b, c), np.bool_)
+        is_loc, is_alert = etype == EventType.LOCATION, etype == EventType.ALERT
+        vmask[is_loc, 3:] = False
+        vmask[is_alert, 1:] = False
+        values[is_alert, 0] = rng.integers(0, 4, int(is_alert.sum()))
+        aux = np.full((b, AUX_LANES), NULL_ID, np.int32)
+        aux[is_alert, 0] = 0
+        ts = (1000 * k + np.arange(b) // 64).astype(np.int32)
+        batches.append(EventBatch.from_numpy(
+            device, valid=np.ones(b, np.bool_), etype=etype, token_id=token,
+            tenant_id=np.zeros(b, np.int32), ts_ms=ts,
+            received_ms=np.full(b, 1000 * k, np.int32), values=values,
+            vmask=vmask, aux=aux, seq=np.arange(b, dtype=np.int32)))
+        n_garbage += n_bad
+    return batches, n_garbage
+
+
+def phase_slice(device, log, fails, seed: int, n_batches: int,
+                config: dict = SLICE_CONFIG, n_tokens: int = SLICE_TOKENS,
+                model: AnomalyConfig = SLICE_MODEL, profile: bool = False) -> dict:
+    cfg = EngineConfig(**config)
+    eng = Engine(cfg, device=device)
+    for t in range(n_tokens):
+        eng.tokens.intern(f"dev-{t:05d}")
+    eng.alert_types.intern("overheat")
+    batches, n_garbage = slice_batches(seed, n_batches, device, config, n_tokens)
+    svc = AnalyticsService(eng, model, min_fill=cfg.analytics_window, seed=seed)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    wf.window_features.launches = 0            # the main path starts here
+    step_ms = []
+    t_start = time.perf_counter()
+    for batch in batches:
+        t0 = time.perf_counter()
+        eng.ingest_event_batch(batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    ingest_s = time.perf_counter() - t_start
+    summary = eng.flush()
+    score_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        result = svc.score_all()
+        score_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"window_features": wf.window_features.launches}   # ... ends here
+
+    met = eng.metrics()
+    n_rows = n_batches * cfg.batch_capacity
+    filled = eng.state.windows.filled.cpu().numpy()
+    fails.check(met["processed"] == n_rows and
+                met["processed"] == met["found"] + met["missed"],
+                f"slice: processed != found + missed: {met}")
+    fails.check(met["missed"] == n_garbage and met["registered"] == n_tokens,
+                f"slice: expected {n_garbage} dead letters and {n_tokens} "
+                f"registrations: {met}")
+    # every auto-registered device holds exactly one active assignment
+    fails.check(met["persisted"] == met["found"] and summary["persisted"] == met["found"],
+                f"slice: persisted != found x 1 assignment: {met}")
+    fails.check(int(filled.min()) >= cfg.analytics_window,
+                f"slice: an analytics window has only {int(filled.min())} samples")
+    scores = result["scores"]
+    fails.check(scores.shape == (cfg.analytics_devices,)
+                and bool(np.isfinite(scores).all()) and bool(result["valid"].all()),
+                "slice: scores are not finite / not all valid")
+    fails.check(launches["window_features"] > 0,
+                "slice: the scoring path never launched the window_features kernel")
+    rec = {"phase": "slice", "batches": n_batches, "batch_rows": cfg.batch_capacity,
+           "step_ms_median": statistics.median(step_ms),
+           "step_ms_first": step_ms[0],
+           "events_per_s": n_rows / ingest_s,
+           "score_ms_median_8192_windows": statistics.median(score_ms[1:]),
+           "score_ms_first": score_ms[0],
+           "score_mean": float(scores.mean()), "launches": launches,
+           "metrics": met,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 2**30
+                           if device.type == "cuda" else None)}
+    emit(rec, log)
+    if profile:       # after the counts were read: these launches don't count
+        phase_profile(eng, svc, batches[:3], log)
+    return launches
+
+
+def _device_time(prof, n: int = 10) -> tuple[dict, float]:
+    """Top entries by device time: ``kernels`` are the CUDA kernels
+    themselves, ``ops`` the aten ops that launched them (the same time,
+    attributed to its caller). Busy time sums the kernels only."""
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+
+    def top(rows):
+        rows = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)
+        return [{"name": e.key[:80], "calls": e.count,
+                 "device_ms": e.self_device_time_total / 1e3} for e in rows[:n]]
+
+    return {"kernels": top(kernels), "ops": top(ops)}, busy_us / 1e3
+
+
+def phase_profile(eng, svc, batches, log) -> None:
+    """torch.profiler over a few more full-width steps and one scoring
+    call: device time by kernel and the device's busy share of the wall
+    time (the rest is host work and launch gaps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for what, run in (("step", lambda: [eng.ingest_event_batch(b) for b in batches]),
+                      ("score", svc.score_all)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        top, busy_ms = _device_time(prof)
+        n = len(batches) if what == "step" else 1
+        emit({"phase": "profile", "what": what, "calls": n,
+              "wall_ms_per_call": wall_ms / n, "device_ms_per_call": busy_ms / n,
+              "device_busy_share": busy_ms / wall_ms, "top": top}, log)
+    eng.flush()
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "--id=0"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", type=pathlib.Path, default=None,
+                    help="also write every phase record to this JSON file")
+    ap.add_argument("--profile", action="store_true",
+                    help="after the checks, profile a few steps and one scoring call")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False      # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    log: list = []
+    fails = Failures()
+    card = card_line()
+    emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "name": torch.cuda.get_device_name(0), "nvidia_smi": card}, log)
+    phase_build(log, fails)
+    timing = phase_kernel(device, log, fails)
+    phase_entry(device, log, fails)
+    launches = phase_slice(device, log, fails, args.seed, SLICE_BATCHES,
+                           profile=args.profile)
+    kernels = [dict(k, launches=launches[k["name"]], **timing, library_ms=None)
+               for k in KERNELS]
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"phases": log, "kernels": kernels,
+                                        "failures": fails, "card": card}, indent=1))
+    if fails:
+        print("chip_smoke FAILED:\n  " + "\n  ".join(fails), file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

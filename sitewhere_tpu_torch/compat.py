@@ -1,0 +1,66 @@
+"""Device resolution and small tensor helpers shared by the port.
+
+Every entry point of the port takes an explicit ``device``. The default is
+``"cuda"``: a missing GPU raises instead of silently running on the CPU,
+so a measurement can never be taken on the wrong device by accident.
+"""
+
+from __future__ import annotations
+
+import torch
+
+DEFAULT_DEVICE = "cuda"
+
+INT32_MIN = -(2**31)
+INT32_MAX = 2**31 - 1
+
+
+def resolve_device(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
+    """``device`` as a ``torch.device``; raises when CUDA is asked for but
+    no GPU is visible."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def scatter_drop(dst: torch.Tensor, idx: torch.Tensor,
+                 src: torch.Tensor | float | int | bool) -> torch.Tensor:
+    """New tensor = ``dst`` with rows ``idx`` set to ``src`` along dim 0;
+    rows whose index lies outside ``[0, len(dst))`` are dropped — JAX's
+    ``.at[idx].set(src, mode="drop")``. Torch raises (CPU) or writes
+    arbitrary memory (CUDA) on an out-of-bounds index, so the rows are
+    steered into one spare row that is cut off afterwards. In-bounds
+    indices must be unique or carry equal values (duplicate-index writes
+    have no defined winner on CUDA)."""
+    n = dst.shape[0]
+    buf = dst.new_empty((n + 1,) + tuple(dst.shape[1:]))
+    buf[:n] = dst
+    safe = torch.where((idx >= 0) & (idx < n), idx, n).long()
+    if not isinstance(src, torch.Tensor):
+        src = torch.tensor(src, dtype=dst.dtype, device=dst.device)
+    buf.index_put_((safe,), src.to(dst.dtype))
+    return buf[:n]
+
+
+def scatter_reduce_drop(dst: torch.Tensor, idx: torch.Tensor,
+                        src: torch.Tensor, reduce: str) -> torch.Tensor:
+    """``.at[idx].min/max/add(src, mode="drop")`` on a 1-D ``dst``:
+    ``reduce`` is ``"amin"``, ``"amax"`` or ``"sum"``; the existing values
+    take part (``include_self=True``)."""
+    n = dst.shape[0]
+    buf = dst.new_empty((n + 1,))
+    buf[:n] = dst
+    safe = torch.where((idx >= 0) & (idx < n), idx, n).long()
+    buf.scatter_reduce_(0, safe, src.to(dst.dtype), reduce=reduce,
+                        include_self=True)
+    return buf[:n]
+
+
+def gather_fill(src: torch.Tensor, idx: torch.Tensor, fill: int) -> torch.Tensor:
+    """``src.at[idx].get(mode="fill", fill_value=fill)`` on a 1-D ``src``."""
+    n = src.shape[0]
+    ok = (idx >= 0) & (idx < n)
+    return torch.where(ok, src[torch.where(ok, idx, 0).long()], fill)

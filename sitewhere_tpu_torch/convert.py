@@ -1,0 +1,88 @@
+"""Carry weights and state from the JAX package's layouts into the port.
+
+Both functions take plain numpy (or array-like) leaves and import nothing
+of JAX: a caller pulls the JAX objects to the host first
+(``jax.device_get``), so the port and the reference can start from the
+same bytes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from sitewhere_tpu_torch.compat import DEFAULT_DEVICE, resolve_device
+from sitewhere_tpu_torch.core.registry import RegistryTables
+from sitewhere_tpu_torch.core.state import DeviceStateStore
+from sitewhere_tpu_torch.core.store import EventStore
+from sitewhere_tpu_torch.models.windows import TelemetryWindows
+from sitewhere_tpu_torch.pipeline import PipelineMetrics, PipelineState
+
+_AE_LAYERS = ("enc1", "enc2", "latent", "dec1", "dec2", "out")
+_GATES = ("i", "f", "g", "o")
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, dtype=np.float32))
+
+
+def anomaly_params_from_flax(params) -> dict[str, torch.Tensor]:
+    """A flax ``AnomalyModel`` parameter tree (numpy leaves; with or without
+    the outer ``{"params": ...}``) -> the port's ``AnomalyModel``
+    ``state_dict``. Flax ``Dense.kernel`` is [in, out]; ``nn.Linear`` keeps
+    [out, in]. The LSTM cell's per-gate kernels ``ii/if/ig/io`` (no bias)
+    and ``hi/hf/hg/ho`` (with bias) stack in gate order i, f, g, o."""
+    p = params.get("params", params)
+    out: dict[str, torch.Tensor] = {}
+    for name in _AE_LAYERS:
+        layer = p["ae"][name]
+        out[f"ae.{name}.weight"] = _f32(layer["kernel"]).t().contiguous()
+        out[f"ae.{name}.bias"] = _f32(layer["bias"])
+    lstm = p["lstm"]
+    cells = [k for k in lstm if k != "readout"]
+    if len(cells) != 1:
+        raise ValueError(f"expected one LSTM cell in the flax tree, got {cells}")
+    cell = lstm[cells[0]]
+    out["lstm.w_ih"] = torch.cat(
+        [_f32(cell[f"i{g}"]["kernel"]).t() for g in _GATES]).contiguous()
+    out["lstm.w_hh"] = torch.cat(
+        [_f32(cell[f"h{g}"]["kernel"]).t() for g in _GATES]).contiguous()
+    out["lstm.b_hh"] = torch.cat([_f32(cell[f"h{g}"]["bias"]) for g in _GATES])
+    out["lstm.readout.weight"] = _f32(lstm["readout"]["kernel"]).t().contiguous()
+    out["lstm.readout.bias"] = _f32(lstm["readout"]["bias"])
+    return out
+
+
+def _tensor(x, dev: torch.device) -> torch.Tensor:
+    # torch.tensor copies, so the port never aliases the caller's arrays
+    return torch.tensor(np.asarray(x)).to(dev)
+
+
+def _dataclass_from(cls, tree, dev: torch.device):
+    return cls(**{f.name: _tensor(getattr(tree, f.name), dev)
+                  for f in dataclasses.fields(cls)})
+
+
+def pipeline_state_from_numpy(tree, device: str | torch.device = DEFAULT_DEVICE
+                              ) -> PipelineState:
+    """A JAX ``PipelineState`` pulled to the host (numpy leaves, read by
+    attribute name) -> the port's ``PipelineState`` on ``device``. Only the
+    fields the port has are read; the JAX state's geofence zones and rules
+    tier must be absent (None)."""
+    dev = resolve_device(device)
+    for extra in ("zones", "rules"):
+        if getattr(tree, extra, None) is not None:
+            raise ValueError(f"the port has no {extra!r} state yet")
+    windows = getattr(tree, "windows", None)
+    return PipelineState(
+        registry=_dataclass_from(RegistryTables, tree.registry, dev),
+        device_state=_dataclass_from(DeviceStateStore, tree.device_state, dev),
+        store=_dataclass_from(EventStore, tree.store, dev),
+        next_device=_tensor(tree.next_device, dev),
+        next_assignment=_tensor(tree.next_assignment, dev),
+        metrics=_dataclass_from(PipelineMetrics, tree.metrics, dev),
+        windows=(_dataclass_from(TelemetryWindows, windows, dev)
+                 if windows is not None else None),
+    )

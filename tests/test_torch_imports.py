@@ -1,0 +1,100 @@
+"""Import hygiene of the port: ``sitewhere_tpu_torch`` and ``chip_smoke.py``
+import in a subprocess where importing ``jax``, ``flax``, ``optax`` or
+anything of ``sitewhere_tpu`` RAISES — the port runs on machines that have
+none of them. Only the parity tests import both packages."""
+
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+_DRIVER = r"""
+import importlib
+import importlib.util
+import pkgutil
+import sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sitewhere_tpu")
+
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"BLOCKED: the port tried to import {name!r}")
+        return None
+
+sys.meta_path.insert(0, _Blocker())
+
+import sitewhere_tpu_torch
+
+names = ["sitewhere_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(sitewhere_tpu_torch.__path__,
+                                          "sitewhere_tpu_torch.")]
+failures = []
+for name in names:
+    try:
+        importlib.import_module(name)
+    except BaseException as e:
+        failures.append(f"{name}: {type(e).__name__}: {e}")
+try:
+    spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+except BaseException as e:
+    failures.append(f"chip_smoke.py: {type(e).__name__}: {e}")
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+if leaked:
+    failures.append(f"blocked modules present: {leaked}")
+print(len(names))
+print("\n".join(failures))
+sys.exit(1 if failures else 0)
+"""
+
+
+def test_port_and_chip_smoke_import_with_jax_blocked():
+    res = subprocess.run(
+        [sys.executable, "-c", _DRIVER, str(REPO / "chip_smoke.py")],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, (
+        f"the port grew a JAX import:\n{res.stdout}\n{res.stderr}")
+    assert int(res.stdout.split()[0]) >= 20     # every module was walked
+
+
+def test_entry_points_raise_without_a_gpu():
+    """Called with no ``device``, an entry point asks for CUDA and raises on
+    a machine without one, instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from sitewhere_tpu_torch.core.events import EventBatch, HostEventBuffer
+    from sitewhere_tpu_torch.engine import Engine, EngineConfig
+    from sitewhere_tpu_torch.models.anomaly import AnomalyConfig, AnomalyModel
+    from sitewhere_tpu_torch.pipeline import PipelineState
+
+    calls = [
+        lambda: Engine(EngineConfig(device_capacity=8, token_capacity=8,
+                                    assignment_capacity=8, store_capacity=64,
+                                    batch_capacity=8)),
+        lambda: PipelineState.create(8, 8, 8, 64),
+        lambda: EventBatch.zeros(4),
+        lambda: HostEventBuffer(4).emit(),
+        lambda: AnomalyModel(AnomalyConfig(sensors=2, window=4, hidden=8,
+                                           lstm_hidden=8, latent=2)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu():
+    """``python3 chip_smoke.py`` exits non-zero and prints no result line
+    when there is no card."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    res = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
