@@ -7,10 +7,13 @@ Phases, each printed as one JSON line:
 
 1. build   — compiles every CUDA kernel of the port from ``csrc/`` with
              nvcc (all sources at once) and loads it.
-2. kernel  — holds each kernel against its plain PyTorch version on the
-             card at the main path's shapes and edge shapes, and times
-             kernel, plain version and the least time the card could take
-             (``bound_ms``, from the H100 SXM's published peaks).
+2. kernel  — one record per kernel: holds it against its plain PyTorch
+             version on the card at its main path's shapes and edge
+             shapes, and times kernel, plain version, the one PyTorch call
+             that computes the same function where there is one
+             (``library_ms``; a yardstick only, the port never calls it)
+             and the least time the card could take (``bound_ms``, from
+             the H100 SXM's published peaks).
 3. entry   — the Quickstart surface: ``Engine(..., device="cuda")``,
              ``register_device``, ``process()`` of measurement, location
              and alert requests, ``flush()``, ``get_device_state``; then the
@@ -23,6 +26,14 @@ Phases, each printed as one JSON line:
              ``AnalyticsService.score_all`` over all 8192 windows
              (window_features kernel -> normalization -> AnomalyModel, bf16).
              Kernel launch counts are reset just before and read just after.
+5. transformer — the long-window scorer at the repo's full width
+             (``TransformerConfig()``: 100 sensors, d_model 256, 8 heads,
+             4 layers, mlp 1024, bf16): ``forecast_scores`` on 8 windows of
+             16384 timesteps, seeded weights and data; every layer's
+             attention is the flash_attention kernel (launch count reset
+             just before the timed calls, read just after: layers x calls).
+             The first window's score is checked against the same model
+             with the plain attention on the card.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and as the last line
@@ -34,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import pathlib
 import statistics
@@ -43,6 +55,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sitewhere_tpu_torch import cuda_build
 from sitewhere_tpu_torch.core.events import EpochBase, EventBatch
@@ -51,14 +64,28 @@ from sitewhere_tpu_torch.engine import Engine, EngineConfig
 from sitewhere_tpu_torch.ingest.requests import DecodedRequest, RequestType
 from sitewhere_tpu_torch.models.anomaly import AnomalyConfig
 from sitewhere_tpu_torch.models.service import AnalyticsService
+from sitewhere_tpu_torch.models.transformer import (TelemetryTransformer,
+                                                    TransformerConfig,
+                                                    forecast_scores)
+from sitewhere_tpu_torch.ops import attention as fa
 from sitewhere_tpu_torch.ops import window_features as wf
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
-# FP32 (non-tensor-core) operations/s
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, FP32
+# (non-tensor-core) and bf16 tensor-core operations/s; exponentials/s are
+# 16 per SM per clock (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock
+# that the FP32 peak implies (67e12 = 132 x 128 x 2 x 1.98e9)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
+PEAK_EXP_PER_S = 132 * 16 * 1.98e9
 KERNEL_TOL = 1e-4          # rtol = atol, kernel vs plain version, float32
 SCORE_TOL = 1e-4           # rtol, CUDA engine vs CPU engine scores, float32
+# flash_attention vs its plain version: float32 computes the same float32
+# math in another order; bf16 outputs may land one bf16 ulp apart (8e-3
+# is one ulp at 1.0)
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+TF_SCORE_RTOL = 1e-2       # kernel path vs plain path scores, bf16 model
 
 # the headline engine sizes of bench.py plus BASELINE config #4's model
 # width (100-sensor windows of 128 steps)
@@ -72,7 +99,17 @@ SLICE_MODEL = AnomalyConfig(sensors=100, window=128, hidden=256, lstm_hidden=256
 
 KERNELS = [dict(name="window_features", route="cuda",
                 source="sitewhere_tpu_torch/csrc/window_features.cu",
-                replaces="sitewhere_tpu/ops/window_features.py:40")]
+                replaces="sitewhere_tpu/ops/window_features.py:40"),
+           dict(name="flash_attention", route="cuda",
+                source="sitewhere_tpu_torch/csrc/flash_attention.cu",
+                replaces="sitewhere_tpu/ops/attention.py:66")]
+
+# the transformer phase: the repo's TransformerConfig() at full width on 8
+# windows of 16384 timesteps (its attention is [8, 16384, 8, 32] bf16)
+TF_CONFIG = TransformerConfig()
+TF_WINDOWS, TF_STEPS = 8, 16384
+TF_CALLS = 3
+FLASH_MID_STEPS = 4096     # where the plain version fits whole (4.3 GB scores)
 
 
 class Failures(list):
@@ -125,6 +162,35 @@ def window_features_bound_ms(m: int, w: int, c: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def flash_floors_ms(b: int, s: int, h: int, d: int, causal: bool,
+                    dtype: torch.dtype) -> dict:
+    """The three floors of attention on [B, S, H, D], in ms: bytes (q, k, v
+    read once, the output written once), products (4·D operations per live
+    (query, key) pair at the type's peak: bf16 on the tensor cores, float32
+    on the CUDA cores) and exponentials (one per live pair). The bound is
+    the largest."""
+    item = torch.finfo(dtype).bits // 8
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    return {"bytes": 4 * b * s * h * d * item / PEAK_BYTES_PER_S * 1e3,
+            "products": 4 * d * pairs / peak * 1e3,
+            "exponentials": pairs / PEAK_EXP_PER_S * 1e3}
+
+
+def fused_qkv(b: int, s: int, h: int, d: int, dtype, device, gen):
+    """q, k, v as the transformer hands them to the attention: the three
+    strided views of one [B, S, 3, H, D] tensor."""
+    qkv = torch.randn((b, s, 3, h, d), device=device, generator=gen).to(dtype)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+def plain_per_window(q, k, v, causal: bool) -> torch.Tensor:
+    """The plain version one window at a time: at S=16384 its whole-batch
+    [8, 8, S, S] float32 scores would need 69 GB."""
+    return torch.cat([fa.mha_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                       causal=causal) for i in range(q.shape[0])])
+
+
 # ------------------------------------------------------------------ phases
 def phase_build(log, fails) -> None:
     t0 = time.perf_counter()
@@ -138,7 +204,7 @@ def phase_build(log, fails) -> None:
                       for name, v in info.items()}}, log)
 
 
-def phase_kernel(device, log, fails, shape=(8192, 128, 100)) -> dict:
+def phase_kernel_window_features(device, log, fails, shape=(8192, 128, 100)) -> dict:
     gen = torch.Generator(device=device).manual_seed(0)
     m, w, c = shape
     cases = {
@@ -165,10 +231,77 @@ def phase_kernel(device, log, fails, shape=(8192, 128, 100)) -> dict:
     bound_ms, bound_by = window_features_bound_ms(*x.shape)
     rec = {"phase": "kernel", "name": "window_features", "shape": list(x.shape),
            "tol": KERNEL_TOL, "max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     emit(rec, log)
+    # no single PyTorch call computes the six features
     return dict(max_abs_err=errs["main"], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase_kernel_flash(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 8, 32),
+                       mid_steps: int = FLASH_MID_STEPS, reps: int = 10) -> dict:
+    """flash_attention against mha_reference: at the transformer's shape
+    (strided views of one fused qkv tensor, bf16, causal; the plain version
+    one window at a time), at [8, 4096, 8, 32] causal and not, at S=1, at a
+    ragged S, and at D=64 and D=16 in float32. Times kernel, plain version
+    and SDPA (the library yardstick) at the main shape and at S=4096."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    b, s, h, d = main
+    bf16, f32 = torch.bfloat16, torch.float32
+    inputs = {
+        "main": (fused_qkv(b, s, h, d, bf16, device, gen), True),
+        f"s{mid_steps}_causal": (fused_qkv(b, mid_steps, h, d, bf16, device, gen), True),
+        f"s{mid_steps}_full": (fused_qkv(b, mid_steps, h, d, bf16, device, gen), False),
+        "s1": (fused_qkv(2, 1, h, d, bf16, device, gen), True),
+        "ragged_s1000": (fused_qkv(2, 1000, h, d, bf16, device, gen), True),
+        "ragged_s1000_full_f32": (fused_qkv(2, 1000, h, d, f32, device, gen), False),
+        "d64_f32": (fused_qkv(2, 777, 4, 64, f32, device, gen), True),
+        "d16_f32": (fused_qkv(2, 300, 2, 16, f32, device, gen), False),
+    }
+    errs = {}
+    for name, ((q, k, v), causal) in inputs.items():
+        got = fa.flash_attention(q, k, v, causal=causal)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ref = plain_per_window(q, k, v, causal)
+        errs[name] = (got.float() - ref.float()).abs().max().item()
+        tol = FLASH_TOL[q.dtype]
+        fails.check(got.shape == ref.shape and got.dtype == ref.dtype
+                    and torch.allclose(got.float(), ref.float(), rtol=tol, atol=tol)
+                    and bool(torch.isfinite(got).all()),
+                    f"flash_attention disagrees with its plain version on {name} "
+                    f"{tuple(q.shape)} {q.dtype} causal={causal}: max abs err {errs[name]}")
+        del got, ref
+
+    timings = {}
+    for name in ("main", f"s{mid_steps}_causal"):
+        (q, k, v), causal = inputs[name]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # [B, H, S, D]
+        t = {"ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                           device, reps=reps, warmup=2),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=causal), device, reps=reps, warmup=2)}
+        if name == "main":
+            t["plain_ms"] = time_ms(lambda: plain_per_window(q, k, v, causal),
+                                    device, reps=3, warmup=1)
+        else:
+            t["plain_ms"] = time_ms(lambda: fa.mha_reference(q, k, v, causal=causal),
+                                    device, reps=reps, warmup=2)
+        floors = flash_floors_ms(*q.shape, causal, q.dtype)
+        binding = max(floors, key=floors.get)
+        t.update(shape=list(q.shape), floors_ms=floors, binding_floor=binding,
+                 bound_ms=floors[binding],
+                 bound_by="bytes" if binding == "bytes" else "operations")
+        timings[name] = t
+    rec = {"phase": "kernel", "name": "flash_attention", "tol": {
+               str(k): v for k, v in FLASH_TOL.items()},
+           "max_abs_err": errs, "timings": timings,
+           "plain_main_note": "mha_reference one window at a time"}
+    emit(rec, log)
+    t = timings["main"]
+    return dict(max_abs_err=errs["main"], ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                library_ms=t["library_ms"])
 
 
 def _entry_requests(rng) -> list[DecodedRequest]:
@@ -438,6 +571,92 @@ def phase_profile(eng, svc, batches, log) -> None:
     eng.flush()
 
 
+def phase_transformer(device, log, fails, seed: int, cfg: TransformerConfig = TF_CONFIG,
+                      windows: int = TF_WINDOWS, steps: int = TF_STEPS,
+                      calls: int = TF_CALLS, profile: bool = False) -> dict:
+    model = TelemetryTransformer(cfg, device=device,
+                                 generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((windows, steps, cfg.sensors), device=device, generator=gen)
+    forecast_scores(model, x)                      # warm-up
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    fa.flash_attention.launches = 0                # this path starts here
+    call_ms = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        scores = forecast_scores(model, x)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"flash_attention": fa.flash_attention.launches}   # ... ends here
+    peak_gb = (torch.cuda.max_memory_allocated() / 2**30
+               if device.type == "cuda" else None)
+
+    fails.check(scores.shape == (windows,) and scores.dtype == torch.float32
+                and bool(torch.isfinite(scores).all()),
+                f"transformer: scores not finite / of shape ({windows},): {scores}")
+    fails.check(launches["flash_attention"] == cfg.layers * calls,
+                f"transformer: {launches['flash_attention']} flash_attention launches "
+                f"in {calls} calls of a {cfg.layers}-layer model")
+    # the same model with the plain attention on the first window
+    plain = forecast_scores(model, x[:1], attention_fn=functools.partial(
+        fa.mha_reference, causal=True))
+    rel_err = abs(scores[0].item() - plain[0].item()) / abs(plain[0].item())
+    fails.check(rel_err <= TF_SCORE_RTOL,
+                f"transformer: kernel path score {scores[0].item()} vs plain path "
+                f"{plain[0].item()} (rel err {rel_err})")
+    med = statistics.median(call_ms)
+    emit({"phase": "transformer", "config": dataclasses.asdict(cfg) | {"dtype": str(cfg.dtype)},
+          "windows": windows, "steps": steps, "calls": calls,
+          "ms_per_call_median": med, "ms_per_call": call_ms,
+          "windows_per_s": windows / med * 1e3, "timesteps_per_s": windows * steps / med * 1e3,
+          "peak_mem_gb": peak_gb, "launches": launches,
+          "score_first_window": scores[0].item(), "plain_score_first_window": plain[0].item(),
+          "score_rel_err_vs_plain": rel_err, "score_rtol": TF_SCORE_RTOL,
+          "score_mean": scores.mean().item()}, log)
+    if profile:       # after the counts were read: these launches don't count
+        phase_profile_transformer(model, x, log)
+    return launches
+
+
+def _kernel_family(name: str) -> str:
+    n = name.lower()
+    if "flash_attention" in n:
+        return "attention"
+    if any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
+        return "gemm"
+    if "layer_norm" in n or "gelu" in n:
+        return "layernorm_gelu"
+    return "other"
+
+
+def phase_profile_transformer(model, x, log) -> None:
+    """torch.profiler over one forecast_scores call: device time by kernel
+    family (the attention kernel, GEMMs, LayerNorm / gelu, the rest) and
+    the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        forecast_scores(model, x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    top, busy_ms = _device_time(prof)
+    families: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            fam = _kernel_family(e.key)
+            families[fam] = families.get(fam, 0.0) + e.self_device_time_total / 1e3
+    emit({"phase": "profile", "what": "forecast_scores", "calls": 1,
+          "wall_ms_per_call": wall_ms, "device_ms_per_call": busy_ms,
+          "device_busy_share": busy_ms / wall_ms, "device_ms_by_family": families,
+          "top": top}, log)
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "--id=0"],
@@ -464,14 +683,20 @@ def main(argv=None) -> int:
     log: list = []
     fails = Failures()
     card = card_line()
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+                             "--format=csv,noheader", "--id=0"],
+                            capture_output=True, text=True, timeout=60).stdout.strip()
     emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
-          "name": torch.cuda.get_device_name(0), "nvidia_smi": card}, log)
+          "name": torch.cuda.get_device_name(0), "nvidia_smi": card,
+          "sm_clock_max_and_now": clocks}, log)
     phase_build(log, fails)
-    timing = phase_kernel(device, log, fails)
+    timing = {"window_features": phase_kernel_window_features(device, log, fails),
+              "flash_attention": phase_kernel_flash(device, log, fails)}
     phase_entry(device, log, fails)
     launches = phase_slice(device, log, fails, args.seed, SLICE_BATCHES,
                            profile=args.profile)
-    kernels = [dict(k, launches=launches[k["name"]], **timing, library_ms=None)
+    launches |= phase_transformer(device, log, fails, args.seed, profile=args.profile)
+    kernels = [dict(k, launches=launches[k["name"]], **timing[k["name"]])
                for k in KERNELS]
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

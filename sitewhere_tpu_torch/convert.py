@@ -1,6 +1,6 @@
 """Carry weights and state from the JAX package's layouts into the port.
 
-Both functions take plain numpy (or array-like) leaves and import nothing
+Every function takes plain numpy (or array-like) leaves and import nothing
 of JAX: a caller pulls the JAX objects to the host first
 (``jax.device_get``), so the port and the reference can start from the
 same bytes.
@@ -52,6 +52,32 @@ def anomaly_params_from_flax(params) -> dict[str, torch.Tensor]:
     out["lstm.b_hh"] = torch.cat([_f32(cell[f"h{g}"]["bias"]) for g in _GATES])
     out["lstm.readout.weight"] = _f32(lstm["readout"]["kernel"]).t().contiguous()
     out["lstm.readout.bias"] = _f32(lstm["readout"]["bias"])
+    return out
+
+
+def transformer_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """The JAX transformer's parameter tree (``init_params``; numpy leaves)
+    -> the port's ``TelemetryTransformer`` ``state_dict``. A JAX dense
+    ``w`` is [in, out]; ``nn.Linear.weight`` keeps [out, in]. LayerNorm
+    ``g`` / ``b`` become ``weight`` / ``bias``."""
+    out: dict[str, torch.Tensor] = {}
+
+    def dense(prefix: str, p) -> None:
+        out[f"{prefix}.weight"] = _f32(p["w"]).t().contiguous()
+        out[f"{prefix}.bias"] = _f32(p["b"])
+
+    def norm(prefix: str, p) -> None:
+        out[f"{prefix}.weight"] = _f32(p["g"])
+        out[f"{prefix}.bias"] = _f32(p["b"])
+
+    dense("embed", params["embed"])
+    dense("readout", params["readout"])
+    norm("ln_f", params["ln_f"])
+    for i, blk in enumerate(params["blocks"]):
+        for name in ("ln1", "ln2"):
+            norm(f"blocks.{i}.{name}", blk[name])
+        for name in ("qkv", "proj", "mlp_in", "mlp_out"):
+            dense(f"blocks.{i}.{name}", blk[name])
     return out
 
 

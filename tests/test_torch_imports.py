@@ -72,6 +72,8 @@ def test_entry_points_raise_without_a_gpu():
     from sitewhere_tpu_torch.core.events import EventBatch, HostEventBuffer
     from sitewhere_tpu_torch.engine import Engine, EngineConfig
     from sitewhere_tpu_torch.models.anomaly import AnomalyConfig, AnomalyModel
+    from sitewhere_tpu_torch.models.transformer import (TelemetryTransformer,
+                                                        TransformerConfig)
     from sitewhere_tpu_torch.pipeline import PipelineState
 
     calls = [
@@ -83,6 +85,8 @@ def test_entry_points_raise_without_a_gpu():
         lambda: HostEventBuffer(4).emit(),
         lambda: AnomalyModel(AnomalyConfig(sensors=2, window=4, hidden=8,
                                            lstm_hidden=8, latent=2)),
+        lambda: TelemetryTransformer(TransformerConfig(sensors=2, d_model=16,
+                                                       heads=1, layers=1, mlp=8)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
