@@ -83,7 +83,7 @@ KERNEL_TOL = 1e-4          # rtol = atol, kernel vs plain version, float32
 SCORE_TOL = 1e-4           # rtol, CUDA engine vs CPU engine scores, float32
 # flash_attention vs its plain version: float32 computes the same float32
 # math in another order; bf16 outputs may land one bf16 ulp apart (8e-3
-# is one ulp at 1.0)
+# is one ulp at 1.0), P entering the P·V product rounded to bf16 included
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 TF_SCORE_RTOL = 1e-2       # kernel path vs plain path scores, bf16 model
 
@@ -184,11 +184,12 @@ def fused_qkv(b: int, s: int, h: int, d: int, dtype, device, gen):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
-def plain_per_window(q, k, v, causal: bool) -> torch.Tensor:
+def plain_per_window(q, k, v, causal: bool, sm_scale: float | None = None) -> torch.Tensor:
     """The plain version one window at a time: at S=16384 its whole-batch
     [8, 8, S, S] float32 scores would need 69 GB."""
     return torch.cat([fa.mha_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1],
-                                       causal=causal) for i in range(q.shape[0])])
+                                       causal=causal, sm_scale=sm_scale)
+                      for i in range(q.shape[0])])
 
 
 # ------------------------------------------------------------------ phases
@@ -199,20 +200,28 @@ def phase_build(log, fails) -> None:
         cuda_build.load(k["name"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {"nvcc_s": v["seconds"],
-                             "ptxas": [ln for ln in v["ptxas"].splitlines()
-                                       if "registers" in ln or "spill" in ln]}
+                             "ptxas": [ln.strip() for ln in v["ptxas"].splitlines()
+                                       if "entry function" in ln or "registers" in ln
+                                       or "spill" in ln]}
                       for name, v in info.items()}}, log)
 
 
 def phase_kernel_window_features(device, log, fails, shape=(8192, 128, 100)) -> dict:
+    """window_features against its plain version: the scoring path's shape,
+    a ragged M, C = 8 and a large-offset ramp on the float4 path (C % 4 ==
+    0); C = 30 and a pointer 4 bytes past a 16-byte boundary on the scalar
+    path."""
     gen = torch.Generator(device=device).manual_seed(0)
     m, w, c = shape
+    flat = torch.randn(512 * w * c + 1, device=device, generator=gen)
     cases = {
         "main": torch.randn(shape, device=device, generator=gen),
         "ragged_m": torch.randn((1237, w, c), device=device, generator=gen),
         "c8": torch.randn((max(m // 2, 1), w, 8), device=device, generator=gen),
         "offset": (1e3 * torch.arange(1, w + 1, device=device)[None, :, None]
                    + torch.randn((512, w, c), device=device, generator=gen)),
+        "c30_scalar": torch.randn((max(m // 4, 1), w, 30), device=device, generator=gen),
+        "misaligned_scalar": flat[1:].view(512, w, c),
     }
     errs = {}
     for name, x in cases.items():
@@ -243,11 +252,20 @@ def phase_kernel_flash(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 8, 32),
     """flash_attention against mha_reference: at the transformer's shape
     (strided views of one fused qkv tensor, bf16, causal; the plain version
     one window at a time), at [8, 4096, 8, 32] causal and not, at S=1, at a
-    ragged S, and at D=64 and D=16 in float32. Times kernel, plain version
-    and SDPA (the library yardstick) at the main shape and at S=4096."""
+    ragged S, at the bf16 kernel's tile edges (S = 63, 64, 65, 129, causal
+    and not), at D=16 and D=64 in bf16 and in float32, on contiguous
+    [B, S, H, D] inputs, and with a zero and a negative ``sm_scale`` (bf16,
+    ragged S, causal and not). Times kernel, plain version and SDPA (the
+    library yardstick) at the main shape and at S=4096."""
     gen = torch.Generator(device=device).manual_seed(1)
     b, s, h, d = main
     bf16, f32 = torch.bfloat16, torch.float32
+    edges = {f"s{n}_{'causal' if causal else 'full'}":
+             (fused_qkv(2, n, h, d, bf16, device, gen), causal)
+             for n in (63, 64, 65, 129) for causal in (True, False)}
+    contiguous = {f"contiguous_{'causal' if causal else 'full'}":
+                  (tuple(t.contiguous() for t in fused_qkv(2, 1000, h, d, bf16, device, gen)),
+                   causal) for causal in (True, False)}
     inputs = {
         "main": (fused_qkv(b, s, h, d, bf16, device, gen), True),
         f"s{mid_steps}_causal": (fused_qkv(b, mid_steps, h, d, bf16, device, gen), True),
@@ -257,13 +275,22 @@ def phase_kernel_flash(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 8, 32),
         "ragged_s1000_full_f32": (fused_qkv(2, 1000, h, d, f32, device, gen), False),
         "d64_f32": (fused_qkv(2, 777, 4, 64, f32, device, gen), True),
         "d16_f32": (fused_qkv(2, 300, 2, 16, f32, device, gen), False),
+        "d64_bf16": (fused_qkv(2, 777, 4, 64, bf16, device, gen), True),
+        "d64_bf16_full": (fused_qkv(2, 777, 4, 64, bf16, device, gen), False),
+        "d16_bf16": (fused_qkv(2, 300, 2, 16, bf16, device, gen), True),
+        "d16_bf16_full": (fused_qkv(2, 300, 2, 16, bf16, device, gen), False),
+        **edges, **contiguous,
     }
+    scaled = {f"scale{scale:g}_{'causal' if causal else 'full'}":
+              (fused_qkv(2, 333, h, d, bf16, device, gen), causal, scale)
+              for scale in (0.0, -0.3) for causal in (True, False)}
     errs = {}
-    for name, ((q, k, v), causal) in inputs.items():
-        got = fa.flash_attention(q, k, v, causal=causal)
+    for name, ((q, k, v), causal, scale) in ({n: (*c, None) for n, c in inputs.items()}
+                                             | scaled).items():
+        got = fa.flash_attention(q, k, v, causal=causal, sm_scale=scale)
         if device.type == "cuda":
             torch.cuda.synchronize()
-        ref = plain_per_window(q, k, v, causal)
+        ref = plain_per_window(q, k, v, causal, scale)
         errs[name] = (got.float() - ref.float()).abs().max().item()
         tol = FLASH_TOL[q.dtype]
         fails.check(got.shape == ref.shape and got.dtype == ref.dtype
@@ -695,7 +722,8 @@ def main(argv=None) -> int:
     phase_entry(device, log, fails)
     launches = phase_slice(device, log, fails, args.seed, SLICE_BATCHES,
                            profile=args.profile)
-    launches |= phase_transformer(device, log, fails, args.seed, profile=args.profile)
+    launches = launches | phase_transformer(device, log, fails, args.seed,
+                                            profile=args.profile)
     kernels = [dict(k, launches=launches[k["name"]], **timing[k["name"]])
                for k in KERNELS]
     if args.out is not None:

@@ -7,19 +7,30 @@ never materialised on the kernel path.
 
 Layout: q, k, v and the output are [B, S, H, D], the JAX package's layout.
 
-Kernel: ``csrc/flash_attention.cu``, a hand-written CUDA kernel for
-``sm_90a`` that replaces the TPU kernel
-``sitewhere_tpu/ops/attention.py:_flash_kernel``.
-  * Bound: operations. At the transformer's shape ([8, 16384, 8, 32] bf16,
-    causal) it moves 268 MB but does 8.6e9 exponentials and 1.1e12
-    float operations.
-  * Design: one block per (batch, head, 128 query rows), one thread per
-    query row with its running max, normaliser and accumulator in
-    registers; K/V tiles of 32 keys staged in shared memory as float32.
-    It reads q, k and v in place through their (batch, row, head) strides,
-    so the strided views of one fused qkv product need no copies; it
-    writes a contiguous [B, S, H, D] output. Any S; head dims 16, 32, 64;
-    float32 or bfloat16, math in float32.
+Kernel: ``csrc/flash_attention.cu``, hand-written CUDA for ``sm_90a`` that
+replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
+  * Bound: operations, the exponentials. At the transformer's shape
+    ([8, 16384, 8, 32] bf16, causal) it moves 268 MB (0.08 ms) but does
+    8.6e9 exponentials (2.05 ms at 16 per SM per clock) and 1.1e12
+    product operations (1.1 ms on the bf16 tensor cores).
+  * bfloat16 design (the transformer's path): FA2 on the tensor cores. A
+    block of 4 warps owns (batch, head, 128 query rows), 32 a warp as two
+    m16 tiles that share each K/V fragment, Q held in registers as
+    ``mma.sync`` m16n8k16 A fragments; K/V tiles of 64 keys
+    come through a ``cp.async`` ring in padded shared memory and reach the
+    tensor cores through ``ldmatrix``. The float32 scores are scaled inside
+    the ``exp2`` argument, the running max and sum live in registers, and
+    P, rounded to bf16, is the A operand of the P·V product without a
+    trip through shared memory. The products leave the CUDA cores; what
+    is left there is the softmax around one exponential per pair.
+  * float32 design: one thread per query row with float32 products on the
+    CUDA cores (tensor cores would mean TF32, too coarse for the float32
+    tolerance); not on the transformer's path.
+  * Both read q, k and v in place through their (batch, row, head)
+    strides, so the strided views of one fused qkv product need no copies,
+    and write a contiguous [B, S, H, D] output. Any S; head dims 16, 32,
+    64. bf16 needs 16-byte aligned base pointers and strides that are a
+    multiple of 8 elements (the ``cp.async`` copies are 16 bytes).
 The wrapper runs the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel or raises.
 """
@@ -66,7 +77,9 @@ def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     (``TypeError`` / ``ValueError``) on what the kernel does not take:
     another dtype than float32 / bfloat16, mixed dtypes or devices, a rank
     other than 4, unequal shapes, a non-unit stride on D, a head dim
-    outside ``HEAD_DIMS``."""
+    outside ``HEAD_DIMS``; for bfloat16 also a base pointer that is not
+    16-byte aligned or a (batch, row, head) stride that is not a multiple
+    of 8 elements."""
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention kernel takes float32 or bfloat16 "
                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -81,6 +94,10 @@ def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes unit stride on D")
     strides = [st for t in (q, k, v) for st in t.stride()[:3]]
+    if q.dtype == torch.bfloat16 and (any(t.data_ptr() % 16 for t in (q, k, v))
+                                      or any(st % 8 for st in strides)):
+        raise ValueError("flash_attention bf16 kernel takes 16-byte aligned q, k, v "
+                         "with strides that are multiples of 8 elements")
     return (b, s, h, d, int(q.dtype == torch.bfloat16), *strides)
 
 

@@ -13,13 +13,17 @@ Kernel: ``csrc/window_features.cu``, a hand-written CUDA kernel for
 ``sitewhere_tpu/ops/window_features.py:_features_kernel``.
   * Bound: bytes. It reads M*W*C*4 bytes once and writes M*C*24 (at
     M=8192, W=128, C=100: 419 MB read, ~0.125 ms at 3.35 TB/s).
-  * Design: one thread per (device, channel) walks the window in the
-    [M, W, C] layout as it lies (no transpose: the TPU kernel's
-    [M, C, W] layout is a lane-width artifact and would cost one more full
-    copy here); a warp's loads are contiguous runs of channels. The std is
-    Welford's single-pass recurrence in registers — stable on windows
-    with a large offset and small spread, where the TPU kernel's
-    E[x^2] - mean^2 cancels.
+  * Design: it reads the [M, W, C] layout as it lies (no transpose: the
+    TPU kernel's [M, C, W] layout is a lane-width artifact and would cost
+    one more full copy here) and keeps many bytes in flight. A thread owns
+    4 neighbouring channels, read as one 16-byte ``float4`` (C % 4 == 0,
+    as C = 100 on the scoring path; any other C takes a scalar path, one
+    channel a thread), and 8 threads split each window's W timesteps into
+    segments, each with 8 loads in flight. The std is Welford's
+    single-pass recurrence in registers (a multiply by a reciprocal, no
+    division in the chain), the segments merged with Chan's parallel
+    formula through warp shuffles — stable on windows with a large offset
+    and small spread, where the TPU kernel's E[x^2] - mean^2 cancels.
 The wrapper runs the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel or raises.
 """
