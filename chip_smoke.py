@@ -14,11 +14,15 @@ Phases, each printed as one JSON line:
              (``library_ms``; a yardstick only, the port never calls it)
              and the least time the card could take (``bound_ms``, from
              the H100 SXM's published peaks).
-3. entry   — the Quickstart surface: ``Engine(..., device="cuda")``,
+3. entry   — the Quickstart surface: ``Engine(..., device="cuda")`` with
+             geofence zones and a rule set (every rule kind) installed,
              ``register_device``, ``process()`` of measurement, location
-             and alert requests, ``flush()``, ``get_device_state``; then the
-             same request stream through a CPU engine, whose state must be
-             identical, and scores of both within float32 tolerance.
+             and alert requests, ``flush()``, ``get_device_state``,
+             ``ingest_json_batch``, ``RulesManager.poll``,
+             ``query_events``, ``get_event``, ``presence_sweep`` and the
+             counters; the same stream through a CPU engine, whose state
+             and answers must be identical, and scores of both within
+             float32 tolerance.
 4. slice   — the main path at full width: the headline engine sizes, 80
              batches of 16384 events (10,000 auto-registered tokens, 8192
              analytics devices with 128-step windows of 100 channels)
@@ -34,6 +38,16 @@ Phases, each printed as one JSON line:
              just before the timed calls, read just after: layers x calls).
              The first window's score is checked against the same model
              with the plain attention on the card.
+6. read    — the read side and the whole fused step at the slice's width:
+             64 geofence zones of 16 vertices and the bench's CEP rule set
+             installed, 24 slice batches (channel 0 rewritten by the bench's
+             rules formula; one device falls silent halfway) through
+             ``ingest_event_batch``; the bench's 16-query mix at limit 64 as
+             one ``query_store_batch`` and as 16 ``query_store`` calls
+             (identical), ``query_events``, ``get_event``,
+             ``presence_sweep``, ``RulesManager.poll``; every page, the
+             harvest and the sweep rerun on a CPU copy of the state, and a
+             CPU engine fed the first 4 batches, byte for byte.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and as the last line
@@ -69,6 +83,11 @@ from sitewhere_tpu_torch.models.transformer import (TelemetryTransformer,
                                                     forecast_scores)
 from sitewhere_tpu_torch.ops import attention as fa
 from sitewhere_tpu_torch.ops import window_features as wf
+from sitewhere_tpu_torch.ops.query import QueryParams, query_store, query_store_batch
+from sitewhere_tpu_torch.ops.readback import arena_cursor
+from sitewhere_tpu_torch.ops.rules import harvest_fires
+from sitewhere_tpu_torch.pipeline import make_presence_sweep
+from sitewhere_tpu_torch.rules import RulesManager
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, FP32
 # (non-tensor-core) and bf16 tensor-core operations/s; exponentials/s are
@@ -96,6 +115,35 @@ SLICE_CONFIG = dict(device_capacity=1 << 15, token_capacity=1 << 16,
 SLICE_TOKENS = 10_000
 SLICE_BATCHES = 80
 SLICE_MODEL = AnomalyConfig(sensors=100, window=128, hidden=256, lstm_hidden=256)
+
+# the read phase: the slice engine with the bench's CEP rule set
+# (bench.py:2158-2176) at the bench's rules sizes (bench.py:2225-2232), 64
+# geofence zones of 16 vertices, 24 batches of the slice stream (which
+# wraps the 2^18-row ring), and the bench's 16-query mix at limit 64
+# (bench.py:1835-1848)
+READ_BATCHES = 24
+READ_RULES_CONFIG = dict(rule_groups=256, rollup_buckets=16, presence_missing_s=4.0)
+RL_RULESET = {
+    "name": "bench",
+    "rules": [
+        {"name": "hot", "kind": "threshold", "channel": "temp",
+         "op": ">", "value": 90.0, "cooldownMs": 1000},
+        {"name": "burst", "kind": "window", "agg": "count",
+         "channel": "temp", "op": ">=", "value": 4, "windowMs": 2000,
+         "where": {"channel": "temp", "op": ">", "value": 90.0}},
+        {"name": "updown", "kind": "sequence",
+         "first": {"channel": "temp", "op": ">", "value": 90.0},
+         "then": {"channel": "temp", "op": "<", "value": 5.0},
+         "withinMs": 4000},
+        {"name": "silent", "kind": "absence", "channel": "temp",
+         "deadlineMs": 4000},
+    ],
+    "rollups": [{"name": "temp-2s", "channel": "temp",
+                 "windowMs": 2000, "scope": "device"}],
+}
+READ_ZONES, READ_ZONE_VERTICES = 64, 16
+READ_QUERIES, READ_LIMIT = 16, 64
+READ_CPU_BATCHES = 4
 
 KERNELS = [dict(name="window_features", route="cuda",
                 source="sitewhere_tpu_torch/csrc/window_features.cu",
@@ -126,8 +174,12 @@ def emit(record: dict, log: list) -> None:
 class PinnedEpoch(EpochBase):
     """A clock that stands still, so two engines stamp identical rows."""
 
+    def __init__(self, base_unix_s: float | None = None, now_ms: int = 5_000):
+        super().__init__(base_unix_s)
+        self.now = now_ms
+
     def now_ms(self) -> int:
-        return 5_000
+        return self.now
 
 
 def time_ms(fn, device: torch.device, reps: int = 30, warmup: int = 5) -> float:
@@ -251,12 +303,14 @@ def phase_kernel_flash(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 8, 32),
                        mid_steps: int = FLASH_MID_STEPS, reps: int = 10) -> dict:
     """flash_attention against mha_reference: at the transformer's shape
     (strided views of one fused qkv tensor, bf16, causal; the plain version
-    one window at a time), at [8, 4096, 8, 32] causal and not, at S=1, at a
+    one window at a time), at [8, 4096, 8, 32] causal and not (and causal
+    in float32, the CUDA-core kernel), at S=1, at a
     ragged S, at the bf16 kernel's tile edges (S = 63, 64, 65, 129, causal
     and not), at D=16 and D=64 in bf16 and in float32, on contiguous
     [B, S, H, D] inputs, and with a zero and a negative ``sm_scale`` (bf16,
     ragged S, causal and not). Times kernel, plain version and SDPA (the
-    library yardstick) at the main shape and at S=4096."""
+    library yardstick) at the main shape and at S=4096, bf16 and float32
+    (SDPA in float32 with TF32 off)."""
     gen = torch.Generator(device=device).manual_seed(1)
     b, s, h, d = main
     bf16, f32 = torch.bfloat16, torch.float32
@@ -281,6 +335,8 @@ def phase_kernel_flash(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 8, 32),
         "d16_bf16_full": (fused_qkv(2, 300, 2, 16, bf16, device, gen), False),
         **edges, **contiguous,
     }
+    inputs[f"s{mid_steps}_causal_f32"] = (fused_qkv(b, mid_steps, h, d, f32, device, gen),
+                                          True)
     scaled = {f"scale{scale:g}_{'causal' if causal else 'full'}":
               (fused_qkv(2, 333, h, d, bf16, device, gen), causal, scale)
               for scale in (0.0, -0.3) for causal in (True, False)}
@@ -301,7 +357,7 @@ def phase_kernel_flash(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 8, 32),
         del got, ref
 
     timings = {}
-    for name in ("main", f"s{mid_steps}_causal"):
+    for name in ("main", f"s{mid_steps}_causal", f"s{mid_steps}_causal_f32"):
         (q, k, v), causal = inputs[name]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # [B, H, S, D]
         t = {"ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
@@ -316,7 +372,8 @@ def phase_kernel_flash(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 8, 32),
                                     device, reps=reps, warmup=2)
         floors = flash_floors_ms(*q.shape, causal, q.dtype)
         binding = max(floors, key=floors.get)
-        t.update(shape=list(q.shape), floors_ms=floors, binding_floor=binding,
+        t.update(shape=list(q.shape), dtype=str(q.dtype), floors_ms=floors,
+                 binding_floor=binding,
                  bound_ms=floors[binding],
                  bound_by="bytes" if binding == "bytes" else "operations")
         timings[name] = t
@@ -329,6 +386,46 @@ def phase_kernel_flash(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 8, 32),
     return dict(max_abs_err=errs["main"], ms=t["ms"], plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                 library_ms=t["library_ms"])
+
+
+# the entry phase's rule set: every rule kind on "temp" (standard normal
+# values: the kinds accumulate counts and compare, never sum floats) and a
+# rollup of "load", which carries halves only, so its float sums are exact
+# in any order (CUDA adds a scatter's duplicates in no fixed order)
+ENTRY_RULES = {"name": "entry", "rules": [
+    {"name": "hot", "kind": "threshold", "channel": "temp", "op": ">",
+     "value": 1.5, "cooldownMs": 100},
+    {"name": "twice", "kind": "window", "agg": "count", "channel": "temp",
+     "op": ">=", "value": 2, "windowMs": 300,
+     "where": {"channel": "temp", "op": ">", "value": 0.5}},
+    {"name": "drop", "kind": "sequence",
+     "first": {"channel": "temp", "op": ">", "value": 1.0},
+     "then": {"channel": "temp", "op": "<", "value": -1.0}, "withinMs": 400},
+    {"name": "gone", "kind": "absence", "channel": "temp", "deadlineMs": 300}],
+    "rollups": [{"name": "load-1s", "channel": "load", "windowMs": 1000}]}
+# sensor-1's location (48.85, 2.35) and a band that catches ~1/4 of the
+# uniform random locations
+ENTRY_ZONES = [[(48.0, 2.0), (48.0, 3.0), (49.5, 3.0), (49.5, 2.0)],
+               [(-45.0, -90.0), (-45.0, 90.0), (45.0, 90.0), (45.0, -90.0)]]
+
+
+def _entry_payloads() -> list[bytes]:
+    """JSON payloads after the request stream: 5 devices keep reporting at
+    2 s (the rest fall silent), a location, an alert with an alternate id,
+    and two payloads that do not decode."""
+    out = [json.dumps({"deviceToken": f"dev-{d}", "type": "DeviceMeasurements",
+                       "request": {"measurements": {"temp": 0.5 * d,
+                                                    "load": 0.5 * (d % 7)},
+                                   "eventDate": 10**12 + 2000 + d}}).encode()
+           for d in range(5)]
+    out.append(json.dumps({"deviceToken": "dev-7", "type": "DeviceLocation",
+                           "request": {"latitude": 10.0, "longitude": 20.0,
+                                       "eventDate": 10**12 + 2001}}).encode())
+    out.append(json.dumps({"deviceToken": "dev-8", "type": "DeviceAlert",
+                           "request": {"type": "door", "level": "Error",
+                                       "alternateId": "door-1",
+                                       "eventDate": 10**12 + 2002}}).encode())
+    return out + [b"{broken", b"[]"]
 
 
 def _entry_requests(rng) -> list[DecodedRequest]:
@@ -357,24 +454,40 @@ def _entry_requests(rng) -> list[DecodedRequest]:
 
 
 def _state_leaves(state):
+    """(path, tensor) for every tensor of a state, depth first; the rule
+    block's static layout (a tuple) is not a leaf."""
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)
         if dataclasses.is_dataclass(v):
             for name, leaf in _state_leaves(v):
                 yield f"{f.name}.{name}", leaf
-        elif v is not None:
+        elif isinstance(v, torch.Tensor):
             yield f.name, v
+
+
+def _to_device(obj, dev):
+    """A copy of a state dataclass with every tensor on ``dev``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: _to_device(getattr(obj, f.name), dev)
+                                           for f in dataclasses.fields(obj)})
+    return obj
 
 
 def phase_entry(device, log, fails) -> None:
     cfg = EngineConfig(device_capacity=1024, token_capacity=2048,
                        assignment_capacity=2048, store_capacity=1 << 14,
                        batch_capacity=256, channels=100, analytics_devices=64,
-                       analytics_window=128)
-    engines = {}
-    for dev in (device, torch.device("cpu")):
+                       analytics_window=128, presence_missing_s=3.0,
+                       rule_groups=64, rollup_buckets=8)
+    engines, managers = {}, {}
+    for label, dev in (("card", device), ("cpu", torch.device("cpu"))):
         eng = Engine(cfg, device=dev)
         eng.epoch = PinnedEpoch(1e9)
+        eng.set_geofence_zones(ENTRY_ZONES)
+        managers[label] = RulesManager(eng)
+        managers[label].load(ENTRY_RULES)
         did = eng.register_device("sensor-1", device_type="thermostat")
         eng.process(DecodedRequest(type=RequestType.DEVICE_MEASUREMENT,
                                    device_token="sensor-1",
@@ -389,9 +502,9 @@ def phase_entry(device, log, fails) -> None:
         for req in _entry_requests(np.random.default_rng(1)):
             eng.process(req)
         rest = eng.flush()
-        engines[dev.type] = (eng, did, first, rest)
+        engines[label] = (eng, did, first, rest)
 
-    eng, did, first, rest = engines[device.type]
+    eng, did, first, rest = engines["card"]
     st = eng.get_device_state("sensor-1")
     fails.check(did == 0 and first["found"] == 3 and first["persisted"] == 3,
                 f"entry: first flush {first}")
@@ -414,13 +527,45 @@ def phase_entry(device, log, fails) -> None:
     ceng, _, cfirst, crest = engines["cpu"]
     fails.check((first, rest) == (cfirst, crest),
                 f"entry: flush summaries differ from the CPU engine: {rest} vs {crest}")
+    tokens = ["sensor-1"] + [f"dev-{d}" for d in range(40)]
+    fails.check(all(eng.get_device_state(t) == ceng.get_device_state(t) for t in tokens),
+                "entry: get_device_state differs from the CPU engine")
+
+    # the read side and the rules tier on the same stream, card vs CPU
+    reads = {}
+    for kind, e in (("card", eng), ("cpu", ceng)):
+        r = reads[kind] = {"json": e.ingest_json_batch(_entry_payloads())}
+        e.flush()
+        r["alerts"] = managers[kind].poll(flush=True)
+        head = arena_cursor(e.state.store, 0)
+        r["queries"] = [e.query_events(**q) for q in (
+            {}, dict(limit=7), dict(device_token="dev-3"),
+            dict(etype=EventType.ALERT), dict(etype=EventType.LOCATION, limit=5),
+            dict(since_ms=500, until_ms=800), dict(alternate_id="door-1"),
+            dict(tenant="other"))]
+        r["events"] = [e.get_event(i) for i in (-1, 0, 7, head - 2, head - 1, head)]
+        r["missing"] = e.presence_sweep()
+        r["rule_counters"] = e.rule_counters()
+        r["tenant_counters"] = e.tenant_pipeline_counters()
+        r["tenant_metrics"] = e.tenant_metrics()
+        r["states"] = e.search_device_states(presence="missing", limit=1000)
+    for key in reads["card"]:
+        fails.check(reads["card"][key] == reads["cpu"][key],
+                    f"entry: {key} differs from the CPU engine: "
+                    f"{reads['card'][key]} vs {reads['cpu'][key]}")
+    card = reads["card"]
+    fails.check(card["json"] == {"decoded": 7, "failed": 2}, f"entry: json {card['json']}")
+    fired = {a["rule"] for a in card["alerts"]}
+    fails.check(fired == {r["name"] for r in ENTRY_RULES["rules"]},
+                f"entry: rules fired {sorted(fired)}")
+    fails.check(card["tenant_counters"]["default"]["geofence_hit"] > 0
+                and len(card["missing"]) > 0 and card["events"][4] is not None,
+                f"entry: geofence / sweep / get_event {card['tenant_counters']} "
+                f"{card['missing']} {card['events'][4]}")
     differ = [name for (name, a), (_, b) in zip(_state_leaves(eng.state),
                                                  _state_leaves(ceng.state))
               if not torch.equal(a.cpu(), b)]
     fails.check(not differ, f"entry: state differs from the CPU engine in {differ}")
-    tokens = ["sensor-1"] + [f"dev-{d}" for d in range(40)]
-    fails.check(all(eng.get_device_state(t) == ceng.get_device_state(t) for t in tokens),
-                "entry: get_device_state differs from the CPU engine")
     fails.check(eng.metrics() == ceng.metrics(),
                 f"entry: metrics differ: {eng.metrics()} vs {ceng.metrics()}")
 
@@ -437,13 +582,24 @@ def phase_entry(device, log, fails) -> None:
                 f"entry: scores differ from the CPU engine (max abs {score_err})")
     emit({"phase": "entry", "device_state": st, "metrics": eng.metrics(),
           "state_leaves_equal_cpu": not differ, "score_max_abs_err_vs_cpu": score_err,
-          "score_tol": SCORE_TOL}, log)
+          "score_tol": SCORE_TOL, "reads_equal_cpu": sorted(
+              k for k in card if card[k] == reads["cpu"][k]),
+          "rules_fired": sorted(fired), "alerts": len(card["alerts"]),
+          "missing_after_sweep": len(card["missing"]),
+          "tenant_counters": card["tenant_counters"]}, log)
 
 
 def slice_batches(seed: int, n_batches: int, device, cfg: dict,
                   n_tokens: int) -> tuple[list[EventBatch], int]:
-    """The full-width stream, built on the host with numpy and copied to the
-    card before the timed loop. Token ids 0..8191 appear first in batch 0,
+    """:func:`slice_columns` copied to ``device`` as EventBatches."""
+    cols, n_garbage = slice_columns(seed, n_batches, cfg, n_tokens)
+    return [EventBatch.from_numpy(device, **c) for c in cols], n_garbage
+
+
+def slice_columns(seed: int, n_batches: int, cfg: dict,
+                  n_tokens: int) -> tuple[list[dict], int]:
+    """The full-width stream as numpy columns, built on the host and
+    copied to the card before the timed loop. Token ids 0..8191 appear first in batch 0,
     so they auto-register as dense ids 0..8191: the analytics devices. Each
     of them gets one measurement row per batch plus one more in 5120/8192
     of the batches (rotating), so 80 batches give each 130 samples >= W;
@@ -482,8 +638,8 @@ def slice_batches(seed: int, n_batches: int, device, cfg: dict,
         aux = np.full((b, AUX_LANES), NULL_ID, np.int32)
         aux[is_alert, 0] = 0
         ts = (1000 * k + np.arange(b) // 64).astype(np.int32)
-        batches.append(EventBatch.from_numpy(
-            device, valid=np.ones(b, np.bool_), etype=etype, token_id=token,
+        batches.append(dict(
+            valid=np.ones(b, np.bool_), etype=etype, token_id=token,
             tenant_id=np.zeros(b, np.int32), ts_ms=ts,
             received_ms=np.full(b, 1000 * k, np.int32), values=values,
             vmask=vmask, aux=aux, seq=np.arange(b, dtype=np.int32)))
@@ -556,7 +712,7 @@ def phase_slice(device, log, fails, seed: int, n_batches: int,
     emit(rec, log)
     if profile:       # after the counts were read: these launches don't count
         phase_profile(eng, svc, batches[:3], log)
-    return launches
+    return launches, rec["step_ms_median"]
 
 
 def _device_time(prof, n: int = 10) -> tuple[dict, float]:
@@ -576,25 +732,276 @@ def _device_time(prof, n: int = 10) -> tuple[dict, float]:
     return {"kernels": top(kernels), "ops": top(ops)}, busy_us / 1e3
 
 
-def phase_profile(eng, svc, batches, log) -> None:
-    """torch.profiler over a few more full-width steps and one scoring
-    call: device time by kernel and the device's busy share of the wall
-    time (the rest is host work and launch gaps)."""
+def rules_temp(i: np.ndarray) -> np.ndarray:
+    """The bench's rules value for event ``i`` (bench.py:2200-2211): halves
+    only, so every float sum is exact in any order; ~3 % above 90.0, 2.5
+    every 149th."""
+    v = np.where(i % 37 == 0, 96.5, 20.0 + (i % 80) * 0.5)
+    return np.where(i % 149 == 0, 2.5, v).astype(np.float32)
+
+
+def read_columns(seed: int, n_batches: int, cfg: dict,
+                 n_tokens: int) -> tuple[list[dict], int]:
+    """The slice stream with channel 0 ("temp") of every measurement row
+    rewritten by :func:`rules_temp` of the row's stream index, and the
+    rows of device 0 (the token of batch 0's first row: devices register
+    in order of first appearance) moved to device 1 after half the batches,
+    as the bench moves its device 0 (so it falls silent: the absence rule
+    fires and the sweep finds it). Returns the columns and that token."""
+    cols, _ = slice_columns(seed, n_batches, cfg, n_tokens)
+    b = cfg["batch_capacity"]
+    quiet, heir = (int(t) for t in cols[0]["token_id"][:2])
+    for k, c in enumerate(cols):
+        meas = c["etype"] == int(EventType.MEASUREMENT)
+        c["values"][meas, 0] = rules_temp(k * b + np.nonzero(meas)[0])
+        if k >= n_batches // 2:
+            c["token_id"][c["token_id"] == quiet] = heir
+    return cols, quiet
+
+
+def read_zones(seed: int, n: int = READ_ZONES, v: int = READ_ZONE_VERTICES) -> list:
+    """n regular v-gons (lat, lon) of radius 0.05-0.25 around seeded
+    centres in [-2, 2]^2, where the stream's standard-normal location rows
+    fall: a seeded share of them lands inside."""
+    rng = np.random.default_rng(seed + 7)
+    centres = rng.uniform(-2.0, 2.0, (n, 2))
+    radii = rng.uniform(0.05, 0.25, n)
+    ang = 2 * np.pi * np.arange(v) / v
+    return [[(float(cy + r * np.sin(a)), float(cx + r * np.cos(a))) for a in ang]
+            for (cy, cx), r in zip(centres, radii)]
+
+
+def _read_engine(device, seed: int, n_tokens: int, config: dict):
+    eng = Engine(EngineConfig(**config, **READ_RULES_CONFIG), device=device)
+    eng.epoch = PinnedEpoch(1e9, now_ms=1000 * READ_BATCHES + 500)
+    for t in range(n_tokens):
+        eng.tokens.intern(f"dev-{t:05d}")
+    eng.alert_types.intern("overheat")
+    eng.set_geofence_zones(read_zones(seed), READ_ZONE_VERTICES)
+    mgr = RulesManager(eng)
+    mgr.load(RL_RULESET)
+    return eng, mgr
+
+
+def _query_mix(eng, t_window: int) -> list[tuple]:
+    """The bench's 16 predicate sets (QueryParams order): full scan, one
+    device, MEASUREMENT since 0, a 5 s window from ``t_window + 50 qi``
+    (the bench's windows start at 50 qi; this stream's ring holds its
+    second half)."""
+    imin, imax = -(2**31), 2**31 - 1
+    devs = sorted(eng.token_device.values()) or [0]
+    preds = []
+    for qi in range(READ_QUERIES):
+        p = [NULL_ID, NULL_ID, NULL_ID, imin, imax] + [NULL_ID] * 5
+        if qi % 4 == 1:
+            p[0] = int(devs[qi % len(devs)])
+        elif qi % 4 == 2:
+            p[1], p[3] = int(EventType.MEASUREMENT), 0
+        elif qi % 4 == 3:
+            p[3], p[4] = t_window + qi * 50, t_window + qi * 50 + 5000
+        preds.append(tuple(p))
+    return preds
+
+
+def _seq_pages(store, preds):
+    return [query_store(store, *p[:5], limit=READ_LIMIT, assignment=p[5], aux0=p[6],
+                        aux1=p[7], area=p[8], customer=p[9]) for p in preds]
+
+
+def _pages_equal(a, b) -> bool:
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def phase_read(device, log, fails, seed: int, slice_step_ms: float,
+               n_batches: int = READ_BATCHES, config: dict = SLICE_CONFIG,
+               n_tokens: int = SLICE_TOKENS, profile: bool = False) -> None:
+    """The read side and the whole fused step on the card at the slice's
+    full width: geofence zones and the bench's rule set installed, the
+    stream through ``ingest_event_batch``; then the query mix (batched and
+    sequential), ``query_events``, ``get_event``, ``presence_sweep``,
+    ``RulesManager.poll``, the counters; every page, the harvest and the
+    sweep rerun on a CPU copy of the state, and a CPU engine fed the first
+    batches, all byte for byte."""
+    cpu = torch.device("cpu")
+    on_card = device.type == "cuda"
+    eng, mgr = _read_engine(device, seed, n_tokens, config)
+    columns, quiet_token = read_columns(seed, n_batches, config, n_tokens)
+    batches = [EventBatch.from_numpy(device, **c) for c in columns]
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    wf.window_features.launches = fa.flash_attention.launches = 0   # path starts
+    step_ms = []
+    state_early = None
+    for k, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        eng.ingest_event_batch(batch)
+        if on_card:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if k + 1 == READ_CPU_BATCHES:
+            state_early = eng.state        # the step is functional: a snapshot
+    eng.flush()
+
+    # the query mix: one batched program against 16 sequential scans
+    store = eng.state.store
+    t_window = 1000 * (n_batches // 2)
+    preds = _query_mix(eng, t_window)
+    params = QueryParams(*torch.tensor(preds, dtype=torch.int32).T.to(device))
+    batched = query_store_batch(store, params, limit=READ_LIMIT)
+    seq = _seq_pages(store, preds)
+    fails.check(all(_pages_equal([f[q] for f in batched], seq[q])
+                    for q in range(READ_QUERIES)),
+                "read: query_store_batch differs from sequential query_store on the card")
+    batch_ms = time_ms(lambda: query_store_batch(store, params, limit=READ_LIMIT), device,
+                       reps=20, warmup=3)
+    seq_ms = time_ms(lambda: _seq_pages(store, preds), device, reps=10, warmup=2)
+
+    # the engine's read calls: 8 calls of each of the mix's four shapes
+    devs = sorted(eng.token_device.items(), key=lambda kv: kv[1])
+    one = eng.tokens.token(devs[1][0])
+    shapes = [dict(limit=READ_LIMIT), dict(device_token=one, limit=READ_LIMIT),
+              dict(etype=EventType.MEASUREMENT, since_ms=0, limit=READ_LIMIT),
+              dict(since_ms=t_window + 150, until_ms=t_window + 5150,
+                   limit=READ_LIMIT)]
+    q_ms, answers = [], []
+    for shape in shapes:
+        for _ in range(8):
+            t0 = time.perf_counter()
+            answers.append(eng.query_events(**shape))
+            q_ms.append((time.perf_counter() - t0) * 1e3)
+    full, by_dev = answers[0], answers[8]
+    fails.check(full["total"] == int(batched.total[0])
+                and by_dev["total"] == int(batched.total[1])
+                and len(full["events"]) == READ_LIMIT
+                and all(a["eventDateMs"] >= b["eventDateMs"]
+                        for a, b in zip(full["events"], full["events"][1:])),
+                f"read: query_events disagrees with the pages: {full['total']} "
+                f"{by_dev['total']} vs {batched.total[:2].tolist()}")
+    head = arena_cursor(store, 0)
+    live, evicted = eng.get_event(head - 1), eng.get_event(head - store.capacity - 1)
+    fails.check(live is not None and evicted is None
+                and live["eventDateMs"] == int(store.ts_ms[(head - 1) % store.capacity]),
+                f"read: get_event live {live} evicted {evicted}")
+
+    # the same pages, harvest and sweep on a CPU copy of the card's state
+    state_cpu = _to_device(eng.state, cpu)
+    params_cpu = QueryParams(*(c.cpu() for c in params))
+    fails.check(_pages_equal(batched, query_store_batch(state_cpu.store, params_cpu,
+                                                        limit=READ_LIMIT)),
+                "read: the query pages differ between the card and the CPU")
+    fails.check(all(_pages_equal(a, b) for a, b in zip(seq, _seq_pages(state_cpu.store,
+                                                                       preds))),
+                "read: the sequential pages differ between the card and the CPU")
+    harvest = harvest_fires(eng.state.rules)
+    harvest_cpu = harvest_fires(state_cpu.rules)
+    fails.check(all(torch.equal(a.cpu(), b) for a, b in zip(harvest[1:], harvest_cpu[1:]))
+                and all(torch.equal(a.cpu(), b) for (_, a), (_, b) in zip(
+                    _state_leaves(harvest[0]), _state_leaves(harvest_cpu[0]))),
+                "read: the harvest differs between the card and the CPU")
+    harvest_ms = time_ms(lambda: [x.cpu() for x in harvest_fires(eng.state.rules)[1:]],
+                         device)
+    sweep = make_presence_sweep()
+    now, miss = eng.epoch.now_ms(), int(READ_RULES_CONFIG["presence_missing_s"] * 1000)
+    args = [torch.tensor(x, dtype=torch.int32) for x in (now, miss)]
+    swept, newly = sweep(eng.state, *(a.to(device) for a in args))
+    swept_cpu, newly_cpu = sweep(state_cpu, *args)
+    fails.check(torch.equal(newly.cpu(), newly_cpu) and torch.equal(
+        swept.device_state.presence.cpu(), swept_cpu.device_state.presence),
+                "read: the presence sweep differs between the card and the CPU")
+    sweep_ms = time_ms(lambda: sweep(eng.state, *(a.to(device) for a in args)), device)
+    del state_cpu, swept, swept_cpu
+
+    # the engine's own sweep, the rules manager's poll and the counters
+    t0 = time.perf_counter()
+    missing = eng.presence_sweep()
+    sweep_call_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    alerts = mgr.poll()
+    poll_ms = (time.perf_counter() - t0) * 1e3
+    eng.flush()
+    fired = {}
+    for a in alerts:
+        fired[a["rule"]] = fired.get(a["rule"], 0) + 1
+    rule_counters = eng.rule_counters()
+    counters = eng.tenant_pipeline_counters()
+    launches = {"window_features": wf.window_features.launches,
+                "flash_attention": fa.flash_attention.launches}   # ... path ends
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    quiet = f"dev-{quiet_token:05d}"
+    fails.check(missing == [quiet], f"read: presence_sweep found {missing}, not [{quiet}]")
+    # every rule kind of the update: threshold lowers to an extremum window,
+    # then sequence and absence; the count window "burst" needs 4 rows above
+    # 90 in 2 s of one device, which the bench formula never gives (one in
+    # 37 of a device's rows), here as in the bench: its count accumulates
+    # and is held to the CPU, and its fires are reported
+    fails.check({"hot", "updown", "silent"} <= set(fired)
+                and any(a["rule"] == "silent" and a["group"] == quiet for a in alerts),
+                f"read: rules fired {fired}")
+    fails.check(counters.get("default", {}).get("geofence_hit", 0) > 0,
+                f"read: no geofence hit: {counters}")
+
+    # a CPU engine fed the first batches: the card's state after the same
+    # batches, rules, rollups, zones and tenant counters included
+    ceng, _ = _read_engine(cpu, seed, n_tokens, config)
+    t0 = time.perf_counter()
+    for c in columns[:READ_CPU_BATCHES]:
+        ceng.ingest_event_batch(EventBatch.from_numpy(cpu, **c))
+    cpu_s = time.perf_counter() - t0
+    differ = [name for (name, a), (_, b) in zip(_state_leaves(state_early),
+                                                 _state_leaves(ceng.state))
+              if not torch.equal(a.cpu(), b)]
+    fails.check(not differ, f"read: state after {READ_CPU_BATCHES} batches differs from "
+                f"the CPU engine in {differ}")
+    rec = {"phase": "read", "batches": n_batches, "batch_rows": config["batch_capacity"],
+           "zones": READ_ZONES, "zone_vertices": READ_ZONE_VERTICES,
+           "rules": [r["name"] for r in RL_RULESET["rules"]],
+           "step_ms_median_zones_rules": statistics.median(step_ms[1:]),
+           "step_ms_first": step_ms[0], "step_ms": step_ms,
+           "slice_step_ms_median_no_rules": slice_step_ms,
+           "query_store_batch_ms_q16": batch_ms, "query_store_x16_ms": seq_ms,
+           "query_events_ms_median": statistics.median(q_ms),
+           "query_events_ms_by_shape": [statistics.median(q_ms[8 * i:8 * i + 8])
+                                        for i in range(4)],
+           "harvest_ms": harvest_ms, "sweep_ms": sweep_ms,
+           "engine_presence_sweep_ms": sweep_call_ms, "rules_poll_ms": poll_ms,
+           "alerts": len(alerts), "fired_by_rule": fired,
+           "burst_count_max": int(eng.state.rules.rules.acc_cnt[1].max()),
+           "rule_counters": rule_counters, "tenant_counters": counters,
+           "query_totals": batched.total.tolist(), "missing": missing,
+           "cpu_engine_s_first_batches": cpu_s,
+           "state_equal_cpu_after_batches": (READ_CPU_BATCHES, not differ),
+           "launches": launches, "peak_mem_gb": peak_gb}
+    emit(rec, log)
+    if profile:       # after the checks: three more steps with zones and rules
+        _profile("step_zones_rules",
+                 lambda: [eng.ingest_event_batch(b) for b in batches[-3:]], 3, log)
+
+
+def _profile(what: str, run, calls: int, log) -> None:
+    """torch.profiler over ``run()`` (``calls`` calls): device time by
+    kernel and the device's busy share of the wall time (the rest is host
+    work and launch gaps)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for what, run in (("step", lambda: [eng.ingest_event_batch(b) for b in batches]),
-                      ("score", svc.score_all)):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        top, busy_ms = _device_time(prof)
-        n = len(batches) if what == "step" else 1
-        emit({"phase": "profile", "what": what, "calls": n,
-              "wall_ms_per_call": wall_ms / n, "device_ms_per_call": busy_ms / n,
-              "device_busy_share": busy_ms / wall_ms, "top": top}, log)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    top, busy_ms = _device_time(prof)
+    emit({"phase": "profile", "what": what, "calls": calls,
+          "wall_ms_per_call": wall_ms / calls, "device_ms_per_call": busy_ms / calls,
+          "device_busy_share": busy_ms / wall_ms, "top": top}, log)
+
+
+def phase_profile(eng, svc, batches, log) -> None:
+    """Profiles of a few more full-width steps and one scoring call."""
+    _profile("step", lambda: [eng.ingest_event_batch(b) for b in batches],
+             len(batches), log)
+    _profile("score", svc.score_all, 1, log)
     eng.flush()
 
 
@@ -697,7 +1104,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=pathlib.Path, default=None,
                     help="also write every phase record to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="after the checks, profile a few steps and one scoring call")
+                    help="after the checks, profile a few steps (without and with zones "
+                         "and rules), one scoring call and one transformer call")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -720,10 +1128,11 @@ def main(argv=None) -> int:
     timing = {"window_features": phase_kernel_window_features(device, log, fails),
               "flash_attention": phase_kernel_flash(device, log, fails)}
     phase_entry(device, log, fails)
-    launches = phase_slice(device, log, fails, args.seed, SLICE_BATCHES,
-                           profile=args.profile)
+    launches, slice_step_ms = phase_slice(device, log, fails, args.seed, SLICE_BATCHES,
+                                          profile=args.profile)
     launches = launches | phase_transformer(device, log, fails, args.seed,
                                             profile=args.profile)
+    phase_read(device, log, fails, args.seed, slice_step_ms, profile=args.profile)
     kernels = [dict(k, launches=launches[k["name"]], **timing[k["name"]])
                for k in KERNELS]
     if args.out is not None:

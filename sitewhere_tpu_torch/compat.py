@@ -47,20 +47,41 @@ def scatter_drop(dst: torch.Tensor, idx: torch.Tensor,
 
 def scatter_reduce_drop(dst: torch.Tensor, idx: torch.Tensor,
                         src: torch.Tensor, reduce: str) -> torch.Tensor:
-    """``.at[idx].min/max/add(src, mode="drop")`` on a 1-D ``dst``:
+    """``.at[idx].min/max/add(src, mode="drop")`` along dim 0 of ``dst``:
     ``reduce`` is ``"amin"``, ``"amax"`` or ``"sum"``; the existing values
-    take part (``include_self=True``)."""
+    take part (``include_self=True``). ``idx`` is 1-D; ``src`` holds one
+    row of ``dst.shape[1:]`` per index. A float ``"sum"`` adds duplicate
+    indices in no fixed order on CUDA: it equals the CPU's only where
+    every partial sum is exact."""
     n = dst.shape[0]
-    buf = dst.new_empty((n + 1,))
+    rest = tuple(dst.shape[1:])
+    buf = dst.new_empty((n + 1,) + rest)
     buf[:n] = dst
     safe = torch.where((idx >= 0) & (idx < n), idx, n).long()
-    buf.scatter_reduce_(0, safe, src.to(dst.dtype), reduce=reduce,
-                        include_self=True)
+    src = src.to(dst.dtype)
+    if rest:
+        safe = safe.view((-1,) + (1,) * len(rest)).expand(src.shape)
+    buf.scatter_reduce_(0, safe, src, reduce=reduce, include_self=True)
     return buf[:n]
 
 
+def flat_index(idx: tuple[torch.Tensor, ...], shape: tuple[int, ...]
+               ) -> torch.Tensor:
+    """Row-major linear index of the multi-dimensional index ``idx`` into
+    ``shape``, and -1 where any component is out of bounds, so that the
+    1-D drop/fill helpers drop or fill it as JAX's multi-dimensional
+    ``mode="drop"`` / ``mode="fill"`` does."""
+    lin = torch.zeros_like(idx[0])
+    ok = torch.ones_like(idx[0], dtype=torch.bool)
+    for i, n in zip(idx, shape):
+        ok &= (i >= 0) & (i < n)
+        lin = lin * n + i
+    return torch.where(ok, lin, -1)
+
+
 def gather_fill(src: torch.Tensor, idx: torch.Tensor, fill: int) -> torch.Tensor:
-    """``src.at[idx].get(mode="fill", fill_value=fill)`` on a 1-D ``src``."""
+    """``src.at[idx].get(mode="fill", fill_value=fill)`` on a 1-D ``src``
+    (any shape of ``idx``)."""
     n = src.shape[0]
     ok = (idx >= 0) & (idx < n)
     return torch.where(ok, src[torch.where(ok, idx, 0).long()], fill)

@@ -18,7 +18,8 @@ from sitewhere_tpu_torch.core.registry import RegistryTables
 from sitewhere_tpu_torch.core.state import DeviceStateStore
 from sitewhere_tpu_torch.core.store import EventStore
 from sitewhere_tpu_torch.models.windows import TelemetryWindows
-from sitewhere_tpu_torch.pipeline import PipelineMetrics, PipelineState
+from sitewhere_tpu_torch.ops.rules import RollupBlock, RuleBlock, RulesState
+from sitewhere_tpu_torch.pipeline import PipelineMetrics, PipelineState, ZoneTable
 
 _AE_LAYERS = ("enc1", "enc2", "latent", "dec1", "dec2", "out")
 _GATES = ("i", "f", "g", "o")
@@ -86,22 +87,30 @@ def _tensor(x, dev: torch.device) -> torch.Tensor:
     return torch.tensor(np.asarray(x)).to(dev)
 
 
-def _dataclass_from(cls, tree, dev: torch.device):
-    return cls(**{f.name: _tensor(getattr(tree, f.name), dev)
-                  for f in dataclasses.fields(cls)})
+def _dataclass_from(cls, tree, dev: torch.device, static: tuple = ()):
+    """``cls`` with every tensor field read from the same-named attribute
+    of ``tree``; the ``static`` fields (plain Python structure) are taken
+    as they are, tuples of ints."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        x = getattr(tree, f.name)
+        out[f.name] = (tuple(tuple(int(v) for v in row) for row in x)
+                       if f.name in static else _tensor(x, dev))
+    return cls(**out)
+
+
+def _optional(cls, tree, dev: torch.device, static: tuple = ()):
+    return None if tree is None else _dataclass_from(cls, tree, dev, static)
 
 
 def pipeline_state_from_numpy(tree, device: str | torch.device = DEFAULT_DEVICE
                               ) -> PipelineState:
     """A JAX ``PipelineState`` pulled to the host (numpy leaves, read by
-    attribute name) -> the port's ``PipelineState`` on ``device``. Only the
-    fields the port has are read; the JAX state's geofence zones and rules
-    tier must be absent (None)."""
+    attribute name) -> the port's ``PipelineState`` on ``device``, with
+    its geofence zones and streaming-rules tier when they are installed
+    (a rule block's static ``layout`` carries across as it is)."""
     dev = resolve_device(device)
-    for extra in ("zones", "rules"):
-        if getattr(tree, extra, None) is not None:
-            raise ValueError(f"the port has no {extra!r} state yet")
-    windows = getattr(tree, "windows", None)
+    rules = getattr(tree, "rules", None)
     return PipelineState(
         registry=_dataclass_from(RegistryTables, tree.registry, dev),
         device_state=_dataclass_from(DeviceStateStore, tree.device_state, dev),
@@ -109,6 +118,9 @@ def pipeline_state_from_numpy(tree, device: str | torch.device = DEFAULT_DEVICE
         next_device=_tensor(tree.next_device, dev),
         next_assignment=_tensor(tree.next_assignment, dev),
         metrics=_dataclass_from(PipelineMetrics, tree.metrics, dev),
-        windows=(_dataclass_from(TelemetryWindows, windows, dev)
-                 if windows is not None else None),
+        windows=_optional(TelemetryWindows, getattr(tree, "windows", None), dev),
+        zones=_optional(ZoneTable, getattr(tree, "zones", None), dev),
+        rules=None if rules is None else RulesState(
+            rules=_optional(RuleBlock, rules.rules, dev, static=("layout",)),
+            rollups=_optional(RollupBlock, rules.rollups, dev)),
     )

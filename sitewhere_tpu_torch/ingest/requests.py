@@ -35,6 +35,21 @@ class RequestType(enum.Enum):
     MAP_DEVICE = "MapDevice"             # nested-device mapping
 
 
+# aliases accepted on the wire (the reference models evolved names)
+_TYPE_ALIASES = {
+    "DeviceMeasurements": RequestType.DEVICE_MEASUREMENT,
+    "RegisterDevice": RequestType.REGISTER_DEVICE,
+    "DeviceCommandResponse": RequestType.ACKNOWLEDGE,
+}
+
+
+def parse_request_type(raw: str) -> RequestType:
+    alias = _TYPE_ALIASES.get(raw)
+    if alias is not None:
+        return alias
+    return RequestType(raw)
+
+
 @dataclasses.dataclass
 class DecodedRequest:
     """One decoded device request. ``values`` layout follows EventType
@@ -80,3 +95,8 @@ class DecodedRequest:
             RequestType.ACKNOWLEDGE: EventType.COMMAND_RESPONSE,
             RequestType.DEVICE_STATE_CHANGE: EventType.STATE_CHANGE,
         }.get(self.type)
+
+
+class EventDecodeException(Exception):
+    """Raised by decoders on malformed payloads; the engine counts the
+    payload as a failed decode."""

@@ -1,0 +1,56 @@
+"""Host readback of event-store ranges (port of
+``sitewhere_tpu/ops/readback.py``).
+
+Consumers read ranges of the device ring store by absolute cursor — the
+offset-committed contract of a Kafka consumer group without the broker.
+``read_range`` gathers [start, start+count) of one arena (wrapping).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from sitewhere_tpu_torch.core.store import EventStore
+
+
+class StoreSlice(NamedTuple):
+    etype: torch.Tensor
+    device: torch.Tensor
+    assignment: torch.Tensor
+    tenant: torch.Tensor
+    area: torch.Tensor
+    customer: torch.Tensor
+    asset: torch.Tensor
+    ts_ms: torch.Tensor
+    received_ms: torch.Tensor
+    values: torch.Tensor
+    vmask: torch.Tensor
+    aux: torch.Tensor
+    valid: torch.Tensor
+
+
+def read_range(store: EventStore, start: int | torch.Tensor, count: int,
+               arena: int = 0) -> StoreSlice:
+    """Gather ``count`` rows of one arena beginning at its arena-local
+    position ``start % (S/A)`` (arena 0 of a 1-arena store = the whole
+    ring)."""
+    s = store.arena_capacity
+    pos = torch.arange(count, dtype=torch.int32, device=store.valid.device)
+    idx = (arena * s + (start + pos) % s).long()
+    return StoreSlice(*(getattr(store, f)[idx] for f in StoreSlice._fields))
+
+
+def absolute_cursor(store: EventStore) -> int:
+    """Total events ever written, summed over arenas — monotone under
+    appends, the durable-watermark scalar."""
+    epochs = store.epoch.cpu().long()
+    cursors = store.cursor.cpu().long()
+    return int((epochs * store.arena_capacity + cursors).sum())
+
+
+def arena_cursor(store: EventStore, arena: int) -> int:
+    """One arena's absolute write count (epoch*arena_capacity + cursor)."""
+    return (int(store.epoch[arena]) * store.arena_capacity
+            + int(store.cursor[arena]))

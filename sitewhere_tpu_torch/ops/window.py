@@ -1,5 +1,5 @@
 """Windowed device-state aggregation + merge (port of
-``sitewhere_tpu/ops/window.py``; ``presence_sweep`` is not ported yet).
+``sitewhere_tpu/ops/window.py``).
 
 One call merges one batch of events into the ``DeviceStateStore``:
   * recent-event rings (depth R=3, most-recent-first) per class are updated
@@ -9,9 +9,13 @@ One call merges one batch of events into the ``DeviceStateStore``:
     (device, channel) segments — exact with duplicate timestamps (batch
     sequence breaks ties);
   * last-interaction / presence / per-type counters are max/set/add scatters.
+
+``presence_sweep`` marks devices whose last interaction is too old MISSING.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -194,3 +198,25 @@ def merge_batch_state(
         recent_alert_valid=ra_valid,
         event_counts=counts.reshape(n, NUM_EVENT_TYPES),
     )
+
+
+def presence_sweep(
+    state: DeviceStateStore,
+    device_active: torch.Tensor,        # bool[N] registered devices
+    now_ms: torch.Tensor,               # int32[]
+    missing_interval_ms: torch.Tensor,  # int32[]
+) -> tuple[DeviceStateStore, torch.Tensor]:
+    """Mark devices presence-MISSING when their last interaction is older
+    than ``now_ms - missing_interval_ms`` (int32 arithmetic, as in the JAX
+    op). Returns (state, newly_missing mask) so the host can notify once
+    per transition."""
+    seen = state.last_interaction_ms > INT32_MIN
+    stale = seen & (state.last_interaction_ms < now_ms - missing_interval_ms)
+    was_present = state.presence == int(PresenceState.PRESENT)
+    newly_missing = device_active & stale & was_present
+    presence = torch.where(device_active & stale,
+                           torch.tensor(int(PresenceState.MISSING),
+                                        dtype=torch.int32,
+                                        device=state.presence.device),
+                           state.presence)
+    return dataclasses.replace(state, presence=presence), newly_missing

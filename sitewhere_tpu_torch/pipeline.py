@@ -8,12 +8,13 @@ One call processes one decoded-event batch end to end:
     assignment expansion            ~ one event per active assignment
     ring-store append               ~ per-event time-series writes
     telemetry-window update         ~ analytics windows (optional)
+    streaming rules + rollups       ~ the CEP tier (optional)
     windowed state merge            ~ device-state aggregation
+    per-tenant counters             ~ with the geofence test (optional)
 
 The step is functional: it builds new state tensors and never writes into
-its input. Geofence zones and the streaming-rules tier are not ported yet,
-so the step runs the JAX step's ``zones is None`` and ``rules is None``
-branches.
+its input. A reader that holds an older state (the engine's query
+snapshot) therefore keeps a consistent view while later steps run.
 """
 
 from __future__ import annotations
@@ -28,19 +29,30 @@ from sitewhere_tpu_torch.core.events import EventBatch
 from sitewhere_tpu_torch.core.registry import RegistryTables
 from sitewhere_tpu_torch.core.state import DeviceStateStore
 from sitewhere_tpu_torch.core.store import EventStore
-from sitewhere_tpu_torch.core.types import NULL_ID
+from sitewhere_tpu_torch.core.types import NULL_ID, EventType
 from sitewhere_tpu_torch.models.windows import TelemetryWindows, append_measurements
+from sitewhere_tpu_torch.ops.geofence import points_in_zones
 from sitewhere_tpu_torch.ops.lookup import expand_assignments, lookup_devices
 from sitewhere_tpu_torch.ops.persist import append_events
 from sitewhere_tpu_torch.ops.registration import register_misses
+from sitewhere_tpu_torch.ops.rules import RulesState, rules_update
 from sitewhere_tpu_torch.ops.segment import compact_valid_front
-from sitewhere_tpu_torch.ops.window import merge_batch_state
+from sitewhere_tpu_torch.ops.window import merge_batch_state, presence_sweep
 
 # per-tenant device-side counter grid: tenants bucket by ``id %
 # TENANT_COUNTER_BUCKETS`` (floor mod: a NULL_ID tenant lands in bucket 63)
 TENANT_COUNTER_BUCKETS = 64
 TENANT_COUNTER_LANES = ("accepted", "dedup_dropped", "geofence_hit",
                         "invalid")
+
+
+@dataclasses.dataclass(frozen=True)
+class ZoneTable:
+    """Device-resident geofence polygons (ops/geofence.pack_zones layout)
+    for the in-step geofence-hit counter."""
+
+    verts: torch.Tensor    # float32[Z, V, 2] (lat, lon), padded per pack_zones
+    valid: torch.Tensor    # bool[Z]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +91,12 @@ class PipelineState:
     # optional device-resident telemetry windows feeding the analytics
     # service; None disables the update stage
     windows: TelemetryWindows | None = None
+    # optional geofence polygons for the in-step geofence-hit counter
+    # (Engine.set_geofence_zones); None keeps the lane at zero
+    zones: ZoneTable | None = None
+    # optional streaming-rules tier (ops/rules.py), installed by
+    # Engine.set_rules; None skips it
+    rules: RulesState | None = None
 
     @staticmethod
     def create(
@@ -129,14 +147,15 @@ class PipelineConfig:
 
 
 def _tenant_counter_delta(batch: EventBatch, accepted: torch.Tensor,
-                          invalid: torch.Tensor) -> torch.Tensor:
+                          invalid: torch.Tensor,
+                          zones: ZoneTable | None) -> torch.Tensor:
     """[T_BUCKETS, 4] per-tenant lifecycle deltas for this batch:
 
       accepted       rows matched to a registered device
       dedup_dropped  in-batch alternate-id duplicates (same token + same
                      aux1 correlation id more than once), found with a
                      two-pass stable argsort = lexsort by (token, aux1)
-      geofence_hit   always 0 here: geofence zones are not ported yet
+      geofence_hit   location rows inside any configured zone polygon
       invalid        rows still unmatched after auto-registration
 
     The JAX step reduces with an int32 one-hot einsum; cuBLAS has no int32
@@ -159,7 +178,13 @@ def _tenant_counter_delta(batch: EventBatch, accepted: torch.Tensor,
     dedup = torch.zeros(b, dtype=torch.bool, device=dev)
     dedup[order] = dup_sorted          # order is a permutation: no collisions
     dedup = dedup & has_alt
-    geo = torch.zeros(b, dtype=torch.bool, device=dev)
+    if zones is not None:
+        is_loc = (batch.valid & (batch.etype == int(EventType.LOCATION))
+                  & batch.vmask[:, 0])
+        inz = points_in_zones(batch.values[:, :2], zones.verts, zones.valid)
+        geo = is_loc & inz.any(1)
+    else:
+        geo = torch.zeros(b, dtype=torch.bool, device=dev)
 
     n_lanes = len(TENANT_COUNTER_LANES)
     n_cells = TENANT_COUNTER_BUCKETS * n_lanes
@@ -255,6 +280,13 @@ def pipeline_step(
             windows, res.device, res.found, batch.etype, batch.ts_ms,
             batch.seq, batch.values)
 
+    # 5.5 streaming-rules tier: standing rules + continuous rollups on the
+    #     post-lookup view; fires land in device-resident pending rings
+    #     harvested at reporting cadence (Engine.poll_rule_fires)
+    rules = state.rules
+    if rules is not None:
+        rules = rules_update(rules, batch, res.device, res.found, reg)
+
     # 6. windowed device-state merge
     new_device_state = merge_batch_state(
         state.device_state,
@@ -278,7 +310,7 @@ def pipeline_step(
         persisted=m.persisted + persist.appended,
         reg_overflow=m.reg_overflow + reg_overflow,
         tenant_counters=m.tenant_counters + _tenant_counter_delta(
-            batch, accepted=res.found, invalid=res.miss),
+            batch, accepted=res.found, invalid=res.miss, zones=state.zones),
     )
 
     new_state = PipelineState(
@@ -289,6 +321,8 @@ def pipeline_step(
         next_assignment=next_assignment,
         metrics=metrics,
         windows=windows,
+        zones=state.zones,
+        rules=rules,
     )
     out = StepOutput(
         n_found=n_found,
@@ -301,3 +335,18 @@ def pipeline_step(
         store_epoch=persist.store.epoch,
     )
     return new_state, out
+
+
+def _sweep(state: PipelineState, now_ms: torch.Tensor,
+           missing_ms: torch.Tensor) -> tuple[PipelineState, torch.Tensor]:
+    ds, newly_missing = presence_sweep(
+        state.device_state, state.registry.device_active, now_ms, missing_ms)
+    return dataclasses.replace(state, device_state=ds), newly_missing
+
+
+def make_presence_sweep():
+    """The presence sweep over a whole state: ``sweep(state, now_ms,
+    missing_ms) -> (state, newly_missing)`` with int32 0-d ``now_ms`` and
+    ``missing_ms`` (eager torch has nothing to compile, so every call
+    returns the same function)."""
+    return _sweep

@@ -61,7 +61,7 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, (
         f"the port grew a JAX import:\n{res.stdout}\n{res.stderr}")
-    assert int(res.stdout.split()[0]) >= 20     # every module was walked
+    assert int(res.stdout.split()[0]) >= 35     # every module was walked
 
 
 def test_entry_points_raise_without_a_gpu():
@@ -74,6 +74,7 @@ def test_entry_points_raise_without_a_gpu():
     from sitewhere_tpu_torch.models.anomaly import AnomalyConfig, AnomalyModel
     from sitewhere_tpu_torch.models.transformer import (TelemetryTransformer,
                                                         TransformerConfig)
+    from sitewhere_tpu_torch.ops.rules import RollupBlock, RuleBlock
     from sitewhere_tpu_torch.pipeline import PipelineState
 
     calls = [
@@ -87,6 +88,13 @@ def test_entry_points_raise_without_a_gpu():
                                            lstm_hidden=8, latent=2)),
         lambda: TelemetryTransformer(TransformerConfig(sensors=2, d_model=16,
                                                        heads=1, layers=1, mlp=8)),
+        lambda: RuleBlock.zeros(
+            {k: [0] for k in ("active", "etype", "tenant", "ch_a", "val_a",
+                              "ch_b", "val_b", "window_ms")},
+            ((0, 0, 3, 0, -1),), groups=4),
+        lambda: RollupBlock.zeros(
+            {k: [0] for k in ("channel", "scope", "etype", "window_ms")},
+            groups=4, buckets=2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
