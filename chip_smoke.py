@@ -18,11 +18,13 @@ Phases, each printed as one JSON line:
              geofence zones and a rule set (every rule kind) installed,
              ``register_device``, ``process()`` of measurement, location
              and alert requests, ``flush()``, ``get_device_state``,
-             ``ingest_json_batch``, ``RulesManager.poll``,
-             ``query_events``, ``get_event``, ``presence_sweep`` and the
-             counters; the same stream through a CPU engine, whose state
-             and answers must be identical, and scores of both within
-             float32 tolerance.
+             ``ingest_json_batch`` (the native decoder into a staging
+             arena), ``RulesManager.poll``, ``query_events``,
+             ``get_event``, ``presence_sweep`` and the counters; the same
+             stream through a CPU engine and through a card engine on the
+             Python decode path (``use_native=False``), whose state and
+             answers must be identical, and scores within float32
+             tolerance.
 4. slice   — the main path at full width: the headline engine sizes, 80
              batches of 16384 events (10,000 auto-registered tokens, 8192
              analytics devices with 128-step windows of 100 channels)
@@ -48,6 +50,23 @@ Phases, each printed as one JSON line:
              ``presence_sweep``, ``RulesManager.poll``; every page, the
              harvest and the sweep rerun on a CPU copy of the state, and a
              CPU engine fed the first 4 batches, byte for byte.
+7. wire    — wire ingest and durability at bench.py's headline sizes
+             (16384-event batches, ``dispatch_depth=2``, 10,000 devices):
+             (a) ``run_engine_load``'s JSON stream, 4 + 40 batches,
+             through the native decoder and pinned staging arenas; (b) the
+             first 12 batches through the arena scan step
+             (``scan_chunk=4``), the copy path, binary frames, one decode
+             thread and a CPU engine, each byte for byte against a
+             headline engine; (c) the headline load with a group-commit
+             WAL, and calls of 256 payloads sharing its fsyncs; (d) a
+             snapshot after 4 batches, 8 more, a crash, and
+             ``recover_engine`` on the card and on the CPU against the
+             engine that never crashed; (e) the conservation ledger of
+             every engine. Prints events/s, latency, host ms per batch,
+             recovery seconds and peak memory on one ``wire:`` line.
+
+``--profile`` adds torch.profiler breakdowns after the checks of the
+slice, read, transformer and wire phases (a few steps or calls each).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and as the last line
@@ -65,6 +84,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -75,7 +95,11 @@ from sitewhere_tpu_torch import cuda_build
 from sitewhere_tpu_torch.core.events import EpochBase, EventBatch
 from sitewhere_tpu_torch.core.types import AUX_LANES, NULL_ID, EventType
 from sitewhere_tpu_torch.engine import Engine, EngineConfig
+from sitewhere_tpu_torch.ingest.arena import StagingArena
+from sitewhere_tpu_torch.ingest.decoders import (JsonDeviceRequestDecoder,
+                                                 encode_binary_request)
 from sitewhere_tpu_torch.ingest.requests import DecodedRequest, RequestType
+from sitewhere_tpu_torch.loadgen import batch_maker, run_engine_load
 from sitewhere_tpu_torch.models.anomaly import AnomalyConfig
 from sitewhere_tpu_torch.models.service import AnalyticsService
 from sitewhere_tpu_torch.models.transformer import (TelemetryTransformer,
@@ -88,6 +112,8 @@ from sitewhere_tpu_torch.ops.readback import arena_cursor
 from sitewhere_tpu_torch.ops.rules import harvest_fires
 from sitewhere_tpu_torch.pipeline import make_presence_sweep
 from sitewhere_tpu_torch.rules import RulesManager
+from sitewhere_tpu_torch.utils.checkpoint import recover_engine, save_engine
+from sitewhere_tpu_torch.utils.conservation import build_ledger, check_conservation
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, FP32
 # (non-tensor-core) and bf16 tensor-core operations/s; exponentials/s are
@@ -475,6 +501,18 @@ def _to_device(obj, dev):
     return obj
 
 
+def _alert_level_lane_rows(native, python) -> int | None:
+    """Store rows whose vmask differs between a native-decode engine and a
+    Python-decode one, when each is an alert row's lane 0 set on the
+    Python side only (None when any other vmask element differs)."""
+    diff = native.vmask != python.vmask
+    rows, lanes = diff.nonzero(as_tuple=True)
+    alert = native.etype[rows] == int(EventType.ALERT)
+    if bool((lanes == 0).all() and alert.all() and python.vmask[rows, 0].all()):
+        return int(rows.numel())
+    return None
+
+
 def phase_entry(device, log, fails) -> None:
     cfg = EngineConfig(device_capacity=1024, token_capacity=2048,
                        assignment_capacity=2048, store_capacity=1 << 14,
@@ -482,8 +520,11 @@ def phase_entry(device, log, fails) -> None:
                        analytics_window=128, presence_missing_s=3.0,
                        rule_groups=64, rollup_buckets=8)
     engines, managers = {}, {}
-    for label, dev in (("card", device), ("cpu", torch.device("cpu"))):
-        eng = Engine(cfg, device=dev)
+    # the native decoder on the card and on the CPU, and the Python decode
+    # path (asked for with use_native=False) on the card
+    for label, dev, native in (("card", device, True), ("cpu", torch.device("cpu"), True),
+                               ("python", device, False)):
+        eng = Engine(dataclasses.replace(cfg, use_native=native), device=dev)
         eng.epoch = PinnedEpoch(1e9)
         eng.set_geofence_zones(ENTRY_ZONES)
         managers[label] = RulesManager(eng)
@@ -532,8 +573,9 @@ def phase_entry(device, log, fails) -> None:
                 "entry: get_device_state differs from the CPU engine")
 
     # the read side and the rules tier on the same stream, card vs CPU
+    peng = engines["python"][0]
     reads = {}
-    for kind, e in (("card", eng), ("cpu", ceng)):
+    for kind, e in (("card", eng), ("cpu", ceng), ("python", peng)):
         r = reads[kind] = {"json": e.ingest_json_batch(_entry_payloads())}
         e.flush()
         r["alerts"] = managers[kind].poll(flush=True)
@@ -553,8 +595,18 @@ def phase_entry(device, log, fails) -> None:
         fails.check(reads["card"][key] == reads["cpu"][key],
                     f"entry: {key} differs from the CPU engine: "
                     f"{reads['card'][key]} vs {reads['cpu'][key]}")
+    # the Python path's summary has no "staged" count
+    reads["python"]["json"]["staged"] = reads["card"]["json"].get("staged")
+    for key in reads["card"]:
+        fails.check(reads["card"][key] == reads["python"][key],
+                    f"entry: {key} differs from the use_native=False engine: "
+                    f"{reads['card'][key]} vs {reads['python'][key]}")
     card = reads["card"]
-    fails.check(card["json"] == {"decoded": 7, "failed": 2}, f"entry: json {card['json']}")
+    fails.check(card["json"] == {"decoded": 7, "failed": 2, "staged": 7},
+                f"entry: json {card['json']}")
+    fails.check(eng._native_decoder is not None and peng._native_decoder is None
+                and eng.host_counters.get("arena_rows", 0) >= 7,
+                f"entry: the batch did not take the native arena path: {eng.host_counters}")
     fired = {a["rule"] for a in card["alerts"]}
     fails.check(fired == {r["name"] for r in ENTRY_RULES["rules"]},
                 f"entry: rules fired {sorted(fired)}")
@@ -566,6 +618,17 @@ def phase_entry(device, log, fails) -> None:
                                                  _state_leaves(ceng.state))
               if not torch.equal(a.cpu(), b)]
     fails.check(not differ, f"entry: state differs from the CPU engine in {differ}")
+    differ_py = [name for (name, a), (_, b) in zip(_state_leaves(eng.state),
+                                                    _state_leaves(peng.state))
+                 if not torch.equal(a, b)]
+    # one difference the JAX package has too: the native decoder leaves an
+    # alert row's level lane out of vmask, the Python path sets it
+    alert_lane_rows = _alert_level_lane_rows(eng.state.store, peng.state.store)
+    if alert_lane_rows:
+        differ_py.remove("store.vmask")
+    fails.check(not differ_py and alert_lane_rows is not None,
+                f"entry: state differs from the use_native=False engine in {differ_py} "
+                f"(alert level lanes {alert_lane_rows})")
     fails.check(eng.metrics() == ceng.metrics(),
                 f"entry: metrics differ: {eng.metrics()} vs {ceng.metrics()}")
 
@@ -581,7 +644,10 @@ def phase_entry(device, log, fails) -> None:
                                      rtol=SCORE_TOL, atol=1e-6)),
                 f"entry: scores differ from the CPU engine (max abs {score_err})")
     emit({"phase": "entry", "device_state": st, "metrics": eng.metrics(),
-          "state_leaves_equal_cpu": not differ, "score_max_abs_err_vs_cpu": score_err,
+          "state_leaves_equal_cpu": not differ,
+          "state_leaves_equal_python_decode": not differ_py,
+          "alert_rows_vmask_lane0_native_vs_python": alert_lane_rows,
+          "score_max_abs_err_vs_cpu": score_err,
           "score_tol": SCORE_TOL, "reads_equal_cpu": sorted(
               k for k in card if card[k] == reads["cpu"][k]),
           "rules_fired": sorted(fired), "alerts": len(card["alerts"]),
@@ -979,10 +1045,316 @@ def phase_read(device, log, fails, seed: int, slice_step_ms: float,
                  lambda: [eng.ingest_event_batch(b) for b in batches[-3:]], 3, log)
 
 
-def _profile(what: str, run, calls: int, log) -> None:
+# the wire phase: bench.py's headline engine (HEADLINE_CFG, bench.py:99-103;
+# channels at the default) fed run_engine_load's stream of DeviceMeasurement
+# JSON over 10,000 device tokens; 40 measured batches where the bench
+# measures 91, to keep the script's time
+WIRE_CONFIG = dict(device_capacity=1 << 15, token_capacity=1 << 16,
+                   assignment_capacity=1 << 16, store_capacity=1 << 18,
+                   batch_capacity=16384, scan_chunk=1, dispatch_depth=2)
+WIRE_DEVICES = 10_000
+WIRE_WARMUP, WIRE_BATCHES = 4, 40
+WIRE_PARITY_BATCHES = 12       # the engines held to each other byte for byte
+WIRE_SNAPSHOT_AFTER = 4        # the recovery drill's snapshot
+WIRE_SMALL_CALL = 256          # payloads a call in bench.py's WAL leg
+WIRE_CORE_METRICS = ("processed", "found", "missed", "registered", "persisted",
+                     "reg_overflow", "channel_collisions")
+
+
+class HostClock:
+    """Host time of each ingest call, split by wrapping the engine's own
+    methods on this instance: the arena dispatch (WAL gate, the copy and
+    step launches, the dispatch-depth wait), within it the WAL gate and the
+    depth wait, and the wait for a free arena. Decode + commit is the rest
+    of the call."""
+
+    PARTS = ("dispatch", "wal_gate", "depth_wait", "arena_wait")
+
+    def __init__(self, eng):
+        self.calls: list[dict] = []
+        self._cur = None
+        for name, part in (("_dispatch_arena", "dispatch"), ("_wal_gate", "wal_gate"),
+                           ("_enqueue_out", "depth_wait"), ("_acquire_arena", "arena_wait")):
+            self._wrap(eng, name, part)
+        for name in ("ingest_json_batch", "ingest_binary_batch"):
+            self._wrap_call(eng, name)
+
+    def _wrap(self, eng, name, part):
+        fn = getattr(eng, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if self._cur is not None:
+                    self._cur[part] += (time.perf_counter() - t0) * 1e3
+        setattr(eng, name, timed)
+
+    def _wrap_call(self, eng, name):
+        fn = getattr(eng, name)
+
+        def timed(*a, **kw):
+            self._cur = dict.fromkeys(self.PARTS, 0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._cur["total"] = (time.perf_counter() - t0) * 1e3
+                self.calls.append(self._cur)
+                self._cur = None
+        setattr(eng, name, timed)
+
+    def medians(self, last: int) -> dict:
+        calls = self.calls[-last:]
+        out = {f"{p}_ms": statistics.median(c[p] for c in calls) for p in self.PARTS}
+        out["decode_commit_ms"] = statistics.median(c["total"] - c["dispatch"]
+                                                    for c in calls)
+        out["ingest_call_ms"] = statistics.median(c["total"] for c in calls)
+        return out
+
+
+def wire_payloads(seed: int, n: int, batch: int, n_devices: int) -> list[list[bytes]]:
+    """The first ``n`` batches that run_engine_load sends (warm-up first)."""
+    make = batch_maker(n_devices, batch, seed)
+    return [make(b if b < WIRE_WARMUP else b - WIRE_WARMUP) for b in range(n)]
+
+
+def wire_engine(device, config: dict, **kw) -> Engine:
+    eng = Engine(EngineConfig(**{**config, **kw}), device=device)
+    eng.epoch = PinnedEpoch(1e9)
+    return eng
+
+
+def _mirrors(eng) -> dict:
+    return {"devices": {k: dataclasses.asdict(v) for k, v in eng.devices.items()},
+            "token_device": eng.token_device, "dead_letters": eng.dead_letters,
+            "tokens": [eng.tokens.token(i) for i in range(len(eng.tokens))],
+            "names": [eng.channel_map.names.token(i) for i in range(len(eng.channel_map.names))],
+            "metrics": {k: eng.metrics()[k] for k in WIRE_CORE_METRICS}}
+
+
+def _engines_differ(ref, eng) -> list[str]:
+    """State leaves and host mirrors where ``eng`` differs from ``ref``."""
+    out = [name for (name, a), (_, b) in zip(_state_leaves(ref.state), _state_leaves(eng.state))
+           if not torch.equal(a.cpu(), b.cpu())]
+    ma, mb = _mirrors(ref), _mirrors(eng)
+    return out + [f"mirror:{k}" for k in ma if ma[k] != mb[k]]
+
+
+def _conserved(eng, label: str, fails) -> list:
+    bad = [v.to_dict() for v in check_conservation(build_ledger(eng))]
+    fails.check(not bad, f"wire: conservation violated on the {label} engine: {bad}")
+    return bad
+
+
+def _load(eng, seed: int, n_batches: int, batch: int, n_devices: int, device):
+    """run_engine_load as bench.py runs its headline (pipelined), with the
+    host split per ingest call and the peak device memory."""
+    clock = HostClock(eng)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    stats = run_engine_load(eng, n_batches=n_batches, batch_size=batch, n_devices=n_devices,
+                            seed=seed, warmup_batches=WIRE_WARMUP, pipelined=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else None
+    return stats, clock, peak
+
+
+def phase_wire(device, log, fails, seed: int, config: dict = WIRE_CONFIG,
+               n_devices: int = WIRE_DEVICES, n_batches: int = WIRE_BATCHES,
+               parity_batches: int = WIRE_PARITY_BATCHES,
+               snapshot_after: int = WIRE_SNAPSHOT_AFTER, profile: bool = False) -> None:
+    """Wire ingest and durability at the bench's headline sizes: (a) the
+    headline load through the native decoder and the pinned staging
+    arenas; (b) the first batches through the arena scan step, the copy
+    path, binary frames, one decode thread and a CPU engine, each byte for
+    byte against a headline engine; (c) the headline load with a
+    group-commit WAL; (d) a snapshot, a crash and recovery against the
+    engine that never crashed, on the card and on the CPU; (e) the
+    conservation ledger of every engine."""
+    cpu = torch.device("cpu")
+    batch = config["batch_capacity"]
+    rows = (WIRE_WARMUP + n_batches) * batch
+    rec: dict = {"phase": "wire", "config": config, "devices": n_devices,
+                 "warmup_batches": WIRE_WARMUP, "batches": n_batches,
+                 "batches_bench": 91}
+
+    # (a) the headline load, as bench.py runs it
+    eng = wire_engine(device, config)
+    stats, clock, peak = _load(eng, seed, n_batches, batch, n_devices, device)
+    met = eng.metrics()
+    fails.check(stats.events_decoded == n_batches * batch and stats.events_failed == 0,
+                f"wire (a): decoded {stats.events_decoded} failed {stats.events_failed}")
+    fails.check(met["persisted"] == rows and met.get("arena_rows") == rows
+                and "staged_copy_rows" not in met,
+                f"wire (a): persisted {met['persisted']}, arena_rows "
+                f"{met.get('arena_rows')}, staged_copy_rows {met.get('staged_copy_rows')} "
+                f"for {rows} rows")
+    rec["headline"] = {**stats.to_dict(), **clock.medians(n_batches),
+                       "arena_pool_waits": met["arena_pool_waits"],
+                       "arena_pool_size": met["arena_pool_size"],
+                       "ingest_workers": met.get("ingest_workers", 1),
+                       "sharded_batches": met.get("sharded_batches", 0),
+                       "peak_mem_gb": peak, "metrics": met}
+    rec["conservation"] = {"headline": _conserved(eng, "headline", fails)}
+
+    # the native decoder's rate alone, one thread and sharded, into a spare
+    # arena (every token is interned already: the interners do not change)
+    pay = wire_payloads(seed, 1, batch, n_devices)[0]
+    spare = StagingArena(batch, eng.config.channels)
+    rates = {}
+    for label, dec in (("one_thread", eng._native_decoder), ("sharded", eng._sharder)):
+        if dec is not None:
+            ms = time_ms(lambda: dec.decode_into(pay, spare, 0), cpu, reps=7, warmup=2)
+            rates[label] = batch / ms * 1e3
+    rec["decode_msgs_per_s"] = rates
+    if profile and device.type == "cuda":   # after the checks: three more dispatches
+        more = wire_payloads(seed + 1, 3, batch, n_devices)
+        _profile("wire_dispatch", lambda: ([eng.ingest_json_batch(p) for p in more],
+                                           eng.barrier()), 3, log, family=_step_family)
+    del eng, clock
+
+    # (c) the same load with a group-commit write-ahead log
+    with tempfile.TemporaryDirectory(prefix="wire-") as tmp:
+        tmp = pathlib.Path(tmp)
+        weng = wire_engine(device, config, wal_dir=str(tmp / "wal"), wal_group_commit=True)
+        wstats, wclock, _ = _load(weng, seed, n_batches, batch, n_devices, device)
+        wmet = weng.metrics()
+        wsplit = wclock.medians(n_batches)
+        fsyncs, groups = weng.wal.fsyncs, weng.wal.commit_groups
+        fails.check(wstats.events_decoded == n_batches * batch and wstats.events_failed == 0
+                    and wmet["persisted"] == rows,
+                    f"wire (c): decoded {wstats.events_decoded} persisted {wmet['persisted']}")
+        # a headline call fills one arena, so it is one append group and one
+        # dispatch gate: at most one fsync a call
+        calls = WIRE_WARMUP + n_batches
+        fails.check(0 < fsyncs <= calls and groups == calls,
+                    f"wire (c): {fsyncs} fsyncs, {groups} append groups for {calls} calls")
+        # group commit amortizes once several calls share a dispatch:
+        # bench.py's WAL leg sends calls of 256 payloads (bench.py:720-747)
+        payloads = wire_payloads(seed, parity_batches, batch, n_devices)
+        small = [p[lo:lo + WIRE_SMALL_CALL] for p in payloads[:2]
+                 for lo in range(0, batch, WIRE_SMALL_CALL)]
+        for part in small:
+            weng.ingest_json_batch(part)
+        weng.barrier()
+        small_fsyncs = weng.wal.fsyncs - fsyncs
+        fails.check(0 < small_fsyncs < len(small)
+                    and weng.metrics()["persisted"] == rows + 2 * batch,
+                    f"wire (c): {small_fsyncs} fsyncs for {len(small)} calls of "
+                    f"{WIRE_SMALL_CALL} payloads")
+        rec["wal"] = {**wstats.to_dict(), **wsplit,
+                      "fsyncs": fsyncs, "commit_groups": groups, "calls": calls,
+                      "small_calls": len(small), "small_call_payloads": WIRE_SMALL_CALL,
+                      "small_calls_fsyncs": small_fsyncs,
+                      "arena_pool_waits": wmet["arena_pool_waits"]}
+        rec["wal_over_headline_events_per_s"] = wstats.events_per_s / stats.events_per_s
+        rec["conservation"]["wal"] = _conserved(weng, "WAL", fails)
+        weng.wal.close()
+        del weng, wclock
+
+        # (b) the first batches through the other paths, against a headline
+        # engine; the binary engine gets the same payloads as binary frames
+        decoder = JsonDeviceRequestDecoder()
+        frames = [[encode_binary_request(r) for p in b for r in decoder.decode(p, {})]
+                  for b in payloads]
+        variants = {"headline": (device, {}, False), "scan_chunk_4": (device, {"scan_chunk": 4}, False),
+                    "copy_path": (device, {"ingest_arenas": -1}, False),
+                    "binary_frames": (device, {}, True),
+                    "one_decode_thread": (device, {"ingest_workers": 1}, False),
+                    "cpu": (cpu, {}, False)}
+        parity, summaries, ref = {}, {}, None
+        for label, (dev, kw, binary) in variants.items():
+            e = wire_engine(dev, config, **kw)
+            t0 = time.perf_counter()
+            ingest = e.ingest_binary_batch if binary else e.ingest_json_batch
+            summaries[label] = [ingest(p) for p in (frames if binary else payloads)]
+            summaries[label].append(e.flush())
+            seconds = time.perf_counter() - t0
+            rec["conservation"][label] = _conserved(e, label, fails)
+            if ref is None:
+                ref = e
+                continue
+            differ = _engines_differ(ref, e)
+            fails.check(not differ and summaries[label] == summaries["headline"],
+                        f"wire (b): the {label} engine differs from the headline engine "
+                        f"after {parity_batches} batches in {differ[:8]}")
+            parity[label] = {"equal": not differ, "seconds": seconds}
+            del e
+        rec["parity"] = parity
+
+        # (d) the recovery drill: a snapshot after a few batches, the rest,
+        # then the engine is dropped without a flush (its WAL closed as the
+        # process would leave it)
+        wal_dir, snap = tmp / "drill-wal", tmp / "drill-snap"
+        deng = wire_engine(device, config, wal_dir=str(wal_dir))
+        for k, p in enumerate(payloads):
+            deng.ingest_json_batch(p)
+            if k + 1 == snapshot_after:
+                save_engine(deng, snap)
+        rec["conservation"]["drill"] = _conserved(deng, "drill", fails)
+        deng.wal.close()
+        del deng
+        t0 = time.perf_counter()
+        rengine = recover_engine(snap, wal_dir, device=device, epoch_cls=PinnedEpoch)
+        rengine.flush()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        recovery_s = time.perf_counter() - t0
+        rengine.wal.close()
+        differ = _engines_differ(ref, rengine)
+        fails.check(not differ, f"wire (d): the recovered engine differs from the engine "
+                    f"that never crashed in {differ[:8]}")
+        t0 = time.perf_counter()
+        crec = recover_engine(snap, wal_dir, device=cpu, epoch_cls=PinnedEpoch)
+        crec.flush()
+        cpu_recovery_s = time.perf_counter() - t0
+        crec.wal.close()
+        cdiffer = _engines_differ(rengine, crec)
+        fails.check(not cdiffer, f"wire (d): the CPU recovery differs from the card's "
+                    f"in {cdiffer[:8]}")
+        rec["recovery"] = {"snapshot_after_batches": snapshot_after,
+                           "replayed_batches": parity_batches - snapshot_after,
+                           "seconds": recovery_s, "cpu_seconds": cpu_recovery_s,
+                           "equal_uncrashed": not differ, "cpu_equal": not cdiffer}
+        rec["conservation"]["recovered"] = _conserved(rengine, "recovered", fails)
+        rec["conservation"]["cpu_recovered"] = _conserved(crec, "CPU recovered", fails)
+        del rengine, crec, ref
+    rec["card"] = card_line() if device.type == "cuda" else None
+    emit(rec, log)
+    h, w = rec["headline"], rec["wal"]
+    print(f"wire: {h['events_per_s']:.0f} events/s headline, {w['events_per_s']:.0f} with "
+          f"the WAL (ratio {rec['wal_over_headline_events_per_s']:.3f}); e2e p50 "
+          f"{h['latency_p50_ms']:.2f} ms p99 {h['latency_p99_ms']:.2f} ms; host per batch "
+          f"decode+commit {h['decode_commit_ms']:.2f} ms, dispatch {h['dispatch_ms']:.2f} ms; "
+          f"arena_pool_waits {h['arena_pool_waits']}; recovery {rec['recovery']['seconds']:.2f} s; "
+          f"peak device memory {h['peak_mem_gb']} GiB; {rec['card']}", flush=True)
+
+
+def _step_family(name: str) -> str:
+    """Kernel family of one device kernel of the fused step."""
+    n = name.lower()
+    if "memcpy" in n:
+        return "copy"
+    if "memset" in n:
+        return "memset"
+    if "sort" in n or "radix" in n or "cub::" in n and "scan" in n:
+        return "sort_scan"
+    if any(t in n for t in ("scatter", "index", "gather")):
+        return "scatter_gather"
+    if "reduce" in n:
+        return "reduce"
+    if "elementwise" in n:
+        return "elementwise"
+    return "other"
+
+
+def _profile(what: str, run, calls: int, log, family=None) -> None:
     """torch.profiler over ``run()`` (``calls`` calls): device time by
-    kernel and the device's busy share of the wall time (the rest is host
-    work and launch gaps)."""
+    kernel (and per call by ``family(kernel name)`` when given) and the
+    device's busy share of the wall time (the rest is host work and launch
+    gaps)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -992,9 +1364,17 @@ def _profile(what: str, run, calls: int, log) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     top, busy_ms = _device_time(prof)
-    emit({"phase": "profile", "what": what, "calls": calls,
-          "wall_ms_per_call": wall_ms / calls, "device_ms_per_call": busy_ms / calls,
-          "device_busy_share": busy_ms / wall_ms, "top": top}, log)
+    rec = {"phase": "profile", "what": what, "calls": calls,
+           "wall_ms_per_call": wall_ms / calls, "device_ms_per_call": busy_ms / calls,
+           "device_busy_share": busy_ms / wall_ms, "top": top}
+    if family is not None:
+        fams: dict[str, float] = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+                fam = family(e.key)
+                fams[fam] = fams.get(fam, 0.0) + e.self_device_time_total / 1e3 / calls
+        rec["device_ms_per_call_by_family"] = fams
+    emit(rec, log)
 
 
 def phase_profile(eng, svc, batches, log) -> None:
@@ -1105,7 +1485,8 @@ def main(argv=None) -> int:
                     help="also write every phase record to this JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="after the checks, profile a few steps (without and with zones "
-                         "and rules), one scoring call and one transformer call")
+                         "and rules), one scoring call, one transformer call and three "
+                         "wire-ingest dispatches")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1133,6 +1514,7 @@ def main(argv=None) -> int:
     launches = launches | phase_transformer(device, log, fails, args.seed,
                                             profile=args.profile)
     phase_read(device, log, fails, args.seed, slice_step_ms, profile=args.profile)
+    phase_wire(device, log, fails, args.seed, profile=args.profile)
     kernels = [dict(k, launches=launches[k["name"]], **timing[k["name"]])
                for k in KERNELS]
     if args.out is not None:

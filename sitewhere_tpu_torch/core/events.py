@@ -4,8 +4,8 @@ tensors (port of ``sitewhere_tpu/core/events.py``).
 A batch of decoded events is one dataclass of flat tensors, so one pipeline
 step runs over the whole batch. Timestamps are int32 milliseconds relative
 to a host-held epoch base (:class:`EpochBase`), as in the JAX package.
-The pack/unpack pair of the JAX module is not ported: only its scan-chunk
-dispatch paths use it.
+:func:`pack_batches` / :func:`unpack_batch` carry K host batches to the
+device as one contiguous byte buffer (the engine's scan-chunk copy path).
 """
 
 from __future__ import annotations
@@ -84,6 +84,54 @@ class EventBatch:
             arr = np.ascontiguousarray(cols[f.name])
             out[f.name] = torch.from_numpy(arr).to(dev, copy=True)
         return EventBatch(**out)
+
+
+def pack_batches(batches: list[EventBatch]) -> np.ndarray:
+    """Pack numpy-backed EventBatches (``HostEventBuffer.emit_host``) into
+    ONE contiguous uint8 array [K, row_bytes], so K batches reach the
+    device in one transfer; :func:`unpack_batch` reads a row back."""
+    rows = []
+    for b in batches:
+        rows.append(np.concatenate([
+            np.ascontiguousarray(getattr(b, name)).view(np.uint8).ravel()
+            for name in _PACKED_FIELDS]))
+    return np.stack(rows)
+
+
+# the packed row layout, in order (seq is not packed: it is arange(B))
+_PACKED_FIELDS = ("valid", "etype", "token_id", "tenant_id", "ts_ms",
+                  "received_ms", "values", "vmask", "aux")
+
+
+def unpack_batch(row: torch.Tensor, capacity: int, channels: int) -> EventBatch:
+    """Inverse of :func:`pack_batches` for one packed uint8 row (on any
+    device): byte slices reinterpreted as the batch's dtypes."""
+    b, c = capacity, channels
+    off = 0
+
+    def take(nbytes: int) -> torch.Tensor:
+        nonlocal off
+        part = row[off:off + nbytes]
+        off += nbytes
+        return part
+
+    def as_type(part: torch.Tensor, dtype, shape) -> torch.Tensor:
+        # clone: a reinterpreting view needs an aligned, zero-offset buffer
+        return part.clone().view(dtype).reshape(shape)
+
+    i32 = torch.int32
+    return EventBatch(
+        valid=take(b).to(torch.bool),
+        etype=as_type(take(4 * b), i32, (b,)),
+        token_id=as_type(take(4 * b), i32, (b,)),
+        tenant_id=as_type(take(4 * b), i32, (b,)),
+        ts_ms=as_type(take(4 * b), i32, (b,)),
+        received_ms=as_type(take(4 * b), i32, (b,)),
+        values=as_type(take(4 * b * c), torch.float32, (b, c)),
+        vmask=take(b * c).reshape(b, c).to(torch.bool),
+        aux=as_type(take(4 * b * AUX_LANES), i32, (b, AUX_LANES)),
+        seq=torch.arange(b, dtype=i32, device=row.device),
+    )
 
 
 class EpochBase:
@@ -165,15 +213,14 @@ class HostEventBuffer:
         self._n = i + 1
         return True
 
-    def emit(self, device: str | torch.device = DEFAULT_DEVICE) -> EventBatch:
-        """Copy the staged rows to ``device`` as an EventBatch and reset the
-        buffer (which re-allocates, so the emitted batch never aliases later
-        staging)."""
+    def emit_host(self) -> EventBatch:
+        """The staged rows as a numpy-backed EventBatch, and reset the
+        buffer (which re-allocates, so the emitted batch never aliases
+        later staging)."""
         n = self._n
         valid = np.zeros(self.capacity, np.bool_)
         valid[:n] = True
-        batch = EventBatch.from_numpy(
-            device,
+        batch = EventBatch(
             valid=valid,
             etype=self.etype,
             token_id=self.token_id,
@@ -188,3 +235,11 @@ class HostEventBuffer:
         self._n = 0
         self._alloc()
         return batch
+
+    def emit(self, device: str | torch.device = DEFAULT_DEVICE) -> EventBatch:
+        """Copy the staged rows to ``device`` as an EventBatch and reset the
+        buffer."""
+        dev = resolve_device(device)
+        host = self.emit_host()
+        return EventBatch.from_numpy(dev, **{f.name: getattr(host, f.name)
+                                             for f in dataclasses.fields(host)})

@@ -1,24 +1,38 @@
-"""The host engine, minimal surface (port of part of ``sitewhere_tpu/engine.py``).
+"""The host engine (port of ``sitewhere_tpu/engine.py``).
 
 Owns the interners (device tokens, tenants, measurement channels, alert
-types), the staging buffer, the device-resident pipeline state and the host
-mirror of registry metadata. Ported so far:
+types), the staging arenas and buffer, the device-resident pipeline state
+and the host mirror of registry metadata. Ported so far:
 
-- ingest: per-request ``process()`` (without the write-ahead log),
-  ``ingest_json_batch`` through the Python decoder (the JAX engine's
-  Python path), ``ingest_event_batch`` for batches built on the host in
-  bulk, ``flush()`` as one pipeline step per staged batch and ``drain``
-  with the host mirrors of auto-registration;
-- admin and state: ``register_device``, ``get_device_state``,
-  ``search_device_states``, ``presence_sweep``, ``set_geofence_zones``;
+- wire ingest: ``ingest_json_batch`` / ``ingest_binary_batch`` through the
+  native decoder (``native/src/swtpu.cpp``, built on first use) straight
+  into pooled staging arenas (page-locked on a CUDA engine) that dispatch
+  with one asynchronous copy, optionally decoded by several threads
+  (``ingest_workers``), with strict channel mode; the copy-staging path
+  (``ingest_arenas=-1``); the Python decode path only when asked for
+  (``use_native=False``); per-request ``process()``, registration and
+  mapping envelopes included; ``ingest_event_batch`` for batches built on
+  the device in bulk;
+- dispatch: ``flush_async`` / ``flush`` / ``maybe_flush`` / ``barrier``
+  with ``scan_chunk`` (K batches a dispatch) and ``dispatch_depth``
+  (outstanding steps before the host waits), ``drain`` with the host
+  mirrors of auto-registration;
+- durability: the write-ahead log (``wal_dir``, group commit), appended
+  before staging and fsync'd before the dispatch that copies its rows to
+  the device; snapshots and recovery live in ``utils/checkpoint.py``, the
+  conservation ledger in ``utils/conservation.py``;
+- admin and state: ``register_device``, ``map_device``,
+  ``get_device_state``, ``search_device_states``, ``presence_sweep``,
+  ``set_geofence_zones``;
 - reads: ``query_events`` through the shared-scan :class:`QueryBatcher`,
   ``get_event`` (ring only), ``tenant_metrics``,
   ``tenant_pipeline_counters``, ``metrics()``;
 - the streaming-rules tier: ``set_rules``, ``poll_rule_fires``,
   ``rule_counters`` (rules/manager.py drives them).
 
-The native decoder, the WAL, the archive tier and the multi-chip engines
-are not ported yet.
+Not ported yet: the flight recorder and span tracer (summaries carry no
+``trace_id``), the multiprocess decode pool, fair tenancy, QoS, the
+autotuner, the replica feed, the archive tier and the multi-chip engines.
 
 Auto-registration happens on the device (ops/registration.py); the host
 mirrors it from the step's ``new_tokens`` (allocation order == list order).
@@ -28,22 +42,30 @@ row with :func:`_admin_create_device`, bumping the same counters.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import threading
+import time
 from typing import Any
 
 import numpy as np
 import torch
 
 from sitewhere_tpu_torch.compat import DEFAULT_DEVICE, resolve_device
-from sitewhere_tpu_torch.core.events import EpochBase, EventBatch, HostEventBuffer
+from sitewhere_tpu_torch.core.events import (EpochBase, EventBatch,
+                                             HostEventBuffer, pack_batches)
 from sitewhere_tpu_torch.core.registry import MAX_ACTIVE_ASSIGNMENTS, TokenInterner
 from sitewhere_tpu_torch.core.state import RECENT_DEPTH
-from sitewhere_tpu_torch.core.types import (DEFAULT_VALUE_CHANNELS, NULL_ID,
-                                            DeviceAssignmentStatus, EventType,
-                                            PresenceState)
-from sitewhere_tpu_torch.ingest.decoders import JsonDeviceRequestDecoder
-from sitewhere_tpu_torch.ingest.requests import EventDecodeException, RequestType
+from sitewhere_tpu_torch.core.types import (AUX_LANES, DEFAULT_VALUE_CHANNELS,
+                                            NULL_ID, DeviceAssignmentStatus,
+                                            EventType, PresenceState)
+from sitewhere_tpu_torch.ingest.decoders import (BinaryEventDecoder,
+                                                 JsonDeviceRequestDecoder,
+                                                 encode_binary_request)
+from sitewhere_tpu_torch.ingest.fast_decode import (RT_ACK, RT_MAP, RT_REGISTER,
+                                                    RTYPE_TO_ETYPE)
+from sitewhere_tpu_torch.ingest.requests import DecodedRequest, RequestType
 from sitewhere_tpu_torch.ops.geofence import pack_zones
 from sitewhere_tpu_torch.ops.query import QueryParams, bucket_limit, query_store_batch
 from sitewhere_tpu_torch.ops.readback import arena_cursor, read_range
@@ -51,25 +73,68 @@ from sitewhere_tpu_torch.ops.rules import harvest_fires
 from sitewhere_tpu_torch.pipeline import (TENANT_COUNTER_BUCKETS,
                                           TENANT_COUNTER_LANES, PipelineConfig,
                                           PipelineState, StepOutput, ZoneTable,
+                                          make_arena_scan_step,
+                                          make_packed_scan_step,
                                           make_presence_sweep, pipeline_step)
+from sitewhere_tpu_torch.utils.conservation import FlowLedger
+
+# WAL record format tags (first byte of every logged payload): recovery
+# replays each record through the decoder that originally accepted it
+WAL_JSON = b"\x01"
+WAL_BINARY = b"\x02"
+
+
+class ChannelCapacityError(ValueError):
+    """Raised in strict channel mode when distinct measurement names exceed
+    the configured channel count."""
 
 
 class ChannelMap:
     """Measurement-name -> channel-index interner (per engine). Beyond
-    ``channels`` distinct names, lanes are reused modulo and each collision
-    is counted (the JAX engine's lenient mode; its strict mode is not
-    ported)."""
+    ``channels`` distinct names, strict engines raise
+    :class:`ChannelCapacityError`; lenient engines reuse lanes modulo and
+    count each collision."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, names=None, strict: bool = False):
         self.channels = channels
-        self.names = TokenInterner(1 << 20)
+        self.names = names if names is not None else TokenInterner(1 << 20)
         self.collisions = 0
+        self.strict = strict
 
     def channel_of(self, name: str) -> int:
         nid = self.names.intern(name)
         if nid >= self.channels:
             self.collisions += 1
+            if self.strict:
+                raise ChannelCapacityError(
+                    f"measurement name {name!r} exceeds channel capacity "
+                    f"{self.channels}; raise EngineConfig.channels or drop "
+                    "strict_channels")
         return nid % self.channels
+
+    def validate(self, names) -> None:
+        """Strict-mode capacity check without interning: a rejected request
+        must not consume lanes, so names intern only once the request is
+        accepted (``channel_of`` on the staging pass)."""
+        if not self.strict:
+            return
+        unseen: set[str] = set()
+        for name in names:
+            nid = self.names.lookup(name)
+            if nid < 0:
+                unseen.add(name)
+            elif nid >= self.channels:
+                self.collisions += 1
+                raise ChannelCapacityError(
+                    f"measurement name {name!r} exceeds channel capacity "
+                    f"{self.channels}; raise EngineConfig.channels or drop "
+                    "strict_channels")
+        if len(self.names) + len(unseen) > self.channels:
+            self.collisions += 1
+            raise ChannelCapacityError(
+                f"{len(unseen)} new measurement name(s) would exceed channel "
+                f"capacity {self.channels}; raise EngineConfig.channels or "
+                "drop strict_channels")
 
 
 def _empty_summary() -> dict:
@@ -89,6 +154,22 @@ def _merge_summaries(summaries: list[dict]) -> dict:
     return out
 
 
+def _empty_host_batch(capacity: int, channels: int) -> EventBatch:
+    """All-invalid numpy-backed EventBatch (tail padding of a scan chunk)."""
+    return EventBatch(
+        valid=np.zeros(capacity, np.bool_),
+        etype=np.zeros(capacity, np.int32),
+        token_id=np.full(capacity, NULL_ID, np.int32),
+        tenant_id=np.full(capacity, NULL_ID, np.int32),
+        ts_ms=np.zeros(capacity, np.int32),
+        received_ms=np.zeros(capacity, np.int32),
+        values=np.zeros((capacity, channels), np.float32),
+        vmask=np.zeros((capacity, channels), np.bool_),
+        aux=np.full((capacity, AUX_LANES), NULL_ID, np.int32),
+        seq=np.arange(capacity, dtype=np.int32),
+    )
+
+
 @dataclasses.dataclass
 class EngineConfig:
     """The ported subset of ``sitewhere_tpu.engine.EngineConfig`` (same
@@ -100,10 +181,38 @@ class EngineConfig:
     store_capacity: int = 1 << 18
     channels: int = DEFAULT_VALUE_CHANNELS
     batch_capacity: int = 8192
+    flush_interval_s: float = 0.05     # max added latency before maybe_flush
+                                       # forces a flush
     default_device_type: str = "default"
+    presence_missing_s: float = 8 * 3600.0  # presence sweep's missing interval
+    use_native: bool = True            # C++ decode and interning; a failed
+                                       # build raises. False = the Python
+                                       # decode path
+    strict_channels: bool = False      # raise (instead of aliasing lanes)
+                                       # past the channel capacity
+    wal_dir: str | None = None         # write-ahead log directory; None
+                                       # disables the log
+    wal_group_commit: bool = True      # appends buffer, a commit thread
+                                       # fsyncs once per quiescent window,
+                                       # and dispatch waits for durability
+    wal_group_window_s: float = 0.002  # the commit thread's quiescent window
+    ingest_workers: int = 0            # threads decoding one wire batch
+                                       # into disjoint arena rows (byte-
+                                       # identical to one thread); 0 = one
+                                       # per core, 1 = single-threaded
+    scan_chunk: int = 1                # >1: K batches a dispatch (one copy,
+                                       # K steps); adds up to K-1 batches
+                                       # of latency
+    dispatch_depth: int = 1            # outstanding dispatches before the
+                                       # host waits for the oldest
     analytics_devices: int = 0         # device-resident telemetry windows for [0, M)
     analytics_window: int = 128        # W timesteps per window
-    presence_missing_s: float = 8 * 3600.0  # presence sweep's missing interval
+    ingest_arenas: int = 0             # staging arenas of the native batch
+                                       # path: 0 = dispatch_depth + 2,
+                                       # -1 = the copy-staging path
+    arena_stall_timeout_s: float | None = None  # bound the wait for a free
+                                       # arena: ArenaStallError instead of
+                                       # hanging on a wedged dispatch
     rule_groups: int = 1024            # group slots (device/area/tenant ids)
                                        # each rule and rollup tracks; ids
                                        # beyond count as out-of-band
@@ -111,6 +220,8 @@ class EngineConfig:
                                        # (rollup, group)
     rule_pending: int = 4              # pending-fire ring depth per
                                        # (rule, group)
+    conservation: bool = True          # count the conservation ledger's
+                                       # staged and dispatched rows
 
 
 @dataclasses.dataclass
@@ -180,6 +291,14 @@ def _admin_create_device(state: PipelineState, token_id: int, device_id: int,
         next_assignment=torch.clamp(state.next_assignment,
                                     min=assignment_id + 1),
     )
+
+
+def _admin_set_parent(state: PipelineState, device_id: int,
+                      parent_id: int) -> PipelineState:
+    """Write one device's gateway/composite parent (MapDevice)."""
+    reg = state.registry
+    return dataclasses.replace(state, registry=dataclasses.replace(
+        reg, device_parent=_set_at(reg.device_parent, device_id, parent_id)))
 
 
 # rule/rollup parameter columns: a swap that keeps shapes and layout
@@ -351,16 +470,33 @@ class Engine:
         self.epoch = EpochBase()
         self.lock = threading.RLock()
         self.host_counters: dict[str, int] = {}
-        self.tokens = TokenInterner(c.token_capacity)
-        self.channel_map = ChannelMap(c.channels)
-        self.alert_types = TokenInterner(1 << 20)
+        # the native data plane (C++ decode + interning) unless the caller
+        # asks for the Python path; a failed build raises here
+        self._native_decoder = None
+        if c.use_native:
+            from sitewhere_tpu_torch.ingest.fast_decode import NativeBatchDecoder
+            from sitewhere_tpu_torch.native.binding import NativeInterner
+
+            self.tokens = NativeInterner(c.token_capacity)
+            self._native_decoder = NativeBatchDecoder(self.tokens, c.channels)
+            self.channel_map = ChannelMap(c.channels, self._native_decoder.names,
+                                          strict=c.strict_channels)
+            self.alert_types = self._native_decoder.alert_types
+            # alternate/correlation ids (the aux1 lane): the engine adopts
+            # the decoder's interner so the batch path and process() hand
+            # out the same ids
+            self.event_ids = self._native_decoder.event_ids
+        else:
+            self.tokens = TokenInterner(c.token_capacity)
+            self.channel_map = ChannelMap(c.channels, strict=c.strict_channels)
+            self.alert_types = TokenInterner(1 << 20)
+            self.event_ids = TokenInterner(1 << 22)
         self.tenants = TokenInterner(1 << 16)
         self.tenants.intern("default")
         self.device_types = TokenInterner(1 << 16)
         self.device_types.intern(c.default_device_type)
         self.areas = TokenInterner(1 << 16)
         self.customers = TokenInterner(1 << 16)
-        self.event_ids = TokenInterner(1 << 22)
         self.pipeline_config = PipelineConfig()
         self.state = PipelineState.create(
             c.device_capacity, c.token_capacity, c.assignment_capacity,
@@ -369,7 +505,42 @@ class Engine:
             analytics_window=c.analytics_window,
             device=self.device,
         )
+        self._scan_step = make_packed_scan_step(
+            self.pipeline_config, c.batch_capacity, c.channels)
         self._buf = HostEventBuffer(c.batch_capacity, c.channels)
+        self._staged_batches: list[EventBatch] = []   # emitted host batches
+                                                      # awaiting a scan chunk
+        # zero-copy arena ingest (native batch decode only): the scanner
+        # writes straight into pooled staging columns that one copy moves
+        # to the device; with scan_chunk K > 1 an arena holds K batches
+        # and one dispatch runs K steps on its lanes
+        self._arena_pool = None
+        self._arena_fill = None
+        self._arena_step = None
+        self._arena_committing = False
+        self._arena_dispatches = 0
+        if self._native_decoder is not None and c.ingest_arenas >= 0:
+            from sitewhere_tpu_torch.ingest.arena import ArenaPool
+
+            k = max(1, c.scan_chunk)
+            self._arena_pool = ArenaPool(
+                c.ingest_arenas or max(1, c.dispatch_depth) + 2,
+                c.batch_capacity * k, c.channels, lanes=k,
+                pin=self.device.type == "cuda")
+            if k > 1:
+                self._arena_step = make_arena_scan_step(
+                    self.pipeline_config, c.batch_capacity, c.channels, k)
+        # one wire batch decoded by several threads into disjoint arena
+        # rows, byte-identical to one thread
+        self._sharder = None
+        if self._arena_pool is not None:
+            n_workers = c.ingest_workers or (os.cpu_count() or 1)
+            if n_workers > 1:
+                from sitewhere_tpu_torch.ingest.workers import ShardedArenaDecoder
+
+                self._sharder = ShardedArenaDecoder(self._native_decoder,
+                                                    n_workers)
+        self._last_flush = time.monotonic()
         # host mirrors
         self.devices: dict[int, DeviceInfo] = {}           # device_id -> info
         self.token_device: dict[int, int] = {}             # token_id -> device_id
@@ -381,33 +552,147 @@ class Engine:
         self.dead_letters: list[int] = []                  # unregistered token ids
         self.outputs: list[dict] = []                      # recent step summaries
         self._pending_outs: list[StepOutput] = []          # un-absorbed outputs
+        self._pending_fences: list = []                    # their fences
         self._query_batcher = QueryBatcher(self)
+        # conservation ledger: rows staged and rows dispatched
+        self.ledger = FlowLedger(enabled=c.conservation)
+        # durability: accepted payloads append to the WAL before staging,
+        # tagged by wire format so recovery replays each through the
+        # decoder that accepted it (utils/checkpoint.recover_engine)
+        self.wal = None
+        self._wal_local = threading.local()   # re-entrancy guard per thread
+        self._wal_last_seq = 0   # newest append ticket; dispatch gates on it
+        if c.wal_dir:
+            from sitewhere_tpu_torch.utils.ingestlog import IngestLog
+
+            self.wal = IngestLog(c.wal_dir, group_commit=c.wal_group_commit,
+                                 group_window_s=c.wal_group_window_s)
+
+    def _step(self, state: PipelineState, batch: EventBatch):
+        return pipeline_step(state, batch, self.pipeline_config)
+
+    def _fence(self):
+        """A CUDA event recorded after the work enqueued so far on the
+        engine's stream (the copy and the step of the latest dispatch), or
+        None on the CPU, where that work has already run."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    @property
+    def staged_count(self) -> int:
+        return (len(self._buf)
+                + (self._arena_fill.cursor if self._arena_fill is not None
+                   else 0)
+                + sum(int(np.sum(b.valid)) for b in self._staged_batches))
 
     def _sync_mirrors(self) -> None:
-        """Run any staged batch and absorb pending outputs (lock held)."""
-        while len(self._buf):
+        """Make host mirrors current: dispatch staged rows and absorb the
+        pending outputs (lock held). The fill arena is not dispatched
+        mid-commit: a registration envelope's admin path re-enters here
+        while the arena's valid mask is still being built, and its
+        committed rows dispatch when the commit finishes."""
+        while (len(self._buf)
+               or (self._arena_fill is not None and self._arena_fill.cursor
+                   and not self._arena_committing)):
             self.flush_async()
+        if self._staged_batches:
+            self._dispatch_staged(all_batches=True)
         if self._pending_outs:
             self.drain()
 
+    # ------------------------------------------------------------------ WAL
+    def _wal_append(self, tag: bytes, payloads: list[bytes],
+                    tenant: str) -> None:
+        """Log accepted payloads, under the engine lock (a snapshot's
+        watermark can never cover a record whose events were not staged).
+        No-op while replaying, or while an outer ingest path on this
+        thread already logged the raw batch. With group commit the append
+        buffers and returns a ticket; :meth:`_wal_gate` holds the dispatch
+        until it is durable. Without it, the group is written and flushed
+        inline."""
+        if self.wal is None or getattr(self._wal_local, "depth", 0):
+            return
+        self._wal_last_seq = self.wal.append_many(
+            payloads, tag + tenant.encode() + b"\x00")
+        if not self.wal.group_commit:
+            self.wal.flush()
+
+    def _wal_gate(self) -> None:
+        """Block until every WAL record appended so far is durable — called
+        under the engine lock before a dispatch enqueues its host-to-device
+        copy. No-op without a WAL or without group commit (whose appends
+        flushed inline)."""
+        if self.wal is None or not self.wal.group_commit:
+            return
+        self.wal.wait_durable(self._wal_last_seq)
+
+    @contextlib.contextmanager
+    def _wal_suppress(self):
+        """Suppress WAL logging for nested process() calls on this thread
+        (their raw batch is already logged)."""
+        self._wal_local.depth = getattr(self._wal_local, "depth", 0) + 1
+        try:
+            yield
+        finally:
+            self._wal_local.depth -= 1
+
+    def _wal_admin_register(self, token: str, device_type: str, tenant: str,
+                            area: str | None, customer: str | None) -> None:
+        """Log an admin-path registration as its wire-form REGISTER
+        envelope, in the critical section of the mutation, so that WAL
+        replay recreates it. The wire path already logged its envelope and
+        re-enters under ``_wal_suppress``: no-op there."""
+        if self.wal is None or getattr(self._wal_local, "depth", 0):
+            return
+        extras = {"deviceTypeToken": device_type}
+        if area:
+            extras["areaToken"] = area
+        if customer:
+            extras["customerToken"] = customer
+        req = DecodedRequest(type=RequestType.REGISTER_DEVICE,
+                             device_token=token, tenant=tenant, extras=extras)
+        self._wal_append(WAL_BINARY, [encode_binary_request(req)], tenant)
+
     # ------------------------------------------------------------------ ingest
     def process(self, req) -> None:
-        """Stage one decoded request; flushes when the staging batch fills.
-        Registration envelopes take the admin path; event requests convert
-        to one staged SoA row."""
+        """Stage one decoded request (the per-request path); flushes when
+        the staging batch fills. Registration and mapping envelopes take
+        the admin path; event requests convert to one staged SoA row."""
         with self.lock:
+            if self.channel_map.strict and req.measurements:
+                # strict mode rejects before the WAL append (a refused
+                # event is never durable) and without interning (refused
+                # names leak no lanes)
+                self.channel_map.validate(req.measurements)
+            if self.wal is not None:
+                # log the request in the binary wire form when it has one;
+                # other types are snapshot-only
+                try:
+                    self._wal_append(WAL_BINARY, [encode_binary_request(req)],
+                                     req.tenant)
+                except KeyError:
+                    pass
             if req.type is RequestType.REGISTER_DEVICE:
-                self.register_device(
-                    req.device_token,
-                    device_type=req.extras.get("deviceTypeToken",
-                                               self.config.default_device_type),
-                    tenant=req.tenant,
-                    area=req.extras.get("areaToken"),
-                    customer=req.extras.get("customerToken"),
-                )
+                # the envelope above is this registration's WAL record
+                with self._wal_suppress():
+                    self.register_device(
+                        req.device_token,
+                        device_type=req.extras.get(
+                            "deviceTypeToken", self.config.default_device_type),
+                        tenant=req.tenant,
+                        area=req.extras.get("areaToken"),
+                        customer=req.extras.get("customerToken"),
+                    )
                 return
             if req.type is RequestType.MAP_DEVICE:
-                raise NotImplementedError("device mapping is not ported yet")
+                parent = (req.extras.get("parentToken")
+                          or req.extras.get("parentHardwareId"))
+                if parent:
+                    self.map_device(req.device_token, parent)
+                return
             et = req.event_type
             if et is None:
                 return
@@ -457,6 +742,7 @@ class Engine:
         Caller holds the lock."""
         self.host_counters["staged_copy_rows"] = \
             self.host_counters.get("staged_copy_rows", 0) + 1
+        self.ledger.add("staged_rows", 1)
         i = len(self._buf)
         if not self._buf.append(et, token_id, tenant_id, ts, now, (), aux0, aux1):
             self.flush_async()
@@ -470,71 +756,485 @@ class Engine:
 
     def ingest_json_batch(self, payloads: list[bytes],
                           tenant: str = "default") -> dict:
-        """Decode a batch of JSON device-request payloads and stage each
-        request through :meth:`process` — the JAX engine's Python decode
-        path. Returns ``{"decoded", "failed"}``; a payload that does not
-        decode counts as failed and is skipped."""
-        dec = JsonDeviceRequestDecoder()
-        failed = 0
+        """Decode a batch of JSON device-request payloads in one native call
+        and stage them vectorized (no per-event Python); with
+        ``use_native=False``, decode each payload in Python and stage it
+        through :meth:`process`. Returns ``{"decoded", "failed"}`` (and
+        ``"staged"`` on the native path). Registration and mapping
+        envelopes take the per-request path."""
+        return self._ingest_batch(
+            payloads, tenant, WAL_JSON, JsonDeviceRequestDecoder(),
+            self._native_decoder.decode if self._native_decoder else None,
+            binary=False)
+
+    def ingest_binary_batch(self, payloads: list[bytes],
+                            tenant: str = "default") -> dict:
+        """:meth:`ingest_json_batch` for the flat-binary wire format
+        (``ingest/decoders.encode_binary_request``)."""
+        return self._ingest_batch(
+            payloads, tenant, WAL_BINARY, BinaryEventDecoder(),
+            self._native_decoder.decode_binary if self._native_decoder
+            else None, binary=True)
+
+    def _ingest_batch(self, payloads: list[bytes], tenant: str, tag: bytes,
+                      dec, native_fn, binary: bool) -> dict:
+        """The batch skeleton: strict validation -> WAL -> stage.
+        ``native_fn`` is the native SoA decoder call (None = Python)."""
+        if native_fn is None:
+            with self.lock:
+                predecoded = self._strict_predecode(payloads, dec)
+                self._wal_append(tag, payloads, tenant)
+                return self._ingest_python_fallback(payloads, tenant, dec,
+                                                    predecoded)
+        if self.config.strict_channels:
+            # strict decodes under the lock, so a rejected batch can roll
+            # back the names it interned without clobbering a concurrent
+            # batch's
+            with self.lock:
+                names_before = len(self.channel_map.names)
+                res = native_fn(payloads)
+                self._check_strict_native(res, names_before)
+                self._wal_append(tag, payloads, tenant)
+                return self._ingest_decoded(res, payloads, tenant, dec)
+        if self._arena_pool is not None:
+            return self._ingest_batch_arena(payloads, tenant, tag, dec, binary)
+        # copy path: decode outside the lock, log and stage atomically
+        res = native_fn(payloads)
         with self.lock:
-            for p in payloads:
-                try:
-                    reqs = dec.decode(p, {})
-                except EventDecodeException:
-                    failed += 1
-                    continue
-                for req in reqs:
-                    req.tenant = tenant
-                    self.process(req)
+            self._wal_append(tag, payloads, tenant)
+            return self._ingest_decoded(res, payloads, tenant, dec)
+
+    def _strict_predecode(self, payloads, dec):
+        """Strict pre-pass of the Python path: decode once and check the
+        channel capacity without interning, so a rejected batch leaks no
+        lanes. Returns the per-payload request lists (None = failed) for
+        :meth:`_ingest_python_fallback`; None when strict mode is off.
+        Caller holds the lock."""
+        if not self.channel_map.strict:
+            return None
+        decoded: list[list | None] = []
+        names: list[str] = []
+        for p in payloads:
+            try:
+                reqs = dec.decode(p, {})
+            except Exception:
+                decoded.append(None)   # counted failed on the ingest pass
+                continue
+            decoded.append(reqs)
+            for req in reqs:
+                names.extend(req.measurements or ())
+        self.channel_map.validate(names)
+        return decoded
+
+    def _check_strict_native(self, res, names_before: int) -> None:
+        """Strict native path: on any lane collision the whole batch is
+        rejected before the WAL and staging, and the names it interned
+        roll back. Caller holds the lock."""
+        if not self.config.strict_channels or not res.collisions:
+            return
+        self.channel_map.names.truncate(names_before)
+        self.channel_map.collisions += res.collisions
+        raise ChannelCapacityError(
+            f"{res.collisions} measurement lane collision(s) in batch: "
+            f"distinct names exceed channel capacity "
+            f"{self.config.channels}; raise channels or drop strict_channels")
+
+    def _ingest_python_fallback(self, payloads, tenant, dec,
+                                predecoded=None) -> dict:
+        """Per-request staging; reuses the strict pre-pass's decode when
+        there is one. A payload that fails to decode or to stage counts as
+        failed."""
+        failed = 0
+        with self._wal_suppress():   # the raw batch is already logged
+            if predecoded is not None:
+                for reqs in predecoded:
+                    if reqs is None:
+                        failed += 1
+                        continue
+                    for req in reqs:
+                        req.tenant = tenant
+                        self.process(req)
+            else:
+                for p in payloads:
+                    try:
+                        for req in dec.decode(p, {}):
+                            req.tenant = tenant
+                            self.process(req)
+                    except Exception:
+                        failed += 1
         return {"decoded": len(payloads) - failed, "failed": failed}
+
+    def _reroute_envelopes(self, rtype: np.ndarray, payloads, tenant,
+                           reg_decoder) -> tuple[np.ndarray, int, int]:
+        """Registration, mapping and acknowledge envelopes carry strings the
+        fast columns do not extract: decode each again and stage it
+        through :meth:`process`. Returns (their row mask, envelopes
+        staged, envelopes failed). Caller holds the lock."""
+        regs = (rtype == RT_REGISTER) | (rtype == RT_MAP) | (rtype == RT_ACK)
+        n_ok = failed = 0
+        if regs.any():
+            with self._wal_suppress():   # the raw batch is already logged
+                for i in np.nonzero(regs)[0]:
+                    try:
+                        for req in reg_decoder.decode(payloads[int(i)], {}):
+                            req.tenant = tenant
+                            self.process(req)
+                        n_ok += 1
+                    except Exception:
+                        failed += 1
+        return regs, n_ok, failed
+
+    def _decode_prologue(self, res, payloads, tenant, reg_decoder,
+                         now: int, base_ms: int):
+        """Post-processing of a native SoA decode on the copy path: map
+        request types to event types, re-route the envelopes, relativize
+        timestamps and fold alert levels into values lane 0. Returns
+        (etype, ok, ts_rel, values, failed, n_reg_ok). Caller holds the
+        lock."""
+        etype = RTYPE_TO_ETYPE[np.clip(res.rtype, -1, 7)]
+        ok = (res.rtype >= 0) & (etype >= 0)
+        regs, n_reg_ok, reg_failed = self._reroute_envelopes(
+            res.rtype, payloads, tenant, reg_decoder)
+        ok &= ~regs   # slow-path rows must not also stage on the fast path
+        failed = int(np.sum(res.rtype < 0)) + reg_failed
+        # relative int32 timestamps (absent -> now)
+        ts_rel = np.where(
+            res.ts_ms64 >= 0,
+            np.clip(res.ts_ms64 - base_ms, -(2**31) + 1, 2**31 - 1),
+            now,
+        ).astype(np.int32)
+        values = res.values
+        alert_rows = ok & (etype == int(EventType.ALERT))
+        if np.any(alert_rows):
+            values = values.copy()
+            values[alert_rows, 0] = res.level[alert_rows]
+        return etype, ok, ts_rel, values, failed, n_reg_ok
+
+    # ------------------------------------------------------------ arena ingest
+    def _acquire_arena(self):
+        """Pool acquire bounded by ``arena_stall_timeout_s``: a wedged
+        in-flight dispatch raises ArenaStallError instead of hanging the
+        ingest thread under the engine lock. Chunks of the batch staged
+        before the stall are already WAL-durable and dispatch normally."""
+        return self._arena_pool.acquire(
+            timeout_s=self.config.arena_stall_timeout_s)
+
+    def _ingest_batch_arena(self, payloads, tenant, tag, reg_decoder,
+                            binary: bool) -> dict:
+        """Zero-copy batch ingest: the native scanner decodes straight into
+        the fill arena at its cursor, the commit runs a few vectorized
+        in-place transforms, and full arenas dispatch without a staging
+        copy. Each chunk is WAL-appended before any of its rows can
+        dispatch. Decode runs under the lock (the arena is shared state)."""
+        summary = {"decoded": 0, "failed": 0, "staged": 0}
+        n = len(payloads)
+        with self.lock:
+            now = self.epoch.now_ms()
+            base_ms = int(self.epoch.base_unix_s * 1000)
+            pos = 0
+            while pos < n:
+                arena = self._arena_fill
+                if arena is None:
+                    arena = self._arena_fill = self._acquire_arena()
+                take = min(n - pos, arena.room)
+                chunk = payloads if take == n else payloads[pos:pos + take]
+                lo = arena.cursor
+                dec = self._sharder or self._native_decoder
+                _, collisions = dec.decode_into(chunk, arena, lo, binary=binary)
+                self._wal_append(tag, chunk, tenant)
+                self._arena_commit(arena, lo, take, chunk, tenant,
+                                   reg_decoder, now, base_ms, summary)
+                self.channel_map.collisions += collisions
+                arena.cursor = lo + take
+                if arena.room == 0:
+                    self._dispatch_arena()
+                pos += take
+        return summary
+
+    def _ingest_decoded_arena(self, res, payloads, tenant,
+                              reg_decoder) -> dict:
+        """Stage an already decoded SoA batch (the strict path's) through
+        the arena: one vectorized copy of the decode columns into the fill
+        arena, then the shared commit. The caller has WAL-logged the raw
+        batch."""
+        summary = {"decoded": 0, "failed": 0, "staged": 0}
+        n = len(res.rtype)
+        with self.lock:
+            now = self.epoch.now_ms()
+            base_ms = int(self.epoch.base_unix_s * 1000)
+            pos = 0
+            while pos < n:
+                arena = self._arena_fill
+                if arena is None:
+                    arena = self._arena_fill = self._acquire_arena()
+                take = min(n - pos, arena.room)
+                lo, hi = arena.cursor, arena.cursor + take
+                sl = slice(pos, pos + take)
+                arena.rtype[lo:hi] = res.rtype[sl]
+                arena.token_id[lo:hi] = res.token_id[sl]
+                arena.ts64[lo:hi] = res.ts_ms64[sl]
+                arena.values[lo:hi] = res.values[sl]
+                arena.vmask[lo:hi] = res.chmask[sl]
+                arena.aux[lo:hi, 0] = res.aux0[sl]
+                arena.aux[lo:hi, 1] = res.aux1[sl]
+                arena.level[lo:hi] = res.level[sl]
+                self._arena_commit(arena, lo, take, payloads[pos:pos + take],
+                                   tenant, reg_decoder, now, base_ms, summary)
+                arena.cursor = hi
+                if arena.room == 0:
+                    self._dispatch_arena()
+                pos += take
+            self.channel_map.collisions += res.collisions
+        return summary
+
+    def _arena_commit(self, arena, lo, n, payloads, tenant, reg_decoder,
+                      now, base_ms, summary) -> None:
+        """Make arena rows [lo, lo+n) live: map request types to event
+        types, relativize timestamps, fold alert levels, fill the
+        batch-constant columns — vectorized, in place. Envelopes re-route
+        through the per-request path. Caller holds the lock."""
+        hi = lo + n
+        rt = arena.rtype[lo:hi]
+        etype = arena.etype[lo:hi]
+        np.take(RTYPE_TO_ETYPE, np.clip(rt, -1, 7), out=etype)
+        ok = (rt >= 0) & (etype >= 0)
+        # a re-routed envelope may stage per-request rows into the copy
+        # buffer, whose fill-triggered flush must not dispatch this arena
+        # mid-commit (its valid mask is not set yet)
+        self._arena_committing = True
+        try:
+            regs, n_reg_ok, reg_failed = self._reroute_envelopes(
+                rt, payloads, tenant, reg_decoder)
+        finally:
+            self._arena_committing = False
+        ok &= ~regs
+        ts64 = arena.ts64[lo:hi]
+        # relative int32 timestamps (absent -> now); the clip bounds the
+        # int64 -> int32 cast of the assignment
+        rel = np.clip(ts64 - base_ms, -(2**31) + 1, 2**31 - 1)
+        arena.ts_ms[lo:hi] = np.where(ts64 >= 0, rel, now)
+        arena.received_ms[lo:hi] = now
+        arena.tenant_id[lo:hi] = self.tenants.intern(tenant)
+        # aux0 (alert type) and aux1 (alternate id) were written by the
+        # decoder; alert rows carry their level in values[:, 0]
+        alert_rows = ok & (etype == int(EventType.ALERT))
+        if alert_rows.any():
+            arena.values[lo:hi][alert_rows, 0] = arena.level[lo:hi][alert_rows]
+        arena.valid[lo:hi] = ok
+        staged = int(np.sum(ok))
+        summary["decoded"] += staged + n_reg_ok
+        summary["failed"] += int(np.sum(rt < 0)) + reg_failed
+        summary["staged"] += staged
+        self.host_counters["arena_rows"] = \
+            self.host_counters.get("arena_rows", 0) + staged
+        self.ledger.add("staged_rows", staged)
+
+    def _dispatch_arena(self) -> None:
+        """Dispatch the fill arena (full or partial: rows past the cursor
+        are masked invalid) and retire it to the pool, which recycles it
+        once the copy and the step that read it have completed. Caller
+        holds the lock."""
+        arena = self._arena_fill
+        if arena is None or arena.cursor == 0:
+            return
+        arena.valid[arena.cursor:] = False
+        self.ledger.add("dispatched_rows", int(np.sum(arena.valid)))
+        # every WAL record of the arena's rows is durable before the copy
+        # to the device is enqueued
+        self._wal_gate()
+        step = self._arena_step or self._step
+        self.state, out = step(self.state, arena.view_batch(self.device))
+        # one fence after the copy and the step, on the stream that ran
+        # both: the arena's ticket and the dispatch-depth wait
+        fence = self._fence()
+        self._enqueue_out(out, fence)
+        self._arena_pool.retire(arena, fence)
+        self._arena_fill = None
+        self._arena_dispatches += 1
+        self._last_flush = time.monotonic()
+
+    def _ingest_decoded(self, res, payloads, tenant, reg_decoder) -> dict:
+        """Stage a natively decoded SoA batch: through the arena when the
+        engine has one, else copied into the staging buffer (the copy
+        path); envelopes re-decode on the per-request path."""
+        if self._arena_pool is not None:
+            return self._ingest_decoded_arena(res, payloads, tenant,
+                                              reg_decoder)
+        with self.lock:
+            now = self.epoch.now_ms()
+            base_ms = int(self.epoch.base_unix_s * 1000)
+            etype, ok, ts_rel, values, failed, n_reg_ok = \
+                self._decode_prologue(res, payloads, tenant, reg_decoder,
+                                      now, base_ms)
+            idxs = np.nonzero(ok)[0]
+            tenant_id = self.tenants.intern(tenant)
+            staged = 0
+            pos = 0
+            # an all-rows-decoded batch (the steady state) stages with
+            # plain slices instead of a gather per column
+            contiguous = len(idxs) == len(ok)
+            while pos < len(idxs):
+                room = self.config.batch_capacity - len(self._buf)
+                if room == 0:
+                    self.flush_async()
+                    room = self.config.batch_capacity
+                chunk = (slice(pos, min(pos + room, len(idxs)))
+                         if contiguous else idxs[pos: pos + room])
+                n_chunk = (chunk.stop - chunk.start if contiguous
+                           else len(chunk))
+                b = self._buf
+                lo = b._n
+                hi = lo + n_chunk
+                b.etype[lo:hi] = etype[chunk]
+                b.token_id[lo:hi] = res.token_id[chunk]
+                b.tenant_id[lo:hi] = tenant_id
+                b.ts_ms[lo:hi] = ts_rel[chunk]
+                b.received_ms[lo:hi] = now
+                b.values[lo:hi] = values[chunk]
+                b.vmask[lo:hi] = res.chmask[chunk]
+                b.aux[lo:hi, 0] = res.aux0[chunk]
+                b.aux[lo:hi, 1] = res.aux1[chunk]
+                b._n = hi
+                staged += n_chunk
+                pos += room
+            if self._buf.full:
+                self.flush_async()
+            self.channel_map.collisions += res.collisions
+            self.host_counters["staged_copy_rows"] = \
+                self.host_counters.get("staged_copy_rows", 0) + staged
+            self.ledger.add("staged_rows", staged)
+            return {"decoded": int(np.sum(ok)) + n_reg_ok, "failed": failed,
+                    "staged": staged}
 
     def ingest_event_batch(self, batch: EventBatch) -> None:
         """Dispatch one batch already built in bulk (columns on this
         engine's device, token/tenant ids from this engine's interners) as
         one pipeline step; its output queues for :meth:`drain` like a
-        staged batch's. The counterpart of the JAX engine's zero-copy
-        arena dispatch."""
+        staged batch's. Its rows bypass the WAL and the conservation
+        ledger's staging counters."""
         if batch.capacity != self.config.batch_capacity:
             raise ValueError(f"batch capacity {batch.capacity} != engine "
                              f"batch_capacity {self.config.batch_capacity}")
         with self.lock:
-            while len(self._buf):      # staged rows keep their order
+            # staged rows keep their order
+            while len(self._buf) or (self._arena_fill is not None
+                                     and self._arena_fill.cursor):
                 self.flush_async()
-            self.state, out = pipeline_step(self.state, batch,
-                                            self.pipeline_config)
-            self._pending_outs.append(out)
+            self._dispatch_staged(all_batches=True)
+            self.state, out = self._step(self.state, batch)
+            self._enqueue_out(out, self._fence())
+
+    # ---------------------------------------------------------------- dispatch
+    def maybe_flush(self) -> dict | None:
+        """Flush if the latency budget expired (call from a timer loop);
+        drains the pending outputs on the same interval."""
+        with self.lock:
+            expired = (time.monotonic() - self._last_flush
+                       >= self.config.flush_interval_s)
+            if (len(self._buf) or self._staged_batches
+                    or (self._arena_fill is not None
+                        and self._arena_fill.cursor)) and expired:
+                return self.flush()
+            if self._pending_outs and expired:
+                return _merge_summaries(self.drain())
+            return None
 
     def flush(self) -> dict:
         """Run the staged work through the pipeline and sync host mirrors;
         returns the aggregate summary of everything drained."""
         with self.lock:
             self.flush_async()
+            self._dispatch_staged(all_batches=True)
             return _merge_summaries(self.drain())
 
     def flush_async(self) -> None:
-        """Dispatch a step on the staged batch without reading anything
-        back: the step output queues for :meth:`drain`. No-op on an empty
-        buffer."""
+        """Dispatch the staged work without reading anything back: the
+        step outputs queue for :meth:`drain`. A partly filled arena
+        dispatches too (never mid-commit). With ``scan_chunk`` K > 1,
+        emitted copy-path batches accumulate and dispatch K at a time."""
         with self.lock:
+            if (self._arena_fill is not None and self._arena_fill.cursor
+                    and not self._arena_committing):
+                self._dispatch_arena()
             if not len(self._buf):
                 return
-            batch = self._buf.emit(self.device)
-            self.state, out = pipeline_step(self.state, batch,
-                                            self.pipeline_config)
-            self._pending_outs.append(out)
+            n_staged = len(self._buf)
+            if self.config.scan_chunk > 1:
+                self._staged_batches.append(self._buf.emit_host())
+                self._dispatch_staged(all_batches=False)
+            else:
+                self._wal_gate()       # before the copy of the batch
+                self.ledger.add("dispatched_rows", n_staged)
+                batch = self._buf.emit(self.device)
+                self.state, out = self._step(self.state, batch)
+                self._enqueue_out(out, self._fence())
+            self._last_flush = time.monotonic()
+
+    def _dispatch_staged(self, all_batches: bool) -> None:
+        """Dispatch accumulated copy-path batches as K-chunks: one packed
+        transfer and K steps per chunk. With ``all_batches`` a partial
+        tail chunk is padded with empty batches (valid=False rows, zero
+        counts) to K."""
+        k = self.config.scan_chunk
+        while self._staged_batches:
+            if len(self._staged_batches) < k and not all_batches:
+                return
+            chunk, self._staged_batches = (self._staged_batches[:k],
+                                           self._staged_batches[k:])
+            while len(chunk) < k:
+                chunk.append(_empty_host_batch(self.config.batch_capacity,
+                                               self.config.channels))
+            self._wal_gate()
+            self.ledger.add("dispatched_rows",
+                            sum(int(np.sum(b.valid)) for b in chunk))
+            packed = torch.from_numpy(pack_batches(chunk)).to(self.device)
+            self.state, outs = self._scan_step(self.state, packed)
+            self._enqueue_out(outs, self._fence())
+
+    def _enqueue_out(self, out: StepOutput, fence) -> None:
+        """Queue a step output for drain, bounding outstanding dispatches
+        to ``dispatch_depth``: once that many are queued, wait on the
+        fence of the dispatch ``dispatch_depth`` back (at depth 1, the one
+        just dispatched)."""
+        self._pending_outs.append(out)
+        self._pending_fences.append(fence)
+        d = max(1, self.config.dispatch_depth)
+        if len(self._pending_fences) >= d and self._pending_fences[-d] is not None:
+            self._pending_fences[-d].synchronize()
+
+    def barrier(self) -> None:
+        """Dispatch all staged work and wait for it to complete, with no
+        device-to-host readback (drain, which reads, is left to reporting
+        boundaries)."""
+        with self.lock:
+            while len(self._buf) or (self._arena_fill is not None
+                                     and self._arena_fill.cursor):
+                self.flush_async()
+            self._dispatch_staged(all_batches=True)
+            if self._pending_fences and self._pending_fences[-1] is not None:
+                self._pending_fences[-1].synchronize()
 
     def drain(self) -> list[dict]:
         """Absorb every queued step output into the host mirrors. Only the
         scalar counters are fetched for the whole backlog (one transfer);
-        token lists are sliced to their occupied prefix."""
+        token lists are sliced to their occupied prefix. A scan chunk's
+        stacked output absorbs lane by lane."""
         with self.lock:
             if not self._pending_outs:
                 return [_empty_summary()]
             outs, self._pending_outs = self._pending_outs, []
+            self._pending_fences = []
+            lanes = []
+            for out in outs:
+                if out.n_found.dim() == 0:
+                    lanes.append(out)
+                else:
+                    lanes.extend(StepOutput(*(x[i] for x in out))
+                                 for i in range(out.n_found.shape[0]))
             scalars = torch.stack([
                 torch.stack([o.n_found, o.n_missed, o.n_registered,
-                             o.n_persisted]) for o in outs]).cpu().tolist()
-            return [self._absorb_output(out, *s) for out, s in zip(outs, scalars)]
+                             o.n_persisted]) for o in lanes]).cpu().tolist()
+            return [self._absorb_output(out, *s) for out, s in zip(lanes, scalars)]
 
     def _absorb_output(self, out: StepOutput, n_found: int, n_missed: int,
                        n_registered: int, n_persisted: int) -> dict:
@@ -603,6 +1303,8 @@ class Engine:
             if did >= self.config.device_capacity:
                 raise RuntimeError("device capacity exhausted")
             type_name = device_type or self.config.default_device_type
+            # the registration rides the WAL as its wire-form envelope
+            self._wal_admin_register(token, type_name, tenant, area, customer)
             self._next_device += 1
             self._next_assignment += 1
             self.state = _admin_create_device(
@@ -619,6 +1321,25 @@ class Engine:
             )
             self._record_assignment(aid, did, slot=0, area=area, customer=customer)
             return did
+
+    def map_device(self, child_token: str, parent_token: str) -> DeviceInfo:
+        """Map a device under a gateway/composite parent (the MapDevice
+        request): the parent lands in the device row's ``device_parent``
+        and in the child's metadata."""
+        with self.lock:
+            self._sync_mirrors()
+            cdid = self.token_device.get(self.tokens.lookup(child_token))
+            if cdid is None:
+                raise KeyError(f"device {child_token!r} not registered")
+            pdid = self.token_device.get(self.tokens.lookup(parent_token))
+            if pdid is None:
+                raise KeyError(f"parent device {parent_token!r} not registered")
+            if cdid == pdid:
+                raise ValueError("device cannot be its own parent")
+            info = self.devices[cdid]
+            info.metadata = dict(info.metadata) | {"parentToken": parent_token}
+            self.state = _admin_set_parent(self.state, cdid, pdid)
+            return info
 
     def _record_assignment(self, aid: int, did: int, slot: int,
                            token: str | None = None, asset: str | None = None,
@@ -1034,6 +1755,15 @@ class Engine:
                         "persisted", "reg_overflow"), counters)),
             "channel_collisions": self.channel_map.collisions,
             "staged": len(self._buf),
+            **({"arena_pool_waits": self._arena_pool.waits,
+                "arena_pool_size": self._arena_pool.n_arenas}
+               if self._arena_pool is not None else {}),
+            **({"ingest_workers": self._sharder.n_workers,
+                "sharded_batches": self._sharder.sharded_batches}
+               if self._sharder is not None else {}),
+            **({"wal_fsyncs": self.wal.fsyncs,
+                "wal_commit_groups": self.wal.commit_groups}
+               if self.wal is not None and self.wal.group_commit else {}),
             # CEP tier: only the partition-invariant counters (fires is a
             # pure function of the event stream; missed/late live in
             # rule_counters())

@@ -1,13 +1,15 @@
-"""JSON device-request decoding: bytes -> DecodedRequest list (the port's
-copy of the parts of ``sitewhere_tpu/ingest/decoders.py`` that
-``Engine.ingest_json_batch`` needs; the native batch decoder is not
-ported).
+"""Device-request decoding: bytes -> DecodedRequest list (the port's copy
+of the parts of ``sitewhere_tpu/ingest/decoders.py`` that the engine
+needs): the JSON envelope decoder, and the flat binary format with its
+encoder, which the write-ahead log uses to record per-request ingest and
+admin registrations.
 """
 
 from __future__ import annotations
 
 import datetime
 import json
+import struct
 from typing import Any
 
 from sitewhere_tpu_torch.core.types import AlertLevel
@@ -105,3 +107,162 @@ class JsonDeviceRequestDecoder:
         if not isinstance(envelope, dict):
             raise EventDecodeException("payload is not a JSON object")
         return [request_from_envelope(envelope, metadata)]
+
+
+# --- binary flat format ------------------------------------------------------
+#
+# Layout (little-endian), versioned:
+#   u8 version=1 | u8 type | u16 token_len | token utf8 | i64 ts_ms |
+#   u16 n_pairs | n_pairs * (u16 name_len | name | f64 value)      (measurement)
+#   f64 lat | f64 lon | f64 elev  (NaN = absent coordinate)         (location)
+#   u16 type_len | type | u8 level | u16 msg_len | msg              (alert)
+#   u16 n_extras | n * (u16 klen | k | u16 vlen | v)  [optional]    (register)
+#   u16 orig_len | orig | u16 resp_len | resp         [optional]    (ack)
+
+_BIN_MAGIC_VERSION = 1
+_BIN_TYPES = {
+    1: RequestType.DEVICE_MEASUREMENT,
+    2: RequestType.DEVICE_LOCATION,
+    3: RequestType.DEVICE_ALERT,
+    4: RequestType.REGISTER_DEVICE,
+    5: RequestType.ACKNOWLEDGE,
+}
+_BIN_TYPE_IDS = {v: k for k, v in _BIN_TYPES.items()}
+
+
+def encode_binary_request(req: DecodedRequest) -> bytes:
+    """Inverse of :class:`BinaryEventDecoder`. Raises KeyError for a request
+    type the format does not carry."""
+    tid = _BIN_TYPE_IDS[req.type]
+    tok = req.device_token.encode()
+    out = struct.pack("<BBH", _BIN_MAGIC_VERSION, tid, len(tok)) + tok
+    out += struct.pack("<q", req.event_ts_ms if req.event_ts_ms is not None else -1)
+    if req.type is RequestType.DEVICE_MEASUREMENT:
+        pairs = req.measurements or {}
+        out += struct.pack("<H", len(pairs))
+        for name, value in pairs.items():
+            nb = name.encode()
+            out += struct.pack("<H", len(nb)) + nb + struct.pack("<d", float(value))
+    elif req.type is RequestType.DEVICE_LOCATION:
+        # NaN wires "absent coordinates": a null-coordinate location survives
+        # a round trip without turning into null island (0, 0)
+        out += struct.pack(
+            "<ddd",
+            req.latitude if req.latitude is not None else float("nan"),
+            req.longitude if req.longitude is not None else float("nan"),
+            req.elevation or 0.0)
+    elif req.type is RequestType.DEVICE_ALERT:
+        tb = (req.alert_type or "alert").encode()
+        mb = (req.alert_message or "").encode()
+        out += struct.pack("<H", len(tb)) + tb
+        out += struct.pack("<B", int(req.alert_level))
+        out += struct.pack("<H", len(mb)) + mb
+    elif req.type is RequestType.REGISTER_DEVICE:
+        # the string extras (deviceTypeToken/areaToken/customerToken) must
+        # survive the wire, or WAL replay loses registration fidelity
+        pairs = [(k, v) for k, v in (req.extras or {}).items()
+                 if isinstance(v, str)]
+        out += struct.pack("<H", len(pairs))
+        for k, v in pairs:
+            kb, vb = k.encode(), v.encode()
+            out += struct.pack("<H", len(kb)) + kb
+            out += struct.pack("<H", len(vb)) + vb
+    elif req.type is RequestType.ACKNOWLEDGE:
+        ob = (req.originating_event_id or "").encode()
+        rb = (req.response or "").encode()
+        out += struct.pack("<H", len(ob)) + ob
+        out += struct.pack("<H", len(rb)) + rb
+    return out
+
+
+def binary_token_of(payload: bytes) -> str | None:
+    """Device token of one binary wire payload without a full decode (a
+    router's partition key); None when the header is malformed."""
+    if len(payload) < 4 or payload[0] != _BIN_MAGIC_VERSION:
+        return None
+    (n,) = struct.unpack_from("<H", payload, 2)
+    tok = payload[4:4 + n]
+    if len(tok) != n:
+        return None
+    try:
+        return tok.decode()
+    except UnicodeDecodeError:
+        return None
+
+
+class BinaryEventDecoder:
+    """Decode the compact flat binary format above."""
+
+    def decode(self, payload: bytes, metadata: dict[str, Any]) -> list[DecodedRequest]:
+        try:
+            ver, tid, tlen = struct.unpack_from("<BBH", payload, 0)
+            if ver != _BIN_MAGIC_VERSION:
+                raise EventDecodeException(f"unknown binary version {ver}")
+            off = 4
+            token = payload[off: off + tlen].decode()
+            off += tlen
+            (ts,) = struct.unpack_from("<q", payload, off)
+            off += 8
+            rtype = _BIN_TYPES.get(tid)
+            if rtype is None:
+                raise EventDecodeException(f"unknown binary type id {tid}")
+            req = DecodedRequest(type=rtype, device_token=token,
+                                 event_ts_ms=None if ts < 0 else ts,
+                                 metadata=dict(metadata))
+            if rtype is RequestType.DEVICE_MEASUREMENT:
+                (n,) = struct.unpack_from("<H", payload, off)
+                off += 2
+                pairs = {}
+                for _ in range(n):
+                    (nlen,) = struct.unpack_from("<H", payload, off)
+                    off += 2
+                    name = payload[off: off + nlen].decode()
+                    off += nlen
+                    (val,) = struct.unpack_from("<d", payload, off)
+                    off += 8
+                    pairs[name] = val
+                req.measurements = pairs
+            elif rtype is RequestType.DEVICE_LOCATION:
+                lat, lon, elev = struct.unpack_from("<ddd", payload, off)
+                req.latitude = None if lat != lat else lat    # NaN = absent
+                req.longitude = None if lon != lon else lon
+                req.elevation = elev
+            elif rtype is RequestType.DEVICE_ALERT:
+                (tl,) = struct.unpack_from("<H", payload, off)
+                off += 2
+                req.alert_type = payload[off: off + tl].decode()
+                off += tl
+                (lvl,) = struct.unpack_from("<B", payload, off)
+                off += 1
+                req.alert_level = AlertLevel(lvl)
+                (ml,) = struct.unpack_from("<H", payload, off)
+                off += 2
+                req.alert_message = payload[off: off + ml].decode() or None
+            elif rtype is RequestType.REGISTER_DEVICE and off < len(payload):
+                # the body is optional: a header-only frame decodes with
+                # empty extras
+                (n,) = struct.unpack_from("<H", payload, off)
+                off += 2
+                extras = {}
+                for _ in range(n):
+                    (kl,) = struct.unpack_from("<H", payload, off)
+                    off += 2
+                    key = payload[off: off + kl].decode()
+                    off += kl
+                    (vl,) = struct.unpack_from("<H", payload, off)
+                    off += 2
+                    extras[key] = payload[off: off + vl].decode()
+                    off += vl
+                req.extras = extras
+            elif rtype is RequestType.ACKNOWLEDGE and off < len(payload):
+                (ol,) = struct.unpack_from("<H", payload, off)
+                off += 2
+                req.originating_event_id = (
+                    payload[off: off + ol].decode() or None)
+                off += ol
+                (rl,) = struct.unpack_from("<H", payload, off)
+                off += 2
+                req.response = payload[off: off + rl].decode() or None
+            return [req]
+        except (struct.error, UnicodeDecodeError, IndexError) as e:
+            raise EventDecodeException(str(e)) from e

@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from sitewhere_tpu_torch.compat import DEFAULT_DEVICE, resolve_device
-from sitewhere_tpu_torch.core.events import EventBatch
+from sitewhere_tpu_torch.core.events import EventBatch, unpack_batch
 from sitewhere_tpu_torch.core.registry import RegistryTables
 from sitewhere_tpu_torch.core.state import DeviceStateStore
 from sitewhere_tpu_torch.core.store import EventStore
@@ -335,6 +335,51 @@ def pipeline_step(
         store_epoch=persist.store.epoch,
     )
     return new_state, out
+
+
+def _stack_outputs(outs: list[StepOutput]) -> StepOutput:
+    """K step outputs as one, each field stacked on a leading [K] axis (the
+    shape ``lax.scan`` gives the JAX scan steps' outputs)."""
+    return StepOutput(*(torch.stack(field) for field in zip(*outs)))
+
+
+def make_packed_scan_step(config: PipelineConfig, capacity: int,
+                          channels: int):
+    """``step(state, packed) -> (state, outputs)`` over K batches that
+    arrive as ONE uint8 [K, row_bytes] device buffer
+    (``core/events.pack_batches``): K ``pipeline_step`` calls, the loop
+    standing in for the JAX ``lax.scan``; outputs stacked [K, ...]."""
+
+    def multi(state: PipelineState, packed: torch.Tensor):
+        outs = []
+        for row in packed:
+            state, out = pipeline_step(
+                state, unpack_batch(row, capacity, channels), config)
+            outs.append(out)
+        return state, _stack_outputs(outs)
+
+    return multi
+
+
+def make_arena_scan_step(config: PipelineConfig, capacity: int,
+                         channels: int, k: int):
+    """``step(state, batch) -> (state, outputs)`` consuming ONE staging
+    arena of ``k * capacity`` rows, transferred once, as K
+    ``pipeline_step`` calls on its [K, capacity] lanes (views, no copy);
+    outputs stacked [K, ...]. The dispatch program of the zero-copy arena
+    path at ``scan_chunk`` > 1."""
+
+    def multi(state: PipelineState, batch: EventBatch):
+        outs = []
+        for i in range(k):
+            lane = slice(i * capacity, (i + 1) * capacity)
+            state, out = pipeline_step(state, EventBatch(**{
+                f.name: getattr(batch, f.name)[lane]
+                for f in dataclasses.fields(batch)}), config)
+            outs.append(out)
+        return state, _stack_outputs(outs)
+
+    return multi
 
 
 def _sweep(state: PipelineState, now_ms: torch.Tensor,

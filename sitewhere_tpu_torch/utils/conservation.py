@@ -1,0 +1,239 @@
+"""Event conservation ledger (port of ``FlowLedger``, ``build_ledger`` and
+``check_conservation`` of ``sitewhere_tpu/utils/conservation.py``, for the
+stages a single port engine has; the background auditor and the metrics
+export are not ported).
+
+* :class:`FlowLedger` — host-side flow counters at the two boundaries the
+  engine itself controls: rows staged, and valid rows dispatched to the
+  device. Every other stage is sampled from counters that already exist
+  (the device-side tenant counter grid, WAL sequence tickets, the CEP
+  harvest counters).
+* :func:`build_ledger` — one mutually consistent snapshot of every stage,
+  taken under the engine lock (reading the device counters waits for
+  every dispatched step).
+* :func:`check_conservation` — a pure function evaluating the equations
+  over one snapshot; an equation whose stage is absent is skipped:
+
+  staging-balance     staged_rows == dispatched_rows + backlog_rows
+  device-processed    dispatched_rows == device ``processed`` delta
+  device-disposition  accepted + invalid == processed (the tenant counter
+                      grid partitions every valid row)
+  wal-durability      0 <= durable_seq <= appended_seq
+  rules-harvest       harvested == emitted + suppressed + skipped, and
+                      device missed <= fires, pending >= 0
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+EQUATIONS = ("staging-balance", "device-processed", "device-disposition",
+             "wal-durability", "rules-harvest")
+
+
+class FlowLedger:
+    """Host-side flow counters for the boundaries nothing else counts.
+
+    Every mutation site holds the engine lock, so no lock of its own;
+    ``enabled`` toggles counting. ``rebase`` records the device counters
+    a restored snapshot already carries, so a recovered engine's ledger
+    balances over the rows it staged itself (WAL replay), not the
+    pre-crash history."""
+
+    __slots__ = ("enabled", "counters", "baseline")
+
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+        self.counters: dict[str, int] = {"staged_rows": 0,
+                                         "dispatched_rows": 0}
+        self.baseline: dict[str, int] = {}
+
+    def add(self, key: str, n: int) -> None:
+        if self.enabled and n:
+            self.counters[key] = self.counters.get(key, 0) + int(n)
+
+    def rebase(self, engine) -> None:
+        """Take the engine's device counters as the baseline: called after
+        a snapshot restore, before any replay."""
+        m = engine.metrics()
+        base = {"processed": int(m.get("processed", 0)),
+                "persisted": int(m.get("persisted", 0))}
+        for lane, n in _grid_totals(engine).items():
+            base[f"grid_{lane}"] = n
+        self.baseline = base
+
+
+def _grid_totals(eng) -> dict[str, int]:
+    """Lane totals of the device-side tenant counter grid."""
+    totals: dict[str, int] = {}
+    for lanes in eng.tenant_pipeline_counters().values():
+        for lane, n in lanes.items():
+            totals[lane] = totals.get(lane, 0) + int(n)
+    return totals
+
+
+def _backlog_rows(eng) -> int:
+    """Valid rows staged but not yet dispatched, field by field (the fill
+    arena's failed-decode rows below the cursor never dispatch as valid).
+    Caller holds the lock."""
+    n = len(eng._buf)
+    fill = eng._arena_fill
+    if fill is not None:
+        n += int(np.sum(fill.valid[:fill.cursor]))
+    for b in eng._staged_batches:
+        n += int(np.sum(b.valid))
+    return n
+
+
+def _rules_stage(eng, rules_manager) -> dict | None:
+    """Device CEP counters and the manager's harvest accounting."""
+    rs = eng.state.rules
+    if rs is None or (rs.rules is None and rs.rollups is None):
+        return None
+    out: dict = {}
+    if rs.rules is not None:
+        rb = rs.rules
+        f, m, l, o = torch.stack([rb.fires, rb.missed, rb.late, rb.oob]).tolist()
+        pending = (rb.pend_w - rb.pend_h).clamp(max=rb.pend_key.shape[-1])
+        out.update(fires=f, missed=m, late=l, oob=o,
+                   pending=int(pending.sum()),
+                   max_window_id=int(rb.acc_wid.max()))
+    if rs.rollups is not None:
+        wid = rs.rollups.wid.cpu().numpy()
+        live = wid[wid > np.iinfo(np.int32).min]
+        out["rollup_window_id"] = int(live.max()) if live.size else None
+        out["rollup_late"] = int(rs.rollups.late)
+    if rules_manager is not None:
+        # one read under the manager lock: poll() commits its four
+        # counters in one block, so the equation sees pre- or post-poll
+        # totals only
+        with rules_manager._mu:
+            out.update(harvested=int(rules_manager.fires_harvested),
+                       emitted=int(rules_manager.alerts_emitted),
+                       suppressed=int(rules_manager.alerts_suppressed),
+                       skipped=int(rules_manager.harvest_skipped))
+    return out
+
+
+def build_ledger(engine, rules_manager=None) -> dict:
+    """One mutually consistent flow-accounting snapshot of ``engine``.
+    Reads the device counters (waiting for the dispatched steps), so it
+    belongs on an audit cadence, never in the ingest loop."""
+    led: FlowLedger = engine.ledger
+    with engine.lock:
+        base = dict(led.baseline)
+        m = engine.metrics()
+        grid = _grid_totals(engine)
+        stages: dict = {}
+        ing = {"staged_rows": led.counters.get("staged_rows", 0),
+               "dispatched_rows": led.counters.get("dispatched_rows", 0),
+               "backlog_rows": _backlog_rows(engine),
+               "counting": led.enabled}
+        stages["ingest"] = ing
+        stages["device"] = {
+            "processed": int(m["processed"]) - base.get("processed", 0),
+            "persisted": int(m["persisted"]) - base.get("persisted", 0),
+            **{lane: n - base.get(f"grid_{lane}", 0)
+               for lane, n in grid.items()},
+        }
+        wal = engine.wal
+        if wal is not None:
+            with wal._lock:
+                appended, durable = int(wal._seq), int(wal._durable_seq)
+            stages["wal"] = {"appended_seq": appended,
+                             "durable_seq": durable,
+                             "group_commit": bool(wal.group_commit)}
+        rules = _rules_stage(engine, rules_manager)
+        if rules is not None:
+            stages["rules"] = rules
+
+    watermarks: dict = {"dispatched_rows": ing["dispatched_rows"]}
+    lag: dict = {"staged_backlog_rows": ing["backlog_rows"]}
+    if "wal" in stages:
+        w = stages["wal"]
+        watermarks["wal_appended"] = w["appended_seq"]
+        watermarks["wal_durable"] = w["durable_seq"]
+        lag["wal_durable_lag"] = w["appended_seq"] - w["durable_seq"]
+    if "rules" in stages and "rollup_window_id" in stages["rules"]:
+        watermarks["rollup_window_id"] = stages["rules"]["rollup_window_id"]
+    return {"generatedMs": int(time.time() * 1000), "rank": 0,
+            "stages": stages, "watermarks": watermarks, "lag": lag}
+
+
+@dataclasses.dataclass
+class Violation:
+    """One broken conservation equation: ``lhs`` and ``rhs`` are the
+    evaluated sides, ``slack`` the tolerance the equation already granted
+    when it still failed."""
+
+    equation: str
+    message: str
+    lhs: float
+    rhs: float
+    slack: float = 0.0
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def check_conservation(ledger: dict) -> list[Violation]:
+    """Evaluate the conservation equations over one ledger snapshot. Pure:
+    the same ledger always gives the same verdict."""
+    out: list[Violation] = []
+
+    def bad(eq: str, msg: str, lhs, rhs, slack: float = 0.0) -> None:
+        out.append(Violation(eq, msg, float(lhs), float(rhs), float(slack)))
+
+    st = ledger.get("stages", {})
+    ing = st.get("ingest")
+    dev = st.get("device", {})
+    if ing and ing.get("counting"):
+        staged = ing["staged_rows"]
+        dispatched = ing["dispatched_rows"]
+        backlog = ing["backlog_rows"]
+        if staged != dispatched + backlog:
+            bad("staging-balance",
+                f"staged_rows {staged} != dispatched_rows {dispatched} "
+                f"+ backlog {backlog}", staged, dispatched + backlog,
+                slack=backlog)
+        processed = dev.get("processed")
+        if processed is not None and dispatched != processed:
+            bad("device-processed",
+                f"dispatched_rows {dispatched} != device processed "
+                f"{processed}", dispatched, processed)
+    if "accepted" in dev and "invalid" in dev and "processed" in dev:
+        lhs = dev["accepted"] + dev["invalid"]
+        if lhs != dev["processed"]:
+            bad("device-disposition",
+                f"accepted {dev['accepted']} + invalid {dev['invalid']}"
+                f" != processed {dev['processed']}", lhs, dev["processed"])
+    wal = st.get("wal")
+    if wal and not (0 <= wal["durable_seq"] <= wal["appended_seq"]):
+        bad("wal-durability",
+            f"durable_seq {wal['durable_seq']} outside "
+            f"[0, appended_seq {wal['appended_seq']}]",
+            wal["durable_seq"], wal["appended_seq"])
+    rules = st.get("rules")
+    if rules:
+        if "harvested" in rules:
+            rhs = (rules.get("emitted", 0) + rules.get("suppressed", 0)
+                   + rules.get("skipped", 0))
+            if rules["harvested"] != rhs:
+                bad("rules-harvest",
+                    f"harvested {rules['harvested']} != emitted "
+                    f"{rules.get('emitted', 0)} + suppressed "
+                    f"{rules.get('suppressed', 0)} + skipped "
+                    f"{rules.get('skipped', 0)}", rules["harvested"], rhs)
+        if "fires" in rules and rules.get("missed", 0) > rules["fires"]:
+            bad("rules-harvest",
+                f"missed {rules['missed']} > fires {rules['fires']}",
+                rules["missed"], rules["fires"])
+        if rules.get("pending", 0) < 0:
+            bad("rules-harvest",
+                f"negative pending ring depth {rules['pending']}",
+                rules["pending"], 0)
+    return out

@@ -1,0 +1,164 @@
+"""The port's conservation ledger against the JAX package's.
+
+The same seeded wire streams go through both engines (native path, both
+clocks pinned) on the arena path, the copy path, a scan chunk, a write-ahead
+log and the streaming-rules tier. After each, the port's ledger balances
+(``check_conservation`` finds nothing) and gives the JAX ledger's stage
+counts. A counter broken on purpose gives the expected violation, and a
+recovered engine balances over the rows it replayed.
+"""
+
+import numpy as np
+import pytest
+
+from sitewhere_tpu.rules import RulesManager as JaxRulesManager
+from sitewhere_tpu.utils.conservation import build_ledger as jax_build_ledger
+from sitewhere_tpu.utils.conservation import check_conservation as jax_check
+from sitewhere_tpu.utils.ingestlog import IngestLog as JaxLog
+from sitewhere_tpu_torch.rules import RulesManager
+from sitewhere_tpu_torch.utils.checkpoint import recover_engine, save_engine
+from sitewhere_tpu_torch.utils.conservation import (EQUATIONS, build_ledger,
+                                                    check_conservation)
+from sitewhere_tpu_torch.utils.ingestlog import IngestLog
+from tests.test_torch_ingest_wire import binary_stream, engines, json_stream
+from tests.test_torch_wal import PortClock
+
+RULES = {"name": "c", "rules": [
+    {"name": "hot", "kind": "threshold", "channel": "m0", "op": ">",
+     "value": 1.0, "cooldownMs": 10}],
+    "rollups": [{"name": "m0-1s", "channel": "m0", "windowMs": 1000}]}
+
+STREAMS = {
+    "arena": {},
+    "copy": dict(ingest_arenas=-1),
+    "scan3": dict(scan_chunk=3, dispatch_depth=2),
+    "python": dict(use_native=False),
+    "wal": "wal",
+    "rules": "rules",
+}
+
+
+def _drive(jeng, teng, wire: str, batches: int = 4, flush_each: bool = False,
+           managers=None):
+    rng = np.random.default_rng(3)
+    make = json_stream if wire == "json" else binary_stream
+    fn = "ingest_json_batch" if wire == "json" else "ingest_binary_batch"
+    for k in range(batches):
+        pay = make(k, rng)
+        ref = getattr(jeng, fn)(pay)
+        ref.pop("trace_id", None)
+        assert getattr(teng, fn)(pay) == ref
+        if flush_each:
+            jeng.flush()
+            teng.flush()
+        if managers:
+            managers[0].poll(flush=True)
+            managers[1].poll(flush=True)
+
+
+def _stages(ledger) -> dict:
+    """The stages both packages report, without the timestamp."""
+    st = dict(ledger["stages"])
+    return {k: st[k] for k in ("ingest", "device", "wal", "rules") if k in st}
+
+
+@pytest.mark.parametrize("wire", ["json", "binary"])
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_ledger_balances_with_the_jax_stage_counts(tmp_path, name, wire):
+    kw = STREAMS[name]
+    managers = None
+    if kw == "wal":
+        jeng, teng = engines()
+        # each engine its own log directory
+        jeng.wal = JaxLog(tmp_path / "jax", group_commit=True)
+        teng.wal = IngestLog(tmp_path / "port", group_commit=True)
+    else:
+        jeng, teng = engines(**({} if kw == "rules" else kw))
+    if kw == "rules":
+        managers = (JaxRulesManager(jeng), RulesManager(teng))
+        managers[0].load(RULES)
+        managers[1].load(RULES)
+    _drive(jeng, teng, wire, managers=managers)
+    # mid-stream, with rows still staged: the backlog term balances them
+    jled, tled = jax_build_ledger(jeng, managers and managers[0]), build_ledger(
+        teng, managers and managers[1])
+    assert check_conservation(tled) == [] and jax_check(jled) == []
+    assert _stages(tled)["ingest"] == _stages(jled)["ingest"]
+    jeng.flush()
+    teng.flush()
+    jled, tled = jax_build_ledger(jeng, managers and managers[0]), build_ledger(
+        teng, managers and managers[1])
+    assert check_conservation(tled) == []
+    assert _stages(tled) == _stages(jled)
+    ing = tled["stages"]["ingest"]
+    assert ing["backlog_rows"] == 0 and ing["staged_rows"] == ing["dispatched_rows"] > 0
+    assert tled["watermarks"] == jled["watermarks"] and tled["lag"] == jled["lag"]
+    if kw == "wal":
+        assert tled["stages"]["wal"]["durable_seq"] == tled["stages"]["wal"]["appended_seq"]
+        jeng.wal.close()
+        teng.wal.close()
+    if kw == "rules":
+        assert tled["stages"]["rules"]["harvested"] > 0
+
+
+def _balanced_ledger():
+    jeng, teng = engines()
+    _drive(jeng, teng, "json", batches=2, flush_each=True)
+    mgr = RulesManager(teng)
+    mgr.load(RULES)
+    _drive(jeng, teng, "json", batches=1)
+    mgr.poll(flush=True)
+    teng.flush()
+    return teng, build_ledger(teng, mgr)
+
+
+BREAKS = {
+    # (what is broken, equations that must report it)
+    "dispatched+1": ({"ingest": {"dispatched_rows": 1}},
+                     {"staging-balance", "device-processed"}),
+    "staged+1": ({"ingest": {"staged_rows": 1}}, {"staging-balance"}),
+    "processed+1": ({"device": {"processed": 1}},
+                    {"device-processed", "device-disposition"}),
+    "accepted+1": ({"device": {"accepted": 1}}, {"device-disposition"}),
+    "harvested+1": ({"rules": {"harvested": 1}}, {"rules-harvest"}),
+    "missed>fires": ({"rules": {"missed": 10**6}}, {"rules-harvest"}),
+}
+
+
+@pytest.mark.parametrize("case", list(BREAKS))
+def test_a_broken_counter_gives_its_violation(case):
+    _, ledger = _balanced_ledger()
+    assert check_conservation(ledger) == []
+    delta, expected = BREAKS[case]
+    for stage, fields in delta.items():
+        for key, d in fields.items():
+            ledger["stages"][stage][key] += d
+    got = {v.equation for v in check_conservation(ledger)}
+    assert got == expected and got <= set(EQUATIONS)
+    assert {v.equation for v in jax_check(ledger)} == got
+
+
+def test_a_broken_engine_counter_and_the_wal_equation():
+    teng, _ = _balanced_ledger()
+    teng.ledger.add("staged_rows", 3)      # rows counted that never staged
+    (v,) = check_conservation(build_ledger(teng))
+    assert v.equation == "staging-balance" and v.lhs == v.rhs + 3
+    ledger = {"stages": {"wal": {"appended_seq": 4, "durable_seq": 5}}}
+    (v,) = check_conservation(ledger)
+    assert v.equation == "wal-durability" and jax_check(ledger)[0].equation == v.equation
+
+
+def test_a_recovered_engine_balances_over_its_replay(tmp_path):
+    jeng, teng = engines()
+    teng.wal = IngestLog(tmp_path / "wal", group_commit=True)
+    _drive(jeng, teng, "json", batches=2)
+    save_engine(teng, tmp_path / "snap")
+    _drive(jeng, teng, "json", batches=2)
+    teng.wal.close()
+    rec = recover_engine(tmp_path / "snap", tmp_path / "wal", device="cpu",
+                         epoch_cls=PortClock)
+    ledger = build_ledger(rec)
+    assert check_conservation(ledger) == []
+    ing = ledger["stages"]["ingest"]
+    assert ing["staged_rows"] == ing["dispatched_rows"] == \
+        ledger["stages"]["device"]["processed"] > 0

@@ -89,7 +89,7 @@ def _requests():
 
 def _engines():
     jeng = JaxEngine(JaxEngineConfig(**SIZES, use_native=False))
-    teng = Engine(EngineConfig(**SIZES), device="cpu")
+    teng = Engine(EngineConfig(**SIZES, use_native=False), device="cpu")
     jeng.epoch = _pin(JaxEpoch, 5000)
     teng.epoch = _pin(EpochBase, 5000)
     return jeng, teng
@@ -158,7 +158,7 @@ def test_score_all_matches_jax(driven):
 
 
 def test_emit_anomaly_alerts_lands_in_device_state():
-    teng = Engine(EngineConfig(**SIZES), device="cpu")
+    teng = Engine(EngineConfig(**SIZES, use_native=False), device="cpu")
     for t in range(W):
         for d in range(8):
             val = float(np.sin(t / 3) + 0.01 * d) if d != 7 else 1e3 * (t + 1)

@@ -111,7 +111,7 @@ def payloads(k: int, rng) -> list[bytes]:
 
 def _engines():
     jeng = JaxEngine(JaxEngineConfig(**SIZES, use_native=False))
-    teng = Engine(EngineConfig(**SIZES), device="cpu")
+    teng = Engine(EngineConfig(**SIZES, use_native=False), device="cpu")
     jeng.epoch, teng.epoch = _pin(JaxEpoch), _pin(EpochBase)
     for eng in (jeng, teng):
         eng.register_device("d-0", tenant="t2", area="north", customer="acme",

@@ -130,7 +130,7 @@ def _requests(req_cls, type_cls, rows):
 
 
 def make_port(**cfg):
-    eng = Engine(EngineConfig(**{**CFG, **cfg}), device="cpu")
+    eng = Engine(EngineConfig(**{**CFG, **cfg}, use_native=False), device="cpu")
     eng.epoch = _pin(EpochBase)
     for d in range(AREA_DEVS):
         eng.register_device(f"r-{d}", tenant=f"t{d % 3}", area=f"a{d % 4}")
@@ -371,7 +371,7 @@ def test_ruleset_parse_errors_match_jax(case):
 
 def test_lower_matches_jax_tables():
     jeng = JaxEngine(JaxEngineConfig(**CFG, use_native=False))
-    teng = Engine(EngineConfig(**CFG), device="cpu")
+    teng = Engine(EngineConfig(**CFG, use_native=False), device="cpu")
     jstate, jmeta, jro = JaxRuleSet.parse(RULESET).lower(jeng)
     tstate, tmeta, tro = RuleSet.parse(RULESET).lower(teng)
     assert_tree_equal(jax.device_get(jstate), tstate, "lowered")
@@ -392,5 +392,5 @@ def test_lower_rejects_empty_tables_like_jax(knob):
         JaxRuleSet.parse(RULESET).lower(
             JaxEngine(JaxEngineConfig(**cfg, use_native=False)))
     with pytest.raises(RuleSetError) as terr:
-        RuleSet.parse(RULESET).lower(Engine(EngineConfig(**cfg), device="cpu"))
+        RuleSet.parse(RULESET).lower(Engine(EngineConfig(**cfg, use_native=False), device="cpu"))
     assert str(terr.value) == str(jerr.value)
