@@ -24,7 +24,12 @@ Phases, each printed as one JSON line:
              stream through a CPU engine and through a card engine on the
              Python decode path (``use_native=False``), whose state and
              answers must be identical, and scores within float32
-             tolerance.
+             tolerance; then the registry admin API (``update_device``,
+             ``create_assignment`` with assets, ``update_assignment``,
+             ``mark_assignment_missing``, ``release_assignment``,
+             ``delete_assignment``, ``delete_device``, with
+             ``assignment_triggers``) on the card and the CPU engine, whose
+             answers, state and mirrors must be identical.
 4. slice   — the main path at full width: the headline engine sizes, 80
              batches of 16384 events (10,000 auto-registered tokens, 8192
              analytics devices with 128-step windows of 100 channels)
@@ -64,9 +69,29 @@ Phases, each printed as one JSON line:
              engine that never crashed; (e) the conservation ledger of
              every engine. Prints events/s, latency, host ms per batch,
              recovery seconds and peak memory on one ``wire:`` line.
+8. archive — the archive tier at the slice's headline sizes (100 channels,
+             4096-row segments): 40 bulk batches over 2048 devices, 2.5x the
+             ring; (a) no row lost, whole segments; (b) the planner's
+             pushdown equals its full scan on the bench's filter matrix; (c)
+             16 ``query_events`` over evicted time ranges equal a host
+             oracle of the spooled columns plus the ring; (d) ``get_event``
+             of evicted ids; (e) a feed consumer from offset 0 replays every
+             event once, again before a commit. One ``AnalyticsManager``
+             job scores every device's newest 128-step window from the
+             archive, 256 devices a batch (window_features kernel ->
+             normalization -> AnomalyModel, bf16; launch count reset just
+             before and read just after: one a batch), held to a host
+             rebuild of the windows scored with the plain window_features;
+             ``fill_windows`` on the card equals its CPU run; the
+             conservation ledger balances. Then a reduced leg: a card
+             engine, a CPU engine and a card engine on the copy path with a
+             scan chunk, fed the same JSON for 8 rings, must agree byte for
+             byte (segments, pages, feed). Prints spool, query, feed and job
+             figures on one ``archive:`` line.
 
 ``--profile`` adds torch.profiler breakdowns after the checks of the
-slice, read, transformer and wire phases (a few steps or calls each).
+slice, read, transformer, wire and archive phases (a few steps or calls
+each; one spool and one scoring batch of the job).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and as the last line
@@ -81,6 +106,7 @@ import dataclasses
 import functools
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -513,12 +539,42 @@ def _alert_level_lane_rows(native, python) -> int | None:
     return None
 
 
+def _entry_admin(e) -> dict:
+    """The admin calls of the entry phase on one engine, and what they
+    answer."""
+    r = {"update_device": dataclasses.asdict(e.update_device(
+        "dev-1", device_type="gauge", area="north", customer="acme",
+        metadata={"parentToken": "sensor-1"}))}
+    r["create"] = [dataclasses.asdict(e.create_assignment(
+        "dev-2", token="dev-2:pump", asset="pump-7", area="east")),
+        dataclasses.asdict(e.create_assignment("dev-2", token="dev-2:valve",
+                                               asset="valve-3"))]
+    r["update"] = dataclasses.asdict(e.update_assignment("dev-2:pump", asset="pump-8",
+                                                         customer="acme"))
+    r["missing"] = dataclasses.asdict(e.mark_assignment_missing("dev-2:pump"))
+    r["release"] = dataclasses.asdict(e.release_assignment("dev-2:valve"))
+    e.process(DecodedRequest(type=RequestType.DEVICE_MEASUREMENT, device_token="dev-2",
+                             measurements={"temp": 3.0}))
+    r["deleted"] = [e.delete_assignment("dev-2:pump"), e.delete_device("dev-4")]
+    e.process(DecodedRequest(type=RequestType.DEVICE_MEASUREMENT, device_token="dev-4",
+                             measurements={"temp": 4.0}))
+    r["flush"] = e.flush()
+    r["state_changes"] = e.query_events(etype=EventType.STATE_CHANGE, limit=20)
+    r["dev2_events"] = e.query_events(device_token="dev-2", limit=5)
+    r["assignments"] = [dataclasses.asdict(a) for a in e.list_assignments(device_token="dev-2")]
+    r["assets"] = [e.assets.token(i) for i in range(len(e.assets))]
+    r["slots"] = e.device_slots
+    r["devices"] = {k: dataclasses.asdict(v) for k, v in e.devices.items()}
+    r["metrics"] = e.metrics()
+    return r
+
+
 def phase_entry(device, log, fails) -> None:
     cfg = EngineConfig(device_capacity=1024, token_capacity=2048,
                        assignment_capacity=2048, store_capacity=1 << 14,
                        batch_capacity=256, channels=100, analytics_devices=64,
                        analytics_window=128, presence_missing_s=3.0,
-                       rule_groups=64, rollup_buckets=8)
+                       rule_groups=64, rollup_buckets=8, assignment_triggers=True)
     engines, managers = {}, {}
     # the native decoder on the card and on the CPU, and the Python decode
     # path (asked for with use_native=False) on the card
@@ -643,7 +699,25 @@ def phase_entry(device, log, fails) -> None:
                 and bool(np.allclose(got["scores"], ref["scores"],
                                      rtol=SCORE_TOL, atol=1e-6)),
                 f"entry: scores differ from the CPU engine (max abs {score_err})")
-    emit({"phase": "entry", "device_state": st, "metrics": eng.metrics(),
+
+    # the registry admin API, card and CPU: identical answers, state and
+    # mirrors, and the STATE_CHANGE events of assignment_triggers
+    admin = {kind: _entry_admin(e) for kind, e in (("card", eng), ("cpu", ceng))}
+    fails.check(admin["card"] == admin["cpu"],
+                f"entry: admin answers differ from the CPU engine: {admin['card']} vs "
+                f"{admin['cpu']}")
+    admin_differ = [name for (name, a), (_, b) in zip(_state_leaves(eng.state),
+                                                       _state_leaves(ceng.state))
+                    if not torch.equal(a.cpu(), b)]
+    fails.check(not admin_differ,
+                f"entry: state after the admin calls differs from the CPU engine in {admin_differ}")
+    changes = {e["stateChange"] for e in admin["card"]["state_changes"]["events"]}
+    fails.check(changes >= {"assignment.created", "assignment.missing",
+                            "assignment.released"}
+                and admin["card"]["assets"] == ["pump-7", "valve-3", "pump-8"],
+                f"entry: admin triggers {sorted(changes)}, assets {admin['card']['assets']}")
+    emit({"phase": "entry", "admin": admin["card"],
+          "admin_state_equal_cpu": not admin_differ, "device_state": st, "metrics": eng.metrics(),
           "state_leaves_equal_cpu": not differ,
           "state_leaves_equal_python_decode": not differ_py,
           "alert_rows_vmask_lane0_native_vs_python": alert_lane_rows,
@@ -1144,7 +1218,7 @@ def _engines_differ(ref, eng) -> list[str]:
 
 def _conserved(eng, label: str, fails) -> list:
     bad = [v.to_dict() for v in check_conservation(build_ledger(eng))]
-    fails.check(not bad, f"wire: conservation violated on the {label} engine: {bad}")
+    fails.check(not bad, f"conservation violated on the {label} engine: {bad}")
     return bad
 
 
@@ -1332,6 +1406,464 @@ def phase_wire(device, log, fails, seed: int, config: dict = WIRE_CONFIG,
           f"peak device memory {h['peak_mem_gb']} GiB; {rec['card']}", flush=True)
 
 
+# the archive phase: the slice phase's headline engine sizes (bench.py's
+# HEADLINE_CFG) with 100 channels and an archive of 4096-row segments (the
+# default) in a temporary directory, fed 40 bulk batches over 2048 devices:
+# 655,360 events, 2.5x the 2^18-row ring, 320 rows a device. One analytics
+# job scores every device's newest 128-step window from the archive at the
+# service's default width (BASELINE config #4: 100-sensor windows), bf16,
+# 256 devices a batch
+ARCHIVE_CONFIG = dict(device_capacity=1 << 15, token_capacity=1 << 16,
+                      assignment_capacity=1 << 16, store_capacity=1 << 18,
+                      batch_capacity=16384, channels=100, analytics_window=128)
+ARCHIVE_DEVICES, ARCHIVE_BATCHES = 2048, 40
+ARCHIVE_JOB_DEVICES = 256
+ARCHIVE_QUERIES = 16
+ARCHIVE_FEED_BATCH = 16384
+# tests/test_torch_anomaly.py's bf16 tolerance: job scores against the
+# host rebuild scored with the plain window_features
+SCORE_BF16 = dict(rtol=1e-2, atol=1e-3)
+# the reduced leg: a card engine, a CPU engine and a card engine on the copy
+# path with a scan chunk, fed the same JSON through the native decoder for 8
+# rings' worth of events
+ARCHIVE_SMALL = dict(device_capacity=1024, token_capacity=4096,
+                     assignment_capacity=4096, store_capacity=1 << 14,
+                     batch_capacity=2048, channels=8, archive_segment_rows=1024)
+ARCHIVE_SMALL_DEVICES, ARCHIVE_SMALL_RINGS = 300, 8
+
+
+def archive_columns(seed: int, n_batches: int, cfg: dict, n_devices: int) -> list[dict]:
+    """The bulk stream as numpy columns: row j of every batch is a
+    measurement of token ``j % n_devices`` (so batch 0 auto-registers token
+    t as device t), every channel set, and event times strictly increasing
+    over the stream (row j of batch k at ``k * batch + j``, its absolute ring
+    position)."""
+    b, c = cfg["batch_capacity"], cfg["channels"]
+    rng = np.random.default_rng(seed)
+    token = np.tile(np.arange(n_devices, dtype=np.int32), b // n_devices)
+    out = []
+    for k in range(n_batches):
+        out.append(dict(
+            valid=np.ones(b, np.bool_), etype=np.zeros(b, np.int32), token_id=token,
+            tenant_id=np.zeros(b, np.int32),
+            ts_ms=(k * b + np.arange(b)).astype(np.int32),
+            received_ms=np.full(b, k, np.int32),
+            values=rng.standard_normal((b, c), dtype=np.float32),
+            vmask=np.ones((b, c), np.bool_),
+            aux=np.full((b, AUX_LANES), NULL_ID, np.int32),
+            seq=np.arange(b, dtype=np.int32)))
+    return out
+
+
+def archive_payloads(seed: int, n_calls: int, batch: int, n_devices: int) -> list[list[bytes]]:
+    """The reduced leg's JSON: measurements of three names, a location every
+    7th event and an alert with an alternate id every 11th, event times
+    strictly increasing (PinnedEpoch(1e9) puts them at 0, 1, 2, ...)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for call in range(n_calls):
+        pays = []
+        for i in range(batch):
+            seq = call * batch + i
+            tok = f"rl-{int(rng.integers(0, n_devices))}"
+            ts = 10**12 + seq
+            if seq % 11 == 0:
+                req = {"type": "DeviceAlert", "request": {
+                    "type": f"a{seq % 3}", "level": "Error", "eventDate": ts,
+                    "alternateId": f"alt-{seq}"}}
+            elif seq % 7 == 0:
+                req = {"type": "DeviceLocation", "request": {
+                    "latitude": float(rng.uniform(-80, 80)),
+                    "longitude": float(rng.uniform(-170, 170)), "eventDate": ts}}
+            else:
+                req = {"type": "DeviceMeasurements", "request": {
+                    "measurements": {"temp": 0.5 * (seq % 97), "load": 0.25 * (seq % 13),
+                                     f"x{seq % 3}": 1.0}, "eventDate": ts}}
+            pays.append(json.dumps({"deviceToken": tok, **req}).encode())
+        out.append(pays)
+    return out
+
+
+def _segments_differ(a, b) -> list[str]:
+    """Segments of two archives whose index entries or columns (dtype and
+    bytes) differ."""
+    from sitewhere_tpu_torch.utils.archive import _COLUMNS
+
+    if [dataclasses.asdict(s) for s in a.segments] != [dataclasses.asdict(s) for s in b.segments]:
+        return ["index"]
+    out = []
+    for sa, sb in zip(a.segments, b.segments):
+        ca, cb = a._cols_or_drop(sa, _COLUMNS), b._cols_or_drop(sb, _COLUMNS)
+        out += [f"{sa.path}:{c}" for c in _COLUMNS
+                if ca[c].dtype != cb[c].dtype or not np.array_equal(ca[c], cb[c])]
+    return out
+
+
+def _archive_rows_equal(ra, rb) -> bool:
+    return len(ra) == len(rb) and all(
+        x.keys() == y.keys() and all(np.array_equal(np.asarray(x[k]), np.asarray(y[k]))
+                                     for k in x) for x, y in zip(ra, rb))
+
+
+def _host_rows(eng) -> dict:
+    """Every persisted row of a one-arena engine as host columns in
+    absolute position order: the evicted positions from the spooled
+    segments, the rest from one read of the ring."""
+    from sitewhere_tpu_torch.ops.readback import read_range, slice_to_host
+    from sitewhere_tpu_torch.utils.archive import _COLUMNS
+
+    arch = eng.archive
+    head = eng.ring_heads()[0]
+    acap = eng.ring_arena_capacity()
+    oldest = max(0, head - acap)
+    parts = {c: [] for c in _COLUMNS}
+    for seg in arch.segments:
+        n = min(seg.count, oldest - seg.start)
+        if n <= 0:
+            continue
+        cols = arch._cols_or_drop(seg, _COLUMNS)
+        for c in _COLUMNS:
+            parts[c].append(cols[c][:n])
+    ring = slice_to_host(read_range(eng.state.store, oldest % acap, head - oldest))
+    for c in _COLUMNS:
+        parts[c].append(getattr(ring, c))
+    return {c: np.concatenate(v) for c, v in parts.items()}
+
+
+def _oracle_page(eng, rows: dict, lane_names: dict, *, device=None, since_ms=None,
+                 until_ms=None, limit: int = 100) -> dict:
+    """query_events over host rows: the filters, newest first (event times
+    are unique in this stream), formatted by the engine's own formatter."""
+    m = rows["valid"].copy()
+    if device is not None:
+        m &= rows["device"] == device
+    if since_ms is not None:
+        m &= rows["ts_ms"] >= since_ms
+    if until_ms is not None:
+        m &= rows["ts_ms"] <= until_ms
+    idx = np.nonzero(m)[0]
+    idx = idx[np.argsort(-rows["ts_ms"][idx], kind="stable")][:limit]
+    events = [eng._format_event(int(rows["etype"][i]), int(rows["device"][i]),
+                                int(rows["assignment"][i]), int(rows["ts_ms"][i]),
+                                int(rows["received_ms"][i]), rows["values"][i],
+                                rows["vmask"][i], rows["aux"][i], lane_names)
+              for i in idx]
+    return {"total": int(m.sum()), "events": events}
+
+
+@torch.inference_mode()
+def _plain_scores(model, data, filled, min_fill: int):
+    """models/service._score_windows with the plain window_features."""
+    feats = wf.window_features_reference(data)
+    scores = model(wf.normalize_windows(data, feats))
+    return torch.where(filled >= min_fill, scores, 0.0)
+
+
+def phase_archive(device, log, fails, seed: int, config: dict = ARCHIVE_CONFIG,
+                  n_devices: int = ARCHIVE_DEVICES, n_batches: int = ARCHIVE_BATCHES,
+                  job_devices: int = ARCHIVE_JOB_DEVICES, small: dict = ARCHIVE_SMALL,
+                  small_devices: int = ARCHIVE_SMALL_DEVICES,
+                  feed_batch: int = ARCHIVE_FEED_BATCH, profile: bool = False) -> dict:
+    """The archive tier at full width: the bulk stream spills 2.5 rings to
+    disk; (a) no row lost, (b) the planner's pushdown query equals its full
+    scan over the bench's filter matrix, (c) ``query_events`` over evicted
+    time ranges equals a host oracle of the spooled columns plus the ring,
+    (d) ``get_event`` of evicted ids, (e) a feed consumer from offset 0
+    replays every event once; one analytics job scores every device's
+    newest window from the archive through the window_features kernel,
+    held to a host rebuild scored with the plain version; then the reduced
+    leg, card against CPU byte for byte. Returns the kernel's launches in
+    the job and its timing at the job's shape."""
+    from sitewhere_tpu_torch.models.analytics import AnalyticsJobSpec, AnalyticsManager
+    from sitewhere_tpu_torch.ops.window_fill import fill_windows
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    b, c, w = config["batch_capacity"], config["channels"], config["analytics_window"]
+    rec: dict = {"phase": "archive", "config": config, "devices": n_devices,
+                 "batches": n_batches, "events": n_batches * b}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="archive-"))
+    try:
+        eng = Engine(EngineConfig(**config, archive_dir=str(tmp / "headline")), device=device)
+        for t in range(n_devices):
+            eng.tokens.intern(f"ar-{t:05d}")
+        cols = archive_columns(seed, n_batches, config, n_devices)
+        batches = [EventBatch.from_numpy(device, **x) for x in cols]
+        all_ts = np.concatenate([x["ts_ms"] for x in cols])
+        all_vals = np.concatenate([x["values"] for x in cols])
+        del cols
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for batch in batches:
+            eng.ingest_event_batch(batch)
+        eng.flush()
+        ingest_s = time.perf_counter() - t0
+        del batches
+        arch, st = eng.archive, eng.spool_stats
+        met = eng.metrics()
+        head = eng.ring_heads()[0]
+        acap = eng.ring_arena_capacity()
+        seg_rows = arch.segment_rows
+        spilled = arch.spilled(0)
+
+        # (a) every evicted row is on disk, in whole segments
+        fails.check(met["processed"] == head == n_batches * b and met["archive_lost_rows"] == 0
+                    and met["archived_rows"] == spilled and spilled % seg_rows == 0
+                    and head - acap <= spilled <= head and len(arch.segments) == spilled // seg_rows,
+                    f"archive (a): head {head}, spilled {spilled}, metrics {met}")
+        rec["spill"] = {"head": head, "ring_rows": acap, "evicted_rows": head - acap,
+                        "archived_rows": met["archived_rows"], "segments": len(arch.segments),
+                        "segment_rows": seg_rows, "lost_rows": met["archive_lost_rows"],
+                        **st, "spool_ms_per_segment": st["seconds"] * 1e3 / max(1, st["segments"]),
+                        "spool_host_ms_per_batch": st["seconds"] * 1e3 / n_batches,
+                        "syncs_per_batch": st["syncs"] / n_batches,
+                        "ingest_s": ingest_s}
+
+        # (b) pushdown against the full scan, on the bench's filter matrix
+        filters = [{"limit": 50}, {"limit": 5}, {"device": 7}, {"device": 7, "limit": 3},
+                   {"since_ms": 1000, "until_ms": 1500, "limit": 100},
+                   {"since_ms": spilled // 4, "limit": 64},
+                   {"device": 3, "since_ms": 1200, "until_ms": 2200 + b},
+                   {"etype": int(EventType.MEASUREMENT), "limit": 20},
+                   {"device": 999_999_999},
+                   {"max_pos": {0: spilled // 3}, "limit": 40},
+                   {"max_pos": {0: spilled // 3}, "device": 1}]
+        bad = [f for f in filters
+               if (lambda x, y: x[0] != y[0] or not _archive_rows_equal(x[1], y[1]))(
+                   arch.query(**f), arch.query_unpruned(**f))]
+        fails.check(not bad, f"archive (b): pushdown differs from the full scan for {bad}")
+        rec["pushdown_filters"], rec["pushdown_equal"] = len(filters), not bad
+
+        # (c) historical query_events against the host oracle: the spooled
+        # columns plus the ring, which must hold the stream as generated
+        rows = _host_rows(eng)
+        fails.check(len(rows["ts_ms"]) == head and np.array_equal(rows["ts_ms"], all_ts)
+                    and np.array_equal(rows["values"], all_vals)
+                    and np.array_equal(rows["device"], np.arange(head) % n_devices),
+                    "archive (c): the spooled segments plus the ring are not the stream")
+        lane_names = eng._lane_names()
+        evicted = head - acap
+        q_ms, q_bad = [], []
+        for i in range(ARCHIVE_QUERIES):
+            since = (evicted * i) // ARCHIVE_QUERIES
+            q = dict(since_ms=since, until_ms=since + (b if i % 2 else 40 * b), limit=100)
+            if i % 4 == 3:
+                q["device"] = (97 * i) % n_devices
+            kw = dict(q)
+            if "device" in kw:
+                kw["device_token"] = f"ar-{kw.pop('device'):05d}"
+            t0 = time.perf_counter()
+            page = eng.query_events(**kw)
+            q_ms.append((time.perf_counter() - t0) * 1e3)
+            if page != _oracle_page(eng, rows, lane_names, **q):
+                q_bad.append(q)
+        fails.check(not q_bad, f"archive (c): query_events differs from the host oracle for {q_bad}")
+        rec["query_ms_p50"] = float(np.percentile(q_ms, 50))
+        rec["query_ms_p99"] = float(np.percentile(q_ms, 99))
+        rec["query_ms"] = q_ms
+
+        # (d) get_event of evicted ids (and one id the ring holds)
+        ids = [0, 1, seg_rows - 1, seg_rows, evicted // 2, evicted - 1, head - 1]
+        got = [eng.get_event(i) for i in ids]
+        fails.check(all(ev is not None and ev["eventId"] == i and ev["eventDateMs"] == int(all_ts[i])
+                        and ev["measurements"] == {lane_names.get(ch, f"ch{ch}"): float(all_vals[i, ch])
+                                                   for ch in range(c)}
+                        for i, ev in zip(ids, got)) and eng.get_event(head) is None,
+                    f"archive (d): get_event of ids {ids} does not give the archived rows")
+
+        # (e) the feed replays every event once, at least once before a commit
+        consumer = eng.make_feed_consumer("replay", max_batch=feed_batch)
+        delivered, poll_s, feed_ok = 0, 0.0, True
+        while True:
+            t0 = time.perf_counter()
+            evs = consumer.poll()
+            poll_s += time.perf_counter() - t0
+            if not evs:
+                break
+            ids_now = [e.event_id for e in evs]
+            again = consumer.poll()
+            feed_ok &= ([e.event_id for e in again] == ids_now
+                        and ids_now == list(range(delivered, delivered + len(evs)))
+                        and again[-1].values == [float(v) for v in all_vals[ids_now[-1]]])
+            consumer.commit(evs)
+            delivered += len(evs)
+            del evs, again
+        fails.check(feed_ok and delivered == head and consumer.lag_lost == 0
+                    and consumer.offset == head,
+                    f"archive (e): the feed delivered {delivered} of {head} events "
+                    f"(in order and again before a commit: {feed_ok}, lag_lost {consumer.lag_lost})")
+        rec["feed"] = {"delivered": delivered, "max_batch": feed_batch,
+                       "events_per_s": delivered / poll_s, "lag_lost": consumer.lag_lost}
+
+        # the analytics job: every device's newest window, 256 devices a
+        # batch, through the window_features kernel
+        mgr = AnalyticsManager(eng)
+        job_scores: dict = {}
+        orig_emit = mgr._emit_batch
+
+        def spy(job, batch_devs, ends, scores, valid, *a, **kw):
+            for d, s in zip(batch_devs, scores):
+                job_scores[int(d)] = float(s)
+            return orig_emit(job, batch_devs, ends, scores, valid, *a, **kw)
+
+        mgr._emit_batch = spy
+        model, _ = mgr._model_bundle(w, c)       # built before the count starts
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wf.window_features.launches = 0          # this path starts here
+        job = mgr.run_job(AnalyticsJobSpec(batch_devices=job_devices, window=w,
+                                           threshold=3.0, name="archive-smoke"))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = wf.window_features.launches   # ... ends here
+        n_job_batches = (n_devices + job_devices - 1) // job_devices
+        fails.check(job["state"] == "done" and job["devices"] == n_devices
+                    and job["scored"] == n_devices and job["batches"] == n_job_batches,
+                    f"archive: job {job}")
+        fails.check(launches == job["batches"],
+                    f"archive: {launches} window_features launches for {job['batches']} "
+                    "scoring batches")
+        # the host rebuild: each device's newest w archived rows
+        per = head // n_devices
+        pos = np.arange(n_devices)[:, None] + n_devices * np.arange(per)[None, :]
+        pos = np.where(pos < spilled, pos, -1)
+        newest = np.sort(pos, axis=1)[:, -w:]
+        host_windows = torch.from_numpy(all_vals[newest])
+        filled = torch.full((n_devices,), w, dtype=torch.int32)
+        plain = torch.cat([_plain_scores(model, host_windows[lo:lo + job_devices].to(device),
+                                         filled[lo:lo + job_devices].to(device), w).cpu()
+                           for lo in range(0, n_devices, job_devices)]).numpy()
+        got_scores = np.array([job_scores.get(d, np.nan) for d in range(n_devices)])
+        score_err = float(np.nanmax(np.abs(got_scores - plain)))
+        fails.check(bool(np.isfinite(got_scores).all())
+                    and bool(np.allclose(got_scores, plain, **SCORE_BF16)),
+                    f"archive: job scores differ from the host rebuild (max abs {score_err})")
+        # fill_windows of the first batch: card and CPU byte for byte, and
+        # the host rebuild's windows
+        sel = newest[:job_devices].reshape(-1)
+        fill_in = (torch.from_numpy(np.repeat(np.arange(job_devices, dtype=np.int32), w)),
+                   torch.from_numpy(all_ts[sel].astype(np.int32)),
+                   torch.arange(job_devices * w, dtype=torch.int32),
+                   torch.from_numpy(all_vals[sel]),
+                   torch.ones((job_devices * w, c), dtype=torch.bool))
+        card_fill = fill_windows(*(x.to(device) for x in fill_in), m=job_devices, w=w)
+        cpu_fill = fill_windows(*fill_in, m=job_devices, w=w)
+        fill_equal = (all(torch.equal(x.cpu(), y) for x, y in zip(card_fill, cpu_fill))
+                      and torch.equal(cpu_fill[0], host_windows[:job_devices]))
+        fails.check(fill_equal, "archive: fill_windows on the card differs from its CPU run "
+                    "or from the host rebuild")
+        # the kernel at the job's shape, against its plain version
+        x = card_fill[0]
+        kernel_ms = time_ms(lambda: wf.window_features(x), device)
+        plain_ms = time_ms(lambda: wf.window_features_reference(x), device)
+        bound_ms, bound_by = window_features_bound_ms(*x.shape)
+        kerr = float((wf.window_features(x) - wf.window_features_reference(x)).abs().max())
+        fails.check(kerr <= KERNEL_TOL * (1 + float(x.abs().max())),
+                    f"archive: window_features at {tuple(x.shape)} max abs err {kerr}")
+        eng.flush()
+        led = build_ledger(eng, None)
+        bad_led = [v.to_dict() for v in check_conservation(led)]
+        fails.check(not bad_led and led["stages"]["analytics"]["planned"] == n_devices,
+                    f"archive: conservation violated: {bad_led}")
+        rec["job"] = {k: job[k] for k in ("rounds", "segments", "bytes", "rows", "planned",
+                                          "scored", "emitted", "batches", "stream_s",
+                                          "score_s", "bytes_per_s", "devices_per_s")}
+        rec["job"].update(score_max_abs_err_vs_host=score_err, score_tol=SCORE_BF16,
+                          window_features_launches=launches, fill_windows_equal_cpu=fill_equal,
+                          model=dataclasses.asdict(model.cfg) | {"dtype": str(model.cfg.dtype)})
+        b1 = {"shape": list(x.shape), "ms": kernel_ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": kerr}
+        rec["window_features_at_job_shape"] = b1
+        rec["conservation"] = {"stages": sorted(led["stages"]), "violations": bad_led}
+        rec["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 2**30
+                              if device.type == "cuda" else None)
+        if profile and device.type == "cuda":   # after the counts were read
+            more = [EventBatch.from_numpy(device, **x)
+                    for x in archive_columns(seed + 1, 2, config, n_devices)]
+            eng._spool_trigger = 1 << 62          # ingest without spooling ...
+            for batch in more:
+                eng.ingest_event_batch(batch)
+            eng.barrier()
+            _profile("spool", eng._spool, 1, log, family=_step_family)   # ... then one spool
+            _profile("score_batch", lambda: mgr._model_bundle(w, c)[1](
+                model, card_fill[0], card_fill[1], w), 1, log, family=_kernel_family)
+        del eng, mgr, rows, all_vals, host_windows
+
+        # the reduced leg: card, CPU and the card's copy path, byte for byte
+        calls = ARCHIVE_SMALL_RINGS * small["store_capacity"] // small["batch_capacity"]
+        payloads = archive_payloads(seed, calls, small["batch_capacity"], small_devices)
+        legs = {"card": (device, {}), "cpu": (cpu, {}),
+                "card_copy_scan2": (device, {"ingest_arenas": -1, "scan_chunk": 2})}
+        engines, small_rec = {}, {}
+        for label, (dev, kw) in legs.items():
+            e = Engine(EngineConfig(**small, **kw, archive_dir=str(tmp / label)), device=dev)
+            e.epoch = PinnedEpoch(1e9)
+            t0 = time.perf_counter()
+            for p in payloads:
+                e.ingest_json_batch(p)
+            e.flush()
+            small_rec[label] = {"seconds": time.perf_counter() - t0,
+                                "archived_rows": e.metrics()["archived_rows"],
+                                "arena_rows": e.host_counters.get("arena_rows", 0),
+                                "staged_copy_rows": e.host_counters.get("staged_copy_rows", 0),
+                                "conservation": _conserved(e, f"archive {label}", fails)}
+            engines[label] = e
+        ref = engines["card"]
+        fails.check(ref.metrics()["archive_lost_rows"] == 0
+                    and ref.metrics()["archived_rows"] >= (ARCHIVE_SMALL_RINGS - 1)
+                    * small["store_capacity"]
+                    and small_rec["card"]["arena_rows"] > 0
+                    and small_rec["card_copy_scan2"]["staged_copy_rows"] > 0,
+                    f"archive (small): {small_rec}")
+        queries = [dict(limit=50), dict(since_ms=100, until_ms=3000, limit=64),
+                   dict(device_token="rl-7", limit=100),
+                   dict(etype=EventType.ALERT, until_ms=20_000, limit=30),
+                   dict(alternate_id="alt-121")]
+        pages = {label: [e.query_events(**q) for q in queries] for label, e in engines.items()}
+        feeds = {}
+        for label, e in engines.items():
+            fc = e.make_feed_consumer("small", max_batch=1 << 15)
+            out = []
+            while evs := fc.poll():
+                fc.commit(evs)
+                out += [dataclasses.asdict(ev) | {"etype": int(ev.etype)} for ev in evs]
+            feeds[label] = out
+        for label, e in engines.items():
+            if e is ref:
+                continue
+            differ = _engines_differ(ref, e) + _segments_differ(ref.archive, e.archive)
+            fails.check(not differ and pages[label] == pages["card"]
+                        and feeds[label] == feeds["card"],
+                        f"archive (small): the {label} engine differs from the card's in "
+                        f"{differ[:8]} (pages equal {pages[label] == pages['card']}, "
+                        f"feed equal {feeds[label] == feeds['card']})")
+            small_rec[label]["equal_card"] = not differ
+        fails.check(len(feeds["card"]) == ref.ring_heads()[0]
+                    and any(p["total"] for p in pages["card"]),
+                    f"archive (small): feed {len(feeds['card'])} events, head {ref.ring_heads()}")
+        rec["small"] = {"config": small, "calls": calls, "events": calls * small["batch_capacity"],
+                        "segments": len(ref.archive.segments), **small_rec}
+        del engines, ref
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["card"] = card_line() if device.type == "cuda" else None
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec, log)
+    s, j = rec["spill"], rec["job"]
+    print(f"archive: spool {s['spool_ms_per_segment']:.3f} ms a segment "
+          f"({s['spool_host_ms_per_batch']:.2f} host ms a batch, {s['syncs_per_batch']:.2f} syncs); "
+          f"{s['archived_rows']} rows in {s['segments']} segments; historical query_events "
+          f"p50 {rec['query_ms_p50']:.2f} ms p99 {rec['query_ms_p99']:.2f} ms; feed replay "
+          f"{rec['feed']['events_per_s']:.0f} events/s; job {j['rounds']} rounds, "
+          f"{j['bytes_per_s'] / 1e6:.1f} MB/s, {j['devices_per_s']:.0f} devices/s; "
+          f"window_features {launches} launches, {b1['ms']:.4f} ms at {b1['shape']} "
+          f"(bound {b1['bound_ms']:.4f} ms); peak device memory {rec['peak_mem_gb']} GiB; "
+          f"phase {rec['seconds']:.1f} s; {rec['card']}", flush=True)
+    return {"launches": launches, **b1}
+
+
 def _step_family(name: str) -> str:
     """Kernel family of one device kernel of the fused step."""
     n = name.lower()
@@ -1485,8 +2017,9 @@ def main(argv=None) -> int:
                     help="also write every phase record to this JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="after the checks, profile a few steps (without and with zones "
-                         "and rules), one scoring call, one transformer call and three "
-                         "wire-ingest dispatches")
+                         "and rules), one scoring call, one transformer call, three "
+                         "wire-ingest dispatches, one spool and one scoring batch of an "
+                         "archive job")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1515,7 +2048,16 @@ def main(argv=None) -> int:
                                             profile=args.profile)
     phase_read(device, log, fails, args.seed, slice_step_ms, profile=args.profile)
     phase_wire(device, log, fails, args.seed, profile=args.profile)
-    kernels = [dict(k, launches=launches[k["name"]], **timing[k["name"]])
+    archive = phase_archive(device, log, fails, args.seed, profile=args.profile)
+    # window_features runs on two paths: the live scoring of the slice and
+    # the archive's analytics job
+    by_path = {"window_features": {"slice": launches["window_features"],
+                                   "archive": archive["launches"]},
+               "flash_attention": {"transformer": launches["flash_attention"]}}
+    timing["window_features"]["at_archive_job_shape"] = {
+        k: archive[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+    kernels = [dict(k, launches=sum(by_path[k["name"]].values()),
+                    launches_by_path=by_path[k["name"]], **timing[k["name"]])
                for k in KERNELS]
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -21,18 +21,29 @@ and the host mirror of registry metadata. Ported so far:
   before staging and fsync'd before the dispatch that copies its rows to
   the device; snapshots and recovery live in ``utils/checkpoint.py``, the
   conservation ledger in ``utils/conservation.py``;
-- admin and state: ``register_device``, ``map_device``,
+- admin and state: ``register_device``, ``map_device``, the registry
+  admin API (``update_device``, ``delete_device``, ``create_assignment``,
+  ``get_assignment``, ``list_assignments``, ``update_assignment``,
+  ``delete_assignment``, ``release_assignment``,
+  ``mark_assignment_missing``; ``assignment_triggers`` emits their
+  STATE_CHANGE events), ``auto_register``, ``tenant_arenas``,
   ``get_device_state``, ``search_device_states``, ``presence_sweep``,
   ``set_geofence_zones``;
-- reads: ``query_events`` through the shared-scan :class:`QueryBatcher`,
-  ``get_event`` (ring only), ``tenant_metrics``,
-  ``tenant_pipeline_counters``, ``metrics()``;
+- reads: ``query_events`` through the shared-scan :class:`QueryBatcher`
+  (``query_coalesce`` queries a round), two-tier with the archive,
+  ``get_event`` (ring, then archive), ``make_feed_consumer``
+  (outbound/feed.py), ``tenant_metrics``, ``tenant_pipeline_counters``,
+  ``metrics()``;
+- the archive tier (``archive_dir``, utils/archive.py): ring segments
+  spill to disk before the ring overwrites them, and the archive->device
+  anomaly jobs of models/analytics.py score archived history;
 - the streaming-rules tier: ``set_rules``, ``poll_rule_fires``,
   ``rule_counters`` (rules/manager.py drives them).
 
 Not ported yet: the flight recorder and span tracer (summaries carry no
 ``trace_id``), the multiprocess decode pool, fair tenancy, QoS, the
-autotuner, the replica feed, the archive tier and the multi-chip engines.
+autotuner, the replica feed, the rollup archive and the multi-chip
+engines.
 
 Auto-registration happens on the device (ops/registration.py); the host
 mirrors it from the step's ``new_tokens`` (allocation order == list order).
@@ -44,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import os
 import threading
 import time
@@ -68,7 +80,7 @@ from sitewhere_tpu_torch.ingest.fast_decode import (RT_ACK, RT_MAP, RT_REGISTER,
 from sitewhere_tpu_torch.ingest.requests import DecodedRequest, RequestType
 from sitewhere_tpu_torch.ops.geofence import pack_zones
 from sitewhere_tpu_torch.ops.query import QueryParams, bucket_limit, query_store_batch
-from sitewhere_tpu_torch.ops.readback import arena_cursor, read_range
+from sitewhere_tpu_torch.ops.readback import arena_cursor, read_range, slice_to_host
 from sitewhere_tpu_torch.ops.rules import harvest_fires
 from sitewhere_tpu_torch.pipeline import (TENANT_COUNTER_BUCKETS,
                                           TENANT_COUNTER_LANES, PipelineConfig,
@@ -183,7 +195,11 @@ class EngineConfig:
     batch_capacity: int = 8192
     flush_interval_s: float = 0.05     # max added latency before maybe_flush
                                        # forces a flush
+    auto_register: bool = True         # unknown tokens register on the
+                                       # device; False dead-letters them
     default_device_type: str = "default"
+    assignment_triggers: bool = False  # emit STATE_CHANGE events on
+                                       # assignment create / status change
     presence_missing_s: float = 8 * 3600.0  # presence sweep's missing interval
     use_native: bool = True            # C++ decode and interning; a failed
                                        # build raises. False = the Python
@@ -207,6 +223,23 @@ class EngineConfig:
                                        # host waits for the oldest
     analytics_devices: int = 0         # device-resident telemetry windows for [0, M)
     analytics_window: int = 128        # W timesteps per window
+    tenant_arenas: int = 1             # >1: the event ring splits into
+                                       # per-tenant-hash arenas (a tenant's
+                                       # burst evicts only its own rows)
+    query_coalesce: int = 16           # most concurrent event queries one
+                                       # query_store_batch serves
+    archive_dir: str | None = None     # retention tier: ring segments
+                                       # spill here before the ring
+                                       # overwrites them; query_events,
+                                       # get_event and the feed read both
+    archive_segment_rows: int = 4096   # rows a spilled segment (clamped
+                                       # to arena_capacity // 4)
+    archive_max_rows: int | None = None  # rows kept a partition (None =
+                                         # all history)
+    archive_max_age_ms: int | None = None  # event-time retention horizon
+    archive_cache_segments: int = 8    # decoded-segment LRU depth
+    archive_compress: bool = False     # per-column codecs on spilled
+                                       # segments (same answers)
     ingest_arenas: int = 0             # staging arenas of the native batch
                                        # path: 0 = dispatch_depth + 2,
                                        # -1 = the copy-staging path
@@ -301,6 +334,85 @@ def _admin_set_parent(state: PipelineState, device_id: int,
         reg, device_parent=_set_at(reg.device_parent, device_id, parent_id)))
 
 
+def _admin_set_device_active(state: PipelineState, device_id: int,
+                             active: bool) -> PipelineState:
+    """Write one device's active flag (delete_device)."""
+    reg = state.registry
+    return dataclasses.replace(state, registry=dataclasses.replace(
+        reg, device_active=_set_at(reg.device_active, device_id, active)))
+
+
+def _admin_update_device(state: PipelineState, device_id: int, type_id: int,
+                         area_id: int, customer_id: int) -> PipelineState:
+    """Write one device's type, area and customer columns."""
+    reg = state.registry
+    return dataclasses.replace(state, registry=dataclasses.replace(
+        reg,
+        device_type=_set_at(reg.device_type, device_id, type_id),
+        device_area=_set_at(reg.device_area, device_id, area_id),
+        device_customer=_set_at(reg.device_customer, device_id, customer_id)))
+
+
+def _admin_add_assignment(state: PipelineState, device_id: int,
+                          assignment_id: int, slot: int, asset_id: int,
+                          area_id: int, customer_id: int) -> PipelineState:
+    """Attach one more ACTIVE assignment to a device slot (the slots feed
+    the per-assignment expansion of every event of the device)."""
+    reg = state.registry
+    reg = dataclasses.replace(
+        reg,
+        device_assignments=_set_at(reg.device_assignments,
+                                   (device_id, slot), assignment_id),
+        assignment_active=_set_at(reg.assignment_active, assignment_id, True),
+        assignment_status=_set_at(reg.assignment_status, assignment_id,
+                                  int(DeviceAssignmentStatus.ACTIVE)),
+        assignment_device=_set_at(reg.assignment_device, assignment_id,
+                                  device_id),
+        assignment_asset=_set_at(reg.assignment_asset, assignment_id,
+                                 asset_id),
+        assignment_area=_set_at(reg.assignment_area, assignment_id, area_id),
+        assignment_customer=_set_at(reg.assignment_customer, assignment_id,
+                                    customer_id),
+    )
+    return dataclasses.replace(
+        state, registry=reg,
+        next_assignment=torch.clamp(state.next_assignment,
+                                    min=assignment_id + 1))
+
+
+def _admin_update_assignment(state: PipelineState, assignment_id: int,
+                             asset_id: int, area_id: int,
+                             customer_id: int) -> PipelineState:
+    """Write one assignment's asset, area and customer columns."""
+    reg = state.registry
+    return dataclasses.replace(state, registry=dataclasses.replace(
+        reg,
+        assignment_asset=_set_at(reg.assignment_asset, assignment_id,
+                                 asset_id),
+        assignment_area=_set_at(reg.assignment_area, assignment_id, area_id),
+        assignment_customer=_set_at(reg.assignment_customer, assignment_id,
+                                    customer_id)))
+
+
+def _admin_set_assignment_status(state: PipelineState, assignment_id: int,
+                                 status: int, active: bool) -> PipelineState:
+    """Write one assignment's status; a release (``active=False``) also
+    detaches it from its device's slot row, so events stop expanding to
+    it. The device row is found on the device (no host read): a
+    ``NULL_ID`` device indexes the last row, as the JAX update does."""
+    reg = state.registry
+    did = reg.assignment_device[assignment_id].long()
+    row = reg.device_assignments[did]
+    new_row = row if active else torch.where(row == assignment_id, NULL_ID, row)
+    reg = dataclasses.replace(
+        reg,
+        assignment_status=_set_at(reg.assignment_status, assignment_id, status),
+        assignment_active=_set_at(reg.assignment_active, assignment_id, active),
+        device_assignments=_set_at(reg.device_assignments, did, new_row),
+    )
+    return dataclasses.replace(state, registry=reg)
+
+
 # rule/rollup parameter columns: a swap that keeps shapes and layout
 # replaces exactly these and preserves the carried state
 _RULE_PARAM_FIELDS = ("active", "etype", "tenant", "ch_a", "val_a",
@@ -369,15 +481,22 @@ class QueryBatcher:
     and drains the queue in rounds; queries arriving while a round
     executes form the next round. Each round groups entries by their
     power-of-two ``limit`` bucket and runs one ``query_store_batch`` per
-    group — Q queries share a single pass over the ring.
+    group — Q queries share a single pass over the ring. With an archive,
+    the round also serves every archive request it holds in one planner
+    pass (``EventArchive.query_batch``), capped at the rows the round's
+    ring snapshot no longer holds, so the two tiers neither overlap nor
+    leave a gap.
 
     Lock discipline: the leader takes the engine lock only to snapshot
-    ``state.store`` and enqueue the query's device work; the device wait,
-    the readback and all host-side formatting happen outside it. The
-    snapshot stays valid outside the lock because the port's step is
-    functional — every step builds new state tensors and never writes
-    into the old ones, so the snapshot's tensors are never overwritten.
-    (An in-place step would have to copy the store here.)"""
+    ``state.store`` (and its cursors) and enqueue the query's device work;
+    the device wait, the readback and all host-side formatting happen
+    outside it. The snapshot stays valid outside the lock because the
+    port's step is functional — every step builds new state tensors and
+    never writes into the old ones, so the snapshot's tensors are never
+    overwritten. The cursors are cloned all the same, so that a step that
+    writes in place could not move the archive cap under the ring scan.
+    The archive pass holds the lock (the spooler mutates the archive
+    under it), once a round."""
 
     def __init__(self, engine, max_batch: int = 16):
         self.engine = engine
@@ -389,31 +508,38 @@ class QueryBatcher:
         self.coalesced = 0       # queries served through them
         self.max_coalesced = 0   # largest micro-batch observed
 
-    def run(self, params: tuple, limit: int):
+    def run(self, params: tuple, limit: int, archive: dict | None = None):
         """Submit one predicate set (``QueryParams`` field order, plain
-        ints) at a bucketed ``limit``. Returns ``(row, q)``: the query's
-        ``QueryResult`` row as numpy arrays and the size of the
-        micro-batch it rode in."""
+        ints) at a bucketed ``limit``. ``archive`` (``{"limit":
+        exact_page, "filters": {...}}``) asks the round to scan the
+        archive for this query too. Returns ``(row, cursors, q,
+        archive_result)``: the query's ``QueryResult`` row as numpy
+        arrays, the snapshot's cursor capture (``(epoch, cursor,
+        arena_capacity)`` or None), the size of the micro-batch it rode
+        in, and the ``(total, rows)`` archive page (None when there is no
+        archive, it is empty or the ring still holds everything)."""
         entry = {"params": params, "limit": int(limit),
-                 "event": threading.Event(), "result": None, "q": 0,
-                 "error": None}
+                 "event": threading.Event(), "result": None,
+                 "cursors": None, "q": 0, "error": None,
+                 "archive": archive, "archive_result": None}
         if self.engine.lock._is_owned():
             # a caller already inside the engine lock must not park as a
             # follower: the leader would block on the lock it holds
             self._execute([entry])
-            return entry["result"], entry["q"]
-        with self._mu:
-            self._queue.append(entry)
-            lead = not self._running
-            if lead:
-                self._running = True
-        if lead:
-            self._drain()
         else:
-            entry["event"].wait()
-        if entry["error"] is not None:
-            raise entry["error"]
-        return entry["result"], entry["q"]
+            with self._mu:
+                self._queue.append(entry)
+                lead = not self._running
+                if lead:
+                    self._running = True
+            if lead:
+                self._drain()
+            else:
+                entry["event"].wait()
+            if entry["error"] is not None:
+                raise entry["error"]
+        return (entry["result"], entry["cursors"], entry["q"],
+                entry["archive_result"])
 
     def _drain(self) -> None:
         """Leader loop: execute rounds until the queue is empty. The empty
@@ -442,6 +568,10 @@ class QueryBatcher:
         launched = []
         with eng.lock:
             store = eng.state.store
+            cursors = None
+            if eng.archive is not None:
+                cursors = (store.epoch.clone(), store.cursor.clone(),
+                           store.arena_capacity)
             for limit, entries in groups.items():
                 cols = torch.tensor([e["params"] for e in entries],
                                     dtype=torch.int32).T.to(eng.device)
@@ -451,10 +581,26 @@ class QueryBatcher:
                 self.programs += 1
                 self.coalesced += qn
                 self.max_coalesced = max(self.max_coalesced, qn)
+        # one archive pass for every archive request of the round, capped
+        # at absolute positions below head - capacity of the snapshot
+        archive_entries = [e for e in batch if e["archive"] is not None]
+        if archive_entries and cursors is not None:
+            ep, cu, acap = cursors
+            ep, cu = ep.cpu().numpy(), cu.cpu().numpy()
+            max_pos = {a: int(ep[a]) * acap + int(cu[a]) - acap
+                       for a in range(len(cu))}
+            with eng.lock:
+                if eng.archive.segments and any(v > 0 for v in max_pos.values()):
+                    results = eng.archive.query_batch(
+                        [e["archive"] for e in archive_entries],
+                        max_pos=max_pos)
+                    for e, res in zip(archive_entries, results):
+                        e["archive_result"] = res
         for entries, res in launched:
             host = _fetch_query_result(res)
             for q, entry in enumerate(entries):
                 entry["result"] = type(host)(*(col[q] for col in host))
+                entry["cursors"] = cursors
                 entry["q"] = len(entries)
                 entry["event"].set()
 
@@ -497,12 +643,14 @@ class Engine:
         self.device_types.intern(c.default_device_type)
         self.areas = TokenInterner(1 << 16)
         self.customers = TokenInterner(1 << 16)
-        self.pipeline_config = PipelineConfig()
+        self.assets = TokenInterner(1 << 16)
+        self.pipeline_config = PipelineConfig(auto_register=c.auto_register)
         self.state = PipelineState.create(
             c.device_capacity, c.token_capacity, c.assignment_capacity,
             c.store_capacity, c.channels,
             analytics_devices=c.analytics_devices,
             analytics_window=c.analytics_window,
+            store_arenas=c.tenant_arenas,
             device=self.device,
         )
         self._scan_step = make_packed_scan_step(
@@ -553,7 +701,7 @@ class Engine:
         self.outputs: list[dict] = []                      # recent step summaries
         self._pending_outs: list[StepOutput] = []          # un-absorbed outputs
         self._pending_fences: list = []                    # their fences
-        self._query_batcher = QueryBatcher(self)
+        self._query_batcher = QueryBatcher(self, max_batch=c.query_coalesce)
         # conservation ledger: rows staged and rows dispatched
         self.ledger = FlowLedger(enabled=c.conservation)
         # durability: accepted payloads append to the WAL before staging,
@@ -567,6 +715,44 @@ class Engine:
 
             self.wal = IngestLog(c.wal_dir, group_commit=c.wal_group_commit,
                                  group_window_s=c.wal_group_window_s)
+        # the retention tier: rows spill to disk before the ring can
+        # overwrite them
+        self.archive = None
+        self._rows_since_spool = 0
+        # the spooler's host cost: spools, segments written, host syncs
+        # (one for the ring heads, one copy a segment) and seconds
+        self.spool_stats = {"spools": 0, "segments": 0, "syncs": 0,
+                            "seconds": 0.0}
+        if c.archive_dir:
+            from sitewhere_tpu_torch.utils.archive import (EventArchive,
+                                                           single_topology)
+
+            acap = c.store_capacity // c.tenant_arenas
+            self.archive = EventArchive(
+                c.archive_dir,
+                segment_rows=max(1, min(c.archive_segment_rows, acap // 4)),
+                max_rows_per_part=c.archive_max_rows,
+                topology=single_topology(c.tenant_arenas),
+                max_age_ms=c.archive_max_age_ms,
+                cache_segments=c.archive_cache_segments,
+                compress=c.archive_compress)
+            # spool whenever any arena could be halfway to overwrite: with
+            # every staged row landing in one arena, backlog + one batch
+            # stays below the arena's capacity
+            self._spool_trigger = max(self.archive.segment_rows,
+                                      acap // 2 - c.batch_capacity)
+            # one scan-chunk dispatch advances a head by up to
+            # K * batch * MAX_ACTIVE rows before the next spool check; past
+            # the arena's headroom no trigger can spill without loss (a
+            # loss is still counted)
+            worst = (max(1, c.scan_chunk) * c.batch_capacity
+                     * MAX_ACTIVE_ASSIGNMENTS)
+            if worst > acap - self.archive.segment_rows:
+                logging.getLogger(__name__).warning(
+                    "archive: one dispatch can write %d rows but arena "
+                    "capacity is %d: the ring may wrap before spooling; "
+                    "raise store_capacity or lower scan_chunk/batch_capacity",
+                    worst, acap)
 
     def _step(self, state: PipelineState, batch: EventBatch):
         return pipeline_step(state, batch, self.pipeline_config)
@@ -1049,6 +1235,7 @@ class Engine:
         fence = self._fence()
         self._enqueue_out(out, fence)
         self._arena_pool.retire(arena, fence)
+        self._archive_account(arena.cursor * MAX_ACTIVE_ASSIGNMENTS)
         self._arena_fill = None
         self._arena_dispatches += 1
         self._last_flush = time.monotonic()
@@ -1110,8 +1297,9 @@ class Engine:
         """Dispatch one batch already built in bulk (columns on this
         engine's device, token/tenant ids from this engine's interners) as
         one pipeline step; its output queues for :meth:`drain` like a
-        staged batch's. Its rows bypass the WAL and the conservation
-        ledger's staging counters."""
+        staged batch's. Its rows bypass the WAL; the conservation ledger
+        counts them staged and dispatched at once, as a device-side sum
+        read only by the audit (no host sync here)."""
         if batch.capacity != self.config.batch_capacity:
             raise ValueError(f"batch capacity {batch.capacity} != engine "
                              f"batch_capacity {self.config.batch_capacity}")
@@ -1121,8 +1309,10 @@ class Engine:
                                      and self._arena_fill.cursor):
                 self.flush_async()
             self._dispatch_staged(all_batches=True)
+            self.ledger.add_device("bulk_rows", batch.valid)
             self.state, out = self._step(self.state, batch)
             self._enqueue_out(out, self._fence())
+            self._archive_account(batch.capacity * MAX_ACTIVE_ASSIGNMENTS)
 
     # ---------------------------------------------------------------- dispatch
     def maybe_flush(self) -> dict | None:
@@ -1168,6 +1358,10 @@ class Engine:
                 batch = self._buf.emit(self.device)
                 self.state, out = self._step(self.state, batch)
                 self._enqueue_out(out, self._fence())
+                # each staged row persists up to one event per active
+                # assignment: count the upper bound, so rows always spill
+                # before the ring wraps over them
+                self._archive_account(n_staged * MAX_ACTIVE_ASSIGNMENTS)
             self._last_flush = time.monotonic()
 
     def _dispatch_staged(self, all_batches: bool) -> None:
@@ -1190,6 +1384,9 @@ class Engine:
             packed = torch.from_numpy(pack_batches(chunk)).to(self.device)
             self.state, outs = self._scan_step(self.state, packed)
             self._enqueue_out(outs, self._fence())
+            # counted where the ring head advances, not at staging
+            self._archive_account(
+                k * self.config.batch_capacity * MAX_ACTIVE_ASSIGNMENTS)
 
     def _enqueue_out(self, out: StepOutput, fence) -> None:
         """Queue a step output for drain, bounding outstanding dispatches
@@ -1213,6 +1410,58 @@ class Engine:
             self._dispatch_staged(all_batches=True)
             if self._pending_fences and self._pending_fences[-1] is not None:
                 self._pending_fences[-1].synchronize()
+
+    def _archive_account(self, max_new_rows: int) -> None:
+        """Track the upper bound of ring rows a dispatch wrote; spool when
+        any arena could be approaching overwrite. Caller holds the lock.
+        No-op without an archive."""
+        if self.archive is None:
+            return
+        self._rows_since_spool += max_new_rows
+        if self._rows_since_spool >= self._spool_trigger:
+            self._spool()
+
+    def ring_heads(self) -> dict[int, int]:
+        """Absolute ring write head per archive partition (= arena), read
+        in one device-to-host copy: the one definition the spooler and the
+        conservation ledger share. Caller holds the lock."""
+        store = self.state.store
+        ep, cu = torch.stack([store.epoch, store.cursor]).cpu().tolist()
+        acap = store.arena_capacity
+        return {a: ep[a] * acap + cu[a] for a in range(store.arenas)}
+
+    def ring_arena_capacity(self) -> int:
+        """Rows one archive partition's ring holds before wrapping."""
+        return int(self.state.store.arena_capacity)
+
+    def _spool(self) -> None:
+        """Spill whole segments of not-yet-archived ring rows to disk.
+        Caller holds the lock. Each segment is one ``read_range`` of
+        ``segment_rows`` rows and one device-to-host copy; a partial tail
+        stays in the ring (queryable there), so the archive holds whole
+        segments only. The reads wait for the dispatched steps (stream
+        order), so they are host syncs: ``spool_stats`` counts them."""
+        t0 = time.perf_counter()
+        store = self.state.store
+        acap = self.ring_arena_capacity()
+        rows = self.archive.segment_rows
+        st = self.spool_stats
+        heads = self.ring_heads()
+        st["syncs"] += 1
+        for a, head in heads.items():
+            start = self.archive.spilled(a)
+            if head - start > acap:   # wrapped before we got here
+                self.archive.note_lost(head - acap - start)
+                start = head - acap
+            while head - start >= rows:
+                sl = slice_to_host(read_range(store, start % acap, rows, arena=a))
+                self.archive.append_segment(a, start, sl)
+                start += rows
+                st["segments"] += 1
+                st["syncs"] += 1
+        self._rows_since_spool = 0
+        st["spools"] += 1
+        st["seconds"] += time.perf_counter() - t0
 
     def drain(self) -> list[dict]:
         """Absorb every queued step output into the host mirrors. Only the
@@ -1322,6 +1571,16 @@ class Engine:
             self._record_assignment(aid, did, slot=0, area=area, customer=customer)
             return did
 
+    def delete_device(self, token: str) -> bool:
+        """Deactivate a device's row (its events stop matching); the host
+        metadata stays. False when the token has no device."""
+        with self.lock:
+            did = self.token_device.get(self.tokens.lookup(token))
+            if did is None:
+                return False
+            self.state = _admin_set_device_active(self.state, did, False)
+            return True
+
     def map_device(self, child_token: str, parent_token: str) -> DeviceInfo:
         """Map a device under a gateway/composite parent (the MapDevice
         request): the parent lands in the device row's ``device_parent``
@@ -1339,6 +1598,65 @@ class Engine:
             info = self.devices[cdid]
             info.metadata = dict(info.metadata) | {"parentToken": parent_token}
             self.state = _admin_set_parent(self.state, cdid, pdid)
+            return info
+
+    def update_device(self, token: str, device_type: str | None = None,
+                      area: str | None = None, customer: str | None = None,
+                      metadata: dict | None = None) -> DeviceInfo:
+        """Update a device's columns and host metadata. A ``parentToken``
+        key in ``metadata`` remaps (a token) or unmaps (None) the device's
+        parent in the device row too; an absent key keeps the mapping."""
+        with self.lock:
+            self._sync_mirrors()
+            did = self.token_device.get(self.tokens.lookup(token))
+            if did is None:
+                raise KeyError(f"device {token!r} not registered")
+            info = self.devices[did]
+            # validate (and intern) everything before mutating either
+            # view, so a failed update never half-applies
+            type_id = self.device_types.intern(
+                device_type if device_type is not None else info.device_type)
+            new_area = area if area is not None else info.area
+            area_id = self.areas.intern(new_area) if new_area else NULL_ID
+            new_customer = customer if customer is not None else info.customer
+            customer_id = (self.customers.intern(new_customer)
+                           if new_customer else NULL_ID)
+            parent_update = None   # (new metadata, parent id, NULL_ID or None)
+            if metadata is not None:
+                old_parent = info.metadata.get("parentToken")
+                metadata = dict(metadata)
+                if "parentToken" not in metadata and old_parent is not None:
+                    metadata["parentToken"] = old_parent
+                new_parent = metadata.get("parentToken")
+                if new_parent != old_parent:
+                    if new_parent is None:
+                        metadata.pop("parentToken", None)
+                        parent_update = (metadata, NULL_ID)
+                    else:
+                        pdid = self.token_device.get(
+                            self.tokens.lookup(new_parent))
+                        if pdid is None:
+                            raise KeyError(
+                                f"parent device {new_parent!r} not registered")
+                        if pdid == did:
+                            raise ValueError("device cannot be its own parent")
+                        parent_update = (metadata, pdid)
+                else:
+                    if new_parent is None:
+                        metadata.pop("parentToken", None)
+                    parent_update = (metadata, None)   # no column change
+            if device_type is not None:
+                info.device_type = device_type
+            if area is not None:
+                info.area = area
+            if customer is not None:
+                info.customer = customer
+            if parent_update is not None:
+                info.metadata, pdid = parent_update
+                if pdid is not None:
+                    self.state = _admin_set_parent(self.state, did, pdid)
+            self.state = _admin_update_device(self.state, did, type_id,
+                                              area_id, customer_id)
             return info
 
     def _record_assignment(self, aid: int, did: int, slot: int,
@@ -1359,6 +1677,146 @@ class Engine:
         slots = self.device_slots.setdefault(did, [NULL_ID] * MAX_ACTIVE_ASSIGNMENTS)
         slots[slot] = aid
         return info
+
+    def create_assignment(self, device_token: str, token: str | None = None,
+                          asset: str | None = None, area: str | None = None,
+                          customer: str | None = None,
+                          metadata: dict | None = None) -> AssignmentInfo:
+        """Attach one more ACTIVE assignment to a registered device, in
+        its first free slot."""
+        with self.lock:
+            self._sync_mirrors()
+            did = self.token_device.get(self.tokens.lookup(device_token))
+            if did is None:
+                raise KeyError(f"device {device_token!r} not registered")
+            if token is not None and token in self.assignment_tokens:
+                raise ValueError(f"assignment token {token!r} already exists")
+            slots = self.device_slots.setdefault(
+                did, [NULL_ID] * MAX_ACTIVE_ASSIGNMENTS)
+            try:
+                slot = slots.index(NULL_ID)
+            except ValueError:
+                raise ValueError(
+                    f"device {device_token!r} already has "
+                    f"{MAX_ACTIVE_ASSIGNMENTS} active assignments") from None
+            aid = self._next_assignment
+            if aid >= self.config.assignment_capacity:
+                raise RuntimeError("assignment capacity exhausted")
+            self._next_assignment += 1
+            self.state = _admin_add_assignment(
+                self.state, did, aid, slot,
+                self.assets.intern(asset) if asset else NULL_ID,
+                self.areas.intern(area) if area else NULL_ID,
+                self.customers.intern(customer) if customer else NULL_ID)
+            info = self._record_assignment(
+                aid, did, slot, token=token, asset=asset, area=area,
+                customer=customer, metadata=metadata)
+            self._assignment_trigger(device_token, "assignment.created",
+                                     info.tenant)
+            return info
+
+    def get_assignment(self, token: str) -> AssignmentInfo | None:
+        aid = self.assignment_tokens.get(token)
+        return self.assignments.get(aid) if aid is not None else None
+
+    def list_assignments(self, device_token: str | None = None,
+                         status: str | None = None, area: str | None = None,
+                         asset: str | None = None,
+                         customer: str | None = None) -> list[AssignmentInfo]:
+        with self.lock:
+            out = [a for a in self.assignments.values()
+                   if (device_token is None or a.device_token == device_token)
+                   and (status is None or a.status == status)
+                   and (area is None or a.area == area)
+                   and (asset is None or a.asset == asset)
+                   and (customer is None or a.customer == customer)]
+            return sorted(out, key=lambda a: a.id)
+
+    def update_assignment(self, token: str, asset: str | None = None,
+                          area: str | None = None,
+                          customer: str | None = None,
+                          metadata: dict | None = None) -> AssignmentInfo:
+        """Update an assignment's asset, area and customer columns and its
+        host metadata."""
+        with self.lock:
+            self._sync_mirrors()
+            aid = self.assignment_tokens.get(token)
+            if aid is None:
+                raise KeyError(f"assignment {token!r} not found")
+            info = self.assignments[aid]
+            new_asset = asset if asset is not None else info.asset
+            new_area = area if area is not None else info.area
+            new_customer = customer if customer is not None else info.customer
+            # intern before mutating, so a capacity error never half-applies
+            asset_id = self.assets.intern(new_asset) if new_asset else NULL_ID
+            area_id = self.areas.intern(new_area) if new_area else NULL_ID
+            customer_id = (self.customers.intern(new_customer)
+                           if new_customer else NULL_ID)
+            self.state = _admin_update_assignment(self.state, aid, asset_id,
+                                                  area_id, customer_id)
+            info.asset, info.area, info.customer = new_asset, new_area, new_customer
+            if metadata is not None:
+                info.metadata = metadata
+            return info
+
+    def delete_assignment(self, token: str) -> bool:
+        """Release an assignment on the device and drop its host record.
+        Persisted events that carry its id stay in the ring and the
+        archive: a delete does not rewrite history."""
+        with self.lock:
+            self._sync_mirrors()
+            aid = self.assignment_tokens.get(token)
+            if aid is None:
+                return False
+            if self.assignments[aid].status != "RELEASED":
+                self._set_assignment_status(token, DeviceAssignmentStatus.RELEASED)
+            del self.assignments[aid]
+            del self.assignment_tokens[token]
+            return True
+
+    def _set_assignment_status(self, token: str,
+                               status: DeviceAssignmentStatus) -> AssignmentInfo:
+        with self.lock:
+            self._sync_mirrors()
+            aid = self.assignment_tokens.get(token)
+            if aid is None:
+                raise KeyError(f"assignment {token!r} not found")
+            active = status is not DeviceAssignmentStatus.RELEASED
+            self.state = _admin_set_assignment_status(self.state, aid,
+                                                      int(status), active)
+            info = self.assignments[aid]
+            info.status = status.name
+            if not active:
+                info.released_ms = self.epoch.now_ms()
+                did = self.token_device.get(self.tokens.lookup(info.device_token))
+                if did is not None and did in self.device_slots:
+                    self.device_slots[did] = [
+                        NULL_ID if sl == aid else sl
+                        for sl in self.device_slots[did]]
+            self._assignment_trigger(
+                info.device_token, f"assignment.{status.name.lower()}",
+                info.tenant)
+            return info
+
+    def _assignment_trigger(self, device_token: str, change: str,
+                            tenant: str) -> None:
+        """Stage a STATE_CHANGE event (attribute ``assignment``) on an
+        assignment's creation or status change, when
+        ``assignment_triggers`` asks for it. Caller holds the lock."""
+        if not self.config.assignment_triggers:
+            return
+        self.process(DecodedRequest(
+            type=RequestType.DEVICE_STATE_CHANGE, device_token=device_token,
+            tenant=tenant, attribute="assignment", state_type=change))
+
+    def release_assignment(self, token: str) -> AssignmentInfo:
+        """End an assignment: RELEASED, detached from its device's slot."""
+        return self._set_assignment_status(token, DeviceAssignmentStatus.RELEASED)
+
+    def mark_assignment_missing(self, token: str) -> AssignmentInfo:
+        """Flag an assignment MISSING; it stays active, so events still
+        expand to it."""
+        return self._set_assignment_status(token, DeviceAssignmentStatus.MISSING)
 
     def get_device(self, token: str) -> DeviceInfo | None:
         with self.lock:
@@ -1490,13 +1948,16 @@ class Engine:
         customer: str | None = None,
         alternate_id: str | None = None,
     ) -> dict:
-        """Filtered, newest-first event query over the device ring store.
-        Every filter applies on the device, so the limit applies after
-        filtering. Only the mirror sync and the string -> id resolution run
-        under the engine lock; the scan (coalesced with concurrent queries
-        into one ``query_store_batch``) and the row formatting run outside
-        it. ``limit`` buckets to the next power of two; the result slices
-        back to the exact page."""
+        """Filtered, newest-first event query over the device ring store,
+        and over the archive when the engine has one (the ring's evicted
+        rows, merged newest-first). Every ring filter applies on the
+        device, so the limit applies after filtering. Only the mirror sync
+        and the string -> id resolution run under the engine lock; the
+        scan (coalesced with concurrent queries into one
+        ``query_store_batch``, their archive requests into one planner
+        pass) and the row formatting run outside it. ``limit`` buckets to
+        the next power of two; the result slices back to the exact
+        page."""
         limit = max(1, int(limit))
         miss = False   # an unknown string filter matches nothing — an
                        # unknown tenant must never widen to all tenants
@@ -1535,7 +1996,21 @@ class Engine:
             int(aux0) if aux0 is not None else NULL_ID,
             aux1, area_id, customer_id,
         )
-        row, _ = self._query_batcher.run(params, bucket_limit(limit))
+        archive_req = None
+        if self.archive is not None:
+            # the archive's pushdown request: the same resolved ids as the
+            # device predicates, and the caller's exact page size
+            archive_req = {"limit": limit, "filters": dict(
+                device=dev if device_token is not None else None,
+                etype=int(etype) if etype is not None else None,
+                tenant=ten if tenant is not None else None,
+                since_ms=since_ms, until_ms=until_ms,
+                assignment=assignment_id, aux0=aux0,
+                aux1=aux1 if alternate_id is not None else None,
+                area=area_id if area is not None else None,
+                customer=customer_id if customer is not None else None)}
+        row, _, _, archive_res = self._query_batcher.run(
+            params, bucket_limit(limit), archive=archive_req)
         total = int(row.total)
         events = [
             self._format_event(
@@ -1545,7 +2020,30 @@ class Engine:
                 row.aux[i], lane_names)
             for i in range(min(total, limit))
         ]
+        if archive_res is not None:
+            total, events = self._merge_archive(total, events, limit,
+                                                archive_res)
         return {"total": total, "events": events}
+
+    def _merge_archive(self, total: int, events: list[dict], limit: int,
+                       archive_res: tuple[int, list[dict]]
+                       ) -> tuple[int, list[dict]]:
+        """Fold the round's archive page into a ring page: format its rows
+        and interleave newest-first (a stable sort: ring rows first on a
+        timestamp tie)."""
+        a_total, rows = archive_res
+        if not a_total:
+            return total, events
+        lane_names = self._lane_names()
+        a_events = [
+            self._format_event(
+                int(r["etype"]), int(r["device"]), int(r["assignment"]),
+                int(r["ts_ms"]), int(r["received_ms"]), r["values"],
+                r["vmask"], r["aux"], lane_names)
+            for r in rows]
+        merged = sorted(events + a_events,
+                        key=lambda e: -e["eventDateMs"])[:limit]
+        return total + a_total, merged
 
     def _lane_names(self) -> dict[int, str]:
         lane_names: dict[int, str] = {}
@@ -1599,11 +2097,11 @@ class Engine:
 
     def get_event(self, event_id: int,
                   tenant: str | None = None) -> dict | None:
-        """Fetch one persisted event by its absolute store position (the
-        stable event id). Returns None when the id was never written or
-        its ring slot has been overwritten (the archive tier is not
-        ported). ``tenant`` scopes the lookup: another tenant's row reads
-        as absent."""
+        """Fetch one persisted event by its id (``position * arenas +
+        arena``, the absolute store position with one arena). An id the
+        ring has evicted resolves from the archive. Returns None when the
+        id was never written or is in neither tier. ``tenant`` scopes the
+        lookup: another tenant's row reads as absent."""
         with self.lock:
             self._sync_mirrors()
             ten = None
@@ -1617,10 +2115,24 @@ class Engine:
             arena = event_id % store.arenas
             pos = event_id // store.arenas
             head = arena_cursor(store, arena)
-            if pos >= head or pos < head - store.arena_capacity:
+            if pos >= head:
                 return None
-            sl = read_range(store, pos % store.arena_capacity, 1, arena=arena)
-            sl = type(sl)(*(col.cpu().numpy() for col in sl))
+            if pos < head - store.arena_capacity:
+                # evicted from the ring: the archive answers, so the by-id
+                # surface agrees with query_events
+                if self.archive is None:
+                    return None
+                r = self.archive.get_row(arena, pos)
+                if r is None or (ten is not None and int(r["tenant"]) != ten):
+                    return None
+                ev = self._format_event(
+                    int(r["etype"]), int(r["device"]), int(r["assignment"]),
+                    int(r["ts_ms"]), int(r["received_ms"]), r["values"],
+                    r["vmask"], r["aux"], self._lane_names())
+                ev["eventId"] = event_id
+                return ev
+            sl = slice_to_host(read_range(store, pos % store.arena_capacity, 1,
+                                          arena=arena))
             if not bool(sl.valid[0]):
                 return None
             if ten is not None and int(sl.tenant[0]) != ten:
@@ -1631,6 +2143,16 @@ class Engine:
                 sl.vmask[0], sl.aux[0], self._lane_names())
             ev["eventId"] = event_id
             return ev
+
+    def make_feed_consumer(self, group_id: str, max_batch: int = 1024,
+                           start_from_latest: bool = False):
+        """An outbound consumer over this engine's event store
+        (outbound/feed.py): one committed offset per arena, archive replay
+        of evicted rows, at-least-once."""
+        from sitewhere_tpu_torch.outbound.feed import FeedConsumer
+
+        return FeedConsumer(self, group_id, max_batch=max_batch,
+                            start_from_latest=start_from_latest)
 
     def presence_sweep(self) -> list[str]:
         """Mark stale devices MISSING; returns their tokens (each device's
@@ -1764,6 +2286,9 @@ class Engine:
             **({"wal_fsyncs": self.wal.fsyncs,
                 "wal_commit_groups": self.wal.commit_groups}
                if self.wal is not None and self.wal.group_commit else {}),
+            **({"archived_rows": self.archive.total_rows(),
+                "archive_lost_rows": self.archive.lost_rows}
+               if self.archive is not None else {}),
             # CEP tier: only the partition-invariant counters (fires is a
             # pure function of the event stream; missed/late live in
             # rule_counters())

@@ -42,6 +42,25 @@ def read_range(store: EventStore, start: int | torch.Tensor, count: int,
     return StoreSlice(*(getattr(store, f)[idx] for f in StoreSlice._fields))
 
 
+def slice_to_host(sl: StoreSlice) -> StoreSlice:
+    """The slice's columns as numpy arrays. From the card they move in one
+    device-to-host copy: the columns packed as bytes into one buffer, the
+    widest element type first, so every column starts aligned."""
+    cols = [c.contiguous() for c in sl]
+    if cols[0].device.type == "cpu":
+        return StoreSlice(*(c.numpy() for c in cols))
+    order = sorted(range(len(cols)), key=lambda i: -cols[i].element_size())
+    flat = torch.cat([cols[i].view(torch.uint8).reshape(-1) for i in order]).cpu()
+    out: list = [None] * len(cols)
+    off = 0
+    for i in order:
+        c = cols[i]
+        nb = c.numel() * c.element_size()
+        out[i] = flat[off:off + nb].view(c.dtype).reshape(c.shape).numpy()
+        off += nb
+    return StoreSlice(*out)
+
+
 def absolute_cursor(store: EventStore) -> int:
     """Total events ever written, summed over arenas — monotone under
     appends, the durable-watermark scalar."""

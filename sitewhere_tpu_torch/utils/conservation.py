@@ -7,7 +7,9 @@ export are not ported).
   engine itself controls: rows staged, and valid rows dispatched to the
   device. Every other stage is sampled from counters that already exist
   (the device-side tenant counter grid, WAL sequence tickets, the CEP
-  harvest counters).
+  harvest counters, the archive's spill cursors, the analytics jobs'
+  window counters). Rows of ``Engine.ingest_event_batch`` count as staged
+  and dispatched at once, through a device-side sum.
 * :func:`build_ledger` — one mutually consistent snapshot of every stage,
   taken under the engine lock (reading the device counters waits for
   every dispatched step).
@@ -21,6 +23,14 @@ export are not ported).
   wal-durability      0 <= durable_seq <= appended_seq
   rules-harvest       harvested == emitted + suppressed + skipped, and
                       device missed <= fires, pending >= 0
+  archive-spill       spilled(part) <= ring_head(part), and ring_head -
+                      spilled <= arena_capacity + lost_rows (rows wrapped
+                      before spooling are legal only when the archive
+                      counted them)
+  analytics-windows   planned == scored + skipped_underfilled + cancelled
+                      (every window a scoring batch plans lands in one
+                      sink; the manager commits planned with its sinks
+                      in one lock block, so there is no in-flight slack)
 """
 
 from __future__ import annotations
@@ -32,7 +42,8 @@ import numpy as np
 import torch
 
 EQUATIONS = ("staging-balance", "device-processed", "device-disposition",
-             "wal-durability", "rules-harvest")
+             "wal-durability", "rules-harvest", "archive-spill",
+             "analytics-windows")
 
 
 class FlowLedger:
@@ -44,17 +55,30 @@ class FlowLedger:
     balances over the rows it staged itself (WAL replay), not the
     pre-crash history."""
 
-    __slots__ = ("enabled", "counters", "baseline")
+    __slots__ = ("enabled", "counters", "baseline", "device")
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
         self.counters: dict[str, int] = {"staged_rows": 0,
                                          "dispatched_rows": 0}
         self.baseline: dict[str, int] = {}
+        self.device: dict[str, torch.Tensor] = {}
 
     def add(self, key: str, n: int) -> None:
         if self.enabled and n:
             self.counters[key] = self.counters.get(key, 0) + int(n)
+
+    def add_device(self, key: str, mask: torch.Tensor) -> None:
+        """Count the true elements of ``mask`` without a host sync: the
+        sum stays on ``mask``'s device until :meth:`value` reads it."""
+        if self.enabled:
+            n = mask.sum(dtype=torch.int64)
+            self.device[key] = n if key not in self.device else self.device[key] + n
+
+    def value(self, key: str) -> int:
+        """``key``'s host count plus its device-side count."""
+        dev = self.device.get(key)
+        return self.counters.get(key, 0) + (int(dev) if dev is not None else 0)
 
     def rebase(self, engine) -> None:
         """Take the engine's device counters as the baseline: called after
@@ -129,8 +153,10 @@ def build_ledger(engine, rules_manager=None) -> dict:
         m = engine.metrics()
         grid = _grid_totals(engine)
         stages: dict = {}
-        ing = {"staged_rows": led.counters.get("staged_rows", 0),
-               "dispatched_rows": led.counters.get("dispatched_rows", 0),
+        # rows of ingest_event_batch are staged and dispatched at once
+        bulk = led.value("bulk_rows")
+        ing = {"staged_rows": led.counters.get("staged_rows", 0) + bulk,
+               "dispatched_rows": led.counters.get("dispatched_rows", 0) + bulk,
                "backlog_rows": _backlog_rows(engine),
                "counting": led.enabled}
         stages["ingest"] = ing
@@ -147,9 +173,27 @@ def build_ledger(engine, rules_manager=None) -> dict:
             stages["wal"] = {"appended_seq": appended,
                              "durable_seq": durable,
                              "group_commit": bool(wal.group_commit)}
+        arch = getattr(engine, "archive", None)
+        if arch is not None:
+            # the spooler's own heads and capacity: one definition for the
+            # spooler and its checker
+            heads = engine.ring_heads()
+            acap = engine.ring_arena_capacity()
+            stages["archive"] = {
+                "parts": {str(p): {"head": h, "spilled": arch.spilled(p),
+                                   "capacity": acap}
+                          for p, h in heads.items()},
+                "rows": arch.total_rows(),
+                "lost_rows": int(arch.lost_rows),
+                "expired_rows": int(arch.expired_rows),
+            }
         rules = _rules_stage(engine, rules_manager)
         if rules is not None:
             stages["rules"] = rules
+        jobs = getattr(engine, "analytics_jobs", None)
+        if jobs is not None:
+            # one read under the manager lock: pre- or post-batch totals
+            stages["analytics"] = jobs.ledger_stage()
 
     watermarks: dict = {"dispatched_rows": ing["dispatched_rows"]}
     lag: dict = {"staged_backlog_rows": ing["backlog_rows"]}
@@ -158,6 +202,11 @@ def build_ledger(engine, rules_manager=None) -> dict:
         watermarks["wal_appended"] = w["appended_seq"]
         watermarks["wal_durable"] = w["durable_seq"]
         lag["wal_durable_lag"] = w["appended_seq"] - w["durable_seq"]
+    if "archive" in stages:
+        parts = stages["archive"]["parts"]
+        watermarks["archive_spill"] = {p: v["spilled"] for p, v in parts.items()}
+        lag["archive_spill_lag_rows"] = max(
+            (v["head"] - v["spilled"] for v in parts.values()), default=0)
     if "rules" in stages and "rollup_window_id" in stages["rules"]:
         watermarks["rollup_window_id"] = stages["rules"]["rollup_window_id"]
     return {"generatedMs": int(time.time() * 1000), "rank": 0,
@@ -236,4 +285,29 @@ def check_conservation(ledger: dict) -> list[Violation]:
             bad("rules-harvest",
                 f"negative pending ring depth {rules['pending']}",
                 rules["pending"], 0)
+    arch = st.get("archive")
+    if arch:
+        lost = arch.get("lost_rows", 0)
+        for p, v in arch.get("parts", {}).items():
+            if v["spilled"] > v["head"]:
+                bad("archive-spill",
+                    f"part {p} spill cursor {v['spilled']} ahead of "
+                    f"ring head {v['head']}", v["spilled"], v["head"])
+            elif v["head"] - v["spilled"] > v["capacity"] + lost:
+                bad("archive-spill",
+                    f"part {p} unspilled backlog "
+                    f"{v['head'] - v['spilled']} exceeds capacity "
+                    f"{v['capacity']} + counted losses {lost}",
+                    v["head"] - v["spilled"], v["capacity"] + lost,
+                    slack=v["capacity"] + lost)
+    an = st.get("analytics")
+    if an and "planned" in an:
+        rhs = (an.get("scored", 0) + an.get("skipped_underfilled", 0)
+               + an.get("cancelled", 0))
+        if an["planned"] != rhs:
+            bad("analytics-windows",
+                f"windows planned {an['planned']} != scored "
+                f"{an.get('scored', 0)} + skipped_underfilled "
+                f"{an.get('skipped_underfilled', 0)} + cancelled "
+                f"{an.get('cancelled', 0)}", an["planned"], rhs)
     return out

@@ -4,8 +4,9 @@ The same seeded wire streams go through both engines (native path, both
 clocks pinned) on the arena path, the copy path, a scan chunk, a write-ahead
 log and the streaming-rules tier. After each, the port's ledger balances
 (``check_conservation`` finds nothing) and gives the JAX ledger's stage
-counts. A counter broken on purpose gives the expected violation, and a
-recovered engine balances over the rows it replayed.
+counts. A counter broken on purpose gives the expected violation — the
+archive-spill and analytics-windows equations included — and a recovered
+engine balances over the rows it replayed.
 """
 
 import numpy as np
@@ -162,3 +163,53 @@ def test_a_recovered_engine_balances_over_its_replay(tmp_path):
     ing = ledger["stages"]["ingest"]
     assert ing["staged_rows"] == ing["dispatched_rows"] == \
         ledger["stages"]["device"]["processed"] > 0
+
+
+def _archive_ledger(tmp_path):
+    """A balanced ledger of a port engine with an archive (its ring wrapped
+    several times) and an analytics job that scored part of it."""
+    from sitewhere_tpu_torch.engine import Engine, EngineConfig
+    from sitewhere_tpu_torch.models.analytics import AnalyticsJobSpec, AnalyticsManager
+    from tests.test_torch_analytics_jobs import CFG, MIN_FILL, W, _feed, _stream
+
+    teng = Engine(EngineConfig(**CFG, archive_dir=str(tmp_path / "a")), device="cpu")
+    teng.epoch = PortClock(1_700_000_000.0)
+    _feed(teng, _stream())
+    AnalyticsManager(teng).run_job(AnalyticsJobSpec(
+        window=W, batch_devices=5, min_fill=MIN_FILL, emit=False, name="c"))
+    ledger = build_ledger(teng)
+    assert check_conservation(ledger) == []
+    assert ledger["stages"]["archive"]["rows"] > 0
+    assert ledger["stages"]["analytics"]["planned"] == 12
+    return ledger
+
+
+ARCHIVE_BREAKS = {
+    # (stage, part or None, key, delta)
+    "spilled_past_head": ("archive", "0", "spilled", 10**6),
+    "backlog_past_capacity": ("archive", "0", "head", 10**6),
+    "planned+1": ("analytics", None, "planned", 1),
+    "scored+1": ("analytics", None, "scored", 1),
+    "skipped+1": ("analytics", None, "skipped_underfilled", 1),
+    "cancelled+1": ("analytics", None, "cancelled", 1),
+}
+
+
+@pytest.mark.parametrize("case", list(ARCHIVE_BREAKS))
+def test_archive_and_analytics_equations_are_falsifiable(tmp_path, case):
+    """The archive-spill and analytics-windows equations audit clean on a
+    live engine and trip on a change of any one term, as the JAX checker
+    does on the same ledger; a loss the archive counted is legal slack."""
+    ledger = _archive_ledger(tmp_path)
+    stage, part, key, delta = ARCHIVE_BREAKS[case]
+    target = ledger["stages"][stage]
+    if part is not None:
+        target = target["parts"][part]
+    target[key] += delta
+    expected = {"archive-spill"} if stage == "archive" else {"analytics-windows"}
+    got = {v.equation for v in check_conservation(ledger)}
+    assert got == expected and got <= set(EQUATIONS)
+    assert {v.equation for v in jax_check(ledger)} == got
+    if case == "backlog_past_capacity":
+        ledger["stages"]["archive"]["lost_rows"] += 10**6
+        assert check_conservation(ledger) == []

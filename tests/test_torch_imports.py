@@ -51,6 +51,7 @@ leaked = sorted(m for m in sys.modules
 if leaked:
     failures.append(f"blocked modules present: {leaked}")
 print(len(names))
+print(" ".join(names))
 print("\n".join(failures))
 sys.exit(1 if failures else 0)
 """
@@ -62,8 +63,13 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, (
         f"the port grew a JAX import:\n{res.stdout}\n{res.stderr}")
-    # every module was walked, the wire-ingest and durability modules too
-    assert int(res.stdout.split()[0]) >= 45
+    # every module was walked: the wire-ingest and durability modules, the
+    # archive, the outbound feed and the analytics jobs too
+    count, names = res.stdout.splitlines()[:2]
+    assert int(count) >= 50
+    assert {"sitewhere_tpu_torch.utils.archive", "sitewhere_tpu_torch.outbound.feed",
+            "sitewhere_tpu_torch.ops.window_fill",
+            "sitewhere_tpu_torch.models.analytics"} <= set(names.split())
 
 
 def test_entry_points_raise_without_a_gpu(tmp_path):

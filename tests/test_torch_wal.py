@@ -12,6 +12,7 @@ engine that never crashed. A strict-channel refusal is never durable.
 import dataclasses
 import json
 
+import jax
 import numpy as np
 import pytest
 
@@ -205,16 +206,88 @@ def test_port_recovers_a_jax_snapshot_and_the_jax_package_a_port_one(tmp_path, m
     assert_engines_equal(jrec, trec2)
 
 
-def test_restore_refuses_unported_features(tmp_path):
-    eng = JaxEngine(JaxEngineConfig(**SIZES, tenant_arenas=2))
+@pytest.mark.parametrize("feature", ["fair_tenancy", "qos", "autotune"])
+def test_restore_refuses_unported_features(tmp_path, feature):
+    """A snapshot with a switch on that changes what the engine computes
+    or admits, and that the port does not have, is refused by name."""
+    eng = JaxEngine(JaxEngineConfig(**SIZES))
     jax_checkpoint.save_engine(eng, tmp_path / "snap")
-    with pytest.raises(ValueError, match="tenant_arenas"):
-        recover_engine(tmp_path / "snap", device="cpu")
     host = json.loads((tmp_path / "snap" / "host.json").read_text())
-    host["config"].update(tenant_arenas=1, fair_tenancy=True)
+    host["config"][feature] = True
     (tmp_path / "snap" / "host.json").write_text(json.dumps(host))
-    with pytest.raises(ValueError, match="fair_tenancy"):
+    with pytest.raises(ValueError, match=feature):
         recover_engine(tmp_path / "snap", device="cpu")
+
+
+PORTED_FEATURES = {"archive_dir": "archive", "tenant_arenas": 2,
+                   "auto_register": False, "assignment_triggers": True}
+
+
+@pytest.mark.parametrize("feature", list(PORTED_FEATURES))
+def test_restore_accepts_ported_features(tmp_path, feature):
+    """``archive_dir``, ``tenant_arenas``, ``auto_register`` and
+    ``assignment_triggers`` restore with their values."""
+    value = PORTED_FEATURES[feature]
+    if feature == "archive_dir":
+        value = str(tmp_path / value)
+    eng = JaxEngine(JaxEngineConfig(**SIZES, **{feature: value}))
+    eng.register_device("r-1")
+    jax_checkpoint.save_engine(eng, tmp_path / "snap")
+    rec = recover_engine(tmp_path / "snap", device="cpu")
+    assert getattr(rec.config, feature) == value
+    assert_tree_equal(jax.device_get(eng.state), rec.state)
+    if feature == "tenant_arenas":
+        assert rec.state.store.arenas == 2
+    if feature == "archive_dir":
+        assert rec.archive is not None and rec.archive.dir == tmp_path / "archive"
+
+
+def test_unknown_config_keys_are_named_observability_keys_are_not(tmp_path, caplog):
+    """A config key the port does not know is named in a warning; the
+    observability switches and the settings of the refused switches are
+    dropped without one."""
+    eng = JaxEngine(JaxEngineConfig(**SIZES, flight_recorder=False, span_trace=False))
+    jax_checkpoint.save_engine(eng, tmp_path / "snap")
+    with caplog.at_level("WARNING", logger="sitewhere_tpu_torch.utils.checkpoint"):
+        recover_engine(tmp_path / "snap", device="cpu")
+    assert not [r for r in caplog.records if "does not know" in r.getMessage()]
+    host = json.loads((tmp_path / "snap" / "host.json").read_text())
+    host["config"]["warp_drive"] = 3
+    (tmp_path / "snap" / "host.json").write_text(json.dumps(host))
+    with caplog.at_level("WARNING", logger="sitewhere_tpu_torch.utils.checkpoint"):
+        recover_engine(tmp_path / "snap", device="cpu")
+    assert any("warp_drive" in r.getMessage() for r in caplog.records)
+
+
+def _with_assets(eng):
+    eng.register_device("as-dev", area="north")
+    eng.create_assignment("as-dev", token="as-a", asset="pump-7")
+    eng.create_assignment("as-dev", token="as-b", asset="valve-2", area="east")
+    eng.update_assignment("as-a", asset="pump-8")
+    eng.flush()
+
+
+def test_assets_survive_a_round_trip_jax_port_jax(tmp_path):
+    """A JAX snapshot whose assignments carry assets restores into the port
+    with the asset names; the port's next snapshot restores into the JAX
+    package with the same names, and the asset ids stay resolvable."""
+    jeng = JaxEngine(JaxEngineConfig(**SIZES))
+    _with_assets(jeng)
+    jax_checkpoint.save_engine(jeng, tmp_path / "jax")
+    port = recover_engine(tmp_path / "jax", device="cpu")
+    names = [jeng.assets.token(i) for i in range(len(jeng.assets))]
+    assert names == ["pump-7", "valve-2", "pump-8"]
+    assert [port.assets.token(i) for i in range(len(port.assets))] == names
+    assert port.get_assignment("as-a").asset == "pump-8"
+    # a new asset in the port interns after the restored ones
+    port.create_assignment("as-dev", token="as-c", asset="fan-1")
+    save_engine(port, tmp_path / "port")
+    back = jax_checkpoint.restore_engine(tmp_path / "port")
+    assert [back.assets.token(i) for i in range(len(back.assets))] == names + ["fan-1"]
+    asset_col = np.asarray(jax.device_get(back.state.registry.assignment_asset))
+    for tok in ("as-a", "as-b", "as-c"):
+        info = back.get_assignment(tok)
+        assert back.assets.token(int(asset_col[info.id])) == info.asset
 
 
 def test_refused_strict_request_is_never_durable(tmp_path):
