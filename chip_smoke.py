@@ -86,12 +86,39 @@ Phases, each printed as one JSON line:
              conservation ledger balances. Then a reduced leg: a card
              engine, a CPU engine and a card engine on the copy path with a
              scan chunk, fed the same JSON for 8 rings, must agree byte for
-             byte (segments, pages, feed). Prints spool, query, feed and job
-             figures on one ``archive:`` line.
+             byte (segments, pages, feed). The job's spans are checked in the
+             engine's tracer: a load span a round, a transfer and a score
+             span a scoring batch. Prints spool, query, feed and job figures
+             on one ``archive:`` line.
+9. hostplane — the single-engine host plane at the wire phase's headline
+             width: (a) the wire load with the flight recorder and span
+             tracer on (the defaults) and off, in 3 interleaved pairs of 20
+             batches: every summary carries a ``trace_id``, every record
+             reaches ``device_ready`` and ``readback`` and its stage
+             durations fit its end to end, one trace's Chrome timeline holds
+             flight and span events; the on/off rate ratio is recorded, not
+             gated; (b) ``DecodeWorkerPool`` (min(4, cores - 1) processes)
+             fed bench.py's pool leg (48 batches of 16384 over 10,000
+             tokens), whose engine equals an in-process engine byte for
+             byte; (c) bench.py's fairness leg (victim 1200 events/s,
+             abuser 2500 x2 in bursts capped at 250, weights 2:1, seed 90,
+             4 interleaved sessions) through ``run_open_loop`` on a QoS,
+             fair-tenancy engine: device-side accepted counts equal the
+             admitted counts, the abuser's offered/admitted ratio is at
+             least 5, and a CPU engine fed the logged admitted stream equals
+             the card's; (d) the wire load with ``autotune=True`` every 16
+             dispatches against a fixed-knob engine, state and pages byte
+             for byte; (e) a ``ConservationAuditor`` thread on every engine
+             with no violation, a scrape mid-load and at the end that parses
+             and holds ``HOSTPLANE_SERIES``, the e2e histogram counting every
+             harvested record; (f) the memory ledger within
+             ``torch.cuda.memory_allocated`` and equal to a CPU engine's.
+             Prints one ``hostplane:`` line.
 
 ``--profile`` adds torch.profiler breakdowns after the checks of the
-slice, read, transformer, wire and archive phases (a few steps or calls
-each; one spool and one scoring batch of the job).
+slice, read, transformer, wire, archive and hostplane phases (a few steps
+or calls each; one spool and one scoring batch of the job; three
+dispatches with the recorder on).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and as the last line
@@ -105,12 +132,14 @@ import argparse
 import dataclasses
 import functools
 import json
+import os
 import pathlib
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -125,7 +154,10 @@ from sitewhere_tpu_torch.ingest.arena import StagingArena
 from sitewhere_tpu_torch.ingest.decoders import (JsonDeviceRequestDecoder,
                                                  encode_binary_request)
 from sitewhere_tpu_torch.ingest.requests import DecodedRequest, RequestType
-from sitewhere_tpu_torch.loadgen import batch_maker, run_engine_load
+from sitewhere_tpu_torch.ingest.workers import DecodeWorkerPool
+from sitewhere_tpu_torch.loadgen import (batch_maker, build_open_loop_schedule,
+                                         generate_measurements_message, run_engine_load,
+                                         run_open_loop)
 from sitewhere_tpu_torch.models.anomaly import AnomalyConfig
 from sitewhere_tpu_torch.models.service import AnalyticsService
 from sitewhere_tpu_torch.models.transformer import (TelemetryTransformer,
@@ -139,7 +171,12 @@ from sitewhere_tpu_torch.ops.rules import harvest_fires
 from sitewhere_tpu_torch.pipeline import make_presence_sweep
 from sitewhere_tpu_torch.rules import RulesManager
 from sitewhere_tpu_torch.utils.checkpoint import recover_engine, save_engine
-from sitewhere_tpu_torch.utils.conservation import build_ledger, check_conservation
+from sitewhere_tpu_torch.utils.conservation import (ConservationAuditor, build_ledger,
+                                                    check_conservation)
+from sitewhere_tpu_torch.utils.devicewatch import memory_ledger
+from sitewhere_tpu_torch.utils.flight import stage_durations
+from sitewhere_tpu_torch.utils.metrics import REGISTRY as METRICS_REGISTRY
+from sitewhere_tpu_torch.utils.metrics import export_engine_metrics
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, FP32
 # (non-tensor-core) and bf16 tensor-core operations/s; exponentials/s are
@@ -232,6 +269,16 @@ class PinnedEpoch(EpochBase):
 
     def now_ms(self) -> int:
         return self.now
+
+
+def untraced(summary: dict) -> dict:
+    """An ingest summary without its ``trace_id`` (each engine's own), which
+    must be there: the flight recorder is on by default."""
+    out = dict(summary)
+    tid = out.pop("trace_id", None)
+    if not (isinstance(tid, str) and len(tid) == 32):
+        raise AssertionError(f"ingest summary without a trace_id: {summary}")
+    return out
 
 
 def time_ms(fn, device: torch.device, reps: int = 30, warmup: int = 5) -> float:
@@ -632,7 +679,7 @@ def phase_entry(device, log, fails) -> None:
     peng = engines["python"][0]
     reads = {}
     for kind, e in (("card", eng), ("cpu", ceng), ("python", peng)):
-        r = reads[kind] = {"json": e.ingest_json_batch(_entry_payloads())}
+        r = reads[kind] = {"json": untraced(e.ingest_json_batch(_entry_payloads()))}
         e.flush()
         r["alerts"] = managers[kind].poll(flush=True)
         head = arena_cursor(e.state.store, 0)
@@ -1343,7 +1390,7 @@ def phase_wire(device, log, fails, seed: int, config: dict = WIRE_CONFIG,
             e = wire_engine(dev, config, **kw)
             t0 = time.perf_counter()
             ingest = e.ingest_binary_batch if binary else e.ingest_json_batch
-            summaries[label] = [ingest(p) for p in (frames if binary else payloads)]
+            summaries[label] = [untraced(ingest(p)) for p in (frames if binary else payloads)]
             summaries[label].append(e.flush())
             seconds = time.perf_counter() - t0
             rec["conservation"][label] = _conserved(e, label, fails)
@@ -1413,6 +1460,23 @@ def phase_wire(device, log, fails, seed: int, config: dict = WIRE_CONFIG,
 # job scores every device's newest 128-step window from the archive at the
 # service's default width (BASELINE config #4: 100-sensor windows), bf16,
 # 256 devices a batch
+# the series a scrape of the hostplane phase must hold (the CPU parity
+# test, tests/test_torch_metrics.py, pins the same list)
+HOSTPLANE_SERIES = (
+    "swtpu_engine_processed", "swtpu_engine_persisted", "swtpu_engine_arena_rows",
+    "swtpu_tenant_events", "swtpu_pipeline_accepted", "swtpu_pipeline_invalid",
+    "swtpu_arena_pool_arenas", "swtpu_arena_pool_free", "swtpu_arena_pool_inflight",
+    "swtpu_arena_pool_waits", "swtpu_arena_pool_occupancy_hwm",
+    "swtpu_staged_backlog_hwm_rows", "swtpu_dispatch_inflight", "swtpu_flight_records",
+    "swtpu_span_records", "swtpu_spans_recorded_total", "swtpu_spans_sampled_out_total",
+    "swtpu_ingest_e2e_seconds", "swtpu_device_exec_seconds", "swtpu_flow_rows",
+    "swtpu_conservation_audits_total", "swtpu_conservation_violations",
+    "swtpu_device_mem_bytes", "swtpu_device_mem_hwm", "swtpu_qos_admitted_total",
+    "swtpu_qos_shed_total", "swtpu_qos_bucket_fill", "swtpu_qos_shed_threshold",
+    "swtpu_qos_wfq_vtime", "swtpu_query_latency_seconds", "swtpu_queries_total",
+)
+
+
 ARCHIVE_CONFIG = dict(device_capacity=1 << 15, token_capacity=1 << 16,
                       assignment_capacity=1 << 16, store_capacity=1 << 18,
                       batch_capacity=16384, channels=100, analytics_window=128)
@@ -1725,6 +1789,17 @@ def phase_archive(device, log, fails, seed: int, config: dict = ARCHIVE_CONFIG,
         fails.check(launches == job["batches"],
                     f"archive: {launches} window_features launches for {job['batches']} "
                     "scoring batches")
+        # the job's spans, as the JAX job emits them: a load span a round and
+        # a score span a scoring batch
+        job_spans: dict = {}
+        for sp in eng.tracer.recent(eng.tracer.capacity):
+            if sp["tags"].get("job") == "archive-smoke":
+                job_spans[sp["name"]] = job_spans.get(sp["name"], 0) + 1
+        fails.check(job_spans.get("analytics.load") == job["rounds"]
+                    and job_spans.get("analytics.score") == job["batches"]
+                    and job_spans.get("analytics.transfer") == job["batches"],
+                    f"archive: the job left spans {job_spans} for {job['rounds']} rounds "
+                    f"and {job['batches']} scoring batches")
         # the host rebuild: each device's newest w archived rows
         per = head // n_devices
         pos = np.arange(n_devices)[:, None] + n_devices * np.arange(per)[None, :]
@@ -1772,6 +1847,7 @@ def phase_archive(device, log, fails, seed: int, config: dict = ARCHIVE_CONFIG,
                                           "score_s", "bytes_per_s", "devices_per_s")}
         rec["job"].update(score_max_abs_err_vs_host=score_err, score_tol=SCORE_BF16,
                           window_features_launches=launches, fill_windows_equal_cpu=fill_equal,
+                          spans=job_spans,
                           model=dataclasses.asdict(model.cfg) | {"dtype": str(model.cfg.dtype)})
         b1 = {"shape": list(x.shape), "ms": kernel_ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": kerr}
@@ -1862,6 +1938,361 @@ def phase_archive(device, log, fails, seed: int, config: dict = ARCHIVE_CONFIG,
           f"(bound {b1['bound_ms']:.4f} ms); peak device memory {rec['peak_mem_gb']} GiB; "
           f"phase {rec['seconds']:.1f} s; {rec['card']}", flush=True)
     return {"launches": launches, **b1}
+
+
+# the hostplane phase: the wire phase's headline width (bench.py's
+# HEADLINE_CFG: 16384-event batches, dispatch_depth=2, 10,000 devices) for
+# the tracing pairs, the pool leg (bench.py:140-175: 48 batches over
+# 10,000 tokens) and the tuner; bench.py's fairness leg (bench.py:1317-1400)
+# at its own engine sizes
+HOST_PAIRS, HOST_PAIR_BATCHES = 3, 20
+HOST_POOL_BATCHES, HOST_POOL_WARMUP = 48, 4
+HOST_TUNE_BATCHES = 40
+HOST_AUDIT_S = 1.0
+FAIR_CONFIG = dict(device_capacity=1 << 12, token_capacity=1 << 13,
+                   assignment_capacity=1 << 13, store_capacity=1 << 16,
+                   batch_capacity=512, channels=4, qos=True, fair_tenancy=True,
+                   tenant_rates={"abuser": 250.0}, qos_burst_s=0.25,
+                   tenant_weights={"victim": 2.0, "abuser": 1.0})
+FAIR_SESSIONS, FAIR_DURATION_S = 4, 1.2
+
+
+def _fair_spec(abuser: bool, duration_s: float):
+    from sitewhere_tpu_torch.loadgen import OpenLoopSpec, TenantLoad
+
+    tenants = [TenantLoad("victim", 1200.0, n_devices=128)]
+    if abuser:
+        tenants.append(TenantLoad("abuser", 2500.0, n_devices=128, abusive_mult=2.0,
+                                  abusive_period_s=0.4, abusive_burst_s=0.2))
+    return OpenLoopSpec(tenants=tuple(tenants), duration_s=duration_s, frame_size=128,
+                        seed=90)
+
+
+class _CallLog:
+    """Records an engine's ``ingest_json_batch`` and ``flush`` calls in
+    order, so another engine can replay the same admitted stream."""
+
+    def __init__(self, eng):
+        self.ops: list = []
+        ingest, flush = eng.ingest_json_batch, eng.flush
+
+        def logged_ingest(payloads, tenant="default", **kw):
+            self.ops.append(("ingest", list(payloads), tenant))
+            return ingest(payloads, tenant, **kw)
+
+        def logged_flush():
+            self.ops.append(("flush",))
+            return flush()
+
+        eng.ingest_json_batch, eng.flush = logged_ingest, logged_flush
+
+    def replay(self, eng) -> None:
+        for op in self.ops:
+            if op[0] == "ingest":
+                eng.ingest_json_batch(op[1], op[2])
+            else:
+                eng.flush()
+
+
+def _audited(eng, auditors: list):
+    aud = ConservationAuditor(eng, interval_s=HOST_AUDIT_S)
+    aud.start()
+    auditors.append(aud)
+    return eng
+
+
+def _stage_medians(eng) -> dict:
+    durs = [stage_durations(r["stagesUs"]) for r in eng.flight.recent(
+        eng.flight.capacity, kind="ingest")]
+    out = {}
+    for key in ("decode_ms", "wal_ms", "dispatch_wait_ms", "device_ms"):
+        vals = [d[key] for d in durs if d[key] is not None]
+        out[key] = statistics.median(vals) if vals else None
+    return out
+
+
+def _scrape(engines) -> dict:
+    """One scrape: every engine's export into the process registry, then
+    the registry's text parsed into {family: samples}. Raises on a sample
+    line that belongs to no declared family or carries no number."""
+    for e in engines:
+        export_engine_metrics(e)
+    families: dict = {}
+    for line in METRICS_REGISTRY.expose_text().splitlines():
+        if line.startswith("# TYPE "):
+            families[line.split()[2]] = 0
+        elif line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            float(value)
+            base = name.split("{", 1)[0]
+            fam = next(f for f in (base, base.rsplit("_", 1)[0]) if f in families)
+            families[fam] += 1
+    return families
+
+
+def phase_hostplane(device, log, fails, seed: int, config: dict = WIRE_CONFIG,
+                    n_devices: int = WIRE_DEVICES, pairs: int = HOST_PAIRS,
+                    pair_batches: int = HOST_PAIR_BATCHES,
+                    pool_batches: int = HOST_POOL_BATCHES,
+                    tune_batches: int = HOST_TUNE_BATCHES, fair_config: dict = FAIR_CONFIG,
+                    fair_sessions: int = FAIR_SESSIONS,
+                    fair_duration_s: float = FAIR_DURATION_S,
+                    profile: bool = False) -> None:
+    """The single-engine host plane on the card: (a) the wire load with the
+    flight recorder and span tracer on and off, in interleaved pairs; (b)
+    the multiprocess decode pool against the in-process path; (c) bench.py's
+    fairness leg through the open-loop generator on a QoS, fair-tenancy
+    engine; (d) the autotuner against a fixed-knob engine; (e) a
+    conservation auditor thread on every engine and the Prometheus scrape;
+    (f) the memory ledger."""
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    batch = config["batch_capacity"]
+    rec: dict = {"phase": "hostplane", "config": config, "devices": n_devices}
+    auditors: list = []
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    # (a) tracing on and off, interleaved pairs of the wire load
+    on = _audited(wire_engine(device, config), auditors)
+    off = _audited(wire_engine(device, config, flight_recorder=False, span_trace=False),
+                   auditors)
+    trace_ids: list = []
+    ingest = on.ingest_json_batch
+
+    def traced(payloads, tenant="default", **kw):
+        res = ingest(payloads, tenant, **kw)
+        trace_ids.append(res.get("trace_id"))
+        return res
+
+    on.ingest_json_batch = traced
+    mid_scrape: dict = {}
+
+    def scrape_mid_load():
+        time.sleep(0.2)
+        mid_scrape.update(_scrape([on]))
+
+    rates = {"on": [], "off": []}
+    for k in range(pairs):
+        order = (("on", on), ("off", off)) if k % 2 == 0 else (("off", off), ("on", on))
+        for label, eng in order:
+            scraper = None
+            if k == 0 and label == "on":
+                scraper = threading.Thread(target=scrape_mid_load, name="swtpu-scrape")
+                scraper.start()
+            st = run_engine_load(eng, n_batches=pair_batches, batch_size=batch,
+                                 n_devices=n_devices, seed=seed + k, warmup_batches=1,
+                                 pipelined=True)
+            if scraper is not None:
+                scraper.join()
+            fails.check(st.events_decoded == pair_batches * batch and st.events_failed == 0,
+                        f"hostplane (a): {label} decoded {st.events_decoded}")
+            rates[label].append(st.events_per_s)
+    on.flush()
+    off.flush()
+    ratios = [a / b for a, b in zip(rates["on"], rates["off"])]
+    records = on.flight.recent(on.flight.capacity, kind="ingest")
+    fails.check(len(trace_ids) == pairs * (pair_batches + 1)
+                and all(isinstance(t, str) and len(t) == 32 for t in trace_ids),
+                f"hostplane (a): {sum(t is None for t in trace_ids)} of {len(trace_ids)} "
+                "summaries without a trace_id")
+    incomplete = [r["traceId"] for r in records
+                  if not {"device_ready", "readback"} <= set(r["stagesUs"])]
+    overlong = [r["traceId"] for r in records
+                if sum(v for v in stage_durations(r["stagesUs"]).values() if v) * 1e3
+                > r["stagesUs"].get("device_ready", 0.0) + 1e-3]
+    fails.check(len(records) == len(trace_ids) and not incomplete and not overlong,
+                f"hostplane (a): {len(records)} records for {len(trace_ids)} batches, "
+                f"{len(incomplete)} without device_ready/readback, {len(overlong)} whose "
+                "stages exceed their end to end")
+    doc = on.get_trace_timeline(trace_ids[-1])
+    cats = {e.get("cat") for e in doc["traceEvents"] if e.get("ph") == "X"}
+    fails.check(cats == {"flight", "span"} or (on._sharder is None and cats == {"flight"}),
+                f"hostplane (a): the timeline of one trace holds {cats}")
+    fails.check(not off.recent_traces() and len(off.tracer) == 0,
+                "hostplane (a): the engine with the recorder off recorded")
+    medians = _stage_medians(on)
+    rec["tracing"] = {"pairs": pairs, "batches_per_run": pair_batches,
+                      "on_events_per_s": rates["on"], "off_events_per_s": rates["off"],
+                      "on_over_off": ratios, "on_over_off_median": statistics.median(ratios),
+                      "on_over_off_spread": [min(ratios), max(ratios)],
+                      "records": len(records), "spans": len(on.tracer),
+                      "timeline_events": len(doc["traceEvents"]),
+                      "stage_medians_ms": medians, "mid_load_scrape_families": len(mid_scrape)}
+    fails.check("swtpu_engine_processed" in mid_scrape and "swtpu_flight_records" in mid_scrape,
+                f"hostplane (e): the mid-load scrape holds {sorted(mid_scrape)[:8]}...")
+    if profile and device.type == "cuda":   # after the checks: three more dispatches
+        more = wire_payloads(seed + 7, 3, batch, n_devices)
+        _profile("hostplane_dispatch", lambda: ([on.ingest_json_batch(p) for p in more],
+                                                on.barrier()), 3, log, family=_step_family)
+
+    # (b) the decode pool, bench.py's pool leg, against the in-process path
+    n_pool = max(1, min(4, (os.cpu_count() or 2) - 1))
+    rng = np.random.default_rng(2)
+    toks = [f"lg-{i}" for i in range(n_devices)]
+    pool_batches_pay = []
+    for b in range(pool_batches):
+        picks = rng.integers(0, n_devices, batch)
+        pool_batches_pay.append([generate_measurements_message(toks[d], b * batch + i)
+                                 for i, d in enumerate(picks)])
+    peng = _audited(wire_engine(device, config), auditors)
+    ieng = _audited(wire_engine(device, config), auditors)
+    timed = pool_batches_pay[HOST_POOL_WARMUP:]
+    with DecodeWorkerPool(peng, n_workers=n_pool, max_msgs=batch) as pool:
+        for b in pool_batches_pay[:HOST_POOL_WARMUP]:
+            pool.submit(b)
+        pool.flush()
+        peng.barrier()
+        t0 = time.perf_counter()
+        for b in timed:
+            pool.submit(b)
+            if peng.staged_count:
+                peng.flush_async()
+        pool.flush()
+        if peng.staged_count:
+            peng.flush_async()
+        peng.barrier()
+        pool_s = time.perf_counter() - t0
+        pool_stats = pool.stats()
+    for b in pool_batches_pay[:HOST_POOL_WARMUP]:
+        ieng.ingest_json_batch(b)
+    ieng.barrier()
+    t0 = time.perf_counter()
+    for b in timed:
+        ieng.ingest_json_batch(b)
+        if ieng.staged_count:
+            ieng.flush_async()
+    ieng.barrier()
+    inproc_s = time.perf_counter() - t0
+    peng.flush()
+    ieng.flush()
+    differ = _engines_differ(ieng, peng)
+    fails.check(not differ and pool_stats["fallback_batches"] == 0,
+                f"hostplane (b): the pool engine differs from the in-process engine in "
+                f"{differ[:8]} ({pool_stats})")
+    rec["pool"] = {"workers": n_pool, "batches": pool_batches, "timed_batches": len(timed),
+                   "pool_msgs_per_s": len(timed) * batch / pool_s,
+                   "in_process_msgs_per_s": len(timed) * batch / inproc_s,
+                   "stats": pool_stats, "equal": not differ}
+    del pool_batches_pay, timed
+
+    # (c) fairness and QoS: bench.py's leg through the port's open-loop generator
+    feng = _audited(wire_engine(device, fair_config), auditors)
+    calls = _CallLog(feng)
+    run_engine_load(feng, n_batches=1, batch_size=fair_config["batch_capacity"],
+                    n_devices=128, warmup_batches=1)
+    sched_alone = build_open_loop_schedule(_fair_spec(False, fair_duration_s))
+    sched_abuse = build_open_loop_schedule(_fair_spec(True, fair_duration_s))
+    p99_alone, p99_abuse, results = [], [], []
+    for _ in range(fair_sessions):
+        ra = run_open_loop(feng, sched_alone, checkpoint_frames=4)
+        rb = run_open_loop(feng, sched_abuse, checkpoint_frames=4)
+        p99_alone.append(ra.per_tenant["victim"]["e2e_p99_ms"])
+        p99_abuse.append(rb.per_tenant["victim"]["e2e_p99_ms"])
+        results.append((ra, rb))
+    feng.flush()
+    admitted = {"victim": sum(ra.per_tenant["victim"]["events"]
+                              + rb.per_tenant["victim"]["events"] for ra, rb in results),
+                "abuser": sum(rb.per_tenant["abuser"]["events"] for _, rb in results)}
+    sheds = {t: sum(r.per_tenant.get(t, {}).get("shed", 0) for pair in results for r in pair)
+             for t in ("victim", "abuser")}
+    ratio = (admitted["abuser"] + sheds["abuser"]) / max(1, admitted["abuser"])
+    tpc = feng.tenant_pipeline_counters()
+    accepted = {t: tpc.get(t, {}).get("accepted", 0) for t in admitted}
+    fails.check(accepted == admitted,
+                f"hostplane (c): device accepted {accepted} != admitted {admitted}")
+    fails.check(ratio >= 5.0, f"hostplane (c): abuser offered/admitted {ratio:.2f} < 5")
+    ceng = wire_engine(cpu, fair_config)
+    calls.replay(ceng)
+    ceng.flush()
+    cdiffer = _engines_differ(feng, ceng)
+    fails.check(not cdiffer, f"hostplane (c): the CPU engine fed the admitted stream differs "
+                f"from the card's in {cdiffer[:8]}")
+    rec["fairness"] = {"sessions": fair_sessions, "duration_s": fair_duration_s,
+                       "victim_p99_alone_ms": p99_alone, "victim_p99_abuse_ms": p99_abuse,
+                       "victim_p99_alone_min_ms": min(p99_alone),
+                       "victim_p99_abuse_min_ms": min(p99_abuse),
+                       "admitted": admitted, "shed": sheds, "abuser_offered_over_admitted": ratio,
+                       "qos_shed_by_tenant": dict(feng.qos.shed_by_tenant),
+                       "cpu_equal": not cdiffer}
+    del ceng, calls
+
+    # (d) the autotuner against a fixed-knob engine, same load
+    teng = _audited(wire_engine(device, config, autotune=True, autotune_interval=16),
+                    auditors)
+    fixed = _audited(wire_engine(device, config), auditors)
+    for eng in (teng, fixed):
+        run_engine_load(eng, n_batches=tune_batches, batch_size=batch, n_devices=n_devices,
+                        seed=seed + 11, warmup_batches=WIRE_WARMUP, pipelined=True)
+        eng.flush()
+    tdiffer = _engines_differ(fixed, teng)
+    queries = [dict(limit=64), dict(device_token="lg-7", limit=16),
+               dict(since_ms=0, limit=32)]
+    pages_equal = all(teng.query_events(**q) == fixed.query_events(**q) for q in queries)
+    tuner = teng._autotuner
+    fails.check(not tdiffer and pages_equal and tuner.evaluations >= 2,
+                f"hostplane (d): the tuned engine differs from the fixed one in "
+                f"{tdiffer[:8]} (pages equal: {pages_equal}; {tuner.evaluations} evaluations)")
+    rec["autotune"] = {"interval": 16, "evaluations": tuner.evaluations,
+                       "decisions": tuner.decisions, "final": tuner.current(),
+                       "state_equal": not tdiffer, "pages_equal": pages_equal}
+
+    # (e) the auditors and the final scrape
+    for aud in auditors:
+        aud.stop()
+        aud.audit()
+    fails.check(all(a.confirmed_total == 0 and not a.last_violations for a in auditors),
+                f"hostplane (e): audit violations "
+                f"{[a.last_violations for a in auditors if a.last_violations]}")
+    engines = [on, off, peng, ieng, feng, teng, fixed]
+    families = _scrape(engines)
+    missing = [n for n in HOSTPLANE_SERIES if n not in families]
+    fails.check(not missing, f"hostplane (e): the scrape lacks {missing}")
+    hist = METRICS_REGISTRY.histogram("swtpu_ingest_e2e_seconds")
+    ring = [r for r in on.flight._ring if r is not None and r.kind == "ingest"]
+    harvested = sum(r.n_payloads for r in ring if r.harvested)
+    counted = hist.count(tenant="default", engine=on.metrics_label)
+    fails.check(counted == harvested == sum(r.n_payloads for r in ring) > 0,
+                f"hostplane (e): swtpu_ingest_e2e_seconds counts {counted}, harvested "
+                f"{harvested} of {sum(r.n_payloads for r in ring)} payloads")
+    rec["audit"] = {"engines": len(auditors), "audits": sum(a.audits for a in auditors),
+                    "syncs": sum(a.stats["syncs"] for a in auditors),
+                    "seconds": sum(a.stats["seconds"] for a in auditors)}
+    rec["scrape"] = {"families": len(families), "e2e_count": counted}
+
+    # (f) the memory ledger: the card engine against a CPU engine of its shape
+    led = memory_ledger(on)
+    comp_sum = sum(led["components"].values())
+    allocated = torch.cuda.memory_allocated() if device.type == "cuda" else None
+    cpu_led = memory_ledger(wire_engine(cpu, config))
+    fails.check(led["components"] == cpu_led["components"]
+                and (allocated is None or comp_sum <= allocated),
+                f"hostplane (f): ledger {led['components']} vs CPU {cpu_led['components']}, "
+                f"sum {comp_sum} vs allocated {allocated}")
+    rec["memory"] = {"components": led["components"], "sum_bytes": comp_sum,
+                     "allocated_bytes": allocated, "live": led["liveArrays"],
+                     "peak_mem_gb": (torch.cuda.max_memory_allocated() / 2**30
+                                     if device.type == "cuda" else None)}
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["card"] = card_line() if device.type == "cuda" else None
+    emit(rec, log)
+    tr, po, fa_, m = rec["tracing"], rec["pool"], rec["fairness"], rec["memory"]
+    print(f"hostplane: tracing on {statistics.median(tr['on_events_per_s']):.0f} / off "
+          f"{statistics.median(tr['off_events_per_s']):.0f} events/s (on/off median "
+          f"{tr['on_over_off_median']:.3f}, spread {tr['on_over_off_spread'][0]:.3f}-"
+          f"{tr['on_over_off_spread'][1]:.3f}); stage medians ms "
+          + ", ".join(f"{k[:-3]} {v:.2f}" for k, v in tr["stage_medians_ms"].items()
+                      if v is not None)
+          + f"; pool {po['pool_msgs_per_s']:.0f} msgs/s with {po['workers']} workers, "
+          f"in-process {po['in_process_msgs_per_s']:.0f}; tuner "
+          + (", ".join(f"{d['knob']} {d['from']}->{d['to']}"
+                       for d in rec['autotune']['decisions']) or "no change")
+          + f" in {rec['autotune']['evaluations']} evaluations; sheds {fa_['shed']}, victim "
+          f"p99 alone {fa_['victim_p99_alone_min_ms']:.2f} ms, with abuser "
+          f"{fa_['victim_p99_abuse_min_ms']:.2f} ms; ledger {m['sum_bytes']} bytes; peak "
+          f"device memory {m['peak_mem_gb']} GiB; {rec['seconds']:.1f} s; {rec['card']}",
+          flush=True)
 
 
 def _step_family(name: str) -> str:
@@ -2019,7 +2450,7 @@ def main(argv=None) -> int:
                     help="after the checks, profile a few steps (without and with zones "
                          "and rules), one scoring call, one transformer call, three "
                          "wire-ingest dispatches, one spool and one scoring batch of an "
-                         "archive job")
+                         "archive job, and three dispatches with the recorder on")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2049,6 +2480,7 @@ def main(argv=None) -> int:
     phase_read(device, log, fails, args.seed, slice_step_ms, profile=args.profile)
     phase_wire(device, log, fails, args.seed, profile=args.profile)
     archive = phase_archive(device, log, fails, args.seed, profile=args.profile)
+    phase_hostplane(device, log, fails, args.seed, profile=args.profile)
     # window_features runs on two paths: the live scoring of the slice and
     # the archive's analytics job
     by_path = {"window_features": {"slice": launches["window_features"],

@@ -33,8 +33,10 @@ def scatter_drop(dst: torch.Tensor, idx: torch.Tensor,
     ``.at[idx].set(src, mode="drop")``. Torch raises (CPU) or writes
     arbitrary memory (CUDA) on an out-of-bounds index, so the rows are
     steered into one spare row that is cut off afterwards. In-bounds
-    indices must be unique or carry equal values (duplicate-index writes
-    have no defined winner on CUDA)."""
+    indices must be unique: a duplicate-index write has no defined winner
+    on CUDA. No call site of the fused step relies on duplicates carrying
+    equal values any more (the presence write is a scatter-min, see
+    ``ops/window.py``)."""
     n = dst.shape[0]
     buf = dst.new_empty((n + 1,) + tuple(dst.shape[1:]))
     buf[:n] = dst

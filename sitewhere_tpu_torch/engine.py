@@ -38,12 +38,25 @@ and the host mirror of registry metadata. Ported so far:
   spill to disk before the ring overwrites them, and the archive->device
   anomaly jobs of models/analytics.py score archived history;
 - the streaming-rules tier: ``set_rules``, ``poll_rule_fires``,
-  ``rule_counters`` (rules/manager.py drives them).
+  ``rule_counters`` (rules/manager.py drives them);
+- the host plane: one flight-recorder lifecycle record a batch (every
+  ingest summary carries its ``trace_id``; ``get_trace``,
+  ``recent_traces``, ``get_trace_timeline``, ``slo_harvest``), the span
+  tracer (query rounds, shard decode, archive jobs), fair tenancy
+  (``fair_tenancy``: quota-sliced batch formation across tenants), QoS
+  (``qos``: token-bucket admission at the edges, a weighted-fair turn on
+  the ingest critical section and the query rounds, arena stalls shed as
+  typed ``ShedError``), the stage-time autotuner (``autotune``,
+  ``set_ingest_tuning``) and the multiprocess decode pool
+  (ingest/workers.DecodeWorkerPool).
 
-Not ported yet: the flight recorder and span tracer (summaries carry no
-``trace_id``), the multiprocess decode pool, fair tenancy, QoS, the
-autotuner, the replica feed, the rollup archive and the multi-chip
+Not ported yet: the replica feed, the rollup archive and the multi-chip
 engines.
+
+``device_ready`` is stamped only where the host has already observed a
+dispatch complete — the dispatch-depth wait on its fence, the arena
+recycle on its ticket, and ``drain`` (which also stamps ``readback``):
+a CUDA launch returns at once, and no sync is added to stamp a mark.
 
 Auto-registration happens on the device (ops/registration.py); the host
 mirrors it from the step's ``new_tokens`` (allocation order == list order).
@@ -53,6 +66,7 @@ row with :func:`_admin_create_device`, bumping the same counters.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import logging
@@ -89,6 +103,10 @@ from sitewhere_tpu_torch.pipeline import (TENANT_COUNTER_BUCKETS,
                                           make_packed_scan_step,
                                           make_presence_sweep, pipeline_step)
 from sitewhere_tpu_torch.utils.conservation import FlowLedger
+from sitewhere_tpu_torch.utils.flight import FlightRecorder
+from sitewhere_tpu_torch.utils.metrics import next_engine_label, query_metrics
+from sitewhere_tpu_torch.utils.tracing import (SpanTracer, current_traceparent,
+                                               stage)
 
 # WAL record format tags (first byte of every logged payload): recovery
 # replays each record through the decoder that originally accepted it
@@ -255,6 +273,45 @@ class EngineConfig:
                                        # (rule, group)
     conservation: bool = True          # count the conservation ledger's
                                        # staged and dispatched rows
+    fair_tenancy: bool = False         # quota-sliced batch formation
+                                       # across tenants (the copy path)
+    autotune: bool = False             # stage-time autotuner: steer
+                                       # dispatch_depth / decode fan-out
+                                       # (and optionally scan_chunk)
+                                       # toward the measured bottleneck
+    autotune_interval: int = 64        # dispatches between evaluations
+    autotune_scan_chunk: bool = False  # let the tuner change scan_chunk
+                                       # (rebuilds the pinned arenas)
+    flight_recorder: bool = True       # one lifecycle record a batch
+                                       # (utils/flight.py)
+    flight_capacity: int = 1024        # lifecycle records retained
+    span_trace: bool = True            # live spans (utils/tracing.py)
+    span_capacity: int = 4096          # completed spans retained
+    span_sample: float = 1.0           # head-based keep fraction, seeded
+                                       # per trace id; the slowest decile
+                                       # per span name is kept regardless
+    span_seed: int = 0                 # sampling hash seed
+    devicewatch: bool = True           # the JAX device plane's switch, kept
+                                       # so configs round-trip: the memory
+                                       # ledger (utils/devicewatch.py)
+                                       # needs none, and eager torch has
+                                       # no compile watchdog to switch
+    qos: bool = False                  # per-tenant token-bucket admission
+                                       # at the edges + weighted-fair
+                                       # ingest and query scheduling
+    tenant_rates: dict | None = None   # tenant -> admitted events/s
+    qos_default_rate_eps: float = 0.0  # rate of unlisted tenants (0 = no
+                                       # per-tenant cap)
+    qos_burst_s: float = 2.0           # token-bucket depth, in seconds of
+                                       # the tenant's rate
+    tenant_weights: dict | None = None  # weighted-fair weights (1.0 each
+                                        # by default)
+    shed_threshold: int = 0            # staged-row backlog at which every
+                                       # tenant sheds "saturated" (0 = 4 *
+                                       # batch_capacity * scan_chunk)
+    qos_min_retry_after_s: float = 0.05  # Retry-After floor of a shed
+    slo_p99_target_ms: float | None = None  # the autotuner steers toward
+                                       # this per-tenant ingest-e2e p99
 
 
 @dataclasses.dataclass
@@ -467,6 +524,30 @@ def _tenant_event_counts(state: PipelineState, t_cap: int) -> torch.Tensor:
     return out[:t_cap]
 
 
+class _FairChunk:
+    """A run of staged rows of one tenant awaiting fair batch formation.
+    ``pos`` advances as formation slices rows out; the arrays are never
+    copied after enqueue."""
+
+    __slots__ = ("etype", "token", "ts", "recv", "values", "vmask",
+                 "aux0", "aux1", "pos")
+
+    def __init__(self, etype, token, ts, recv, values, vmask, aux0, aux1):
+        self.etype = etype
+        self.token = token
+        self.ts = ts
+        self.recv = recv
+        self.values = values
+        self.vmask = vmask
+        self.aux0 = aux0
+        self.aux1 = aux1
+        self.pos = 0
+
+    @property
+    def remaining(self) -> int:
+        return len(self.etype) - self.pos
+
+
 def _fetch_query_result(res):
     """A launched query's page as numpy arrays (waits for the device). A
     module-level seam so tests can pin that the wait and the readback
@@ -496,7 +577,12 @@ class QueryBatcher:
     overwritten. The cursors are cloned all the same, so that a step that
     writes in place could not move the archive cap under the ring scan.
     The archive pass holds the lock (the spooler mutates the archive
-    under it), once a round."""
+    under it), once a round.
+
+    With QoS on (``attach_wfq``), an overflowing round's slots follow the
+    tenants' weights instead of arrival order. Each round opens the
+    ``query.round.snapshot``, ``.archive`` and ``.fetch`` spans, a
+    follower's wait a ``query.coalesce_wait`` span."""
 
     def __init__(self, engine, max_batch: int = 16):
         self.engine = engine
@@ -504,11 +590,26 @@ class QueryBatcher:
         self._mu = threading.Lock()
         self._queue: list[dict] = []
         self._running = False
+        self._wfq = None         # weighted-fair round membership (QoS)
         self.programs = 0        # query_store_batch calls launched
         self.coalesced = 0       # queries served through them
         self.max_coalesced = 0   # largest micro-batch observed
+        self._metrics = query_metrics()
 
-    def run(self, params: tuple, limit: int, archive: dict | None = None):
+    def attach_wfq(self, weights: dict | None) -> None:
+        """Weighted-fair round membership: when more queries are queued
+        than one round holds, slots go in per-tenant virtual-time order
+        instead of first come."""
+        from sitewhere_tpu_torch.utils.qos import WFQPicker
+
+        self._wfq = WFQPicker(weights)
+
+    def observe_latency(self, seconds: float) -> None:
+        self._metrics["latency"].observe(seconds)
+        self._metrics["queries"].inc()
+
+    def run(self, params: tuple, limit: int, archive: dict | None = None,
+            tenant: str | None = None, trace_id: str | None = None):
         """Submit one predicate set (``QueryParams`` field order, plain
         ints) at a bucketed ``limit``. ``archive`` (``{"limit":
         exact_page, "filters": {...}}``) asks the round to scan the
@@ -521,7 +622,8 @@ class QueryBatcher:
         entry = {"params": params, "limit": int(limit),
                  "event": threading.Event(), "result": None,
                  "cursors": None, "q": 0, "error": None,
-                 "archive": archive, "archive_result": None}
+                 "archive": archive, "archive_result": None,
+                 "tenant": tenant or "default", "trace": trace_id}
         if self.engine.lock._is_owned():
             # a caller already inside the engine lock must not park as a
             # follower: the leader would block on the lock it holds
@@ -535,7 +637,10 @@ class QueryBatcher:
             if lead:
                 self._drain()
             else:
+                wait_sp = self.engine.tracer.begin(
+                    "query.coalesce_wait", trace_id=trace_id)
                 entry["event"].wait()
+                wait_sp.end(q=entry["q"])
             if entry["error"] is not None:
                 raise entry["error"]
         return (entry["result"], entry["cursors"], entry["q"],
@@ -547,8 +652,14 @@ class QueryBatcher:
         strand."""
         while True:
             with self._mu:
-                batch = self._queue[: self.max_batch]
-                del self._queue[: len(batch)]
+                if self._wfq is not None and len(self._queue) > self.max_batch:
+                    # an overflowing round under QoS: membership follows
+                    # the tenants' weights (FIFO within a tenant)
+                    batch, self._queue = self._wfq.pick(self._queue,
+                                                        self.max_batch)
+                else:
+                    batch = self._queue[: self.max_batch]
+                    del self._queue[: len(batch)]
                 if not batch:
                     self._running = False
                     return
@@ -565,22 +676,32 @@ class QueryBatcher:
         groups: dict[int, list[dict]] = {}
         for entry in batch:
             groups.setdefault(entry["limit"], []).append(entry)
+        # round-level spans attribute to the first traced entry (the round
+        # is one shared unit of work); context managers, so a failed round
+        # leaves no open span on the leader thread
+        round_trace = next((e.get("trace") for e in batch if e.get("trace")),
+                           None)
         launched = []
-        with eng.lock:
-            store = eng.state.store
-            cursors = None
-            if eng.archive is not None:
-                cursors = (store.epoch.clone(), store.cursor.clone(),
-                           store.arena_capacity)
-            for limit, entries in groups.items():
-                cols = torch.tensor([e["params"] for e in entries],
-                                    dtype=torch.int32).T.to(eng.device)
-                launched.append((entries, query_store_batch(
-                    store, QueryParams(*cols), limit=limit)))
-                qn = len(entries)
-                self.programs += 1
-                self.coalesced += qn
-                self.max_coalesced = max(self.max_coalesced, qn)
+        with eng.tracer.begin("query.round.snapshot",
+                              trace_id=round_trace, q=len(batch)) as snap_sp:
+            with eng.lock:
+                store = eng.state.store
+                cursors = None
+                if eng.archive is not None:
+                    cursors = (store.epoch.clone(), store.cursor.clone(),
+                               store.arena_capacity)
+                for limit, entries in groups.items():
+                    cols = torch.tensor([e["params"] for e in entries],
+                                        dtype=torch.int32).T.to(eng.device)
+                    launched.append((entries, query_store_batch(
+                        store, QueryParams(*cols), limit=limit)))
+                    qn = len(entries)
+                    self.programs += 1
+                    self.coalesced += qn
+                    self.max_coalesced = max(self.max_coalesced, qn)
+                    self._metrics["batch"].observe(float(qn))
+                    self._metrics["programs"].inc()
+            snap_sp.annotate(programs=len(launched))
         # one archive pass for every archive request of the round, capped
         # at absolute positions below head - capacity of the snapshot
         archive_entries = [e for e in batch if e["archive"] is not None]
@@ -591,18 +712,25 @@ class QueryBatcher:
                        for a in range(len(cu))}
             with eng.lock:
                 if eng.archive.segments and any(v > 0 for v in max_pos.values()):
-                    results = eng.archive.query_batch(
-                        [e["archive"] for e in archive_entries],
-                        max_pos=max_pos)
-                    for e, res in zip(archive_entries, results):
-                        e["archive_result"] = res
-        for entries, res in launched:
-            host = _fetch_query_result(res)
-            for q, entry in enumerate(entries):
-                entry["result"] = type(host)(*(col[q] for col in host))
-                entry["cursors"] = cursors
-                entry["q"] = len(entries)
-                entry["event"].set()
+                    with eng.tracer.begin(
+                            "query.round.archive", trace_id=round_trace,
+                            queries=len(archive_entries)) as arch_sp:
+                        decoded0 = eng.archive.plan_decoded
+                        results = eng.archive.query_batch(
+                            [e["archive"] for e in archive_entries],
+                            max_pos=max_pos)
+                        for e, res in zip(archive_entries, results):
+                            e["archive_result"] = res
+                        arch_sp.annotate(segments_decoded=eng.archive.plan_decoded
+                                         - decoded0)
+        with eng.tracer.begin("query.round.fetch", trace_id=round_trace):
+            for entries, res in launched:
+                host = _fetch_query_result(res)
+                for q, entry in enumerate(entries):
+                    entry["result"] = type(host)(*(col[q] for col in host))
+                    entry["cursors"] = cursors
+                    entry["q"] = len(entries)
+                    entry["event"].set()
 
 
 class Engine:
@@ -668,16 +796,7 @@ class Engine:
         self._arena_committing = False
         self._arena_dispatches = 0
         if self._native_decoder is not None and c.ingest_arenas >= 0:
-            from sitewhere_tpu_torch.ingest.arena import ArenaPool
-
-            k = max(1, c.scan_chunk)
-            self._arena_pool = ArenaPool(
-                c.ingest_arenas or max(1, c.dispatch_depth) + 2,
-                c.batch_capacity * k, c.channels, lanes=k,
-                pin=self.device.type == "cuda")
-            if k > 1:
-                self._arena_step = make_arena_scan_step(
-                    self.pipeline_config, c.batch_capacity, c.channels, k)
+            self._build_arena_machinery(max(1, c.scan_chunk))
         # one wire batch decoded by several threads into disjoint arena
         # rows, byte-identical to one thread
         self._sharder = None
@@ -701,9 +820,33 @@ class Engine:
         self.outputs: list[dict] = []                      # recent step summaries
         self._pending_outs: list[StepOutput] = []          # un-absorbed outputs
         self._pending_fences: list = []                    # their fences
+        self._fair_queues: dict[int, collections.deque] = {}  # tenant -> rows
+        self._fair_queued = 0
+        self._backlog_hwm = 0   # staged-row high-watermark (reset on scrape)
+        # flight recorder: one lifecycle record a batch; _staged_traces
+        # holds records whose rows wait in the copy-staging buffer,
+        # _pending_traces parallels _pending_outs for drain's stamps
+        self.flight = FlightRecorder(capacity=c.flight_capacity,
+                                     enabled=c.flight_recorder)
+        self._staged_traces: list = []
+        self._pending_traces: list[list] = []
+        # live spans for what flight records do not time (shard decode,
+        # query rounds, archive jobs)
+        self.tracer = SpanTracer(capacity=c.span_capacity,
+                                 enabled=c.span_trace,
+                                 sample=c.span_sample, seed=c.span_seed)
+        if self._sharder is not None:
+            self._sharder.tracer = self.tracer
+        # process-unique label scoping this engine's series on the
+        # process-global registry (the SLO harvest writes under it)
+        self.metrics_label = next_engine_label()
         self._query_batcher = QueryBatcher(self, max_batch=c.query_coalesce)
-        # conservation ledger: rows staged and rows dispatched
+        # conservation ledger: rows staged and rows dispatched; the
+        # auditor (utils/conservation.ConservationAuditor) attaches here
         self.ledger = FlowLedger(enabled=c.conservation)
+        self.conservation_auditor = None
+        # persistent-connection wire edges register here (none is ported)
+        self.wire_edges: list = []
         # durability: accepted payloads append to the WAL before staging,
         # tagged by wire format so recovery replays each through the
         # decoder that accepted it (utils/checkpoint.recover_engine)
@@ -753,6 +896,129 @@ class Engine:
                     "capacity is %d: the ring may wrap before spooling; "
                     "raise store_capacity or lower scan_chunk/batch_capacity",
                     worst, acap)
+        # stage-time autotuner (opt-in): one knob an evaluation toward the
+        # flight recorder's measured bottleneck
+        self._autotuner = None
+        if c.autotune:
+            from sitewhere_tpu_torch.utils.autotune import StageTimeAutotuner
+
+            self._autotuner = StageTimeAutotuner(
+                self, interval=c.autotune_interval,
+                adapt_scan_chunk=c.autotune_scan_chunk)
+        # overload discipline: token-bucket admission (consulted by the
+        # edges, never by the engine's own ingest, so WAL replay can never
+        # shed a durable event) and weighted-fair scheduling of the ingest
+        # critical section and the query rounds
+        self.qos = None
+        self._wfq_gate = None
+        self._stall_sheds = 0     # arena-stall sheds (not a metrics() key)
+        if c.qos:
+            from sitewhere_tpu_torch.utils.qos import (AdmissionController,
+                                                       WeightedFairGate)
+
+            self.qos = AdmissionController(
+                tenant_rates=c.tenant_rates,
+                default_rate_eps=c.qos_default_rate_eps,
+                burst_s=c.qos_burst_s,
+                shed_threshold=(c.shed_threshold
+                                or 4 * c.batch_capacity * max(1, c.scan_chunk)),
+                backlog_fn=lambda: self.staged_count,
+                min_retry_after_s=c.qos_min_retry_after_s)
+            self._wfq_gate = WeightedFairGate(c.tenant_weights)
+            self._query_batcher.attach_wfq(c.tenant_weights)
+
+    def _build_arena_machinery(self, k: int) -> None:
+        """(Re)build the staging-arena pool (page-locked on a CUDA engine)
+        and, for k > 1, the K-lane arena scan step: one constructor for
+        ``__init__`` and a ``scan_chunk`` retune."""
+        from sitewhere_tpu_torch.ingest.arena import ArenaPool
+
+        c = self.config
+        self._arena_pool = ArenaPool(
+            c.ingest_arenas or max(1, c.dispatch_depth) + 2,
+            c.batch_capacity * k, c.channels, lanes=k,
+            pin=self.device.type == "cuda")
+        self._arena_step = None
+        if k > 1:
+            self._arena_step = make_arena_scan_step(
+                self.pipeline_config, c.batch_capacity, c.channels, k)
+
+    def set_ingest_tuning(self, *, scan_chunk: int | None = None,
+                          dispatch_depth: int | None = None,
+                          ingest_workers: int | None = None,
+                          shed_threshold: int | None = None) -> dict:
+        """Apply ingest knobs at run time — the one choke point of the
+        autotuner and of operators, because each knob invalidates other
+        machinery:
+
+          dispatch_depth   takes effect at the next dispatch
+          ingest_workers   clamps the sharded-decode fan-out
+          shed_threshold   moves the QoS saturation valve (no-op without
+                           QoS)
+          scan_chunk       dispatches what is staged, waits out every
+                           in-flight dispatch (no arena of the old shape
+                           may still feed a copy), then rebuilds the
+                           pinned arena pool and the arena scan step
+
+        Returns the applied values."""
+        with self.lock:
+            c = self.config
+            if dispatch_depth is not None:
+                c.dispatch_depth = max(1, int(dispatch_depth))
+            if ingest_workers is not None and self._sharder is not None:
+                self._sharder.set_active_workers(ingest_workers)
+            if shed_threshold is not None and self.qos is not None:
+                c.shed_threshold = max(1, int(shed_threshold))
+                self.qos.shed_threshold = c.shed_threshold
+            if scan_chunk is not None:
+                k = max(1, int(scan_chunk))
+                if k != max(1, c.scan_chunk) and self._arena_pool is not None:
+                    self._dispatch_arena()
+                    self._dispatch_staged(all_batches=True)
+                    self._arena_pool.drain()
+                    self._build_arena_machinery(k)
+                    c.scan_chunk = k
+            applied = {"scan_chunk": c.scan_chunk,
+                       "dispatch_depth": c.dispatch_depth,
+                       "ingest_workers": (self._sharder.active_workers
+                                          if self._sharder else 1)}
+            if self.qos is not None:
+                applied["shed_threshold"] = self.qos.shed_threshold
+            return applied
+
+    def take_backlog_hwm(self, reset: bool = True) -> int:
+        """Most staged rows waiting at once since the last reset (the
+        scrape resets; peeks pass ``reset=False``)."""
+        hwm = max(self._backlog_hwm, self.staged_count)
+        if reset:
+            self._backlog_hwm = self.staged_count
+        return hwm
+
+    # --------------------------------------------------------- flight recorder
+    def get_trace(self, trace_id: str) -> dict:
+        """The lifecycle records of one trace id."""
+        return {"traceId": trace_id,
+                "records": self.flight.records_of(trace_id)}
+
+    def recent_traces(self, limit: int = 50) -> list[dict]:
+        return self.flight.recent(limit)
+
+    def get_trace_timeline(self, trace_id: str) -> dict:
+        """One trace as a Chrome-trace-event document (loads in Perfetto):
+        the flight record's lifecycle intervals merged with the tracer's
+        live spans."""
+        from sitewhere_tpu_torch.utils.tracing import (finish_timeline,
+                                                       timeline_events)
+
+        return finish_timeline(trace_id, timeline_events(self, trace_id))
+
+    def slo_harvest(self) -> list:
+        """Completed ingest lifecycles not yet exported to the SLO plane,
+        each handed out once (the scrape's per-tenant
+        ``swtpu_ingest_e2e_seconds`` is built from them, so the ingest
+        path pays no sync for SLO latency)."""
+        return self.flight.harvest_completed("ingest",
+                                             terminal="device_ready")
 
     def _step(self, state: PipelineState, batch: EventBatch):
         return pipeline_step(state, batch, self.pipeline_config)
@@ -769,7 +1035,7 @@ class Engine:
 
     @property
     def staged_count(self) -> int:
-        return (len(self._buf)
+        return (len(self._buf) + self._fair_queued
                 + (self._arena_fill.cursor if self._arena_fill is not None
                    else 0)
                 + sum(int(np.sum(b.valid)) for b in self._staged_batches))
@@ -780,7 +1046,7 @@ class Engine:
         mid-commit: a registration envelope's admin path re-enters here
         while the arena's valid mask is still being built, and its
         committed rows dispatch when the commit finishes."""
-        while (len(self._buf)
+        while (len(self._buf) or self._fair_queued
                or (self._arena_fill is not None and self._arena_fill.cursor
                    and not self._arena_committing)):
             self.flush_async()
@@ -801,19 +1067,29 @@ class Engine:
         inline."""
         if self.wal is None or getattr(self._wal_local, "depth", 0):
             return
+        rec = self.flight.current()
+        t0 = time.perf_counter()
         self._wal_last_seq = self.wal.append_many(
             payloads, tag + tenant.encode() + b"\x00")
         if not self.wal.group_commit:
             self.wal.flush()
+        rec.mark("wal_append")
+        rec.add("wal_flush_ms", round((time.perf_counter() - t0) * 1000, 3))
 
-    def _wal_gate(self) -> None:
+    def _wal_gate(self, traces=()) -> None:
         """Block until every WAL record appended so far is durable — called
         under the engine lock before a dispatch enqueues its host-to-device
-        copy. No-op without a WAL or without group commit (whose appends
-        flushed inline)."""
+        copy; stamps ``wal_durable`` on the dispatch's records. No-op
+        without a WAL or without group commit (whose appends flushed
+        inline, and which promises no durability at dispatch)."""
         if self.wal is None or not self.wal.group_commit:
             return
+        t0 = time.perf_counter()
         self.wal.wait_durable(self._wal_last_seq)
+        dt = time.perf_counter() - t0
+        for rec in traces:
+            rec.mark("wal_durable")
+            rec.add("wal_gate_ms", round(dt * 1000, 3))
 
     @contextlib.contextmanager
     def _wal_suppress(self):
@@ -929,6 +1205,20 @@ class Engine:
         self.host_counters["staged_copy_rows"] = \
             self.host_counters.get("staged_copy_rows", 0) + 1
         self.ledger.add("staged_rows", 1)
+        if self.config.fair_tenancy:
+            i32 = np.int32
+            has_vals = mask is not None and (mask.any() or values.any())
+            self._fair_enqueue(tenant_id, _FairChunk(
+                etype=np.array([et], i32),
+                token=np.array([token_id], i32),
+                ts=np.array([ts], i32),
+                recv=np.array([now], i32),
+                values=values[None].copy() if has_vals else None,
+                vmask=mask[None].copy() if has_vals else None,
+                aux0=np.array([aux0], i32),
+                aux1=np.array([aux1], i32),
+            ))
+            return
         i = len(self._buf)
         if not self._buf.append(et, token_id, tenant_id, ts, now, (), aux0, aux1):
             self.flush_async()
@@ -940,55 +1230,165 @@ class Engine:
         if self._buf.full:
             self.flush_async()
 
+    def _fair_enqueue(self, tenant_id: int, chunk: _FairChunk) -> None:
+        """Queue a chunk of staged rows under its tenant (a whole decode
+        batch is one chunk). Caller holds the lock."""
+        q = self._fair_queues.get(tenant_id)
+        if q is None:
+            q = self._fair_queues[tenant_id] = collections.deque()
+        q.append(chunk)
+        self._fair_queued += chunk.remaining
+        if self._fair_queued >= self.config.batch_capacity:
+            self.flush_async()
+
+    def fair_backlog(self, tenant: str) -> int:
+        """Rows queued but not yet batched for one tenant (fair mode)."""
+        with self.lock:
+            tid = self.tenants.lookup(tenant)
+            return sum(c.remaining for c in self._fair_queues.get(tid, ()))
+
+    def _form_fair_batch(self) -> None:
+        """Quota-sliced batch formation across tenants: each pass gives
+        every tenant with backlog an equal share of the staging buffer's
+        remaining room, copied as vectorized slices — one tenant's burst
+        cannot starve the others' latency. Caller holds the lock."""
+        b = self._buf
+        while self._fair_queued and not b.full:
+            active = [t for t, q in self._fair_queues.items() if q]
+            if not active:
+                break
+            quota = max(1, (b.capacity - len(b)) // len(active))
+            for tid in active:
+                q = self._fair_queues[tid]
+                take = quota
+                while take > 0 and q and not b.full:
+                    ch = q[0]
+                    k = min(take, ch.remaining, b.capacity - len(b))
+                    lo, hi, p = b._n, b._n + k, ch.pos
+                    b.etype[lo:hi] = ch.etype[p:p + k]
+                    b.token_id[lo:hi] = ch.token[p:p + k]
+                    b.tenant_id[lo:hi] = tid
+                    b.ts_ms[lo:hi] = ch.ts[p:p + k]
+                    b.received_ms[lo:hi] = ch.recv[p:p + k]
+                    if ch.values is not None:
+                        b.values[lo:hi] = ch.values[p:p + k]
+                        b.vmask[lo:hi] = ch.vmask[p:p + k]
+                    b.aux[lo:hi, 0] = ch.aux0[p:p + k]
+                    b.aux[lo:hi, 1] = ch.aux1[p:p + k]
+                    b._n = hi
+                    ch.pos += k
+                    take -= k
+                    self._fair_queued -= k
+                    if ch.remaining == 0:
+                        q.popleft()
+        for tid in [t for t, q in self._fair_queues.items() if not q]:
+            del self._fair_queues[tid]
+
     def ingest_json_batch(self, payloads: list[bytes],
-                          tenant: str = "default") -> dict:
+                          tenant: str = "default",
+                          traceparent: str | None = None) -> dict:
         """Decode a batch of JSON device-request payloads in one native call
         and stage them vectorized (no per-event Python); with
         ``use_native=False``, decode each payload in Python and stage it
         through :meth:`process`. Returns ``{"decoded", "failed"}`` (and
-        ``"staged"`` on the native path). Registration and mapping
-        envelopes take the per-request path."""
+        ``"staged"`` on the native path) and the batch's ``trace_id``.
+        Registration and mapping envelopes take the per-request path."""
         return self._ingest_batch(
             payloads, tenant, WAL_JSON, JsonDeviceRequestDecoder(),
             self._native_decoder.decode if self._native_decoder else None,
-            binary=False)
+            binary=False, traceparent=traceparent)
 
     def ingest_binary_batch(self, payloads: list[bytes],
-                            tenant: str = "default") -> dict:
+                            tenant: str = "default",
+                            traceparent: str | None = None) -> dict:
         """:meth:`ingest_json_batch` for the flat-binary wire format
         (``ingest/decoders.encode_binary_request``)."""
         return self._ingest_batch(
             payloads, tenant, WAL_BINARY, BinaryEventDecoder(),
             self._native_decoder.decode_binary if self._native_decoder
-            else None, binary=True)
+            else None, binary=True, traceparent=traceparent)
 
     def _ingest_batch(self, payloads: list[bytes], tenant: str, tag: bytes,
-                      dec, native_fn, binary: bool) -> dict:
-        """The batch skeleton: strict validation -> WAL -> stage.
-        ``native_fn`` is the native SoA decoder call (None = Python)."""
+                      dec, native_fn, binary: bool,
+                      traceparent: str | None = None) -> dict:
+        """The batch skeleton: strict validation -> WAL -> stage, in one
+        flight-recorder lifecycle record (``traceparent``, explicit or
+        bound, joins a trace instead of opening one). With QoS the
+        batch's weighted-fair turn orders which tenant enters the ingest
+        critical section next; callers already inside the engine lock
+        skip the turn (parking them would deadlock). ``native_fn`` is the
+        native SoA decoder call (None = Python)."""
+        rec = self.flight.begin(
+            "ingest", tenant=tenant, n_payloads=len(payloads),
+            traceparent=traceparent or current_traceparent())
+        gate = self._wfq_gate
+        gate_ctx = (gate.turn(tenant, len(payloads))
+                    if gate is not None and not self.lock._is_owned()
+                    else contextlib.nullcontext())
+        with self.flight.bind(rec):
+            summary = self._ingest_batch_inner(payloads, tenant, tag, dec,
+                                               native_fn, binary, rec,
+                                               gate_ctx)
+        if rec.trace_id is not None:
+            rec.add_counts(summary)
+            if rec.meta.get("path") != "arena" and summary.get("staged"):
+                with self.lock:
+                    if self.staged_count:
+                        # rows wait in the shared buffer: the next flush
+                        # stamps this record's dispatch
+                        self._staged_traces.append(rec)
+                    else:
+                        # a mid-ingest buffer-fill flush already dispatched
+                        # every row: join the newest in-flight dispatch so
+                        # drain stamps the tail stages
+                        rec.mark("dispatch")
+                        if self._pending_traces:
+                            self._pending_traces[-1].append(rec)
+                        else:
+                            rec.mark("device_ready")
+            summary["trace_id"] = rec.trace_id
+        return summary
+
+    def _ingest_batch_inner(self, payloads, tenant, tag, dec, native_fn,
+                            binary, rec, gate_ctx) -> dict:
+        # gate_ctx is the batch's single-use weighted-fair turn; each
+        # branch enters it just before its own critical section, never
+        # around work designed to run outside the lock
         if native_fn is None:
-            with self.lock:
+            with gate_ctx, self.lock:
                 predecoded = self._strict_predecode(payloads, dec)
                 self._wal_append(tag, payloads, tenant)
-                return self._ingest_python_fallback(payloads, tenant, dec,
-                                                    predecoded)
+                summary = self._ingest_python_fallback(payloads, tenant, dec,
+                                                       predecoded)
+                rec.mark("decode")
+                rec.mark("commit")
+                return summary
         if self.config.strict_channels:
             # strict decodes under the lock, so a rejected batch can roll
             # back the names it interned without clobbering a concurrent
             # batch's
-            with self.lock:
+            with gate_ctx, self.lock:
                 names_before = len(self.channel_map.names)
                 res = native_fn(payloads)
+                rec.mark("decode")
                 self._check_strict_native(res, names_before)
                 self._wal_append(tag, payloads, tenant)
-                return self._ingest_decoded(res, payloads, tenant, dec)
-        if self._arena_pool is not None:
-            return self._ingest_batch_arena(payloads, tenant, tag, dec, binary)
-        # copy path: decode outside the lock, log and stage atomically
+                summary = self._ingest_decoded(res, payloads, tenant, dec)
+                rec.mark("commit")
+                return summary
+        if self._arena_pool is not None and not self.config.fair_tenancy:
+            with gate_ctx:
+                return self._ingest_batch_arena(payloads, tenant, tag, dec,
+                                                binary)
+        # copy path: decode outside the lock (and outside the turn), log
+        # and stage atomically
         res = native_fn(payloads)
-        with self.lock:
+        rec.mark("decode")
+        with gate_ctx, self.lock:
             self._wal_append(tag, payloads, tenant)
-            return self._ingest_decoded(res, payloads, tenant, dec)
+            summary = self._ingest_decoded(res, payloads, tenant, dec)
+            rec.mark("commit")
+            return summary
 
     def _strict_predecode(self, payloads, dec):
         """Strict pre-pass of the Python path: decode once and check the
@@ -1097,13 +1497,29 @@ class Engine:
         return etype, ok, ts_rel, values, failed, n_reg_ok
 
     # ------------------------------------------------------------ arena ingest
-    def _acquire_arena(self):
+    def _acquire_arena(self, tenant: str, n_remaining: int):
         """Pool acquire bounded by ``arena_stall_timeout_s``: a wedged
-        in-flight dispatch raises ArenaStallError instead of hanging the
+        in-flight dispatch raises a typed shed
+        (``utils/qos.ShedError``, reason "stall", counted in
+        ``swtpu_qos_shed_total`` with QoS on) instead of hanging the
         ingest thread under the engine lock. Chunks of the batch staged
         before the stall are already WAL-durable and dispatch normally."""
-        return self._arena_pool.acquire(
-            timeout_s=self.config.arena_stall_timeout_s)
+        from sitewhere_tpu_torch.ingest.arena import ArenaStallError
+
+        try:
+            return self._arena_pool.acquire(
+                timeout_s=self.config.arena_stall_timeout_s)
+        except ArenaStallError as e:
+            self._stall_sheds += 1
+            if self.qos is not None:
+                self.qos.note_shed(tenant, n_remaining, "stall")
+            from sitewhere_tpu_torch.utils.qos import ShedError
+
+            raise ShedError(
+                f"ingest shed: {e}", tenant=tenant,
+                retry_after_s=max(1.0, self.config.arena_stall_timeout_s
+                                  or 1.0),
+                reason="stall") from e
 
     def _ingest_batch_arena(self, payloads, tenant, tag, reg_decoder,
                             binary: bool) -> dict:
@@ -1114,6 +1530,8 @@ class Engine:
         dispatch. Decode runs under the lock (the arena is shared state)."""
         summary = {"decoded": 0, "failed": 0, "staged": 0}
         n = len(payloads)
+        rec = self.flight.current()
+        rec.add("path", "arena")
         with self.lock:
             now = self.epoch.now_ms()
             base_ms = int(self.epoch.base_unix_s * 1000)
@@ -1121,15 +1539,27 @@ class Engine:
             while pos < n:
                 arena = self._arena_fill
                 if arena is None:
-                    arena = self._arena_fill = self._acquire_arena()
+                    arena = self._arena_fill = self._acquire_arena(tenant,
+                                                                   n - pos)
                 take = min(n - pos, arena.room)
                 chunk = payloads if take == n else payloads[pos:pos + take]
                 lo = arena.cursor
                 dec = self._sharder or self._native_decoder
+                if dec is self._sharder:
+                    # the shards' decode spans join this batch's trace (the
+                    # engine lock serializes arena decode)
+                    dec.current_trace = rec.trace_id
                 _, collisions = dec.decode_into(chunk, arena, lo, binary=binary)
+                rec.mark("decode")
+                rec.mark("arena_fill")
+                if self._sharder is not None:
+                    rec.add("ingest_workers", self._sharder.last_workers)
                 self._wal_append(tag, chunk, tenant)
                 self._arena_commit(arena, lo, take, chunk, tenant,
                                    reg_decoder, now, base_ms, summary)
+                rec.mark("commit")
+                if rec.trace_id is not None:
+                    arena.traces.append(rec)
                 self.channel_map.collisions += collisions
                 arena.cursor = lo + take
                 if arena.room == 0:
@@ -1145,6 +1575,8 @@ class Engine:
         batch."""
         summary = {"decoded": 0, "failed": 0, "staged": 0}
         n = len(res.rtype)
+        rec = self.flight.current()
+        rec.add("path", "arena")
         with self.lock:
             now = self.epoch.now_ms()
             base_ms = int(self.epoch.base_unix_s * 1000)
@@ -1152,7 +1584,8 @@ class Engine:
             while pos < n:
                 arena = self._arena_fill
                 if arena is None:
-                    arena = self._arena_fill = self._acquire_arena()
+                    arena = self._arena_fill = self._acquire_arena(tenant,
+                                                                   n - pos)
                 take = min(n - pos, arena.room)
                 lo, hi = arena.cursor, arena.cursor + take
                 sl = slice(pos, pos + take)
@@ -1164,8 +1597,12 @@ class Engine:
                 arena.aux[lo:hi, 0] = res.aux0[sl]
                 arena.aux[lo:hi, 1] = res.aux1[sl]
                 arena.level[lo:hi] = res.level[sl]
+                rec.mark("arena_fill")
                 self._arena_commit(arena, lo, take, payloads[pos:pos + take],
                                    tenant, reg_decoder, now, base_ms, summary)
+                rec.mark("commit")
+                if rec.trace_id is not None:
+                    arena.traces.append(rec)
                 arena.cursor = hi
                 if arena.room == 0:
                     self._dispatch_arena()
@@ -1225,26 +1662,37 @@ class Engine:
             return
         arena.valid[arena.cursor:] = False
         self.ledger.add("dispatched_rows", int(np.sum(arena.valid)))
+        traces, arena.traces = arena.traces, []
         # every WAL record of the arena's rows is durable before the copy
         # to the device is enqueued
-        self._wal_gate()
+        self._wal_gate(traces)
+        for rec in traces:
+            rec.mark("dispatch")
         step = self._arena_step or self._step
         self.state, out = step(self.state, arena.view_batch(self.device))
         # one fence after the copy and the step, on the stream that ran
-        # both: the arena's ticket and the dispatch-depth wait
+        # both: the arena's ticket and the dispatch-depth wait; whichever
+        # wait observes it first stamps device_ready
         fence = self._fence()
-        self._enqueue_out(out, fence)
-        self._arena_pool.retire(arena, fence)
+        self._enqueue_out(out, fence, traces)
+        self._arena_pool.retire(arena, fence, traces)
         self._archive_account(arena.cursor * MAX_ACTIVE_ASSIGNMENTS)
         self._arena_fill = None
         self._arena_dispatches += 1
         self._last_flush = time.monotonic()
+        self._note_dispatch()
+
+    def _note_dispatch(self) -> None:
+        """The autotuner's per-dispatch hook (under the engine lock; a
+        knob it applies re-enters the same lock)."""
+        if self._autotuner is not None:
+            self._autotuner.note_dispatch()
 
     def _ingest_decoded(self, res, payloads, tenant, reg_decoder) -> dict:
         """Stage a natively decoded SoA batch: through the arena when the
         engine has one, else copied into the staging buffer (the copy
         path); envelopes re-decode on the per-request path."""
-        if self._arena_pool is not None:
+        if self._arena_pool is not None and not self.config.fair_tenancy:
             return self._ingest_decoded_arena(res, payloads, tenant,
                                               reg_decoder)
         with self.lock:
@@ -1255,6 +1703,22 @@ class Engine:
                                       now, base_ms)
             idxs = np.nonzero(ok)[0]
             tenant_id = self.tenants.intern(tenant)
+            if self.config.fair_tenancy:
+                # the whole call shares one tenant: its decode batch
+                # enqueues as one chunk (array slices, no per-row Python);
+                # ``values`` goes in whole, alert rows carry their level
+                # there with the mask unset
+                if len(idxs):
+                    self._fair_enqueue(tenant_id, _FairChunk(
+                        etype=etype[idxs], token=res.token_id[idxs],
+                        ts=ts_rel[idxs],
+                        recv=np.full(len(idxs), now, np.int32),
+                        values=values[idxs], vmask=res.chmask[idxs],
+                        aux0=res.aux0[idxs], aux1=res.aux1[idxs]))
+                self.channel_map.collisions += res.collisions
+                self.ledger.add("staged_rows", len(idxs))
+                return {"decoded": int(np.sum(ok)) + n_reg_ok,
+                        "failed": failed, "staged": int(len(idxs))}
             staged = 0
             pos = 0
             # an all-rows-decoded batch (the steady state) stages with
@@ -1305,14 +1769,16 @@ class Engine:
                              f"batch_capacity {self.config.batch_capacity}")
         with self.lock:
             # staged rows keep their order
-            while len(self._buf) or (self._arena_fill is not None
-                                     and self._arena_fill.cursor):
+            while (len(self._buf) or self._fair_queued
+                   or (self._arena_fill is not None
+                       and self._arena_fill.cursor)):
                 self.flush_async()
             self._dispatch_staged(all_batches=True)
             self.ledger.add_device("bulk_rows", batch.valid)
             self.state, out = self._step(self.state, batch)
             self._enqueue_out(out, self._fence())
             self._archive_account(batch.capacity * MAX_ACTIVE_ASSIGNMENTS)
+            self._note_dispatch()
 
     # ---------------------------------------------------------------- dispatch
     def maybe_flush(self) -> dict | None:
@@ -1321,7 +1787,7 @@ class Engine:
         with self.lock:
             expired = (time.monotonic() - self._last_flush
                        >= self.config.flush_interval_s)
-            if (len(self._buf) or self._staged_batches
+            if (len(self._buf) or self._fair_queued or self._staged_batches
                     or (self._arena_fill is not None
                         and self._arena_fill.cursor)) and expired:
                 return self.flush()
@@ -1331,11 +1797,19 @@ class Engine:
 
     def flush(self) -> dict:
         """Run the staged work through the pipeline and sync host mirrors;
-        returns the aggregate summary of everything drained."""
-        with self.lock:
-            self.flush_async()
-            self._dispatch_staged(all_batches=True)
-            return _merge_summaries(self.drain())
+        returns the aggregate summary of everything drained. On an error
+        the flight recorder logs the recent batch lifecycles before the
+        error propagates."""
+        try:
+            with self.lock, stage("pipeline_step"):
+                self.flush_async()
+                while self._fair_queued:   # fair mode: a batch a dispatch
+                    self.flush_async()
+                self._dispatch_staged(all_batches=True)
+                return _merge_summaries(self.drain())
+        except Exception:
+            self.flight.dump_error(logging.getLogger(__name__))
+            raise
 
     def flush_async(self) -> None:
         """Dispatch the staged work without reading anything back: the
@@ -1343,6 +1817,14 @@ class Engine:
         dispatches too (never mid-commit). With ``scan_chunk`` K > 1,
         emitted copy-path batches accumulate and dispatch K at a time."""
         with self.lock:
+            # the staged-backlog high-watermark, sampled where it peaks
+            staged = self.staged_count
+            if staged > self._backlog_hwm:
+                self._backlog_hwm = staged
+            # fair queues form a batch whenever rows are queued (even with
+            # the flag toggled off since: queued rows never strand)
+            if self._fair_queued:
+                self._form_fair_batch()
             if (self._arena_fill is not None and self._arena_fill.cursor
                     and not self._arena_committing):
                 self._dispatch_arena()
@@ -1353,15 +1835,19 @@ class Engine:
                 self._staged_batches.append(self._buf.emit_host())
                 self._dispatch_staged(all_batches=False)
             else:
-                self._wal_gate()       # before the copy of the batch
+                traces, self._staged_traces = self._staged_traces, []
+                self._wal_gate(traces)   # before the copy of the batch
+                for rec in traces:
+                    rec.mark("dispatch")
                 self.ledger.add("dispatched_rows", n_staged)
                 batch = self._buf.emit(self.device)
                 self.state, out = self._step(self.state, batch)
-                self._enqueue_out(out, self._fence())
+                self._enqueue_out(out, self._fence(), traces)
                 # each staged row persists up to one event per active
                 # assignment: count the upper bound, so rows always spill
                 # before the ring wraps over them
                 self._archive_account(n_staged * MAX_ACTIVE_ASSIGNMENTS)
+                self._note_dispatch()
             self._last_flush = time.monotonic()
 
     def _dispatch_staged(self, all_batches: bool) -> None:
@@ -1378,34 +1864,47 @@ class Engine:
             while len(chunk) < k:
                 chunk.append(_empty_host_batch(self.config.batch_capacity,
                                                self.config.channels))
-            self._wal_gate()
+            # the records of every batch in the chunk: the chunk is the
+            # dispatch unit
+            traces, self._staged_traces = self._staged_traces, []
+            self._wal_gate(traces)
+            for rec in traces:
+                rec.mark("dispatch")
             self.ledger.add("dispatched_rows",
                             sum(int(np.sum(b.valid)) for b in chunk))
             packed = torch.from_numpy(pack_batches(chunk)).to(self.device)
             self.state, outs = self._scan_step(self.state, packed)
-            self._enqueue_out(outs, self._fence())
+            self._enqueue_out(outs, self._fence(), traces)
             # counted where the ring head advances, not at staging
             self._archive_account(
                 k * self.config.batch_capacity * MAX_ACTIVE_ASSIGNMENTS)
+            self._note_dispatch()
 
-    def _enqueue_out(self, out: StepOutput, fence) -> None:
+    def _enqueue_out(self, out: StepOutput, fence, traces=()) -> None:
         """Queue a step output for drain, bounding outstanding dispatches
         to ``dispatch_depth``: once that many are queued, wait on the
         fence of the dispatch ``dispatch_depth`` back (at depth 1, the one
-        just dispatched)."""
+        just dispatched). The wait observed that dispatch complete, so it
+        stamps ``device_ready`` on its records (on the CPU the step has
+        run already)."""
         self._pending_outs.append(out)
         self._pending_fences.append(fence)
+        self._pending_traces.append(list(traces))
         d = max(1, self.config.dispatch_depth)
-        if len(self._pending_fences) >= d and self._pending_fences[-d] is not None:
-            self._pending_fences[-d].synchronize()
+        if len(self._pending_fences) >= d:
+            if self._pending_fences[-d] is not None:
+                self._pending_fences[-d].synchronize()
+            for rec in self._pending_traces[-d]:
+                rec.mark("device_ready")
 
     def barrier(self) -> None:
         """Dispatch all staged work and wait for it to complete, with no
         device-to-host readback (drain, which reads, is left to reporting
         boundaries)."""
         with self.lock:
-            while len(self._buf) or (self._arena_fill is not None
-                                     and self._arena_fill.cursor):
+            while (len(self._buf) or self._fair_queued
+                   or (self._arena_fill is not None
+                       and self._arena_fill.cursor)):
                 self.flush_async()
             self._dispatch_staged(all_batches=True)
             if self._pending_fences and self._pending_fences[-1] is not None:
@@ -1473,6 +1972,7 @@ class Engine:
                 return [_empty_summary()]
             outs, self._pending_outs = self._pending_outs, []
             self._pending_fences = []
+            trace_lists, self._pending_traces = self._pending_traces, []
             lanes = []
             for out in outs:
                 if out.n_found.dim() == 0:
@@ -1483,6 +1983,16 @@ class Engine:
             scalars = torch.stack([
                 torch.stack([o.n_found, o.n_missed, o.n_registered,
                              o.n_persisted]) for o in lanes]).cpu().tolist()
+            # the copy above observed every drained dispatch: stamp
+            # readback, and device_ready where no wait observed the
+            # record's last dispatch first (a batch of several chunks may
+            # hold an earlier chunk's mark)
+            for recs in trace_lists:
+                for rec in recs:
+                    st = rec.stages
+                    if st.get("device_ready", -1) < st.get("dispatch", 0):
+                        rec.mark("device_ready")
+                    rec.mark("readback")
             return [self._absorb_output(out, *s) for out, s in zip(lanes, scalars)]
 
     def _absorb_output(self, out: StepOutput, n_found: int, n_missed: int,
@@ -1958,7 +2468,9 @@ class Engine:
         pass) and the row formatting run outside it. ``limit`` buckets to
         the next power of two; the result slices back to the exact
         page."""
+        t_q0 = time.perf_counter()
         limit = max(1, int(limit))
+        rec = self.flight.begin("query", tenant=tenant or "all")
         miss = False   # an unknown string filter matches nothing — an
                        # unknown tenant must never widen to all tenants
         with self.lock:
@@ -1983,7 +2495,10 @@ class Engine:
                 aux1 = self.event_ids.lookup(alternate_id)
                 miss |= aux1 == NULL_ID
             lane_names = None if miss else self._lane_names()
+        rec.mark("lookup")
         if miss:
+            # still a served query: counted, so miss-heavy polling shows
+            self._query_batcher.observe_latency(time.perf_counter() - t_q0)
             return {"total": 0, "events": []}
         imin, imax = -(2**31), 2**31 - 1
         params = (  # QueryParams field order
@@ -2009,8 +2524,11 @@ class Engine:
                 aux1=aux1 if alternate_id is not None else None,
                 area=area_id if area is not None else None,
                 customer=customer_id if customer is not None else None)}
-        row, _, _, archive_res = self._query_batcher.run(
-            params, bucket_limit(limit), archive=archive_req)
+        row, _, coalesced, archive_res = self._query_batcher.run(
+            params, bucket_limit(limit), archive=archive_req,
+            tenant=tenant, trace_id=rec.trace_id)
+        rec.mark("device")
+        rec.add("coalesced", coalesced)
         total = int(row.total)
         events = [
             self._format_event(
@@ -2020,9 +2538,12 @@ class Engine:
                 row.aux[i], lane_names)
             for i in range(min(total, limit))
         ]
+        rec.mark("format")
         if archive_res is not None:
             total, events = self._merge_archive(total, events, limit,
                                                 archive_res)
+            rec.mark("archive")
+        self._query_batcher.observe_latency(time.perf_counter() - t_q0)
         return {"total": total, "events": events}
 
     def _merge_archive(self, total: int, events: list[dict], limit: int,
@@ -2280,7 +2801,7 @@ class Engine:
             **({"arena_pool_waits": self._arena_pool.waits,
                 "arena_pool_size": self._arena_pool.n_arenas}
                if self._arena_pool is not None else {}),
-            **({"ingest_workers": self._sharder.n_workers,
+            **({"ingest_workers": self._sharder.active_workers,
                 "sharded_batches": self._sharder.sharded_batches}
                if self._sharder is not None else {}),
             **({"wal_fsyncs": self.wal.fsyncs,

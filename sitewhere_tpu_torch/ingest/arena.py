@@ -20,6 +20,10 @@ the stream that ran both the copy and the step, and recycles it once the
 ticket has completed. On a CPU engine the columns are ordinary tensors
 and the step has run by the time it returns: the ticket is None.
 
+An arena also carries the flight records of the batches staged in it
+(``traces``): the recycle observes the ticket complete, so it stamps
+their ``device_ready`` without a sync of its own.
+
 With ``dispatch_depth`` >= 2 and more arenas than that depth, the decode
 of batch N+1 overlaps the copy and the step of batch N. An exhausted pool
 waits on the oldest in-flight dispatch (backpressure, counted in
@@ -62,7 +66,7 @@ class StagingArena:
     decoder and the commit write. ``vmask`` is uint8 storage (the decoder
     ABI's type), handed to the step viewed as bool."""
 
-    __slots__ = ("rows", "channels", "lanes", "cursor", "tensors",
+    __slots__ = ("rows", "channels", "lanes", "cursor", "traces", "tensors",
                  "valid", "etype", "token_id", "tenant_id", "ts_ms",
                  "received_ms", "values", "vmask", "aux", "seq",
                  "rtype", "ts64", "level")
@@ -76,6 +80,7 @@ class StagingArena:
         self.channels = channels
         self.lanes = max(1, lanes)
         self.cursor = 0
+        self.traces: list = []   # flight records of batches staged here
 
         def col(shape, dtype, fill=0):
             return torch.full(shape, fill, dtype=dtype, pin_memory=pin)
@@ -106,6 +111,14 @@ class StagingArena:
     def room(self) -> int:
         return self.rows - self.cursor
 
+    @property
+    def nbytes(self) -> int:
+        """Host bytes this arena holds: the final columns and the decoder
+        scratch, all allocated for the arena's lifetime (the memory
+        ledger's per-arena unit)."""
+        return sum(v.nbytes for name in self.__slots__
+                   if isinstance((v := getattr(self, name)), np.ndarray))
+
     def view_batch(self, device: torch.device) -> EventBatch:
         """The full-capacity EventBatch of the arena's columns on
         ``device``: asynchronous copies from the pinned buffers on a CUDA
@@ -122,6 +135,7 @@ class StagingArena:
         valid mask itself is cleared so a stale True can never leak
         through a partial dispatch."""
         self.cursor = 0
+        self.traces = []
         self.valid[:] = False
 
 
@@ -143,10 +157,34 @@ class ArenaPool:
             StagingArena(rows, channels, lanes, pin) for _ in range(n_arenas)]
         self._inflight: collections.deque = collections.deque()
         self.waits = 0   # times acquire had to block on the oldest dispatch
+        self._occupancy_hwm = 0   # most arenas out of the free list at once
+        # per-arena footprint, cached: it must hold even while every arena
+        # is checked out
+        self._arena_nbytes = self._free[0].nbytes
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
 
     @property
     def inflight_count(self) -> int:
         return len(self._inflight)
+
+    @property
+    def nbytes(self) -> int:
+        """Host bytes of the pool's staging buffers (page-locked on a CUDA
+        engine): free, filling and in-flight arenas stay allocated for the
+        pool's lifetime."""
+        return self.n_arenas * self._arena_nbytes
+
+    def take_occupancy_hwm(self, reset: bool = True) -> int:
+        """Most arenas out of the free pool at once since the last reset
+        (the scrape resets; peeks pass ``reset=False``)."""
+        current = self.n_arenas - len(self._free)
+        hwm = max(self._occupancy_hwm, current)
+        if reset:
+            self._occupancy_hwm = current
+        return hwm
 
     def acquire(self, timeout_s: float | None = None) -> StagingArena:
         """A fillable arena; blocks on the oldest in-flight dispatch when
@@ -157,12 +195,29 @@ class ArenaPool:
         if not self._free:
             self.waits += 1
             self._reclaim_oldest(timeout_s)
-        return self._free.pop()
+        arena = self._free.pop()
+        occupied = self.n_arenas - len(self._free)
+        if occupied > self._occupancy_hwm:
+            self._occupancy_hwm = occupied
+        return arena
 
-    def retire(self, arena: StagingArena, ticket) -> None:
+    def retire(self, arena: StagingArena, ticket, traces=()) -> None:
         """Hand a dispatched arena back; it recycles once ``ticket`` has
-        completed."""
+        completed. ``traces`` are the flight records of its batches: they
+        ride the arena while it is in flight, and the recycle, which
+        observes the ticket, stamps their ``device_ready`` at no extra
+        sync."""
+        arena.traces = list(traces)
         self._inflight.append((arena, ticket))
+
+    @staticmethod
+    def _mark_ready(traces) -> None:
+        # overwrite, like every stage mark: a batch spanning several
+        # arenas keeps its last chunk's readiness — but never after its
+        # readback, which already observed every chunk complete
+        for rec in traces:
+            if "readback" not in rec.stages:
+                rec.mark("device_ready")
 
     def _reclaim_oldest(self, timeout_s: float | None = None) -> None:
         ticket = self._inflight[0][1]
@@ -180,6 +235,7 @@ class ArenaPool:
         arena, ticket = self._inflight.popleft()
         if ticket is not None:
             ticket.synchronize()
+        self._mark_ready(arena.traces)
         arena.reset()
         self._free.append(arena)
 
@@ -190,6 +246,7 @@ class ArenaPool:
             if ticket is not None and not ticket.query():
                 return
             arena, _ = self._inflight.popleft()
+            self._mark_ready(arena.traces)
             arena.reset()
             self._free.append(arena)
 

@@ -310,6 +310,11 @@ class AnalyticsManager:
             if tid < 0:
                 job["devices"] = 0
                 return                  # unknown tenant: empty job
+        tracer = eng.tracer
+
+        def span(name, **tags):
+            return tracer.begin(name, job=job["name"], **tags)
+
         self.resync_emitted()
         # stream planner-batched rounds, newest first, keeping each
         # device's newest <= w matching rows (int64 positions keep the
@@ -328,11 +333,12 @@ class AnalyticsManager:
                 with self._mu:
                     self.jobs_cancelled += 1
                 return
-            plan_rows, _ = arch.planner.plan(
-                etype=_MEASUREMENT, tenant=tid,
-                since_ms=spec.since_ms, until_ms=spec.until_ms)
-            fresh = [(i, seg) for i, seg, _f, _hi, _cap in plan_rows
-                     if seg.path not in seen]
+            with span("analytics.plan", round=job["rounds"]):
+                plan_rows, _ = arch.planner.plan(
+                    etype=_MEASUREMENT, tenant=tid,
+                    since_ms=spec.since_ms, until_ms=spec.until_ms)
+                fresh = [(i, seg) for i, seg, _f, _hi, _cap in plan_rows
+                         if seg.path not in seen]
             if not fresh:
                 break
             # pack one round by planner decode cost (always >= 1 segment)
@@ -344,24 +350,26 @@ class AnalyticsManager:
                     break
                 round_segs.append(seg)
                 cost += seg_cost
-            parts = []
-            for seg in round_segs:
-                seen.add(seg.path)
-                cols = arch._cols_or_drop(seg, _JOB_COLUMNS)
-                if cols is None:
-                    continue        # quarantined mid-job
-                msk = cols["valid"].astype(bool) & host_filter_mask(
-                    cols, etype=_MEASUREMENT, tenant=tid,
-                    since_ms=spec.since_ms, until_ms=spec.until_ms)
-                idx = np.nonzero(msk)[0]
-                if not idx.size:
-                    continue
-                parts.append((
-                    cols["device"][idx].astype(np.int64),
-                    cols["ts_ms"][idx].astype(np.int64),
-                    seg.start + idx.astype(np.int64),
-                    cols["values"][idx].astype(np.float32),
-                    cols["vmask"][idx].astype(bool)))
+            with span("analytics.load", round=job["rounds"],
+                      segments=len(round_segs)):
+                parts = []
+                for seg in round_segs:
+                    seen.add(seg.path)
+                    cols = arch._cols_or_drop(seg, _JOB_COLUMNS)
+                    if cols is None:
+                        continue        # quarantined mid-job
+                    msk = cols["valid"].astype(bool) & host_filter_mask(
+                        cols, etype=_MEASUREMENT, tenant=tid,
+                        since_ms=spec.since_ms, until_ms=spec.until_ms)
+                    idx = np.nonzero(msk)[0]
+                    if not idx.size:
+                        continue
+                    parts.append((
+                        cols["device"][idx].astype(np.int64),
+                        cols["ts_ms"][idx].astype(np.int64),
+                        seg.start + idx.astype(np.int64),
+                        cols["values"][idx].astype(np.float32),
+                        cols["vmask"][idx].astype(bool)))
             rows = 0
             if parts:
                 r_dev = np.concatenate([r_dev] + [p[0] for p in parts])
@@ -405,7 +413,7 @@ class AnalyticsManager:
         t1 = time.monotonic()
         self._score_pass(job, devs, dev_end_ts, dev_idx,
                          (r_ts, r_vals, r_mask), m=m, w=w, c=c,
-                         min_fill=min_fill)
+                         min_fill=min_fill, span=span)
         job["score_s"] = time.monotonic() - t1
         if job["stream_s"] > 0:
             job["bytes_per_s"] = job["bytes"] / job["stream_s"]
@@ -413,7 +421,7 @@ class AnalyticsManager:
             job["devices_per_s"] = job["planned"] / job["score_s"]
 
     def _score_pass(self, job, devs, dev_end_ts, dev_idx, rows, *, m, w, c,
-                    min_fill) -> None:
+                    min_fill, span) -> None:
         """Pipelined batch scoring: prepare batch k in host staging, submit
         its copy, fill and scoring, then harvest batch k-1 (waiting on
         k-1's event only) while k runs. Fixed shapes a batch ([m*w]
@@ -462,10 +470,13 @@ class AnalyticsManager:
             return host, devs[lo:lo + m], dev_end_ts[lo:lo + m]
 
         def submit(host):
-            slot, ts, seq, vals, mask = (t.to(dev, non_blocking=True)
-                                         for t in host)
-            data, filled = fill_windows(slot, ts, seq, vals, mask, m=m, w=w)
-            scores, valid, _ = score_fn(model, data, filled, min_fill)
+            with span("analytics.transfer"):
+                slot, ts, seq, vals, mask = (t.to(dev, non_blocking=True)
+                                             for t in host)
+                data, filled = fill_windows(slot, ts, seq, vals, mask,
+                                            m=m, w=w)
+            with span("analytics.score"):
+                scores, valid, _ = score_fn(model, data, filled, min_fill)
             out_s = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=cuda)
             out_v = torch.empty(valid.shape, dtype=valid.dtype, pin_memory=cuda)
             out_s.copy_(scores, non_blocking=True)
@@ -484,7 +495,7 @@ class AnalyticsManager:
             valid = out_v.numpy()[:batch_devs.size]
             scored = int(valid.sum())
             self._emit_batch(job, batch_devs, ends, scores, valid,
-                             spec.threshold)
+                             spec.threshold, span)
             with self._mu:      # one commit: planned lands with its sinks
                 self.windows_planned += batch_devs.size
                 self.windows_scored += scored
@@ -525,7 +536,7 @@ class AnalyticsManager:
             job["state"] = "cancelled"
 
     def _emit_batch(self, job, batch_devs, ends, scores, valid,
-                    threshold) -> None:
+                    threshold, span) -> None:
         """Threshold crossings -> DeviceAlert envelopes through the normal
         ingest path, dedup-keyed a (job, device, window end). A standby
         (``active=False``) emits nothing."""
@@ -539,33 +550,34 @@ class AnalyticsManager:
         base_ms = int(eng.epoch.base_unix_s * 1000)
         by_tenant: dict[str, list[bytes]] = {}
         emitted = suppressed = 0
-        for i in hits:
-            info = eng.devices.get(int(batch_devs[i]))
-            if info is None:
-                continue
-            end_ms = int(ends[i])
-            dedup = f"{SCORE_KEY_PREFIX}{job['name']}:{info.token}:{end_ms}"
-            with self._mu:
-                if dedup in self._emitted:
-                    suppressed += 1
+        with span("analytics.emit", hits=int(hits.size)):
+            for i in hits:
+                info = eng.devices.get(int(batch_devs[i]))
+                if info is None:
                     continue
-                self._emitted.add(dedup)
-            envelope = {
-                "deviceToken": info.token, "type": "DeviceAlert",
-                "tenant": info.tenant,
-                "request": {
-                    "type": "analytics.history",
-                    "level": "Warning",
-                    "message": (f"historical anomaly score "
-                                f"{float(scores[i]):.3f} > "
-                                f"{threshold:g} (job {job['name']})"),
-                    "eventDate": base_ms + end_ms,
-                    "alternateId": dedup,
-                },
-            }
-            by_tenant.setdefault(info.tenant, []).append(
-                json.dumps(envelope, sort_keys=True).encode())
-            emitted += 1
+                end_ms = int(ends[i])
+                dedup = f"{SCORE_KEY_PREFIX}{job['name']}:{info.token}:{end_ms}"
+                with self._mu:
+                    if dedup in self._emitted:
+                        suppressed += 1
+                        continue
+                    self._emitted.add(dedup)
+                envelope = {
+                    "deviceToken": info.token, "type": "DeviceAlert",
+                    "tenant": info.tenant,
+                    "request": {
+                        "type": "analytics.history",
+                        "level": "Warning",
+                        "message": (f"historical anomaly score "
+                                    f"{float(scores[i]):.3f} > "
+                                    f"{threshold:g} (job {job['name']})"),
+                        "eventDate": base_ms + end_ms,
+                        "alternateId": dedup,
+                    },
+                }
+                by_tenant.setdefault(info.tenant, []).append(
+                    json.dumps(envelope, sort_keys=True).encode())
+                emitted += 1
         for tenant, payloads in by_tenant.items():
             eng.ingest_json_batch(payloads, tenant)
         with self._mu:

@@ -172,8 +172,12 @@ def merge_batch_state(
     last_inter = scatter_reduce_drop(
         state.last_interaction_ms, dev_safe,
         torch.where(found, ts_ms, INT32_MIN), "amax")
-    # every in-bounds row writes PRESENT, so duplicate devices agree
-    presence = scatter_drop(state.presence, dev_safe, int(PresenceState.PRESENT))
+    # every in-bounds row writes PRESENT; PRESENT is the least presence
+    # value, so a scatter-min of it gives the same state with a defined
+    # winner for duplicate devices
+    presence = scatter_reduce_drop(
+        state.presence, dev_safe,
+        torch.full_like(dev_safe, int(PresenceState.PRESENT)), "amin")
     et_safe = etype.clamp(0, NUM_EVENT_TYPES - 1)
     count_idx = torch.where(found, dev_safe * NUM_EVENT_TYPES + et_safe,
                             n * NUM_EVENT_TYPES)

@@ -32,23 +32,6 @@ from sitewhere_tpu_torch.engine import (WAL_JSON, AssignmentInfo, DeviceInfo,
                                         Engine, EngineConfig)
 from sitewhere_tpu_torch.ops.readback import absolute_cursor
 
-# config keys of features the port does not have that change what the
-# engine computes or admits, with the value that means "off": a snapshot
-# with any of them on is refused by name
-_UNPORTED = {"fair_tenancy": False, "qos": False, "autotune": False}
-
-# JAX config keys dropped on purpose: the settings of the refused switches
-# above (they do nothing while the switch is off), and the observability
-# switches — the flight recorder, the span tracer and the device watchdog
-# — which change no answer of the engine
-_DROPPED = frozenset({
-    "tenant_rates", "tenant_weights", "shed_threshold", "qos_default_rate_eps",
-    "qos_burst_s", "qos_min_retry_after_s", "autotune_interval",
-    "autotune_scan_chunk", "slo_p99_target_ms",
-    "flight_recorder", "flight_capacity", "span_trace", "span_capacity",
-    "span_sample", "span_seed", "devicewatch"})
-
-
 def _leaves(obj, prefix: str = ""):
     """(keystr path, tensor) of every tensor leaf of a state dataclass,
     in field order; None subtrees and static fields have none."""
@@ -134,14 +117,11 @@ def save_engine(engine: Engine, directory: str | pathlib.Path) -> dict:
 
 def _config_from(saved: dict) -> EngineConfig:
     """The port's EngineConfig from a snapshot's config (either package's):
-    the keys the port knows; raises on a feature the port does not have,
-    and names every other key it drops that is not dropped on purpose."""
-    on = {k: saved[k] for k, off in _UNPORTED.items()
-          if k in saved and saved[k] != off}
-    if on:
-        raise ValueError(f"snapshot uses features the port does not have: {on}")
+    every key the port knows, with its value — fair tenancy, QoS, the
+    autotuner and the observability switches included; a key it does not
+    know is named in a warning and dropped."""
     known = {f.name for f in dataclasses.fields(EngineConfig)}
-    unknown = sorted(set(saved) - known - set(_UNPORTED) - _DROPPED)
+    unknown = sorted(set(saved) - known)
     if unknown:
         logging.getLogger(__name__).warning(
             "snapshot config keys the port does not know, dropped: %s", unknown)

@@ -1,7 +1,6 @@
-"""Event conservation ledger (port of ``FlowLedger``, ``build_ledger`` and
-``check_conservation`` of ``sitewhere_tpu/utils/conservation.py``, for the
-stages a single port engine has; the background auditor and the metrics
-export are not ported).
+"""Event conservation ledger and audit plane (port of
+``sitewhere_tpu/utils/conservation.py`` for the stages a single port engine
+has).
 
 * :class:`FlowLedger` — host-side flow counters at the two boundaries the
   engine itself controls: rows staged, and valid rows dispatched to the
@@ -14,7 +13,19 @@ export are not ported).
   taken under the engine lock (reading the device counters waits for
   every dispatched step).
 * :func:`check_conservation` — a pure function evaluating the equations
-  over one snapshot; an equation whose stage is absent is skipped:
+  over one snapshot; an equation whose stage is absent is skipped.
+* :class:`ConservationAuditor` — a background thread auditing every
+  ``interval_s``; an equation escalates (counter + loud log) only when it
+  fails two audits in a row. Each audit reads device counters, which is
+  a host sync: ``stats`` counts audits, syncs and seconds the way
+  ``Engine.spool_stats`` counts the spooler's.
+* :func:`conservation_metrics` / :func:`export_conservation_metrics` /
+  :func:`conservation_payload` — the scrape and document surfaces.
+
+The equations:
+
+  edge-admission      offered == admitted + edge sheds (QoS engines;
+                      offered counts at admit() entry, independently)
 
   staging-balance     staged_rows == dispatched_rows + backlog_rows
   device-processed    dispatched_rows == device ``processed`` delta
@@ -36,12 +47,17 @@ export are not ported).
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
+import threading
 import time
 
 import numpy as np
 import torch
 
-EQUATIONS = ("staging-balance", "device-processed", "device-disposition",
+logger = logging.getLogger(__name__)
+
+EQUATIONS = ("edge-admission", "staging-balance", "device-processed", "device-disposition",
              "wal-durability", "rules-harvest", "archive-spill",
              "analytics-windows")
 
@@ -104,7 +120,7 @@ def _backlog_rows(eng) -> int:
     """Valid rows staged but not yet dispatched, field by field (the fill
     arena's failed-decode rows below the cursor never dispatch as valid).
     Caller holds the lock."""
-    n = len(eng._buf)
+    n = len(eng._buf) + eng._fair_queued
     fill = eng._arena_fill
     if fill is not None:
         n += int(np.sum(fill.valid[:fill.cursor]))
@@ -114,7 +130,9 @@ def _backlog_rows(eng) -> int:
 
 
 def _rules_stage(eng, rules_manager) -> dict | None:
-    """Device CEP counters and the manager's harvest accounting."""
+    """Device CEP counters and the manager's harvest accounting (each
+    device read below is one host sync: ``_SYNCS_RULES`` and
+    ``_SYNCS_ROLLUPS`` count them for the auditor)."""
     rs = eng.state.rules
     if rs is None or (rs.rules is None and rs.rollups is None):
         return None
@@ -143,18 +161,41 @@ def _rules_stage(eng, rules_manager) -> dict | None:
     return out
 
 
+# device reads of _rules_stage: the counter stack, the pending sum and the
+# window-id max of the rules; the window ids and the late count of the
+# rollups
+_SYNCS_RULES = 3
+_SYNCS_ROLLUPS = 2
+
+
 def build_ledger(engine, rules_manager=None) -> dict:
     """One mutually consistent flow-accounting snapshot of ``engine``.
     Reads the device counters (waiting for the dispatched steps), so it
-    belongs on an audit cadence, never in the ingest loop."""
+    belongs on an audit cadence, never in the ingest loop. ``syncs`` in
+    the result counts the device reads it made."""
     led: FlowLedger = engine.ledger
     with engine.lock:
         base = dict(led.baseline)
         m = engine.metrics()
         grid = _grid_totals(engine)
+        syncs = 2
         stages: dict = {}
+        qos = getattr(engine, "qos", None)
+        if qos is not None:
+            with qos._lock:
+                stages["edge"] = {
+                    # offered counts at admit() entry, never derived from
+                    # admitted + shed, so the equation can fail
+                    "offered": int(qos.offered_events),
+                    "admitted": int(qos.admitted_events),
+                    "shed": int(qos.shed_events),
+                    # sheds noted after admission (an arena stall): those
+                    # events were offered and admitted already
+                    "shed_noted": int(qos.shed_noted),
+                    "shed_by_tenant": dict(qos.shed_by_tenant)}
         # rows of ingest_event_batch are staged and dispatched at once
         bulk = led.value("bulk_rows")
+        syncs += "bulk_rows" in led.device
         ing = {"staged_rows": led.counters.get("staged_rows", 0) + bulk,
                "dispatched_rows": led.counters.get("dispatched_rows", 0) + bulk,
                "backlog_rows": _backlog_rows(engine),
@@ -179,6 +220,7 @@ def build_ledger(engine, rules_manager=None) -> dict:
             # spooler and its checker
             heads = engine.ring_heads()
             acap = engine.ring_arena_capacity()
+            syncs += 1
             stages["archive"] = {
                 "parts": {str(p): {"head": h, "spilled": arch.spilled(p),
                                    "capacity": acap}
@@ -190,6 +232,8 @@ def build_ledger(engine, rules_manager=None) -> dict:
         rules = _rules_stage(engine, rules_manager)
         if rules is not None:
             stages["rules"] = rules
+            syncs += (_SYNCS_RULES * ("fires" in rules)
+                      + _SYNCS_ROLLUPS * ("rollup_late" in rules))
         jobs = getattr(engine, "analytics_jobs", None)
         if jobs is not None:
             # one read under the manager lock: pre- or post-batch totals
@@ -210,7 +254,9 @@ def build_ledger(engine, rules_manager=None) -> dict:
     if "rules" in stages and "rollup_window_id" in stages["rules"]:
         watermarks["rollup_window_id"] = stages["rules"]["rollup_window_id"]
     return {"generatedMs": int(time.time() * 1000), "rank": 0,
-            "stages": stages, "watermarks": watermarks, "lag": lag}
+            "engine": getattr(engine, "metrics_label", "e?"),
+            "stages": stages, "watermarks": watermarks, "lag": lag,
+            "syncs": syncs}
 
 
 @dataclasses.dataclass
@@ -254,6 +300,22 @@ def check_conservation(ledger: dict) -> list[Violation]:
             bad("device-processed",
                 f"dispatched_rows {dispatched} != device processed "
                 f"{processed}", dispatched, processed)
+    edge = st.get("edge")
+    if edge:
+        edge_shed = edge["shed"] - edge.get("shed_noted", 0)
+        if edge["offered"] != edge["admitted"] + edge_shed:
+            bad("edge-admission",
+                f"offered {edge['offered']} != admitted "
+                f"{edge['admitted']} + edge shed {edge_shed} "
+                f"(shed total {edge['shed']} incl. "
+                f"{edge.get('shed_noted', 0)} post-admission)",
+                edge["offered"], edge["admitted"] + edge_shed,
+                slack=edge.get("shed_noted", 0))
+        by_tenant = sum(edge.get("shed_by_tenant", {}).values())
+        if by_tenant != edge["shed"]:
+            bad("edge-admission",
+                f"per-tenant sheds {by_tenant} != shed total "
+                f"{edge['shed']}", by_tenant, edge["shed"])
     if "accepted" in dev and "invalid" in dev and "processed" in dev:
         lhs = dev["accepted"] + dev["invalid"]
         if lhs != dev["processed"]:
@@ -310,4 +372,167 @@ def check_conservation(ledger: dict) -> list[Violation]:
                 f"{an.get('scored', 0)} + skipped_underfilled "
                 f"{an.get('skipped_underfilled', 0)} + cancelled "
                 f"{an.get('cancelled', 0)}", an["planned"], rhs)
+    return out
+
+
+def conservation_metrics(registry=None) -> dict:
+    """The conservation plane's registry instruments, kept out of
+    ``engine.metrics()`` (dispatch-shape equality) like every plane:
+
+      swtpu_conservation_violation_total  confirmed violations, per
+                                          equation (auditor-escalated)
+      swtpu_conservation_violations       current violation count of
+                                          the latest audit (gauge)
+      swtpu_conservation_audits_total     audit passes run (gauge,
+                                          scrape-synced)
+      swtpu_flow_rows                     ledger flow counters, labeled
+                                          by stage, per engine
+      swtpu_flow_lag                      per-stage lag derived from
+                                          the watermarks at scrape
+    """
+    from sitewhere_tpu_torch.utils.metrics import REGISTRY
+
+    reg = registry or REGISTRY
+    return {
+        "violations_total": reg.counter(
+            "swtpu_conservation_violation_total",
+            "confirmed conservation-equation violations, per equation"),
+        "violations": reg.gauge(
+            "swtpu_conservation_violations",
+            "violations in the most recent conservation audit"),
+        "audits": reg.gauge(
+            "swtpu_conservation_audits_total",
+            "conservation audit passes run"),
+        "flow": reg.gauge(
+            "swtpu_flow_rows",
+            "conservation ledger flow counters, per stage"),
+        "lag": reg.gauge(
+            "swtpu_flow_lag",
+            "per-stage lag derived from the conservation watermarks"),
+    }
+
+
+def export_conservation_metrics(engine, registry=None) -> None:
+    """Scrape-time export of the ledger's host-side counters and the
+    auditor's posture. Builds no ledger (the device reads stay on the
+    audit cadence): only the host counters and the latest verdict."""
+    eng = getattr(engine, "local", engine)
+    led = getattr(eng, "ledger", None)
+    if led is None:
+        return
+    inst = conservation_metrics(registry)
+    lbl = getattr(eng, "metrics_label", "e?")
+    flow = inst["flow"]
+    flow.set(led.counters.get("staged_rows", 0), stage="staged",
+             engine=lbl)
+    flow.set(led.counters.get("dispatched_rows", 0), stage="dispatched",
+             engine=lbl)
+    aud = getattr(eng, "conservation_auditor", None)
+    if aud is not None:
+        inst["violations"].set(len(aud.last_violations), engine=lbl)
+        inst["audits"].set(aud.audits, engine=lbl)
+        for k, v in (aud.last_ledger or {}).get("lag", {}).items():
+            inst["lag"].set(v, stage=k, engine=lbl)
+
+
+class ConservationAuditor:
+    """Background invariant checker: builds a ledger and evaluates the
+    equations every ``interval_s`` seconds. A violation escalates
+    (counter + loud structured log) only when the same equation fails two
+    consecutive audits: a counter update racing an audit can skew one
+    read, so a single imbalance is a suspect, not a verdict.
+
+    Each audit holds the engine lock while it reads the device counters,
+    as the JAX auditor does (one ``build_ledger``); ``stats`` counts the
+    audits, their device reads (host syncs) and their seconds."""
+
+    def __init__(self, engine, rules_manager=None,
+                 interval_s: float = 5.0, registry=None):
+        self.engine = engine
+        self.rules_manager = rules_manager
+        self.interval_s = float(interval_s)
+        self._registry = registry
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._suspect: set[str] = set()
+        self.audits = 0
+        self.confirmed_total = 0
+        self.last_ledger: dict | None = None
+        self.last_violations: list[dict] = []
+        self.stats = {"audits": 0, "syncs": 0, "seconds": 0.0}
+        # attach so the scrape exporter and the payload can find us
+        getattr(engine, "local", engine).conservation_auditor = self
+
+    def audit(self) -> tuple[dict, list[Violation]]:
+        """One audit pass (also the synchronous entry tests use): returns
+        (ledger, violations) and applies the two-read confirmation rule
+        to the escalation side effects."""
+        t0 = time.perf_counter()
+        ledger = build_ledger(self.engine, self.rules_manager)
+        violations = check_conservation(ledger)
+        self.stats["audits"] += 1
+        self.stats["syncs"] += ledger["syncs"]
+        self.stats["seconds"] += time.perf_counter() - t0
+        self.audits += 1
+        self.last_ledger = ledger
+        self.last_violations = [v.to_dict() for v in violations]
+        now_suspect = {v.equation for v in violations}
+        confirmed = [v for v in violations if v.equation in self._suspect]
+        self._suspect = now_suspect - {v.equation for v in confirmed}
+        if confirmed:
+            inst = conservation_metrics(self._registry)
+            for v in confirmed:
+                self.confirmed_total += 1
+                inst["violations_total"].inc(equation=v.equation)
+                logger.error(
+                    "CONSERVATION VIOLATION %s",
+                    json.dumps({"equation": v.equation,
+                                "message": v.message, "lhs": v.lhs,
+                                "rhs": v.rhs, "slack": v.slack,
+                                "rank": ledger.get("rank"),
+                                "engine": ledger.get("engine")}))
+        return ledger, violations
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.audit()
+            except Exception:
+                logger.exception("conservation audit pass failed")
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def start(self) -> None:
+        if self.running:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run,
+                                        name="swtpu-conservation",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+
+def conservation_payload(engine, rules_manager=None) -> dict:
+    """A fresh ledger + verdict, plus the background auditor's posture
+    when one is attached."""
+    ledger = build_ledger(engine, rules_manager)
+    violations = check_conservation(ledger)
+    out = {"ledger": ledger,
+           "violations": [v.to_dict() for v in violations],
+           "balanced": not violations}
+    aud = getattr(getattr(engine, "local", engine),
+                  "conservation_auditor", None)
+    if aud is not None:
+        out["auditor"] = {"audits": aud.audits,
+                          "confirmedViolations": aud.confirmed_total,
+                          "intervalS": aud.interval_s,
+                          "running": aud.running}
     return out

@@ -30,7 +30,7 @@ from sitewhere_tpu_torch.core.events import EpochBase
 from sitewhere_tpu_torch.core.types import EventType
 from sitewhere_tpu_torch.engine import Engine, EngineConfig
 from tests.test_torch_ingest_wire import BASE_MS, pinned
-from tests.torch_parity import assert_tree_equal
+from tests.torch_parity import assert_tree_equal, strip_trace
 
 SIZES = dict(device_capacity=32, token_capacity=128, assignment_capacity=64,
              store_capacity=256, batch_capacity=16, channels=4,
@@ -97,9 +97,8 @@ def _both(jeng, teng, method: str, *a, **kw):
 
 
 def _ingest(jeng, teng, payloads, tenant="default"):
-    ref = jeng.ingest_json_batch(payloads, tenant)
-    ref.pop("trace_id", None)
-    assert teng.ingest_json_batch(payloads, tenant) == ref
+    ref = strip_trace(jeng.ingest_json_batch(payloads, tenant))
+    assert strip_trace(teng.ingest_json_batch(payloads, tenant)) == ref
 
 
 def _admin_script(jeng, teng):

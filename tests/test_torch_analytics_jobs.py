@@ -222,6 +222,34 @@ def test_run_job_matches_jax(tmp_path, dtype):
     assert led["stages"]["analytics"]["planned"] == 12
 
 
+def test_job_spans_match_jax(tmp_path):
+    """A job leaves the JAX job's spans in the engine's tracer: a load span
+    a round (and a plan span a planner call), a transfer and a score span
+    a scoring batch, an emit span a batch with hits, with the same tags."""
+    jeng, teng = _engines(tmp_path)
+    pay = _stream()
+    _feed(jeng, pay)
+    _feed(teng, pay)
+    jsvc, tsvc = _services("f32")
+    spec = dict(window=W, batch_devices=5, min_fill=MIN_FILL, threshold=-1e9,
+                name="sp")
+    ref = JaxManager(jeng, service=jsvc).run_job(JaxSpec(**spec))
+    got = AnalyticsManager(teng, service=tsvc).run_job(AnalyticsJobSpec(**spec))
+
+    def spans(eng):
+        return sorted((s["name"], sorted(s["tags"].items()))
+                      for s in eng.tracer.recent(4096)
+                      if s["name"].startswith("analytics."))
+
+    assert spans(teng) == spans(jeng)
+    names = [n for n, _ in spans(teng)]
+    # the last plan finds nothing fresh and ends the stream
+    assert names.count("analytics.plan") - 1 == names.count("analytics.load") \
+        == got["rounds"] == ref["rounds"]
+    assert names.count("analytics.transfer") == names.count("analytics.score") \
+        == got["batches"] == 3
+
+
 def test_cancel_rerun_and_max_batches_match_jax(tmp_path):
     jeng, teng = _engines(tmp_path)
     pay = _stream()

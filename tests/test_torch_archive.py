@@ -38,7 +38,7 @@ from sitewhere_tpu_torch.utils.checkpoint import restore_engine
 from sitewhere_tpu_torch.utils.conservation import build_ledger, check_conservation
 from tests.test_torch_ingest_wire import BASE_MS, pinned
 from tests.test_torch_wal import PortClock
-from tests.torch_parity import assert_tree_equal
+from tests.torch_parity import assert_tree_equal, strip_trace
 
 SIZES = dict(device_capacity=64, token_capacity=256, assignment_capacity=256,
              store_capacity=128, batch_capacity=16, channels=4,
@@ -89,9 +89,8 @@ def drive(tmp_path, name: str, **kw):
     for k in range(BATCHES):
         pay = stream(k, rng)
         tenant = "t2" if k % 3 == 2 else "default"
-        ref = jeng.ingest_json_batch(pay, tenant)
-        ref.pop("trace_id", None)
-        assert teng.ingest_json_batch(pay, tenant) == ref
+        ref = strip_trace(jeng.ingest_json_batch(pay, tenant))
+        assert strip_trace(teng.ingest_json_batch(pay, tenant)) == ref
     jeng.flush()
     teng.flush()
     return jeng, teng

@@ -5,9 +5,14 @@ clocks pinned) on the arena path, the copy path, a scan chunk, a write-ahead
 log and the streaming-rules tier. After each, the port's ledger balances
 (``check_conservation`` finds nothing) and gives the JAX ledger's stage
 counts. A counter broken on purpose gives the expected violation — the
-archive-spill and analytics-windows equations included — and a recovered
-engine balances over the rows it replayed.
+archive-spill, analytics-windows and edge-admission equations included —
+and a recovered engine balances over the rows it replayed. The auditor
+thread starts, audits (escalating only a violation seen twice in a row,
+counting its device reads) and stops; the payload and the scrape export
+carry its verdict.
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -18,11 +23,17 @@ from sitewhere_tpu.utils.conservation import check_conservation as jax_check
 from sitewhere_tpu.utils.ingestlog import IngestLog as JaxLog
 from sitewhere_tpu_torch.rules import RulesManager
 from sitewhere_tpu_torch.utils.checkpoint import recover_engine, save_engine
-from sitewhere_tpu_torch.utils.conservation import (EQUATIONS, build_ledger,
-                                                    check_conservation)
+from sitewhere_tpu_torch.utils.conservation import (EQUATIONS,
+                                                    ConservationAuditor,
+                                                    build_ledger,
+                                                    check_conservation,
+                                                    conservation_payload,
+                                                    export_conservation_metrics)
+from sitewhere_tpu_torch.utils.metrics import MetricsRegistry
 from sitewhere_tpu_torch.utils.ingestlog import IngestLog
 from tests.test_torch_ingest_wire import binary_stream, engines, json_stream
 from tests.test_torch_wal import PortClock
+from tests.torch_parity import strip_trace
 
 RULES = {"name": "c", "rules": [
     {"name": "hot", "kind": "threshold", "channel": "m0", "op": ">",
@@ -46,9 +57,8 @@ def _drive(jeng, teng, wire: str, batches: int = 4, flush_each: bool = False,
     fn = "ingest_json_batch" if wire == "json" else "ingest_binary_batch"
     for k in range(batches):
         pay = make(k, rng)
-        ref = getattr(jeng, fn)(pay)
-        ref.pop("trace_id", None)
-        assert getattr(teng, fn)(pay) == ref
+        ref = strip_trace(getattr(jeng, fn)(pay))
+        assert strip_trace(getattr(teng, fn)(pay)) == ref
         if flush_each:
             jeng.flush()
             teng.flush()
@@ -213,3 +223,101 @@ def test_archive_and_analytics_equations_are_falsifiable(tmp_path, case):
     if case == "backlog_past_capacity":
         ledger["stages"]["archive"]["lost_rows"] += 10**6
         assert check_conservation(ledger) == []
+
+
+EDGE_BREAKS = {
+    "offered+1": ("offered", 1),
+    "shed+1": ("shed", 1),
+}
+
+
+@pytest.mark.parametrize("case", list(EDGE_BREAKS))
+def test_edge_admission_equation_matches_jax_and_is_falsifiable(case):
+    """A QoS engine's edge stage (offered, admitted, shed, sheds noted after
+    admission) equals the JAX engine's for the same admissions, balances,
+    and a broken counter reports ``edge-admission`` in both checkers."""
+    jeng, teng = engines(qos=True, tenant_rates={"t2": 30.0})
+    from sitewhere_tpu.utils import qos as jqos
+    from sitewhere_tpu_torch.utils import qos as tqos
+
+    for eng, mod in ((jeng, jqos), (teng, tqos)):
+        eng.qos = mod.AdmissionController(tenant_rates={"t2": 30.0}, burst_s=1.0,
+                                          clock=mod.ManualClock())
+        for n in (10, 25, 5, 40, 1):
+            eng.qos.admit("t2", n)
+            eng.qos.admit("default", n)
+        eng.qos.note_shed("t2", 4, "stall")
+    _drive(jeng, teng, "json", batches=2, flush_each=True)
+    tled, jled = build_ledger(teng), jax_build_ledger(jeng)
+    assert tled["stages"]["edge"] == jled["stages"]["edge"]
+    assert check_conservation(tled) == []
+    key, d = EDGE_BREAKS[case]
+    tled["stages"]["edge"][key] += d
+    assert {v.equation for v in check_conservation(tled)} == {"edge-admission"}
+    assert {v.equation for v in jax_check(tled)} == {"edge-admission"}
+
+
+def test_auditor_confirms_on_the_second_read_and_counts_its_syncs():
+    reg = MetricsRegistry()
+    jeng, eng = engines()
+    _drive(jeng, eng, "json", batches=2, flush_each=True)
+    aud = ConservationAuditor(eng, interval_s=60.0, registry=reg)
+    assert eng.conservation_auditor is aud
+    _, v = aud.audit()
+    assert not v and aud.audits == 1
+    # device reads of one audit: the metrics counters and the tenant grid
+    assert aud.stats["audits"] == 1 and aud.stats["syncs"] == 2
+    eng.ledger.counters["staged_rows"] += 3
+    _, v1 = aud.audit()
+    assert v1 and aud.confirmed_total == 0     # first read: a suspect
+    _, v2 = aud.audit()
+    assert v2 and aud.confirmed_total == 1     # second read: escalated
+    c = reg.counter("swtpu_conservation_violation_total")
+    assert c.value(equation="staging-balance") == 1.0
+    eng.ledger.counters["staged_rows"] -= 3
+    _, v3 = aud.audit()
+    assert not v3 and aud.confirmed_total == 1
+
+
+def test_auditor_thread_starts_audits_and_stops():
+    jeng, eng = engines()
+    _drive(jeng, eng, "json", batches=2)
+    aud = ConservationAuditor(eng, interval_s=0.01)
+    three = threading.Event()
+    audit = aud.audit
+
+    def counted():
+        out = audit()
+        if aud.audits >= 3:
+            three.set()
+        return out
+
+    aud.audit = counted
+    aud.start()
+    assert aud.running
+    aud.start()                                   # idempotent
+    assert three.wait(timeout=60)
+    aud.stop()
+    assert not aud.running and aud.confirmed_total == 0
+    assert aud.last_ledger is not None and not aud.last_violations
+
+
+def test_conservation_payload_and_flow_export():
+    jeng, eng = engines()
+    _drive(jeng, eng, "json", batches=2, flush_each=True)
+    doc = conservation_payload(eng)
+    assert doc["balanced"] and doc["violations"] == [] and "auditor" not in doc
+    staged = doc["ledger"]["stages"]["ingest"]["staged_rows"]
+    aud = ConservationAuditor(eng, interval_s=60.0)
+    aud.audit()
+    doc = conservation_payload(eng)
+    assert doc["auditor"] == {"audits": 1, "confirmedViolations": 0,
+                              "intervalS": 60.0, "running": False}
+    reg = MetricsRegistry()
+    export_conservation_metrics(eng, reg)
+    lbl = eng.metrics_label
+    g = reg.gauge("swtpu_flow_rows")
+    assert g.value(stage="staged", engine=lbl) == staged > 0
+    assert g.value(stage="dispatched", engine=lbl) == staged
+    assert reg.gauge("swtpu_conservation_audits_total").value(engine=lbl) == 1
+    assert reg.gauge("swtpu_conservation_violations").value(engine=lbl) == 0

@@ -37,7 +37,7 @@ from sitewhere_tpu_torch.core.types import EventType
 from sitewhere_tpu_torch.engine import Engine, EngineConfig
 from sitewhere_tpu_torch.pipeline import PipelineConfig, pipeline_step
 from sitewhere_tpu_torch.rules import RulesManager
-from tests.torch_parity import assert_tree_equal
+from tests.torch_parity import assert_tree_equal, strip_trace
 
 BASE_S = 1_700_000_000.0
 BASE_MS = int(BASE_S * 1000)
@@ -132,9 +132,8 @@ def driven():
             jeng.set_geofence_zones(ZONES)
             teng.set_geofence_zones(ZONES)
         tenant = "t2" if k % 4 == 3 else "default"
-        j = jeng.ingest_json_batch(payloads(k, rng_j), tenant)
-        t = teng.ingest_json_batch(payloads(k, rng_t), tenant)
-        j.pop("trace_id", None)
+        j = strip_trace(jeng.ingest_json_batch(payloads(k, rng_j), tenant))
+        t = strip_trace(teng.ingest_json_batch(payloads(k, rng_t), tenant))
         summaries.append((j, t))
         if k % 5 == 4:
             alerts.append((jmgr.poll(flush=True), tmgr.poll(flush=True)))

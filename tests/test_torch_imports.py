@@ -69,7 +69,74 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     assert int(count) >= 50
     assert {"sitewhere_tpu_torch.utils.archive", "sitewhere_tpu_torch.outbound.feed",
             "sitewhere_tpu_torch.ops.window_fill",
-            "sitewhere_tpu_torch.models.analytics"} <= set(names.split())
+            "sitewhere_tpu_torch.models.analytics",
+            # the host plane
+            "sitewhere_tpu_torch.utils.metrics", "sitewhere_tpu_torch.utils.tracing",
+            "sitewhere_tpu_torch.utils.flight", "sitewhere_tpu_torch.utils.qos",
+            "sitewhere_tpu_torch.utils.autotune", "sitewhere_tpu_torch.utils.devicewatch",
+            "sitewhere_tpu_torch.utils.conservation", "sitewhere_tpu_torch.ingest.workers",
+            "sitewhere_tpu_torch.loadgen"} <= set(names.split())
+
+
+_WORKER_PROBE = r"""
+import sys
+import threading
+
+BLOCKED = ("torch", "jax", "jaxlib", "flax", "optax", "sitewhere_tpu")
+
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"BLOCKED: the decode worker tried to import {name!r}")
+        return None
+
+sys.meta_path.insert(0, _Blocker())
+
+import multiprocessing as mp
+import numpy as np
+from multiprocessing import shared_memory
+
+from sitewhere_tpu_torch.ingest import workers
+
+# one decode job through the worker's own loop, in this torch-less process
+max_msgs, max_bytes, channels = 8, 4096, 4
+shm_in = shared_memory.SharedMemory(create=True, size=workers._HDR * 8
+                                    + (max_msgs + 1) * 8 + max_bytes)
+shm_out = shared_memory.SharedMemory(create=True,
+                                     size=workers._out_bytes(max_msgs, channels))
+parent, child = mp.Pipe()
+t = threading.Thread(target=workers._worker_main,
+                     args=(child, shm_in.name, shm_out.name, max_msgs, max_bytes,
+                           channels, 64))
+t.start()
+pay = [b'{"deviceToken": "wk-1", "type": "DeviceMeasurement",'
+       b' "request": {"name": "temp", "value": 21.5}}']
+hdr = np.ndarray((workers._HDR,), np.int64, buffer=shm_in.buf)
+offs = np.ndarray((max_msgs + 1,), np.int64, buffer=shm_in.buf, offset=workers._HDR * 8)
+data_off = workers._HDR * 8 + (max_msgs + 1) * 8
+offs[0], offs[1] = 0, len(pay[0])
+shm_in.buf[data_off:data_off + len(pay[0])] = pay[0]
+hdr[0], hdr[1] = 1, len(pay[0])
+parent.send(("decode",))
+reply = parent.recv()
+parent.send(None)
+t.join(timeout=30)
+shm_in.close(); shm_in.unlink(); shm_out.close(); shm_out.unlink()
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+print(reply[0], reply[1], reply[3], reply[4])
+sys.exit(1 if leaked or reply[:2] != ("done", 1) else 0)
+"""
+
+
+def test_decode_worker_entry_runs_with_torch_blocked():
+    """A spawned ``DecodeWorkerPool`` child imports only the worker's module
+    chain: ``_worker_main`` imports and decodes a batch in a process where
+    importing ``torch`` (or JAX, or the JAX package) raises."""
+    res = subprocess.run([sys.executable, "-c", _WORKER_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, f"{res.stdout}\n{res.stderr}"
+    assert res.stdout.split()[:3] == ["done", "1", "['wk-1']"]
 
 
 def test_entry_points_raise_without_a_gpu(tmp_path):

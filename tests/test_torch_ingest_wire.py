@@ -33,7 +33,7 @@ from sitewhere_tpu_torch.ingest.arena import ArenaPool, ArenaStallError
 from sitewhere_tpu_torch.ingest.decoders import encode_binary_request
 from sitewhere_tpu_torch.ingest.requests import DecodedRequest, RequestType
 from sitewhere_tpu_torch.loadgen import generate_measurements_message, run_engine_load
-from tests.torch_parity import assert_tree_equal
+from tests.torch_parity import assert_tree_equal, strip_trace
 
 BASE_S = 1_700_000_000.0
 BASE_MS = int(BASE_S * 1000)
@@ -160,9 +160,8 @@ def test_wire_stream_matches_jax(name, wire):
         pay = make(k, rng)
         tenant = "t2" if k == 3 else "default"
         fn = "ingest_json_batch" if wire == "json" else "ingest_binary_batch"
-        ref = getattr(jeng, fn)(pay, tenant)
-        ref.pop("trace_id", None)
-        assert getattr(teng, fn)(pay, tenant) == ref
+        ref = strip_trace(getattr(jeng, fn)(pay, tenant))
+        assert strip_trace(getattr(teng, fn)(pay, tenant)) == ref
         if k == 2:
             jeng.flush_async()
             teng.flush_async()
@@ -192,8 +191,7 @@ def test_strict_channels_reject_leaks_no_lanes(arenas):
                            "request": {"measurements": {n: 1.5 for n in names}}}).encode()
 
     ok = [meas(f"s-{i % 8}", ["a", "b"]) for i in range(40)]
-    assert teng.ingest_json_batch(ok) == {k: v for k, v in jeng.ingest_json_batch(ok).items()
-                                          if k != "trace_id"}
+    assert strip_trace(teng.ingest_json_batch(ok)) == strip_trace(jeng.ingest_json_batch(ok))
     refused = [meas("s-x", ["c", "d"])]
     with pytest.raises(JaxChannelCapacityError):
         jeng.ingest_json_batch(refused)
@@ -228,10 +226,9 @@ def test_map_device_matches_jax():
              json.dumps({"deviceToken": "child-1", "type": "MapDevice",
                          "request": {"parentToken": "ghost"}}).encode(),
              generate_measurements_message("child-2", 1)]
-    ref = jeng.ingest_json_batch(batch)
-    ref.pop("trace_id")
-    assert teng.ingest_json_batch(batch) == ref == {"decoded": 2, "failed": 1,
-                                                    "staged": 1}
+    ref = strip_trace(jeng.ingest_json_batch(batch))
+    assert strip_trace(teng.ingest_json_batch(batch)) == ref == {"decoded": 2, "failed": 1,
+                                                                 "staged": 1}
     jeng.flush()
     teng.flush()
     assert_engines_equal(jeng, teng)

@@ -198,6 +198,33 @@ def test_merge_batch_state_matches_jax(seed):
     assert bool(ts.recent_meas_valid.all(1).any())   # some ring filled
 
 
+def test_presence_write_of_many_rows_of_one_device_matches_jax():
+    """Many rows of one device in one batch (every row of it but one, and
+    rows that did not resolve) mark it PRESENT through a scatter-min with a
+    defined winner; the state equals the JAX merge's, MISSING devices
+    included."""
+    from sitewhere_tpu.core.types import PresenceState as JaxPresence
+    from sitewhere_tpu_torch.core.types import PresenceState
+
+    assert int(PresenceState.PRESENT) == min(int(v) for v in PresenceState)
+    assert int(PresenceState.PRESENT) == int(JaxPresence.PRESENT)
+    rng = np.random.default_rng(9)
+    n_dev, c, b = 6, 4, 200
+    js = JaxDeviceState.zeros(n_dev, c)
+    ts = DeviceStateStore.zeros(n_dev, c, device="cpu")
+    missing = np.full(n_dev, int(PresenceState.MISSING), np.int32)
+    js = dataclasses.replace(js, presence=jnp.asarray(missing))
+    ts = dataclasses.replace(ts, presence=torch.from_numpy(missing.copy()))
+    cols = _merge_batch(rng, b, c, n_dev)
+    cols["dev"] = np.where(np.arange(b) % 40 == 0, 4, 2).astype(np.int32)
+    cols["found"] = np.arange(b) % 7 != 3
+    cols["etype"] = np.full(b, 5, np.int32)
+    js = jwindow.merge_batch_state(js, **{k: jnp.asarray(v) for k, v in cols.items()})
+    ts = twindow.merge_batch_state(ts, **{k: torch.from_numpy(v) for k, v in cols.items()})
+    assert_tree_equal(js, ts, "presence")
+    assert ts.presence.tolist() == [1, 1, 0, 1, 0, 1]
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_append_measurements_and_snapshot_match_jax(seed):
     rng = np.random.default_rng(seed)

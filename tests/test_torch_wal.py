@@ -206,27 +206,16 @@ def test_port_recovers_a_jax_snapshot_and_the_jax_package_a_port_one(tmp_path, m
     assert_engines_equal(jrec, trec2)
 
 
-@pytest.mark.parametrize("feature", ["fair_tenancy", "qos", "autotune"])
-def test_restore_refuses_unported_features(tmp_path, feature):
-    """A snapshot with a switch on that changes what the engine computes
-    or admits, and that the port does not have, is refused by name."""
-    eng = JaxEngine(JaxEngineConfig(**SIZES))
-    jax_checkpoint.save_engine(eng, tmp_path / "snap")
-    host = json.loads((tmp_path / "snap" / "host.json").read_text())
-    host["config"][feature] = True
-    (tmp_path / "snap" / "host.json").write_text(json.dumps(host))
-    with pytest.raises(ValueError, match=feature):
-        recover_engine(tmp_path / "snap", device="cpu")
-
-
 PORTED_FEATURES = {"archive_dir": "archive", "tenant_arenas": 2,
-                   "auto_register": False, "assignment_triggers": True}
+                   "auto_register": False, "assignment_triggers": True,
+                   "fair_tenancy": True, "qos": True, "autotune": True}
 
 
 @pytest.mark.parametrize("feature", list(PORTED_FEATURES))
 def test_restore_accepts_ported_features(tmp_path, feature):
-    """``archive_dir``, ``tenant_arenas``, ``auto_register`` and
-    ``assignment_triggers`` restore with their values."""
+    """``archive_dir``, ``tenant_arenas``, ``auto_register``,
+    ``assignment_triggers``, ``fair_tenancy``, ``qos`` and ``autotune``
+    restore with their values."""
     value = PORTED_FEATURES[feature]
     if feature == "archive_dir":
         value = str(tmp_path / value)
@@ -244,13 +233,14 @@ def test_restore_accepts_ported_features(tmp_path, feature):
 
 def test_unknown_config_keys_are_named_observability_keys_are_not(tmp_path, caplog):
     """A config key the port does not know is named in a warning; the
-    observability switches and the settings of the refused switches are
-    dropped without one."""
+    observability switches restore with their values, without one."""
     eng = JaxEngine(JaxEngineConfig(**SIZES, flight_recorder=False, span_trace=False))
     jax_checkpoint.save_engine(eng, tmp_path / "snap")
     with caplog.at_level("WARNING", logger="sitewhere_tpu_torch.utils.checkpoint"):
-        recover_engine(tmp_path / "snap", device="cpu")
+        rec = recover_engine(tmp_path / "snap", device="cpu")
     assert not [r for r in caplog.records if "does not know" in r.getMessage()]
+    assert rec.config.flight_recorder is False and rec.config.span_trace is False
+    assert not rec.flight.enabled and not rec.tracer.enabled
     host = json.loads((tmp_path / "snap" / "host.json").read_text())
     host["config"]["warp_drive"] = 3
     (tmp_path / "snap" / "host.json").write_text(json.dumps(host))

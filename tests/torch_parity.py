@@ -98,3 +98,12 @@ def make_batch(rng: np.random.Generator, capacity: int, channels: int,
                 ts_ms=ts, received_ms=(ts0 + np.zeros(b)).astype(np.int32),
                 values=values, vmask=vmask, aux=aux,
                 seq=np.arange(b, dtype=np.int32))
+
+
+def strip_trace(summary: dict) -> dict:
+    """An ingest summary without its ``trace_id``, which both packages
+    return (a 32-hex id, different per engine)."""
+    out = dict(summary)
+    tid = out.pop("trace_id")
+    assert isinstance(tid, str) and len(tid) == 32, tid
+    return out
