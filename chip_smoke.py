@@ -37,7 +37,46 @@ Phases, each printed as one JSON line:
              ``AnalyticsService.score_all`` over all 8192 windows
              (window_features kernel -> normalization -> AnomalyModel, bf16).
              Kernel launch counts are reset just before and read just after.
-5. transformer — the long-window scorer at the repo's full width
+5. train   — analytics training on the slice engine's 8192 windows after
+             its 80 batches, with the service's default model (hidden 256,
+             LSTM 256, latent 32, bf16) at batch 256: (a) 16
+             ``train_on_live`` calls of one step and one of 8 steps
+             (window_features launch count reset just before and read just
+             after: one a call), every loss finite and the last below the
+             first; (b) a float32 model from the same seeded weights on the
+             card and on the CPU (a CPU copy of the windows): the gradients
+             of one loss within 1e-5 of each tensor's largest, then 3
+             ``train_on_live`` calls at batch 64 (at 256 the CPU leg took
+             ~22 s): the same batches, losses within ``rtol=1e-4,
+             atol=1e-6``, parameters within that plus what the gradient
+             tolerance becomes through each AdamW step, ``2 * lr * dg /
+             (sqrt(v) + eps)`` capped at the most one update can move a
+             parameter (a gradient below eps moves its parameter by
+             ``lr * g / eps``, so summation order alone moves such
+             elements by ~1e-5; the capped elements are counted);
+             (c) ``save_model`` then
+             ``restore_model`` into a fresh card service scores byte for
+             byte alike and takes an identical next step, and a CPU service
+             restored from the card's checkpoint scores 256 windows within
+             the tests' bf16 tolerance; (d) one iteration of ``run()``
+             injects exactly ``emit_anomaly_alerts``' tokens, each found by
+             ``query_events``; (e) the rules host runtime at the read
+             phase's width (the slice config with the bench's rules sizes,
+             zones and CEP rule set, 9 batches of the read phase's
+             stream), each leg on the card against a CPU engine fed the
+             same batches, answers and state byte for byte: on an
+             archive-backed engine, ``watch_file``, a reload of a
+             threshold tweak that changes only its parameter column and
+             fires below the old threshold, a rejected document that
+             keeps the set serving, then ``spill_rollups`` twice (the
+             history equals the closed ring windows; a respill and a
+             fresh manager spill nothing, the fresh one reads the same
+             history); ``RuleSetWatcher`` picks up a tweak and stops; an
+             owner and a passive standby whose pre- and post-promotion
+             alerts are disjoint and equal a single CPU engine's two
+             polls, the standby's state equal to that engine's. Prints ms
+             per call and per step and peak memory.
+6. transformer — the long-window scorer at the repo's full width
              (``TransformerConfig()``: 100 sensors, d_model 256, 8 heads,
              4 layers, mlp 1024, bf16): ``forecast_scores`` on 8 windows of
              16384 timesteps, seeded weights and data; every layer's
@@ -45,7 +84,7 @@ Phases, each printed as one JSON line:
              just before the timed calls, read just after: layers x calls).
              The first window's score is checked against the same model
              with the plain attention on the card.
-6. read    — the read side and the whole fused step at the slice's width:
+7. read    — the read side and the whole fused step at the slice's width:
              64 geofence zones of 16 vertices and the bench's CEP rule set
              installed, 24 slice batches (channel 0 rewritten by the bench's
              rules formula; one device falls silent halfway) through
@@ -55,7 +94,7 @@ Phases, each printed as one JSON line:
              ``presence_sweep``, ``RulesManager.poll``; every page, the
              harvest and the sweep rerun on a CPU copy of the state, and a
              CPU engine fed the first 4 batches, byte for byte.
-7. wire    — wire ingest and durability at bench.py's headline sizes
+8. wire    — wire ingest and durability at bench.py's headline sizes
              (16384-event batches, ``dispatch_depth=2``, 10,000 devices):
              (a) ``run_engine_load``'s JSON stream, 4 + 40 batches,
              through the native decoder and pinned staging arenas; (b) the
@@ -69,7 +108,7 @@ Phases, each printed as one JSON line:
              engine that never crashed; (e) the conservation ledger of
              every engine. Prints events/s, latency, host ms per batch,
              recovery seconds and peak memory on one ``wire:`` line.
-8. archive — the archive tier at the slice's headline sizes (100 channels,
+9. archive — the archive tier at the slice's headline sizes (100 channels,
              4096-row segments): 40 bulk batches over 2048 devices, 2.5x the
              ring; (a) no row lost, whole segments; (b) the planner's
              pushdown equals its full scan on the bench's filter matrix; (c)
@@ -90,7 +129,7 @@ Phases, each printed as one JSON line:
              engine's tracer: a load span a round, a transfer and a score
              span a scoring batch. Prints spool, query, feed and job figures
              on one ``archive:`` line.
-9. hostplane — the single-engine host plane at the wire phase's headline
+10. hostplane — the single-engine host plane at the wire phase's headline
              width: (a) the wire load with the flight recorder and span
              tracer on (the defaults) and off, in 3 interleaved pairs of 20
              batches: every summary carries a ``trace_id``, every record
@@ -116,9 +155,9 @@ Phases, each printed as one JSON line:
              Prints one ``hostplane:`` line.
 
 ``--profile`` adds torch.profiler breakdowns after the checks of the
-slice, read, transformer, wire, archive and hostplane phases (a few steps
-or calls each; one spool and one scoring batch of the job; three
-dispatches with the recorder on).
+slice, train, read, transformer, wire, archive and hostplane phases (a few
+steps or calls each; one ``train_on_live`` call by family; one spool and
+one scoring batch of the job; three dispatches with the recorder on).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and as the last line
@@ -129,8 +168,10 @@ that line; so does a machine without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
 import functools
+import importlib.util
 import json
 import os
 import pathlib
@@ -158,18 +199,19 @@ from sitewhere_tpu_torch.ingest.workers import DecodeWorkerPool
 from sitewhere_tpu_torch.loadgen import (batch_maker, build_open_loop_schedule,
                                          generate_measurements_message, run_engine_load,
                                          run_open_loop)
-from sitewhere_tpu_torch.models.anomaly import AnomalyConfig
+from sitewhere_tpu_torch.models.anomaly import AnomalyConfig, loss_fn
 from sitewhere_tpu_torch.models.service import AnalyticsService
 from sitewhere_tpu_torch.models.transformer import (TelemetryTransformer,
                                                     TransformerConfig,
                                                     forecast_scores)
+from sitewhere_tpu_torch.models.windows import snapshot_windows
 from sitewhere_tpu_torch.ops import attention as fa
 from sitewhere_tpu_torch.ops import window_features as wf
 from sitewhere_tpu_torch.ops.query import QueryParams, query_store, query_store_batch
 from sitewhere_tpu_torch.ops.readback import arena_cursor
 from sitewhere_tpu_torch.ops.rules import harvest_fires
 from sitewhere_tpu_torch.pipeline import make_presence_sweep
-from sitewhere_tpu_torch.rules import RulesManager
+from sitewhere_tpu_torch.rules import RuleSetWatcher, RulesManager
 from sitewhere_tpu_torch.utils.checkpoint import recover_engine, save_engine
 from sitewhere_tpu_torch.utils.conservation import (ConservationAuditor, build_ledger,
                                                     check_conservation)
@@ -177,6 +219,22 @@ from sitewhere_tpu_torch.utils.devicewatch import memory_ledger
 from sitewhere_tpu_torch.utils.flight import stage_durations
 from sitewhere_tpu_torch.utils.metrics import REGISTRY as METRICS_REGISTRY
 from sitewhere_tpu_torch.utils.metrics import export_engine_metrics
+
+
+def _repo_module(name: str, rel: str):
+    """A module of this checkout loaded by its path: an installed package
+    named ``tests`` would shadow the repo's ``tests/``, which is no package."""
+    spec = importlib.util.spec_from_file_location(name, pathlib.Path(__file__).parent / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the train phase's batch spy and one-iteration stop event, shared with the
+# parity tests (numpy only)
+_parity = _repo_module("torch_parity", "tests/torch_parity.py")
+StopAfter, spy_batches = _parity.StopAfter, _parity.spy_batches
+
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, FP32
 # (non-tensor-core) and bf16 tensor-core operations/s; exponentials/s are
@@ -899,14 +957,18 @@ def phase_slice(device, log, fails, seed: int, n_batches: int,
     emit(rec, log)
     if profile:       # after the counts were read: these launches don't count
         phase_profile(eng, svc, batches[:3], log)
-    return launches, rec["step_ms_median"]
+    return launches, rec["step_ms_median"], eng
 
 
 def _device_time(prof, n: int = 10) -> tuple[dict, float]:
     """Top entries by device time: ``kernels`` are the CUDA kernels
     themselves, ``ops`` the aten ops that launched them (the same time,
     attributed to its caller). Busy time sums the kernels only."""
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    # a record_function range shows up on the device too (a user annotation
+    # spanning its kernels): it is not a kernel, and counting it would
+    # count its kernels twice
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)]
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     ops = [e for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -958,13 +1020,19 @@ def read_zones(seed: int, n: int = READ_ZONES, v: int = READ_ZONE_VERTICES) -> l
             for (cy, cx), r in zip(centres, radii)]
 
 
-def _read_engine(device, seed: int, n_tokens: int, config: dict):
-    eng = Engine(EngineConfig(**config, **READ_RULES_CONFIG), device=device)
+def _zoned_engine(device, seed: int, n_tokens: int, config: dict, **kw) -> Engine:
+    """The read phase's engine, its zones set and no rule set yet."""
+    eng = Engine(EngineConfig(**config, **READ_RULES_CONFIG, **kw), device=device)
     eng.epoch = PinnedEpoch(1e9, now_ms=1000 * READ_BATCHES + 500)
     for t in range(n_tokens):
         eng.tokens.intern(f"dev-{t:05d}")
     eng.alert_types.intern("overheat")
     eng.set_geofence_zones(read_zones(seed), READ_ZONE_VERTICES)
+    return eng
+
+
+def _read_engine(device, seed: int, n_tokens: int, config: dict):
+    eng = _zoned_engine(device, seed, n_tokens, config)
     mgr = RulesManager(eng)
     mgr.load(RL_RULESET)
     return eng, mgr
@@ -2348,6 +2416,526 @@ def phase_profile(eng, svc, batches, log) -> None:
     eng.flush()
 
 
+# the train phase: the slice engine's 8192 windows after its 80 batches and
+# the service's default model (hidden 256, LSTM 256, latent 32, bf16)
+TRAIN_CALLS = 16
+TRAIN_LONG_STEPS = 8
+TRAIN_BATCH = 256
+TRAIN_PARITY_CALLS = 3
+TRAIN_PARITY_BATCH = 64      # the CPU leg's batch: at 256 it took ~22 s on the GPU machine
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-6)    # card vs CPU, float32: losses, parameters
+GRAD_F32_TOL = 1e-5          # card vs CPU gradients: of each tensor's largest (the tests')
+SCORE_BF16_TOL = dict(rtol=1e-2, atol=1e-3)   # card vs CPU scores, bf16 (the tests')
+TRAIN_CPU_SCORED = 256       # windows the CPU scores after restoring the card's checkpoint
+TRAIN_ALERT_SHARE = 0.02     # share of the windows the loop's threshold lets through
+# (e): the read phase's engine (the slice config at the bench's rules sizes,
+# its zones and the bench's CEP rule set) fed the read phase's stream; the
+# stream's 1 s batches fill 2 s rollup windows 0..4
+RT_BATCHES = 9
+RT_SPILL_AFTER = 7          # the first spill: windows 0..3 live, 0..2 closed
+RT_LIMIT = 1 << 16          # rollup listings: past every (group, window) of the ring
+RT_TWEAKED = {**RL_RULESET, "rules": [dict(RL_RULESET["rules"][0], value=55.0),
+                                      *RL_RULESET["rules"][1:]]}
+RT_BAD_DOC = '{"rules": [{"name": "x", "kind": "window", "agg": "count", ' \
+    '"channel": "temp", "op": "<", "value": 1, "windowMs": 1000}]}'
+
+
+def _cpu_view(eng, m: int | None = None):
+    """An engine stand-in for an ``AnalyticsService`` on the CPU: the
+    card engine's config, devices and a CPU copy of its windows (the first
+    ``m`` devices' when given)."""
+    from types import SimpleNamespace
+
+    wins = _to_device(eng.state.windows, torch.device("cpu"))
+    if m is not None:
+        wins = dataclasses.replace(wins, data=wins.data[:m], cursor=wins.cursor[:m],
+                                   filled=wins.filled[:m])
+    return SimpleNamespace(config=eng.config, device=torch.device("cpu"),
+                           devices=eng.devices, state=SimpleNamespace(windows=wins))
+
+
+def _timed(device, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _adam_step_bound(step: int, beta1: float, beta2: float) -> float:
+    """The largest ``|m_hat| / sqrt(v_hat)`` that any gradient sequence
+    gives at Adam step ``step`` (Cauchy-Schwarz over the two moving
+    averages): 1.0 at step 1, 1.004 at step 3. Times ``lr`` it is the most
+    one AdamW update moves a parameter, weight decay aside."""
+    r = beta1 * beta1 / beta2
+    return ((1 - beta1) / (1 - beta1 ** step) * sum(r ** i for i in range(step)) ** 0.5
+            / ((1 - beta2) / (1 - beta2 ** step)) ** 0.5)
+
+
+def _adam_slack(host, grad_tol: dict) -> dict:
+    """What a gradient difference of ``grad_tol[name]`` can move each
+    parameter in the AdamW step ``host`` just took: the update is
+    ``lr * m / (sqrt(v) + eps)`` (bias-corrected), so to first order a
+    gradient error ``dg`` moves it by at most ``2 * lr * dg / (sqrt(v) +
+    eps)`` (once through ``m``, once through ``v``). Below Adam's eps that
+    is ``lr * dg / eps``: summation order alone (~1e-10 at full width)
+    moves such a parameter by ~1e-5 a step. The slack is capped at the
+    most one update can move a parameter (:func:`_adam_step_bound`); the
+    weight decay term is the same on both sides to ``rtol``. Returns
+    ``{name: (slack, capped)}``, ``capped`` the elements held to the cap."""
+    group = host.opt.param_groups[0]
+    lr, eps, (beta1, beta2) = group["lr"], group["eps"], group["betas"]
+    out = {}
+    for k, b in host.model.named_parameters():
+        st = host.opt.state[b]
+        step = int(st["step"])
+        v_hat = st["exp_avg_sq"] / (1 - beta2 ** step)
+        raw = 2 * lr * grad_tol[k] / (v_hat.sqrt() + eps)
+        cap = lr * _adam_step_bound(step, beta1, beta2)
+        out[k] = (raw.clamp(max=cap), raw > cap)
+    return out
+
+
+def _params_vs_cpu(card, host, slack: dict, capped: dict) -> dict:
+    """The card service's parameters against the CPU service's: each
+    element within ``TRAIN_TOL`` plus its accumulated Adam slack. Returns
+    how many elements needed the slack, how many of those had it capped,
+    how many elements were capped at all, how many exceed their slack, and
+    the largest difference."""
+    out = {"slack_elements": 0, "slack_elements_capped": 0, "capped_elements": 0,
+           "beyond": 0, "max_abs_diff": 0.0}
+    for (k, a), b in zip(card.model.named_parameters(), host.model.parameters()):
+        diff = (a.detach().cpu() - b.detach()).abs()
+        base = TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * b.detach().abs()
+        out["slack_elements"] += int((diff > base).sum())
+        out["slack_elements_capped"] += int(((diff > base) & capped[k]).sum())
+        out["capped_elements"] += int(capped[k].sum())
+        out["beyond"] += int((diff > base + slack[k]).sum())
+        out["max_abs_diff"] = max(out["max_abs_diff"], float(diff.max()))
+    return out
+
+
+def phase_train(device, log, fails, seed: int, eng, calls: int = TRAIN_CALLS,
+                long_steps: int = TRAIN_LONG_STEPS, batch: int = TRAIN_BATCH,
+                parity_batch: int = TRAIN_PARITY_BATCH,
+                cpu_scored: int = TRAIN_CPU_SCORED, rules_config: dict = SLICE_CONFIG,
+                rules_tokens: int = SLICE_TOKENS, profile: bool = False) -> dict:
+    """Analytics training on the slice engine's windows: (a) ``calls``
+    ``train_on_live`` calls of one step and one of ``long_steps`` at the
+    service's default width, one window_features launch a call; (b) a
+    float32 model trained on the card and on the CPU from the same seeded
+    weights and windows, picks, losses and parameters held together; (c)
+    the checkpoint round trip on the card and onto the CPU; (d) one
+    iteration of the background loop, its alerts found by ``query_events``;
+    (e) the rules host runtime on the card at the read phase's width
+    against CPU engines fed the same batches. Returns the kernel's
+    launches on the training path."""
+    t_phase = time.perf_counter()
+    threads = sorted(t.name for t in threading.enumerate())   # left by earlier phases
+    cpu = torch.device("cpu")
+    svc = AnalyticsService(eng, seed=seed)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    # (a) training on the card
+    wf.window_features.launches = 0                # the training path starts here
+    losses, call_ms = [], []
+    for _ in range(calls):
+        loss, ms = _timed(device, lambda: svc.train_on_live(batch_size=batch, steps=1))
+        losses.append(loss)
+        call_ms.append(ms)
+    long_loss, long_ms = _timed(device, lambda: svc.train_on_live(batch_size=batch,
+                                                                  steps=long_steps))
+    launches = {"window_features": wf.window_features.launches}    # ... ends here
+    losses.append(long_loss)
+    peak_gb = (torch.cuda.max_memory_allocated() / 2**30
+               if device.type == "cuda" else None)
+    fails.check(launches["window_features"] == calls + 1,
+                f"train: {launches['window_features']} window_features launches in "
+                f"{calls + 1} train_on_live calls")
+    fails.check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"train: losses not finite or not falling: {losses}")
+    call_med = statistics.median(call_ms)
+    rec = {"phase": "train", "model": dataclasses.asdict(svc.cfg) | {"dtype": str(svc.cfg.dtype)},
+           "windows": int(eng.config.analytics_devices), "batch": batch,
+           "calls": calls + 1, "launches": launches,
+           "ms_per_call_median": call_med, "ms_first_call": call_ms[0],
+           "ms_call_of_long": long_ms, "long_steps": long_steps,
+           "ms_per_step": (long_ms - call_med) / (long_steps - 1),
+           "losses": losses, "peak_mem_gb": peak_gb, "threads_at_start": threads}
+
+    # (b) card against CPU, float32, the same seeded weights and windows:
+    # the gradients of one loss, then training
+    cfg32 = dataclasses.replace(svc.cfg, dtype=torch.float32)
+    card32 = AnalyticsService(eng, cfg32, seed=seed + 1)
+    cpu32 = AnalyticsService(_cpu_view(eng), cfg32, seed=seed + 1)
+    data = snapshot_windows(cpu32.engine.state.windows)[:parity_batch]
+    x = wf.normalize_windows(data, wf.window_features_reference(data))
+    loss_fn(card32.model, x.to(device)).backward()
+    loss_fn(cpu32.model, x).backward()
+    grad_tol, grad_err = {}, {}
+    for (k, a), b in zip(card32.model.named_parameters(), cpu32.model.parameters()):
+        grad_tol[k] = GRAD_F32_TOL * float(b.grad.abs().max())
+        grad_err[k] = float((a.grad.cpu() - b.grad).abs().max())
+    fails.check(all(grad_err[k] <= grad_tol[k] for k in grad_tol),
+                "train: card vs CPU float32 gradients beyond 1e-5 of each tensor's "
+                f"largest: { {k: grad_err[k] / grad_tol[k] for k in grad_tol} }")
+    for m in (card32.model, cpu32.model):
+        m.zero_grad(set_to_none=True)
+    seen_card, seen_cpu = spy_batches(card32), spy_batches(cpu32)
+    pair_losses, cpu_ms = [], []
+    slack, capped = {k: 0.0 for k in grad_tol}, {k: False for k in grad_tol}
+    for _ in range(TRAIN_PARITY_CALLS):
+        lc = card32.train_on_live(batch_size=parity_batch, steps=1)
+        lh, ms = _timed(cpu, lambda: cpu32.train_on_live(batch_size=parity_batch, steps=1))
+        pair_losses.append((lc, lh))
+        cpu_ms.append(ms)
+        for k, (s, c) in _adam_slack(cpu32, grad_tol).items():
+            slack[k], capped[k] = slack[k] + s, capped[k] | c
+    picks_equal = all(np.allclose(a, b, **TRAIN_TOL) for a, b in zip(seen_card, seen_cpu))
+    fails.check(len(seen_card) == len(seen_cpu) == TRAIN_PARITY_CALLS and picks_equal,
+                "train: card and CPU services trained on different batches")
+    fails.check(all(np.isclose(lc, lh, **TRAIN_TOL) for lc, lh in pair_losses),
+                f"train: card vs CPU float32 losses {pair_losses}")
+    params = _params_vs_cpu(card32, cpu32, slack, capped)
+    fails.check(params["beyond"] == 0,
+                f"train: card vs CPU float32 parameters beyond rtol=1e-4, atol=1e-6 "
+                f"plus Adam's gain on the gradient tolerance, capped at one update: {params}")
+    rec["float32_vs_cpu"] = {"losses": pair_losses, "cpu_ms_per_call": cpu_ms,
+                             "batch": parity_batch,
+                             "grad_err_over_tol": max(grad_err[k] / grad_tol[k]
+                                                      for k in grad_tol)} | params
+    del card32, cpu32, seen_card, seen_cpu
+
+    # (c) the checkpoint: card -> card byte for byte, card -> CPU within bf16
+    with tempfile.TemporaryDirectory(prefix="train-") as tmp:
+        ckpt = pathlib.Path(tmp) / "ckpt"
+        svc.save_model(ckpt)
+        back = AnalyticsService(eng, seed=seed + 2)
+        back.restore_model(ckpt)
+        s_orig = svc.score_all(update_stats=False)["scores"]
+        s_back = back.score_all(update_stats=False)["scores"]
+        fails.check(np.array_equal(s_orig, s_back),
+                    "train: restored card service scores differ from the original")
+        l_orig = svc.train_on_live(batch_size=batch, steps=1)
+        l_back = back.train_on_live(batch_size=batch, steps=1)
+        same = l_orig == l_back and all(
+            torch.equal(a, b) for a, b in zip(svc.model.state_dict().values(),
+                                              back.model.state_dict().values()))
+        fails.check(same, f"train: the restored service's next step differs "
+                          f"({l_orig} vs {l_back})")
+        on_cpu = AnalyticsService(_cpu_view(eng, cpu_scored), seed=seed + 3)
+        on_cpu.restore_model(ckpt)
+        s_cpu = on_cpu.score_all(update_stats=False)["scores"]
+        ref = s_back[:cpu_scored]
+        fails.check(np.allclose(s_cpu, ref, **SCORE_BF16_TOL),
+                    "train: the card checkpoint restored on the CPU scores beyond "
+                    f"rtol=1e-2, atol=1e-3 (max rel {np.max(np.abs(s_cpu - ref) / np.abs(ref))})")
+        rec["checkpoint"] = {"bytes": (ckpt / "model" / "state.pt").stat().st_size,
+                             "cpu_max_rel_err": float(np.max(np.abs(s_cpu - ref) / np.abs(ref)))}
+        del back, on_cpu
+
+    # (d) one iteration of the background loop, after two scoring passes
+    # have seeded the running statistics; the threshold is the z-score that
+    # ~2 % of the windows crossed in the second
+    svc.score_all()
+    z = svc.score_all()["zscores"]
+    svc.threshold = float(np.quantile(z, 1 - TRAIN_ALERT_SHARE))
+    scored, inner_score = [], svc.score_all
+    svc.score_all = lambda **kw: scored.append(inner_score(**kw)) or scored[-1]
+    sent, inner_process = [], eng.process
+    eng.process = lambda req: sent.append(req.device_token) or inner_process(req)
+    try:
+        asyncio.run(svc.run(interval_s=0.0, stop_event=StopAfter()))
+    finally:
+        del svc.score_all, eng.process
+    tokens = scored[0]["anomalous_tokens"] if scored else None
+    found = sum(any(r.get("alertType") == "analytics.anomaly" for r in
+                    eng.query_events(device_token=tok, etype=EventType.ALERT,
+                                     limit=64)["events"])
+                for tok in sent)
+    fails.check(tokens is not None and len(tokens) > 0 and sent == tokens
+                and found == len(tokens),
+                f"train: the loop injected {len(sent)} alerts for "
+                f"{None if tokens is None else len(tokens)} anomalous tokens, "
+                f"{found} found by query_events")
+    rec["loop"] = {"alerts": len(sent), "found": found}
+
+    # (e) the rules host runtime on the card against a CPU engine
+    rec["rules_runtime"] = _train_rules_runtime(device, fails, seed, rules_config,
+                                                rules_tokens)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec, log)
+    print(f"train: {call_med:.3f} ms a train_on_live call (median of {calls}, batch "
+          f"{batch}), {rec['ms_per_step']:.3f} ms a step, {launches['window_features']} "
+          f"window_features launches in {calls + 1} calls, loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}, peak {peak_gb} GiB; float32 card/CPU: gradients at "
+          f"{rec['float32_vs_cpu']['grad_err_over_tol']:.3g} of their tolerance, "
+          f"{rec['float32_vs_cpu']['slack_elements']} parameters past rtol=1e-4, "
+          f"atol=1e-6 within Adam's slack ({rec['float32_vs_cpu']['slack_elements_capped']} "
+          f"of them at its one-update cap, {rec['float32_vs_cpu']['capped_elements']} capped "
+          f"in all), max diff "
+          f"{rec['float32_vs_cpu']['max_abs_diff']:.3g}; "
+          f"{rec['seconds']:.1f} s", flush=True)
+    if profile:       # after the counts were read: these launches don't count
+        phase_profile_train(svc, batch, log)
+    return launches
+
+
+def _rt_touch(path: pathlib.Path, text: str) -> None:
+    """Rewrite a watched file with its mtime 2 s on, so a reload sees the
+    change whatever the file system's mtime resolution."""
+    mtime = path.stat().st_mtime
+    path.write_text(text)
+    os.utime(path, (mtime + 2, mtime + 2))
+
+
+def _rt_feed(eng, columns) -> None:
+    for c in columns:
+        eng.ingest_event_batch(EventBatch.from_numpy(eng.device, **c))
+    eng.flush()
+
+
+def _host_leaves(state) -> dict:
+    return {k: v.cpu() for k, v in _state_leaves(state)}
+
+
+def _rt_reload_spill(device, seed: int, columns: list, tmp: pathlib.Path,
+                     config: dict, n_tokens: int) -> tuple[dict, dict, tuple]:
+    """Hot reload and the rollup spill on one archive-backed engine:
+    ``watch_file`` of the bench's rule set, 3 batches, a reload that moves
+    "hot" from 90 to 55 (only its parameter column may change), 2 batches,
+    a rejected document, 2 batches, a spill (windows 0..2 of 0..3 closed),
+    2 batches, a spill of the window closed since, a respill, and a fresh
+    manager that spills nothing and reads the same history. Returns what
+    the engine answered, its state, and its manager and file for the
+    watcher."""
+    tmp.mkdir()
+    eng = _zoned_engine(device, seed, n_tokens, config, archive_dir=str(tmp / "archive"))
+    mgr = RulesManager(eng)
+    path = tmp / "rules.json"
+    path.write_text(json.dumps(RL_RULESET))
+    out = {"preserved_at_install": mgr.watch_file(path)["preservedState"]}
+    _rt_feed(eng, columns[:3])
+    polls = [mgr.poll()]
+    before = _host_leaves(eng.state.rules)
+    _rt_touch(path, json.dumps(RT_TWEAKED))
+    out["reloads"] = [mgr.check_reload(), mgr.check_reload()]
+    out["changed_by_tweak"] = sorted(k for k, v in _host_leaves(eng.state.rules).items()
+                                     if not torch.equal(v, before[k]))
+    _rt_feed(eng, columns[3:5])
+    polls.append(mgr.poll())
+    _rt_touch(path, RT_BAD_DOC)
+    try:
+        mgr.check_reload()
+        out["rejected"] = False
+    except ValueError:
+        out["rejected"] = True
+    out["reload_errors"] = mgr.reload_errors
+    out["serving"] = mgr.ruleset.doc["rules"][0]["value"]
+    _rt_feed(eng, columns[5:RT_SPILL_AFTER])
+    polls.append(mgr.poll())
+    rollup = RL_RULESET["rollups"][0]["name"]
+    out["spills"] = [mgr.spill_rollups(lag=1)]
+    _rt_feed(eng, columns[RT_SPILL_AFTER:])
+    polls.append(mgr.poll())
+    out["live"] = mgr.read_rollup(rollup, limit=RT_LIMIT)["buckets"]
+    out["spills"] += [mgr.spill_rollups(lag=1), mgr.spill_rollups(lag=1)]
+    out["history"] = mgr.read_rollup_history(rollup, limit=RT_LIMIT)["buckets"]
+    out["polls"] = polls
+    state = _host_leaves(eng.state)
+    fresh = RulesManager(eng)
+    fresh.load(RT_TWEAKED)
+    out["spills"].append(fresh.spill_rollups(lag=1))
+    out["fresh_history"] = fresh.read_rollup_history(rollup, limit=RT_LIMIT)["buckets"]
+    return out, state, (mgr, path)
+
+
+def _rt_watch(mgr, path: pathlib.Path) -> dict:
+    """``RuleSetWatcher`` over a serving manager: ``start()`` installs the
+    file, the thread picks up a tweak, ``stop()`` joins it."""
+    _rt_touch(path, json.dumps(RL_RULESET))
+    swaps = mgr.swaps
+    watcher = RuleSetWatcher(mgr, path, interval_s=0.05)
+    watcher.start()
+    thread = watcher._thread
+    _rt_touch(path, json.dumps(RT_TWEAKED))
+    deadline = time.monotonic() + 5.0
+    while mgr.swaps < swaps + 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    swapped = mgr.swaps - swaps
+    watcher.stop()
+    return {"thread": thread.name, "swaps": swapped, "stopped": not thread.is_alive(),
+            "serving": mgr.ruleset.doc["rules"][0]["value"]}
+
+
+def _rt_standby(device, seed: int, columns: list, config: dict,
+                n_tokens: int) -> tuple[list, list, list, dict]:
+    """An owner and a passive standby fed the same batches, the owner's
+    emitted alerts forwarded to the standby: the owner polls halfway and
+    dies, the standby polls passively at the end, promotes and polls."""
+    owner, standby = (_zoned_engine(device, seed, n_tokens, config) for _ in range(2))
+    omgr, smgr = RulesManager(owner), RulesManager(standby, active=False)
+    omgr.load(RL_RULESET)
+    smgr.load(RL_RULESET)
+    inner = owner.ingest_json_batch
+
+    def forwarding(payloads, tenant="default", **kw):
+        res = inner(payloads, tenant, **kw)
+        standby.ingest_json_batch(list(payloads), tenant)
+        return res
+
+    owner.ingest_json_batch = forwarding
+    half = len(columns) // 2
+    for eng in (owner, standby):
+        _rt_feed(eng, columns[:half])
+    pre = omgr.poll()
+    for eng in (owner, standby):
+        _rt_feed(eng, columns[half:])
+    passive = smgr.poll()
+    smgr.promote()
+    post = smgr.poll()
+    standby.flush()
+    return pre, post, passive, _host_leaves(standby.state)
+
+
+def _rt_single(device, seed: int, columns: list, config: dict,
+               n_tokens: int) -> tuple[list, list, dict]:
+    """One engine on the standby pair's stream, polling where the owner
+    did and where the promoted standby did."""
+    eng = _zoned_engine(device, seed, n_tokens, config)
+    mgr = RulesManager(eng)
+    mgr.load(RL_RULESET)
+    half = len(columns) // 2
+    _rt_feed(eng, columns[:half])
+    first = mgr.poll()
+    _rt_feed(eng, columns[half:])
+    last = mgr.poll()
+    eng.flush()
+    return first, last, _host_leaves(eng.state)
+
+
+def _leaves_differ(a: dict, b: dict) -> list[str]:
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def _bucket_rows(buckets) -> list[tuple]:
+    return sorted((b["group"], b["windowStartMs"], b["count"], b["sum"], b["min"],
+                   b["max"]) for b in buckets)
+
+
+def _train_rules_runtime(device, fails, seed: int, config: dict = SLICE_CONFIG,
+                         n_tokens: int = SLICE_TOKENS, n_batches: int = RT_BATCHES) -> dict:
+    """(e) of the train phase: the rules host runtime at the read phase's
+    width (the slice config, the bench's rules sizes, zones and rule set,
+    the read phase's stream), each leg on the card against a CPU engine fed
+    the same batches, byte for byte: hot reload and the rollup spill on an
+    archive-backed engine, the watcher, and standby promotion."""
+    cpu = torch.device("cpu")
+    columns, _ = read_columns(seed, n_batches, config, n_tokens)
+    out = {"batches": n_batches, "rule_groups": READ_RULES_CONFIG["rule_groups"],
+           "rollup_buckets": READ_RULES_CONFIG["rollup_buckets"]}
+    with tempfile.TemporaryDirectory(prefix="rules-") as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        card, card_state, (mgr, path) = _rt_reload_spill(device, seed, columns, tmp / "card",
+                                                         config, n_tokens)
+        out["card_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host, host_state, _ = _rt_reload_spill(cpu, seed, columns, tmp / "cpu", config,
+                                               n_tokens)
+        out["cpu_s"] = time.perf_counter() - t0
+        differ = _leaves_differ(card_state, host_state)
+        del card_state, host_state
+        fails.check(card == host and not differ,
+                    f"train: rules reload and spill on the card differ from the CPU "
+                    f"engine's: state leaves {differ}, answers equal {card == host}")
+        polls = card["polls"]
+        hot_below = [sum(a["rule"] == "hot" and a["value"] < 90.0 for a in p) for p in polls]
+        fails.check(card["preserved_at_install"] is False and card["reloads"] == [True, False]
+                    and card["changed_by_tweak"] == ["rules.val_a"]
+                    and hot_below[0] == 0 and hot_below[1] > 0
+                    and card["rejected"] and card["reload_errors"] == 1
+                    and card["serving"] == 55.0 and all(hot_below[1:]),
+                    f"train: hot reload on the card: reloads {card['reloads']}, changed "
+                    f"{card['changed_by_tweak']}, hot fires below 90 by poll {hot_below}, "
+                    f"rejected {card['rejected']}, serving {card['serving']}")
+        newest = max(b["windowStartMs"] for b in card["live"])
+        window = RL_RULESET["rollups"][0]["windowMs"]
+        closed = _bucket_rows(b for b in card["live"] if b["windowStartMs"] <= newest - window)
+        hist = _bucket_rows(card["history"])
+        spilled = [s["spilled"] for s in card["spills"]]
+        fails.check(hist and hist == closed and spilled[0] > 0 and spilled[1] > 0
+                    and spilled[0] + spilled[1] == len(hist) and spilled[2:] == [0, 0]
+                    and card["fresh_history"] == card["history"],
+                    f"train: rollup spill on the card: spilled {spilled}, history "
+                    f"{len(hist)} rows against {len(closed)} closed ring windows, a fresh "
+                    f"manager reads {len(card['fresh_history'])}")
+        out |= {"alerts_by_poll": [len(p) for p in polls], "hot_below_90_by_poll": hot_below,
+                "spilled": spilled, "history_rows": len(hist),
+                "live_windows": len(card["live"])}
+        del card, host
+        watch = _rt_watch(mgr, path)
+        fails.check(watch["thread"] == "swtpu-rules-watch" and watch["swaps"] == 2
+                    and watch["stopped"] and watch["serving"] == 55.0,
+                    f"train: the rules watcher on the card: {watch}")
+        out["watcher"] = watch
+        del mgr
+    t0 = time.perf_counter()
+    pre, post, passive, standby_state = _rt_standby(device, seed, columns, config,
+                                                    n_tokens)
+    out["standby_card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    first, last, single_state = _rt_single(cpu, seed, columns, config, n_tokens)
+    out["single_cpu_s"] = time.perf_counter() - t0
+    keys = [{a["alternateId"] for a in x} for x in (pre, post, first, last)]
+    differ = _leaves_differ(standby_state, single_state)
+    fails.check(keys[0] and keys[1] and not keys[0] & keys[1] and passive == []
+                and keys[0] | keys[1] == keys[2] | keys[3] and pre == first and post == last
+                and not differ,
+                f"train: standby promotion on the card: {len(keys[0])} + {len(keys[1])} "
+                f"keys, {len(keys[0] & keys[1])} shared, union equal to a CPU engine's "
+                f"{len(keys[2] | keys[3])}: {keys[0] | keys[1] == keys[2] | keys[3]}; "
+                f"state leaves differing from it {differ}")
+    out["standby_keys"] = [len(keys[0]), len(keys[1])]
+    return out
+
+
+def phase_profile_train(svc, batch: int, log) -> None:
+    """torch.profiler over one ``train_on_live(steps=1)`` call: device time
+    by family (B1, the rest of the feature pass, forward, backward,
+    optimizer, other) and the device's busy share of the wall time. The
+    backward runs on autograd's device thread, outside the ``record_function``
+    ranges of the call, so it is read from that thread's top-level events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        svc.train_on_live(batch_size=batch, steps=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    top, busy_ms = _device_time(prof)
+    families = {"features": 0.0, "forward": 0.0, "backward": 0.0, "optimizer": 0.0,
+                "other": 0.0}
+    ranges = {"analytics.features": "features", "anomaly.forward": "forward",
+              "anomaly.backward": "backward", "anomaly.optimizer": "optimizer"}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or e.cpu_parent is not None:
+            continue
+        fam = ranges.get(e.name, "backward" if e.name.startswith("autograd::engine")
+                         else "other")
+        families[fam] += e.device_time_total / 1e3
+    b1 = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "window_features" in e.key) / 1e3
+    emit({"phase": "profile", "what": "train_on_live", "calls": 1, "batch": batch,
+          "wall_ms_per_call": wall_ms, "device_ms_per_call": busy_ms,
+          "device_busy_share": busy_ms / wall_ms, "device_ms_b1": b1,
+          "device_ms_by_family": families, "top": top}, log)
+
+
 def phase_transformer(device, log, fails, seed: int, cfg: TransformerConfig = TF_CONFIG,
                       windows: int = TF_WINDOWS, steps: int = TF_STEPS,
                       calls: int = TF_CALLS, profile: bool = False) -> dict:
@@ -2448,7 +3036,8 @@ def main(argv=None) -> int:
                     help="also write every phase record to this JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="after the checks, profile a few steps (without and with zones "
-                         "and rules), one scoring call, one transformer call, three "
+                         "and rules), one scoring call, one train_on_live call, one "
+                         "transformer call, three "
                          "wire-ingest dispatches, one spool and one scoring batch of an "
                          "archive job, and three dispatches with the recorder on")
     args = ap.parse_args(argv)
@@ -2473,17 +3062,20 @@ def main(argv=None) -> int:
     timing = {"window_features": phase_kernel_window_features(device, log, fails),
               "flash_attention": phase_kernel_flash(device, log, fails)}
     phase_entry(device, log, fails)
-    launches, slice_step_ms = phase_slice(device, log, fails, args.seed, SLICE_BATCHES,
-                                          profile=args.profile)
+    launches, slice_step_ms, slice_eng = phase_slice(device, log, fails, args.seed,
+                                                     SLICE_BATCHES, profile=args.profile)
+    train = phase_train(device, log, fails, args.seed, slice_eng, profile=args.profile)
+    del slice_eng
     launches = launches | phase_transformer(device, log, fails, args.seed,
                                             profile=args.profile)
     phase_read(device, log, fails, args.seed, slice_step_ms, profile=args.profile)
     phase_wire(device, log, fails, args.seed, profile=args.profile)
     archive = phase_archive(device, log, fails, args.seed, profile=args.profile)
     phase_hostplane(device, log, fails, args.seed, profile=args.profile)
-    # window_features runs on two paths: the live scoring of the slice and
-    # the archive's analytics job
+    # window_features runs on three paths: the live scoring of the slice,
+    # training on the live windows and the archive's analytics job
     by_path = {"window_features": {"slice": launches["window_features"],
+                                   "train": train["window_features"],
                                    "archive": archive["launches"]},
                "flash_attention": {"transformer": launches["flash_attention"]}}
     timing["window_features"]["at_archive_job_shape"] = {

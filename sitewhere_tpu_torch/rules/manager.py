@@ -12,11 +12,20 @@ The manager owns the active rule set of one engine:
   ``swr:<rule>:<group>:<key>`` (rule + group + window). Alerts go out as
   ordinary DeviceAlert JSON envelopes through ``ingest_json_batch`` —
   persisted and queryable — with the key as the event's ``alternateId``.
-  Every emitted alert interns its alternate id, so the engine's event-id
-  interner doubles as the key registry: ``resync_emitted()`` scans it so
-  nothing is emitted twice.
+  Every emitted or applied alert interns its alternate id, so the
+  engine's event-id interner doubles as the key registry:
+  ``resync_emitted()`` scans it so replay and standby promotion emit
+  exactly the fires the previous owner never got out, and nothing twice.
 
-The file watcher, the rollup archive and standby emission are not ported.
+* **leader-only emission** — a standby (``active=False``) runs the same
+  rule set over the same stream, but its pending fires are never
+  harvested; ``promote()`` flips ``active`` and the next poll drains what
+  the old owner left, suppressed against the applied keys.
+
+Around it: mtime hot reload (``watch_file``, ``check_reload``,
+``RuleSetWatcher``) and the rollup retention tier (``spill_rollups``
+ages closed windows into an ``EventArchive`` under ``<archive>/rollups``,
+``read_rollup_history`` reads them back).
 """
 
 from __future__ import annotations
@@ -24,12 +33,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import pathlib
 import threading
+from types import SimpleNamespace
 
 import numpy as np
 
 from sitewhere_tpu_torch.ops.rules import KIND_ABSENCE
-from sitewhere_tpu_torch.rules.model import RuleSet
+from sitewhere_tpu_torch.rules.model import RuleSet, RuleSetError
 
 logger = logging.getLogger(__name__)
 
@@ -39,8 +50,11 @@ ALERT_KEY_PREFIX = "swr:"
 class RulesManager:
     """Rule-set lifecycle + alert emission for one engine."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, active: bool = True):
+        from sitewhere_tpu_torch.utils.metrics import rules_metrics
+
         self.engine = engine
+        self.active = active          # leader emits; standbys observe
         self.ruleset: RuleSet | None = None
         self.meta: list = []
         self.rollup_meta: list = []
@@ -48,7 +62,10 @@ class RulesManager:
         #                               state swaps take the engine lock
         self._emitted: set[str] = set()
         self._scan_pos = 0            # event-id interner resync cursor
+        self._path: pathlib.Path | None = None
+        self._mtime: float | None = None
         self.swaps = 0
+        self.reload_errors = 0
         self.alerts_emitted = 0
         self.alerts_suppressed = 0
         # every harvested fire lands in exactly one sink: emitted,
@@ -56,6 +73,12 @@ class RulesManager:
         # group token)
         self.fires_harvested = 0
         self.harvest_skipped = 0
+        # closed [P, G, NB] rollup windows age out to columnar segments
+        # under <archive>/rollups
+        self._rollup_arch = None
+        self.rollup_windows_spilled = 0
+        self.rollup_spill_calls = 0
+        self._inst = rules_metrics()
 
     # ----------------------------------------------------------- install
     def load(self, doc) -> dict:
@@ -76,6 +99,7 @@ class RulesManager:
             self.meta = meta
             self.rollup_meta = ro_meta
             self.swaps += 1
+        self._inst["swaps"].inc()
         summary = {"name": ruleset.name, "rules": len(meta),
                    "rollups": len(ro_meta), "preservedState": preserve,
                    "precompiled": False}
@@ -89,6 +113,44 @@ class RulesManager:
             self.ruleset = None
             self.meta = []
             self.rollup_meta = []
+
+    # -------------------------------------------------------- hot reload
+    def watch_file(self, path) -> dict:
+        """Load ``path`` now and arm mtime-based hot reload for it."""
+        p = pathlib.Path(path)
+        summary = self.load(json.loads(p.read_text()))
+        with self._mu:
+            self._path = p
+            self._mtime = p.stat().st_mtime
+        return summary
+
+    def check_reload(self) -> bool:
+        """Reload the watched file if its mtime changed. The mtime only
+        advances after a successful swap, so a torn write retries on the
+        next tick; a bad document raises, is counted, and the active set
+        keeps serving. Returns True when a reload ran."""
+        with self._mu:
+            path, mtime = self._path, self._mtime
+        if path is None:
+            return False
+        try:
+            now_mtime = path.stat().st_mtime
+        except OSError:
+            return False
+        if mtime is not None and now_mtime == mtime:
+            return False
+        try:
+            self.load(json.loads(path.read_text()))
+        except (RuleSetError, ValueError, OSError) as e:
+            with self._mu:
+                self.reload_errors += 1
+            self._inst["reload_errors"].inc()
+            logger.error("rule-set reload of %s rejected (keeping the "
+                         "active set): %s", path, e)
+            raise
+        with self._mu:
+            self._mtime = now_mtime
+        return True
 
     # ---------------------------------------------------------- emission
     def resync_emitted(self) -> int:
@@ -107,13 +169,24 @@ class RulesManager:
             self._scan_pos = n
         return added
 
+    def promote(self) -> int:
+        """Standby -> owner: enable emission and resync the dedup keys
+        from the applied stream. The next ``poll()`` emits exactly the
+        fires the old owner never shipped."""
+        self.active = True
+        return self.resync_emitted()
+
     def poll(self, flush: bool = False) -> list[dict]:
         """Harvest pending fires and emit their alert events through the
-        normal ingest pipeline. Returns the alerts emitted."""
+        normal ingest pipeline. An inactive (standby) manager only
+        resyncs: its pending fires stay on the device for promotion.
+        Returns the alerts emitted."""
         eng = self.engine
         if flush:
             eng.flush()
         self.resync_emitted()
+        if not self.active:
+            return []
         out = eng.poll_rule_fires()
         if out is None:
             return []
@@ -152,6 +225,7 @@ class RulesManager:
             with self._mu:
                 if dedup in self._emitted:
                     suppressed += 1
+                    self._inst["suppressed"].inc()
                     continue
                 self._emitted.add(dedup)
             alerts.append(self._format_alert(m, group_tok, g, key, val,
@@ -164,6 +238,7 @@ class RulesManager:
             self.alerts_suppressed += suppressed
             self.alerts_emitted += len(alerts)
         if alerts:
+            self._inst["alerts"].inc(len(alerts))
             eng.host_counters["rule_alerts"] = \
                 eng.host_counters.get("rule_alerts", 0) + len(alerts)
         return alerts
@@ -219,12 +294,15 @@ class RulesManager:
             rs = self.ruleset
             out = {
                 "ruleSet": rs.name if rs else None,
-                "rules": [dataclasses.asdict(m) for m in self.meta],
-                "rollups": [dataclasses.asdict(m) for m in self.rollup_meta],
+                "rules": [dataclass_dict(m) for m in self.meta],
+                "rollups": [dataclass_dict(m) for m in self.rollup_meta],
+                "active": self.active,
                 "swaps": self.swaps,
+                "reloadErrors": self.reload_errors,
                 "alertsEmitted": self.alerts_emitted,
                 "alertsSuppressed": self.alerts_suppressed,
                 "dedupKeys": len(self._emitted),
+                "watchedFile": str(self._path) if self._path else None,
             }
         out.update(counters)
         return out
@@ -283,3 +361,186 @@ class RulesManager:
         interner = eng.areas if scope == "area" else eng.tenants
         gid = interner.lookup(token)
         return gid if gid >= 0 else None
+
+    # ----------------------------------------------------- rollup spill
+    def rollup_archive(self):
+        """The rollup retention tier: a second :class:`EventArchive` under
+        ``<archive dir>/rollups`` (made on first use; partition = rollup
+        index; segment size and compression follow the main archive).
+        ``None`` without a main archive: spill is then a no-op and
+        dashboards read the ring only."""
+        arch = self.engine.archive
+        if arch is None:
+            return None
+        if self._rollup_arch is None:
+            from sitewhere_tpu_torch.utils.archive import EventArchive
+
+            self._rollup_arch = EventArchive(
+                arch.dir / "rollups", segment_rows=arch.segment_rows,
+                cache_segments=2, compress=arch.compress)
+        return self._rollup_arch
+
+    def spill_rollups(self, lag: int = 1) -> dict:
+        """Age closed rollup windows out of the device-resident
+        ``[P, G, NB]`` rings into the rollup archive. A window is closed
+        once the rollup's newest live window id exceeds it by ``lag``.
+        Idempotent: each rollup's spill watermark is recovered from the
+        segments' ``aux0`` (= window id) zone maps, so a respill or a
+        fresh manager writes nothing twice. One archive row per non-empty
+        closed (group, window): device = group id, assignment = rollup
+        index, ts_ms = window start (relative ms, the ``windowStartMs``
+        domain), received_ms = window end, value lanes = [count, sum,
+        min, max], aux = [window id, bucket]."""
+        eng = self.engine
+        ra = self.rollup_archive()
+        out = {"spilled": 0, "rollups": 0}
+        if ra is None:
+            return out
+        with self._mu:
+            metas = list(self.rollup_meta)
+            self.rollup_spill_calls += 1
+        c = int(eng.config.channels)
+        nlan = min(4, c)
+        for p, m in enumerate(metas):
+            with eng.lock:
+                eng._sync_mirrors()
+                rs = eng.state.rules
+                if rs is None or rs.rollups is None:
+                    break
+                wid, cnt, vsum, vmin, vmax = eng._rollup_tables(p)
+            live = cnt > 0
+            if not live.any():
+                continue
+            newest = int(wid[live].max())
+            mark = max((s.stats["z"]["aux0"][1] for s in ra.segments
+                        if s.part == p and s.stats
+                        and "aux0" in s.stats.get("z", {})), default=-1)
+            gs, bs = np.nonzero(live & (wid <= newest - lag) & (wid > mark))
+            if not gs.size:
+                continue
+            w_sel = wid[gs, bs]
+            order = np.lexsort((gs, w_sel))
+            gs, bs, w_sel = gs[order], bs[order], w_sel[order]
+            n = gs.size
+            vals = np.zeros((n, c), np.float32)
+            stats_rows = np.stack([cnt[gs, bs], vsum[gs, bs],
+                                   vmin[gs, bs], vmax[gs, bs]], axis=1)
+            vals[:, :nlan] = stats_rows[:, :nlan]
+            vmask = np.zeros((n, c), bool)
+            vmask[:, :nlan] = True
+            tenant = np.zeros(n, np.int64)
+            if m.scope == "tenant":
+                tenant[:] = gs
+            elif m.scope == "device":
+                for i, g in enumerate(gs):      # cold path, small n
+                    info = eng.devices.get(int(g))
+                    if info is not None:
+                        tenant[i] = max(eng.tenants.lookup(info.tenant), 0)
+            sl = SimpleNamespace(
+                etype=np.zeros(n, np.int64),    # MEASUREMENT
+                device=gs.astype(np.int64),
+                assignment=np.full(n, p, np.int64),
+                tenant=tenant,
+                area=gs.astype(np.int64) if m.scope == "area"
+                else np.full(n, -1, np.int64),
+                customer=np.full(n, -1, np.int64),
+                asset=np.full(n, -1, np.int64),
+                ts_ms=w_sel.astype(np.int64) * m.window_ms,
+                received_ms=(w_sel.astype(np.int64) + 1) * m.window_ms,
+                values=vals, vmask=vmask,
+                aux=np.stack([w_sel.astype(np.int64), bs.astype(np.int64)],
+                             axis=1),
+                valid=np.ones(n, bool))
+            ra.append_segment(p, ra.spilled(p), sl)
+            out["spilled"] += n
+            out["rollups"] += 1
+        with self._mu:
+            self.rollup_windows_spilled += out["spilled"]
+        if out["spilled"]:
+            eng.host_counters["rollup_windows_spilled"] = \
+                eng.host_counters.get("rollup_windows_spilled", 0) \
+                + out["spilled"]
+        return out
+
+    def read_rollup_history(self, name: str, group: str | None = None,
+                            since_ms: int | None = None,
+                            until_ms: int | None = None,
+                            limit: int = 100) -> dict:
+        """Serve one rollup's spilled windows from the rollup archive
+        through the pushdown query path (zone maps prune by time, blooms
+        by group); :meth:`read_rollup` serves the ring's hot tail."""
+        eng = self.engine
+        with self._mu:
+            metas = list(self.rollup_meta)
+        p = next((i for i, m in enumerate(metas) if m.name == name), None)
+        if p is None:
+            raise KeyError(f"rollup {name!r} not found")
+        m = metas[p]
+        base = {"rollup": name, "windowMs": m.window_ms, "scope": m.scope,
+                "channel": m.channel, "buckets": []}
+        ra = self.rollup_archive()
+        if ra is None:
+            return base
+        gid = None
+        if group is not None:
+            gid = self._group_id(m.scope, group)
+            if gid is None:
+                return base
+        _total, rows = ra.query(assignment=p, device=gid, since_ms=since_ms,
+                                until_ms=until_ms, limit=limit)
+        nlan = min(4, int(eng.config.channels))
+        for r in rows:
+            v = np.asarray(r["values"], np.float64)
+            stats = [float(v[i]) if i < nlan else 0.0 for i in range(4)]
+            base["buckets"].append({
+                "group": self._group_token(m.scope, int(r["device"]))
+                or int(r["device"]),
+                "windowStartMs": int(r["ts_ms"]),
+                "count": int(stats[0]), "sum": stats[1],
+                "min": stats[2], "max": stats[3],
+            })
+        return base
+
+
+def dataclass_dict(m) -> dict:
+    return dataclasses.asdict(m)
+
+
+class RuleSetWatcher:
+    """Background mtime poll driving ``check_reload`` + ``poll`` — the
+    plain-file analog of a watched rule deployment (a thread, because the
+    engine API is synchronous)."""
+
+    def __init__(self, manager: RulesManager, path, interval_s: float = 1.0,
+                 poll_alerts: bool = True):
+        self.manager = manager
+        self.path = path
+        self.interval_s = interval_s
+        self.poll_alerts = poll_alerts
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> None:
+        self.manager.watch_file(self.path)
+
+        def run():
+            while not self._stop.wait(self.interval_s):
+                try:
+                    self.manager.check_reload()
+                except Exception:
+                    pass               # counted + logged by the manager
+                if self.poll_alerts:
+                    try:
+                        self.manager.poll()
+                    except Exception:
+                        logger.exception("rule poll failed")
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="swtpu-rules-watch")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None

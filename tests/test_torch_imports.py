@@ -78,6 +78,78 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
             "sitewhere_tpu_torch.loadgen"} <= set(names.split())
 
 
+_TRAIN_PROBE = r"""
+import json
+import math
+import pathlib
+import sys
+import tempfile
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sitewhere_tpu")
+
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"BLOCKED: the port tried to import {name!r}")
+        return None
+
+sys.meta_path.insert(0, _Blocker())
+
+import torch
+
+from sitewhere_tpu_torch.convert import adamw_state_from_optax
+from sitewhere_tpu_torch.engine import Engine, EngineConfig
+from sitewhere_tpu_torch.ingest.requests import DecodedRequest, RequestType
+from sitewhere_tpu_torch.models.anomaly import (AnomalyConfig, AnomalyModel, adamw,
+                                                loss_fn, make_train_step)
+from sitewhere_tpu_torch.models.service import AnalyticsService
+from sitewhere_tpu_torch.rules import RuleSetWatcher, RulesManager
+
+eng = Engine(EngineConfig(device_capacity=16, token_capacity=32, assignment_capacity=32,
+                          store_capacity=256, batch_capacity=16, channels=4,
+                          analytics_devices=8, analytics_window=4, use_native=False),
+             device="cpu")
+for t in range(6):
+    for d in range(4):
+        eng.process(DecodedRequest(type=RequestType.DEVICE_MEASUREMENT,
+                                   device_token=f"d{d}",
+                                   measurements={"a": float(t * d), "b": float(t)}))
+eng.flush()
+cfg = AnomalyConfig(sensors=4, window=4, hidden=8, lstm_hidden=8, latent=2)
+svc = AnalyticsService(eng, cfg)
+loss = svc.train_on_live(batch_size=4, steps=2)
+tmp = pathlib.Path(tempfile.mkdtemp())
+svc.save_model(tmp / "ckpt")
+back = AnalyticsService(eng, cfg, seed=1)
+back.restore_model(tmp / "ckpt")
+same = all(torch.equal(back.model.state_dict()[k], v)
+           for k, v in svc.model.state_dict().items())
+mgr = RulesManager(eng, active=False)
+rules = tmp / "rules.json"
+rules.write_text(json.dumps({"name": "r", "rules": [
+    {"name": "hot", "kind": "threshold", "channel": "a", "op": ">", "value": 9.0}]}))
+w = RuleSetWatcher(mgr, rules, interval_s=0.01)
+w.start()
+w.stop()
+mgr.promote()
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+print(math.isfinite(loss), same, mgr.active, mgr.spill_rollups(), leaked)
+sys.exit(0 if math.isfinite(loss) and same and mgr.active and not leaked else 1)
+"""
+
+
+def test_training_and_rules_runtime_run_with_jax_blocked():
+    """Training, the checkpoint, standby promotion, the watcher and the
+    rollup spill run in a process where importing ``jax``, ``optax``,
+    ``flax``, ``orbax`` or the JAX package raises."""
+    res = subprocess.run([sys.executable, "-c", _TRAIN_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, f"{res.stdout}\n{res.stderr}"
+    assert res.stdout.split() == ["True", "True", "True", "{'spilled':", "0,",
+                                  "'rollups':", "0}", "[]"]
+
+
 _WORKER_PROBE = r"""
 import sys
 import threading

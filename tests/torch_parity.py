@@ -107,3 +107,56 @@ def strip_trace(summary: dict) -> dict:
     tid = out.pop("trace_id")
     assert isinstance(tid, str) and len(tid) == 32, tid
     return out
+
+
+def analytics_stream(seed: int, n_full: int, n_short: int, window: int,
+                     channels: int, outlier: int | None = None) -> list[dict]:
+    """Measurement requests (keyword dicts for ``DecodedRequest``, each
+    side builds its own) that fill the telemetry windows of devices
+    ``an-0 .. an-{n_full-1}`` with ``window + 3`` seeded samples and give
+    ``n_short`` more devices fewer than ``window`` (never eligible for
+    training or scoring at ``min_fill=window``). Channel ``k`` is the
+    measurement ``m{k}``: a per-device sinusoid plus noise; device
+    ``outlier`` (if given) reads white noise instead, which no model
+    fitted to the others forecasts."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for t in range(window + 3):
+        for d in range(n_full + n_short):
+            if d >= n_full and t >= window // 2:
+                continue
+            vals = np.sin(t / 3 + d + np.arange(channels)) + \
+                0.1 * rng.standard_normal(channels)
+            if d == outlier:
+                vals = 3.0 * rng.standard_normal(channels)
+            rows.append(dict(device_token=f"an-{d}",
+                             measurements={f"m{k}": float(v)
+                                           for k, v in enumerate(vals)},
+                             event_ts_ms=1_700_000_000_000 + 1000 * t + d))
+    return rows
+
+
+def spy_batches(svc) -> list[np.ndarray]:
+    """Every batch an ``AnalyticsService``'s train step is handed (either
+    package: the batch is the step's last argument), copied to numpy."""
+    seen, inner = [], svc._train
+
+    def spy(*args):
+        seen.append(to_np(args[-1]).copy())
+        return inner(*args)
+
+    svc._train = spy
+    return seen
+
+
+class StopAfter:
+    """A stop event for ``AnalyticsService.run`` that lets exactly
+    ``iterations`` iterations through."""
+
+    def __init__(self, iterations: int = 1):
+        self.iterations = iterations
+        self.calls = 0
+
+    def is_set(self) -> bool:
+        self.calls += 1
+        return self.calls > self.iterations
