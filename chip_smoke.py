@@ -7,7 +7,9 @@ Phases, each printed as one JSON line:
 
 1. build   — compiles every CUDA kernel of the port from ``csrc/`` with
              nvcc (all sources at once) and loads it.
-2. kernel  — one record per kernel: holds it against its plain PyTorch
+2. kernel  — one record per kernel (window_features; flash_attention;
+             flash_attention_backward, whose record also checks the
+             forward's log-sum-exp): holds it against its plain PyTorch
              version on the card at its main path's shapes and edge
              shapes, and times kernel, plain version, the one PyTorch call
              that computes the same function where there is one
@@ -84,7 +86,25 @@ Phases, each printed as one JSON line:
              just before the timed calls, read just after: layers x calls).
              The first window's score is checked against the same model
              with the plain attention on the card.
-7. read    — the read side and the whole fused step at the slice's width:
+7. transformer_train — training that model at the same width on the
+             same 8 x 16384 shape, AdamW (optax's decay) at lr 1e-3: (a) one
+             warm-up and 5 timed ``make_train_step`` steps on one seeded
+             batch, the forward and backward attention launch counts reset
+             just before and read just after (layers x steps each), losses
+             finite and falling, every parameter's gradient finite and
+             non-zero, ms a step, peak memory and the busy share of one
+             profiled step; (b) one step's gradients through the kernels
+             against the plain attention's autograd on 2 x 4096, each within
+             2e-2 of its largest element; (c) a float32 model from the same
+             seed on the card (float32 kernels) and the CPU on 2 x 1024, one
+             Adam step: loss, gradients within 1e-4 of each one's largest,
+             parameters within ``rtol=1e-4, atol=1e-6`` plus the gradient
+             tolerance through Adam, capped at one update (as the train
+             phase); (d) ``forecast_scores_sp`` and
+             ``ring_attention_sharded`` in a one-rank NCCL group against the
+             single-device path (one card cannot show the ring across
+             ranks; 4 gloo ranks in the CPU tests do).
+8. read    — the read side and the whole fused step at the slice's width:
              64 geofence zones of 16 vertices and the bench's CEP rule set
              installed, 24 slice batches (channel 0 rewritten by the bench's
              rules formula; one device falls silent halfway) through
@@ -94,7 +114,7 @@ Phases, each printed as one JSON line:
              ``presence_sweep``, ``RulesManager.poll``; every page, the
              harvest and the sweep rerun on a CPU copy of the state, and a
              CPU engine fed the first 4 batches, byte for byte.
-8. wire    — wire ingest and durability at bench.py's headline sizes
+9. wire    — wire ingest and durability at bench.py's headline sizes
              (16384-event batches, ``dispatch_depth=2``, 10,000 devices):
              (a) ``run_engine_load``'s JSON stream, 4 + 40 batches,
              through the native decoder and pinned staging arenas; (b) the
@@ -108,7 +128,7 @@ Phases, each printed as one JSON line:
              engine that never crashed; (e) the conservation ledger of
              every engine. Prints events/s, latency, host ms per batch,
              recovery seconds and peak memory on one ``wire:`` line.
-9. archive — the archive tier at the slice's headline sizes (100 channels,
+10. archive — the archive tier at the slice's headline sizes (100 channels,
              4096-row segments): 40 bulk batches over 2048 devices, 2.5x the
              ring; (a) no row lost, whole segments; (b) the planner's
              pushdown equals its full scan on the bench's filter matrix; (c)
@@ -129,7 +149,7 @@ Phases, each printed as one JSON line:
              engine's tracer: a load span a round, a transfer and a score
              span a scoring batch. Prints spool, query, feed and job figures
              on one ``archive:`` line.
-10. hostplane — the single-engine host plane at the wire phase's headline
+11. hostplane — the single-engine host plane at the wire phase's headline
              width: (a) the wire load with the flight recorder and span
              tracer on (the defaults) and off, in 3 interleaved pairs of 20
              batches: every summary carries a ``trace_id``, every record
@@ -155,7 +175,9 @@ Phases, each printed as one JSON line:
              Prints one ``hostplane:`` line.
 
 ``--profile`` adds torch.profiler breakdowns after the checks of the
-slice, train, read, transformer, wire, archive and hostplane phases (a few
+slice, train, read, transformer, transformer_train (one step by kernel
+family: attention forward and backward, GEMMs, LayerNorm / gelu,
+optimizer), wire, archive and hostplane phases (a few
 steps or calls each; one ``train_on_live`` call by family; one spool and
 one scoring batch of the job; three dispatches with the recorder on).
 
@@ -173,6 +195,7 @@ import dataclasses
 import functools
 import importlib.util
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -251,6 +274,18 @@ SCORE_TOL = 1e-4           # rtol, CUDA engine vs CPU engine scores, float32
 # math in another order; bf16 outputs may land one bf16 ulp apart (8e-3
 # is one ulp at 1.0), P entering the P·V product rounded to bf16 included
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+# the backward kernel vs its plain version, each row (one position of one
+# head) of each gradient within this share of that row's largest element
+# (fa.gradient_row_shares; sized by tests/test_torch_attention.py's CPU
+# emulation of the bf16 kernel: <= 8.7e-3 a row up to S = 2048, one bf16
+# ulp of the row's largest element and a little more), so that a wrong
+# or zeroed row anywhere fails however small the causal tail's rows are;
+# GRAD_ATOL comes off only on the rows whose exact gradient is 0 (S = 1,
+# and dq's row 0 under a causal mask: only float32 rounding of dP - delta
+# is left there); the lse against the plain log-sum-exp
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+GRAD_ATOL = 1e-5
+LSE_TOL = 1e-4
 TF_SCORE_RTOL = 1e-2       # kernel path vs plain path scores, bf16 model
 
 # the headline engine sizes of bench.py plus BASELINE config #4's model
@@ -297,7 +332,14 @@ KERNELS = [dict(name="window_features", route="cuda",
                 replaces="sitewhere_tpu/ops/window_features.py:40"),
            dict(name="flash_attention", route="cuda",
                 source="sitewhere_tpu_torch/csrc/flash_attention.cu",
-                replaces="sitewhere_tpu/ops/attention.py:66")]
+                replaces="sitewhere_tpu/ops/attention.py:66"),
+           # no Pallas kernel: the gradient jax.value_and_grad takes at
+           # models/transformer.py:153 of the oracle ops/attention.py:40
+           dict(name="flash_attention_backward", route="cuda",
+                source="sitewhere_tpu_torch/csrc/flash_attention_bwd.cu",
+                replaces="sitewhere_tpu/models/transformer.py:153",
+                replaces_note="no pl.pallas_call: jax.value_and_grad of "
+                              "sitewhere_tpu/ops/attention.py:40 mha_reference")]
 
 # the transformer phase: the repo's TransformerConfig() at full width on 8
 # windows of 16384 timesteps (its attention is [8, 16384, 8, 32] bf16)
@@ -386,6 +428,21 @@ def flash_floors_ms(b: int, s: int, h: int, d: int, causal: bool,
             "exponentials": pairs / PEAK_EXP_PER_S * 1e3}
 
 
+def flash_backward_floors_ms(b: int, s: int, h: int, d: int, causal: bool,
+                             dtype: torch.dtype) -> dict:
+    """The floors of the attention backward on [B, S, H, D], in ms: bytes
+    (q, k, v, o, dO read once, dq, dk, dv written once, lse read once),
+    products (five a live pair: S, dP, dV, dK, dQ, 10·D operations, 2.5x
+    the forward's) and exponentials (one a live pair). The bound is the
+    largest."""
+    item = torch.finfo(dtype).bits // 8
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    return {"bytes": (8 * b * s * h * d * item + 4 * b * h * s) / PEAK_BYTES_PER_S * 1e3,
+            "products": 10 * d * pairs / peak * 1e3,
+            "exponentials": pairs / PEAK_EXP_PER_S * 1e3}
+
+
 def fused_qkv(b: int, s: int, h: int, d: int, dtype, device, gen):
     """q, k, v as the transformer hands them to the attention: the three
     strided views of one [B, S, 3, H, D] tensor."""
@@ -404,9 +461,10 @@ def plain_per_window(q, k, v, causal: bool, sm_scale: float | None = None) -> to
 # ------------------------------------------------------------------ phases
 def phase_build(log, fails) -> None:
     t0 = time.perf_counter()
-    info = cuda_build.build([k["name"] for k in KERNELS])
-    for k in KERNELS:
-        cuda_build.load(k["name"])
+    libs = [pathlib.Path(k["source"]).stem for k in KERNELS]
+    info = cuda_build.build(libs)
+    for lib in libs:
+        cuda_build.load(lib)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {"nvcc_s": v["seconds"],
                              "ptxas": [ln.strip() for ln in v["ptxas"].splitlines()
@@ -543,6 +601,143 @@ def phase_kernel_flash(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 8, 32),
     return dict(max_abs_err=errs["main"], ms=t["ms"], plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                 library_ms=t["library_ms"])
+
+
+def plain_backward_per_window(q, k, v, o, do, lse, causal: bool,
+                              sm_scale: float | None = None) -> tuple:
+    """The plain backward one window at a time: at S = 16384 a window's P,
+    dP and dS are 8.6 GB each in float32."""
+    parts = [fa.mha_backward_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1], o[i:i + 1],
+                                       do[i:i + 1], lse[i:i + 1], causal=causal,
+                                       sm_scale=sm_scale) for i in range(q.shape[0])]
+    return tuple(torch.cat(g) for g in zip(*parts))
+
+
+def lse_per_window(q, k, causal: bool, sm_scale: float | None = None) -> torch.Tensor:
+    return torch.cat([fa.lse_reference(q[i:i + 1], k[i:i + 1], causal=causal,
+                                       sm_scale=sm_scale) for i in range(q.shape[0])])
+
+
+def phase_kernel_flash_backward(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 8, 32),
+                                mid_steps: int = FLASH_MID_STEPS, reps: int = 10) -> dict:
+    """flash_attention_backward (and the forward's ``lse``) against
+    mha_backward_reference (and lse_reference): at the training shape
+    ([8, 16384, 8, 32] bf16 causal, strided views of one fused qkv tensor;
+    the plain versions one window at a time), at [8, 4096, 8, 32] causal
+    and not in bf16 and float32, at S = 1, a ragged S, the tiles' edges (S
+    = 63, 64, 65, 129, causal and not), D = 16 and 64 in bf16 and float32,
+    and with a zero and a negative ``sm_scale``. Each row of each gradient
+    within GRAD_TOL of that row's largest element (GRAD_ATOL off on the
+    rows whose exact gradient is 0), the lse within LSE_TOL. Times the
+    kernel (one backward call: delta pass, dK/dV, dQ), the plain backward
+    and the library yardstick: SDPA forward+backward (``torch.autograd.grad``
+    of its output for dO, so no ``.grad`` accumulates) minus SDPA's forward
+    alone with grad enabled (the forward that saves the log-sum-exp), at
+    the main shape and at S = 4096 in bf16 and float32."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    b, s, h, d = main
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {"main": (fused_qkv(b, s, h, d, bf16, device, gen), True, None)}
+    for dt in (bf16, f32):
+        for causal in (True, False):
+            name = f"s{mid_steps}_{'causal' if causal else 'full'}_{'bf16' if dt == bf16 else 'f32'}"
+            cases[name] = (fused_qkv(b, mid_steps, h, d, dt, device, gen), causal, None)
+    cases |= {
+        "s1": (fused_qkv(2, 1, h, d, bf16, device, gen), True, None),
+        "s1_full_f32": (fused_qkv(2, 1, h, d, f32, device, gen), False, None),
+        "ragged_s1000": (fused_qkv(2, 1000, h, d, bf16, device, gen), True, None),
+        "ragged_s1000_full_f32": (fused_qkv(2, 1000, h, d, f32, device, gen), False, None),
+        "d64_bf16": (fused_qkv(2, 777, 4, 64, bf16, device, gen), True, None),
+        "d64_bf16_full": (fused_qkv(2, 777, 4, 64, bf16, device, gen), False, None),
+        "d64_f32": (fused_qkv(2, 777, 4, 64, f32, device, gen), True, None),
+        "d16_bf16": (fused_qkv(2, 300, 2, 16, bf16, device, gen), True, None),
+        "d16_f32": (fused_qkv(2, 300, 2, 16, f32, device, gen), False, None),
+        **{f"s{n}_{'causal' if c else 'full'}": (fused_qkv(2, n, h, d, bf16, device, gen), c, None)
+           for n in (63, 64, 65, 129) for c in (True, False)},
+        **{f"scale{sc:g}_{'causal' if c else 'full'}_{'bf16' if dt == bf16 else 'f32'}":
+           (fused_qkv(2, 333, h, d, dt, device, gen), c, sc)
+           for sc in (0.0, -0.3) for c in (True, False) for dt in (bf16, f32)},
+    }
+    errs, lse_errs, saved = {}, {}, {}
+    for name, ((q, k, v), causal, scale) in cases.items():
+        do = torch.randn(q.shape, device=device, generator=gen).to(q.dtype)
+        o, lse = fa.flash_attention_forward(q, k, v, causal=causal, sm_scale=scale)
+        got = fa.flash_attention_backward(q, k, v, o, do, lse, causal=causal, sm_scale=scale)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ref_lse = lse_per_window(q, k, causal, scale)
+        lse_errs[name] = (lse - ref_lse).abs().max().item()
+        fails.check(torch.allclose(lse, ref_lse, rtol=LSE_TOL, atol=LSE_TOL),
+                    f"flash_attention lse disagrees with lse_reference on {name}: "
+                    f"max abs err {lse_errs[name]}")
+        del ref_lse
+        ref = plain_backward_per_window(q, k, v, o, do, lse, causal, scale)
+        errs[name] = {}
+        for t, g, r in zip("qkv", got, ref):
+            ok = (g.shape == r.shape and g.dtype == r.dtype and g.is_contiguous()
+                  and bool(torch.isfinite(g.float()).all()))
+            shares = fa.gradient_row_shares(g, r, f"d{t}", causal=causal, atol=GRAD_ATOL)
+            worst = shares.max().item()
+            errs[name][f"d{t}"] = {"abs": (g.float() - r.float()).abs().max().item(),
+                                   "max_ref": r.float().abs().max().item(),
+                                   "row_share": worst}
+            fails.check(ok and worst <= GRAD_TOL[q.dtype],
+                        f"flash_attention_backward d{t} disagrees with its plain version "
+                        f"on {name} {tuple(q.shape)} {q.dtype} causal={causal}: worst row "
+                        f"err {worst} of its row's max against {GRAD_TOL[q.dtype]}")
+            del shares
+        del got, ref
+        if name in ("main", f"s{mid_steps}_causal_bf16", f"s{mid_steps}_causal_f32"):
+            saved[name] = (q, k, v, o, do, lse, causal)
+
+    timings = {}
+    for name, (q, k, v, o, do, lse, causal) in saved.items():
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
+                                (qt, kt, vt), dot)
+
+        def sdpa_fwd():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        t = {"ms": time_ms(lambda: fa.flash_attention_backward(q, k, v, o, do, lse,
+                                                               causal=causal),
+                           device, reps=reps, warmup=2),
+             "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, device, reps=reps, warmup=2),
+             "sdpa_fwd_ms": time_ms(sdpa_fwd, device, reps=reps, warmup=2)}
+        t["library_ms"] = t["sdpa_fwd_bwd_ms"] - t["sdpa_fwd_ms"]
+        if name == "main":
+            t["plain_ms"] = time_ms(lambda: plain_backward_per_window(q, k, v, o, do, lse,
+                                                                      causal),
+                                    device, reps=3, warmup=1)
+        else:
+            t["plain_ms"] = time_ms(lambda: fa.mha_backward_reference(q, k, v, o, do, lse,
+                                                                      causal=causal),
+                                    device, reps=reps, warmup=2)
+        floors = flash_backward_floors_ms(*q.shape, causal, q.dtype)
+        binding = max(floors, key=floors.get)
+        t.update(shape=list(q.shape), dtype=str(q.dtype), floors_ms=floors,
+                 binding_floor=binding, bound_ms=floors[binding],
+                 bound_by="bytes" if binding == "bytes" else "operations")
+        timings[name] = t
+        del qt, kt, vt
+    rec = {"phase": "kernel", "name": "flash_attention_backward",
+           "tol_of_row_max": {str(k): v for k, v in GRAD_TOL.items()},
+           "atol_on_exact_zero_rows": GRAD_ATOL,
+           "lse_tol": LSE_TOL, "max_abs_err": errs, "lse_max_abs_err": lse_errs,
+           "timings": timings,
+           "plain_main_note": "mha_backward_reference one window at a time",
+           "library_note": "SDPA forward+backward (torch.autograd.grad) minus SDPA "
+                           "forward, both with grad enabled"}
+    emit(rec, log)
+    t = timings["main"]
+    return dict(max_abs_err=max(e["abs"] for e in errs["main"].values()),
+                max_err_of_max=max(e["abs"] / e["max_ref"] for e in errs["main"].values()),
+                max_row_share=max(e["row_share"] for e in errs["main"].values()),
+                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=t["library_ms"])
 
 
 # the entry phase's rule set: every rule kind on "temp" (standard normal
@@ -2989,12 +3184,16 @@ def phase_transformer(device, log, fails, seed: int, cfg: TransformerConfig = TF
 
 def _kernel_family(name: str) -> str:
     n = name.lower()
+    if "flash_bwd" in n:
+        return "attention_backward"
     if "flash_attention" in n:
         return "attention"
     if any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
         return "gemm"
     if "layer_norm" in n or "gelu" in n:
         return "layernorm_gelu"
+    if "multi_tensor_apply" in n or "adam" in n:
+        return "optimizer"
     return "other"
 
 
@@ -3022,6 +3221,261 @@ def phase_profile_transformer(model, x, log) -> None:
           "top": top}, log)
 
 
+# the transformer_train phase: TransformerConfig() at full width on the
+# scoring phase's 8 windows of 16384 steps, AdamW (optax's, models/anomaly
+# .adamw) at lr 1e-3; (b) on 2 windows of 4096 steps, where the plain
+# attention's autograd keeps 4 layers x [2, 8, 4096, 4096] float32
+# probabilities (4.3 GB) and peaks near 3x one layer's more in its backward;
+# (c) a float32 model on 2 windows of 1024 steps on the card and the CPU;
+# (d) one NCCL rank on 2 windows of 2048 steps
+TT_STEPS = 5
+TT_LR = 1e-3
+TT_PLAIN = (2, 4096)
+TT_CPU = (2, 1024)
+TT_SP = (2, 2048)
+TT_GRAD_TOL = 2e-2          # bf16 kernel path vs plain path, share of each gradient's max
+TT_F32_GRAD_TOL = 1e-4      # card vs CPU float32 gradients, share of each one's max
+TT_F32_LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
+TT_SP_TOL = dict(rtol=1e-5, atol=1e-5)     # one NCCL rank vs the single-device path, float32
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _grad_shares(got: dict, ref: dict) -> dict:
+    """Each gradient's max |got - ref| as a share of its max |ref|."""
+    out = {}
+    for n, r in ref.items():
+        g = got[n].to(r.device).float()
+        scale = r.float().abs().max().item()
+        err = (g - r.float()).abs().max().item()
+        out[n] = err / scale if scale else err
+    return out
+
+
+def _profile_train_step(step, x, log, profile: bool) -> dict:
+    """torch.profiler over one ``train_step``: the device's busy share of
+    the wall time; with ``profile`` also device time by kernel family
+    (attention forward, attention backward, GEMMs, LayerNorm / gelu,
+    optimizer, other), emitted as a profile record."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    top, busy_ms = _device_time(prof)
+    out = {"profiled_wall_ms": wall_ms, "device_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms}
+    if profile:
+        families: dict[str, float] = {}
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total > 0
+                    and not getattr(e, "is_user_annotation", False)):
+                fam = _kernel_family(e.key)
+                families[fam] = families.get(fam, 0.0) + e.self_device_time_total / 1e3
+        emit({"phase": "profile", "what": "transformer_train_step", "calls": 1,
+              "wall_ms_per_call": wall_ms, "device_ms_per_call": busy_ms,
+              "device_busy_share": busy_ms / wall_ms, "device_ms_by_family": families,
+              "top": top}, log)
+    return out
+
+
+def _train_sp_one_rank(device, model, x, fails) -> dict:
+    """(d): ``forecast_scores_sp`` and ``ring_attention_sharded`` in a
+    one-rank NCCL group (a ``file://`` store, no port) against
+    ``forecast_scores`` with the plain attention and ``mha_reference``,
+    float32; the scores' gradients against the single-device path's. One
+    card shows the code path (positions, the masked last position, the
+    group sum, the identity hops), not the ring across ranks: that is
+    held to JAX on 4 gloo ranks in tests/test_torch_ring_attention.py."""
+    import torch.distributed as dist
+
+    from sitewhere_tpu_torch.models.transformer import forecast_scores_sp, loss_fn
+    from sitewhere_tpu_torch.parallel.ring_attention import ring_attention_sharded
+
+    store = tempfile.mkdtemp(prefix="swtpu-sp-")
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{store}/store", rank=0,
+                            world_size=1)
+    try:
+        plain = functools.partial(fa.mha_reference, causal=True)
+        with torch.no_grad():
+            sp = forecast_scores_sp(model, x)
+        ref = forecast_scores(model, x, attention_fn=plain)
+        gen = torch.Generator(device=device).manual_seed(5)
+        q, k, v = (torch.randn((x.shape[0], x.shape[1], 8, 32), device=device,
+                               generator=gen) for _ in range(3))
+        ring = ring_attention_sharded(q, k, v, causal=True)
+        ring_ref = fa.mha_reference(q, k, v, causal=True)
+        model.zero_grad(set_to_none=True)
+        forecast_scores_sp(model, x).mean().backward()
+        g_sp = _grads(model)
+        model.zero_grad(set_to_none=True)
+        loss_fn(model, x, attention_fn=plain).backward()
+        shares = _grad_shares(g_sp, _grads(model))
+        model.zero_grad(set_to_none=True)
+        _sync(device)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    out = {"shape": list(x.shape), "world_size": 1, "backend": backend,
+           "scores_max_abs_err": (sp - ref).abs().max().item(),
+           "ring_max_abs_err": (ring - ring_ref).abs().max().item(),
+           "grad_err_of_max": max(shares.values()),
+           "note": "one rank: the hops and the gather are the identity; the "
+                   "ring across ranks is held to JAX on 4 gloo ranks (CPU tests)"}
+    fails.check(torch.allclose(sp, ref, **TT_SP_TOL),
+                f"transformer_train (d): forecast_scores_sp {sp.tolist()} vs "
+                f"forecast_scores {ref.tolist()}")
+    fails.check(torch.allclose(ring, ring_ref, **TT_SP_TOL),
+                f"transformer_train (d): ring_attention_sharded vs mha_reference max abs "
+                f"err {out['ring_max_abs_err']}")
+    fails.check(max(shares.values()) <= TT_F32_GRAD_TOL,
+                f"transformer_train (d): SP gradients vs single device {shares}")
+    return out
+
+
+def phase_transformer_train(device, log, fails, seed: int, cfg: TransformerConfig = TF_CONFIG,
+                            windows: int = TF_WINDOWS, steps: int = TF_STEPS,
+                            train_steps: int = TT_STEPS, plain_shape=TT_PLAIN,
+                            cpu_shape=TT_CPU, sp_shape=TT_SP, profile: bool = False) -> dict:
+    """Transformer training at full width: (a) one warm-up and
+    ``train_steps`` timed ``make_train_step`` steps (AdamW) on one seeded
+    batch, both attention counts reset just before and read just after
+    (each layers x steps), losses finite and falling, every parameter's
+    gradient finite and non-zero; (b) one step's gradients through the
+    kernels against the plain attention's autograd; (c) a float32 model on
+    the card and the CPU, one Adam step: losses, gradients, parameters; (d)
+    the sequence-parallel path on one NCCL rank."""
+    from types import SimpleNamespace
+
+    from sitewhere_tpu_torch.models.anomaly import adamw
+    from sitewhere_tpu_torch.models.transformer import adam, loss_fn, make_train_step
+
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    model = TelemetryTransformer(cfg, device=device,
+                                 generator=torch.Generator().manual_seed(seed))
+    x = torch.randn((windows, steps, cfg.sensors), device=device, generator=gen)
+    opt = adamw(model.parameters(), TT_LR)
+    step = make_train_step(model, opt)
+    losses = [step(x).item()]                     # warm-up
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    fa.flash_attention.launches = 0               # this path starts here
+    fa.flash_attention_backward.launches = 0
+    step_ms = []
+    for _ in range(train_steps):
+        t0 = time.perf_counter()
+        loss = step(x)
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "flash_attention_backward": fa.flash_attention_backward.launches}
+    peak_gib = (torch.cuda.max_memory_allocated() / 2**30          # ... ends here
+                if device.type == "cuda" else None)
+    want = cfg.layers * train_steps
+    fails.check(launches == {"flash_attention": want, "flash_attention_backward": want},
+                f"transformer_train: launches {launches} in {train_steps} steps of a "
+                f"{cfg.layers}-layer model (want {want} each)")
+    fails.check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+                f"transformer_train: losses not finite or not falling: {losses}")
+    busy = _profile_train_step(step, x, log, profile) if device.type == "cuda" else {}
+
+    loss_fn(model, x).backward()                  # every parameter reached
+    no_grad = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())
+               or not bool(p.grad.any())]
+    fails.check(not no_grad and any(".qkv." in n for n, _ in model.named_parameters()),
+                f"transformer_train: parameters without a finite non-zero gradient: {no_grad}")
+    opt.zero_grad(set_to_none=True)
+
+    # (b) kernels vs the plain attention's autograd, one step's gradients
+    xb = x[:plain_shape[0], :plain_shape[1]]
+    loss_fn(model, xb).backward()
+    g_kernel = _grads(model)
+    model.zero_grad(set_to_none=True)
+    loss_fn(model, xb, attention_fn=functools.partial(fa.mha_reference, causal=True)).backward()
+    g_plain = _grads(model)
+    model.zero_grad(set_to_none=True)
+    shares_b = _grad_shares(g_kernel, g_plain)
+    fails.check(max(shares_b.values()) <= TT_GRAD_TOL,
+                f"transformer_train (b): kernel vs plain gradients beyond {TT_GRAD_TOL} of "
+                f"max: { {n: v for n, v in shares_b.items() if v > TT_GRAD_TOL} }")
+    del g_kernel, g_plain
+
+    # (c) float32 on the card and on the CPU, one Adam step from the same weights
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    card = TelemetryTransformer(cfg32, device=device, generator=torch.Generator().manual_seed(seed))
+    host = TelemetryTransformer(cfg32, device="cpu", generator=torch.Generator().manual_seed(seed))
+    xc = x[:cpu_shape[0], :cpu_shape[1]]
+    card_opt, host_opt = adam(card.parameters(), TT_LR), adam(host.parameters(), TT_LR)
+    f32_launches = (fa.flash_attention.launches, fa.flash_attention_backward.launches)
+    card_loss = loss_fn(card, xc)
+    card_loss.backward()
+    t0 = time.perf_counter()
+    host_loss = loss_fn(host, xc.cpu())
+    host_loss.backward()
+    cpu_s = time.perf_counter() - t0
+    f32_launches = (fa.flash_attention.launches - f32_launches[0],
+                    fa.flash_attention_backward.launches - f32_launches[1])
+    shares_c = _grad_shares(_grads(card), _grads(host))
+    grad_tol = {n: TT_F32_GRAD_TOL * p.grad.abs().max().item()
+                for n, p in host.named_parameters()}
+    card_opt.step()
+    host_opt.step()
+    slack = _adam_slack(SimpleNamespace(model=host, opt=host_opt), grad_tol)
+    params_c = _params_vs_cpu(SimpleNamespace(model=card), SimpleNamespace(model=host),
+                              {k: v[0] for k, v in slack.items()},
+                              {k: v[1] for k, v in slack.items()})
+    fails.check(f32_launches == (cfg.layers, cfg.layers),
+                f"transformer_train (c): float32 kernel launches {f32_launches}")
+    fails.check(torch.allclose(card_loss.detach().cpu(), host_loss.detach(), **TT_F32_LOSS_TOL),
+                f"transformer_train (c): float32 loss card {card_loss.item()} CPU "
+                f"{host_loss.item()}")
+    fails.check(max(shares_c.values()) <= TT_F32_GRAD_TOL,
+                f"transformer_train (c): float32 gradients card vs CPU beyond "
+                f"{TT_F32_GRAD_TOL} of max: {shares_c}")
+    fails.check(params_c["beyond"] == 0,
+                f"transformer_train (c): parameters after one Adam step beyond tolerance "
+                f"plus slack: {params_c}")
+
+    # (d) the sequence-parallel path on one NCCL rank
+    sp = _train_sp_one_rank(device, card, x[:sp_shape[0], :sp_shape[1]], fails)
+
+    med = statistics.median(step_ms)
+    emit({"phase": "transformer_train",
+          "config": dataclasses.asdict(cfg) | {"dtype": str(cfg.dtype)},
+          "windows": windows, "steps": steps, "optimizer": f"adamw lr {TT_LR}",
+          "train_steps": train_steps, "ms_per_step_median": med, "ms_per_step": step_ms,
+          "timesteps_per_s": windows * steps / med * 1e3, "losses": losses,
+          "peak_mem_gib": peak_gib, "launches": launches, **busy,
+          "b_plain": {"shape": [*plain_shape, cfg.sensors],
+                      "plain_probability_bytes": cfg.layers * plain_shape[0] * cfg.heads
+                      * plain_shape[1] ** 2 * 4,
+                      "tol_of_max": TT_GRAD_TOL, "worst": max(shares_b.values()),
+                      "worst_param": max(shares_b, key=shares_b.get)},
+          "c_float32": {"shape": [*cpu_shape, cfg.sensors], "optimizer": f"adam lr {TT_LR}",
+                        "loss_card": card_loss.item(), "loss_cpu": host_loss.item(),
+                        "grad_tol_of_max": TT_F32_GRAD_TOL,
+                        "grad_worst": max(shares_c.values()), "params": params_c,
+                        "cpu_s": cpu_s, "launches": list(f32_launches)},
+          "d_sp_one_rank": sp}, log)
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "--id=0"],
@@ -3037,7 +3491,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after the checks, profile a few steps (without and with zones "
                          "and rules), one scoring call, one train_on_live call, one "
-                         "transformer call, three "
+                         "transformer call, one transformer train step, three "
                          "wire-ingest dispatches, one spool and one scoring batch of an "
                          "archive job, and three dispatches with the recorder on")
     args = ap.parse_args(argv)
@@ -3060,7 +3514,8 @@ def main(argv=None) -> int:
           "sm_clock_max_and_now": clocks}, log)
     phase_build(log, fails)
     timing = {"window_features": phase_kernel_window_features(device, log, fails),
-              "flash_attention": phase_kernel_flash(device, log, fails)}
+              "flash_attention": phase_kernel_flash(device, log, fails),
+              "flash_attention_backward": phase_kernel_flash_backward(device, log, fails)}
     phase_entry(device, log, fails)
     launches, slice_step_ms, slice_eng = phase_slice(device, log, fails, args.seed,
                                                      SLICE_BATCHES, profile=args.profile)
@@ -3068,6 +3523,7 @@ def main(argv=None) -> int:
     del slice_eng
     launches = launches | phase_transformer(device, log, fails, args.seed,
                                             profile=args.profile)
+    tt = phase_transformer_train(device, log, fails, args.seed, profile=args.profile)
     phase_read(device, log, fails, args.seed, slice_step_ms, profile=args.profile)
     phase_wire(device, log, fails, args.seed, profile=args.profile)
     archive = phase_archive(device, log, fails, args.seed, profile=args.profile)
@@ -3077,7 +3533,10 @@ def main(argv=None) -> int:
     by_path = {"window_features": {"slice": launches["window_features"],
                                    "train": train["window_features"],
                                    "archive": archive["launches"]},
-               "flash_attention": {"transformer": launches["flash_attention"]}}
+               "flash_attention": {"transformer": launches["flash_attention"],
+                                   "transformer_train": tt["flash_attention"]},
+               "flash_attention_backward": {
+                   "transformer_train": tt["flash_attention_backward"]}}
     timing["window_features"]["at_archive_job_shape"] = {
         k: archive[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
     kernels = [dict(k, launches=sum(by_path[k["name"]].values()),

@@ -57,29 +57,34 @@ def anomaly_params_from_flax(params) -> dict[str, torch.Tensor]:
 
 
 def adamw_state_from_optax(opt_state, model: torch.nn.Module,
-                           optimizer: torch.optim.Optimizer) -> None:
-    """Load an ``optax.adamw`` state (numpy leaves:
-    ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())``)
-    into ``optimizer``, a torch AdamW over ``model``'s parameters (an
-    ``AnomalyModel``): ``count`` -> ``step``, ``mu`` -> ``exp_avg``,
-    ``nu`` -> ``exp_avg_sq``. The moments share the parameters' tree, so
-    they map through :func:`anomaly_params_from_flax` (gate stacking and
-    ``[out, in]`` transposes included). A JAX service that trained k
+                           optimizer: torch.optim.Optimizer,
+                           params_from=None) -> None:
+    """Load an ``optax.adamw`` or ``optax.adam`` state (numpy leaves:
+    ``(ScaleByAdamState(count, mu, nu), EmptyState(), ...)``) into
+    ``optimizer``, a torch AdamW or Adam over ``model``'s parameters:
+    ``count`` -> ``step``, ``mu`` -> ``exp_avg``, ``nu`` ->
+    ``exp_avg_sq``. The moments share the parameters' tree, so they map
+    through the weights' own conversion, ``params_from``: by default
+    :func:`anomaly_params_from_flax` (an ``AnomalyModel``; gate stacking and
+    ``[out, in]`` transposes included), :func:`transformer_params_from_jax`
+    for a ``TelemetryTransformer``. A JAX trainer that stopped after k
     steps then continues on the port where it stopped."""
+    if params_from is None:
+        params_from = anomaly_params_from_flax
     adam = next((s for s in opt_state
                  if hasattr(s, "mu") and hasattr(s, "nu")), None)
     if adam is None:
         raise ValueError("no ScaleByAdamState (count, mu, nu) in the optax state")
     step = float(np.asarray(adam.count))
-    mu = anomaly_params_from_flax(adam.mu)
-    nu = anomaly_params_from_flax(adam.nu)
+    mu = params_from(adam.mu)
+    nu = params_from(adam.nu)
     names = {id(p): n for n, p in model.named_parameters()}
     sd = optimizer.state_dict()
     sd["state"] = {}
     for group, packed in zip(optimizer.param_groups, sd["param_groups"]):
         for param, idx in zip(group["params"], packed["params"]):
             name = names[id(param)]
-            # a non-fused AdamW keeps its step count on the host
+            # a non-fused Adam(W) keeps its step count on the host
             sd["state"][idx] = {"step": torch.tensor(step),
                                 "exp_avg": mu[name], "exp_avg_sq": nu[name]}
     optimizer.load_state_dict(sd)

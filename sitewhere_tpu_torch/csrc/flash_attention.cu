@@ -1,6 +1,8 @@
 // Blockwise (flash) multi-head attention, forward: q, k, v [B, S, H, D] ->
 // out [B, S, H, D], softmax(q k^T * scale) v with an optional causal mask,
-// output in the input type.
+// output in the input type; optionally also each row's log-sum-exp of its
+// scaled scores, lse [B, H, S] float32 in the natural log, which the
+// backward (flash_attention_bwd.cu) recomputes P from.
 //
 // Replaces the TPU kernel sitewhere_tpu/ops/attention.py:_flash_kernel
 // (driven by flash_attention). On the TPU the key-block axis is a sequential
@@ -56,7 +58,11 @@
 //     (-1e30) contributes exp(-1e30 - m) = 0 once a real maximum is known,
 //     which is what p = 0 gives; m starts at -1e30, not -inf, so a state
 //     that has seen no key never computes exp(-inf - -inf);
-//   * a row that has seen no key (l == 0) writes 0;
+//   * a row that has seen no key (l == 0) writes 0 (and lse = +inf);
+//   * lse = ln sum_j exp(scale q.k_j) over the row's live keys, from the
+//     running max and sum the kernel already holds: (m c + log2 l) ln 2
+//     with m and c in each kernel's own units (below). A null lse pointer
+//     writes nothing and leaves the scoring path as it was;
 //   * any S: the tail of keys is zero-filled by the copy and masked (p = 0),
 //     query rows past S load zeros and write nothing.
 //
@@ -72,19 +78,9 @@
 // 19 pairs a clock against the 16 exponentials: instruction dispatch and
 // the exponential unit bind together.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <float.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr float kNegInf = -1e30f;
-
-struct Strides {  // in elements; the stride of D is 1
-  int64_t b, s, h;
-};
 
 // ------------------------------------------------------------------ float32
 
@@ -96,7 +92,8 @@ __global__ void __launch_bounds__(kF32BlockQ)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ out,
-                           int s, int h, int num_q_tiles, int num_bh,
+                           float* __restrict__ lse, int s, int h,
+                           int num_q_tiles, int num_bh,
                            Strides qs, Strides ks, Strides vs,
                            float scale_log2e, int causal) {
   static_assert(D % 4 == 0, "D must be a multiple of 4");
@@ -184,6 +181,10 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   }
 
   if (!live_row) return;
+  // m and the scores are in log2 units (q carries scale * log2(e))
+  if (lse != nullptr)
+    lse[static_cast<int64_t>(bh) * s + row] =
+        l == 0.0f ? INFINITY : (m + log2f(l)) * kLn2;
   const float denom = l == 0.0f ? 1.0f : l;  // acc is 0 too when l == 0
   float* op = out + ((static_cast<int64_t>(b) * s + row) * h + hd) * D;
 #pragma unroll
@@ -199,65 +200,6 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kBlockM = kWarpRows * kWarps;    // query rows per block
 constexpr int kBlockN = 64;                    // keys per shared-memory tile
 constexpr int kPad = 8;                        // bf16 of padding a shared row
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronous; zeros where !valid
-// (nothing is read then, but src must still be a mapped address)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr,
-                                                  uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a b for one m16n8k16 tile: a row-major bf16 [16, 16], b column-major
-// bf16 [16, 8], c float32 [16, 8]
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two floats as a bf16 pair, lo in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 template <int D>
 struct Bf16Tile {
@@ -284,7 +226,8 @@ __global__ void __launch_bounds__(kThreads, Bf16Tile<D>::kMinBlocks)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ out, int s, int h,
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, int s, int h,
                             int num_q_tiles, int num_bh, Strides qs,
                             Strides ks, Strides vs, float scale_log2e,
                             uint32_t q_sign, int causal) {
@@ -493,6 +436,10 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       lr += __shfl_xor_sync(0xffffffffu, lr, 2);
       const float inv = 1.0f / (lr == 0.0f ? 1.0f : lr);  // o is 0 too
       const int srow = 16 * mt + g + 8 * r;
+      // m is the max of the unscaled (sign-adjusted) scores, c > 0 scales it
+      if (lse != nullptr && t == 0 && warp_row + srow < s)
+        lse[static_cast<int64_t>(bh) * s + warp_row + srow] =
+            lr == 0.0f ? INFINITY : (m[mt][r] * scale_log2e + log2f(lr)) * kLn2;
 #pragma unroll
       for (int i = 0; i < kDT; ++i)
         *reinterpret_cast<uint32_t*>(&ot[srow * kRow + i * 8 + 2 * t]) =
@@ -516,7 +463,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int s, int h, int num_bh, Strides qs, Strides ks,
+                   float* lse, int s, int h, int num_bh, Strides qs, Strides ks,
                    Strides vs, float scale_log2e, int causal,
                    cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
@@ -532,12 +479,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-        s, h, static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, c, q_sign,
+        lse, s, h, static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, c, q_sign,
         causal);
   } else {
     flash_attention_f32_kernel<D><<<blocks, kF32BlockQ, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), s, h,
+        static_cast<const float*>(v), static_cast<float*>(out), lse, s, h,
         static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, scale_log2e,
         causal);
   }
@@ -546,18 +493,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
-                     void* out, int s, int h, int num_bh, Strides qs,
+                     void* out, float* lse, int s, int h, int num_bh, Strides qs,
                      Strides ks, Strides vs, float scale_log2e, int causal,
                      cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch<T, 16>(q, k, v, out, s, h, num_bh, qs, ks, vs,
+      return launch<T, 16>(q, k, v, out, lse, s, h, num_bh, qs, ks, vs,
                            scale_log2e, causal, stream);
     case 32:
-      return launch<T, 32>(q, k, v, out, s, h, num_bh, qs, ks, vs,
+      return launch<T, 32>(q, k, v, out, lse, s, h, num_bh, qs, ks, vs,
                            scale_log2e, causal, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, s, h, num_bh, qs, ks, vs,
+      return launch<T, 64>(q, k, v, out, lse, s, h, num_bh, qs, ks, vs,
                            scale_log2e, causal, stream);
     default:
       return cudaErrorInvalidValue;
@@ -568,13 +515,15 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
 
 // q, k, v: [b, s, h, d] of float32 (is_bf16 == 0) or bfloat16 (is_bf16 ==
 // 1) with element strides (*_sb, *_ss, *_sh) and unit stride on d; out:
-// contiguous [b, s, h, d] of the same type; all on the device of
+// contiguous [b, s, h, d] of the same type; lse: null, or [b, h, s]
+// float32 for each row's log-sum-exp (natural log); all on the device of
 // ``stream``. d is 16, 32 or 64. bfloat16 also needs every base pointer
 // 16-byte aligned and every stride a multiple of 8. scale_log2e = sm_scale
 // * log2(e). Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a head dim or grid the kernels do not take).
 extern "C" int swtpu_flash_attention(
-    const void* q, const void* k, const void* v, void* out, int b, int s,
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int b, int s,
     int h, int d, int is_bf16, int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
     int64_t v_sh, float scale_log2e, int causal, void* stream) {
@@ -585,9 +534,9 @@ extern "C" int swtpu_flash_attention(
   const auto st = static_cast<cudaStream_t>(stream);
   const int bh = static_cast<int>(num_bh);
   const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(d, q, k, v, out, s, h, bh, qs, ks, vs,
-                                        scale_log2e, causal, st)
-              : dispatch<float>(d, q, k, v, out, s, h, bh, qs, ks, vs,
+      is_bf16 ? dispatch<__nv_bfloat16>(d, q, k, v, out, lse, s, h, bh, qs, ks,
+                                        vs, scale_log2e, causal, st)
+              : dispatch<float>(d, q, k, v, out, lse, s, h, bh, qs, ks, vs,
                                 scale_log2e, causal, st);
   return static_cast<int>(err);
 }

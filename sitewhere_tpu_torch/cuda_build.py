@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` entry points and is
 compiled on first use into ``csrc/build/lib<name>-<hash>.so`` (the hash is
-of the source and the flags, so an edited source rebuilds and a stale
-library is never loaded). A plain C interface builds in seconds, where a
-source that includes PyTorch's headers takes minutes. Nothing here runs at
+of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source or header rebuilds and a stale library is never loaded). A
+plain C interface builds in seconds, where a source that includes
+PyTorch's headers takes minutes. Nothing here runs at
 import time: this module is imported on machines without nvcc or a GPU.
 """
 
@@ -46,7 +47,9 @@ def find_nvcc() -> str:
 
 def _lib_path(name: str) -> pathlib.Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the shared headers count too: an edited header rebuilds every kernel
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

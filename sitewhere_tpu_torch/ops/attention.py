@@ -1,5 +1,5 @@
 """Blockwise (flash) attention for long telemetry windows (port of
-``sitewhere_tpu/ops/attention.py``, forward only).
+``sitewhere_tpu/ops/attention.py``), forward and backward.
 
 The compute core of the long-window transformer (models/transformer.py):
 windows of tens of thousands of timesteps, so the [S, S] score matrix is
@@ -31,8 +31,20 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
     and write a contiguous [B, S, H, D] output. Any S; head dims 16, 32,
     64. bf16 needs 16-byte aligned base pointers and strides that are a
     multiple of 8 elements (the ``cp.async`` copies are 16 bytes).
-The wrapper runs the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches the kernel or raises.
+  * The forward can also write each row's log-sum-exp (``lse`` [B, H, S]
+    float32, natural log), which the backward recomputes P from.
+
+Backward kernel: ``csrc/flash_attention_bwd.cu``, FA2's backward (a delta
+pass, a dK/dV kernel over query tiles, a dQ kernel over key tiles; no
+atomics, so a gradient is the same from run to run). It replaces no
+Pallas kernel: the JAX trainer (``sitewhere_tpu/models/transformer.py:153``)
+differentiates the oracle ``mha_reference``, and this is that gradient.
+:class:`FlashAttentionFunction` puts the two kernels behind autograd, and
+:func:`flash_attention` takes that route for a CUDA input that requires
+grad while grad is enabled.
+
+The wrappers run the plain versions only for a tensor on the CPU; for a
+CUDA tensor they launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ import math
 import torch
 
 KERNEL = "flash_attention"
+BWD_KERNEL = "flash_attention_bwd"
 HEAD_DIMS = (16, 32, 64)
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -51,25 +64,89 @@ DTYPES = (torch.float32, torch.bfloat16)
 _NEG_INF = -1e30
 
 
+def _scale(d: int, sm_scale: float | None) -> float:
+    return sm_scale if sm_scale is not None else 1.0 / float(d) ** 0.5
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, sm_scale: float | None,
+            q_off: int = 0, k_off: int = 0) -> torch.Tensor:
+    """The scaled float32 scores [B, H, Sq, Sk], masked entries -1e30; the
+    offsets are the global positions of q's and k's first rows (a ring
+    step's shards)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s.mul_(_scale(q.shape[-1], sm_scale))
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        row = q_off + torch.arange(sq, device=s.device)[:, None]
+        col = k_off + torch.arange(sk, device=s.device)[None, :]
+        s.masked_fill_(col > row, _NEG_INF)
+    return s
+
+
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = False, sm_scale: float | None = None
                   ) -> torch.Tensor:
     """Plain multi-head attention: [B, S, H, D] -> [B, S, H, D] in
     ``q.dtype``; scores, softmax and both products in float32 (the
     [B, H, S, S] scores are materialised)."""
-    d = q.shape[-1]
-    scale = sm_scale if sm_scale is not None else 1.0 / float(d) ** 0.5
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    s.mul_(scale)
-    if causal:
-        sq, sk = s.shape[-2], s.shape[-1]
-        row = torch.arange(sq, device=s.device)[:, None]
-        col = torch.arange(sk, device=s.device)[None, :]
-        s.masked_fill_(col > row, _NEG_INF)
+    s = _scores(q, k, causal, sm_scale)
     p = torch.softmax(s, dim=-1)
     del s
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype)
+
+
+def lse_reference(q: torch.Tensor, k: torch.Tensor, *, causal: bool = False,
+                  sm_scale: float | None = None) -> torch.Tensor:
+    """Each row's log-sum-exp of its scaled (and masked) scores, [B, H, S]
+    float32 in the natural log: what the forward kernel writes as ``lse``."""
+    return torch.logsumexp(_scores(q, k, causal, sm_scale), dim=-1)
+
+
+def mha_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                           *, causal: bool = False, sm_scale: float | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of :func:`mha_reference` for an output
+    gradient ``do``, the way the backward kernel computes them, in float32
+    torch ops, returned in ``q.dtype``: P = exp(scale q.k - lse) from the
+    forward's ``lse`` ([B, H, S]), delta = rowsum(dO o) from its output
+    ``o``, dS = P (dO v - delta), dq = scale dS k, dk = scale dS^T q,
+    dv = P^T dO, contiguous [B, S, H, D]. The [B, H, S, S] P and dS are
+    materialised (in place, two at a time)."""
+    scale = _scale(q.shape[-1], sm_scale)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = _scores(q, k, causal, sm_scale)
+    p.sub_(lse.float()[..., None]).exp_()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)          # [B, H, S]
+    ds = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds.sub_(delta[..., None]).mul_(p)
+    del p
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf).mul_(scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).mul_(scale)
+    return tuple(g.to(q.dtype).contiguous() for g in (dq, dk, dv))
+
+
+def gradient_row_shares(got: torch.Tensor, ref: torch.Tensor, which: str, *,
+                        causal: bool, atol: float) -> torch.Tensor:
+    """How far each row (one position of one head) of a gradient ``got``
+    lies from ``ref``: its largest absolute error over the head dim, as a
+    share of that row's largest |ref| element, [B, S, H] float32 (0 where
+    both are 0, inf where only ``ref`` is). ``which`` is "dq", "dk" or
+    "dv". ``atol`` comes off the error only on the rows whose exact
+    gradient is 0, where float32 rounding of dP - delta is all that is
+    left: every dq and dk row at S = 1, and dq's row 0 under a causal mask
+    (one key, so P = 1 and o = v). A share of the whole tensor's largest
+    element would not do: a causal gradient falls off along S, and a
+    wrong tail of small rows would pass it."""
+    err = (got.float() - ref.float()).abs().amax(-1)
+    top = ref.float().abs().amax(-1)
+    if which in ("dq", "dk") and got.shape[1] == 1:
+        err = (err - atol).clamp_min(0.0)
+    elif which == "dq" and causal:
+        err[:, 0] = (err[:, 0] - atol).clamp_min(0.0)
+    return torch.where(top > 0, err / top, torch.where(err > 0, math.inf, 0.0))
 
 
 def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
@@ -101,29 +178,107 @@ def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     return (b, s, h, d, int(q.dtype == torch.bfloat16), *strides)
 
 
-def _launch(q, k, v, causal: bool, sm_scale: float | None) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, sm_scale: float | None, with_lse: bool = False):
+    """The forward kernel: ``out``, or ``(out, lse)`` with ``with_lse``."""
     from sitewhere_tpu_torch import cuda_build
 
     args = kernel_args(q, k, v)
     b, s, h, d = args[:4]
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
-    scale = sm_scale if sm_scale is not None else 1.0 / float(d) ** 0.5
+        return (out, lse) if with_lse else out
+    scale = _scale(d, sm_scale)
     lib = cuda_build.load(KERNEL)
     fn = lib.swtpu_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.c_int64] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if with_lse else None, *args,
                  scale * math.log2(math.e), int(causal), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def backward_args(q, k, v, o, do, lse) -> tuple:
+    """:func:`kernel_args` for q, k, v, and ``do`` as the backward kernel
+    reads it; raises (``TypeError`` / ``ValueError``) where ``o`` is not a
+    contiguous [B, S, H, D] of q's type on q's device, ``do`` not of that
+    shape and type, or ``lse`` not a contiguous [B, H, S] float32. ``do``
+    comes back contiguous and 16-byte aligned (a copy where it was not)."""
+    args = kernel_args(q, k, v)
+    b, s, h, d = args[:4]
+    for name, t in (("o", o), ("do", do)):
+        if t.dtype != q.dtype or tuple(t.shape) != (b, s, h, d) or t.device != q.device:
+            raise ValueError(f"flash_attention backward: {name} must be [B, S, H, D] "
+                             f"{q.dtype} on {q.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    if not o.is_contiguous() or o.data_ptr() % 16:
+        raise ValueError("flash_attention backward: o must be contiguous and 16-byte aligned")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s)
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention backward: lse must be a contiguous [B, H, S] "
+                         f"float32 on {q.device}, got {tuple(lse.shape)} {lse.dtype}")
+    do = do.contiguous()
+    if do.data_ptr() % 16:
+        do = do.clone()
+    return args, do
+
+
+def _launch_bwd(q, k, v, o, do, lse, causal: bool, sm_scale: float | None):
+    from sitewhere_tpu_torch import cuda_build
+
+    args, do = backward_args(q, k, v, o, do, lse)
+    b, s, h, d = args[:4]
+    dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    scratch = torch.empty(2 * b * h * s, dtype=torch.float32, device=q.device)
+    scale = _scale(d, sm_scale)
+    lib = cuda_build.load(BWD_KERNEL)
+    fn = lib.swtpu_flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                   + [ctypes.c_int64] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 scratch.data_ptr(), *args, scale, int(causal), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention backward kernel launch failed: CUDA error {err}")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention on the card with a gradient: the forward kernel, which
+    also writes ``lse``; the backward kernel from q, k, v, the output and
+    ``lse``. ``apply(q, k, v, causal, sm_scale)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float | None):
+        out, lse = _launch(q, k, v, causal, sm_scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _launch_bwd(q, k, v, out, do, lse, ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -131,14 +286,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """Attention, [B, S, H, D] -> [B, S, H, D] (``sm_scale`` defaults to
     1/sqrt(D)). CUDA tensors go through the hand-written kernel (counted in
-    ``flash_attention.launches``); CPU tensors through
-    :func:`mha_reference`."""
+    ``flash_attention.launches``), through :class:`FlashAttentionFunction`
+    when grad is enabled and an input requires it (its backward counted in
+    ``flash_attention_backward.launches``); CPU tensors through
+    :func:`mha_reference`, which autograd differentiates."""
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionFunction.apply(q, k, v, causal, sm_scale)
         return _launch(q, k, v, causal, sm_scale)
     if q.device.type == "cpu":
         return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
-# launches of the CUDA kernel since the count was last reset to 0
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = False, sm_scale: float | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)``: the attention and each row's log-sum-exp ([B, H, S]
+    float32): the forward kernel on a CUDA tensor (one launch, counted in
+    ``flash_attention.launches``), :func:`mha_reference` and
+    :func:`lse_reference` on a CPU tensor. No gradient."""
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, sm_scale, with_lse=True)
+    if q.device.type == "cpu":
+        return (mha_reference(q, k, v, causal=causal, sm_scale=sm_scale),
+                lse_reference(q, k, causal=causal, sm_scale=sm_scale))
+    raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = False, sm_scale: float | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` for the output gradient ``do``, from the forward's
+    output ``o`` and ``lse``: the backward kernel on a CUDA tensor (counted
+    in ``flash_attention_backward.launches``), :func:`mha_backward_reference`
+    on a CPU tensor."""
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, o, do, lse, causal, sm_scale)
+    if q.device.type == "cpu":
+        return mha_backward_reference(q, k, v, o, do, lse, causal=causal,
+                                      sm_scale=sm_scale)
+    raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+# launches of the CUDA kernels since each count was last reset to 0: the
+# forward (whatever wrapper launched it) and the backward (one a call of
+# the three-launch backward: delta pass, dK/dV, dQ)
 flash_attention.launches = 0
+flash_attention_backward.launches = 0

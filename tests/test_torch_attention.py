@@ -17,13 +17,22 @@
   and its handling of a zero or negative ``sm_scale`` (the scale inside
   ``exp2`` must be positive).
 * The wrapper's argument checks, which need no card.
-* The CUDA kernel itself runs only on the card (``gpu`` marker): against
-  the plain version on strided views, ragged S and S=1, and the wrapper
-  raising on what the kernel does not take.
+* The backward: the port's plain backward (``mha_backward_reference``)
+  and autograd of its ``mha_reference`` against ``jax.vjp`` of JAX's
+  oracle, the plain log-sum-exp against ``jax.nn.logsumexp``, and the bf16
+  backward kernel's arithmetic emulated on the CPU (P and dS rounded to
+  bf16 before their products) against the float32 gradient, which sizes
+  the card's gradient tolerance; tolerances with their reasons below.
+* The CUDA kernels themselves run only on the card (``gpu`` marker):
+  against the plain versions on strided views, ragged S and S=1, the
+  gradient through the transformer reaching ``blocks.*.qkv``, and the
+  wrappers raising on what the kernels do not take.
 """
 
+import functools
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -317,3 +326,423 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     big = torch.zeros((2, 8, 4, 128), device="cuda")
     with pytest.raises(ValueError):
         tatt.flash_attention(big, big, big)
+
+
+# ---------------------------------------------------------------- backward
+#
+# Gradient tolerances are relative to each gradient tensor's largest
+# element ("of max"), since a gradient's small elements carry the absolute
+# error of its large ones:
+# * float32 plain backward / autograd against jax.vjp: 1e-5 of max (the
+#   same float32 math in another order; measured <= 7e-7);
+# * bfloat16 against jax.vjp: 1e-2 of max (both round the gradients to
+#   bf16 once; the plain backward takes delta from the bf16-rounded output,
+#   as the kernel does, where JAX's softmax transpose uses the float32
+#   one: measured <= 6.4e-3);
+# * the bf16 kernel's arithmetic (emulated below) against the plain
+#   backward: GRAD_TOL_BF16 = 2e-2 of each row's largest element (one
+#   position of one head; tatt.gradient_row_shares), the limit the card's
+#   check holds the kernel to (measured <= 8.7e-3 a row up to S = 2048:
+#   one bf16 ulp of the row's largest element, up to 2**-7, and a little
+#   more from P and dS rounded to bf16 before their products). A share of
+#   the tensor's largest element would let a wrong causal tail pass: the
+#   rows fall off along S. Against the float32 gradient (float32 output
+#   o, where the kernel takes delta from the bf16 one) the same 2e-2 holds
+#   of the tensor's largest element (measured <= 7.4e-3), not row by row:
+#   the bf16 rounding of o moves delta, and rows where dP - delta cancels
+#   move by up to 18 % of their own size;
+# * the float32 kernel: GRAD_TOL_F32 = 1e-4 of each row's largest element
+#   (float32 sums in another order, exp2f for exp);
+# * on the card also GRAD_ATOL = 1e-5, only on the rows whose exact
+#   gradient is 0 (every dq and dk row at S = 1, dq's row 0 under a causal
+#   mask: o = v there), where both sides hold only float32 rounding of
+#   dP - delta, which no share of a maximum bounds.
+GRAD_F32 = 1e-5
+GRAD_BF16_VS_JAX = 1e-2
+GRAD_TOL_BF16 = 2e-2
+GRAD_TOL_F32 = 1e-4
+GRAD_ATOL = 1e-5
+LSE_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def assert_close_of_max(got, ref, tol: float, what: str = "", atol: float = 0.0) -> None:
+    """|got - ref| <= tol * max|ref| + atol elementwise (float32 comparison)."""
+    got = got.float() if isinstance(got, torch.Tensor) else torch.from_numpy(np.array(got, np.float32))
+    ref = ref.float() if isinstance(ref, torch.Tensor) else torch.from_numpy(np.array(ref, np.float32))
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    assert err <= tol * scale + atol, f"{what}: max abs err {err} > {tol} of max {scale} + {atol}"
+
+
+def assert_rows_close_of_max(got, ref, tol: float, which: str, *, causal: bool,
+                             atol: float = 0.0) -> None:
+    """Each row of a [B, S, H, D] gradient within ``tol`` of that row's
+    largest |ref| element (``atol`` off on its exact-zero rows)."""
+    assert got.shape == ref.shape, (which, got.shape, ref.shape)
+    shares = tatt.gradient_row_shares(got, ref, which, causal=causal, atol=atol)
+    worst = float(shares.max()) if shares.numel() else 0.0
+    assert worst <= tol, f"{which}: worst row err {worst} of its row's max > {tol}"
+
+
+def _jax_grads(arrays, dtype, causal, sm_scale):
+    jdt = DTYPES[dtype][0]
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in arrays)
+    _, vjp = jax.vjp(lambda q, k, v: jatt.mha_reference(q, k, v, causal=causal,
+                                                        sm_scale=sm_scale), jq, jk, jv)
+    return [np.asarray(g.astype(jnp.float32)) for g in vjp(jdo)]
+
+
+@pytest.mark.parametrize("sm_scale", [None, 0.37])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_backward_matches_jax_vjp(causal, dtype, sm_scale):
+    arrays = _qkv((2, 96, 3, 32), seed=11) + _qkv((2, 96, 3, 32), seed=12)[:1]
+    ref = _jax_grads(arrays, dtype, causal, sm_scale)
+    tdt = DTYPES[dtype][1]
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in arrays)
+    o = tatt.mha_reference(tq, tk, tv, causal=causal, sm_scale=sm_scale)
+    lse = tatt.lse_reference(tq, tk, causal=causal, sm_scale=sm_scale)
+    plain = tatt.mha_backward_reference(tq, tk, tv, o, tdo, lse, causal=causal,
+                                        sm_scale=sm_scale)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    auto = torch.autograd.grad(tatt.flash_attention(*leaves, causal=causal,
+                                                    sm_scale=sm_scale), leaves, tdo)
+    tol = GRAD_F32 if dtype == "float32" else GRAD_BF16_VS_JAX
+    for name, p, a, r in zip("qkv", plain, auto, ref):
+        assert p.dtype == tdt and a.dtype == tdt
+        assert_close_of_max(p, r, tol, f"plain d{name}")
+        assert_close_of_max(a, r, tol, f"autograd d{name}")
+
+
+@pytest.mark.parametrize("sm_scale", [None, 0.37, -0.3])
+@pytest.mark.parametrize("causal", [False, True])
+def test_lse_reference_matches_jax_logsumexp(causal, sm_scale):
+    q, k, _ = _qkv((2, 80, 3, 16), seed=13)
+    scale = sm_scale if sm_scale is not None else 16 ** -0.5
+    s = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q), jnp.asarray(k)) * scale
+    if causal:
+        s = jnp.where(jnp.tril(jnp.ones((80, 80), bool)), s, jatt._NEG_INF)
+    ref = np.asarray(jax.nn.logsumexp(s, axis=-1))
+    got = tatt.lse_reference(torch.from_numpy(q), torch.from_numpy(k), causal=causal,
+                             sm_scale=sm_scale)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 80)
+    np.testing.assert_allclose(got.numpy(), ref, **LSE_TOL)
+
+
+def emulate_bf16_backward(q, k, v, o, do, lse, *, causal: bool,
+                          sm_scale: float | None = None, tile: int = 64):
+    """The arithmetic of the bf16 backward kernels, on the CPU: delta =
+    rowsum(dO o) in float32 from the bf16 output; float32 scores of the
+    bf16 inputs (exact products summed in float32); P = exp2(s·c − lse·log2
+    e) with c = sm_scale·log2(e), masked entries 0; dS = P (dP − delta);
+    P and dS rounded to bf16 before the dV, dK and dQ products, accumulated
+    in float32 over 64-row tiles; the gradients rounded to bf16 once."""
+    d = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    c = scale * math.log2(math.e)
+    qf, kf, vf, of, dof = (t.float().transpose(1, 2) for t in (q, k, v, o, do))
+    s = q.shape[1]
+    delta = (dof * of).sum(-1)
+    p = torch.exp2((qf @ kf.transpose(-1, -2)) * c
+                   - (lse.float() * math.log2(math.e))[..., None])
+    if causal:
+        p = p.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1), 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    for t0 in range(0, s, tile):
+        sl = slice(t0, t0 + tile)
+        dq += dsb[..., sl] @ kf[:, :, sl]
+        dk += dsb[:, :, sl].transpose(-1, -2) @ qf[:, :, sl]
+        dv += pb[:, :, sl].transpose(-1, -2) @ dof[:, :, sl]
+    return tuple((g * m).transpose(1, 2).bfloat16()
+                 for g, m in ((dq, scale), (dk, scale), (dv, 1.0)))
+
+
+def _bf16_case(s, d, seed, causal, sm_scale=None):
+    q, k, v, do = (torch.from_numpy(a).bfloat16()
+                   for a in _qkv((2, s, 2, d), seed=seed) + _qkv((2, s, 2, d), seed=seed + 1)[:1])
+    o = tatt.mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+    lse = tatt.lse_reference(q, k, causal=causal, sm_scale=sm_scale)
+    return q, k, v, o, do, lse
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("s", [1, 63, 65, 200])
+def test_bf16_backward_arithmetic_fits_the_tolerance(s, d, causal):
+    """The backward kernel's bf16 P and dS stay within GRAD_TOL_BF16 of the
+    float32 gradient (of the same bf16 inputs, exact output) and, row by
+    row, of the plain backward of the bf16 tensors."""
+    q, k, v, o, do, lse = _bf16_case(s, d, 20 + s + d, causal)
+    got = emulate_bf16_backward(q, k, v, o, do, lse, causal=causal)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    exact = tatt.mha_backward_reference(
+        qf, kf, vf, tatt.mha_reference(qf, kf, vf, causal=causal), dof, lse, causal=causal)
+    plain = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=causal)
+    for name, g, e, p in zip("qkv", got, exact, plain):
+        assert g.dtype == torch.bfloat16 and g.shape == q.shape
+        assert_close_of_max(g, e, GRAD_TOL_BF16, f"d{name} vs float32")
+        assert_rows_close_of_max(g, p, GRAD_TOL_BF16, f"d{name}", causal=causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sm_scale", [0.0, -0.3])
+def test_bf16_backward_arithmetic_takes_any_sign_of_scale(sm_scale, causal):
+    """The backward needs no running max, so the scale enters exp2 as it
+    is: zero gives P = 1/l (and dq = dk = 0), a negative one the gradient
+    of the smallest scores' weights."""
+    q, k, v, o, do, lse = _bf16_case(130, 32, 40, causal, sm_scale)
+    got = emulate_bf16_backward(q, k, v, o, do, lse, causal=causal, sm_scale=sm_scale)
+    plain = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=causal,
+                                        sm_scale=sm_scale)
+    for name, g, p in zip("qkv", got, plain):
+        assert bool(torch.isfinite(g.float()).all())
+        if sm_scale == 0.0 and name != "v":
+            assert not g.float().any() and not p.float().any()
+        else:
+            assert_rows_close_of_max(g, p, GRAD_TOL_BF16, f"d{name}", causal=causal)
+
+
+def _causal_grads(s: int = 1024) -> dict:
+    q, k, v, o, do, lse = _bf16_case(s, 32, 60, True)
+    return dict(zip(("dq", "dk", "dv"),
+                    tatt.mha_backward_reference(q, k, v, o, do, lse, causal=True)))
+
+
+@pytest.mark.parametrize("which", ["dq", "dk", "dv"])
+def test_row_shares_fail_a_zeroed_causal_tail(which):
+    """A gradient whose second half along S is zeroed fails the row measure
+    the card holds the kernel to, on every zeroed row and no other."""
+    ref = _causal_grads()[which]
+    bad = ref.clone()
+    bad[:, 512:] = 0
+    shares = tatt.gradient_row_shares(bad, ref, which, causal=True, atol=GRAD_ATOL)
+    assert float(shares[:, :512].max()) == 0.0
+    assert bool((shares[:, 512:] == 1.0).all())
+    with pytest.raises(AssertionError, match="worst row err"):
+        assert_rows_close_of_max(bad, ref, GRAD_TOL_BF16, which, causal=True, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("which", ["dk", "dv"])
+def test_row_shares_see_rows_the_tensor_max_cannot(which):
+    """Under a causal mask dk and dv fall off along S: at S = 1024 most rows
+    of the second half lie below GRAD_TOL_BF16 of the tensor's largest
+    element, so zeroing them passes a share of that element and fails the
+    row measure."""
+    ref = _causal_grads()[which]
+    top = ref.float().abs().amax(-1)
+    small = top < GRAD_TOL_BF16 * float(top.max())
+    assert float(small[:, 512:].float().mean()) > 0.4
+    bad = ref.masked_fill(small[..., None], 0)
+    assert_close_of_max(bad, ref, GRAD_TOL_BF16, which)
+    with pytest.raises(AssertionError, match="worst row err"):
+        assert_rows_close_of_max(bad, ref, GRAD_TOL_BF16, which, causal=True, atol=GRAD_ATOL)
+
+
+def test_row_shares_take_atol_only_on_exact_zero_rows():
+    """GRAD_ATOL comes off every dq and dk row at S = 1 and dq's row 0
+    under a causal mask, and nowhere else."""
+    ref = torch.ones((1, 3, 1, 4))
+    got = ref + 0.5 * GRAD_ATOL
+    for which, causal, zero_rows in (("dq", True, [0]), ("dq", False, []),
+                                     ("dk", True, []), ("dv", True, [])):
+        shares = tatt.gradient_row_shares(got, ref, which, causal=causal, atol=GRAD_ATOL)
+        assert [i for i in range(3) if shares[0, i, 0] == 0.0] == zero_rows, (which, causal)
+    for which, zero in (("dq", True), ("dk", True), ("dv", False)):
+        shares = tatt.gradient_row_shares(got[:, :1], ref[:, :1], which, causal=False,
+                                          atol=GRAD_ATOL)
+        assert (float(shares.max()) == 0.0) == zero, which
+    assert float(tatt.gradient_row_shares(torch.full((1, 2, 1, 4), 1e-3), torch.zeros(
+        (1, 2, 1, 4)), "dv", causal=True, atol=GRAD_ATOL).min()) == math.inf
+
+
+def test_cpu_backward_takes_plain_version_and_counts_no_launch():
+    before = (tatt.flash_attention.launches, tatt.flash_attention_backward.launches)
+    q, k, v, o, do, lse = _bf16_case(33, 16, 50, True)
+    out, lse2 = tatt.flash_attention_forward(q, k, v, causal=True)
+    torch.testing.assert_close(out, o, rtol=0, atol=0)
+    torch.testing.assert_close(lse2, lse, rtol=0, atol=0)
+    got = tatt.flash_attention_backward(q, k, v, o, do, lse, causal=True)
+    ref = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=True)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert (tatt.flash_attention.launches,
+            tatt.flash_attention_backward.launches) == before
+
+
+def test_cpu_grad_goes_through_autograd_of_the_plain_version():
+    """On the CPU a ``requires_grad`` input takes ``mha_reference`` (its
+    autograd graph, no Function); on a CUDA one the Function."""
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv((1, 9, 2, 16), seed=14))
+    out = tatt.flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is not None
+    assert "FlashAttentionFunction" not in type(out.grad_fn).__name__
+
+
+@pytest.mark.parametrize("bad, match", [
+    (lambda q, o, lse: dict(o=o[:, :5]), "o must be"),
+    (lambda q, o, lse: dict(o=o.float()), "o must be"),
+    (lambda q, o, lse: dict(o=o.transpose(1, 2).contiguous().transpose(1, 2)), "contiguous"),
+    (lambda q, o, lse: dict(do=o[..., :16]), "do must be"),
+    (lambda q, o, lse: dict(lse=lse.double()), "lse must be"),
+    (lambda q, o, lse: dict(lse=lse[:, :, :5]), "lse must be"),
+    (lambda q, o, lse: dict(lse=lse.transpose(1, 2).contiguous().transpose(1, 2)), "lse must be"),
+])
+def test_backward_args_refuse_what_the_kernel_does_not_take(bad, match):
+    q = torch.zeros((2, 6, 4, 32), dtype=torch.bfloat16)
+    o = torch.zeros_like(q)
+    lse = torch.zeros((2, 4, 6))
+    kw = dict(o=o, do=o, lse=lse) | bad(q, o, lse)
+    with pytest.raises(ValueError, match=match):
+        tatt.backward_args(q, q, q, kw["o"], kw["do"], kw["lse"])
+
+
+def test_backward_args_copy_a_strided_or_misaligned_do():
+    q = torch.zeros((2, 6, 4, 32), dtype=torch.bfloat16)
+    lse = torch.zeros((2, 4, 6))
+    do = torch.zeros((2, 6, 4, 64), dtype=torch.bfloat16)[..., :32]
+    _, got = tatt.backward_args(q, q, q, q.clone(), do, lse)
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    flat = torch.zeros(2 * 6 * 4 * 32 + 1, dtype=torch.bfloat16)
+    _, got = tatt.backward_args(q, q, q, q.clone(), flat[1:].view(2, 6, 4, 32), lse)
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+
+
+def test_backward_kernel_source_is_plain_c_for_sm90a():
+    from sitewhere_tpu_torch import cuda_build
+
+    src = (cuda_build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert 'extern "C" int swtpu_flash_attention_bwd(' in src
+    assert '#include "flash_common.cuh"' in src
+    assert "torch/extension.h" not in src
+    assert "atomicAdd" not in src          # one thread sums each element
+    fwd = (cuda_build.CSRC / "flash_attention.cu").read_text()
+    assert "float* lse" in fwd
+
+
+def test_kernel_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
+    """An edited ``csrc/*.cuh`` header renames (so rebuilds) every kernel."""
+    from sitewhere_tpu_torch import cuda_build
+
+    for name in ("flash_attention", "flash_attention_bwd"):
+        (tmp_path / f"{name}.cu").write_text("// src\n")
+    (tmp_path / "flash_common.cuh").write_text("// a\n")
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    before = [cuda_build._lib_path(n) for n in ("flash_attention", "flash_attention_bwd")]
+    (tmp_path / "flash_common.cuh").write_text("// b\n")
+    after = [cuda_build._lib_path(n) for n in ("flash_attention", "flash_attention_bwd")]
+    assert all(a != b for a, b in zip(before, after))
+
+
+BWD_GPU_CASES = [  # (B, S, H, D, dtype)
+    (2, 1000, 8, 32, torch.bfloat16),    # ragged: S % 64 != 0
+    (3, 1, 8, 32, torch.bfloat16),
+    (2, 63, 4, 32, torch.bfloat16),
+    (2, 65, 4, 32, torch.bfloat16),
+    (2, 129, 4, 32, torch.bfloat16),
+    (2, 300, 2, 16, torch.bfloat16),
+    (2, 777, 4, 64, torch.bfloat16),
+    (2, 777, 4, 64, torch.float32),
+    (2, 300, 2, 16, torch.float32),
+    (2, 1000, 8, 32, torch.float32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", BWD_GPU_CASES)
+def test_cuda_backward_kernel_matches_plain_version(case, causal):
+    _cuda_or_skip()
+    b, s, h, d, dtype = case
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    qkv = torch.randn((b, s, 3, h, d), device="cuda", generator=gen).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]     # strided views
+    do = torch.randn((b, s, h, d), device="cuda", generator=gen).to(dtype)
+    before = (tatt.flash_attention.launches, tatt.flash_attention_backward.launches)
+    o, lse = tatt.flash_attention_forward(q, k, v, causal=causal)
+    got = tatt.flash_attention_backward(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert (tatt.flash_attention.launches,
+            tatt.flash_attention_backward.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(lse, tatt.lse_reference(q, k, causal=causal),
+                               rtol=1e-4, atol=1e-4)
+    ref = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=causal)
+    tol = GRAD_TOL_F32 if dtype == torch.float32 else GRAD_TOL_BF16
+    for name, g, r in zip("qkv", got, ref):
+        assert g.is_contiguous() and g.dtype == dtype and g.shape == (b, s, h, d)
+        assert bool(torch.isfinite(g.float()).all())
+        assert_rows_close_of_max(g, r, tol, f"d{name}", causal=causal, atol=GRAD_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sm_scale", [0.0, -0.3])
+def test_cuda_backward_kernel_takes_any_sign_of_scale(sm_scale, dtype):
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn((2, 333, 3, 4, 32), device="cuda", generator=gen).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((2, 333, 4, 32), device="cuda", generator=gen).to(dtype)
+    o, lse = tatt.flash_attention_forward(q, k, v, causal=True, sm_scale=sm_scale)
+    got = tatt.flash_attention_backward(q, k, v, o, do, lse, causal=True, sm_scale=sm_scale)
+    ref = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=True, sm_scale=sm_scale)
+    tol = GRAD_TOL_F32 if dtype == torch.float32 else GRAD_TOL_BF16
+    for name, g, r in zip("qkv", got, ref):
+        if sm_scale == 0.0 and name != "v":
+            assert not g.float().any()
+        else:
+            assert_rows_close_of_max(g, r, tol, f"d{name}", causal=True, atol=GRAD_ATOL)
+
+
+@pytest.mark.gpu
+def test_cuda_grad_reaches_the_fused_qkv_weights():
+    """The regression test of the silent fault: on the card the attention's
+    output has a ``grad_fn`` (the Function), its backward runs the kernel
+    once a layer, and every ``blocks.*.qkv`` parameter gets a finite,
+    non-zero gradient, within GRAD_TOL_BF16 of the plain attention's."""
+    _cuda_or_skip()
+    from sitewhere_tpu_torch.models import transformer as ttf
+
+    cfg = ttf.TransformerConfig(sensors=8, d_model=64, heads=2, layers=2, mlp=128)
+    model = ttf.TelemetryTransformer(cfg, device="cuda",
+                                     generator=torch.Generator().manual_seed(0))
+    x = torch.randn((2, 200, 8), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    seen = []
+
+    def spy(q, k, v):
+        out = tatt.flash_attention(q, k, v, causal=True)
+        seen.append(out.grad_fn)
+        return out
+
+    before = tatt.flash_attention_backward.launches
+    ttf.loss_fn(model, x, attention_fn=spy).backward()
+    torch.cuda.synchronize()
+    assert all(fn is not None and "FlashAttentionFunction" in type(fn).__name__
+               for fn in seen) and len(seen) == 2
+    assert tatt.flash_attention_backward.launches == before + 2
+    kernel = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    ttf.loss_fn(model, x, attention_fn=functools.partial(
+        tatt.mha_reference, causal=True)).backward()
+    for n, p in model.named_parameters():
+        g = kernel[n]
+        assert bool(torch.isfinite(g).all()) and bool(g.any()), n
+        if ".qkv." in n:
+            assert_close_of_max(g, p.grad, GRAD_TOL_BF16, n)
+
+
+@pytest.mark.gpu
+def test_cuda_backward_wrapper_refuses_what_the_kernel_does_not_take():
+    _cuda_or_skip()
+    q = torch.zeros((2, 8, 4, 32), device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros((2, 4, 8), device="cuda")
+    with pytest.raises(ValueError):
+        tatt.flash_attention_backward(q, q, q, q.clone(), q, lse[:, :, :4])
+    with pytest.raises(TypeError):
+        tatt.flash_attention_backward(q.half(), q.half(), q.half(), q.half(), q.half(), lse)
+    big = torch.zeros((2, 8, 4, 128), device="cuda")
+    with pytest.raises(ValueError):
+        tatt.flash_attention_backward(big, big, big, big, big, lse)

@@ -64,7 +64,8 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     assert res.returncode == 0, (
         f"the port grew a JAX import:\n{res.stdout}\n{res.stderr}")
     # every module was walked: the wire-ingest and durability modules, the
-    # archive, the outbound feed and the analytics jobs too
+    # archive, the outbound feed, the analytics jobs and the parallel
+    # package too
     count, names = res.stdout.splitlines()[:2]
     assert int(count) >= 50
     assert {"sitewhere_tpu_torch.utils.archive", "sitewhere_tpu_torch.outbound.feed",
@@ -75,7 +76,10 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
             "sitewhere_tpu_torch.utils.flight", "sitewhere_tpu_torch.utils.qos",
             "sitewhere_tpu_torch.utils.autotune", "sitewhere_tpu_torch.utils.devicewatch",
             "sitewhere_tpu_torch.utils.conservation", "sitewhere_tpu_torch.ingest.workers",
-            "sitewhere_tpu_torch.loadgen"} <= set(names.split())
+            "sitewhere_tpu_torch.loadgen",
+            # sequence parallelism
+            "sitewhere_tpu_torch.parallel", "sitewhere_tpu_torch.parallel.ring_attention"
+            } <= set(names.split())
 
 
 _TRAIN_PROBE = r"""

@@ -10,6 +10,8 @@ equal too.
 from __future__ import annotations
 
 import dataclasses
+import pathlib
+import pickle
 
 import numpy as np
 
@@ -160,3 +162,79 @@ class StopAfter:
     def is_set(self) -> bool:
         self.calls += 1
         return self.calls > self.iterations
+
+
+# ----------------------------------------------------------------- gloo ranks
+
+def run_on_gloo_ranks(fn, world: int, tmp, *args) -> list:
+    """``fn(rank, world, *args)`` in ``world`` spawned processes that form
+    one gloo group through a ``file://`` store in ``tmp`` (no port is
+    bound), each with ``torch.set_num_threads(1)``; returns each rank's
+    return value (pickled through ``tmp``). ``fn`` and ``args`` must pickle:
+    a module-level function of an importable module, numpy arrays."""
+    import torch.multiprocessing as mp
+
+    tmp = pathlib.Path(tmp)
+    mp.spawn(_gloo_child, args=(world, str(tmp), fn, args), nprocs=world, join=True)
+    return [pickle.loads((tmp / f"rank{r}.pkl").read_bytes()) for r in range(world)]
+
+
+def _gloo_child(rank: int, world: int, tmp: str, fn, args) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world)
+    try:
+        out = fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+    pathlib.Path(tmp, f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def sp_worker(rank: int, world: int, case: dict) -> dict:
+    """The port's sequence-parallel functions on one gloo rank, for
+    ``tests/test_torch_ring_attention.py``: every rank gets the whole seeded
+    inputs and returns numpy results. ``case``: ``qkv`` (q, k, v and an
+    output gradient ``do``, [B, S, H, D] float32), ``x`` [B, S, C],
+    ``cfg`` (``TransformerConfig`` keywords, float32) and ``state`` (the
+    model's ``state_dict`` as numpy)."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed.nn.functional as dist_fn
+
+    from sitewhere_tpu_torch.models import transformer as ttf
+    from sitewhere_tpu_torch.parallel import ring_attention as rat
+
+    out: dict = {}
+    q, k, v, do = (torch.from_numpy(a) for a in case["qkv"])
+    for name, fn in (("ring", rat.ring_attention_sharded),
+                     ("ulysses", rat.ulysses_attention_sharded)):
+        for causal in (False, True):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            res = fn(*leaves, causal=causal)
+            (res * do).sum().backward()
+            key = f"{name}_{'causal' if causal else 'full'}"
+            out[key] = res.detach().numpy()
+            out[key + "_grads"] = [t.grad.numpy() for t in leaves]
+
+    cfg = ttf.TransformerConfig(**case["cfg"], dtype=torch.float32)
+    model = ttf.TelemetryTransformer(cfg, device="cpu")
+    model.load_state_dict({n: torch.from_numpy(a) for n, a in case["state"].items()})
+    x = torch.from_numpy(case["x"])
+    scores = ttf.forecast_scores_sp(model, x)
+    scores.mean().backward()
+    out["scores"] = scores.detach().numpy()
+    out["grads"] = {n: p.grad.numpy() for n, p in model.named_parameters()}
+
+    # the trap: torch's autograd-aware all_reduce sums the gradient again
+    local = torch.full((3,), float(rank + 1), requires_grad=True)
+    dist_fn.all_reduce(local.clone()).sum().backward()
+    naive = local.grad.clone()
+    local.grad = None
+    rat.all_sum(local).sum().backward()
+    out["all_reduce_grad"] = naive.numpy()
+    out["all_sum_grad"] = local.grad.numpy()
+    out["world"] = dist.get_world_size()
+    return out
