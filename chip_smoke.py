@@ -9,7 +9,10 @@ Phases, each printed as one JSON line:
              nvcc (all sources at once) and loads it.
 2. kernel  — one record per kernel (window_features; flash_attention;
              flash_attention_backward, whose record also checks the
-             forward's log-sum-exp): holds it against its plain PyTorch
+             forward's log-sum-exp and that two calls give the same bits,
+             and gives ptxas's registers and spills, the kernel's time over
+             the library call's, TFLOP/s and the bound's share of its
+             time): holds it against its plain PyTorch
              version on the card at its main path's shapes and edge
              shapes, and times kernel, plain version, the one PyTorch call
              that computes the same function where there is one
@@ -198,6 +201,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
@@ -443,6 +447,36 @@ def flash_backward_floors_ms(b: int, s: int, h: int, d: int, causal: bool,
             "exponentials": pairs / PEAK_EXP_PER_S * 1e3}
 
 
+def ptxas_resources(text: str, prefix: str = "flash_bwd") -> dict:
+    """Registers and spill bytes of each entry function whose name starts
+    with ``prefix``, from ``ptxas -v`` output (``cuda_build.build_info``):
+    ``{"flash_bwd_bf16_kernel<32>": {"registers": 168, "spill_stores": 0,
+    "spill_loads": 0}, ...}``; bf16 / f32 in the name where the kernel is
+    templated on the type."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            k = re.search(r"\d+(%s\w*?_kernel)I(.*)EEv" % prefix, m.group(1))
+            name = None
+            if k:
+                d = re.search(r"Li(\d+)E", k.group(2))
+                t = ("bf16," if "bfloat16" in k.group(2)
+                     else "f32," if k.group(2).startswith("f") else "")
+                name = f"{k.group(1)}<{t}{d.group(1) if d else '?'}>"
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def fused_qkv(b: int, s: int, h: int, d: int, dtype, device, gen):
     """q, k, v as the transformer hands them to the attention: the three
     strided views of one [B, S, 3, H, D] tensor."""
@@ -628,12 +662,18 @@ def phase_kernel_flash_backward(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 
     = 63, 64, 65, 129, causal and not), D = 16 and 64 in bf16 and float32,
     and with a zero and a negative ``sm_scale``. Each row of each gradient
     within GRAD_TOL of that row's largest element (GRAD_ATOL off on the
-    rows whose exact gradient is 0), the lse within LSE_TOL. Times the
-    kernel (one backward call: delta pass, dK/dV, dQ), the plain backward
-    and the library yardstick: SDPA forward+backward (``torch.autograd.grad``
-    of its output for dO, so no ``.grad`` accumulates) minus SDPA's forward
-    alone with grad enabled (the forward that saves the log-sum-exp), at
-    the main shape and at S = 4096 in bf16 and float32."""
+    rows whose exact gradient is 0), the lse within LSE_TOL; at the main
+    shape a second call must give the same bits (dQ is summed across key
+    blocks in a fixed order). Times the kernel (one backward call: prep
+    pass, main kernel, dQ to bf16), the plain backward and the library
+    yardstick: SDPA forward+backward (``torch.autograd.grad`` of its output
+    for dO, so no ``.grad`` accumulates) minus SDPA's forward alone with
+    grad enabled (the forward that saves the log-sum-exp), at the main
+    shape and at S = 4096 in bf16 and float32; each timing also gives the
+    kernel's time over SDPA's (``vs_library``), the useful product rate of
+    the five products a live pair (``tflops``) and the bound's share of the
+    kernel's time (``bound_share``). The record carries ptxas's registers
+    and spills of every backward kernel."""
     gen = torch.Generator(device=device).manual_seed(2)
     b, s, h, d = main
     bf16, f32 = torch.bfloat16, torch.float32
@@ -663,6 +703,13 @@ def phase_kernel_flash_backward(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 
         do = torch.randn(q.shape, device=device, generator=gen).to(q.dtype)
         o, lse = fa.flash_attention_forward(q, k, v, causal=causal, sm_scale=scale)
         got = fa.flash_attention_backward(q, k, v, o, do, lse, causal=causal, sm_scale=scale)
+        if name == "main":
+            again = fa.flash_attention_backward(q, k, v, o, do, lse, causal=causal,
+                                                sm_scale=scale)
+            bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
+            fails.check(bitwise, "flash_attention_backward gives other bits on a second call "
+                                 f"at the main shape {tuple(q.shape)}")
+            del again
         if device.type == "cuda":
             torch.cuda.synchronize()
         ref_lse = lse_per_window(q, k, causal, scale)
@@ -718,12 +765,19 @@ def phase_kernel_flash_backward(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 
                                     device, reps=reps, warmup=2)
         floors = flash_backward_floors_ms(*q.shape, causal, q.dtype)
         binding = max(floors, key=floors.get)
+        bq, sq, hq, dq_ = q.shape
+        pairs = bq * hq * (sq * (sq + 1) // 2 if causal else sq * sq)
         t.update(shape=list(q.shape), dtype=str(q.dtype), floors_ms=floors,
                  binding_floor=binding, bound_ms=floors[binding],
-                 bound_by="bytes" if binding == "bytes" else "operations")
+                 bound_by="bytes" if binding == "bytes" else "operations",
+                 vs_library=t["ms"] / t["library_ms"],
+                 tflops=10 * dq_ * pairs / (t["ms"] * 1e-3) / 1e12,
+                 bound_share=floors[binding] / t["ms"])
         timings[name] = t
         del qt, kt, vt
+    ptxas = ptxas_resources(cuda_build.build_info.get(fa.BWD_KERNEL, {}).get("ptxas", ""))
     rec = {"phase": "kernel", "name": "flash_attention_backward",
+           "bitwise_deterministic_main": bitwise, "ptxas": ptxas,
            "tol_of_row_max": {str(k): v for k, v in GRAD_TOL.items()},
            "atol_on_exact_zero_rows": GRAD_ATOL,
            "lse_tol": LSE_TOL, "max_abs_err": errs, "lse_max_abs_err": lse_errs,
@@ -737,7 +791,10 @@ def phase_kernel_flash_backward(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 
                 max_err_of_max=max(e["abs"] / e["max_ref"] for e in errs["main"].values()),
                 max_row_share=max(e["row_share"] for e in errs["main"].values()),
                 ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                bound_by=t["bound_by"], library_ms=t["library_ms"])
+                bound_by=t["bound_by"], library_ms=t["library_ms"],
+                vs_library=t["vs_library"], tflops=t["tflops"],
+                bound_share=t["bound_share"], bitwise_deterministic=bitwise,
+                ptxas={k: v for k, v in ptxas.items() if "f32" not in k})
 
 
 # the entry phase's rule set: every rule kind on "temp" (standard normal

@@ -7,8 +7,7 @@
 // (sitewhere_tpu/models/transformer.py:153) takes jax.value_and_grad
 // through flash_attention, which off the TPU is the oracle
 // sitewhere_tpu/ops/attention.py:40 mha_reference; its Pallas kernel has no
-// gradient of its own. This is the gradient of exact softmax attention,
-// FA2's backward:
+// gradient of its own. This is the gradient of exact softmax attention:
 //
 //   delta_i = sum_d dO_id O_id                 (a small pass, float32)
 //   P_ij    = exp(scale q_i.k_j - lse_i)       (recomputed, never stored)
@@ -18,70 +17,106 @@
 //   dK_j    = scale sum_i dS_ij q_i
 //   dQ_i    = scale sum_j dS_ij k_j
 //
-// Three launches on the caller's stream: the delta pass (which also turns
-// lse into base 2 for exp2), a dK/dV kernel and a dQ kernel. Each block of
-// the dK/dV kernel owns (batch, head, 64 keys) and walks the query tiles;
-// each block of the dQ kernel owns (batch, head, 64 query rows) and walks
-// the key tiles. Two kernels and not one with atomic adds into dQ: every
-// element is summed by one thread in a fixed order, so the result is the
-// same from run to run, which the card-against-card checks need. Causal:
-// the dK/dV kernel starts at the query tile of its first key, the dQ
-// kernel stops at the key tile of its last row, and the tiles on the
-// diagonal are masked per element. Masked (query, key) pairs have P = 0,
-// as the oracle's -1e30 scores give once the softmax is taken.
-//
-// * bfloat16 (the transformer's path): tensor cores, mma.sync m16n8k16
-//   (bf16 in, float32 accumulate), the forward's building blocks
-//   (flash_common.cuh). A warp owns 16 rows (keys in dK/dV, queries in dQ)
-//   whose operands stay in registers as A fragments; the other side's
-//   64-row tiles come through a 2-stage cp.async ring in padded shared
-//   memory and reach the tensor cores through ldmatrix (.trans where the
-//   tile is the k dimension). dK/dV computes S^T = K Q^T and dP^T = V dO^T
-//   so that P^T and dS^T come out in the accumulator layout, which is the
-//   A layout of dV += P^T dO and dK += dS^T Q: P and dS never go through
-//   shared memory; they are rounded to bf16 before those products, as the
-//   forward rounds P. dQ computes S = Q K^T, dP = dO V^T and dQ += dS K
-//   the same way. lse and delta come along as float32 rows of the tile.
+// * bfloat16 (the transformer's path): one pass over the (query, key)
+//   pairs, FA3's backward for Hopper, in three launches on the caller's
+//   stream: a prep pass (delta; lse in base 2; the turn counters zeroed),
+//   the main kernel and a pass that scales the float32 dQ and rounds it to
+//   bf16. A block of the main kernel owns (batch, head, 128 keys) and walks
+//   the 64-row query tiles; its K and V tiles stay in shared memory.
+//   - Warp-specialised: warpgroups 0 and 1 (64 keys each) compute; in
+//     warpgroup 2 one warp issues the TMA loads (cp.async.bulk.tensor of
+//     the Q and dO tiles through 4-d tensor maps that describe the strided
+//     q/k/v views in place, and bulk copies of the tile's lse and delta)
+//     into a 2-stage ring guarded by mbarriers, and three warps hand dQ on
+//     (below). setmaxnreg asks 232 registers a thread for the compute
+//     warpgroups and gives warpgroup 2 40.
+//   - Five wgmma products a tile, one exponential a pair: S^T = K Q^T and
+//     dP^T = V dO^T from shared memory; P^T = exp2(S^T scale log2e -
+//     lse2) (ex2.approx, the scale folded into one FMA) and dS^T = P^T
+//     (dP^T - delta) in the accumulator registers, which, rounded to bf16,
+//     are the register A operands of dV += P^T dO and dK += dS^T Q (dO
+//     and Q read transposed from the same tiles); dS^T also goes to shared
+//     memory (128-byte swizzle, written by hand) as the transposed A of
+//     dQ_tile = dS K against the block's own K tile. Causal: the block
+//     starts at the query tile of its first key; the diagonal and the
+//     ragged last key block are masked per element. Masked (query, key)
+//     pairs have P = 0, as the oracle's -1e30 scores give once the
+//     softmax is taken; padded query rows carry lse2 = +inf, so P = 0.
+//   - The swizzle of each tile is its row width: 32, 64 or 128 bytes for
+//     D = 16, 32, 64, the same in the tensor map and in every wgmma
+//     descriptor (K-major for the S and dP products, MN-major for the
+//     others); each tile starts on a 1024-byte boundary.
+//   - dQ, deterministic: warpgroup 0 stores its dQ_tile in shared memory
+//     (two buffers, one a tile in turn) and warpgroup 1 adds its own; the
+//     writer warp hands the sum to a bulk copy into a float32 [B H, S, D]
+//     accumulator: key block 0 stores, every later block adds
+//     (cp.reduce.async.bulk) once the turn counter of that (batch, head,
+//     query tile) says that every earlier key block has added. A watcher
+//     warp polls the next tiles' counters ahead of the writer and a passer
+//     warp bumps a tile's counter once its add is complete, mbarriers
+//     between the three (with the poll and the release fence on its own
+//     path the writer set the pace of the whole kernel). So each element is summed in the same order on
+//     every run, and the gradient is bitwise identical from run to run; no
+//     block waits on a later one (blockIdx.x = key block x B H + (batch,
+//     head), so earlier key blocks are dispatched first, and they have
+//     the most query tiles under a causal mask). A wait that outlasts ~10
+//     s traps instead of hanging the card.
 // * float32: CUDA cores, float32 products (tensor cores would mean TF32,
-//   about 3 decimal digits): one thread per key (dK/dV) or per query (dQ)
-//   with its own row and accumulators in registers, the other side's
-//   tiles of 32 rows in shared memory. At D = 64 the dK/dV thread holds
-//   4 x 64 floats and spills; it is not on the transformer's path.
+//   about 3 decimal digits), two kernels after the prep pass: one thread
+//   per key (dK/dV) or per query (dQ) with its own row and accumulators in
+//   registers, the other side's tiles of 32 rows in shared memory. At
+//   D = 64 the dK/dV thread holds 4 x 64 floats and spills; it is not on
+//   the transformer's path.
 //
 // q, k and v are read in place through (batch, row, head) strides with unit
 // stride on D (the strided views of one fused qkv product); o and dO are
 // contiguous [B, S, H, D]; dq, dk and dv are written contiguous. Any S;
 // head dims 16, 32, 64. bf16 needs 16-byte aligned base pointers and
-// strides that are a multiple of 8 elements.
+// strides that are a multiple of 8 elements (TMA takes 16-byte strides).
+// The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint (no link against libcuda).
 //
 // Bound: operations. At the transformer's shape (B=8, S=16384, H=8, D=32,
 // bf16, causal) there are 8.6e9 live (query, key) pairs. The backward does
-// five products a pair (S, dP, dV, dK, dQ; S is computed twice, once in
-// each kernel, which the bound does not count), 2.5x the forward's 1.1e12
+// five products a pair (S, dP, dV, dK, dQ), 2.5x the forward's 1.1e12
 // operations: 2.75e12 at 989 TFLOP/s is 2.78 ms. It takes one exponential
-// a live pair (2.05 ms at 16 per SM per clock; the two kernels each take
-// one, 4.1 ms as written) and moves about 0.55 GB (0.16 ms). The design
-// keeps every [S, S] intermediate in registers; what it leaves on the
-// table is the second exponential and S product, and mma.sync instead of
-// wgmma.
+// a live pair (2.05 ms at 16 per SM per clock) and moves about 0.55 GB
+// (0.16 ms) plus the float32 dQ accumulator's traffic through L2.
+
+#include <cuda.h>
 
 #include "flash_common.cuh"
 
 namespace {
 
-// ------------------------------------------------------------ delta pass
+// ------------------------------------------------------------- prep pass
 
 // delta[bh][i] = sum_d dO[b, i, h, d] O[b, i, h, d] and lse2[bh][i] =
-// lse[bh][i] log2(e), one thread a (b, i, h) row
+// lse[bh][i] log2(e), one thread a (b, i, h) row, rows `pitch` apart; then
+// the padded rows i in [s, pitch) of every bh (lse2 = +inf, so P = 0
+// there; delta = 0) and n_turns turn counters set to 0
 template <typename T, int D>
 __global__ void flash_bwd_prep_kernel(const T* __restrict__ o,
                                       const T* __restrict__ dout,
                                       const float* __restrict__ lse,
                                       float* __restrict__ delta,
-                                      float* __restrict__ lse2, int64_t rows,
-                                      int s, int h) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
+                                      float* __restrict__ lse2,
+                                      int* __restrict__ turns, int64_t rows,
+                                      int s, int h, int pitch,
+                                      int64_t pad_rows, int64_t n_turns) {
+  int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= rows) {
+    r -= rows;
+    if (r < pad_rows) {
+      const int64_t pad = pitch - s;
+      const int64_t idx = (r / pad) * pitch + s + r % pad;
+      delta[idx] = 0.0f;
+      lse2[idx] = INFINITY;
+    } else if (r - pad_rows < n_turns) {
+      turns[r - pad_rows] = 0;
+    }
+    return;
+  }
   const T* op = o + r * D;
   const T* dp = dout + r * D;
   float acc = 0.0f;
@@ -93,14 +128,14 @@ __global__ void flash_bwd_prep_kernel(const T* __restrict__ o,
       acc = fmaf(op[c], dp[c], acc);
     }
   }
-  // r = (b s + i) h + hd  ->  (b h + hd) s + i
+  // r = (b s + i) h + hd  ->  (b h + hd) pitch + i
   const int64_t hd = r % h;
   const int64_t bi = r / h;
   const int64_t i = bi % s;
   const int64_t b = bi / s;
-  const int64_t idx = (b * h + hd) * s + i;
+  const int64_t idx = (b * h + hd) * pitch + i;
   delta[idx] = acc;
-  lse2[idx] = lse[idx] * kLog2e;
+  lse2[idx] = lse[(b * h + hd) * s + i] * kLog2e;
 }
 
 // ---------------------------------------------------------------- float32
@@ -307,363 +342,582 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 
 // --------------------------------------------------------------- bfloat16
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // a block's own rows, 16 a warp
-constexpr int kTileN = 64;          // rows of the other side a shared tile
-constexpr int kNT = kTileN / 8;     // 8-wide column tiles of S (or S^T)
-constexpr int kStages = 2;          // cp.async ring depth
-constexpr int kPad = 8;             // bf16 of padding a shared row
+constexpr int kBM = 64;         // query rows a tile
+constexpr int kBN = 128;        // keys a block: two compute warpgroups of 64
+constexpr int kStages = 2;      // Q / dO ring depth
+constexpr int kThreads = 384;   // compute warpgroups 0, 1; loader/writer 2
+constexpr int kComputeRegs = 232;
+constexpr int kLoaderRegs = 40;
 
 template <int D>
-struct BwdTile {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  static constexpr int kRow = D + kPad;          // shared row, elements
-  static constexpr int kChunks = D / 8;          // 16-byte chunks a row
-  static constexpr int kElems = kTileN * kRow;   // one tile
-  static constexpr int kCopies = kTileN * kChunks;
+struct BwdSmem {  // byte offsets from a 1024-byte aligned base
+  static_assert(D == 16 || D == 32 || D == 64, "D must be 16, 32 or 64");
+  static constexpr int kRowB = 2 * D;             // a tile row; = its swizzle
+  static constexpr int kTileB = kBM * kRowB;      // a Q or dO tile
+  static constexpr int kK = 0;                    // K [kBN][D]
+  static constexpr int kV = kK + kBN * kRowB;     // V [kBN][D]
+  static constexpr int kQ = kV + kBN * kRowB;     // Q [kStages][kBM][D]
+  static constexpr int kDO = kQ + kStages * kTileB;
+  static constexpr int kDS = kDO + kStages * kTileB;  // dS^T [2][64][64] bf16
+  static constexpr int kDQ = kDS + 2 * 64 * 128;      // dQ [2][kBM * D] float
+  static constexpr int kRows = kDQ + 2 * kBM * D * 4; // [kStages][lse2, delta][kBM]
+  static constexpr int kBar = kRows + kStages * 2 * kBM * 4;
+  // mbarriers: full[kStages], empty[kStages], kv, then two each of
+  // dq_half, dq_full, dq_empty, turn, done, passed
+  static constexpr int kBytes = kBar + (2 * kStages + 13) * 8;
+  static_assert(kTileB % 1024 == 0, "tiles start on 1024 bytes");
+  // wgmma descriptor layout type of a [rows][D] tile: 1 = 128 B swizzle,
+  // 2 = 64 B, 3 = 32 B (the tensor map's CU_TENSOR_MAP_SWIZZLE_* match)
+  static constexpr int kSwizzle = D == 64 ? 1 : (D == 32 ? 2 : 3);
 };
 
-// A fragments (m16n8k16, row-major A) of 16 rows x D of a strided [., S, .,
-// D] view: the forward's Q load. Rows past S are zeros.
-template <int D>
-__device__ __forceinline__ void load_a_frags(const __nv_bfloat16* base,
-                                             int64_t row_stride, int row0,
-                                             int s, int g, int t,
-                                             uint32_t (&f)[D / 16][4]) {
+// -- PTX wrappers: mbarriers, TMA, bulk copies, wgmma --------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// a wait that lasts this many SM clocks (~10 s) traps: a fault the caller
+// sees, where a lost arrival or turn would otherwise hang the card
+constexpr long long kWatchdogClocks = 1ll << 34;
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// wait until the barrier's phase with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > kWatchdogClocks) __trap();
+}
+
+// a [rows][D] box of a 4-d (d, head, row, batch) tensor map into shared
+// memory, swizzled as the map says; completes `bar`'s transaction bytes
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(float* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void add_release(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// registers an asynchronous wgmma writes: no read moves above the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    const bool live = row < s;
-    const uint32_t* p = reinterpret_cast<const uint32_t*>(
-        base + static_cast<int64_t>(live ? row : 0) * row_stride);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// shared memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the layout (swizzle) type in bits 62-63
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+// wgmma m64nNk16, bf16 in, float32 accumulators: d[4 j + r] of a thread
+// (lane = 4 g + t, warp w of the warpgroup) is row 16 w + g + 8 (r >> 1),
+// column 8 j + 2 t + (r & 1); the register A fragment of a k16 step is the
+// mma.m16n8k16 one, so an accumulator's columns 16 kk .. 16 kk + 15, packed
+// in pairs, are the A operand of the next product's step kk
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  // d [64, 16] (+)= A (shared, descriptor a) B (shared, descriptor b)
+  template <int kTransA, int kTransB>
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+  }
+  // d [64, 16] += A (registers, the m64k16 fragment) B (shared, descriptor b)
+  template <int kTransB>
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+          "n"(kTransB));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  // d [64, 32] (+)= A (shared, descriptor a) B (shared, descriptor b)
+  template <int kTransA, int kTransB>
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+  }
+  // d [64, 32] += A (registers, the m64k16 fragment) B (shared, descriptor b)
+  template <int kTransB>
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+          "n"(kTransB));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // d [64, 64] (+)= A (shared, descriptor a) B (shared, descriptor b)
+  template <int kTransA, int kTransB>
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+  }
+  // d [64, 64] += A (registers, the m64k16 fragment) B (shared, descriptor b)
+  template <int kTransB>
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+          "n"(kTransB));
+  }
+};
+
+
+// the accumulator's 16 kk .. 16 kk + 15 columns as bf16 A fragments
+__device__ __forceinline__ void pack_a(const float (&c)[32], uint32_t (&a)[4][4]) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      f[kk][r] = live ? __ldg(p + kk * 8 + t) : 0u;
-      f[kk][r + 2] = live ? __ldg(p + kk * 8 + 4 + t) : 0u;
-    }
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(c[8 * kk + 2 * e], c[8 * kk + 2 * e + 1]);
   }
 }
 
-// c[nt] += A (16 x D, registers) times tile^T (tile: kTileN rows x D in
-// shared memory): [16, kTileN] in the accumulator layout
 template <int D>
-__device__ __forceinline__ void mma_a_tile_t(const uint32_t (&a)[D / 16][4],
-                                             const __nv_bfloat16* tile,
-                                             int lane, float (&c)[kNT][4]) {
-  constexpr int kRow = BwdTile<D>::kRow;
-#pragma unroll
-  for (int p = 0; p < kNT / 2; ++p) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      // matrices: rows 16p + 0..7 / 8..15 x d 16kk + 0..7 / 8..15
-      const int row = 16 * p + (lane & 7) + ((lane >> 4) << 3);
-      const int col = 16 * kk + ((lane >> 3) & 1) * 8;
-      uint32_t bf[4];
-      ldmatrix_x4(smem_addr(tile + row * kRow + col), bf);
-      mma_bf16(c[2 * p], a[kk], bf[0], bf[1]);
-      mma_bf16(c[2 * p + 1], a[kk], bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[i] += A (16 x kTileN, bf16 fragments from the accumulator layout)
-// times tile (kTileN rows x D in shared memory): [16, D]
-template <int D>
-__device__ __forceinline__ void mma_frags_tile(const uint32_t (&a)[kNT / 2][4],
-                                               const __nv_bfloat16* tile,
-                                               int lane,
-                                               float (&acc)[D / 8][4]) {
-  constexpr int kRow = BwdTile<D>::kRow;
-#pragma unroll
-  for (int kk = 0; kk < kNT / 2; ++kk) {
-#pragma unroll
-    for (int p = 0; p < D / 16; ++p) {
-      // matrices: rows 16kk + 0..7 / 8..15 x d 16p + 0..7 / 8..15,
-      // transposed on the way to the registers
-      const int row = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int col = 16 * p + (lane >> 4) * 8;
-      uint32_t bf[4];
-      ldmatrix_x4_trans(smem_addr(tile + row * kRow + col), bf);
-      mma_bf16(acc[2 * p], a[kk], bf[0], bf[1]);
-      mma_bf16(acc[2 * p + 1], a[kk], bf[2], bf[3]);
-    }
-  }
-}
-
-// accumulator tiles as A fragments of the next product: the m16n8
-// accumulator layout is the m16n8k16 A layout
-__device__ __forceinline__ void pack_frags(const float (&c)[kNT][4],
-                                           uint32_t (&f)[kNT / 2][4]) {
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    f[nt / 2][(nt & 1) * 2] = pack_bf16(c[nt][0], c[nt][1]);
-    f[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(c[nt][2], c[nt][3]);
-  }
-}
-
-// a warp's [16, D] float32 accumulator, times mul, as bf16 rows of a
-// contiguous [B, S, H, D] tensor (rows past S are not written)
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
-                                           float mul, __nv_bfloat16* out,
-                                           int b, int row0, int s, int h,
-                                           int hd, int g, int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= s) continue;
-    __nv_bfloat16* p = out + ((static_cast<int64_t>(b) * s + row) * h + hd) * D;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<uint32_t*>(p + i * 8 + 2 * t) =
-          pack_bf16(acc[i][2 * r] * mul, acc[i][2 * r + 1] * mul);
-  }
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + t;
-// accumulator c[0..1] = (g, 2t..2t+1), c[2..3] = (g+8, 2t..2t+1). In this
-// kernel the 16 rows of a warp are keys and the columns queries.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const __nv_bfloat16* __restrict__ dout,
-                           const float* __restrict__ lse2,
-                           const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, int s, int h,
-                           int num_bh, Strides qs, Strides ks, Strides vs,
-                           float scale_log2e, float scale, int causal) {
-  using Tile = BwdTile<D>;
-  constexpr int kRow = Tile::kRow, kChunks = Tile::kChunks;
-  // [stage][0: Q, 1: dO][query][kRow]; [stage][0: lse2, 1: delta][query]
-  __shared__ __align__(128) __nv_bfloat16 smem[kStages][2][Tile::kElems];
-  __shared__ __align__(16) float rows[kStages][2][kTileN];
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const float* __restrict__ lse2,   // [bh][m_tiles kBM]
+                      const float* __restrict__ delta,  // [bh][m_tiles kBM]
+                      float* __restrict__ dq_acc,       // [bh][m_tiles][kBM D]
+                      int* __restrict__ turns,          // [bh][m_tiles]
+                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                      int s, int h, int num_bh, int m_tiles, float scale_log2e,
+                      float scale, int causal) {
+  using L = BwdSmem<D>;
+  constexpr int kRowB = L::kRowB;
+  constexpr int kSbo = 8 * kRowB;  // 8 rows of a [rows][D] tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  const uint32_t bar_full = base + L::kBar;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const uint32_t bar_kv = bar_empty + 8 * kStages;
+  // [2] each, slot i & 1 for the i-th query tile of the block
+  const uint32_t bar_dq_half = bar_kv + 8;        // warpgroup 0 -> 1
+  const uint32_t bar_dq_full = bar_dq_half + 16;  // warpgroup 1 -> writer
+  const uint32_t bar_dq_empty = bar_dq_full + 16; // writer -> warpgroups
+  const uint32_t bar_turn = bar_dq_empty + 16;    // [2] watcher -> writer
+  const uint32_t bar_done = bar_turn + 16;       // [2] writer -> passer
+  const uint32_t bar_passed = bar_done + 16;     // [2] passer -> watcher
 
   const int bh = blockIdx.x % num_bh;
-  const int kt = blockIdx.x / num_bh;  // the first key tiles have most work
+  const int nb = blockIdx.x / num_bh;  // key block; the first have most work
   const int b = bh / h;
   const int hd = bh - b * h;
+  const int key0 = nb * kBN;
+  const int m_first = causal ? key0 / kBM : 0;  // earlier queries see none of its keys
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int key0 = kt * kRows;
-  const int warp_key = key0 + 16 * warp;  // the warp's first key
+  const int wg = warp >> 2;
 
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a_frags<D>(k + b * ks.b + hd * ks.h, ks.s, warp_key, s, g, t, kf);
-  load_a_frags<D>(v + b * vs.b + hd * vs.h, vs.s, warp_key, s, g, t, vf);
-
-  const __nv_bfloat16* qb = q + b * qs.b + hd * qs.h;
-  const __nv_bfloat16* db = dout + (static_cast<int64_t>(b) * s * h + hd) * D;
-  const float* lb = lse2 + static_cast<int64_t>(bh) * s;
-  const float* eb = delta + static_cast<int64_t>(bh) * s;
-
-  auto load_tile = [&](int tile, int stage) {
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < (Tile::kCopies + kThreads - 1) / kThreads; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      if (Tile::kCopies % kThreads != 0 && e >= Tile::kCopies) break;
-      const int r = e / kChunks, c = e % kChunks;
-      const int row = tile * kTileN + r;
-      const bool valid = row < s;
-      const int64_t src = valid ? row : 0;
-      cp_async16(smem_addr(&smem[stage][0][r * kRow + c * 8]),
-                 qb + src * qs.s + c * 8, valid);
-      cp_async16(smem_addr(&smem[stage][1][r * kRow + c * 8]),
-                 db + src * h * D + c * 8, valid);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, 8);  // lane 0 of each compute warp
     }
-    if (threadIdx.x < 2 * kTileN) {
-      const int which = threadIdx.x / kTileN, r = threadIdx.x % kTileN;
-      const int row = tile * kTileN + r;
-      const bool valid = row < s;
-      cp_async4(smem_addr(&rows[stage][which][r]),
-                (which == 0 ? lb : eb) + (valid ? row : 0), valid);
+    mbar_init(bar_kv, 1);
+#pragma unroll
+    for (int slot = 0; slot < 2; ++slot) {
+      mbar_init(bar_dq_half + 8 * slot, 1);
+      mbar_init(bar_dq_full + 8 * slot, 1);
+      mbar_init(bar_dq_empty + 8 * slot, 1);
+      mbar_init(bar_turn + 8 * slot, 1);
+      mbar_init(bar_done + 8 * slot, 1);
+      mbar_init(bar_passed + 8 * slot, 1);
     }
-  };
-
-  float dkc[D / 8][4], dvc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dkc[i][e] = dvc[i][e] = 0.0f;
-
-  // queries before the block's first key see none of its keys
-  const int first = causal ? key0 / kTileN : 0;
-  const int n_tiles = (s + kTileN - 1) / kTileN;
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (first + st < n_tiles) load_tile(first + st, st);
-    cp_async_commit();  // one group per slot, empty or not, keeps the count
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int j = first; j < n_tiles; ++j) {
-    const int it = j - first;
-    cp_async_wait<kStages - 2>();  // this thread's copies of tile j landed
-    __syncthreads();  // ... everyone's; and tile j-1's slot is free again
-    if (j + kStages - 1 < n_tiles)
-      load_tile(j + kStages - 1, (it + kStages - 1) % kStages);
-    cp_async_commit();
-
-    const int q0 = j * kTileN;
-    // a causal tile wholly before this warp's keys adds nothing to them
-    if (causal && q0 + kTileN - 1 < warp_key) continue;
-    const __nv_bfloat16* qt = smem[it % kStages][0];
-    const __nv_bfloat16* dt = smem[it % kStages][1];
-    const float* lt = rows[it % kStages][0];
-    const float* et = rows[it % kStages][1];
-
-    float sc[kNT][4], dp[kNT][4];  // S^T, dP^T: [16 keys, 64 queries]
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoaderRegs));
+    if (warp == 8 && lane == 0) {  // ------------------------------ loader
+      mbar_expect_tx(bar_kv, 2 * kBN * kRowB);
 #pragma unroll
-    for (int i = 0; i < kNT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.0f;
-    mma_a_tile_t<D>(kf, qt, lane, sc);
-    mma_a_tile_t<D>(vf, dt, lane, dp);
-
-    const bool edge = (causal && q0 < warp_key + 15) || q0 + kTileN > s;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        float p = exp2_approx(fmaf(sc[nt][e], scale_log2e, -lt[col]));
-        if (edge) {
-          const int query = q0 + col, key = warp_key + g + 8 * (e >> 1);
-          if (query >= s || (causal && query < key)) p = 0.0f;
+      for (int half = 0; half < 2; ++half) {
+        tma_load_4d(base + L::kK + half * kBM * kRowB, &tm_k, bar_kv, 0, hd,
+                    key0 + half * kBM, b);
+        tma_load_4d(base + L::kV + half * kBM * kRowB, &tm_v, bar_kv, 0, hd,
+                    key0 + half * kBM, b);
+      }
+      const int64_t row_base = static_cast<int64_t>(bh) * m_tiles * kBM;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int m = m_first; m < m_tiles; ++m) {
+        mbar_wait(bar_empty + 8 * stage, phase ^ 1);
+        const uint32_t full = bar_full + 8 * stage;
+        mbar_expect_tx(full, 2 * L::kTileB + 2 * kBM * 4);
+        tma_load_4d(base + L::kQ + stage * L::kTileB, &tm_q, full, 0, hd, m * kBM, b);
+        tma_load_4d(base + L::kDO + stage * L::kTileB, &tm_do, full, 0, hd, m * kBM, b);
+        const uint32_t rows = base + L::kRows + stage * 2 * kBM * 4;
+        bulk_load(rows, lse2 + row_base + m * kBM, kBM * 4, full);
+        bulk_load(rows + kBM * 4, delta + row_base + m * kBM, kBM * 4, full);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
         }
-        sc[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - et[col]);
+      }
+    } else if (warp == 9 && lane == 0) {  // --------------------- dQ writer
+      for (int m = m_first, i = 0; m < m_tiles; ++m, ++i) {
+        float* dst = dq_acc + (static_cast<int64_t>(bh) * m_tiles + m) * kBM * D;
+        const uint32_t buf = base + L::kDQ + (i & 1) * kBM * D * 4;
+        mbar_wait(bar_dq_full + 8 * (i & 1), (i >> 1) & 1);
+        mbar_wait(bar_turn + 8 * (i & 1), (i >> 1) & 1);  // earlier key blocks added
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        if (nb == 0)  // the first contributor to every query tile
+          bulk_store(dst, buf, kBM * D * 4);
+        else
+          bulk_reduce_add(dst, buf, kBM * D * 4);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        mbar_arrive(bar_dq_empty + 8 * (i & 1));  // the buffer may be written again
+        asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        mbar_arrive(bar_done + 8 * (i & 1));  // the add is complete
+      }
+    } else if (warp == 10 && lane == 0) {  // -------------- turn watcher
+      // waits for key block nb - 1 to finish each query tile, at most two
+      // tiles ahead of the writer: slot i & 1 is free again once tile
+      // i - 2's turn was passed on
+      for (int m = m_first, i = 0; m < m_tiles; ++m, ++i) {
+        if (i >= 2) mbar_wait(bar_passed + 8 * (i & 1), ((i - 2) >> 1) & 1);
+        if (nb > 0) {
+          const int* turn = turns + static_cast<int64_t>(bh) * m_tiles + m;
+          const long long t0 = clock64();
+          while (load_acquire(turn) != nb)
+            if (clock64() - t0 > kWatchdogClocks) __trap();
+        }
+        mbar_arrive(bar_turn + 8 * (i & 1));
+      }
+    } else if (warp == 11 && lane == 0) {  // ----------- turn passer
+      // a completed add passes the tile's turn on to key block nb + 1 (the
+      // release fence is this warp's wait, not the writer's)
+      for (int m = m_first, i = 0; m < m_tiles; ++m, ++i) {
+        mbar_wait(bar_done + 8 * (i & 1), (i >> 1) & 1);
+        add_release(turns + static_cast<int64_t>(bh) * m_tiles + m, 1);
+        mbar_arrive(bar_passed + 8 * (i & 1));
       }
     }
-    uint32_t pf[kNT / 2][4], sf[kNT / 2][4];
-    pack_frags(sc, pf);
-    pack_frags(dp, sf);
-    mma_frags_tile<D>(pf, dt, lane, dvc);  // dV += P^T dO
-    mma_frags_tile<D>(sf, qt, lane, dkc);  // dK += dS^T Q
-  }
-  cp_async_wait<0>();
+  } else {  // ------------------------------------------ compute warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kComputeRegs));
+    const int wt = threadIdx.x & 127;  // thread of the warpgroup
+    const int w4 = wt >> 5;            // warp of the warpgroup
+    const int g = lane >> 2, t = lane & 3;
+    const int kw0 = key0 + 64 * wg;    // the warpgroup's first key
+    const uint32_t k_tile = base + L::kK + wg * kBM * kRowB;
+    const uint32_t v_tile = base + L::kV + wg * kBM * kRowB;
+    const uint32_t ds_tile = base + L::kDS + wg * 64 * 128;
+    float4* const dq_bufs = reinterpret_cast<float4*>(sm + L::kDQ);
 
-  store_rows<D>(dkc, scale, dk, b, warp_key, s, h, hd, g, t);
-  store_rows<D>(dvc, 1.0f, dv, b, warp_key, s, h, hd, g, t);
+    float dv_acc[D / 2], dk_acc[D / 2], dq[D / 2], sacc[32], pacc[32];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dv_acc[i] = dk_acc[i] = dq[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.0f;
+
+    mbar_wait(bar_kv, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int m = m_first, it = 0; m < m_tiles; ++m, ++it) {
+      mbar_wait(bar_full + 8 * stage, phase);
+      const uint32_t q_tile = base + L::kQ + stage * L::kTileB;
+      const uint32_t do_tile = base + L::kDO + stage * L::kTileB;
+      const float* lse_s = reinterpret_cast<const float*>(sm + L::kRows) + stage * 2 * kBM;
+      const float* del_s = lse_s + kBM;
+
+      // S^T = K Q^T and dP^T = V dO^T: [64 keys, 64 queries], K-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<64>::ss<0, 0>(sacc, smem_desc(k_tile + 32 * kk, 16, kSbo, L::kSwizzle),
+                            smem_desc(q_tile + 32 * kk, 16, kSbo, L::kSwizzle), kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<64>::ss<0, 0>(pacc, smem_desc(v_tile + 32 * kk, 16, kSbo, L::kSwizzle),
+                            smem_desc(do_tile + 32 * kk, 16, kSbo, L::kSwizzle), kk);
+      wgmma_commit();
+
+      // P^T = exp2(S^T scale log2e - lse2), masked on the diagonal and
+      // past the last key (overlaps the dP^T product)
+      wgmma_wait<1>();
+      fence_regs(sacc);
+      const int q0 = m * kBM;
+      const bool edge = (causal && q0 <= kw0) || kw0 + 64 > s;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float p = exp2_approx(fmaf(sacc[4 * j + r], scale_log2e, -((r & 1) ? l2.y : l2.x)));
+          if (edge) {
+            const int key = kw0 + 16 * w4 + g + 8 * (r >> 1);
+            const int query = q0 + 8 * j + 2 * t + (r & 1);
+            if (key >= s || (causal && key > query)) p = 0.0f;
+          }
+          sacc[4 * j + r] = p;
+        }
+      }
+      // dS^T = P^T (dP^T - delta)
+      wgmma_wait<0>();
+      fence_regs(pacc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(del_s + 8 * j + 2 * t);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pacc[4 * j + r] = sacc[4 * j + r] * (pacc[4 * j + r] - ((r & 1) ? dl.y : dl.x));
+      }
+      uint32_t pa[4][4], sa[4][4];
+      pack_a(sacc, pa);
+      pack_a(pacc, sa);
+      // dS^T to shared memory: row = key (128 bytes of 64 queries), its
+      // 16-byte chunks swizzled by the row's low 3 bits (128 B swizzle)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = 16 * w4 + g + 8 * half;
+          const uint32_t addr = ds_tile + row * 128 + ((j ^ (row & 7)) << 4) + 4 * t;
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+                       "r"(sa[j >> 1][(j & 1) * 2 + half])
+                       : "memory");
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+
+      // dV += P^T dO, dK += dS^T Q (dO and Q MN-major: the same tiles read
+      // transposed), then, once every warp's dS^T is in shared memory,
+      // dQ_tile = dS K (dS^T and K MN-major)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<D>::template rs<1>(dv_acc, pa[kk],
+                        smem_desc(do_tile + kk * 16 * kRowB, 16, kSbo, L::kSwizzle), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<D>::template rs<1>(dk_acc, sa[kk],
+                        smem_desc(q_tile + kk * 16 * kRowB, 16, kSbo, L::kSwizzle), 1);
+      named_sync(1 + wg, 128);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<D>::template ss<1, 1>(dq, smem_desc(ds_tile + kk * 16 * 128, 16, 1024, 1),
+                           smem_desc(k_tile + kk * 16 * kRowB, 16, kSbo, L::kSwizzle), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(dq);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * stage);  // Q, dO read
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+
+      // the block's dQ_tile into buffer it & 1, float4 (i, wt) at i 128 +
+      // wt: warpgroup 0 stores its part, then warpgroup 1 adds its own (a
+      // fixed order); the buffer's previous tile (it - 2) was read
+      const int slot = it & 1;
+      float4* dq_buf = dq_bufs + slot * (kBM * D / 4);
+      if (it >= 2) mbar_wait(bar_dq_empty + 8 * slot, ((it - 2) >> 1) & 1);
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i)
+          dq_buf[i * 128 + wt] =
+              make_float4(dq[4 * i], dq[4 * i + 1], dq[4 * i + 2], dq[4 * i + 3]);
+        named_sync(1, 128);
+        if (wt == 0) mbar_arrive(bar_dq_half + 8 * slot);
+      } else {
+        mbar_wait(bar_dq_half + 8 * slot, (it >> 1) & 1);
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          float4 x = dq_buf[i * 128 + wt];
+          x.x += dq[4 * i];
+          x.y += dq[4 * i + 1];
+          x.z += dq[4 * i + 2];
+          x.w += dq[4 * i + 3];
+          dq_buf[i * 128 + wt] = x;
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_sync(2, 128);
+        if (wt == 0) mbar_arrive(bar_dq_full + 8 * slot);
+      }
+    }
+
+    // dK (times scale) and dV of the warpgroup's 64 keys, bf16
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = kw0 + 16 * w4 + g + 8 * half;
+      if (key >= s) continue;
+      const int64_t row = ((static_cast<int64_t>(b) * s + key) * h + hd) * D;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        const int c = 8 * i + 2 * t, e = 4 * i + 2 * half;
+        *reinterpret_cast<uint32_t*>(dk + row + c) =
+            pack_bf16(dk_acc[e] * scale, dk_acc[e + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + row + c) = pack_bf16(dv_acc[e], dv_acc[e + 1]);
+      }
+    }
+  }
 }
 
-// The rows of a warp are queries and the columns keys.
+// dq = scale dq_acc in bf16: one thread a float4 (i, wt) of a tile's
+// accumulator, which holds rows 16 w + g and + 8, columns 8 i + 2 t, + 1
+// (wt = 32 w + 4 g + t, the compute thread that wrote it)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse2,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int s, int h,
-                         int num_q_tiles, int num_bh, Strides qs, Strides ks,
-                         Strides vs, float scale_log2e, float scale,
-                         int causal) {
-  using Tile = BwdTile<D>;
-  constexpr int kRow = Tile::kRow, kChunks = Tile::kChunks;
-  // [stage][0: K, 1: V][key][kRow]
-  __shared__ __align__(128) __nv_bfloat16 smem[kStages][2][Tile::kElems];
-
-  const int bh = blockIdx.x % num_bh;
-  const int qt = num_q_tiles - 1 - blockIdx.x / num_bh;  // most work first
-  const int b = bh / h;
-  const int hd = bh - b * h;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int warp_row = qt * kRows + 16 * warp;  // the warp's first row
-
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  load_a_frags<D>(q + b * qs.b + hd * qs.h, qs.s, warp_row, s, g, t, qf);
-  load_a_frags<D>(dout + (static_cast<int64_t>(b) * s * h + hd) * D,
-                  static_cast<int64_t>(h) * D, warp_row, s, g, t, df);
-  float l2[2], dl[2];  // rows g and g + 8
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = warp_row + g + 8 * r;
-    const int64_t idx = static_cast<int64_t>(bh) * s + (row < s ? row : 0);
-    l2[r] = row < s ? __ldg(lse2 + idx) : 0.0f;
-    dl[r] = row < s ? __ldg(delta + idx) : 0.0f;
-  }
-
-  const __nv_bfloat16* kb = k + b * ks.b + hd * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + hd * vs.h;
-  auto load_tile = [&](int tile, int stage) {
-#pragma unroll
-    for (int i = 0; i < (Tile::kCopies + kThreads - 1) / kThreads; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      if (Tile::kCopies % kThreads != 0 && e >= Tile::kCopies) break;
-      const int r = e / kChunks, c = e % kChunks;
-      const int key = tile * kTileN + r;
-      const bool valid = key < s;
-      const int64_t src = valid ? key : 0;
-      cp_async16(smem_addr(&smem[stage][0][r * kRow + c * 8]),
-                 kb + src * ks.s + c * 8, valid);
-      cp_async16(smem_addr(&smem[stage][1][r * kRow + c * 8]),
-                 vb + src * vs.s + c * 8, valid);
-    }
-  };
-
-  float dqc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqc[i][e] = 0.0f;
-
-  // keys past the block's last row are masked for every row of it
-  const int kv_len = causal ? min(s, (qt + 1) * kRows) : s;
-  const int n_tiles = (kv_len + kTileN - 1) / kTileN;
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < n_tiles) load_tile(st, st);
-    cp_async_commit();
-  }
-
-  for (int j = 0; j < n_tiles; ++j) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (j + kStages - 1 < n_tiles)
-      load_tile(j + kStages - 1, (j + kStages - 1) % kStages);
-    cp_async_commit();
-
-    const int k0 = j * kTileN;
-    // a causal tile wholly after this warp's rows adds nothing to them
-    if (causal && k0 > warp_row + 15) continue;
-    const __nv_bfloat16* kt = smem[j % kStages][0];
-    const __nv_bfloat16* vt = smem[j % kStages][1];
-
-    float sc[kNT][4], dp[kNT][4];  // S, dP: [16 rows, 64 keys]
-#pragma unroll
-    for (int i = 0; i < kNT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.0f;
-    mma_a_tile_t<D>(qf, kt, lane, sc);
-    mma_a_tile_t<D>(df, vt, lane, dp);
-
-    const bool edge = (causal && k0 + kTileN - 1 > warp_row) || k0 + kTileN > s;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float p = exp2_approx(fmaf(sc[nt][e], scale_log2e, -l2[r]));
-        if (edge) {
-          const int key = k0 + nt * 8 + 2 * t + (e & 1);
-          const int row = warp_row + g + 8 * r;
-          if (key >= s || (causal && key > row)) p = 0.0f;
-        }
-        dp[nt][e] = p * (dp[nt][e] - dl[r]);
-      }
-    }
-    uint32_t sf[kNT / 2][4];
-    pack_frags(dp, sf);
-    mma_frags_tile<D>(sf, kt, lane, dqc);  // dQ += dS K
-  }
-  cp_async_wait<0>();
-
-  store_rows<D>(dqc, scale, dq, b, warp_row, s, h, hd, g, t);
+__global__ void flash_bwd_dq_kernel(const float4* __restrict__ dq_acc,
+                                    __nv_bfloat16* __restrict__ dq, int s, int h,
+                                    int m_tiles, int64_t total, float scale) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const int wt = static_cast<int>(e % 128);
+  const int i = static_cast<int>((e / 128) % (D / 8));
+  const int64_t tile = e / (128 * (D / 8));
+  const int m = static_cast<int>(tile % m_tiles);
+  const int64_t bh = tile / m_tiles;
+  const int64_t b = bh / h, hd = bh % h;
+  const int lane = wt & 31, g = lane >> 2, t = lane & 3;
+  const int row = m * kBM + 16 * (wt >> 5) + g;
+  const int c = 8 * i + 2 * t;
+  const float4 x = dq_acc[e];
+  if (row < s)
+    *reinterpret_cast<uint32_t*>(dq + ((b * s + row) * h + hd) * D + c) =
+        pack_bf16(x.x * scale, x.y * scale);
+  if (row + 8 < s)
+    *reinterpret_cast<uint32_t*>(dq + ((b * s + row + 8) * h + hd) * D + c) =
+        pack_bf16(x.z * scale, x.w * scale);
 }
 
 // ------------------------------------------------------------------ launch
@@ -672,73 +926,172 @@ struct Args {
   const void *q, *k, *v, *o, *dout;
   const float* lse;
   void *dq, *dk, *dv;
-  float *delta, *lse2;
-  int s, h, num_bh;
+  void* scratch;
+  int b, s, h, num_bh;
   Strides qs, ks, vs;
   float scale;
   int causal;
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-cudaError_t launch(const Args& a) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  const int64_t rows = static_cast<int64_t>(a.num_bh) * a.s;
-  const int64_t prep_blocks = (rows + 255) / 256;
-  if (prep_blocks > INT32_MAX) return cudaErrorInvalidValue;
-  flash_bwd_prep_kernel<T, D><<<static_cast<unsigned>(prep_blocks), 256, 0,
-                                a.stream>>>(
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.lse,
-      a.delta, a.lse2, rows, a.s, a.h);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr int rows_a_block = kBf16 ? kRows : kF32Threads;
-  const int64_t num_tiles = (static_cast<int64_t>(a.s) + rows_a_block - 1) / rows_a_block;
-  if (num_tiles * a.num_bh > INT32_MAX) return cudaErrorInvalidValue;
-  const unsigned blocks = static_cast<unsigned>(num_tiles * a.num_bh);
-  const float scale_log2e = a.scale * kLog2e;
-  if constexpr (kBf16) {
-    using B = __nv_bfloat16;
-    flash_bwd_dkdv_bf16_kernel<D><<<blocks, kThreads, 0, a.stream>>>(
-        static_cast<const B*>(a.q), static_cast<const B*>(a.k),
-        static_cast<const B*>(a.v), static_cast<const B*>(a.dout), a.lse2,
-        a.delta, static_cast<B*>(a.dk), static_cast<B*>(a.dv), a.s, a.h,
-        a.num_bh, a.qs, a.ks, a.vs, scale_log2e, a.scale, a.causal);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_bf16_kernel<D><<<blocks, kThreads, 0, a.stream>>>(
-        static_cast<const B*>(a.q), static_cast<const B*>(a.k),
-        static_cast<const B*>(a.v), static_cast<const B*>(a.dout), a.lse2,
-        a.delta, static_cast<B*>(a.dq), a.s, a.h, static_cast<int>(num_tiles),
-        a.num_bh, a.qs, a.ks, a.vs, scale_log2e, a.scale, a.causal);
-  } else {
-    flash_bwd_dkdv_f32_kernel<D><<<blocks, kF32Threads, 0, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        a.lse2, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-        a.s, a.h, a.num_bh, a.qs, a.ks, a.vs, scale_log2e, a.scale, a.causal);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_f32_kernel<D><<<blocks, kF32Threads, 0, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        a.lse2, a.delta, static_cast<float*>(a.dq), a.s, a.h,
-        static_cast<int>(num_tiles), a.num_bh, a.qs, a.ks, a.vs, scale_log2e,
-        a.scale, a.causal);
+// scratch layout (bytes): delta and lse2 [num_bh][pitch] float32 each;
+// bfloat16 only: the dQ accumulator [num_bh][pitch][D] float32 and the
+// turn counters [num_bh][pitch / kBM] int32. pitch is S for float32 and S
+// rounded up to kBM for bfloat16.
+struct Scratch {
+  int64_t pitch, m_tiles, n_turns, delta, lse2, dq_acc, turns, bytes;
+  Scratch(int64_t num_bh, int64_t s, int64_t d, bool bf16) {
+    m_tiles = (s + kBM - 1) / kBM;
+    pitch = bf16 ? m_tiles * kBM : s;
+    n_turns = bf16 ? num_bh * m_tiles : 0;
+    const int64_t rows = num_bh * pitch * 4;
+    delta = 0;
+    lse2 = rows;
+    dq_acc = 2 * rows;
+    turns = dq_acc + (bf16 ? rows * d : 0);
+    bytes = turns + n_turns * 4;
   }
+};
+
+template <typename T, int D>
+cudaError_t launch_prep(const Args& a, const Scratch& sc) {
+  char* base = static_cast<char*>(a.scratch);
+  const int64_t rows = static_cast<int64_t>(a.num_bh) * a.s;
+  const int64_t pad_rows = static_cast<int64_t>(a.num_bh) * (sc.pitch - a.s);
+  const int64_t blocks = (rows + pad_rows + sc.n_turns + 255) / 256;
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  flash_bwd_prep_kernel<T, D><<<static_cast<unsigned>(blocks), 256, 0, a.stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.lse,
+      reinterpret_cast<float*>(base + sc.delta), reinterpret_cast<float*>(base + sc.lse2),
+      reinterpret_cast<int*>(base + sc.turns), rows, a.s, a.h, static_cast<int>(sc.pitch),
+      pad_rows, sc.n_turns);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int d, const Args& a) {
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime loaded
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a [B, S, H, D] bf16 view (element strides st, unit stride on D) as a 4-d
+// (d, head, row, batch) tensor map whose box is kBM rows of one head,
+// swizzled by the row's width; rows past S read as zeros
+bool tensor_map(CUtensorMap* map, const void* ptr, int b, int s, int h, int d,
+                Strides st) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d), 1, kBM, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = d == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : d == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_bf16(const Args& a) {
+  using B = __nv_bfloat16;
+  const Scratch sc(a.num_bh, a.s, D, true);
+  cudaError_t err = launch_prep<B, D>(a, sc);
+  if (err != cudaSuccess) return err;
+
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  const int64_t bsh = static_cast<int64_t>(a.s) * a.h * D;
+  const Strides os{bsh, static_cast<int64_t>(a.h) * D, D};
+  if (!tensor_map(&tm_q, a.q, a.b, a.s, a.h, D, a.qs) ||
+      !tensor_map(&tm_k, a.k, a.b, a.s, a.h, D, a.ks) ||
+      !tensor_map(&tm_v, a.v, a.b, a.s, a.h, D, a.vs) ||
+      !tensor_map(&tm_do, a.dout, a.b, a.s, a.h, D, os))
+    return cudaErrorInvalidValue;
+  const int64_t n_blocks = (static_cast<int64_t>(a.s) + kBN - 1) / kBN;
+  if (n_blocks * a.num_bh > INT32_MAX) return cudaErrorInvalidValue;
+  const int smem = BwdSmem<D>::kBytes + 1024;  // + the 1024-byte alignment
+  err = cudaFuncSetAttribute(flash_bwd_bf16_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  char* base = static_cast<char*>(a.scratch);
+  float* dq_acc = reinterpret_cast<float*>(base + sc.dq_acc);
+  flash_bwd_bf16_kernel<D><<<static_cast<unsigned>(n_blocks * a.num_bh), kThreads, smem,
+                             a.stream>>>(
+      tm_q, tm_k, tm_v, tm_do, reinterpret_cast<const float*>(base + sc.lse2),
+      reinterpret_cast<const float*>(base + sc.delta), dq_acc,
+      reinterpret_cast<int*>(base + sc.turns), static_cast<B*>(a.dk), static_cast<B*>(a.dv),
+      a.s, a.h, a.num_bh, static_cast<int>(sc.m_tiles), a.scale * kLog2e, a.scale,
+      a.causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int64_t total = static_cast<int64_t>(a.num_bh) * sc.m_tiles * (D / 8) * 128;
+  if ((total + 255) / 256 > INT32_MAX) return cudaErrorInvalidValue;
+  flash_bwd_dq_kernel<D><<<static_cast<unsigned>((total + 255) / 256), 256, 0, a.stream>>>(
+      reinterpret_cast<const float4*>(dq_acc), static_cast<B*>(a.dq), a.s, a.h,
+      static_cast<int>(sc.m_tiles), total, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const Args& a) {
+  const Scratch sc(a.num_bh, a.s, D, false);
+  cudaError_t err = launch_prep<float, D>(a, sc);
+  if (err != cudaSuccess) return err;
+  const char* base = static_cast<const char*>(a.scratch);
+  const float* delta = reinterpret_cast<const float*>(base + sc.delta);
+  const float* lse2 = reinterpret_cast<const float*>(base + sc.lse2);
+  const int64_t num_tiles = (static_cast<int64_t>(a.s) + kF32Threads - 1) / kF32Threads;
+  if (num_tiles * a.num_bh > INT32_MAX) return cudaErrorInvalidValue;
+  const unsigned blocks = static_cast<unsigned>(num_tiles * a.num_bh);
+  const float scale_log2e = a.scale * kLog2e;
+  flash_bwd_dkdv_f32_kernel<D><<<blocks, kF32Threads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse2, delta,
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.s, a.h, a.num_bh, a.qs, a.ks,
+      a.vs, scale_log2e, a.scale, a.causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_f32_kernel<D><<<blocks, kF32Threads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse2, delta,
+      static_cast<float*>(a.dq), a.s, a.h, static_cast<int>(num_tiles), a.num_bh, a.qs,
+      a.ks, a.vs, scale_log2e, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(int d, bool bf16, const Args& a) {
   switch (d) {
     case 16:
-      return launch<T, 16>(a);
+      return bf16 ? launch_bf16<16>(a) : launch_f32<16>(a);
     case 32:
-      return launch<T, 32>(a);
+      return bf16 ? launch_bf16<32>(a) : launch_f32<32>(a);
     case 64:
-      return launch<T, 64>(a);
+      return bf16 ? launch_bf16<64>(a) : launch_f32<64>(a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -746,33 +1099,40 @@ cudaError_t dispatch(int d, const Args& a) {
 
 }  // namespace
 
+// Bytes of scratch that swtpu_flash_attention_bwd needs for these sizes
+// (is_bf16 as there); 0 when there is nothing to compute.
+extern "C" int64_t swtpu_flash_attention_bwd_scratch_bytes(int b, int s, int h, int d,
+                                                           int is_bf16) {
+  if (b <= 0 || s <= 0 || h <= 0) return 0;
+  return Scratch(static_cast<int64_t>(b) * h, s, d, is_bf16 != 0).bytes;
+}
+
 // q, k, v: [b, s, h, d] of float32 (is_bf16 == 0) or bfloat16 (is_bf16 ==
 // 1) with element strides (*_sb, *_ss, *_sh) and unit stride on d; o and
 // dout: contiguous [b, s, h, d] of that type (the forward's output and its
 // gradient); lse: [b, h, s] float32, the forward's log-sum-exp (natural
 // log); dq, dk, dv: contiguous [b, s, h, d] of that type, written whole;
-// scratch: 2 b h s float32 (delta, then lse in base 2); all on the device
-// of ``stream``. d is 16, 32 or 64; bfloat16 also needs every base pointer
+// scratch: swtpu_flash_attention_bwd_scratch_bytes(b, s, h, d, is_bf16)
+// bytes, 16-byte aligned, contents ignored; all on the device of
+// ``stream``. d is 16, 32 or 64; bfloat16 also needs every base pointer
 // 16-byte aligned and every stride a multiple of 8. sm_scale is the
 // forward's scale (any sign). Returns the first cudaGetLastError() that is
 // not cudaSuccess after each of the three launches
-// (cudaErrorInvalidValue for a head dim or grid the kernels do not take).
+// (cudaErrorInvalidValue for a head dim or grid the kernels do not take, or
+// a view that no tensor map describes).
 extern "C" int swtpu_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, void* dq, void* dk, void* dv,
-    float* scratch, int b, int s, int h, int d, int is_bf16, int64_t q_sb,
+    void* scratch, int b, int s, int h, int d, int is_bf16, int64_t q_sb,
     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, float sm_scale, int causal,
     void* stream) {
   if (b <= 0 || s <= 0 || h <= 0) return 0;
   const int64_t num_bh = static_cast<int64_t>(b) * h;
   if (num_bh > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t rows = num_bh * s;
-  Args a{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch + rows, s, h,
+  Args a{q, k, v, o, dout, lse, dq, dk, dv, scratch, b, s, h,
          static_cast<int>(num_bh), Strides{q_sb, q_ss, q_sh},
          Strides{k_sb, k_ss, k_sh}, Strides{v_sb, v_ss, v_sh}, sm_scale,
          causal, static_cast<cudaStream_t>(stream)};
-  const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(d, a) : dispatch<float>(d, a);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(d, is_bf16 != 0, a));
 }

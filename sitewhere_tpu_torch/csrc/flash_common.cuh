@@ -1,9 +1,10 @@
 // Building blocks shared by the flash-attention kernels
 // (flash_attention.cu, the forward; flash_attention_bwd.cu, the backward):
-// the (batch, row, head) strides of a [B, S, H, D] view, the masked-score
-// constant, cp.async copies, ldmatrix, the bf16 mma.sync m16n8k16 product
-// and the exp2 and bf16-pack helpers. Each .cu file includes it and builds
-// into a library of its own (cuda_build.py hashes this header with it).
+// the (batch, row, head) strides of a [B, S, H, D] view, the constants, the
+// shared-memory address, the exp2 and bf16-pack helpers (both), and the
+// forward's cp.async copies, ldmatrix and bf16 mma.sync m16n8k16 product.
+// Each .cu file includes it and builds into a library of its own
+// (cuda_build.py hashes this header with it).
 
 #pragma once
 
@@ -80,13 +81,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 4 bytes from global to shared memory, asynchronous; zeros where !valid
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0));
 }
 
 }  // namespace

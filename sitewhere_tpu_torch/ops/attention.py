@@ -34,11 +34,15 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
   * The forward can also write each row's log-sum-exp (``lse`` [B, H, S]
     float32, natural log), which the backward recomputes P from.
 
-Backward kernel: ``csrc/flash_attention_bwd.cu``, FA2's backward (a delta
-pass, a dK/dV kernel over query tiles, a dQ kernel over key tiles; no
-atomics, so a gradient is the same from run to run). It replaces no
-Pallas kernel: the JAX trainer (``sitewhere_tpu/models/transformer.py:153``)
-differentiates the oracle ``mha_reference``, and this is that gradient.
+Backward kernel: ``csrc/flash_attention_bwd.cu``. For bfloat16, FA3's
+backward for Hopper: one pass over the (query, key) pairs (five ``wgmma``
+products and one exponential a pair; Q and dO tiles through TMA into an
+mbarrier ring, warp-specialised), dQ summed in float32 across key blocks
+in a fixed order (a turn counter per query tile), so a gradient is bitwise
+the same from run to run; float32 keeps two CUDA-core kernels, each element
+summed by one thread. It replaces no Pallas kernel: the JAX trainer
+(``sitewhere_tpu/models/transformer.py:153``) differentiates the oracle
+``mha_reference``, and this is that gradient.
 :class:`FlashAttentionFunction` puts the two kernels behind autograd, and
 :func:`flash_attention` takes that route for a CUDA input that requires
 grad while grad is enabled.
@@ -241,9 +245,14 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, sm_scale: float | None):
                   for _ in range(3))
     if dq.numel() == 0:
         return dq, dk, dv
-    scratch = torch.empty(2 * b * h * s, dtype=torch.float32, device=q.device)
     scale = _scale(d, sm_scale)
     lib = cuda_build.load(BWD_KERNEL)
+    size = lib.swtpu_flash_attention_bwd_scratch_bytes
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_int64
+    # delta, lse2 and (bf16) the float32 dQ accumulator and turn counters;
+    # the kernels initialise what they read
+    scratch = torch.empty(size(b, s, h, d, args[4]), dtype=torch.uint8, device=q.device)
     fn = lib.swtpu_flash_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                    + [ctypes.c_int64] * 9
@@ -333,6 +342,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # launches of the CUDA kernels since each count was last reset to 0: the
 # forward (whatever wrapper launched it) and the backward (one a call of
-# the three-launch backward: delta pass, dK/dV, dQ)
+# the three-launch backward: prep pass, main kernel, then dQ to bf16 for
+# bfloat16 or dQ for float32)
 flash_attention.launches = 0
 flash_attention_backward.launches = 0
