@@ -8,7 +8,14 @@ Phases, each printed as one JSON line:
 1. build   — compiles every CUDA kernel of the port from ``csrc/`` with
              nvcc (all sources at once) and loads it.
 2. kernel  — one record per kernel (window_features; flash_attention;
-             flash_attention_backward, whose record also checks the
+             flash_attention_backward; flash_attention_c6, the attention
+             at the head dims and the type of fault C6: D = 8, 48, 100
+             zero-padded, D = 128, float16 at D = 8, 32, 48, 128, the
+             forward, its lse and the backward row by row against the
+             plain versions, then both timed against SDPA at
+             [8, 16384, 2, 128] bf16 and at [8, 16384, 8, 32] float16 with
+             their floors and ptxas's registers and spills;
+             flash_attention_backward's record also checks the
              forward's log-sum-exp and that two calls give the same bits,
              and gives ptxas's registers and spills, the kernel's time over
              the library call's, TFLOP/s and the bound's share of its
@@ -107,6 +114,14 @@ Phases, each printed as one JSON line:
              ``ring_attention_sharded`` in a one-rank NCCL group against the
              single-device path (one card cannot show the ring across
              ranks; 4 gloo ranks in the CPU tests do).
+7b. transformer_c6 — the four C6 configurations
+             (``TransformerConfig(d_model=256, heads=2)``, ``heads=32``,
+             ``d_model=384, heads=8``, ``dtype=torch.float16``: head dims
+             128, 8, 48, and 32 in float16) on [2, 4096] windows:
+             ``forecast_scores`` and one ``make_train_step`` step each,
+             every layer's attention and its gradient through the kernels
+             (launch counts reset just before and read just after), the
+             first window within TF_SCORE_RTOL of the plain attention.
 8. read    — the read side and the whole fused step at the slice's width:
              64 geofence zones of 16 vertices and the bench's CEP rule set
              installed, 24 slice batches (channel 0 rewritten by the bench's
@@ -131,6 +146,24 @@ Phases, each printed as one JSON line:
              engine that never crashed; (e) the conservation ledger of
              every engine. Prints events/s, latency, host ms per batch,
              recovery seconds and peak memory on one ``wire:`` line.
+9b. sharded — the multi-shard engine (``SpmdEngine``) with 1, 2 and 4
+             shards, every one on this card, each at the per-shard
+             headline sizes (``HEADLINE_CFG``: 2^15 devices, 2^16 tokens,
+             a 2^18-row ring, 16384-event batches, 8 channels),
+             ``scan_chunk=2``, ``dispatch_depth=2``, the bench's rule set,
+             a group-commit WAL: 2 + 38 batches of the wire stream over
+             10,000 devices (each event with its own ``eventDate``)
+             through the native decoder into the stacked staging arena.
+             Checks (a) every shard's store byte for byte against a
+             single-card engine fed that shard's substream, (b) query
+             pages over the recent stream against a single-card engine
+             fed the whole stream, (c) the conservation ledger, (d)
+             ``ShardedEngine(exchange=True)`` against the CPU's and the
+             routed run, its overflow count against the CPU's, (e) a
+             reduced leg: the card engine's state, pages, counters and rule
+             fires against a CPU ``SpmdEngine``'s. Prints events/s by shard
+             count (shards sharing one card: no scaling figure), host
+             medians and means a call and CUDA kernels a dispatch.
 10. archive — the archive tier at the slice's headline sizes (100 channels,
              4096-row segments): 40 bulk batches over 2048 devices, 2.5x the
              ring; (a) no row lost, whole segments; (b) the planner's
@@ -277,7 +310,10 @@ SCORE_TOL = 1e-4           # rtol, CUDA engine vs CPU engine scores, float32
 # flash_attention vs its plain version: float32 computes the same float32
 # math in another order; bf16 outputs may land one bf16 ulp apart (8e-3
 # is one ulp at 1.0), P entering the P·V product rounded to bf16 included
-FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+# float16 rounds 8x finer than bf16: one float16 ulp at 1.0, where the
+# float16 kernel's arithmetic (emulated in tests/test_torch_attention.py)
+# reads <= 5.7e-4 and its bf16-rounded control fails on every causal case
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3, torch.float16: 1e-3}
 # the backward kernel vs its plain version, each row (one position of one
 # head) of each gradient within this share of that row's largest element
 # (fa.gradient_row_shares; sized by tests/test_torch_attention.py's CPU
@@ -287,7 +323,21 @@ FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 # GRAD_ATOL comes off only on the rows whose exact gradient is 0 (S = 1,
 # and dq's row 0 under a causal mask: only float32 rounding of dP - delta
 # is left there); the lse against the plain log-sum-exp
-GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# float16: the same file's emulation of the float16 kernels' arithmetic
+# reads <= 1.05e-3 a row up to S = 4096 (one float16 ulp of the row's
+# largest element and a little more), and >= 3.3e-3 on every gradient
+# with P and dS rounded to bf16 instead (the control below must fail it);
+# GRAD_STEP, float16's subnormal step, comes off every row's error, since
+# a row below float16's normal range (late keys at long S) holds its
+# values only to 2^-24 absolute
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2.5e-3}
+GRAD_STEP = {torch.float16: 2.0 ** -24}
+# a bf16 row of a true head dim of 8 holds 8 elements, whose largest lies
+# nearer the rounding error of the terms summed into them than at D >= 16:
+# there bf16's own arithmetic (bf16_rounded_reference on the same inputs)
+# reads past GRAD_TOL at long S, and the C6 phase holds each bf16 gradient
+# to GRAD_TOL or GRAD_ARITH_MARGIN times that reading, whichever is larger
+GRAD_ARITH_MARGIN = 1.5
 GRAD_ATOL = 1e-5
 LSE_TOL = 1e-4
 TF_SCORE_RTOL = 1e-2       # kernel path vs plain path scores, bf16 model
@@ -426,7 +476,7 @@ def flash_floors_ms(b: int, s: int, h: int, d: int, causal: bool,
     the largest."""
     item = torch.finfo(dtype).bits // 8
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
-    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    peak = PEAK_BF16_PER_S if item == 2 else PEAK_FP32_PER_S   # bf16 = fp16 rate
     return {"bytes": 4 * b * s * h * d * item / PEAK_BYTES_PER_S * 1e3,
             "products": 4 * d * pairs / peak * 1e3,
             "exponentials": pairs / PEAK_EXP_PER_S * 1e3}
@@ -441,7 +491,7 @@ def flash_backward_floors_ms(b: int, s: int, h: int, d: int, causal: bool,
     largest."""
     item = torch.finfo(dtype).bits // 8
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
-    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    peak = PEAK_BF16_PER_S if item == 2 else PEAK_FP32_PER_S   # bf16 = fp16 rate
     return {"bytes": (8 * b * s * h * d * item + 4 * b * h * s) / PEAK_BYTES_PER_S * 1e3,
             "products": 10 * d * pairs / peak * 1e3,
             "exponentials": pairs / PEAK_EXP_PER_S * 1e3}
@@ -451,8 +501,8 @@ def ptxas_resources(text: str, prefix: str = "flash_bwd") -> dict:
     """Registers and spill bytes of each entry function whose name starts
     with ``prefix``, from ``ptxas -v`` output (``cuda_build.build_info``):
     ``{"flash_bwd_bf16_kernel<32>": {"registers": 168, "spill_stores": 0,
-    "spill_loads": 0}, ...}``; bf16 / f32 in the name where the kernel is
-    templated on the type."""
+    "spill_loads": 0}, ...}``; bf16 / f16 / f32 in the name where the
+    kernel is templated on the type."""
     out, name = {}, None
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -462,6 +512,7 @@ def ptxas_resources(text: str, prefix: str = "flash_bwd") -> dict:
             if k:
                 d = re.search(r"Li(\d+)E", k.group(2))
                 t = ("bf16," if "bfloat16" in k.group(2)
+                     else "f16," if "__half" in k.group(2)
                      else "f32," if k.group(2).startswith("f") else "")
                 name = f"{k.group(1)}<{t}{d.group(1) if d else '?'}>"
                 out[name] = {}
@@ -795,6 +846,263 @@ def phase_kernel_flash_backward(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 
                 vs_library=t["vs_library"], tflops=t["tflops"],
                 bound_share=t["bound_share"], bitwise_deterministic=bitwise,
                 ptxas={k: v for k, v in ptxas.items() if "f32" not in k})
+
+
+# the head dims and the type of fault C6: D between the instantiated 16,
+# 32, 64, 128 runs zero-padded, D = 128 has its own instantiations, and
+# float16 its own kernels; the timed shapes are the d_model=256, heads=2
+# model's ([8, 16384, 2, 128] bf16) and the default model's in float16
+C6_MAIN = (TF_WINDOWS, TF_STEPS, 2, 128)
+C6_F16_MAIN = (TF_WINDOWS, TF_STEPS, 8, 32)
+
+
+def _c6_cases(device, gen) -> dict:
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    cases = {}
+    for dt, dims in ((bf16, (8, 48, 100, 128)), (f16, (8, 32, 48, 128)), (f32, (48, 128))):
+        tag = {bf16: "bf16", f16: "f16", f32: "f32"}[dt]
+        for d in dims:
+            h = 2 if d >= 100 else 4
+            for causal in (True, False):
+                cases[f"d{d}_{tag}_{'causal' if causal else 'full'}"] = (
+                    fused_qkv(2, 333 if d != 100 else 65, h, d, dt, device, gen), causal, None)
+    cases |= {
+        "d128_bf16_s1": (fused_qkv(2, 1, 2, 128, bf16, device, gen), True, None),
+        "d128_bf16_s1000": (fused_qkv(2, 1000, 2, 128, bf16, device, gen), True, None),
+        "d32_f16_s1000_contiguous": (tuple(t.contiguous() for t in fused_qkv(
+            2, 1000, 8, 32, f16, device, gen)), True, None),
+        "d128_bf16_scale-0.3": (fused_qkv(2, 333, 2, 128, bf16, device, gen), True, -0.3),
+        "d32_f16_scale-0.3": (fused_qkv(2, 333, 4, 32, f16, device, gen), True, -0.3),
+        "d32_f16_scale0": (fused_qkv(2, 333, 4, 32, f16, device, gen), False, 0.0),
+    }
+    # the padded head dims at the shapes transformer_c6 runs them at
+    for name in ("d8", "d48"):
+        cfg = TF_C6_CONFIGS[name]
+        cases[f"tf_{name}_bf16"] = (fused_qkv(*TF_C6_SHAPE, cfg.heads, cfg.d_model // cfg.heads,
+                                              bf16, device, gen), True, None)
+    return cases
+
+
+def bf16_rounded_reference(q, k, v, o, do, lse, causal: bool,
+                           sm_scale: float | None = None) -> tuple:
+    """The attention and its gradient with P and dS rounded to bf16 before
+    their products, one window at a time in float32: the output P·V and dv
+    = P^T dO with P rounded, dq = scale dS K and dk = scale dS^T Q with dS
+    rounded, each returned in q's type. On bf16 inputs it is the bf16
+    kernels' own arithmetic (in another order of sums), the yardstick of
+    their gradient limit; on float16 inputs it is what a float16 kernel
+    that rounded to bf16 (8 significant bits where float16 has 11) would
+    give, the control that the float16 limits must fail."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
+    parts = []
+    for i in range(q.shape[0]):
+        w = slice(i, i + 1)
+        qf, kf, vf, dof = (t[w].float() for t in (q, k, v, do))
+        p = fa._scores(q[w], k[w], causal, sm_scale).sub_(lse[w].float()[..., None]).exp_()
+        delta = (dof * o[w].float()).sum(-1).transpose(1, 2)
+        ds = torch.einsum("bqhd,bkhd->bhqk", dof, vf).sub_(delta[..., None]).mul_(p)
+        p = p.bfloat16().float()
+        out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+        dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+        del p
+        ds = ds.bfloat16().float()
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf).mul_(scale)
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).mul_(scale)
+        del ds
+        parts.append(tuple(t.to(q.dtype) for t in (out, dq, dk, dv)))
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def _allclose_share(got, ref) -> float:
+    """The least x for which allclose(got, ref, rtol=x, atol=x) holds."""
+    g, r = got.float(), ref.float()
+    return ((g - r).abs() / (1 + r.abs())).max().item()
+
+
+def _c6_timings(q, k, v, do, causal: bool, device, reps: int) -> dict:
+    """Forward and backward of the kernels at one shape against SDPA
+    (forward; forward+backward minus forward), the plain versions one
+    window at a time, and the floors."""
+    o, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+
+    with torch.no_grad():
+        fwd = {"ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=causal), device,
+                             reps=reps, warmup=2),
+               "library_ms": time_ms(sdpa_fwd, device, reps=reps, warmup=2),
+               "plain_ms": time_ms(lambda: plain_per_window(q, k, v, causal), device,
+                                   reps=2, warmup=1)}
+    bwd = {"ms": time_ms(lambda: fa.flash_attention_backward(q, k, v, o, do, lse,
+                                                             causal=causal),
+                         device, reps=reps, warmup=2),
+           "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, device, reps=reps, warmup=2),
+           "sdpa_fwd_ms": time_ms(sdpa_fwd, device, reps=reps, warmup=2),
+           "plain_ms": time_ms(lambda: plain_backward_per_window(q, k, v, o, do, lse, causal),
+                               device, reps=2, warmup=1)}
+    bwd["library_ms"] = bwd["sdpa_fwd_bwd_ms"] - bwd["sdpa_fwd_ms"]
+    b, s, h, d = q.shape
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    for t, floors, ops in ((fwd, flash_floors_ms(b, s, h, d, causal, q.dtype), 4),
+                           (bwd, flash_backward_floors_ms(b, s, h, d, causal, q.dtype), 10)):
+        binding = max(floors, key=floors.get)
+        t.update(shape=[b, s, h, d], dtype=str(q.dtype), floors_ms=floors,
+                 binding_floor=binding, bound_ms=floors[binding],
+                 bound_by="bytes" if binding == "bytes" else "operations",
+                 vs_library=t["ms"] / t["library_ms"],
+                 tflops=ops * d * pairs / (t["ms"] * 1e-3) / 1e12,
+                 bound_share=floors[binding] / t["ms"])
+    return {"forward": fwd, "backward": bwd}
+
+
+def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN,
+                          reps: int = 10) -> dict:
+    """The attention at every head dim and in float16 (fault C6): the
+    forward, its ``lse`` and the backward against their plain versions at
+    D = 8, 48 and 100 (zero-padded to 16, 64 and 128), D = 128 (its own
+    instantiations) in bf16 and float32, float16 at D = 8, 32, 48 and 128
+    (the float16 forward kernel and the mma.sync backward), causal and
+    not, S = 1 and a ragged S, contiguous inputs, a negative and a zero
+    scale, and D = 8 and 48 at the transformer_c6 shapes; each gradient
+    row within GRAD_TOL of its largest element (bf16: or GRAD_ARITH_MARGIN
+    times bf16's own arithmetic on the case, whichever is larger; float16:
+    its subnormal step off, and the bf16-rounded control must fail). Then
+    times the forward and the backward against SDPA at the d_model=256,
+    heads=2 model's shape [8, 16384, 2, 128] bf16 causal and at the
+    default model's shape in float16, with the floors and ptxas's
+    registers and spills of every D = 128 and float16 kernel."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    cases = _c6_cases(device, gen)
+    cases["main_d128_bf16"] = (fused_qkv(*main, torch.bfloat16, device, gen), True, None)
+    cases["main_f16"] = (fused_qkv(*f16_main, torch.float16, device, gen), True, None)
+    errs, launches = {}, {"flash_attention": 0, "flash_attention_backward": 0}
+    saved = {}
+    for name, ((q, k, v), causal, scale) in cases.items():
+        do = torch.randn(q.shape, device=device, generator=gen).to(q.dtype)
+        f0, b0 = fa.flash_attention.launches, fa.flash_attention_backward.launches
+        got = fa.flash_attention(q, k, v, causal=causal, sm_scale=scale)
+        o, lse = fa.flash_attention_forward(q, k, v, causal=causal, sm_scale=scale)
+        grads = fa.flash_attention_backward(q, k, v, o, do, lse, causal=causal,
+                                            sm_scale=scale)
+        torch.cuda.synchronize()
+        launches["flash_attention"] += fa.flash_attention.launches - f0
+        launches["flash_attention_backward"] += fa.flash_attention_backward.launches - b0
+        fails.check((fa.flash_attention.launches - f0,
+                     fa.flash_attention_backward.launches - b0) == (2, 1),
+                    f"flash C6 {name}: the kernels did not launch (forward twice, "
+                    "backward once)")
+        ref = plain_per_window(q, k, v, causal, scale)
+        tol = FLASH_TOL[q.dtype]
+        e = {"out": (got.float() - ref.float()).abs().max().item()}
+        fails.check(got.shape == ref.shape and got.dtype == ref.dtype and got.is_contiguous()
+                    and torch.allclose(got.float(), ref.float(), rtol=tol, atol=tol)
+                    and bool(torch.isfinite(got.float()).all()),
+                    f"flash_attention disagrees with its plain version on C6 {name} "
+                    f"{tuple(q.shape)} {q.dtype}: max abs err {e['out']}")
+        del got, ref
+        ref_lse = lse_per_window(q, k, causal, scale)
+        e["lse"] = (lse - ref_lse).abs().max().item()
+        fails.check(torch.allclose(lse, ref_lse, rtol=LSE_TOL, atol=LSE_TOL),
+                    f"flash_attention lse disagrees on C6 {name}: {e['lse']}")
+        del ref_lse
+        ref = plain_backward_per_window(q, k, v, o, do, lse, causal, scale)
+        step = GRAD_STEP.get(q.dtype, 0.0)
+        limit = {t: GRAD_TOL[q.dtype] for t in "qkv"}
+        if q.dtype == torch.bfloat16:
+            # bf16's own arithmetic on these inputs: where it reads past
+            # GRAD_TOL (a true head dim of 8 at long S), the limit is
+            # GRAD_ARITH_MARGIN times its reading
+            _, *a_grads = bf16_rounded_reference(q, k, v, o, do, lse, causal, scale)
+            for t, g, r in zip("qkv", a_grads, ref):
+                a = fa.gradient_row_shares(g, r, f"d{t}", causal=causal,
+                                           atol=GRAD_ATOL).max().item()
+                e[f"d{t}_bf16_arithmetic_row_share"] = a
+                limit[t] = max(limit[t], GRAD_ARITH_MARGIN * a)
+            del a_grads
+        for t, g, r in zip("qkv", grads, ref):
+            worst = fa.gradient_row_shares(g, r, f"d{t}", causal=causal,
+                                           atol=GRAD_ATOL, step=step).max().item()
+            e[f"d{t}_row_share"] = worst
+            fails.check(g.shape == r.shape and g.dtype == r.dtype and g.is_contiguous()
+                        and bool(torch.isfinite(g.float()).all())
+                        and worst <= limit[t],
+                        f"flash_attention_backward d{t} disagrees on C6 {name} "
+                        f"{tuple(q.shape)} {q.dtype}: worst row err {worst} "
+                        f"against {limit[t]}")
+        if q.dtype == torch.float16:
+            # the control: P and dS rounded to bf16 must fail the float16
+            # limits (the output under a causal mask, every gradient but
+            # at a zero scale, where dq = dk = 0 and P is one value a row)
+            c_out, *c_grads = bf16_rounded_reference(q, k, v, o, do, lse, causal, scale)
+            ctl = {"out": _allclose_share(c_out, plain_per_window(q, k, v, causal, scale))}
+            for t, g, r in zip("qkv", c_grads, ref):
+                ctl[f"d{t}_row_share"] = fa.gradient_row_shares(
+                    g, r, f"d{t}", causal=causal, atol=GRAD_ATOL, step=step).max().item()
+            e["bf16_control"] = ctl
+            if causal:
+                fails.check(ctl["out"] > tol, f"the bf16-rounded control passes the float16 "
+                            f"output limit on C6 {name}: {ctl['out']} <= {tol}")
+            if scale != 0.0:
+                fails.check(all(ctl[f"d{t}_row_share"] > GRAD_TOL[q.dtype] for t in "qkv"),
+                            f"the bf16-rounded control passes the float16 gradient limit "
+                            f"on C6 {name}: {ctl}")
+            del c_out, c_grads
+        if name.startswith("main"):
+            again = fa.flash_attention_backward(q, k, v, o, do, lse, causal=causal)
+            e["bitwise_deterministic"] = all(torch.equal(x, y) for x, y in zip(grads, again))
+            fails.check(e["bitwise_deterministic"],
+                        f"flash_attention_backward gives other bits on a second call at {name}")
+            saved[name] = (q, k, v, do, causal)
+            del again
+        errs[name] = e
+        del grads, ref, o, lse
+    timings = {name: _c6_timings(*saved[name][:4], saved[name][4], device, reps)
+               for name in ("main_d128_bf16", "main_f16")}
+    ptxas = {**ptxas_resources(cuda_build.build_info.get(fa.KERNEL, {}).get("ptxas", ""),
+                               prefix="flash_attention"),
+             **ptxas_resources(cuda_build.build_info.get(fa.BWD_KERNEL, {}).get("ptxas", ""))}
+    ptxas = {k: v for k, v in ptxas.items() if "f16," in k or "128>" in k}
+    # each type's worst output error and gradient row, and float16's control
+    by_dtype = {}
+    for name, e in errs.items():
+        dt = str(cases[name][0][0].dtype)
+        d = by_dtype.setdefault(dt, {"max_out_err": 0.0, "max_row_share": 0.0})
+        d["max_out_err"] = max(d["max_out_err"], e["out"])
+        d["max_row_share"] = max(d["max_row_share"],
+                                 *(e[f"d{t}_row_share"] for t in "qkv"))
+        if "dq_bf16_arithmetic_row_share" in e:
+            d["arithmetic_max_row_share"] = max(
+                d.get("arithmetic_max_row_share", 0.0),
+                *(e[f"d{t}_bf16_arithmetic_row_share"] for t in "qkv"))
+            d["max_row_share_over_arithmetic"] = max(
+                d.get("max_row_share_over_arithmetic", 0.0),
+                *(e[f"d{t}_row_share"] / max(e[f"d{t}_bf16_arithmetic_row_share"], 1e-30)
+                  for t in "qkv"))
+        if "bf16_control" in e:
+            c = e["bf16_control"]
+            if cases[name][1]:
+                d["control_min_out_share_causal"] = min(
+                    d.get("control_min_out_share_causal", math.inf), c["out"])
+            if cases[name][2] != 0.0:
+                d["control_min_row_share"] = min(
+                    d.get("control_min_row_share", math.inf),
+                    *(c[f"d{t}_row_share"] for t in "qkv"))
+    emit({"phase": "kernel", "name": "flash_attention_c6",
+          "tol": {str(k): v for k, v in FLASH_TOL.items()},
+          "grad_tol_of_row_max": {str(k): v for k, v in GRAD_TOL.items()},
+          "grad_step": {str(k): v for k, v in GRAD_STEP.items()},
+          "grad_arith_margin": GRAD_ARITH_MARGIN,
+          "by_dtype": by_dtype, "errors": errs, "launches": launches, "timings": timings, "ptxas": ptxas,
+          "library_note": "forward: SDPA; backward: SDPA forward+backward minus SDPA "
+                          "forward, both with grad enabled"}, log)
+    return {"launches": launches, "timings": timings, "ptxas": ptxas,
+            "by_dtype": by_dtype}
 
 
 # the entry phase's rule set: every rule kind on "temp" (standard normal
@@ -3533,6 +3841,358 @@ def phase_transformer_train(device, log, fails, seed: int, cfg: TransformerConfi
     return launches
 
 
+# the sharded phase: SpmdEngine at bench.py's per-chip headline sizes
+# (HEADLINE_CFG, bench.py:99-103: 2^15 devices, 2^16 tokens, a 2^18-row
+# ring, 16384-event batches, 8 channels) a shard, dispatch_depth 2 and
+# scan_chunk 2 as scripts/bench_spmd.py:105 runs its engine, the bench's
+# rule set at the read phase's rules sizes and a group-commit WAL; every
+# shard on cuda:0 (one card: the shards share it, so events/s across shard
+# counts is no scaling figure)
+SHARDED_CONFIG = dict(device_capacity=1 << 15, token_capacity=1 << 16,
+                      assignment_capacity=1 << 16, store_capacity=1 << 18,
+                      batch_capacity=16384, channels=8, scan_chunk=2, dispatch_depth=2,
+                      rule_groups=256, rollup_buckets=16)
+SHARDED_SHARDS = (1, 2, 4)
+SHARDED_BATCHES = 40
+SHARDED_WARMUP = 2
+SHARDED_DEVICES = 10_000
+SHARDED_T0_MS = 10**12 + 1_000     # event dates past the pinned epoch base (1e9 s)
+SHARDED_SMALL = dict(device_capacity=2048, token_capacity=4096, assignment_capacity=4096,
+                     store_capacity=1 << 13, batch_capacity=1024, channels=8,
+                     scan_chunk=2, dispatch_depth=2, rule_groups=256, rollup_buckets=16)
+SHARDED_SMALL_BATCHES = 6
+SHARDED_COUNTERS = ("processed", "found", "missed", "registered", "persisted",
+                    "reg_overflow", "rule_fires", "staged", "arena_rows")
+# the exchange leg: 8192 events over 4 shards' token slices, buckets of
+# 4096 (room for every row) and of 1024 with every row arriving on shard 0
+# (overflow); each shard's ring holds one exchanged batch
+SHARDED_EXCHANGE = dict(device_capacity_per_shard=1 << 12, token_capacity_per_shard=1 << 12,
+                        assignment_capacity_per_shard=1 << 12,
+                        store_capacity_per_shard=1 << 17, channels=8)
+
+
+def sharded_payloads(seed: int, n_batches: int, batch: int, n_devices: int):
+    """The wire phase's stream (``loadgen.batch_maker``'s seeded devices,
+    its canonical measurement request) with two changes: the measurement
+    is the rule set's "temp" channel valued by :func:`rules_temp`, and each
+    event carries its own ``eventDate`` (one ms apart), so a query page has
+    no timestamp ties to order. Returns [(payloads, token indices)]."""
+    rng = np.random.default_rng(seed)
+    toks = [f"lg-{i}" for i in range(n_devices)]
+    out = []
+    for b in range(n_batches):
+        picks = rng.integers(0, n_devices, batch)
+        seq0 = b * batch
+        vals = rules_temp(np.arange(seq0, seq0 + batch))
+        out.append(([json.dumps({"deviceToken": toks[d], "type": "DeviceMeasurement",
+                                 "request": {"name": "temp", "value": float(vals[i]),
+                                             "eventDate": SHARDED_T0_MS + seq0 + i,
+                                             "updateState": True,
+                                             "metadata": {"seq": str(seq0 + i)}}}).encode()
+                     for i, d in enumerate(picks)], picks))
+    return out
+
+
+def _spmd_engine(device, n: int, config: dict, wal_dir=None):
+    from sitewhere_tpu_torch.parallel.sharded import SpmdEngine
+
+    cfg = dict(config, wal_dir=str(wal_dir), wal_group_commit=True) if wal_dir else config
+    eng = SpmdEngine(EngineConfig(**cfg), n_shards=n, device=device)
+    eng.epoch = PinnedEpoch(1e9)
+    mgr = RulesManager(eng)
+    mgr.load(RL_RULESET)
+    return eng, mgr
+
+
+def _launches_a_dispatch(eng, payloads) -> float | None:
+    """CUDA kernels a dispatch launches: one profiled call that fills and
+    dispatches, kernels counted from the trace over the dispatches it made."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = eng._arena_dispatches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.ingest_json_batch(payloads)
+        eng.flush_async()
+        eng.barrier()
+    n = eng._arena_dispatches - before
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("Memcpy") and not e.key.startswith("Memset"))
+    return kernels / n if n else None
+
+
+def _sharded_exchange(device, fails, seed: int, n: int = 4, n_events: int = 8192,
+                      bucket: int = 4096, skew_bucket: int = 1024,
+                      sizes: dict = SHARDED_EXCHANGE) -> dict:
+    """ShardedEngine on the card: unrouted batches moved by the exchange
+    equal the CPU's byte for byte and the host-routed run per token, and
+    the overflow count of a skewed batch equals the CPU's."""
+    from sitewhere_tpu_torch.parallel.router import ShardRouter, stack_host_batches
+    from sitewhere_tpu_torch.parallel.sharded import ShardedEngine
+
+    tps = sizes["token_capacity_per_shard"]
+    rng = np.random.default_rng(seed + 11)
+    toks = rng.integers(0, n * tps, n_events)
+    ts = np.arange(toks.size)
+    vals = rules_temp(ts)
+
+    def unrouted(place):
+        from sitewhere_tpu_torch.core.events import HostEventBuffer
+
+        bufs = [HostEventBuffer(toks.size, 8) for _ in range(n)]
+        for i, t in enumerate(toks):
+            bufs[place(i, t)].append(int(EventType.MEASUREMENT), int(t), 0, int(ts[i]),
+                                     int(ts[i]), values=[float(vals[i])])
+        return stack_host_batches([b.emit_host() for b in bufs])
+
+    router = ShardRouter(n, tps, toks.size, 8)
+    for i, t in enumerate(toks):
+        router.append(int(EventType.MEASUREMENT), int(t), 0, int(ts[i]), int(ts[i]),
+                      values=[float(vals[i])])
+    routed = ShardedEngine(n_shards=n, device=device, **sizes)
+    routed.step(router.emit())
+    out = {}
+    for label, place, bkt in (("round_robin", lambda i, t: i % n, bucket),
+                              ("skewed", lambda i, t: 0, skew_bucket)):
+        batch = unrouted(place)
+        card = ShardedEngine(n_shards=n, device=device, exchange=True, bucket_capacity=bkt,
+                             **sizes)
+        cpu = ShardedEngine(n_shards=n, device="cpu", exchange=True, bucket_capacity=bkt,
+                            **sizes)
+        card.step(batch)
+        cpu.step(batch)
+        differ = [name for (name, a), (_, b) in zip(_state_leaves(card.state),
+                                                    _state_leaves(cpu.state))
+                  if not torch.equal(a.cpu(), b)]
+        fails.check(not differ, f"sharded exchange ({label}): the card differs from the "
+                                f"CPU in {differ[:5]}")
+        m, mc = card.global_metrics(), cpu.global_metrics()
+        fails.check(m == mc, f"sharded exchange ({label}): counters {m} vs CPU {mc}")
+        out[label] = {"missed": m["missed"], "found": m["found"], "bucket": bkt}
+        if label == "round_robin":
+            fails.check(m["missed"] == 0 and m["found"] == toks.size,
+                        f"sharded exchange: {m} with room in every bucket")
+            ra, rb = routed.state, card.state
+            for f in ("meas_last", "meas_last_ms", "last_interaction_ms", "event_counts"):
+                a, b = getattr(ra.device_state, f), getattr(rb.device_state, f)
+                ta, tb = ra.registry.token_to_device, rb.registry.token_to_device
+                ok = all(torch.equal(a[s][ta[s][ta[s] >= 0].long()],
+                                     b[s][tb[s][ta[s] >= 0].long()]) for s in range(n))
+                fails.check(ok, f"sharded exchange: per-token {f} differs from the routed run")
+    return out
+
+
+def phase_sharded(device, log, fails, seed: int, config: dict = SHARDED_CONFIG,
+                  shard_counts=SHARDED_SHARDS, n_batches: int = SHARDED_BATCHES,
+                  n_devices: int = SHARDED_DEVICES, small: dict = SHARDED_SMALL,
+                  small_batches: int = SHARDED_SMALL_BATCHES, exchange_kw=None) -> dict:
+    """The multi-shard engine on the card (``SpmdEngine``, every shard on
+    this card) at the per-shard headline sizes, 1, 2 and 4 shards: the
+    wire stream (:func:`sharded_payloads`) through the native decoder into
+    the stacked staging arena, the WAL on, the bench's rule set; events/s
+    over the timed batches, host stage medians and CUDA kernels a dispatch.
+    Checks (a) each shard's store byte-identical to a single-card engine
+    fed that shard's substream; (b) ``query_events`` pages over the recent
+    stream equal a single-card engine's fed the whole stream; (c) the
+    conservation ledger balances; (d) ``ShardedEngine(exchange=True)``
+    equals the CPU's and the routed run, and its overflow count the CPU's;
+    (e) a reduced leg: the card engine's stacked state, counters, pages and
+    rule fires equal a CPU ``SpmdEngine``'s fed the same batches."""
+    from sitewhere_tpu_torch.parallel.placement import shard_for_token
+
+    t_phase = time.perf_counter()
+    stream = sharded_payloads(seed, n_batches, config["batch_capacity"], n_devices)
+    toks = [f"lg-{i}" for i in range(n_devices)]
+    total = sum(len(p) for p, _ in stream)
+    runs = {}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    try:
+        single = wire_engine(device, {k: v for k, v in config.items()})
+        for p, _ in stream:
+            single.ingest_json_batch(p)
+        single.flush()
+        for n in shard_counts:
+            eng, _ = _spmd_engine(device, n, config, wal_dir=tmp / f"wal{n}")
+            clock = HostClock(eng)
+            for p, _ in stream[:SHARDED_WARMUP]:
+                eng.ingest_json_batch(p)
+            eng.barrier()
+            timed = stream[SHARDED_WARMUP:]
+            d0 = eng._arena_dispatches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for p, _ in timed:
+                eng.ingest_json_batch(p)
+            eng.barrier()
+            wall = time.perf_counter() - t0
+            calls = clock.calls[-len(timed):]
+            run = {"events_per_s": sum(len(p) for p, _ in timed) / wall, "wall_s": wall,
+                   "dispatches": eng._arena_dispatches - d0,
+                   "host_ms_per_call": clock.medians(len(timed)),
+                   # a dispatch every few calls: the medians of its parts are 0
+                   "host_ms_per_call_mean": {f"{k}_ms": statistics.fmean(c[k] for c in calls)
+                                             for k in ("total", *HostClock.PARTS)},
+                   "wal_fsyncs": eng.wal.fsyncs}
+            eng.flush()
+            m = eng.metrics()
+            fails.check(m["processed"] == m["persisted"] == total
+                        and eng.host_counters.get("arena_rows") == total
+                        and not eng.host_counters.get("staged_copy_rows"),
+                        f"sharded {n}: counters {m}, host {eng.host_counters}")
+            # (a) each shard's store against a single-card engine on its substream
+            if n > 1:
+                shard_of = np.array([shard_for_token(t, n) for t in toks])
+                differ = []
+                for s in range(n):
+                    ref = wire_engine(device, config)
+                    for p, picks in stream:
+                        mine = np.nonzero(shard_of[picks] == s)[0]
+                        ref.ingest_json_batch([p[i] for i in mine])
+                    ref.flush()
+                    differ += [f"shard {s} {name}" for (name, a), (_, b) in zip(
+                        _state_leaves(ref.state.store), _state_leaves(eng.shards[s].store))
+                               if not torch.equal(a, b)]
+                    del ref
+                fails.check(not differ, f"sharded {n}: stores differ from the per-shard "
+                                        f"single-card engines: {differ[:5]}")
+                run["stores_identical_to_substreams"] = not differ
+            # (b) pages over the recent stream (both rings still hold it)
+            t_end = SHARDED_T0_MS - 10**12 + total
+            preds = [dict(limit=64, since_ms=t_end - 100_000),
+                     dict(device_token="lg-7", limit=32, since_ms=t_end - 100_000),
+                     dict(device_token="lg-4242", limit=8, since_ms=t_end - 150_000,
+                          until_ms=t_end - 50_000),
+                     dict(limit=16, etype=EventType.MEASUREMENT, since_ms=t_end - 20_000)]
+            pages_ok = True
+            for kw in preds:
+                a, b = single.query_events(**kw), eng.query_events(**kw)
+                strip = [[{k: v for k, v in e.items() if k != "assignmentId"}
+                          for e in x["events"]] for x in (a, b)]
+                pages_ok &= a["total"] == b["total"] and strip[0] == strip[1]
+            fails.check(pages_ok, f"sharded {n}: query pages differ from the single card's")
+            run["pages_equal_single_card"] = pages_ok
+            # (c) conservation
+            bad = [v.to_dict() for v in check_conservation(build_ledger(eng))]
+            fails.check(not bad, f"sharded {n}: conservation violated: {bad}")
+            run["launches_a_dispatch"] = _launches_a_dispatch(eng, stream[-1][0])
+            run["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            runs[n] = run
+            eng.wal.close()
+            del eng, clock
+        del single
+        exchange = _sharded_exchange(device, fails, seed, **(exchange_kw or {}))
+        # (e) the card engine against a CPU engine, every byte
+        small_stream = sharded_payloads(seed + 3, small_batches, small["batch_capacity"], 600)
+        (card, card_mgr), (cpu, cpu_mgr) = (_spmd_engine(d, 2, small)
+                                            for d in (device, torch.device("cpu")))
+        for p, _ in small_stream:
+            for e in (card, cpu):
+                e.ingest_json_batch(p)
+        for e in (card, cpu):
+            e.flush()
+        differ = [name for (name, a), (_, b) in zip(_state_leaves(card.state),
+                                                    _state_leaves(cpu.state))
+                  if not torch.equal(a.cpu(), b)]
+        pages = [e.query_events(limit=50, since_ms=1_000) for e in (card, cpu)]
+        fires = [sorted(a["alternateId"] for a in m.poll()) for m in (card_mgr, cpu_mgr)]
+        counters = [{k: e.metrics()[k] for k in SHARDED_COUNTERS} for e in (card, cpu)]
+        fails.check(not differ and pages[0] == pages[1] and fires[0] == fires[1]
+                    and counters[0] == counters[1],
+                    f"sharded reduced leg: the card differs from the CPU: state "
+                    f"{differ[:5]}, pages {pages[0] == pages[1]}, fires "
+                    f"{len(fires[0])} vs {len(fires[1])}, counters {counters}")
+        small_rec = {"identical": not differ and pages[0] == pages[1]
+                     and fires[0] == fires[1] and counters[0] == counters[1],
+                     "rule_fires": len(fires[0]), "counters": counters[0]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"phase": "sharded", "note": "every shard on one card: events/s across shard "
+                                       "counts is shards sharing one card, not scaling",
+           "config": config, "batches": n_batches, "warmup": SHARDED_WARMUP,
+           "devices": n_devices, "events": total, "runs": runs, "exchange": exchange,
+           "reduced_leg": small_rec, "seconds": time.perf_counter() - t_phase}
+    emit(rec, log)
+    print("sharded: " + " ".join(
+        f"{n}x={r['events_per_s']:.0f}ev/s({r['launches_a_dispatch']}k/disp)"
+        for n, r in runs.items()) + " (shards share one card)", flush=True)
+    return rec
+
+
+# the transformer configurations of fault C6 (head dims 128, 8 and 48, and
+# float16), each scored and trained one step on the card
+TF_C6_CONFIGS = {"d128": TransformerConfig(d_model=256, heads=2),
+                 "d8": TransformerConfig(heads=32),
+                 "d48": TransformerConfig(d_model=384, heads=8),
+                 "f16": TransformerConfig(dtype=torch.float16)}
+TF_C6_SHAPE = (2, 4096)
+
+
+def phase_transformer_c6(device, log, fails, seed: int, configs=None,
+                         shape=TF_C6_SHAPE) -> dict:
+    """``forecast_scores`` and one ``make_train_step`` step (AdamW) at each
+    C6 configuration on [2, 4096] windows, seeded weights and data: every
+    layer's attention and its gradient through the kernels (launch counts
+    reset just before and read just after: layers each), scores finite and
+    the first window's within TF_SCORE_RTOL of the same model with the
+    plain attention, the loss finite and every parameter finite after the
+    step."""
+    from sitewhere_tpu_torch.models.anomaly import adamw
+    from sitewhere_tpu_torch.models.transformer import make_train_step
+
+    configs = configs or TF_C6_CONFIGS
+    out, launches = {}, {"flash_attention": 0, "flash_attention_backward": 0}
+    for name, cfg in configs.items():
+        model = TelemetryTransformer(cfg, device=device,
+                                     generator=torch.Generator().manual_seed(seed))
+        gen = torch.Generator(device=device).manual_seed(seed + 7)
+        x = torch.randn((*shape, cfg.sensors), device=device, generator=gen)
+        forecast_scores(model, x[:1, :64])                     # warm-up: scoring,
+        step = make_train_step(model, adamw(model.parameters(), TT_LR))
+        step(x[:1, :64])                                       # a step, Adam's state
+        _sync(device)
+        fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
+        t0 = time.perf_counter()
+        scores = forecast_scores(model, x)
+        _sync(device)
+        score_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loss = step(x).item()
+        _sync(device)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        got = {"flash_attention": fa.flash_attention.launches,
+               "flash_attention_backward": fa.flash_attention_backward.launches}
+        for k in launches:
+            launches[k] += got[k]
+        want = {"flash_attention": 2 * cfg.layers, "flash_attention_backward": cfg.layers}
+        fails.check(got == want, f"transformer C6 {name}: launches {got}, want {want}")
+        plain = forecast_scores(model, x[:1], attention_fn=functools.partial(
+            fa.mha_reference, causal=True))
+        finite_params = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+        fails.check(scores.shape == (shape[0],) and bool(torch.isfinite(scores).all())
+                    and math.isfinite(loss) and finite_params,
+                    f"transformer C6 {name}: scores {scores}, loss {loss}, "
+                    f"finite parameters {finite_params}")
+        # the first window scored through the kernel and through the plain
+        # attention, both with the weights the step left
+        again = forecast_scores(model, x[:1])
+        rec = {"config": dataclasses.asdict(cfg) | {"dtype": str(cfg.dtype)},
+               "head_dim": cfg.d_model // cfg.heads, "score_ms": score_ms,
+               "train_step_ms": step_ms, "loss": loss, "launches": got,
+               "score_mean": scores.mean().item(),
+               "score_first_window_after_step": again[0].item(),
+               "plain_score_first_window_after_step": plain[0].item(),
+               "score_rel_err_vs_plain": abs(again[0].item() - plain[0].item())
+               / abs(plain[0].item())}
+        fails.check(rec["score_rel_err_vs_plain"] <= TF_SCORE_RTOL,
+                    f"transformer C6 {name}: kernel score {again[0].item()} vs plain "
+                    f"{plain[0].item()}")
+        out[name] = rec
+        del model, step, x
+    emit({"phase": "transformer_c6", "shape": list(shape), "configs": out,
+          "launches": launches, "score_rtol": TF_SCORE_RTOL}, log)
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "--id=0"],
@@ -3573,6 +4233,13 @@ def main(argv=None) -> int:
     timing = {"window_features": phase_kernel_window_features(device, log, fails),
               "flash_attention": phase_kernel_flash(device, log, fails),
               "flash_attention_backward": phase_kernel_flash_backward(device, log, fails)}
+    c6 = phase_kernel_flash_c6(device, log, fails)
+    for name, part in (("flash_attention", "forward"), ("flash_attention_backward", "backward")):
+        timing[name]["at_head_dim_128_bf16"] = c6["timings"]["main_d128_bf16"][part]
+        timing[name]["float16"] = c6["timings"]["main_f16"][part]
+    timing["flash_attention_backward"]["c6_errors_by_dtype"] = c6["by_dtype"]
+    timing["flash_attention_backward"]["ptxas_d128_f16"] = {
+        k: v for k, v in c6["ptxas"].items() if k.startswith("flash_bwd")}
     phase_entry(device, log, fails)
     launches, slice_step_ms, slice_eng = phase_slice(device, log, fails, args.seed,
                                                      SLICE_BATCHES, profile=args.profile)
@@ -3581,8 +4248,10 @@ def main(argv=None) -> int:
     launches = launches | phase_transformer(device, log, fails, args.seed,
                                             profile=args.profile)
     tt = phase_transformer_train(device, log, fails, args.seed, profile=args.profile)
+    tc6 = phase_transformer_c6(device, log, fails, args.seed)
     phase_read(device, log, fails, args.seed, slice_step_ms, profile=args.profile)
     phase_wire(device, log, fails, args.seed, profile=args.profile)
+    phase_sharded(device, log, fails, args.seed)
     archive = phase_archive(device, log, fails, args.seed, profile=args.profile)
     phase_hostplane(device, log, fails, args.seed, profile=args.profile)
     # window_features runs on three paths: the live scoring of the slice,
@@ -3591,9 +4260,11 @@ def main(argv=None) -> int:
                                    "train": train["window_features"],
                                    "archive": archive["launches"]},
                "flash_attention": {"transformer": launches["flash_attention"],
-                                   "transformer_train": tt["flash_attention"]},
+                                   "transformer_train": tt["flash_attention"],
+                                   "transformer_c6": tc6["flash_attention"]},
                "flash_attention_backward": {
-                   "transformer_train": tt["flash_attention_backward"]}}
+                   "transformer_train": tt["flash_attention_backward"],
+                   "transformer_c6": tc6["flash_attention_backward"]}}
     timing["window_features"]["at_archive_job_shape"] = {
         k: archive[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
     kernels = [dict(k, launches=sum(by_path[k["name"]].values()),

@@ -9,6 +9,7 @@ same bytes.
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 import torch
@@ -158,3 +159,44 @@ def pipeline_state_from_numpy(tree, device: str | torch.device = DEFAULT_DEVICE
             rules=_optional(RuleBlock, rules.rules, dev, static=("layout",)),
             rollups=_optional(RollupBlock, rules.rollups, dev)),
     )
+
+
+class _ShardSlice:
+    """Shard ``s`` of a stacked state tree read by attribute: array leaves
+    indexed ``[s]``, subtrees sliced the same way, static fields (a rule
+    block's ``layout``) and None as they are."""
+
+    def __init__(self, tree, s: int):
+        self._tree, self._s = tree, s
+
+    def __getattr__(self, name):
+        x = getattr(self._tree, name)
+        if x is None or isinstance(x, (tuple, list, int, float, bool, str)):
+            return x
+        if hasattr(x, "shape") and hasattr(x, "dtype"):
+            return np.asarray(x)[self._s]
+        return _ShardSlice(x, self._s)
+
+
+def shard_states_from_numpy(tree, devices: list) -> list[PipelineState]:
+    """A JAX stacked ``PipelineState`` (numpy leaves ``[n_shards, ...]``,
+    e.g. ``jax.device_get`` of a ``SpmdEngine``'s state) -> the port's
+    per-shard states, shard ``s`` on ``devices[s]``."""
+    return [pipeline_state_from_numpy(_ShardSlice(tree, s), d)
+            for s, d in enumerate(devices)]
+
+
+def shard_states_to_numpy(states: list[PipelineState]):
+    """The port's per-shard states -> one stacked tree of numpy leaves
+    ``[n_shards, ...]`` read by attribute, shaped like a JAX stacked
+    state pulled to the host (static fields taken from shard 0)."""
+    first = states[0]
+    if isinstance(first, torch.Tensor):
+        return np.stack([x.cpu().numpy() for x in states])
+    if first is None:
+        return None
+    if dataclasses.is_dataclass(first):
+        return types.SimpleNamespace(**{
+            f.name: shard_states_to_numpy([getattr(st, f.name) for st in states])
+            for f in dataclasses.fields(first)})
+    return first

@@ -14,7 +14,9 @@
 //
 // Two kernels, chosen by dtype in swtpu_flash_attention:
 //
-// * bfloat16 (the transformer's path): tensor cores, FA2-style. A block of
+// * bfloat16 (the transformer's path) and float16 (the same kernel on
+//   float16 fragments and the float16 mma): tensor cores, FA2-style. Up to
+//   D = 64 a block of
 //   4 warps owns 128 query rows, 32 per warp as two m16 row tiles that
 //   share every K and V fragment the warp reads from shared memory (with
 //   16 rows a warp, shared-memory reads per score matched the exponential
@@ -40,6 +42,10 @@
 //   P V mma (the m16n8 accumulator layout is the m16n8k16 A layout), with V
 //   fragments from ldmatrix.x4.trans: P never goes through shared memory.
 //   The output goes out through shared memory as 16-byte stores.
+//   At D = 128 the Q fragments (64 registers beside O's 128) are read from
+//   a shared Q tile of the block's 128 rows each key tile, as FA2 does at
+//   that width, and the 2-stage ring and the Q tile (102 KB) live in
+//   dynamic shared memory.
 // * float32: one thread per query row on the CUDA cores, float32 products,
 //   K/V tiles of 32 keys in shared memory. Tensor cores would mean TF32
 //   (about 3 decimal digits), which the float32 contract (1e-5) does not
@@ -47,9 +53,10 @@
 //
 // q, k and v are read in place through base pointers and (batch, row, head)
 // strides with unit stride on D, so the three strided views of one fused
-// [B, S, 3, H, D] qkv product are read as they lie; the bf16 path needs each
+// [B, S, 3, H, D] qkv product are read as they lie; the 16-bit path needs each
 // row 16-byte aligned (the wrapper checks). The output is written contiguous
-// [B, S, H, D].
+// [B, S, H, D]. Head dims 16, 32, 64 and 128; the wrapper pads any other D
+// up to 128 with zero lanes (ops/attention.py:padded_head_dim).
 //
 // Semantics kept from the TPU kernel and its oracle (mha_reference):
 //   * causal: key tiles wholly above a block's rows are never loaded, a
@@ -191,26 +198,38 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   for (int c = 0; c < D; ++c) op[c] = acc[c] / denom;
 }
 
-// ----------------------------------------------------------------- bfloat16
+// ------------------------------------------------------- bfloat16 / fp16
 
 constexpr int kWarps = 4;
-constexpr int kMTiles = 2;                     // m16 row tiles a warp
-constexpr int kWarpRows = 16 * kMTiles;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBlockM = kWarpRows * kWarps;    // query rows per block
-constexpr int kBlockN = 64;                    // keys per shared-memory tile
-constexpr int kPad = 8;                        // bf16 of padding a shared row
+constexpr int kPad = 8;                        // 16-bit elements of padding a shared row
 
 template <int D>
 struct Bf16Tile {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
+  // two m16 row tiles a warp share every K/V fragment; up to D = 64 Q
+  // stays in registers as A fragments, at D = 128 (64 registers of them
+  // beside 128 of O) it is read from a shared tile each key tile, as FA2
+  // does at that width
+  static constexpr int kMTiles = 2;
+  static constexpr bool kQSmem = D > 64;
+  static constexpr int kWarpRows = 16 * kMTiles;
+  static constexpr int kBlockM = kWarpRows * kWarps;  // query rows a block
+  // keys a shared-memory tile: 32 at D = 128, where S of 64 keys beside O
+  // and the Q fragments spills
+  static constexpr int kBlockN = D <= 64 ? 64 : 32;
   static constexpr int kRow = D + kPad;            // shared row, elements
-  static constexpr int kStages = D <= 32 ? 3 : 2;  // cp.async ring depth
+  static constexpr int kStages = D == 64 ? 2 : 3;  // cp.async ring depth
+  // past the 48 KB of static shared memory at D = 128 (the ring 52 KB and
+  // the Q tile 34 KB): dynamic there
+  static constexpr bool kDynamicSmem = D > 64;
   static constexpr int kChunks = D / 8;            // 16-byte chunks a row
   static constexpr int kElems = kBlockN * kRow;    // one K or V tile
   static constexpr int kCopies = kBlockN * kChunks;  // 16-byte copies a tile
+  static constexpr int kSmemBytes =
+      (kStages * 2 * kElems + (kQSmem ? kBlockM * kRow : 0)) * 2;
   // blocks an SM must hold: at D <= 32 a cap of 168 registers keeps 3 (12
-  // warps); at D = 64 that cap spills, so it runs uncapped (2 blocks)
+  // warps); at D >= 64 that cap spills, so it runs uncapped
   static constexpr int kMinBlocks = D <= 32 ? 3 : 1;
   static_assert(kBlockM <= 2 * kStages * kBlockN, "the output fits the ring");
 };
@@ -220,13 +239,12 @@ struct Bf16Tile {
 // (g, 8+2t..), a[3] = (g+8, 8+2t..). B (16x8, col-major): b0 = (2t..2t+1,
 // g), b1 = (8+2t.., g). C (16x8): c[0..1] = (g, 2t..2t+1), c[2..3] = (g+8,
 // 2t..2t+1). A warp owns kMTiles tiles of 16 rows, which share every K and
-// V fragment it reads from shared memory.
-template <int D>
+// V fragment it reads from shared memory. T is __nv_bfloat16 or __half:
+// only the mma's input type and the pack of P and O differ.
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, Bf16Tile<D>::kMinBlocks)
-flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ out,
+flash_attention_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ out,
                             float* __restrict__ lse, int s, int h,
                             int num_q_tiles, int num_bh, Strides qs,
                             Strides ks, Strides vs, float scale_log2e,
@@ -234,10 +252,19 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   using Tile = Bf16Tile<D>;
   constexpr int kRow = Tile::kRow, kStages = Tile::kStages;
   constexpr int kChunks = Tile::kChunks;
+  constexpr int kMTiles = Tile::kMTiles, kWarpRows = Tile::kWarpRows;
+  constexpr int kBlockM = Tile::kBlockM, kBlockN = Tile::kBlockN;
   constexpr int kNT = kBlockN / 8;  // 8-key column tiles of S
   constexpr int kDT = D / 8;        // 8-wide column tiles of O
   // [stage][0: K, 1: V][key][kRow]
-  __shared__ __align__(128) __nv_bfloat16 smem[kStages][2][Tile::kElems];
+  T (*smem)[2][Tile::kElems];
+  if constexpr (Tile::kDynamicSmem) {
+    extern __shared__ __align__(128) unsigned char flash_smem[];
+    smem = reinterpret_cast<T (*)[2][Tile::kElems]>(flash_smem);
+  } else {
+    __shared__ __align__(128) T smem_static[kStages][2][Tile::kElems];
+    smem = smem_static;
+  }
 
   const int bh = blockIdx.x % num_bh;
   const int qt = num_q_tiles - 1 - blockIdx.x / num_bh;
@@ -247,14 +274,29 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2, t = lane & 3;
   const int warp_row = qt * kBlockM + warp * kWarpRows;  // the warp's first row
 
-  const __nv_bfloat16* kb = k + b * ks.b + hd * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + hd * vs.h;
+  const T* kb = k + b * ks.b + hd * ks.h;
+  const T* vb = v + b * vs.b + hd * vs.h;
 
   // Q as A fragments, loaded once (zeros for rows past S); q_sign flips
-  // the sign of both bf16 halves of each register for a negative scale
-  uint32_t qf[kMTiles][D / 16][4];
-  {
-    const __nv_bfloat16* qb = q + b * qs.b + hd * qs.h;
+  // the sign of both 16-bit halves of each register for a negative scale.
+  // At D = 128 the block's Q tile goes to shared memory instead, in the
+  // first copy group (zeros for rows past S), and its fragments are read
+  // there for each key tile.
+  T* const q_tile = Tile::kQSmem ? &smem[kStages][0][0] : nullptr;
+  uint32_t qf[Tile::kQSmem ? 1 : kMTiles][Tile::kQSmem ? 1 : D / 16][4];
+  if constexpr (Tile::kQSmem) {
+    const T* qb = q + b * qs.b + hd * qs.h;
+#pragma unroll
+    for (int i = 0; i < kBlockM * kChunks / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int r = e / kChunks, c = e % kChunks;
+      const int row = qt * kBlockM + r;
+      const bool valid = row < s;
+      cp_async16(smem_addr(q_tile + r * kRow + c * 8),
+                 qb + static_cast<int64_t>(valid ? row : 0) * qs.s + c * 8, valid);
+    }
+  } else {
+    const T* qb = q + b * qs.b + hd * qs.h;
 #pragma unroll
     for (int mt = 0; mt < kMTiles; ++mt) {
 #pragma unroll
@@ -319,8 +361,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int k0 = j * kBlockN;
     // a causal tile wholly above this warp's rows adds nothing to them
     if (causal && k0 > warp_row + kWarpRows - 1) continue;
-    const __nv_bfloat16* kt = smem[j % kStages][0];
-    const __nv_bfloat16* vt = smem[j % kStages][1];
+    const T* kt = smem[j % kStages][0];
+    const T* vt = smem[j % kStages][1];
 
     // S = Q K^T, [16 kMTiles, 64] a warp
     float sc[kMTiles][kNT][4];
@@ -329,19 +371,47 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < kNT; ++i)
         sc[mt][i][0] = sc[mt][i][1] = sc[mt][i][2] = sc[mt][i][3] = 0.0f;
-#pragma unroll
-    for (int p = 0; p < kNT / 2; ++p) {
+    if constexpr (Tile::kQSmem) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        // matrices: keys 16p + 0..7 / 8..15 x d 16kk + 0..7 / 8..15
-        const int key = 16 * p + (lane & 7) + ((lane >> 4) << 3);
-        const int col = 16 * kk + ((lane >> 3) & 1) * 8;
-        uint32_t bf[4];
-        ldmatrix_x4(smem_addr(kt + key * kRow + col), bf);
+        // the warp's Q fragments of d 16kk.. (rows 0..7 / 8..15 x d 0..7 /
+        // 8..15 of each m16 tile), each read once a key tile
+        uint32_t qa[kMTiles][4];
 #pragma unroll
         for (int mt = 0; mt < kMTiles; ++mt) {
-          mma_bf16(sc[mt][2 * p], qf[mt][kk], bf[0], bf[1]);
-          mma_bf16(sc[mt][2 * p + 1], qf[mt][kk], bf[2], bf[3]);
+          const int row = warp * kWarpRows + 16 * mt + (lane & 7) + ((lane >> 3) & 1) * 8;
+          ldmatrix_x4(smem_addr(q_tile + row * kRow + 16 * kk + (lane >> 4) * 8), qa[mt]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[mt][i] ^= q_sign;
+        }
+#pragma unroll
+        for (int p = 0; p < kNT / 2; ++p) {
+          const int key = 16 * p + (lane & 7) + ((lane >> 4) << 3);
+          const int col = 16 * kk + ((lane >> 3) & 1) * 8;
+          uint32_t bf[4];
+          ldmatrix_x4(smem_addr(kt + key * kRow + col), bf);
+#pragma unroll
+          for (int mt = 0; mt < kMTiles; ++mt) {
+            mma_16816<T>(sc[mt][2 * p], qa[mt], bf[0], bf[1]);
+            mma_16816<T>(sc[mt][2 * p + 1], qa[mt], bf[2], bf[3]);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < kNT / 2; ++p) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          // matrices: keys 16p + 0..7 / 8..15 x d 16kk + 0..7 / 8..15
+          const int key = 16 * p + (lane & 7) + ((lane >> 4) << 3);
+          const int col = 16 * kk + ((lane >> 3) & 1) * 8;
+          uint32_t bf[4];
+          ldmatrix_x4(smem_addr(kt + key * kRow + col), bf);
+#pragma unroll
+          for (int mt = 0; mt < kMTiles; ++mt) {
+            mma_16816<T>(sc[mt][2 * p], qf[mt][kk], bf[0], bf[1]);
+            mma_16816<T>(sc[mt][2 * p + 1], qf[mt][kk], bf[2], bf[3]);
+          }
         }
       }
     }
@@ -388,8 +458,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         const float p3 = exp2_approx(fmaf(sc[mt][nt][3], scale_log2e, -mc[1]));
         rs[0] += p0 + p1;
         rs[1] += p2 + p3;
-        pf[mt][nt / 2][(nt & 1) * 2] = pack_bf16(p0, p1);
-        pf[mt][nt / 2][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+        pf[mt][nt / 2][(nt & 1) * 2] = pack2<T>(p0, p1);
+        pf[mt][nt / 2][(nt & 1) * 2 + 1] = pack2<T>(p2, p3);
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[mt][r] = l[mt][r] * alpha[r] + rs[r];
@@ -415,8 +485,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         ldmatrix_x4_trans(smem_addr(vt + key * kRow + col), bf);
 #pragma unroll
         for (int mt = 0; mt < kMTiles; ++mt) {
-          mma_bf16(o[mt][2 * p], pf[mt][kk], bf[0], bf[1]);
-          mma_bf16(o[mt][2 * p + 1], pf[mt][kk], bf[2], bf[3]);
+          mma_16816<T>(o[mt][2 * p], pf[mt][kk], bf[0], bf[1]);
+          mma_16816<T>(o[mt][2 * p + 1], pf[mt][kk], bf[2], bf[3]);
         }
       }
     }
@@ -426,7 +496,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // region) as 16-byte stores
   cp_async_wait<0>();
   __syncthreads();  // no warp reads a K/V tile any more
-  __nv_bfloat16* ot = &smem[0][0][0] + warp * kWarpRows * kRow;
+  T* ot = &smem[0][0][0] + warp * kWarpRows * kRow;
 #pragma unroll
   for (int mt = 0; mt < kMTiles; ++mt) {
 #pragma unroll
@@ -443,7 +513,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < kDT; ++i)
         *reinterpret_cast<uint32_t*>(&ot[srow * kRow + i * 8 + 2 * t]) =
-            pack_bf16(o[mt][i][2 * r] * inv, o[mt][i][2 * r + 1] * inv);
+            pack2<T>(o[mt][i][2 * r] * inv, o[mt][i][2 * r + 1] * inv);
     }
   }
   __syncwarp();  // each warp copies out its own rows
@@ -466,21 +536,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int s, int h, int num_bh, Strides qs, Strides ks,
                    Strides vs, float scale_log2e, int causal,
                    cudaStream_t stream) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int block_q = kBf16 ? kBlockM : kF32BlockQ;
+  constexpr bool k16 = sizeof(T) == 2;
+  constexpr int block_q = k16 ? Bf16Tile<D>::kBlockM : kF32BlockQ;
   const int64_t num_q_tiles = (static_cast<int64_t>(s) + block_q - 1) / block_q;
   if (num_q_tiles * num_bh > INT32_MAX) return cudaErrorInvalidValue;
   const unsigned blocks = static_cast<unsigned>(num_q_tiles * num_bh);
-  if constexpr (kBf16) {
+  if constexpr (k16) {
     // the kernel's scale must be > 0 (see the note at the top)
     const uint32_t q_sign = scale_log2e < 0.0f ? 0x80008000u : 0u;
     const float c = scale_log2e == 0.0f ? FLT_MIN : fabsf(scale_log2e);
-    flash_attention_bf16_kernel<D><<<blocks, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-        lse, s, h, static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, c, q_sign,
-        causal);
+    using Tile = Bf16Tile<D>;
+    int smem = 0;
+    if constexpr (Tile::kDynamicSmem) {
+      smem = Tile::kSmemBytes;
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_attention_bf16_kernel<T, D>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+    }
+    flash_attention_bf16_kernel<T, D><<<blocks, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), lse, s, h,
+        static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, c, q_sign, causal);
   } else {
     flash_attention_f32_kernel<D><<<blocks, kF32BlockQ, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
@@ -506,6 +583,9 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64>(q, k, v, out, lse, s, h, num_bh, qs, ks, vs,
                            scale_log2e, causal, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, out, lse, s, h, num_bh, qs, ks, vs,
+                            scale_log2e, causal, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -513,18 +593,20 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, k, v: [b, s, h, d] of float32 (is_bf16 == 0) or bfloat16 (is_bf16 ==
-// 1) with element strides (*_sb, *_ss, *_sh) and unit stride on d; out:
+// q, k, v: [b, s, h, d] of float32 (dtype 0), bfloat16 (1) or float16 (2)
+// with element strides (*_sb, *_ss, *_sh) and unit stride on d; out:
 // contiguous [b, s, h, d] of the same type; lse: null, or [b, h, s]
 // float32 for each row's log-sum-exp (natural log); all on the device of
-// ``stream``. d is 16, 32 or 64. bfloat16 also needs every base pointer
-// 16-byte aligned and every stride a multiple of 8. scale_log2e = sm_scale
-// * log2(e). Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a head dim or grid the kernels do not take).
+// ``stream``. d is 16, 32, 64 or 128 (the wrapper pads any other d up to
+// one of these). The 16-bit types also need every base pointer 16-byte
+// aligned and every stride a multiple of 8. scale_log2e = sm_scale *
+// log2(e). Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a head dim, type or grid the kernels do not
+// take).
 extern "C" int swtpu_flash_attention(
     const void* q, const void* k, const void* v, void* out, float* lse,
     int b, int s,
-    int h, int d, int is_bf16, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    int h, int d, int dtype, int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
     int64_t v_sh, float scale_log2e, int causal, void* stream) {
   if (b <= 0 || s <= 0 || h <= 0) return 0;
@@ -533,10 +615,22 @@ extern "C" int swtpu_flash_attention(
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const auto st = static_cast<cudaStream_t>(stream);
   const int bh = static_cast<int>(num_bh);
-  const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(d, q, k, v, out, lse, s, h, bh, qs, ks,
-                                        vs, scale_log2e, causal, st)
-              : dispatch<float>(d, q, k, v, out, lse, s, h, bh, qs, ks, vs,
-                                scale_log2e, causal, st);
+  cudaError_t err;
+  switch (dtype) {
+    case 0:
+      err = dispatch<float>(d, q, k, v, out, lse, s, h, bh, qs, ks, vs,
+                            scale_log2e, causal, st);
+      break;
+    case 1:
+      err = dispatch<__nv_bfloat16>(d, q, k, v, out, lse, s, h, bh, qs, ks,
+                                    vs, scale_log2e, causal, st);
+      break;
+    case 2:
+      err = dispatch<__half>(d, q, k, v, out, lse, s, h, bh, qs, ks, vs,
+                             scale_log2e, causal, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

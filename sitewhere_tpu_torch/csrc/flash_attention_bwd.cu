@@ -17,8 +17,8 @@
 //   dK_j    = scale sum_i dS_ij q_i
 //   dQ_i    = scale sum_j dS_ij k_j
 //
-// * bfloat16 (the transformer's path): one pass over the (query, key)
-//   pairs, FA3's backward for Hopper, in three launches on the caller's
+// * bfloat16 up to D = 64 (the transformer's path): one pass over the
+//   (query, key) pairs, FA3's backward for Hopper, in three launches on the caller's
 //   stream: a prep pass (delta; lse in base 2; the turn counters zeroed),
 //   the main kernel and a pass that scales the float32 dQ and rounds it to
 //   bf16. A block of the main kernel owns (batch, head, 128 keys) and walks
@@ -61,18 +61,28 @@
 //     head), so earlier key blocks are dispatched first, and they have
 //     the most query tiles under a causal mask). A wait that outlasts ~10
 //     s traps instead of hanging the card.
+// * float16 at every head dim, and bfloat16 at D = 128: the mma.sync
+//   kernels below (MmaBwdTile), a dK/dV kernel (a block owns 64 keys) and a
+//   dQ kernel (a block owns 64 query rows) after the prep pass, each output
+//   element summed by one thread in a fixed order, so bitwise the same from
+//   run to run. At D = 128 the one-pass kernel would need its dK and dV
+//   accumulators alone (128 float32 registers a thread) plus S and dP
+//   within the compute warpgroups' 232 registers; these kernels keep K and
+//   V in shared memory and read 32 query rows (or keys) a tile, at 255
+//   and 242 registers (the dK/dV kernel spills 20 bytes).
 // * float32: CUDA cores, float32 products (tensor cores would mean TF32,
 //   about 3 decimal digits), two kernels after the prep pass: one thread
 //   per key (dK/dV) or per query (dQ) with its own row and accumulators in
 //   registers, the other side's tiles of 32 rows in shared memory. At
-//   D = 64 the dK/dV thread holds 4 x 64 floats and spills; it is not on
-//   the transformer's path.
+//   D = 64 the dK/dV thread holds 4 x 64 floats and spills, at D = 128 far
+//   more; it is not on the transformer's path.
 //
 // q, k and v are read in place through (batch, row, head) strides with unit
 // stride on D (the strided views of one fused qkv product); o and dO are
 // contiguous [B, S, H, D]; dq, dk and dv are written contiguous. Any S;
-// head dims 16, 32, 64. bf16 needs 16-byte aligned base pointers and
-// strides that are a multiple of 8 elements (TMA takes 16-byte strides).
+// head dims 16, 32, 64 and 128. The 16-bit types need 16-byte aligned base
+// pointers and strides that are a multiple of 8 elements (TMA and cp.async
+// take 16-byte strides).
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint (no link against libcuda).
 //
@@ -121,13 +131,7 @@ __global__ void flash_bwd_prep_kernel(const T* __restrict__ o,
   const T* dp = dout + r * D;
   float acc = 0.0f;
 #pragma unroll
-  for (int c = 0; c < D; ++c) {
-    if constexpr (sizeof(T) == 2) {
-      acc = fmaf(__bfloat162float(op[c]), __bfloat162float(dp[c]), acc);
-    } else {
-      acc = fmaf(op[c], dp[c], acc);
-    }
-  }
+  for (int c = 0; c < D; ++c) acc = fmaf(to_float(op[c]), to_float(dp[c]), acc);
   // r = (b s + i) h + hd  ->  (b h + hd) pitch + i
   const int64_t hd = r % h;
   const int64_t bi = r / h;
@@ -338,6 +342,437 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   float* out = dq + ((static_cast<int64_t>(b) * s + row) * h + hd) * D;
 #pragma unroll
   for (int c = 0; c < D; ++c) out[c] = dqr[c] * scale;
+}
+
+// ------------------------------------------------- mma.sync (16-bit types)
+
+// The backward of the 16-bit types where the wgmma kernel below does not
+// reach: float16 at every head dim, and bfloat16 at D = 128 (there the
+// one-pass kernel's dK and dV accumulators alone are 128 float32 registers
+// a thread in each compute warpgroup, past the 232 it may have). Two
+// kernels after the prep pass, each output element summed by one thread in
+// a fixed order (deterministic), on mma.sync m16n8k16 (float32
+// accumulators) with the forward's fragment layouts:
+// * dK/dV: a block of 4 warps owns 64 keys, 16 a warp, with its K and V
+//   tiles in shared memory; it walks the query tiles (kBQ rows of Q and dO
+//   through a 2-stage cp.async ring): S^T = K Q^T and dP^T = V dO^T,
+//   P^T = exp2(S^T scale log2e - lse2), dS^T = P^T (dP^T - delta), then
+//   dV += P^T dO and dK += dS^T Q with P^T and dS^T, rounded to T, as the
+//   A operands straight from the accumulators;
+// * dQ: a block of 4 warps owns 64 query rows, 16 a warp, Q and dO as A
+//   fragments in registers; it walks the key tiles (kBK keys of K and V
+//   through the ring): S = Q K^T, dP = dO V^T, dS = P (dP - delta), dQ +=
+//   dS K.
+// A causal tile wholly masked for a warp is skipped; the diagonal and the
+// ragged edge are masked per element. Rows past S load as zeros and are
+// masked (P = 0).
+
+constexpr int kPad16 = 8;  // 16-bit elements of padding a shared row
+
+// float16 keeps 5 exponent bits: a P or dS entry below 2^-14 is subnormal
+// and one below 2^-24 is lost, where bfloat16 keeps float32's range. So
+// the float16 kernels round each row of P^T and dS^T (dS in the dQ
+// kernel) to float16 times 2^e, e the row's own exponent: at most
+// RowScale::kTop for the row's largest entry so far (2^15 < 65504, no
+// overflow), lowered as a larger entry arrives, the row's accumulator
+// rescaled by the same power of two (exact in float32) and 2^-e taken off
+// at the end. A row's tiny entries then keep float16's 11 bits relative
+// to the row's largest, as bfloat16's 8 bits keep them.
+struct RowScale {
+  static constexpr int kTop = 15;
+  static constexpr int kStart = 127;  // above any exponent a row takes
+  int e[2] = {kStart, kStart};        // rows g and g + 8 of the thread
+
+  // lower the exponents for this tile's entries v[nt][4] (rows by e >> 1)
+  // and rescale acc[.][4] with them; quad-wide, as a row lies in 4 lanes
+  template <int kNT, int kDT>
+  __device__ __forceinline__ void update(const float (&v)[kNT][4], float (&acc)[kDT][4]) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = 0.0f;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        mx = fmaxf(mx, fmaxf(fabsf(v[nt][2 * r]), fabsf(v[nt][2 * r + 1])));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      if (mx > 0.0f) {
+        // mx < 2^x (x of frexp; a subnormal mx takes the clamp below)
+        const int x = ((__float_as_int(mx) >> 23) & 0xff) - 126;
+        const int want = min(kTop - x, 126);
+        if (want < e[r]) {
+          const float f = e[r] == kStart ? 1.0f : ldexpf(1.0f, want - e[r]);
+#pragma unroll
+          for (int i = 0; i < kDT; ++i) {
+            acc[i][2 * r] *= f;
+            acc[i][2 * r + 1] *= f;
+          }
+          e[r] = want;
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ float up(int r) const {
+    return e[r] == kStart ? 1.0f : ldexpf(1.0f, e[r]);
+  }
+  __device__ __forceinline__ float down(int r) const {
+    return e[r] == kStart ? 1.0f : ldexpf(1.0f, -e[r]);
+  }
+};
+
+template <int D>
+struct MmaBwdTile {
+  static_assert(D % 16 == 0 && D <= 128, "D must be 16, 32, 64 or 128");
+  static constexpr int kRows = 64;                 // keys (dK/dV) or queries (dQ) a block
+  static constexpr int kOther = D <= 64 ? 64 : 32; // rows of the other side a tile
+  static constexpr int kRow = D + kPad16;          // shared row, elements
+  static constexpr int kChunks = D / 8;            // 16-byte chunks a row
+  // dK/dV: K, V [kRows][kRow] then the Q/dO ring [2][2][kOther][kRow];
+  // dQ: the K/V ring [2][2][kOther][kRow]
+  static constexpr int kDkdvBytes = (2 * kRows + 4 * kOther) * kRow * 2;
+  static constexpr int kDqBytes = 4 * kOther * kRow * 2;
+};
+
+// rows [row0, row0 + n) of a strided [.., D] view of T into a shared tile
+// [n][kRow] as 16-byte cp.async copies; rows at or past s read as zeros
+template <typename T, int D, int kRowE, int kN, int kThreadsN>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t stride,
+                                          int row0, int s, int tid) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = 0; i < (kN * kChunks + kThreadsN - 1) / kThreadsN; ++i) {
+    const int e = tid + i * kThreadsN;
+    if ((kN * kChunks) % kThreadsN != 0 && e >= kN * kChunks) break;
+    const int r = e / kChunks, c = e % kChunks;
+    const int row = row0 + r;
+    const bool valid = row < s;
+    cp_async16(smem_addr(dst + r * kRowE + c * 8),
+               src + static_cast<int64_t>(valid ? row : 0) * stride + c * 8, valid);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse2,
+                          const float* __restrict__ delta, T* __restrict__ dk,
+                          T* __restrict__ dv, int s, int h, int num_bh, Strides qs,
+                          Strides ks, Strides vs, float scale_log2e, float scale,
+                          int causal) {
+  using Tile = MmaBwdTile<D>;
+  constexpr int kRow = Tile::kRow, kBQ = Tile::kOther, kRows = Tile::kRows;
+  constexpr int kNT = kBQ / 8;  // 8-query column tiles of S^T
+  constexpr int kDT = D / 8;    // 8-wide column tiles of dK, dV
+  extern __shared__ uint8_t smem_raw[];
+  T* const k_s = reinterpret_cast<T*>(smem_raw);
+  T* const v_s = k_s + kRows * kRow;
+  T* const ring = v_s + kRows * kRow;  // [stage][0: Q, 1: dO][kBQ][kRow]
+
+  const int bh = blockIdx.x % num_bh;
+  const int kt = blockIdx.x / num_bh;  // the first key tiles have most work
+  const int b = bh / h;
+  const int hd = bh - b * h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = kt * kRows;
+  const int wkey = key0 + 16 * warp;  // the warp's first key
+
+  const T* qb = q + b * qs.b + hd * qs.h;
+  const T* db = dout + (static_cast<int64_t>(b) * s * h + hd) * D;
+  const float* lb = lse2 + static_cast<int64_t>(bh) * s;
+  const float* eb = delta + static_cast<int64_t>(bh) * s;
+
+  load_rows<T, D, kRow, kRows, 128>(k_s, k + b * ks.b + hd * ks.h, ks.s, key0, s,
+                                    threadIdx.x);
+  load_rows<T, D, kRow, kRows, 128>(v_s, v + b * vs.b + hd * vs.h, vs.s, key0, s,
+                                    threadIdx.x);
+  // queries before the block's first key see none of its keys
+  const int m_first = causal ? key0 / kBQ : 0;
+  const int m_tiles = (s + kBQ - 1) / kBQ;
+  auto load_tile = [&](int m, int stage) {
+    T* dst = ring + stage * 2 * kBQ * kRow;
+    load_rows<T, D, kRow, kBQ, 128>(dst, qb, qs.s, m * kBQ, s, threadIdx.x);
+    load_rows<T, D, kRow, kBQ, 128>(dst + kBQ * kRow, db, static_cast<int64_t>(h) * D,
+                                    m * kBQ, s, threadIdx.x);
+  };
+  if (m_first < m_tiles) load_tile(m_first, 0);
+  cp_async_commit();  // K, V and the first tile: one group
+
+  float dk_acc[kDT][4], dv_acc[kDT][4];
+#pragma unroll
+  for (int i = 0; i < kDT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.0f;
+  RowScale p_scale, s_scale;   // float16 only
+
+  for (int m = m_first, it = 0; m < m_tiles; ++m, ++it) {
+    if (m + 1 < m_tiles) load_tile(m + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of tile m (and K, V) landed
+    __syncthreads();     // ... everyone's
+    const int q0 = m * kBQ;
+    // a causal tile wholly before this warp's keys adds nothing to them
+    if (!(causal && q0 + kBQ - 1 < wkey)) {
+      const T* q_t = ring + (it & 1) * 2 * kBQ * kRow;
+      const T* d_t = q_t + kBQ * kRow;
+      // S^T = K Q^T and dP^T = V dO^T: [16 keys, kBQ queries] a warp
+      float st[kNT][4], dpt[kNT][4];
+#pragma unroll
+      for (int i = 0; i < kNT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[i][e] = dpt[i][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // A: the warp's 16 keys x d 16 kk.., from K and V
+        const int arow = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int acol = 16 * kk + (lane >> 4) * 8;
+        uint32_t ka[4], va[4];
+        ldmatrix_x4(smem_addr(k_s + arow * kRow + acol), ka);
+        ldmatrix_x4(smem_addr(v_s + arow * kRow + acol), va);
+#pragma unroll
+        for (int p = 0; p < kNT / 2; ++p) {
+          // B: queries 16 p + 0..7 / 8..15 x d 16 kk + 0..7 / 8..15
+          const int row = 16 * p + (lane & 7) + ((lane >> 4) << 3);
+          const int col = 16 * kk + ((lane >> 3) & 1) * 8;
+          uint32_t qf[4], df[4];
+          ldmatrix_x4(smem_addr(q_t + row * kRow + col), qf);
+          ldmatrix_x4(smem_addr(d_t + row * kRow + col), df);
+          mma_16816<T>(st[2 * p], ka, qf[0], qf[1]);
+          mma_16816<T>(st[2 * p + 1], ka, qf[2], qf[3]);
+          mma_16816<T>(dpt[2 * p], va, df[0], df[1]);
+          mma_16816<T>(dpt[2 * p + 1], va, df[2], df[3]);
+        }
+      }
+      // P^T and dS^T in place of S^T and dP^T, then as A fragments (the
+      // accumulator's column pairs), float16 rows scaled (RowScale)
+      const bool edge = (causal && q0 < wkey + 15) || q0 + kBQ > s;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int qc = q0 + 8 * nt + 2 * t;
+        const float l0 = qc < s ? lb[qc] : 0.0f, l1 = qc + 1 < s ? lb[qc + 1] : 0.0f;
+        const float e0 = qc < s ? eb[qc] : 0.0f, e1 = qc + 1 < s ? eb[qc + 1] : 0.0f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2_approx(fmaf(st[nt][e], scale_log2e, -((e & 1) ? l1 : l0)));
+          if (edge) {
+            const int key = wkey + g + 8 * (e >> 1);
+            const int query = qc + (e & 1);
+            if (query >= s || (causal && key > query)) p = 0.0f;
+          }
+          st[nt][e] = p;
+          dpt[nt][e] = p * (dpt[nt][e] - ((e & 1) ? e1 : e0));
+        }
+      }
+      float pu[2] = {1.0f, 1.0f}, su[2] = {1.0f, 1.0f};
+      if constexpr (std::is_same_v<T, __half>) {
+        p_scale.update(st, dv_acc);
+        s_scale.update(dpt, dk_acc);
+        pu[0] = p_scale.up(0), pu[1] = p_scale.up(1);
+        su[0] = s_scale.up(0), su[1] = s_scale.up(1);
+      }
+      uint32_t pa[kNT / 2][4], sa[kNT / 2][4];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        pa[nt / 2][(nt & 1) * 2] = pack2<T>(st[nt][0] * pu[0], st[nt][1] * pu[0]);
+        pa[nt / 2][(nt & 1) * 2 + 1] = pack2<T>(st[nt][2] * pu[1], st[nt][3] * pu[1]);
+        sa[nt / 2][(nt & 1) * 2] = pack2<T>(dpt[nt][0] * su[0], dpt[nt][1] * su[0]);
+        sa[nt / 2][(nt & 1) * 2 + 1] = pack2<T>(dpt[nt][2] * su[1], dpt[nt][3] * su[1]);
+      }
+      // dV += P^T dO, dK += dS^T Q: B from the [query][d] tiles, transposed
+#pragma unroll
+      for (int kk = 0; kk < kNT / 2; ++kk) {
+#pragma unroll
+        for (int p = 0; p < D / 16; ++p) {
+          const int row = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+          const int col = 16 * p + (lane >> 4) * 8;
+          uint32_t df[4], qf[4];
+          ldmatrix_x4_trans(smem_addr(d_t + row * kRow + col), df);
+          ldmatrix_x4_trans(smem_addr(q_t + row * kRow + col), qf);
+          mma_16816<T>(dv_acc[2 * p], pa[kk], df[0], df[1]);
+          mma_16816<T>(dv_acc[2 * p + 1], pa[kk], df[2], df[3]);
+          mma_16816<T>(dk_acc[2 * p], sa[kk], qf[0], qf[1]);
+          mma_16816<T>(dk_acc[2 * p + 1], sa[kk], qf[2], qf[3]);
+        }
+      }
+    }
+    __syncthreads();  // the slot of tile m may be written again
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = wkey + g + 8 * r;
+    if (key >= s) continue;
+    const int64_t row = ((static_cast<int64_t>(b) * s + key) * h + hd) * D;
+    const float ks = scale * s_scale.down(r), vs = p_scale.down(r);
+#pragma unroll
+    for (int i = 0; i < kDT; ++i) {
+      const int c = 8 * i + 2 * t;
+      *reinterpret_cast<uint32_t*>(dk + row + c) =
+          pack2<T>(dk_acc[i][2 * r] * ks, dk_acc[i][2 * r + 1] * ks);
+      *reinterpret_cast<uint32_t*>(dv + row + c) =
+          pack2<T>(dv_acc[i][2 * r] * vs, dv_acc[i][2 * r + 1] * vs);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse2,
+                        const float* __restrict__ delta, T* __restrict__ dq, int s,
+                        int h, int num_q_tiles, int num_bh, Strides qs, Strides ks,
+                        Strides vs, float scale_log2e, float scale, int causal) {
+  using Tile = MmaBwdTile<D>;
+  constexpr int kRow = Tile::kRow, kBK = Tile::kOther, kRows = Tile::kRows;
+  constexpr int kNT = kBK / 8;  // 8-key column tiles of S
+  constexpr int kDT = D / 8;
+  extern __shared__ uint8_t smem_raw[];
+  T* const ring = reinterpret_cast<T*>(smem_raw);  // [stage][0: K, 1: V][kBK][kRow]
+
+  const int bh = blockIdx.x % num_bh;
+  const int qt = num_q_tiles - 1 - blockIdx.x / num_bh;  // most work first
+  const int b = bh / h;
+  const int hd = bh - b * h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = qt * kRows + 16 * warp;  // the warp's first query row
+
+  const T* kb = k + b * ks.b + hd * ks.h;
+  const T* vb = v + b * vs.b + hd * vs.h;
+
+  // Q and dO as A fragments (zeros past S), lse2 and delta of the rows
+  uint32_t qa[D / 16][4], da[D / 16][4];
+  float l2[2], dl[2];
+  {
+    const T* qbase = q + b * qs.b + hd * qs.h;
+    const T* dbase = dout + (static_cast<int64_t>(b) * s * h + hd) * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wrow + g + 8 * r;
+      const bool live = row < s;
+      const uint32_t* qp = reinterpret_cast<const uint32_t*>(
+          qbase + static_cast<int64_t>(live ? row : 0) * qs.s);
+      const uint32_t* dp = reinterpret_cast<const uint32_t*>(
+          dbase + static_cast<int64_t>(live ? row : 0) * h * D);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        qa[kk][r] = live ? __ldg(qp + kk * 8 + t) : 0u;
+        qa[kk][r + 2] = live ? __ldg(qp + kk * 8 + 4 + t) : 0u;
+        da[kk][r] = live ? __ldg(dp + kk * 8 + t) : 0u;
+        da[kk][r + 2] = live ? __ldg(dp + kk * 8 + 4 + t) : 0u;
+      }
+      l2[r] = live ? lse2[static_cast<int64_t>(bh) * s + row] : 0.0f;
+      dl[r] = live ? delta[static_cast<int64_t>(bh) * s + row] : 0.0f;
+    }
+  }
+
+  // keys past the block's last row are masked for every row of it
+  const int kv_len = causal ? min(s, (qt + 1) * kRows) : s;
+  const int n_tiles = (kv_len + kBK - 1) / kBK;
+  auto load_tile = [&](int j, int stage) {
+    T* dst = ring + stage * 2 * kBK * kRow;
+    load_rows<T, D, kRow, kBK, 128>(dst, kb, ks.s, j * kBK, s, threadIdx.x);
+    load_rows<T, D, kRow, kBK, 128>(dst + kBK * kRow, vb, vs.s, j * kBK, s,
+                                    threadIdx.x);
+  };
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();
+
+  float dq_acc[kDT][4];
+#pragma unroll
+  for (int i = 0; i < kDT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[i][e] = 0.0f;
+  RowScale s_scale;   // float16 only
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) load_tile(j + 1, (j + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = j * kBK;
+    if (!(causal && k0 > wrow + 15)) {
+      const T* k_t = ring + (j & 1) * 2 * kBK * kRow;
+      const T* v_t = k_t + kBK * kRow;
+      float sc[kNT][4], dp[kNT][4];
+#pragma unroll
+      for (int i = 0; i < kNT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.0f;
+#pragma unroll
+      for (int p = 0; p < kNT / 2; ++p) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int key = 16 * p + (lane & 7) + ((lane >> 4) << 3);
+          const int col = 16 * kk + ((lane >> 3) & 1) * 8;
+          uint32_t kf[4], vf[4];
+          ldmatrix_x4(smem_addr(k_t + key * kRow + col), kf);
+          ldmatrix_x4(smem_addr(v_t + key * kRow + col), vf);
+          mma_16816<T>(sc[2 * p], qa[kk], kf[0], kf[1]);
+          mma_16816<T>(sc[2 * p + 1], qa[kk], kf[2], kf[3]);
+          mma_16816<T>(dp[2 * p], da[kk], vf[0], vf[1]);
+          mma_16816<T>(dp[2 * p + 1], da[kk], vf[2], vf[3]);
+        }
+      }
+      // dS in place of dP, then as A fragments, float16 rows scaled
+      const bool edge = (causal && k0 + kBK - 1 > wrow) || k0 + kBK > s;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p = exp2_approx(fmaf(sc[nt][e], scale_log2e, -l2[r]));
+          if (edge) {
+            const int key = k0 + 8 * nt + 2 * t + (e & 1);
+            const int row = wrow + g + 8 * r;
+            if (key >= s || (causal && key > row)) p = 0.0f;
+          }
+          dp[nt][e] = p * (dp[nt][e] - dl[r]);
+        }
+      }
+      float su[2] = {1.0f, 1.0f};
+      if constexpr (std::is_same_v<T, __half>) {
+        s_scale.update(dp, dq_acc);
+        su[0] = s_scale.up(0), su[1] = s_scale.up(1);
+      }
+      uint32_t sa[kNT / 2][4];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        sa[nt / 2][(nt & 1) * 2] = pack2<T>(dp[nt][0] * su[0], dp[nt][1] * su[0]);
+        sa[nt / 2][(nt & 1) * 2 + 1] = pack2<T>(dp[nt][2] * su[1], dp[nt][3] * su[1]);
+      }
+      // dQ += dS K: B from the [key][d] tile, transposed
+#pragma unroll
+      for (int kk = 0; kk < kNT / 2; ++kk) {
+#pragma unroll
+        for (int p = 0; p < D / 16; ++p) {
+          const int key = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+          const int col = 16 * p + (lane >> 4) * 8;
+          uint32_t kf[4];
+          ldmatrix_x4_trans(smem_addr(k_t + key * kRow + col), kf);
+          mma_16816<T>(dq_acc[2 * p], sa[kk], kf[0], kf[1]);
+          mma_16816<T>(dq_acc[2 * p + 1], sa[kk], kf[2], kf[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    if (row >= s) continue;
+    T* out = dq + ((static_cast<int64_t>(b) * s + row) * h + hd) * D;
+    const float qs = scale * s_scale.down(r);
+#pragma unroll
+    for (int i = 0; i < kDT; ++i)
+      *reinterpret_cast<uint32_t*>(out + 8 * i + 2 * t) =
+          pack2<T>(dq_acc[i][2 * r] * qs, dq_acc[i][2 * r + 1] * qs);
+  }
 }
 
 // --------------------------------------------------------------- bfloat16
@@ -935,23 +1370,27 @@ struct Args {
 };
 
 // scratch layout (bytes): delta and lse2 [num_bh][pitch] float32 each;
-// bfloat16 only: the dQ accumulator [num_bh][pitch][D] float32 and the
-// turn counters [num_bh][pitch / kBM] int32. pitch is S for float32 and S
-// rounded up to kBM for bfloat16.
+// the wgmma kernel only: the dQ accumulator [num_bh][pitch][D] float32 and
+// the turn counters [num_bh][pitch / kBM] int32. pitch is S for the other
+// kernels and S rounded up to kBM for the wgmma kernel.
 struct Scratch {
   int64_t pitch, m_tiles, n_turns, delta, lse2, dq_acc, turns, bytes;
-  Scratch(int64_t num_bh, int64_t s, int64_t d, bool bf16) {
+  Scratch(int64_t num_bh, int64_t s, int64_t d, bool wgmma) {
     m_tiles = (s + kBM - 1) / kBM;
-    pitch = bf16 ? m_tiles * kBM : s;
-    n_turns = bf16 ? num_bh * m_tiles : 0;
+    pitch = wgmma ? m_tiles * kBM : s;
+    n_turns = wgmma ? num_bh * m_tiles : 0;
     const int64_t rows = num_bh * pitch * 4;
     delta = 0;
     lse2 = rows;
     dq_acc = 2 * rows;
-    turns = dq_acc + (bf16 ? rows * d : 0);
+    turns = dq_acc + (wgmma ? rows * d : 0);
     bytes = turns + n_turns * 4;
   }
 };
+
+// the wgmma kernel takes bfloat16 at D <= 64; dtype 0 float32, 1 bfloat16,
+// 2 float16
+bool takes_wgmma(int dtype, int d) { return dtype == 1 && d <= 64; }
 
 template <typename T, int D>
 cudaError_t launch_prep(const Args& a, const Scratch& sc) {
@@ -1084,14 +1523,69 @@ cudaError_t launch_f32(const Args& a) {
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(int d, bool bf16, const Args& a) {
+template <typename T, int D>
+cudaError_t launch_mma(const Args& a) {
+  using Tile = MmaBwdTile<D>;
+  const Scratch sc(a.num_bh, a.s, D, false);
+  cudaError_t err = launch_prep<T, D>(a, sc);
+  if (err != cudaSuccess) return err;
+  const char* base = static_cast<const char*>(a.scratch);
+  const float* delta = reinterpret_cast<const float*>(base + sc.delta);
+  const float* lse2 = reinterpret_cast<const float*>(base + sc.lse2);
+  const int64_t num_tiles = (static_cast<int64_t>(a.s) + Tile::kRows - 1) / Tile::kRows;
+  if (num_tiles * a.num_bh > INT32_MAX) return cudaErrorInvalidValue;
+  const unsigned blocks = static_cast<unsigned>(num_tiles * a.num_bh);
+  const float scale_log2e = a.scale * kLog2e;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Tile::kDkdvBytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_mma_kernel<T, D><<<blocks, 128, Tile::kDkdvBytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), lse2, delta, static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.s, a.h, a.num_bh, a.qs, a.ks, a.vs, scale_log2e, a.scale,
+      a.causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kDqBytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_mma_kernel<T, D><<<blocks, 128, Tile::kDqBytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), lse2, delta, static_cast<T*>(a.dq), a.s, a.h,
+      static_cast<int>(num_tiles), a.num_bh, a.qs, a.ks, a.vs, scale_log2e, a.scale,
+      a.causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch_d(int dtype, const Args& a) {
+  switch (dtype) {
+    case 0:
+      return launch_f32<D>(a);
+    case 1:  // takes_wgmma(1, D)
+      if constexpr (D <= 64) {
+        return launch_bf16<D>(a);
+      } else {
+        return launch_mma<__nv_bfloat16, D>(a);
+      }
+    case 2:
+      return launch_mma<__half, D>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch(int d, int dtype, const Args& a) {
   switch (d) {
     case 16:
-      return bf16 ? launch_bf16<16>(a) : launch_f32<16>(a);
+      return dispatch_d<16>(dtype, a);
     case 32:
-      return bf16 ? launch_bf16<32>(a) : launch_f32<32>(a);
+      return dispatch_d<32>(dtype, a);
     case 64:
-      return bf16 ? launch_bf16<64>(a) : launch_f32<64>(a);
+      return dispatch_d<64>(dtype, a);
+    case 128:
+      return dispatch_d<128>(dtype, a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1100,30 +1594,30 @@ cudaError_t dispatch(int d, bool bf16, const Args& a) {
 }  // namespace
 
 // Bytes of scratch that swtpu_flash_attention_bwd needs for these sizes
-// (is_bf16 as there); 0 when there is nothing to compute.
+// (dtype as there); 0 when there is nothing to compute.
 extern "C" int64_t swtpu_flash_attention_bwd_scratch_bytes(int b, int s, int h, int d,
-                                                           int is_bf16) {
+                                                           int dtype) {
   if (b <= 0 || s <= 0 || h <= 0) return 0;
-  return Scratch(static_cast<int64_t>(b) * h, s, d, is_bf16 != 0).bytes;
+  return Scratch(static_cast<int64_t>(b) * h, s, d, takes_wgmma(dtype, d)).bytes;
 }
 
-// q, k, v: [b, s, h, d] of float32 (is_bf16 == 0) or bfloat16 (is_bf16 ==
-// 1) with element strides (*_sb, *_ss, *_sh) and unit stride on d; o and
+// q, k, v: [b, s, h, d] of float32 (dtype 0), bfloat16 (1) or float16 (2)
+// with element strides (*_sb, *_ss, *_sh) and unit stride on d; o and
 // dout: contiguous [b, s, h, d] of that type (the forward's output and its
 // gradient); lse: [b, h, s] float32, the forward's log-sum-exp (natural
 // log); dq, dk, dv: contiguous [b, s, h, d] of that type, written whole;
-// scratch: swtpu_flash_attention_bwd_scratch_bytes(b, s, h, d, is_bf16)
+// scratch: swtpu_flash_attention_bwd_scratch_bytes(b, s, h, d, dtype)
 // bytes, 16-byte aligned, contents ignored; all on the device of
-// ``stream``. d is 16, 32 or 64; bfloat16 also needs every base pointer
-// 16-byte aligned and every stride a multiple of 8. sm_scale is the
-// forward's scale (any sign). Returns the first cudaGetLastError() that is
-// not cudaSuccess after each of the three launches
-// (cudaErrorInvalidValue for a head dim or grid the kernels do not take, or
-// a view that no tensor map describes).
+// ``stream``. d is 16, 32, 64 or 128; the 16-bit types also need every
+// base pointer 16-byte aligned and every stride a multiple of 8. sm_scale
+// is the forward's scale (any sign). Returns the first cudaGetLastError()
+// that is not cudaSuccess after each of the three launches
+// (cudaErrorInvalidValue for a head dim, type or grid the kernels do not
+// take, or a view that no tensor map describes).
 extern "C" int swtpu_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, void* dq, void* dk, void* dv,
-    void* scratch, int b, int s, int h, int d, int is_bf16, int64_t q_sb,
+    void* scratch, int b, int s, int h, int d, int dtype, int64_t q_sb,
     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, float sm_scale, int causal,
     void* stream) {
@@ -1134,5 +1628,5 @@ extern "C" int swtpu_flash_attention_bwd(
          static_cast<int>(num_bh), Strides{q_sb, q_ss, q_sh},
          Strides{k_sb, k_ss, k_sh}, Strides{v_sb, v_ss, v_sh}, sm_scale,
          causal, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(dispatch(d, is_bf16 != 0, a));
+  return static_cast<int>(dispatch(d, dtype, a));
 }

@@ -1,18 +1,22 @@
 // Building blocks shared by the flash-attention kernels
 // (flash_attention.cu, the forward; flash_attention_bwd.cu, the backward):
 // the (batch, row, head) strides of a [B, S, H, D] view, the constants, the
-// shared-memory address, the exp2 and bf16-pack helpers (both), and the
-// forward's cp.async copies, ldmatrix and bf16 mma.sync m16n8k16 product.
+// shared-memory address, the exp2 and 16-bit pack helpers (both), and the
+// cp.async copies, ldmatrix and the bf16 / fp16 mma.sync m16n8k16 product
+// (the forward, and the backward's mma.sync kernels).
 // Each .cu file includes it and builds into a library of its own
 // (cuda_build.py hashes this header with it).
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -61,14 +65,22 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr,
       : "r"(addr));
 }
 
-// c += a b for one m16n8k16 tile: a row-major bf16 [16, 16], b column-major
-// bf16 [16, 8], c float32 [16, 8]
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// c += a b for one m16n8k16 tile: a row-major [16, 16], b column-major
+// [16, 8], both of T (bf16 or fp16), c float32 [16, 8]
+template <typename T>
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same_v<T, __half>) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -81,6 +93,29 @@ __device__ __forceinline__ float exp2_approx(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// two floats as a pair of T (bf16 or fp16), lo in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, __half>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+
+// one element of float32, bf16 or fp16 as a float
+template <typename T>
+__device__ __forceinline__ float to_float(T x) {
+  if constexpr (std::is_same_v<T, __half>) {
+    return __half2float(x);
+  } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return __bfloat162float(x);
+  } else {
+    return x;
+  }
 }
 
 }  // namespace

@@ -477,6 +477,23 @@ _RULE_PARAM_FIELDS = ("active", "etype", "tenant", "ch_a", "val_a",
 _ROLLUP_PARAM_FIELDS = ("channel", "scope", "etype", "window_ms")
 
 
+def merged_rules_state(old, new, preserve_state: bool):
+    """The rules subtree that replaces ``old`` with ``new``: ``new`` as it
+    is, or with ``preserve_state`` (same-shaped tables) ``old``'s carried
+    accumulators under ``new``'s parameter columns."""
+    if not (preserve_state and old is not None and new is not None):
+        return new
+    merged_rules = old.rules
+    if old.rules is not None and new.rules is not None:
+        merged_rules = dataclasses.replace(old.rules, **{
+            f: getattr(new.rules, f) for f in _RULE_PARAM_FIELDS})
+    merged_rollups = old.rollups
+    if old.rollups is not None and new.rollups is not None:
+        merged_rollups = dataclasses.replace(old.rollups, **{
+            f: getattr(new.rollups, f) for f in _ROLLUP_PARAM_FIELDS})
+    return dataclasses.replace(new, rules=merged_rules, rollups=merged_rollups)
+
+
 def tenant_cap(n_tenants: int) -> int:
     """Static power-of-two tenant bucket for the per-tenant segment-sum."""
     return max(64, 1 << max(0, n_tenants - 1).bit_length())
@@ -685,16 +702,15 @@ class QueryBatcher:
         with eng.tracer.begin("query.round.snapshot",
                               trace_id=round_trace, q=len(batch)) as snap_sp:
             with eng.lock:
-                store = eng.state.store
+                store = self._snapshot()
                 cursors = None
                 if eng.archive is not None:
                     cursors = (store.epoch.clone(), store.cursor.clone(),
                                store.arena_capacity)
                 for limit, entries in groups.items():
                     cols = torch.tensor([e["params"] for e in entries],
-                                        dtype=torch.int32).T.to(eng.device)
-                    launched.append((entries, query_store_batch(
-                        store, QueryParams(*cols), limit=limit)))
+                                        dtype=torch.int32).T
+                    launched.append((entries, self._launch(store, cols, limit)))
                     qn = len(entries)
                     self.programs += 1
                     self.coalesced += qn
@@ -725,12 +741,26 @@ class QueryBatcher:
                                          - decoded0)
         with eng.tracer.begin("query.round.fetch", trace_id=round_trace):
             for entries, res in launched:
-                host = _fetch_query_result(res)
-                for q, entry in enumerate(entries):
-                    entry["result"] = type(host)(*(col[q] for col in host))
-                    entry["cursors"] = cursors
-                    entry["q"] = len(entries)
-                    entry["event"].set()
+                self._unpack_round(entries, res, cursors)
+
+    # the round's three device seams (the multi-shard engine's batcher
+    # spans every shard through them): the store snapshot, the launch of
+    # one limit group's query_store_batch from its host parameter columns
+    # ([N_QUERY_PARAMS, Q] int32), and the readback of its pages
+    def _snapshot(self):
+        return self.engine.state.store
+
+    def _launch(self, store, cols: torch.Tensor, limit: int):
+        return query_store_batch(store, QueryParams(*cols.to(self.engine.device)),
+                                 limit=limit)
+
+    def _unpack_round(self, entries: list[dict], res, cursors) -> None:
+        host = _fetch_query_result(res)
+        for q, entry in enumerate(entries):
+            entry["result"] = type(host)(*(col[q] for col in host))
+            entry["cursors"] = cursors
+            entry["q"] = len(entries)
+            entry["event"].set()
 
 
 class Engine:
@@ -773,14 +803,7 @@ class Engine:
         self.customers = TokenInterner(1 << 16)
         self.assets = TokenInterner(1 << 16)
         self.pipeline_config = PipelineConfig(auto_register=c.auto_register)
-        self.state = PipelineState.create(
-            c.device_capacity, c.token_capacity, c.assignment_capacity,
-            c.store_capacity, c.channels,
-            analytics_devices=c.analytics_devices,
-            analytics_window=c.analytics_window,
-            store_arenas=c.tenant_arenas,
-            device=self.device,
-        )
+        self._create_state()
         self._scan_step = make_packed_scan_step(
             self.pipeline_config, c.batch_capacity, c.channels)
         self._buf = HostEventBuffer(c.batch_capacity, c.channels)
@@ -795,18 +818,8 @@ class Engine:
         self._arena_step = None
         self._arena_committing = False
         self._arena_dispatches = 0
-        if self._native_decoder is not None and c.ingest_arenas >= 0:
-            self._build_arena_machinery(max(1, c.scan_chunk))
-        # one wire batch decoded by several threads into disjoint arena
-        # rows, byte-identical to one thread
         self._sharder = None
-        if self._arena_pool is not None:
-            n_workers = c.ingest_workers or (os.cpu_count() or 1)
-            if n_workers > 1:
-                from sitewhere_tpu_torch.ingest.workers import ShardedArenaDecoder
-
-                self._sharder = ShardedArenaDecoder(self._native_decoder,
-                                                    n_workers)
+        self._create_arenas()
         self._last_flush = time.monotonic()
         # host mirrors
         self.devices: dict[int, DeviceInfo] = {}           # device_id -> info
@@ -926,6 +939,34 @@ class Engine:
                 min_retry_after_s=c.qos_min_retry_after_s)
             self._wfq_gate = WeightedFairGate(c.tenant_weights)
             self._query_batcher.attach_wfq(c.tenant_weights)
+
+    def _create_state(self) -> None:
+        """The initial device state: one ``PipelineState`` on
+        ``self.device`` (the multi-shard engine builds its shards here)."""
+        c = self.config
+        self.state = PipelineState.create(
+            c.device_capacity, c.token_capacity, c.assignment_capacity,
+            c.store_capacity, c.channels,
+            analytics_devices=c.analytics_devices,
+            analytics_window=c.analytics_window,
+            store_arenas=c.tenant_arenas,
+            device=self.device,
+        )
+
+    def _create_arenas(self) -> None:
+        """The staging-arena pool (native batch decode only) and the
+        decode sharder: one wire batch decoded by several threads into
+        disjoint arena rows, byte-identical to one thread."""
+        c = self.config
+        if self._native_decoder is not None and c.ingest_arenas >= 0:
+            self._build_arena_machinery(max(1, c.scan_chunk))
+        if self._arena_pool is not None:
+            n_workers = c.ingest_workers or (os.cpu_count() or 1)
+            if n_workers > 1:
+                from sitewhere_tpu_torch.ingest.workers import ShardedArenaDecoder
+
+                self._sharder = ShardedArenaDecoder(self._native_decoder,
+                                                    n_workers)
 
     def _build_arena_machinery(self, k: int) -> None:
         """(Re)build the staging-arena pool (page-locked on a CUDA engine)
@@ -2730,21 +2771,8 @@ class Engine:
         threshold tweak) swaps only the parameter columns and keeps the
         carried accumulators."""
         with self.lock:
-            old = self.state.rules
-            if preserve_state and old is not None and rules_state is not None:
-                merged_rules = old.rules
-                if old.rules is not None and rules_state.rules is not None:
-                    merged_rules = dataclasses.replace(old.rules, **{
-                        f: getattr(rules_state.rules, f)
-                        for f in _RULE_PARAM_FIELDS})
-                merged_rollups = old.rollups
-                if old.rollups is not None and rules_state.rollups is not None:
-                    merged_rollups = dataclasses.replace(old.rollups, **{
-                        f: getattr(rules_state.rollups, f)
-                        for f in _ROLLUP_PARAM_FIELDS})
-                rules_state = dataclasses.replace(
-                    rules_state, rules=merged_rules, rollups=merged_rollups)
-            self.state = dataclasses.replace(self.state, rules=rules_state)
+            self.state = dataclasses.replace(self.state, rules=merged_rules_state(
+                self.state.rules, rules_state, preserve_state))
 
     def poll_rule_fires(self):
         """Harvest pending rule fires: advance the harvest cursors and read
@@ -2786,11 +2814,19 @@ class Engine:
         return tuple(a[p].cpu().numpy()
                      for a in (ro.wid, ro.cnt, ro.vsum, ro.vmin, ro.vmax))
 
-    def metrics(self) -> dict:
+    def _metric_counters(self) -> tuple[list[int], tuple[int, int] | None]:
+        """The device counters ``metrics()`` reports, read in one copy:
+        (processed, found, missed, registered, persisted, reg_overflow),
+        and (rule fires, rules active) when rules are installed."""
         m = self.state.metrics
-        counters = torch.stack([m.processed, m.found, m.missed, m.registered,
-                                m.persisted, m.reg_overflow]).cpu().tolist()
         rb = self.state.rules.rules if self.state.rules is not None else None
+        cols = [m.processed, m.found, m.missed, m.registered, m.persisted,
+                m.reg_overflow] + ([rb.fires] if rb is not None else [])
+        vals = torch.stack(cols).cpu().tolist()
+        return vals[:6], ((vals[6], rb.n_rules) if rb is not None else None)
+
+    def metrics(self) -> dict:
+        counters, rules = self._metric_counters()
         return {
             # host_counters first: a counter can never shadow a core key
             **self.host_counters,
@@ -2813,6 +2849,6 @@ class Engine:
             # CEP tier: only the partition-invariant counters (fires is a
             # pure function of the event stream; missed/late live in
             # rule_counters())
-            **({"rule_fires": int(rb.fires), "rules_active": rb.n_rules}
-               if rb is not None else {}),
+            **({"rule_fires": rules[0], "rules_active": rules[1]}
+               if rules is not None else {}),
         }

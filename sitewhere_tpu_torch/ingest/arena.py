@@ -139,6 +139,88 @@ class StagingArena:
         self.valid[:] = False
 
 
+class ShardedStagingArena:
+    """Stacked ``[n_shards, rows]`` staging arena of the multi-shard
+    engine (port of ``sitewhere_tpu/ingest/arena.py:ShardedStagingArena``).
+
+    Each shard owns one lane of ``rows`` slots (C-order, so a lane is one
+    contiguous slab) with its own fill ``cursors[s]``; the batch path
+    scatters routed rows into the lanes, and :meth:`view_batches` copies
+    lane ``s`` to shard ``s``'s device, one ``non_blocking`` copy per
+    column from page-locked memory (``pin``), and hands each shard its
+    EventBatch. With ``lanes`` (= scan_chunk) K > 1 each shard's lane is
+    consumed as K chunks of ``rows // K``. The decode runs before the
+    scatter, so only final EventBatch columns live here. The pool retires
+    a dispatched arena with a ticket that completes once every shard's
+    copy and step have."""
+
+    __slots__ = ("n_shards", "rows", "channels", "lanes", "cursors",
+                 "traces", "tensors", "valid", "etype", "token_id",
+                 "tenant_id", "ts_ms", "received_ms", "values", "vmask",
+                 "aux", "seq")
+
+    def __init__(self, n_shards: int, rows: int, channels: int,
+                 lanes: int = 1, pin: bool = False):
+        if rows % max(1, lanes):
+            raise ValueError(f"arena rows {rows} not divisible by "
+                             f"{lanes} scan lanes")
+        self.n_shards = n_shards
+        self.rows = rows
+        self.channels = channels
+        self.lanes = max(1, lanes)
+        self.cursors = np.zeros(n_shards, np.int64)
+        self.traces: list = []
+        s = n_shards
+
+        def col(shape, dtype, fill=0):
+            return torch.full(shape, fill, dtype=dtype, pin_memory=pin)
+
+        i32 = torch.int32
+        self.tensors = {
+            "valid": col((s, rows), torch.bool, False),
+            "etype": col((s, rows), i32),
+            "token_id": col((s, rows), i32, NULL_ID),
+            "tenant_id": col((s, rows), i32, NULL_ID),
+            "ts_ms": col((s, rows), i32),
+            "received_ms": col((s, rows), i32),
+            "values": col((s, rows, channels), torch.float32),
+            "vmask": col((s, rows, channels), torch.uint8),
+            "aux": col((s, rows, AUX_LANES), i32, NULL_ID),
+            "seq": col((s, rows), i32),
+        }
+        for name, t in self.tensors.items():
+            setattr(self, name, t.numpy())
+        self.seq[:] = np.tile(np.arange(rows // self.lanes, dtype=np.int32),
+                              self.lanes)
+
+    @property
+    def cursor(self) -> int:
+        """Rows staged over every lane (flush callers test its truth)."""
+        return int(self.cursors.sum())
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.tensors.values())
+
+    def view_batches(self, mesh: list[torch.device]) -> list[EventBatch]:
+        """One EventBatch a shard, lane ``s`` on ``mesh[s]`` (asynchronous
+        copies from pinned memory to a card; the arena's own tensors on
+        the CPU). Lanes past each shard's cursor must already be masked
+        invalid by the dispatcher."""
+        out = []
+        for s, dev in enumerate(mesh):
+            cols = {name: self.tensors[name][s].to(dev, non_blocking=True)
+                    for name in _COLUMNS}
+            cols["vmask"] = cols["vmask"].view(torch.bool)
+            out.append(EventBatch(**cols))
+        return out
+
+    def reset(self) -> None:
+        self.cursors[:] = 0
+        self.valid[:] = False
+        self.traces = []
+
+
 class ArenaPool:
     """Fixed pool of staging arenas rotating through in-flight dispatches.
 
@@ -146,15 +228,17 @@ class ArenaPool:
     under its lock. A ticket is anything with ``query()`` (completed,
     without blocking) and ``synchronize()`` (block until completed) — the
     engine's ``torch.cuda.Event`` — or None for work that has already
-    run."""
+    run. ``factory`` makes another arena type (the multi-shard engine
+    pools :class:`ShardedStagingArena`); the pool needs only ``reset()``,
+    ``nbytes`` and ``traces`` of its arenas."""
 
     def __init__(self, n_arenas: int, rows: int, channels: int,
-                 lanes: int = 1, pin: bool = False):
+                 lanes: int = 1, pin: bool = False, factory=None):
         if n_arenas < 1:
             raise ValueError("arena pool needs at least one arena")
         self.n_arenas = n_arenas
-        self._free: list[StagingArena] = [
-            StagingArena(rows, channels, lanes, pin) for _ in range(n_arenas)]
+        make = factory or (lambda: StagingArena(rows, channels, lanes, pin))
+        self._free: list = [make() for _ in range(n_arenas)]
         self._inflight: collections.deque = collections.deque()
         self.waits = 0   # times acquire had to block on the oldest dispatch
         self._occupancy_hwm = 0   # most arenas out of the free list at once

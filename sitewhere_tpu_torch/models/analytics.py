@@ -1,6 +1,6 @@
 """Historical analytics: archive -> device batched scoring jobs (port of
-``sitewhere_tpu/models/analytics.py``; training and the background loop
-are not ported).
+``sitewhere_tpu/models/analytics.py``; the analytics service's training on
+the live windows and its background loop are in ``models/service.py``).
 
 A job scores each device's newest window of archived history:
 

@@ -23,13 +23,23 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
     P, rounded to bf16, is the A operand of the P·V product without a
     trip through shared memory. The products leave the CUDA cores; what
     is left there is the softmax around one exponential per pair.
+  * float16: the same kernel with float16 fragments and the float16
+    ``mma.sync``.
+  * At D = 128 the Q fragments are read from a shared Q tile each key tile
+    (in registers they would take 64 beside O's 128), as FA2 does at that
+    width; the ring and the Q tile are in dynamic shared memory.
   * float32 design: one thread per query row with float32 products on the
     CUDA cores (tensor cores would mean TF32, too coarse for the float32
     tolerance); not on the transformer's path.
   * Both read q, k and v in place through their (batch, row, head)
     strides, so the strided views of one fused qkv product need no copies,
     and write a contiguous [B, S, H, D] output. Any S; head dims 16, 32,
-    64. bf16 needs 16-byte aligned base pointers and strides that are a
+    64 and 128 (``HEAD_DIMS``). Any other D up to 128 runs zero-padded to
+    the next of them (:func:`padded_head_dim`; a copy of q, k and v, the
+    output sliced back), as the TPU kernel pads D to a multiple of 128: the
+    zero lanes add nothing to q.k, and the scale stays the true D's. A D
+    past 128 and a type outside ``DTYPES`` (float64) are refused. The
+    16-bit types need 16-byte aligned base pointers and strides that are a
     multiple of 8 elements (the ``cp.async`` copies are 16 bytes).
   * The forward can also write each row's log-sum-exp (``lse`` [B, H, S]
     float32, natural log), which the backward recomputes P from.
@@ -40,7 +50,11 @@ products and one exponential a pair; Q and dO tiles through TMA into an
 mbarrier ring, warp-specialised), dQ summed in float32 across key blocks
 in a fixed order (a turn counter per query tile), so a gradient is bitwise
 the same from run to run; float32 keeps two CUDA-core kernels, each element
-summed by one thread. It replaces no Pallas kernel: the JAX trainer
+summed by one thread. float16 at every D and bfloat16 at D = 128 take two
+``mma.sync`` kernels (dK/dV a key block, dQ a query block, each element
+summed by one thread, so also bitwise the same run to run): at D = 128 the
+one-pass kernel's dK and dV accumulators alone would fill the compute
+warpgroups' register budget. It replaces no Pallas kernel: the JAX trainer
 (``sitewhere_tpu/models/transformer.py:153``) differentiates the oracle
 ``mha_reference``, and this is that gradient.
 :class:`FlashAttentionFunction` puts the two kernels behind autograd, and
@@ -60,8 +74,12 @@ import torch
 
 KERNEL = "flash_attention"
 BWD_KERNEL = "flash_attention_bwd"
-HEAD_DIMS = (16, 32, 64)
-DTYPES = (torch.float32, torch.bfloat16)
+# the head dims the kernels are instantiated at; any other D up to the last
+# is padded with zero lanes to the next one (as the TPU kernel pads D to a
+# multiple of 128), a larger D is refused
+HEAD_DIMS = (16, 32, 64, 128)
+# the kernels' types, in the order of the type code they are handed
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # masked scores, as in the JAX package: -1e30, not -inf, so a softmax
 # state that has seen only masked entries never computes -inf - -inf
@@ -133,7 +151,7 @@ def mha_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def gradient_row_shares(got: torch.Tensor, ref: torch.Tensor, which: str, *,
-                        causal: bool, atol: float) -> torch.Tensor:
+                        causal: bool, atol: float, step: float = 0.0) -> torch.Tensor:
     """How far each row (one position of one head) of a gradient ``got``
     lies from ``ref``: its largest absolute error over the head dim, as a
     share of that row's largest |ref| element, [B, S, H] float32 (0 where
@@ -141,10 +159,13 @@ def gradient_row_shares(got: torch.Tensor, ref: torch.Tensor, which: str, *,
     "dv". ``atol`` comes off the error only on the rows whose exact
     gradient is 0, where float32 rounding of dP - delta is all that is
     left: every dq and dk row at S = 1, and dq's row 0 under a causal mask
-    (one key, so P = 1 and o = v). A share of the whole tensor's largest
-    element would not do: a causal gradient falls off along S, and a
-    wrong tail of small rows would pass it."""
-    err = (got.float() - ref.float()).abs().amax(-1)
+    (one key, so P = 1 and o = v). ``step`` comes off every row's error:
+    the gradient type's smallest step (float16's subnormal 2^-24), by
+    which two roundings of nearly the same value can differ in a row that
+    lies below the type's normal range. A share of the whole tensor's
+    largest element would not do: a causal gradient falls off along S,
+    and a wrong tail of small rows would pass it."""
+    err = ((got.float() - ref.float()).abs().amax(-1) - step).clamp_min(0.0)
     top = ref.float().abs().amax(-1)
     if which in ("dq", "dk") and got.shape[1] == 1:
         err = (err - atol).clamp_min(0.0)
@@ -153,16 +174,37 @@ def gradient_row_shares(got: torch.Tensor, ref: torch.Tensor, which: str, *,
     return torch.where(top > 0, err / top, torch.where(err > 0, math.inf, 0.0))
 
 
+def padded_head_dim(d: int) -> int:
+    """The instantiated head dim a head dim of ``d`` runs at: the smallest
+    of ``HEAD_DIMS`` that is at least ``d``. Raises ``ValueError`` past the
+    largest, naming the limit."""
+    for dp in HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(f"flash_attention kernel takes head dims up to {HEAD_DIMS[-1]}, "
+                     f"got {d}")
+
+
+def pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
+    """``x`` [..., D] with zero lanes appended to ``dp`` (a copy; ``x``
+    itself when D == dp). Zero lanes add nothing to a score q.k, and give
+    zero output and gradient lanes, which are sliced off; the softmax scale
+    must still come from the true D."""
+    d = x.shape[-1]
+    return x if d == dp else torch.nn.functional.pad(x, (0, dp - d))
+
+
 def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
-    """The kernel's shape, type code and strides for q, k, v; raises
-    (``TypeError`` / ``ValueError``) on what the kernel does not take:
-    another dtype than float32 / bfloat16, mixed dtypes or devices, a rank
-    other than 4, unequal shapes, a non-unit stride on D, a head dim
-    outside ``HEAD_DIMS``; for bfloat16 also a base pointer that is not
-    16-byte aligned or a (batch, row, head) stride that is not a multiple
-    of 8 elements."""
+    """The kernel's shape, type code (an index of ``DTYPES``) and strides
+    for q, k, v; raises (``TypeError`` / ``ValueError``) on what the kernel
+    does not take: a dtype outside ``DTYPES`` (float64 among them), mixed
+    dtypes or devices, a rank other than 4, unequal shapes, a non-unit
+    stride on D, a head dim outside ``HEAD_DIMS`` (the callers pad to one
+    first); for the 16-bit types also a base pointer that is not 16-byte
+    aligned or a (batch, row, head) stride that is not a multiple of 8
+    elements."""
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention kernel takes float32 or bfloat16 "
+        raise TypeError("flash_attention kernel takes float32, bfloat16 or float16 "
                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError("flash_attention takes q, k, v of one shape [B, S, H, D], "
@@ -175,25 +217,32 @@ def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes unit stride on D")
     strides = [st for t in (q, k, v) for st in t.stride()[:3]]
-    if q.dtype == torch.bfloat16 and (any(t.data_ptr() % 16 for t in (q, k, v))
-                                      or any(st % 8 for st in strides)):
-        raise ValueError("flash_attention bf16 kernel takes 16-byte aligned q, k, v "
+    if q.dtype != torch.float32 and (any(t.data_ptr() % 16 for t in (q, k, v))
+                                     or any(st % 8 for st in strides)):
+        raise ValueError("flash_attention 16-bit kernels take 16-byte aligned q, k, v "
                          "with strides that are multiples of 8 elements")
-    return (b, s, h, d, int(q.dtype == torch.bfloat16), *strides)
+    return (b, s, h, d, DTYPES.index(q.dtype), *strides)
 
 
 def _launch(q, k, v, causal: bool, sm_scale: float | None, with_lse: bool = False):
-    """The forward kernel: ``out``, or ``(out, lse)`` with ``with_lse``."""
+    """The forward kernel: ``out``, or ``(out, lse)`` with ``with_lse``. A
+    head dim between the instantiated ones runs padded with zero lanes (a
+    copy of q, k and v) at the true D's scale, and the output is sliced
+    back (a contiguous copy)."""
     from sitewhere_tpu_torch import cuda_build
 
+    d = q.shape[-1]
+    scale = _scale(d, sm_scale)
+    dp = padded_head_dim(d)
+    q, k, v = (pad_head_dim(t, dp) for t in (q, k, v))
     args = kernel_args(q, k, v)
-    b, s, h, d = args[:4]
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    b, s, h = args[:3]
+    out = torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
+        out = out[..., :d].contiguous()
         return (out, lse) if with_lse else out
-    scale = _scale(d, sm_scale)
     lib = cuda_build.load(KERNEL)
     fn = lib.swtpu_flash_attention
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -208,6 +257,8 @@ def _launch(q, k, v, causal: bool, sm_scale: float | None, with_lse: bool = Fals
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    if dp != d:
+        out = out[..., :d].contiguous()
     return (out, lse) if with_lse else out
 
 
@@ -237,22 +288,27 @@ def backward_args(q, k, v, o, do, lse) -> tuple:
 
 
 def _launch_bwd(q, k, v, o, do, lse, causal: bool, sm_scale: float | None):
+    """The backward kernels: ``(dq, dk, dv)``; a head dim between the
+    instantiated ones runs padded as in :func:`_launch`."""
     from sitewhere_tpu_torch import cuda_build
 
+    d = q.shape[-1]
+    scale = _scale(d, sm_scale)
+    dp = padded_head_dim(d)
+    q, k, v, o, do = (pad_head_dim(t, dp) for t in (q, k, v, o, do))
     args, do = backward_args(q, k, v, o, do, lse)
-    b, s, h, d = args[:4]
-    dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    b, s, h = args[:3]
+    dq, dk, dv = (torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device)
                   for _ in range(3))
     if dq.numel() == 0:
-        return dq, dk, dv
-    scale = _scale(d, sm_scale)
+        return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
     lib = cuda_build.load(BWD_KERNEL)
     size = lib.swtpu_flash_attention_bwd_scratch_bytes
     size.argtypes = [ctypes.c_int] * 5
     size.restype = ctypes.c_int64
-    # delta, lse2 and (bf16) the float32 dQ accumulator and turn counters;
-    # the kernels initialise what they read
-    scratch = torch.empty(size(b, s, h, d, args[4]), dtype=torch.uint8, device=q.device)
+    # delta, lse2 and (the bf16 wgmma kernel) the float32 dQ accumulator
+    # and turn counters; the kernels initialise what they read
+    scratch = torch.empty(size(b, s, h, dp, args[4]), dtype=torch.uint8, device=q.device)
     fn = lib.swtpu_flash_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                    + [ctypes.c_int64] * 9
@@ -267,6 +323,8 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, sm_scale: float | None):
         raise RuntimeError(
             f"flash_attention backward kernel launch failed: CUDA error {err}")
     flash_attention_backward.launches += 1
+    if dp != d:
+        return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 
 

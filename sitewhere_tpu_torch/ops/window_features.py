@@ -51,11 +51,19 @@ def window_features_reference(windows: torch.Tensor) -> torch.Tensor:
     return torch.stack([mean, std, mn, mx, last, delta], -1)
 
 
+def _as_float32(windows: torch.Tensor) -> torch.Tensor:
+    """``windows`` cast to float32, as the reference casts its input
+    (``astype(jnp.float32)``): floating point, integer and bool windows
+    alike; a complex dtype, which has no float32 value, is refused."""
+    if windows.dtype.is_complex:
+        raise TypeError(f"window_features takes real windows, got {windows.dtype}")
+    return windows.float()
+
+
 def _launch(windows: torch.Tensor) -> torch.Tensor:
     from sitewhere_tpu_torch import cuda_build
 
-    if windows.dtype != torch.float32:
-        raise TypeError(f"window_features kernel takes float32, got {windows.dtype}")
+    windows = _as_float32(windows)
     if windows.dim() != 3 or windows.shape[1] == 0:
         raise ValueError(f"window_features takes [M, W>0, C], got {tuple(windows.shape)}")
     if not windows.is_contiguous():
@@ -78,13 +86,15 @@ def _launch(windows: torch.Tensor) -> torch.Tensor:
 
 
 def window_features(windows: torch.Tensor) -> torch.Tensor:
-    """[M, W, C] -> [M, C, NUM_FEATURES]. CUDA tensors go through the
-    hand-written kernel (counted in ``window_features.launches``); CPU
-    tensors through :func:`window_features_reference`."""
+    """[M, W, C] -> [M, C, NUM_FEATURES] float32; windows of another
+    real type are cast to float32 first, as the reference casts them.
+    CUDA tensors go through the hand-written kernel (counted in
+    ``window_features.launches``); CPU tensors through
+    :func:`window_features_reference`."""
     if windows.device.type == "cuda":
         return _launch(windows)
     if windows.device.type == "cpu":
-        return window_features_reference(windows)
+        return window_features_reference(_as_float32(windows))
     raise ValueError(f"window_features: unsupported device {windows.device}")
 
 

@@ -38,6 +38,10 @@ The equations:
                       spilled <= arena_capacity + lost_rows (rows wrapped
                       before spooling are legal only when the archive
                       counted them)
+  spmd-shard-flow     per shard s (a multi-shard engine): accepted[s] +
+                      invalid[s] == processed[s], and routed_rows[s] ==
+                      dispatched_rows[s] + backlog_rows[s]; every
+                      per-shard lane sums exactly to the device stage's
   analytics-windows   planned == scored + skipped_underfilled + cancelled
                       (every window a scoring batch plans lands in one
                       sink; the manager commits planned with its sinks
@@ -59,7 +63,7 @@ logger = logging.getLogger(__name__)
 
 EQUATIONS = ("edge-admission", "staging-balance", "device-processed", "device-disposition",
              "wal-durability", "rules-harvest", "archive-spill",
-             "analytics-windows")
+             "spmd-shard-flow", "analytics-windows")
 
 
 class FlowLedger:
@@ -123,9 +127,16 @@ def _backlog_rows(eng) -> int:
     n = len(eng._buf) + eng._fair_queued
     fill = eng._arena_fill
     if fill is not None:
-        n += int(np.sum(fill.valid[:fill.cursor]))
+        cursors = getattr(fill, "cursors", None)
+        if cursors is not None:
+            # the multi-shard arena: [S, rows] lanes, a cursor a shard
+            n += sum(int(np.sum(fill.valid[s, :int(c)])) for s, c in enumerate(cursors))
+        else:
+            n += int(np.sum(fill.valid[:fill.cursor]))
     for b in eng._staged_batches:
         n += int(np.sum(b.valid))
+    # the multi-shard engine's per-shard router buffers
+    n += sum(len(b) for b in getattr(eng, "_shard_bufs", ()))
     return n
 
 
@@ -137,9 +148,12 @@ def _rules_stage(eng, rules_manager) -> dict | None:
     if rs is None or (rs.rules is None and rs.rollups is None):
         return None
     out: dict = {}
+    # a multi-shard engine's state is stacked on a leading shard axis: the
+    # counters sum over it (a single engine's are 0-d)
     if rs.rules is not None:
         rb = rs.rules
-        f, m, l, o = torch.stack([rb.fires, rb.missed, rb.late, rb.oob]).tolist()
+        f, m, l, o = (int(x) for x in torch.stack(
+            [rb.fires, rb.missed, rb.late, rb.oob]).reshape(4, -1).sum(1).tolist())
         pending = (rb.pend_w - rb.pend_h).clamp(max=rb.pend_key.shape[-1])
         out.update(fires=f, missed=m, late=l, oob=o,
                    pending=int(pending.sum()),
@@ -148,7 +162,7 @@ def _rules_stage(eng, rules_manager) -> dict | None:
         wid = rs.rollups.wid.cpu().numpy()
         live = wid[wid > np.iinfo(np.int32).min]
         out["rollup_window_id"] = int(live.max()) if live.size else None
-        out["rollup_late"] = int(rs.rollups.late)
+        out["rollup_late"] = int(rs.rollups.late.sum())
     if rules_manager is not None:
         # one read under the manager lock: poll() commits its four
         # counters in one block, so the equation sees pre- or post-poll
@@ -207,6 +221,13 @@ def build_ledger(engine, rules_manager=None) -> dict:
             **{lane: n - base.get(f"grid_{lane}", 0)
                for lane, n in grid.items()},
         }
+        # the multi-shard engine's per-shard breakdown of the device
+        # stage; skipped under a restore baseline (the device stage is
+        # baseline-subtracted, the per-shard grids are cumulative)
+        sf = getattr(engine, "shard_flow", None)
+        if callable(sf) and not base:
+            stages["spmd"] = sf()
+            syncs += 2
         wal = engine.wal
         if wal is not None:
             with wal._lock:
@@ -328,6 +349,42 @@ def check_conservation(ledger: dict) -> list[Violation]:
             f"durable_seq {wal['durable_seq']} outside "
             f"[0, appended_seq {wal['appended_seq']}]",
             wal["durable_seq"], wal["appended_seq"])
+    sp = st.get("spmd")
+    if sp:
+        per = sp.get("perShard", [])
+        for row in per:
+            s = row["shard"]
+            lhs = row["accepted"] + row["invalid"]
+            if lhs != row["processed"]:
+                bad("spmd-shard-flow",
+                    f"shard {s}: accepted {row['accepted']} + invalid "
+                    f"{row['invalid']} != processed {row['processed']}",
+                    lhs, row["processed"])
+            if sp.get("counting"):
+                rhs = row["dispatched_rows"] + row["backlog_rows"]
+                if row["routed_rows"] != rhs:
+                    bad("spmd-shard-flow",
+                        f"shard {s}: routed_rows {row['routed_rows']} != "
+                        f"dispatched_rows {row['dispatched_rows']} + backlog "
+                        f"{row['backlog_rows']}", row["routed_rows"], rhs,
+                        slack=row["backlog_rows"])
+        # the per-shard grids are the grid the device stage folds: every
+        # lane sums exactly to its folded total
+        for lane in ("processed", "accepted", "invalid", "dedup_dropped",
+                     "geofence_hit"):
+            if lane not in dev:
+                continue
+            total = sum(row.get(lane, 0) for row in per)
+            if total != dev[lane]:
+                bad("spmd-shard-flow",
+                    f"per-shard {lane} sum {total} != device {lane} {dev[lane]}",
+                    total, dev[lane])
+        if sp.get("counting") and ing and ing.get("counting"):
+            routed = sum(row["routed_rows"] for row in per)
+            if routed != ing["staged_rows"]:
+                bad("spmd-shard-flow",
+                    f"per-shard routed sum {routed} != staged_rows "
+                    f"{ing['staged_rows']}", routed, ing["staged_rows"])
     rules = st.get("rules")
     if rules:
         if "harvested" in rules:

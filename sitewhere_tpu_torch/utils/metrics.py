@@ -652,6 +652,123 @@ def devicewatch_metrics(registry: MetricsRegistry | None = None) -> dict:
     }
 
 
+def spmd_metrics(registry: MetricsRegistry | None = None) -> dict:
+    """The multi-shard engine's instruments, kept out of
+    ``engine.metrics()`` (its keys are pinned equal to the single-card
+    engine's). Gauges synced at scrape from the router's host mirrors
+    and the per-shard counter grids; every series carries the exporting
+    engine's ``engine=e<n>`` label, the per-lane ones a ``shard`` label:
+
+      swtpu_spmd_shards              shards of the engine
+      swtpu_shard_staged_rows        staged ingest rows per shard lane
+      swtpu_shard_staged_rows_hwm    its high-watermark since the last
+                                     scrape (reset on scrape)
+      swtpu_shard_devices            devices registered per shard
+      swtpu_shard_assignments        assignments created per shard
+      swtpu_shard_flow_rows          the per-shard flow breakdown, by
+                                     shard and lane (processed | accepted
+                                     | invalid | dedup_dropped |
+                                     geofence_hit | routed_rows |
+                                     dispatched_rows | backlog_rows)
+      swtpu_shard_heat               decayed-EWMA events/s per (shard,
+                                     tenant)
+      swtpu_slot_heat_topk           the hottest placement slots' EWMA
+                                     events/s, by slot
+      swtpu_spmd_skew                the last dispatch's max/mean
+                                     routed-rows imbalance (1.0 balanced)
+      swtpu_spmd_skew_hwm            the worst skew since the last scrape
+      swtpu_spmd_skew_sustained_total  sustained-skew escalations (two
+                                     consecutive audits over the
+                                     threshold)
+    """
+    reg = registry or REGISTRY
+    return {
+        "shards": reg.gauge("swtpu_spmd_shards",
+                            "shards in the engine's SPMD device mesh"),
+        "staged": reg.gauge("swtpu_shard_staged_rows",
+                            "staged ingest rows per shard lane (pre-dispatch)"),
+        "staged_hwm": reg.gauge(
+            "swtpu_shard_staged_rows_hwm",
+            "per-shard staged-rows high-water mark since last scrape "
+            "(reset on scrape)"),
+        "devices": reg.gauge("swtpu_shard_devices",
+                             "devices registered per shard (local id high-water mark)"),
+        "assignments": reg.gauge(
+            "swtpu_shard_assignments",
+            "assignments created per shard (local id high-water mark)"),
+        "flow": reg.gauge(
+            "swtpu_shard_flow_rows",
+            "per-shard flow breakdown from the unfolded device counter "
+            "grid + host route table, per shard + lane"),
+        "heat": reg.gauge("swtpu_shard_heat",
+                          "decayed-EWMA events/s per (shard, tenant)"),
+        "slot_heat": reg.gauge("swtpu_slot_heat_topk",
+                               "EWMA events/s of the hottest placement slots"),
+        "skew": reg.gauge("swtpu_spmd_skew",
+                          "per-dispatch max/mean routed-rows imbalance index"),
+        "skew_hwm": reg.gauge(
+            "swtpu_spmd_skew_hwm",
+            "worst dispatch skew since last scrape (reset on scrape)"),
+        "skew_sustained": reg.counter(
+            "swtpu_spmd_skew_sustained_total",
+            "sustained-skew escalations (two-consecutive-audit confirmation)"),
+    }
+
+
+def export_spmd_metrics(engine, registry: MetricsRegistry | None = None) -> None:
+    """Scrape-time export of the per-shard posture of an engine with shard
+    lanes (the multi-shard ``SpmdEngine``); a single-card engine exports
+    nothing."""
+    bufs = getattr(engine, "_shard_bufs", None)
+    if bufs is None:
+        return
+    inst = spmd_metrics(registry)
+    lbl = getattr(engine, "metrics_label", "e?")
+    inst["shards"].set(len(bufs), engine=lbl)
+    devices = getattr(engine, "_next_local_device", None)
+    assigns = getattr(engine, "_next_local_assignment", None)
+    take_hwm = getattr(engine, "take_shard_staged_hwm", None)
+    hwms = take_hwm() if callable(take_hwm) else None
+    for s, buf in enumerate(bufs):
+        inst["staged"].set(len(buf), engine=lbl, shard=str(s))
+        if hwms is not None:
+            inst["staged_hwm"].set(hwms[s], engine=lbl, shard=str(s))
+        if devices is not None:
+            inst["devices"].set(devices[s], engine=lbl, shard=str(s))
+        if assigns is not None:
+            inst["assignments"].set(assigns[s], engine=lbl, shard=str(s))
+    # the scrape is the heat harvest and the skew audit cadence
+    sf = getattr(engine, "shard_flow", None)
+    if callable(sf):
+        for row in sf()["perShard"]:
+            s = str(row["shard"])
+            for lane, n in row.items():
+                if lane != "shard":
+                    inst["flow"].set(n, engine=lbl, shard=s, lane=lane)
+    harvest = getattr(engine, "harvest_shard_heat", None)
+    if callable(harvest):
+        from sitewhere_tpu_torch.utils.shardobs import heat_map_doc
+
+        tracker = harvest()
+        written = set()
+        for s, cells in heat_map_doc(tracker, engine.tenants).items():
+            for tenant, eps in cells.items():
+                labels = {"engine": lbl, "shard": s, "tenant": tenant}
+                inst["heat"].set(eps, **labels)
+                written.add(tuple(sorted(labels.items())))
+        inst["heat"].retain(written, engine=lbl)
+        written = set()
+        for slot, eps in tracker.top_slots():
+            labels = {"engine": lbl, "slot": str(slot)}
+            inst["slot_heat"].set(eps, **labels)
+            written.add(tuple(sorted(labels.items())))
+        inst["slot_heat"].retain(written, engine=lbl)
+        inst["skew"].set(tracker.skew_index, engine=lbl)
+        inst["skew_hwm"].set(tracker.take_skew_hwm(), engine=lbl)
+        if tracker.audit_skew():
+            inst["skew_sustained"].inc(engine=lbl)
+
+
 def export_engine_metrics(engine, registry: MetricsRegistry | None = None,
                           tenant: str = "all") -> None:
     """Push the engine's device-side counters into the registry (scrape-time
@@ -706,6 +823,7 @@ def export_engine_metrics(engine, registry: MetricsRegistry | None = None,
     for key in stale:
         g.set(0, **dict(key))
     export_observability_metrics(engine, reg)
+    export_spmd_metrics(engine, reg)
     export_wire_metrics(engine, reg)
 
 

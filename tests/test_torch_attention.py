@@ -15,7 +15,9 @@
   within the card's bf16 tolerance (``rtol = atol = 8e-3``, the limit the
   card's check holds the kernel to): the rounding of P fits that budget;
   and its handling of a zero or negative ``sm_scale`` (the scale inside
-  ``exp2`` must be positive).
+  ``exp2`` must be positive). The same arithmetic in float16 sizes the
+  float16 limits, and with P (and dS) rounded to bf16 under float16
+  inputs it is the control those limits must fail.
 * The wrapper's argument checks, which need no card.
 * The backward: the port's plain backward (``mha_backward_reference``)
   and autograd of its ``mha_reference`` against ``jax.vjp`` of JAX's
@@ -45,6 +47,10 @@ from sitewhere_tpu_torch.ops import attention as tatt
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2**-7, atol=1e-6)
 FLASH_TOL_BF16 = dict(rtol=8e-3, atol=8e-3)   # the kernel against its plain version
+# float16 rounds 8x finer than bf16: one float16 ulp at 1.0 (2**-10), where
+# the float16 kernel's arithmetic (emulated below) reads <= 5.7e-4 and the
+# same arithmetic with P rounded to bf16 fails on every causal case
+FLASH_TOL_F16 = dict(rtol=1e-3, atol=1e-3)
 DTYPES = {"float32": (jnp.float32, torch.float32, F32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16)}
 
@@ -123,14 +129,17 @@ def test_masked_scores_are_minus_1e30_as_in_jax():
 
 def emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, sm_scale: float | None = None,
-                        block_k: int = 64) -> torch.Tensor:
+                        block_k: int = 64, low: torch.dtype = torch.bfloat16
+                        ) -> torch.Tensor:
     """The arithmetic of the bf16 tensor-core kernel, on the CPU: key tiles
     of ``block_k``; float32 scores (exact products of bf16 values summed in
     float32) scaled inside the exp2 argument, p = exp2(s·c − m·c) with c =
     sm_scale·log2(e) made positive (a negative c as |c| on -q, a zero c as
     the smallest normal float); the running max starting at -1e30; masked
     entries p = 0; P rounded to bf16 before the P·V product, accumulated in
-    float32; the normaliser summed from the float32 p; l == 0 writes 0."""
+    float32; the normaliser summed from the float32 p; l == 0 writes 0.
+    ``low`` is the type P is rounded to (float16 for the float16 kernel,
+    or bf16 under float16 inputs as a control); the output has q's type."""
     b, s, h, d = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     c = scale * math.log2(math.e)
@@ -152,10 +161,10 @@ def emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         alpha = torch.exp2((m - mx) * c)
         p = torch.exp2(sc * c - (mx * c)[..., None])
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + p.to(torch.bfloat16).float() @ vt
+        acc = acc * alpha[..., None] + p.to(low).float() @ vt
         m = mx
     out = acc / torch.where(l == 0, 1.0, l)[..., None]
-    return out.transpose(1, 2).to(torch.bfloat16)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -213,7 +222,7 @@ def test_kernel_args_read_strided_views_in_place():
 
 @pytest.mark.parametrize("bad, err", [
     (lambda q: (q.double(), q.double(), q.double()), TypeError),
-    (lambda q: (q.half(), q.half(), q.half()), TypeError),
+    (lambda q: (q.int(), q.int(), q.int()), TypeError),
     (lambda q: (q, q, q.bfloat16()), TypeError),
     (lambda q: (q[0], q[0], q[0]), ValueError),
     (lambda q: (q, q, q[:, :5]), ValueError),
@@ -266,6 +275,52 @@ def test_kernel_source_is_plain_c_for_sm90a():
     assert "torch/extension.h" not in src
 
 
+@pytest.mark.parametrize("d, dp", [(1, 16), (8, 16), (16, 16), (17, 32), (48, 64),
+                                   (64, 64), (100, 128), (128, 128)])
+def test_padded_head_dim_is_the_next_instantiated_one(d, dp):
+    assert tatt.padded_head_dim(d) == dp
+
+
+def test_head_dims_past_the_largest_are_refused_with_the_limit():
+    with pytest.raises(ValueError, match="up to 128"):
+        tatt.padded_head_dim(129)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [8, 48, 100])
+def test_zero_padded_head_dim_at_the_true_scale_is_the_unpadded_attention(d, causal):
+    """What the kernel wrappers do for a head dim between the instantiated
+    ones, on the plain version: zero lanes up to ``padded_head_dim(d)``, the
+    scale of the true D, the output and the gradients sliced back. Both
+    equal the unpadded attention's (float32, the same products plus zeros)."""
+    rng = np.random.default_rng(d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 70, 3, d)).astype(np.float32))
+                   for _ in range(4))
+    dp = tatt.padded_head_dim(d)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = tatt.mha_reference(*leaves, causal=causal)
+    ref.backward(do)
+    padded = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = tatt.mha_reference(*(tatt.pad_head_dim(t, dp) for t in padded), causal=causal,
+                             sm_scale=1.0 / math.sqrt(d))
+    assert got.shape[-1] == dp and not got[..., d:].any()
+    got = got[..., :d]
+    got.backward(do)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    for a, b in zip(padded, leaves):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-6)
+    # the kernel pair's plain versions through the same pad give the same
+    o, lse = (tatt.mha_reference(*(tatt.pad_head_dim(t, dp) for t in (q, k, v)),
+                                 causal=causal, sm_scale=1.0 / math.sqrt(d)),
+              tatt.lse_reference(q, k, causal=causal))
+    grads = tatt.mha_backward_reference(
+        *(tatt.pad_head_dim(t, dp) for t in (q, k, v)), o, tatt.pad_head_dim(do, dp), lse,
+        causal=causal, sm_scale=1.0 / math.sqrt(d))
+    for g, b in zip(grads, leaves):
+        assert not g[..., d:].any()
+        torch.testing.assert_close(g[..., :d], b.grad, rtol=1e-4, atol=1e-5)
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel runs only on a GPU")
@@ -280,6 +335,18 @@ GPU_CASES = [  # (B, S, H, D, dtype)
     (2, 777, 4, 64, torch.bfloat16),
     (2, 777, 4, 64, torch.float32),
     (2, 300, 2, 16, torch.float32),
+    # head dims between the instantiated ones (padded) and D = 128
+    (2, 300, 4, 8, torch.bfloat16),
+    (2, 333, 4, 48, torch.bfloat16),
+    (2, 777, 2, 128, torch.bfloat16),
+    (2, 65, 2, 100, torch.bfloat16),
+    (2, 300, 2, 128, torch.float32),
+    (2, 129, 2, 48, torch.float32),
+    # float16
+    (2, 1000, 8, 32, torch.float16),
+    (2, 300, 4, 8, torch.float16),
+    (2, 333, 4, 48, torch.float16),
+    (2, 777, 2, 128, torch.float16),
 ]
 
 
@@ -297,14 +364,14 @@ def test_cuda_kernel_matches_plain_version(case, causal):
     torch.cuda.synchronize()
     assert tatt.flash_attention.launches == before + 1
     assert got.is_contiguous() and got.dtype == dtype
-    tol = 1e-5 if dtype == torch.float32 else 8e-3
-    torch.testing.assert_close(got, tatt.mha_reference(q, k, v, causal=causal),
-                               rtol=tol, atol=tol)
+    tol = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: FLASH_TOL_BF16,
+           torch.float16: FLASH_TOL_F16}[dtype]
+    torch.testing.assert_close(got, tatt.mha_reference(q, k, v, causal=causal), **tol)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 @pytest.mark.parametrize("sm_scale", [0.0, -0.3])
 def test_cuda_kernel_takes_any_sign_of_scale(sm_scale, dtype, causal):
     _cuda_or_skip()
@@ -312,10 +379,10 @@ def test_cuda_kernel_takes_any_sign_of_scale(sm_scale, dtype, causal):
     qkv = torch.randn((2, 333, 3, 4, 32), device="cuda", generator=gen).to(dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     got = tatt.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
-    tol = 1e-5 if dtype == torch.float32 else 8e-3
+    tol = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: FLASH_TOL_BF16,
+           torch.float16: FLASH_TOL_F16}[dtype]
     torch.testing.assert_close(
-        got, tatt.mha_reference(q, k, v, causal=causal, sm_scale=sm_scale),
-        rtol=tol, atol=tol)
+        got, tatt.mha_reference(q, k, v, causal=causal, sm_scale=sm_scale), **tol)
 
 
 @pytest.mark.gpu
@@ -323,9 +390,9 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     _cuda_or_skip()
     q = torch.zeros((2, 8, 4, 32), device="cuda")
     with pytest.raises(TypeError):
-        tatt.flash_attention(q.half(), q.half(), q.half())
-    big = torch.zeros((2, 8, 4, 128), device="cuda")
-    with pytest.raises(ValueError):
+        tatt.flash_attention(q.double(), q.double(), q.double())
+    big = torch.zeros((2, 8, 4, 256), device="cuda")
+    with pytest.raises(ValueError, match="up to 128"):
         tatt.flash_attention(big, big, big)
 
 
@@ -364,6 +431,18 @@ GRAD_BF16_VS_JAX = 1e-2
 GRAD_TOL_BF16 = 2e-2
 GRAD_TOL_F32 = 1e-4
 GRAD_ATOL = 1e-5
+# * float16: GRAD_TOL_F16 = 2.5e-3 of each row's largest element, after
+#   F16_STEP (float16's subnormal step, 2**-24) off each row's error: the
+#   float16 kernels' arithmetic (emulated below: P^T and dS^T a row scaled
+#   by a power of two, then rounded to float16) reads <= 1.05e-3 up to S =
+#   4096, one float16 ulp of the row's largest element and a little more;
+#   with P and dS rounded to bf16 instead it reads >= 3.3e-3 on every
+#   gradient. A row whose gradient lies below float16's normal range
+#   (2**-14; late keys at long S) holds its values to 2**-24 absolute, so
+#   two roundings of one value can differ there by a step that no share
+#   of the row bounds: the step comes off, and nothing else.
+GRAD_TOL_F16 = 2.5e-3
+F16_STEP = 2.0 ** -24
 LSE_TOL = dict(rtol=1e-6, atol=1e-6)
 
 
@@ -378,11 +457,13 @@ def assert_close_of_max(got, ref, tol: float, what: str = "", atol: float = 0.0)
 
 
 def assert_rows_close_of_max(got, ref, tol: float, which: str, *, causal: bool,
-                             atol: float = 0.0) -> None:
+                             atol: float = 0.0, step: float = 0.0) -> None:
     """Each row of a [B, S, H, D] gradient within ``tol`` of that row's
-    largest |ref| element (``atol`` off on its exact-zero rows)."""
+    largest |ref| element (``atol`` off on its exact-zero rows, ``step``
+    off every row)."""
     assert got.shape == ref.shape, (which, got.shape, ref.shape)
-    shares = tatt.gradient_row_shares(got, ref, which, causal=causal, atol=atol)
+    shares = tatt.gradient_row_shares(got, ref, which, causal=causal, atol=atol,
+                                      step=step)
     worst = float(shares.max()) if shares.numel() else 0.0
     assert worst <= tol, f"{which}: worst row err {worst} of its row's max > {tol}"
 
@@ -432,9 +513,25 @@ def test_lse_reference_matches_jax_logsumexp(causal, sm_scale):
     np.testing.assert_allclose(got.numpy(), ref, **LSE_TOL)
 
 
+def round_rows(x: torch.Tensor, low: torch.dtype, dim: int) -> torch.Tensor:
+    """``x`` (float32) rounded to ``low`` and back. For float16 each row
+    (``dim`` is the axis reduced over) is first scaled by the power of two
+    that puts its largest |entry| in [2^14, 2^15), as the float16 kernels'
+    ``RowScale`` does (exact in float32): float16's 5 exponent bits would
+    lose a long row's small entries otherwise. bfloat16 keeps float32's
+    range and takes no scale."""
+    if low != torch.float16:
+        return x.to(low).float()
+    top = x.abs().amax(dim, keepdim=True)
+    e = (14 - torch.floor(torch.log2(top.clamp_min(2.0 ** -126)))).clamp(max=126)
+    f = torch.where(top > 0, torch.exp2(e), 1.0)
+    return (x * f).to(low).float() / f
+
+
 def emulate_bf16_backward(q, k, v, o, do, lse, *, causal: bool,
                           sm_scale: float | None = None, q_tile: int = 64,
-                          key_block: int = 128, key_part: int = 64):
+                          key_block: int = 128, key_part: int = 64,
+                          low: torch.dtype = torch.bfloat16):
     """The arithmetic of the bf16 backward kernel, on the CPU: delta =
     rowsum(dO o) in float32 from the bf16 output; float32 scores of the
     bf16 inputs (exact products summed in float32); P = exp2(s·c − lse·log2
@@ -444,7 +541,9 @@ def emulate_bf16_backward(q, k, v, o, do, lse, *, causal: bool,
     64-row query tiles. dQ: each key block of 128 keys sums its two
     64-key parts (one a compute warpgroup) in float32, and the blocks' sums
     are added in float32 in key-block order; dq, dk and dv are rounded to
-    bf16 once."""
+    q's type once. ``low`` is the type P and dS are rounded to: float16
+    for the float16 kernels (``round_rows``: a row of P^T or dS^T, or of dS
+    for dQ, scaled first), or bf16 under float16 inputs as a control."""
     d = q.shape[-1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     c = scale * math.log2(math.e)
@@ -456,7 +555,7 @@ def emulate_bf16_backward(q, k, v, o, do, lse, *, causal: bool,
     if causal:
         p = p.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1), 0.0)
     ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
-    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    pb, dsb, dsq = round_rows(p, low, -2), round_rows(ds, low, -2), round_rows(ds, low, -1)
     dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
     for t0 in range(0, s, q_tile):
         sl = slice(t0, t0 + q_tile)
@@ -466,9 +565,9 @@ def emulate_bf16_backward(q, k, v, o, do, lse, *, causal: bool,
         block = torch.zeros_like(qf)
         for p0 in range(k0, min(k0 + key_block, s), key_part):
             sl = slice(p0, p0 + key_part)
-            block += dsb[..., sl] @ kf[:, :, sl]
+            block += dsq[..., sl] @ kf[:, :, sl]
         dq += block
-    return tuple((g * m).transpose(1, 2).bfloat16()
+    return tuple((g * m).transpose(1, 2).to(q.dtype)
                  for g, m in ((dq, scale), (dk, scale), (dv, 1.0)))
 
 
@@ -515,6 +614,98 @@ def test_bf16_backward_arithmetic_takes_any_sign_of_scale(sm_scale, causal):
             assert not g.float().any() and not p.float().any()
         else:
             assert_rows_close_of_max(g, p, GRAD_TOL_BF16, f"d{name}", causal=causal)
+
+
+F16_CASES = [  # (S, D, causal, sm_scale)
+    (63, 16, True, None), (65, 32, False, None), (200, 8, True, None),
+    (333, 48, True, None), (333, 48, False, None), (300, 128, True, None),
+    (333, 32, True, -0.3), (1000, 32, True, None), (2048, 32, True, None)]
+
+
+def _f16_case(s, d, causal, sm_scale):
+    q, k, v, do = (torch.from_numpy(a).half()
+                   for a in _qkv((2, s, 2, d), seed=70 + s + d) + _qkv((2, s, 2, d),
+                                                                     seed=71 + s + d)[:1])
+    o = tatt.mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+    lse = tatt.lse_reference(q, k, causal=causal, sm_scale=sm_scale)
+    return q, k, v, o, do, lse
+
+
+def _allclose_share(got, ref) -> float:
+    """The least x for which allclose(got, ref, rtol=x, atol=x) holds."""
+    g, r = got.float(), ref.float()
+    return float(((g - r).abs() / (1 + r.abs())).max())
+
+
+@pytest.mark.parametrize("case", F16_CASES)
+def test_f16_kernel_arithmetic_fits_the_tolerance(case):
+    """The float16 forward's arithmetic (P rounded to float16) stays within
+    FLASH_TOL_F16 of the plain version; rounded to bf16 instead it fails
+    that limit under a causal mask, where a row's first keys carry their
+    whole weight (at full attention over hundreds of keys the rounding of
+    P averages out below the output's own float16 ulp)."""
+    s, d, causal, sm_scale = case
+    q, k, v, o, _, _ = _f16_case(s, d, causal, sm_scale)
+    got = emulate_bf16_kernel(q, k, v, causal=causal, sm_scale=sm_scale, low=torch.float16)
+    assert got.dtype == torch.float16
+    torch.testing.assert_close(got, o, **FLASH_TOL_F16)
+    control = emulate_bf16_kernel(q, k, v, causal=causal, sm_scale=sm_scale)
+    assert control.dtype == torch.float16
+    if causal:
+        assert _allclose_share(control, o) > FLASH_TOL_F16["rtol"]
+
+
+@pytest.mark.parametrize("case", F16_CASES)
+def test_f16_backward_arithmetic_fits_the_tolerance(case):
+    """The float16 backward's arithmetic (P^T and dS^T a row scaled, then
+    rounded to float16) holds every row within GRAD_TOL_F16 of the plain
+    backward, the float16 step off; rounded to bf16 instead, every
+    gradient fails it."""
+    s, d, causal, sm_scale = case
+    q, k, v, o, do, lse = _f16_case(s, d, causal, sm_scale)
+    plain = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=causal, sm_scale=sm_scale)
+    got = emulate_bf16_backward(q, k, v, o, do, lse, causal=causal, sm_scale=sm_scale,
+                                low=torch.float16)
+    control = emulate_bf16_backward(q, k, v, o, do, lse, causal=causal, sm_scale=sm_scale)
+    for name, g, c, p in zip("qkv", got, control, plain):
+        assert g.dtype == c.dtype == torch.float16
+        assert_rows_close_of_max(g, p, GRAD_TOL_F16, f"d{name}", causal=causal,
+                                 atol=GRAD_ATOL, step=F16_STEP)
+        with pytest.raises(AssertionError, match="worst row err"):
+            assert_rows_close_of_max(c, p, GRAD_TOL_F16, f"d{name}", causal=causal,
+                                     atol=GRAD_ATOL, step=F16_STEP)
+
+
+def test_f16_rows_below_the_normal_range_need_the_step():
+    """With a small output gradient (an unscaled loss's: dO at 2**-12) the
+    gradients lie below float16's normal range, where the float16
+    arithmetic misses the row limit without the step, and by no more than
+    one subnormal step on any row: the step is what float16 cannot hold,
+    not slack."""
+    q, k, v, o, do, lse = _f16_case(333, 32, True, None)
+    do = (do.float() * 2.0 ** -12).half()
+    plain = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=True)
+    got = emulate_bf16_backward(q, k, v, o, do, lse, causal=True, low=torch.float16)
+    for w, g, p in zip(("dq", "dk", "dv"), got, plain):
+        shares = tatt.gradient_row_shares(g, p, w, causal=True, atol=GRAD_ATOL)
+        bad = shares > GRAD_TOL_F16
+        assert bool(bad.any()), w
+        top = p.float().abs().amax(-1)
+        assert bool((top[bad] < 2.0 ** -14).all()), w
+        err = (g.float() - p.float()).abs().amax(-1)
+        assert bool((err <= GRAD_TOL_F16 * top + F16_STEP).all()), w
+        assert_rows_close_of_max(g, p, GRAD_TOL_F16, w, causal=True, atol=GRAD_ATOL,
+                                 step=F16_STEP)
+
+
+def test_row_shares_take_the_step_off_every_row():
+    """``step`` comes off each row's error, on every row alike."""
+    ref = torch.full((1, 3, 1, 4), 1e-6)
+    got = ref + torch.tensor([0.5, 1.0, 2.0]).view(1, 3, 1, 1) * F16_STEP
+    shares = tatt.gradient_row_shares(got, ref, "dv", causal=True, atol=GRAD_ATOL,
+                                      step=F16_STEP)
+    assert shares[0, :2, 0].tolist() == [0.0, 0.0]
+    assert float(shares[0, 2, 0]) == pytest.approx(F16_STEP / 1e-6, rel=1e-3)
 
 
 def _causal_grads(s: int = 1024) -> dict:
@@ -629,11 +820,13 @@ def test_backward_kernel_source_is_plain_c_for_sm90a():
     assert 'extern "C" int swtpu_flash_attention_bwd(' in src
     assert '#include "flash_common.cuh"' in src
     assert "torch/extension.h" not in src
-    # one pass on Hopper's wgmma and TMA; the earlier mma.sync kernels are gone,
-    # and no atomic add decides an order (the bitwise check is on the card:
+    # bfloat16 at D <= 64 takes one pass on Hopper's wgmma and TMA; mma.sync
+    # kernels serve only float16 and D = 128 (takes_wgmma decides), and no
+    # atomic add decides an order (the bitwise check is on the card:
     # test_cuda_backward_kernel_is_bitwise_deterministic)
     assert "wgmma.mma_async" in src and "cp.async.bulk.tensor" in src
-    assert "mma.sync" not in src and "mma_bf16(" not in src and "ldmatrix" not in src
+    assert "bool takes_wgmma(int dtype, int d) { return dtype == 1 && d <= 64; }" in src
+    assert "mma_bf16(" not in src
     assert "atomicAdd" not in src and "red.global.add" not in src
     assert 'extern "C" int64_t swtpu_flash_attention_bwd_scratch_bytes(' in src
     fwd = (cuda_build.CSRC / "flash_attention.cu").read_text()
@@ -654,6 +847,12 @@ def test_kernel_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
     assert all(a != b for a, b in zip(before, after))
 
 
+def _grad_tol(dtype) -> tuple[float, float]:
+    """(row share, step off each row) the card holds a gradient of ``dtype`` to."""
+    return {torch.float32: (GRAD_TOL_F32, 0.0), torch.bfloat16: (GRAD_TOL_BF16, 0.0),
+            torch.float16: (GRAD_TOL_F16, F16_STEP)}[dtype]
+
+
 BWD_GPU_CASES = [  # (B, S, H, D, dtype)
     (2, 1000, 8, 32, torch.bfloat16),    # ragged: S % 64 != 0
     (3, 1, 8, 32, torch.bfloat16),
@@ -665,6 +864,22 @@ BWD_GPU_CASES = [  # (B, S, H, D, dtype)
     (2, 777, 4, 64, torch.float32),
     (2, 300, 2, 16, torch.float32),
     (2, 1000, 8, 32, torch.float32),
+    # head dims between the instantiated ones (padded) and D = 128
+    (2, 300, 4, 8, torch.bfloat16),
+    (2, 333, 4, 48, torch.bfloat16),
+    (2, 777, 2, 128, torch.bfloat16),
+    (2, 65, 2, 100, torch.bfloat16),
+    (2, 300, 2, 128, torch.float32),
+    (2, 129, 2, 48, torch.float32),
+    # float16 (the mma.sync kernels at every head dim); at S = 4096 many
+    # P and dS entries of a row lie below float16's normal range
+    (1, 4096, 2, 32, torch.float16),
+    (1, 2048, 2, 128, torch.bfloat16),
+    (2, 1000, 8, 32, torch.float16),
+    (2, 63, 4, 16, torch.float16),
+    (2, 300, 4, 8, torch.float16),
+    (2, 333, 4, 48, torch.float16),
+    (2, 777, 2, 128, torch.float16),
 ]
 
 
@@ -687,20 +902,22 @@ def test_cuda_backward_kernel_matches_plain_version(case, causal):
     torch.testing.assert_close(lse, tatt.lse_reference(q, k, causal=causal),
                                rtol=1e-4, atol=1e-4)
     ref = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=causal)
-    tol = GRAD_TOL_F32 if dtype == torch.float32 else GRAD_TOL_BF16
+    tol, step = _grad_tol(dtype)
     for name, g, r in zip("qkv", got, ref):
         assert g.is_contiguous() and g.dtype == dtype and g.shape == (b, s, h, d)
         assert bool(torch.isfinite(g.float()).all())
-        assert_rows_close_of_max(g, r, tol, f"d{name}", causal=causal, atol=GRAD_ATOL)
+        assert_rows_close_of_max(g, r, tol, f"d{name}", causal=causal, atol=GRAD_ATOL,
+                                 step=step)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("case", [c for c in BWD_GPU_CASES if c[4] == torch.bfloat16])
+@pytest.mark.parametrize("case", [c for c in BWD_GPU_CASES if c[4] != torch.float32])
 def test_cuda_backward_kernel_is_bitwise_deterministic(case, causal):
     """dQ is summed across key blocks in a fixed order (a turn counter per
-    query tile), dK and dV by one warpgroup each: two calls on the same
-    inputs give the same bits."""
+    query tile), dK and dV by one warpgroup each (the wgmma kernel); the
+    mma.sync kernels (float16, D = 128) sum each element in one thread:
+    two calls on the same inputs give the same bits."""
     _cuda_or_skip()
     b, s, h, d, dtype = case
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -716,7 +933,7 @@ def test_cuda_backward_kernel_is_bitwise_deterministic(case, causal):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 @pytest.mark.parametrize("sm_scale", [0.0, -0.3])
 def test_cuda_backward_kernel_takes_any_sign_of_scale(sm_scale, dtype):
     _cuda_or_skip()
@@ -727,12 +944,13 @@ def test_cuda_backward_kernel_takes_any_sign_of_scale(sm_scale, dtype):
     o, lse = tatt.flash_attention_forward(q, k, v, causal=True, sm_scale=sm_scale)
     got = tatt.flash_attention_backward(q, k, v, o, do, lse, causal=True, sm_scale=sm_scale)
     ref = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=True, sm_scale=sm_scale)
-    tol = GRAD_TOL_F32 if dtype == torch.float32 else GRAD_TOL_BF16
+    tol, step = _grad_tol(dtype)
     for name, g, r in zip("qkv", got, ref):
         if sm_scale == 0.0 and name != "v":
             assert not g.float().any()
         else:
-            assert_rows_close_of_max(g, r, tol, f"d{name}", causal=True, atol=GRAD_ATOL)
+            assert_rows_close_of_max(g, r, tol, f"d{name}", causal=True, atol=GRAD_ATOL,
+                                     step=step)
 
 
 @pytest.mark.gpu
@@ -781,7 +999,8 @@ def test_cuda_backward_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         tatt.flash_attention_backward(q, q, q, q.clone(), q, lse[:, :, :4])
     with pytest.raises(TypeError):
-        tatt.flash_attention_backward(q.half(), q.half(), q.half(), q.half(), q.half(), lse)
-    big = torch.zeros((2, 8, 4, 128), device="cuda")
-    with pytest.raises(ValueError):
+        tatt.flash_attention_backward(q.double(), q.double(), q.double(), q.double(),
+                                      q.double(), lse)
+    big = torch.zeros((2, 8, 4, 256), device="cuda")
+    with pytest.raises(ValueError, match="up to 128"):
         tatt.flash_attention_backward(big, big, big, big, big, lse)

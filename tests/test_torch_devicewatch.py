@@ -29,17 +29,29 @@ from tests.test_torch_ingest_wire import SIZES, json_stream, pinned
 ZONE = [[(-1.0, -1.0), (-1.0, 50.0), (10.0, 50.0), (10.0, -1.0)]]
 
 
-def _engines(tmp_path, **kw):
+def _engines(tmp_path, steady: bool = False, **kw):
+    """A JAX and a port engine fed the same stream. With ``steady`` each
+    call carries at most one arena's rows and is followed by ``barrier()``
+    (dispatch what is staged, wait for it), so every dispatch has completed
+    before the next arena is acquired: the arena occupancy is fixed by
+    construction, not by how fast the host outruns the device."""
     cfg = dict(SIZES, analytics_devices=16, analytics_window=8,
                archive_segment_rows=32, **kw)
     jeng = JaxEngine(JaxEngineConfig(**cfg, archive_dir=str(tmp_path / "j")))
     teng = Engine(EngineConfig(**cfg, archive_dir=str(tmp_path / "t")), device="cpu")
     jeng.epoch, teng.epoch = pinned(JaxEpoch), pinned(EpochBase)
+    rows = SIZES["batch_capacity"]   # one arena at scan_chunk 1
     for eng in (jeng, teng):
         eng.set_geofence_zones(ZONE)
         rng = np.random.default_rng(1)
         for k in range(6):
-            eng.ingest_json_batch(json_stream(k, rng))
+            payloads = json_stream(k, rng)
+            if steady:
+                for lo in range(0, len(payloads), rows):
+                    eng.ingest_json_batch(payloads[lo:lo + rows])
+                    eng.barrier()
+            else:
+                eng.ingest_json_batch(payloads)
             if k == 3:
                 eng.flush_async()
         eng.flush()
@@ -48,7 +60,7 @@ def _engines(tmp_path, **kw):
 
 
 def test_memory_ledger_components_match_jax(tmp_path):
-    jeng, teng = _engines(tmp_path, dispatch_depth=2)
+    jeng, teng = _engines(tmp_path, steady=True, dispatch_depth=2)
     lj = jdw.memory_ledger(jeng)
     lt = tdw.memory_ledger(teng)
     assert lt["components"] == lj["components"]
@@ -58,6 +70,7 @@ def test_memory_ledger_components_match_jax(tmp_path):
                                      "segment_cache"}
     assert lt["totalBytes"] == lj["totalBytes"]
     assert lt["highWatermarks"] == lj["highWatermarks"]
+    assert lt["highWatermarks"]["arena_occupancy"] == 1
     assert lt["liveArrays"] is None and lt["deviceMemoryStats"] is None
 
 

@@ -4,6 +4,7 @@ anything of ``sitewhere_tpu`` RAISES — the port runs on machines that have
 none of them. Only the parity tests import both packages."""
 
 import dataclasses
+import json
 import pathlib
 import subprocess
 import sys
@@ -78,8 +79,76 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
             "sitewhere_tpu_torch.utils.conservation", "sitewhere_tpu_torch.ingest.workers",
             "sitewhere_tpu_torch.loadgen",
             # sequence parallelism
-            "sitewhere_tpu_torch.parallel", "sitewhere_tpu_torch.parallel.ring_attention"
+            "sitewhere_tpu_torch.parallel", "sitewhere_tpu_torch.parallel.ring_attention",
+            # the multi-shard engines and what they stand on
+            "sitewhere_tpu_torch.parallel.mesh", "sitewhere_tpu_torch.parallel.router",
+            "sitewhere_tpu_torch.parallel.exchange", "sitewhere_tpu_torch.parallel.sharded",
+            "sitewhere_tpu_torch.parallel.multihost",
+            "sitewhere_tpu_torch.parallel.placement", "sitewhere_tpu_torch.utils.shardobs",
             } <= set(names.split())
+
+
+_SHARDED_PROBE = r"""
+import json
+import sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sitewhere_tpu")
+
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"BLOCKED: the port tried to import {name!r}")
+        return None
+
+sys.meta_path.insert(0, _Blocker())
+
+from sitewhere_tpu_torch.core.types import EventType
+from sitewhere_tpu_torch.engine import EngineConfig
+from sitewhere_tpu_torch.parallel.placement import shard_for_token
+from sitewhere_tpu_torch.parallel.router import ShardRouter
+from sitewhere_tpu_torch.parallel.sharded import ShardedEngine, SpmdEngine
+from sitewhere_tpu_torch.utils.conservation import build_ledger, check_conservation
+from sitewhere_tpu_torch.utils.metrics import MetricsRegistry, export_spmd_metrics
+
+eng = SpmdEngine(EngineConfig(device_capacity=16, token_capacity=32,
+                              assignment_capacity=32, store_capacity=256,
+                              batch_capacity=16, channels=4, use_native=False),
+                 n_shards=2, device="cpu")
+wire = [json.dumps({"deviceToken": f"d{i % 5}", "type": "DeviceMeasurement",
+                    "request": {"name": "t", "value": float(i), "eventDate": 1000 + i}}
+                   ).encode() for i in range(20)]
+eng.ingest_json_batch(wire)
+eng.flush()
+page = eng.query_events(limit=5)
+ok = check_conservation(build_ledger(eng)) == []
+reg = MetricsRegistry()
+export_spmd_metrics(eng, reg)
+sh = ShardedEngine(n_shards=2, device_capacity_per_shard=8, token_capacity_per_shard=8,
+                   assignment_capacity_per_shard=8, store_capacity_per_shard=64,
+                   channels=4, device="cpu")
+router = ShardRouter(2, 8, 8, 4)
+for t in range(12):
+    router.append(EventType.MEASUREMENT, t, 0, t, t, values=[1.0])
+sh.step(router.emit())
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+print(json.dumps({"persisted": eng.metrics()["persisted"], "total": page["total"],
+                  "conserved": ok, "sharded": sh.global_metrics()["processed"],
+                  "shards": sorted({shard_for_token(f"d{i}", 2) for i in range(5)}),
+                  "leaked": leaked}))
+"""
+
+
+def test_sharded_engines_run_with_jax_blocked():
+    """The multi-shard engines, the slot map, the router, the shard metrics
+    and the conservation stage run end to end where jax and the JAX
+    package cannot be imported."""
+    res = subprocess.run([sys.executable, "-c", _SHARDED_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, f"{res.stdout}\n{res.stderr}"
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {"persisted": 20, "total": 20, "conserved": True, "sharded": 12,
+                   "shards": [0, 1], "leaked": []}
 
 
 _TRAIN_PROBE = r"""

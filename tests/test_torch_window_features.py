@@ -71,6 +71,24 @@ def test_plain_version_matches_pallas_interpret():
     np.testing.assert_allclose(got, pal, **TOL)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "int32"])
+def test_other_window_types_are_cast_as_the_pallas_kernel_casts(dtype):
+    """The TPU kernel casts its windows to float32 (``astype``) and returns
+    float32; so does the port, on the CPU and on the card alike."""
+    x = np.round(_normal() * 8)
+    jx = jnp.asarray(x).astype(dtype)
+    pal = np.asarray(jwf.window_features(jx, tile_m=32, force_pallas=True))
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    got = twf.window_features(tx)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), pal, **TOL)
+
+
+def test_complex_windows_are_refused():
+    with pytest.raises(TypeError, match="real windows"):
+        twf.window_features(torch.zeros((2, 4, 3), dtype=torch.complex64))
+
+
 def test_pallas_std_cancels_on_offset_windows_where_port_does_not():
     x = _offset()
     ref = np.asarray(jwf.window_features_reference(jnp.asarray(x)))
@@ -202,11 +220,26 @@ def test_cuda_kernel_scalar_path_on_a_misaligned_pointer():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float64])
+def test_cuda_kernel_casts_other_window_types(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel runs only on a GPU")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((1024, 128, 100), device="cuda", generator=gen).to(dtype)
+    before = twf.window_features.launches
+    got = twf.window_features(x)
+    torch.cuda.synchronize()
+    assert twf.window_features.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, twf.window_features_reference(x.float()),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 def test_cuda_kernel_refuses_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel runs only on a GPU")
     x = torch.zeros((4, 8, 3), device="cuda")
     with pytest.raises(TypeError):
-        twf.window_features(x.double())
+        twf.window_features(x.to(torch.complex64))
     with pytest.raises(ValueError):
         twf.window_features(x.transpose(1, 2))
