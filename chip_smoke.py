@@ -13,8 +13,9 @@ Phases, each printed as one JSON line:
              zero-padded, D = 128, float16 at D = 8, 32, 48, 128, the
              forward, its lse and the backward row by row against the
              plain versions, then both timed against SDPA at
-             [8, 16384, 2, 128] bf16 and at [8, 16384, 8, 32] float16 with
-             their floors and ptxas's registers and spills;
+             [8, 16384, 2, 128] bf16 (the wgmma/TMA kernels) and at
+             [8, 16384, 8, 32] float16 with their floors and ptxas's
+             registers and spills;
              flash_attention_backward's record also checks the
              forward's log-sum-exp and that two calls give the same bits,
              and gives ptxas's registers and spills, the kernel's time over
@@ -121,7 +122,14 @@ Phases, each printed as one JSON line:
              ``forecast_scores`` and one ``make_train_step`` step each,
              every layer's attention and its gradient through the kernels
              (launch counts reset just before and read just after), the
-             first window within TF_SCORE_RTOL of the plain attention.
+             first window within TF_SCORE_RTOL of the plain attention. Then
+             the head-dim-128 model at full width (8 windows of 16384
+             steps): one timed ``forecast_scores`` call and one timed train
+             step (launch counts reset before the one and read after the
+             other), and one profiled call of each: the busy share and the
+             attention kernels that ran, which must be the wgmma/TMA
+             forward and one-pass backward and none of the mma.sync
+             kernels.
 8. read    — the read side and the whole fused step at the slice's width:
              64 geofence zones of 16 vertices and the bench's CEP rule set
              installed, 24 slice batches (channel 0 rewritten by the bench's
@@ -507,9 +515,12 @@ def ptxas_resources(text: str, prefix: str = "flash_bwd") -> dict:
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"\d+(%s\w*?_kernel)I(.*)EEv" % prefix, m.group(1))
+            k = re.search(r"\d+(%s\w*?_kernel)(?:I(.*)EEv|E)" % prefix, m.group(1))
             name = None
-            if k:
+            if k and k.group(2) is None:      # not a template: its name alone
+                name = k.group(1)
+                out[name] = {}
+            elif k:
                 d = re.search(r"Li(\d+)E", k.group(2))
                 t = ("bf16," if "bfloat16" in k.group(2)
                      else "f16," if "__half" in k.group(2)
@@ -1067,7 +1078,7 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
     ptxas = {**ptxas_resources(cuda_build.build_info.get(fa.KERNEL, {}).get("ptxas", ""),
                                prefix="flash_attention"),
              **ptxas_resources(cuda_build.build_info.get(fa.BWD_KERNEL, {}).get("ptxas", ""))}
-    ptxas = {k: v for k, v in ptxas.items() if "f16," in k or "128>" in k}
+    ptxas = {k: v for k, v in ptxas.items() if "f16," in k or "128>" in k or "wgmma" in k}
     # each type's worst output error and gradient row, and float16's control
     by_dtype = {}
     for name, e in errs.items():
@@ -4125,17 +4136,109 @@ TF_C6_CONFIGS = {"d128": TransformerConfig(d_model=256, heads=2),
                  "d48": TransformerConfig(d_model=384, heads=8),
                  "f16": TransformerConfig(dtype=torch.float16)}
 TF_C6_SHAPE = (2, 4096)
+# the full-width leg of transformer_c6: the head-dim-128 model on the
+# transformer phase's 8 windows of 16384 steps
+TF_C6_FULL = ("d128", (TF_WINDOWS, TF_STEPS))
+# the kernels each (dtype, D) of that leg must take on the card: bf16 at
+# D = 128 runs the wgmma/TMA forward and one-pass backward, never the
+# mma.sync kernels (the forward's flash_attention_bf16_kernel, the
+# backward's dK/dV and dQ pair)
+TF_C6_FULL_KERNELS = ("flash_attention_wgmma_kernel", "flash_bwd_bf16_kernel")
+TF_C6_FULL_NOT = ("flash_attention_bf16_kernel", "flash_bwd_dkdv_mma_kernel",
+                  "flash_bwd_dq_mma_kernel")
+
+
+def _profiled_attention(fn) -> dict:
+    """torch.profiler over one call of ``fn``: wall ms, device ms, the
+    device's busy share, and each attention kernel that ran (by its name
+    in the source) with its calls and device ms."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _, busy_ms = _device_time(prof)
+    kernels: dict[str, dict] = {}
+    for e in prof.key_averages():
+        m = re.search(r"(flash\w*_kernel)", e.key)
+        if (m and e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0):
+            k = kernels.setdefault(m.group(1), {"calls": 0, "device_ms": 0.0})
+            k["calls"] += e.count
+            k["device_ms"] += e.self_device_time_total / 1e3
+    return {"profiled_wall_ms": wall_ms, "device_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms, "attention_kernels": kernels}
+
+
+def _c6_full_width(device, fails, seed: int, name: str, cfg: TransformerConfig,
+                   shape: tuple) -> dict:
+    """The full-width leg: ``forecast_scores`` and one ``make_train_step``
+    step of ``cfg`` on ``shape`` windows, each timed after a warm-up at the
+    same shape, the launch counts reset just before the scoring call and
+    read just after the step (2 x layers forward, layers backward), then
+    one profiled call of each: busy share and the attention kernels by
+    name, which must be ``TF_C6_FULL_KERNELS`` and none of
+    ``TF_C6_FULL_NOT``."""
+    from sitewhere_tpu_torch.models.anomaly import adamw
+    from sitewhere_tpu_torch.models.transformer import make_train_step
+
+    model = TelemetryTransformer(cfg, device=device,
+                                 generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    x = torch.randn((*shape, cfg.sensors), device=device, generator=gen)
+    step = make_train_step(model, adamw(model.parameters(), TT_LR))
+    forecast_scores(model, x)                                  # warm-up
+    step(x)
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
+    t0 = time.perf_counter()
+    scores = forecast_scores(model, x)
+    _sync(device)
+    score_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    loss = step(x).item()
+    _sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    got = {"flash_attention": fa.flash_attention.launches,
+           "flash_attention_backward": fa.flash_attention_backward.launches}
+    want = {"flash_attention": 2 * cfg.layers, "flash_attention_backward": cfg.layers}
+    fails.check(got == want, f"transformer C6 {name} at {shape}: launches {got}, want {want}")
+    fails.check(scores.shape == (shape[0],) and bool(torch.isfinite(scores).all())
+                and math.isfinite(loss),
+                f"transformer C6 {name} at {shape}: scores {scores}, loss {loss}")
+    rec = {"config": name, "shape": list(shape), "head_dim": cfg.d_model // cfg.heads,
+           "score_ms": score_ms, "train_step_ms": step_ms, "loss": loss, "launches": got,
+           "score_mean": scores.mean().item(),
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 2**30
+                           if device.type == "cuda" else None)}
+    if device.type == "cuda":
+        rec["score_profile"] = _profiled_attention(lambda: forecast_scores(model, x))
+        rec["step_profile"] = _profiled_attention(lambda: step(x))
+        ran = set(rec["score_profile"]["attention_kernels"]) | set(
+            rec["step_profile"]["attention_kernels"])
+        fails.check(all(k in ran for k in TF_C6_FULL_KERNELS)
+                    and not any(k in ran for k in TF_C6_FULL_NOT),
+                    f"transformer C6 {name} at {shape}: attention kernels {sorted(ran)}, "
+                    f"want {TF_C6_FULL_KERNELS} and none of {TF_C6_FULL_NOT}")
+    del model, step, x
+    return rec
 
 
 def phase_transformer_c6(device, log, fails, seed: int, configs=None,
-                         shape=TF_C6_SHAPE) -> dict:
+                         shape=TF_C6_SHAPE, full=TF_C6_FULL) -> dict:
     """``forecast_scores`` and one ``make_train_step`` step (AdamW) at each
     C6 configuration on [2, 4096] windows, seeded weights and data: every
     layer's attention and its gradient through the kernels (launch counts
     reset just before and read just after: layers each), scores finite and
     the first window's within TF_SCORE_RTOL of the same model with the
     plain attention, the loss finite and every parameter finite after the
-    step."""
+    step. Then ``full`` (a config name and a shape, or None): that config
+    timed at full width (``_c6_full_width``)."""
     from sitewhere_tpu_torch.models.anomaly import adamw
     from sitewhere_tpu_torch.models.transformer import make_train_step
 
@@ -4188,8 +4291,13 @@ def phase_transformer_c6(device, log, fails, seed: int, configs=None,
                     f"{plain[0].item()}")
         out[name] = rec
         del model, step, x
+    full_rec = None
+    if full is not None:
+        full_rec = _c6_full_width(device, fails, seed, full[0], TF_C6_CONFIGS[full[0]], full[1])
+        for k in launches:
+            launches[k] += full_rec["launches"][k]
     emit({"phase": "transformer_c6", "shape": list(shape), "configs": out,
-          "launches": launches, "score_rtol": TF_SCORE_RTOL}, log)
+          "full_width": full_rec, "launches": launches, "score_rtol": TF_SCORE_RTOL}, log)
     return launches
 
 
@@ -4240,6 +4348,8 @@ def main(argv=None) -> int:
     timing["flash_attention_backward"]["c6_errors_by_dtype"] = c6["by_dtype"]
     timing["flash_attention_backward"]["ptxas_d128_f16"] = {
         k: v for k, v in c6["ptxas"].items() if k.startswith("flash_bwd")}
+    timing["flash_attention"]["ptxas_d128_f16"] = {
+        k: v for k, v in c6["ptxas"].items() if k.startswith("flash_attention")}
     phase_entry(device, log, fails)
     launches, slice_step_ms, slice_eng = phase_slice(device, log, fails, args.seed,
                                                      SLICE_BATCHES, profile=args.profile)

@@ -12,11 +12,16 @@
 // walks the key tiles itself, with the running state in registers. Query
 // tiles with the most causal work are launched first.
 //
-// Two kernels, chosen by dtype in swtpu_flash_attention:
+// Three kernels, chosen by dtype and head dim in swtpu_flash_attention:
 //
-// * bfloat16 (the transformer's path) and float16 (the same kernel on
-//   float16 fragments and the float16 mma): tensor cores, FA2-style. Up to
-//   D = 64 a block of
+// * bfloat16 at D = 128: FA3's forward on wgmma and TMA, warp-specialised
+//   (flash_attention_wgmma_kernel below; the note there). At this width the
+//   products bind (at [8, 16384, 2, 128] causal 1.112 ms of products
+//   against 0.51 ms of exponentials), and only wgmma reaches the tensor
+//   cores' full rate.
+// * bfloat16 up to D = 64 (the transformer's path) and float16 at every D
+//   (the same kernel on float16 fragments and the float16 mma): tensor
+//   cores, FA2-style on mma.sync. Up to D = 64 a block of
 //   4 warps owns 128 query rows, 32 per warp as two m16 row tiles that
 //   share every K and V fragment the warp reads from shared memory (with
 //   16 rows a warp, shared-memory reads per score matched the exponential
@@ -42,9 +47,9 @@
 //   P V mma (the m16n8 accumulator layout is the m16n8k16 A layout), with V
 //   fragments from ldmatrix.x4.trans: P never goes through shared memory.
 //   The output goes out through shared memory as 16-byte stores.
-//   At D = 128 the Q fragments (64 registers beside O's 128) are read from
-//   a shared Q tile of the block's 128 rows each key tile, as FA2 does at
-//   that width, and the 2-stage ring and the Q tile (102 KB) live in
+//   At D = 128 (float16 only) the Q fragments (64 registers beside O's
+//   128) are read from a shared Q tile of the block's 128 rows each key
+//   tile, as FA2 does at that width, and the ring and the Q tile live in
 //   dynamic shared memory.
 // * float32: one thread per query row on the CUDA cores, float32 products,
 //   K/V tiles of 32 keys in shared memory. Tensor cores would mean TF32
@@ -85,7 +90,7 @@
 // 19 pairs a clock against the 16 exponentials: instruction dispatch and
 // the exponential unit bind together.
 
-#include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -529,62 +534,347 @@ flash_attention_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------- bfloat16 at D = 128: wgmma
+
+// FA3's forward, kept simple: warp-specialised, wgmma and TMA. A block owns
+// (batch, head, 128 query rows): compute warpgroups 0 and 1 take 64 rows
+// each; in warpgroup 2 one thread issues the TMA loads (Q once, then K and
+// V tiles of 128 keys into a 2-stage ring guarded by mbarriers), and
+// setmaxnreg gives the compute warpgroups 232 registers a thread and
+// warpgroup 2 40. Each key tile, a compute warpgroup runs
+// * S = Q K^T by wgmma from shared memory (64 x 128 float32, 64 registers;
+//   8 k16 steps over Q's and K's two d-boxes, K-major);
+// * the online softmax in registers, the scale folded into one FMA before
+//   ex2.approx as in the mma.sync kernel (c > 0: a negative scale negates
+//   the warpgroup's Q tile in shared memory once, bf16 negation being
+//   exact; a zero scale runs as the smallest normal float);
+// * O += P V by wgmma with P, rounded to bf16, as the register A operand
+//   (64 registers of O) and V MN-major across its two d-boxes.
+// Under a causal mask the key tiles past the block's last row are never
+// loaded and the diagonal tile is masked per element; so is the ragged last
+// key tile (TMA zero-fills keys and rows past S; padded rows are never
+// stored). The output goes out through the warpgroup's Q boxes as 16-byte
+// stores; lse as in the mma.sync kernel.
+constexpr int kFwdBM = 128;       // query rows a block: two compute warpgroups of 64
+constexpr int kFwdBN = 128;       // keys a tile
+constexpr int kFwdStages = 2;     // K / V ring depth
+constexpr int kFwdThreads = 384;  // compute warpgroups 0, 1; producer warpgroup 2
+constexpr int kFwdComputeRegs = 232;
+constexpr int kFwdProducerRegs = 40;
+
+struct FwdSmem {  // D = 128; byte offsets from a 1024-byte aligned base
+  static constexpr int kRowB = 128;                  // a d-box row: 64 bf16
+  static constexpr int kQBox = 64 * kRowB;           // a d-box of a warpgroup's rows
+  static constexpr int kKVBox = kFwdBN * kRowB;      // a d-box of a K or V tile
+  static constexpr int kKVTile = 2 * kKVBox;
+  static constexpr int kQ = 0;                       // Q [2 warpgroups][2 d-boxes][64][64]
+  static constexpr int kK = kQ + 4 * kQBox;          // K [kFwdStages][2 d-boxes][kFwdBN][64]
+  static constexpr int kV = kK + kFwdStages * kKVTile;
+  static constexpr int kBar = kV + kFwdStages * kKVTile;  // full[2], empty[2], q
+  static constexpr int kBytes = kBar + (2 * kFwdStages + 1) * 8;
+  static_assert(kBytes + 1024 <= 232448, "past the 227 KB a block may take");
+};
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                             int s, int h, int num_q_tiles, int num_bh, float scale_log2e,
+                             int q_neg, int causal) {
+  using L = FwdSmem;
+  constexpr int kSbo = 8 * L::kRowB;  // 8 rows of a d-box
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  const uint32_t bar_full = base + L::kBar;
+  const uint32_t bar_empty = bar_full + 8 * kFwdStages;
+  const uint32_t bar_q = bar_empty + 8 * kFwdStages;
+
+  const int bh = blockIdx.x % num_bh;
+  const int qt = num_q_tiles - 1 - blockIdx.x / num_bh;  // most causal work first
+  const int b = bh / h;
+  const int hd = bh - b * h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  // keys past the block's last row are masked for every row of it
+  const int kv_len = causal ? min(s, (qt + 1) * kFwdBM) : s;
+  const int n_tiles = (kv_len + kFwdBN - 1) / kFwdBN;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < kFwdStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, 8);  // lane 0 of each compute warp
+    }
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kFwdProducerRegs));
+    if (warp == 8 && lane == 0) {  // -------------------------------- loader
+      mbar_expect_tx(bar_q, 4 * L::kQBox);
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          tma_load_4d(base + L::kQ + (2 * w + c) * L::kQBox, &tm_q, bar_q, 64 * c, hd,
+                      qt * kFwdBM + 64 * w, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        mbar_wait(bar_empty + 8 * stage, phase ^ 1);
+        const uint32_t full = bar_full + 8 * stage;
+        mbar_expect_tx(full, 2 * L::kKVTile);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const uint32_t off = stage * L::kKVTile + c * L::kKVBox;
+          tma_load_4d(base + L::kK + off, &tm_k, full, 64 * c, hd, j * kFwdBN, b);
+          tma_load_4d(base + L::kV + off, &tm_v, full, 64 * c, hd, j * kFwdBN, b);
+        }
+        if (++stage == kFwdStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {  // ------------------------------------------ compute warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kFwdComputeRegs));
+    const int wt = threadIdx.x & 127;  // thread of the warpgroup
+    const int w4 = wt >> 5;            // warp of the warpgroup
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = qt * kFwdBM + 64 * wg;  // the warpgroup's first query row
+    const uint32_t q_tile = base + L::kQ + wg * 2 * L::kQBox;
+    uint8_t* const q_mem = sm + L::kQ + wg * 2 * L::kQBox;
+
+    mbar_wait(bar_q, 0);
+    if (q_neg) {  // a negative scale runs as its magnitude on -q
+#pragma unroll
+      for (int i = 0; i < 2 * L::kQBox / 16 / 128; ++i) {
+        uint4* p = reinterpret_cast<uint4*>(q_mem) + i * 128 + wt;
+        uint4 x = *p;
+        x.x ^= 0x80008000u;
+        x.y ^= 0x80008000u;
+        x.z ^= 0x80008000u;
+        x.w ^= 0x80008000u;
+        *p = x;
+      }
+      fence_async_shared();
+      named_sync(1 + wg, 128);
+    }
+
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int j = 0; j < n_tiles; ++j) {
+      mbar_wait(bar_full + 8 * stage, phase);
+      const uint32_t k_tile = base + L::kK + stage * L::kKVTile;
+      const uint32_t v_tile = base + L::kV + stage * L::kKVTile;
+
+      // S = Q K^T: [64 rows, 128 keys], both K-major over two d-boxes
+      float sc[64];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        Wgmma<128>::ss<0, 0>(
+            sc, smem_desc(q_tile + (kk >> 2) * L::kQBox + (kk & 3) * 32, 16, kSbo, 1),
+            smem_desc(k_tile + (kk >> 2) * L::kKVBox + (kk & 3) * 32, 16, kSbo, 1), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // mask the diagonal tile and the tail of keys
+      const int k0 = j * kFwdBN;
+      if ((causal && k0 + kFwdBN - 1 > row0) || k0 + kFwdBN > s) {
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * jj + 2 * t + (e & 1);
+            const int row = row0 + 16 * w4 + g + 8 * (e >> 1);
+            if (col >= s || (causal && col > row)) sc[4 * jj + e] = -INFINITY;
+          }
+      }
+
+      // streaming softmax: row maxima across the quad, rescale, p = exp2
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * jj], sc[4 * jj + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * jj + 2], sc[4 * jj + 3]));
+      }
+      float alpha[2], mc[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2_approx((m[r] - mx[r]) * scale_log2e);
+        m[r] = mx[r];
+        mc[r] = mx[r] * scale_log2e;
+      }
+      float rs[2] = {0.0f, 0.0f};
+      uint32_t pa[8][4];  // P as the A fragments of the P V product
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const float p0 = exp2_approx(fmaf(sc[4 * jj], scale_log2e, -mc[0]));
+        const float p1 = exp2_approx(fmaf(sc[4 * jj + 1], scale_log2e, -mc[0]));
+        const float p2 = exp2_approx(fmaf(sc[4 * jj + 2], scale_log2e, -mc[1]));
+        const float p3 = exp2_approx(fmaf(sc[4 * jj + 3], scale_log2e, -mc[1]));
+        rs[0] += p0 + p1;
+        rs[1] += p2 + p3;
+        pa[jj / 2][(jj & 1) * 2] = pack_bf16(p0, p1);
+        pa[jj / 2][(jj & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        o[4 * i] *= alpha[0];
+        o[4 * i + 1] *= alpha[0];
+        o[4 * i + 2] *= alpha[1];
+        o[4 * i + 3] *= alpha[1];
+      }
+
+      // O += P V: V [keys, d] MN-major across its two d-boxes
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        Wgmma<128>::rs<1>(o, pa[kk], smem_desc(v_tile + kk * 16 * L::kRowB, L::kKVBox, kSbo, 1),
+                          1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * stage);  // K, V read
+      if (++stage == kFwdStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // out = O / l through the warpgroup's Q boxes (no longer read): rows of
+    // 256 bytes, then 16-byte stores of the rows inside S
+    fence_async_shared();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const float inv = 1.0f / (lr == 0.0f ? 1.0f : lr);  // o is 0 too
+      const int srow = 16 * w4 + g + 8 * r;
+      if (lse != nullptr && t == 0 && row0 + srow < s)
+        lse[static_cast<int64_t>(bh) * s + row0 + srow] =
+            lr == 0.0f ? INFINITY : (m[r] * scale_log2e + log2f(lr)) * kLn2;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        *reinterpret_cast<uint32_t*>(q_mem + srow * 256 + (8 * i + 2 * t) * 2) =
+            pack_bf16(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+    }
+    named_sync(1 + wg, 128);
+#pragma unroll
+    for (int i = 0; i < 64 * 16 / 128; ++i) {
+      const int e = wt + 128 * i;
+      const int r = e >> 4, c = e & 15;
+      const int row = row0 + r;
+      if (row < s)
+        *reinterpret_cast<uint4*>(out + ((static_cast<int64_t>(b) * s + row) * h + hd) * 128 +
+                                  c * 8) = *reinterpret_cast<const uint4*>(q_mem + r * 256 + c * 16);
+    }
+  }
+}
+
+// the wgmma kernel for bf16 at D = 128
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
+                         int b, int s, int h, int num_bh, Strides qs, Strides ks,
+                         Strides vs, float scale_log2e, int causal, cudaStream_t stream) {
+  const int64_t num_q_tiles = (static_cast<int64_t>(s) + kFwdBM - 1) / kFwdBM;
+  if (num_q_tiles * num_bh > INT32_MAX) return cudaErrorInvalidValue;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!tensor_map(&tm_q, q, b, s, h, 128, qs, 64) ||
+      !tensor_map(&tm_k, k, b, s, h, 128, ks, kFwdBN) ||
+      !tensor_map(&tm_v, v, b, s, h, 128, vs, kFwdBN))
+    return cudaErrorInvalidValue;
+  const int smem = FwdSmem::kBytes + 1024;  // + the 1024-byte alignment
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // the kernel's scale must be > 0 (as the mma.sync kernel's)
+  const float c = scale_log2e == 0.0f ? FLT_MIN : fabsf(scale_log2e);
+  flash_attention_wgmma_kernel<<<static_cast<unsigned>(num_q_tiles * num_bh), kFwdThreads,
+                                 smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), lse, s, h,
+      static_cast<int>(num_q_tiles), num_bh, c, scale_log2e < 0.0f ? 1 : 0, causal);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------------ launch
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int s, int h, int num_bh, Strides qs, Strides ks,
+                   float* lse, int b, int s, int h, int num_bh, Strides qs, Strides ks,
                    Strides vs, float scale_log2e, int causal,
                    cudaStream_t stream) {
-  constexpr bool k16 = sizeof(T) == 2;
-  constexpr int block_q = k16 ? Bf16Tile<D>::kBlockM : kF32BlockQ;
-  const int64_t num_q_tiles = (static_cast<int64_t>(s) + block_q - 1) / block_q;
-  if (num_q_tiles * num_bh > INT32_MAX) return cudaErrorInvalidValue;
-  const unsigned blocks = static_cast<unsigned>(num_q_tiles * num_bh);
-  if constexpr (k16) {
-    // the kernel's scale must be > 0 (see the note at the top)
-    const uint32_t q_sign = scale_log2e < 0.0f ? 0x80008000u : 0u;
-    const float c = scale_log2e == 0.0f ? FLT_MIN : fabsf(scale_log2e);
-    using Tile = Bf16Tile<D>;
-    int smem = 0;
-    if constexpr (Tile::kDynamicSmem) {
-      smem = Tile::kSmemBytes;
-      const cudaError_t err = cudaFuncSetAttribute(
-          flash_attention_bf16_kernel<T, D>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-    }
-    flash_attention_bf16_kernel<T, D><<<blocks, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), lse, s, h,
-        static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, c, q_sign, causal);
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && D == 128) {
+    return launch_wgmma(q, k, v, out, lse, b, s, h, num_bh, qs, ks, vs, scale_log2e, causal,
+                        stream);
   } else {
-    flash_attention_f32_kernel<D><<<blocks, kF32BlockQ, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), lse, s, h,
-        static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, scale_log2e,
-        causal);
+    constexpr bool k16 = sizeof(T) == 2;
+    constexpr int block_q = k16 ? Bf16Tile<D>::kBlockM : kF32BlockQ;
+    const int64_t num_q_tiles = (static_cast<int64_t>(s) + block_q - 1) / block_q;
+    if (num_q_tiles * num_bh > INT32_MAX) return cudaErrorInvalidValue;
+    const unsigned blocks = static_cast<unsigned>(num_q_tiles * num_bh);
+    if constexpr (k16) {
+      // the kernel's scale must be > 0 (see the note at the top)
+      const uint32_t q_sign = scale_log2e < 0.0f ? 0x80008000u : 0u;
+      const float c = scale_log2e == 0.0f ? FLT_MIN : fabsf(scale_log2e);
+      using Tile = Bf16Tile<D>;
+      int smem = 0;
+      if constexpr (Tile::kDynamicSmem) {
+        smem = Tile::kSmemBytes;
+        const cudaError_t err = cudaFuncSetAttribute(
+            flash_attention_bf16_kernel<T, D>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+      }
+      flash_attention_bf16_kernel<T, D><<<blocks, kThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out), lse, s, h,
+          static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, c, q_sign, causal);
+    } else {
+      flash_attention_f32_kernel<D><<<blocks, kF32BlockQ, 0, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(out), lse, s, h,
+          static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, scale_log2e,
+          causal);
+    }
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
-                     void* out, float* lse, int s, int h, int num_bh, Strides qs,
+                     void* out, float* lse, int b, int s, int h, int num_bh, Strides qs,
                      Strides ks, Strides vs, float scale_log2e, int causal,
                      cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch<T, 16>(q, k, v, out, lse, s, h, num_bh, qs, ks, vs,
+      return launch<T, 16>(q, k, v, out, lse, b, s, h, num_bh, qs, ks, vs,
                            scale_log2e, causal, stream);
     case 32:
-      return launch<T, 32>(q, k, v, out, lse, s, h, num_bh, qs, ks, vs,
+      return launch<T, 32>(q, k, v, out, lse, b, s, h, num_bh, qs, ks, vs,
                            scale_log2e, causal, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, lse, s, h, num_bh, qs, ks, vs,
+      return launch<T, 64>(q, k, v, out, lse, b, s, h, num_bh, qs, ks, vs,
                            scale_log2e, causal, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, lse, s, h, num_bh, qs, ks, vs,
+      return launch<T, 128>(q, k, v, out, lse, b, s, h, num_bh, qs, ks, vs,
                             scale_log2e, causal, stream);
     default:
       return cudaErrorInvalidValue;
@@ -618,15 +908,15 @@ extern "C" int swtpu_flash_attention(
   cudaError_t err;
   switch (dtype) {
     case 0:
-      err = dispatch<float>(d, q, k, v, out, lse, s, h, bh, qs, ks, vs,
+      err = dispatch<float>(d, q, k, v, out, lse, b, s, h, bh, qs, ks, vs,
                             scale_log2e, causal, st);
       break;
     case 1:
-      err = dispatch<__nv_bfloat16>(d, q, k, v, out, lse, s, h, bh, qs, ks,
+      err = dispatch<__nv_bfloat16>(d, q, k, v, out, lse, b, s, h, bh, qs, ks,
                                     vs, scale_log2e, causal, st);
       break;
     case 2:
-      err = dispatch<__half>(d, q, k, v, out, lse, s, h, bh, qs, ks, vs,
+      err = dispatch<__half>(d, q, k, v, out, lse, b, s, h, bh, qs, ks, vs,
                              scale_log2e, causal, st);
       break;
     default:

@@ -17,7 +17,8 @@
 //   dK_j    = scale sum_i dS_ij q_i
 //   dQ_i    = scale sum_j dS_ij k_j
 //
-// * bfloat16 up to D = 64 (the transformer's path): one pass over the
+// * bfloat16 at every head dim (D = 32 on the transformer's path, D = 128
+//   on the d_model=256, heads=2 model's): one pass over the
 //   (query, key) pairs, FA3's backward for Hopper, in three launches on the caller's
 //   stream: a prep pass (delta; lse in base 2; the turn counters zeroed),
 //   the main kernel and a pass that scales the float32 dQ and rounds it to
@@ -45,7 +46,10 @@
 //   - The swizzle of each tile is its row width: 32, 64 or 128 bytes for
 //     D = 16, 32, 64, the same in the tensor map and in every wgmma
 //     descriptor (K-major for the S and dP products, MN-major for the
-//     others); each tile starts on a 1024-byte boundary.
+//     others); each tile starts on a 1024-byte boundary. At D = 128 a row
+//     (256 bytes) is wider than the largest swizzle, so every tile is two
+//     64-column d-boxes of 128-byte swizzle (hopper_common.cuh), and the
+//     compute warpgroups split dQ by columns (bwd_compute_d128).
 //   - dQ, deterministic: warpgroup 0 stores its dQ_tile in shared memory
 //     (two buffers, one a tile in turn) and warpgroup 1 adds its own; the
 //     writer warp hands the sum to a bulk copy into a float32 [B H, S, D]
@@ -61,15 +65,13 @@
 //     head), so earlier key blocks are dispatched first, and they have
 //     the most query tiles under a causal mask). A wait that outlasts ~10
 //     s traps instead of hanging the card.
-// * float16 at every head dim, and bfloat16 at D = 128: the mma.sync
-//   kernels below (MmaBwdTile), a dK/dV kernel (a block owns 64 keys) and a
-//   dQ kernel (a block owns 64 query rows) after the prep pass, each output
-//   element summed by one thread in a fixed order, so bitwise the same from
-//   run to run. At D = 128 the one-pass kernel would need its dK and dV
-//   accumulators alone (128 float32 registers a thread) plus S and dP
-//   within the compute warpgroups' 232 registers; these kernels keep K and
-//   V in shared memory and read 32 query rows (or keys) a tile, at 255
-//   and 242 registers (the dK/dV kernel spills 20 bytes).
+// * float16 at every head dim: the mma.sync kernels below (MmaBwdTile), a
+//   dK/dV kernel (a block owns 64 keys) and a dQ kernel (a block owns 64
+//   query rows) after the prep pass, each output element summed by one
+//   thread in a fixed order, so bitwise the same from run to run. Their
+//   rows of P^T and dS^T are scaled by a power of two each (RowScale),
+//   which the one-pass kernel's dQ, a sum over a block's keys, could not
+//   undo.
 // * float32: CUDA cores, float32 products (tensor cores would mean TF32,
 //   about 3 decimal digits), two kernels after the prep pass: one thread
 //   per key (dK/dV) or per query (dQ) with its own row and accumulators in
@@ -91,11 +93,11 @@
 // five products a pair (S, dP, dV, dK, dQ), 2.5x the forward's 1.1e12
 // operations: 2.75e12 at 989 TFLOP/s is 2.78 ms. It takes one exponential
 // a live pair (2.05 ms at 16 per SM per clock) and moves about 0.55 GB
-// (0.16 ms) plus the float32 dQ accumulator's traffic through L2.
+// (0.16 ms) plus the float32 dQ accumulator's traffic through L2. At
+// [8, 16384, 2, 128] the products take the same 2.78 ms and the
+// exponentials a quarter of it (0.51 ms): the tensor cores set the pace.
 
-#include <cuda.h>
-
-#include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -346,10 +348,9 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 
 // ------------------------------------------------- mma.sync (16-bit types)
 
-// The backward of the 16-bit types where the wgmma kernel below does not
-// reach: float16 at every head dim, and bfloat16 at D = 128 (there the
-// one-pass kernel's dK and dV accumulators alone are 128 float32 registers
-// a thread in each compute warpgroup, past the 232 it may have). Two
+// The backward of float16 at every head dim, where the wgmma kernel below
+// does not reach (its dQ sums dS over a block's keys, and a per-row float16
+// scale of dS^T cannot be undone in that sum). Two
 // kernels after the prep pass, each output element summed by one thread in
 // a fixed order (deterministic), on mma.sync m16n8k16 (float32
 // accumulators) with the forward's fragment layouts:
@@ -786,252 +787,225 @@ constexpr int kLoaderRegs = 40;
 
 template <int D>
 struct BwdSmem {  // byte offsets from a 1024-byte aligned base
-  static_assert(D == 16 || D == 32 || D == 64, "D must be 16, 32 or 64");
-  static constexpr int kRowB = 2 * D;             // a tile row; = its swizzle
-  static constexpr int kTileB = kBM * kRowB;      // a Q or dO tile
-  static constexpr int kK = 0;                    // K [kBN][D]
-  static constexpr int kV = kK + kBN * kRowB;     // V [kBN][D]
-  static constexpr int kQ = kV + kBN * kRowB;     // Q [kStages][kBM][D]
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "D must be 16, 32, 64 or 128");
+  // a tile is kBoxes d-boxes of kBoxCols columns, one after the other
+  // (hopper_common.cuh): one box up to D = 64, two at D = 128
+  static constexpr int kBoxCols = D < 64 ? D : 64;
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kRowB = 2 * kBoxCols;      // a box row; = its swizzle
+  static constexpr int kTileB = kBM * 2 * D;      // a Q or dO tile
+  static constexpr int kTileBox = kBM * kRowB;    // one d-box of it
+  static constexpr int kKVBox = kBN * kRowB;      // one d-box of the K or V tile
+  static constexpr int kK = 0;                    // K [kBoxes][kBN][kBoxCols]
+  static constexpr int kV = kK + kBN * 2 * D;     // V [kBoxes][kBN][kBoxCols]
+  static constexpr int kQ = kV + kBN * 2 * D;     // Q [kStages][kBoxes][kBM][kBoxCols]
   static constexpr int kDO = kQ + kStages * kTileB;
-  static constexpr int kDS = kDO + kStages * kTileB;  // dS^T [2][64][64] bf16
-  static constexpr int kDQ = kDS + 2 * 64 * 128;      // dQ [2][kBM * D] float
+  // dS^T [128 keys][64 queries] bf16, a buffer; two at D = 128, where
+  // each warpgroup's dQ product reads both warpgroups' rows
+  static constexpr int kDSBufs = D == 128 ? 2 : 1;
+  static constexpr int kDSBuf = 2 * 64 * 128;
+  static constexpr int kDS = kDO + kStages * kTileB;
+  static constexpr int kDQ = kDS + kDSBufs * kDSBuf;  // dQ [2][kBM * D] float
   static constexpr int kRows = kDQ + 2 * kBM * D * 4; // [kStages][lse2, delta][kBM]
   static constexpr int kBar = kRows + kStages * 2 * kBM * 4;
   // mbarriers: full[kStages], empty[kStages], kv, then two each of
   // dq_half, dq_full, dq_empty, turn, done, passed
   static constexpr int kBytes = kBar + (2 * kStages + 13) * 8;
-  static_assert(kTileB % 1024 == 0, "tiles start on 1024 bytes");
-  // wgmma descriptor layout type of a [rows][D] tile: 1 = 128 B swizzle,
-  // 2 = 64 B, 3 = 32 B (the tensor map's CU_TENSOR_MAP_SWIZZLE_* match)
-  static constexpr int kSwizzle = D == 64 ? 1 : (D == 32 ? 2 : 3);
+  static_assert(kTileBox % 1024 == 0, "boxes start on 1024 bytes");
+  static_assert(kBytes + 1024 <= 232448, "past the 227 KB a block may take");
+  // wgmma descriptor layout type of a box: 1 = 128 B swizzle, 2 = 64 B,
+  // 3 = 32 B (the tensor map's CU_TENSOR_MAP_SWIZZLE_* match)
+  static constexpr int kSwizzle = kRowB == 128 ? 1 : (kRowB == 64 ? 2 : 3);
+  // k16 step kk of a K-major operand over D: 32 bytes along a box row,
+  // the next d-box after kBoxCols / 16 steps
+  static __device__ __forceinline__ uint32_t k_step(uint32_t tile, int kk, int box) {
+    return tile + (kk / (kBoxCols / 16)) * box + (kk % (kBoxCols / 16)) * 32;
+  }
 };
 
-// -- PTX wrappers: mbarriers, TMA, bulk copies, wgmma --------------------
+// One compute warpgroup's walk over the query tiles at D = 128 (warpgroup
+// wg owns keys kw0 .. kw0 + 63 of the block). The same five products as at
+// D <= 64; what differs:
+// * S^T and dP^T take 8 k16 steps over the two d-boxes of K (V) and Q (dO);
+//   dV and dK are [64 keys, 128] (64 registers each), with dO and Q read
+//   MN-major across both d-boxes;
+// * dQ_tile = dS K is split by columns, not by keys: warpgroup wg computes
+//   columns 64 wg .. 64 wg + 63 over all 128 keys of the block, from both
+//   warpgroups' dS^T rows (a 256-thread barrier once both are written;
+//   two dS^T buffers, so a warpgroup that runs ahead never overwrites rows
+//   the other still reads) and d-box wg of K. So a thread holds 32 dQ
+//   registers, not 64, the block's sum over its keys happens inside the
+//   wgmma, and each warpgroup stores its own columns of the tile's buffer
+//   (no add between warpgroups);
+// * the accumulators of S^T, dP^T and dQ are declared inside the loop and
+//   never initialised (each product's first step does not accumulate), so
+//   no value of theirs is carried from one tile to the next; the live set
+//   peaks near 128 (dK, dV) + 64 (S^T, dP^T) registers;
+// * the waits of these warpgroups spin without the watchdog (mbar_spin):
+//   with a trap on their path ptxas held the region well below the 232
+//   registers setmaxnreg gives, spilled dK and serialised the wgmmas.
+__device__ __forceinline__ void bwd_compute_d128(
+    const uint32_t base, uint8_t* const sm, const int wg, const int lane, const int m_first,
+    const int m_tiles, const int key0, const int b, const int hd, const int s, const int h,
+    const float scale_log2e, const float scale, const int causal, const uint32_t bar_full,
+    const uint32_t bar_empty, const uint32_t bar_kv, const uint32_t bar_dq_full,
+    const uint32_t bar_dq_empty, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv) {
+  using L = BwdSmem<128>;
+  constexpr int kSbo = 8 * L::kRowB;  // 8 rows of a box
+  const int wt = threadIdx.x & 127;   // thread of the warpgroup
+  const int w4 = wt >> 5;             // warp of the warpgroup
+  const int g = lane >> 2, t = lane & 3;
+  const int kw0 = key0 + 64 * wg;     // the warpgroup's first key
+  const uint32_t k_tile = base + L::kK + wg * kBM * L::kRowB;  // its keys, d-box 0
+  const uint32_t v_tile = base + L::kV + wg * kBM * L::kRowB;
+  const uint32_t k_box = base + L::kK + wg * L::kKVBox;        // all keys, d-box wg
+  float4* const dq_bufs = reinterpret_cast<float4*>(sm + L::kDQ);
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// a wait that lasts this many SM clocks (~10 s) traps: a fault the caller
-// sees, where a lost arrival or turn would otherwise hang the card
-constexpr long long kWatchdogClocks = 1ll << 34;
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// wait until the barrier's phase with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > kWatchdogClocks) __trap();
-}
-
-// a [rows][D] box of a 4-d (d, head, row, batch) tensor map into shared
-// memory, swizzled as the map says; completes `bar`'s transaction bytes
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2,
-                                            int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(float* dst, uint32_t src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, uint32_t bytes) {
-  asm volatile(
-      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
-          dst),
-      "r"(src), "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void add_release(int* p, int v) {
-  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// registers an asynchronous wgmma writes: no read moves above the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+  float dv_acc[64], dk_acc[64];
 #pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
+  for (int i = 0; i < 64; ++i) dv_acc[i] = dk_acc[i] = 0.0f;
 
-// shared memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the layout (swizzle) type in bits 62-63
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              int layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
+  mbar_spin(bar_kv, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int m = m_first, it = 0; m < m_tiles; ++m, ++it) {
+    mbar_spin(bar_full + 8 * stage, phase);
+    const uint32_t q_tile = base + L::kQ + stage * L::kTileB;
+    const uint32_t do_tile = base + L::kDO + stage * L::kTileB;
+    const uint32_t ds_buf = base + L::kDS + (it & 1) * L::kDSBuf;
+    const float* lse_s = reinterpret_cast<const float*>(sm + L::kRows) + stage * 2 * kBM;
+    const float* del_s = lse_s + kBM;
 
-// wgmma m64nNk16, bf16 in, float32 accumulators: d[4 j + r] of a thread
-// (lane = 4 g + t, warp w of the warpgroup) is row 16 w + g + 8 (r >> 1),
-// column 8 j + 2 t + (r & 1); the register A fragment of a k16 step is the
-// mma.m16n8k16 one, so an accumulator's columns 16 kk .. 16 kk + 15, packed
-// in pairs, are the A operand of the next product's step kk
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  // d [64, 16] (+)= A (shared, descriptor a) B (shared, descriptor b)
-  template <int kTransA, int kTransB>
-  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
-  }
-  // d [64, 16] += A (registers, the m64k16 fragment) B (shared, descriptor b)
-  template <int kTransB>
-  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4],
-                                            uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
-          "n"(kTransB));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  // d [64, 32] (+)= A (shared, descriptor a) B (shared, descriptor b)
-  template <int kTransA, int kTransB>
-  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
-  }
-  // d [64, 32] += A (registers, the m64k16 fragment) B (shared, descriptor b)
-  template <int kTransB>
-  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
-                                            uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
-          "n"(kTransB));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  // d [64, 64] (+)= A (shared, descriptor a) B (shared, descriptor b)
-  template <int kTransA, int kTransB>
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
-  }
-  // d [64, 64] += A (registers, the m64k16 fragment) B (shared, descriptor b)
-  template <int kTransB>
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
-          "n"(kTransB));
-  }
-};
-
-
-// the accumulator's 16 kk .. 16 kk + 15 columns as bf16 A fragments
-__device__ __forceinline__ void pack_a(const float (&c)[32], uint32_t (&a)[4][4]) {
+    // S^T = K Q^T and dP^T = V dO^T: [64 keys, 64 queries], K-major
+    float sacc[32], pacc[32];
+    wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t a = smem_desc(L::k_step(k_tile, kk, L::kKVBox), 16, kSbo, 1);
+      const uint64_t b = smem_desc(L::k_step(q_tile, kk, L::kTileBox), 16, kSbo, 1);
+      Wgmma<64>::ss<0, 0>(sacc, a, b, kk);
+    }
+    wgmma_commit();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(c[8 * kk + 2 * e], c[8 * kk + 2 * e + 1]);
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t a = smem_desc(L::k_step(v_tile, kk, L::kKVBox), 16, kSbo, 1);
+      const uint64_t b = smem_desc(L::k_step(do_tile, kk, L::kTileBox), 16, kSbo, 1);
+      Wgmma<64>::ss<0, 0>(pacc, a, b, kk);
+    }
+    wgmma_commit();
+
+    // P^T = exp2(S^T scale log2e - lse2), masked on the diagonal and past
+    // the last key (overlaps the dP^T product)
+    wgmma_wait<1>();
+    fence_regs(sacc);
+    const int q0 = m * kBM;
+    const bool edge = (causal && q0 <= kw0) || kw0 + 64 > s;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float p = exp2_approx(fmaf(sacc[4 * j + r], scale_log2e, -((r & 1) ? l2.y : l2.x)));
+        if (edge) {
+          const int key = kw0 + 16 * w4 + g + 8 * (r >> 1);
+          const int query = q0 + 8 * j + 2 * t + (r & 1);
+          if (key >= s || (causal && key > query)) p = 0.0f;
+        }
+        sacc[4 * j + r] = p;
+      }
+    }
+    // dS^T = P^T (dP^T - delta)
+    wgmma_wait<0>();
+    fence_regs(pacc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl = *reinterpret_cast<const float2*>(del_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pacc[4 * j + r] = sacc[4 * j + r] * (pacc[4 * j + r] - ((r & 1) ? dl.y : dl.x));
+    }
+    uint32_t pa[4][4], sa[4][4];
+    pack_a(sacc, pa);
+    pack_a(pacc, sa);
+    // dS^T rows of this warpgroup's keys to shared memory: row = key (128
+    // bytes of 64 queries), its 16-byte chunks swizzled by the row's low 3
+    // bits (128 B swizzle)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = 64 * wg + 16 * w4 + g + 8 * half;
+        const uint32_t addr = ds_buf + row * 128 + ((j ^ (row & 7)) << 4) + 4 * t;
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+                     "r"(sa[j >> 1][(j & 1) * 2 + half])
+                     : "memory");
+      }
+    }
+    fence_async_shared();
+
+    // dV += P^T dO, dK += dS^T Q (dO and Q MN-major across both d-boxes),
+    // then, once both warpgroups' dS^T rows are in shared memory, this
+    // warpgroup's columns of dQ_tile = dS K (dS^T and K MN-major)
+    float dq[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<128>::rs<1>(dv_acc, pa[kk],
+                        smem_desc(do_tile + kk * 16 * L::kRowB, L::kTileBox, kSbo, 1), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<128>::rs<1>(dk_acc, sa[kk],
+                        smem_desc(q_tile + kk * 16 * L::kRowB, L::kTileBox, kSbo, 1), 1);
+    named_sync(1, 256);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t a = smem_desc(ds_buf + kk * 16 * 128, 16, 1024, 1);
+      const uint64_t b = smem_desc(k_box + kk * 16 * L::kRowB, 16, kSbo, 1);
+      Wgmma<64>::ss<1, 1>(dq, a, b, kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(dq);
+    fence_regs(pa);
+    fence_regs(sa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * stage);  // Q, dO read
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+
+    // this warpgroup's columns of the tile's dQ into buffer it & 1: float4
+    // (i, wt) at (8 wg + i) 128 + wt holds rows 16 w4 + g (+ 8), columns
+    // 64 wg + 8 i + 2 t (+ 1); the buffer's previous tile (it - 2) was read
+    const int slot = it & 1;
+    float4* dq_buf = dq_bufs + slot * (kBM * 128 / 4);
+    if (it >= 2) mbar_spin(bar_dq_empty + 8 * slot, ((it - 2) >> 1) & 1);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      dq_buf[(8 * wg + i) * 128 + wt] =
+          make_float4(dq[4 * i], dq[4 * i + 1], dq[4 * i + 2], dq[4 * i + 3]);
+    fence_async_shared();
+    named_sync(2 + wg, 128);
+    if (wt == 0) mbar_arrive(bar_dq_full + 8 * slot);
+  }
+
+  // dK (times scale) and dV of the warpgroup's 64 keys, bf16
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = kw0 + 16 * w4 + g + 8 * half;
+    if (key >= s) continue;
+    const int64_t row = ((static_cast<int64_t>(b) * s + key) * h + hd) * 128;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int c = 8 * i + 2 * t, e = 4 * i + 2 * half;
+      *reinterpret_cast<uint32_t*>(dk + row + c) =
+          pack_bf16(dk_acc[e] * scale, dk_acc[e + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + row + c) = pack_bf16(dv_acc[e], dv_acc[e + 1]);
+    }
   }
 }
 
@@ -1050,7 +1024,7 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                       float scale, int causal) {
   using L = BwdSmem<D>;
   constexpr int kRowB = L::kRowB;
-  constexpr int kSbo = 8 * kRowB;  // 8 rows of a [rows][D] tile
+  constexpr int kSbo = 8 * kRowB;  // 8 rows of a box
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -1085,7 +1059,7 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int slot = 0; slot < 2; ++slot) {
       mbar_init(bar_dq_half + 8 * slot, 1);
-      mbar_init(bar_dq_full + 8 * slot, 1);
+      mbar_init(bar_dq_full + 8 * slot, D == 128 ? 2 : 1);
       mbar_init(bar_dq_empty + 8 * slot, 1);
       mbar_init(bar_turn + 8 * slot, 1);
       mbar_init(bar_done + 8 * slot, 1);
@@ -1098,13 +1072,17 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoaderRegs));
     if (warp == 8 && lane == 0) {  // ------------------------------ loader
-      mbar_expect_tx(bar_kv, 2 * kBN * kRowB);
+      mbar_expect_tx(bar_kv, 2 * kBN * 2 * D);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        tma_load_4d(base + L::kK + half * kBM * kRowB, &tm_k, bar_kv, 0, hd,
-                    key0 + half * kBM, b);
-        tma_load_4d(base + L::kV + half * kBM * kRowB, &tm_v, bar_kv, 0, hd,
-                    key0 + half * kBM, b);
+#pragma unroll
+        for (int box = 0; box < L::kBoxes; ++box) {
+          const uint32_t off = box * L::kKVBox + half * kBM * kRowB;
+          tma_load_4d(base + L::kK + off, &tm_k, bar_kv, box * L::kBoxCols, hd,
+                      key0 + half * kBM, b);
+          tma_load_4d(base + L::kV + off, &tm_v, bar_kv, box * L::kBoxCols, hd,
+                      key0 + half * kBM, b);
+        }
       }
       const int64_t row_base = static_cast<int64_t>(bh) * m_tiles * kBM;
       int stage = 0;
@@ -1113,8 +1091,12 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(bar_empty + 8 * stage, phase ^ 1);
         const uint32_t full = bar_full + 8 * stage;
         mbar_expect_tx(full, 2 * L::kTileB + 2 * kBM * 4);
-        tma_load_4d(base + L::kQ + stage * L::kTileB, &tm_q, full, 0, hd, m * kBM, b);
-        tma_load_4d(base + L::kDO + stage * L::kTileB, &tm_do, full, 0, hd, m * kBM, b);
+#pragma unroll
+        for (int box = 0; box < L::kBoxes; ++box) {
+          const uint32_t off = stage * L::kTileB + box * L::kTileBox;
+          tma_load_4d(base + L::kQ + off, &tm_q, full, box * L::kBoxCols, hd, m * kBM, b);
+          tma_load_4d(base + L::kDO + off, &tm_do, full, box * L::kBoxCols, hd, m * kBM, b);
+        }
         const uint32_t rows = base + L::kRows + stage * 2 * kBM * 4;
         bulk_load(rows, lse2 + row_base + m * kBM, kBM * 4, full);
         bulk_load(rows + kBM * 4, delta + row_base + m * kBM, kBM * 4, full);
@@ -1164,7 +1146,12 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_arrive(bar_passed + 8 * (i & 1));
       }
     }
-  } else {  // ------------------------------------------ compute warpgroups
+  } else if constexpr (D == 128) {  // ------------------ compute warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kComputeRegs));
+    bwd_compute_d128(base, sm, wg, lane, m_first, m_tiles, key0, b, hd, s, h, scale_log2e,
+                     scale, causal, bar_full, bar_empty, bar_kv, bar_dq_full, bar_dq_empty,
+                     dk, dv);
+  } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kComputeRegs));
     const int wt = threadIdx.x & 127;  // thread of the warpgroup
     const int w4 = wt >> 5;            // warp of the warpgroup
@@ -1388,9 +1375,9 @@ struct Scratch {
   }
 };
 
-// the wgmma kernel takes bfloat16 at D <= 64; dtype 0 float32, 1 bfloat16,
-// 2 float16
-bool takes_wgmma(int dtype, int d) { return dtype == 1 && d <= 64; }
+// the wgmma kernel takes bfloat16 at every instantiated head dim; dtype 0
+// float32, 1 bfloat16, 2 float16
+bool takes_wgmma(int dtype, int d) { return dtype == 1 && d <= 128; }
 
 template <typename T, int D>
 cudaError_t launch_prep(const Args& a, const Scratch& sc) {
@@ -1407,54 +1394,6 @@ cudaError_t launch_prep(const Args& a, const Scratch& sc) {
   return cudaGetLastError();
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime loaded
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a [B, S, H, D] bf16 view (element strides st, unit stride on D) as a 4-d
-// (d, head, row, batch) tensor map whose box is kBM rows of one head,
-// swizzled by the row's width; rows past S read as zeros
-bool tensor_map(CUtensorMap* map, const void* ptr, int b, int s, int h, int d,
-                Strides st) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.s) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d), 1, kBM, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = d == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : d == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch_bf16(const Args& a) {
   using B = __nv_bfloat16;
@@ -1465,10 +1404,10 @@ cudaError_t launch_bf16(const Args& a) {
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   const int64_t bsh = static_cast<int64_t>(a.s) * a.h * D;
   const Strides os{bsh, static_cast<int64_t>(a.h) * D, D};
-  if (!tensor_map(&tm_q, a.q, a.b, a.s, a.h, D, a.qs) ||
-      !tensor_map(&tm_k, a.k, a.b, a.s, a.h, D, a.ks) ||
-      !tensor_map(&tm_v, a.v, a.b, a.s, a.h, D, a.vs) ||
-      !tensor_map(&tm_do, a.dout, a.b, a.s, a.h, D, os))
+  if (!tensor_map(&tm_q, a.q, a.b, a.s, a.h, D, a.qs, kBM) ||
+      !tensor_map(&tm_k, a.k, a.b, a.s, a.h, D, a.ks, kBM) ||
+      !tensor_map(&tm_v, a.v, a.b, a.s, a.h, D, a.vs, kBM) ||
+      !tensor_map(&tm_do, a.dout, a.b, a.s, a.h, D, os, kBM))
     return cudaErrorInvalidValue;
   const int64_t n_blocks = (static_cast<int64_t>(a.s) + kBN - 1) / kBN;
   if (n_blocks * a.num_bh > INT32_MAX) return cudaErrorInvalidValue;
@@ -1564,11 +1503,7 @@ cudaError_t dispatch_d(int dtype, const Args& a) {
     case 0:
       return launch_f32<D>(a);
     case 1:  // takes_wgmma(1, D)
-      if constexpr (D <= 64) {
-        return launch_bf16<D>(a);
-      } else {
-        return launch_mma<__nv_bfloat16, D>(a);
-      }
+      return launch_bf16<D>(a);
     case 2:
       return launch_mma<__half, D>(a);
     default:

@@ -23,11 +23,16 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
     P, rounded to bf16, is the A operand of the P·V product without a
     trip through shared memory. The products leave the CUDA cores; what
     is left there is the softmax around one exponential per pair.
-  * float16: the same kernel with float16 fragments and the float16
-    ``mma.sync``.
-  * At D = 128 the Q fragments are read from a shared Q tile each key tile
-    (in registers they would take 64 beside O's 128), as FA2 does at that
-    width; the ring and the Q tile are in dynamic shared memory.
+  * bfloat16 at D = 128: FA3's forward on Hopper's ``wgmma`` and TMA,
+    warp-specialised. A block owns 128 query rows (two compute warpgroups
+    of 64); one thread brings Q once and K/V tiles of 128 keys through TMA
+    into a 2-stage mbarrier ring; S = Q K^T and O += P V are ``wgmma``
+    products, P (bf16) the register A operand of the second. At this
+    width the products, not the exponentials, bound the kernel.
+  * float16: the ``mma.sync`` kernel with float16 fragments and the
+    float16 ``mma.sync``; at D = 128 its Q fragments are read from a
+    shared Q tile each key tile (in registers they would take 64 beside
+    O's 128), as FA2 does at that width.
   * float32 design: one thread per query row with float32 products on the
     CUDA cores (tensor cores would mean TF32, too coarse for the float32
     tolerance); not on the transformer's path.
@@ -44,17 +49,20 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
   * The forward can also write each row's log-sum-exp (``lse`` [B, H, S]
     float32, natural log), which the backward recomputes P from.
 
-Backward kernel: ``csrc/flash_attention_bwd.cu``. For bfloat16, FA3's
-backward for Hopper: one pass over the (query, key) pairs (five ``wgmma``
-products and one exponential a pair; Q and dO tiles through TMA into an
-mbarrier ring, warp-specialised), dQ summed in float32 across key blocks
-in a fixed order (a turn counter per query tile), so a gradient is bitwise
-the same from run to run; float32 keeps two CUDA-core kernels, each element
-summed by one thread. float16 at every D and bfloat16 at D = 128 take two
+Backward kernel: ``csrc/flash_attention_bwd.cu``. For bfloat16 at every
+head dim, FA3's backward for Hopper: one pass over the (query, key) pairs
+(five ``wgmma`` products and one exponential a pair; Q and dO tiles
+through TMA into an mbarrier ring, warp-specialised), dQ summed in float32
+across key blocks in a fixed order (a turn counter per query tile), so a
+gradient is bitwise the same from run to run. At D = 128 each tile is two
+64-column boxes of 128-byte swizzle, and each compute warpgroup takes 64
+of dQ's columns over the block's 128 keys. float32 keeps two CUDA-core
+kernels, each element summed by one thread. float16 at every D takes two
 ``mma.sync`` kernels (dK/dV a key block, dQ a query block, each element
-summed by one thread, so also bitwise the same run to run): at D = 128 the
-one-pass kernel's dK and dV accumulators alone would fill the compute
-warpgroups' register budget. It replaces no Pallas kernel: the JAX trainer
+summed by one thread, so also bitwise the same run to run): its rows of
+P^T and dS^T are scaled by a power of two each, which the one-pass
+kernel's dQ, a sum over a block's keys, could not undo. It replaces no
+Pallas kernel: the JAX trainer
 (``sitewhere_tpu/models/transformer.py:153``) differentiates the oracle
 ``mha_reference``, and this is that gradient.
 :class:`FlashAttentionFunction` puts the two kernels behind autograd, and

@@ -10,8 +10,9 @@
   and round once to bf16, so a result can land one ulp apart where the
   float32 values straddle a rounding boundary.
 * The bf16 kernel's arithmetic, emulated here on the CPU (64-key tiles,
-  float32 scores scaled inside ``exp2``, P rounded to bf16 per tile before
-  the P·V product, float32 accumulation), against both ``mha_reference``s
+  128 for the wgmma kernel at D = 128; float32 scores scaled inside
+  ``exp2``, P rounded to bf16 per tile before the P·V product, float32
+  accumulation), against both ``mha_reference``s
   within the card's bf16 tolerance (``rtol = atol = 8e-3``, the limit the
   card's check holds the kernel to): the rounding of P fits that budget;
   and its handling of a zero or negative ``sm_scale`` (the scale inside
@@ -132,7 +133,8 @@ def emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         block_k: int = 64, low: torch.dtype = torch.bfloat16
                         ) -> torch.Tensor:
     """The arithmetic of the bf16 tensor-core kernel, on the CPU: key tiles
-    of ``block_k``; float32 scores (exact products of bf16 values summed in
+    of ``block_k`` (64 for the mma.sync kernel up to D = 64, 128 for the
+    wgmma kernel at D = 128); float32 scores (exact products of bf16 values summed in
     float32) scaled inside the exp2 argument, p = exp2(s·c − m·c) with c =
     sm_scale·log2(e) made positive (a negative c as |c| on -q, a zero c as
     the smallest normal float); the running max starting at -1e30; masked
@@ -197,6 +199,28 @@ def test_bf16_kernel_arithmetic_takes_any_sign_of_scale(sm_scale, causal):
     np.testing.assert_allclose(
         _np(got), _np(jatt.mha_reference(jq, jk, jv, causal=causal, sm_scale=sm_scale)),
         **FLASH_TOL_BF16)
+
+
+@pytest.mark.parametrize("sm_scale", [None, 0.0, -0.3])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1, 65, 300])
+def test_bf16_wgmma_forward_arithmetic_at_d128_holds_to_jax(s, causal, sm_scale):
+    """The D = 128 forward on wgmma (``flash_attention_wgmma_kernel``):
+    128-key tiles, a negative scale taken as its magnitude on -q (the
+    kernel negates its Q tile in shared memory once, which is exact in
+    bf16), a zero one as the smallest normal float, P rounded to bf16
+    before P·V. It stays within the card's bf16 limit of JAX's oracle and
+    of the Pallas kernel in interpret mode (measured <= 5.2e-3)."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv((2, s, 2, 128), seed=80 + s), "bfloat16")
+    got = emulate_bf16_kernel(tq, tk, tv, causal=causal, sm_scale=sm_scale, block_k=128)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, s, 2, 128)
+    assert bool(torch.isfinite(got.float()).all())
+    np.testing.assert_allclose(
+        _np(got), _np(jatt.mha_reference(jq, jk, jv, causal=causal, sm_scale=sm_scale)),
+        **FLASH_TOL_BF16)
+    np.testing.assert_allclose(
+        _np(got), _np(jatt.flash_attention(jq, jk, jv, causal=causal, sm_scale=sm_scale,
+                                           force_pallas=True)), **FLASH_TOL_BF16)
 
 
 def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
@@ -539,7 +563,9 @@ def emulate_bf16_backward(q, k, v, o, do, lse, *, causal: bool,
     float32; P rounded to bf16 before the dV product and dS rounded to bf16
     before the dK and dQ products. dV and dK accumulate in float32 over
     64-row query tiles. dQ: each key block of 128 keys sums its two
-    64-key parts (one a compute warpgroup) in float32, and the blocks' sums
+    64-key parts (one a compute warpgroup) in float32 (at D = 128 one part
+    of 128 keys, ``key_part=128``: a warpgroup's columns of dQ over the
+    whole block in one product), and the blocks' sums
     are added in float32 in key-block order; dq, dk and dv are rounded to
     q's type once. ``low`` is the type P and dS are rounded to: float16
     for the float16 kernels (``round_rows``: a row of P^T or dS^T, or of dS
@@ -614,6 +640,39 @@ def test_bf16_backward_arithmetic_takes_any_sign_of_scale(sm_scale, causal):
             assert not g.float().any() and not p.float().any()
         else:
             assert_rows_close_of_max(g, p, GRAD_TOL_BF16, f"d{name}", causal=causal)
+
+
+@pytest.mark.parametrize("sm_scale", [None, 0.0, -0.3])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1, 65, 300])
+def test_bf16_wgmma_backward_arithmetic_at_d128_holds_to_jax_grad(s, causal, sm_scale):
+    """The D = 128 backward on wgmma (``flash_bwd_bf16_kernel<128>``):
+    64-row query tiles, 128-key blocks whose dQ sums all 128 keys in one
+    product (each compute warpgroup takes 64 of dQ's columns over the whole
+    block: ``key_part`` 128), P and dS rounded to bf16. Every row of dq, dk
+    and dv stays within GRAD_TOL_BF16 of ``jax.vjp`` of JAX's oracle on the
+    same bf16 values (measured <= 6.9e-3). The output gradient's delta is
+    taken from the float32 output on both sides, so what is measured is the
+    kernel's own rounding."""
+    arrays = [np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+              for a in _qkv((2, s, 2, 128), seed=90 + s) + _qkv((2, s, 2, 128), seed=91 + s)[:1]]
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in arrays)
+    out, vjp = jax.vjp(lambda q, k, v: jatt.mha_reference(q, k, v, causal=causal,
+                                                        sm_scale=sm_scale), jq, jk, jv)
+    ref = [torch.from_numpy(np.array(g)) for g in vjp(jdo)]
+    tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16() for a in arrays)
+    o = torch.from_numpy(np.array(out))
+    lse = tatt.lse_reference(tq.float(), tk.float(), causal=causal, sm_scale=sm_scale)
+    got = emulate_bf16_backward(tq, tk, tv, o, tdo, lse, causal=causal, sm_scale=sm_scale,
+                                q_tile=64, key_block=128, key_part=128)
+    for name, g, r in zip("qkv", got, ref):
+        assert g.dtype == torch.bfloat16 and g.shape == (2, s, 2, 128)
+        assert bool(torch.isfinite(g.float()).all())
+        if sm_scale == 0.0 and name != "v":
+            assert not g.float().any() and not r.any()
+        else:
+            assert_rows_close_of_max(g, r, GRAD_TOL_BF16, f"d{name}", causal=causal,
+                                     atol=GRAD_ATOL)
 
 
 F16_CASES = [  # (S, D, causal, sm_scale)
@@ -813,24 +872,53 @@ def test_backward_args_copy_a_strided_or_misaligned_do():
     assert got.is_contiguous() and got.data_ptr() % 16 == 0
 
 
+def _translation_unit(name: str) -> str:
+    """``csrc/<name>.cu`` and every ``csrc/*.cuh`` it includes, directly or
+    through another header: what nvcc compiles for it."""
+    import re
+
+    from sitewhere_tpu_torch import cuda_build
+
+    seen, text, todo = set(), [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.add(f)
+        body = (cuda_build.CSRC / f).read_text()
+        text.append(body)
+        todo += re.findall(r'#include "([^"]+\.cuh)"', body)
+    return "\n".join(text)
+
+
 def test_backward_kernel_source_is_plain_c_for_sm90a():
     from sitewhere_tpu_torch import cuda_build
 
-    src = (cuda_build.CSRC / "flash_attention_bwd.cu").read_text()
+    src = _translation_unit("flash_attention_bwd")
     assert 'extern "C" int swtpu_flash_attention_bwd(' in src
     assert '#include "flash_common.cuh"' in src
     assert "torch/extension.h" not in src
-    # bfloat16 at D <= 64 takes one pass on Hopper's wgmma and TMA; mma.sync
-    # kernels serve only float16 and D = 128 (takes_wgmma decides), and no
-    # atomic add decides an order (the bitwise check is on the card:
-    # test_cuda_backward_kernel_is_bitwise_deterministic)
+    # bfloat16 at every instantiated head dim takes one pass on Hopper's
+    # wgmma and TMA; the mma.sync kernels serve only float16 (takes_wgmma
+    # decides), and no atomic add decides an order (the bitwise check is on
+    # the card: test_cuda_backward_kernel_is_bitwise_deterministic)
     assert "wgmma.mma_async" in src and "cp.async.bulk.tensor" in src
-    assert "bool takes_wgmma(int dtype, int d) { return dtype == 1 && d <= 64; }" in src
+    assert "bool takes_wgmma(int dtype, int d) { return dtype == 1 && d <= 128; }" in src
     assert "mma_bf16(" not in src
     assert "atomicAdd" not in src and "red.global.add" not in src
     assert 'extern "C" int64_t swtpu_flash_attention_bwd_scratch_bytes(' in src
     fwd = (cuda_build.CSRC / "flash_attention.cu").read_text()
     assert "float* lse" in fwd
+
+
+def test_forward_kernel_source_takes_wgmma_and_tma_at_d128():
+    """bf16 at D = 128 takes the warp-specialised forward on wgmma and TMA
+    (the tensor maps and the wrappers shared with the backward)."""
+    src = _translation_unit("flash_attention")
+    assert "wgmma.mma_async" in src and "cp.async.bulk.tensor" in src
+    assert "flash_attention_wgmma_kernel" in src
+    assert "std::is_same_v<T, __nv_bfloat16> && D == 128" in src
+    assert "atomicAdd" not in src and "torch/extension.h" not in src
 
 
 def test_kernel_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
