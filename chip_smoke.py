@@ -13,9 +13,10 @@ Phases, each printed as one JSON line:
              zero-padded, D = 128, float16 at D = 8, 32, 48, 128, the
              forward, its lse and the backward row by row against the
              plain versions, then both timed against SDPA at
-             [8, 16384, 2, 128] bf16 (the wgmma/TMA kernels) and at
-             [8, 16384, 8, 32] float16 with their floors and ptxas's
-             registers and spills;
+             [8, 16384, 2, 128] bf16 and float16 (the wgmma/TMA
+             kernels), at [8, 16384, 8, 32] float16 and, in bf16, at
+             [8, 16384, 16, 16] and [8, 16384, 4, 64], with their floors
+             and ptxas's registers and spills;
              flash_attention_backward's record also checks the
              forward's log-sum-exp and that two calls give the same bits,
              and gives ptxas's registers and spills, the kernel's time over
@@ -115,14 +116,18 @@ Phases, each printed as one JSON line:
              ``ring_attention_sharded`` in a one-rank NCCL group against the
              single-device path (one card cannot show the ring across
              ranks; 4 gloo ranks in the CPU tests do).
-7b. transformer_c6 — the four C6 configurations
+7b. transformer_c6 — the five C6 configurations
              (``TransformerConfig(d_model=256, heads=2)``, ``heads=32``,
-             ``d_model=384, heads=8``, ``dtype=torch.float16``: head dims
-             128, 8, 48, and 32 in float16) on [2, 4096] windows:
+             ``d_model=384, heads=8``, ``dtype=torch.float16`` and
+             ``d_model=256, heads=2, dtype=torch.float16``: head dims 128,
+             8, 48, and 32 and 128 in float16) on [2, 4096] windows:
              ``forecast_scores`` and one ``make_train_step`` step each,
              every layer's attention and its gradient through the kernels
              (launch counts reset just before and read just after), the
-             first window within TF_SCORE_RTOL of the plain attention. Then
+             first window within TF_SCORE_RTOL of the plain attention; the
+             float16 ones profiled once more, the attention kernels by
+             name (the one-pass wgmma/TMA backward, at D = 128 the
+             wgmma/TMA forward, no mma.sync backward). Then
              the head-dim-128 model at full width (8 windows of 16384
              steps): one timed ``forecast_scores`` call and one timed train
              step (launch counts reset before the one and read after the
@@ -508,24 +513,25 @@ def flash_backward_floors_ms(b: int, s: int, h: int, d: int, causal: bool,
 def ptxas_resources(text: str, prefix: str = "flash_bwd") -> dict:
     """Registers and spill bytes of each entry function whose name starts
     with ``prefix``, from ``ptxas -v`` output (``cuda_build.build_info``):
-    ``{"flash_bwd_bf16_kernel<32>": {"registers": 168, "spill_stores": 0,
+    ``{"flash_bwd_kernel<bf16,32>": {"registers": 168, "spill_stores": 0,
     "spill_loads": 0}, ...}``; bf16 / f16 / f32 in the name where the
-    kernel is templated on the type."""
+    kernel is templated on the type, the head dim where it is templated on
+    that."""
     out, name = {}, None
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"\d+(%s\w*?_kernel)(?:I(.*)EEv|E)" % prefix, m.group(1))
+            k = re.search(r"\d+(%s\w*?_kernel)(?:I(.*?)Ev|E)" % prefix, m.group(1))
             name = None
             if k and k.group(2) is None:      # not a template: its name alone
                 name = k.group(1)
                 out[name] = {}
             elif k:
                 d = re.search(r"Li(\d+)E", k.group(2))
-                t = ("bf16," if "bfloat16" in k.group(2)
-                     else "f16," if "__half" in k.group(2)
-                     else "f32," if k.group(2).startswith("f") else "")
-                name = f"{k.group(1)}<{t}{d.group(1) if d else '?'}>"
+                t = ("bf16" if "bfloat16" in k.group(2)
+                     else "f16" if "__half" in k.group(2)
+                     else "f32" if k.group(2).startswith("f") else "")
+                name = f"{k.group(1)}<{','.join(x for x in (t, d and d.group(1)) if x)}>"
                 out[name] = {}
             continue
         if name is None:
@@ -546,12 +552,25 @@ def fused_qkv(b: int, s: int, h: int, d: int, dtype, device, gen):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
+PLAIN_HEADS = 8     # heads the plain versions take at once, one window at a time
+
+
+def _plain_parts(b: int, h: int):
+    """(window, head slice) pairs that cover [B, ., H]: one window and at
+    most PLAIN_HEADS heads a part (heads are independent), so that a part's
+    [1, PLAIN_HEADS, S, S] float32 scores stay at 8.6 GB at S = 16384."""
+    return [(slice(i, i + 1), slice(h0, min(h0 + PLAIN_HEADS, h)))
+            for i in range(b) for h0 in range(0, h, PLAIN_HEADS)]
+
+
 def plain_per_window(q, k, v, causal: bool, sm_scale: float | None = None) -> torch.Tensor:
-    """The plain version one window at a time: at S=16384 its whole-batch
-    [8, 8, S, S] float32 scores would need 69 GB."""
-    return torch.cat([fa.mha_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1],
-                                       causal=causal, sm_scale=sm_scale)
-                      for i in range(q.shape[0])])
+    """The plain version one window (and up to PLAIN_HEADS heads) at a time:
+    at S=16384 its whole-batch [8, 8, S, S] float32 scores would need 69 GB."""
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for w, hs in _plain_parts(q.shape[0], q.shape[2]):
+        out[w, :, hs] = fa.mha_reference(q[w, :, hs], k[w, :, hs], v[w, :, hs],
+                                         causal=causal, sm_scale=sm_scale)
+    return out
 
 
 # ------------------------------------------------------------------ phases
@@ -701,17 +720,24 @@ def phase_kernel_flash(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 8, 32),
 
 def plain_backward_per_window(q, k, v, o, do, lse, causal: bool,
                               sm_scale: float | None = None) -> tuple:
-    """The plain backward one window at a time: at S = 16384 a window's P,
-    dP and dS are 8.6 GB each in float32."""
-    parts = [fa.mha_backward_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1], o[i:i + 1],
-                                       do[i:i + 1], lse[i:i + 1], causal=causal,
-                                       sm_scale=sm_scale) for i in range(q.shape[0])]
-    return tuple(torch.cat(g) for g in zip(*parts))
+    """The plain backward one window (and up to PLAIN_HEADS heads) at a
+    time: at S = 16384 a part's P, dP and dS are 8.6 GB each in float32."""
+    grads = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    for w, hs in _plain_parts(q.shape[0], q.shape[2]):
+        part = fa.mha_backward_reference(q[w, :, hs], k[w, :, hs], v[w, :, hs], o[w, :, hs],
+                                         do[w, :, hs], lse[w, hs].contiguous(),
+                                         causal=causal, sm_scale=sm_scale)
+        for g, x in zip(grads, part):
+            g[w, :, hs] = x
+    return grads
 
 
 def lse_per_window(q, k, causal: bool, sm_scale: float | None = None) -> torch.Tensor:
-    return torch.cat([fa.lse_reference(q[i:i + 1], k[i:i + 1], causal=causal,
-                                       sm_scale=sm_scale) for i in range(q.shape[0])])
+    out = torch.empty((q.shape[0], q.shape[2], q.shape[1]), device=q.device)
+    for w, hs in _plain_parts(q.shape[0], q.shape[2]):
+        out[w, hs] = fa.lse_reference(q[w, :, hs], k[w, :, hs], causal=causal,
+                                      sm_scale=sm_scale)
+    return out
 
 
 def phase_kernel_flash_backward(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 8, 32),
@@ -861,10 +887,14 @@ def phase_kernel_flash_backward(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 
 
 # the head dims and the type of fault C6: D between the instantiated 16,
 # 32, 64, 128 runs zero-padded, D = 128 has its own instantiations, and
-# float16 its own kernels; the timed shapes are the d_model=256, heads=2
-# model's ([8, 16384, 2, 128] bf16) and the default model's in float16
+# float16 its own kernels; the checked and timed shapes are the
+# d_model=256, heads=2 model's ([8, 16384, 2, 128], bf16 and float16) and
+# the default model's in float16 ([8, 16384, 8, 32])
 C6_MAIN = (TF_WINDOWS, TF_STEPS, 2, 128)
 C6_F16_MAIN = (TF_WINDOWS, TF_STEPS, 8, 32)
+# timed only, at the windows and steps of C6_MAIN: the default model's
+# width (d_model 256) at D = 16 and D = 64, bf16
+C6_TIMED_HEADS = {"d16_bf16": (16, 16), "d64_bf16": (4, 64)}
 
 
 def _c6_cases(device, gen) -> dict:
@@ -977,20 +1007,23 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
     """The attention at every head dim and in float16 (fault C6): the
     forward, its ``lse`` and the backward against their plain versions at
     D = 8, 48 and 100 (zero-padded to 16, 64 and 128), D = 128 (its own
-    instantiations) in bf16 and float32, float16 at D = 8, 32, 48 and 128
-    (the float16 forward kernel and the mma.sync backward), causal and
-    not, S = 1 and a ragged S, contiguous inputs, a negative and a zero
-    scale, and D = 8 and 48 at the transformer_c6 shapes; each gradient
-    row within GRAD_TOL of its largest element (bf16: or GRAD_ARITH_MARGIN
-    times bf16's own arithmetic on the case, whichever is larger; float16:
-    its subnormal step off, and the bf16-rounded control must fail). Then
-    times the forward and the backward against SDPA at the d_model=256,
-    heads=2 model's shape [8, 16384, 2, 128] bf16 causal and at the
-    default model's shape in float16, with the floors and ptxas's
-    registers and spills of every D = 128 and float16 kernel."""
+    instantiations) in bf16 and float32, float16 at D = 8, 32, 48 and 128,
+    causal and not, S = 1 and a ragged S, contiguous inputs, a negative
+    and a zero scale, and D = 8 and 48 at the transformer_c6 shapes; each
+    gradient row within GRAD_TOL of its largest element (bf16: or
+    GRAD_ARITH_MARGIN times bf16's own arithmetic on the case, whichever is
+    larger; float16: its subnormal step off, and the bf16-rounded control
+    must fail); two backward calls give the same bits at the main shapes.
+    Then times the forward and the backward against SDPA, causal, at the
+    d_model=256, heads=2 model's shape ``main`` in bf16 and float16, at the
+    default model's shape in float16 (``f16_main``) and, in bf16, at the
+    default model's width with D = 16 and 64 (``C6_TIMED_HEADS`` at
+    ``main``'s windows and steps), with the floors, and ptxas's registers
+    and spills of every D = 128 and float16 kernel."""
     gen = torch.Generator(device=device).manual_seed(5)
     cases = _c6_cases(device, gen)
     cases["main_d128_bf16"] = (fused_qkv(*main, torch.bfloat16, device, gen), True, None)
+    cases["main_d128_f16"] = (fused_qkv(*main, torch.float16, device, gen), True, None)
     cases["main_f16"] = (fused_qkv(*f16_main, torch.float16, device, gen), True, None)
     errs, launches = {}, {"flash_attention": 0, "flash_attention_backward": 0}
     saved = {}
@@ -1001,7 +1034,7 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
         o, lse = fa.flash_attention_forward(q, k, v, causal=causal, sm_scale=scale)
         grads = fa.flash_attention_backward(q, k, v, o, do, lse, causal=causal,
                                             sm_scale=scale)
-        torch.cuda.synchronize()
+        _sync(device)
         launches["flash_attention"] += fa.flash_attention.launches - f0
         launches["flash_attention_backward"] += fa.flash_attention_backward.launches - b0
         fails.check((fa.flash_attention.launches - f0,
@@ -1074,11 +1107,17 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
         errs[name] = e
         del grads, ref, o, lse
     timings = {name: _c6_timings(*saved[name][:4], saved[name][4], device, reps)
-               for name in ("main_d128_bf16", "main_f16")}
+               for name in ("main_d128_bf16", "main_d128_f16", "main_f16")}
+    for name, (h, d) in C6_TIMED_HEADS.items():
+        q, k, v = fused_qkv(main[0], main[1], h, d, torch.bfloat16, device, gen)
+        do = torch.randn(q.shape, device=device, generator=gen).to(q.dtype)
+        timings[name] = _c6_timings(q, k, v, do, True, device, reps)
+        del q, k, v, do
     ptxas = {**ptxas_resources(cuda_build.build_info.get(fa.KERNEL, {}).get("ptxas", ""),
                                prefix="flash_attention"),
              **ptxas_resources(cuda_build.build_info.get(fa.BWD_KERNEL, {}).get("ptxas", ""))}
-    ptxas = {k: v for k, v in ptxas.items() if "f16," in k or "128>" in k or "wgmma" in k}
+    ptxas = {k: v for k, v in ptxas.items() if "f16" in k.replace("bf16", "") or "128>" in k
+             or "wgmma" in k}
     # each type's worst output error and gradient row, and float16's control
     by_dtype = {}
     for name, e in errs.items():
@@ -4130,28 +4169,58 @@ def phase_sharded(device, log, fails, seed: int, config: dict = SHARDED_CONFIG,
 
 
 # the transformer configurations of fault C6 (head dims 128, 8 and 48, and
-# float16), each scored and trained one step on the card
+# float16 at D = 32 and 128), each scored and trained one step on the card
 TF_C6_CONFIGS = {"d128": TransformerConfig(d_model=256, heads=2),
                  "d8": TransformerConfig(heads=32),
                  "d48": TransformerConfig(d_model=384, heads=8),
-                 "f16": TransformerConfig(dtype=torch.float16)}
+                 "f16": TransformerConfig(dtype=torch.float16),
+                 "f16_d128": TransformerConfig(d_model=256, heads=2, dtype=torch.float16)}
 TF_C6_SHAPE = (2, 4096)
 # the full-width leg of transformer_c6: the head-dim-128 model on the
 # transformer phase's 8 windows of 16384 steps
 TF_C6_FULL = ("d128", (TF_WINDOWS, TF_STEPS))
-# the kernels each (dtype, D) of that leg must take on the card: bf16 at
-# D = 128 runs the wgmma/TMA forward and one-pass backward, never the
-# mma.sync kernels (the forward's flash_attention_bf16_kernel, the
-# backward's dK/dV and dQ pair)
-TF_C6_FULL_KERNELS = ("flash_attention_wgmma_kernel", "flash_bwd_bf16_kernel")
-TF_C6_FULL_NOT = ("flash_attention_bf16_kernel", "flash_bwd_dkdv_mma_kernel",
-                  "flash_bwd_dq_mma_kernel")
+# the attention kernels a config must take on the card, by profiler name:
+# (kernel, its type argument, its head dim or None); and the names none may
+# take. Both 16-bit types run the one-pass wgmma/TMA backward at every D
+# and the wgmma/TMA forward at D = 128 (the mma.sync forward below it);
+# the mma.sync backward pair that float16 ran before is gone
+TF_C6_TAKES = {
+    "d128": (("flash_attention_wgmma_kernel", "__nv_bfloat16", None),
+             ("flash_bwd_wgmma_kernel", "__nv_bfloat16", 128)),
+    "f16": (("flash_attention_bf16_kernel", "__half", 32),
+            ("flash_bwd_wgmma_kernel", "__half", 32)),
+    "f16_d128": (("flash_attention_wgmma_kernel", "__half", None),
+                 ("flash_bwd_wgmma_kernel", "__half", 128)),
+}
+TF_C6_NOT = {"d128": ("flash_attention_bf16_kernel", "flash_bwd_dkdv_mma_kernel",
+                      "flash_bwd_dq_mma_kernel"),
+             "f16": ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel"),
+             "f16_d128": ("flash_attention_bf16_kernel", "flash_bwd_dkdv_mma_kernel",
+                          "flash_bwd_dq_mma_kernel")}
+
+
+def _kernel_name(key: str) -> str | None:
+    """The attention kernel a profiler key names, with its template
+    arguments as the demangler writes them (``flash_bwd_wgmma_kernel<__half,
+    32>``; a mangled name is read into that form), or None."""
+    m = re.search(r"(flash\w*?_kernel)(<[^>]*>)?", key)
+    if m is None:
+        return None
+    base = m.group(1)[m.group(1).rfind("flash"):]   # past a mangled namespace's name
+    if m.group(2) or not key[m.end():].startswith("I"):
+        return base + (m.group(2) or "")
+    rest = key[m.end():]
+    t = ("__half" if rest.startswith("I6__half") else "__nv_bfloat16"
+         if rest.startswith("I13__nv_bfloat16") else "float" if rest.startswith("If") else "")
+    d = re.match(r"I\w*?Li(\d+)E", rest)
+    return f"{base}<{', '.join(x for x in (t, d and d.group(1)) if x)}>"
 
 
 def _profiled_attention(fn) -> dict:
     """torch.profiler over one call of ``fn``: wall ms, device ms, the
     device's busy share, and each attention kernel that ran (by its name
-    in the source) with its calls and device ms."""
+    in the source with its template arguments, e.g.
+    ``flash_bwd_wgmma_kernel<__half, 32>``) with its calls and device ms."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
@@ -4163,14 +4232,27 @@ def _profiled_attention(fn) -> dict:
     _, busy_ms = _device_time(prof)
     kernels: dict[str, dict] = {}
     for e in prof.key_averages():
-        m = re.search(r"(flash\w*_kernel)", e.key)
-        if (m and e.device_type == torch.autograd.DeviceType.CUDA
+        name = _kernel_name(e.key)
+        if (name and e.device_type == torch.autograd.DeviceType.CUDA
                 and e.self_device_time_total > 0):
-            k = kernels.setdefault(m.group(1), {"calls": 0, "device_ms": 0.0})
+            k = kernels.setdefault(name, {"calls": 0, "device_ms": 0.0})
             k["calls"] += e.count
             k["device_ms"] += e.self_device_time_total / 1e3
     return {"profiled_wall_ms": wall_ms, "device_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms, "attention_kernels": kernels}
+
+
+def _takes(ran, name: str) -> tuple[bool, list]:
+    """Whether the attention kernels ``ran`` (profiler names) hold every
+    kernel ``TF_C6_TAKES[name]`` wants and none of ``TF_C6_NOT[name]``;
+    and what was missing or should not have run."""
+    parsed = [re.match(r"(\w+)(?:<(.*)>)?$", k).groups() for k in ran]
+    bad = [want for want in TF_C6_TAKES[name]
+           if not any(base == want[0] and want[1] in (args or "")
+                      and (want[2] is None or str(want[2]) in re.split(r"[ ,]+", args or ""))
+                      for base, args in parsed)]
+    bad += [base for base, _ in parsed if base in TF_C6_NOT[name]]
+    return not bad, bad
 
 
 def _c6_full_width(device, fails, seed: int, name: str, cfg: TransformerConfig,
@@ -4180,8 +4262,8 @@ def _c6_full_width(device, fails, seed: int, name: str, cfg: TransformerConfig,
     same shape, the launch counts reset just before the scoring call and
     read just after the step (2 x layers forward, layers backward), then
     one profiled call of each: busy share and the attention kernels by
-    name, which must be ``TF_C6_FULL_KERNELS`` and none of
-    ``TF_C6_FULL_NOT``."""
+    name, which must be those of ``TF_C6_TAKES`` and none of
+    ``TF_C6_NOT``."""
     from sitewhere_tpu_torch.models.anomaly import adamw
     from sitewhere_tpu_torch.models.transformer import make_train_step
 
@@ -4221,10 +4303,9 @@ def _c6_full_width(device, fails, seed: int, name: str, cfg: TransformerConfig,
         rec["step_profile"] = _profiled_attention(lambda: step(x))
         ran = set(rec["score_profile"]["attention_kernels"]) | set(
             rec["step_profile"]["attention_kernels"])
-        fails.check(all(k in ran for k in TF_C6_FULL_KERNELS)
-                    and not any(k in ran for k in TF_C6_FULL_NOT),
-                    f"transformer C6 {name} at {shape}: attention kernels {sorted(ran)}, "
-                    f"want {TF_C6_FULL_KERNELS} and none of {TF_C6_FULL_NOT}")
+        ok, bad = _takes(ran, name)
+        fails.check(ok, f"transformer C6 {name} at {shape}: attention kernels {sorted(ran)}, "
+                        f"wrong: {bad}")
     del model, step, x
     return rec
 
@@ -4237,8 +4318,12 @@ def phase_transformer_c6(device, log, fails, seed: int, configs=None,
     reset just before and read just after: layers each), scores finite and
     the first window's within TF_SCORE_RTOL of the same model with the
     plain attention, the loss finite and every parameter finite after the
-    step. Then ``full`` (a config name and a shape, or None): that config
-    timed at full width (``_c6_full_width``)."""
+    step; for the float16 configs one profiled scoring call and train step
+    more, whose attention kernels by profiler name must be those of
+    ``TF_C6_TAKES`` (the one-pass wgmma/TMA backward, at D = 128 the
+    wgmma/TMA forward) and none of ``TF_C6_NOT``. Then ``full`` (a config
+    name and a shape, or None): that config timed at full width
+    (``_c6_full_width``)."""
     from sitewhere_tpu_torch.models.anomaly import adamw
     from sitewhere_tpu_torch.models.transformer import make_train_step
 
@@ -4289,6 +4374,13 @@ def phase_transformer_c6(device, log, fails, seed: int, configs=None,
         fails.check(rec["score_rel_err_vs_plain"] <= TF_SCORE_RTOL,
                     f"transformer C6 {name}: kernel score {again[0].item()} vs plain "
                     f"{plain[0].item()}")
+        if cfg.dtype == torch.float16 and device.type == "cuda":
+            ran = set(_profiled_attention(lambda: forecast_scores(model, x))["attention_kernels"])
+            ran |= set(_profiled_attention(lambda: step(x))["attention_kernels"])
+            ok, bad = _takes(ran, name)
+            rec["attention_kernels"] = sorted(ran)
+            fails.check(ok, f"transformer C6 {name}: attention kernels {sorted(ran)}, "
+                            f"wrong: {bad}")
         out[name] = rec
         del model, step, x
     full_rec = None
@@ -4345,6 +4437,9 @@ def main(argv=None) -> int:
     for name, part in (("flash_attention", "forward"), ("flash_attention_backward", "backward")):
         timing[name]["at_head_dim_128_bf16"] = c6["timings"]["main_d128_bf16"][part]
         timing[name]["float16"] = c6["timings"]["main_f16"][part]
+        timing[name]["float16_at_head_dim_128"] = c6["timings"]["main_d128_f16"][part]
+        timing[name]["at_head_dim_16_bf16"] = c6["timings"]["d16_bf16"][part]
+        timing[name]["at_head_dim_64_bf16"] = c6["timings"]["d64_bf16"][part]
     timing["flash_attention_backward"]["c6_errors_by_dtype"] = c6["by_dtype"]
     timing["flash_attention_backward"]["ptxas_d128_f16"] = {
         k: v for k, v in c6["ptxas"].items() if k.startswith("flash_bwd")}

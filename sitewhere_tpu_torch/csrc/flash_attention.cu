@@ -14,14 +14,14 @@
 //
 // Three kernels, chosen by dtype and head dim in swtpu_flash_attention:
 //
-// * bfloat16 at D = 128: FA3's forward on wgmma and TMA, warp-specialised
-//   (flash_attention_wgmma_kernel below; the note there). At this width the
-//   products bind (at [8, 16384, 2, 128] causal 1.112 ms of products
-//   against 0.51 ms of exponentials), and only wgmma reaches the tensor
-//   cores' full rate.
-// * bfloat16 up to D = 64 (the transformer's path) and float16 at every D
-//   (the same kernel on float16 fragments and the float16 mma): tensor
-//   cores, FA2-style on mma.sync. Up to D = 64 a block of
+// * bfloat16 and float16 at D = 128: FA3's forward on wgmma and TMA,
+//   warp-specialised (flash_attention_wgmma_kernel<T> below; the note
+//   there). At this width the products bind (at [8, 16384, 2, 128] causal
+//   1.112 ms of products against 0.51 ms of exponentials), and only wgmma
+//   reaches the tensor cores' full rate.
+// * bfloat16 and float16 up to D = 64 (bf16 is the transformer's path; the
+//   same kernel on float16 fragments and the float16 mma): tensor cores,
+//   FA2-style on mma.sync. A block of
 //   4 warps owns 128 query rows, 32 per warp as two m16 row tiles that
 //   share every K and V fragment the warp reads from shared memory (with
 //   16 rows a warp, shared-memory reads per score matched the exponential
@@ -47,10 +47,6 @@
 //   P V mma (the m16n8 accumulator layout is the m16n8k16 A layout), with V
 //   fragments from ldmatrix.x4.trans: P never goes through shared memory.
 //   The output goes out through shared memory as 16-byte stores.
-//   At D = 128 (float16 only) the Q fragments (64 registers beside O's
-//   128) are read from a shared Q tile of the block's 128 rows each key
-//   tile, as FA2 does at that width, and the ring and the Q tile live in
-//   dynamic shared memory.
 // * float32: one thread per query row on the CUDA cores, float32 products,
 //   K/V tiles of 32 keys in shared memory. Tensor cores would mean TF32
 //   (about 3 decimal digits), which the float32 contract (1e-5) does not
@@ -211,30 +207,20 @@ constexpr int kPad = 8;                        // 16-bit elements of padding a s
 
 template <int D>
 struct Bf16Tile {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  // two m16 row tiles a warp share every K/V fragment; up to D = 64 Q
-  // stays in registers as A fragments, at D = 128 (64 registers of them
-  // beside 128 of O) it is read from a shared tile each key tile, as FA2
-  // does at that width
+  static_assert(D % 16 == 0 && D <= 64, "D must be 16, 32 or 64");
+  // two m16 row tiles a warp share every K/V fragment; Q stays in
+  // registers as A fragments
   static constexpr int kMTiles = 2;
-  static constexpr bool kQSmem = D > 64;
   static constexpr int kWarpRows = 16 * kMTiles;
   static constexpr int kBlockM = kWarpRows * kWarps;  // query rows a block
-  // keys a shared-memory tile: 32 at D = 128, where S of 64 keys beside O
-  // and the Q fragments spills
-  static constexpr int kBlockN = D <= 64 ? 64 : 32;
+  static constexpr int kBlockN = 64;               // keys a shared-memory tile
   static constexpr int kRow = D + kPad;            // shared row, elements
   static constexpr int kStages = D == 64 ? 2 : 3;  // cp.async ring depth
-  // past the 48 KB of static shared memory at D = 128 (the ring 52 KB and
-  // the Q tile 34 KB): dynamic there
-  static constexpr bool kDynamicSmem = D > 64;
   static constexpr int kChunks = D / 8;            // 16-byte chunks a row
   static constexpr int kElems = kBlockN * kRow;    // one K or V tile
   static constexpr int kCopies = kBlockN * kChunks;  // 16-byte copies a tile
-  static constexpr int kSmemBytes =
-      (kStages * 2 * kElems + (kQSmem ? kBlockM * kRow : 0)) * 2;
   // blocks an SM must hold: at D <= 32 a cap of 168 registers keeps 3 (12
-  // warps); at D >= 64 that cap spills, so it runs uncapped
+  // warps); at D = 64 that cap spills, so it runs uncapped
   static constexpr int kMinBlocks = D <= 32 ? 3 : 1;
   static_assert(kBlockM <= 2 * kStages * kBlockN, "the output fits the ring");
 };
@@ -262,14 +248,7 @@ flash_attention_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kNT = kBlockN / 8;  // 8-key column tiles of S
   constexpr int kDT = D / 8;        // 8-wide column tiles of O
   // [stage][0: K, 1: V][key][kRow]
-  T (*smem)[2][Tile::kElems];
-  if constexpr (Tile::kDynamicSmem) {
-    extern __shared__ __align__(128) unsigned char flash_smem[];
-    smem = reinterpret_cast<T (*)[2][Tile::kElems]>(flash_smem);
-  } else {
-    __shared__ __align__(128) T smem_static[kStages][2][Tile::kElems];
-    smem = smem_static;
-  }
+  __shared__ __align__(128) T smem[kStages][2][Tile::kElems];
 
   const int bh = blockIdx.x % num_bh;
   const int qt = num_q_tiles - 1 - blockIdx.x / num_bh;
@@ -283,24 +262,9 @@ flash_attention_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + b * vs.b + hd * vs.h;
 
   // Q as A fragments, loaded once (zeros for rows past S); q_sign flips
-  // the sign of both 16-bit halves of each register for a negative scale.
-  // At D = 128 the block's Q tile goes to shared memory instead, in the
-  // first copy group (zeros for rows past S), and its fragments are read
-  // there for each key tile.
-  T* const q_tile = Tile::kQSmem ? &smem[kStages][0][0] : nullptr;
-  uint32_t qf[Tile::kQSmem ? 1 : kMTiles][Tile::kQSmem ? 1 : D / 16][4];
-  if constexpr (Tile::kQSmem) {
-    const T* qb = q + b * qs.b + hd * qs.h;
-#pragma unroll
-    for (int i = 0; i < kBlockM * kChunks / kThreads; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const int r = e / kChunks, c = e % kChunks;
-      const int row = qt * kBlockM + r;
-      const bool valid = row < s;
-      cp_async16(smem_addr(q_tile + r * kRow + c * 8),
-                 qb + static_cast<int64_t>(valid ? row : 0) * qs.s + c * 8, valid);
-    }
-  } else {
+  // the sign of both 16-bit halves of each register for a negative scale
+  uint32_t qf[kMTiles][D / 16][4];
+  {
     const T* qb = q + b * qs.b + hd * qs.h;
 #pragma unroll
     for (int mt = 0; mt < kMTiles; ++mt) {
@@ -376,47 +340,19 @@ flash_attention_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < kNT; ++i)
         sc[mt][i][0] = sc[mt][i][1] = sc[mt][i][2] = sc[mt][i][3] = 0.0f;
-    if constexpr (Tile::kQSmem) {
+#pragma unroll
+    for (int p = 0; p < kNT / 2; ++p) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        // the warp's Q fragments of d 16kk.. (rows 0..7 / 8..15 x d 0..7 /
-        // 8..15 of each m16 tile), each read once a key tile
-        uint32_t qa[kMTiles][4];
+        // matrices: keys 16p + 0..7 / 8..15 x d 16kk + 0..7 / 8..15
+        const int key = 16 * p + (lane & 7) + ((lane >> 4) << 3);
+        const int col = 16 * kk + ((lane >> 3) & 1) * 8;
+        uint32_t bf[4];
+        ldmatrix_x4(smem_addr(kt + key * kRow + col), bf);
 #pragma unroll
         for (int mt = 0; mt < kMTiles; ++mt) {
-          const int row = warp * kWarpRows + 16 * mt + (lane & 7) + ((lane >> 3) & 1) * 8;
-          ldmatrix_x4(smem_addr(q_tile + row * kRow + 16 * kk + (lane >> 4) * 8), qa[mt]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) qa[mt][i] ^= q_sign;
-        }
-#pragma unroll
-        for (int p = 0; p < kNT / 2; ++p) {
-          const int key = 16 * p + (lane & 7) + ((lane >> 4) << 3);
-          const int col = 16 * kk + ((lane >> 3) & 1) * 8;
-          uint32_t bf[4];
-          ldmatrix_x4(smem_addr(kt + key * kRow + col), bf);
-#pragma unroll
-          for (int mt = 0; mt < kMTiles; ++mt) {
-            mma_16816<T>(sc[mt][2 * p], qa[mt], bf[0], bf[1]);
-            mma_16816<T>(sc[mt][2 * p + 1], qa[mt], bf[2], bf[3]);
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int p = 0; p < kNT / 2; ++p) {
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          // matrices: keys 16p + 0..7 / 8..15 x d 16kk + 0..7 / 8..15
-          const int key = 16 * p + (lane & 7) + ((lane >> 4) << 3);
-          const int col = 16 * kk + ((lane >> 3) & 1) * 8;
-          uint32_t bf[4];
-          ldmatrix_x4(smem_addr(kt + key * kRow + col), bf);
-#pragma unroll
-          for (int mt = 0; mt < kMTiles; ++mt) {
-            mma_16816<T>(sc[mt][2 * p], qf[mt][kk], bf[0], bf[1]);
-            mma_16816<T>(sc[mt][2 * p + 1], qf[mt][kk], bf[2], bf[3]);
-          }
+          mma_16816<T>(sc[mt][2 * p], qf[mt][kk], bf[0], bf[1]);
+          mma_16816<T>(sc[mt][2 * p + 1], qf[mt][kk], bf[2], bf[3]);
         }
       }
     }
@@ -534,7 +470,7 @@ flash_attention_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------- bfloat16 at D = 128: wgmma
+// ------------------------------------- bfloat16 and float16 at D = 128: wgmma
 
 // FA3's forward, kept simple: warp-specialised, wgmma and TMA. A block owns
 // (batch, head, 128 query rows): compute warpgroups 0 and 1 take 64 rows
@@ -546,10 +482,11 @@ flash_attention_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
 //   8 k16 steps over Q's and K's two d-boxes, K-major);
 // * the online softmax in registers, the scale folded into one FMA before
 //   ex2.approx as in the mma.sync kernel (c > 0: a negative scale negates
-//   the warpgroup's Q tile in shared memory once, bf16 negation being
-//   exact; a zero scale runs as the smallest normal float);
-// * O += P V by wgmma with P, rounded to bf16, as the register A operand
-//   (64 registers of O) and V MN-major across its two d-boxes.
+//   the warpgroup's Q tile in shared memory once, negation of a 16-bit
+//   float being exact; a zero scale runs as the smallest normal float);
+// * O += P V by wgmma with P, rounded to T (bf16 or fp16: P <= 1, as in
+//   the mma.sync kernel), as the register A operand (64 registers of O)
+//   and V MN-major across its two d-boxes.
 // Under a causal mask the key tiles past the block's last row are never
 // loaded and the diagonal tile is masked per element; so is the ragged last
 // key tile (TMA zero-fills keys and rows past S; padded rows are never
@@ -563,7 +500,7 @@ constexpr int kFwdComputeRegs = 232;
 constexpr int kFwdProducerRegs = 40;
 
 struct FwdSmem {  // D = 128; byte offsets from a 1024-byte aligned base
-  static constexpr int kRowB = 128;                  // a d-box row: 64 bf16
+  static constexpr int kRowB = 128;                  // a d-box row: 64 elements
   static constexpr int kQBox = 64 * kRowB;           // a d-box of a warpgroup's rows
   static constexpr int kKVBox = kFwdBN * kRowB;      // a d-box of a K or V tile
   static constexpr int kKVTile = 2 * kKVBox;
@@ -575,11 +512,12 @@ struct FwdSmem {  // D = 128; byte offsets from a 1024-byte aligned base
   static_assert(kBytes + 1024 <= 232448, "past the 227 KB a block may take");
 };
 
+template <typename T>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v,
-                             __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                             T* __restrict__ out, float* __restrict__ lse,
                              int s, int h, int num_q_tiles, int num_bh, float scale_log2e,
                              int q_neg, int causal) {
   using L = FwdSmem;
@@ -682,7 +620,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)
-        Wgmma<128>::ss<0, 0>(
+        Wgmma<128>::ss<0, 0, T>(
             sc, smem_desc(q_tile + (kk >> 2) * L::kQBox + (kk & 3) * 32, 16, kSbo, 1),
             smem_desc(k_tile + (kk >> 2) * L::kKVBox + (kk & 3) * 32, 16, kSbo, 1), kk);
       wgmma_commit();
@@ -728,8 +666,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const float p3 = exp2_approx(fmaf(sc[4 * jj + 3], scale_log2e, -mc[1]));
         rs[0] += p0 + p1;
         rs[1] += p2 + p3;
-        pa[jj / 2][(jj & 1) * 2] = pack_bf16(p0, p1);
-        pa[jj / 2][(jj & 1) * 2 + 1] = pack_bf16(p2, p3);
+        pa[jj / 2][(jj & 1) * 2] = pack2<T>(p0, p1);
+        pa[jj / 2][(jj & 1) * 2 + 1] = pack2<T>(p2, p3);
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
@@ -745,8 +683,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)
-        Wgmma<128>::rs<1>(o, pa[kk], smem_desc(v_tile + kk * 16 * L::kRowB, L::kKVBox, kSbo, 1),
-                          1);
+        Wgmma<128>::rs<1, T>(o, pa[kk],
+                             smem_desc(v_tile + kk * 16 * L::kRowB, L::kKVBox, kSbo, 1), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -775,7 +713,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < 16; ++i)
         *reinterpret_cast<uint32_t*>(q_mem + srow * 256 + (8 * i + 2 * t) * 2) =
-            pack_bf16(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+            pack2<T>(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
     }
     named_sync(1 + wg, 128);
 #pragma unroll
@@ -790,26 +728,27 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// the wgmma kernel for bf16 at D = 128
+// the wgmma kernel for T (bf16 or fp16) at D = 128
+template <typename T>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                          int b, int s, int h, int num_bh, Strides qs, Strides ks,
                          Strides vs, float scale_log2e, int causal, cudaStream_t stream) {
   const int64_t num_q_tiles = (static_cast<int64_t>(s) + kFwdBM - 1) / kFwdBM;
   if (num_q_tiles * num_bh > INT32_MAX) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!tensor_map(&tm_q, q, b, s, h, 128, qs, 64) ||
-      !tensor_map(&tm_k, k, b, s, h, 128, ks, kFwdBN) ||
-      !tensor_map(&tm_v, v, b, s, h, 128, vs, kFwdBN))
+  if (!tensor_map<T>(&tm_q, q, b, s, h, 128, qs, 64) ||
+      !tensor_map<T>(&tm_k, k, b, s, h, 128, ks, kFwdBN) ||
+      !tensor_map<T>(&tm_v, v, b, s, h, 128, vs, kFwdBN))
     return cudaErrorInvalidValue;
   const int smem = FwdSmem::kBytes + 1024;  // + the 1024-byte alignment
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_attention_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   // the kernel's scale must be > 0 (as the mma.sync kernel's)
   const float c = scale_log2e == 0.0f ? FLT_MIN : fabsf(scale_log2e);
-  flash_attention_wgmma_kernel<<<static_cast<unsigned>(num_q_tiles * num_bh), kFwdThreads,
-                                 smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), lse, s, h,
+  flash_attention_wgmma_kernel<T><<<static_cast<unsigned>(num_q_tiles * num_bh), kFwdThreads,
+                                    smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<T*>(out), lse, s, h,
       static_cast<int>(num_q_tiles), num_bh, c, scale_log2e < 0.0f ? 1 : 0, causal);
   return cudaGetLastError();
 }
@@ -821,39 +760,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int b, int s, int h, int num_bh, Strides qs, Strides ks,
                    Strides vs, float scale_log2e, int causal,
                    cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && D == 128) {
-    return launch_wgmma(q, k, v, out, lse, b, s, h, num_bh, qs, ks, vs, scale_log2e, causal,
-                        stream);
-  } else {
-    constexpr bool k16 = sizeof(T) == 2;
-    constexpr int block_q = k16 ? Bf16Tile<D>::kBlockM : kF32BlockQ;
-    const int64_t num_q_tiles = (static_cast<int64_t>(s) + block_q - 1) / block_q;
+  if constexpr (sizeof(T) == 2 && D == 128) {  // bf16 and fp16 at D = 128
+    return launch_wgmma<T>(q, k, v, out, lse, b, s, h, num_bh, qs, ks, vs, scale_log2e, causal,
+                           stream);
+  } else if constexpr (sizeof(T) == 2) {
+    const int64_t num_q_tiles =
+        (static_cast<int64_t>(s) + Bf16Tile<D>::kBlockM - 1) / Bf16Tile<D>::kBlockM;
     if (num_q_tiles * num_bh > INT32_MAX) return cudaErrorInvalidValue;
-    const unsigned blocks = static_cast<unsigned>(num_q_tiles * num_bh);
-    if constexpr (k16) {
-      // the kernel's scale must be > 0 (see the note at the top)
-      const uint32_t q_sign = scale_log2e < 0.0f ? 0x80008000u : 0u;
-      const float c = scale_log2e == 0.0f ? FLT_MIN : fabsf(scale_log2e);
-      using Tile = Bf16Tile<D>;
-      int smem = 0;
-      if constexpr (Tile::kDynamicSmem) {
-        smem = Tile::kSmemBytes;
-        const cudaError_t err = cudaFuncSetAttribute(
-            flash_attention_bf16_kernel<T, D>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return err;
-      }
-      flash_attention_bf16_kernel<T, D><<<blocks, kThreads, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), lse, s, h,
-          static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, c, q_sign, causal);
-    } else {
-      flash_attention_f32_kernel<D><<<blocks, kF32BlockQ, 0, stream>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<float*>(out), lse, s, h,
-          static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, scale_log2e,
-          causal);
-    }
+    // the kernel's scale must be > 0 (see the note at the top)
+    const uint32_t q_sign = scale_log2e < 0.0f ? 0x80008000u : 0u;
+    const float c = scale_log2e == 0.0f ? FLT_MIN : fabsf(scale_log2e);
+    flash_attention_bf16_kernel<T, D><<<static_cast<unsigned>(num_q_tiles * num_bh), kThreads,
+                                        0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), lse, s, h, static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, c,
+        q_sign, causal);
+    return cudaGetLastError();
+  } else {
+    const int64_t num_q_tiles = (static_cast<int64_t>(s) + kF32BlockQ - 1) / kF32BlockQ;
+    if (num_q_tiles * num_bh > INT32_MAX) return cudaErrorInvalidValue;
+    flash_attention_f32_kernel<D><<<static_cast<unsigned>(num_q_tiles * num_bh), kF32BlockQ,
+                                    0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), lse, s, h,
+        static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, scale_log2e, causal);
     return cudaGetLastError();
   }
 }

@@ -17,13 +17,15 @@
 //   dK_j    = scale sum_i dS_ij q_i
 //   dQ_i    = scale sum_j dS_ij k_j
 //
-// * bfloat16 at every head dim (D = 32 on the transformer's path, D = 128
-//   on the d_model=256, heads=2 model's): one pass over the
-//   (query, key) pairs, FA3's backward for Hopper, in three launches on the caller's
-//   stream: a prep pass (delta; lse in base 2; the turn counters zeroed),
-//   the main kernel and a pass that scales the float32 dQ and rounds it to
-//   bf16. A block of the main kernel owns (batch, head, 128 keys) and walks
-//   the 64-row query tiles; its K and V tiles stay in shared memory.
+// * bfloat16 and float16 at every head dim (D = 32 on the transformer's
+//   path, D = 128 on the d_model=256, heads=2 model's): one pass over the
+//   (query, key) pairs, FA3's backward for Hopper, in three launches on the
+//   caller's stream (four in float16, below): a prep pass (delta; lse in
+//   base 2; the turn counters zeroed), the main kernel
+//   (flash_bwd_wgmma_kernel<T, D>) and a pass that scales the float32 dQ
+//   and rounds it to the input type. A block of the main kernel owns
+//   (batch, head, 128 keys) and walks the 64-row query tiles; its K and V
+//   tiles stay in shared memory.
 //   - Warp-specialised: warpgroups 0 and 1 (64 keys each) compute; in
 //     warpgroup 2 one warp issues the TMA loads (cp.async.bulk.tensor of
 //     the Q and dO tiles through 4-d tensor maps that describe the strided
@@ -34,11 +36,11 @@
 //   - Five wgmma products a tile, one exponential a pair: S^T = K Q^T and
 //     dP^T = V dO^T from shared memory; P^T = exp2(S^T scale log2e -
 //     lse2) (ex2.approx, the scale folded into one FMA) and dS^T = P^T
-//     (dP^T - delta) in the accumulator registers, which, rounded to bf16,
-//     are the register A operands of dV += P^T dO and dK += dS^T Q (dO
-//     and Q read transposed from the same tiles); dS^T also goes to shared
-//     memory (128-byte swizzle, written by hand) as the transposed A of
-//     dQ_tile = dS K against the block's own K tile. Causal: the block
+//     (dP^T - delta) in the accumulator registers, which, rounded to the
+//     input type, are the register A operands of dV += P^T dO and dK +=
+//     dS^T Q (dO and Q read transposed from the same tiles); dS^T also goes
+//     to shared memory (128-byte swizzle, written by hand) as the
+//     transposed A of dQ_tile = dS K against the block's own K tile. Causal: the block
 //     starts at the query tile of its first key; the diagonal and the
 //     ragged last key block are masked per element. Masked (query, key)
 //     pairs have P = 0, as the oracle's -1e30 scores give once the
@@ -65,13 +67,31 @@
 //     head), so earlier key blocks are dispatched first, and they have
 //     the most query tiles under a causal mask). A wait that outlasts ~10
 //     s traps instead of hanging the card.
-// * float16 at every head dim: the mma.sync kernels below (MmaBwdTile), a
-//   dK/dV kernel (a block owns 64 keys) and a dQ kernel (a block owns 64
-//   query rows) after the prep pass, each output element summed by one
-//   thread in a fixed order, so bitwise the same from run to run. Their
-//   rows of P^T and dS^T are scaled by a power of two each (RowScale),
-//   which the one-pass kernel's dQ, a sum over a block's keys, could not
-//   undo.
+// * float16 keeps 5 exponent bits: an entry of P or dS below 2^-14 is
+//   subnormal and one below 2^-24 is lost, where bfloat16 keeps float32's
+//   range. So each of the three products that take float16 operands scales
+//   them by powers of two of its own, chosen so that the float32 sums can
+//   take them off exactly:
+//   - dV += P^T dO and dK += dS^T Q: a row of P^T or dS^T is a key's, and
+//     so is the accumulator's row, which the thread holds (rows g and
+//     g + 8 of its warp's 16, as in mma.sync m16n8). RowScale keeps a
+//     power of two a row, lowered as larger entries arrive (the float32
+//     accumulator rescaled by the same power), and the end takes it off.
+//   - dQ_tile = dS K sums over the block's keys, where a key's scale could
+//     not be taken back out; so a query's row of dS is scaled by 2^e_i
+//     fixed before the kernel runs, the same for every key block and both
+//     warpgroups. It commutes with the sum in key-block order: the float32
+//     dQ accumulator stays in scaled units (still bitwise the same run to
+//     run, no extra barrier) and the dQ pass takes 2^-e_i off. e_i comes
+//     from the bound |dS_ij| = P_ij |dO_i . (v_j - o_i)| <= ||dO_i||
+//     (max_j ||v_j|| + ||o_i||): a fourth launch before the prep pass
+//     (flash_bwd_vnorm_kernel) takes the largest norm of v's rows a part
+//     of each (batch, head) (a max, order-free), and the prep pass, which
+//     reads dO_i and o_i anyway, writes 2^e_i with the bound times it
+//     below 2^14 (ops/attention.py f16_dq_scale_exponents is its plain
+//     version). The loose bound (P <= 1) costs nothing measurable: a row's
+//     error stays at one float16 step of its largest element (the CPU
+//     emulation in tests/test_torch_attention.py).
 // * float32: CUDA cores, float32 products (tensor cores would mean TF32,
 //   about 3 decimal digits), two kernels after the prep pass: one thread
 //   per key (dK/dV) or per query (dQ) with its own row and accumulators in
@@ -83,8 +103,8 @@
 // stride on D (the strided views of one fused qkv product); o and dO are
 // contiguous [B, S, H, D]; dq, dk and dv are written contiguous. Any S;
 // head dims 16, 32, 64 and 128. The 16-bit types need 16-byte aligned base
-// pointers and strides that are a multiple of 8 elements (TMA and cp.async
-// take 16-byte strides).
+// pointers and strides that are a multiple of 8 elements (TMA takes
+// 16-byte strides).
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint (no link against libcuda).
 //
@@ -96,6 +116,8 @@
 // (0.16 ms) plus the float32 dQ accumulator's traffic through L2. At
 // [8, 16384, 2, 128] the products take the same 2.78 ms and the
 // exponentials a quarter of it (0.51 ms): the tensor cores set the pace.
+// float16's range costs a few instructions a pair more (the row maxima
+// and the scaled packs) and one pass over v.
 
 #include "hopper_common.cuh"
 
@@ -103,19 +125,82 @@ namespace {
 
 // ------------------------------------------------------------- prep pass
 
+// float16's range (the note at the top): 2^e, e <= 126, with bound 2^e <
+// 2^kDqTop (the largest scaled |dS| then stays below 2^15 < 65504); 1 for
+// a bound that is 0 (its row of dS is 0) or not finite. ops/attention.py
+// F16_DQ_TOP and f16_dq_scale_exponents are the same rule.
+constexpr int kDqTop = 14;
+constexpr int kVRows = 1024;  // rows of v a block of the norm pass takes
+
+__device__ __forceinline__ float pow2(int e) {  // e in [-126, 127]
+  return __int_as_float((e + 127) << 23);
+}
+
+__device__ __forceinline__ float dq_scale_factor(float bound) {
+  if (!(bound > 0.0f) || isinf(bound)) return 1.0f;
+  // bound < 2^x (x of frexp; a subnormal bound takes the clamp)
+  const int x = ((__float_as_int(bound) >> 23) & 0xff) - 126;
+  return pow2(min(kDqTop - x, 126));
+}
+
+// float16 only: v_norms[bh][part] = the largest ||v_j|| over rows j of
+// part (kVRows rows) of each (batch, head); one block a (bh, part)
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_vnorm_kernel(const __half* __restrict__ v, Strides vs, int s, int h, int n_parts,
+                       float* __restrict__ v_norms) {
+  const int bh = blockIdx.x / n_parts;
+  const int part = blockIdx.x - bh * n_parts;
+  const int b = bh / h;
+  const int hd = bh - b * h;
+  const __half* vb = v + b * vs.b + hd * vs.h;
+  const int end = min(s, (part + 1) * kVRows);
+  float mx = 0.0f;  // of the squared norms: a max, in no particular order
+  for (int r = part * kVRows + threadIdx.x; r < end; r += 256) {
+    const uint4* row = reinterpret_cast<const uint4*>(vb + static_cast<int64_t>(r) * vs.s);
+    float n2 = 0.0f;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const uint4 x = __ldg(row + c);
+      const __half2* hx = reinterpret_cast<const __half2*>(&x);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __half22float2(hx[i]);
+        n2 = fmaf(f.x, f.x, fmaf(f.y, f.y, n2));
+      }
+    }
+    mx = fmaxf(mx, n2);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  __shared__ float warp_max[8];
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 1; w < 8; ++w) mx = fmaxf(mx, warp_max[w]);
+    v_norms[blockIdx.x] = sqrtf(mx);
+  }
+}
+
 // delta[bh][i] = sum_d dO[b, i, h, d] O[b, i, h, d] and lse2[bh][i] =
 // lse[bh][i] log2(e), one thread a (b, i, h) row, rows `pitch` apart; then
 // the padded rows i in [s, pitch) of every bh (lse2 = +inf, so P = 0
-// there; delta = 0) and n_turns turn counters set to 0
+// there; delta = 0) and n_turns turn counters set to 0. float16 also
+// writes dq_scale[bh][i] = 2^e_i from ||dO_i||, ||O_i|| and the largest of
+// the bh's n_parts v_norms (1 on the padded rows).
 template <typename T, int D>
 __global__ void flash_bwd_prep_kernel(const T* __restrict__ o,
                                       const T* __restrict__ dout,
                                       const float* __restrict__ lse,
                                       float* __restrict__ delta,
                                       float* __restrict__ lse2,
+                                      float* __restrict__ dq_scale,
+                                      const float* __restrict__ v_norms, int n_parts,
                                       int* __restrict__ turns, int64_t rows,
                                       int s, int h, int pitch,
                                       int64_t pad_rows, int64_t n_turns) {
+  constexpr bool kHalf = std::is_same_v<T, __half>;
   int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= rows) {
     r -= rows;
@@ -124,6 +209,7 @@ __global__ void flash_bwd_prep_kernel(const T* __restrict__ o,
       const int64_t idx = (r / pad) * pitch + s + r % pad;
       delta[idx] = 0.0f;
       lse2[idx] = INFINITY;
+      if constexpr (kHalf) dq_scale[idx] = 1.0f;
     } else if (r - pad_rows < n_turns) {
       turns[r - pad_rows] = 0;
     }
@@ -131,9 +217,16 @@ __global__ void flash_bwd_prep_kernel(const T* __restrict__ o,
   }
   const T* op = o + r * D;
   const T* dp = dout + r * D;
-  float acc = 0.0f;
+  float acc = 0.0f, dn2 = 0.0f, on2 = 0.0f;
 #pragma unroll
-  for (int c = 0; c < D; ++c) acc = fmaf(to_float(op[c]), to_float(dp[c]), acc);
+  for (int c = 0; c < D; ++c) {
+    const float x = to_float(op[c]), y = to_float(dp[c]);
+    acc = fmaf(x, y, acc);
+    if constexpr (kHalf) {
+      dn2 = fmaf(y, y, dn2);
+      on2 = fmaf(x, x, on2);
+    }
+  }
   // r = (b s + i) h + hd  ->  (b h + hd) pitch + i
   const int64_t hd = r % h;
   const int64_t bi = r / h;
@@ -142,6 +235,163 @@ __global__ void flash_bwd_prep_kernel(const T* __restrict__ o,
   const int64_t idx = (b * h + hd) * pitch + i;
   delta[idx] = acc;
   lse2[idx] = lse[(b * h + hd) * s + i] * kLog2e;
+  if constexpr (kHalf) {
+    const float* vn = v_norms + (b * h + hd) * n_parts;
+    float vmax = 0.0f;
+    for (int p = 0; p < n_parts; ++p) vmax = fmaxf(vmax, vn[p]);
+    dq_scale[idx] = dq_scale_factor(sqrtf(dn2) * (vmax + sqrtf(on2)));
+  }
+}
+
+// float16's scale of the rows of P^T or dS^T (the note at the top): each
+// row (a key's) is rounded to float16 times 2^e, e the row's own exponent:
+// at most kTop for the row's largest entry so far (2^15 < 65504, no
+// overflow), lowered as a larger entry arrives, the row's accumulator
+// rescaled by the same power of two (exact in float32) and 2^-e taken off
+// at the end. A row's tiny entries then keep float16's 11 bits relative
+// to the row's largest, as bfloat16's 8 bits keep them. A thread holds
+// rows g and g + 8 of its warp's 16 (elements 4 i + 2 r and 4 i + 2 r + 1
+// of a wgmma accumulator are row r's), a row's columns over the 4 lanes of
+// a quad.
+struct RowScale {
+  static constexpr int kTop = 15;
+  static constexpr int kStart = 127;  // above any exponent a row takes
+  int e[2] = {kStart, kStart};
+
+  // lower the exponents for this tile's entries v and rescale acc with them
+  template <int N, int M>
+  __device__ __forceinline__ void update(const float (&v)[N], float (&acc)[M]) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = 0.0f;
+#pragma unroll
+      for (int i = 0; i < N / 4; ++i)
+        mx = fmaxf(mx, fmaxf(fabsf(v[4 * i + 2 * r]), fabsf(v[4 * i + 2 * r + 1])));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      if (mx > 0.0f) {
+        // mx < 2^x (x of frexp; a subnormal mx takes the clamp below)
+        const int x = ((__float_as_int(mx) >> 23) & 0xff) - 126;
+        const int want = min(kTop - x, 126);
+        if (want < e[r]) {
+          // (below 2^-126 the old entries are nothing beside the new ones)
+          const float f = e[r] == kStart ? 1.0f : pow2(max(want - e[r], -126));
+#pragma unroll
+          for (int i = 0; i < M / 4; ++i) {
+            acc[4 * i + 2 * r] *= f;
+            acc[4 * i + 2 * r + 1] *= f;
+          }
+          e[r] = want;
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ float up(int r) const { return e[r] == kStart ? 1.0f : pow2(e[r]); }
+  __device__ __forceinline__ float down(int r) const {
+    return e[r] == kStart ? 1.0f : pow2(-e[r]);
+  }
+
+  // the accumulator c's columns 16 kk .. 16 kk + 15, each row times its
+  // 2^e, as float16 A fragments (pack_a's layout: element e of a fragment
+  // is row e & 1's)
+  template <int N>
+  __device__ __forceinline__ void pack(const float (&c)[N], uint32_t (&a)[N / 8][4]) const {
+    const float u[2] = {up(0), up(1)};
+#pragma unroll
+    for (int kk = 0; kk < N / 8; ++kk) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        a[kk][x] = pack2<__half>(c[8 * kk + 2 * x] * u[x & 1], c[8 * kk + 2 * x + 1] * u[x & 1]);
+    }
+  }
+};
+
+// the thread's dS^T to shared memory: words(j, w) gives w[half], columns
+// 8 j + 2 t, + 1 of row row0 + g + 8 half; a row (a key) is 128 bytes of
+// 64 queries, its 16-byte chunks swizzled by the row's low 3 bits (128 B
+// swizzle)
+template <typename Words>
+__device__ __forceinline__ void store_ds(uint32_t tile, int row0, int g, int t, Words words) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint32_t w[2];
+    words(j, w);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + g + 8 * half;
+      const uint32_t addr = tile + row * 128 + ((j ^ (row & 7)) << 4) + 4 * t;
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(w[half]) : "memory");
+    }
+  }
+}
+
+// dK (times scale) and dV of the thread's keys key + 8 half, half = 0, 1
+// (its rows of the accumulators) into the contiguous [B, S, H, D] outputs
+// (float16: 2^-e of each row's RowScale off)
+template <typename T, int D>
+__device__ __forceinline__ void store_dkdv(T* __restrict__ dk, T* __restrict__ dv,
+                                           const float (&dk_acc)[D / 2],
+                                           const float (&dv_acc)[D / 2],
+                                           const RowScale& p_scale, const RowScale& s_scale,
+                                           int key, int t, int b, int s, int h, int hd,
+                                           float scale) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (key + 8 * half >= s) continue;
+    const int64_t row = ((static_cast<int64_t>(b) * s + key + 8 * half) * h + hd) * D;
+    float ks = scale, vs = 1.0f;
+    if constexpr (std::is_same_v<T, __half>) {
+      ks = scale * s_scale.down(half);
+      vs = p_scale.down(half);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int c = 8 * i + 2 * t, e = 4 * i + 2 * half;
+      *reinterpret_cast<uint32_t*>(dk + row + c) = pack2<T>(dk_acc[e] * ks, dk_acc[e + 1] * ks);
+      if constexpr (std::is_same_v<T, __half>)
+        *reinterpret_cast<uint32_t*>(dv + row + c) = pack2<T>(dv_acc[e] * vs, dv_acc[e + 1] * vs);
+      else
+        *reinterpret_cast<uint32_t*>(dv + row + c) = pack2<T>(dv_acc[e], dv_acc[e + 1]);
+    }
+  }
+}
+
+// A tile's P^T (sacc) and dS^T (pacc) of a compute warpgroup as the A
+// fragments of dV += P^T dO (pa) and dK += dS^T Q (sa), and dS^T to the
+// shared tile of dQ = dS K (rows row0 + g, + 8 of ds_tile). float16: a
+// key's rows of P^T and dS^T scaled by its RowScale (dv_acc and dk_acc
+// rescaled with them), the dS^T for dQ by each query's dq_scale (dqs_s,
+// the tile's 64).
+template <typename T, int M>
+__device__ __forceinline__ void tile_operands(const float (&sacc)[32], const float (&pacc)[32],
+                                              float (&dv_acc)[M], float (&dk_acc)[M],
+                                              RowScale& p_scale, RowScale& s_scale,
+                                              const float* dqs_s, uint32_t ds_tile, int row0,
+                                              int g, int t, uint32_t (&pa)[4][4],
+                                              uint32_t (&sa)[4][4]) {
+  if constexpr (std::is_same_v<T, __half>) {
+    p_scale.update(sacc, dv_acc);
+    s_scale.update(pacc, dk_acc);
+    p_scale.pack(sacc, pa);
+    // loaded before the stores, whose memory clobber would hold each load
+    // behind the previous store
+    float2 qs[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) qs[j] = *reinterpret_cast<const float2*>(dqs_s + 8 * j + 2 * t);
+    store_ds(ds_tile, row0, g, t, [&](int j, uint32_t (&w)[2]) {
+      w[0] = pack2<T>(pacc[4 * j] * qs[j].x, pacc[4 * j + 1] * qs[j].y);
+      w[1] = pack2<T>(pacc[4 * j + 2] * qs[j].x, pacc[4 * j + 3] * qs[j].y);
+    });
+    s_scale.pack(pacc, sa);
+  } else {
+    pack_a<T>(sacc, pa);
+    pack_a<T>(pacc, sa);
+    store_ds(ds_tile, row0, g, t, [&](int j, uint32_t (&w)[2]) {
+      w[0] = sa[j >> 1][(j & 1) * 2];
+      w[1] = sa[j >> 1][(j & 1) * 2 + 1];
+    });
+  }
 }
 
 // ---------------------------------------------------------------- float32
@@ -346,437 +596,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   for (int c = 0; c < D; ++c) out[c] = dqr[c] * scale;
 }
 
-// ------------------------------------------------- mma.sync (16-bit types)
-
-// The backward of float16 at every head dim, where the wgmma kernel below
-// does not reach (its dQ sums dS over a block's keys, and a per-row float16
-// scale of dS^T cannot be undone in that sum). Two
-// kernels after the prep pass, each output element summed by one thread in
-// a fixed order (deterministic), on mma.sync m16n8k16 (float32
-// accumulators) with the forward's fragment layouts:
-// * dK/dV: a block of 4 warps owns 64 keys, 16 a warp, with its K and V
-//   tiles in shared memory; it walks the query tiles (kBQ rows of Q and dO
-//   through a 2-stage cp.async ring): S^T = K Q^T and dP^T = V dO^T,
-//   P^T = exp2(S^T scale log2e - lse2), dS^T = P^T (dP^T - delta), then
-//   dV += P^T dO and dK += dS^T Q with P^T and dS^T, rounded to T, as the
-//   A operands straight from the accumulators;
-// * dQ: a block of 4 warps owns 64 query rows, 16 a warp, Q and dO as A
-//   fragments in registers; it walks the key tiles (kBK keys of K and V
-//   through the ring): S = Q K^T, dP = dO V^T, dS = P (dP - delta), dQ +=
-//   dS K.
-// A causal tile wholly masked for a warp is skipped; the diagonal and the
-// ragged edge are masked per element. Rows past S load as zeros and are
-// masked (P = 0).
-
-constexpr int kPad16 = 8;  // 16-bit elements of padding a shared row
-
-// float16 keeps 5 exponent bits: a P or dS entry below 2^-14 is subnormal
-// and one below 2^-24 is lost, where bfloat16 keeps float32's range. So
-// the float16 kernels round each row of P^T and dS^T (dS in the dQ
-// kernel) to float16 times 2^e, e the row's own exponent: at most
-// RowScale::kTop for the row's largest entry so far (2^15 < 65504, no
-// overflow), lowered as a larger entry arrives, the row's accumulator
-// rescaled by the same power of two (exact in float32) and 2^-e taken off
-// at the end. A row's tiny entries then keep float16's 11 bits relative
-// to the row's largest, as bfloat16's 8 bits keep them.
-struct RowScale {
-  static constexpr int kTop = 15;
-  static constexpr int kStart = 127;  // above any exponent a row takes
-  int e[2] = {kStart, kStart};        // rows g and g + 8 of the thread
-
-  // lower the exponents for this tile's entries v[nt][4] (rows by e >> 1)
-  // and rescale acc[.][4] with them; quad-wide, as a row lies in 4 lanes
-  template <int kNT, int kDT>
-  __device__ __forceinline__ void update(const float (&v)[kNT][4], float (&acc)[kDT][4]) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = 0.0f;
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-        mx = fmaxf(mx, fmaxf(fabsf(v[nt][2 * r]), fabsf(v[nt][2 * r + 1])));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      if (mx > 0.0f) {
-        // mx < 2^x (x of frexp; a subnormal mx takes the clamp below)
-        const int x = ((__float_as_int(mx) >> 23) & 0xff) - 126;
-        const int want = min(kTop - x, 126);
-        if (want < e[r]) {
-          const float f = e[r] == kStart ? 1.0f : ldexpf(1.0f, want - e[r]);
-#pragma unroll
-          for (int i = 0; i < kDT; ++i) {
-            acc[i][2 * r] *= f;
-            acc[i][2 * r + 1] *= f;
-          }
-          e[r] = want;
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ float up(int r) const {
-    return e[r] == kStart ? 1.0f : ldexpf(1.0f, e[r]);
-  }
-  __device__ __forceinline__ float down(int r) const {
-    return e[r] == kStart ? 1.0f : ldexpf(1.0f, -e[r]);
-  }
-};
-
-template <int D>
-struct MmaBwdTile {
-  static_assert(D % 16 == 0 && D <= 128, "D must be 16, 32, 64 or 128");
-  static constexpr int kRows = 64;                 // keys (dK/dV) or queries (dQ) a block
-  static constexpr int kOther = D <= 64 ? 64 : 32; // rows of the other side a tile
-  static constexpr int kRow = D + kPad16;          // shared row, elements
-  static constexpr int kChunks = D / 8;            // 16-byte chunks a row
-  // dK/dV: K, V [kRows][kRow] then the Q/dO ring [2][2][kOther][kRow];
-  // dQ: the K/V ring [2][2][kOther][kRow]
-  static constexpr int kDkdvBytes = (2 * kRows + 4 * kOther) * kRow * 2;
-  static constexpr int kDqBytes = 4 * kOther * kRow * 2;
-};
-
-// rows [row0, row0 + n) of a strided [.., D] view of T into a shared tile
-// [n][kRow] as 16-byte cp.async copies; rows at or past s read as zeros
-template <typename T, int D, int kRowE, int kN, int kThreadsN>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t stride,
-                                          int row0, int s, int tid) {
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int i = 0; i < (kN * kChunks + kThreadsN - 1) / kThreadsN; ++i) {
-    const int e = tid + i * kThreadsN;
-    if ((kN * kChunks) % kThreadsN != 0 && e >= kN * kChunks) break;
-    const int r = e / kChunks, c = e % kChunks;
-    const int row = row0 + r;
-    const bool valid = row < s;
-    cp_async16(smem_addr(dst + r * kRowE + c * 8),
-               src + static_cast<int64_t>(valid ? row : 0) * stride + c * 8, valid);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
-                          const float* __restrict__ lse2,
-                          const float* __restrict__ delta, T* __restrict__ dk,
-                          T* __restrict__ dv, int s, int h, int num_bh, Strides qs,
-                          Strides ks, Strides vs, float scale_log2e, float scale,
-                          int causal) {
-  using Tile = MmaBwdTile<D>;
-  constexpr int kRow = Tile::kRow, kBQ = Tile::kOther, kRows = Tile::kRows;
-  constexpr int kNT = kBQ / 8;  // 8-query column tiles of S^T
-  constexpr int kDT = D / 8;    // 8-wide column tiles of dK, dV
-  extern __shared__ uint8_t smem_raw[];
-  T* const k_s = reinterpret_cast<T*>(smem_raw);
-  T* const v_s = k_s + kRows * kRow;
-  T* const ring = v_s + kRows * kRow;  // [stage][0: Q, 1: dO][kBQ][kRow]
-
-  const int bh = blockIdx.x % num_bh;
-  const int kt = blockIdx.x / num_bh;  // the first key tiles have most work
-  const int b = bh / h;
-  const int hd = bh - b * h;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int key0 = kt * kRows;
-  const int wkey = key0 + 16 * warp;  // the warp's first key
-
-  const T* qb = q + b * qs.b + hd * qs.h;
-  const T* db = dout + (static_cast<int64_t>(b) * s * h + hd) * D;
-  const float* lb = lse2 + static_cast<int64_t>(bh) * s;
-  const float* eb = delta + static_cast<int64_t>(bh) * s;
-
-  load_rows<T, D, kRow, kRows, 128>(k_s, k + b * ks.b + hd * ks.h, ks.s, key0, s,
-                                    threadIdx.x);
-  load_rows<T, D, kRow, kRows, 128>(v_s, v + b * vs.b + hd * vs.h, vs.s, key0, s,
-                                    threadIdx.x);
-  // queries before the block's first key see none of its keys
-  const int m_first = causal ? key0 / kBQ : 0;
-  const int m_tiles = (s + kBQ - 1) / kBQ;
-  auto load_tile = [&](int m, int stage) {
-    T* dst = ring + stage * 2 * kBQ * kRow;
-    load_rows<T, D, kRow, kBQ, 128>(dst, qb, qs.s, m * kBQ, s, threadIdx.x);
-    load_rows<T, D, kRow, kBQ, 128>(dst + kBQ * kRow, db, static_cast<int64_t>(h) * D,
-                                    m * kBQ, s, threadIdx.x);
-  };
-  if (m_first < m_tiles) load_tile(m_first, 0);
-  cp_async_commit();  // K, V and the first tile: one group
-
-  float dk_acc[kDT][4], dv_acc[kDT][4];
-#pragma unroll
-  for (int i = 0; i < kDT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.0f;
-  RowScale p_scale, s_scale;   // float16 only
-
-  for (int m = m_first, it = 0; m < m_tiles; ++m, ++it) {
-    if (m + 1 < m_tiles) load_tile(m + 1, (it + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this thread's copies of tile m (and K, V) landed
-    __syncthreads();     // ... everyone's
-    const int q0 = m * kBQ;
-    // a causal tile wholly before this warp's keys adds nothing to them
-    if (!(causal && q0 + kBQ - 1 < wkey)) {
-      const T* q_t = ring + (it & 1) * 2 * kBQ * kRow;
-      const T* d_t = q_t + kBQ * kRow;
-      // S^T = K Q^T and dP^T = V dO^T: [16 keys, kBQ queries] a warp
-      float st[kNT][4], dpt[kNT][4];
-#pragma unroll
-      for (int i = 0; i < kNT; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[i][e] = dpt[i][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        // A: the warp's 16 keys x d 16 kk.., from K and V
-        const int arow = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int acol = 16 * kk + (lane >> 4) * 8;
-        uint32_t ka[4], va[4];
-        ldmatrix_x4(smem_addr(k_s + arow * kRow + acol), ka);
-        ldmatrix_x4(smem_addr(v_s + arow * kRow + acol), va);
-#pragma unroll
-        for (int p = 0; p < kNT / 2; ++p) {
-          // B: queries 16 p + 0..7 / 8..15 x d 16 kk + 0..7 / 8..15
-          const int row = 16 * p + (lane & 7) + ((lane >> 4) << 3);
-          const int col = 16 * kk + ((lane >> 3) & 1) * 8;
-          uint32_t qf[4], df[4];
-          ldmatrix_x4(smem_addr(q_t + row * kRow + col), qf);
-          ldmatrix_x4(smem_addr(d_t + row * kRow + col), df);
-          mma_16816<T>(st[2 * p], ka, qf[0], qf[1]);
-          mma_16816<T>(st[2 * p + 1], ka, qf[2], qf[3]);
-          mma_16816<T>(dpt[2 * p], va, df[0], df[1]);
-          mma_16816<T>(dpt[2 * p + 1], va, df[2], df[3]);
-        }
-      }
-      // P^T and dS^T in place of S^T and dP^T, then as A fragments (the
-      // accumulator's column pairs), float16 rows scaled (RowScale)
-      const bool edge = (causal && q0 < wkey + 15) || q0 + kBQ > s;
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const int qc = q0 + 8 * nt + 2 * t;
-        const float l0 = qc < s ? lb[qc] : 0.0f, l1 = qc + 1 < s ? lb[qc + 1] : 0.0f;
-        const float e0 = qc < s ? eb[qc] : 0.0f, e1 = qc + 1 < s ? eb[qc + 1] : 0.0f;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p = exp2_approx(fmaf(st[nt][e], scale_log2e, -((e & 1) ? l1 : l0)));
-          if (edge) {
-            const int key = wkey + g + 8 * (e >> 1);
-            const int query = qc + (e & 1);
-            if (query >= s || (causal && key > query)) p = 0.0f;
-          }
-          st[nt][e] = p;
-          dpt[nt][e] = p * (dpt[nt][e] - ((e & 1) ? e1 : e0));
-        }
-      }
-      float pu[2] = {1.0f, 1.0f}, su[2] = {1.0f, 1.0f};
-      if constexpr (std::is_same_v<T, __half>) {
-        p_scale.update(st, dv_acc);
-        s_scale.update(dpt, dk_acc);
-        pu[0] = p_scale.up(0), pu[1] = p_scale.up(1);
-        su[0] = s_scale.up(0), su[1] = s_scale.up(1);
-      }
-      uint32_t pa[kNT / 2][4], sa[kNT / 2][4];
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        pa[nt / 2][(nt & 1) * 2] = pack2<T>(st[nt][0] * pu[0], st[nt][1] * pu[0]);
-        pa[nt / 2][(nt & 1) * 2 + 1] = pack2<T>(st[nt][2] * pu[1], st[nt][3] * pu[1]);
-        sa[nt / 2][(nt & 1) * 2] = pack2<T>(dpt[nt][0] * su[0], dpt[nt][1] * su[0]);
-        sa[nt / 2][(nt & 1) * 2 + 1] = pack2<T>(dpt[nt][2] * su[1], dpt[nt][3] * su[1]);
-      }
-      // dV += P^T dO, dK += dS^T Q: B from the [query][d] tiles, transposed
-#pragma unroll
-      for (int kk = 0; kk < kNT / 2; ++kk) {
-#pragma unroll
-        for (int p = 0; p < D / 16; ++p) {
-          const int row = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-          const int col = 16 * p + (lane >> 4) * 8;
-          uint32_t df[4], qf[4];
-          ldmatrix_x4_trans(smem_addr(d_t + row * kRow + col), df);
-          ldmatrix_x4_trans(smem_addr(q_t + row * kRow + col), qf);
-          mma_16816<T>(dv_acc[2 * p], pa[kk], df[0], df[1]);
-          mma_16816<T>(dv_acc[2 * p + 1], pa[kk], df[2], df[3]);
-          mma_16816<T>(dk_acc[2 * p], sa[kk], qf[0], qf[1]);
-          mma_16816<T>(dk_acc[2 * p + 1], sa[kk], qf[2], qf[3]);
-        }
-      }
-    }
-    __syncthreads();  // the slot of tile m may be written again
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = wkey + g + 8 * r;
-    if (key >= s) continue;
-    const int64_t row = ((static_cast<int64_t>(b) * s + key) * h + hd) * D;
-    const float ks = scale * s_scale.down(r), vs = p_scale.down(r);
-#pragma unroll
-    for (int i = 0; i < kDT; ++i) {
-      const int c = 8 * i + 2 * t;
-      *reinterpret_cast<uint32_t*>(dk + row + c) =
-          pack2<T>(dk_acc[i][2 * r] * ks, dk_acc[i][2 * r + 1] * ks);
-      *reinterpret_cast<uint32_t*>(dv + row + c) =
-          pack2<T>(dv_acc[i][2 * r] * vs, dv_acc[i][2 * r + 1] * vs);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse2,
-                        const float* __restrict__ delta, T* __restrict__ dq, int s,
-                        int h, int num_q_tiles, int num_bh, Strides qs, Strides ks,
-                        Strides vs, float scale_log2e, float scale, int causal) {
-  using Tile = MmaBwdTile<D>;
-  constexpr int kRow = Tile::kRow, kBK = Tile::kOther, kRows = Tile::kRows;
-  constexpr int kNT = kBK / 8;  // 8-key column tiles of S
-  constexpr int kDT = D / 8;
-  extern __shared__ uint8_t smem_raw[];
-  T* const ring = reinterpret_cast<T*>(smem_raw);  // [stage][0: K, 1: V][kBK][kRow]
-
-  const int bh = blockIdx.x % num_bh;
-  const int qt = num_q_tiles - 1 - blockIdx.x / num_bh;  // most work first
-  const int b = bh / h;
-  const int hd = bh - b * h;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wrow = qt * kRows + 16 * warp;  // the warp's first query row
-
-  const T* kb = k + b * ks.b + hd * ks.h;
-  const T* vb = v + b * vs.b + hd * vs.h;
-
-  // Q and dO as A fragments (zeros past S), lse2 and delta of the rows
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  float l2[2], dl[2];
-  {
-    const T* qbase = q + b * qs.b + hd * qs.h;
-    const T* dbase = dout + (static_cast<int64_t>(b) * s * h + hd) * D;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = wrow + g + 8 * r;
-      const bool live = row < s;
-      const uint32_t* qp = reinterpret_cast<const uint32_t*>(
-          qbase + static_cast<int64_t>(live ? row : 0) * qs.s);
-      const uint32_t* dp = reinterpret_cast<const uint32_t*>(
-          dbase + static_cast<int64_t>(live ? row : 0) * h * D);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        qa[kk][r] = live ? __ldg(qp + kk * 8 + t) : 0u;
-        qa[kk][r + 2] = live ? __ldg(qp + kk * 8 + 4 + t) : 0u;
-        da[kk][r] = live ? __ldg(dp + kk * 8 + t) : 0u;
-        da[kk][r + 2] = live ? __ldg(dp + kk * 8 + 4 + t) : 0u;
-      }
-      l2[r] = live ? lse2[static_cast<int64_t>(bh) * s + row] : 0.0f;
-      dl[r] = live ? delta[static_cast<int64_t>(bh) * s + row] : 0.0f;
-    }
-  }
-
-  // keys past the block's last row are masked for every row of it
-  const int kv_len = causal ? min(s, (qt + 1) * kRows) : s;
-  const int n_tiles = (kv_len + kBK - 1) / kBK;
-  auto load_tile = [&](int j, int stage) {
-    T* dst = ring + stage * 2 * kBK * kRow;
-    load_rows<T, D, kRow, kBK, 128>(dst, kb, ks.s, j * kBK, s, threadIdx.x);
-    load_rows<T, D, kRow, kBK, 128>(dst + kBK * kRow, vb, vs.s, j * kBK, s,
-                                    threadIdx.x);
-  };
-  if (n_tiles > 0) load_tile(0, 0);
-  cp_async_commit();
-
-  float dq_acc[kDT][4];
-#pragma unroll
-  for (int i = 0; i < kDT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[i][e] = 0.0f;
-  RowScale s_scale;   // float16 only
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) load_tile(j + 1, (j + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int k0 = j * kBK;
-    if (!(causal && k0 > wrow + 15)) {
-      const T* k_t = ring + (j & 1) * 2 * kBK * kRow;
-      const T* v_t = k_t + kBK * kRow;
-      float sc[kNT][4], dp[kNT][4];
-#pragma unroll
-      for (int i = 0; i < kNT; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.0f;
-#pragma unroll
-      for (int p = 0; p < kNT / 2; ++p) {
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const int key = 16 * p + (lane & 7) + ((lane >> 4) << 3);
-          const int col = 16 * kk + ((lane >> 3) & 1) * 8;
-          uint32_t kf[4], vf[4];
-          ldmatrix_x4(smem_addr(k_t + key * kRow + col), kf);
-          ldmatrix_x4(smem_addr(v_t + key * kRow + col), vf);
-          mma_16816<T>(sc[2 * p], qa[kk], kf[0], kf[1]);
-          mma_16816<T>(sc[2 * p + 1], qa[kk], kf[2], kf[3]);
-          mma_16816<T>(dp[2 * p], da[kk], vf[0], vf[1]);
-          mma_16816<T>(dp[2 * p + 1], da[kk], vf[2], vf[3]);
-        }
-      }
-      // dS in place of dP, then as A fragments, float16 rows scaled
-      const bool edge = (causal && k0 + kBK - 1 > wrow) || k0 + kBK > s;
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          float p = exp2_approx(fmaf(sc[nt][e], scale_log2e, -l2[r]));
-          if (edge) {
-            const int key = k0 + 8 * nt + 2 * t + (e & 1);
-            const int row = wrow + g + 8 * r;
-            if (key >= s || (causal && key > row)) p = 0.0f;
-          }
-          dp[nt][e] = p * (dp[nt][e] - dl[r]);
-        }
-      }
-      float su[2] = {1.0f, 1.0f};
-      if constexpr (std::is_same_v<T, __half>) {
-        s_scale.update(dp, dq_acc);
-        su[0] = s_scale.up(0), su[1] = s_scale.up(1);
-      }
-      uint32_t sa[kNT / 2][4];
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        sa[nt / 2][(nt & 1) * 2] = pack2<T>(dp[nt][0] * su[0], dp[nt][1] * su[0]);
-        sa[nt / 2][(nt & 1) * 2 + 1] = pack2<T>(dp[nt][2] * su[1], dp[nt][3] * su[1]);
-      }
-      // dQ += dS K: B from the [key][d] tile, transposed
-#pragma unroll
-      for (int kk = 0; kk < kNT / 2; ++kk) {
-#pragma unroll
-        for (int p = 0; p < D / 16; ++p) {
-          const int key = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-          const int col = 16 * p + (lane >> 4) * 8;
-          uint32_t kf[4];
-          ldmatrix_x4_trans(smem_addr(k_t + key * kRow + col), kf);
-          mma_16816<T>(dq_acc[2 * p], sa[kk], kf[0], kf[1]);
-          mma_16816<T>(dq_acc[2 * p + 1], sa[kk], kf[2], kf[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wrow + g + 8 * r;
-    if (row >= s) continue;
-    T* out = dq + ((static_cast<int64_t>(b) * s + row) * h + hd) * D;
-    const float qs = scale * s_scale.down(r);
-#pragma unroll
-    for (int i = 0; i < kDT; ++i)
-      *reinterpret_cast<uint32_t*>(out + 8 * i + 2 * t) =
-          pack2<T>(dq_acc[i][2 * r] * qs, dq_acc[i][2 * r + 1] * qs);
-  }
-}
-
-// --------------------------------------------------------------- bfloat16
+// ------------------------------------------------ bfloat16 and float16
 
 constexpr int kBM = 64;         // query rows a tile
 constexpr int kBN = 128;        // keys a block: two compute warpgroups of 64
@@ -785,9 +605,12 @@ constexpr int kThreads = 384;   // compute warpgroups 0, 1; loader/writer 2
 constexpr int kComputeRegs = 232;
 constexpr int kLoaderRegs = 40;
 
-template <int D>
+template <typename T, int D>
 struct BwdSmem {  // byte offsets from a 1024-byte aligned base
   static_assert(D == 16 || D == 32 || D == 64 || D == 128, "D must be 16, 32, 64 or 128");
+  // per-row values a query tile brings: lse2 and delta, and float16's
+  // dQ scale
+  static constexpr int kRowArrays = std::is_same_v<T, __half> ? 3 : 2;
   // a tile is kBoxes d-boxes of kBoxCols columns, one after the other
   // (hopper_common.cuh): one box up to D = 64, two at D = 128
   static constexpr int kBoxCols = D < 64 ? D : 64;
@@ -800,14 +623,15 @@ struct BwdSmem {  // byte offsets from a 1024-byte aligned base
   static constexpr int kV = kK + kBN * 2 * D;     // V [kBoxes][kBN][kBoxCols]
   static constexpr int kQ = kV + kBN * 2 * D;     // Q [kStages][kBoxes][kBM][kBoxCols]
   static constexpr int kDO = kQ + kStages * kTileB;
-  // dS^T [128 keys][64 queries] bf16, a buffer; two at D = 128, where
+  // dS^T [128 keys][64 queries] of T, a buffer; two at D = 128, where
   // each warpgroup's dQ product reads both warpgroups' rows
   static constexpr int kDSBufs = D == 128 ? 2 : 1;
   static constexpr int kDSBuf = 2 * 64 * 128;
   static constexpr int kDS = kDO + kStages * kTileB;
   static constexpr int kDQ = kDS + kDSBufs * kDSBuf;  // dQ [2][kBM * D] float
-  static constexpr int kRows = kDQ + 2 * kBM * D * 4; // [kStages][lse2, delta][kBM]
-  static constexpr int kBar = kRows + kStages * 2 * kBM * 4;
+  // [kStages][lse2, delta (, dq_scale)][kBM]
+  static constexpr int kRows = kDQ + 2 * kBM * D * 4;
+  static constexpr int kBar = kRows + kStages * kRowArrays * kBM * 4;
   // mbarriers: full[kStages], empty[kStages], kv, then two each of
   // dq_half, dq_full, dq_empty, turn, done, passed
   static constexpr int kBytes = kBar + (2 * kStages + 13) * 8;
@@ -844,14 +668,14 @@ struct BwdSmem {  // byte offsets from a 1024-byte aligned base
 // * the waits of these warpgroups spin without the watchdog (mbar_spin):
 //   with a trap on their path ptxas held the region well below the 232
 //   registers setmaxnreg gives, spilled dK and serialised the wgmmas.
+template <typename T>
 __device__ __forceinline__ void bwd_compute_d128(
     const uint32_t base, uint8_t* const sm, const int wg, const int lane, const int m_first,
     const int m_tiles, const int key0, const int b, const int hd, const int s, const int h,
     const float scale_log2e, const float scale, const int causal, const uint32_t bar_full,
     const uint32_t bar_empty, const uint32_t bar_kv, const uint32_t bar_dq_full,
-    const uint32_t bar_dq_empty, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv) {
-  using L = BwdSmem<128>;
+    const uint32_t bar_dq_empty, T* __restrict__ dk, T* __restrict__ dv) {
+  using L = BwdSmem<T, 128>;
   constexpr int kSbo = 8 * L::kRowB;  // 8 rows of a box
   const int wt = threadIdx.x & 127;   // thread of the warpgroup
   const int w4 = wt >> 5;             // warp of the warpgroup
@@ -865,6 +689,7 @@ __device__ __forceinline__ void bwd_compute_d128(
   float dv_acc[64], dk_acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) dv_acc[i] = dk_acc[i] = 0.0f;
+  RowScale p_scale, s_scale;  // float16 only
 
   mbar_spin(bar_kv, 0);
   int stage = 0;
@@ -874,8 +699,10 @@ __device__ __forceinline__ void bwd_compute_d128(
     const uint32_t q_tile = base + L::kQ + stage * L::kTileB;
     const uint32_t do_tile = base + L::kDO + stage * L::kTileB;
     const uint32_t ds_buf = base + L::kDS + (it & 1) * L::kDSBuf;
-    const float* lse_s = reinterpret_cast<const float*>(sm + L::kRows) + stage * 2 * kBM;
+    const float* lse_s =
+        reinterpret_cast<const float*>(sm + L::kRows) + stage * L::kRowArrays * kBM;
     const float* del_s = lse_s + kBM;
+    const float* dqs_s = lse_s + 2 * kBM;  // float16 only
 
     // S^T = K Q^T and dP^T = V dO^T: [64 keys, 64 queries], K-major
     float sacc[32], pacc[32];
@@ -884,14 +711,14 @@ __device__ __forceinline__ void bwd_compute_d128(
     for (int kk = 0; kk < 8; ++kk) {
       const uint64_t a = smem_desc(L::k_step(k_tile, kk, L::kKVBox), 16, kSbo, 1);
       const uint64_t b = smem_desc(L::k_step(q_tile, kk, L::kTileBox), 16, kSbo, 1);
-      Wgmma<64>::ss<0, 0>(sacc, a, b, kk);
+      Wgmma<64>::ss<0, 0, T>(sacc, a, b, kk);
     }
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       const uint64_t a = smem_desc(L::k_step(v_tile, kk, L::kKVBox), 16, kSbo, 1);
       const uint64_t b = smem_desc(L::k_step(do_tile, kk, L::kTileBox), 16, kSbo, 1);
-      Wgmma<64>::ss<0, 0>(pacc, a, b, kk);
+      Wgmma<64>::ss<0, 0, T>(pacc, a, b, kk);
     }
     wgmma_commit();
 
@@ -925,23 +752,11 @@ __device__ __forceinline__ void bwd_compute_d128(
       for (int r = 0; r < 4; ++r)
         pacc[4 * j + r] = sacc[4 * j + r] * (pacc[4 * j + r] - ((r & 1) ? dl.y : dl.x));
     }
+    // P^T and dS^T as A fragments, dS^T rows of this warpgroup's keys to
+    // shared memory
     uint32_t pa[4][4], sa[4][4];
-    pack_a(sacc, pa);
-    pack_a(pacc, sa);
-    // dS^T rows of this warpgroup's keys to shared memory: row = key (128
-    // bytes of 64 queries), its 16-byte chunks swizzled by the row's low 3
-    // bits (128 B swizzle)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = 64 * wg + 16 * w4 + g + 8 * half;
-        const uint32_t addr = ds_buf + row * 128 + ((j ^ (row & 7)) << 4) + 4 * t;
-        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
-                     "r"(sa[j >> 1][(j & 1) * 2 + half])
-                     : "memory");
-      }
-    }
+    tile_operands<T>(sacc, pacc, dv_acc, dk_acc, p_scale, s_scale, dqs_s, ds_buf,
+                     64 * wg + 16 * w4, g, t, pa, sa);
     fence_async_shared();
 
     // dV += P^T dO, dK += dS^T Q (dO and Q MN-major across both d-boxes),
@@ -951,18 +766,18 @@ __device__ __forceinline__ void bwd_compute_d128(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      Wgmma<128>::rs<1>(dv_acc, pa[kk],
-                        smem_desc(do_tile + kk * 16 * L::kRowB, L::kTileBox, kSbo, 1), 1);
+      Wgmma<128>::rs<1, T>(dv_acc, pa[kk],
+                           smem_desc(do_tile + kk * 16 * L::kRowB, L::kTileBox, kSbo, 1), 1);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      Wgmma<128>::rs<1>(dk_acc, sa[kk],
-                        smem_desc(q_tile + kk * 16 * L::kRowB, L::kTileBox, kSbo, 1), 1);
+      Wgmma<128>::rs<1, T>(dk_acc, sa[kk],
+                           smem_desc(q_tile + kk * 16 * L::kRowB, L::kTileBox, kSbo, 1), 1);
     named_sync(1, 256);
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       const uint64_t a = smem_desc(ds_buf + kk * 16 * 128, 16, 1024, 1);
       const uint64_t b = smem_desc(k_box + kk * 16 * L::kRowB, 16, kSbo, 1);
-      Wgmma<64>::ss<1, 1>(dq, a, b, kk);
+      Wgmma<64>::ss<1, 1, T>(dq, a, b, kk);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -993,36 +808,26 @@ __device__ __forceinline__ void bwd_compute_d128(
     if (wt == 0) mbar_arrive(bar_dq_full + 8 * slot);
   }
 
-  // dK (times scale) and dV of the warpgroup's 64 keys, bf16
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = kw0 + 16 * w4 + g + 8 * half;
-    if (key >= s) continue;
-    const int64_t row = ((static_cast<int64_t>(b) * s + key) * h + hd) * 128;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int c = 8 * i + 2 * t, e = 4 * i + 2 * half;
-      *reinterpret_cast<uint32_t*>(dk + row + c) =
-          pack_bf16(dk_acc[e] * scale, dk_acc[e + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + row + c) = pack_bf16(dv_acc[e], dv_acc[e + 1]);
-    }
-  }
+  // dK (times scale) and dV of the warpgroup's 64 keys
+  store_dkdv<T, 128>(dk, dv, dk_acc, dv_acc, p_scale, s_scale, kw0 + 16 * w4 + g, t, b, s, h,
+                     hd, scale);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
-                      const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v,
-                      const __grid_constant__ CUtensorMap tm_do,
-                      const float* __restrict__ lse2,   // [bh][m_tiles kBM]
-                      const float* __restrict__ delta,  // [bh][m_tiles kBM]
-                      float* __restrict__ dq_acc,       // [bh][m_tiles][kBM D]
-                      int* __restrict__ turns,          // [bh][m_tiles]
-                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                      int s, int h, int num_bh, int m_tiles, float scale_log2e,
-                      float scale, int causal) {
-  using L = BwdSmem<D>;
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ lse2,      // [bh][m_tiles kBM]
+                       const float* __restrict__ delta,     // [bh][m_tiles kBM]
+                       const float* __restrict__ dq_scale,  // float16: [bh][m_tiles kBM]
+                       float* __restrict__ dq_acc,          // [bh][m_tiles][kBM D]
+                       int* __restrict__ turns,             // [bh][m_tiles]
+                       T* __restrict__ dk, T* __restrict__ dv, int s, int h, int num_bh,
+                       int m_tiles, float scale_log2e, float scale, int causal) {
+  using L = BwdSmem<T, D>;
+  constexpr bool kHalf = std::is_same_v<T, __half>;
   constexpr int kRowB = L::kRowB;
   constexpr int kSbo = 8 * kRowB;  // 8 rows of a box
   extern __shared__ uint8_t smem_raw[];
@@ -1090,16 +895,18 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int m = m_first; m < m_tiles; ++m) {
         mbar_wait(bar_empty + 8 * stage, phase ^ 1);
         const uint32_t full = bar_full + 8 * stage;
-        mbar_expect_tx(full, 2 * L::kTileB + 2 * kBM * 4);
+        mbar_expect_tx(full, 2 * L::kTileB + L::kRowArrays * kBM * 4);
 #pragma unroll
         for (int box = 0; box < L::kBoxes; ++box) {
           const uint32_t off = stage * L::kTileB + box * L::kTileBox;
           tma_load_4d(base + L::kQ + off, &tm_q, full, box * L::kBoxCols, hd, m * kBM, b);
           tma_load_4d(base + L::kDO + off, &tm_do, full, box * L::kBoxCols, hd, m * kBM, b);
         }
-        const uint32_t rows = base + L::kRows + stage * 2 * kBM * 4;
+        const uint32_t rows = base + L::kRows + stage * L::kRowArrays * kBM * 4;
         bulk_load(rows, lse2 + row_base + m * kBM, kBM * 4, full);
         bulk_load(rows + kBM * 4, delta + row_base + m * kBM, kBM * 4, full);
+        if constexpr (kHalf)
+          bulk_load(rows + 2 * kBM * 4, dq_scale + row_base + m * kBM, kBM * 4, full);
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
@@ -1148,9 +955,9 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   } else if constexpr (D == 128) {  // ------------------ compute warpgroups
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kComputeRegs));
-    bwd_compute_d128(base, sm, wg, lane, m_first, m_tiles, key0, b, hd, s, h, scale_log2e,
-                     scale, causal, bar_full, bar_empty, bar_kv, bar_dq_full, bar_dq_empty,
-                     dk, dv);
+    bwd_compute_d128<T>(base, sm, wg, lane, m_first, m_tiles, key0, b, hd, s, h, scale_log2e,
+                        scale, causal, bar_full, bar_empty, bar_kv, bar_dq_full, bar_dq_empty,
+                        dk, dv);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kComputeRegs));
     const int wt = threadIdx.x & 127;  // thread of the warpgroup
@@ -1167,6 +974,7 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < D / 2; ++i) dv_acc[i] = dk_acc[i] = dq[i] = 0.0f;
 #pragma unroll
     for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.0f;
+    RowScale p_scale, s_scale;  // float16 only
 
     mbar_wait(bar_kv, 0);
     int stage = 0;
@@ -1175,20 +983,22 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(bar_full + 8 * stage, phase);
       const uint32_t q_tile = base + L::kQ + stage * L::kTileB;
       const uint32_t do_tile = base + L::kDO + stage * L::kTileB;
-      const float* lse_s = reinterpret_cast<const float*>(sm + L::kRows) + stage * 2 * kBM;
+      const float* lse_s =
+          reinterpret_cast<const float*>(sm + L::kRows) + stage * L::kRowArrays * kBM;
       const float* del_s = lse_s + kBM;
+      const float* dqs_s = lse_s + 2 * kBM;  // float16 only
 
       // S^T = K Q^T and dP^T = V dO^T: [64 keys, 64 queries], K-major
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        Wgmma<64>::ss<0, 0>(sacc, smem_desc(k_tile + 32 * kk, 16, kSbo, L::kSwizzle),
-                            smem_desc(q_tile + 32 * kk, 16, kSbo, L::kSwizzle), kk);
+        Wgmma<64>::ss<0, 0, T>(sacc, smem_desc(k_tile + 32 * kk, 16, kSbo, L::kSwizzle),
+                               smem_desc(q_tile + 32 * kk, 16, kSbo, L::kSwizzle), kk);
       wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        Wgmma<64>::ss<0, 0>(pacc, smem_desc(v_tile + 32 * kk, 16, kSbo, L::kSwizzle),
-                            smem_desc(do_tile + 32 * kk, 16, kSbo, L::kSwizzle), kk);
+        Wgmma<64>::ss<0, 0, T>(pacc, smem_desc(v_tile + 32 * kk, 16, kSbo, L::kSwizzle),
+                               smem_desc(do_tile + 32 * kk, 16, kSbo, L::kSwizzle), kk);
       wgmma_commit();
 
       // P^T = exp2(S^T scale log2e - lse2), masked on the diagonal and
@@ -1221,22 +1031,10 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int r = 0; r < 4; ++r)
           pacc[4 * j + r] = sacc[4 * j + r] * (pacc[4 * j + r] - ((r & 1) ? dl.y : dl.x));
       }
+      // P^T and dS^T as A fragments, dS^T to shared memory
       uint32_t pa[4][4], sa[4][4];
-      pack_a(sacc, pa);
-      pack_a(pacc, sa);
-      // dS^T to shared memory: row = key (128 bytes of 64 queries), its
-      // 16-byte chunks swizzled by the row's low 3 bits (128 B swizzle)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = 16 * w4 + g + 8 * half;
-          const uint32_t addr = ds_tile + row * 128 + ((j ^ (row & 7)) << 4) + 4 * t;
-          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
-                       "r"(sa[j >> 1][(j & 1) * 2 + half])
-                       : "memory");
-        }
-      }
+      tile_operands<T>(sacc, pacc, dv_acc, dk_acc, p_scale, s_scale, dqs_s, ds_tile, 16 * w4,
+                       g, t, pa, sa);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 
       // dV += P^T dO, dK += dS^T Q (dO and Q MN-major: the same tiles read
@@ -1245,17 +1043,18 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        Wgmma<D>::template rs<1>(dv_acc, pa[kk],
-                        smem_desc(do_tile + kk * 16 * kRowB, 16, kSbo, L::kSwizzle), 1);
+        Wgmma<D>::template rs<1, T>(dv_acc, pa[kk],
+                                    smem_desc(do_tile + kk * 16 * kRowB, 16, kSbo, L::kSwizzle), 1);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        Wgmma<D>::template rs<1>(dk_acc, sa[kk],
-                        smem_desc(q_tile + kk * 16 * kRowB, 16, kSbo, L::kSwizzle), 1);
+        Wgmma<D>::template rs<1, T>(dk_acc, sa[kk],
+                                    smem_desc(q_tile + kk * 16 * kRowB, 16, kSbo, L::kSwizzle), 1);
       named_sync(1 + wg, 128);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        Wgmma<D>::template ss<1, 1>(dq, smem_desc(ds_tile + kk * 16 * 128, 16, 1024, 1),
-                           smem_desc(k_tile + kk * 16 * kRowB, 16, kSbo, L::kSwizzle), kk);
+        Wgmma<D>::template ss<1, 1, T>(dq, smem_desc(ds_tile + kk * 16 * 128, 16, 1024, 1),
+                                       smem_desc(k_tile + kk * 16 * kRowB, 16, kSbo, L::kSwizzle),
+                                       kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);
@@ -1298,30 +1097,20 @@ flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
 
-    // dK (times scale) and dV of the warpgroup's 64 keys, bf16
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int key = kw0 + 16 * w4 + g + 8 * half;
-      if (key >= s) continue;
-      const int64_t row = ((static_cast<int64_t>(b) * s + key) * h + hd) * D;
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        const int c = 8 * i + 2 * t, e = 4 * i + 2 * half;
-        *reinterpret_cast<uint32_t*>(dk + row + c) =
-            pack_bf16(dk_acc[e] * scale, dk_acc[e + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dv + row + c) = pack_bf16(dv_acc[e], dv_acc[e + 1]);
-      }
-    }
+    // dK (times scale) and dV of the warpgroup's 64 keys
+    store_dkdv<T, D>(dk, dv, dk_acc, dv_acc, p_scale, s_scale, kw0 + 16 * w4 + g, t, b, s, h,
+                     hd, scale);
   }
 }
 
-// dq = scale dq_acc in bf16: one thread a float4 (i, wt) of a tile's
+// dq = scale dq_acc in T: one thread a float4 (i, wt) of a tile's
 // accumulator, which holds rows 16 w + g and + 8, columns 8 i + 2 t, + 1
-// (wt = 32 w + 4 g + t, the compute thread that wrote it)
-template <int D>
+// (wt = 32 w + 4 g + t, the compute thread that wrote it); float16 takes
+// each row's 2^e_i (dq_scale, [bh][m_tiles kBM]) off first
+template <typename T, int D>
 __global__ void flash_bwd_dq_kernel(const float4* __restrict__ dq_acc,
-                                    __nv_bfloat16* __restrict__ dq, int s, int h,
-                                    int m_tiles, int64_t total, float scale) {
+                                    const float* __restrict__ dq_scale, T* __restrict__ dq,
+                                    int s, int h, int m_tiles, int64_t total, float scale) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= total) return;
   const int wt = static_cast<int>(e % 128);
@@ -1333,13 +1122,20 @@ __global__ void flash_bwd_dq_kernel(const float4* __restrict__ dq_acc,
   const int lane = wt & 31, g = lane >> 2, t = lane & 3;
   const int row = m * kBM + 16 * (wt >> 5) + g;
   const int c = 8 * i + 2 * t;
-  const float4 x = dq_acc[e];
+  float4 x = dq_acc[e];
+  if constexpr (std::is_same_v<T, __half>) {
+    // 1 / 2^e_i, exact: the exponent field of 2^e_i mirrored about 2^0
+    const float* rs = dq_scale + bh * m_tiles * kBM;
+    const float d0 = __int_as_float(0x7f000000 - __float_as_int(rs[row]));
+    const float d1 = __int_as_float(0x7f000000 - __float_as_int(rs[row + 8]));
+    x = make_float4(x.x * d0, x.y * d0, x.z * d1, x.w * d1);
+  }
   if (row < s)
     *reinterpret_cast<uint32_t*>(dq + ((b * s + row) * h + hd) * D + c) =
-        pack_bf16(x.x * scale, x.y * scale);
+        pack2<T>(x.x * scale, x.y * scale);
   if (row + 8 < s)
     *reinterpret_cast<uint32_t*>(dq + ((b * s + row + 8) * h + hd) * D + c) =
-        pack_bf16(x.z * scale, x.w * scale);
+        pack2<T>(x.z * scale, x.w * scale);
 }
 
 // ------------------------------------------------------------------ launch
@@ -1356,28 +1152,35 @@ struct Args {
   cudaStream_t stream;
 };
 
+// the wgmma kernel takes both 16-bit types at every instantiated head
+// dim; dtype 0 float32, 1 bfloat16, 2 float16
+bool takes_wgmma(int dtype, int d) { return (dtype == 1 || dtype == 2) && d <= 128; }
+
 // scratch layout (bytes): delta and lse2 [num_bh][pitch] float32 each;
-// the wgmma kernel only: the dQ accumulator [num_bh][pitch][D] float32 and
-// the turn counters [num_bh][pitch / kBM] int32. pitch is S for the other
-// kernels and S rounded up to kBM for the wgmma kernel.
+// float16 only: dq_scale [num_bh][pitch] float32; the wgmma kernel only:
+// the dQ accumulator [num_bh][pitch][D] float32 and the turn counters
+// [num_bh][pitch / kBM] int32; float16 only: v_norms [num_bh][n_parts]
+// float32. pitch is S for the float32 kernels and S rounded up to kBM for
+// the wgmma kernel.
 struct Scratch {
-  int64_t pitch, m_tiles, n_turns, delta, lse2, dq_acc, turns, bytes;
-  Scratch(int64_t num_bh, int64_t s, int64_t d, bool wgmma) {
+  int64_t pitch, m_tiles, n_turns, n_parts, delta, lse2, dq_scale, dq_acc, turns, v_norms,
+      bytes;
+  Scratch(int64_t num_bh, int64_t s, int64_t d, int dtype) {
+    const bool wgmma = takes_wgmma(dtype, static_cast<int>(d)), f16 = dtype == 2;
     m_tiles = (s + kBM - 1) / kBM;
     pitch = wgmma ? m_tiles * kBM : s;
     n_turns = wgmma ? num_bh * m_tiles : 0;
+    n_parts = f16 ? (s + kVRows - 1) / kVRows : 0;
     const int64_t rows = num_bh * pitch * 4;
     delta = 0;
     lse2 = rows;
-    dq_acc = 2 * rows;
+    dq_scale = 2 * rows;
+    dq_acc = dq_scale + (f16 ? rows : 0);
     turns = dq_acc + (wgmma ? rows * d : 0);
-    bytes = turns + n_turns * 4;
+    v_norms = turns + n_turns * 4;
+    bytes = v_norms + num_bh * n_parts * 4;
   }
 };
-
-// the wgmma kernel takes bfloat16 at every instantiated head dim; dtype 0
-// float32, 1 bfloat16, 2 float16
-bool takes_wgmma(int dtype, int d) { return dtype == 1 && d <= 128; }
 
 template <typename T, int D>
 cudaError_t launch_prep(const Args& a, const Scratch& sc) {
@@ -1389,55 +1192,67 @@ cudaError_t launch_prep(const Args& a, const Scratch& sc) {
   flash_bwd_prep_kernel<T, D><<<static_cast<unsigned>(blocks), 256, 0, a.stream>>>(
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.lse,
       reinterpret_cast<float*>(base + sc.delta), reinterpret_cast<float*>(base + sc.lse2),
+      reinterpret_cast<float*>(base + sc.dq_scale),
+      reinterpret_cast<const float*>(base + sc.v_norms), static_cast<int>(sc.n_parts),
       reinterpret_cast<int*>(base + sc.turns), rows, a.s, a.h, static_cast<int>(sc.pitch),
       pad_rows, sc.n_turns);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(const Args& a) {
-  using B = __nv_bfloat16;
-  const Scratch sc(a.num_bh, a.s, D, true);
-  cudaError_t err = launch_prep<B, D>(a, sc);
+template <typename T, int D>
+cudaError_t launch_wgmma(const Args& a) {
+  constexpr bool kHalf = std::is_same_v<T, __half>;
+  const Scratch sc(a.num_bh, a.s, D, kHalf ? 2 : 1);
+  char* base = static_cast<char*>(a.scratch);
+  cudaError_t err;
+  if constexpr (kHalf) {  // the largest norm of v's rows, a part of each bh
+    const int64_t blocks = sc.n_parts * a.num_bh;
+    if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+    flash_bwd_vnorm_kernel<D><<<static_cast<unsigned>(blocks), 256, 0, a.stream>>>(
+        static_cast<const __half*>(a.v), a.vs, a.s, a.h, static_cast<int>(sc.n_parts),
+        reinterpret_cast<float*>(base + sc.v_norms));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  err = launch_prep<T, D>(a, sc);
   if (err != cudaSuccess) return err;
 
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   const int64_t bsh = static_cast<int64_t>(a.s) * a.h * D;
   const Strides os{bsh, static_cast<int64_t>(a.h) * D, D};
-  if (!tensor_map(&tm_q, a.q, a.b, a.s, a.h, D, a.qs, kBM) ||
-      !tensor_map(&tm_k, a.k, a.b, a.s, a.h, D, a.ks, kBM) ||
-      !tensor_map(&tm_v, a.v, a.b, a.s, a.h, D, a.vs, kBM) ||
-      !tensor_map(&tm_do, a.dout, a.b, a.s, a.h, D, os, kBM))
+  if (!tensor_map<T>(&tm_q, a.q, a.b, a.s, a.h, D, a.qs, kBM) ||
+      !tensor_map<T>(&tm_k, a.k, a.b, a.s, a.h, D, a.ks, kBM) ||
+      !tensor_map<T>(&tm_v, a.v, a.b, a.s, a.h, D, a.vs, kBM) ||
+      !tensor_map<T>(&tm_do, a.dout, a.b, a.s, a.h, D, os, kBM))
     return cudaErrorInvalidValue;
   const int64_t n_blocks = (static_cast<int64_t>(a.s) + kBN - 1) / kBN;
   if (n_blocks * a.num_bh > INT32_MAX) return cudaErrorInvalidValue;
-  const int smem = BwdSmem<D>::kBytes + 1024;  // + the 1024-byte alignment
-  err = cudaFuncSetAttribute(flash_bwd_bf16_kernel<D>,
+  const int smem = BwdSmem<T, D>::kBytes + 1024;  // + the 1024-byte alignment
+  err = cudaFuncSetAttribute(flash_bwd_wgmma_kernel<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  char* base = static_cast<char*>(a.scratch);
   float* dq_acc = reinterpret_cast<float*>(base + sc.dq_acc);
-  flash_bwd_bf16_kernel<D><<<static_cast<unsigned>(n_blocks * a.num_bh), kThreads, smem,
-                             a.stream>>>(
+  const float* dq_scale = reinterpret_cast<const float*>(base + sc.dq_scale);
+  flash_bwd_wgmma_kernel<T, D><<<static_cast<unsigned>(n_blocks * a.num_bh), kThreads, smem,
+                                 a.stream>>>(
       tm_q, tm_k, tm_v, tm_do, reinterpret_cast<const float*>(base + sc.lse2),
-      reinterpret_cast<const float*>(base + sc.delta), dq_acc,
-      reinterpret_cast<int*>(base + sc.turns), static_cast<B*>(a.dk), static_cast<B*>(a.dv),
-      a.s, a.h, a.num_bh, static_cast<int>(sc.m_tiles), a.scale * kLog2e, a.scale,
-      a.causal);
+      reinterpret_cast<const float*>(base + sc.delta), dq_scale, dq_acc,
+      reinterpret_cast<int*>(base + sc.turns), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      a.s, a.h, a.num_bh, static_cast<int>(sc.m_tiles), a.scale * kLog2e, a.scale, a.causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const int64_t total = static_cast<int64_t>(a.num_bh) * sc.m_tiles * (D / 8) * 128;
   if ((total + 255) / 256 > INT32_MAX) return cudaErrorInvalidValue;
-  flash_bwd_dq_kernel<D><<<static_cast<unsigned>((total + 255) / 256), 256, 0, a.stream>>>(
-      reinterpret_cast<const float4*>(dq_acc), static_cast<B*>(a.dq), a.s, a.h,
+  flash_bwd_dq_kernel<T, D><<<static_cast<unsigned>((total + 255) / 256), 256, 0, a.stream>>>(
+      reinterpret_cast<const float4*>(dq_acc), dq_scale, static_cast<T*>(a.dq), a.s, a.h,
       static_cast<int>(sc.m_tiles), total, a.scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_f32(const Args& a) {
-  const Scratch sc(a.num_bh, a.s, D, false);
+  const Scratch sc(a.num_bh, a.s, D, 0);
   cudaError_t err = launch_prep<float, D>(a, sc);
   if (err != cudaSuccess) return err;
   const char* base = static_cast<const char*>(a.scratch);
@@ -1462,50 +1277,15 @@ cudaError_t launch_f32(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_mma(const Args& a) {
-  using Tile = MmaBwdTile<D>;
-  const Scratch sc(a.num_bh, a.s, D, false);
-  cudaError_t err = launch_prep<T, D>(a, sc);
-  if (err != cudaSuccess) return err;
-  const char* base = static_cast<const char*>(a.scratch);
-  const float* delta = reinterpret_cast<const float*>(base + sc.delta);
-  const float* lse2 = reinterpret_cast<const float*>(base + sc.lse2);
-  const int64_t num_tiles = (static_cast<int64_t>(a.s) + Tile::kRows - 1) / Tile::kRows;
-  if (num_tiles * a.num_bh > INT32_MAX) return cudaErrorInvalidValue;
-  const unsigned blocks = static_cast<unsigned>(num_tiles * a.num_bh);
-  const float scale_log2e = a.scale * kLog2e;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Tile::kDkdvBytes);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_mma_kernel<T, D><<<blocks, 128, Tile::kDkdvBytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), lse2, delta, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.s, a.h, a.num_bh, a.qs, a.ks, a.vs, scale_log2e, a.scale,
-      a.causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kDqBytes);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_mma_kernel<T, D><<<blocks, 128, Tile::kDqBytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), lse2, delta, static_cast<T*>(a.dq), a.s, a.h,
-      static_cast<int>(num_tiles), a.num_bh, a.qs, a.ks, a.vs, scale_log2e, a.scale,
-      a.causal);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t dispatch_d(int dtype, const Args& a) {
   switch (dtype) {
     case 0:
       return launch_f32<D>(a);
-    case 1:  // takes_wgmma(1, D)
-      return launch_bf16<D>(a);
+    case 1:  // takes_wgmma(dtype, D) for the 16-bit types
+      return launch_wgmma<__nv_bfloat16, D>(a);
     case 2:
-      return launch_mma<__half, D>(a);
+      return launch_wgmma<__half, D>(a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1533,7 +1313,7 @@ cudaError_t dispatch(int d, int dtype, const Args& a) {
 extern "C" int64_t swtpu_flash_attention_bwd_scratch_bytes(int b, int s, int h, int d,
                                                            int dtype) {
   if (b <= 0 || s <= 0 || h <= 0) return 0;
-  return Scratch(static_cast<int64_t>(b) * h, s, d, takes_wgmma(dtype, d)).bytes;
+  return Scratch(static_cast<int64_t>(b) * h, s, d, dtype).bytes;
 }
 
 // q, k, v: [b, s, h, d] of float32 (dtype 0), bfloat16 (1) or float16 (2)
@@ -1546,7 +1326,7 @@ extern "C" int64_t swtpu_flash_attention_bwd_scratch_bytes(int b, int s, int h, 
 // ``stream``. d is 16, 32, 64 or 128; the 16-bit types also need every
 // base pointer 16-byte aligned and every stride a multiple of 8. sm_scale
 // is the forward's scale (any sign). Returns the first cudaGetLastError()
-// that is not cudaSuccess after each of the three launches
+// that is not cudaSuccess after each launch (three; four in float16)
 // (cudaErrorInvalidValue for a head dim, type or grid the kernels do not
 // take, or a view that no tensor map describes).
 extern "C" int swtpu_flash_attention_bwd(

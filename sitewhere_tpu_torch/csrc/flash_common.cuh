@@ -3,7 +3,7 @@
 // the (batch, row, head) strides of a [B, S, H, D] view, the constants, the
 // shared-memory address, the exp2 and 16-bit pack helpers (both), and the
 // cp.async copies, ldmatrix and the bf16 / fp16 mma.sync m16n8k16 product
-// (the forward, and the backward's mma.sync kernels).
+// (the forward's mma.sync kernel).
 // Each .cu file includes it and builds into a library of its own
 // (cuda_build.py hashes this header with it).
 

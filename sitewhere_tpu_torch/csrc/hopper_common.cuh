@@ -1,10 +1,11 @@
 // Hopper building blocks shared by the flash-attention kernels on wgmma
 // and TMA (flash_attention.cu, the forward at D = 128; flash_attention_bwd.cu,
-// the bf16 backward): mbarriers, TMA and bulk copies, the turn counters'
-// acquire / release, named barriers, the wgmma wrappers and shared-memory
-// matrix descriptors, and the host-side tensor maps of a strided
-// [B, S, H, D] view. Each .cu file includes it and builds into a library of
-// its own (cuda_build.py hashes every csrc/*.cuh with each source).
+// the backward; both in bf16 and fp16): mbarriers, TMA and bulk copies, the
+// turn counters' acquire / release, named barriers, the wgmma wrappers and
+// shared-memory matrix descriptors, and the host-side tensor maps of a
+// strided [B, S, H, D] view. Each .cu file includes it and builds into a
+// library of its own (cuda_build.py hashes every csrc/*.cuh with each
+// source).
 //
 // Layout rule of every tile these kernels read through TMA: a box is
 // min(D, 64) columns of 16-bit elements, so a box row is 32, 64 or 128
@@ -175,160 +176,107 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>(layout) << 62);
 }
 
-// wgmma m64nNk16, bf16 in, float32 accumulators: d[4 j + r] of a thread
-// (lane = 4 g + t, warp w of the warpgroup) is row 16 w + g + 8 (r >> 1),
-// column 8 j + 2 t + (r & 1); the register A fragment of a k16 step is the
-// mma.m16n8k16 one, so an accumulator's columns 16 kk .. 16 kk + 15, packed
-// in pairs, are the A operand of the next product's step kk
+// wgmma m64nNk16, 16-bit inputs (bf16 or fp16: T), float32 accumulators:
+// d[4 j + r] of a thread (lane = 4 g + t, warp w of the warpgroup) is row
+// 16 w + g + 8 (r >> 1), column 8 j + 2 t + (r & 1); the register A
+// fragment of a k16 step is the mma.m16n8k16 one, so an accumulator's
+// columns 16 kk .. 16 kk + 15, packed in pairs, are the A operand of the
+// next product's step kk. The instruction text of each width, its input
+// type (TY: "bf16" or "f16") left open, and the accumulators as operands:
+#define SWTPU_WGMMA_SS_16(TY)                                                   \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                              \
+  "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " "                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+#define SWTPU_WGMMA_RS_16(TY)                                                   \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                              \
+  "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " "                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+#define SWTPU_WGMMA_SS_32(TY)                                                   \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                              \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+#define SWTPU_WGMMA_RS_32(TY)                                                   \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                              \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+#define SWTPU_WGMMA_SS_64(TY)                                                   \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                              \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+#define SWTPU_WGMMA_RS_64(TY)                                                   \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                              \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+#define SWTPU_WGMMA_SS_128(TY)                                                   \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                              \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+#define SWTPU_WGMMA_RS_128(TY)                                                   \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                              \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+#define SWTPU_ACC8(o) \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), "+f"(d[o + 5]), \
+  "+f"(d[o + 6]), "+f"(d[o + 7])
+#define SWTPU_ACC_16 SWTPU_ACC8(0)
+#define SWTPU_ACC_32 SWTPU_ACC8(0), SWTPU_ACC8(8)
+#define SWTPU_ACC_64 SWTPU_ACC8(0), SWTPU_ACC8(8), SWTPU_ACC8(16), SWTPU_ACC8(24)
+#define SWTPU_ACC_128 SWTPU_ACC8(0), SWTPU_ACC8(8), SWTPU_ACC8(16), SWTPU_ACC8(24), SWTPU_ACC8(32), SWTPU_ACC8(40), SWTPU_ACC8(48), SWTPU_ACC8(56)
+// the asm of one product with T's input type; the operands follow
+#define SWTPU_WGMMA_ASM(TEXT, ACC, ...)                         \
+  if constexpr (std::is_same_v<T, __half>)                      \
+    asm volatile(TEXT("f16") : ACC : __VA_ARGS__);              \
+  else                                                          \
+    asm volatile(TEXT("bf16") : ACC : __VA_ARGS__)
+
 template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  // d [64, 16] (+)= A (shared, descriptor a) B (shared, descriptor b)
-  template <int kTransA, int kTransB>
-  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b,
+struct Wgmma {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "N must be 16, 32, 64 or 128");
+  // d [64, N] (+)= A (shared, descriptor a) B (shared, descriptor b)
+  template <int kTransA, int kTransB, typename T = __nv_bfloat16>
+  static __device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t a, uint64_t b,
                                             int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+    if constexpr (N == 16) {
+      SWTPU_WGMMA_ASM(SWTPU_WGMMA_SS_16, SWTPU_ACC_16, "l"(a), "l"(b), "r"(accumulate),
+                      "n"(kTransA), "n"(kTransB));
+    } else if constexpr (N == 32) {
+      SWTPU_WGMMA_ASM(SWTPU_WGMMA_SS_32, SWTPU_ACC_32, "l"(a), "l"(b), "r"(accumulate),
+                      "n"(kTransA), "n"(kTransB));
+    } else if constexpr (N == 64) {
+      SWTPU_WGMMA_ASM(SWTPU_WGMMA_SS_64, SWTPU_ACC_64, "l"(a), "l"(b), "r"(accumulate),
+                      "n"(kTransA), "n"(kTransB));
+    } else {
+      SWTPU_WGMMA_ASM(SWTPU_WGMMA_SS_128, SWTPU_ACC_128, "l"(a), "l"(b), "r"(accumulate),
+                      "n"(kTransA), "n"(kTransB));
+    }
   }
-  // d [64, 16] += A (registers, the m64k16 fragment) B (shared, descriptor b)
-  template <int kTransB>
-  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4],
+  // d [64, N] += A (registers, the m64k16 fragment) B (shared, descriptor b)
+  template <int kTransB, typename T = __nv_bfloat16>
+  static __device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                             uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
-          "n"(kTransB));
+    if constexpr (N == 16) {
+      SWTPU_WGMMA_ASM(SWTPU_WGMMA_RS_16, SWTPU_ACC_16, "r"(a[0]), "r"(a[1]), "r"(a[2]),
+                      "r"(a[3]), "l"(b), "r"(accumulate), "n"(kTransB));
+    } else if constexpr (N == 32) {
+      SWTPU_WGMMA_ASM(SWTPU_WGMMA_RS_32, SWTPU_ACC_32, "r"(a[0]), "r"(a[1]), "r"(a[2]),
+                      "r"(a[3]), "l"(b), "r"(accumulate), "n"(kTransB));
+    } else if constexpr (N == 64) {
+      SWTPU_WGMMA_ASM(SWTPU_WGMMA_RS_64, SWTPU_ACC_64, "r"(a[0]), "r"(a[1]), "r"(a[2]),
+                      "r"(a[3]), "l"(b), "r"(accumulate), "n"(kTransB));
+    } else {
+      SWTPU_WGMMA_ASM(SWTPU_WGMMA_RS_128, SWTPU_ACC_128, "r"(a[0]), "r"(a[1]), "r"(a[2]),
+                      "r"(a[3]), "l"(b), "r"(accumulate), "n"(kTransB));
+    }
   }
 };
 
-template <>
-struct Wgmma<32> {
-  // d [64, 32] (+)= A (shared, descriptor a) B (shared, descriptor b)
-  template <int kTransA, int kTransB>
-  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
-  }
-  // d [64, 32] += A (registers, the m64k16 fragment) B (shared, descriptor b)
-  template <int kTransB>
-  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
-                                            uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
-          "n"(kTransB));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  // d [64, 64] (+)= A (shared, descriptor a) B (shared, descriptor b)
-  template <int kTransA, int kTransB>
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
-  }
-  // d [64, 64] += A (registers, the m64k16 fragment) B (shared, descriptor b)
-  template <int kTransB>
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
-          "n"(kTransB));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  // d [64, 128] (+)= A (shared, descriptor a) B (shared, descriptor b)
-  template <int kTransA, int kTransB>
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
-  }
-  // d [64, 128] += A (registers, the m64k16 fragment) B (shared, descriptor b)
-  template <int kTransB>
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
-          "n"(kTransB));
-  }
-};
-
-
-// the accumulator's 16 kk .. 16 kk + 15 columns as bf16 A fragments
-template <int N>
+// the accumulator's 16 kk .. 16 kk + 15 columns as A fragments of T
+template <typename T, int N>
 __device__ __forceinline__ void pack_a(const float (&c)[N], uint32_t (&a)[N / 8][4]) {
 #pragma unroll
   for (int kk = 0; kk < N / 8; ++kk) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(c[8 * kk + 2 * e], c[8 * kk + 2 * e + 1]);
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack2<T>(c[8 * kk + 2 * e], c[8 * kk + 2 * e + 1]);
   }
 }
 
@@ -359,10 +307,11 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a [B, S, H, D] bf16 view (element strides st, unit stride on D) as a 4-d
-// (d, head, row, batch) tensor map whose box is `rows` rows of one head and
-// min(D, 64) columns (a d-box), swizzled by the box's row width; rows past
-// S read as zeros
+// a [B, S, H, D] view of T (bf16 or fp16; element strides st, unit stride
+// on D) as a 4-d (d, head, row, batch) tensor map whose box is `rows` rows
+// of one head and min(D, 64) columns (a d-box), swizzled by the box's row
+// width; rows past S read as zeros
+template <typename T>
 bool tensor_map(CUtensorMap* map, const void* ptr, int b, int s, int h, int d,
                 Strides st, int rows) {
   const EncodeTiled fn = encode_tiled();
@@ -379,7 +328,10 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int b, int s, int h, int d,
   const CUtensorMapSwizzle swizzle = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+  const CUtensorMapDataType type = std::is_same_v<T, __half>
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return fn(map, type, 4, const_cast<void*>(ptr), dims,
             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -23,16 +23,15 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
     P, rounded to bf16, is the A operand of the P·V product without a
     trip through shared memory. The products leave the CUDA cores; what
     is left there is the softmax around one exponential per pair.
-  * bfloat16 at D = 128: FA3's forward on Hopper's ``wgmma`` and TMA,
-    warp-specialised. A block owns 128 query rows (two compute warpgroups
-    of 64); one thread brings Q once and K/V tiles of 128 keys through TMA
-    into a 2-stage mbarrier ring; S = Q K^T and O += P V are ``wgmma``
-    products, P (bf16) the register A operand of the second. At this
-    width the products, not the exponentials, bound the kernel.
-  * float16: the ``mma.sync`` kernel with float16 fragments and the
-    float16 ``mma.sync``; at D = 128 its Q fragments are read from a
-    shared Q tile each key tile (in registers they would take 64 beside
-    O's 128), as FA2 does at that width.
+  * bfloat16 and float16 at D = 128: FA3's forward on Hopper's ``wgmma``
+    and TMA, warp-specialised. A block owns 128 query rows (two compute
+    warpgroups of 64); one thread brings Q once and K/V tiles of 128 keys
+    through TMA into a 2-stage mbarrier ring; S = Q K^T and O += P V are
+    ``wgmma`` products, P (in the input type) the register A operand of
+    the second. At this width the products, not the exponentials, bound
+    the kernel.
+  * float16 up to D = 64: the ``mma.sync`` kernel with float16 fragments
+    and the float16 ``mma.sync``.
   * float32 design: one thread per query row with float32 products on the
     CUDA cores (tensor cores would mean TF32, too coarse for the float32
     tolerance); not on the transformer's path.
@@ -49,19 +48,21 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
   * The forward can also write each row's log-sum-exp (``lse`` [B, H, S]
     float32, natural log), which the backward recomputes P from.
 
-Backward kernel: ``csrc/flash_attention_bwd.cu``. For bfloat16 at every
-head dim, FA3's backward for Hopper: one pass over the (query, key) pairs
-(five ``wgmma`` products and one exponential a pair; Q and dO tiles
-through TMA into an mbarrier ring, warp-specialised), dQ summed in float32
-across key blocks in a fixed order (a turn counter per query tile), so a
-gradient is bitwise the same from run to run. At D = 128 each tile is two
-64-column boxes of 128-byte swizzle, and each compute warpgroup takes 64
-of dQ's columns over the block's 128 keys. float32 keeps two CUDA-core
-kernels, each element summed by one thread. float16 at every D takes two
-``mma.sync`` kernels (dK/dV a key block, dQ a query block, each element
-summed by one thread, so also bitwise the same run to run): its rows of
-P^T and dS^T are scaled by a power of two each, which the one-pass
-kernel's dQ, a sum over a block's keys, could not undo. It replaces no
+Backward kernel: ``csrc/flash_attention_bwd.cu``. For bfloat16 and
+float16 at every head dim, FA3's backward for Hopper: one pass over the
+(query, key) pairs (five ``wgmma`` products and one exponential a pair; Q
+and dO tiles through TMA into an mbarrier ring, warp-specialised), dQ
+summed in float32 across key blocks in a fixed order (a turn counter per
+query tile), so a gradient is bitwise the same from run to run. At D = 128
+each tile is two 64-column boxes of 128-byte swizzle, and each compute
+warpgroup takes 64 of dQ's columns over the block's 128 keys. float16's 5
+exponent bits would lose a long row's small entries of P and dS, so the
+float16 kernel scales them by powers of two: a key's rows of P^T and dS^T
+(the dV and dK operands) by a running per-row scale, and a query's row of
+dS (the dQ operand) by a power of two fixed before the kernel runs from a
+bound on |dS| (:func:`f16_dq_scale_exponents` is its plain version), so
+that the sum over key blocks stays in one unit. float32 keeps two
+CUDA-core kernels, each element summed by one thread. It replaces no
 Pallas kernel: the JAX trainer
 (``sitewhere_tpu/models/transformer.py:153``) differentiates the oracle
 ``mha_reference``, and this is that gradient.
@@ -156,6 +157,35 @@ def mha_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf).mul_(scale)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).mul_(scale)
     return tuple(g.to(q.dtype).contiguous() for g in (dq, dk, dv))
+
+
+# the float16 backward scales each query's row of dS by 2^e_i before the
+# dQ product: the row's bound times 2^e_i lies below 2^F16_DQ_TOP, one
+# power of two below the 2^15 that float16 (largest 65504) must not reach
+F16_DQ_TOP = 14
+
+
+def f16_dq_scale_exponents(o: torch.Tensor, do: torch.Tensor,
+                           v: torch.Tensor) -> torch.Tensor:
+    """The power of two e_i ([B, H, S] int32) by which the float16 backward
+    kernel scales query i's row of dS before rounding it to float16 for
+    dQ = dS K, fixed before the kernel runs so that the same 2^e_i holds
+    for every key block and the float32 dQ sum stays in one unit (taken
+    off at the end). From the bound |dS_ij| = P_ij |dO_i . (v_j - o_i)|
+    <= ||dO_i|| (max_j ||v_j|| + ||o_i||) (P <= 1, Cauchy-Schwarz), the
+    max over the (batch, head)'s keys: e_i = F16_DQ_TOP - x with bound <
+    2^x, at most 126; 0 where the bound is 0 (the row of dS is 0 then) or
+    not finite. The plain version of the kernel's prep pass (float32 norms;
+    the kernel sums them in its own order), used by the tests, never on
+    the card's path."""
+    dn = do.float().norm(dim=-1)                              # [B, S, H]
+    on = o.float().norm(dim=-1)
+    vmax = v.float().norm(dim=-1).amax(dim=1, keepdim=True)   # [B, 1, H]
+    bound = dn * (vmax + on)
+    _, x = torch.frexp(bound)                                 # bound < 2^x
+    e = (F16_DQ_TOP - x).clamp(max=126)
+    e = torch.where((bound > 0) & torch.isfinite(bound), e, 0)
+    return e.to(torch.int32).transpose(1, 2).contiguous()
 
 
 def gradient_row_shares(got: torch.Tensor, ref: torch.Tensor, which: str, *,
@@ -314,8 +344,9 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, sm_scale: float | None):
     size = lib.swtpu_flash_attention_bwd_scratch_bytes
     size.argtypes = [ctypes.c_int] * 5
     size.restype = ctypes.c_int64
-    # delta, lse2 and (the bf16 wgmma kernel) the float32 dQ accumulator
-    # and turn counters; the kernels initialise what they read
+    # delta, lse2 and (the 16-bit wgmma kernel) the float32 dQ accumulator
+    # and turn counters; float16 also the dQ scales and v's row norms; the
+    # kernels initialise what they read
     scratch = torch.empty(size(b, s, h, dp, args[4]), dtype=torch.uint8, device=q.device)
     fn = lib.swtpu_flash_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
@@ -408,7 +439,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # launches of the CUDA kernels since each count was last reset to 0: the
 # forward (whatever wrapper launched it) and the backward (one a call of
-# the three-launch backward: prep pass, main kernel, then dQ to bf16 for
-# bfloat16 or dQ for float32)
+# the backward's launches: prep pass, main kernel, then dQ to the 16-bit
+# type (float16 with v's row norms first), or dQ for float32)
 flash_attention.launches = 0
 flash_attention_backward.launches = 0

@@ -41,6 +41,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from sitewhere_tpu.ops import attention as jatt
 from sitewhere_tpu_torch.ops import attention as tatt
@@ -568,8 +570,11 @@ def emulate_bf16_backward(q, k, v, o, do, lse, *, causal: bool,
     whole block in one product), and the blocks' sums
     are added in float32 in key-block order; dq, dk and dv are rounded to
     q's type once. ``low`` is the type P and dS are rounded to: float16
-    for the float16 kernels (``round_rows``: a row of P^T or dS^T, or of dS
-    for dQ, scaled first), or bf16 under float16 inputs as a control."""
+    for the float16 kernel (``round_rows``: each key's row of P^T and dS^T
+    scaled first, as ``RowScale`` does; for dQ each query's row of dS
+    scaled by the fixed 2^e_i of ``tatt.f16_dq_scale_exponents``, which
+    the float32 sum keeps and the end takes off), or bf16 under float16
+    inputs as a control."""
     d = q.shape[-1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     c = scale * math.log2(math.e)
@@ -581,7 +586,12 @@ def emulate_bf16_backward(q, k, v, o, do, lse, *, causal: bool,
     if causal:
         p = p.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1), 0.0)
     ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
-    pb, dsb, dsq = round_rows(p, low, -2), round_rows(ds, low, -2), round_rows(ds, low, -1)
+    pb, dsb = round_rows(p, low, -2), round_rows(ds, low, -2)
+    if low == torch.float16:
+        f = torch.exp2(tatt.f16_dq_scale_exponents(o, do, v).float())[..., None]
+        dsq = (ds * f).to(low).float() / f
+    else:
+        dsq = ds.to(low).float()
     dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
     for t0 in range(0, s, q_tile):
         sl = slice(t0, t0 + q_tile)
@@ -646,7 +656,7 @@ def test_bf16_backward_arithmetic_takes_any_sign_of_scale(sm_scale, causal):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("s", [1, 65, 300])
 def test_bf16_wgmma_backward_arithmetic_at_d128_holds_to_jax_grad(s, causal, sm_scale):
-    """The D = 128 backward on wgmma (``flash_bwd_bf16_kernel<128>``):
+    """The D = 128 backward on wgmma (``flash_bwd_wgmma_kernel<bf16, 128>``):
     64-row query tiles, 128-key blocks whose dQ sums all 128 keys in one
     product (each compute warpgroup takes 64 of dQ's columns over the whole
     block: ``key_part`` 128), P and dS rounded to bf16. Every row of dq, dk
@@ -705,10 +715,13 @@ def test_f16_kernel_arithmetic_fits_the_tolerance(case):
     P averages out below the output's own float16 ulp)."""
     s, d, causal, sm_scale = case
     q, k, v, o, _, _ = _f16_case(s, d, causal, sm_scale)
-    got = emulate_bf16_kernel(q, k, v, causal=causal, sm_scale=sm_scale, low=torch.float16)
+    # 128-key tiles on the wgmma kernel at D = 128, 64 on mma.sync below
+    block_k = 128 if d > 64 else 64
+    got = emulate_bf16_kernel(q, k, v, causal=causal, sm_scale=sm_scale, low=torch.float16,
+                              block_k=block_k)
     assert got.dtype == torch.float16
     torch.testing.assert_close(got, o, **FLASH_TOL_F16)
-    control = emulate_bf16_kernel(q, k, v, causal=causal, sm_scale=sm_scale)
+    control = emulate_bf16_kernel(q, k, v, causal=causal, sm_scale=sm_scale, block_k=block_k)
     assert control.dtype == torch.float16
     if causal:
         assert _allclose_share(control, o) > FLASH_TOL_F16["rtol"]
@@ -716,16 +729,19 @@ def test_f16_kernel_arithmetic_fits_the_tolerance(case):
 
 @pytest.mark.parametrize("case", F16_CASES)
 def test_f16_backward_arithmetic_fits_the_tolerance(case):
-    """The float16 backward's arithmetic (P^T and dS^T a row scaled, then
+    """The float16 backward's arithmetic (a key's row of P^T and dS^T
+    scaled by its RowScale, a query's row of dS by its fixed 2^e_i, then
     rounded to float16) holds every row within GRAD_TOL_F16 of the plain
     backward, the float16 step off; rounded to bf16 instead, every
     gradient fails it."""
     s, d, causal, sm_scale = case
     q, k, v, o, do, lse = _f16_case(s, d, causal, sm_scale)
     plain = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=causal, sm_scale=sm_scale)
+    key_part = 128 if d > 64 else 64
     got = emulate_bf16_backward(q, k, v, o, do, lse, causal=causal, sm_scale=sm_scale,
-                                low=torch.float16)
-    control = emulate_bf16_backward(q, k, v, o, do, lse, causal=causal, sm_scale=sm_scale)
+                                low=torch.float16, key_part=key_part)
+    control = emulate_bf16_backward(q, k, v, o, do, lse, causal=causal, sm_scale=sm_scale,
+                                    key_part=key_part)
     for name, g, c, p in zip("qkv", got, control, plain):
         assert g.dtype == c.dtype == torch.float16
         assert_rows_close_of_max(g, p, GRAD_TOL_F16, f"d{name}", causal=causal,
@@ -733,6 +749,91 @@ def test_f16_backward_arithmetic_fits_the_tolerance(case):
         with pytest.raises(AssertionError, match="worst row err"):
             assert_rows_close_of_max(c, p, GRAD_TOL_F16, f"d{name}", causal=causal,
                                      atol=GRAD_ATOL, step=F16_STEP)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 200])
+def test_f16_one_pass_backward_arithmetic_fits_the_tolerance(s, d, causal):
+    """The float16 arithmetic of the one-pass kernel
+    (``flash_bwd_wgmma_kernel<__half, D>``): 64-row query tiles, 128-key
+    blocks whose dQ sums two 64-key parts (one part of 128 at D = 128), a
+    key's rows of P^T and dS^T scaled by its RowScale for dV and dK, a
+    query's row of dS by the fixed 2^e_i of ``f16_dq_scale_exponents`` for
+    dQ. Every row stays within GRAD_TOL_F16 of the plain backward after
+    the float16 step (measured <= 1.05e-3 up to S = 4096); the same
+    arithmetic rounded to bf16 fails the limit wherever anything is
+    rounded (at S = 1 P is 1 and dq = dk = 0: the control has nothing to
+    round there)."""
+    q, k, v, o, do, lse = _f16_case(s, d, causal, None)
+    plain = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=causal)
+    key_part = 128 if d > 64 else 64
+    got = emulate_bf16_backward(q, k, v, o, do, lse, causal=causal, low=torch.float16,
+                                key_part=key_part)
+    control = emulate_bf16_backward(q, k, v, o, do, lse, causal=causal, key_part=key_part)
+    for name, g, c, p in zip("qkv", got, control, plain):
+        assert g.dtype == torch.float16 and g.shape == q.shape
+        assert bool(torch.isfinite(g.float()).all())
+        assert_rows_close_of_max(g, p, GRAD_TOL_F16, f"d{name}", causal=causal,
+                                 atol=GRAD_ATOL, step=F16_STEP)
+        if s > 1:
+            with pytest.raises(AssertionError, match="worst row err"):
+                assert_rows_close_of_max(c, p, GRAD_TOL_F16, f"d{name}", causal=causal,
+                                         atol=GRAD_ATOL, step=F16_STEP)
+
+
+def _max_ds(q, k, v, o, do, lse, causal, sm_scale=None) -> torch.Tensor:
+    """max_j |dS_ij| [B, H, S] in float32: dS = P (dO v^T - delta), P from
+    the scores and ``lse``, delta = rowsum(dO o)."""
+    p = tatt._scores(q, k, causal, sm_scale).sub_(lse.float()[..., None]).exp_()
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)
+    ds = torch.einsum("bqhd,bkhd->bhqk", dof, v.float()).sub_(delta[..., None]).mul_(p)
+    return ds.abs().amax(-1)
+
+
+def _check_dq_scale(q, k, v, o, do, lse, causal) -> None:
+    """The kernel's guarantee and its tightness: max_j |dS_ij| 2^e_i below
+    2^F16_DQ_TOP (the bound is never below the largest entry; then below
+    2^15, where float16 still has room) and e_i the largest exponent the
+    bound allows (the bound times 2^(e_i + 1) reaches 2^F16_DQ_TOP, unless
+    e_i is at its cap of 126 or the bound is 0)."""
+    e = tatt.f16_dq_scale_exponents(o, do, v)
+    assert e.dtype == torch.int32 and e.shape == lse.shape
+    f = torch.exp2(e.double())
+    top = _max_ds(q, k, v, o, do, lse, causal).double()
+    assert bool((top * f < 2.0 ** tatt.F16_DQ_TOP).all())
+    assert bool((top * f < 2.0 ** 15).all())
+    bound = (do.double().norm(dim=-1) * (v.double().norm(dim=-1).amax(1, keepdim=True)
+                                         + o.double().norm(dim=-1))).transpose(1, 2)
+    loose = (bound * f * 2 < 2.0 ** tatt.F16_DQ_TOP * (1 - 1e-6)) & (e < 126) & (bound > 0)
+    assert not bool(loose.any())
+    assert bool((e[bound == 0] == 0).all())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s, d", [(1, 32), (63, 16), (200, 64), (300, 128)])
+def test_f16_dq_scale_exponents_bound_ds(s, d, causal):
+    """``f16_dq_scale_exponents`` (the prep pass's rule) against a float32
+    computation of max_j |dS_ij| on the float16 cases' inputs."""
+    _check_dq_scale(*_f16_case(s, d, causal, None), causal)
+
+
+@settings(max_examples=40, deadline=None)
+@given(s=st.sampled_from([1, 2, 17, 64]), d=st.sampled_from([16, 32]), causal=st.booleans(),
+       mag_do=st.integers(-20, 10), mag_v=st.integers(-20, 10), mag_qk=st.integers(-4, 2),
+       seed=st.integers(0, 2**16))
+def test_f16_dq_scale_exponents_hold_at_any_magnitude(s, d, causal, mag_do, mag_v, mag_qk, seed):
+    """The same guarantee over output gradients and values of magnitude
+    2^-20 (float16's subnormals, many entries lost) to 2^10, scores sharp
+    or flat, S = 1 and causal rows among them."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, s, 2, d)).astype(np.float32)
+                                    * 2.0 ** m).half()
+                   for m in (mag_qk, mag_qk, mag_v, mag_do))
+    o = tatt.mha_reference(q, k, v, causal=causal)
+    lse = tatt.lse_reference(q, k, causal=causal)
+    _check_dq_scale(q, k, v, o, do, lse, causal)
 
 
 def test_f16_rows_below_the_normal_range_need_the_step():
@@ -898,13 +999,15 @@ def test_backward_kernel_source_is_plain_c_for_sm90a():
     assert 'extern "C" int swtpu_flash_attention_bwd(' in src
     assert '#include "flash_common.cuh"' in src
     assert "torch/extension.h" not in src
-    # bfloat16 at every instantiated head dim takes one pass on Hopper's
-    # wgmma and TMA; the mma.sync kernels serve only float16 (takes_wgmma
-    # decides), and no atomic add decides an order (the bitwise check is on
+    # both 16-bit types at every instantiated head dim take one pass on
+    # Hopper's wgmma and TMA (takes_wgmma decides; no mma.sync backward is
+    # left), and no atomic add decides an order (the bitwise check is on
     # the card: test_cuda_backward_kernel_is_bitwise_deterministic)
     assert "wgmma.mma_async" in src and "cp.async.bulk.tensor" in src
-    assert "bool takes_wgmma(int dtype, int d) { return dtype == 1 && d <= 128; }" in src
-    assert "mma_bf16(" not in src
+    assert ("bool takes_wgmma(int dtype, int d) { return (dtype == 1 || dtype == 2) && d <= 128; }"
+            in src)
+    assert "mma_bf16(" not in src and "CU_TENSOR_MAP_DATA_TYPE_FLOAT16" in src
+    assert "mma_16816" not in (cuda_build.CSRC / "flash_attention_bwd.cu").read_text()
     assert "atomicAdd" not in src and "red.global.add" not in src
     assert 'extern "C" int64_t swtpu_flash_attention_bwd_scratch_bytes(' in src
     fwd = (cuda_build.CSRC / "flash_attention.cu").read_text()
@@ -912,12 +1015,13 @@ def test_backward_kernel_source_is_plain_c_for_sm90a():
 
 
 def test_forward_kernel_source_takes_wgmma_and_tma_at_d128():
-    """bf16 at D = 128 takes the warp-specialised forward on wgmma and TMA
-    (the tensor maps and the wrappers shared with the backward)."""
+    """Both 16-bit types at D = 128 take the warp-specialised forward on
+    wgmma and TMA (the tensor maps and the wrappers shared with the
+    backward)."""
     src = _translation_unit("flash_attention")
     assert "wgmma.mma_async" in src and "cp.async.bulk.tensor" in src
     assert "flash_attention_wgmma_kernel" in src
-    assert "std::is_same_v<T, __nv_bfloat16> && D == 128" in src
+    assert "if constexpr (sizeof(T) == 2 && D == 128)" in src
     assert "atomicAdd" not in src and "torch/extension.h" not in src
 
 
@@ -959,8 +1063,9 @@ BWD_GPU_CASES = [  # (B, S, H, D, dtype)
     (2, 65, 2, 100, torch.bfloat16),
     (2, 300, 2, 128, torch.float32),
     (2, 129, 2, 48, torch.float32),
-    # float16 (the mma.sync kernels at every head dim); at S = 4096 many
-    # P and dS entries of a row lie below float16's normal range
+    # float16 (the one-pass wgmma kernel at every head dim, its rows of P^T
+    # and dS^T and of dS scaled); at S = 4096 many P and dS entries of a
+    # row lie below float16's normal range
     (1, 4096, 2, 32, torch.float16),
     (1, 2048, 2, 128, torch.bfloat16),
     (2, 1000, 8, 32, torch.float16),
@@ -1003,9 +1108,9 @@ def test_cuda_backward_kernel_matches_plain_version(case, causal):
 @pytest.mark.parametrize("case", [c for c in BWD_GPU_CASES if c[4] != torch.float32])
 def test_cuda_backward_kernel_is_bitwise_deterministic(case, causal):
     """dQ is summed across key blocks in a fixed order (a turn counter per
-    query tile), dK and dV by one warpgroup each (the wgmma kernel); the
-    mma.sync kernels (float16, D = 128) sum each element in one thread:
-    two calls on the same inputs give the same bits."""
+    query tile; in float16 in units of each query's fixed 2^e_i), dK and dV
+    by one warpgroup each (the wgmma kernel, both 16-bit types at every
+    D): two calls on the same inputs give the same bits."""
     _cuda_or_skip()
     b, s, h, d, dtype = case
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1039,6 +1144,34 @@ def test_cuda_backward_kernel_takes_any_sign_of_scale(sm_scale, dtype):
         else:
             assert_rows_close_of_max(g, r, tol, f"d{name}", causal=True, atol=GRAD_ATOL,
                                      step=step)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_cuda_f16_takes_the_one_pass_backward(d):
+    """float16 runs the one-pass wgmma/TMA backward at every head dim
+    (``flash_bwd_wgmma_kernel<__half, D>``, after its norm and prep passes)
+    and, at D = 128, the wgmma/TMA forward, by the profiler's kernel names;
+    no mma.sync backward kernel runs."""
+    _cuda_or_skip()
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    qkv = torch.randn((1, 300, 3, 2, d), device="cuda", generator=gen).half()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((1, 300, 2, d), device="cuda", generator=gen).half()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        o, lse = tatt.flash_attention_forward(q, k, v, causal=True)
+        tatt.flash_attention_backward(q, k, v, o, do, lse, causal=True)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    fwd = "flash_attention_wgmma_kernel" if d == 128 else "flash_attention_bf16_kernel"
+    for kernel in (fwd, "flash_bwd_vnorm_kernel", "flash_bwd_prep_kernel",
+                   "flash_bwd_wgmma_kernel", "flash_bwd_dq_kernel"):
+        assert any(kernel in n and (kernel == "flash_bwd_vnorm_kernel" or "__half" in n)
+                   for n in names), (kernel, names)
+    assert not any("_mma_kernel" in n for n in names), names
 
 
 @pytest.mark.gpu
