@@ -892,15 +892,21 @@ def phase_kernel_flash_backward(device, log, fails, main=(TF_WINDOWS, TF_STEPS, 
 # the default model's in float16 ([8, 16384, 8, 32])
 C6_MAIN = (TF_WINDOWS, TF_STEPS, 2, 128)
 C6_F16_MAIN = (TF_WINDOWS, TF_STEPS, 8, 32)
-# timed only, at the windows and steps of C6_MAIN: the default model's
-# width (d_model 256) at D = 16 and D = 64, bf16
-C6_TIMED_HEADS = {"d16_bf16": (16, 16), "d64_bf16": (4, 64)}
+# checked and timed too, at the windows and steps of C6_MAIN, (heads, D,
+# dtype): the default model's width (d_model 256) at D = 64 in both 16-bit
+# types and the d_model=384, heads=8 model's D = 48 (padded to 64, the
+# copy included) in bf16
+C6_MAIN_HEADS = {"main_d64_bf16": (4, 64, torch.bfloat16),
+                 "main_d64_f16": (4, 64, torch.float16),
+                 "main_d48_bf16": (8, 48, torch.bfloat16)}
+# timed only, there: the default model's width at D = 16 in bf16
+C6_TIMED_HEADS = {"d16_bf16": (16, 16, torch.bfloat16)}
 
 
 def _c6_cases(device, gen) -> dict:
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     cases = {}
-    for dt, dims in ((bf16, (8, 48, 100, 128)), (f16, (8, 32, 48, 128)), (f32, (48, 128))):
+    for dt, dims in ((bf16, (8, 48, 100, 128)), (f16, (8, 32, 48, 64, 128)), (f32, (48, 128))):
         tag = {bf16: "bf16", f16: "f16", f32: "f32"}[dt]
         for d in dims:
             h = 2 if d >= 100 else 4
@@ -916,11 +922,22 @@ def _c6_cases(device, gen) -> dict:
         "d32_f16_scale-0.3": (fused_qkv(2, 333, 4, 32, f16, device, gen), True, -0.3),
         "d32_f16_scale0": (fused_qkv(2, 333, 4, 32, f16, device, gen), False, 0.0),
     }
-    # the padded head dims at the shapes transformer_c6 runs them at
-    for name in ("d8", "d48"):
-        cfg = TF_C6_CONFIGS[name]
-        cases[f"tf_{name}_bf16"] = (fused_qkv(*TF_C6_SHAPE, cfg.heads, cfg.d_model // cfg.heads,
-                                              bf16, device, gen), True, None)
+    # the wgmma forward at D = 64 in both 16-bit types: S of one key, one
+    # key past a tile, a ragged S, and both signs of scale that need care
+    for dt, tag in ((bf16, "bf16"), (f16, "f16")):
+        for n in (1, 65, 777, 1000):
+            for causal in (True, False):
+                cases[f"d64_{tag}_s{n}_{'causal' if causal else 'full'}"] = (
+                    fused_qkv(2, n, 4, 64, dt, device, gen), causal, None)
+        cases[f"d64_{tag}_scale-0.3"] = (fused_qkv(2, 333, 4, 64, dt, device, gen), True, -0.3)
+        cases[f"d64_{tag}_scale0"] = (fused_qkv(2, 333, 4, 64, dt, device, gen), False, 0.0)
+    # the padded head dims and D = 64 in both 16-bit types at the shapes
+    # transformer_c6 runs them at
+    for name, cfg_name in (("d8_bf16", "d8"), ("d48_bf16", "d48"), ("d64_bf16", "d64"),
+                           ("d64_f16", "f16_d64")):
+        cfg = TF_C6_CONFIGS[cfg_name]
+        cases[f"tf_{name}"] = (fused_qkv(*TF_C6_SHAPE, cfg.heads, cfg.d_model // cfg.heads,
+                                         cfg.dtype, device, gen), True, None)
     return cases
 
 
@@ -1007,24 +1024,30 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
     """The attention at every head dim and in float16 (fault C6): the
     forward, its ``lse`` and the backward against their plain versions at
     D = 8, 48 and 100 (zero-padded to 16, 64 and 128), D = 128 (its own
-    instantiations) in bf16 and float32, float16 at D = 8, 32, 48 and 128,
-    causal and not, S = 1 and a ragged S, contiguous inputs, a negative
-    and a zero scale, and D = 8 and 48 at the transformer_c6 shapes; each
+    instantiations) in bf16 and float32, float16 at D = 8, 32, 48, 64 and
+    128, causal and not, S = 1 and a ragged S, contiguous inputs, a negative
+    and a zero scale (at D = 64 in both 16-bit types, with S = 1, 65 and
+    777 and 1000), and D = 8, 48 and 64 (both types) at the
+    transformer_c6 shapes; each
     gradient row within GRAD_TOL of its largest element (bf16: or
     GRAD_ARITH_MARGIN times bf16's own arithmetic on the case, whichever is
     larger; float16: its subnormal step off, and the bf16-rounded control
-    must fail); two backward calls give the same bits at the main shapes.
-    Then times the forward and the backward against SDPA, causal, at the
-    d_model=256, heads=2 model's shape ``main`` in bf16 and float16, at the
-    default model's shape in float16 (``f16_main``) and, in bf16, at the
-    default model's width with D = 16 and 64 (``C6_TIMED_HEADS`` at
-    ``main``'s windows and steps), with the floors, and ptxas's registers
-    and spills of every D = 128 and float16 kernel."""
+    must fail); two backward calls give the same bits at the main shapes:
+    the d_model=256, heads=2 model's shape ``main`` in bf16 and float16,
+    the default model's shape in float16 (``f16_main``), and at ``main``'s
+    windows and steps the default model's width with D = 64 in both types
+    and the d48 model's full width (``C6_MAIN_HEADS``). Then times the
+    forward and the backward against SDPA, causal, at each main shape from
+    the checked tensors and at the default model's width with D = 16
+    (``C6_TIMED_HEADS``), with the floors, and ptxas's registers and
+    spills of every wgmma and float16 kernel."""
     gen = torch.Generator(device=device).manual_seed(5)
     cases = _c6_cases(device, gen)
     cases["main_d128_bf16"] = (fused_qkv(*main, torch.bfloat16, device, gen), True, None)
     cases["main_d128_f16"] = (fused_qkv(*main, torch.float16, device, gen), True, None)
     cases["main_f16"] = (fused_qkv(*f16_main, torch.float16, device, gen), True, None)
+    for name, (h, d, dt) in C6_MAIN_HEADS.items():
+        cases[name] = (fused_qkv(main[0], main[1], h, d, dt, device, gen), True, None)
     errs, launches = {}, {"flash_attention": 0, "flash_attention_backward": 0}
     saved = {}
     for name, ((q, k, v), causal, scale) in cases.items():
@@ -1082,17 +1105,18 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
         if q.dtype == torch.float16:
             # the control: P and dS rounded to bf16 must fail the float16
             # limits (the output under a causal mask, every gradient but
-            # at a zero scale, where dq = dk = 0 and P is one value a row)
+            # at a zero scale, where dq = dk = 0 and P is one value a row,
+            # and at S = 1, where P = 1 exactly and dq = dk = 0)
             c_out, *c_grads = bf16_rounded_reference(q, k, v, o, do, lse, causal, scale)
             ctl = {"out": _allclose_share(c_out, plain_per_window(q, k, v, causal, scale))}
             for t, g, r in zip("qkv", c_grads, ref):
                 ctl[f"d{t}_row_share"] = fa.gradient_row_shares(
                     g, r, f"d{t}", causal=causal, atol=GRAD_ATOL, step=step).max().item()
             e["bf16_control"] = ctl
-            if causal:
+            if causal and q.shape[1] > 1:
                 fails.check(ctl["out"] > tol, f"the bf16-rounded control passes the float16 "
                             f"output limit on C6 {name}: {ctl['out']} <= {tol}")
-            if scale != 0.0:
+            if scale != 0.0 and q.shape[1] > 1:
                 fails.check(all(ctl[f"d{t}_row_share"] > GRAD_TOL[q.dtype] for t in "qkv"),
                             f"the bf16-rounded control passes the float16 gradient limit "
                             f"on C6 {name}: {ctl}")
@@ -1107,9 +1131,9 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
         errs[name] = e
         del grads, ref, o, lse
     timings = {name: _c6_timings(*saved[name][:4], saved[name][4], device, reps)
-               for name in ("main_d128_bf16", "main_d128_f16", "main_f16")}
-    for name, (h, d) in C6_TIMED_HEADS.items():
-        q, k, v = fused_qkv(main[0], main[1], h, d, torch.bfloat16, device, gen)
+               for name in ("main_d128_bf16", "main_d128_f16", "main_f16", *C6_MAIN_HEADS)}
+    for name, (h, d, dt) in C6_TIMED_HEADS.items():
+        q, k, v = fused_qkv(main[0], main[1], h, d, dt, device, gen)
         do = torch.randn(q.shape, device=device, generator=gen).to(q.dtype)
         timings[name] = _c6_timings(q, k, v, do, True, device, reps)
         del q, k, v, do
@@ -1134,7 +1158,7 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
                 d.get("max_row_share_over_arithmetic", 0.0),
                 *(e[f"d{t}_row_share"] / max(e[f"d{t}_bf16_arithmetic_row_share"], 1e-30)
                   for t in "qkv"))
-        if "bf16_control" in e:
+        if "bf16_control" in e and cases[name][0][0].shape[1] > 1:   # as its checks
             c = e["bf16_control"]
             if cases[name][1]:
                 d["control_min_out_share_causal"] = min(
@@ -4168,35 +4192,42 @@ def phase_sharded(device, log, fails, seed: int, config: dict = SHARDED_CONFIG,
     return rec
 
 
-# the transformer configurations of fault C6 (head dims 128, 8 and 48, and
-# float16 at D = 32 and 128), each scored and trained one step on the card
+# the transformer configurations of fault C6 (head dims 128, 8, 48 and 64,
+# and float16 at D = 32, 64 and 128), each scored and trained one step on
+# the card
 TF_C6_CONFIGS = {"d128": TransformerConfig(d_model=256, heads=2),
                  "d8": TransformerConfig(heads=32),
                  "d48": TransformerConfig(d_model=384, heads=8),
+                 "d64": TransformerConfig(heads=4),
                  "f16": TransformerConfig(dtype=torch.float16),
+                 "f16_d64": TransformerConfig(heads=4, dtype=torch.float16),
                  "f16_d128": TransformerConfig(d_model=256, heads=2, dtype=torch.float16)}
 TF_C6_SHAPE = (2, 4096)
-# the full-width leg of transformer_c6: the head-dim-128 model on the
-# transformer phase's 8 windows of 16384 steps
-TF_C6_FULL = ("d128", (TF_WINDOWS, TF_STEPS))
+# the full-width legs of transformer_c6: the head-dim-128 and head-dim-64
+# models on the transformer phase's 8 windows of 16384 steps
+TF_C6_FULL = (("d128", (TF_WINDOWS, TF_STEPS)), ("d64", (TF_WINDOWS, TF_STEPS)))
 # the attention kernels a config must take on the card, by profiler name:
 # (kernel, its type argument, its head dim or None); and the names none may
 # take. Both 16-bit types run the one-pass wgmma/TMA backward at every D
-# and the wgmma/TMA forward at D = 128 (the mma.sync forward below it);
-# the mma.sync backward pair that float16 ran before is gone
+# and the wgmma/TMA forward at D = 64 and 128 (the mma.sync forward at 16
+# and 32); none may run the mma.sync backward pair
+_MMA_BWD = ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel")
 TF_C6_TAKES = {
-    "d128": (("flash_attention_wgmma_kernel", "__nv_bfloat16", None),
+    "d128": (("flash_attention_wgmma_kernel", "__nv_bfloat16", 128),
              ("flash_bwd_wgmma_kernel", "__nv_bfloat16", 128)),
+    "d48": (("flash_attention_wgmma_kernel", "__nv_bfloat16", 64),
+            ("flash_bwd_wgmma_kernel", "__nv_bfloat16", 64)),
+    "d64": (("flash_attention_wgmma_kernel", "__nv_bfloat16", 64),
+            ("flash_bwd_wgmma_kernel", "__nv_bfloat16", 64)),
     "f16": (("flash_attention_bf16_kernel", "__half", 32),
             ("flash_bwd_wgmma_kernel", "__half", 32)),
-    "f16_d128": (("flash_attention_wgmma_kernel", "__half", None),
+    "f16_d64": (("flash_attention_wgmma_kernel", "__half", 64),
+                ("flash_bwd_wgmma_kernel", "__half", 64)),
+    "f16_d128": (("flash_attention_wgmma_kernel", "__half", 128),
                  ("flash_bwd_wgmma_kernel", "__half", 128)),
 }
-TF_C6_NOT = {"d128": ("flash_attention_bf16_kernel", "flash_bwd_dkdv_mma_kernel",
-                      "flash_bwd_dq_mma_kernel"),
-             "f16": ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel"),
-             "f16_d128": ("flash_attention_bf16_kernel", "flash_bwd_dkdv_mma_kernel",
-                          "flash_bwd_dq_mma_kernel")}
+TF_C6_NOT = {"f16": _MMA_BWD} | {name: ("flash_attention_bf16_kernel", *_MMA_BWD)
+                                 for name in ("d128", "d48", "d64", "f16_d64", "f16_d128")}
 
 
 def _kernel_name(key: str) -> str | None:
@@ -4318,11 +4349,11 @@ def phase_transformer_c6(device, log, fails, seed: int, configs=None,
     reset just before and read just after: layers each), scores finite and
     the first window's within TF_SCORE_RTOL of the same model with the
     plain attention, the loss finite and every parameter finite after the
-    step; for the float16 configs one profiled scoring call and train step
-    more, whose attention kernels by profiler name must be those of
-    ``TF_C6_TAKES`` (the one-pass wgmma/TMA backward, at D = 128 the
-    wgmma/TMA forward) and none of ``TF_C6_NOT``. Then ``full`` (a config
-    name and a shape, or None): that config timed at full width
+    step; for the configs of ``TF_C6_TAKES`` one profiled scoring call and
+    train step more, whose attention kernels by profiler name must be those
+    of ``TF_C6_TAKES`` (the one-pass wgmma/TMA backward, at D = 64 and 128
+    the wgmma/TMA forward) and none of ``TF_C6_NOT``. Then ``full`` ((config
+    name, shape) pairs): each config timed at full width
     (``_c6_full_width``)."""
     from sitewhere_tpu_torch.models.anomaly import adamw
     from sitewhere_tpu_torch.models.transformer import make_train_step
@@ -4374,7 +4405,7 @@ def phase_transformer_c6(device, log, fails, seed: int, configs=None,
         fails.check(rec["score_rel_err_vs_plain"] <= TF_SCORE_RTOL,
                     f"transformer C6 {name}: kernel score {again[0].item()} vs plain "
                     f"{plain[0].item()}")
-        if cfg.dtype == torch.float16 and device.type == "cuda":
+        if name in TF_C6_TAKES and device.type == "cuda":
             ran = set(_profiled_attention(lambda: forecast_scores(model, x))["attention_kernels"])
             ran |= set(_profiled_attention(lambda: step(x))["attention_kernels"])
             ok, bad = _takes(ran, name)
@@ -4383,13 +4414,14 @@ def phase_transformer_c6(device, log, fails, seed: int, configs=None,
                             f"wrong: {bad}")
         out[name] = rec
         del model, step, x
-    full_rec = None
-    if full is not None:
-        full_rec = _c6_full_width(device, fails, seed, full[0], TF_C6_CONFIGS[full[0]], full[1])
+    full_recs = {}
+    for name, full_shape in full:
+        full_recs[name] = _c6_full_width(device, fails, seed, name, TF_C6_CONFIGS[name],
+                                         full_shape)
         for k in launches:
-            launches[k] += full_rec["launches"][k]
+            launches[k] += full_recs[name]["launches"][k]
     emit({"phase": "transformer_c6", "shape": list(shape), "configs": out,
-          "full_width": full_rec, "launches": launches, "score_rtol": TF_SCORE_RTOL}, log)
+          "full_width": full_recs, "launches": launches, "score_rtol": TF_SCORE_RTOL}, log)
     return launches
 
 
@@ -4439,11 +4471,13 @@ def main(argv=None) -> int:
         timing[name]["float16"] = c6["timings"]["main_f16"][part]
         timing[name]["float16_at_head_dim_128"] = c6["timings"]["main_d128_f16"][part]
         timing[name]["at_head_dim_16_bf16"] = c6["timings"]["d16_bf16"][part]
-        timing[name]["at_head_dim_64_bf16"] = c6["timings"]["d64_bf16"][part]
+        timing[name]["at_head_dim_64_bf16"] = c6["timings"]["main_d64_bf16"][part]
+        timing[name]["float16_at_head_dim_64"] = c6["timings"]["main_d64_f16"][part]
+        timing[name]["at_head_dim_48_bf16"] = c6["timings"]["main_d48_bf16"][part]
     timing["flash_attention_backward"]["c6_errors_by_dtype"] = c6["by_dtype"]
-    timing["flash_attention_backward"]["ptxas_d128_f16"] = {
+    timing["flash_attention_backward"]["ptxas_wgmma_f16"] = {
         k: v for k, v in c6["ptxas"].items() if k.startswith("flash_bwd")}
-    timing["flash_attention"]["ptxas_d128_f16"] = {
+    timing["flash_attention"]["ptxas_wgmma_f16"] = {
         k: v for k, v in c6["ptxas"].items() if k.startswith("flash_attention")}
     phase_entry(device, log, fails)
     launches, slice_step_ms, slice_eng = phase_slice(device, log, fails, args.seed,

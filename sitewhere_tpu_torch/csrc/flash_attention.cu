@@ -14,24 +14,28 @@
 //
 // Three kernels, chosen by dtype and head dim in swtpu_flash_attention:
 //
-// * bfloat16 and float16 at D = 128: FA3's forward on wgmma and TMA,
-//   warp-specialised (flash_attention_wgmma_kernel<T> below; the note
-//   there). At this width the products bind (at [8, 16384, 2, 128] causal
-//   1.112 ms of products against 0.51 ms of exponentials), and only wgmma
-//   reaches the tensor cores' full rate.
-// * bfloat16 and float16 up to D = 64 (bf16 is the transformer's path; the
-//   same kernel on float16 fragments and the float16 mma): tensor cores,
-//   FA2-style on mma.sync. A block of
+// * bfloat16 and float16 at D = 64 and 128: FA3's forward on wgmma and
+//   TMA, warp-specialised, with the softmax of one compute warpgroup
+//   running under the other's products and, within a warpgroup, under its
+//   own P V product of the tile before (flash_attention_wgmma_kernel<T, D>
+//   below; the note there). At D = 128 the products bind (at [8, 16384, 2,
+//   128] causal 1.112 ms of products against 0.51 ms of exponentials); at
+//   D = 64 the two cost about the same (at [8, 16384, 4, 64] causal 1.112
+//   ms and 1.028 ms), so only a kernel that overlaps them comes near the
+//   bound, and only wgmma reaches the tensor cores' full rate.
+// * bfloat16 and float16 at D = 16 and 32 (bf16 is the default
+//   transformer's path; the same kernel on float16 fragments and the
+//   float16 mma): tensor cores, FA2-style on mma.sync. A block of
 //   4 warps owns 128 query rows, 32 per warp as two m16 row tiles that
 //   share every K and V fragment the warp reads from shared memory (with
 //   16 rows a warp, shared-memory reads per score matched the exponential
 //   rate, and 64-row blocks read K/V from L2 twice as often). Q stays in
 //   registers as the A fragments of mma.sync.m16n8k16 (bf16 in, float32
-//   accumulate). K and V tiles of 64 keys go through a cp.async ring in
-//   shared memory (3 stages at D <= 32, 2 at D = 64), so the next tiles'
+//   accumulate). K and V tiles of 64 keys go through a 3-stage cp.async
+//   ring in shared memory, so the next tiles'
 //   copies overlap this tile's math; rows are padded by 16 bytes, so the
 //   ldmatrix reads of 8 rows hit 8 different bank groups. A register cap
-//   keeps 3 blocks (12 warps) an SM at D <= 32 to hide the dependent
+//   keeps 3 blocks (12 warps) an SM to hide the dependent
 //   product -> max -> exp -> product chain of each warp. S = Q K^T takes K
 //   fragments from ldmatrix.x4; the
 //   float32 scores get sm_scale*log2(e) inside the exp2 argument (one FFMA:
@@ -207,7 +211,7 @@ constexpr int kPad = 8;                        // 16-bit elements of padding a s
 
 template <int D>
 struct Bf16Tile {
-  static_assert(D % 16 == 0 && D <= 64, "D must be 16, 32 or 64");
+  static_assert(D == 16 || D == 32, "D must be 16 or 32");
   // two m16 row tiles a warp share every K/V fragment; Q stays in
   // registers as A fragments
   static constexpr int kMTiles = 2;
@@ -215,13 +219,12 @@ struct Bf16Tile {
   static constexpr int kBlockM = kWarpRows * kWarps;  // query rows a block
   static constexpr int kBlockN = 64;               // keys a shared-memory tile
   static constexpr int kRow = D + kPad;            // shared row, elements
-  static constexpr int kStages = D == 64 ? 2 : 3;  // cp.async ring depth
+  static constexpr int kStages = 3;                // cp.async ring depth
   static constexpr int kChunks = D / 8;            // 16-byte chunks a row
   static constexpr int kElems = kBlockN * kRow;    // one K or V tile
   static constexpr int kCopies = kBlockN * kChunks;  // 16-byte copies a tile
-  // blocks an SM must hold: at D <= 32 a cap of 168 registers keeps 3 (12
-  // warps); at D = 64 that cap spills, so it runs uncapped
-  static constexpr int kMinBlocks = D <= 32 ? 3 : 1;
+  // blocks an SM must hold: a cap of 168 registers keeps 3 (12 warps)
+  static constexpr int kMinBlocks = 3;
   static_assert(kBlockM <= 2 * kStages * kBlockN, "the output fits the ring");
 };
 
@@ -470,65 +473,172 @@ flash_attention_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------------- bfloat16 and float16 at D = 128: wgmma
+// ------------------------- bfloat16 and float16 at D = 64 and 128: wgmma
 
-// FA3's forward, kept simple: warp-specialised, wgmma and TMA. A block owns
-// (batch, head, 128 query rows): compute warpgroups 0 and 1 take 64 rows
-// each; in warpgroup 2 one thread issues the TMA loads (Q once, then K and
-// V tiles of 128 keys into a 2-stage ring guarded by mbarriers), and
-// setmaxnreg gives the compute warpgroups 232 registers a thread and
-// warpgroup 2 40. Each key tile, a compute warpgroup runs
-// * S = Q K^T by wgmma from shared memory (64 x 128 float32, 64 registers;
-//   8 k16 steps over Q's and K's two d-boxes, K-major);
-// * the online softmax in registers, the scale folded into one FMA before
-//   ex2.approx as in the mma.sync kernel (c > 0: a negative scale negates
-//   the warpgroup's Q tile in shared memory once, negation of a 16-bit
-//   float being exact; a zero scale runs as the smallest normal float);
-// * O += P V by wgmma with P, rounded to T (bf16 or fp16: P <= 1, as in
-//   the mma.sync kernel), as the register A operand (64 registers of O)
-//   and V MN-major across its two d-boxes.
-// Under a causal mask the key tiles past the block's last row are never
-// loaded and the diagonal tile is masked per element; so is the ragged last
-// key tile (TMA zero-fills keys and rows past S; padded rows are never
-// stored). The output goes out through the warpgroup's Q boxes as 16-byte
-// stores; lse as in the mma.sync kernel.
-constexpr int kFwdBM = 128;       // query rows a block: two compute warpgroups of 64
+// FA3's forward: warp-specialised, wgmma and TMA. A block owns (batch,
+// head, 64 kWGs query rows): compute warpgroups 0 .. kWGs-1 take 64 rows
+// each (kWGs = 2 at D = 128, 3 at D = 64); in the last warpgroup one
+// thread issues the TMA loads (Q once, then K and V tiles of 128 keys into
+// rings guarded by mbarriers, K and V each its own so a K tile is freed as
+// soon as S has read it), and setmaxnreg moves registers from it to the
+// compute warpgroups (232 a thread at D = 128, 160 at D = 64). A tile row
+// is D / 64 d-boxes of 64 columns (128-byte swizzle). Each key tile j, a
+// compute warpgroup runs
+// * S_j = Q K_j^T by wgmma from shared memory (64 x 128 float32, 64
+//   registers; D / 16 k16 steps over the d-boxes, K-major);
+// * the online softmax of S_j in registers, the scale folded into one FMA
+//   before ex2.approx as in the mma.sync kernel (c > 0: a negative scale
+//   negates the warpgroup's Q tile in shared memory once, negation of a
+//   16-bit float being exact; a zero scale runs as the smallest normal
+//   float);
+// * O += P_j V_j by wgmma with P, rounded to T (bf16 or fp16: P <= 1), as
+//   the register A operand (D / 2 registers of O) and V MN-major.
+// Bound (at D = 64, causal [8, 16384, 4, 64]: 4.3e9 live pairs): the
+// products (1.11 ms at 989 TFLOP/s) and the exponentials (1.03 ms at 16 per
+// SM per clock) cost about the same, and the softmax's other instructions
+// (a max, an FMA, an add, half a pack and half a rescale a pair) nearly as
+// much issue time, so the kernel must keep all three going at once:
+// * within a warpgroup, P_{j-1} V_{j-1} is issued once S_j and its row max
+//   are in, and runs while the warpgroup takes the exponentials of S_j (O
+//   is rescaled by tile j-1's factor under S_j, and P_j packed after the
+//   product, so O, S and P take 32 + 64 + 32 registers at D = 64; the row
+//   max comes first because its warp shuffles cannot run under a
+//   register-operand wgmma);
+// * between the warpgroups, a turn (named barriers kFwdTurn + wg, passed
+//   round as soon as S is issued) orders their products on the tensor
+//   cores, so one's softmax runs under another's wgmma;
+// * at D = 64 a third compute warpgroup gives each scheduler three warps to
+//   issue from: with two, the kernel ran at SDPA's time with the
+//   exponentials or half the products taken out alike, bound by the
+//   latency of each warp's instruction stream, not by a unit.
+// The arithmetic and its order per element are those of the serial chain
+// (O *= alpha_j, then O += P_j V_j), so the outputs do not depend on the
+// overlap. Under a causal mask the key tiles past the block's last row are
+// never loaded and the last kMaskTiles tiles (those that can hold the
+// diagonal or the ragged tail of keys) are masked per element (TMA
+// zero-fills keys and rows past S; padded rows are never stored). The
+// output goes out through the warpgroup's Q boxes (16-byte chunks
+// XOR-swizzled by row) as 16-byte stores; lse as in the mma.sync kernel.
 constexpr int kFwdBN = 128;       // keys a tile
-constexpr int kFwdStages = 2;     // K / V ring depth
-constexpr int kFwdThreads = 384;  // compute warpgroups 0, 1; producer warpgroup 2
-constexpr int kFwdComputeRegs = 232;
-constexpr int kFwdProducerRegs = 40;
+constexpr int kFwdTurn = 4;       // named barriers 4 + wg: warpgroup wg's turn (1 + wg: its own)
 
-struct FwdSmem {  // D = 128; byte offsets from a 1024-byte aligned base
+// the block at head dim D: kWGs compute warpgroups of 64 query rows and
+// one producer warpgroup, setmaxnreg's registers for each (the register
+// file's 65,536 at most), and the shared memory layout, byte offsets from
+// a 1024-byte aligned base
+template <int D>
+struct FwdSmem {
+  static_assert(D == 64 || D == 128, "the wgmma forward takes D = 64 or 128");
+  static constexpr int kWGs = D == 64 ? 3 : 2;       // compute warpgroups
+  static constexpr int kBM = 64 * kWGs;              // query rows a block
+  static constexpr int kThreads = 128 * (kWGs + 1);
+  static constexpr int kComputeRegs = D == 64 ? 160 : 232;
+  static constexpr int kProducerRegs = D == 64 ? 32 : 40;
+  static_assert(128 * (kWGs * kComputeRegs + kProducerRegs) <= 65536, "past the register file");
+  // the key tiles that can hold the diagonal or the tail of keys: the last
+  // ceil(kBM / kFwdBN)
+  static constexpr int kMaskTiles = (kBM + kFwdBN - 1) / kFwdBN;
+  static constexpr int kBoxes = D / 64;              // 64-column d-boxes a row
+  static constexpr int kStages = D == 64 ? 4 : 2;    // K ring and V ring depth
   static constexpr int kRowB = 128;                  // a d-box row: 64 elements
   static constexpr int kQBox = 64 * kRowB;           // a d-box of a warpgroup's rows
   static constexpr int kKVBox = kFwdBN * kRowB;      // a d-box of a K or V tile
-  static constexpr int kKVTile = 2 * kKVBox;
-  static constexpr int kQ = 0;                       // Q [2 warpgroups][2 d-boxes][64][64]
-  static constexpr int kK = kQ + 4 * kQBox;          // K [kFwdStages][2 d-boxes][kFwdBN][64]
-  static constexpr int kV = kK + kFwdStages * kKVTile;
-  static constexpr int kBar = kV + kFwdStages * kKVTile;  // full[2], empty[2], q
-  static constexpr int kBytes = kBar + (2 * kFwdStages + 1) * 8;
+  static constexpr int kKVTile = kBoxes * kKVBox;
+  static constexpr int kQ = 0;                       // Q [kWGs][kBoxes][64][64]
+  static constexpr int kK = kQ + kWGs * kBoxes * kQBox;  // K [kStages][kBoxes][kFwdBN][64]
+  static constexpr int kV = kK + kStages * kKVTile;
+  // k full, k empty, v full, v empty [kStages] each, q
+  static constexpr int kBar = kV + kStages * kKVTile;
+  static constexpr int kBytes = kBar + (4 * kStages + 1) * 8;
   static_assert(kBytes + 1024 <= 232448, "past the 227 KB a block may take");
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kFwdThreads, 1)
+// The online softmax of one S tile [64 rows, 128 keys] in a thread's
+// wgmma layout (warp_row the warp's first row; lane = 4 g + t), in two
+// parts. fwd_max: with kMask (the last key tile, the only one that can
+// hold the diagonal or the tail of keys) masks per element, then takes
+// the running max m of the thread's two rows across the quad and gives
+// alpha, the factor O must be scaled by, and mc = m c. fwd_exp: turns sc
+// into p = exp2(s c - m c) and updates the running sum l (the thread's
+// own columns; the quad's sum is taken at the end). The parts are apart
+// because ptxas waits for a register-operand wgmma in flight before any
+// warp shuffle: the max runs before P V is issued, the exponentials under
+// it. The mask is a template argument so the other tiles' code has no
+// branch (ptxas also waits at the first merge point after one).
+template <bool kMask>
+__device__ __forceinline__ void fwd_max(float (&sc)[64], float (&m)[2], float (&alpha)[2],
+                                        float (&mc)[2], int k0, int warp_row, int g, int t,
+                                        int s, int causal, float scale_log2e) {
+  if constexpr (kMask) {
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * jj + 2 * t + (e & 1);
+        const int row = warp_row + g + 8 * (e >> 1);
+        if (col >= s || (causal && col > row)) sc[4 * jj + e] = -INFINITY;
+      }
+  }
+  // each row's max in 4 chains (max is exact in any order): 9 dependent
+  // steps rather than 33, in 4 registers a row
+  float mx[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]);
+#pragma unroll
+    for (int jj = 4; jj < 16; ++jj)
+      v[jj & 3] = fmaxf(v[jj & 3], fmaxf(sc[4 * jj + 2 * r], sc[4 * jj + 2 * r + 1]));
+    mx[r] = fmaxf(m[r], fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3])));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = exp2_approx((m[r] - mx[r]) * scale_log2e);
+    m[r] = mx[r];
+    mc[r] = mx[r] * scale_log2e;
+  }
+}
+
+__device__ __forceinline__ void fwd_exp(float (&sc)[64], float (&l)[2], const float (&alpha)[2],
+                                        const float (&mc)[2], float scale_log2e) {
+  float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+    sc[4 * jj] = exp2_approx(fmaf(sc[4 * jj], scale_log2e, -mc[0]));
+    sc[4 * jj + 1] = exp2_approx(fmaf(sc[4 * jj + 1], scale_log2e, -mc[0]));
+    sc[4 * jj + 2] = exp2_approx(fmaf(sc[4 * jj + 2], scale_log2e, -mc[1]));
+    sc[4 * jj + 3] = exp2_approx(fmaf(sc[4 * jj + 3], scale_log2e, -mc[1]));
+    rs[0] += sc[4 * jj] + sc[4 * jj + 1];
+    rs[1] += sc[4 * jj + 2] + sc[4 * jj + 3];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(FwdSmem<D>::kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v,
                              T* __restrict__ out, float* __restrict__ lse,
                              int s, int h, int num_q_tiles, int num_bh, float scale_log2e,
                              int q_neg, int causal) {
-  using L = FwdSmem;
+  using L = FwdSmem<D>;
+  constexpr int kB = L::kBoxes, kStages = L::kStages, kWGs = L::kWGs, kBM = L::kBM;
   constexpr int kSbo = 8 * L::kRowB;  // 8 rows of a d-box
+  constexpr int kChunks = D / 8;      // 16-byte chunks an output row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   uint8_t* sm = smem_raw + (base - raw);
-  const uint32_t bar_full = base + L::kBar;
-  const uint32_t bar_empty = bar_full + 8 * kFwdStages;
-  const uint32_t bar_q = bar_empty + 8 * kFwdStages;
+  const uint32_t k_full = base + L::kBar;
+  const uint32_t k_empty = k_full + 8 * kStages;
+  const uint32_t v_full = k_empty + 8 * kStages;
+  const uint32_t v_empty = v_full + 8 * kStages;
+  const uint32_t bar_q = v_empty + 8 * kStages;
 
   const int bh = blockIdx.x % num_bh;
   const int qt = num_q_tiles - 1 - blockIdx.x / num_bh;  // most causal work first
@@ -537,61 +647,70 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2;
   // keys past the block's last row are masked for every row of it
-  const int kv_len = causal ? min(s, (qt + 1) * kFwdBM) : s;
+  const int kv_len = causal ? min(s, (qt + 1) * kBM) : s;
   const int n_tiles = (kv_len + kFwdBN - 1) / kFwdBN;
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int st = 0; st < kFwdStages; ++st) {
-      mbar_init(bar_full + 8 * st, 1);
-      mbar_init(bar_empty + 8 * st, 8);  // lane 0 of each compute warp
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full + 8 * st, 1);
+      mbar_init(k_empty + 8 * st, 4 * kWGs);  // lane 0 of each compute warp
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(v_empty + 8 * st, 4 * kWGs);
     }
     mbar_init(bar_q, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == 2) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kFwdProducerRegs));
-    if (warp == 8 && lane == 0) {  // -------------------------------- loader
-      mbar_expect_tx(bar_q, 4 * L::kQBox);
+  if (wg == kWGs) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::kProducerRegs));
+    if (warp == 4 * kWGs && lane == 0) {  // ----------------------------- loader
+      mbar_expect_tx(bar_q, kWGs * kB * L::kQBox);
 #pragma unroll
-      for (int w = 0; w < 2; ++w)
+      for (int w = 0; w < kWGs; ++w)
 #pragma unroll
-        for (int c = 0; c < 2; ++c)
-          tma_load_4d(base + L::kQ + (2 * w + c) * L::kQBox, &tm_q, bar_q, 64 * c, hd,
-                      qt * kFwdBM + 64 * w, b);
-      int stage = 0;
-      uint32_t phase = 0;
+        for (int c = 0; c < kB; ++c)
+          tma_load_4d(base + L::kQ + (kB * w + c) * L::kQBox, &tm_q, bar_q, 64 * c, hd,
+                      qt * kBM + 64 * w, b);
       for (int j = 0; j < n_tiles; ++j) {
-        mbar_wait(bar_empty + 8 * stage, phase ^ 1);
-        const uint32_t full = bar_full + 8 * stage;
-        mbar_expect_tx(full, 2 * L::kKVTile);
+        const int st = j % kStages;
+        const uint32_t phase = (j / kStages) & 1;
+        mbar_wait(k_empty + 8 * st, phase ^ 1);
+        mbar_expect_tx(k_full + 8 * st, L::kKVTile);
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const uint32_t off = stage * L::kKVTile + c * L::kKVBox;
-          tma_load_4d(base + L::kK + off, &tm_k, full, 64 * c, hd, j * kFwdBN, b);
-          tma_load_4d(base + L::kV + off, &tm_v, full, 64 * c, hd, j * kFwdBN, b);
-        }
-        if (++stage == kFwdStages) {
-          stage = 0;
-          phase ^= 1;
-        }
+        for (int c = 0; c < kB; ++c)
+          tma_load_4d(base + L::kK + st * L::kKVTile + c * L::kKVBox, &tm_k, k_full + 8 * st,
+                      64 * c, hd, j * kFwdBN, b);
+        mbar_wait(v_empty + 8 * st, phase ^ 1);
+        mbar_expect_tx(v_full + 8 * st, L::kKVTile);
+#pragma unroll
+        for (int c = 0; c < kB; ++c)
+          tma_load_4d(base + L::kV + st * L::kKVTile + c * L::kKVBox, &tm_v, v_full + 8 * st,
+                      64 * c, hd, j * kFwdBN, b);
+      }
+      // the compute warpgroups wait without the watchdog (a trap on their
+      // path would cost them registers): it fires here if a load never lands
+      mbar_wait(bar_q, 0);
+      for (int j = max(0, n_tiles - kStages); j < n_tiles; ++j) {
+        mbar_wait(k_full + 8 * (j % kStages), (j / kStages) & 1);
+        mbar_wait(v_full + 8 * (j % kStages), (j / kStages) & 1);
       }
     }
   } else {  // ------------------------------------------ compute warpgroups
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kFwdComputeRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kComputeRegs));
     const int wt = threadIdx.x & 127;  // thread of the warpgroup
     const int w4 = wt >> 5;            // warp of the warpgroup
     const int g = lane >> 2, t = lane & 3;
-    const int row0 = qt * kFwdBM + 64 * wg;  // the warpgroup's first query row
-    const uint32_t q_tile = base + L::kQ + wg * 2 * L::kQBox;
-    uint8_t* const q_mem = sm + L::kQ + wg * 2 * L::kQBox;
+    const int row0 = qt * kBM + 64 * wg;     // the warpgroup's first query row
+    const int warp_row = row0 + 16 * w4;     // the warp's first query row
+    const uint32_t q_tile = base + L::kQ + wg * kB * L::kQBox;
+    uint8_t* const q_mem = sm + L::kQ + wg * kB * L::kQBox;
 
-    mbar_wait(bar_q, 0);
+    mbar_spin(bar_q, 0);
     if (q_neg) {  // a negative scale runs as its magnitude on -q
 #pragma unroll
-      for (int i = 0; i < 2 * L::kQBox / 16 / 128; ++i) {
+      for (int i = 0; i < kB * L::kQBox / 16 / 128; ++i) {
         uint4* p = reinterpret_cast<uint4*>(q_mem) + i * 128 + wt;
         uint4 x = *p;
         x.x ^= 0x80008000u;
@@ -604,101 +723,121 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       named_sync(1 + wg, 128);
     }
 
-    float o[64];
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.0f;
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int j = 0; j < n_tiles; ++j) {
-      mbar_wait(bar_full + 8 * stage, phase);
-      const uint32_t k_tile = base + L::kK + stage * L::kKVTile;
-      const uint32_t v_tile = base + L::kV + stage * L::kKVTile;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, alpha[2], mc[2];
+    float sc[64];       // S_j, then P_j in float32
+    uint32_t pa[8][4];  // P_{j-1} as the A fragments of the P V product
 
-      // S = Q K^T: [64 rows, 128 keys], both K-major over two d-boxes
-      float sc[64];
+    // the warpgroup's turn to issue S: warpgroup 0 takes the first, then
+    // they go round, each turn passed to the next warpgroup right after S
+    // is issued (so the tensor cores take the warpgroups' S products in
+    // turn, each one's P V behind its S); every barrier phase gets one
+    // warpgroup's wait and the one before's arrival, none is left open at
+    // the end
+    auto turn_wait = [&](int j) {
+      if (wg > 0 || j > 0) named_sync(kFwdTurn + wg, 256);
+    };
+    auto turn_pass = [&](int j) {
+      if (wg < kWGs - 1 || j < n_tiles - 1)
+        named_arrive(kFwdTurn + (wg + 1) % kWGs, 256);
+    };
+    auto issue_s = [&](int j) {  // S_j = Q K_j^T: both K-major over the d-boxes
+      const uint32_t k_tile = base + L::kK + (j % kStages) * L::kKVTile;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)
         Wgmma<128>::ss<0, 0, T>(
             sc, smem_desc(q_tile + (kk >> 2) * L::kQBox + (kk & 3) * 32, 16, kSbo, 1),
             smem_desc(k_tile + (kk >> 2) * L::kKVBox + (kk & 3) * 32, 16, kSbo, 1), kk);
       wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sc);
-
-      // mask the diagonal tile and the tail of keys
-      const int k0 = j * kFwdBN;
-      if ((causal && k0 + kFwdBN - 1 > row0) || k0 + kFwdBN > s) {
+    };
+    auto issue_pv = [&](int j) {  // O += P_j V_j: V [keys, d] MN-major across the d-boxes
+      const uint32_t v_tile = base + L::kV + (j % kStages) * L::kKVTile;
+      wgmma_fence();
 #pragma unroll
-        for (int jj = 0; jj < 16; ++jj)
+      for (int kk = 0; kk < 8; ++kk)
+        Wgmma<D>::template rs<1, T>(o, pa[kk],
+                                    smem_desc(v_tile + kk * 16 * L::kRowB, L::kKVBox, kSbo, 1),
+                                    1);
+      wgmma_commit();
+    };
+    auto rescale = [&]() {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = k0 + 8 * jj + 2 * t + (e & 1);
-            const int row = row0 + 16 * w4 + g + 8 * (e >> 1);
-            if (col >= s || (causal && col > row)) sc[4 * jj + e] = -INFINITY;
-          }
-      }
-
-      // streaming softmax: row maxima across the quad, rescale, p = exp2
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int jj = 0; jj < 16; ++jj) {
-        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * jj], sc[4 * jj + 1]));
-        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * jj + 2], sc[4 * jj + 3]));
-      }
-      float alpha[2], mc[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        alpha[r] = exp2_approx((m[r] - mx[r]) * scale_log2e);
-        m[r] = mx[r];
-        mc[r] = mx[r] * scale_log2e;
-      }
-      float rs[2] = {0.0f, 0.0f};
-      uint32_t pa[8][4];  // P as the A fragments of the P V product
-#pragma unroll
-      for (int jj = 0; jj < 16; ++jj) {
-        const float p0 = exp2_approx(fmaf(sc[4 * jj], scale_log2e, -mc[0]));
-        const float p1 = exp2_approx(fmaf(sc[4 * jj + 1], scale_log2e, -mc[0]));
-        const float p2 = exp2_approx(fmaf(sc[4 * jj + 2], scale_log2e, -mc[1]));
-        const float p3 = exp2_approx(fmaf(sc[4 * jj + 3], scale_log2e, -mc[1]));
-        rs[0] += p0 + p1;
-        rs[1] += p2 + p3;
-        pa[jj / 2][(jj & 1) * 2] = pack2<T>(p0, p1);
-        pa[jj / 2][(jj & 1) * 2 + 1] = pack2<T>(p2, p3);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < D / 8; ++i) {
         o[4 * i] *= alpha[0];
         o[4 * i + 1] *= alpha[0];
         o[4 * i + 2] *= alpha[1];
         o[4 * i + 3] *= alpha[1];
       }
-
-      // O += P V: V [keys, d] MN-major across its two d-boxes
-      wgmma_fence();
+    };
+    auto pack = [&]() {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        Wgmma<128>::rs<1, T>(o, pa[kk],
-                             smem_desc(v_tile + kk * 16 * L::kRowB, L::kKVBox, kSbo, 1), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
+      for (int jj = 0; jj < 16; ++jj) {
+        pa[jj / 2][(jj & 1) * 2] = pack2<T>(sc[4 * jj], sc[4 * jj + 1]);
+        pa[jj / 2][(jj & 1) * 2 + 1] = pack2<T>(sc[4 * jj + 2], sc[4 * jj + 3]);
+      }
+    };
+    auto release = [&](uint32_t bar, int j) {  // this warp has read the tile
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar + 8 * (j % kStages));
+    };
+
+    auto v_wait = [&](int j) { mbar_spin(v_full + 8 * (j % kStages), (j / kStages) & 1); };
+
+    // tile 0: S alone
+    mbar_spin(k_full, 0);
+    turn_wait(0);
+    issue_s(0);
+    turn_pass(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    release(k_empty, 0);
+    if (n_tiles <= L::kMaskTiles)
+      fwd_max<true>(sc, m, alpha, mc, 0, warp_row, g, t, s, causal, scale_log2e);
+    else
+      fwd_max<false>(sc, m, alpha, mc, 0, warp_row, g, t, s, causal, scale_log2e);
+    fwd_exp(sc, l, alpha, mc, scale_log2e);
+    pack();
+    // tile j: S_j, its row max, then P_{j-1} V_{j-1} issued and the
+    // exponentials of S_j under it; the last kMaskTiles (`masked`) masked
+    auto step = [&](int j, auto masked) {
+      mbar_spin(k_full + 8 * (j % kStages), (j / kStages) & 1);
+      v_wait(j - 1);
+      turn_wait(j);
+      issue_s(j);
+      turn_pass(j);
+      fence_regs(sc);
+      rescale();  // O (P_{j-2} V_{j-2} done) by tile j-1's factor
+      wgmma_wait<0>();  // S_j
+      fence_regs(sc);
+      release(k_empty, j);
+      fwd_max<decltype(masked)::value>(sc, m, alpha, mc, j * kFwdBN, warp_row, g, t, s, causal,
+                                       scale_log2e);
+      issue_pv(j - 1);
+      fwd_exp(sc, l, alpha, mc, scale_log2e);
+      fence_regs(sc);  // the exponentials stay above the wait, not sunk to pack()
+      fence_regs(l);
+      wgmma_wait<0>();  // P_{j-1} V_{j-1}
       fence_regs(o);
       fence_regs(pa);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar_empty + 8 * stage);  // K, V read
-      if (++stage == kFwdStages) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
+      release(v_empty, j - 1);
+      pack();
+    };
+    const int first_masked = max(1, n_tiles - L::kMaskTiles);
+    for (int j = 1; j < first_masked; ++j) step(j, std::false_type{});
+    for (int j = first_masked; j < n_tiles; ++j) step(j, std::true_type{});
+    rescale();
+    v_wait(n_tiles - 1);
+    issue_pv(n_tiles - 1);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
 
     // out = O / l through the warpgroup's Q boxes (no longer read): rows of
-    // 256 bytes, then 16-byte stores of the rows inside S
+    // 2 D bytes, chunk c of row r at c ^ (r & 7) (8 rows of a quad's stores
+    // in 8 bank groups), then 16-byte stores of the rows inside S
     fence_async_shared();
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -711,43 +850,43 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         lse[static_cast<int64_t>(bh) * s + row0 + srow] =
             lr == 0.0f ? INFINITY : (m[r] * scale_log2e + log2f(lr)) * kLn2;
 #pragma unroll
-      for (int i = 0; i < 16; ++i)
-        *reinterpret_cast<uint32_t*>(q_mem + srow * 256 + (8 * i + 2 * t) * 2) =
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(q_mem + srow * 2 * D + ((i ^ (srow & 7)) * 16) + 4 * t) =
             pack2<T>(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
     }
     named_sync(1 + wg, 128);
 #pragma unroll
-    for (int i = 0; i < 64 * 16 / 128; ++i) {
+    for (int i = 0; i < 64 * kChunks / 128; ++i) {
       const int e = wt + 128 * i;
-      const int r = e >> 4, c = e & 15;
-      const int row = row0 + r;
-      if (row < s)
-        *reinterpret_cast<uint4*>(out + ((static_cast<int64_t>(b) * s + row) * h + hd) * 128 +
-                                  c * 8) = *reinterpret_cast<const uint4*>(q_mem + r * 256 + c * 16);
+      const int r = e / kChunks, c = e % kChunks;
+      if (row0 + r < s)
+        *reinterpret_cast<uint4*>(out + ((static_cast<int64_t>(b) * s + row0 + r) * h + hd) * D +
+                                  c * 8) =
+            *reinterpret_cast<const uint4*>(q_mem + r * 2 * D + ((c ^ (r & 7)) * 16));
     }
   }
 }
 
-// the wgmma kernel for T (bf16 or fp16) at D = 128
-template <typename T>
+// the wgmma kernel for T (bf16 or fp16) at D = 64 or 128
+template <typename T, int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                          int b, int s, int h, int num_bh, Strides qs, Strides ks,
                          Strides vs, float scale_log2e, int causal, cudaStream_t stream) {
-  const int64_t num_q_tiles = (static_cast<int64_t>(s) + kFwdBM - 1) / kFwdBM;
+  const int64_t num_q_tiles = (static_cast<int64_t>(s) + FwdSmem<D>::kBM - 1) / FwdSmem<D>::kBM;
   if (num_q_tiles * num_bh > INT32_MAX) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!tensor_map<T>(&tm_q, q, b, s, h, 128, qs, 64) ||
-      !tensor_map<T>(&tm_k, k, b, s, h, 128, ks, kFwdBN) ||
-      !tensor_map<T>(&tm_v, v, b, s, h, 128, vs, kFwdBN))
+  if (!tensor_map<T>(&tm_q, q, b, s, h, D, qs, 64) ||
+      !tensor_map<T>(&tm_k, k, b, s, h, D, ks, kFwdBN) ||
+      !tensor_map<T>(&tm_v, v, b, s, h, D, vs, kFwdBN))
     return cudaErrorInvalidValue;
-  const int smem = FwdSmem::kBytes + 1024;  // + the 1024-byte alignment
+  const int smem = FwdSmem<D>::kBytes + 1024;  // + the 1024-byte alignment
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_attention_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   // the kernel's scale must be > 0 (as the mma.sync kernel's)
   const float c = scale_log2e == 0.0f ? FLT_MIN : fabsf(scale_log2e);
-  flash_attention_wgmma_kernel<T><<<static_cast<unsigned>(num_q_tiles * num_bh), kFwdThreads,
-                                    smem, stream>>>(
+  flash_attention_wgmma_kernel<T, D><<<static_cast<unsigned>(num_q_tiles * num_bh),
+                                       FwdSmem<D>::kThreads, smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<T*>(out), lse, s, h,
       static_cast<int>(num_q_tiles), num_bh, c, scale_log2e < 0.0f ? 1 : 0, causal);
   return cudaGetLastError();
@@ -760,9 +899,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int b, int s, int h, int num_bh, Strides qs, Strides ks,
                    Strides vs, float scale_log2e, int causal,
                    cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2 && D == 128) {  // bf16 and fp16 at D = 128
-    return launch_wgmma<T>(q, k, v, out, lse, b, s, h, num_bh, qs, ks, vs, scale_log2e, causal,
-                           stream);
+  if constexpr (sizeof(T) == 2 && D >= 64) {  // bf16 and fp16 at D = 64 and 128
+    return launch_wgmma<T, D>(q, k, v, out, lse, b, s, h, num_bh, qs, ks, vs, scale_log2e,
+                              causal, stream);
   } else if constexpr (sizeof(T) == 2) {
     const int64_t num_q_tiles =
         (static_cast<int64_t>(s) + Bf16Tile<D>::kBlockM - 1) / Bf16Tile<D>::kBlockM;

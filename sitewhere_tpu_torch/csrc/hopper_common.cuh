@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the flash-attention kernels on wgmma
-// and TMA (flash_attention.cu, the forward at D = 128; flash_attention_bwd.cu,
+// and TMA (flash_attention.cu, the forward at D = 64 and 128; flash_attention_bwd.cu,
 // the backward; both in bf16 and fp16): mbarriers, TMA and bulk copies, the
 // turn counters' acquire / release, named barriers, the wgmma wrappers and
 // shared-memory matrix descriptors, and the host-side tensor maps of a
@@ -126,6 +126,12 @@ __device__ __forceinline__ void add_release(int* p, int v) {
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// arrive at named barrier `id` without waiting; `threads` counts the
+// arriving and the waiting threads together
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // generic-proxy writes to shared memory become visible to the async proxy

@@ -13,7 +13,8 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
     ([8, 16384, 8, 32] bf16, causal) it moves 268 MB (0.08 ms) but does
     8.6e9 exponentials (2.05 ms at 16 per SM per clock) and 1.1e12
     product operations (1.1 ms on the bf16 tensor cores).
-  * bfloat16 design (the transformer's path): FA2 on the tensor cores. A
+  * bfloat16 at D = 16 and 32 (the default transformer's path): FA2 on
+    the tensor cores. A
     block of 4 warps owns (batch, head, 128 query rows), 32 a warp as two
     m16 tiles that share each K/V fragment, Q held in registers as
     ``mma.sync`` m16n8k16 A fragments; K/V tiles of 64 keys
@@ -23,15 +24,20 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
     P, rounded to bf16, is the A operand of the P·V product without a
     trip through shared memory. The products leave the CUDA cores; what
     is left there is the softmax around one exponential per pair.
-  * bfloat16 and float16 at D = 128: FA3's forward on Hopper's ``wgmma``
-    and TMA, warp-specialised. A block owns 128 query rows (two compute
-    warpgroups of 64); one thread brings Q once and K/V tiles of 128 keys
-    through TMA into a 2-stage mbarrier ring; S = Q K^T and O += P V are
-    ``wgmma`` products, P (in the input type) the register A operand of
-    the second. At this width the products, not the exponentials, bound
-    the kernel.
-  * float16 up to D = 64: the ``mma.sync`` kernel with float16 fragments
-    and the float16 ``mma.sync``.
+  * bfloat16 and float16 at D = 64 and 128 (any D from 33 up, padded):
+    FA3's forward on Hopper's ``wgmma`` and TMA, warp-specialised. A
+    block owns 128 query rows (two compute warpgroups of 64); one thread
+    brings Q once and K and V tiles of 128 keys through TMA into mbarrier
+    rings of their own; S = Q K^T and O += P V are ``wgmma`` products, P
+    (in the input type) the register A operand of the second. Each
+    warpgroup issues the P V product of one tile right behind the S of the
+    next and takes that S's softmax while the product runs, and the two
+    warpgroups issue their products in turns, so the exponentials run
+    under the tensor cores' work: at D = 64 the two cost about the same
+    (1.11 and 1.03 ms at [8, 16384, 4, 64] causal), at D = 128 the
+    products bind.
+  * float16 at D = 16 and 32: the ``mma.sync`` kernel with float16
+    fragments and the float16 ``mma.sync``.
   * float32 design: one thread per query row with float32 products on the
     CUDA cores (tensor cores would mean TF32, too coarse for the float32
     tolerance); not on the transformer's path.

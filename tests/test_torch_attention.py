@@ -130,13 +130,20 @@ def test_masked_scores_are_minus_1e30_as_in_jax():
     np.testing.assert_allclose(got[0, 2, 0], v[0, 3, 0], **F32)
 
 
+def forward_block_k(d: int) -> int:
+    """The key tile of the 16-bit forward kernel that runs head dim ``d``
+    (padded as ``padded_head_dim`` pads it): 64 on the mma.sync kernel at D
+    = 16 and 32, 128 on the wgmma kernel at D = 64 and 128."""
+    return 128 if tatt.padded_head_dim(d) >= 64 else 64
+
+
 def emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, sm_scale: float | None = None,
                         block_k: int = 64, low: torch.dtype = torch.bfloat16
                         ) -> torch.Tensor:
     """The arithmetic of the bf16 tensor-core kernel, on the CPU: key tiles
-    of ``block_k`` (64 for the mma.sync kernel up to D = 64, 128 for the
-    wgmma kernel at D = 128); float32 scores (exact products of bf16 values summed in
+    of ``block_k`` (64 for the mma.sync kernel at D = 16 and 32, 128 for the
+    wgmma kernel at D = 64 and 128: ``forward_block_k``); float32 scores (exact products of bf16 values summed in
     float32) scaled inside the exp2 argument, p = exp2(s·c − m·c) with c =
     sm_scale·log2(e) made positive (a negative c as |c| on -q, a zero c as
     the smallest normal float); the running max starting at -1e30; masked
@@ -176,9 +183,10 @@ def emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 @pytest.mark.parametrize("s", [1, 63, 65, 200])
 def test_bf16_kernel_arithmetic_fits_the_tolerance(s, d, causal):
     """The kernel's bf16 P (relative error up to 2**-9 a weight) stays
-    within the card's bf16 limit of both plain versions."""
+    within the card's bf16 limit of both plain versions: 64-key tiles on
+    the mma.sync kernel at D = 16 and 32, 128 on the wgmma kernel at 64."""
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv((2, s, 2, d), seed=5 + s + d), "bfloat16")
-    got = emulate_bf16_kernel(tq, tk, tv, causal=causal)
+    got = emulate_bf16_kernel(tq, tk, tv, causal=causal, block_k=forward_block_k(d))
     assert got.dtype == torch.bfloat16 and got.shape == (2, s, 2, d)
     np.testing.assert_allclose(
         _np(got), _np(tatt.mha_reference(tq, tk, tv, causal=causal)), **FLASH_TOL_BF16)
@@ -223,6 +231,59 @@ def test_bf16_wgmma_forward_arithmetic_at_d128_holds_to_jax(s, causal, sm_scale)
     np.testing.assert_allclose(
         _np(got), _np(jatt.flash_attention(jq, jk, jv, causal=causal, sm_scale=sm_scale,
                                            force_pallas=True)), **FLASH_TOL_BF16)
+
+
+WGMMA_D64_CASES = [(dtype, s, causal, sm_scale)
+                   for dtype in ("bfloat16", "float16") for s in (1, 65, 300)
+                   for causal in (False, True) for sm_scale in (None, 0.0, -0.3)]
+
+
+@pytest.mark.parametrize("case", WGMMA_D64_CASES + [("bfloat16", 300, True, "d48"),
+                                                     ("float16", 300, True, "d48"),
+                                                     ("bfloat16", 65, False, "d48"),
+                                                     ("float16", 65, False, "d48")])
+def test_wgmma_forward_arithmetic_at_d64_holds_to_jax(case):
+    """The D = 64 forward on wgmma (``flash_attention_wgmma_kernel<T, 64>``)
+    in bf16 and float16: 128-key tiles, a negative scale as its magnitude
+    on -q (exact in both 16-bit types), a zero one as the smallest normal
+    float, P rounded to the input type before P·V. Its outputs do not
+    depend on the overlap of one tile's softmax with the other products
+    (the same operations on each element in the same order), so this is
+    the kernel's arithmetic. ``sm_scale`` "d48" is the d_model=384,
+    heads=8 model's D = 48, zero-padded to 64 at the true scale and sliced
+    back, as the wrapper runs it. It stays within the card's limit of JAX's
+    oracle and of the Pallas kernel in interpret mode: bf16's 8e-3, and
+    float16's 1e-3, which the same arithmetic with P rounded to bf16 fails
+    under a causal mask past one key at a nonzero scale."""
+    dtype, s, causal, sm_scale = case
+    d = 48 if sm_scale == "d48" else 64
+    scale = 1.0 / math.sqrt(d) if sm_scale == "d48" else sm_scale
+    jdt, tdt = {"bfloat16": (jnp.bfloat16, torch.bfloat16),
+                "float16": (jnp.float16, torch.float16)}[dtype]
+    arrays = _qkv((2, s, 2, d), seed=90 + s + d)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in arrays)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in arrays)
+    dp = tatt.padded_head_dim(d)
+    assert dp == 64 and forward_block_k(d) == 128
+
+    def emulate(low):
+        out = emulate_bf16_kernel(*(tatt.pad_head_dim(t, dp) for t in (tq, tk, tv)),
+                                  causal=causal, sm_scale=scale, block_k=128, low=low)
+        assert out.dtype == tdt and not out[..., d:].any()
+        return out[..., :d]
+
+    got = emulate(tdt)
+    assert got.shape == (2, s, 2, d) and bool(torch.isfinite(got.float()).all())
+    tol = FLASH_TOL_BF16 if tdt == torch.bfloat16 else FLASH_TOL_F16
+    oracle = jatt.mha_reference(jq, jk, jv, causal=causal, sm_scale=scale)
+    np.testing.assert_allclose(_np(got), _np(oracle), **tol)
+    np.testing.assert_allclose(
+        _np(got), _np(jatt.flash_attention(jq, jk, jv, causal=causal, sm_scale=scale,
+                                           force_pallas=True)), **tol)
+    if tdt == torch.float16 and causal and s > 1 and scale != 0.0:
+        control = emulate(torch.bfloat16)
+        assert float(np.max(np.abs(_np(control) - _np(oracle)) / (1 + np.abs(_np(oracle))))
+                     ) > FLASH_TOL_F16["rtol"]
 
 
 def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
@@ -373,6 +434,11 @@ GPU_CASES = [  # (B, S, H, D, dtype)
     (2, 300, 4, 8, torch.float16),
     (2, 333, 4, 48, torch.float16),
     (2, 777, 2, 128, torch.float16),
+    # D = 64 on the wgmma forward: float16, and the tile edges in both types
+    (2, 777, 4, 64, torch.float16),
+    (3, 1, 4, 64, torch.float16),
+    (2, 65, 4, 64, torch.bfloat16),
+    (2, 1000, 4, 64, torch.bfloat16),
 ]
 
 
@@ -409,6 +475,31 @@ def test_cuda_kernel_takes_any_sign_of_scale(sm_scale, dtype, causal):
            torch.float16: FLASH_TOL_F16}[dtype]
     torch.testing.assert_close(
         got, tatt.mha_reference(q, k, v, causal=causal, sm_scale=sm_scale), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [48, 64])
+def test_cuda_forward_at_d64_takes_the_wgmma_kernel(d, dtype):
+    """A head dim from 33 to 64 runs the wgmma/TMA forward at D = 64
+    (``flash_attention_wgmma_kernel<T, 64>``) by the profiler's kernel
+    names, with and without lse, and no mma.sync forward kernel."""
+    _cuda_or_skip()
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    qkv = torch.randn((2, 300, 3, 4, d), device="cuda", generator=gen).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tatt.flash_attention(q, k, v, causal=True)
+        tatt.flash_attention_forward(q, k, v, causal=True)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    t = "__half" if dtype == torch.float16 else "__nv_bfloat16"
+    wgmma = [n for n in names if "flash_attention_wgmma_kernel" in n]
+    assert wgmma and all(t in n and "64" in n for n in wgmma), names
+    assert not any("flash_attention_bf16_kernel" in n for n in names), names
 
 
 @pytest.mark.gpu
@@ -715,8 +806,9 @@ def test_f16_kernel_arithmetic_fits_the_tolerance(case):
     P averages out below the output's own float16 ulp)."""
     s, d, causal, sm_scale = case
     q, k, v, o, _, _ = _f16_case(s, d, causal, sm_scale)
-    # 128-key tiles on the wgmma kernel at D = 128, 64 on mma.sync below
-    block_k = 128 if d > 64 else 64
+    # 128-key tiles on the wgmma kernel at D = 64 and 128 (D = 48 runs
+    # padded to 64), 64 on mma.sync below
+    block_k = forward_block_k(d)
     got = emulate_bf16_kernel(q, k, v, causal=causal, sm_scale=sm_scale, low=torch.float16,
                               block_k=block_k)
     assert got.dtype == torch.float16
@@ -1015,14 +1107,16 @@ def test_backward_kernel_source_is_plain_c_for_sm90a():
 
 
 def test_forward_kernel_source_takes_wgmma_and_tma_at_d128():
-    """Both 16-bit types at D = 128 take the warp-specialised forward on
-    wgmma and TMA (the tensor maps and the wrappers shared with the
-    backward)."""
+    """Both 16-bit types at D = 128, and since the D = 64 redesign at D =
+    64 too, take the warp-specialised forward on wgmma and TMA (the tensor
+    maps and the wrappers shared with the backward); the mma.sync kernel
+    keeps D = 16 and 32 only."""
     src = _translation_unit("flash_attention")
     assert "wgmma.mma_async" in src and "cp.async.bulk.tensor" in src
     assert "flash_attention_wgmma_kernel" in src
-    assert "if constexpr (sizeof(T) == 2 && D == 128)" in src
+    assert "if constexpr (sizeof(T) == 2 && D >= 64)" in src
     assert "atomicAdd" not in src and "torch/extension.h" not in src
+    assert 'static_assert(D == 16 || D == 32, "D must be 16 or 32");' in src
 
 
 def test_kernel_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
@@ -1151,7 +1245,7 @@ def test_cuda_backward_kernel_takes_any_sign_of_scale(sm_scale, dtype):
 def test_cuda_f16_takes_the_one_pass_backward(d):
     """float16 runs the one-pass wgmma/TMA backward at every head dim
     (``flash_bwd_wgmma_kernel<__half, D>``, after its norm and prep passes)
-    and, at D = 128, the wgmma/TMA forward, by the profiler's kernel names;
+    and, at D = 64 and 128, the wgmma/TMA forward, by the profiler's kernel names;
     no mma.sync backward kernel runs."""
     _cuda_or_skip()
     from torch.profiler import ProfilerActivity, profile
@@ -1166,7 +1260,7 @@ def test_cuda_f16_takes_the_one_pass_backward(d):
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    fwd = "flash_attention_wgmma_kernel" if d == 128 else "flash_attention_bf16_kernel"
+    fwd = "flash_attention_wgmma_kernel" if d >= 64 else "flash_attention_bf16_kernel"
     for kernel in (fwd, "flash_bwd_vnorm_kernel", "flash_bwd_prep_kernel",
                    "flash_bwd_wgmma_kernel", "flash_bwd_dq_kernel"):
         assert any(kernel in n and (kernel == "flash_bwd_vnorm_kernel" or "__half" in n)

@@ -338,3 +338,18 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
                          cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_chip_ab_records_a_tree_without_a_card_and_fails(tmp_path):
+    """``chip_ab.py`` runs each tree in a process of its own: without a
+    card the tree's record carries the error, no timings, and the run
+    exits 1."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    out = tmp_path / "ab.json"
+    res = subprocess.run([sys.executable, str(REPO / "chip_ab.py"), "--out", str(out),
+                          "--shapes", "d64_bf16", str(REPO)],
+                         cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 1, res.stderr
+    (run,) = json.loads(out.read_text())["runs"]
+    assert "no CUDA device" in run["error"] and "timings" not in run
