@@ -177,6 +177,26 @@ Phases, each printed as one JSON line:
              fires against a CPU ``SpmdEngine``'s. Prints events/s by shard
              count (shards sharing one card: no scaling figure), host
              medians and means a call and CUDA kernels a dispatch.
+9c. distributed — the mesh product engine (``DistributedEngine``) at
+             ``DistributedConfig``'s default sizes a shard (2^14 devices,
+             2^15 tokens and assignments, a 2^16-row ring, 2048 staged rows
+             a batch, 8 channels) with a group-commit WAL, 1, 2 and 4
+             shards on this card: the sharded phase's JSON stream over
+             10,000 devices in calls of 8192, 10 calls a shard (every ring
+             wraps once); events/s and host ms a call (decode + commit,
+             dispatch, WAL gate), the counters, the newest page and (e) the
+             conservation ledger of each. Then a reduced 4-shard leg: (a) its
+             stacked state, summaries, counters, mirrors, query pages (a
+             device, a tenant, an assignment, time windows), device states
+             and tenant counts equal a CPU engine's fed the same payloads;
+             (b) a snapshot after 3 calls, a crash and
+             ``recover_distributed`` from the WAL tail equal the engine that
+             never crashed; (c) a feed consumer polled and committed to the
+             head delivers every stored event once (the overwritten ones
+             counted in ``lag_lost``), ``get_event`` resolving its ids, as
+             the CPU engine's; (d) ``reshard_snapshot`` 4 -> 2 of the card's
+             snapshot, restored on the card, keeps every event and device
+             state; (e) the ledgers. Prints one ``distributed:`` line.
 10. archive — the archive tier at the slice's headline sizes (100 channels,
              4096-row segments): 40 bulk batches over 2048 devices, 2.5x the
              ring; (a) no row lost, whole segments; (b) the planner's
@@ -1892,12 +1912,13 @@ class HostClock:
     of the call."""
 
     PARTS = ("dispatch", "wal_gate", "depth_wait", "arena_wait")
+    WRAPS = (("_dispatch_arena", "dispatch"), ("_wal_gate", "wal_gate"),
+             ("_enqueue_out", "depth_wait"), ("_acquire_arena", "arena_wait"))
 
     def __init__(self, eng):
         self.calls: list[dict] = []
         self._cur = None
-        for name, part in (("_dispatch_arena", "dispatch"), ("_wal_gate", "wal_gate"),
-                           ("_enqueue_out", "depth_wait"), ("_acquire_arena", "arena_wait")):
+        for name, part in self.WRAPS:
             self._wrap(eng, name, part)
         for name in ("ingest_json_batch", "ingest_binary_batch"):
             self._wrap_call(eng, name)
@@ -4192,6 +4213,271 @@ def phase_sharded(device, log, fails, seed: int, config: dict = SHARDED_CONFIG,
     return rec
 
 
+# the distributed phase: DistributedConfig's own defaults a shard (2^14
+# devices, 2^15 tokens and assignments, a 2^16-row ring, 2048 staged rows a
+# batch, 8 channels) with a group-commit WAL, every shard on this card; the
+# sharded phase's stream in calls of 8192 payloads, 10 calls a shard so
+# every shard's ring wraps once (each shard takes ~8192 / n rows a call)
+DIST_SHARDS = (1, 2, 4)
+DIST_CALL = 8192
+DIST_CALLS_A_SHARD = 10
+DIST_WARMUP = 2
+DIST_DEVICES = 10_000
+# the reduced leg: 4 shards, a 4096-row ring a shard, 10 calls of 2048 over
+# 600 devices (every ring wraps); the snapshot after 3 calls, when the rings
+# of a 4 -> 2 reshard still hold every event
+DIST_SMALL = dict(n_shards=4, device_capacity_per_shard=1024,
+                  token_capacity_per_shard=2048, assignment_capacity_per_shard=2048,
+                  store_capacity_per_shard=4096, batch_capacity_per_shard=256)
+DIST_SMALL_CALL = 2048
+DIST_SMALL_CALLS = 10
+DIST_ACME = 8               # events of the two-assignment device a call
+DIST_SMALL_DEVICES = 600
+DIST_SNAPSHOT_AFTER = 3
+DIST_SAMPLE_TOKENS = 40
+
+
+class DistClock(HostClock):
+    """Host time of each ingest call of a ``DistributedEngine``: the
+    dispatches it made (``flush_async``: the WAL gate, the copies and the
+    step launches of every shard) and within them the WAL gate; decode +
+    commit is the rest of the call."""
+
+    PARTS = ("dispatch", "wal_gate")
+    WRAPS = (("flush_async", "dispatch"), ("_wal_gate", "wal_gate"))
+
+
+def _dist_engine(device, wal_dir=None, **kw):
+    from sitewhere_tpu_torch.parallel.distributed import DistributedConfig, DistributedEngine
+
+    cfg = DistributedConfig(device=str(device), **kw)
+    if wal_dir is not None:
+        cfg.wal_dir, cfg.wal_group_commit = str(wal_dir), True
+    eng = DistributedEngine(cfg)
+    eng.epoch = PinnedEpoch(1e9)
+    return eng
+
+
+def _dist_pages(eng, t_end: int, tokens: list[str], assignment_id: int) -> list:
+    """The check's query mix: newest page, a device, a tenant, an
+    assignment, a time window, and the combinations."""
+    return [eng.query_events(**kw) for kw in (
+        dict(limit=64), dict(device_token=tokens[0], limit=32),
+        dict(tenant="acme", limit=48), dict(assignment_id=assignment_id, limit=16),
+        dict(since_ms=t_end - 3_000, until_ms=t_end - 1_000, limit=100),
+        dict(device_token=tokens[1], since_ms=t_end - 9_000, limit=8),
+        dict(tenant="acme", since_ms=t_end - 6_000, until_ms=t_end - 2_000, limit=20),
+        dict(etype=EventType.MEASUREMENT, tenant="default", limit=10))]
+
+
+def _dist_feed(eng) -> tuple[list, int]:
+    """Every event a consumer from offset 0 delivers, polled and committed
+    to the head, and its lag_lost."""
+    feed = eng.make_feed_consumer("chip", max_batch=1 << 16)
+    got = []
+    while True:
+        evs = feed.poll()
+        if not evs:
+            break
+        got.extend(evs)
+        feed.commit(evs)
+    return got, feed.lag_lost
+
+
+def _dist_reduced(device, fails, seed: int, tmp: pathlib.Path) -> dict:
+    """Checks (a)-(e) on a reduced 4-shard engine on the card, against a CPU
+    engine fed the same payloads."""
+    from sitewhere_tpu_torch.parallel.distributed import recover_distributed, restore_distributed
+    from sitewhere_tpu_torch.parallel.reshard import reshard_snapshot
+
+    stream = sharded_payloads(seed + 5, DIST_SMALL_CALLS, DIST_SMALL_CALL, DIST_SMALL_DEVICES)
+    card = _dist_engine(device, wal_dir=tmp / "wal", **DIST_SMALL)
+    cpu = _dist_engine(torch.device("cpu"), **DIST_SMALL)
+    out: dict = {}
+    for e in (card, cpu):
+        e.register_device("acme-0", tenant="acme", area="plant")
+        e.create_assignment("acme-0", token="acme-0:x", asset="press")
+    asg = card.get_assignment("acme-0:x").id
+    summaries = []
+    for k, (p, _) in enumerate(stream):
+        acme = [json.dumps({"deviceToken": "acme-0", "type": "DeviceMeasurement",
+                            "request": {"name": "temp", "value": float(k + i),
+                                        "eventDate": SHARDED_T0_MS + 10**6 + DIST_ACME * k + i}}
+                           ).encode() for i in range(DIST_ACME)]
+        summaries.append([(untraced(e.ingest_json_batch(p)),
+                           untraced(e.ingest_json_batch(acme, tenant="acme")))
+                          for e in (card, cpu)])
+        if k + 1 == DIST_SNAPSHOT_AFTER:
+            for e in (card, cpu):
+                e.flush()
+            card.save(tmp / "snap")
+    outs = [e.flush() for e in (card, cpu)]
+    total = sum(len(p) + DIST_ACME for p, _ in stream)
+    persisted = total + DIST_ACME * len(stream)   # acme-0 has two assignments
+    # (a) the card against the CPU: state, counters, pages, device states
+    differ = [name for (name, a), (_, b) in zip(_state_leaves(card.state),
+                                                _state_leaves(cpu.state))
+              if not torch.equal(a.cpu(), b)]
+    t_end = SHARDED_T0_MS - 10**12 + DIST_SMALL_CALLS * DIST_SMALL_CALL
+    toks = [f"lg-{i}" for i in range(0, DIST_SMALL_DEVICES, DIST_SMALL_DEVICES // DIST_SAMPLE_TOKENS)]
+    pages = [_dist_pages(e, t_end, toks, asg) for e in (card, cpu)]
+    dstates = [[e.get_device_state(t) for t in toks + ["acme-0"]] for e in (card, cpu)]
+    same = {"state": not differ, "summaries": all(a == b for a, b in summaries)
+            and outs[0] == outs[1], "metrics": card.metrics() == cpu.metrics(),
+            "shard_metrics": card.shard_metrics() == cpu.shard_metrics(),
+            "pages": pages[0] == pages[1], "device_states": dstates[0] == dstates[1],
+            "tenant_metrics": card.tenant_metrics() == cpu.tenant_metrics(),
+            "tenant_counters": card.tenant_pipeline_counters() == cpu.tenant_pipeline_counters(),
+            "mirrors": _mirrors(card) == _mirrors(cpu)}
+    m = card.metrics()
+    fails.check(all(same.values()) and m["processed"] == total
+                and m["persisted"] == persisted
+                and pages[0][3]["total"] > 0 and pages[0][2]["total"] > 0,
+                f"distributed (a): the card differs from the CPU: {same}, state {differ[:5]}, "
+                f"metrics {m}, total {total}")
+    out["a_identical"] = same
+    # (b) save after DIST_SNAPSHOT_AFTER calls, a crash, recovery from the WAL tail
+    card.wal.close()
+    t0 = time.perf_counter()
+    rec = recover_distributed(tmp / "snap", device=device, epoch_cls=PinnedEpoch)
+    recover_s = time.perf_counter() - t0
+    rdiff = [name for (name, a), (_, b) in zip(_state_leaves(card.state),
+                                               _state_leaves(rec.state))
+             if not torch.equal(a, b)]
+    rpages = _dist_pages(rec, t_end, toks, asg)
+    fails.check(not rdiff and rpages == pages[0] and rec.metrics() == m,
+                f"distributed (b): recovered engine differs: state {rdiff[:5]}, pages "
+                f"{rpages == pages[0]}, metrics {rec.metrics()} vs {m}")
+    out["b_recovered"] = {"state_identical": not rdiff, "pages_equal": rpages == pages[0],
+                          "seconds": recover_s}
+    # (c) the feed: every stored event once, ids resolving through get_event
+    got, lost = _dist_feed(card)
+    cgot, clost = _dist_feed(cpu)
+    heads = card._heads()
+    written = int(heads.sum())
+    ids = [e.event_id for e in got]
+    sample = got[:: max(1, len(got) // 64)]
+    by_id = [card.get_event(e.event_id) for e in sample]
+    ok_ids = all(ev is not None and ev["deviceToken"] == src.device_token
+                 and ev["eventDateMs"] == src.ts_ms and ev["measurements"] == src.measurements
+                 for ev, src in zip(by_id, sample))
+    feed_ok = (len(ids) == len(set(ids)) and len(ids) + lost == written
+               and [e.event_id for e in cgot] == ids and clost == lost
+               and card.make_feed_consumer("late", start_from_latest=True).poll() == []
+               and ok_ids and written == persisted and lost > 0)
+    fails.check(feed_ok, f"distributed (c): feed delivered {len(ids)} ({len(set(ids))} unique) "
+                         f"+ lag_lost {lost} of {written} written; CPU {len(cgot)} + {clost}; "
+                         f"get_event ok {ok_ids}")
+    out["c_feed"] = {"delivered": len(ids), "lag_lost": lost, "written": written,
+                     "get_event_checked": len(sample)}
+    # (d) reshard 4 -> 2 of the card's snapshot, restored on the card
+    snap = restore_distributed(tmp / "snap", device=device, epoch_cls=PinnedEpoch)
+    reshard_snapshot(tmp / "snap", tmp / "snap2", 2)
+    two = restore_distributed(tmp / "snap2", device=device, epoch_cls=PinnedEpoch)
+
+    def keys(e):
+        return sorted((x["deviceToken"], x["type"], x["eventDateMs"], x["receivedDateMs"])
+                      for x in e.query_events(limit=1 << 14)["events"])
+
+    def states(e):
+        return [{k: v for k, v in (e.get_device_state(t) or {}).items() if k != "shard"}
+                for t in toks + ["acme-0"]]
+
+    ks, k2 = keys(snap), keys(two)
+    fails.check(two.n_shards == 2 and ks == k2 and len(ks) == snap.metrics()["persisted"]
+                and states(snap) == states(two),
+                f"distributed (d): 4 -> 2 reshard: {len(ks)} vs {len(k2)} event keys, "
+                f"states equal {states(snap) == states(two)}")
+    out["d_reshard"] = {"events": len(k2), "device_states": len(toks) + 1}
+    # (e) the ledgers of every engine of the leg
+    for label, e in (("reduced card", card), ("reduced CPU", cpu), ("recovered", rec)):
+        _conserved(e, f"distributed {label}", fails)
+    rec.wal.close()
+    return out
+
+
+def phase_distributed(device, log, fails, seed: int, shard_counts=DIST_SHARDS,
+                      call: int = DIST_CALL, calls_a_shard: int = DIST_CALLS_A_SHARD,
+                      n_devices: int = DIST_DEVICES, config: dict | None = None) -> dict:
+    """The mesh product engine (``parallel/distributed.DistributedEngine``)
+    on the card at ``DistributedConfig``'s default sizes a shard, with a
+    group-commit WAL, 1, 2 and 4 shards on this card: the sharded phase's
+    JSON stream (:func:`sharded_payloads`) through the native decoder,
+    ``DIST_CALLS_A_SHARD`` calls a shard (every ring wraps once); events/s
+    over the timed calls and host ms a call (decode + commit, dispatch,
+    WAL gate); (e) the conservation ledger of each. Then the reduced leg
+    (:func:`_dist_reduced`): (a) card against CPU, (b) snapshot + WAL
+    recovery, (c) the feed, (d) a 4 -> 2 reshard, (e) the ledgers."""
+    t_phase = time.perf_counter()
+    config = config or {}
+    stream = sharded_payloads(seed, calls_a_shard * max(shard_counts), call, n_devices)
+    runs = {}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_distributed_"))
+    try:
+        for n in shard_counts:
+            calls = stream[:calls_a_shard * n]
+            eng = _dist_engine(device, wal_dir=tmp / f"wal{n}", n_shards=n, **config)
+            clock = DistClock(eng)
+            for p, _ in calls[:DIST_WARMUP]:
+                eng.ingest_json_batch(p)
+            eng.barrier()
+            timed = calls[DIST_WARMUP:]
+            d0 = eng._dispatches
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for p, _ in timed:
+                eng.ingest_json_batch(p)
+            eng.barrier()
+            wall = time.perf_counter() - t0
+            recs = clock.calls[-len(timed):]
+            run = {"events_per_s": sum(len(p) for p, _ in timed) / wall, "wall_s": wall,
+                   "calls": len(timed), "payloads_a_call": call,
+                   "dispatches": eng._dispatches - d0,
+                   "host_ms_per_call": clock.medians(len(timed)),
+                   "host_ms_per_call_mean": {f"{k}_ms": statistics.fmean(c[k] for c in recs)
+                                             for k in ("total", *DistClock.PARTS)},
+                   "wal_fsyncs": eng.wal.fsyncs,
+                   "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                    if device.type == "cuda" else None)}
+            eng.flush()
+            total = sum(len(p) for p, _ in calls)
+            m = eng.metrics()
+            heads = eng._heads()
+            acap = eng.ring_arena_capacity()
+            seen = len(np.unique(np.concatenate([picks for _, picks in calls])))
+            fails.check(m["processed"] == m["persisted"] == m["found"] == total
+                        and m["devices"] == seen and int(heads.max()) > acap,
+                        f"distributed {n}: counters {m}, ring heads {heads.tolist()} "
+                        f"(capacity {acap}), total {total}, tokens {seen}")
+            newest = eng.query_events(limit=4)["events"]
+            fails.check([e["eventDateMs"] for e in newest]
+                        == [SHARDED_T0_MS - 10**12 + total - 1 - i for i in range(4)],
+                        f"distributed {n}: newest events {newest}")
+            _conserved(eng, f"distributed {n}", fails)
+            run["ring_wraps_max"] = int(heads.max()) // acap
+            runs[n] = run
+            eng.wal.close()
+            del eng, clock
+        reduced = _dist_reduced(device, fails, seed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"phase": "distributed", "note": "every shard on one card: events/s across shard "
+                                           "counts is shards sharing one card, not scaling",
+           "config": "DistributedConfig() defaults a shard, wal_group_commit=True",
+           "devices": n_devices, "runs": runs, "reduced_leg": reduced,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec, log)
+    print("distributed: " + " ".join(
+        f"{n}x={r['events_per_s']:.0f}ev/s(host "
+        f"{r['host_ms_per_call']['decode_commit_ms']:.1f}+"
+        f"{r['host_ms_per_call']['dispatch_ms']:.1f}ms/call, gate "
+        f"{r['host_ms_per_call']['wal_gate_ms']:.2f})"
+        for n, r in runs.items()) + " (shards share one card)", flush=True)
+    return rec
+
+
 # the transformer configurations of fault C6 (head dims 128, 8, 48 and 64,
 # and float16 at D = 32, 64 and 128), each scored and trained one step on
 # the card
@@ -4491,6 +4777,7 @@ def main(argv=None) -> int:
     phase_read(device, log, fails, args.seed, slice_step_ms, profile=args.profile)
     phase_wire(device, log, fails, args.seed, profile=args.profile)
     phase_sharded(device, log, fails, args.seed)
+    phase_distributed(device, log, fails, args.seed)
     archive = phase_archive(device, log, fails, args.seed, profile=args.profile)
     phase_hostplane(device, log, fails, args.seed, profile=args.profile)
     # window_features runs on three paths: the live scoring of the slice,

@@ -50,8 +50,11 @@ and the host mirror of registry metadata. Ported so far:
   ``set_ingest_tuning``) and the multiprocess decode pool
   (ingest/workers.DecodeWorkerPool).
 
-Not ported yet: the replica feed, the rollup archive and the multi-chip
-engines.
+The WAL, strict channels, ``process()``, the batch-ingest skeleton, the
+flight-recorder accessors and the staging-clock pin live in
+:class:`IngestHostMixin`, which the mesh engine
+(``parallel/distributed.DistributedEngine``) shares. Not ported yet: the
+replica feed and the rollup archive.
 
 ``device_ready`` is stamped only where the host has already observed a
 dispatch complete — the dispatch-depth wait on its fence, the arena
@@ -763,7 +766,436 @@ class QueryBatcher:
             entry["event"].set()
 
 
-class Engine:
+class IngestHostMixin:
+    """The ingest host shared by the single-card :class:`Engine` and the
+    mesh engine (``parallel/distributed.DistributedEngine``): the WAL, the
+    strict-channel checks, ``process()``, the batch-ingest skeleton and
+    the flight-recorder accessors — one implementation, so durability and
+    strictness can never differ between them. Hosts provide ``lock``,
+    ``wal``, ``_wal_local``, ``_wal_last_seq``, ``channel_map``,
+    ``config`` (``strict_channels``, ``fair_tenancy``, ``channels``,
+    ``default_device_type``), the interners, ``epoch``, ``flight``,
+    ``_staged_traces``, ``_pending_traces``, ``staged_count``,
+    ``_stage_row``, ``_ingest_decoded``, ``register_device`` and
+    ``map_device``."""
+
+    # overload discipline: a host with ``config.qos`` attaches an
+    # AdmissionController (consulted at the ingest edges, never here) and a
+    # WeightedFairGate ordering the batch-ingest critical section; both off
+    # by default, so WAL replay and non-QoS hosts pay nothing
+    qos = None
+    _wfq_gate = None
+
+    # the staging-clock pin of event-plane replication: a replica feed
+    # ships each WAL append's staging timestamp so a follower stages
+    # byte-identical rows; the follower's applier sets it around its apply
+    # call, the leader at publish time. It is shared engine state, set and
+    # cleared only under the engine lock, in the critical section that
+    # staged the batch (an unlocked clear could null a concurrent batch's
+    # pin between its publish and its staging)
+    _now_override: int | None = None
+
+    def _staging_now(self) -> int:
+        """The staging clock: the pin when one is set, else the epoch's."""
+        ov = self._now_override
+        return int(ov) if ov is not None else self.epoch.now_ms()
+
+    def _clear_now_pin(self) -> None:
+        """Drop the staging-clock pin (engine lock held). Nested
+        ``process()`` calls (the per-request path of a batch, envelope
+        re-entry) keep the outer batch's pin: a whole batch stages on one
+        clock."""
+        if not getattr(self._wal_local, "depth", 0):
+            self._now_override = None
+
+
+    # --------------------------------------------------------- flight recorder
+    def get_trace(self, trace_id: str) -> dict:
+        """The lifecycle records of one trace id."""
+        return {"traceId": trace_id,
+                "records": self.flight.records_of(trace_id)}
+
+    def recent_traces(self, limit: int = 50) -> list[dict]:
+        return self.flight.recent(limit)
+
+    def get_trace_timeline(self, trace_id: str) -> dict:
+        """One trace as a Chrome-trace-event document (loads in Perfetto):
+        the flight record's lifecycle intervals merged with the tracer's
+        live spans."""
+        from sitewhere_tpu_torch.utils.tracing import (finish_timeline,
+                                                       timeline_events)
+
+        return finish_timeline(trace_id, timeline_events(self, trace_id))
+
+    def slo_harvest(self) -> list:
+        """Completed ingest lifecycles not yet exported to the SLO plane,
+        each handed out once (the scrape's per-tenant
+        ``swtpu_ingest_e2e_seconds`` is built from them, so the ingest
+        path pays no sync for SLO latency)."""
+        return self.flight.harvest_completed("ingest",
+                                             terminal="device_ready")
+
+    # ------------------------------------------------------------------ WAL
+    def _wal_append(self, tag: bytes, payloads: list[bytes],
+                    tenant: str) -> None:
+        """Log accepted payloads, under the engine lock (a snapshot's
+        watermark can never cover a record whose events were not staged).
+        No-op while replaying, or while an outer ingest path on this
+        thread already logged the raw batch. With group commit the append
+        buffers and returns a ticket; :meth:`_wal_gate` holds the dispatch
+        until it is durable. Without it, the group is written and flushed
+        inline."""
+        if self.wal is None or getattr(self._wal_local, "depth", 0):
+            return
+        rec = self.flight.current()
+        t0 = time.perf_counter()
+        self._wal_last_seq = self.wal.append_many(
+            payloads, tag + tenant.encode() + b"\x00")
+        if not self.wal.group_commit:
+            self.wal.flush()
+        rec.mark("wal_append")
+        rec.add("wal_flush_ms", round((time.perf_counter() - t0) * 1000, 3))
+        feed = getattr(self, "replica_feed", None)
+        if feed is not None:
+            # the append's critical section: feed order is WAL order. The
+            # staging clock is pinned here and shipped, so leader staging
+            # and follower replay stamp the same received_ms
+            now_ms = self.epoch.now_ms()
+            self._now_override = now_ms
+            feed.publish(tag, payloads, tenant, self._wal_last_seq, now_ms)
+
+    def _wal_gate(self, traces=()) -> None:
+        """Block until every WAL record appended so far is durable — called
+        under the engine lock before a dispatch enqueues its host-to-device
+        copy; stamps ``wal_durable`` on the dispatch's records. No-op
+        without a WAL or without group commit (whose appends flushed
+        inline, and which promises no durability at dispatch)."""
+        if self.wal is None or not self.wal.group_commit:
+            return
+        t0 = time.perf_counter()
+        self.wal.wait_durable(self._wal_last_seq)
+        dt = time.perf_counter() - t0
+        for rec in traces:
+            rec.mark("wal_durable")
+            rec.add("wal_gate_ms", round(dt * 1000, 3))
+
+    @contextlib.contextmanager
+    def _wal_suppress(self):
+        """Suppress WAL logging for nested process() calls on this thread
+        (their raw batch is already logged)."""
+        self._wal_local.depth = getattr(self._wal_local, "depth", 0) + 1
+        try:
+            yield
+        finally:
+            self._wal_local.depth -= 1
+
+    def _wal_admin_register(self, token: str, device_type: str, tenant: str,
+                            area: str | None, customer: str | None) -> None:
+        """Log an admin-path registration as its wire-form REGISTER
+        envelope, in the critical section of the mutation, so that WAL
+        replay recreates it. The wire path already logged its envelope and
+        re-enters under ``_wal_suppress``: no-op there."""
+        if self.wal is None or getattr(self._wal_local, "depth", 0):
+            return
+        extras = {"deviceTypeToken": device_type}
+        if area:
+            extras["areaToken"] = area
+        if customer:
+            extras["customerToken"] = customer
+        req = DecodedRequest(type=RequestType.REGISTER_DEVICE,
+                             device_token=token, tenant=tenant, extras=extras)
+        try:
+            self._wal_append(WAL_BINARY, [encode_binary_request(req)], tenant)
+        finally:
+            self._clear_now_pin()
+
+    # ------------------------------------------------------------------ ingest
+    def process(self, req) -> None:
+        """Stage one decoded request (the per-request path); flushes when
+        the staging batch fills. Registration and mapping envelopes take
+        the admin path; event requests convert to one staged SoA row."""
+        with self.lock:
+            if self.channel_map.strict and req.measurements:
+                # strict mode rejects before the WAL append (a refused
+                # event is never durable) and without interning (refused
+                # names leak no lanes)
+                self.channel_map.validate(req.measurements)
+            if self.wal is not None:
+                # log the request in the binary wire form when it has one;
+                # other types are snapshot-only
+                try:
+                    self._wal_append(WAL_BINARY, [encode_binary_request(req)],
+                                     req.tenant)
+                except KeyError:
+                    pass
+            if req.type is RequestType.REGISTER_DEVICE:
+                # the envelope above is this registration's WAL record
+                with self._wal_suppress():
+                    self.register_device(
+                        req.device_token,
+                        device_type=req.extras.get(
+                            "deviceTypeToken", self.config.default_device_type),
+                        tenant=req.tenant,
+                        area=req.extras.get("areaToken"),
+                        customer=req.extras.get("customerToken"),
+                    )
+                self._clear_now_pin()
+                return
+            if req.type is RequestType.MAP_DEVICE:
+                parent = (req.extras.get("parentToken")
+                          or req.extras.get("parentHardwareId"))
+                if parent:
+                    self.map_device(req.device_token, parent)
+                self._clear_now_pin()
+                return
+            et = req.event_type
+            if et is None:
+                self._clear_now_pin()
+                return
+            now = self._staging_now()
+            # wire timestamps are absolute unix ms; device lanes carry int32
+            # ms relative to the engine epoch base
+            if req.event_ts_ms is not None:
+                base_ms = int(self.epoch.base_unix_s * 1000)
+                ts = int(np.clip(req.event_ts_ms - base_ms,
+                                 -(2**31) + 1, 2**31 - 1))
+            else:
+                ts = now
+            token_id = self.tokens.intern(req.device_token)
+            tenant_id = self.tenants.intern(req.tenant)
+            channels = self.config.channels
+            values = np.zeros(channels, np.float32)
+            mask = np.zeros(channels, np.bool_)
+            aux0 = NULL_ID
+            if et is EventType.MEASUREMENT and req.measurements:
+                for name, val in req.measurements.items():
+                    ch = self.channel_map.channel_of(name)
+                    values[ch] = val
+                    mask[ch] = True
+            elif et is EventType.LOCATION:
+                # lanes only when coordinates were provided: no (0, 0) rows
+                if req.latitude is not None and req.longitude is not None:
+                    values[0], values[1] = req.latitude, req.longitude
+                    values[2] = req.elevation or 0.0
+                    mask[:3] = True
+            elif et is EventType.ALERT:
+                values[0] = float(int(req.alert_level))
+                mask[0] = True
+                aux0 = self.alert_types.intern(req.alert_type or "alert")
+            elif et is EventType.COMMAND_RESPONSE and req.originating_event_id:
+                aux0 = self.event_ids.intern(req.originating_event_id)
+            elif et is EventType.STATE_CHANGE and (req.attribute or req.state_type):
+                aux0 = self.event_ids.intern(
+                    f"{req.attribute or ''}:{req.state_type or ''}")
+            aux1 = (self.event_ids.intern(req.alternate_id)
+                    if req.alternate_id is not None else NULL_ID)
+            self._stage_row(int(et), token_id, tenant_id, ts, now,
+                            values, mask, aux0, aux1)
+            # a top-level call drops the pin that covered this request; a
+            # nested one keeps its outer batch's
+            self._clear_now_pin()
+
+    def _ingest_batch(self, payloads: list[bytes], tenant: str, tag: bytes,
+                      dec, native_fn, binary: bool,
+                      traceparent: str | None = None) -> dict:
+        """The batch skeleton: strict validation -> WAL -> stage, in one
+        flight-recorder lifecycle record (``traceparent``, explicit or
+        bound, joins a trace instead of opening one). With QoS the
+        batch's weighted-fair turn orders which tenant enters the ingest
+        critical section next; callers already inside the engine lock
+        skip the turn (parking them would deadlock). ``native_fn`` is the
+        native SoA decoder call (None = Python)."""
+        rec = self.flight.begin(
+            "ingest", tenant=tenant, n_payloads=len(payloads),
+            traceparent=traceparent or current_traceparent())
+        gate = self._wfq_gate
+        gate_ctx = (gate.turn(tenant, len(payloads))
+                    if gate is not None and not self.lock._is_owned()
+                    else contextlib.nullcontext())
+        with self.flight.bind(rec):
+            summary = self._ingest_batch_inner(payloads, tenant, tag, dec,
+                                               native_fn, binary, rec,
+                                               gate_ctx)
+        if rec.trace_id is not None:
+            rec.add_counts(summary)
+            if rec.meta.get("path") != "arena" and summary.get("staged"):
+                with self.lock:
+                    if self.staged_count:
+                        # rows wait in the shared buffer: the next flush
+                        # stamps this record's dispatch
+                        self._staged_traces.append(rec)
+                    else:
+                        # a mid-ingest buffer-fill flush already dispatched
+                        # every row: join the newest in-flight dispatch so
+                        # drain stamps the tail stages
+                        rec.mark("dispatch")
+                        if self._pending_traces:
+                            self._pending_traces[-1].append(rec)
+                        else:
+                            rec.mark("device_ready")
+            summary["trace_id"] = rec.trace_id
+        return summary
+
+    def _ingest_batch_inner(self, payloads, tenant, tag, dec, native_fn,
+                            binary, rec, gate_ctx) -> dict:
+        # gate_ctx is the batch's single-use weighted-fair turn; each
+        # branch enters it just before its own critical section, never
+        # around work designed to run outside the lock
+        if native_fn is None:
+            with gate_ctx, self.lock:
+                try:
+                    predecoded = self._strict_predecode(payloads, dec)
+                    self._wal_append(tag, payloads, tenant)
+                    summary = self._ingest_python_fallback(payloads, tenant,
+                                                           dec, predecoded)
+                    rec.mark("decode")
+                    rec.mark("commit")
+                    return summary
+                finally:
+                    self._clear_now_pin()
+        if self.config.strict_channels:
+            # strict decodes under the lock, so a rejected batch can roll
+            # back the names it interned without clobbering a concurrent
+            # batch's
+            with gate_ctx, self.lock:
+                try:
+                    names_before = len(self.channel_map.names)
+                    res = native_fn(payloads)
+                    rec.mark("decode")
+                    self._check_strict_native(res, names_before)
+                    self._wal_append(tag, payloads, tenant)
+                    summary = self._ingest_decoded(res, payloads, tenant, dec)
+                    rec.mark("commit")
+                    return summary
+                finally:
+                    self._clear_now_pin()
+        if (getattr(self, "_arena_pool", None) is not None
+                and not self.config.fair_tenancy):
+            with gate_ctx:
+                return self._ingest_batch_arena(payloads, tenant, tag, dec,
+                                                binary)
+        # copy path: decode outside the lock (and outside the turn), log
+        # and stage atomically
+        res = native_fn(payloads)
+        rec.mark("decode")
+        with gate_ctx, self.lock:
+            try:
+                self._wal_append(tag, payloads, tenant)
+                summary = self._ingest_decoded(res, payloads, tenant, dec)
+                rec.mark("commit")
+                return summary
+            finally:
+                self._clear_now_pin()
+
+    def _strict_predecode(self, payloads, dec):
+        """Strict pre-pass of the Python path: decode once and check the
+        channel capacity without interning, so a rejected batch leaks no
+        lanes. Returns the per-payload request lists (None = failed) for
+        :meth:`_ingest_python_fallback`; None when strict mode is off.
+        Caller holds the lock."""
+        if not self.channel_map.strict:
+            return None
+        decoded: list[list | None] = []
+        names: list[str] = []
+        for p in payloads:
+            try:
+                reqs = dec.decode(p, {})
+            except Exception:
+                decoded.append(None)   # counted failed on the ingest pass
+                continue
+            decoded.append(reqs)
+            for req in reqs:
+                names.extend(req.measurements or ())
+        self.channel_map.validate(names)
+        return decoded
+
+    def _check_strict_native(self, res, names_before: int) -> None:
+        """Strict native path: on any lane collision the whole batch is
+        rejected before the WAL and staging, and the names it interned
+        roll back. Caller holds the lock."""
+        if not self.config.strict_channels or not res.collisions:
+            return
+        self.channel_map.names.truncate(names_before)
+        self.channel_map.collisions += res.collisions
+        raise ChannelCapacityError(
+            f"{res.collisions} measurement lane collision(s) in batch: "
+            f"distinct names exceed channel capacity "
+            f"{self.config.channels}; raise channels or drop strict_channels")
+
+    def _ingest_python_fallback(self, payloads, tenant, dec,
+                                predecoded=None) -> dict:
+        """Per-request staging; reuses the strict pre-pass's decode when
+        there is one. A payload that fails to decode or to stage counts as
+        failed."""
+        failed = 0
+        with self._wal_suppress():   # the raw batch is already logged
+            if predecoded is not None:
+                for reqs in predecoded:
+                    if reqs is None:
+                        failed += 1
+                        continue
+                    for req in reqs:
+                        req.tenant = tenant
+                        self.process(req)
+            else:
+                for p in payloads:
+                    try:
+                        for req in dec.decode(p, {}):
+                            req.tenant = tenant
+                            self.process(req)
+                    except Exception:
+                        failed += 1
+        return {"decoded": len(payloads) - failed, "failed": failed}
+
+    def _reroute_envelopes(self, rtype: np.ndarray, payloads, tenant,
+                           reg_decoder) -> tuple[np.ndarray, int, int]:
+        """Registration, mapping and acknowledge envelopes carry strings the
+        fast columns do not extract: decode each again and stage it
+        through :meth:`process`. Returns (their row mask, envelopes
+        staged, envelopes failed). Caller holds the lock."""
+        regs = (rtype == RT_REGISTER) | (rtype == RT_MAP) | (rtype == RT_ACK)
+        n_ok = failed = 0
+        if regs.any():
+            with self._wal_suppress():   # the raw batch is already logged
+                for i in np.nonzero(regs)[0]:
+                    try:
+                        for req in reg_decoder.decode(payloads[int(i)], {}):
+                            req.tenant = tenant
+                            self.process(req)
+                        n_ok += 1
+                    except Exception:
+                        failed += 1
+        return regs, n_ok, failed
+
+    def _decode_prologue(self, res, payloads, tenant, reg_decoder,
+                         now: int, base_ms: int):
+        """Post-processing of a native SoA decode on the copy path: map
+        request types to event types, re-route the envelopes, relativize
+        timestamps and fold alert levels into values lane 0. Returns
+        (etype, ok, ts_rel, values, failed, n_reg_ok). Caller holds the
+        lock."""
+        etype = RTYPE_TO_ETYPE[np.clip(res.rtype, -1, 7)]
+        ok = (res.rtype >= 0) & (etype >= 0)
+        regs, n_reg_ok, reg_failed = self._reroute_envelopes(
+            res.rtype, payloads, tenant, reg_decoder)
+        ok &= ~regs   # slow-path rows must not also stage on the fast path
+        failed = int(np.sum(res.rtype < 0)) + reg_failed
+        # relative int32 timestamps (absent -> now)
+        ts_rel = np.where(
+            res.ts_ms64 >= 0,
+            np.clip(res.ts_ms64 - base_ms, -(2**31) + 1, 2**31 - 1),
+            now,
+        ).astype(np.int32)
+        values = res.values
+        alert_rows = ok & (etype == int(EventType.ALERT))
+        if np.any(alert_rows):
+            values = values.copy()
+            values[alert_rows, 0] = res.level[alert_rows]
+        return etype, ok, ts_rel, values, failed, n_reg_ok
+
+
+
+class Engine(IngestHostMixin):
     """Single-device engine instance."""
 
     def __init__(self, config: EngineConfig | None = None,
@@ -1035,32 +1467,6 @@ class Engine:
             self._backlog_hwm = self.staged_count
         return hwm
 
-    # --------------------------------------------------------- flight recorder
-    def get_trace(self, trace_id: str) -> dict:
-        """The lifecycle records of one trace id."""
-        return {"traceId": trace_id,
-                "records": self.flight.records_of(trace_id)}
-
-    def recent_traces(self, limit: int = 50) -> list[dict]:
-        return self.flight.recent(limit)
-
-    def get_trace_timeline(self, trace_id: str) -> dict:
-        """One trace as a Chrome-trace-event document (loads in Perfetto):
-        the flight record's lifecycle intervals merged with the tracer's
-        live spans."""
-        from sitewhere_tpu_torch.utils.tracing import (finish_timeline,
-                                                       timeline_events)
-
-        return finish_timeline(trace_id, timeline_events(self, trace_id))
-
-    def slo_harvest(self) -> list:
-        """Completed ingest lifecycles not yet exported to the SLO plane,
-        each handed out once (the scrape's per-tenant
-        ``swtpu_ingest_e2e_seconds`` is built from them, so the ingest
-        path pays no sync for SLO latency)."""
-        return self.flight.harvest_completed("ingest",
-                                             terminal="device_ready")
-
     def _step(self, state: PipelineState, batch: EventBatch):
         return pipeline_step(state, batch, self.pipeline_config)
 
@@ -1095,149 +1501,6 @@ class Engine:
             self._dispatch_staged(all_batches=True)
         if self._pending_outs:
             self.drain()
-
-    # ------------------------------------------------------------------ WAL
-    def _wal_append(self, tag: bytes, payloads: list[bytes],
-                    tenant: str) -> None:
-        """Log accepted payloads, under the engine lock (a snapshot's
-        watermark can never cover a record whose events were not staged).
-        No-op while replaying, or while an outer ingest path on this
-        thread already logged the raw batch. With group commit the append
-        buffers and returns a ticket; :meth:`_wal_gate` holds the dispatch
-        until it is durable. Without it, the group is written and flushed
-        inline."""
-        if self.wal is None or getattr(self._wal_local, "depth", 0):
-            return
-        rec = self.flight.current()
-        t0 = time.perf_counter()
-        self._wal_last_seq = self.wal.append_many(
-            payloads, tag + tenant.encode() + b"\x00")
-        if not self.wal.group_commit:
-            self.wal.flush()
-        rec.mark("wal_append")
-        rec.add("wal_flush_ms", round((time.perf_counter() - t0) * 1000, 3))
-
-    def _wal_gate(self, traces=()) -> None:
-        """Block until every WAL record appended so far is durable — called
-        under the engine lock before a dispatch enqueues its host-to-device
-        copy; stamps ``wal_durable`` on the dispatch's records. No-op
-        without a WAL or without group commit (whose appends flushed
-        inline, and which promises no durability at dispatch)."""
-        if self.wal is None or not self.wal.group_commit:
-            return
-        t0 = time.perf_counter()
-        self.wal.wait_durable(self._wal_last_seq)
-        dt = time.perf_counter() - t0
-        for rec in traces:
-            rec.mark("wal_durable")
-            rec.add("wal_gate_ms", round(dt * 1000, 3))
-
-    @contextlib.contextmanager
-    def _wal_suppress(self):
-        """Suppress WAL logging for nested process() calls on this thread
-        (their raw batch is already logged)."""
-        self._wal_local.depth = getattr(self._wal_local, "depth", 0) + 1
-        try:
-            yield
-        finally:
-            self._wal_local.depth -= 1
-
-    def _wal_admin_register(self, token: str, device_type: str, tenant: str,
-                            area: str | None, customer: str | None) -> None:
-        """Log an admin-path registration as its wire-form REGISTER
-        envelope, in the critical section of the mutation, so that WAL
-        replay recreates it. The wire path already logged its envelope and
-        re-enters under ``_wal_suppress``: no-op there."""
-        if self.wal is None or getattr(self._wal_local, "depth", 0):
-            return
-        extras = {"deviceTypeToken": device_type}
-        if area:
-            extras["areaToken"] = area
-        if customer:
-            extras["customerToken"] = customer
-        req = DecodedRequest(type=RequestType.REGISTER_DEVICE,
-                             device_token=token, tenant=tenant, extras=extras)
-        self._wal_append(WAL_BINARY, [encode_binary_request(req)], tenant)
-
-    # ------------------------------------------------------------------ ingest
-    def process(self, req) -> None:
-        """Stage one decoded request (the per-request path); flushes when
-        the staging batch fills. Registration and mapping envelopes take
-        the admin path; event requests convert to one staged SoA row."""
-        with self.lock:
-            if self.channel_map.strict and req.measurements:
-                # strict mode rejects before the WAL append (a refused
-                # event is never durable) and without interning (refused
-                # names leak no lanes)
-                self.channel_map.validate(req.measurements)
-            if self.wal is not None:
-                # log the request in the binary wire form when it has one;
-                # other types are snapshot-only
-                try:
-                    self._wal_append(WAL_BINARY, [encode_binary_request(req)],
-                                     req.tenant)
-                except KeyError:
-                    pass
-            if req.type is RequestType.REGISTER_DEVICE:
-                # the envelope above is this registration's WAL record
-                with self._wal_suppress():
-                    self.register_device(
-                        req.device_token,
-                        device_type=req.extras.get(
-                            "deviceTypeToken", self.config.default_device_type),
-                        tenant=req.tenant,
-                        area=req.extras.get("areaToken"),
-                        customer=req.extras.get("customerToken"),
-                    )
-                return
-            if req.type is RequestType.MAP_DEVICE:
-                parent = (req.extras.get("parentToken")
-                          or req.extras.get("parentHardwareId"))
-                if parent:
-                    self.map_device(req.device_token, parent)
-                return
-            et = req.event_type
-            if et is None:
-                return
-            now = self.epoch.now_ms()
-            # wire timestamps are absolute unix ms; device lanes carry int32
-            # ms relative to the engine epoch base
-            if req.event_ts_ms is not None:
-                base_ms = int(self.epoch.base_unix_s * 1000)
-                ts = int(np.clip(req.event_ts_ms - base_ms,
-                                 -(2**31) + 1, 2**31 - 1))
-            else:
-                ts = now
-            token_id = self.tokens.intern(req.device_token)
-            tenant_id = self.tenants.intern(req.tenant)
-            channels = self.config.channels
-            values = np.zeros(channels, np.float32)
-            mask = np.zeros(channels, np.bool_)
-            aux0 = NULL_ID
-            if et is EventType.MEASUREMENT and req.measurements:
-                for name, val in req.measurements.items():
-                    ch = self.channel_map.channel_of(name)
-                    values[ch] = val
-                    mask[ch] = True
-            elif et is EventType.LOCATION:
-                # lanes only when coordinates were provided: no (0, 0) rows
-                if req.latitude is not None and req.longitude is not None:
-                    values[0], values[1] = req.latitude, req.longitude
-                    values[2] = req.elevation or 0.0
-                    mask[:3] = True
-            elif et is EventType.ALERT:
-                values[0] = float(int(req.alert_level))
-                mask[0] = True
-                aux0 = self.alert_types.intern(req.alert_type or "alert")
-            elif et is EventType.COMMAND_RESPONSE and req.originating_event_id:
-                aux0 = self.event_ids.intern(req.originating_event_id)
-            elif et is EventType.STATE_CHANGE and (req.attribute or req.state_type):
-                aux0 = self.event_ids.intern(
-                    f"{req.attribute or ''}:{req.state_type or ''}")
-            aux1 = (self.event_ids.intern(req.alternate_id)
-                    if req.alternate_id is not None else NULL_ID)
-            self._stage_row(int(et), token_id, tenant_id, ts, now,
-                            values, mask, aux0, aux1)
 
     def _stage_row(self, et, token_id, tenant_id, ts, now, values, mask,
                    aux0, aux1) -> None:
@@ -1349,194 +1612,6 @@ class Engine:
             self._native_decoder.decode_binary if self._native_decoder
             else None, binary=True, traceparent=traceparent)
 
-    def _ingest_batch(self, payloads: list[bytes], tenant: str, tag: bytes,
-                      dec, native_fn, binary: bool,
-                      traceparent: str | None = None) -> dict:
-        """The batch skeleton: strict validation -> WAL -> stage, in one
-        flight-recorder lifecycle record (``traceparent``, explicit or
-        bound, joins a trace instead of opening one). With QoS the
-        batch's weighted-fair turn orders which tenant enters the ingest
-        critical section next; callers already inside the engine lock
-        skip the turn (parking them would deadlock). ``native_fn`` is the
-        native SoA decoder call (None = Python)."""
-        rec = self.flight.begin(
-            "ingest", tenant=tenant, n_payloads=len(payloads),
-            traceparent=traceparent or current_traceparent())
-        gate = self._wfq_gate
-        gate_ctx = (gate.turn(tenant, len(payloads))
-                    if gate is not None and not self.lock._is_owned()
-                    else contextlib.nullcontext())
-        with self.flight.bind(rec):
-            summary = self._ingest_batch_inner(payloads, tenant, tag, dec,
-                                               native_fn, binary, rec,
-                                               gate_ctx)
-        if rec.trace_id is not None:
-            rec.add_counts(summary)
-            if rec.meta.get("path") != "arena" and summary.get("staged"):
-                with self.lock:
-                    if self.staged_count:
-                        # rows wait in the shared buffer: the next flush
-                        # stamps this record's dispatch
-                        self._staged_traces.append(rec)
-                    else:
-                        # a mid-ingest buffer-fill flush already dispatched
-                        # every row: join the newest in-flight dispatch so
-                        # drain stamps the tail stages
-                        rec.mark("dispatch")
-                        if self._pending_traces:
-                            self._pending_traces[-1].append(rec)
-                        else:
-                            rec.mark("device_ready")
-            summary["trace_id"] = rec.trace_id
-        return summary
-
-    def _ingest_batch_inner(self, payloads, tenant, tag, dec, native_fn,
-                            binary, rec, gate_ctx) -> dict:
-        # gate_ctx is the batch's single-use weighted-fair turn; each
-        # branch enters it just before its own critical section, never
-        # around work designed to run outside the lock
-        if native_fn is None:
-            with gate_ctx, self.lock:
-                predecoded = self._strict_predecode(payloads, dec)
-                self._wal_append(tag, payloads, tenant)
-                summary = self._ingest_python_fallback(payloads, tenant, dec,
-                                                       predecoded)
-                rec.mark("decode")
-                rec.mark("commit")
-                return summary
-        if self.config.strict_channels:
-            # strict decodes under the lock, so a rejected batch can roll
-            # back the names it interned without clobbering a concurrent
-            # batch's
-            with gate_ctx, self.lock:
-                names_before = len(self.channel_map.names)
-                res = native_fn(payloads)
-                rec.mark("decode")
-                self._check_strict_native(res, names_before)
-                self._wal_append(tag, payloads, tenant)
-                summary = self._ingest_decoded(res, payloads, tenant, dec)
-                rec.mark("commit")
-                return summary
-        if self._arena_pool is not None and not self.config.fair_tenancy:
-            with gate_ctx:
-                return self._ingest_batch_arena(payloads, tenant, tag, dec,
-                                                binary)
-        # copy path: decode outside the lock (and outside the turn), log
-        # and stage atomically
-        res = native_fn(payloads)
-        rec.mark("decode")
-        with gate_ctx, self.lock:
-            self._wal_append(tag, payloads, tenant)
-            summary = self._ingest_decoded(res, payloads, tenant, dec)
-            rec.mark("commit")
-            return summary
-
-    def _strict_predecode(self, payloads, dec):
-        """Strict pre-pass of the Python path: decode once and check the
-        channel capacity without interning, so a rejected batch leaks no
-        lanes. Returns the per-payload request lists (None = failed) for
-        :meth:`_ingest_python_fallback`; None when strict mode is off.
-        Caller holds the lock."""
-        if not self.channel_map.strict:
-            return None
-        decoded: list[list | None] = []
-        names: list[str] = []
-        for p in payloads:
-            try:
-                reqs = dec.decode(p, {})
-            except Exception:
-                decoded.append(None)   # counted failed on the ingest pass
-                continue
-            decoded.append(reqs)
-            for req in reqs:
-                names.extend(req.measurements or ())
-        self.channel_map.validate(names)
-        return decoded
-
-    def _check_strict_native(self, res, names_before: int) -> None:
-        """Strict native path: on any lane collision the whole batch is
-        rejected before the WAL and staging, and the names it interned
-        roll back. Caller holds the lock."""
-        if not self.config.strict_channels or not res.collisions:
-            return
-        self.channel_map.names.truncate(names_before)
-        self.channel_map.collisions += res.collisions
-        raise ChannelCapacityError(
-            f"{res.collisions} measurement lane collision(s) in batch: "
-            f"distinct names exceed channel capacity "
-            f"{self.config.channels}; raise channels or drop strict_channels")
-
-    def _ingest_python_fallback(self, payloads, tenant, dec,
-                                predecoded=None) -> dict:
-        """Per-request staging; reuses the strict pre-pass's decode when
-        there is one. A payload that fails to decode or to stage counts as
-        failed."""
-        failed = 0
-        with self._wal_suppress():   # the raw batch is already logged
-            if predecoded is not None:
-                for reqs in predecoded:
-                    if reqs is None:
-                        failed += 1
-                        continue
-                    for req in reqs:
-                        req.tenant = tenant
-                        self.process(req)
-            else:
-                for p in payloads:
-                    try:
-                        for req in dec.decode(p, {}):
-                            req.tenant = tenant
-                            self.process(req)
-                    except Exception:
-                        failed += 1
-        return {"decoded": len(payloads) - failed, "failed": failed}
-
-    def _reroute_envelopes(self, rtype: np.ndarray, payloads, tenant,
-                           reg_decoder) -> tuple[np.ndarray, int, int]:
-        """Registration, mapping and acknowledge envelopes carry strings the
-        fast columns do not extract: decode each again and stage it
-        through :meth:`process`. Returns (their row mask, envelopes
-        staged, envelopes failed). Caller holds the lock."""
-        regs = (rtype == RT_REGISTER) | (rtype == RT_MAP) | (rtype == RT_ACK)
-        n_ok = failed = 0
-        if regs.any():
-            with self._wal_suppress():   # the raw batch is already logged
-                for i in np.nonzero(regs)[0]:
-                    try:
-                        for req in reg_decoder.decode(payloads[int(i)], {}):
-                            req.tenant = tenant
-                            self.process(req)
-                        n_ok += 1
-                    except Exception:
-                        failed += 1
-        return regs, n_ok, failed
-
-    def _decode_prologue(self, res, payloads, tenant, reg_decoder,
-                         now: int, base_ms: int):
-        """Post-processing of a native SoA decode on the copy path: map
-        request types to event types, re-route the envelopes, relativize
-        timestamps and fold alert levels into values lane 0. Returns
-        (etype, ok, ts_rel, values, failed, n_reg_ok). Caller holds the
-        lock."""
-        etype = RTYPE_TO_ETYPE[np.clip(res.rtype, -1, 7)]
-        ok = (res.rtype >= 0) & (etype >= 0)
-        regs, n_reg_ok, reg_failed = self._reroute_envelopes(
-            res.rtype, payloads, tenant, reg_decoder)
-        ok &= ~regs   # slow-path rows must not also stage on the fast path
-        failed = int(np.sum(res.rtype < 0)) + reg_failed
-        # relative int32 timestamps (absent -> now)
-        ts_rel = np.where(
-            res.ts_ms64 >= 0,
-            np.clip(res.ts_ms64 - base_ms, -(2**31) + 1, 2**31 - 1),
-            now,
-        ).astype(np.int32)
-        values = res.values
-        alert_rows = ok & (etype == int(EventType.ALERT))
-        if np.any(alert_rows):
-            values = values.copy()
-            values[alert_rows, 0] = res.level[alert_rows]
-        return etype, ok, ts_rel, values, failed, n_reg_ok
-
     # ------------------------------------------------------------ arena ingest
     def _acquire_arena(self, tenant: str, n_remaining: int):
         """Pool acquire bounded by ``arena_stall_timeout_s``: a wedged
@@ -1574,38 +1649,41 @@ class Engine:
         rec = self.flight.current()
         rec.add("path", "arena")
         with self.lock:
-            now = self.epoch.now_ms()
-            base_ms = int(self.epoch.base_unix_s * 1000)
-            pos = 0
-            while pos < n:
-                arena = self._arena_fill
-                if arena is None:
-                    arena = self._arena_fill = self._acquire_arena(tenant,
-                                                                   n - pos)
-                take = min(n - pos, arena.room)
-                chunk = payloads if take == n else payloads[pos:pos + take]
-                lo = arena.cursor
-                dec = self._sharder or self._native_decoder
-                if dec is self._sharder:
-                    # the shards' decode spans join this batch's trace (the
-                    # engine lock serializes arena decode)
-                    dec.current_trace = rec.trace_id
-                _, collisions = dec.decode_into(chunk, arena, lo, binary=binary)
-                rec.mark("decode")
-                rec.mark("arena_fill")
-                if self._sharder is not None:
-                    rec.add("ingest_workers", self._sharder.last_workers)
-                self._wal_append(tag, chunk, tenant)
-                self._arena_commit(arena, lo, take, chunk, tenant,
-                                   reg_decoder, now, base_ms, summary)
-                rec.mark("commit")
-                if rec.trace_id is not None:
-                    arena.traces.append(rec)
-                self.channel_map.collisions += collisions
-                arena.cursor = lo + take
-                if arena.room == 0:
-                    self._dispatch_arena()
-                pos += take
+            try:
+                now = self._staging_now()
+                base_ms = int(self.epoch.base_unix_s * 1000)
+                pos = 0
+                while pos < n:
+                    arena = self._arena_fill
+                    if arena is None:
+                        arena = self._arena_fill = self._acquire_arena(tenant,
+                                                                       n - pos)
+                    take = min(n - pos, arena.room)
+                    chunk = payloads if take == n else payloads[pos:pos + take]
+                    lo = arena.cursor
+                    dec = self._sharder or self._native_decoder
+                    if dec is self._sharder:
+                        # the shards' decode spans join this batch's trace (the
+                        # engine lock serializes arena decode)
+                        dec.current_trace = rec.trace_id
+                    _, collisions = dec.decode_into(chunk, arena, lo, binary=binary)
+                    rec.mark("decode")
+                    rec.mark("arena_fill")
+                    if self._sharder is not None:
+                        rec.add("ingest_workers", self._sharder.last_workers)
+                    self._wal_append(tag, chunk, tenant)
+                    self._arena_commit(arena, lo, take, chunk, tenant,
+                                       reg_decoder, now, base_ms, summary)
+                    rec.mark("commit")
+                    if rec.trace_id is not None:
+                        arena.traces.append(rec)
+                    self.channel_map.collisions += collisions
+                    arena.cursor = lo + take
+                    if arena.room == 0:
+                        self._dispatch_arena()
+                    pos += take
+            finally:
+                self._clear_now_pin()
         return summary
 
     def _ingest_decoded_arena(self, res, payloads, tenant,
@@ -1619,7 +1697,7 @@ class Engine:
         rec = self.flight.current()
         rec.add("path", "arena")
         with self.lock:
-            now = self.epoch.now_ms()
+            now = self._staging_now()
             base_ms = int(self.epoch.base_unix_s * 1000)
             pos = 0
             while pos < n:
@@ -1737,7 +1815,7 @@ class Engine:
             return self._ingest_decoded_arena(res, payloads, tenant,
                                               reg_decoder)
         with self.lock:
-            now = self.epoch.now_ms()
+            now = self._staging_now()
             base_ms = int(self.epoch.base_unix_s * 1000)
             etype, ok, ts_rel, values, failed, n_reg_ok = \
                 self._decode_prologue(res, payloads, tenant, reg_decoder,

@@ -5,8 +5,11 @@
   a GPU), and the stripped-down ``ShardedEngine``; ``mesh``, ``router``,
   ``exchange``, ``placement`` (the token slot map) and ``multihost`` are
   what they stand on;
-* ``ring_attention`` — sequence parallelism over ``torch.distributed``.
+* ``ring_attention`` — sequence parallelism over ``torch.distributed``;
+* ``distributed`` — ``DistributedEngine``, the mesh product engine (string
+  tokens routed ``gid % n_shards``, admin, reads, the feed, snapshot and
+  WAL recovery) over ``ShardedEngine``; ``reshard`` rewrites its snapshot
+  for another shard count.
 
-``distributed.py`` (the multi-process engine) and the cluster planes are
-not ported yet.
+The cluster planes are not ported yet.
 """

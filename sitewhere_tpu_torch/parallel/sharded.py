@@ -128,14 +128,17 @@ def create_stacked_state(mesh: list[torch.device], device_capacity_per_shard: in
 def split_batch(batch, mesh: list[torch.device]) -> list[EventBatch]:
     """A stacked ``[n_shards, B, ...]`` batch (numpy or tensor columns)
     as one EventBatch a shard on its device; a list passes through, each
-    batch moved to its shard's device."""
+    batch moved to its shard's device. Page-locked host tensor columns
+    move with asynchronous copies."""
     if isinstance(batch, (list, tuple)):
         return [tree_map(lambda x, _d=d: x.to(_d), b) for b, d in zip(batch, mesh)]
 
     def col(x, s, dev):
         if isinstance(x, np.ndarray):
             return torch.from_numpy(np.ascontiguousarray(x[s])).to(dev)
-        return x[s].to(dev)
+        # page-locked host columns copy asynchronously (their owner does not
+        # write them again)
+        return x[s].to(dev, non_blocking=dev.type == "cuda" and x.is_pinned())
 
     return [EventBatch(**{f.name: col(getattr(batch, f.name), s, d)
                           for f in dataclasses.fields(EventBatch)})
@@ -628,34 +631,45 @@ class SpmdEngine(Engine):
                                                native_fn, binary, rec, gate_ctx)
         if native_fn is None:
             with gate_ctx, self.lock:
-                res = self._decode_batch_py(payloads, dec)
-                if res is None:
-                    # stream or multi-request envelopes: the whole batch
-                    # takes the per-request path
-                    predecoded = self._strict_predecode(payloads, dec)
-                    self._wal_append(tag, payloads, tenant)
-                    summary = self._ingest_python_fallback(payloads, tenant, dec,
-                                                           predecoded)
+                try:
+                    res = self._decode_batch_py(payloads, dec)
+                    if res is None:
+                        # stream or multi-request envelopes: the whole batch
+                        # takes the per-request path
+                        predecoded = self._strict_predecode(payloads, dec)
+                        self._wal_append(tag, payloads, tenant)
+                        summary = self._ingest_python_fallback(payloads, tenant,
+                                                               dec, predecoded)
+                        rec.mark("decode")
+                        rec.mark("commit")
+                        return summary
                     rec.mark("decode")
-                    rec.mark("commit")
-                    return summary
-                rec.mark("decode")
-                self._wal_append(tag, payloads, tenant)
-                return self._ingest_decoded_spmd(res, payloads, tenant, dec, rec)
+                    self._wal_append(tag, payloads, tenant)
+                    return self._ingest_decoded_spmd(res, payloads, tenant, dec,
+                                                     rec)
+                finally:
+                    self._clear_now_pin()
         if self.config.strict_channels:
             with gate_ctx, self.lock:
-                names_before = len(self.channel_map.names)
-                res = native_fn(payloads)
-                rec.mark("decode")
-                self._check_strict_native(res, names_before)
-                self._wal_append(tag, payloads, tenant)
-                return self._ingest_decoded_spmd(res, payloads, tenant, dec, rec)
+                try:
+                    names_before = len(self.channel_map.names)
+                    res = native_fn(payloads)
+                    rec.mark("decode")
+                    self._check_strict_native(res, names_before)
+                    self._wal_append(tag, payloads, tenant)
+                    return self._ingest_decoded_spmd(res, payloads, tenant, dec,
+                                                     rec)
+                finally:
+                    self._clear_now_pin()
         # lenient path: native decode outside the lock (and the turn)
         res = native_fn(payloads)
         rec.mark("decode")
         with gate_ctx, self.lock:
-            self._wal_append(tag, payloads, tenant)
-            return self._ingest_decoded_spmd(res, payloads, tenant, dec, rec)
+            try:
+                self._wal_append(tag, payloads, tenant)
+                return self._ingest_decoded_spmd(res, payloads, tenant, dec, rec)
+            finally:
+                self._clear_now_pin()
 
     def _decode_batch_py(self, payloads, dec):
         """The Python decode into the native decoder's SoA layout
@@ -765,7 +779,7 @@ class SpmdEngine(Engine):
 
         rec.add("path", "arena")
         with self.lock:
-            now = self.epoch.now_ms()
+            now = self._staging_now()
             base_ms = int(self.epoch.base_unix_s * 1000)
             tids = res.token_id
             # route every token the row router would, in payload order:

@@ -124,8 +124,12 @@ def _backlog_rows(eng) -> int:
     """Valid rows staged but not yet dispatched, field by field (the fill
     arena's failed-decode rows below the cursor never dispatch as valid).
     Caller holds the lock."""
-    n = len(eng._buf) + eng._fair_queued
-    fill = eng._arena_fill
+    buf = eng._buf
+    # the mesh engine stages every shard in one [S, B] buffer, its fair
+    # queues count a shard each
+    n = buf.total() if hasattr(buf, "total") else len(buf)
+    n += int(np.sum(eng._fair_queued))
+    fill = getattr(eng, "_arena_fill", None)
     if fill is not None:
         cursors = getattr(fill, "cursors", None)
         if cursors is not None:
@@ -133,7 +137,7 @@ def _backlog_rows(eng) -> int:
             n += sum(int(np.sum(fill.valid[s, :int(c)])) for s, c in enumerate(cursors))
         else:
             n += int(np.sum(fill.valid[:fill.cursor]))
-    for b in eng._staged_batches:
+    for b in getattr(eng, "_staged_batches", ()):
         n += int(np.sum(b.valid))
     # the multi-shard engine's per-shard router buffers
     n += sum(len(b) for b in getattr(eng, "_shard_bufs", ()))
@@ -144,9 +148,13 @@ def _rules_stage(eng, rules_manager) -> dict | None:
     """Device CEP counters and the manager's harvest accounting (each
     device read below is one host sync: ``_SYNCS_RULES`` and
     ``_SYNCS_ROLLUPS`` count them for the auditor)."""
-    rs = eng.state.rules
+    # a multi-shard engine's first shard says whether rules are installed,
+    # without stacking every shard's state
+    shards = getattr(eng, "shards", None)
+    rs = shards[0].rules if shards else eng.state.rules
     if rs is None or (rs.rules is None and rs.rollups is None):
         return None
+    rs = eng.state.rules
     out: dict = {}
     # a multi-shard engine's state is stacked on a leading shard axis: the
     # counters sum over it (a single engine's are 0-d)

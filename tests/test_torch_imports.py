@@ -85,6 +85,9 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
             "sitewhere_tpu_torch.parallel.exchange", "sitewhere_tpu_torch.parallel.sharded",
             "sitewhere_tpu_torch.parallel.multihost",
             "sitewhere_tpu_torch.parallel.placement", "sitewhere_tpu_torch.utils.shardobs",
+            # the mesh product engine and the offline reshard
+            "sitewhere_tpu_torch.parallel.distributed",
+            "sitewhere_tpu_torch.parallel.reshard",
             } <= set(names.split())
 
 
@@ -149,6 +152,69 @@ def test_sharded_engines_run_with_jax_blocked():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out == {"persisted": 20, "total": 20, "conserved": True, "sharded": 12,
                    "shards": [0, 1], "leaked": []}
+
+
+_DISTRIBUTED_PROBE = r"""
+import json
+import pathlib
+import sys
+import tempfile
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sitewhere_tpu")
+
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"BLOCKED: the port tried to import {name!r}")
+        return None
+
+sys.meta_path.insert(0, _Blocker())
+
+from sitewhere_tpu_torch.parallel.distributed import (DistributedConfig,
+                                                      DistributedEngine,
+                                                      recover_distributed,
+                                                      restore_distributed)
+from sitewhere_tpu_torch.parallel.reshard import reshard_snapshot
+from sitewhere_tpu_torch.utils.conservation import build_ledger, check_conservation
+
+tmp = pathlib.Path(tempfile.mkdtemp())
+eng = DistributedEngine(DistributedConfig(
+    n_shards=2, device_capacity_per_shard=16, token_capacity_per_shard=32,
+    assignment_capacity_per_shard=32, store_capacity_per_shard=128, channels=4,
+    batch_capacity_per_shard=16, wal_dir=str(tmp / "wal"), device="cpu"))
+wire = [json.dumps({"deviceToken": f"d{i % 5}", "type": "DeviceMeasurement",
+                    "request": {"name": "t", "value": float(i), "eventDate": 1000 + i}}
+                   ).encode() for i in range(20)]
+eng.ingest_json_batch(wire[:10])
+eng.flush()
+eng.save(tmp / "snap")
+eng.ingest_json_batch(wire[10:])
+eng.flush()
+ok = check_conservation(build_ledger(eng)) == []
+eng.wal.close()
+back = recover_distributed(tmp / "snap", device="cpu")
+reshard_snapshot(tmp / "snap", tmp / "one", 1)
+one = restore_distributed(tmp / "one", device="cpu")
+feed = eng.make_feed_consumer("g").poll()
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+print(json.dumps({"persisted": back.metrics()["persisted"],
+                  "resharded": one.metrics()["persisted"], "feed": len(feed),
+                  "total": eng.query_events(limit=5)["total"], "conserved": ok,
+                  "leaked": leaked}))
+"""
+
+
+def test_distributed_engine_runs_with_jax_blocked():
+    """The mesh engine, its WAL recovery, the offline reshard, the feed and
+    the conservation ledger run where jax and the JAX package cannot be
+    imported."""
+    res = subprocess.run([sys.executable, "-c", _DISTRIBUTED_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, f"{res.stdout}\n{res.stderr}"
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {"persisted": 20, "resharded": 10, "feed": 20, "total": 20,
+                   "conserved": True, "leaked": []}
 
 
 _TRAIN_PROBE = r"""
