@@ -242,6 +242,26 @@ Phases, each printed as one JSON line:
              harvested record; (f) the memory ledger within
              ``torch.cuda.memory_allocated`` and equal to a CPU engine's.
              Prints one ``hostplane:`` line.
+12. anomaly_tp — the anomaly model's DP x TP training step at the default
+             ``AnomalyConfig()`` (100 sensors, 128 steps, hidden 512, LSTM
+             512, bf16), batch 64, in a one-rank NCCL group on a (1, 1)
+             ``("dp", "tp")`` mesh: (a) every parameter's placements are
+             JAX's predicate on its flax leaf; (b) 3 steps of
+             ``make_train_step_dp_tp`` against 3 of the single-device
+             ``make_train_step`` from the same seeded weights and batch,
+             losses and parameters bit for bit; (c) ms a step of both and
+             the ``h`` all-gather a time step. TP across ranks is held to
+             JAX on 8 gloo ranks in the CPU tests only.
+13. multihost — the two-process sharded job: 2 worker processes with 4
+             shards each on this card, sums over a gloo group; both lines
+             carry the JAX demo's totals and shard ownership, and every
+             state tensor is on the card. Prints the wall time.
+14. sources — an ``EventSourcesManager`` with an in-memory and a socket
+             receiver (newline framing; a composite decoder over the JSON
+             and JSON batch decoders), alternate-id dedup, into an engine
+             on the card: 4096 seeded payloads with redeliveries, bad
+             payloads and registrations; counts, dead letter, and the
+             state byte for byte a CPU engine's. Prints payloads/s.
 
 ``--profile`` adds torch.profiler breakdowns after the checks of the
 slice, train, read, transformer, transformer_train (one step by kernel
@@ -264,6 +284,7 @@ import dataclasses
 import functools
 import importlib.util
 import json
+import logging
 import math
 import os
 import pathlib
@@ -303,6 +324,7 @@ from sitewhere_tpu_torch.ops import window_features as wf
 from sitewhere_tpu_torch.ops.query import QueryParams, query_store, query_store_batch
 from sitewhere_tpu_torch.ops.readback import arena_cursor
 from sitewhere_tpu_torch.ops.rules import harvest_fires
+from sitewhere_tpu_torch.parallel.multihost_demo import run_two_process_demo
 from sitewhere_tpu_torch.pipeline import make_presence_sweep
 from sitewhere_tpu_torch.rules import RuleSetWatcher, RulesManager
 from sitewhere_tpu_torch.utils.checkpoint import recover_engine, save_engine
@@ -4478,6 +4500,323 @@ def phase_distributed(device, log, fails, seed: int, shard_counts=DIST_SHARDS,
     return rec
 
 
+# ------------------------------------------------- anomaly_tp, multihost, sources
+
+TP_CONFIG = AnomalyConfig()     # the default model: C 100, W 128, hidden 512, LSTM 512, bf16
+TP_BATCH = 64
+TP_STEPS = 3
+TP_LR = 1e-3
+TP_TIMED = 5
+
+
+def phase_anomaly_tp(device, log, fails, seed: int, cfg: AnomalyConfig = TP_CONFIG,
+                     batch: int = TP_BATCH, steps: int = TP_STEPS,
+                     timed: int = TP_TIMED) -> dict:
+    """The anomaly model's DP x TP training step (``param_shardings``,
+    ``distribute_model``, ``make_train_step_dp_tp``) in a one-rank NCCL
+    group on a (1, 1) ``("dp", "tp")`` mesh (gloo on the CPU): one card
+    cannot hold two NCCL ranks, so TP across ranks is held to JAX on 8
+    gloo ranks in tests/test_torch_anomaly_tp.py only. Here (a) every
+    parameter's placements are JAX's predicate on its flax leaf (with tp
+    = 1 a sharded leaf is Shard(0) over one rank: each local shard is the
+    whole tensor); (b) ``steps`` steps against the single-device
+    ``make_train_step`` from the same seeded weights and batch: every
+    collective of one rank is a copy and the operations run in the same
+    order, so the losses and parameters must be bit for bit the same;
+    (c) ms a step of both, and the LSTM's per-time-step all-gather of
+    ``h`` ([batch, lstm_hidden] float32) timed alone."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from sitewhere_tpu_torch.models import anomaly as tan
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed + 16)
+    ref = tan.AnomalyModel(cfg, device=device, generator=gen)
+    x = torch.rand((batch, cfg.window, cfg.sensors), generator=gen).to(device)
+    store = tempfile.mkdtemp(prefix="swtpu-tp-")
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{store}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh(device.type, (1, 1), mesh_dim_names=("dp", "tp"))
+        model = tan.distribute_model(ref, mesh)
+        want = {leaf.param: tan.jax_shards_leaf(leaf.shape, 1)
+                for leaf in tan.anomaly_flax_leaves(cfg)}
+        placements = {n: [str(pl) for pl in p.placements]
+                      for n, p in model.named_parameters()}
+        fails.check(placements == {n: ["R", "S(0)" if s else "R"] for n, s in want.items()},
+                    f"anomaly_tp (a): placements {placements} vs JAX's predicate {want}")
+        fails.check(all(torch.equal(p.to_local(), ref.get_parameter(n))
+                        for n, p in model.named_parameters()),
+                    "anomaly_tp (a): a local shard on a (1, 1) mesh is not the whole tensor")
+        step_tp = tan.make_train_step_dp_tp(model, tan.adamw(model.parameters(), TP_LR), mesh)
+        step_ref = tan.make_train_step(ref, tan.adamw(ref.parameters(), TP_LR))
+        losses_tp = [step_tp(x) for _ in range(steps)]
+        losses_ref = [step_ref(x) for _ in range(steps)]
+        full = tan.full_state_dict(model)
+        loss_diff = max(abs(a.item() - b.item()) for a, b in zip(losses_tp, losses_ref))
+        param_diff = max((full[n] - p.detach()).abs().max().item()
+                         for n, p in ref.named_parameters())
+        fails.check(all(torch.equal(a, b) for a, b in zip(losses_tp, losses_ref))
+                    and all(torch.equal(full[n], p.detach())
+                            for n, p in ref.named_parameters()),
+                    f"anomaly_tp (b): {steps} DP x TP steps vs the single-device steps: "
+                    f"loss diff {loss_diff}, parameter diff {param_diff} (must be 0)")
+        fails.check(all(math.isfinite(v.item()) for v in losses_tp),
+                    f"anomaly_tp (b): losses {losses_tp}")
+        tp_ms = time_ms(lambda: step_tp(x), device, reps=timed, warmup=1)
+        ref_ms = time_ms(lambda: step_ref(x), device, reps=timed, warmup=1)
+        par = tan.TensorParallel(mesh)
+        h = torch.rand((batch, cfg.lstm_hidden), device=device)
+
+        def gathers():
+            with torch.no_grad():
+                for _ in range(cfg.window):
+                    par.gather(h)
+
+        gather_ms = time_ms(gathers, device, reps=timed, warmup=1)
+        _sync(device)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    out = {"phase": "anomaly_tp", "config": dataclasses.asdict(cfg) | {"dtype": str(cfg.dtype)},
+           "batch": batch, "mesh": [1, 1], "backend": backend, "steps": steps,
+           "sharded_params": sorted(n for n, s in want.items() if s),
+           "losses": [v.item() for v in losses_tp], "loss_max_abs_diff": loss_diff,
+           "param_max_abs_diff": param_diff, "tp_step_ms": tp_ms, "single_step_ms": ref_ms,
+           "gather_ms_per_time_step": gather_ms / cfg.window,
+           "gathers_a_forward": cfg.window, "gather_ms_a_forward": gather_ms,
+           "seconds": time.perf_counter() - t0,
+           "note": "one NCCL rank: every collective is a copy; TP across ranks is held to "
+                   "JAX on 8 gloo ranks (CPU tests)"}
+    emit(out, log)
+    print(f"anomaly_tp: {tp_ms:.2f} ms a DP x TP step vs {ref_ms:.2f} single-device "
+          f"(batch {batch}, default model, (1, 1) {backend} mesh); h all-gather "
+          f"{gather_ms / cfg.window * 1e3:.1f} us a time step, {gather_ms:.2f} ms a forward",
+          flush=True)
+    return out
+
+
+MULTIHOST_SHARDS = 4
+
+
+def phase_multihost(device, log, fails, shards: int = MULTIHOST_SHARDS) -> dict:
+    """The two-process sharded job (``parallel/multihost_demo.py``): 2
+    worker processes (``python -c``, importing only the port), each with
+    ``shards`` shards on this card and the reductions over a gloo group
+    (NCCL refuses two ranks on one GPU): 3 steps of 8 events a shard, the
+    global metrics after every step, the global store scan and the
+    presence sweep summed over the group. Both lines must carry the JAX
+    demo's totals, the shard ownership [0..3] / [4..7], and every state
+    tensor on the card. Prints the wall time."""
+    dev = f"{device.type}:{device.index or 0}" if device.type == "cuda" else "cpu"
+    res = run_two_process_demo(devices_per_proc=shards, device=dev, timeout_s=300)
+    ok, placed = sorted(res["ok"]), sorted(res["placed"])
+    n = 2 * shards
+    for r, line in enumerate(ok):
+        fails.check(f"rank={r}/2 shards={list(range(r * shards, (r + 1) * shards))}" in line
+                    and f"persisted={24 * n} store_valid={24 * n}" in line
+                    and f"missing={8 * n}" in line,
+                    f"multihost: rank {r} line {line!r}")
+        fails.check(f"device={dev} " in placed[r], f"multihost: rank {r} placed {placed[r]!r}")
+    fails.check(len(ok) == 2 and ok[0].split("persisted=")[1] == ok[1].split("persisted=")[1],
+                f"multihost: the ranks disagree on the global totals {ok}")
+    out = {"phase": "multihost", "processes": 2, "shards_a_process": shards,
+           "backend": "gloo", "device": dev, "lines": ok, "placed": placed,
+           "wall_s": res["seconds"]}
+    emit(out, log)
+    print(f"multihost: 2 processes x {shards} shards on {dev}, {res['seconds']:.2f} s wall",
+          flush=True)
+    return out
+
+
+SOURCES_CONFIG = dict(device_capacity=1 << 12, token_capacity=1 << 13,
+                      assignment_capacity=1 << 13, store_capacity=1 << 14,
+                      batch_capacity=1024, channels=8)
+SOURCES_PAYLOADS = 4096
+SOURCES_DEVICES = 600
+SOURCES_REPS = 5        # card runs of the stream: the first checked, every one timed
+
+
+def sources_stream(seed: int, n: int = SOURCES_PAYLOADS, n_devices: int = SOURCES_DEVICES):
+    """Seeded payloads for the sources phase, with what they must give:
+    ``memory`` (one payload a submit) and ``socket`` (newline lines, some
+    of them JSON arrays of envelopes) lists of bytes, each about 2 % bad
+    payloads, 5 % redeliveries of an earlier alternate id and a
+    registration every 64th; ``expect`` the decoded, failed and duplicate
+    counts a source must reach, the dead letter's payloads and the tokens
+    registered by request. Values are multiples of 0.5."""
+    rng = np.random.default_rng(seed + 17)
+    t0 = int(1e9 * 1000) + 10_000
+    out = {"memory": [], "socket": []}
+    expect = {k: {"decoded": 0, "failed": 0, "duplicate": 0, "bad": [], "registered": []}
+              for k in out}
+    seen: dict[str, list] = {k: [] for k in out}
+    for i in range(n):
+        kind = "memory" if i % 2 == 0 else "socket"
+        tok = f"src-{int(rng.integers(n_devices))}"
+        r = rng.random()
+        if r < 0.02:
+            p = [b"{not json", b"[1, 2]", b'{"deviceToken": "x", "type": "Nope"}'][i % 3]
+            if kind == "socket" and p == b"[1, 2]":
+                p = b'["no envelope"]'
+            out[kind].append(p)
+            expect[kind]["failed"] += 1
+            expect[kind]["bad"].append(p)
+            continue
+        if r < 0.07 and seen[kind]:
+            env = seen[kind][int(rng.integers(len(seen[kind])))]
+            expect[kind]["duplicate"] += 1
+        elif i % 64 == 0:
+            env = {"deviceToken": f"reg-{i}", "type": "RegisterDevice",
+                   "request": {"deviceTypeToken": "gateway", "areaToken": "north"}}
+            expect[kind]["decoded"] += 1
+            expect[kind]["registered"].append(env["deviceToken"])
+        else:
+            env = {"deviceToken": tok, "type": "DeviceMeasurement",
+                   "request": {"measurements": {f"c{j}": float(rng.integers(-64, 64)) / 2
+                                                for j in range(3)},
+                               "eventDate": t0 + i, "alternateId": f"a-{i}"}}
+            if i % 5 == 0:
+                env = {"deviceToken": tok, "type": "DeviceLocation",
+                       "request": {"latitude": 48.5, "longitude": 2.5, "eventDate": t0 + i,
+                                   "alternateId": f"a-{i}"}}
+            seen[kind].append(env)
+            expect[kind]["decoded"] += 1
+        body = json.dumps(env).encode()
+        if kind == "socket" and i % 3 == 0:
+            body = b"[" + body + b"]"        # a batch of one, through the batch decoder
+        out[kind].append(body)
+    return out, expect
+
+
+def _sources_engine(device, config: dict):
+    from sitewhere_tpu_torch.ingest.decoders import (CompositeDecoder,
+                                                     JsonBatchEventDecoder)
+    from sitewhere_tpu_torch.ingest.dedup import AlternateIdDeduplicator
+    from sitewhere_tpu_torch.ingest.sources import (EventSourcesManager, InboundEventSource,
+                                                    InMemoryEventReceiver,
+                                                    SocketEventReceiver)
+
+    eng = Engine(EngineConfig(**config), device=device)
+    eng.epoch = PinnedEpoch(1e9)
+    mgr = EventSourcesManager(on_event_request=eng.process,
+                              on_registration_request=eng.process)
+    mem, sock = InMemoryEventReceiver(), SocketEventReceiver(framing="newline")
+    json_dec = JsonDeviceRequestDecoder()
+    mgr.add_source(InboundEventSource("memory", json_dec, [mem], AlternateIdDeduplicator()))
+    mgr.add_source(InboundEventSource("socket", CompositeDecoder(
+        lambda p, m: ("batch" if p[:1] == b"[" else "one", p),
+        {"batch": JsonBatchEventDecoder(), "one": json_dec}), [sock],
+        AlternateIdDeduplicator()))
+    return eng, mgr, mem, sock
+
+
+def _feed_sources(eng, mgr, mem, sock, stream) -> float:
+    """Every payload through its receiver (the in-memory ones first, each
+    processed as it is submitted); returns the socket path's wall seconds
+    from the connection until the last payload is counted, the engine's
+    partial batch is committed (``flush``) and the device is idle."""
+    for p in stream["memory"]:
+        mem.submit(p)
+    src = mgr.sources["socket"]
+    n = len(stream["socket"])
+
+    async def run() -> float:
+        await mgr.initialize()
+        await mgr.start()
+        try:
+            t0 = time.perf_counter()
+            _, w = await asyncio.open_connection("127.0.0.1", sock.bound_port)
+            w.write(b"".join(p + b"\n" for p in stream["socket"]))
+            await w.drain()
+            w.close()
+            await w.wait_closed()
+            while src.decoded_count + src.failed_count + src.duplicate_count < n:
+                if time.perf_counter() - t0 > 120:
+                    break
+                await asyncio.sleep(0.001)
+            eng.flush()
+            _sync(eng.device)
+            return time.perf_counter() - t0
+        finally:
+            await mgr.stop()
+
+    return asyncio.run(run())
+
+
+def phase_sources(device, log, fails, seed: int, config: dict = SOURCES_CONFIG,
+                  n: int = SOURCES_PAYLOADS, reps: int = SOURCES_REPS) -> dict:
+    """Inbound event sources into an engine on the card: an
+    ``EventSourcesManager`` with an ``InMemoryEventReceiver`` source
+    (``JsonDeviceRequestDecoder``) and a ``SocketEventReceiver`` source
+    (newline framing, stdlib asyncio; a ``CompositeDecoder`` that sends
+    JSON arrays to ``JsonBatchEventDecoder``), each with an
+    ``AlternateIdDeduplicator``, forwarding to ``Engine.process``:
+    ``n`` seeded payloads with redeliveries, bad payloads and
+    registrations. Each source's decoded, failed and duplicate counts and
+    the dead letter must be what the stream says, and the card engine's
+    state leaves, metrics and registrations byte for byte a CPU engine's
+    fed the same payloads the same way. The stream then runs ``reps - 1``
+    more times, each into a fresh card engine that must end with the same
+    metrics. Prints the median payloads/s of the socket path over the
+    ``reps`` card runs, each timed from the connection to the card engine
+    idle with every payload committed."""
+    stream, expect = sources_stream(seed, n)
+    # each bad payload logs a warning as it reaches the dead letter
+    logging.getLogger("sitewhere_tpu_torch.ingest.sources").setLevel(logging.ERROR)
+    runs = {}
+    for where in (device, torch.device("cpu")):
+        eng, mgr, mem, sock = _sources_engine(where, config)
+        seconds = _feed_sources(eng, mgr, mem, sock, stream)
+        runs[where.type] = (eng, mgr, seconds)
+    eng, mgr, seconds = runs[device.type]
+    samples = [seconds]
+    for _ in range(reps - 1):
+        again, *feed = _sources_engine(device, config)
+        samples.append(_feed_sources(again, *feed, stream))
+        fails.check(again.metrics() == eng.metrics(),
+                    f"sources: a repeated run's metrics {again.metrics()} vs {eng.metrics()}")
+    counts = {k: {"decoded": s.decoded_count, "failed": s.failed_count,
+                  "duplicate": s.duplicate_count} for k, s in mgr.sources.items()}
+    for k, s in counts.items():
+        want = {c: expect[k][c] for c in ("decoded", "failed", "duplicate")}
+        fails.check(s == want, f"sources: {k} counts {s} vs the stream's {want}")
+    dead = [p for _, p, _ in mgr.failed_decodes]
+    fails.check(sorted(dead) == sorted(expect["memory"]["bad"] + expect["socket"]["bad"]),
+                f"sources: dead letter of {len(dead)} payloads vs "
+                f"{len(expect['memory']['bad']) + len(expect['socket']['bad'])} bad ones")
+    host = runs["cpu"][0]
+    differ = [k for (k, a), (_, b) in zip(_state_leaves(eng.state), _state_leaves(host.state))
+              if not torch.equal(a.cpu(), b)]
+    fails.check(not differ, f"sources: card vs CPU state leaves differ: {differ[:8]}")
+    fails.check(eng.metrics() == host.metrics(),
+                f"sources: metrics {eng.metrics()} vs CPU {host.metrics()}")
+    regs = expect["memory"]["registered"] + expect["socket"]["registered"]
+    infos = [eng.get_device(t) for t in regs]
+    fails.check(bool(regs) and all(i is not None and i.device_type == "gateway"
+                                   and not i.auto_registered for i in infos),
+                f"sources: registrations {list(zip(regs, infos))[:4]}")
+    m = eng.metrics()
+    n_sock = len(stream["socket"])
+    rates = [n_sock / s for s in samples]
+    rate = statistics.median(rates)
+    out = {"phase": "sources", "payloads": n, "memory": len(stream["memory"]),
+           "socket": n_sock, "counts": counts, "dead_letter": len(dead),
+           "registered_by_request": len(regs), "processed": m["processed"],
+           "persisted": m["persisted"], "socket_seconds": samples,
+           "socket_payloads_per_s": rate, "socket_payloads_per_s_runs": rates,
+           "cpu_socket_payloads_per_s": n_sock / runs["cpu"][2],
+           "config": config}
+    emit(out, log)
+    print(f"sources: {rate:.0f} payloads/s through the socket receiver into the card "
+          f"engine, committed (median of {reps} runs of {n_sock} payloads: "
+          f"{min(rates):.0f}..{max(rates):.0f}); card state equal to the CPU engine's",
+          flush=True)
+    return out
+
+
 # the transformer configurations of fault C6 (head dims 128, 8, 48 and 64,
 # and float16 at D = 32, 64 and 128), each scored and trained one step on
 # the card
@@ -4780,6 +5119,9 @@ def main(argv=None) -> int:
     phase_distributed(device, log, fails, args.seed)
     archive = phase_archive(device, log, fails, args.seed, profile=args.profile)
     phase_hostplane(device, log, fails, args.seed, profile=args.profile)
+    phase_anomaly_tp(device, log, fails, args.seed)
+    phase_multihost(device, log, fails)
+    phase_sources(device, log, fails, args.seed)
     # window_features runs on three paths: the live scoring of the slice,
     # training on the live windows and the archive's analytics job
     by_path = {"window_features": {"slice": launches["window_features"],

@@ -150,6 +150,9 @@ class EpochBase:
     def now_ms(self) -> int:
         return self.to_ms(time.time())
 
+    def to_unix_s(self, ms: int) -> float:
+        return self.base_unix_s + ms / 1000.0
+
 
 class HostEventBuffer:
     """Host-side staging buffer that accumulates decoded events into numpy

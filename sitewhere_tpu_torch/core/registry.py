@@ -113,5 +113,13 @@ class TokenInterner:
     def token(self, tid: int) -> str:
         return self._tokens[tid]
 
+    def truncate(self, n: int) -> None:
+        """Roll back to the first ``n`` entries (rejected-batch cleanup:
+        ids are dense append-only, so dropping the tail is exact undo)."""
+        with self._lock:
+            for tok in self._tokens[n:]:
+                del self._by_token[tok]
+            del self._tokens[n:]
+
     def items(self) -> Iterator[tuple[str, int]]:
         return iter(self._by_token.items())

@@ -1,22 +1,35 @@
-"""Device-request decoding: bytes -> DecodedRequest list (the port's copy
-of the parts of ``sitewhere_tpu/ingest/decoders.py`` that the engine
-needs): the JSON envelope decoder, and the flat binary format with its
-encoder, which the write-ahead log uses to record per-request ingest and
-admin registrations.
+"""Event decoders: bytes -> DecodedRequest list (port of
+``sitewhere_tpu/ingest/decoders.py``, plain Python).
+
+The lineup mirrors the reference's: the JSON device-request decoder, the
+JSON string and JSON batch decoders, the flat binary format with its
+encoder (which the write-ahead log also uses to record per-request ingest
+and admin registrations), the scripted decoder (a user Python callable in
+place of Groovy: payload + metadata in, requests out), the composite
+decoder (a metadata extractor, then the decoder mapped for the device
+type) and the debug decoders (echo, payload logger).
 """
 
 from __future__ import annotations
 
 import datetime
 import json
+import logging
 import struct
-from typing import Any
+from typing import Any, Callable, Protocol
 
 from sitewhere_tpu_torch.core.types import AlertLevel
 from sitewhere_tpu_torch.ingest.requests import (DecodedRequest,
                                                  EventDecodeException,
                                                  RequestType,
                                                  parse_request_type)
+
+logger = logging.getLogger(__name__)
+
+
+class EventDecoder(Protocol):
+    def decode(self, payload: bytes, metadata: dict[str, Any]) -> list[DecodedRequest]:
+        ...
 
 
 def _parse_event_date(req: dict) -> int | None:
@@ -99,6 +112,11 @@ class JsonDeviceRequestDecoder:
     """Parse a single DeviceRequest envelope
     (reference: sources/decoder/json/JsonDeviceRequestDecoder.java)."""
 
+    # raw payloads in this format may skip host-side decode and ride the
+    # engine's batched arena path (``ingest_json_batch``): a batched
+    # submit keys off this tag
+    wire_tag = "json"
+
     def decode(self, payload: bytes, metadata: dict[str, Any]) -> list[DecodedRequest]:
         try:
             envelope = json.loads(payload)
@@ -107,6 +125,88 @@ class JsonDeviceRequestDecoder:
         if not isinstance(envelope, dict):
             raise EventDecodeException("payload is not a JSON object")
         return [request_from_envelope(envelope, metadata)]
+
+
+class JsonStringDecoder(JsonDeviceRequestDecoder):
+    """String payload variant (reference: JsonStringDeviceRequestDecoder)."""
+
+    def decode(self, payload, metadata):
+        if isinstance(payload, str):
+            payload = payload.encode()
+        return super().decode(payload, metadata)
+
+
+class JsonBatchEventDecoder:
+    """Batch envelope: list of DeviceRequests, or a map with shared token
+    (reference: sources/decoder/json/JsonBatchEventDecoder.java)."""
+
+    def decode(self, payload: bytes, metadata: dict[str, Any]) -> list[DecodedRequest]:
+        try:
+            data = json.loads(payload)
+        except json.JSONDecodeError as e:
+            raise EventDecodeException(f"invalid JSON: {e}") from e
+        if isinstance(data, list):
+            return [request_from_envelope(item, metadata) for item in data]
+        if isinstance(data, dict) and "requests" in data:
+            token = data.get("deviceToken")
+            out = []
+            for item in data["requests"]:
+                if token and "deviceToken" not in item:
+                    item = {**item, "deviceToken": token}
+                out.append(request_from_envelope(item, metadata))
+            return out
+        raise EventDecodeException("batch payload must be a list or {requests: []}")
+
+
+def split_json_array(raw: bytes) -> list[bytes]:
+    """Split a top-level JSON array into its raw element byte slices without
+    materializing Python objects — the bulk REST ingest path hands the
+    slices straight to the native batch decoder (one parse total instead
+    of parse + re-serialize + parse)."""
+    i, n = 0, len(raw)
+    while i < n and raw[i] in b" \t\r\n":
+        i += 1
+    if i >= n or raw[i] != ord("["):
+        raise EventDecodeException("expected a JSON array")
+    i += 1
+    out: list[bytes] = []
+    depth = 0
+    in_str = False
+    esc = False
+    start = -1
+    while i < n:
+        c = raw[i]
+        if in_str:
+            if esc:
+                esc = False
+            elif c == ord("\\"):
+                esc = True
+            elif c == ord('"'):
+                in_str = False
+        elif c == ord('"'):
+            in_str = True
+            if depth == 0 and start < 0:
+                start = i
+        elif c in b"{[":
+            if depth == 0 and start < 0:
+                start = i
+            depth += 1
+        elif c in b"}]":
+            if depth == 0 and c == ord("]"):   # end of the top-level array
+                if start >= 0:
+                    out.append(raw[start:i].strip())
+                return out
+            depth -= 1
+        elif depth == 0:
+            if c == ord(","):
+                if start < 0:
+                    raise EventDecodeException("empty array element")
+                out.append(raw[start:i].strip())
+                start = -1
+            elif start < 0 and c not in b" \t\r\n":
+                start = i                       # literal/number element
+        i += 1
+    raise EventDecodeException("unterminated JSON array")
 
 
 # --- binary flat format ------------------------------------------------------
@@ -190,8 +290,47 @@ def binary_token_of(payload: bytes) -> str | None:
         return None
 
 
+def envelope_from_request(req: DecodedRequest) -> dict:
+    """Inverse of request_from_envelope: re-serialize a DecodedRequest as
+    the DeviceRequest JSON envelope, so single events route across cluster
+    ranks on the same wire shape devices send (round-trip tested)."""
+    body: dict = {}
+    if req.event_ts_ms is not None:
+        body["eventDate"] = req.event_ts_ms
+    if req.alternate_id is not None:
+        body["alternateId"] = req.alternate_id
+    if req.metadata:
+        body["metadata"] = dict(req.metadata)
+    if req.type is RequestType.DEVICE_MEASUREMENT:
+        body["measurements"] = dict(req.measurements or {})
+    elif req.type is RequestType.DEVICE_LOCATION:
+        body["latitude"] = req.latitude
+        body["longitude"] = req.longitude
+        body["elevation"] = req.elevation
+    elif req.type is RequestType.DEVICE_ALERT:
+        body["type"] = req.alert_type
+        body["level"] = req.alert_level.name.capitalize()
+        body["message"] = req.alert_message
+    elif req.type is RequestType.ACKNOWLEDGE:
+        body["originatingEventId"] = req.originating_event_id
+        body["response"] = req.response
+    elif req.type is RequestType.DEVICE_STATE_CHANGE:
+        body["attribute"] = req.attribute
+        body["type"] = req.state_type
+        body["previousState"] = req.previous_state
+        body["newState"] = req.new_state
+    else:
+        body.update(req.extras or {})
+    return {"deviceToken": req.device_token, "type": req.type.value,
+            "tenant": req.tenant, "request": body}
+
+
 class BinaryEventDecoder:
     """Decode the compact flat binary format above."""
+
+    # the format of encode_binary_request: batchable through
+    # ``ingest_binary_batch`` (see JsonDeviceRequestDecoder.wire_tag)
+    wire_tag = "binary"
 
     def decode(self, payload: bytes, metadata: dict[str, Any]) -> list[DecodedRequest]:
         try:
@@ -266,3 +405,67 @@ class BinaryEventDecoder:
             return [req]
         except (struct.error, UnicodeDecodeError, IndexError) as e:
             raise EventDecodeException(str(e)) from e
+
+
+class ScriptedDecoder:
+    """User-supplied decode function — the Python analog of the reference's
+    Groovy ScriptedEventDecoder (sources/decoder/ScriptedEventDecoder.java:
+    bindings for payload/metadata, returns request list)."""
+
+    def __init__(self, fn: Callable[[bytes, dict], list[DecodedRequest]]):
+        self.fn = fn
+
+    def decode(self, payload: bytes, metadata: dict[str, Any]) -> list[DecodedRequest]:
+        try:
+            out = self.fn(payload, metadata)
+        except Exception as e:  # user scripts fail -> decode failure DLQ
+            raise EventDecodeException(f"scripted decoder error: {e}") from e
+        if not isinstance(out, list):
+            raise EventDecodeException("scripted decoder must return a list")
+        return out
+
+
+class CompositeDecoder:
+    """Metadata-extractor + per-criteria delegation (reference:
+    sources/decoder/composite/*): extract (device_type, payload') from the
+    raw payload, then route to the decoder mapped for that device type."""
+
+    def __init__(
+        self,
+        extractor: Callable[[bytes, dict], tuple[str, bytes]],
+        choices: dict[str, EventDecoder],
+        default: EventDecoder | None = None,
+    ):
+        self.extractor = extractor
+        self.choices = choices
+        self.default = default
+
+    def decode(self, payload: bytes, metadata: dict[str, Any]) -> list[DecodedRequest]:
+        try:
+            key, inner = self.extractor(payload, metadata)
+        except Exception as e:
+            raise EventDecodeException(f"composite extractor error: {e}") from e
+        decoder = self.choices.get(key, self.default)
+        if decoder is None:
+            raise EventDecodeException(f"no decoder mapped for {key!r}")
+        return decoder.decode(inner, metadata)
+
+
+class EchoStringDecoder:
+    """Debug decoder: logs and drops (reference: debug/EchoStringDecoder)."""
+
+    def decode(self, payload, metadata):
+        logger.info("echo decoder: %r", payload)
+        return []
+
+
+class PayloadLoggerDecoder:
+    """Debug wrapper: logs payload then delegates
+    (reference: debug/PayloadLoggerEventDecoder)."""
+
+    def __init__(self, delegate: EventDecoder):
+        self.delegate = delegate
+
+    def decode(self, payload, metadata):
+        logger.info("payload (%d bytes): %r", len(payload), payload[:256])
+        return self.delegate.decode(payload, metadata)

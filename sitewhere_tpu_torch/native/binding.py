@@ -116,6 +116,9 @@ def _configure_py(lib: ctypes.PyDLL) -> ctypes.PyDLL:
     functions must never be reached through it — they would run the whole
     scan under the GIL. Those go through the CDLL handle."""
     c = ctypes
+    lib.swtpu_route_pylist.restype = c.c_int32
+    lib.swtpu_route_pylist.argtypes = [
+        c.py_object, c.c_int32, c.c_int32, c.POINTER(c.c_int32), c.c_int32]
     lib.swtpu_decode_pylist.restype = c.c_int32
     lib.swtpu_decode_pylist.argtypes = [
         c.c_void_p, c.py_object, c.c_int32, c.c_int32,
@@ -206,6 +209,28 @@ def load_py_library() -> ctypes.PyDLL:
             except OSError as e:
                 raise RuntimeError(f"native library {so} failed to load: {e}") from e
         return _py_lib
+
+
+def route_payloads(payloads: list[bytes], n_ranks: int, binary: bool = False):
+    """Owning rank per payload through the native token-hash router (one C
+    call over the whole batch, no decode): an int32 ndarray, -1 where a
+    payload is unroutable (the caller keeps it local). None for a batch
+    that is not a ``list[bytes]`` or that the router refuses: the caller
+    then routes with ``native/route_fallback.py``, which agrees payload
+    for payload. A failed build or load of the library raises, as every
+    native entry point of the port does."""
+    import numpy as np
+
+    if type(payloads) is not list:
+        return None
+    lib = load_py_library()
+    n = len(payloads)
+    out = np.empty(n, np.int32)
+    rc = int(lib.swtpu_route_pylist(
+        payloads, np.int32(n), np.int32(n_ranks),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        np.int32(1 if binary else 0)))
+    return out if rc == 0 else None
 
 
 class NativeInterner:

@@ -16,7 +16,14 @@ launches, is later speed work.
 * :class:`ShardedEngine` — the stripped-down engine over stacked state:
   host-routed per-shard batches, or (``exchange=True``) unrouted batches
   moved to their owners by ``parallel/exchange.exchange_events``; global
-  queries, presence sweep, state readback, save and restore.
+  queries, presence sweep, state readback, save and restore. Given a
+  ``process_group`` that spans several processes, each process holds
+  its own shards of one global numbering
+  (``parallel/multihost.local_shard_ids``), ``n_shards`` counts them all
+  and ``global_metrics`` sums over the group; the cross-process exchange,
+  queries and snapshots are refused with the limit named. Without one
+  (the default), the shards are this process's alone, whatever default
+  group the process has joined.
 * :class:`SpmdEngine` — the real engine (``engine.Engine``) with its
   device plane over the shards: one host surface (WAL, QoS, tracing and
   flight records, the conservation ledger, admin, rules and rollups,
@@ -65,6 +72,7 @@ from sitewhere_tpu_torch.ops.query import (QueryParams, merge_shard_pages,
                                            query_store, query_store_batch)
 from sitewhere_tpu_torch.parallel.exchange import exchange_events
 from sitewhere_tpu_torch.parallel.mesh import make_mesh
+from sitewhere_tpu_torch.parallel.multihost import all_sum, group_span
 from sitewhere_tpu_torch.parallel.placement import (DEFAULT_SLOTS_PER_RANK,
                                                     slot_for_token)
 from sitewhere_tpu_torch.pipeline import (PipelineConfig, PipelineState,
@@ -184,7 +192,10 @@ class _Fences:
 class ShardedEngine:
     """Host handle of the stripped-down sharded engine: the mesh, one state
     a shard, the routed or exchanging step. Entry points run on the card
-    unless ``device`` says otherwise."""
+    unless ``device`` says otherwise. ``mesh`` and ``shards`` are this
+    process's; ``n_shards`` is the job's (``n_local`` a process, the
+    first of them ``shard_offset``): ``n_local`` unless the caller passes
+    the ``process_group`` the job's shards span."""
 
     def __init__(self, n_shards: int | None = None,
                  device_capacity_per_shard: int = 4096,
@@ -193,9 +204,14 @@ class ShardedEngine:
                  store_capacity_per_shard: int = 1 << 16,
                  channels: int = 8, config: PipelineConfig | None = None,
                  exchange: bool = False, bucket_capacity: int | None = None,
-                 device: str | torch.device = DEFAULT_DEVICE):
+                 device: str | torch.device = DEFAULT_DEVICE,
+                 process_group=None):
         self.mesh = make_mesh(n_shards, device)
-        self.n_shards = len(self.mesh)
+        self.group = process_group
+        rank, world = group_span(process_group)
+        self.n_local = len(self.mesh)
+        self.n_shards = self.n_local * world
+        self.shard_offset = rank * self.n_local
         self.tokens_per_shard = token_capacity_per_shard
         self.config = config or PipelineConfig()
         self.exchange = exchange
@@ -227,15 +243,17 @@ class ShardedEngine:
         that owns its token, and bucket overflow counts as missed."""
         if self.exchange and not self.bucket:
             raise ValueError("exchange=True requires bucket_capacity")
+        if self.exchange:
+            self._single_process("the exchange across processes")
         batches = split_batch(stacked_batch, self.mesh)
-        overflow = [None] * self.n_shards
+        overflow = [None] * self.n_local
         if self.exchange:
             res = exchange_events(batches, self.n_shards, self.tokens_per_shard,
                                   self.bucket)
             batches = [r.batch for r in res]
             overflow = [r.n_overflow for r in res]
         outs = []
-        for s in range(self.n_shards):
+        for s in range(self.n_local):
             st, out = pipeline_step(self.shards[s], batches[s], self.config)
             if overflow[s] is not None:
                 out = out._replace(n_missed=out.n_missed + overflow[s])
@@ -245,13 +263,20 @@ class ShardedEngine:
             outs.append(out)
         return _stack_outs(outs, self.mesh[0])
 
+    def _single_process(self, what: str) -> None:
+        if self.n_shards != self.n_local:
+            raise ValueError(f"ShardedEngine: {what} is not supported when the "
+                             f"shards span {self.n_shards // self.n_local} processes")
+
     def global_metrics(self) -> dict:
-        """The scalar counters summed over the shards (the per-tenant grid
-        is not folded)."""
+        """The scalar counters summed over the shards, over every process
+        of the group (the per-tenant grid is not folded)."""
         fields = [f.name for f in dataclasses.fields(self.shards[0].metrics)
                   if getattr(self.shards[0].metrics, f.name).dim() == 0]
         vals = np.sum([torch.stack([getattr(st.metrics, f) for f in fields]).cpu().numpy()
                        for st in self.shards], axis=0)
+        if self.n_shards != self.n_local:
+            vals = all_sum(vals, self.group)
         return {f: int(v) for f, v in zip(fields, vals)}
 
     # ----------------------------------------------------------- queries
@@ -261,6 +286,7 @@ class ShardedEngine:
         """Global newest-first event query: every shard scans its own ring
         (:func:`_stacked_query`), then the per-shard pages merge on the
         host, newest first, shard-major on ties."""
+        self._single_process("query_events")
         imin, imax = -(2**31), 2**31 - 1
         res = _stacked_query(
             [st.store for st in self.shards],
@@ -281,14 +307,19 @@ class ShardedEngine:
         return {"total": total, "events": events}
 
     def presence_sweep(self, now_ms: int, missing_ms: int) -> list[tuple[int, int]]:
-        """Mark stale devices MISSING on every shard; returns the (shard,
-        local_device_id) pairs newly missing."""
+        """Mark stale devices MISSING on this process's shards; returns the
+        (global shard, local_device_id) pairs newly missing."""
         self.shards, masks = _sweep_shards(self.shards, now_ms, missing_ms)
-        return [(s, int(d)) for s, m in enumerate(masks) for d in np.nonzero(m)[0]]
+        return [(self.shard_offset + s, int(d))
+                for s, m in enumerate(masks) for d in np.nonzero(m)[0]]
 
     def device_state_summary(self, shard: int, device_id: int) -> dict:
-        """One device's aggregated state, read from its owning shard."""
-        ds = self.shards[shard].device_state
+        """One device's aggregated state, read from its owning shard (one
+        of this process's)."""
+        if not 0 <= shard - self.shard_offset < self.n_local:
+            raise ValueError(f"shard {shard} is not one of this process's "
+                             f"{self.shard_offset}..{self.shard_offset + self.n_local - 1}")
+        ds = self.shards[shard - self.shard_offset].device_state
         presence, last = torch.stack([ds.presence[device_id].to(torch.int64),
                                       ds.last_interaction_ms[device_id].to(torch.int64)
                                       ]).cpu().tolist()
@@ -304,6 +335,7 @@ class ShardedEngine:
         """Snapshot every shard's state (stacked) to a directory."""
         from sitewhere_tpu_torch.utils.checkpoint import _leaves as state_leaves
 
+        self._single_process("save")
         directory = pathlib.Path(directory)
         directory.mkdir(parents=True, exist_ok=True)
         arrays = {k: v.cpu().numpy() for k, v in state_leaves(self.state)}
@@ -319,6 +351,7 @@ class ShardedEngine:
         slice and channels must match)."""
         from sitewhere_tpu_torch.utils.checkpoint import _leaves as state_leaves
 
+        self._single_process("restore")
         directory = pathlib.Path(directory)
         manifest = json.loads((directory / "sharded_manifest.json").read_text())
         for key, have in (("n_shards", self.n_shards),

@@ -75,6 +75,10 @@ class IngestLog:
         self._seq = 0               # last append sequence handed out
         self._written_seq = 0       # written+flushed through this seq
         self._durable_seq = 0       # fsync'd through this seq
+        # nothing in the fresh tail segment is fsync'd yet — even its
+        # magic header sits in the write buffer until the first commit
+        self._durable_tell = 0
+        self._durable_seg = self._seg_index
         self._waiters = 0
         self._closed = False
         self._commit_err: BaseException | None = None
@@ -198,13 +202,20 @@ class IngestLog:
                 with self._cv:
                     self._written_seq = max(self._written_seq, target)
                     self._durable_seq = max(self._durable_seq, target)
+                    self._durable_tell = self._fh.tell()
+                    self._durable_seg = self._seg_index
                     self.fsyncs += 1
                     self.commit_groups += max(0, groups)
                     # rotation AFTER the fsync that covers the tail: the
-                    # sealed segment is durable before a new one opens
+                    # sealed segment is durable before a new one opens.
+                    # NOTHING in the fresh segment is durable yet — its
+                    # magic header sits in the write buffer until the
+                    # next commit flushes + fsyncs it
                     if self._fh.tell() >= self.segment_bytes:
                         self._seg_index += 1
                         self._open_segment()
+                        self._durable_tell = 0
+                        self._durable_seg = self._seg_index
                     self._cv.notify_all()
             except Exception as e:
                 # FAIL-STOP: after a failed write/fsync the kernel may
@@ -254,6 +265,24 @@ class IngestLog:
     def durable_seq(self) -> int:
         with self._lock:
             return self._durable_seq
+
+    def durable_view(self) -> dict[str, int]:
+        """{segment filename: fsync'd byte count} — what would survive a
+        machine crash right now. Sealed segments are durable in full
+        (rotation happens only after the covering fsync); the live
+        segment is durable up to the last commit's tell. The surface the
+        crash-safety checks (and replication) read."""
+        with self._lock:
+            out = {}
+            for path in sorted(self.dir.glob("segment-*.log")):
+                idx = int(path.stem.split("-")[1])
+                if idx < self._durable_seg:
+                    out[path.name] = path.stat().st_size
+                elif idx == self._durable_seg:
+                    out[path.name] = self._durable_tell
+                else:
+                    out[path.name] = 0
+            return out
 
     def flush(self) -> None:
         """Push buffered records to the OS (survives a process crash).

@@ -88,6 +88,11 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
             # the mesh product engine and the offline reshard
             "sitewhere_tpu_torch.parallel.distributed",
             "sitewhere_tpu_torch.parallel.reshard",
+            # the two-process job, the event sources and the leaves under them
+            "sitewhere_tpu_torch.parallel.multihost_demo",
+            "sitewhere_tpu_torch.ingest.sources", "sitewhere_tpu_torch.ingest.dedup",
+            "sitewhere_tpu_torch.utils.lifecycle", "sitewhere_tpu_torch.utils.scripting",
+            "sitewhere_tpu_torch.utils.faults", "sitewhere_tpu_torch.native.route_fallback",
             } <= set(names.split())
 
 
@@ -215,6 +220,100 @@ def test_distributed_engine_runs_with_jax_blocked():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out == {"persisted": 20, "resharded": 10, "feed": 20, "total": 20,
                    "conserved": True, "leaked": []}
+
+
+_SOURCES_PROBE = r"""
+import asyncio
+import json
+import sys
+import tempfile
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sitewhere_tpu")
+
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"BLOCKED: the port tried to import {name!r}")
+        return None
+
+sys.meta_path.insert(0, _Blocker())
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from sitewhere_tpu_torch.engine import Engine, EngineConfig
+from sitewhere_tpu_torch.ingest.decoders import (CompositeDecoder,
+                                                 JsonBatchEventDecoder,
+                                                 JsonDeviceRequestDecoder)
+from sitewhere_tpu_torch.ingest.dedup import AlternateIdDeduplicator
+from sitewhere_tpu_torch.ingest.sources import (EventSourcesManager, InboundEventSource,
+                                                InMemoryEventReceiver,
+                                                SocketEventReceiver)
+from sitewhere_tpu_torch.models import anomaly as tan
+from sitewhere_tpu_torch.native.binding import route_payloads
+from sitewhere_tpu_torch.parallel.multihost_demo import worker_main
+
+# the demo's worker, as one process of a job of one
+worker_main(0, 1, f"file://{tempfile.mkdtemp()}/store", 2, "cpu")
+
+# one DP x TP step on a (1, 1) mesh
+dist.init_process_group("gloo", init_method=f"file://{tempfile.mkdtemp()}/store",
+                        rank=0, world_size=1)
+mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("dp", "tp"))
+cfg = tan.AnomalyConfig(sensors=2, window=4, hidden=8, lstm_hidden=8, latent=2,
+                        dtype=torch.float32)
+model = tan.distribute_model(tan.AnomalyModel(cfg, device="cpu"), mesh)
+step = tan.make_train_step_dp_tp(model, tan.adamw(model.parameters(), 1e-3), mesh)
+loss = float(step(torch.rand(2, 4, 2)))
+dist.destroy_process_group()
+
+# a receiver -> decoder -> dedup -> manager -> Engine.process
+eng = Engine(EngineConfig(device_capacity=16, token_capacity=32, assignment_capacity=32,
+                          store_capacity=256, batch_capacity=16, channels=4),
+             device="cpu")
+mgr = EventSourcesManager(eng.process, eng.process)
+mem, sock = InMemoryEventReceiver(), SocketEventReceiver(framing="newline")
+mgr.add_source(InboundEventSource("m", JsonDeviceRequestDecoder(), [mem],
+                                  AlternateIdDeduplicator()))
+mgr.add_source(InboundEventSource("s", CompositeDecoder(
+    lambda p, m: ("batch", p), {"batch": JsonBatchEventDecoder()}), [sock]))
+msg = json.dumps({"deviceToken": "a", "type": "DeviceMeasurement",
+                  "request": {"name": "t", "value": 1.0, "alternateId": "x"}}).encode()
+
+async def run():
+    await mgr.initialize()
+    await mgr.start()
+    _, w = await asyncio.open_connection("127.0.0.1", sock.bound_port)
+    w.write(b"[" + msg + b"]\n")
+    await w.drain()
+    w.close()
+    await asyncio.sleep(0.2)
+    await mgr.stop()
+
+mem.submit(msg)
+mem.submit(msg)
+asyncio.run(run())
+eng.flush()
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+print(json.dumps({"finite": loss == loss, "processed": eng.metrics()["processed"],
+                  "routes": route_payloads([msg], 3).tolist(), "leaked": leaked}))
+"""
+
+
+def test_demo_worker_tp_step_and_sources_run_with_jax_blocked():
+    """The two-process demo's worker, a DP x TP step on a one-rank mesh and
+    the event sources into the engine run where jax and the JAX package
+    cannot be imported."""
+    res = subprocess.run([sys.executable, "-c", _SOURCES_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, f"{res.stdout}\n{res.stderr}"
+    lines = res.stdout.strip().splitlines()
+    assert lines[0].startswith("MULTIHOST_OK rank=0/1 shards=[0, 1] persisted=48")
+    out = json.loads(lines[-1])
+    assert out["finite"] and out["processed"] == 2 and out["leaked"] == []
+    assert len(out["routes"]) == 1
 
 
 _TRAIN_PROBE = r"""

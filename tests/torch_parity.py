@@ -238,3 +238,126 @@ def sp_worker(rank: int, world: int, case: dict) -> dict:
     out["all_sum_grad"] = local.grad.numpy()
     out["world"] = dist.get_world_size()
     return out
+
+
+def anomaly_tp_worker(rank: int, world: int, cases: list) -> list:
+    """The port's DP×TP anomaly training on one gloo rank, for
+    ``tests/test_torch_anomaly_tp.py``. Each case: ``cfg`` (``AnomalyConfig``
+    keywords, float32), ``mesh`` ((dp, tp), dp * tp = ``world``),
+    ``state`` (the single-device ``state_dict`` as numpy), ``x`` (the whole
+    batch) and ``steps`` (0: placements only). Returns, for each case, the
+    placements by parameter (strings) before and after, every parameter's
+    local shard as it was placed, each step's loss and gradients (the
+    dp-averaged ones the optimizer took) and the gathered parameters after
+    the steps (single-device layout)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from sitewhere_tpu_torch.models import anomaly as tan
+
+    out = []
+    for case in cases:
+        cfg = tan.AnomalyConfig(**case["cfg"], dtype=torch.float32)
+        model = tan.AnomalyModel(cfg, device="cpu")
+        model.load_state_dict({n: torch.from_numpy(a) for n, a in case["state"].items()})
+        mesh = init_device_mesh("cpu", case["mesh"], mesh_dim_names=("dp", "tp"))
+        dmodel = tan.distribute_model(model, mesh)
+
+        def placements():
+            return {n: [str(pl) for pl in p.placements]
+                    for n, p in dmodel.named_parameters()}
+
+        res = {"shardings": {n: [str(pl) for pl in pls] for n, pls in
+                             tan.param_shardings(model, mesh).items()},
+               "before": placements(),
+               "local": {n: p.to_local().detach().numpy().copy()
+                         for n, p in dmodel.named_parameters()},
+               "coords": [mesh.get_local_rank("dp"), mesh.get_local_rank("tp")]}
+        if case["steps"]:
+            opt = tan.adamw(dmodel.parameters(), 1e-3)
+            step = tan.make_train_step_dp_tp(dmodel, opt, mesh)
+            stepper, res["grads"] = opt.step, []
+
+            def keep_grads(*a, **kw):
+                # the dp-averaged gradients the optimizer is about to take
+                res["grads"].append({n: t.numpy() for n, t in
+                                     tan.full_state_dict(dmodel, grads=True).items()})
+                return stepper(*a, **kw)
+
+            opt.step = keep_grads
+            x = torch.from_numpy(case["x"])
+            res["losses"] = [float(step(x)) for _ in range(case["steps"])]
+            res["after"] = placements()
+            res["params"] = {n: t.numpy() for n, t in tan.full_state_dict(dmodel).items()}
+        out.append(res)
+    return out
+
+
+def multihost_worker(rank: int, world: int) -> dict:
+    """The port's sharded engine on one gloo rank of a job whose shards
+    span processes, for ``tests/test_torch_multihost.py``: the global
+    numbering, the refusals, and the sums over the group; and, in the
+    same group, engines not given it, which keep their shards local."""
+    import torch.distributed as dist
+
+    from sitewhere_tpu_torch.core.events import HostEventBuffer
+    from sitewhere_tpu_torch.core.types import EventType
+    from sitewhere_tpu_torch.parallel import multihost
+    from sitewhere_tpu_torch.parallel.distributed import (DistributedConfig,
+                                                          DistributedEngine)
+    from sitewhere_tpu_torch.parallel.sharded import ShardedEngine
+
+    group = dist.group.WORLD
+    sizes = dict(device_capacity_per_shard=16, token_capacity_per_shard=32,
+                 assignment_capacity_per_shard=32, store_capacity_per_shard=64,
+                 channels=4, device="cpu")
+    eng = ShardedEngine(n_shards=2, process_group=group, **sizes)
+    local = multihost.local_shard_ids(eng.mesh, group)
+    out = {"local": local, "n_shards": eng.n_shards, "n_local": eng.n_local,
+           "offset": eng.shard_offset, "refused": {}}
+    batches = {}
+    for s in local:
+        buf = HostEventBuffer(8, channels=4)
+        for k in range(s + 1):          # shard s gets s + 1 events
+            buf.append(EventType.MEASUREMENT, token_id=k, tenant_id=0, ts_ms=10 + k,
+                       received_ms=10 + k, values=[1.0])
+        batches[s] = buf.emit_host()
+    try:
+        multihost.assemble_stacked_batch(eng.mesh, {local[0]: batches[local[0]]}, group)
+    except ValueError as e:
+        out["refused"]["assemble"] = str(e)
+    eng.step(multihost.assemble_stacked_batch(eng.mesh, batches, group))
+    out["metrics"] = eng.global_metrics()
+    out["sum"] = multihost.all_sum([rank + 1, 10], group)
+    out["missing"] = eng.presence_sweep(1000, 0)
+    out["summary_shard"] = eng.device_state_summary(local[-1], 0)["shard"]
+    for what, fn in (("query_events", eng.query_events),
+                     ("save", lambda: eng.save("/nonexistent")),
+                     ("exchange", lambda: ShardedEngine(n_shards=2, exchange=True,
+                                                        bucket_capacity=8,
+                                                        process_group=group,
+                                                        **sizes).step(batches))):
+        try:
+            fn()
+        except ValueError as e:
+            out["refused"][what] = str(e)
+
+    # engines built in the same 2-rank group without being given it: the
+    # shards are this process's own, numbered from 0, counted alone
+    alone = ShardedEngine(n_shards=2, **sizes)
+    mine = multihost.local_shard_ids(alone.mesh)
+    alone.step(multihost.assemble_stacked_batch(
+        alone.mesh, {s: batches[local[s]] for s in mine}))
+    dcfg = DistributedConfig(n_shards=2, device_capacity_per_shard=16,
+                             token_capacity_per_shard=32,
+                             assignment_capacity_per_shard=32,
+                             store_capacity_per_shard=64, channels=4,
+                             device="cpu", use_native=False)
+    deng = DistributedEngine(dcfg)
+    out["alone"] = {"local": mine, "n_shards": alone.n_shards, "n_local": alone.n_local,
+                    "offset": alone.shard_offset, "metrics": alone.global_metrics(),
+                    "events": alone.query_events()["total"],
+                    "distributed_n_shards": deng.n_shards,
+                    "distributed_sharded": [deng.sharded.n_shards, deng.sharded.n_local],
+                    "buffer_shards": deng._buf.n_shards}
+    return out
