@@ -262,6 +262,30 @@ Phases, each printed as one JSON line:
              on the card: 4096 seeded payloads with redeliveries, bad
              payloads and registrations; counts, dead letter, and the
              state byte for byte a CPU engine's. Prints payloads/s.
+15. edge   — the persistent-connection wire edge (``ingest/wire_edge.py``)
+             and the broker receivers, bench.py's wire leg on the card
+             (its ``W_CFG``, pinned clocks): (a) 12 x 256 frames of
+             ``WireLoadSpec(1000, 12, 200, seed=7)`` over one SWP
+             connection, a flush hint and an ack barrier a group, into a
+             card engine whose flusher thread makes the engine calls on
+             the main thread's stream, against a second card engine and a
+             CPU engine fed the same 12 ``ingest_json_batch`` calls; (b)
+             1000 live MQTT connections x 12 QoS 1 frames through
+             ``run_wire_load`` (3 samples; ``flush_rows=256``, 5 ms
+             deadline): every frame acked, no host staging copy, the
+             ledger's "wire" stage balancing; then 160 request-response
+             cycles over SWP; (c) a group-commit WAL, 8 SWP connections
+             pumping for 1 s, ``edge.kill()``, a fresh card engine
+             replaying the WAL: every acked frame among the replayed
+             payloads; (d) the MQTT receiver over ``MqttBroker``, CoAP,
+             AMQP over ``AmqpBroker``, STOMP and EventHub through one
+             ``EventSourcesManager`` with a shared ``WireBatcher`` into a
+             card and a CPU engine (redeliveries, bad frames): counts,
+             dead letter, CoAP ACKs and state equal. No error may be
+             logged or raised off the main thread and no frame may stall.
+             Prints events/s, publish p50/p99, connect s, KiB a
+             connection, flush occupancy and the contrast on one
+             ``edge:`` line.
 
 ``--profile`` adds torch.profiler breakdowns after the checks of the
 slice, train, read, transformer, transformer_train (one step by kernel
@@ -291,6 +315,7 @@ import pathlib
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -4817,6 +4842,533 @@ def phase_sources(device, log, fails, seed: int, config: dict = SOURCES_CONFIG,
     return out
 
 
+# bench.py's wire leg (W_CFG and its load) on the card
+EDGE_CONFIG = dict(device_capacity=1 << 12, token_capacity=1 << 13,
+                   assignment_capacity=1 << 13, store_capacity=1 << 15, batch_capacity=1024)
+EDGE_SPEC = dict(n_connections=1000, frames_per_conn=12, n_devices=200, seed=7)
+EDGE_GROUP = 256            # parity frames a group: a flush hint and an ack barrier each
+EDGE_GROUPS = 12
+EDGE_LOAD_RUNS = 3          # samples of the 12,000-frame load
+EDGE_RR = 160               # connect, frame, ack, close cycles of the contrast
+EDGE_KILL_S = 1.0
+EDGE_KILL_CONNS = 8
+EDGE_RECV_N = 96            # payloads a broker receiver in (d)
+EDGE_RECV_GROUP = 16        # batched payloads a flush in (d)
+# how often the host waited for a free staging arena: a timing count, the
+# only metric the edge-fed and the directly fed engine may differ in
+EDGE_TIMING_METRICS = ("arena_pool_waits",)
+EDGE_LOGGERS = ("sitewhere_tpu_torch.ingest.wire_edge", "sitewhere_tpu_torch.ingest.sources")
+
+
+class _ThreadErrors(logging.Handler):
+    """Every ERROR record of the wire edge's and the sources' loggers, and
+    every exception that ends a thread, while installed: the flusher
+    thread logs a failed engine call and carries on, so a CUDA error
+    raised off the main thread shows only here."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.seen: list[str] = []
+        self._hook = None
+
+    def emit(self, record):
+        self.seen.append(f"{record.name}: {record.getMessage()} {record.exc_text or ''}")
+
+    def __enter__(self):
+        for name in EDGE_LOGGERS:
+            logging.getLogger(name).addHandler(self)
+        self._hook = threading.excepthook
+        threading.excepthook = lambda a: self.seen.append(
+            f"thread {a.thread.name if a.thread else '?'}: {a.exc_type.__name__}: {a.exc_value}")
+        return self
+
+    def __exit__(self, *exc):
+        for name in EDGE_LOGGERS:
+            logging.getLogger(name).removeHandler(self)
+        threading.excepthook = self._hook
+
+
+def _edge_engine(device, config: dict, warm: list[bytes], **kw) -> Engine:
+    eng = Engine(EngineConfig(**config, **kw), device=device)
+    eng.epoch = PinnedEpoch(1.7e9, now_ms=77_777)
+    eng.ingest_json_batch(warm)
+    eng.flush()
+    return eng
+
+
+def _untimed_metrics(eng) -> dict:
+    return {k: v for k, v in eng.metrics().items() if k not in EDGE_TIMING_METRICS}
+
+
+async def _swp_groups(eng, payloads: list[bytes], group: int) -> dict:
+    """``payloads`` over one SWP connection in groups of ``group``, each with
+    a flush hint and an ack barrier, into an edge whose size threshold is
+    the group: the edge makes one engine call a group. Returns the edge's
+    snapshot."""
+    from sitewhere_tpu_torch.ingest.wire_edge import (SWP_ACK, SWP_MAGIC, WireEdge,
+                                                      WireEdgeConfig)
+
+    edge = WireEdge(eng, WireEdgeConfig(mqtt_port=None, tcp_port=0, flush_rows=group,
+                                        flush_interval_s=5.0))
+    await edge.start()
+    try:
+        r, w = await asyncio.open_connection("127.0.0.1", edge.tcp_port)
+        w.write(SWP_MAGIC + b" default json\n")
+        sent = acked = 0
+        for lo in range(0, len(payloads), group):
+            chunk = payloads[lo:lo + group]
+            w.write(b"".join(struct.pack("!I", len(p)) + p for p in chunk)
+                    + struct.pack("!I", 0))
+            sent += len(chunk)
+            await w.drain()
+            while acked < sent:
+                code, val = struct.unpack("!BI", await asyncio.wait_for(r.readexactly(5), 60))
+                if code != SWP_ACK:
+                    raise RuntimeError(f"edge: SWP record {code:#x} {val} in the parity leg")
+                acked = val
+        w.close()
+        return edge.snapshot()
+    finally:
+        await edge.stop()
+
+
+async def _swp_one(port: int, payload: bytes) -> None:
+    """One request-response cycle: connect, handshake, one frame, a flush
+    hint, its durable ack, close."""
+    from sitewhere_tpu_torch.ingest.wire_edge import SWP_ACK, SWP_MAGIC
+
+    r, w = await asyncio.open_connection("127.0.0.1", port)
+    w.write(SWP_MAGIC + b" default json\n" + struct.pack("!I", len(payload)) + payload
+            + struct.pack("!I", 0))
+    await w.drain()
+    while (await asyncio.wait_for(r.readexactly(5), 60))[0] != SWP_ACK:
+        pass
+    w.close()
+
+
+async def _edge_load(eng, device, schedule, warm_schedule, runs: int, rr: list[bytes]) -> dict:
+    """(b): ``runs`` samples of ``run_wire_load`` (every connection live for
+    the whole run, QoS 1) through one MQTT + SWP edge; each sample's
+    committed time adds the ``flush()`` and device sync after its last
+    ack. Then the request-response contrast and, with the edge attached,
+    the conservation ledger."""
+    from sitewhere_tpu_torch.ingest.wire_edge import WireEdge, WireEdgeConfig
+    from sitewhere_tpu_torch.loadgen import run_wire_load
+
+    edge = WireEdge(eng, WireEdgeConfig(mqtt_port=0, tcp_port=0, flush_rows=256,
+                                        flush_interval_s=0.005))
+    await edge.start()
+    try:
+        await run_wire_load("127.0.0.1", edge.mqtt_port, warm_schedule, client_id_prefix="ww")
+        eng.flush()
+        _sync(device)
+        copies0 = eng.host_counters.get("staged_copy_rows", 0)
+        samples = []
+        for k in range(runs):
+            res = await run_wire_load("127.0.0.1", edge.mqtt_port, schedule,
+                                      client_id_prefix=f"wl{k}")
+            t0 = time.perf_counter()
+            eng.flush()
+            _sync(device)
+            samples.append((res, res.wall_s + time.perf_counter() - t0))
+        t1 = time.perf_counter()
+        for p in rr:
+            await _swp_one(edge.tcp_port, p)
+        rr_eps = len(rr) / (time.perf_counter() - t1)
+        eng.flush()
+        _sync(device)
+        ledger = build_ledger(eng)
+        return {"samples": samples, "rr_eps": rr_eps,
+                "copies": eng.host_counters.get("staged_copy_rows", 0) - copies0,
+                "wire_stage": ledger["stages"].get("wire"),
+                "violations": [v.to_dict() for v in check_conservation(ledger)],
+                "snapshot": edge.snapshot()}
+    finally:
+        await edge.stop()
+
+
+def _kill_frame(i: int, k: int) -> bytes:
+    return generate_measurements_message(f"wl-dev-{k % 200}", 5_000_000 + i * 10_000 + k)
+
+
+async def _edge_kill(eng, conns: int, seconds: float):
+    """(c): ``conns`` SWP connections pump frames for ``seconds``, then
+    ``edge.kill()`` (sockets closed, no batcher drain). Returns each
+    connection's last cumulative durable ack and the edge."""
+    from sitewhere_tpu_torch.ingest.wire_edge import (SWP_ACK, SWP_MAGIC, WireEdge,
+                                                      WireEdgeConfig)
+
+    edge = WireEdge(eng, WireEdgeConfig(mqtt_port=None, tcp_port=0, flush_rows=64,
+                                        flush_interval_s=0.002))
+    await edge.start()
+    acked = [0] * conns
+    links = []
+    for _ in range(conns):
+        r, w = await asyncio.open_connection("127.0.0.1", edge.tcp_port)
+        w.write(SWP_MAGIC + b" default json\n")
+        links.append((r, w))
+
+    async def pump(i):
+        # bursts of 32 frames a millisecond a connection: a flood without
+        # pauses starves the flusher thread of the interpreter, and a drill
+        # that acks nothing proves nothing
+        w = links[i][1]
+        try:
+            for k in range(20_000):
+                p = _kill_frame(i, k)
+                w.write(struct.pack("!I", len(p)) + p)
+                if k % 32 == 31:
+                    await w.drain()
+                    await asyncio.sleep(0.001)
+        except (ConnectionError, asyncio.CancelledError):
+            pass
+
+    async def reap(i):
+        r = links[i][0]
+        try:
+            while True:
+                hdr = await r.readexactly(5)
+                if hdr[0] == SWP_ACK:
+                    acked[i] = struct.unpack("!I", hdr[1:])[0]
+        except (asyncio.IncompleteReadError, ConnectionError, asyncio.CancelledError):
+            pass
+
+    tasks = [asyncio.ensure_future(f(i)) for f in (pump, reap) for i in range(conns)]
+    await asyncio.sleep(seconds)
+    edge.kill()
+    for t in tasks:
+        t.cancel()
+    await asyncio.gather(*tasks, return_exceptions=True)
+    return list(acked), edge
+
+
+def edge_receiver_stream(seed: int, n: int = EDGE_RECV_N, n_devices: int = 300) -> tuple:
+    """Seeded payloads for each broker receiver of (d): measurements and
+    locations with alternate ids (values multiples of 0.5), about 5 %
+    redeliveries of an earlier payload of the same source and 2 % bad
+    frames. Returns the lists and what a source with a deduplicator must
+    count (``decoded``, ``failed``, ``duplicate``, the dead letter)."""
+    rng = np.random.default_rng(seed + 29)
+    t0 = int(1.7e12) + 1_000
+    out, expect = {}, {}
+    for s, name in enumerate(("mqtt", "coap", "amqp", "stomp", "hub")):
+        seen, pays = [], []
+        exp = {"decoded": 0, "failed": 0, "duplicate": 0, "bad": []}
+        for i in range(n):
+            r = rng.random()
+            if r < 0.02:
+                p = [b"{not json", b'{"deviceToken": "x", "type": "Nope"}'][i % 2]
+                exp["failed"] += 1
+                exp["bad"].append(p)
+            elif r < 0.07 and seen:
+                p = seen[int(rng.integers(len(seen)))]
+                exp["duplicate"] += 1
+            else:
+                tok = f"rx-{int(rng.integers(n_devices))}"
+                req = {"eventDate": t0 + s * 10_000 + i, "alternateId": f"{name}-{i}"}
+                if i % 5 == 0:
+                    env = {"deviceToken": tok, "type": "DeviceLocation",
+                           "request": {"latitude": 48.5, "longitude": 2.5, **req}}
+                else:
+                    env = {"deviceToken": tok, "type": "DeviceMeasurement",
+                           "request": {"name": f"c{i % 3}",
+                                       "value": float(rng.integers(-64, 64)) / 2, **req}}
+                p = json.dumps(env).encode()
+                seen.append(p)
+                exp["decoded"] += 1
+            pays.append(p)
+        out[name], expect[name] = pays, exp
+    return out, expect
+
+
+async def _until(pred, what: str, limit_s: float = 30.0) -> None:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > limit_s:
+            raise RuntimeError(f"edge: timed out waiting for {what}")
+        await asyncio.sleep(0.001)
+
+
+def _counted(src) -> int:
+    return src.decoded_count + src.failed_count + src.duplicate_count + src.batched_count
+
+
+async def _feed_receivers(eng, device, stream) -> dict:
+    """(d): the MQTT receiver over ``MqttBroker``, CoAP, AMQP over
+    ``AmqpBroker``, STOMP (an embedded broker, two competing consumers)
+    and EventHub, as five sources of one ``EventSourcesManager`` that
+    carries a shared ``WireBatcher``. MQTT, AMQP and EventHub have an
+    alternate-id deduplicator (the per-payload path, a dead letter); CoAP
+    and STOMP take the batcher. Each payload is counted before the next
+    is sent and the batcher flushes every ``EDGE_RECV_GROUP`` payloads, so
+    the engine sees the same calls on every device."""
+    from sitewhere_tpu_torch.ingest.amqp import (AmqpBroker, AmqpClient,
+                                                 RabbitMqEventReceiver)
+    from sitewhere_tpu_torch.ingest.coap import CREATED, POST, CoapClient, CoapServerEventReceiver
+    from sitewhere_tpu_torch.ingest.dedup import AlternateIdDeduplicator
+    from sitewhere_tpu_torch.ingest.eventhub import EventHub, EventHubEventReceiver
+    from sitewhere_tpu_torch.ingest.mqtt import MqttBroker, MqttClient, MqttEventReceiver
+    from sitewhere_tpu_torch.ingest.sources import EventSourcesManager, InboundEventSource
+    from sitewhere_tpu_torch.ingest.stomp import ActiveMqBrokerEventReceiver, StompClient
+    from sitewhere_tpu_torch.ingest.wire_edge import WireBatcher
+
+    batcher = WireBatcher(eng, flush_rows=1 << 20, auto=False)
+    mgr = EventSourcesManager(eng.process, eng.process, batcher=batcher)
+    mqtt_broker, amqp_broker = MqttBroker(), AmqpBroker()
+    await mqtt_broker.start()
+    await amqp_broker.start()
+    hub = EventHub("edge", partition_count=4)
+    dec = JsonDeviceRequestDecoder()
+    recv = {"mqtt": MqttEventReceiver("127.0.0.1", mqtt_broker.bound_port, topic="sw/in/#",
+                                      qos=1),
+            "coap": CoapServerEventReceiver(),
+            "amqp": RabbitMqEventReceiver("127.0.0.1", amqp_broker.bound_port, queue="sw.in"),
+            "stomp": ActiveMqBrokerEventReceiver("edge", "SW.IN", num_consumers=2),
+            "hub": EventHubEventReceiver(hub)}
+    deduped = ("mqtt", "amqp", "hub")
+    srcs = {k: mgr.add_source(InboundEventSource(
+        k, dec, [r], AlternateIdDeduplicator() if k in deduped else None))
+        for k, r in recv.items()}
+    await mgr.initialize()
+    await mgr.start()
+    coap_codes = []
+    try:
+        pub = MqttClient("127.0.0.1", mqtt_broker.bound_port, "edge-pub")
+        await pub.connect()
+        for i, p in enumerate(stream["mqtt"]):
+            await pub.publish(f"sw/in/{i}", p, qos=1)
+            await _until(lambda: _counted(srcs["mqtt"]) == i + 1, "an mqtt payload")
+        await pub.disconnect()
+        client = CoapClient("127.0.0.1", recv["coap"].bound_port, timeout=60)
+        for lo in range(0, len(stream["coap"]), EDGE_RECV_GROUP):
+            replies = []
+            for i, p in enumerate(stream["coap"][lo:lo + EDGE_RECV_GROUP], start=lo):
+                replies.append(asyncio.ensure_future(client.request(POST, ["events"], p)))
+                await _until(lambda: _counted(srcs["coap"]) == i + 1, "a coap payload")
+            batcher.flush()                # the confirmable ACKs wait for this
+            coap_codes += [(await f)["code"] for f in replies]
+        amqp_pub = AmqpClient("127.0.0.1", amqp_broker.bound_port)
+        await amqp_pub.connect()
+        for i, p in enumerate(stream["amqp"]):
+            await amqp_pub.publish("", "sw.in", p)
+            await _until(lambda: _counted(srcs["amqp"]) == i + 1, "an amqp payload")
+        await amqp_pub.close()
+        stomp_pub = StompClient("127.0.0.1", recv["stomp"].bound_port)
+        await stomp_pub.connect()
+        for i, p in enumerate(stream["stomp"]):
+            await stomp_pub.send("/queue/SW.IN", p)
+            await _until(lambda: _counted(srcs["stomp"]) == i + 1, "a stomp payload")
+            if (i + 1) % EDGE_RECV_GROUP == 0:
+                batcher.flush()
+        batcher.flush()
+        await stomp_pub.disconnect()
+        for p in stream["hub"]:
+            hub.send(p, partition_key="edge")      # one partition: one order
+        await _until(lambda: _counted(srcs["hub"]) == len(stream["hub"]), "the hub payloads")
+    finally:
+        await mgr.stop()
+        await mqtt_broker.stop()
+        await amqp_broker.stop()
+        batcher.close()
+    eng.flush()
+    _sync(device)
+    return {"counts": {k: {"decoded": s.decoded_count, "failed": s.failed_count,
+                           "duplicate": s.duplicate_count, "batched": s.batched_count}
+                       for k, s in srcs.items()},
+            "dead": [(s, p) for s, p, _ in mgr.failed_decodes],
+            "coap_created": sum(c == CREATED for c in coap_codes),
+            "batcher": batcher.counters(), "reconnects": recv["mqtt"].reconnects}
+
+
+def _raise_fd_limit(need: int) -> None:
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < need:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (min(hard, max(need, 4096)), hard))
+
+
+def phase_edge(device, log, fails, seed: int, config: dict = EDGE_CONFIG,
+               spec: dict = EDGE_SPEC, group: int = EDGE_GROUP, groups: int = EDGE_GROUPS,
+               load_runs: int = EDGE_LOAD_RUNS, rr: int = EDGE_RR,
+               kill_s: float = EDGE_KILL_S, recv_n: int = EDGE_RECV_N) -> dict:
+    """The persistent-connection wire edge and the broker receivers into
+    engines on the card (bench.py's wire leg): (a) ``groups`` x ``group``
+    frames of the load's schedule over one SWP connection, a flush hint and
+    an ack barrier a group, into a card engine, against a second card
+    engine and a CPU engine fed the same ``ingest_json_batch`` calls: state
+    leaves, host mirrors and ``metrics()`` equal; (b) ``spec``'s load
+    (1000 live MQTT connections x 12 QoS 1 frames) through ``run_wire_load``
+    into that engine's edge (``flush_rows=256``, 5 ms deadline),
+    ``load_runs`` samples: every frame acked, no host staging copy, the
+    ledger's "wire" stage present and balancing; then ``rr``
+    request-response cycles over SWP; (c) a card engine with a group-commit
+    WAL: 8 SWP connections pump for ``kill_s``, ``edge.kill()``, a fresh
+    card engine replays the WAL and every frame a client saw acked is among
+    the replayed payloads; (d) the five broker receivers
+    (``_feed_receivers``) into a card and a CPU engine: counts, the dead
+    letter, the CoAP ACKs and the state equal. Every flusher thread runs on
+    the card: no error may be logged or raised off the main thread, and no
+    frame may stall."""
+    from sitewhere_tpu_torch.loadgen import (WireLoadSpec, build_wire_schedule,
+                                             wire_schedule_fingerprint)
+    from sitewhere_tpu_torch.utils.checkpoint import replay_wal_into
+
+    _raise_fd_limit(4 * spec["n_connections"] + 256)
+    logging.getLogger("sitewhere_tpu_torch.ingest.sources").setLevel(logging.ERROR)
+    t_phase = time.perf_counter()
+    warm = [generate_measurements_message(f"wl-dev-{i % 200}", i) for i in range(1024)]
+    sched = build_wire_schedule(WireLoadSpec(**spec))
+    events = sum(len(f) for f in sched)
+    parity = [p for f in sched for p in f][:groups * group]
+    stalled = 0
+    with _ThreadErrors() as errs:
+        # (a) parity; the stream each engine call of the edge ran on
+        e_wa = _edge_engine(device, config, warm)
+        main_stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+        streams = []
+        edge_call = e_wa.ingest_json_batch
+
+        def on_stream(payloads, tenant="default", **kw):
+            streams.append((threading.current_thread().name,
+                            torch.cuda.current_stream(device) if main_stream else None))
+            return edge_call(payloads, tenant=tenant, **kw)
+
+        e_wa.ingest_json_batch = on_stream
+        snap_a = asyncio.run(_swp_groups(e_wa, parity, group))
+        e_wa.ingest_json_batch = edge_call
+        stalled += snap_a["frames_stalled"]
+        fails.check(bool(streams) and all(s == main_stream and t != "MainThread"
+                                          for t, s in streams),
+                    f"edge: (a) the edge's engine calls ran on {streams[:4]}, not off the "
+                    f"main thread on its stream {main_stream}")
+        oracles = {}
+        for where in (device, torch.device("cpu")):
+            o = _edge_engine(where, config, warm)
+            for lo in range(0, len(parity), group):
+                o.ingest_json_batch(parity[lo:lo + group])
+            o.flush()
+            oracles[where.type] = o
+        e_wa.flush()
+        _sync(device)
+        for name, o in oracles.items():
+            differ = _engines_differ(o, e_wa)
+            fails.check(not differ, f"edge: (a) the edge-fed card engine vs the {name} "
+                                    f"oracle differs: {differ[:8]}")
+            fails.check(_untimed_metrics(o) == _untimed_metrics(e_wa),
+                        f"edge: (a) metrics {_untimed_metrics(e_wa)} vs the {name} "
+                        f"oracle's {_untimed_metrics(o)}")
+        fails.check(snap_a["rows_submitted"] == len(parity) and snap_a["flushes"] == groups,
+                    f"edge: (a) {snap_a['rows_submitted']} rows in {snap_a['flushes']} "
+                    f"flushes, want {len(parity)} in {groups}")
+        del oracles
+        # (b) load
+        warm_sched = build_wire_schedule(WireLoadSpec(n_connections=4, frames_per_conn=16,
+                                                      n_devices=200, seed=11))
+        load = asyncio.run(_edge_load(e_wa, device, sched, warm_sched, load_runs, parity[:rr]))
+        stalled += load["snapshot"]["frames_stalled"]
+        for res, _ in load["samples"]:
+            fails.check(res.acked == events == res.events and res.connections == len(sched),
+                        f"edge: (b) {res.acked} of {events} frames acked over "
+                        f"{res.connections} connections")
+        fails.check(load["copies"] == 0, f"edge: (b) {load['copies']} host staging copies")
+        fails.check(load["wire_stage"] is not None and not load["violations"],
+                    f"edge: (b) wire stage {load['wire_stage']}, violations "
+                    f"{load['violations']}")
+        # (c) kill drill
+        with tempfile.TemporaryDirectory(prefix="edge-wal-") as wal_dir:
+            e_wk = _edge_engine(device, config, warm, wal_dir=wal_dir, wal_group_commit=True)
+            acked, kedge = asyncio.run(_edge_kill(e_wk, EDGE_KILL_CONNS, kill_s))
+            for b in kedge.batchers:
+                b.close()
+            stalled += kedge.snapshot()["frames_stalled"]
+            e_wk.flush()
+            _sync(device)
+            e_wk.wal.close()
+            e_wr = Engine(EngineConfig(**config), device=device)
+            replayed = set()
+            replay_call = e_wr.ingest_json_batch
+
+            def spy(payloads, tenant="default", **kw):
+                replayed.update(payloads)
+                return replay_call(payloads, tenant=tenant, **kw)
+
+            e_wr.ingest_json_batch = spy
+            replay_wal_into(e_wr, -1, wal_dir)
+            _sync(device)
+        lost = [(i, k) for i, n in enumerate(acked) for k in range(n)
+                if _kill_frame(i, k) not in replayed]
+        recovered = e_wr.metrics()["persisted"]
+        fails.check(sum(acked) > 0 and not lost and recovered >= sum(acked) + len(warm),
+                    f"edge: (c) {sum(acked)} frames acked before the kill, {len(lost)} of "
+                    f"them not replayed ({lost[:4]}), {recovered} rows recovered")
+        # (d) broker receivers
+        stream, expect = edge_receiver_stream(seed, recv_n)
+        recv = {}
+        for where in (device, torch.device("cpu")):
+            eng = Engine(EngineConfig(**SOURCES_CONFIG), device=where)
+            eng.epoch = PinnedEpoch(1.7e9, now_ms=77_777)
+            recv[where.type] = (eng, asyncio.run(_feed_receivers(eng, where, stream)))
+        (card, got), (host, host_got) = recv[device.type], recv["cpu"]
+        stalled += got["batcher"]["frames_stalled"]
+        for k, c in got["counts"].items():
+            if k in ("coap", "stomp"):
+                want = {"decoded": 0, "failed": 0, "duplicate": 0, "batched": recv_n}
+            else:
+                want = {**{c2: expect[k][c2] for c2 in ("decoded", "failed", "duplicate")},
+                        "batched": 0}
+            fails.check(c == want, f"edge: (d) {k} counts {c} vs the stream's {want}")
+        want_dead = sorted((k, p) for k in ("mqtt", "amqp", "hub") for p in expect[k]["bad"])
+        fails.check(sorted(got["dead"]) == want_dead,
+                    f"edge: (d) dead letter of {len(got['dead'])} vs {len(want_dead)} bad")
+        fails.check(got["coap_created"] == recv_n,
+                    f"edge: (d) {got['coap_created']} of {recv_n} CoAP ACKs CREATED")
+        fails.check({k: v for k, v in got.items() if k != "batcher"}
+                    == {k: v for k, v in host_got.items() if k != "batcher"},
+                    "edge: (d) the card run's counts differ from the CPU run's")
+        differ = _engines_differ(host, card)
+        fails.check(not differ, f"edge: (d) card vs CPU engine differ: {differ[:8]}")
+        fails.check(_untimed_metrics(card) == _untimed_metrics(host),
+                    f"edge: (d) metrics {_untimed_metrics(card)} vs CPU "
+                    f"{_untimed_metrics(host)}")
+    fails.check(not errs.seen, f"edge: errors off the main thread: {errs.seen[:4]}")
+    fails.check(stalled == 0, f"edge: {stalled} frames stalled")
+    eps = [res.events_per_s for res, _ in load["samples"]]
+    committed = [events / s for _, s in load["samples"]]
+    first = load["samples"][0][0]
+    snap = load["snapshot"]
+    out = {"phase": "edge", "schedule_fingerprint": wire_schedule_fingerprint(sched),
+           "parity": {"frames": len(parity), "groups": groups,
+                      "card_and_cpu_oracles_equal": True},
+           "connections": first.connections, "events": events,
+           "events_per_s_runs": eps, "events_per_s": statistics.median(eps),
+           "committed_events_per_s_runs": committed,
+           "committed_events_per_s": statistics.median(committed),
+           "publish_p50_ms_runs": [r.publish_p50_ms for r, _ in load["samples"]],
+           "publish_p99_ms_runs": [r.publish_p99_ms for r, _ in load["samples"]],
+           "connect_s_runs": [r.connect_s for r, _ in load["samples"]],
+           "kib_per_connection": first.per_connection_bytes / 1024,
+           "flush_occupancy_pct": snap["flush_occupancy_pct"], "flushes": snap["flushes"],
+           "request_response_events_per_s": load["rr_eps"], "request_response_cycles": rr,
+           "staged_copy_rows": load["copies"], "wire_stage": load["wire_stage"],
+           "kill": {"acked": sum(acked), "acked_by_connection": acked,
+                    "replayed_payloads": len(replayed), "recovered_rows": recovered,
+                    "warm_rows": len(warm)},
+           "receivers": got["counts"], "dead_letter": len(got["dead"]),
+           "frames_stalled": stalled, "thread_errors": len(errs.seen),
+           "seconds": time.perf_counter() - t_phase, "config": config}
+    emit(out, log)
+    print(f"edge: {out['events_per_s']:.0f} events/s acked ({out['committed_events_per_s']:.0f} "
+          f"committed) over {first.connections} live MQTT connections, QoS 1 "
+          f"(median of {len(eps)}: {min(eps):.0f}..{max(eps):.0f}), publish p50 "
+          f"{first.publish_p50_ms} ms p99 {first.publish_p99_ms} ms, connect "
+          f"{first.connect_s} s, {out['kib_per_connection']:.1f} KiB a connection, flush "
+          f"occupancy {snap['flush_occupancy_pct']} %; request-response "
+          f"{load['rr_eps']:.0f} events/s; kill drill {sum(acked)} acked, all replayed; "
+          f"5 broker receivers card = CPU; {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 # the transformer configurations of fault C6 (head dims 128, 8, 48 and 64,
 # and float16 at D = 32, 64 and 128), each scored and trained one step on
 # the card
@@ -5122,6 +5674,7 @@ def main(argv=None) -> int:
     phase_anomaly_tp(device, log, fails, args.seed)
     phase_multihost(device, log, fails)
     phase_sources(device, log, fails, args.seed)
+    phase_edge(device, log, fails, args.seed)
     # window_features runs on three paths: the live scoring of the slice,
     # training on the live windows and the archive's analytics job
     by_path = {"window_features": {"slice": launches["window_features"],

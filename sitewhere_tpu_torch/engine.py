@@ -1290,7 +1290,9 @@ class Engine(IngestHostMixin):
         # auditor (utils/conservation.ConservationAuditor) attaches here
         self.ledger = FlowLedger(enabled=c.conservation)
         self.conservation_auditor = None
-        # persistent-connection wire edges register here (none is ported)
+        # persistent-connection wire edges (ingest/wire_edge.WireEdge)
+        # register here while attached: the conservation ledger's "wire"
+        # stage and the swtpu_wire_* exporter read them
         self.wire_edges: list = []
         # durability: accepted payloads append to the WAL before staging,
         # tagged by wire format so recovery replays each through the

@@ -13,8 +13,11 @@ device-registration flows, with a failed-decode dead letter
 Receivers are asyncio servers and clients (TCP socket, WebSocket, REST
 polling, in-memory). ``websockets`` and ``aiohttp`` are imported only
 when their receiver starts, so a machine without them runs the others.
-The ``batcher`` argument is duck-typed: any object with ``add(payload,
-tenant=, binary=, on_durable=)`` and ``flush()``.
+The ``batcher`` argument is this package's
+``ingest/wire_edge.WireBatcher`` (``add(payload, tenant=, binary=,
+on_durable=)`` and ``flush()``): sources with a batchable decoder hand it
+raw payloads, one engine call an arrival window. MQTT, CoAP, AMQP, STOMP
+and EventHub receivers live in their own modules on this one.
 """
 
 from __future__ import annotations
@@ -70,11 +73,11 @@ class InboundEventSource(LifecycleComponent):
         for r in self.receivers:
             r.bind(self)
             self.add_child(r)
-        # batched arena submission (ingest/wire_edge.WireBatcher): when
-        # the decoder declares a wire_tag the raw payload skips host-side
-        # decode and rides the engine's batch-ingest facade, one engine
-        # call per arrival window instead of one lock acquisition per
-        # event. A host-side deduplicator forces the per-payload path —
+        # batched arena submission (this package's
+        # ingest/wire_edge.WireBatcher): when the decoder declares a
+        # wire_tag the raw payload skips host-side decode and rides the
+        # engine's batch-ingest facade, one engine call per arrival window
+        # instead of one lock acquisition per event. A host-side deduplicator forces the per-payload path —
         # dedup needs the decoded alternate id (the wire edge's own
         # socket endpoints dedup by byte scan instead).
         self.batcher = batcher
@@ -157,10 +160,11 @@ class EventSourcesManager(LifecycleComponent):
         self._on_register = on_registration_request
         self.failed_decodes: list[tuple[str, bytes, str]] = []
         self.dead_letter_capacity = dead_letter_capacity
-        # shared batched-submit accumulator (ingest/wire_edge.WireBatcher):
-        # newly added sources with a batchable decoder and no host-side
-        # deduplicator inherit it, so CoAP/polling/in-memory receivers pay
-        # one engine call per arrival window, not one per event
+        # shared batched-submit accumulator (this package's
+        # ingest/wire_edge.WireBatcher): newly added sources with a
+        # batchable decoder and no host-side deduplicator inherit it, so
+        # CoAP/polling/in-memory receivers pay one engine call per arrival
+        # window, not one per event
         self.batcher = batcher
 
     def add_source(self, source: InboundEventSource) -> InboundEventSource:

@@ -1,6 +1,6 @@
 """Load generator (port of ``sitewhere_tpu/loadgen.py``: the closed-loop
-load of the wire-ingest path and the open-loop part; its persistent-
-connection wire mode waits for the wire edge).
+load of the wire-ingest path, the open-loop part and the persistent-
+connection wire mode; the REST load waits for the port's servers).
 
 * ``run_engine_load`` generates the canonical DeviceRequest measurement
   JSON and drives the engine's native host path — payload bytes -> native
@@ -11,10 +11,18 @@ connection wire mode waits for the wire edge).
   against an engine, the generator acting as the QoS admission edge; the
   result is each tenant's latency from scheduled arrival to visible
   state. ``schedule_fingerprint`` pins a schedule byte for byte.
+* ``build_wire_schedule`` / ``run_wire_load``: N live MQTT connections
+  against a ``WireEdge``, each publishing its own seeded frames at QoS 1
+  (every publish awaits its WAL-durable PUBACK);
+  ``wire_schedule_fingerprint`` pins the frames.
+* ``main``: ``python -m sitewhere_tpu_torch.loadgen [--open-loop]
+  [--shards N] [--device cuda|cpu]`` builds an ``Engine`` (or an
+  ``SpmdEngine``) on the card unless asked for the CPU.
 """
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import hashlib
 import json
@@ -625,3 +633,205 @@ def run_open_loop(engine, schedule: list[ScheduledOp], *,
         trace_coverage=coverage, compile_counts=None,
         ingest_path=ingest_path)
 
+
+# ---------------------------------------------------------------------------
+# Persistent-connection wire mode.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class WireLoadSpec:
+    """Seed-determined description of a connection-holding load: N live
+    connections, each carrying its own deterministic frame list. Same
+    spec + same seed => byte-identical frames per connection (the
+    ``build_open_loop_schedule`` fingerprint discipline; existing
+    open-loop schedules are untouched by this mode)."""
+
+    n_connections: int = 1000
+    frames_per_conn: int = 10
+    n_devices: int = 256
+    tenant: str = "default"
+    device_prefix: str = "wl-dev"
+    seed: int = 0
+
+
+def build_wire_schedule(spec: WireLoadSpec) -> list[list[bytes]]:
+    """Per-connection payload lists — a pure function of the spec (each
+    connection draws from its own seeded stream, so connection counts can
+    change without disturbing other connections' frames)."""
+    out: list[list[bytes]] = []
+    for c in range(spec.n_connections):
+        rng = np.random.default_rng([spec.seed, c])
+        picks = rng.integers(0, spec.n_devices, spec.frames_per_conn)
+        out.append([
+            generate_measurements_message(
+                f"{spec.device_prefix}-{int(d)}", c * 1_000_000 + i)
+            for i, d in enumerate(picks)
+        ])
+    return out
+
+
+def wire_schedule_fingerprint(payload_lists: list[list[bytes]]) -> str:
+    """SHA-256 over the canonical byte form — the determinism pin the
+    bench records next to its measured wire numbers."""
+    h = hashlib.sha256()
+    for i, frames in enumerate(payload_lists):
+        h.update(f"conn|{i}|{len(frames)}\n".encode())
+        for p in frames:
+            h.update(p)
+    return h.hexdigest()
+
+
+def _rss_bytes() -> int:
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+@dataclasses.dataclass
+class WireLoadResult:
+    """One connection-holding run against a live wire edge. Connections
+    stay OPEN for the whole run — ``per_connection_bytes`` is the RSS
+    delta from before the connect wave to all-connected, divided by the
+    connection count (client and server share the process in the bench,
+    so the figure covers both ends of each connection)."""
+
+    connections: int
+    events: int
+    acked: int
+    wall_s: float
+    events_per_s: float
+    connect_s: float
+    per_connection_bytes: float
+    publish_p50_ms: float | None
+    publish_p99_ms: float | None
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+async def run_wire_load(host: str, port: int,
+                        payload_lists: list[list[bytes]], *,
+                        tenant: str = "default", qos: int = 1,
+                        connect_wave: int = 100,
+                        client_id_prefix: str = "wl") -> WireLoadResult:
+    """Hold ``len(payload_lists)`` live MQTT connections against a wire
+    edge and publish each connection's frames (QoS 1 by default: every
+    publish awaits its WAL-durable PUBACK). Connections open in waves of
+    ``connect_wave`` to keep the accept queue shallow, then ALL of them
+    stay open while frames interleave across the full set — the
+    persistent-connection contrast to one-request-per-event loads."""
+    from sitewhere_tpu_torch.ingest.mqtt import MqttClient
+
+    rss0 = _rss_bytes()
+    t_conn = time.perf_counter()
+    clients: list[MqttClient] = []
+    for lo in range(0, len(payload_lists), connect_wave):
+        wave = []
+        for i in range(lo, min(lo + connect_wave, len(payload_lists))):
+            c = MqttClient(host, port, client_id=f"{client_id_prefix}-{i}",
+                           keepalive=0)
+            clients.append(c)
+            wave.append(c.connect())
+        await asyncio.gather(*wave)
+    connect_s = time.perf_counter() - t_conn
+    per_conn = ((_rss_bytes() - rss0) / len(clients)) if clients else 0.0
+
+    topic = f"swtpu/{tenant}/events"
+    lat: list[float] = []
+    acked = 0
+
+    async def one_conn(c: MqttClient, frames: list[bytes]) -> None:
+        nonlocal acked
+        for p in frames:
+            s0 = time.perf_counter()
+            await asyncio.wait_for(c.publish(topic, p, qos=qos), 60)
+            lat.append((time.perf_counter() - s0) * 1e3)
+            if qos:
+                acked += 1
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(one_conn(c, f)
+                           for c, f in zip(clients, payload_lists)))
+    wall = time.perf_counter() - t0
+    await asyncio.gather(*(c.disconnect() for c in clients),
+                         return_exceptions=True)
+    events = sum(len(f) for f in payload_lists)
+    pct = _pcts(lat)
+    return WireLoadResult(
+        connections=len(clients), events=events,
+        acked=acked if qos else events,
+        wall_s=round(wall, 3),
+        events_per_s=round(events / wall, 1) if wall else 0.0,
+        connect_s=round(connect_s, 3),
+        per_connection_bytes=round(per_conn, 1),
+        publish_p50_ms=pct["p50_ms"], publish_p99_ms=pct["p99_ms"])
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    from sitewhere_tpu_torch.engine import Engine, EngineConfig
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--batches", type=int, default=50)
+    ap.add_argument("--batch-size", type=int, default=4096)
+    ap.add_argument("--devices", type=int, default=10_000)
+    ap.add_argument("--open-loop", action="store_true",
+                    help="seeded open-loop mixed workload instead of the "
+                         "closed-loop batch load")
+    ap.add_argument("--rate", type=float, default=5000.0,
+                    help="open-loop arrival rate (events/s)")
+    ap.add_argument("--duration", type=float, default=2.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shards", type=int, default=0,
+                    help="drive the multi-shard SpmdEngine with N shards "
+                         "instead of a single engine (0 = single engine). "
+                         "Wire frames go through the batch ingest edge "
+                         "(arena scatter), never per-event staging; the "
+                         "result's ingest_path counters pin it")
+    ap.add_argument("--device", default="cuda",
+                    help="where the engine's state lives (default: the card; "
+                         "'cpu' only when asked for)")
+    args = ap.parse_args(argv)
+
+    cfg = EngineConfig(
+        device_capacity=max(1 << 15, 1 << (args.devices - 1).bit_length()),
+        token_capacity=1 << 17, assignment_capacity=1 << 17,
+        store_capacity=1 << 18, batch_capacity=args.batch_size,
+    )
+    if args.shards:
+        from sitewhere_tpu_torch.parallel.sharded import SpmdEngine
+
+        engine = SpmdEngine(cfg, n_shards=args.shards, device=args.device)
+    else:
+        engine = Engine(cfg, device=args.device)
+    if args.open_loop:
+        # warm outside the measured schedule, so first-call costs do not
+        # land in (and, open-loop, cascade through) every latency
+        run_engine_load(engine, n_batches=1, batch_size=args.batch_size,
+                        n_devices=min(args.devices, 4096),
+                        warmup_batches=1)
+        spec = OpenLoopSpec(
+            tenants=(TenantLoad("default", args.rate,
+                                n_devices=min(args.devices, 4096),
+                                query_every=8, mutate_every=16),),
+            duration_s=args.duration,
+            frame_size=min(args.batch_size, 512), seed=args.seed)
+        schedule = build_open_loop_schedule(spec)
+        res = run_open_loop(engine, schedule)
+        print(json.dumps({
+            "schedule_fingerprint": schedule_fingerprint(schedule),
+            **res.to_dict()}))
+        return
+    stats = run_engine_load(engine, args.batches, args.batch_size, args.devices)
+    print(json.dumps(stats.to_dict()))
+
+
+if __name__ == "__main__":
+    main()

@@ -1445,7 +1445,17 @@ class SpmdEngine(Engine):
             row.update({lane: int(lanes[s, i])
                         for i, lane in enumerate(TENANT_COUNTER_LANES)})
             per.append(row)
-        return {"shards": self.n_shards, "counting": counting, "perShard": per}
+        doc = {"shards": self.n_shards, "counting": counting, "perShard": per}
+        # attached persistent-connection edges are the feeder stage of this
+        # flow: one read of the shard document shows socket -> arena ->
+        # shard (kept out of metrics(): dispatch-shape equality pin)
+        if getattr(self, "wire_edges", None):
+            from sitewhere_tpu_torch.ingest.wire_edge import aggregate_wire_snapshot
+
+            wire = aggregate_wire_snapshot(self)
+            if wire is not None:
+                doc["wire"] = wire
+        return doc
 
     def harvest_shard_heat(self, now_s: float | None = None):
         """Update the heat tracker from the counter-grid deltas (one copy

@@ -46,6 +46,16 @@ The equations:
                       (every window a scoring batch plans lands in one
                       sink; the manager commits planned with its sinks
                       in one lock block, so there is no in-flight slack)
+  wire-frames         frames_received == frames_admitted + frames_shed +
+                      frames_invalid + frames_duplicate (every frame a
+                      persistent connection delivers gets exactly one edge
+                      disposition; received counts independently at frame
+                      arrival, so the equation can fail)
+  wire-rows           frames_admitted == rows_submitted + frames_stalled +
+                      pending (admitted frames reach the batch-ingest facade
+                      — and staging-balance from there — or are stall-shed
+                      with their acks withheld; the arrival-window backlog
+                      is the only slack)
 """
 
 from __future__ import annotations
@@ -63,7 +73,7 @@ logger = logging.getLogger(__name__)
 
 EQUATIONS = ("edge-admission", "staging-balance", "device-processed", "device-disposition",
              "wal-durability", "rules-harvest", "archive-spill",
-             "spmd-shard-flow", "analytics-windows")
+             "spmd-shard-flow", "analytics-windows", "wire-frames", "wire-rows")
 
 
 class FlowLedger:
@@ -215,6 +225,21 @@ def build_ledger(engine, rules_manager=None) -> dict:
                     # events were offered and admitted already
                     "shed_noted": int(qos.shed_noted),
                     "shed_by_tenant": dict(qos.shed_by_tenant)}
+        # the persistent-connection wire edges (ingest/wire_edge): their
+        # own counter snapshots. The edge and batcher locks are not the
+        # engine lock, so a frame between its admission and its batcher
+        # append can skew wire-rows for one audit (the auditor's
+        # two-audit rule); a quiescent edge balances exactly
+        if getattr(engine, "wire_edges", None):
+            from sitewhere_tpu_torch.ingest.wire_edge import aggregate_wire_snapshot
+
+            ws = aggregate_wire_snapshot(engine)
+            if ws is not None:
+                stages["wire"] = {k: ws[k] for k in (
+                    "frames_received", "frames_admitted", "frames_shed",
+                    "frames_invalid", "frames_duplicate", "rows_submitted",
+                    "frames_stalled", "pending", "backpressure_events",
+                    "connections_live", "connections_peak")}
         # rows of ingest_event_batch are staged and dispatched at once
         bulk = led.value("bulk_rows")
         syncs += "bulk_rows" in led.device
@@ -437,6 +462,27 @@ def check_conservation(ledger: dict) -> list[Violation]:
                 f"{an.get('scored', 0)} + skipped_underfilled "
                 f"{an.get('skipped_underfilled', 0)} + cancelled "
                 f"{an.get('cancelled', 0)}", an["planned"], rhs)
+    wire = st.get("wire")
+    if wire:
+        rhs = (wire.get("frames_admitted", 0) + wire.get("frames_shed", 0)
+               + wire.get("frames_invalid", 0) + wire.get("frames_duplicate", 0))
+        if wire.get("frames_received", 0) != rhs:
+            bad("wire-frames",
+                f"frames received {wire.get('frames_received', 0)} != "
+                f"admitted {wire.get('frames_admitted', 0)} + shed "
+                f"{wire.get('frames_shed', 0)} + invalid "
+                f"{wire.get('frames_invalid', 0)} + duplicate "
+                f"{wire.get('frames_duplicate', 0)}",
+                wire.get("frames_received", 0), rhs)
+        rhs = (wire.get("rows_submitted", 0) + wire.get("frames_stalled", 0)
+               + wire.get("pending", 0))
+        if wire.get("frames_admitted", 0) != rhs:
+            bad("wire-rows",
+                f"frames admitted {wire.get('frames_admitted', 0)} != "
+                f"rows_submitted {wire.get('rows_submitted', 0)} + "
+                f"stalled {wire.get('frames_stalled', 0)} + pending "
+                f"{wire.get('pending', 0)}",
+                wire.get("frames_admitted", 0), rhs, slack=wire.get("pending", 0))
     return out
 
 

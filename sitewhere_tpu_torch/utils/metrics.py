@@ -827,38 +827,19 @@ def export_engine_metrics(engine, registry: MetricsRegistry | None = None,
     export_wire_metrics(engine, reg)
 
 
-def aggregate_wire_snapshot(engine) -> dict | None:
-    """Combine the snapshots of every wire edge attached to ``engine``;
-    None when none is attached. Counters sum; ``connections_peak`` is a
-    max and ``flush_occupancy_pct`` a flush-capacity-weighted mean."""
-    edges = getattr(engine, "wire_edges", None)
-    if not edges:
-        return None
-    total: dict = {}
-    rows_sum = cap_sum = 0
-    for edge in list(edges):
-        snap = edge.snapshot()
-        rows_sum += snap.get("flush_rows_sum", 0)
-        cap_sum += snap.get("flushes", 0) * edge.cfg.flush_rows
-        for key, val in snap.items():
-            if key == "connections_peak":
-                total[key] = max(total.get(key, 0), val)
-            elif key != "flush_occupancy_pct":
-                total[key] = total.get(key, 0) + val
-    total["flush_occupancy_pct"] = (
-        round(100.0 * rows_sum / cap_sum, 1) if cap_sum else 0.0)
-    return total
-
-
 def export_wire_metrics(engine, registry: MetricsRegistry | None = None) -> None:
     """Scrape-time export of the persistent-connection wire edge:
     connection gauges, per-disposition frame totals, arrival-window
     flush occupancy, and backpressure events. Sampled from the attached
     edges' own counter snapshots — like every plane, these series are
     deliberately NOT ``engine.metrics()`` keys (dispatch-shape equality
-    pin); an engine with no edge attached exports nothing (the port's
-    engines have no edge yet)."""
+    pin); an engine with no edge attached (``ingest/wire_edge.WireEdge``)
+    exports nothing."""
     eng = getattr(engine, "local", engine)
+    if not getattr(eng, "wire_edges", None):
+        return
+    from sitewhere_tpu_torch.ingest.wire_edge import aggregate_wire_snapshot
+
     snap = aggregate_wire_snapshot(eng)
     if snap is None:
         return

@@ -93,6 +93,10 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
             "sitewhere_tpu_torch.ingest.sources", "sitewhere_tpu_torch.ingest.dedup",
             "sitewhere_tpu_torch.utils.lifecycle", "sitewhere_tpu_torch.utils.scripting",
             "sitewhere_tpu_torch.utils.faults", "sitewhere_tpu_torch.native.route_fallback",
+            # the wire edge, the broker receivers and the load generator's wire legs
+            "sitewhere_tpu_torch.ingest.mqtt", "sitewhere_tpu_torch.ingest.wire_edge",
+            "sitewhere_tpu_torch.ingest.coap", "sitewhere_tpu_torch.ingest.amqp",
+            "sitewhere_tpu_torch.ingest.stomp", "sitewhere_tpu_torch.ingest.eventhub",
             } <= set(names.split())
 
 
@@ -314,6 +318,125 @@ def test_demo_worker_tp_step_and_sources_run_with_jax_blocked():
     out = json.loads(lines[-1])
     assert out["finite"] and out["processed"] == 2 and out["leaked"] == []
     assert len(out["routes"]) == 1
+
+
+_WIRE_PROBE = r"""
+import asyncio
+import json
+import struct
+import sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sitewhere_tpu")
+
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"BLOCKED: the port tried to import {name!r}")
+        return None
+
+sys.meta_path.insert(0, _Blocker())
+
+from sitewhere_tpu_torch.engine import Engine, EngineConfig
+from sitewhere_tpu_torch.ingest.amqp import AmqpBroker, AmqpClient, RabbitMqEventReceiver
+from sitewhere_tpu_torch.ingest.coap import POST, CoapClient, CoapServerEventReceiver
+from sitewhere_tpu_torch.ingest.decoders import JsonDeviceRequestDecoder
+from sitewhere_tpu_torch.ingest.eventhub import EventHub, EventHubEventReceiver
+from sitewhere_tpu_torch.ingest.mqtt import MqttBroker, MqttClient, MqttEventReceiver
+from sitewhere_tpu_torch.ingest.sources import EventSourcesManager, InboundEventSource
+from sitewhere_tpu_torch.ingest.stomp import ActiveMqBrokerEventReceiver, StompClient
+from sitewhere_tpu_torch.ingest.wire_edge import (SWP_MAGIC, WireBatcher, WireEdge,
+                                                  WireEdgeConfig)
+from sitewhere_tpu_torch.loadgen import WireLoadSpec, build_wire_schedule, run_wire_load
+from sitewhere_tpu_torch.utils.conservation import build_ledger, check_conservation
+
+eng = Engine(EngineConfig(device_capacity=64, token_capacity=128, assignment_capacity=128,
+                          store_capacity=1024, batch_capacity=16, channels=4), device="cpu")
+
+def msg(tok):
+    return json.dumps({"deviceToken": tok, "type": "DeviceMeasurement",
+                       "request": {"name": "t", "value": 1.0}}).encode()
+
+async def until(pred):
+    for _ in range(1000):
+        if pred():
+            return
+        await asyncio.sleep(0.01)
+    raise TimeoutError
+
+async def run():
+    out = {}
+    edge = WireEdge(eng, WireEdgeConfig(mqtt_port=0, tcp_port=0, flush_rows=4))
+    await edge.start()
+    res = await run_wire_load("127.0.0.1", edge.mqtt_port,
+                              build_wire_schedule(WireLoadSpec(4, 2, 4)))
+    r, w = await asyncio.open_connection("127.0.0.1", edge.tcp_port)
+    w.write(SWP_MAGIC + b" default json\n" + struct.pack("!I", 5) + b"{bad}"
+            + struct.pack("!I", 0))
+    await w.drain()
+    out["swp"] = struct.unpack("!BI", await r.readexactly(5))
+    w.close()
+    eng.flush()
+    out["wire_ok"] = check_conservation(build_ledger(eng)) == []
+    await edge.stop()
+    out["acked"] = res.acked
+    batcher = WireBatcher(eng, flush_rows=64, auto=False)
+    mgr = EventSourcesManager(eng.process, eng.process, batcher=batcher)
+    broker, amqp = MqttBroker(), AmqpBroker()
+    await broker.start()
+    await amqp.start()
+    hub = EventHub("h", partition_count=2)
+    recvs = {"mqtt": MqttEventReceiver("127.0.0.1", broker.bound_port, topic="in/#"),
+             "coap": CoapServerEventReceiver(),
+             "amqp": RabbitMqEventReceiver("127.0.0.1", amqp.bound_port, queue="q"),
+             "stomp": ActiveMqBrokerEventReceiver("b", "Q", num_consumers=1),
+             "hub": EventHubEventReceiver(hub)}
+    srcs = {k: mgr.add_source(InboundEventSource(k, JsonDeviceRequestDecoder(), [v]))
+            for k, v in recvs.items()}
+    await mgr.initialize()
+    await mgr.start()
+    pub = MqttClient("127.0.0.1", broker.bound_port, "p")
+    await pub.connect()
+    await pub.publish("in/a", msg("m"), qos=1)
+    coap = asyncio.ensure_future(CoapClient("127.0.0.1", recvs["coap"].bound_port).request(
+        POST, ["e"], msg("c")))
+    ap = AmqpClient("127.0.0.1", amqp.bound_port)
+    await ap.connect()
+    await ap.publish("", "q", msg("a"))
+    sp = StompClient("127.0.0.1", recvs["stomp"].bound_port)
+    await sp.connect()
+    await sp.send("/queue/Q", msg("s"))
+    hub.send(msg("h"), partition_key="h")
+    await until(lambda: sum(s.batched_count for s in srcs.values()) == 5)
+    batcher.flush()
+    out["coap"] = (await coap)["code"]
+    await pub.disconnect()
+    await ap.close()
+    await sp.disconnect()
+    await mgr.stop()
+    await broker.stop()
+    await amqp.stop()
+    batcher.close()
+    return out
+
+out = asyncio.run(run())
+eng.flush()
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+print(json.dumps({**out, "persisted": eng.metrics()["persisted"], "leaked": leaked}))
+"""
+
+
+def test_wire_edge_and_broker_receivers_run_with_jax_blocked():
+    """The wire edge (MQTT through ``run_wire_load``, SWP), the conservation
+    ledger's wire stage and the five broker receivers over one shared
+    ``WireBatcher`` into an engine run where jax and the JAX package cannot
+    be imported."""
+    res = subprocess.run([sys.executable, "-c", _WIRE_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, f"{res.stdout}\n{res.stderr}"
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["acked"] == 8 and out["swp"] == [6, 1] and out["wire_ok"]
+    assert out["coap"] == 0x41 and out["persisted"] == 13 and out["leaked"] == []
 
 
 _TRAIN_PROBE = r"""
