@@ -286,6 +286,33 @@ Phases, each printed as one JSON line:
              Prints events/s, publish p50/p99, connect s, KiB a
              connection, flush occupancy and the contrast on one
              ``edge:`` line.
+16. services — the entity and outbound services wired by hand over an
+             engine at the slice's sizes, as the JAX instance wires them:
+             10,000 devices through ``DeviceManagement.create_device``
+             under 16 sites, 8 customers and two device types; the read
+             phase's 64 zones of 16 vertices; 4096 command invocations
+             (meters to a local destination, trackers over MQTT on the
+             port's broker; the local one down for the first pump, the
+             undelivered retried once); a batch operation, a failing one
+             and a scheduled job on an injected clock; 8 rounds of one
+             location a device through the native decoder, the
+             ``ZoneMonitor`` pumped until the feed drains; a
+             ``ConnectorHost`` with an ``InMemoryConnector`` behind a
+             device-type and an area filter and a ``SearchIndexConnector``
+             over the same feed; a fixed set of searches; a QR matrix. (a)
+             A CPU engine with the same services runs the stream through
+             round 2 in a process of its own while the card runs: there
+             alerts and their order, deliveries, connector outputs, search
+             answers, batch elements, summaries, trees, every state leaf
+             and the mirrors must be identical; (b) the zones and every
+             pump's points on the card, one device-to-host copy a pump
+             with points; (c) a 2-shard ``DistributedEngine`` on the card
+             with a ``DistributedFeedConsumer`` and a
+             ``CommandDeliveryService`` (2048 devices) equal to its CPU
+             twin; (d) ms a ``create_device``, ms a zone pump and point x
+             zones a second, invocations delivered a second, connector
+             events a second, ms a search, with the card's name and power
+             limit, on one ``services:`` line.
 
 ``--profile`` adds torch.profiler breakdowns after the checks of the
 slice, train, read, transformer, transformer_train (one step by kernel
@@ -306,7 +333,9 @@ import argparse
 import asyncio
 import dataclasses
 import functools
+import hashlib
 import importlib.util
+import itertools
 import json
 import logging
 import math
@@ -321,6 +350,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -5369,6 +5399,506 @@ def phase_edge(device, log, fails, seed: int, config: dict = EDGE_CONFIG,
     return out
 
 
+# the services phase: the entity and outbound services wired by hand over
+# the slice engine's sizes (bench.py's headline engine), 10,000 devices
+# under areas, customers and two device types, the read phase's 64 zones,
+# 8 rounds of one location a device, 4096 command invocations and the
+# connectors over one feed; the CPU leg runs rounds 1..2 in a process of
+# its own while the card runs, and both are compared there
+SERVICES_CONFIG = dict(device_capacity=1 << 15, token_capacity=1 << 16,
+                       assignment_capacity=1 << 16, store_capacity=1 << 18,
+                       batch_capacity=16384)
+SERVICES_SPEC = dict(devices=10_000, rounds=8, checkpoint=2, invocations=4096,
+                     batch_devices=16, walk=0.08)
+# the mesh leg: tests/test_distributed.py:294 at 2048 devices over 2 shards
+SERVICES_MESH = dict(n_shards=2, device_capacity_per_shard=2048,
+                     token_capacity_per_shard=4096, assignment_capacity_per_shard=4096,
+                     store_capacity_per_shard=8192, batch_capacity_per_shard=1024)
+SERVICES_MESH_DEVICES = 2048
+SERVICES_MESH_INVOCATIONS = 256
+SERVICES_QUERIES = ("*:*", "type:ALERT", "type:LOCATION", "type:COMMAND_INVOCATION",
+                    "deviceToken:dev-00042", "type:ALERT deviceToken:dev-00007",
+                    "tenant:default type:LOCATION", "type:ALERT eventDateMs:[0 TO *]")
+SERVICES_FROZEN_S = 1_750_000_000.0     # the entity and batch stamps, pinned
+SERVICES_NOW_MS = 60_000                # the engines' pinned clock
+SERVICES_TIMEOUT_S = 600.0              # the CPU leg's process
+
+
+class PinnedServices:
+    """While inside, the entity and batch stamps read one instant and the
+    process-global invocation counter starts at 1: two runs of one stream
+    stamp and number alike."""
+
+    def __init__(self, P):
+        self.P = P
+        self.saved: list = []
+
+    def __enter__(self):
+        frozen = types.SimpleNamespace(time=lambda: SERVICES_FROZEN_S)
+        for name, attr, value in (("management.entities", "time", frozen),
+                                  ("management.batch", "time", frozen),
+                                  ("commands.model", "_invocation_ids", itertools.count(1))):
+            mod = self.P.mod(name)
+            self.saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, value)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for mod, attr, value in reversed(self.saved):
+            setattr(mod, attr, value)
+
+
+def _digest(obj) -> str:
+    return hashlib.sha256(json.dumps(obj, sort_keys=True, default=str).encode()).hexdigest()
+
+
+def _leaf_digests(state) -> dict:
+    """sha256 of every state leaf's bytes, with its dtype and shape."""
+    return {name: f"{leaf.dtype}{tuple(leaf.shape)}:" + hashlib.sha256(
+        leaf.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+        for name, leaf in _state_leaves(state)}
+
+
+def _service_mirrors(eng) -> dict:
+    m = eng.metrics()
+    return {"devices": {k: dataclasses.asdict(v) for k, v in eng.devices.items()},
+            "assignments": {k: dataclasses.asdict(v) for k, v in eng.assignments.items()},
+            "token_device": eng.token_device, "dead_letters": eng.dead_letters,
+            "tokens": [eng.tokens.token(i) for i in range(len(eng.tokens))],
+            "metrics": {k: m[k] for k in WIRE_CORE_METRICS if k in m}}
+
+
+def services_positions(seed: int, n: int, rounds: int, walk: float) -> np.ndarray:
+    """[rounds, n, 2] (lat, lon): a standard-normal start, where the read
+    phase's zones lie, then a seeded random walk of step ``walk``."""
+    rng = np.random.default_rng(seed + 31)
+    start = rng.standard_normal((n, 2))
+    walk = rng.normal(0.0, walk, (rounds, n, 2))
+    return start[None] + np.cumsum(walk, axis=0)
+
+
+def _location_json(token: str, lat: float, lon: float, ts_ms: int) -> bytes:
+    return json.dumps({"deviceToken": token, "type": "DeviceLocation",
+                       "request": {"latitude": lat, "longitude": lon, "elevation": 0.0,
+                                   "eventDate": ts_ms}}).encode()
+
+
+async def _drained(consumer, pump) -> list:
+    """``pump()`` until a call leaves the consumer's offsets where they
+    were: the feed is drained. Returns each call's result."""
+    def offsets() -> list[int]:
+        return [int(x) for x in np.ravel(consumer.offsets)]
+
+    out = []
+    while True:
+        before = offsets()
+        out.append(await pump())
+        if offsets() == before:
+            return out
+
+
+class _PointSpy:
+    """Wraps the zone monitor's ``points_in_zones``: where each call's
+    points and zones lie, and how many points it took."""
+
+    def __init__(self, zones_mod):
+        self.mod, self.fn, self.calls = zones_mod, zones_mod.points_in_zones, []
+
+    def __enter__(self):
+        def spy(points, verts, valid):
+            self.calls.append((str(points.device), str(verts.device), str(valid.device),
+                               int(points.shape[0])))
+            return self.fn(points, verts, valid)
+
+        self.mod.points_in_zones = spy
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.mod.points_in_zones = self.fn
+
+
+async def _services_leg(device, seed: int, config: dict, spec: dict, rounds: int) -> dict:
+    """One run of the services stream on ``device`` through round
+    ``rounds``: the answers at round ``spec["checkpoint"]`` and the run's
+    timings and counters."""
+    P = _parity.service_namespace("sitewhere_tpu_torch")
+    n = spec["devices"]
+    tokens = [f"dev-{i:05d}" for i in range(n)]
+    sites = [f"site-{r}-{k}" for r in range(4) for k in range(4)]
+    t = {}
+    with PinnedServices(P):
+        eng = Engine(EngineConfig(**config), device=device)
+        eng.epoch = PinnedEpoch(1e9, now_ms=SERVICES_NOW_MS)
+        s = _parity.wire_services(P, eng, index_events=False)
+        dm, zm = s.device_management, s.zone_monitor
+        dm.create_area_type("region", "Region", contained_area_types=["site"])
+        dm.create_area_type("site", "Site")
+        dm.create_customer_type("org", "Organization")
+        for r in range(4):
+            dm.create_area(f"region-{r}", "region", f"Region {r}")
+            for k in range(4):
+                dm.create_area(f"site-{r}-{k}", "site", f"Site {r}.{k}",
+                               parent_token=f"region-{r}")
+        for c in range(8):
+            dm.create_customer(f"cust-{c}", "org", f"Customer {c}",
+                               parent_token=None if c < 2 else f"cust-{c % 2}")
+        dm.create_device_type("meter", "Meter")
+        dm.create_device_type("tracker", "Tracker")
+        for i, bounds in enumerate(read_zones(seed)):
+            dm.create_zone(f"zone-{i:02d}", sites[i % 16], f"Zone {i}", bounds=bounds)
+        t0 = time.perf_counter()
+        for i, tok in enumerate(tokens):
+            dm.create_device(tok, "meter" if i % 2 else "tracker", area=sites[i % 16],
+                             customer=f"cust-{i % 8}")
+        _sync(device)
+        t["create_s"] = time.perf_counter() - t0
+
+        # the connectors read the feed from its start
+        sink = P.InMemoryConnector("sink", filters=[
+            P.DeviceTypeFilter(eng, ["meter"], "include"),
+            P.AreaFilter([eng.areas.lookup(a) for a in sites[:4]], "include")])
+        hosts = [P.ConnectorHost(eng, sink),
+                 P.ConnectorHost(eng, P.SearchIndexConnector("search", s.search_index))]
+        t["connector_s"], t["connector_events"] = 0.0, 0
+
+        async def pump_connectors() -> None:
+            t0 = time.perf_counter()
+            for h in hosts:
+                before = int(np.sum(h.consumer.offsets))
+                await _drained(h.consumer, h.pump)
+                t["connector_events"] += int(np.sum(h.consumer.offsets)) - before
+            t["connector_s"] += time.perf_counter() - t0
+
+        # commands: meters through the local destination, trackers over MQTT
+        local = P.LocalDeliveryProvider()
+        broker = P.MqttBroker()
+        await broker.start()
+        got_mqtt: list = []
+        sub = P.MqttClient("127.0.0.1", broker.bound_port, "services-devices")
+        await sub.connect()
+        sub.on_message = lambda topic, payload: got_mqtt.append((topic, payload))
+        await sub.subscribe("sitewhere/commands/#", 1)
+        cmd = s.commands
+        cmd.add_destination(P.CommandDestination(
+            "local", P.mqtt_topic_extractor(), P.JsonCommandExecutionEncoder(), local))
+        cmd.add_destination(P.CommandDestination(
+            "mqtt", P.mqtt_topic_extractor(), P.BinaryCommandExecutionEncoder(),
+            P.MqttDeliveryProvider("127.0.0.1", broker.bound_port)))
+        cmd.router = P.DeviceTypeMappingCommandRouter({"meter": "local", "tracker": "mqtt"})
+        cmd.registry.create(P.DeviceCommand(
+            token="reboot", device_type="meter", name="reboot",
+            parameters=(P.CommandParameter("delay", P.ParameterType.INT64, required=True),)))
+        cmd.registry.create(P.DeviceCommand(token="locate", device_type="tracker",
+                                            name="locate"))
+        t0 = time.perf_counter()
+        invs = [cmd.invoke(tokens[k % n], "reboot", {"delay": k % 60}) if k % 2
+                else cmd.invoke(tokens[k % n], "locate") for k in range(spec["invocations"])]
+        local.fail = True                  # the first pump finds the local sink down
+        pumped = [await cmd.pump()]
+        local.fail = False
+        undelivered = len(cmd.undelivered)
+        pumped += await _drained(cmd.consumer, cmd.pump)
+        retry = await cmd.retry_undelivered()
+        want_mqtt = sum(1 for k in range(spec["invocations"]) if k % 2 == 0)
+        for _ in range(1000):
+            if len(got_mqtt) >= want_mqtt:
+                break
+            await asyncio.sleep(0.005)
+        t["command_s"] = time.perf_counter() - t0
+        t["delivered"] = cmd.delivered_count
+
+        # batch operations and one scheduled job on an injected clock
+        meters = tokens[1:2 * spec["batch_devices"]:2]
+        s.batch.create_operation("op-reboot", "InvokeCommand", meters,
+                                 {"commandToken": "reboot", "parameterValues": {"delay": 5}})
+        op = await s.batch.process_operation("op-reboot")
+        s.batch.create_operation("op-bad", "InvokeCommand", meters[:4],
+                                 {"commandToken": "nope"})
+        bad = await s.batch.process_operation("op-bad")
+        s.scheduler.create_schedule("every-10s", "Every 10 s", "Simple", interval_s=10.0,
+                                    repeat_count=1)
+        s.scheduler.create_job("job-locate", "every-10s", "CommandInvocation",
+                               {"deviceToken": tokens[0], "commandToken": "locate"})
+        at = SERVICES_FROZEN_S * 1000
+        fired = [await s.scheduler.fire_due(at + dt) for dt in (0, 5_000, 10_000, 20_000)]
+        want_mqtt += sum(fired)
+        await pump_connectors()
+
+        # rounds of one location a device, the zone monitor pumped to the end
+        alerts: list = []
+        raise_alert = zm._alert
+
+        def _alert(token, kind, zone):
+            alerts.append((token, kind, zone))
+            raise_alert(token, kind, zone)
+
+        zm._alert = _alert
+        positions = services_positions(seed, n, spec["rounds"], spec["walk"])
+        base_ms = int(1e12)
+        t["zone_s"], raised, checkpoint = 0.0, [], None
+        for r in range(rounds):
+            eng.ingest_json_batch([_location_json(tok, float(positions[r, i, 0]),
+                                                  float(positions[r, i, 1]),
+                                                  base_ms + 1_000 * (r + 1))
+                                   for i, tok in enumerate(tokens)])
+            eng.flush()
+            t0 = time.perf_counter()
+            raised.append(await _drained(zm.consumer, zm.pump))
+            _sync(device)
+            t["zone_s"] += time.perf_counter() - t0
+            await pump_connectors()
+            if r + 1 == spec["checkpoint"]:
+                for _ in range(1000):
+                    if len(got_mqtt) >= want_mqtt:
+                        break
+                    await asyncio.sleep(0.005)
+                eng.flush()
+                checkpoint = {
+                    "alerts": list(alerts), "raised": [list(x) for x in raised],
+                    "membership": {d: sorted(z) for d, z in zm.membership.items()},
+                    "local": list(local.delivered), "mqtt": sorted(got_mqtt),
+                    "first_pump_undelivered": undelivered, "retry": retry,
+                    "pumped": pumped, "invocations": _parity.plain(invs[:64]),
+                    "undelivered": _parity.plain(cmd.undelivered),
+                    "batch": _parity.plain([op, bad, s.batch.failed_elements]),
+                    "fired": fired, "job": _parity.plain(s.scheduler.jobs.get("job-locate")),
+                    "sink": _parity.plain(sink.events),
+                    "search": {q: [s.search_index.search(q, 100),
+                                   s.search_index.search(q, 50, order="id")]
+                               for q in SERVICES_QUERIES},
+                    "summaries": _parity.plain([dm.get_device_summary(tok)
+                                                for tok in tokens[::97]]),
+                    "listing": _parity.plain(dm.list_devices(page=3, page_size=50,
+                                                             device_type="meter")),
+                    "trees": _parity.plain([dm.area_tree(), dm.customer_tree()]),
+                    # labels: the QR matrix only (the card machine has no PIL)
+                    "qr": P.qr_matrix(f"sitewhere://sitewhere-tpu/device/{tokens[0]}"),
+                    "state": _leaf_digests(eng.state),
+                    "mirrors": _digest(_service_mirrors(eng))}
+        t0 = time.perf_counter()
+        search_ms = {}
+        for q in SERVICES_QUERIES:
+            t1 = time.perf_counter()
+            s.search_index.search(q, 100)
+            search_ms[q] = (time.perf_counter() - t1) * 1e3
+        t["search_s"] = time.perf_counter() - t0
+        eng.flush()
+        _sync(device)
+        stored_alerts = eng.query_events(etype=EventType.ALERT, limit=1)["total"]
+        await sub.disconnect()
+        for dest in cmd.destinations.values():
+            await dest.stop()
+        await broker.stop()
+    return {"checkpoint": checkpoint, "timings": t, "search_ms": search_ms,
+            "raised": raised, "alerts": len(alerts), "stored_alerts": stored_alerts,
+            "zone_stats": dict(zm.stats), "verts": str(zm._verts.device),
+            "valid": str(zm._valid.device), "mqtt": len(got_mqtt), "want_mqtt": want_mqtt,
+            "local": len(local.delivered), "undelivered_first_pump": undelivered,
+            "retry": retry, "sink_events": len(sink.events),
+            "index_docs": len(s.search_index.docs), "batch_counts": op.counts(),
+            "fired": fired, "events": eng.metrics()["persisted"]}
+
+
+def services_leg(device, seed: int, config: dict = SERVICES_CONFIG,
+                 spec: dict = SERVICES_SPEC, rounds: int | None = None) -> dict:
+    """The services stream on ``device`` (see ``phase_services``)."""
+    return asyncio.run(_services_leg(torch.device(device), seed, config, spec,
+                                     spec["rounds"] if rounds is None else rounds))
+
+
+async def _mesh_leg(device, seed: int, config: dict, n_devices: int, n_inv: int) -> dict:
+    from sitewhere_tpu_torch.parallel.distributed import DistributedFeedConsumer
+
+    P = _parity.service_namespace("sitewhere_tpu_torch")
+    with PinnedServices(P):
+        eng = _dist_engine(device, **config)
+        rng = np.random.default_rng(seed + 37)
+        temps = rng.normal(20.0, 5.0, n_devices)
+        for lo in range(0, n_devices, 1024):
+            eng.ingest_json_batch([json.dumps({
+                "deviceToken": f"mesh-{i:05d}", "type": "DeviceMeasurements",
+                "request": {"measurements": {"temp.celsius": float(temps[i])}}}).encode()
+                for i in range(lo, min(lo + 1024, n_devices))])
+        eng.flush()
+        feed = DistributedFeedConsumer(eng, "grp", max_batch=1 << 16)
+        evs = feed.poll()
+        feed.commit(evs)
+        again = feed.poll()
+        svc = P.CommandDeliveryService(eng, P.SingleChoiceCommandRouter("local"))
+        svc.registry.create(P.DeviceCommand(token="ping", device_type="default",
+                                            name="ping"))
+        local = P.LocalDeliveryProvider()
+        svc.add_destination(P.CommandDestination(
+            "local", P.mqtt_topic_extractor(), P.JsonCommandExecutionEncoder(), local))
+        t0 = time.perf_counter()
+        invs = [svc.invoke(f"mesh-{i:05d}", "ping")
+                for i in range(0, n_devices, max(1, n_devices // n_inv))]
+        eng.flush()
+        pumped = await _drained(svc.consumer, svc.pump)
+        seconds = time.perf_counter() - t0
+        return {"answers": {"events": _parity.plain(evs), "again": len(again),
+                            "invocations": _parity.plain(invs), "pumped": pumped,
+                            "delivered": list(local.delivered),
+                            "state": _leaf_digests(eng.state),
+                            "mirrors": _digest(_service_mirrors(eng))},
+                "seconds": seconds, "delivered": svc.delivered_count,
+                "devices": [str(st.device_state.presence.device) for st in eng.shards]}
+
+
+def services_mesh_leg(device, seed: int, config: dict = SERVICES_MESH,
+                      n_devices: int = SERVICES_MESH_DEVICES,
+                      n_inv: int = SERVICES_MESH_INVOCATIONS) -> dict:
+    return asyncio.run(_mesh_leg(torch.device(device), seed, config, n_devices, n_inv))
+
+
+def services_cpu_legs(seed: int, config: dict, spec: dict, mesh: dict, mesh_devices: int,
+                      mesh_invocations: int) -> dict:
+    """The CPU legs, in a process of their own: the main stream through
+    round ``spec["checkpoint"]`` and the mesh leg."""
+    torch.set_num_threads(4)
+    logging.getLogger("sitewhere_tpu_torch.commands.service").setLevel(logging.ERROR)
+    t0 = time.perf_counter()
+    main = services_leg("cpu", seed, config, spec, rounds=spec["checkpoint"])
+    t1 = time.perf_counter()
+    mesh_out = services_mesh_leg("cpu", seed, mesh, mesh_devices, mesh_invocations)
+    return {"checkpoint": main["checkpoint"], "mesh": mesh_out["answers"],
+            "main_s": t1 - t0, "mesh_s": time.perf_counter() - t1}
+
+
+def _differing(a: dict, b: dict) -> list[str]:
+    """Keys of two answer dicts whose values differ (state leaves by name)."""
+    out = []
+    for k in sorted(set(a) | set(b)):
+        if k == "state" and isinstance(a.get(k), dict) and isinstance(b.get(k), dict):
+            out += [f"state.{n}" for n in sorted(set(a[k]) | set(b[k]))
+                    if a[k].get(n) != b[k].get(n)]
+        elif a.get(k) != b.get(k):
+            out.append(k)
+    return out
+
+
+def phase_services(device, log, fails, seed: int, config: dict = SERVICES_CONFIG,
+                   spec: dict = SERVICES_SPEC, mesh: dict = SERVICES_MESH,
+                   mesh_devices: int = SERVICES_MESH_DEVICES,
+                   mesh_invocations: int = SERVICES_MESH_INVOCATIONS) -> dict:
+    """The entity and outbound services over the card engine, wired by hand
+    as the JAX instance wires them: ``spec["devices"]`` devices created
+    through ``DeviceManagement.create_device`` under 16 sites of 4 regions,
+    8 customers in trees and two device types; the read phase's 64 zones;
+    ``spec["invocations"]`` command invocations (meters to a local
+    destination, trackers over MQTT on the port's broker; the local sink
+    down for the first pump, the undelivered retried once); a batch
+    operation, a failing one and a scheduled job fired on an injected
+    clock; ``spec["rounds"]`` rounds of one location a device through the
+    native decoder, the ``ZoneMonitor`` pumped until the feed drains; a
+    ``ConnectorHost`` with an ``InMemoryConnector`` behind a device-type
+    and an area filter and a ``SearchIndexConnector`` over the same feed,
+    and a fixed set of searches. (a) A CPU engine with the same services
+    runs the stream through round ``spec["checkpoint"]`` in a process of
+    its own while the card runs; at that round alerts and their order,
+    deliveries (payload bytes), connector outputs, search answers, batch
+    elements, summaries, trees, every state leaf and the mirrors must be
+    identical. (b) The zones and every pump's points lie on the card and a
+    pump with points makes one device-to-host copy. (c) The mesh engine:
+    a 2-shard ``DistributedEngine`` on the card with a
+    ``DistributedFeedConsumer`` and a ``CommandDeliveryService`` against
+    the same on the CPU. (d) ms a ``create_device``, ms a zone pump and
+    points x zones a second, invocations delivered a second, connector
+    events a second, ms a search."""
+    import concurrent.futures
+    import multiprocessing
+
+    from sitewhere_tpu_torch.outbound import zones as zones_mod
+
+    # the first pump's parked deliveries each log a warning
+    logging.getLogger("sitewhere_tpu_torch.commands.service").setLevel(logging.ERROR)
+    t_phase = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
+        host = pool.submit(services_cpu_legs, seed, config, spec, mesh, mesh_devices,
+                           mesh_invocations)
+        t0 = time.perf_counter()
+        with _PointSpy(zones_mod) as spy:
+            card = services_leg(str(device), seed, config, spec)
+        card_s = time.perf_counter() - t0
+        card_mesh = services_mesh_leg(str(device), seed, mesh, mesh_devices,
+                                      mesh_invocations)
+        cpu = host.result(timeout=SERVICES_TIMEOUT_S)
+    wait_s = time.perf_counter() - t0 - card_s - card_mesh["seconds"]
+    dev = str(device)
+    # (a) the card against the CPU at the checkpoint round
+    differ = _differing(cpu["checkpoint"], card["checkpoint"])
+    fails.check(not differ, f"services: (a) the card leg differs from the CPU leg at round "
+                            f"{spec['checkpoint']}: {differ[:12]}")
+    mesh_differ = _differing(cpu["mesh"], card_mesh["answers"])
+    fails.check(not mesh_differ, f"services: (c) the mesh engine on the card differs from "
+                                 f"the CPU's: {mesh_differ[:12]}")
+    # the run's own checks
+    fails.check(card["alerts"] > 0 and sum(map(sum, card["raised"])) == card["alerts"]
+                == card["stored_alerts"],
+                f"services: alerts raised {card['alerts']}, counted a pump "
+                f"{sum(map(sum, card['raised']))}, stored {card['stored_alerts']}")
+    fails.check(card["mqtt"] == card["want_mqtt"] and card["retry"]["stillUndelivered"] == 0
+                and card["undelivered_first_pump"] > 0,
+                f"services: MQTT deliveries {card['mqtt']} of {card['want_mqtt']}, first pump "
+                f"parked {card['undelivered_first_pump']}, retry {card['retry']}")
+    fails.check(card["batch_counts"].get("SUCCEEDED") == spec["batch_devices"]
+                and card["fired"] == [1, 0, 1, 0],
+                f"services: batch {card['batch_counts']}, schedule fires {card['fired']}")
+    # the filtered sink took meters (odd devices) of region 0's sites only
+    sink_idx = [int(e["device_token"][4:]) for e in card["checkpoint"]["sink"]]
+    fails.check(bool(sink_idx) and all(i % 2 == 1 and i % 16 < 4 for i in sink_idx),
+                f"services: the filtered connector took {len(sink_idx)} events, not only "
+                f"meters of region 0")
+    # (b) placement: every pump's points and the zones on the card, one copy a pump
+    stats = card["zone_stats"]
+    on_card = all(p == v == z == dev for p, v, z, _ in spy.calls)
+    fails.check(on_card and card["verts"] == card["valid"] == dev,
+                f"services: (b) zone arrays on {card['verts']}/{card['valid']}, points "
+                f"{sorted(set(c[:3] for c in spy.calls))[:4]}, not {dev}")
+    fails.check(stats["syncs"] == len(spy.calls) and stats["points"]
+                == sum(c[3] for c in spy.calls) > 0,
+                f"services: (b) {stats['syncs']} device-to-host copies for {len(spy.calls)} "
+                f"evaluations ({stats})")
+    fails.check(all(d == dev for d in card_mesh["devices"]),
+                f"services: (c) mesh shards on {card_mesh['devices']}, not {dev}")
+    t = card["timings"]
+    zone_pumps = sum(len(x) for x in card["raised"])
+    out = {"phase": "services", "config": config, "spec": spec,
+           "cpu_cut": f"the CPU leg ran rounds 1..{spec['checkpoint']} of {spec['rounds']} "
+                      f"(every step before the rounds whole); card and CPU compared there",
+           "identical_at_checkpoint": not differ, "mesh_identical": not mesh_differ,
+           "create_device_ms": t["create_s"] * 1e3 / spec["devices"],
+           "zone_pump_ms": t["zone_s"] * 1e3 / zone_pumps, "zone_pumps": zone_pumps,
+           "point_zones_per_s": stats["point_zones"] / t["zone_s"],
+           "points": stats["points"], "zone_syncs": stats["syncs"],
+           "alerts": card["alerts"],
+           "invocations_per_s": t["delivered"] / t["command_s"],
+           "invocations_delivered": t["delivered"], "mqtt_deliveries": card["mqtt"],
+           "local_deliveries": card["local"], "retry": card["retry"],
+           "connector_events_per_s": t["connector_events"] / t["connector_s"],
+           "connector_events": t["connector_events"], "sink_events": card["sink_events"],
+           "index_docs": card["index_docs"], "search_ms": card["search_ms"],
+           "search_ms_median": statistics.median(card["search_ms"].values()),
+           "events": card["events"],
+           "mesh": {"shards": mesh["n_shards"], "devices": mesh_devices,
+                    "invocations_per_s": card_mesh["delivered"] / card_mesh["seconds"],
+                    "delivered": card_mesh["delivered"]},
+           "card_leg_s": card_s, "mesh_leg_s": card_mesh["seconds"],
+           "cpu_leg_s": cpu["main_s"] + cpu["mesh_s"], "cpu_wait_s": max(0.0, wait_s),
+           "seconds": time.perf_counter() - t_phase}
+    if device.type == "cuda":
+        out["card"] = card_line()
+    emit(out, log)
+    print(f"services: {out['create_device_ms']:.3f} ms a create_device, zone pump "
+          f"{out['zone_pump_ms']:.2f} ms ({out['point_zones_per_s']:.3g} point-zones/s, "
+          f"{out['alerts']} alerts), {out['invocations_per_s']:.0f} invocations/s, "
+          f"{out['connector_events_per_s']:.0f} connector events/s, search "
+          f"{out['search_ms_median']:.2f} ms; card = CPU at round {spec['checkpoint']}; "
+          f"mesh card = CPU; {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 # the transformer configurations of fault C6 (head dims 128, 8, 48 and 64,
 # and float16 at D = 32, 64 and 128), each scored and trained one step on
 # the card
@@ -5675,6 +6205,7 @@ def main(argv=None) -> int:
     phase_multihost(device, log, fails)
     phase_sources(device, log, fails, args.seed)
     phase_edge(device, log, fails, args.seed)
+    phase_services(device, log, fails, args.seed)
     # window_features runs on three paths: the live scoring of the slice,
     # training on the live windows and the archive's analytics job
     by_path = {"window_features": {"slice": launches["window_features"],

@@ -330,6 +330,15 @@ class DeviceInfo:
     auto_registered: bool = False
 
 
+def local_device_info(engine, device_id: int, default=None):
+    """DeviceInfo for a device id of THIS engine: the lookup for records the
+    engine produced itself (feed records, analytics tables, dead letters).
+    A cluster facade answers from its local rank's mirror (``engine.local``)
+    and never fans out: the same integer names another device on every
+    rank."""
+    return getattr(engine, "local", engine).devices.get(device_id, default)
+
+
 @dataclasses.dataclass
 class AssignmentInfo:
     """Host-side assignment metadata; the hot columns live on device."""

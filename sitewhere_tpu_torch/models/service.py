@@ -152,9 +152,12 @@ class AnalyticsService:
         std = max(np.sqrt(self._score_m2 / self._score_n), 1e-6)
         z = (scores_np - self._score_mean) / std
         anomalous = valid_np & (z > self.threshold)
+        from sitewhere_tpu_torch.engine import local_device_info
+
         tokens = []
         for did in np.nonzero(anomalous)[0]:
-            info = self.engine.devices.get(int(did))
+            # analytics windows hold this engine's local device ids
+            info = local_device_info(self.engine, int(did))
             if info is not None:
                 tokens.append(info.token)
         return {

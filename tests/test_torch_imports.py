@@ -97,6 +97,19 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
             "sitewhere_tpu_torch.ingest.mqtt", "sitewhere_tpu_torch.ingest.wire_edge",
             "sitewhere_tpu_torch.ingest.coap", "sitewhere_tpu_torch.ingest.amqp",
             "sitewhere_tpu_torch.ingest.stomp", "sitewhere_tpu_torch.ingest.eventhub",
+            # the entity and outbound services
+            "sitewhere_tpu_torch.management.entities",
+            "sitewhere_tpu_torch.management.device_management",
+            "sitewhere_tpu_torch.management.assets", "sitewhere_tpu_torch.management.batch",
+            "sitewhere_tpu_torch.management.schedule",
+            "sitewhere_tpu_torch.management.streams", "sitewhere_tpu_torch.commands.model",
+            "sitewhere_tpu_torch.commands.encoders", "sitewhere_tpu_torch.commands.routing",
+            "sitewhere_tpu_torch.commands.destinations",
+            "sitewhere_tpu_torch.commands.service", "sitewhere_tpu_torch.connectors.base",
+            "sitewhere_tpu_torch.connectors.impl", "sitewhere_tpu_torch.connectors.aws",
+            "sitewhere_tpu_torch.connectors.multicast", "sitewhere_tpu_torch.search.index",
+            "sitewhere_tpu_torch.labels.qrcode", "sitewhere_tpu_torch.labels.manager",
+            "sitewhere_tpu_torch.outbound.zones",
             } <= set(names.split())
 
 
@@ -439,6 +452,165 @@ def test_wire_edge_and_broker_receivers_run_with_jax_blocked():
     assert out["coap"] == 0x41 and out["persisted"] == 13 and out["leaked"] == []
 
 
+_SERVICES_PROBE = r"""
+import asyncio
+import base64
+import json
+import sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sitewhere_tpu")
+
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"BLOCKED: the port tried to import {name!r}")
+        return None
+
+sys.meta_path.insert(0, _Blocker())
+
+from sitewhere_tpu_torch.commands.destinations import (CommandDestination,
+                                                       LocalDeliveryProvider,
+                                                       MqttDeliveryProvider,
+                                                       mqtt_topic_extractor)
+from sitewhere_tpu_torch.commands.encoders import (BinaryCommandExecutionEncoder,
+                                                   JsonCommandExecutionEncoder)
+from sitewhere_tpu_torch.commands.model import DeviceCommand
+from sitewhere_tpu_torch.commands.routing import DeviceTypeMappingCommandRouter
+from sitewhere_tpu_torch.commands.service import CommandDeliveryService
+from sitewhere_tpu_torch.connectors.aws import AwsCredentials, sigv4_headers
+from sitewhere_tpu_torch.connectors.base import (AreaFilter, ConnectorHost,
+                                                 DeviceTypeFilter, ScriptedFilter)
+from sitewhere_tpu_torch.connectors.impl import (EventHubConnector, InMemoryConnector,
+                                                 SearchIndexConnector)
+from sitewhere_tpu_torch.engine import Engine, EngineConfig
+from sitewhere_tpu_torch.ingest.decoders import JsonDeviceRequestDecoder
+from sitewhere_tpu_torch.ingest.eventhub import EventHub
+from sitewhere_tpu_torch.ingest.mqtt import MqttBroker, MqttClient
+from sitewhere_tpu_torch.labels.manager import LabelGeneratorManager
+from sitewhere_tpu_torch.labels.qrcode import qr_matrix
+from sitewhere_tpu_torch.management.assets import AssetManagement
+from sitewhere_tpu_torch.management.batch import (BatchCommandInvocationHandler,
+                                                  BatchOperationManager)
+from sitewhere_tpu_torch.management.device_management import DeviceManagement
+from sitewhere_tpu_torch.management.schedule import (ScheduleManager,
+                                                     command_invocation_executor)
+from sitewhere_tpu_torch.management.streams import DeviceStreamManager, DeviceStreamService
+from sitewhere_tpu_torch.outbound.zones import ZoneMonitor
+from sitewhere_tpu_torch.search.index import EventSearchIndex
+
+eng = Engine(EngineConfig(device_capacity=64, token_capacity=128, assignment_capacity=128,
+                          store_capacity=1024, batch_capacity=16, channels=4), device="cpu")
+dm = DeviceManagement(eng)
+dm.create_area_type("site", "Site")
+dm.create_area("plant", "site", "Plant")
+dm.create_device_type("meter", "Meter")
+dm.create_zone("fence", "plant", "Fence", bounds=[(0, 0), (0, 10), (10, 10), (10, 0)])
+for i in range(6):
+    dm.create_device(f"d{i}", "meter" if i % 2 else "default", area="plant")
+AssetManagement().create_asset_type("truck", "Truck")
+zm = ZoneMonitor(eng, dm)
+local = LocalDeliveryProvider()
+svc = CommandDeliveryService(eng, DeviceTypeMappingCommandRouter({"meter": "local"},
+                                                                 default="mqtt"))
+svc.registry.create(DeviceCommand(token="ping", device_type="meter", name="ping"))
+svc.add_destination(CommandDestination("local", mqtt_topic_extractor(),
+                                       JsonCommandExecutionEncoder(), local))
+streams = DeviceStreamService(DeviceStreamManager(), svc)
+index = EventSearchIndex()
+sink = InMemoryConnector("s", filters=[DeviceTypeFilter(eng, ["meter"]),
+                                       AreaFilter([eng.areas.lookup("plant")]),
+                                       ScriptedFilter(lambda e: False)])
+hosts = [ConnectorHost(eng, sink), ConnectorHost(eng, SearchIndexConnector("i", index))]
+batch = BatchOperationManager()
+batch.register_handler(BatchCommandInvocationHandler(svc))
+sched = ScheduleManager()
+sched.register_executor("CommandInvocation", command_invocation_executor(svc))
+sched.create_schedule("s", "S", "Simple", interval_s=1.0, repeat_count=0)
+sched.create_job("j", "s", "CommandInvocation", {"deviceToken": "d1", "commandToken": "ping"})
+dec = JsonDeviceRequestDecoder()
+
+def route(envelope):
+    for req in dec.decode(json.dumps(envelope).encode(), {}):
+        streams.handle_request(req) if streams.handles(req) else eng.process(req)
+
+async def run():
+    out = {}
+    broker = MqttBroker()
+    await broker.start()
+    svc.add_destination(CommandDestination("mqtt", mqtt_topic_extractor(),
+                                           BinaryCommandExecutionEncoder(),
+                                           MqttDeliveryProvider("127.0.0.1",
+                                                                broker.bound_port)))
+    svc.registry.create(DeviceCommand(token="blink", device_type="default", name="b"))
+    got = []
+    dev = MqttClient("127.0.0.1", broker.bound_port, "dev")
+    await dev.connect()
+    dev.on_message = lambda t, p: got.append(p)
+    await dev.subscribe("sitewhere/commands/#")
+    for i in range(6):
+        route({"deviceToken": f"d{i}", "type": "DeviceLocation",
+               "request": {"latitude": 5.0 if i < 3 else 50.0, "longitude": 5.0}})
+    route({"deviceToken": "d1", "type": "DeviceStream",
+           "request": {"streamId": "v", "contentType": "video/mjpeg"}})
+    route({"deviceToken": "d1", "type": "DeviceStreamData",
+           "request": {"streamId": "v", "sequenceNumber": 0,
+                       "data": base64.b64encode(b"f0").decode()}})
+    eng.flush()
+    out["alerts"] = await zm.pump()
+    svc.invoke("d1", "ping")
+    svc.invoke("d2", "blink")
+    out["pumped"] = await svc.pump()
+    op = batch.create_operation("op", "InvokeCommand", ["d3", "d5"], {"commandToken": "ping"})
+    out["batch"] = (await batch.process_operation("op")).counts()["SUCCEEDED"]
+    out["fired"] = await sched.fire_due(1_000_000.0)
+    for _ in range(200):
+        if got:
+            break
+        await asyncio.sleep(0.01)
+    eng.flush()
+    for h in hosts:
+        await h.pump()
+    await EventHubConnector("h", EventHub("o", partition_count=1)).process_event(sink.events[0])
+    await dev.disconnect()
+    for d in svc.destinations.values():
+        await d.stop()
+    await broker.stop()
+    out["mqtt"] = len(got)
+    return out
+
+out = asyncio.run(run())
+out.update(local=len(local.delivered), sink=len(sink.events),
+           hits=len(index.search("type:ALERT")), qr=len(qr_matrix("x")),
+           label=LabelGeneratorManager().list_generators()[0]["id"],
+           sig=sigv4_headers(AwsCredentials("a", "b"), "sqs", "POST", "https://q/x",
+                             b"", amz_date="20250101T000000Z")["x-amz-date"],
+           zones=str(zm._verts.device), syncs=zm.stats["syncs"],
+           stream=streams.manager.read_all("v").decode())
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+print(json.dumps({**out, "leaked": leaked}))
+"""
+
+
+def test_services_run_with_jax_blocked():
+    """The entity and outbound services wired by hand over one engine (device
+    management, assets, the zone monitor, command delivery over a local and
+    an MQTT destination, stream requests through ``DeviceStreamService``,
+    batch and schedule managers, the connectors with every filter kind, the
+    search index, labels and SigV4), their lazy imports included, run a
+    small stream where jax and the JAX package cannot be imported."""
+    res = subprocess.run([sys.executable, "-c", _SERVICES_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, f"{res.stdout}\n{res.stderr}"
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["alerts"] == 3 and out["syncs"] == 1 and out["zones"] == "cpu"
+    assert out["pumped"] == 2 and out["batch"] == 2 and out["fired"] == 1
+    assert out["local"] == 5 and out["mqtt"] >= 1 and out["stream"] == "f0"
+    assert out["sink"] > 0 and out["hits"] == 3 and out["qr"] == 21
+    assert out["label"] == "qrcode" and out["sig"] == "20250101T000000Z"
+    assert out["leaked"] == []
+
+
 _TRAIN_PROBE = r"""
 import json
 import math
@@ -615,6 +787,28 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+def test_services_on_a_default_engine_raise_without_a_gpu():
+    """``DeviceManagement`` and ``ZoneMonitor`` over an ``Engine()`` built
+    with no ``device`` ask for the card and raise without one, as every
+    entry point does; the CPU is used only when asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from sitewhere_tpu_torch.engine import Engine, EngineConfig
+    from sitewhere_tpu_torch.management.device_management import DeviceManagement
+    from sitewhere_tpu_torch.outbound.zones import ZoneMonitor
+
+    small = EngineConfig(device_capacity=8, token_capacity=8, assignment_capacity=8,
+                         store_capacity=64, batch_capacity=8)
+    for call in (lambda: DeviceManagement(Engine(small)),
+                 lambda: ZoneMonitor(Engine(small), None)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    eng = Engine(small, device="cpu")
+    zm = ZoneMonitor(eng, DeviceManagement(eng))
+    zm._refresh_zones()
+    assert zm.device == eng.device and zm._verts.device.type == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

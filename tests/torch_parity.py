@@ -10,8 +10,11 @@ equal too.
 from __future__ import annotations
 
 import dataclasses
+import enum
+import importlib
 import pathlib
 import pickle
+import types
 
 import numpy as np
 
@@ -361,3 +364,125 @@ def multihost_worker(rank: int, world: int) -> dict:
                     "distributed_sharded": [deng.sharded.n_shards, deng.sharded.n_local],
                     "buffer_shards": deng._buf.n_shards}
     return out
+
+
+# ------------------------------------------- the entity and outbound services
+
+# module -> the names each test reaches through the namespace
+SERVICE_NAMES = {
+    "core.events": ["EpochBase"],
+    "core.types": ["AlertLevel", "BatchElementStatus", "EventType"],
+    "engine": ["Engine", "EngineConfig", "local_device_info"],
+    "ingest.requests": ["DecodedRequest", "RequestType"],
+    "ingest.decoders": ["JsonDeviceRequestDecoder"],
+    "ingest.mqtt": ["MqttBroker", "MqttClient"],
+    "ingest.amqp": ["AmqpBroker", "AmqpClient"],
+    "ingest.eventhub": ["EventHub"],
+    "outbound.feed": ["OutboundEvent"],
+    "outbound.zones": ["ZoneMonitor"],
+    "management.entities": ["DuplicateToken", "EntityNotFound", "EntityStore",
+                            "build_tree", "entity_json", "paged_json"],
+    "management.device_management": ["AlarmState", "DeviceManagement", "Zone"],
+    "management.assets": ["AssetManagement"],
+    "management.batch": ["BatchCommandInvocationHandler", "BatchOperationManager"],
+    "management.schedule": ["CronExpression", "ScheduleManager",
+                            "batch_command_by_criteria_executor",
+                            "command_invocation_executor"],
+    "management.streams": ["DeviceStreamManager", "DeviceStreamService"],
+    "commands.model": ["CommandParameter", "DeviceCommand",
+                       "ParameterType", "SystemCommand", "SystemCommandType"],
+    "commands.encoders": ["BinaryCommandExecutionEncoder",
+                          "JsonCommandExecutionEncoder"],
+    "commands.routing": ["CommandRegistry", "DeviceTypeMappingCommandRouter",
+                         "SingleChoiceCommandRouter"],
+    "commands.destinations": ["CommandDestination", "DeliveryError",
+                              "LocalDeliveryProvider", "MqttDeliveryProvider",
+                              "mqtt_topic_extractor"],
+    "commands.service": ["CommandDeliveryService"],
+    "connectors.base": ["AreaFilter", "ConnectorHost", "DeviceTypeFilter",
+                        "ScriptedFilter"],
+    "connectors.impl": ["EventHubConnector", "HttpConnector", "InMemoryConnector",
+                        "MqttConnector", "RabbitMqConnector", "ScriptedConnector",
+                        "SearchIndexConnector", "SqsConnector"],
+    "connectors.aws": ["AwsCredentials", "sigv4_headers"],
+    "search.index": ["EventSearchIndex", "SearchProviderManager"],
+    "labels.qrcode": ["qr_matrix", "qr_png"],
+    "labels.manager": ["LabelGeneratorManager"],
+}
+
+
+def service_namespace(root: str) -> types.SimpleNamespace:
+    """The service classes of package ``root`` (``sitewhere_tpu`` or
+    ``sitewhere_tpu_torch``) as attributes, imported on call."""
+    ns = types.SimpleNamespace(root=root, port=root == "sitewhere_tpu_torch")
+    ns.mod = lambda name: importlib.import_module(f"{root}.{name}")
+    for mod, names in SERVICE_NAMES.items():
+        m = ns.mod(mod)
+        for n in names:
+            setattr(ns, n, getattr(m, n))
+    return ns
+
+
+def plain(x):
+    """``x`` with each package's classes reduced to their names: enums to
+    (class, member), dataclasses to their fields, numpy to Python."""
+    if isinstance(x, enum.Enum):
+        return ("enum", type(x).__name__, x.name)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {"__class__": type(x).__name__,
+                **{f.name: plain(getattr(x, f.name)) for f in dataclasses.fields(x)}}
+    if isinstance(x, dict):
+        return {plain(k): plain(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(plain(v) for v in x)
+    if isinstance(x, list):
+        return [plain(v) for v in x]
+    if isinstance(x, (set, frozenset)):
+        return sorted(plain(v) for v in x)
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+
+
+def wire_services(P, eng, index_events: bool = True) -> types.SimpleNamespace:
+    """The services as the JAX instance wires them over one engine
+    (``instance/instance.py``): device management, assets, streams and
+    labels, command delivery to destination ``"default"``, batch and
+    schedule managers with their executors, the search index behind a
+    connector, and the zone monitor. ``route`` sends a decoded request to
+    the stream service or to ``engine.process``."""
+    s = types.SimpleNamespace(engine=eng)
+    s.device_management = P.DeviceManagement(eng)
+    s.assets = P.AssetManagement()
+    s.streams = P.DeviceStreamManager()
+    s.labels = P.LabelGeneratorManager()
+    s.commands = P.CommandDeliveryService(eng, P.SingleChoiceCommandRouter("default"),
+                                          P.CommandRegistry())
+    s.stream_service = P.DeviceStreamService(s.streams, s.commands)
+    s.batch = P.BatchOperationManager()
+    s.batch.register_handler(P.BatchCommandInvocationHandler(s.commands))
+    s.scheduler = P.ScheduleManager()
+    s.scheduler.register_executor("CommandInvocation",
+                                  P.command_invocation_executor(s.commands))
+    s.scheduler.register_executor(
+        "BatchCommandByCriteria",
+        P.batch_command_by_criteria_executor(s.device_management, s.batch))
+    s.search = P.SearchProviderManager()
+    s.search_index = P.EventSearchIndex()
+    s.search.add_provider("embedded", s.search_index)
+    s.connector_hosts = []
+    if index_events:
+        s.connector_hosts.append(P.ConnectorHost(
+            eng, P.SearchIndexConnector("search-index", s.search_index)))
+    s.zone_monitor = P.ZoneMonitor(eng, s.device_management)
+
+    def route(req) -> None:
+        if s.stream_service.handles(req):
+            s.stream_service.handle_request(req)
+        else:
+            eng.process(req)
+
+    s.route = route
+    return s
