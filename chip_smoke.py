@@ -204,7 +204,8 @@ Phases, each printed as one JSON line:
              16 ``query_events`` over evicted time ranges equal a host
              oracle of the spooled columns plus the ring; (d) ``get_event``
              of evicted ids; (e) a feed consumer from offset 0 replays every
-             event once, again before a commit. One ``AnalyticsManager``
+             event once, in order, and the first 4 polls and the last again
+             before their commit. One ``AnalyticsManager``
              job scores every device's newest 128-step window from the
              archive, 256 devices a batch (window_features kernel ->
              normalization -> AnomalyModel, bf16; launch count reset just
@@ -313,6 +314,32 @@ Phases, each printed as one JSON line:
              zones a second, invocations delivered a second, connector
              events a second, ms a search, with the card's name and power
              limit, on one ``services:`` line.
+17. servers — the instance (``SiteWhereTpuInstance(..., device="cuda")``)
+             at the slice engine's sizes, its REST gateway over the port's
+             own HTTP layer and its RPC server on loopback, driven with the
+             port's stdlib client: JWTs, a construction-dataset tenant and
+             a configuration template, areas, customers, device types, 2048
+             devices over ``POST /api/devices``, a tenant config with a
+             socket source and an in-memory connector applied, hot-reloaded
+             and a bad one refused, 8 rounds of 16384 8-channel rows over
+             ``POST /api/events/batch`` (bodies under the 1 MiB limit),
+             command invocations delivered by the server's pump loop,
+             reads, the read phase's 64 zones and ``zone_contains``,
+             search, the instance documents, an RPC mix, then
+             ``run_rest_load`` at 5 x 100 and 32 x 8 (32 x 200 when the
+             phase runs alone: each post is one engine step) and the
+             analytics routes (window_features at [8192, 128, 100]). (a) A CPU
+             instance runs the script through batch round 2 in a process
+             of its own: every status and masked body, every state leaf
+             and the mirrors identical there; the REST scores within
+             ``SCORE_BF16`` of the plain window_features on the same
+             windows; (b) engine, state and ``zone_contains`` on the card,
+             window_features by profiler name, the version saying "gpu";
+             (c) an instance over a 2-shard ``DistributedEngine`` on the
+             card answers as its CPU twin; (d) requests a second with p50 /
+             p99, batch events a second, ms a device, RPC calls a second,
+             ms a ``zone_contains`` and of the analytics routes, on one
+             ``servers:`` line.
 
 ``--profile`` adds torch.profiler breakdowns after the checks of the
 slice, train, read, transformer, transformer_train (one step by kernel
@@ -331,6 +358,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import base64
 import dataclasses
 import functools
 import hashlib
@@ -2284,6 +2312,9 @@ ARCHIVE_DEVICES, ARCHIVE_BATCHES = 2048, 40
 ARCHIVE_JOB_DEVICES = 256
 ARCHIVE_QUERIES = 16
 ARCHIVE_FEED_BATCH = 16384
+# feed polls that are polled again before their commit (at-least-once):
+# the first few and the last (every one doubled the feed's 42 s on an H100)
+ARCHIVE_FEED_REPOLLS = 4
 # tests/test_torch_anomaly.py's bf16 tolerance: job scores against the
 # host rebuild scored with the plain window_features
 SCORE_BF16 = dict(rtol=1e-2, atol=1e-3)
@@ -2539,7 +2570,7 @@ def phase_archive(device, log, fails, seed: int, config: dict = ARCHIVE_CONFIG,
 
         # (e) the feed replays every event once, at least once before a commit
         consumer = eng.make_feed_consumer("replay", max_batch=feed_batch)
-        delivered, poll_s, feed_ok = 0, 0.0, True
+        delivered, poll_s, feed_ok, repolls = 0, 0.0, True, 0
         while True:
             t0 = time.perf_counter()
             evs = consumer.poll()
@@ -2547,18 +2578,21 @@ def phase_archive(device, log, fails, seed: int, config: dict = ARCHIVE_CONFIG,
             if not evs:
                 break
             ids_now = [e.event_id for e in evs]
-            again = consumer.poll()
-            feed_ok &= ([e.event_id for e in again] == ids_now
-                        and ids_now == list(range(delivered, delivered + len(evs)))
-                        and again[-1].values == [float(v) for v in all_vals[ids_now[-1]]])
+            feed_ok &= (ids_now == list(range(delivered, delivered + len(evs)))
+                        and evs[-1].values == [float(v) for v in all_vals[ids_now[-1]]])
+            if repolls < ARCHIVE_FEED_REPOLLS or delivered + len(evs) == head:
+                again = consumer.poll()
+                feed_ok &= [e.event_id for e in again] == ids_now
+                repolls += 1
+                del again
             consumer.commit(evs)
             delivered += len(evs)
-            del evs, again
+            del evs
         fails.check(feed_ok and delivered == head and consumer.lag_lost == 0
                     and consumer.offset == head,
                     f"archive (e): the feed delivered {delivered} of {head} events "
                     f"(in order and again before a commit: {feed_ok}, lag_lost {consumer.lag_lost})")
-        rec["feed"] = {"delivered": delivered, "max_batch": feed_batch,
+        rec["feed"] = {"delivered": delivered, "max_batch": feed_batch, "repolls": repolls,
                        "events_per_s": delivered / poll_s, "lag_lost": consumer.lag_lost}
 
         # the analytics job: every device's newest window, 256 devices a
@@ -5813,6 +5847,7 @@ def phase_services(device, log, fails, seed: int, config: dict = SERVICES_CONFIG
     # the first pump's parked deliveries each log a warning
     logging.getLogger("sitewhere_tpu_torch.commands.service").setLevel(logging.ERROR)
     t_phase = time.perf_counter()
+    threads = sorted(t.name for t in threading.enumerate())   # left by earlier phases
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
         host = pool.submit(services_cpu_legs, seed, config, spec, mesh, mesh_devices,
@@ -5896,6 +5931,659 @@ def phase_services(device, log, fails, seed: int, config: dict = SERVICES_CONFIG
           f"{out['connector_events_per_s']:.0f} connector events/s, search "
           f"{out['search_ms_median']:.2f} ms; card = CPU at round {spec['checkpoint']}; "
           f"mesh card = CPU; {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ------------------------------------------------------------------ servers
+# the instance at the slice engine's sizes (bench.py:100-104), its analytics
+# table at the slice phase's 8192 devices x 128 steps x 100 channels
+SERVERS_CONFIG = dict(SLICE_CONFIG)
+SERVERS_SPEC = dict(devices=2048, batch_rounds=8, batch_rows=16384, batch_names=8,
+                    batch_devices=1024, checkpoint=2, invocations=32, states=64,
+                    zone_points=2, rpc_devices=64, rpc_events=128,
+                    loads=((5, 100), (32, 200)), train_batch=256,
+                    # before the checkpoint (the CPU leg runs these too: a
+                    # single-event flush of this engine takes ~0.35 s there)
+                    cpu_invocations=16, cpu_rpc_devices=16, cpu_rpc_events=32)
+SERVERS_BODY_LIMIT = 1 << 20    # aiohttp's client_max_size, which the gateway keeps
+SERVERS_MASK = frozenset({"trace_id", "traceId", "authToken", "auth_token",
+                          "port", "backend", "deviceCount"})
+SERVERS_TIMEOUT_S = 600.0       # the CPU leg's process
+SERVERS_DEFAULT_CFG = {
+    "eventSources": [{"id": "sock", "type": "socket", "port": 0,
+                      "decoder": {"type": "json"}}],
+    "outboundConnectors": [{"id": "sink", "type": "inmemory"}],
+    "commandRouting": {"router": {"type": "single-choice", "destination": "local-dest"},
+                       "destinations": [{"id": "local-dest", "type": "local",
+                                         "encoder": {"type": "json"}}]}}
+# the hot reload: the source takes alternate-id dedup, the sink a filter
+SERVERS_RELOADED_CFG = {
+    **SERVERS_DEFAULT_CFG,
+    "eventSources": [dict(SERVERS_DEFAULT_CFG["eventSources"][0],
+                          deduplicator={"type": "alternate-id"})],
+    "outboundConnectors": [{"id": "sink", "type": "inmemory",
+                            "filters": [{"type": "device-type", "deviceTypes": ["meter"],
+                                         "operation": "include"}]}]}
+_JWT_RE = re.compile(r"^eyJ[\w-]+\.[\w-]+\.[\w-]+$")
+
+
+class PinnedServers(PinnedServices):
+    """``PinnedServices``, and the pins of ``tests/torch_parity.server_pins``
+    (the schedule, auth, tenant and script clocks at one instant, fixed JWT
+    secret, salts and tenant tokens, ``uuid.uuid4`` counting from 1): two
+    runs of one request script answer alike."""
+
+    def __enter__(self):
+        super().__enter__()
+        ids = itertools.count(1)
+        for mod, attr, value in _parity.server_pins(self.P, SERVICES_FROZEN_S,
+                                                    lambda: next(ids)):
+            self.saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, value)
+        return self
+
+
+def servers_mask(x):
+    """``x`` with the named fields (``SERVERS_MASK``: JWTs and tenant auth
+    tokens, trace ids, ports, the backend and the device count) and any
+    JWT string replaced by ``"<masked>"``."""
+    if isinstance(x, dict):
+        return {k: "<masked>" if k in SERVERS_MASK else servers_mask(v)
+                for k, v in x.items()}
+    if isinstance(x, list):
+        return [servers_mask(v) for v in x]
+    if isinstance(x, str) and _JWT_RE.match(x):
+        return "<masked>"
+    return x
+
+
+def servers_rows(rnd: int, spec: dict) -> list[dict]:
+    """Round ``rnd`` of the batch ingest: ``batch_rows`` DeviceMeasurements
+    envelopes of ``batch_names`` channels over the first ``batch_devices``
+    devices, seeded by the round, binary halves only (sums are exact)."""
+    rng = np.random.default_rng(1000 + rnd)
+    n, k = spec["batch_rows"], spec["batch_names"]
+    vals = np.round(rng.normal(20.0, 5.0, (n, k)) * 2) / 2
+    devs = np.arange(n) % spec["batch_devices"]
+    return [{"deviceToken": f"srv-{int(d):05d}", "type": "DeviceMeasurements",
+             "request": {"measurements": {f"m{j}": float(v[j]) for j in range(k)},
+                         "eventDate": 1_000_000_000_000 + rnd * 1000 + i // 1024}}
+            for i, (d, v) in enumerate(zip(devs, vals))]
+
+
+def _body_chunks(rows: list[dict], limit: int = SERVERS_BODY_LIMIT) -> list[bytes]:
+    """``rows`` as JSON array bodies, each under the gateway's body limit."""
+    out, cur, size = [], [], 2
+    for r in rows:
+        b = json.dumps(r).encode()
+        if cur and size + len(b) + 1 > limit:
+            out.append(b"[" + b",".join(cur) + b"]")
+            cur, size = [], 2
+        cur.append(b)
+        size += len(b) + 1
+    out.append(b"[" + b",".join(cur) + b"]")
+    return out
+
+
+def _feed_heads(eng) -> int:
+    eng.flush()
+    store = eng.state.store
+    return sum(arena_cursor(store, a) for a in range(store.arenas))
+
+
+async def _pumped(inst, timeout_s: float = 120.0) -> None:
+    """Wait until the server's pump loop has taken every persisted event
+    through command delivery, the zone monitor and every connector host."""
+    consumers = [inst.commands.consumer, inst.zone_monitor.consumer] + [
+        h.consumer for h in inst.connector_hosts]
+    t0 = time.perf_counter()
+    while True:
+        head = _feed_heads(inst.engine)
+        if all(c.offset >= head for c in consumers):
+            return
+        if time.perf_counter() - t0 > timeout_s:
+            raise TimeoutError(f"pumps stuck at {[c.offset for c in consumers]} of {head}")
+        await asyncio.sleep(0.02)
+
+
+class _Gateway:
+    """One leg's view of its gateway: every call's (step, method, path,
+    status, masked body) in ``log``; ``problems`` collects failed checks."""
+
+    def __init__(self, base: str, session, log: list, problems: list):
+        self.base, self.session, self.log, self.problems = base, session, log, problems
+        self.jwt = None
+
+    async def call(self, step: str, method: str, path: str, body=None, *, keep=None,
+                   expect: int | None = 200, headers=None, params=None, data=None,
+                   record: bool = True):
+        h = {"Authorization": f"Bearer {self.jwt}"} if self.jwt else {}
+        h.update(headers or {})
+        r = await self.session.request(method, self.base + path, json=body, data=data,
+                                       headers=h, params=params)
+        ct = r.headers.get("Content-Type", "")
+        doc = json.loads(r.body) if ct.startswith("application/json") else r.body
+        if record:
+            seen = keep(doc) if keep is not None else doc
+            self.log.append((step, method, path, r.status, ct,
+                             servers_mask(_parity.plain(seen))
+                             if not isinstance(seen, bytes) else seen.decode()))
+        if expect is not None and r.status != expect:
+            self.problems.append(f"{step}: {method} {path} answered {r.status}, not "
+                                 f"{expect}: {r.body[:200]!r}")
+        return r.status, doc
+
+
+def _families(text: bytes) -> list[str]:
+    return sorted(set(re.findall(r"^# TYPE (\S+)", text.decode(), re.M)))
+
+
+async def _servers_leg(device, seed: int, config: dict, spec: dict, full: bool) -> dict:
+    from sitewhere_tpu_torch.instance.instance import InstanceConfig, SiteWhereTpuInstance
+    from sitewhere_tpu_torch.loadgen import run_rest_load
+    from sitewhere_tpu_torch.rpc.server import build_instance_rpc
+    from sitewhere_tpu_torch.web import http
+    from sitewhere_tpu_torch.web.rest import start_server
+
+    P = _parity.service_namespace("sitewhere_tpu_torch")
+    log, problems, t, out = [], [], {}, {}
+    n = spec["devices"]
+    tokens = [f"srv-{i:05d}" for i in range(n)]
+    zones = read_zones(seed)
+    with PinnedServers(P):
+        inst = SiteWhereTpuInstance(InstanceConfig(engine=EngineConfig(**config),
+                                                   conservation_audit_s=0), device=device)
+        inst.engine.epoch = PinnedEpoch(1e9, now_ms=SERVICES_NOW_MS)
+        # the background analytics loop stays off (it would train and raise
+        # alerts at times of its own); the routes drive the service
+        service, inst.analytics = inst.analytics, None
+        server = await start_server(inst)
+        inst.analytics = service
+        rpc = build_instance_rpc(inst)
+        rpc_port = await rpc.start()
+        session = http.ClientSession()
+        gw = _Gateway(f"http://127.0.0.1:{server.port}", session, log, problems)
+        gw.rpc_port = rpc_port
+        zone_calls = []
+        try:
+            # --- auth and admin
+            basic = base64.b64encode(b"admin:password").decode()
+            _, body = await gw.call("auth", "GET", "/api/authapi/jwt",
+                                    headers={"Authorization": f"Basic {basic}"})
+            gw.jwt = body["token"]
+            bad = base64.b64encode(b"admin:wrong").decode()
+            await gw.call("auth", "GET", "/api/authapi/jwt", expect=401,
+                          headers={"Authorization": f"Basic {bad}"})
+            await gw.call("auth", "GET", "/api/devices", expect=401,
+                          headers={"Authorization": "Bearer x.y.z"})
+            _, templates = await gw.call("admin", "GET", "/api/tenants/templates/configuration")
+            await gw.call("admin", "GET", "/api/tenants/templates/dataset")
+            await gw.call("admin", "POST", "/api/tenants", expect=201, body={
+                "token": "acme", "name": "ACME", "datasetTemplate": "construction"})
+            tpl = next(x for x in templates if x["id"] == "default")
+            await gw.call("admin", "POST",
+                          "/api/microservices/event-sources/tenants/acme/configuration",
+                          {"configuration": tpl["configuration"]})
+            await gw.call("admin", "POST", "/api/areatypes", {"token": "region", "name": "R"},
+                          expect=201)
+            for a in range(4):
+                await gw.call("admin", "POST", "/api/areas", expect=201, body={
+                    "token": f"region-{a}", "areaTypeToken": "region", "name": f"R{a}"})
+            await gw.call("admin", "POST", "/api/customertypes", expect=201,
+                          body={"token": "fleet", "name": "Fleet"})
+            for c in range(8):
+                await gw.call("admin", "POST", "/api/customers", expect=201, body={
+                    "token": f"cust-{c}", "customerTypeToken": "fleet", "name": f"C{c}"})
+            for dt in ("meter", "tracker"):
+                await gw.call("admin", "POST", "/api/devicetypes", expect=201,
+                              body={"token": dt, "name": dt.title()})
+            await gw.call("admin", "POST", "/api/devicetypes/meter/commands", expect=201,
+                          body={"token": "ping", "name": "ping"})
+            t0 = time.perf_counter()
+            for i, tok in enumerate(tokens):
+                await gw.call("admin", "POST", "/api/devices", expect=201, body={
+                    "token": tok, "deviceTypeToken": "meter" if i % 2 else "tracker",
+                    "areaToken": f"region-{i % 4}", "customerToken": f"cust-{i % 8}"},
+                    record=i < 64)
+            t["create_s"] = time.perf_counter() - t0
+            cfg_url = "/api/microservices/event-sources/tenants/default/configuration"
+            await gw.call("config", "POST", cfg_url, {"configuration": SERVERS_DEFAULT_CFG})
+            await gw.call("config", "POST", cfg_url, {"configuration": SERVERS_RELOADED_CFG})
+            await gw.call("config", "POST", cfg_url, expect=400, body={
+                "configuration": {"eventSources": [{"id": "sock", "type": "bogus"}]}})
+            await gw.call("config", "GET", cfg_url)
+            # --- ingest: the batch rounds through the checkpoint
+            rounds = spec["batch_rounds"] if full else spec["checkpoint"]
+            t["batch_s"], t["batch_rows"] = 0.0, 0
+            for rnd in range(rounds):
+                if rnd == spec["checkpoint"]:
+                    out["checkpoint"] = await _servers_checkpoint(inst, gw, spec, zones,
+                                                                  zone_calls, t)
+                    await _servers_timed(inst, gw, spec, t)
+                chunks = _body_chunks(servers_rows(rnd, spec))
+                t0 = time.perf_counter()
+                for chunk in chunks:
+                    await gw.call(f"batch{rnd}", "POST", "/api/events/batch", data=chunk,
+                                  expect=201, headers={"Content-Type": "application/json"},
+                                  keep=lambda b: {k: v for k, v in b.items()
+                                                  if k != "trace_id"})
+                t["batch_s"] += time.perf_counter() - t0
+                t["batch_rows"] += spec["batch_rows"]
+                t["batch_posts"] = len(chunks)
+            if "checkpoint" not in out:
+                out["checkpoint"] = await _servers_checkpoint(inst, gw, spec, zones,
+                                                              zone_calls, t)
+            if full:
+                # --- the REST load and the analytics routes, once the
+                # pumps have indexed the batch rounds
+                await _pumped(inst)
+                loads = []
+                for workers, msgs in spec["loads"]:
+                    stats = await run_rest_load(gw.base, gw.jwt, n_workers=workers,
+                                                msgs_per_worker=msgs,
+                                                device_prefix=f"rest-{workers}")
+                    loads.append(dict(stats.to_dict(), workers=workers, msgs=msgs))
+                    if stats.events_failed:
+                        problems.append(f"rest load {workers}x{msgs}: "
+                                        f"{stats.events_failed} failed posts")
+                out["loads"] = loads
+                out["analytics"] = await _servers_analytics(inst, gw, spec, t)
+            out["state"] = _leaf_digests(inst.engine.state)
+            out["mirrors"] = _digest(_service_mirrors(inst.engine))
+            out["placement"] = {"engine": str(inst.engine.device),
+                                "state": sorted({str(x.device) for _, x in
+                                                 _state_leaves(inst.engine.state)})}
+        finally:
+            await session.close()
+            await rpc.stop()
+            await server.cleanup()
+    out.update(problems=problems, timings=t, zone_calls=zone_calls,
+               sink=len(inst.connector_hosts[-1].connector.events)
+               if inst.connector_hosts else 0)
+    return out
+
+
+async def _servers_checkpoint(inst, gw, spec, zones, zone_calls: list, t: dict) -> dict:
+    """The rest of the script up to the checkpoint: commands, reads, zones,
+    search, the instance documents and the RPC mix. Returns the log so far,
+    the state digests and the mirrors."""
+    from sitewhere_tpu_torch.ops import geofence
+
+    n = spec["devices"]
+    # --- commands: invocations over REST, delivered by the server's pump loop
+    await _servers_commands(inst, gw, 0, spec["cpu_invocations"])
+    await gw.call("commands", "GET", "/api/invocations/1")
+    # --- reads
+    await gw.call("reads", "GET", "/api/events", params={"pageSize": "100"})
+    for i in range(0, n, n // spec["states"]):
+        await gw.call("reads", "GET", f"/api/devices/srv-{i:05d}/state",
+                      expect=None)
+        await gw.call("reads", "GET", f"/api/devices/srv-{i:05d}/events",
+                      params={"pageSize": "16"})
+    await gw.call("reads", "POST", "/api/devicestates/search",
+                  {"deviceTokens": [f"srv-{i:05d}" for i in range(0, 64)]})
+    await gw.call("reads", "GET", "/api/devices", params={"pageSize": "50"})
+    await gw.call("reads", "GET", "/api/areas/tree")
+    # --- zones: the read phase's 64, each asked for its centre and a far point
+    for z, poly in enumerate(zones):
+        await gw.call("zones", "POST", "/api/zones", expect=201, body={
+            "token": f"zone-{z}", "areaToken": f"region-{z % 4}", "name": f"Z{z}",
+            "bounds": [{"latitude": la, "longitude": lo} for la, lo in poly]})
+    real = geofence.points_in_zones
+
+    def spy(points, verts, valid):
+        zone_calls.append((str(points.device), str(verts.device), str(valid.device)))
+        return real(points, verts, valid)
+
+    geofence.points_in_zones = spy
+    t0 = time.perf_counter()
+    try:
+        for z, poly in enumerate(zones):
+            lat = sum(p[0] for p in poly) / len(poly)
+            lon = sum(p[1] for p in poly) / len(poly)
+            for la, lo in ((lat, lon), (lat + 10.0, lon))[:spec["zone_points"]]:
+                await gw.call("zones", "GET", f"/api/zones/zone-{z}/contains",
+                              params={"latitude": repr(la), "longitude": repr(lo)})
+    finally:
+        geofence.points_in_zones = real
+    t["zone_s"] = time.perf_counter() - t0
+    t["zone_calls"] = len(zones) * spec["zone_points"]
+    # --- search, after the index connector has taken every event
+    await _pumped(inst)
+    t0 = time.perf_counter()
+    for q in ("*:*", "type:COMMAND_INVOCATION", "deviceToken:srv-00042"):
+        await gw.call("search", "GET", "/api/search/events", params={"q": q})
+    t["search_s"] = (time.perf_counter() - t0) / 3
+    # --- the instance documents
+    _, t["version"] = await gw.call("instance", "GET", "/api/system/version")
+    await gw.call("instance", "GET", "/api/instance/metrics/prometheus",
+                  keep=lambda b: [f for f in _families(b)
+                                  if f.startswith("swtpu_engine_")])
+    await gw.call("instance", "GET", "/api/instance/device/memory",
+                  keep=lambda b: sorted(b["components"]))
+    await gw.call("instance", "GET", "/api/instance/conservation",
+                  keep=lambda b: [b["balanced"], b["ledger"]["stages"]])
+    await gw.call("instance", "GET", "/api/instance/debug/bundle", keep=sorted)
+    # --- the RPC mix
+    answers, _, _ = await _servers_rpc(inst, gw, "rpc", spec["cpu_rpc_devices"],
+                                       spec["cpu_rpc_events"])
+    gw.log.append(("rpc", answers))
+    inst.engine.flush()
+    return {"log": list(gw.log), "state": _leaf_digests(inst.engine.state),
+            "mirrors": _digest(_service_mirrors(inst.engine)),
+            "delivered": inst.commands.delivered_count}
+
+
+async def _servers_timed(inst, gw, spec: dict, t: dict) -> None:
+    """Past the checkpoint, on the card only: invocations delivered by the
+    pump loop and the RPC mix, timed."""
+    first = spec["cpu_invocations"]
+    t["command_s"] = await _servers_commands(inst, gw, first, spec["invocations"])
+    t["delivered"] = inst.commands.delivered_count - first
+    _, t["rpc_calls"], t["rpc_s"] = await _servers_rpc(
+        inst, gw, "rpt", spec["rpc_devices"], spec["rpc_events"])
+
+
+async def _servers_commands(inst, gw, first: int, n: int) -> float:
+    """``n`` ping invocations over REST to the meters from the ``first``-th
+    on, delivered by the server's pump loop; returns the seconds until the
+    last one was delivered."""
+    t0 = time.perf_counter()
+    for i in range(first, first + n):
+        await gw.call("commands", "POST", f"/api/devices/srv-{2 * i + 1:05d}/invocations",
+                      {"commandToken": "ping"}, expect=201, record=i < 16)
+    await _pumped(inst)
+    return time.perf_counter() - t0
+
+
+async def _servers_rpc(inst, gw, prefix: str, n_dev: int, n_ev: int) -> tuple[list, int, float]:
+    """The RPC mix through ``RpcClient`` under the system JWT: ``n_dev``
+    devices created, ``n_ev`` events, state and event reads, a state search
+    and a device listing. Returns the masked answers, the calls and the
+    seconds."""
+    from sitewhere_tpu_torch.rpc.client import RpcClient
+    from sitewhere_tpu_torch.rpc.server import system_jwt
+
+    cli = await RpcClient(port=gw.rpc_port, tenant="default",
+                          auth_token=system_jwt(inst)).connect()
+    answers = []
+    t0 = time.perf_counter()
+    try:
+        async def rcall(method, **params):
+            res = await cli.call(method, **params)
+            answers.append((method, servers_mask(_parity.plain(res))))
+
+        for i in range(n_dev):
+            await rcall("DeviceManagement.createDevice", token=f"{prefix}-{i:04d}",
+                        deviceType="meter")
+        for i in range(n_ev):
+            await rcall("DeviceEventManagement.addDeviceEvent", envelope={
+                "deviceToken": f"{prefix}-{i % n_dev:04d}", "type": "DeviceMeasurement",
+                "request": {"name": "m0", "value": float(i % 7) / 2}})
+        for i in range(0, n_dev, max(1, n_dev // 16)):
+            await rcall("DeviceState.getDeviceState", token=f"{prefix}-{i:04d}")
+            await rcall("DeviceEventManagement.listDeviceEvents", token=f"{prefix}-{i:04d}")
+        await rcall("DeviceState.searchDeviceStates", presence="PRESENT")
+        await rcall("DeviceManagement.listDevices")
+    finally:
+        await cli.close()
+    return answers, len(answers), time.perf_counter() - t0
+
+
+async def _analytics_routes(gw, spec, t: dict | None) -> tuple:
+    """train, scores, detect over REST; with ``t``, each route's ms."""
+    out = []
+    for name, method, path, body in (
+            ("train", "POST", "/api/analytics/train",
+             {"batchSize": spec["train_batch"], "steps": 1}),
+            ("scores", "GET", "/api/analytics/scores", None),
+            ("detect", "POST", "/api/analytics/detect", None)):
+        t0 = time.perf_counter()
+        out.append((await gw.call("analytics", method, path, body, record=False))[1])
+        if t is not None:
+            t[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+    return tuple(out)
+
+
+async def _servers_analytics(inst, gw, spec, t) -> dict:
+    """The analytics routes twice: timed, then under torch.profiler (the
+    window_features kernel by name; a window whose first kernel is the
+    only one can come back without device records, so the window spans all
+    three routes). The timed pass's scores are held against the plain
+    window_features on the same windows through the same model, taken
+    before the profiled pass's train route steps the model on."""
+    svc = inst.analytics
+    wf.window_features.launches = 0
+    train, scores, detect = await _analytics_routes(gw, spec, t)
+    # the plain version on the model the scores route ran (detect does not
+    # step it; score_all is read-only here)
+    with svc._lock:
+        wins = svc._windows()
+        data = snapshot_windows(wins)
+        with torch.no_grad():
+            plain = _plain_scores(svc.model, data, wins.filled, svc.min_fill).float().cpu()
+    names = []
+    if torch.device(inst.engine.device).type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            await _analytics_routes(gw, spec, None)
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if "window_features" in e.key})
+    launches = wf.window_features.launches
+    by_token = {r["device"]: r["score"] for r in scores["results"]}
+    from sitewhere_tpu_torch.engine import local_device_info
+
+    got, ref = [], []
+    for did in range(plain.shape[0]):
+        info = local_device_info(inst.engine, did)
+        if info is not None and info.token in by_token:
+            got.append(by_token[info.token])
+            ref.append(float(plain[did]))
+    got, ref = np.array(got), np.array(ref)
+    return {"loss": train["loss"], "scored": scores["numResults"],
+            "alerts": detect["alertsEmitted"], "launches": launches,
+            "kernel_names": names, "shape": list(data.shape),
+            "score_err": float(np.max(np.abs(got - ref))) if got.size else None,
+            "scores_close": bool(got.size and np.allclose(got, ref, **SCORE_BF16)),
+            "compared": int(got.size)}
+
+
+def servers_leg(device, seed: int, config: dict = SERVERS_CONFIG,
+                spec: dict = SERVERS_SPEC, full: bool = True) -> dict:
+    """The servers script on ``device`` (see ``phase_servers``)."""
+    return asyncio.run(_servers_leg(torch.device(device), seed, config, spec, full))
+
+
+async def _servers_mesh(device, config: dict) -> dict:
+    """tests/test_distributed.py:217 over REST: an instance over a 2-shard
+    ``DistributedEngine``."""
+    from sitewhere_tpu_torch.instance.instance import InstanceConfig, SiteWhereTpuInstance
+    from sitewhere_tpu_torch.web import http
+    from sitewhere_tpu_torch.web.rest import start_server
+
+    P = _parity.service_namespace("sitewhere_tpu_torch")
+    log, problems = [], []
+    with PinnedServers(P):
+        deng = _dist_engine(device, **config)
+        inst = SiteWhereTpuInstance(InstanceConfig(), engine=deng)
+        server = await start_server(inst)
+        session = http.ClientSession()
+        gw = _Gateway(f"http://127.0.0.1:{server.port}", session, log, problems)
+        try:
+            basic = base64.b64encode(b"admin:password").decode()
+            _, body = await gw.call("mesh", "GET", "/api/authapi/jwt",
+                                    headers={"Authorization": f"Basic {basic}"})
+            gw.jwt = body["token"]
+            await gw.call("mesh", "POST", "/api/devices", {"token": "dr-1"}, expect=201)
+            await gw.call("mesh", "POST", "/api/devices/dr-1/events", expect=201, body={
+                "deviceToken": "dr-1", "type": "DeviceMeasurement",
+                "request": {"name": "temp", "value": 21.0}})
+            deng.flush()
+            _, st = await gw.call("mesh", "GET", "/api/devices/dr-1/state")
+            if st["measurements"]["temp"]["value"] != 21.0:
+                problems.append(f"mesh: state {st}")
+            await gw.call("mesh", "GET", "/api/events")
+            await gw.call("mesh", "PUT", "/api/devices/dr-1",
+                          {"deviceType": "default", "metadata": {"k": "v"}})
+            await gw.call("mesh", "POST", "/api/assignments", expect=201,
+                          body={"deviceToken": "dr-1", "token": "dr-1:x"})
+            await gw.call("mesh", "PUT", "/api/assignments/dr-1:x", {"assetToken": "pump"})
+            await gw.call("mesh", "POST", "/api/assignments/dr-1:x/missing")
+            await gw.call("mesh", "DELETE", "/api/assignments/dr-1:x")
+            evs = deng.make_feed_consumer("rest-ev").poll()
+            await gw.call("mesh", "GET", f"/api/events/id/{evs[0].event_id}")
+            deng.flush()
+        finally:
+            await session.close()
+            await server.cleanup()
+    return {"log": log, "problems": problems, "state": _leaf_digests(deng.state),
+            "mirrors": _digest(_service_mirrors(deng)),
+            "devices": sorted({str(s.device_state.presence.device) for s in deng.shards})}
+
+
+def servers_mesh_leg(device, config: dict = SERVICES_MESH) -> dict:
+    return asyncio.run(_servers_mesh(torch.device(device), config))
+
+
+def servers_cpu_legs(seed: int, config: dict, spec: dict, mesh: dict) -> dict:
+    """The CPU legs, in a process of their own: the script through the
+    checkpoint and the mesh case."""
+    torch.set_num_threads(4)
+    logging.getLogger("sitewhere_tpu_torch.commands.service").setLevel(logging.ERROR)
+    t0 = time.perf_counter()
+    main = servers_leg("cpu", seed, config, spec, full=False)
+    t1 = time.perf_counter()
+    mesh_out = servers_mesh_leg("cpu", mesh)
+    return {"checkpoint": main["checkpoint"], "problems": main["problems"],
+            "mesh": mesh_out, "main_s": t1 - t0, "mesh_s": time.perf_counter() - t1}
+
+
+def phase_servers(device, log, fails, seed: int, config: dict = SERVERS_CONFIG,
+                  spec: dict = SERVERS_SPEC, mesh: dict = SERVICES_MESH) -> dict:
+    """The servers: ``SiteWhereTpuInstance`` on the card at the slice
+    engine's sizes with its REST gateway (``web/rest.start_server`` over the
+    port's own HTTP layer) and its RPC server on loopback, driven with the
+    port's stdlib client by one seeded request script: the JWT flow; a
+    tenant with the construction dataset and the "default" configuration
+    template; areas, customers, device types; ``spec["devices"]`` devices
+    over ``POST /api/devices``; a tenant config with a socket event source
+    and an in-memory connector, applied, hot-reloaded and a bad one refused;
+    ``spec["batch_rounds"]`` rounds of ``POST /api/events/batch`` of
+    ``spec["batch_rows"]`` rows of 8 channels (bodies under the gateway's
+    1 MiB limit); command invocations delivered by the server's pump loop;
+    event, state and device-state-search reads; the read phase's 64 zones
+    and ``zone_contains`` at two points each; search; the version, the
+    exposition, the memory ledger, the conservation document and the debug
+    bundle; the RPC mix; then ``run_rest_load`` at ``spec["loads"]`` (5 x 100
+    and 32 x 200: each single-event POST is one engine step) and the
+    analytics routes (train, scores, detect: window_features at
+    [8192, 128, 100]). (a) A CPU instance runs the script through round
+    ``spec["checkpoint"]`` of the batch ingest in a process of its own;
+    every status and masked body (``SERVERS_MASK``) until there, every
+    state leaf and the mirrors must be identical; the analytics scores are
+    held to the plain window_features on the same windows (``SCORE_BF16``).
+    (b) The engine and its state on the card, ``zone_contains`` on the card,
+    window_features launched on the analytics routes (by profiler name),
+    ``/api/system/version`` saying "gpu". (c) An instance over a 2-shard
+    ``DistributedEngine`` on the card answers tests/test_distributed.py:217
+    as its CPU twin does. (d) REST requests a second with p50/p99 for both
+    loads, batch-ingest events a second, ms a ``POST /api/devices``, RPC
+    calls a second, ms a ``zone_contains``, ms of the analytics routes."""
+    import concurrent.futures
+    import multiprocessing
+
+    logging.getLogger("sitewhere_tpu_torch.commands.service").setLevel(logging.ERROR)
+    t_phase = time.perf_counter()
+    threads = sorted(t.name for t in threading.enumerate())   # left by earlier phases
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
+        host = pool.submit(servers_cpu_legs, seed, config, spec, mesh)
+        t0 = time.perf_counter()
+        card = servers_leg(str(device), seed, config, spec)
+        card_s = time.perf_counter() - t0
+        card_mesh = servers_mesh_leg(str(device), mesh)
+        cpu = host.result(timeout=SERVERS_TIMEOUT_S)
+    wait_s = time.perf_counter() - t0 - card_s
+    dev = str(device)
+    fails.extend(f"servers: {p}" for p in card["problems"] + card_mesh["problems"])
+    fails.extend(f"servers (CPU leg): {p}" for p in cpu["problems"] + cpu["mesh"]["problems"])
+    # (a) the card against the CPU at the checkpoint
+    a, b = cpu["checkpoint"], card["checkpoint"]
+    first = next((i for i, (x, y) in enumerate(zip(a["log"], b["log"])) if x != y), None)
+    fails.check(first is None and len(a["log"]) == len(b["log"]),
+                f"servers: (a) answer {first} differs from the CPU's: card "
+                f"{str(b['log'][first])[:300] if first is not None else len(b['log'])} / "
+                f"CPU {str(a['log'][first])[:300] if first is not None else len(a['log'])}")
+    differ = _differing({k: a[k] for k in ("state", "mirrors", "delivered")},
+                        {k: b[k] for k in ("state", "mirrors", "delivered")})
+    fails.check(not differ, f"servers: (a) the card's engine differs from the CPU's at "
+                            f"the checkpoint: {differ[:12]}")
+    an = card["analytics"]
+    fails.check(an["scores_close"] and an["compared"] > 0,
+                f"servers: (a) {an['compared']} REST scores against the plain "
+                f"window_features: max abs {an['score_err']}")
+    fails.check(an["loss"] is not None and an["scored"] > 0,
+                f"servers: train loss {an['loss']}, {an['scored']} scored")
+    # (b) placement
+    fails.check(card["placement"]["engine"] == dev and card["placement"]["state"] == [dev],
+                f"servers: (b) engine on {card['placement']}, not {dev}")
+    zc = card["zone_calls"]
+    fails.check(len(zc) == card["timings"]["zone_calls"]
+                and all(c == (dev, dev, dev) for c in zc),
+                f"servers: (b) zone_contains evaluated on {sorted(set(zc))[:3]} "
+                f"({len(zc)} calls), not {dev}")
+    fails.check(card["timings"]["version"]["backend"]
+                == ("gpu" if device.type == "cuda" else "cpu"),
+                f"servers: (b) /api/system/version says {card['timings']['version']}")
+    if device.type == "cuda":
+        fails.check(an["launches"] >= 3 and bool(an["kernel_names"]),
+                    f"servers: (b) {an['launches']} window_features launches on the "
+                    f"analytics routes, profiler names {an['kernel_names']}")
+    # (c) the mesh engine
+    mesh_differ = _differing({k: cpu["mesh"][k] for k in ("log", "state", "mirrors")},
+                             {k: card_mesh[k] for k in ("log", "state", "mirrors")})
+    fails.check(not mesh_differ, f"servers: (c) the mesh instance on the card differs "
+                                 f"from the CPU's: {mesh_differ[:12]}")
+    fails.check(card_mesh["devices"] == [dev],
+                f"servers: (c) mesh shards on {card_mesh['devices']}, not {dev}")
+    t = card["timings"]
+    loads = {f"{x['workers']}x{x['msgs']}": {
+        "requests_per_s": x["events_per_s"], "p50_ms": x["latency_p50_ms"],
+        "p99_ms": x["latency_p99_ms"], "failed": x["events_failed"]} for x in card["loads"]}
+    out = {"phase": "servers", "config": {k: v for k, v in config.items()}, "spec": spec,
+           "cpu_cut": f"the CPU leg ran the script through batch round {spec['checkpoint']} "
+                      f"of {spec['batch_rounds']} (every step before it whole; no REST load, "
+                      f"no analytics routes); card and CPU compared there",
+           "answers_compared": len(b["log"]), "identical_at_checkpoint": first is None
+           and not differ, "mesh_identical": not mesh_differ,
+           "version": card["timings"]["version"],
+           "rest_load": loads,
+           "batch_events_per_s": t["batch_rows"] / t["batch_s"],
+           "batch_posts_a_round": t["batch_posts"],
+           "create_device_ms": t["create_s"] * 1e3 / spec["devices"],
+           "rpc_calls_per_s": t["rpc_calls"] / t["rpc_s"], "rpc_calls": t["rpc_calls"],
+           "zone_contains_ms": t["zone_s"] * 1e3 / t["zone_calls"],
+           "search_ms": t["search_s"] * 1e3,
+           "invocations_delivered": t["delivered"],
+           "invocations_per_s": t["delivered"] / t["command_s"],
+           "analytics": {"train_ms": t["train_ms"], "scores_ms": t["scores_ms"],
+                         "detect_ms": t["detect_ms"], **an},
+           "sink_events": card["sink"],
+           "card_leg_s": card_s, "cpu_leg_s": cpu["main_s"] + cpu["mesh_s"],
+           "cpu_wait_s": max(0.0, wait_s), "threads_at_start": threads,
+           "seconds": time.perf_counter() - t_phase}
+    if device.type == "cuda":
+        out["card"] = card_line()
+    emit(out, log)
+    load_text = ", ".join(f"{k} {v['requests_per_s']:.0f} req/s (p50 {v['p50_ms']:.2f} / "
+                          f"p99 {v['p99_ms']:.2f} ms)" for k, v in loads.items())
+    print(f"servers: REST load {load_text}, batch {out['batch_events_per_s']:.0f} events/s, {out['create_device_ms']:.2f} ms "
+          f"a device, {out['rpc_calls_per_s']:.0f} RPC calls/s, zone_contains "
+          f"{out['zone_contains_ms']:.2f} ms, scores {t['scores_ms']:.1f} ms; card = CPU at "
+          f"round {spec['checkpoint']}; mesh card = CPU; {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -6165,14 +6853,25 @@ def main(argv=None) -> int:
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
                              "--format=csv,noheader", "--id=0"],
                             capture_output=True, text=True, timeout=60).stdout.strip()
+    walls: dict = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            walls[name] = time.perf_counter() - t0
+
     emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0), "nvidia_smi": card,
           "sm_clock_max_and_now": clocks}, log)
-    phase_build(log, fails)
-    timing = {"window_features": phase_kernel_window_features(device, log, fails),
-              "flash_attention": phase_kernel_flash(device, log, fails),
-              "flash_attention_backward": phase_kernel_flash_backward(device, log, fails)}
-    c6 = phase_kernel_flash_c6(device, log, fails)
+    timed("build", phase_build, log, fails)
+    timing = {"window_features": timed("kernel_window_features",
+                                       phase_kernel_window_features, device, log, fails),
+              "flash_attention": timed("kernel_flash", phase_kernel_flash, device, log, fails),
+              "flash_attention_backward": timed("kernel_flash_backward",
+                                                phase_kernel_flash_backward, device, log, fails)}
+    c6 = timed("kernel_flash_c6", phase_kernel_flash_c6, device, log, fails)
     for name, part in (("flash_attention", "forward"), ("flash_attention_backward", "backward")):
         timing[name]["at_head_dim_128_bf16"] = c6["timings"]["main_d128_bf16"][part]
         timing[name]["float16"] = c6["timings"]["main_f16"][part]
@@ -6186,31 +6885,38 @@ def main(argv=None) -> int:
         k: v for k, v in c6["ptxas"].items() if k.startswith("flash_bwd")}
     timing["flash_attention"]["ptxas_wgmma_f16"] = {
         k: v for k, v in c6["ptxas"].items() if k.startswith("flash_attention")}
-    phase_entry(device, log, fails)
-    launches, slice_step_ms, slice_eng = phase_slice(device, log, fails, args.seed,
-                                                     SLICE_BATCHES, profile=args.profile)
-    train = phase_train(device, log, fails, args.seed, slice_eng, profile=args.profile)
+    timed("entry", phase_entry, device, log, fails)
+    launches, slice_step_ms, slice_eng = timed("slice", phase_slice, device, log, fails,
+                                               args.seed, SLICE_BATCHES, profile=args.profile)
+    train = timed("train", phase_train, device, log, fails, args.seed, slice_eng,
+                  profile=args.profile)
     del slice_eng
-    launches = launches | phase_transformer(device, log, fails, args.seed,
-                                            profile=args.profile)
-    tt = phase_transformer_train(device, log, fails, args.seed, profile=args.profile)
-    tc6 = phase_transformer_c6(device, log, fails, args.seed)
-    phase_read(device, log, fails, args.seed, slice_step_ms, profile=args.profile)
-    phase_wire(device, log, fails, args.seed, profile=args.profile)
-    phase_sharded(device, log, fails, args.seed)
-    phase_distributed(device, log, fails, args.seed)
-    archive = phase_archive(device, log, fails, args.seed, profile=args.profile)
-    phase_hostplane(device, log, fails, args.seed, profile=args.profile)
-    phase_anomaly_tp(device, log, fails, args.seed)
-    phase_multihost(device, log, fails)
-    phase_sources(device, log, fails, args.seed)
-    phase_edge(device, log, fails, args.seed)
-    phase_services(device, log, fails, args.seed)
-    # window_features runs on three paths: the live scoring of the slice,
-    # training on the live windows and the archive's analytics job
+    launches = launches | timed("transformer", phase_transformer, device, log, fails,
+                                args.seed, profile=args.profile)
+    tt = timed("transformer_train", phase_transformer_train, device, log, fails, args.seed,
+               profile=args.profile)
+    tc6 = timed("transformer_c6", phase_transformer_c6, device, log, fails, args.seed)
+    timed("read", phase_read, device, log, fails, args.seed, slice_step_ms,
+          profile=args.profile)
+    timed("wire", phase_wire, device, log, fails, args.seed, profile=args.profile)
+    timed("sharded", phase_sharded, device, log, fails, args.seed)
+    timed("distributed", phase_distributed, device, log, fails, args.seed)
+    archive = timed("archive", phase_archive, device, log, fails, args.seed,
+                    profile=args.profile)
+    timed("hostplane", phase_hostplane, device, log, fails, args.seed, profile=args.profile)
+    timed("anomaly_tp", phase_anomaly_tp, device, log, fails, args.seed)
+    timed("multihost", phase_multihost, device, log, fails)
+    timed("sources", phase_sources, device, log, fails, args.seed)
+    timed("edge", phase_edge, device, log, fails, args.seed)
+    timed("services", phase_services, device, log, fails, args.seed)
+    servers = timed("servers", phase_servers, device, log, fails, args.seed)
+    # window_features runs on four paths: the live scoring of the slice,
+    # training on the live windows, the archive's analytics job and the
+    # REST gateway's analytics routes
     by_path = {"window_features": {"slice": launches["window_features"],
                                    "train": train["window_features"],
-                                   "archive": archive["launches"]},
+                                   "archive": archive["launches"],
+                                   "servers": servers["analytics"]["launches"]},
                "flash_attention": {"transformer": launches["flash_attention"],
                                    "transformer_train": tt["flash_attention"],
                                    "transformer_c6": tc6["flash_attention"]},
@@ -6219,6 +6925,7 @@ def main(argv=None) -> int:
                    "transformer_c6": tc6["flash_attention_backward"]}}
     timing["window_features"]["at_archive_job_shape"] = {
         k: archive[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+    emit({"phase": "walls", "seconds": walls, "phases_s": sum(walls.values())}, log)
     kernels = [dict(k, launches=sum(by_path[k["name"]].values()),
                     launches_by_path=by_path[k["name"]], **timing[k["name"]])
                for k in KERNELS]

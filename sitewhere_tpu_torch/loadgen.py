@@ -1,6 +1,6 @@
 """Load generator (port of ``sitewhere_tpu/loadgen.py``: the closed-loop
 load of the wire-ingest path, the open-loop part and the persistent-
-connection wire mode; the REST load waits for the port's servers).
+connection wire mode, and the REST load).
 
 * ``run_engine_load`` generates the canonical DeviceRequest measurement
   JSON and drives the engine's native host path — payload bytes -> native
@@ -15,6 +15,8 @@ connection wire mode; the REST load waits for the port's servers).
   against a ``WireEdge``, each publishing its own seeded frames at QoS 1
   (every publish awaits its WAL-durable PUBACK);
   ``wire_schedule_fingerprint`` pins the frames.
+* ``run_rest_load``: N concurrent workers posting M measurements each to
+  the REST gateway over the port's own HTTP client.
 * ``main``: ``python -m sitewhere_tpu_torch.loadgen [--open-loop]
   [--shards N] [--device cuda|cpu]`` builds an ``Engine`` (or an
   ``SpmdEngine``) on the card unless asked for the CPU.
@@ -771,6 +773,40 @@ async def run_wire_load(host: str, port: int,
         connect_s=round(connect_s, 3),
         per_connection_bytes=round(per_conn, 1),
         publish_p50_ms=pct["p50_ms"], publish_p99_ms=pct["p99_ms"])
+
+
+async def run_rest_load(base_url: str, jwt: str, n_workers: int = 5,
+                        msgs_per_worker: int = 100,
+                        device_prefix: str = "rest-lg") -> LoadStats:
+    """Wire-level driver: N concurrent workers x M posts each (the 5x100
+    pattern of EventSourceTests.java:50-53) against /api/devices/{t}/events,
+    over the port's own HTTP client (``web/http.py``: one keep-alive
+    session, as the JAX package's ``aiohttp.ClientSession``)."""
+    from sitewhere_tpu_torch.web.http import ClientSession
+
+    latencies: list[float] = []
+    failed = 0
+    headers = {"Authorization": f"Bearer {jwt}"}
+
+    async def worker(w: int, session: ClientSession):
+        nonlocal failed
+        token = f"{device_prefix}-{w}"
+        for i in range(msgs_per_worker):
+            body = json.loads(generate_measurements_message(token, i))
+            s0 = time.perf_counter()
+            r = await session.post(f"{base_url}/api/devices/{token}/events",
+                                   json=body, headers=headers)
+            if r.status != 201:
+                failed += 1
+            latencies.append((time.perf_counter() - s0) * 1e3)
+
+    t0 = time.perf_counter()
+    async with ClientSession() as session:
+        await asyncio.gather(*(worker(w, session) for w in range(n_workers)))
+    wall = time.perf_counter() - t0
+    sent = n_workers * msgs_per_worker
+    p50, p99, mx = _percentiles(latencies)
+    return LoadStats(sent, sent - failed, failed, wall, sent / wall, p50, p99, mx)
 
 
 def main(argv=None) -> None:

@@ -723,6 +723,24 @@ def debug_bundle(engine) -> dict:
             "queries": arch.queries,
             "plannerCalls": arch.planner_calls,
         }
+    try:
+        from sitewhere_tpu_torch.parallel.replication import (
+            cluster_health_payload)
+
+        bundle["replication"] = cluster_health_payload(engine)
+    except Exception:
+        pass
+    fq = getattr(engine, "forward_queue", None)
+    if fq is not None:
+        bundle["forward"] = fq.metrics()
+    # elastic placement: the installed map epoch, per-range handoff
+    # state, and the guard counters
+    pm = getattr(engine, "placement", None)
+    if pm is not None:
+        try:
+            bundle["placement"] = pm.payload()
+        except Exception as e:
+            bundle["placement"] = {"error": repr(e)}
     qos = getattr(engine, "qos", None)
     if qos is not None:
         bundle["qos"] = {"shedThreshold": qos.shed_threshold,
@@ -736,6 +754,15 @@ def debug_bundle(engine) -> dict:
         bundle["conservation"] = conservation_payload(engine)
     except Exception as e:
         bundle["conservation"] = {"error": repr(e)}
+    # shard heat & skew plane: per-shard flow, the heat maps, and the
+    # skew posture — a non-SPMD engine answers {"spmd": False}. Never
+    # takes the bundle down with it.
+    try:
+        from sitewhere_tpu_torch.utils.shardobs import spmd_heat_payload
+
+        bundle["spmd"] = spmd_heat_payload(engine)
+    except Exception as e:
+        bundle["spmd"] = {"error": repr(e)}
     # device plane: the memory-ledger breakdown (a PEEK —
     # high-watermarks stay armed for the next scrape) plus per-family
     # compile posture, so one bundle answers "what is resident and what

@@ -110,7 +110,104 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
             "sitewhere_tpu_torch.connectors.multicast", "sitewhere_tpu_torch.search.index",
             "sitewhere_tpu_torch.labels.qrcode", "sitewhere_tpu_torch.labels.manager",
             "sitewhere_tpu_torch.outbound.zones",
+            # the servers
+            "sitewhere_tpu_torch.instance.auth", "sitewhere_tpu_torch.instance.tenants",
+            "sitewhere_tpu_torch.instance.instance", "sitewhere_tpu_torch.config",
+            "sitewhere_tpu_torch.rpc.protocol", "sitewhere_tpu_torch.rpc.client",
+            "sitewhere_tpu_torch.rpc.server", "sitewhere_tpu_torch.web.http",
+            "sitewhere_tpu_torch.web.rest", "sitewhere_tpu_torch.parallel.replication",
             } <= set(names.split())
+
+
+_SERVERS_PROBE = r"""
+import asyncio
+import base64
+import importlib
+import json
+import pkgutil
+import sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sitewhere_tpu", "aiohttp")
+
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"BLOCKED: the port tried to import {name!r}")
+        return None
+
+sys.meta_path.insert(0, _Blocker())
+
+import sitewhere_tpu_torch
+
+failures = []
+for m in pkgutil.walk_packages(sitewhere_tpu_torch.__path__, "sitewhere_tpu_torch."):
+    try:
+        importlib.import_module(m.name)
+    except BaseException as e:
+        failures.append(f"{m.name}: {type(e).__name__}: {e}")
+
+from sitewhere_tpu_torch.engine import EngineConfig
+from sitewhere_tpu_torch.instance.instance import InstanceConfig, SiteWhereTpuInstance
+from sitewhere_tpu_torch.rpc.client import RpcClient
+from sitewhere_tpu_torch.rpc.server import build_instance_rpc, system_jwt
+from sitewhere_tpu_torch.web import http
+from sitewhere_tpu_torch.web.rest import start_server
+
+
+async def main():
+    inst = SiteWhereTpuInstance(InstanceConfig(engine=EngineConfig(
+        device_capacity=64, token_capacity=128, assignment_capacity=128,
+        store_capacity=1024, batch_capacity=16, channels=4)), device="cpu")
+    server = await start_server(inst)
+    rpc = build_instance_rpc(inst)
+    rpc_port = await rpc.start()
+    base = f"http://127.0.0.1:{server.port}"
+    out = {}
+    try:
+        async with http.ClientSession() as s:
+            basic = base64.b64encode(b"admin:password").decode()
+            r = await s.get(base + "/api/authapi/jwt",
+                            headers={"Authorization": f"Basic {basic}"})
+            h = {"Authorization": f"Bearer {(await r.json())['token']}"}
+            r = await s.post(base + "/api/devices", json={"token": "imp-1"}, headers=h)
+            out["create"] = r.status
+            r = await s.post(base + "/api/devices/imp-1/events", headers=h, json={
+                "type": "DeviceMeasurement", "request": {"name": "t", "value": 2.5}})
+            out["event"] = r.status
+            r = await s.get(base + "/api/devices/imp-1/state", headers=h)
+            out["value"] = (await r.json())["measurements"]["t"]["value"]
+            r = await s.get(base + "/api/system/version", headers=h)
+            out["backend"] = (await r.json())["backend"]
+        cli = await RpcClient(port=rpc_port, auth_token=system_jwt(inst)).connect()
+        out["rpc"] = (await cli.call("DeviceManagement.listDevices"))["numResults"]
+        await cli.close()
+    finally:
+        await rpc.stop()
+        await server.cleanup()
+    return out
+
+
+out = asyncio.run(main())
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+if leaked:
+    failures.append(f"blocked modules present: {leaked}")
+print(json.dumps(out))
+print("\n".join(failures))
+sys.exit(1 if failures else 0)
+"""
+
+
+def test_servers_serve_with_jax_and_aiohttp_blocked():
+    """Every module imports, and a REST round trip (over the port's own
+    HTTP client) and an RPC call run, where importing ``jax``, anything of
+    ``sitewhere_tpu`` or ``aiohttp`` raises: the card machine has none."""
+    res = subprocess.run([sys.executable, "-c", _SERVERS_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, f"{res.stdout}\n{res.stderr}"
+    out = json.loads(res.stdout.splitlines()[0])
+    assert out == {"create": 201, "event": 201, "value": 2.5, "backend": "cpu",
+                   "rpc": 1}
 
 
 _SHARDED_PROBE = r"""

@@ -181,9 +181,11 @@ def test_debug_bundle_over_the_ported_planes():
     eng.flush()
     b = ttr.debug_bundle(eng)
     for key in ("config", "prometheus", "metrics", "flights", "slowestTraces",
-                "spans", "spanStats", "qos", "conservation", "device"):
+                "spans", "spanStats", "qos", "conservation", "device",
+                "replication", "spmd"):
         assert key in b, key
     assert b["conservation"]["balanced"] and b["device"]["compileFamilies"] == {}
+    assert b["replication"] == {"clustered": False} and b["spmd"] == {"spmd": False}
     assert "swtpu_engine_processed" in b["prometheus"]
     json.dumps(b, default=str)
 

@@ -423,6 +423,27 @@ def service_namespace(root: str) -> types.SimpleNamespace:
     return ns
 
 
+def server_pins(P, frozen_s: float, next_id) -> list[tuple[object, str, object]]:
+    """The ``(module, attribute, value)`` pins under which two runs of one
+    request script against package ``P``'s servers answer alike: the
+    schedule, auth and tenant clocks and the script store's clock read
+    ``frozen_s``, the JWT secret and every password salt are fixed bytes,
+    tenant auth tokens a fixed string, and ``uuid.uuid4`` (process-wide)
+    counts through ``next_id()`` shifted left by 80."""
+    import uuid
+
+    frozen = types.SimpleNamespace(time=lambda: frozen_s)
+    return [(P.mod("management.schedule"), "time", frozen),
+            (P.mod("instance.auth"), "time", frozen),
+            (P.mod("instance.tenants"), "time", frozen),
+            (P.mod("utils.scripting"), "_time", frozen),
+            (P.mod("instance.auth"), "os",
+             types.SimpleNamespace(urandom=lambda n: bytes(range(n)))),
+            (P.mod("instance.tenants"), "secrets", types.SimpleNamespace(
+                token_urlsafe=lambda n=16: "tenant-auth-" + "x" * n)),
+            (uuid, "uuid4", lambda: uuid.UUID(int=next_id() << 80))]
+
+
 def plain(x):
     """``x`` with each package's classes reduced to their names: enums to
     (class, member), dataclasses to their fields, numpy to Python."""
