@@ -340,6 +340,25 @@ Phases, each printed as one JSON line:
              p99, batch events a second, ms a device, RPC calls a second,
              ms a ``zone_contains`` and of the analytics routes, on one
              ``servers:`` line.
+18. cluster — the cluster planes (``parallel/cluster.py``, ``forward``,
+             ``replication``, ``placement``, ``entity_sync``,
+             ``cluster_reshard``, ``rank_runtime``, ``cluster_demo``),
+             every rank and standby on the card: (a) a 2-rank cluster
+             (forwarding, RF = 2, pinned clocks) fed a seeded mixed-owner
+             stream at both ranks, held to the same cluster on CPU engines
+             in a process of its own (pages, states, by-id lookups from
+             either rank, searches, every store and standby leaf); (b)
+             ``bench.py``'s cluster leg at its hardware settings
+             (``DistributedConfig()`` shards, 2 a rank, 4 channels, a
+             group-commit WAL; frames of 2048, 64 calibration frames, the
+             open loop, 1M events): calibration events/s, per-tenant
+             p50/p99, forward hop p99, replication lag, a chaos slice
+             without loss, balanced ledgers, the failover read's
+             ``stale_ms`` after rank 1's server stops; (c) a move of half
+             of rank 0's slots under ingest, a drain and a join, no acked
+             loss, one epoch everywhere; (d) entity sync; (e) an offline
+             2 -> 3 reshard; (f) ``spawn_cluster_demo`` on the card; one
+             ``cluster:`` line.
 
 ``--profile`` adds torch.profiler breakdowns after the checks of the
 slice, train, read, transformer, transformer_train (one step by kernel
@@ -6587,6 +6606,849 @@ def phase_servers(device, log, fails, seed: int, config: dict = SERVERS_CONFIG,
     return out
 
 
+# ------------------------------------------------------------------ cluster
+# the full-width leg: bench.py's cluster leg (bench.py:888-1300) at its
+# hardware settings — 2 ranks with forwarding and RF = 2 replication, every
+# engine at DistributedConfig()'s per-shard capacities with 2 shards, the
+# leg's 4 channels and a group-commit WAL
+CLUSTER_MESH = dict(n_shards=2, channels=4, wal_group_commit=True)
+CLUSTER_FR = 2048               # events a frame
+CLUSTER_CAL = 64                # frames of the closed-loop calibration
+CLUSTER_TARGET = 1_000_000      # events of the leg in all (topped up last)
+CLUSTER_OL_GOAL = 200_000       # the open loop's goal in events
+CLUSTER_CHAOS_FRAMES = 4
+CLUSTER_TOKENS = 512            # the leg's devices, hash-spread over the ranks
+# the parity, placement, entity and reshard legs: a small mesh each
+CLUSTER_SMALL = dict(n_shards=2, device_capacity_per_shard=512,
+                     token_capacity_per_shard=1024, assignment_capacity_per_shard=1024,
+                     store_capacity_per_shard=1 << 13, channels=4,
+                     batch_capacity_per_shard=256)
+CLUSTER_PARITY = dict(rounds=8, frame=512, devices=300)
+CLUSTER_BASE_S = 1_750_000_000.0    # the parity leg's epoch base, both processes
+CLUSTER_NOW_MS = 60_000             # and its pinned clock
+CLUSTER_TIMEOUT_S = 600.0           # the CPU leg's process
+CLUSTER_DEMO_TIMEOUT_S = 300.0
+CLUSTER_DETECT_S = 5.0              # a standby's failure-detection window
+# answer keys that differ run to run (trace ids, the age of a standby read)
+CLUSTER_MASKED = frozenset({"trace_id", "traceId", "stale_ms"})
+
+
+class ClusterRig:
+    """``n_ranks`` loopback ranks of the port's ``ClusterEngine`` on
+    ``device``, built on this thread; their cluster RPC servers on a loop
+    thread of their own (deployment rule 1 of ``parallel/cluster.py``).
+    Optional: durable forwarding (``ForwardQueue`` + ``SpillRegistry``;
+    their pumps left off: ``drain_queues`` redelivers on this thread, as
+    bench.py's leg does), RF replication (feeds started), a pinned clock
+    (``now_ms``), placement settings. ``close`` stops every plane and
+    closes every WAL, so no engine thread outlives the rig."""
+
+    SECRET = "chip-cluster"
+
+    def __init__(self, device, root, mesh: dict, n_ranks: int = 2, forwarding: bool = True,
+                 rf: int = 1, base_s: float | None = None, now_ms: int | None = None,
+                 slots_per_rank: int = 8, initial_ranks=None, retry_s: float = 0.2,
+                 wal: bool = True, archive: bool = False, locals_=None):
+        from sitewhere_tpu_torch.parallel.cluster import ClusterConfig, ClusterEngine
+        from sitewhere_tpu_torch.parallel.cluster_demo import free_ports
+        from sitewhere_tpu_torch.parallel.distributed import DistributedConfig
+        from sitewhere_tpu_torch.parallel.forward import ForwardQueue, SpillRegistry
+        from sitewhere_tpu_torch.parallel.replication import ReplicaApplier, ReplicaFeed
+
+        self.root = pathlib.Path(root)
+        self.base_s = float(int(time.time())) if base_s is None else base_s
+        self.ports = free_ports(n_ranks)
+        peers = [f"127.0.0.1:{p}" for p in self.ports]
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True,
+                                       name="chip-cluster-rpc")
+        self.thread.start()
+        self.clusters, self.queues, self.regs = [], [], []
+        self.feeds, self.appliers, self.servers = [], [], []
+        for r in range(n_ranks):
+            cfg = DistributedConfig(
+                **mesh, device=str(device),
+                wal_dir=str(self.root / f"wal-r{r}") if wal else None,
+                archive_dir=str(self.root / f"arch-r{r}") if archive else None)
+            c = ClusterEngine(ClusterConfig(
+                rank=r, n_ranks=n_ranks, peers=peers, secret=self.SECRET,
+                epoch_base_unix_s=self.base_s, engine=cfg, connect_timeout_s=5.0,
+                slots_per_rank=slots_per_rank, initial_ranks=initial_ranks),
+                local=locals_[r] if locals_ else None)
+            if now_ms is not None:
+                c.local.epoch = c.epoch = PinnedEpoch(self.base_s, now_ms)
+            if forwarding:
+                q = ForwardQueue(c, self.root / f"fwd-r{r}", retry_interval_s=retry_s)
+                reg = SpillRegistry(self.root / f"fwd-r{r}" / "registry")
+                c.attach_forwarding(q, reg)
+                self.queues.append(q)
+                self.regs.append(reg)
+            if rf > 1:
+                feed = ReplicaFeed(c, self.root / f"replica-r{r}", rf=rf, heartbeat_s=0.5)
+                applier = ReplicaApplier(c, rf=rf, detect_s=CLUSTER_DETECT_S)
+                c.attach_replication(feed, applier)
+                self.feeds.append(feed)
+                self.appliers.append(applier)
+            self.clusters.append(c)
+            self.servers.append(None)
+            self.start_server(r)
+        for f in self.feeds:
+            f.start()
+
+    def run(self, coro, timeout_s: float = 30.0):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout_s)
+
+    def start_server(self, r: int) -> None:
+        """Rank ``r``'s cluster RPC server, with the replication handlers
+        where the rig replicates. Its handlers run under the CUDA streams
+        current on this thread (``build_cluster_rpc``)."""
+        from sitewhere_tpu_torch.parallel.cluster import build_cluster_rpc
+        from sitewhere_tpu_torch.parallel.replication import register_replication_rpc
+
+        srv = build_cluster_rpc(self.clusters[r].local, self.SECRET)
+        if self.appliers:
+            register_replication_rpc(srv, self.appliers[r])
+        self.run(srv.start(port=self.ports[r]))
+        self.servers[r] = srv
+
+    def stop_server(self, r: int) -> None:
+        if self.servers[r] is not None:
+            self.run(self.servers[r].stop())
+            self.servers[r] = None
+
+    def drain_feeds(self, timeout_s: float = 60.0) -> bool:
+        deadline = time.monotonic() + timeout_s
+        while not all(f.drained() for f in self.feeds):
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(0.02)
+        return True
+
+    def drain_queues(self, timeout_s: float = 60.0) -> bool:
+        deadline = time.monotonic() + timeout_s
+        while any(q.metrics()["forward_queue_depth"] for q in self.queues):
+            if time.monotonic() > deadline:
+                return False
+            for q in self.queues:
+                q.retry_once()
+        return True
+
+    def standbys(self) -> list:
+        """``(follower, leader, standby engine)`` of every standby store."""
+        return [(a.rank, leader, st.engine) for a in self.appliers
+                for leader, st in sorted(a._standbys.items())]
+
+    def devices(self) -> list[str]:
+        """Where every engine of the rig lives: each rank's shards, then
+        each standby's."""
+        out = [str(d) for c in self.clusters for d in c.local.mesh]
+        out += [str(d) for _, _, e in self.standbys() for d in e.mesh]
+        return out
+
+    def close(self) -> None:
+        for f in self.feeds:
+            f.stop()
+        for q in self.queues:
+            q.stop()
+        for reg in self.regs:
+            reg.close()
+        for a in self.appliers:
+            a.close()
+        for r in range(len(self.servers)):
+            try:
+                self.stop_server(r)
+            except Exception:
+                pass
+        for c in self.clusters:
+            c.close()
+            if c.local.wal is not None:
+                c.local.wal.close()
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=10)
+
+
+def _launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    return {"window_features": wf.window_features.launches,
+            "flash_attention": fa.flash_attention.launches,
+            "flash_attention_backward": fa.flash_attention_backward.launches}
+
+
+def _engine_census() -> dict:
+    """The engines alive in this process (``Engine`` and the mesh engines)
+    and its threads by name (numbered names grouped)."""
+    import gc
+
+    from sitewhere_tpu_torch.parallel.distributed import DistributedEngine
+    from sitewhere_tpu_torch.parallel.sharded import SpmdEngine
+
+    import warnings
+
+    gc.collect()
+    engines: dict = {}
+    with warnings.catch_warnings():     # isinstance on deprecated torch aliases
+        warnings.simplefilter("ignore")
+        for o in gc.get_objects():
+            if isinstance(o, (Engine, DistributedEngine, SpmdEngine)):
+                engines[type(o).__name__] = engines.get(type(o).__name__, 0) + 1
+    threads: dict = {}
+    for t in threading.enumerate():
+        name = re.sub(r"[_-]\d+$", "", t.name)
+        threads[name] = threads.get(name, 0) + 1
+    return {"engines": engines, "threads": dict(sorted(threads.items())),
+            "n_threads": threading.active_count()}
+
+
+def _cluster_payload(token: str, kind: int, i: int, base_ms: int) -> bytes:
+    """One event of the parity stream: a measurement of two or three
+    channels, a location or an alert, its date relative to the base."""
+    ts = base_ms + 1_000 + i
+    if kind == 0:
+        req = {"measurements": {"temp": float(i % 97), "hum": 0.5 * (i % 13)},
+               "eventDate": ts}
+        if i % 3 == 0:
+            req["measurements"]["psi"] = float(i % 5)
+        return json.dumps({"deviceToken": token, "type": "DeviceMeasurements",
+                           "request": req}).encode()
+    if kind == 1:
+        return json.dumps({"deviceToken": token, "type": "DeviceLocation",
+                           "request": {"latitude": 40.0 + (i % 50) * 0.01,
+                                       "longitude": -75.0 - (i % 40) * 0.01,
+                                       "elevation": 3.0, "eventDate": ts}}).encode()
+    return json.dumps({"deviceToken": token, "type": "DeviceAlert",
+                       "request": {"type": "overheat" if i % 2 else "lowbatt",
+                                   "level": 2, "message": "m", "eventDate": ts}}).encode()
+
+
+def cluster_parity_stream(seed: int, rounds: int, frame: int, n_devices: int) -> list:
+    """``rounds`` x 2 frames of ``frame`` payloads (a frame for rank 0,
+    then one for rank 1, each naming devices of both ranks): 85 %
+    measurements, 10 % locations, 5 % alerts."""
+    rng = np.random.default_rng(seed)
+    base_ms = int(CLUSTER_BASE_S * 1000)
+    out, i = [], 0
+    for _ in range(2 * rounds):
+        devs = rng.integers(0, n_devices, frame)
+        kinds = rng.choice(3, frame, p=[0.85, 0.10, 0.05])
+        batch = []
+        for d, k in zip(devs, kinds):
+            batch.append(_cluster_payload(f"cp-{int(d)}", int(k), i, base_ms))
+            i += 1
+        out.append(batch)
+    return out
+
+
+def masked(x, keys=CLUSTER_MASKED):
+    """``x`` with the value of every key in ``keys`` replaced, at any
+    depth (tuples become lists)."""
+    if isinstance(x, dict):
+        return {k: ("<masked>" if k in keys else masked(v, keys)) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [masked(v, keys) for v in x]
+    return x
+
+
+def cluster_parity_leg(device: str, seed: int, spec: dict = CLUSTER_PARITY) -> dict:
+    """(a)'s leg on ``device``: a 2-rank cluster (forwarding, RF = 2,
+    both clocks pinned to one instant over one base) with an instance a
+    rank (the search index behind its connector), the seeded mixed-owner
+    stream accepted at both ranks, the feeds drained and the partitions
+    indexed; then the answers — query pages, device states and by-id
+    lookups from either rank, searches — and the digest of every store
+    leaf of both ranks and both standbys. Also checks, per package's own
+    rule, that each standby store equals its leader's byte for byte."""
+    from sitewhere_tpu_torch.instance.instance import InstanceConfig, SiteWhereTpuInstance
+
+    root = tempfile.mkdtemp(prefix="chip-cluster-parity-")
+    rig = ClusterRig(device, root, CLUSTER_SMALL, rf=2, base_s=CLUSTER_BASE_S,
+                     now_ms=CLUSTER_NOW_MS)
+    try:
+        c0, c1 = rig.clusters
+        insts = [SiteWhereTpuInstance(InstanceConfig(engine=EngineConfig()), engine=c)
+                 for c in rig.clusters]
+        feeds = [c.make_feed_consumer("chip-cluster-ids") for c in rig.clusters]
+        stream = cluster_parity_stream(seed, spec["rounds"], spec["frame"], spec["devices"])
+        summaries = []
+        t0 = time.perf_counter()
+        for k, batch in enumerate(stream):
+            summaries.append(untraced(rig.clusters[k % 2].ingest_json_batch(batch)))
+        for c in rig.clusters:
+            c.flush()
+        ingest_s = time.perf_counter() - t0
+        drained = rig.drain_feeds()
+        for inst in insts:
+            asyncio.run(inst.pump_outbound())
+        toks = [f"cp-{i}" for i in range(0, spec["devices"], 7)]
+        answers: dict = {"summaries": summaries}
+        for r, c in enumerate(rig.clusters):
+            page = c.query_events(limit=200)
+            answers[f"page_{r}"] = masked(page)
+            answers[f"since_{r}"] = masked(c.query_events(since_ms=1_000 + 2 * spec["frame"],
+                                                           limit=100))
+            answers[f"loc_{r}"] = masked(c.query_events(etype=int(EventType.LOCATION),
+                                                         limit=100))
+            answers[f"dev_{r}"] = [masked(c.query_events(device_token=t, limit=20))
+                                   for t in toks]
+            answers[f"state_{r}"] = [masked(c.get_device_state(t)) for t in toks]
+            answers[f"search_{r}"] = [masked(c.search_events(q, max_results=100))
+                                      for q in ("*:*", "type:LOCATION", "type:ALERT")]
+            answers[f"rows_{r}"] = len(c.search_device_states())
+        ids = []
+        for feed in feeds:          # cluster-global ids of either rank's events
+            while recs := feed.poll():
+                ids += [rec.event_id for rec in recs]
+                feed.commit(recs)
+        answers["feed_ids"] = len(ids)
+        answers["by_id"] = [[masked(c.get_event(i)) for c in rig.clusters]
+                            for i in sorted(ids)[::9]]
+        stores = {f"rank{r}": _leaf_digests(c.local.state.store)
+                  for r, c in enumerate(rig.clusters)}
+        standby_equal = []
+        for follower, leader, eng in rig.standbys():
+            eng.flush()
+            stores[f"standby{follower}_of_{leader}"] = _leaf_digests(eng.state.store)
+            standby_equal.append(_leaf_digests(eng.state.store)
+                                 == stores[f"rank{leader}"])
+        return {"answers": answers, "stores": stores, "standby_equal": standby_equal,
+                "drained": drained, "devices": rig.devices(), "ingest_s": ingest_s,
+                "events": sum(len(b) for b in stream)}
+    finally:
+        rig.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def cluster_cpu_leg(seed: int, spec: dict) -> dict:
+    """(a)'s CPU leg, in a process of its own."""
+    torch.set_num_threads(4)
+    logging.getLogger("sitewhere_tpu_torch.parallel").setLevel(logging.ERROR)
+    t0 = time.perf_counter()
+    out = cluster_parity_leg("cpu", seed, spec)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _kframes(toks: list[str], tag: int, n: int, fr: int) -> list[list[bytes]]:
+    """bench.py's ``kframes``: ``n`` frames of ``fr`` measurements over
+    ``toks``, seeded by ``tag``."""
+    rng = np.random.default_rng(1000 + tag)
+    return [[generate_measurements_message(toks[int(x)], tag * 1_000_000 + fi * fr + i)
+             for i, x in enumerate(rng.integers(0, len(toks), fr))] for fi in range(n)]
+
+
+def cluster_full_leg(device, fails, fr: int = CLUSTER_FR, cal: int = CLUSTER_CAL,
+                     target: int = CLUSTER_TARGET, ol_goal: int = CLUSTER_OL_GOAL,
+                     mesh: dict = CLUSTER_MESH, n_tokens: int = CLUSTER_TOKENS,
+                     chaos_frames: int = CLUSTER_CHAOS_FRAMES) -> dict:
+    """(b): bench.py's cluster leg. Calibration (closed loop), the seeded
+    open loop at 40 % of it (three tenants, queries and mutations), the
+    federated scrape (forward-hop p99), replication lag and staleness, the
+    chaos slice (every forward 0 -> 1 dropped, spilled, redelivered: no
+    loss), the top-up to ``target`` events, every rank's conservation
+    ledger, then rank 1's server stops and rank 0 reads rank 1's partition
+    from its standby (the failover read's ``stale_ms``)."""
+    from sitewhere_tpu_torch.loadgen import (OpenLoopSpec, TenantLoad, run_open_loop,
+                                             schedule_fingerprint)
+    from sitewhere_tpu_torch.parallel.cluster import owner_rank
+    from sitewhere_tpu_torch.utils import faults
+    from sitewhere_tpu_torch.utils.metrics import cluster_metrics_instruments
+
+    root = tempfile.mkdtemp(prefix="chip-cluster-full-")
+    rig = ClusterRig(device, root, mesh, rf=2)
+    out: dict = {}
+    try:
+        kc0 = rig.clusters[0]
+        toks = [f"cl-{i}" for i in range(n_tokens)]
+        events = 0
+        t0 = time.perf_counter()
+        for b in _kframes(toks, 0, 6, fr):         # warm both ranks and the standbys
+            kc0.ingest_json_batch(b)
+        kc0.flush()
+        out["warm_s"] = time.perf_counter() - t0
+        # the hop histogram is process-wide and the other legs forward into
+        # it too: this leg reads its own window of the 0 -> 1 series (every
+        # frame enters at rank 0)
+        hop = cluster_metrics_instruments(METRICS_REGISTRY)["forward_hop"]
+        hop0 = hop.snapshot(dst="1")
+        frames = _kframes(toks, 1, cal, fr)
+        t1 = time.perf_counter()
+        for b in frames:
+            kc0.ingest_json_batch(b)
+        kc0.flush()
+        cal_s = time.perf_counter() - t1
+        out["calibration_events_per_s"] = cal * fr / cal_s
+        events += cal * fr
+        warm_spec = OpenLoopSpec(
+            tenants=tuple(TenantLoad(t, 220.0, n_devices=64, device_prefix=f"{t}-warm",
+                                     query_every=1, mutate_every=1)
+                          for t in ("alpha", "bravo", "charlie")),
+            duration_s=1.2, frame_size=64, seed=43)
+        run_open_loop(kc0, build_open_loop_schedule(warm_spec), checkpoint_frames=2)
+        rig.drain_feeds()
+        target_eps = max(1500.0, 0.4 * out["calibration_events_per_s"])
+        ol_duration = min(10.0, max(2.0, ol_goal / target_eps))
+        spec = OpenLoopSpec(
+            tenants=tuple(TenantLoad(t, target_eps * w, n_devices=64, query_every=4,
+                                     mutate_every=6)
+                          for t, w in (("alpha", 0.5), ("bravo", 0.3), ("charlie", 0.2))),
+            duration_s=ol_duration, frame_size=256, seed=42)
+        sched = build_open_loop_schedule(spec)
+        olr = run_open_loop(kc0, sched, checkpoint_frames=4)
+        events += olr.events
+        out["open_loop"] = {
+            "offered_events_per_s": olr.offered_eps, "events_per_s": olr.events_per_s,
+            "events": olr.events, "wall_s": olr.wall_s, "queries": olr.queries,
+            "query_p99_ms": olr.query_p99_ms, "mutations": olr.mutations,
+            "fingerprint": schedule_fingerprint(sched),
+            "per_tenant": {t: {k: d[k] for k in ("events", "e2e_p50_ms", "e2e_p99_ms",
+                                                  "e2e_p999_ms", "service_p99_ms")}
+                           for t, d in olr.per_tenant.items()}}
+        t2 = time.perf_counter()
+        fed = kc0.cluster_metrics()
+        out["scrape_ms"] = (time.perf_counter() - t2) * 1e3
+        out["scrape_ranks"] = sum(f'rank="{r}"' in fed for r in (0, 1))
+        p99 = hop.quantile_since(0.99, hop0, dst="1")
+        out["forward_hop_p99_ms"] = p99 * 1e3 if p99 is not None else None
+        out["forward_hops"] = hop.snapshot(dst="1")[1] - hop0[1]
+        out["feeds_drained"] = rig.drain_feeds()
+        out["replication_lag_batches"] = max(f.metrics()["replica_feed_max_lag_batches"]
+                                             for f in rig.feeds)
+        stales = [ms for a in rig.appliers for ms in a.stale_by_leader().values()]
+        out["replication_stale_ms"] = max(stales) if stales else None
+        # the chaos slice: every forward 0 -> 1 drops, spills, redelivers
+        chtoks = [t for t in (f"ch-{i}" for i in range(400)) if owner_rank(t, 2) == 1][:32]
+        chframes = [[generate_measurements_message(chtoks[(fi * fr + i) % len(chtoks)],
+                                                   9_000_000 + fi * fr + i)
+                     for i in range(fr)] for fi in range(chaos_frames)]
+        faults.install(faults.FaultPlan(seed=7).drop(src=0, dst=1, prob=1.0,
+                                                     method_prefix="Cluster.ingestForward"))
+        spilled = 0
+        try:
+            for b in chframes:
+                spilled += kc0.ingest_json_batch(b, tenant="chaos").get("spilled", 0)
+        finally:
+            faults.clear()
+        events += chaos_frames * fr
+        rig.drain_queues()
+        kc0.flush()
+        got = sum(kc0.query_events(device_token=t, limit=1)["total"] for t in chtoks)
+        out["chaos"] = {"spilled": spilled, "visible": got, "sent": chaos_frames * fr,
+                        "no_loss": got == chaos_frames * fr}
+        fails.check(spilled > 0 and got == chaos_frames * fr,
+                    f"cluster: (b) chaos slice spilled {spilled}, {got} of "
+                    f"{chaos_frames * fr} visible after redelivery")
+        # the top-up to the leg's event count
+        t3 = time.perf_counter()
+        topped, tag = 0, 3
+        while events < target:
+            n = min(8, -(-(target - events) // fr))
+            for b in _kframes(toks, tag, n, fr):
+                kc0.ingest_json_batch(b)
+            events += n * fr
+            topped += n * fr
+            tag += 1
+        kc0.flush()
+        top_s = time.perf_counter() - t3
+        out["topup"] = {"events": topped, "seconds": top_s,
+                        "events_per_s": topped / top_s if top_s > 0 else None}
+        out["events"] = events
+        out["feeds_drained_at_end"] = rig.drain_feeds()
+        out["devices"] = rig.devices()      # the standbys exist by now
+        violations = [v.to_dict() for c in rig.clusters
+                      for v in check_conservation(build_ledger(c))]
+        out["conservation_violations"] = violations
+        fails.check(not violations, f"cluster: (b) conservation violations {violations[:4]}")
+        persisted = sum(c.local.metrics()["persisted"] for c in rig.clusters)
+        out["persisted"] = persisted
+        # failover: rank 1's server stops, rank 0 reads rank 1's partition
+        # from its standby
+        rig.stop_server(1)
+        tok1 = next(t for t in toks if owner_rank(t, 2) == 1)
+        t4 = time.perf_counter()
+        fo = kc0.query_events(device_token=tok1, limit=5)
+        out["failover"] = {"read_ms": (time.perf_counter() - t4) * 1e3,
+                           "total": fo.get("total"), "stale_ms": fo.get("stale_ms")}
+        fails.check(fo.get("stale_ms") is not None and fo.get("total", 0) > 0,
+                    f"cluster: (b) the failover read after rank 1 stopped: "
+                    f"{ {k: v for k, v in fo.items() if k != 'events'} }")
+        return out
+    finally:
+        faults.clear()
+        rig.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def cluster_placement_leg(device, fails) -> dict:
+    """(c): three provisioned ranks, ranks 0 and 1 active (4 slots a
+    rank). ``move_slots`` of half of rank 0's slots to rank 1 while a
+    thread keeps ingesting at rank 0, then ``drain_rank(1)`` and
+    ``join_rank(2)``. Every acked event is visible exactly once from every
+    active rank's facade, and every rank's map is on the new epoch."""
+    from sitewhere_tpu_torch.parallel.placement import drain_rank, join_rank, move_slots
+
+    root = tempfile.mkdtemp(prefix="chip-cluster-placement-")
+    rig = ClusterRig(device, root, CLUSTER_SMALL, n_ranks=3, initial_ranks=[0, 1],
+                     slots_per_rank=4, retry_s=0.1)
+    out: dict = {"devices": rig.devices()}
+    n_tokens, frame = 96, 48
+    try:
+        c0 = rig.clusters[0]
+        toks = [f"pl-{i}" for i in range(n_tokens)]
+        base_ms = int(rig.base_s * 1000)
+        acked = {t: 0 for t in toks}
+        seq = itertools.count()
+        stop = threading.Event()
+        errors: list = []
+
+        def ingest_round() -> None:
+            i0 = next(seq)
+            batch = [(toks[(i0 * frame + j) % n_tokens], i0 * frame + j)
+                     for j in range(frame)]
+            s = c0.ingest_json_batch([_cluster_payload(t, 0, k, base_ms)
+                                      for t, k in batch])
+            if s.get("failed"):
+                errors.append(s)
+                return
+            for t, _ in batch:
+                acked[t] += 1
+
+        def pump() -> None:
+            try:
+                while not stop.is_set():
+                    ingest_round()
+                    time.sleep(0.005)
+            except Exception as e:   # surfaced as a failed check
+                errors.append(repr(e))
+
+        for _ in range(4):
+            ingest_round()
+        c0.flush()
+        epochs = [c0.placement.epoch]
+        mine = c0.placement.map().slots_of(0)
+        th = threading.Thread(target=pump, name="chip-cluster-ingest", daemon=True)
+        th.start()
+        t0 = time.perf_counter()
+        try:
+            moved = move_slots(c0, mine[: len(mine) // 2], 1)
+        finally:
+            stop.set()
+            th.join(timeout=60)
+        out["move_s"] = time.perf_counter() - t0
+        epochs.append(c0.placement.epoch)
+        t1 = time.perf_counter()
+        drained = drain_rank(c0, 1)
+        out["drain_s"] = time.perf_counter() - t1
+        epochs.append(c0.placement.epoch)
+        t2 = time.perf_counter()
+        joined = join_rank(c0, 2)
+        out["join_s"] = time.perf_counter() - t2
+        epochs.append(c0.placement.epoch)
+        rig.drain_queues()
+        for c in rig.clusters:
+            c.flush()
+        active = c0.placement.map().active_ranks()
+        seen = {r: {t: rig.clusters[r].query_events(device_token=t, limit=1)["total"]
+                    for t in toks} for r in active}
+        lost = {r: [t for t in toks if seen[r][t] != acked[t]] for r in active}
+        same_epoch = len({c.placement.epoch for c in rig.clusters}) == 1
+        same_owner = all(c.owner(t) == c0.owner(t) for c in rig.clusters for t in toks)
+        violations = [v.to_dict() for r in active
+                      for v in check_conservation(build_ledger(rig.clusters[r]))]
+        out.update(epochs=epochs, active=active, acked=sum(acked.values()),
+                   moves=[m["state"] for m in moved["moves"]],
+                   drained=bool(drained.get("drained")), joined=bool(joined.get("joined")),
+                   mismatched=sum(map(len, lost.values())), same_epoch=same_epoch,
+                   same_owner=same_owner, errors=errors[:4],
+                   conservation_violations=violations)
+        fails.check(out["moves"] == ["done"] and out["drained"] and out["joined"]
+                    and active == [0, 2],
+                    f"cluster: (c) move {out['moves']}, drained {out['drained']}, joined "
+                    f"{out['joined']}, active {active}")
+        fails.check(not errors and not out["mismatched"] and out["acked"] > 0,
+                    f"cluster: (c) {out['mismatched']} token totals differ from the "
+                    f"{out['acked']} acked events ({errors[:2]})")
+        fails.check(same_epoch and same_owner and epochs == sorted(set(epochs)),
+                    f"cluster: (c) epochs {[c.placement.epoch for c in rig.clusters]} "
+                    f"(steps {epochs}), one owner map {same_owner}")
+        fails.check(not violations, f"cluster: (c) conservation {violations[:3]}")
+        return out
+    finally:
+        rig.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def cluster_entity_leg(device, fails) -> dict:
+    """(d): two ranks with an instance and an ``EntityReplicator`` each.
+    Rank 0 creates device types, commands and a user; after the pushes
+    drain, rank 1 reads each back identically (``to_state``), the user
+    logs in there, and a device of a replicated type is created at rank 1
+    and routed to its owner."""
+    from sitewhere_tpu_torch.commands.model import DeviceCommand
+    from sitewhere_tpu_torch.instance.instance import InstanceConfig, SiteWhereTpuInstance
+    from sitewhere_tpu_torch.parallel.entity_sync import EntityReplicator, to_state
+
+    root = tempfile.mkdtemp(prefix="chip-cluster-entity-")
+    rig = ClusterRig(device, root, CLUSTER_SMALL, forwarding=False)
+    reps = []
+    try:
+        insts = [SiteWhereTpuInstance(InstanceConfig(engine=EngineConfig()), engine=c)
+                 for c in rig.clusters]
+        for r, (c, inst) in enumerate(zip(rig.clusters, insts)):
+            rep = EntityReplicator(c, inst, log_dir=str(rig.root / f"elog-r{r}"))
+            rep.attach()
+            rep.register_rpc(rig.servers[r])
+            reps.append(rep)
+        dm0, dm1 = insts[0].device_management, insts[1].device_management
+        t0 = time.perf_counter()
+        types_ = [f"chip-type-{i}" for i in range(4)]
+        for i, t in enumerate(types_):
+            dm0.create_device_type(t, f"Chip type {i}")
+            insts[0].command_registry.create(DeviceCommand(
+                token=f"chip-cmd-{i}", device_type=t, name=f"cmd {i}"))
+        insts[0].users.create_user("chip-operator", "s3cret", roles=["user"])
+        reps[0].drain_pushes()
+        out = {"replicate_s": time.perf_counter() - t0}
+        same = [to_state(dm0.device_types.get(t)) == to_state(dm1.device_types.get(t))
+                for t in types_]
+        same += [to_state(insts[0].command_registry.get(f"chip-cmd-{i}"))
+                 == to_state(insts[1].command_registry.get(f"chip-cmd-{i}"))
+                 for i in range(len(types_))]
+        user = insts[1].users.authenticate("chip-operator", "s3cret")
+        dev = next(t for t in (f"ent-{i}" for i in range(64)) if rig.clusters[1].owner(t) == 0)
+        dm1.create_device(dev, types_[0])
+        info = rig.clusters[0].get_device(dev)
+        out.update(identical=all(same), entities=len(same),
+                   user=getattr(user, "username", None),
+                   routed_type=getattr(info, "device_type", None), devices=rig.devices())
+        fails.check(all(same) and len(same) == 8 and out["user"] == "chip-operator"
+                    and out["routed_type"] == types_[0],
+                    f"cluster: (d) entity sync identical {same}, login {out['user']}, "
+                    f"routed type {out['routed_type']}")
+        return out
+    finally:
+        for rep in reps:
+            rep.close()
+        rig.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _reshard_norm(events: list) -> list:
+    """Topology-independent event identity (ids are rank-local)."""
+    return [(e["deviceToken"], e["type"], e["eventDateMs"], e.get("measurements"),
+             e.get("latitude"), e.get("longitude"), e.get("alertType"), e.get("level"))
+            for e in events]
+
+
+def cluster_reshard_leg(device, fails) -> dict:
+    """(e): a 2-rank cluster on the card with WALs and archives (rings
+    small enough to spill), history ingested, each rank snapshotted and
+    its WAL rotated and pruned, then a live tail. ``migrate_cluster_snapshots``
+    2 -> 3 off the snapshots and archives, three ranks recovered on the
+    card, ``replay_wal_tails``: every new rank answers the old cluster's
+    queries."""
+    from sitewhere_tpu_torch.parallel.cluster import owner_rank
+    from sitewhere_tpu_torch.parallel.cluster_reshard import (migrate_cluster_snapshots,
+                                                              replay_wal_tails)
+    from sitewhere_tpu_torch.parallel.distributed import recover_distributed
+
+    mesh = dict(n_shards=2, device_capacity_per_shard=64, token_capacity_per_shard=128,
+                assignment_capacity_per_shard=128, store_capacity_per_shard=64,
+                channels=4, batch_capacity_per_shard=8, archive_segment_rows=8)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip-cluster-reshard-"))
+    old = rig = None
+    out: dict = {}
+    try:
+        old = ClusterRig(device, root / "old", mesh, forwarding=False, archive=True)
+        base_ms = int(old.base_s * 1000)
+        toks, i = [], 0
+        while len([t for t in toks if owner_rank(t, 2) == 0]) < 4 or len(toks) < 8:
+            toks.append(f"mig-{i}")
+            i += 1
+        names = ("temp", "hum", "psi")
+        batch = []
+        for k in range(40):
+            for j, t in enumerate(toks):
+                ts = base_ms + 10 + k * len(toks) + j
+                if k % 7 == 3:
+                    batch.append(json.dumps({"deviceToken": t, "type": "DeviceLocation",
+                                             "request": {"latitude": 45.0 + k,
+                                                         "longitude": -122.0 - j,
+                                                         "eventDate": ts}}).encode())
+                else:
+                    batch.append(json.dumps({
+                        "deviceToken": t, "type": "DeviceMeasurements",
+                        "request": {"measurements": {names[(k + j) % 3]: float(k)},
+                                    "eventDate": ts}}).encode())
+        old.clusters[0].ingest_json_batch(batch)
+        old.clusters[0].flush()
+        snaps = []
+        for r, c in enumerate(old.clusters):
+            d = root / f"snap-r{r}"
+            c.local.save(d)
+            snaps.append(d)
+            c.local.wal._seg_index += 1
+            c.local.wal._open_segment()
+            c.local.wal.prune(keep_segments=1)
+        tail = [json.dumps({"deviceToken": t, "type": "DeviceMeasurements",
+                            "request": {"measurements": {"temp": 99.5},
+                                        "eventDate": base_ms + 5000 + j}}).encode()
+                for j, t in enumerate(toks)]
+        old.clusters[1].ingest_json_batch(tail)
+        old.clusters[0].flush()
+        ref_all = old.clusters[0].query_events(limit=500)
+        ref_dev = {t: old.clusters[0].query_events(device_token=t, limit=500) for t in toks}
+        ref_state = {t: old.clusters[0].get_device_state(t) for t in toks}
+        for c in old.clusters:
+            c.local.wal.flush()
+        t0 = time.perf_counter()
+        stats = migrate_cluster_snapshots(snaps, 3, root / "new",
+                                          old_archive_dirs=[root / "old" / "arch-r0",
+                                                            root / "old" / "arch-r1"])
+        locals_ = [recover_distributed(root / "new" / f"rank-{t}" / "snapshot",
+                                       root / f"new-wal-r{t}", device=str(device))
+                   for t in range(3)]
+        rig = ClusterRig(device, root / "newrig", mesh, n_ranks=3, forwarding=False,
+                         wal=False, base_s=old.base_s, locals_=locals_)
+        replayed = replay_wal_tails(rig.clusters[0], snaps,
+                                    [root / "old" / "wal-r0", root / "old" / "wal-r1"])
+        for c in rig.clusters:
+            c.flush()
+        out["migrate_s"] = time.perf_counter() - t0
+        same_all = all(
+            (g := c.query_events(limit=500))["total"] == ref_all["total"]
+            and _reshard_norm(g["events"]) == _reshard_norm(ref_all["events"])
+            for c in rig.clusters)
+        same_dev = all(
+            _reshard_norm(rig.clusters[1].query_events(device_token=t, limit=500)["events"])
+            == _reshard_norm(ref_dev[t]["events"]) for t in toks)
+        same_state = all(
+            {k: (rig.clusters[2].get_device_state(t) or {}).get(k) for k in
+             ("measurements", "presence")}
+            == {k: ref_state[t].get(k) for k in ("measurements", "presence")} for t in toks)
+        out.update(replayed=replayed, events=ref_all["total"],
+                   targets=[s["devices"] for s in stats["targets"]],
+                   archive_rows=sum(s["archive_rows"] for s in stats["targets"]),
+                   same_pages=same_all, same_device_pages=same_dev, same_states=same_state,
+                   devices=rig.devices())
+        fails.check(replayed == len(toks) and same_all and same_dev and same_state
+                    and all(out["targets"]) and out["archive_rows"] > 0,
+                    f"cluster: (e) reshard 2 -> 3: replayed {replayed} of {len(toks)}, "
+                    f"pages {same_all}, device pages {same_dev}, states {same_state}, "
+                    f"targets {out['targets']}, archive rows {out['archive_rows']}")
+        return out
+    finally:
+        for x in (rig, old):
+            if x is not None:
+                x.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_cluster(device, log, fails, seed: int, full: dict | None = None,
+                  parity: dict = CLUSTER_PARITY) -> dict:
+    """The cluster planes on the card (``parallel/cluster.py``, ``forward``,
+    ``replication``, ``placement``, ``entity_sync``, ``cluster_reshard``,
+    ``rank_runtime``, ``cluster_demo``); every engine and standby on
+    ``device``. (a) Parity: a seeded mixed-owner stream into a 2-rank
+    cluster (forwarding, RF = 2, pinned clocks), accepted at both ranks;
+    the same cluster on CPU engines runs in a spawned process meanwhile;
+    query pages, device states, by-id lookups from either rank, searches
+    and every store and standby leaf must agree. (b) The full-width leg
+    (``cluster_full_leg``). (c) Placement under ingest
+    (``cluster_placement_leg``). (d) Entity sync (``cluster_entity_leg``).
+    (e) Offline reshard 2 -> 3 (``cluster_reshard_leg``). (f) The
+    two-process job (``spawn_cluster_demo``) with its ranks on the card:
+    ``CLUSTER_OK`` x 3 and ``CLUSTER_RECOVERED``. (f) and (a)'s CPU leg run
+    beside (a) and (c)-(e); (b) runs alone, last."""
+    import concurrent.futures
+    import multiprocessing
+
+    from sitewhere_tpu_torch.parallel.cluster_demo import spawn_cluster_demo
+
+    logging.getLogger("sitewhere_tpu_torch.parallel").setLevel(logging.ERROR)
+    t_phase = time.perf_counter()
+    census0 = _engine_census()
+    dev = str(device)
+    counts0 = _launch_counts()
+    out: dict = {"phase": "cluster", "census_at_start": census0}
+    demo_box: dict = {}
+
+    def run_demo() -> None:
+        t0 = time.perf_counter()
+        try:
+            demo_box["lines"] = spawn_cluster_demo(2, CLUSTER_DEMO_TIMEOUT_S, device=dev)
+        except Exception as e:
+            demo_box["error"] = repr(e)[-2000:]
+        demo_box["seconds"] = time.perf_counter() - t0
+
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
+        host = pool.submit(cluster_cpu_leg, seed, parity)
+        demo_thread = threading.Thread(target=run_demo, name="chip-cluster-demo", daemon=True)
+        demo_thread.start()
+        t0 = time.perf_counter()
+        card = cluster_parity_leg(dev, seed, parity)
+        out["parity_card_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        out["placement"] = cluster_placement_leg(device, fails)
+        out["entity"] = cluster_entity_leg(device, fails)
+        out["reshard"] = cluster_reshard_leg(device, fails)
+        out["legs_c_to_e_s"] = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        cpu = host.result(timeout=CLUSTER_TIMEOUT_S)
+        demo_thread.join(timeout=CLUSTER_DEMO_TIMEOUT_S + 60)
+        out["wait_s"] = time.perf_counter() - t2
+    # (a) the card against the CPU
+    differ = _differing(cpu["answers"], card["answers"])
+    store_differ = [k for k in sorted(set(cpu["stores"]) | set(card["stores"]))
+                    if cpu["stores"].get(k) != card["stores"].get(k)]
+    fails.check(not differ and not store_differ,
+                f"cluster: (a) the card cluster differs from the CPU's: answers {differ[:8]}, "
+                f"stores {store_differ[:8]}")
+    fails.check(card["drained"] and len(card["standby_equal"]) == 2
+                and all(card["standby_equal"]),
+                f"cluster: (a) standby stores equal to their leaders' {card['standby_equal']}, "
+                f"feeds drained {card['drained']}")
+    out["parity"] = {"events": card["events"], "identical": not differ,
+                     "stores_identical": not store_differ,
+                     "answers_compared": len(card["answers"]),
+                     "ingest_s": card["ingest_s"], "cpu_leg_s": cpu["seconds"],
+                     "standby_equal": card["standby_equal"]}
+    # (f) the two-process job
+    lines = demo_box.get("lines") or []
+    ok_lines = [ln for ln in lines if ln.startswith("CLUSTER_OK")]
+    rec_lines = [ln for ln in lines if ln.startswith("CLUSTER_RECOVERED")]
+    out["demo"] = {"lines": lines, "seconds": demo_box.get("seconds"),
+                   "error": demo_box.get("error")}
+    fails.check(len(ok_lines) == 3 and len(rec_lines) == 1,
+                f"cluster: (f) spawn_cluster_demo printed {lines} ({demo_box.get('error')})")
+    # (b) alone
+    t3 = time.perf_counter()
+    out["full"] = cluster_full_leg(device, fails, **(full or {}))
+    out["full_s"] = time.perf_counter() - t3
+    # where every engine lived
+    where = (card["devices"] + out["full"]["devices"] + out["placement"]["devices"]
+             + out["entity"]["devices"] + out["reshard"]["devices"])
+    fails.check(all(d == dev for d in where),
+                f"cluster: engines on {sorted(set(where))}, not all on {dev}")
+    out["engines_checked"] = len(where)
+    out["kernel_launches"] = {k: n - counts0[k] for k, n in _launch_counts().items()}
+    out["census_at_end"] = _engine_census()
+    out["seconds"] = time.perf_counter() - t_phase
+    if device.type == "cuda":
+        out["card"] = card_line()
+    emit(out, log)
+    f = out["full"]
+    tenants = ", ".join(f"{t} p50 {d['e2e_p50_ms']} / p99 {d['e2e_p99_ms']} ms"
+                        for t, d in f["open_loop"]["per_tenant"].items())
+    print(f"cluster: calibration {f['calibration_events_per_s']:.0f} events/s, open loop "
+          f"{f['open_loop']['events_per_s']:.0f} events/s ({tenants}), forward hop p99 "
+          f"{f['forward_hop_p99_ms']} ms ({f['forward_hops']} hops 0 -> 1), replication lag "
+          f"{f['replication_lag_batches']} batches (stale {f['replication_stale_ms']} ms), failover read stale_ms "
+          f"{f['failover']['stale_ms']}, chaos no loss {f['chaos']['no_loss']}, "
+          f"{f['events']} events; card = CPU ({len(card['answers'])} answers); "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 # the transformer configurations of fault C6 (head dims 128, 8, 48 and 64,
 # and float16 at D = 32, 64 and 128), each scored and trained one step on
 # the card
@@ -6910,6 +7772,7 @@ def main(argv=None) -> int:
     timed("edge", phase_edge, device, log, fails, args.seed)
     timed("services", phase_services, device, log, fails, args.seed)
     servers = timed("servers", phase_servers, device, log, fails, args.seed)
+    timed("cluster", phase_cluster, device, log, fails, args.seed)
     # window_features runs on four paths: the live scoring of the slice,
     # training on the live windows, the archive's analytics job and the
     # REST gateway's analytics routes

@@ -89,7 +89,6 @@ from __future__ import annotations
 
 import asyncio
 import collections
-import contextlib
 import dataclasses
 import logging
 import struct
@@ -100,6 +99,7 @@ from typing import Any, Callable
 import torch
 
 from sitewhere_tpu_torch.utils.qos import ShedError, admit_or_raise
+from sitewhere_tpu_torch.utils.streams import card_streams, on_streams
 
 logger = logging.getLogger(__name__)
 
@@ -190,33 +190,6 @@ class AltIdRing:
                 self._seen.discard(self._order.popleft())
 
 
-def _card_streams(engine) -> list:
-    """The streams current, on the calling thread, on every CUDA device
-    ``engine`` dispatches to (its shards' ``mesh``, else its ``device``);
-    the engine's own device first. Empty for an engine off the card or a
-    facade with no device."""
-    devs = list(getattr(engine, "mesh", None) or [])
-    dev = getattr(engine, "device", None)
-    if dev is not None:
-        devs.insert(0, dev)
-    cards = []
-    for d in devs:
-        if getattr(d, "type", None) == "cuda" and d not in cards:
-            cards.append(d)
-    return [torch.cuda.current_stream(d) for d in cards]
-
-
-def _on_streams(streams: list) -> contextlib.AbstractContextManager:
-    """Make ``streams`` current on this thread (and the first one's device
-    the current device) for the length of the ``with`` block."""
-    if not streams:
-        return contextlib.nullcontext()
-    stack = contextlib.ExitStack()
-    for s in reversed(streams):
-        stack.enter_context(torch.cuda.stream(s))
-    return stack
-
-
 class WireBatcher:
     """Arrival-window frame accumulator -> batched arena submission.
 
@@ -233,7 +206,7 @@ class WireBatcher:
     acquisition per event).
 
     Engine calls run under the CUDA streams current on the thread that
-    built the batcher (``_card_streams``), whichever thread flushes: the
+    built the batcher (``card_streams``), whichever thread flushes: the
     step's work and its fence land where that thread's readers wait.
     """
 
@@ -241,7 +214,7 @@ class WireBatcher:
                  flush_interval_s: float = 0.005, auto: bool = True,
                  clock: Callable[[], float] = time.monotonic):
         self.engine = engine
-        self._streams = _card_streams(engine)
+        self._streams = card_streams(engine)
         self.flush_rows = max(1, int(flush_rows))
         self.flush_interval_s = float(flush_interval_s)
         self._clock = clock
@@ -385,7 +358,7 @@ class WireBatcher:
                     break
             if not batch and not barriers:
                 return 0
-            with _on_streams(self._streams):
+            with on_streams(self._streams):
                 staged = self._submit(batch)
             self._wait_durable()
             # acks ONLY for frames whose run actually staged — stalled

@@ -32,6 +32,13 @@ The equations:
   device-disposition  accepted + invalid == processed (the tenant counter
                       grid partitions every valid row)
   wal-durability      0 <= durable_seq <= appended_seq
+  forward-queue       spilled == redelivered + deadlettered + rerouted +
+                      depth (a cluster rank's spill queue: dead-letter and
+                      a placement re-route are the only legal sinks)
+  replication-feed    published == feed_seq, and every follower's acked
+                      <= feed_seq
+  placement-handoff   moves_started == completed + aborted + in_flight,
+                      and no fenced slot without a move in flight
   rules-harvest       harvested == emitted + suppressed + skipped, and
                       device missed <= fires, pending >= 0
   archive-spill       spilled(part) <= ring_head(part), and ring_head -
@@ -72,7 +79,8 @@ import torch
 logger = logging.getLogger(__name__)
 
 EQUATIONS = ("edge-admission", "staging-balance", "device-processed", "device-disposition",
-             "wal-durability", "rules-harvest", "archive-spill",
+             "wal-durability", "forward-queue", "replication-feed",
+             "rules-harvest", "archive-spill", "placement-handoff",
              "spmd-shard-flow", "analytics-windows", "wire-frames", "wire-rows")
 
 
@@ -201,10 +209,13 @@ _SYNCS_ROLLUPS = 2
 
 
 def build_ledger(engine, rules_manager=None) -> dict:
-    """One mutually consistent flow-accounting snapshot of ``engine``.
+    """One mutually consistent flow-accounting snapshot of ``engine`` (a
+    cluster facade snapshots its local rank: rank ledgers federate
+    through the cluster fan-out, never through one merged snapshot).
     Reads the device counters (waiting for the dispatched steps), so it
     belongs on an audit cadence, never in the ingest loop. ``syncs`` in
     the result counts the device reads it made."""
+    facade, engine = engine, getattr(engine, "local", engine)
     led: FlowLedger = engine.ledger
     with engine.lock:
         base = dict(led.baseline)
@@ -268,6 +279,32 @@ def build_ledger(engine, rules_manager=None) -> dict:
             stages["wal"] = {"appended_seq": appended,
                              "durable_seq": durable,
                              "group_commit": bool(wal.group_commit)}
+        fq = getattr(engine, "forward_queue", None)
+        if fq is not None:
+            fm = fq.metrics()
+            stages["forward"] = {
+                "spilled_batches": fm["forward_spilled_batches"],
+                "redelivered_batches": fm["forward_redelivered_batches"],
+                "deadlettered_batches": fm["forward_deadlettered_batches"],
+                "rerouted_batches": fm.get("forward_rerouted_batches", 0),
+                "queue_depth": fm["forward_queue_depth"],
+                "open_circuits": fm["forward_open_circuits"],
+            }
+        pm = getattr(engine, "placement", None)
+        if pm is not None:
+            stages["placement"] = pm.ledger_stage()
+        feed = getattr(engine, "replica_feed", None)
+        applier = getattr(engine, "replica_applier", None)
+        if feed is not None or applier is not None:
+            rep: dict = {}
+            if feed is not None:
+                wm = feed.watermarks()
+                rep.update(feed_seq=wm["seq"], published=wm["published"],
+                           acked=wm["acked"], buffer=wm["buffer"])
+            if applier is not None:
+                rep["applied_by_leader"] = {str(r): applier.applied(r)
+                                            for r in applier.leaders()}
+            stages["replication"] = rep
         arch = getattr(engine, "archive", None)
         if arch is not None:
             # the spooler's own heads and capacity: one definition for the
@@ -300,14 +337,29 @@ def build_ledger(engine, rules_manager=None) -> dict:
         watermarks["wal_appended"] = w["appended_seq"]
         watermarks["wal_durable"] = w["durable_seq"]
         lag["wal_durable_lag"] = w["appended_seq"] - w["durable_seq"]
+    if "replication" in stages:
+        r = stages["replication"]
+        if "feed_seq" in r:
+            watermarks["feed_seq"] = r["feed_seq"]
+            acked = r.get("acked", {})
+            lag["replication_lag_batches"] = (
+                max(r["feed_seq"] - a for a in acked.values()) if acked else 0)
+        if r.get("applied_by_leader"):
+            watermarks["standby_applied"] = r["applied_by_leader"]
     if "archive" in stages:
         parts = stages["archive"]["parts"]
         watermarks["archive_spill"] = {p: v["spilled"] for p, v in parts.items()}
         lag["archive_spill_lag_rows"] = max(
             (v["head"] - v["spilled"] for v in parts.values()), default=0)
+    if "forward" in stages:
+        lag["forward_queue_depth"] = stages["forward"]["queue_depth"]
     if "rules" in stages and "rollup_window_id" in stages["rules"]:
         watermarks["rollup_window_id"] = stages["rules"]["rollup_window_id"]
-    return {"generatedMs": int(time.time() * 1000), "rank": 0,
+    if "placement" in stages:
+        # a rank at a lower epoch than its peers lags the commit broadcast
+        watermarks["placement_epoch"] = stages["placement"]["epoch"]
+    return {"generatedMs": int(time.time() * 1000),
+            "rank": getattr(facade, "rank", 0),
             "engine": getattr(engine, "metrics_label", "e?"),
             "stages": stages, "watermarks": watermarks, "lag": lag,
             "syncs": syncs}
@@ -382,6 +434,46 @@ def check_conservation(ledger: dict) -> list[Violation]:
             f"durable_seq {wal['durable_seq']} outside "
             f"[0, appended_seq {wal['appended_seq']}]",
             wal["durable_seq"], wal["appended_seq"])
+    fwd = st.get("forward")
+    if fwd:
+        rerouted = fwd.get("rerouted_batches", 0)
+        rhs = (fwd["redelivered_batches"] + fwd["deadlettered_batches"]
+               + rerouted + fwd["queue_depth"])
+        if fwd["spilled_batches"] != rhs:
+            bad("forward-queue",
+                f"spilled {fwd['spilled_batches']} != redelivered "
+                f"{fwd['redelivered_batches']} + deadlettered "
+                f"{fwd['deadlettered_batches']} + rerouted {rerouted} "
+                f"+ depth {fwd['queue_depth']}",
+                fwd["spilled_batches"], rhs,
+                slack=fwd["queue_depth"])
+    rep = st.get("replication")
+    if rep and "feed_seq" in rep:
+        if rep["published"] != rep["feed_seq"]:
+            bad("replication-feed",
+                f"published {rep['published']} != feed_seq "
+                f"{rep['feed_seq']}", rep["published"], rep["feed_seq"])
+        for f, acked in rep.get("acked", {}).items():
+            if acked > rep["feed_seq"]:
+                bad("replication-feed",
+                    f"follower {f} acked {acked} > feed_seq "
+                    f"{rep['feed_seq']}", acked, rep["feed_seq"])
+    pl = st.get("placement")
+    if pl:
+        rhs = (pl["moves_completed"] + pl["moves_aborted"]
+               + pl["moves_in_flight"])
+        if pl["moves_started"] != rhs:
+            bad("placement-handoff",
+                f"moves_started {pl['moves_started']} != completed "
+                f"{pl['moves_completed']} + aborted "
+                f"{pl['moves_aborted']} + in_flight "
+                f"{pl['moves_in_flight']}", pl["moves_started"], rhs,
+                slack=pl["moves_in_flight"])
+        if pl.get("fenced_slots", 0) and not pl["moves_in_flight"]:
+            bad("placement-handoff",
+                f"{pl['fenced_slots']} fenced slot(s) with no move in "
+                "flight (a fence must belong to a live handoff)",
+                pl["fenced_slots"], 0)
     sp = st.get("spmd")
     if sp:
         per = sp.get("perShard", [])

@@ -39,8 +39,16 @@ import time
 import zlib
 from typing import Iterator
 
+from sitewhere_tpu_torch.utils.metrics import REGISTRY
+
 _WATERMARK = 0xFFFFFFFF
 _MAGIC = b"SWAL1\n"   # segment format marker; absent = legacy length-only
+
+# fsync dominates the durability tail: the histogram puts a slow disk on
+# the scrape page beside the e2e latency it inflates. Under group commit
+# it observes once a commit, fewer times than batches at steady state
+_FSYNC_HIST = REGISTRY.histogram("swtpu_wal_fsync_seconds",
+                                 "WAL fsync latency")
 
 
 class IngestLog:
@@ -198,7 +206,9 @@ class IngestLog:
                 if buf:
                     self._fh.write(buf)
                     self._fh.flush()
+                t0 = time.perf_counter()
                 os.fsync(self._fh.fileno())
+                _FSYNC_HIST.observe(time.perf_counter() - t0)
                 with self._cv:
                     self._written_seq = max(self._written_seq, target)
                     self._durable_seq = max(self._durable_seq, target)
@@ -305,7 +315,9 @@ class IngestLog:
             if self._fh is None:
                 return
             self._fh.flush()
+            t0 = time.perf_counter()
             os.fsync(self._fh.fileno())
+            _FSYNC_HIST.observe(time.perf_counter() - t0)
 
     def close(self) -> None:
         if self.group_commit:

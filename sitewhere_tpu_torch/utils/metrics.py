@@ -11,10 +11,10 @@ format.
 Port of ``sitewhere_tpu/utils/metrics.py``: the registry core (a copy),
 the instruments and exporters of the planes the port has (query, archive,
 analytics, SLO, QoS, rules, the memory half of the device plane, the
-conservation ledger) and a single-rank federated exposition. Series
-names and label keys are the JAX package's, letter for letter. The
-port's ``REGISTRY`` is its own process-global object. The cluster, SPMD,
-replication and placement exporters wait for their planes.
+conservation ledger, the SPMD store, the cluster's forward hop, the
+replica feed and placement) and the federated exposition. Series names
+and label keys are the JAX package's, letter for letter. The port's
+``REGISTRY`` is its own process-global object.
 """
 
 from __future__ import annotations
@@ -268,11 +268,25 @@ class Histogram:
         raw-sample retention. Values beyond the last finite bucket clamp
         to that bound (the +Inf bucket has no width to interpolate
         into); None until a series observes."""
+        return self._quantile_from(q, *self.snapshot(**labels))
+
+    def snapshot(self, **labels) -> tuple[list[int], int]:
+        """One series' bucket counts and total observations, copied: the
+        baseline that :meth:`quantile_since` reads a later window
+        against."""
         key = tuple(sorted(labels.items()))
         with self._lock:
-            counts = list(self._counts.get(key) or ())
-            total = self._totals.get(key, 0)
-        return self._quantile_from(q, counts, total)
+            return (list(self._counts.get(key) or [0] * len(self.buckets)),
+                    self._totals.get(key, 0))
+
+    def quantile_since(self, q: float, before: tuple[list[int], int],
+                       **labels) -> float | None:
+        """:meth:`quantile` over only the observations the series took
+        since ``before`` (its :meth:`snapshot`): the window of one leg in
+        a process whose other work observes into the same series."""
+        counts, total = self.snapshot(**labels)
+        return self._quantile_from(q, [c - b for c, b in zip(counts, before[0])],
+                                   total - before[1])
 
     def expose(self, exemplars: bool = False) -> Iterator[str]:
         """Prometheus text exposition. ``exemplars`` appends OpenMetrics
@@ -652,6 +666,115 @@ def devicewatch_metrics(registry: MetricsRegistry | None = None) -> dict:
     }
 
 
+def replication_metrics(registry: MetricsRegistry | None = None) -> dict:
+    """The ``swtpu_replication_*`` instruments for the event-plane
+    replica feed. Registered here — NOT in engine.metrics(),
+    whose dict is pinned equal across dispatch shapes — exactly like the
+    query instruments:
+
+      swtpu_replication_published_total   WAL appends published to the feed
+      swtpu_replication_applied_total     feed batches applied into standbys
+      swtpu_replication_failover_reads_total  reads served from a standby
+      swtpu_replication_fireovers_total   schedule fire-over takeovers
+      swtpu_replication_lag_batches       publish-to-apply lag (gauge)
+      swtpu_replication_stale_ms          standby staleness watermark,
+                                          labeled per LEADER rank (one
+                                          series per peer this rank
+                                          stands by for — a single
+                                          lagging follower must be
+                                          visible, not averaged away)
+    """
+    reg = registry or REGISTRY
+    return {
+        "published": reg.counter(
+            "swtpu_replication_published_total",
+            "ingest batches published to the replica feed"),
+        "applied": reg.counter(
+            "swtpu_replication_applied_total",
+            "replica feed batches applied into standby stores"),
+        "failover_reads": reg.counter(
+            "swtpu_replication_failover_reads_total",
+            "reads served from a follower standby during owner outage"),
+        "fireovers": reg.counter(
+            "swtpu_replication_fireovers_total",
+            "schedule fire-over takeovers for dead owners"),
+        "lag": reg.gauge(
+            "swtpu_replication_lag_batches",
+            "replica feed publish-to-ack lag in batches"),
+        "stale": reg.gauge(
+            "swtpu_replication_stale_ms",
+            "standby staleness watermark in milliseconds, per leader "
+            "rank this rank follows"),
+    }
+
+
+def placement_metrics(registry: MetricsRegistry | None = None) -> dict:
+    """Elastic-placement instruments. Kept OUT of
+    engine.metrics() (dispatch-shape equality) like every plane before
+    it; the federated scrape re-labels them per rank:
+
+      swtpu_placement_epoch            the rank's installed map epoch
+                                       (a lagging rank is visible as a
+                                       lower epoch than its peers)
+      swtpu_placement_moves_total      handoffs by terminal state,
+                                       labeled started|completed|aborted
+      swtpu_placement_redirects_total  fenced-write + stale-sender 473
+                                       redirects served by this rank's
+                                       owner-side guard, labeled by kind
+      swtpu_placement_fenced_slots     slots currently fenced here
+                                       (nonzero only mid-handoff)
+    """
+    reg = registry or REGISTRY
+    return {
+        "epoch": reg.gauge(
+            "swtpu_placement_epoch",
+            "installed placement map epoch on this rank"),
+        "moves": reg.counter(
+            "swtpu_placement_moves_total",
+            "placement handoffs by state (started/completed/aborted)"),
+        "redirects": reg.counter(
+            "swtpu_placement_redirects_total",
+            "fenced-write and stale-sender ownership redirects served"),
+        "fenced": reg.gauge(
+            "swtpu_placement_fenced_slots",
+            "slots currently fenced on this rank (mid-handoff only)"),
+    }
+
+
+def export_placement_metrics(engine, registry: MetricsRegistry | None
+                             = None) -> None:
+    """Scrape-time export of the placement posture gauges (the move /
+    redirect counters increment live on their paths)."""
+    pm = getattr(engine, "placement", None)
+    if pm is None:
+        return
+    inst = placement_metrics(registry)
+    inst["epoch"].set(pm.epoch)
+    inst["fenced"].set(len(pm.fenced_slots()))
+
+
+def cluster_metrics_instruments(registry: MetricsRegistry | None
+                                = None) -> dict:
+    """Cluster data-plane instruments:
+
+      swtpu_forward_hop_seconds    sender-observed cross-rank forward
+                                   RPC latency, labeled by destination
+                                   rank (the forwarded-hop p99 the bench
+                                   cluster leg reports)
+      swtpu_cluster_scrapes_total  federated metric scrapes served
+    """
+    reg = registry or REGISTRY
+    return {
+        "forward_hop": reg.histogram(
+            "swtpu_forward_hop_seconds",
+            "cross-rank ingest forward RPC latency (sender-observed)",
+            buckets=E2E_LATENCY_BUCKETS),
+        "scrapes": reg.counter(
+            "swtpu_cluster_scrapes_total",
+            "federated cluster metric scrapes served"),
+    }
+
+
 def spmd_metrics(registry: MetricsRegistry | None = None) -> dict:
     """The multi-shard engine's instruments, kept out of
     ``engine.metrics()`` (its keys are pinned equal to the single-card
@@ -823,6 +946,7 @@ def export_engine_metrics(engine, registry: MetricsRegistry | None = None,
     for key in stale:
         g.set(0, **dict(key))
     export_observability_metrics(engine, reg)
+    export_placement_metrics(engine, reg)
     export_spmd_metrics(engine, reg)
     export_wire_metrics(engine, reg)
 
@@ -889,9 +1013,10 @@ def export_observability_metrics(engine, registry: MetricsRegistry | None
     per-tenant pipeline counter grid (computed inside the step — no extra
     host<->device syncs on the ingest path; the grid is read back here,
     on the scrape path, like every other device counter), host gauges for
-    arena-pool occupancy and in-flight dispatch depth, the flight
-    recorder and span tracer, the SLO harvest, the conservation ledger,
-    the memory ledger and the QoS plane."""
+    arena-pool occupancy and in-flight dispatch depth, a cluster rank's
+    spill queue, forward registry and replica feed, the flight recorder
+    and span tracer, the SLO harvest, the conservation ledger, the
+    memory ledger and the QoS plane."""
     reg = registry or REGISTRY
 
     tpc = getattr(engine, "tenant_pipeline_counters", None)
@@ -1001,6 +1126,46 @@ def export_observability_metrics(engine, registry: MetricsRegistry | None
                            disposition="suppressed")
         hc = getattr(engine, "host_counters", None) or {}
         inst["rollup_spilled"].set(hc.get("rollup_windows_spilled", 0))
+
+    fq = getattr(engine, "forward_queue", None)
+    if fq is not None:
+        fm = fq.metrics()
+        reg.gauge("swtpu_spill_queue_depth",
+                  "cross-rank forward batches spilled to disk").set(
+                      fm.get("forward_queue_depth", 0))
+        oldest = fm.get("forward_queue_oldest_ms")
+        if oldest is not None:
+            reg.gauge("swtpu_spill_queue_oldest_ms",
+                      "age of the oldest spilled forward").set(oldest)
+
+    sreg = getattr(engine, "spill_registry", None)
+    if sreg is not None:
+        sm = sreg.metrics()
+        reg.gauge("swtpu_forward_dedup_horizon_age_ms",
+                  "age of the forward dedup eviction watermark (-1 = "
+                  "nothing evicted yet)").set(
+                      sm["forward_dedup_horizon_age_ms"])
+        reg.gauge("swtpu_forward_dedup_entries",
+                  "forward ids the dedup registry currently holds").set(
+                      sm["forward_dedup_entries"])
+
+    feed = getattr(engine, "replica_feed", None)
+    applier = getattr(engine, "replica_applier", None)
+    if feed is not None or applier is not None:
+        inst = replication_metrics(reg)
+        if feed is not None:
+            fm = feed.metrics()
+            inst["lag"].set(fm.get("replica_feed_max_lag_batches", 0))
+        if applier is not None:
+            # one series PER LEADER this rank stands by for (not a
+            # global max): a single lagging follower must show up on
+            # the scrape before a failover read hits it
+            written: set[tuple] = set()
+            for leader, ms in applier.stale_by_leader().items():
+                labels = {"leader": str(leader)}
+                inst["stale"].set(ms, **labels)
+                written.add(tuple(sorted(labels.items())))
+            inst["stale"].retain(written)
 
     flight = getattr(engine, "flight", None)
     if flight is not None:
@@ -1210,9 +1375,9 @@ def federate_expositions(parts: dict) -> str:
 
 
 def federated_exposition(engine) -> str:
-    """The cluster-shaped exposition of one engine: an engine with a
-    ``cluster_metrics`` fan-out answers with it; a single-node engine
-    (every port engine today) serves its own registry under
+    """The cluster-shaped exposition of one engine: a clustered engine
+    fans out to every rank (``ClusterEngine.cluster_metrics``); a
+    single-node engine serves its own registry under
     ``rank="0"`` — with the ``swtpu_cluster_rank_up`` availability
     series, so alerts written against the clustered payload hold on any
     topology."""

@@ -97,6 +97,7 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
             "sitewhere_tpu_torch.ingest.mqtt", "sitewhere_tpu_torch.ingest.wire_edge",
             "sitewhere_tpu_torch.ingest.coap", "sitewhere_tpu_torch.ingest.amqp",
             "sitewhere_tpu_torch.ingest.stomp", "sitewhere_tpu_torch.ingest.eventhub",
+            "sitewhere_tpu_torch.utils.streams",
             # the entity and outbound services
             "sitewhere_tpu_torch.management.entities",
             "sitewhere_tpu_torch.management.device_management",
@@ -116,7 +117,29 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
             "sitewhere_tpu_torch.rpc.protocol", "sitewhere_tpu_torch.rpc.client",
             "sitewhere_tpu_torch.rpc.server", "sitewhere_tpu_torch.web.http",
             "sitewhere_tpu_torch.web.rest", "sitewhere_tpu_torch.parallel.replication",
+            # the cluster planes and the rules oracle
+            *CLUSTER_MODULES,
             } <= set(names.split())
+
+
+CLUSTER_MODULES = tuple(f"sitewhere_tpu_torch.{m}" for m in (
+    "parallel.cluster", "parallel.forward", "parallel.placement",
+    "parallel.replication", "parallel.entity_sync", "parallel.cluster_reshard",
+    "parallel.rank_runtime", "parallel.cluster_demo", "rules.oracle"))
+
+
+def _module_paths(root: pathlib.Path) -> set[str]:
+    return {p.relative_to(root).as_posix() for p in root.rglob("*.py")
+            if "__pycache__" not in p.parts}
+
+
+def test_every_jax_module_has_a_port_module():
+    """The port is whole: each module path of ``sitewhere_tpu/`` has one of
+    the same path under ``sitewhere_tpu_torch/`` (no exceptions)."""
+    jax_paths = _module_paths(REPO / "sitewhere_tpu")
+    missing = sorted(jax_paths - _module_paths(REPO / "sitewhere_tpu_torch"))
+    assert len(jax_paths) > 100
+    assert missing == []
 
 
 _SERVERS_PROBE = r"""
@@ -208,6 +231,102 @@ def test_servers_serve_with_jax_and_aiohttp_blocked():
     out = json.loads(res.stdout.splitlines()[0])
     assert out == {"create": 201, "event": 201, "value": 2.5, "backend": "cpu",
                    "rpc": 1}
+
+
+_CLUSTER_PROBE = r"""
+import asyncio
+import importlib
+import json
+import sys
+import tempfile
+import threading
+import time
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sitewhere_tpu", "aiohttp")
+
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"BLOCKED: the port tried to import {name!r}")
+        return None
+
+sys.meta_path.insert(0, _Blocker())
+
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+
+# what a spawned demo worker imports, in its order
+from sitewhere_tpu_torch.parallel.cluster_demo import worker_main  # noqa: F401
+from sitewhere_tpu_torch.engine import EngineConfig  # noqa: F401
+from sitewhere_tpu_torch.instance.instance import InstanceConfig  # noqa: F401
+from sitewhere_tpu_torch.parallel.rank_runtime import RankConfig, run_rank  # noqa: F401
+
+from sitewhere_tpu_torch.parallel.cluster import (ClusterConfig, ClusterEngine,
+                                                  build_cluster_rpc, owner_rank)
+from sitewhere_tpu_torch.parallel.cluster_demo import free_ports
+from sitewhere_tpu_torch.parallel.distributed import DistributedConfig
+from sitewhere_tpu_torch.parallel.forward import ForwardQueue, SpillRegistry
+
+ports = free_ports(2)
+loop = asyncio.new_event_loop()
+threading.Thread(target=loop.run_forever, daemon=True).start()
+tmp = tempfile.mkdtemp()
+peers = [f"127.0.0.1:{p}" for p in ports]
+base_s = float(int(time.time()))
+clusters, servers = [], []
+for r in range(2):
+    c = ClusterEngine(ClusterConfig(
+        rank=r, n_ranks=2, peers=peers, secret="s", epoch_base_unix_s=base_s,
+        engine=DistributedConfig(n_shards=2, device_capacity_per_shard=32,
+                                 token_capacity_per_shard=64,
+                                 assignment_capacity_per_shard=64,
+                                 store_capacity_per_shard=256, channels=4,
+                                 batch_capacity_per_shard=16, device="cpu",
+                                 wal_dir=f"{tmp}/wal-r{r}"),
+        connect_timeout_s=10.0))
+    c.attach_forwarding(ForwardQueue(c, f"{tmp}/fwd-r{r}"),
+                        SpillRegistry(f"{tmp}/fwd-r{r}/registry"))
+    srv = build_cluster_rpc(c.local, "s")
+    asyncio.run_coroutine_threadsafe(srv.start(port=ports[r]), loop).result(10)
+    clusters.append(c)
+    servers.append(srv)
+toks = [f"pr-{i}" for i in range(8)]
+s = clusters[0].ingest_json_batch([json.dumps({
+    "deviceToken": t, "type": "DeviceMeasurement",
+    "request": {"name": "t", "value": float(i), "eventDate": int(base_s * 1000) + i}}
+    ).encode() for i, t in enumerate(toks)])
+clusters[0].flush()
+out = {"staged": s["staged"], "owners": sorted({owner_rank(t, 2) for t in toks}),
+       "total_at_1": clusters[1].query_events(limit=50)["total"],
+       "local_0": clusters[0].local.metrics()["persisted"],
+       "local_1": clusters[1].local.metrics()["persisted"]}
+for srv in servers:
+    asyncio.run_coroutine_threadsafe(srv.stop(), loop).result(10)
+for c in clusters:
+    c.forward_queue.stop()
+    c.spill_registry.close()
+    c.close()
+loop.call_soon_threadsafe(loop.stop)
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+out["leaked"] = leaked
+print(json.dumps(out))
+"""
+
+
+def test_cluster_forwards_with_jax_and_aiohttp_blocked():
+    """The cluster planes and the rules oracle import, a spawned demo
+    worker's imports load, and a two-rank cluster forwards a mixed-owner
+    batch to its owners, where ``jax``, ``sitewhere_tpu`` and ``aiohttp``
+    cannot be imported."""
+    res = subprocess.run([sys.executable, "-c", _CLUSTER_PROBE, *CLUSTER_MODULES],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, f"{res.stdout}\n{res.stderr}"
+    out = json.loads(res.stdout.splitlines()[-1])
+    assert out["leaked"] == []
+    assert out["owners"] == [0, 1] and out["staged"] == 8
+    assert out["total_at_1"] == 8
+    assert out["local_0"] + out["local_1"] == 8 and min(out["local_0"], out["local_1"]) > 0
 
 
 _SHARDED_PROBE = r"""
@@ -932,3 +1051,31 @@ def test_chip_ab_records_a_tree_without_a_card_and_fails(tmp_path):
     assert res.returncode == 1, res.stderr
     (run,) = json.loads(out.read_text())["runs"]
     assert "no CUDA device" in run["error"] and "timings" not in run
+
+
+def test_cluster_entry_points_raise_without_a_gpu(tmp_path):
+    """A cluster rank, ``run_rank`` and a standby reset built with no
+    device ask for CUDA and raise on a machine without one; the demo's
+    spawner defaults to the card too."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    import inspect
+
+    from sitewhere_tpu_torch.parallel.cluster import ClusterConfig, ClusterEngine
+    from sitewhere_tpu_torch.parallel.cluster_demo import spawn_cluster_demo, worker_main
+    from sitewhere_tpu_torch.parallel.distributed import DistributedConfig
+    from sitewhere_tpu_torch.parallel.rank_runtime import RankConfig, run_rank
+
+    small = DistributedConfig(n_shards=1, device_capacity_per_shard=8,
+                              token_capacity_per_shard=8,
+                              assignment_capacity_per_shard=8,
+                              store_capacity_per_shard=64,
+                              batch_capacity_per_shard=8)
+    cfg = ClusterConfig(rank=0, n_ranks=1, peers=["127.0.0.1:1"], secret="s",
+                        epoch_base_unix_s=0.0, engine=small)
+    for call in (lambda: ClusterEngine(cfg),
+                 lambda: run_rank(RankConfig(cluster=cfg, require_wal=False))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    for fn in (spawn_cluster_demo, worker_main):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

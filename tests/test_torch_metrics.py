@@ -106,6 +106,31 @@ def test_registry_core_matches_jax():
     assert tm.next_engine_label().startswith("e")
 
 
+def test_quantile_since_reads_only_the_window():
+    """``quantile_since`` over a ``snapshot`` baseline equals the quantile
+    of a histogram (the port's and JAX's) that saw only the window."""
+    rng = np.random.default_rng(3)
+    before, window = (rng.lognormal(-3, 2, n) for n in (300, 200))
+    h = tm.MetricsRegistry().histogram("swtpu_w_seconds", "w", buckets=jm.E2E_LATENCY_BUCKETS)
+    assert h.quantile_since(0.99, h.snapshot(dst="1"), dst="1") is None
+    for v in before:
+        h.observe(float(v), dst="1")
+        h.observe(float(v) / 10, dst="0")
+    base = h.snapshot(dst="1")
+    assert h.quantile_since(0.99, base, dst="1") is None
+    alone = [tm.MetricsRegistry().histogram("swtpu_w_seconds", "w",
+                                            buckets=jm.E2E_LATENCY_BUCKETS),
+             jm.MetricsRegistry().histogram("swtpu_w_seconds", "w",
+                                            buckets=jm.E2E_LATENCY_BUCKETS)]
+    for v in window:
+        for x in (h, *alone):
+            x.observe(float(v), dst="1")
+    assert h.snapshot(dst="1")[1] - base[1] == len(window)
+    for q in (0.5, 0.9, 0.99):
+        got = h.quantile_since(q, base, dst="1")
+        assert got == alone[0].quantile(q, dst="1") == alone[1].quantile(q, dst="1")
+
+
 def _engines(tmp_path):
     cfg = dict(SIZES, qos=True, tenant_weights={"t2": 2.0}, tenant_rates={"t2": 5.0})
     jeng = JaxEngine(JaxEngineConfig(**cfg))

@@ -337,3 +337,13 @@ def test_query_rounds_follow_weights_under_overflow():
     sj, _ = jeng._query_batcher._wfq.pick(list(entries), 2)
     st, _ = teng._query_batcher._wfq.pick(list(entries), 2)
     assert [e["i"] for e in st] == [e["i"] for e in sj]
+
+
+def test_facade_single_event_edge_admits_per_owner(tmp_path):
+    """``tests/test_qos.py:649`` on the port (its copy through
+    ``tests.torch_cluster.port_tests``): the REST edge over a forwarding
+    cluster facade charges only locally owned devices to the local bucket,
+    forwards remote-owned ones untouched, and answers a local shed 429."""
+    from tests.torch_cluster import port_tests
+
+    port_tests("test_qos").test_facade_single_event_edge_admits_per_owner(tmp_path)

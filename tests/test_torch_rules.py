@@ -30,7 +30,7 @@ from sitewhere_tpu.ops import rules as jrules
 from sitewhere_tpu.rules import RuleSet as JaxRuleSet
 from sitewhere_tpu.rules import RuleSetError as JaxRuleSetError
 from sitewhere_tpu.rules import RulesManager as JaxRulesManager
-from sitewhere_tpu.rules import oracle
+from sitewhere_tpu_torch.rules import oracle
 from sitewhere_tpu_torch import convert
 from sitewhere_tpu_torch.core.events import EpochBase
 from sitewhere_tpu_torch.engine import Engine, EngineConfig

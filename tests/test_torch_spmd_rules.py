@@ -8,7 +8,7 @@ built once."""
 import pytest
 
 from sitewhere_tpu.rules import RulesManager as JaxRulesManager
-from sitewhere_tpu.rules import oracle as rules_oracle
+from sitewhere_tpu_torch.rules import oracle as rules_oracle
 from sitewhere_tpu_torch.engine import EngineConfig
 from sitewhere_tpu_torch.parallel.placement import shard_for_token
 from sitewhere_tpu_torch.parallel.sharded import SpmdEngine
