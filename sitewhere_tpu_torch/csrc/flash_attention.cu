@@ -14,15 +14,17 @@
 //
 // Three kernels, chosen by dtype and head dim in swtpu_flash_attention:
 //
-// * bfloat16 and float16 at D = 64 and 128: FA3's forward on wgmma and
-//   TMA, warp-specialised, with the softmax of one compute warpgroup
+// * bfloat16 and float16 at D = 64, 128 and 256: FA3's forward on wgmma
+//   and TMA, warp-specialised, with the softmax of one compute warpgroup
 //   running under the other's products and, within a warpgroup, under its
 //   own P V product of the tile before (flash_attention_wgmma_kernel<T, D>
-//   below; the note there). At D = 128 the products bind (at [8, 16384, 2,
-//   128] causal 1.112 ms of products against 0.51 ms of exponentials); at
-//   D = 64 the two cost about the same (at [8, 16384, 4, 64] causal 1.112
-//   ms and 1.028 ms), so only a kernel that overlaps them comes near the
-//   bound, and only wgmma reaches the tensor cores' full rate.
+//   below; the note there; 64-key tiles at D = 256). At D = 128 and 256
+//   the products bind (at [8, 16384, 2, 128] causal 1.112 ms of products
+//   against 0.51 ms of exponentials; at [8, 16384, 1, 256] 1.112 against
+//   0.257); at D = 64 the two cost about the same (at [8, 16384, 4, 64]
+//   causal 1.112 ms and 1.028 ms), so only a kernel that overlaps them
+//   comes near the bound, and only wgmma reaches the tensor cores' full
+//   rate.
 // * bfloat16 and float16 at D = 16 and 32 (bf16 is the default
 //   transformer's path; the same kernel on float16 fragments and the
 //   float16 mma): tensor cores, FA2-style on mma.sync. A block of
@@ -51,17 +53,18 @@
 //   P V mma (the m16n8 accumulator layout is the m16n8k16 A layout), with V
 //   fragments from ldmatrix.x4.trans: P never goes through shared memory.
 //   The output goes out through shared memory as 16-byte stores.
-// * float32: one thread per query row on the CUDA cores, float32 products,
-//   K/V tiles of 32 keys in shared memory. Tensor cores would mean TF32
-//   (about 3 decimal digits), which the float32 contract (1e-5) does not
-//   allow. Not on the transformer's path.
+// * float32: one thread per query row on the CUDA cores (at D = 256 four
+//   threads a row, 64 columns each), float32 products, K/V tiles of 32 keys
+//   (16 at D = 256) in shared memory. Tensor cores would mean TF32 (about 3
+//   decimal digits), which the float32 contract (1e-5) does not allow. Not
+//   on the transformer's path.
 //
 // q, k and v are read in place through base pointers and (batch, row, head)
 // strides with unit stride on D, so the three strided views of one fused
 // [B, S, 3, H, D] qkv product are read as they lie; the 16-bit path needs each
 // row 16-byte aligned (the wrapper checks). The output is written contiguous
-// [B, S, H, D]. Head dims 16, 32, 64 and 128; the wrapper pads any other D
-// up to 128 with zero lanes (ops/attention.py:padded_head_dim).
+// [B, S, H, D]. Head dims 16, 32, 64, 128 and 256; the wrapper pads any
+// other D up to 256 with zero lanes (ops/attention.py:padded_head_dim).
 //
 // Semantics kept from the TPU kernel and its oracle (mha_reference):
 //   * causal: key tiles wholly above a block's rows are never loaded, a
@@ -96,8 +99,24 @@ namespace {
 
 // ------------------------------------------------------------------ float32
 
-constexpr int kF32BlockQ = 128;  // query rows per block, one per thread
-constexpr int kF32BlockK = 32;   // keys per shared-memory tile
+constexpr int kF32BlockQ = 128;  // threads a block
+
+// The float32 kernel's tiling at head dim D: up to D = 128 one thread a
+// query row (q and the accumulator in its registers) and K/V tiles of 32
+// keys; past 128 a row's D columns are split among kSplit adjacent threads
+// (its float4 chunks part, part + kSplit, ..., so the threads of a row read
+// neighbouring 16 bytes of a shared K or V row), each dot product summed
+// across them by warp shuffles, and K/V tiles of 16 keys, which keeps q and
+// the accumulator at 64 registers each and the static tiles at 32 KB
+template <int D>
+struct F32Tile {
+  static constexpr int kSplit = D > 128 ? 4 : 1;      // threads a query row
+  static constexpr int kCols = D / kSplit;            // columns a thread
+  static constexpr int kRows = kF32BlockQ / kSplit;   // query rows a block
+  static constexpr int kKeys = D > 128 ? 16 : 32;     // keys a shared tile
+  static_assert(kCols % 4 == 0, "a thread's columns are float4 chunks");
+  static_assert(2 * kKeys * D * 4 <= 48 * 1024, "past 48 KB of static shared memory");
+};
 
 template <int D>
 __global__ void __launch_bounds__(kF32BlockQ)
@@ -108,36 +127,42 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            int num_q_tiles, int num_bh,
                            Strides qs, Strides ks, Strides vs,
                            float scale_log2e, int causal) {
-  static_assert(D % 4 == 0, "D must be a multiple of 4");
-  __shared__ __align__(16) float k_tile[kF32BlockK][D];
-  __shared__ __align__(16) float v_tile[kF32BlockK][D];
+  using Tile = F32Tile<D>;
+  constexpr int kSplit = Tile::kSplit, kCols = Tile::kCols, kKeys = Tile::kKeys;
+  __shared__ __align__(16) float k_tile[kKeys][D];
+  __shared__ __align__(16) float v_tile[kKeys][D];
 
   const int bh = blockIdx.x % num_bh;
   const int qt = num_q_tiles - 1 - blockIdx.x / num_bh;
   const int b = bh / h;
   const int hd = bh - b * h;
-  const int row = qt * kF32BlockQ + threadIdx.x;
+  const int row = qt * Tile::kRows + threadIdx.x / kSplit;
+  const int part = threadIdx.x % kSplit;  // the thread's share of the row
   const bool live_row = row < s;
+  // the lanes of this row: they agree on every branch, and sum each dot
+  // product among themselves
+  const unsigned row_lanes = kSplit == 1 ? 0xffffffffu
+                                         : ((1u << kSplit) - 1) << ((threadIdx.x & 31) & ~(kSplit - 1));
 
   const float* kb = k + b * ks.b + hd * ks.h;
   const float* vb = v + b * vs.b + hd * vs.h;
 
-  float qr[D], acc[D];
+  float qr[kCols], acc[kCols];
 #pragma unroll
-  for (int c = 0; c < D; ++c) qr[c] = acc[c] = 0.0f;
+  for (int c = 0; c < kCols; ++c) qr[c] = acc[c] = 0.0f;
   if (live_row) {
     const float* qp = q + b * qs.b + static_cast<int64_t>(row) * qs.s + hd * qs.h;
 #pragma unroll
-    for (int c = 0; c < D; ++c) qr[c] = qp[c] * scale_log2e;
+    for (int c = 0; c < kCols; ++c) qr[c] = qp[4 * ((c / 4) * kSplit + part) + c % 4] * scale_log2e;
   }
   float m = kNegInf, l = 0.0f;
 
   // keys past the last row of this tile are masked for every row of it
-  const int kv_end = causal ? min(s, (qt + 1) * kF32BlockQ) : s;
-  for (int k0 = 0; k0 < kv_end; k0 += kF32BlockK) {
-    const int tile = min(kF32BlockK, kv_end - k0);
+  const int kv_end = causal ? min(s, (qt + 1) * Tile::kRows) : s;
+  for (int k0 = 0; k0 < kv_end; k0 += kKeys) {
+    const int tile = min(kKeys, kv_end - k0);
     __syncthreads();  // the previous tile is no longer read
-    for (int e = threadIdx.x; e < kF32BlockK * D; e += kF32BlockQ) {
+    for (int e = threadIdx.x; e < kKeys * D; e += kF32BlockQ) {
       const int r = e / D, c = e - (e / D) * D;
       float kx = 0.0f, vx = 0.0f;  // zeros past the tail: p = 0 times 0
       if (r < tile) {
@@ -153,20 +178,22 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     const int n = causal ? min(tile, row + 1 - k0) : tile;  // live keys
     if (!live_row || n <= 0) continue;
 
-    float p[kF32BlockK];
+    float p[kKeys];
     float tile_max = kNegInf;
 #pragma unroll
-    for (int j = 0; j < kF32BlockK; ++j) {
+    for (int j = 0; j < kKeys; ++j) {
       const float4* kr = reinterpret_cast<const float4*>(k_tile[j]);
       float dot = 0.0f;
 #pragma unroll
-      for (int c = 0; c < D / 4; ++c) {
-        const float4 kk = kr[c];
+      for (int c = 0; c < kCols / 4; ++c) {
+        const float4 kk = kr[c * kSplit + part];
         dot = fmaf(qr[4 * c], kk.x, dot);
         dot = fmaf(qr[4 * c + 1], kk.y, dot);
         dot = fmaf(qr[4 * c + 2], kk.z, dot);
         dot = fmaf(qr[4 * c + 3], kk.w, dot);
       }
+#pragma unroll
+      for (int o = 1; o < kSplit; o <<= 1) dot += __shfl_xor_sync(row_lanes, dot, o);
       p[j] = j < n ? dot : kNegInf;
       tile_max = fmaxf(tile_max, p[j]);
     }
@@ -174,15 +201,15 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     const float alpha = exp2f(m - m_new);
     l *= alpha;
 #pragma unroll
-    for (int c = 0; c < D; ++c) acc[c] *= alpha;
+    for (int c = 0; c < kCols; ++c) acc[c] *= alpha;
 #pragma unroll
-    for (int j = 0; j < kF32BlockK; ++j) {
+    for (int j = 0; j < kKeys; ++j) {
       const float pj = j < n ? exp2f(p[j] - m_new) : 0.0f;
       l += pj;
       const float4* vr = reinterpret_cast<const float4*>(v_tile[j]);
 #pragma unroll
-      for (int c = 0; c < D / 4; ++c) {
-        const float4 vv = vr[c];
+      for (int c = 0; c < kCols / 4; ++c) {
+        const float4 vv = vr[c * kSplit + part];
         acc[4 * c] = fmaf(pj, vv.x, acc[4 * c]);
         acc[4 * c + 1] = fmaf(pj, vv.y, acc[4 * c + 1]);
         acc[4 * c + 2] = fmaf(pj, vv.z, acc[4 * c + 2]);
@@ -194,13 +221,13 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 
   if (!live_row) return;
   // m and the scores are in log2 units (q carries scale * log2(e))
-  if (lse != nullptr)
+  if (lse != nullptr && part == 0)
     lse[static_cast<int64_t>(bh) * s + row] =
         l == 0.0f ? INFINITY : (m + log2f(l)) * kLn2;
   const float denom = l == 0.0f ? 1.0f : l;  // acc is 0 too when l == 0
   float* op = out + ((static_cast<int64_t>(b) * s + row) * h + hd) * D;
 #pragma unroll
-  for (int c = 0; c < D; ++c) op[c] = acc[c] / denom;
+  for (int c = 0; c < kCols; ++c) op[4 * ((c / 4) * kSplit + part) + c % 4] = acc[c] / denom;
 }
 
 // ------------------------------------------------------- bfloat16 / fp16
@@ -473,18 +500,18 @@ flash_attention_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------- bfloat16 and float16 at D = 64 and 128: wgmma
+// --------------------- bfloat16 and float16 at D = 64, 128 and 256: wgmma
 
 // FA3's forward: warp-specialised, wgmma and TMA. A block owns (batch,
 // head, 64 kWGs query rows): compute warpgroups 0 .. kWGs-1 take 64 rows
-// each (kWGs = 2 at D = 128, 3 at D = 64); in the last warpgroup one
-// thread issues the TMA loads (Q once, then K and V tiles of 128 keys into
-// rings guarded by mbarriers, K and V each its own so a K tile is freed as
-// soon as S has read it), and setmaxnreg moves registers from it to the
-// compute warpgroups (232 a thread at D = 128, 160 at D = 64). A tile row
-// is D / 64 d-boxes of 64 columns (128-byte swizzle). Each key tile j, a
-// compute warpgroup runs
-// * S_j = Q K_j^T by wgmma from shared memory (64 x 128 float32, 64
+// each (kWGs = 2 at D = 128 and 256, 3 at D = 64); in the last warpgroup
+// one thread issues the TMA loads (Q once, then K and V tiles of kBN keys
+// into rings guarded by mbarriers, K and V each its own so a K tile is
+// freed as soon as S has read it), and setmaxnreg moves registers from it
+// to the compute warpgroups (232 a thread at D = 128 and 256, 160 at
+// D = 64). A tile row is D / 64 d-boxes of 64 columns (128-byte swizzle).
+// Each key tile j, a compute warpgroup runs
+// * S_j = Q K_j^T by wgmma from shared memory (64 x kBN float32, kBN / 2
 //   registers; D / 16 k16 steps over the d-boxes, K-major);
 // * the online softmax of S_j in registers, the scale folded into one FMA
 //   before ex2.approx as in the mma.sync kernel (c > 0: a negative scale
@@ -492,7 +519,16 @@ flash_attention_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
 //   16-bit float being exact; a zero scale runs as the smallest normal
 //   float);
 // * O += P_j V_j by wgmma with P, rounded to T (bf16 or fp16: P <= 1), as
-//   the register A operand (D / 2 registers of O) and V MN-major.
+//   the register A operand (D / 2 registers of O) and V MN-major; at
+//   D = 256 as two products of 128 columns each (wgmma's N of 256 would
+//   take all 128 accumulators in one instruction), the second on d-boxes
+//   2 and 3.
+// At D = 256 a tile is 64 keys, not 128: Q takes 64 KB and a 128-key K or
+// V tile 64 KB, so two-stage rings of 128 keys (256 KB) would not fit in
+// the 227 KB a block may take; with 64 keys they take 128 KB (192 KB in
+// all), and a thread holds O (128 registers), S (32) and P (16) under
+// setmaxnreg's 232. Bound there (causal [8, 16384, 1, 256]): the products,
+// 1.112 ms, the exponentials 0.257.
 // Bound (at D = 64, causal [8, 16384, 4, 64]: 4.3e9 live pairs): the
 // products (1.11 ms at 989 TFLOP/s) and the exponentials (1.03 ms at 16 per
 // SM per clock) cost about the same, and the softmax's other instructions
@@ -519,7 +555,6 @@ flash_attention_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // zero-fills keys and rows past S; padded rows are never stored). The
 // output goes out through the warpgroup's Q boxes (16-byte chunks
 // XOR-swizzled by row) as 16-byte stores; lse as in the mma.sync kernel.
-constexpr int kFwdBN = 128;       // keys a tile
 constexpr int kFwdTurn = 4;       // named barriers 4 + wg: warpgroup wg's turn (1 + wg: its own)
 
 // the block at head dim D: kWGs compute warpgroups of 64 query rows and
@@ -528,24 +563,29 @@ constexpr int kFwdTurn = 4;       // named barriers 4 + wg: warpgroup wg's turn 
 // a 1024-byte aligned base
 template <int D>
 struct FwdSmem {
-  static_assert(D == 64 || D == 128, "the wgmma forward takes D = 64 or 128");
+  static_assert(D == 64 || D == 128 || D == 256, "the wgmma forward takes D = 64, 128 or 256");
   static constexpr int kWGs = D == 64 ? 3 : 2;       // compute warpgroups
   static constexpr int kBM = 64 * kWGs;              // query rows a block
+  static constexpr int kBN = D == 256 ? 64 : 128;    // keys a tile
+  // the output's columns a P V product (wgmma's N, 128 at most here) and
+  // the products a tile
+  static constexpr int kON = D < 128 ? D : 128;
+  static constexpr int kOParts = D / kON;
   static constexpr int kThreads = 128 * (kWGs + 1);
   static constexpr int kComputeRegs = D == 64 ? 160 : 232;
   static constexpr int kProducerRegs = D == 64 ? 32 : 40;
   static_assert(128 * (kWGs * kComputeRegs + kProducerRegs) <= 65536, "past the register file");
   // the key tiles that can hold the diagonal or the tail of keys: the last
-  // ceil(kBM / kFwdBN)
-  static constexpr int kMaskTiles = (kBM + kFwdBN - 1) / kFwdBN;
+  // ceil(kBM / kBN)
+  static constexpr int kMaskTiles = (kBM + kBN - 1) / kBN;
   static constexpr int kBoxes = D / 64;              // 64-column d-boxes a row
   static constexpr int kStages = D == 64 ? 4 : 2;    // K ring and V ring depth
   static constexpr int kRowB = 128;                  // a d-box row: 64 elements
   static constexpr int kQBox = 64 * kRowB;           // a d-box of a warpgroup's rows
-  static constexpr int kKVBox = kFwdBN * kRowB;      // a d-box of a K or V tile
+  static constexpr int kKVBox = kBN * kRowB;         // a d-box of a K or V tile
   static constexpr int kKVTile = kBoxes * kKVBox;
   static constexpr int kQ = 0;                       // Q [kWGs][kBoxes][64][64]
-  static constexpr int kK = kQ + kWGs * kBoxes * kQBox;  // K [kStages][kBoxes][kFwdBN][64]
+  static constexpr int kK = kQ + kWGs * kBoxes * kQBox;  // K [kStages][kBoxes][kBN][64]
   static constexpr int kV = kK + kStages * kKVTile;
   // k full, k empty, v full, v empty [kStages] each, q
   static constexpr int kBar = kV + kStages * kKVTile;
@@ -553,8 +593,8 @@ struct FwdSmem {
   static_assert(kBytes + 1024 <= 232448, "past the 227 KB a block may take");
 };
 
-// The online softmax of one S tile [64 rows, 128 keys] in a thread's
-// wgmma layout (warp_row the warp's first row; lane = 4 g + t), in two
+// The online softmax of one S tile [64 rows, 2 N keys] in a thread's
+// wgmma layout (N of its float32 accumulators) (warp_row the warp's first row; lane = 4 g + t), in two
 // parts. fwd_max: with kMask (the last key tile, the only one that can
 // hold the diagonal or the tail of keys) masks per element, then takes
 // the running max m of the thread's two rows across the quad and gives
@@ -565,13 +605,13 @@ struct FwdSmem {
 // warp shuffle: the max runs before P V is issued, the exponentials under
 // it. The mask is a template argument so the other tiles' code has no
 // branch (ptxas also waits at the first merge point after one).
-template <bool kMask>
-__device__ __forceinline__ void fwd_max(float (&sc)[64], float (&m)[2], float (&alpha)[2],
+template <bool kMask, int N>
+__device__ __forceinline__ void fwd_max(float (&sc)[N], float (&m)[2], float (&alpha)[2],
                                         float (&mc)[2], int k0, int warp_row, int g, int t,
                                         int s, int causal, float scale_log2e) {
   if constexpr (kMask) {
 #pragma unroll
-    for (int jj = 0; jj < 16; ++jj)
+    for (int jj = 0; jj < N / 4; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + 8 * jj + 2 * t + (e & 1);
@@ -580,7 +620,7 @@ __device__ __forceinline__ void fwd_max(float (&sc)[64], float (&m)[2], float (&
       }
   }
   // each row's max in 4 chains (max is exact in any order): 9 dependent
-  // steps rather than 33, in 4 registers a row
+  // steps rather than 33 at N = 64, in 4 registers a row
   float mx[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -588,7 +628,7 @@ __device__ __forceinline__ void fwd_max(float (&sc)[64], float (&m)[2], float (&
 #pragma unroll
     for (int i = 0; i < 4; ++i) v[i] = fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]);
 #pragma unroll
-    for (int jj = 4; jj < 16; ++jj)
+    for (int jj = 4; jj < N / 4; ++jj)
       v[jj & 3] = fmaxf(v[jj & 3], fmaxf(sc[4 * jj + 2 * r], sc[4 * jj + 2 * r + 1]));
     mx[r] = fmaxf(m[r], fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3])));
   }
@@ -602,11 +642,12 @@ __device__ __forceinline__ void fwd_max(float (&sc)[64], float (&m)[2], float (&
   }
 }
 
-__device__ __forceinline__ void fwd_exp(float (&sc)[64], float (&l)[2], const float (&alpha)[2],
+template <int N>
+__device__ __forceinline__ void fwd_exp(float (&sc)[N], float (&l)[2], const float (&alpha)[2],
                                         const float (&mc)[2], float scale_log2e) {
   float rs[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int jj = 0; jj < 16; ++jj) {
+  for (int jj = 0; jj < N / 4; ++jj) {
     sc[4 * jj] = exp2_approx(fmaf(sc[4 * jj], scale_log2e, -mc[0]));
     sc[4 * jj + 1] = exp2_approx(fmaf(sc[4 * jj + 1], scale_log2e, -mc[0]));
     sc[4 * jj + 2] = exp2_approx(fmaf(sc[4 * jj + 2], scale_log2e, -mc[1]));
@@ -628,6 +669,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              int q_neg, int causal) {
   using L = FwdSmem<D>;
   constexpr int kB = L::kBoxes, kStages = L::kStages, kWGs = L::kWGs, kBM = L::kBM;
+  constexpr int kBN = L::kBN, kON = L::kON, kOParts = L::kOParts;
   constexpr int kSbo = 8 * L::kRowB;  // 8 rows of a d-box
   constexpr int kChunks = D / 8;      // 16-byte chunks an output row
   extern __shared__ uint8_t smem_raw[];
@@ -648,7 +690,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg = warp >> 2;
   // keys past the block's last row are masked for every row of it
   const int kv_len = causal ? min(s, (qt + 1) * kBM) : s;
-  const int n_tiles = (kv_len + kFwdBN - 1) / kFwdBN;
+  const int n_tiles = (kv_len + kBN - 1) / kBN;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -681,13 +723,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int c = 0; c < kB; ++c)
           tma_load_4d(base + L::kK + st * L::kKVTile + c * L::kKVBox, &tm_k, k_full + 8 * st,
-                      64 * c, hd, j * kFwdBN, b);
+                      64 * c, hd, j * kBN, b);
         mbar_wait(v_empty + 8 * st, phase ^ 1);
         mbar_expect_tx(v_full + 8 * st, L::kKVTile);
 #pragma unroll
         for (int c = 0; c < kB; ++c)
           tma_load_4d(base + L::kV + st * L::kKVTile + c * L::kKVBox, &tm_v, v_full + 8 * st,
-                      64 * c, hd, j * kFwdBN, b);
+                      64 * c, hd, j * kBN, b);
       }
       // the compute warpgroups wait without the watchdog (a trap on their
       // path would cost them registers): it fires here if a load never lands
@@ -723,12 +765,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       named_sync(1 + wg, 128);
     }
 
-    float o[D / 2];
+    // O: kOParts blocks of kON columns, the accumulators of one P V product each
+    float o[kOParts][kON / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    for (int p = 0; p < kOParts; ++p)
+#pragma unroll
+      for (int i = 0; i < kON / 2; ++i) o[p][i] = 0.0f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, alpha[2], mc[2];
-    float sc[64];       // S_j, then P_j in float32
-    uint32_t pa[8][4];  // P_{j-1} as the A fragments of the P V product
+    float sc[kBN / 2];        // S_j, then P_j in float32
+    uint32_t pa[kBN / 16][4];  // P_{j-1} as the A fragments of the P V product
 
     // the warpgroup's turn to issue S: warpgroup 0 takes the first, then
     // they go round, each turn passed to the next warpgroup right after S
@@ -748,7 +793,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        Wgmma<128>::ss<0, 0, T>(
+        Wgmma<kBN>::template ss<0, 0, T>(
             sc, smem_desc(q_tile + (kk >> 2) * L::kQBox + (kk & 3) * 32, 16, kSbo, 1),
             smem_desc(k_tile + (kk >> 2) * L::kKVBox + (kk & 3) * 32, 16, kSbo, 1), kk);
       wgmma_commit();
@@ -757,24 +802,34 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t v_tile = base + L::kV + (j % kStages) * L::kKVTile;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        Wgmma<D>::template rs<1, T>(o, pa[kk],
-                                    smem_desc(v_tile + kk * 16 * L::kRowB, L::kKVBox, kSbo, 1),
-                                    1);
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < kOParts; ++p)
+          Wgmma<kON>::template rs<1, T>(
+              o[p], pa[kk],
+              smem_desc(v_tile + p * (kON / 64) * L::kKVBox + kk * 16 * L::kRowB, L::kKVBox,
+                        kSbo, 1),
+              1);
       wgmma_commit();
     };
     auto rescale = [&]() {
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        o[4 * i] *= alpha[0];
-        o[4 * i + 1] *= alpha[0];
-        o[4 * i + 2] *= alpha[1];
-        o[4 * i + 3] *= alpha[1];
-      }
+      for (int p = 0; p < kOParts; ++p)
+#pragma unroll
+        for (int i = 0; i < kON / 8; ++i) {
+          o[p][4 * i] *= alpha[0];
+          o[p][4 * i + 1] *= alpha[0];
+          o[p][4 * i + 2] *= alpha[1];
+          o[p][4 * i + 3] *= alpha[1];
+        }
+    };
+    auto fence_o = [&]() {
+#pragma unroll
+      for (int p = 0; p < kOParts; ++p) fence_regs(o[p]);
     };
     auto pack = [&]() {
 #pragma unroll
-      for (int jj = 0; jj < 16; ++jj) {
+      for (int jj = 0; jj < kBN / 8; ++jj) {
         pa[jj / 2][(jj & 1) * 2] = pack2<T>(sc[4 * jj], sc[4 * jj + 1]);
         pa[jj / 2][(jj & 1) * 2 + 1] = pack2<T>(sc[4 * jj + 2], sc[4 * jj + 3]);
       }
@@ -813,14 +868,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();  // S_j
       fence_regs(sc);
       release(k_empty, j);
-      fwd_max<decltype(masked)::value>(sc, m, alpha, mc, j * kFwdBN, warp_row, g, t, s, causal,
+      fwd_max<decltype(masked)::value>(sc, m, alpha, mc, j * kBN, warp_row, g, t, s, causal,
                                        scale_log2e);
       issue_pv(j - 1);
       fwd_exp(sc, l, alpha, mc, scale_log2e);
       fence_regs(sc);  // the exponentials stay above the wait, not sunk to pack()
       fence_regs(l);
       wgmma_wait<0>();  // P_{j-1} V_{j-1}
-      fence_regs(o);
+      fence_o();
       fence_regs(pa);
       release(v_empty, j - 1);
       pack();
@@ -832,7 +887,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     v_wait(n_tiles - 1);
     issue_pv(n_tiles - 1);
     wgmma_wait<0>();
-    fence_regs(o);
+    fence_o();
     fence_regs(pa);
 
     // out = O / l through the warpgroup's Q boxes (no longer read): rows of
@@ -850,9 +905,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         lse[static_cast<int64_t>(bh) * s + row0 + srow] =
             lr == 0.0f ? INFINITY : (m[r] * scale_log2e + log2f(lr)) * kLn2;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < D / 8; ++i) {
+        const float* op = o[i / (kON / 8)] + 4 * (i % (kON / 8)) + 2 * r;
         *reinterpret_cast<uint32_t*>(q_mem + srow * 2 * D + ((i ^ (srow & 7)) * 16) + 4 * t) =
-            pack2<T>(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+            pack2<T>(op[0] * inv, op[1] * inv);
+      }
     }
     named_sync(1 + wg, 128);
 #pragma unroll
@@ -867,7 +924,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// the wgmma kernel for T (bf16 or fp16) at D = 64 or 128
+// the wgmma kernel for T (bf16 or fp16) at D = 64, 128 or 256
 template <typename T, int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                          int b, int s, int h, int num_bh, Strides qs, Strides ks,
@@ -876,8 +933,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (num_q_tiles * num_bh > INT32_MAX) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v;
   if (!tensor_map<T>(&tm_q, q, b, s, h, D, qs, 64) ||
-      !tensor_map<T>(&tm_k, k, b, s, h, D, ks, kFwdBN) ||
-      !tensor_map<T>(&tm_v, v, b, s, h, D, vs, kFwdBN))
+      !tensor_map<T>(&tm_k, k, b, s, h, D, ks, FwdSmem<D>::kBN) ||
+      !tensor_map<T>(&tm_v, v, b, s, h, D, vs, FwdSmem<D>::kBN))
     return cudaErrorInvalidValue;
   const int smem = FwdSmem<D>::kBytes + 1024;  // + the 1024-byte alignment
   const cudaError_t err = cudaFuncSetAttribute(
@@ -899,7 +956,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int b, int s, int h, int num_bh, Strides qs, Strides ks,
                    Strides vs, float scale_log2e, int causal,
                    cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2 && D >= 64) {  // bf16 and fp16 at D = 64 and 128
+  if constexpr (sizeof(T) == 2 && D >= 64) {  // bf16 and fp16 at D = 64, 128 and 256
     return launch_wgmma<T, D>(q, k, v, out, lse, b, s, h, num_bh, qs, ks, vs, scale_log2e,
                               causal, stream);
   } else if constexpr (sizeof(T) == 2) {
@@ -916,7 +973,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
         q_sign, causal);
     return cudaGetLastError();
   } else {
-    const int64_t num_q_tiles = (static_cast<int64_t>(s) + kF32BlockQ - 1) / kF32BlockQ;
+    const int64_t num_q_tiles =
+        (static_cast<int64_t>(s) + F32Tile<D>::kRows - 1) / F32Tile<D>::kRows;
     if (num_q_tiles * num_bh > INT32_MAX) return cudaErrorInvalidValue;
     flash_attention_f32_kernel<D><<<static_cast<unsigned>(num_q_tiles * num_bh), kF32BlockQ,
                                     0, stream>>>(
@@ -945,6 +1003,9 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
     case 128:
       return launch<T, 128>(q, k, v, out, lse, b, s, h, num_bh, qs, ks, vs,
                             scale_log2e, causal, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, out, lse, b, s, h, num_bh, qs, ks, vs,
+                            scale_log2e, causal, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -956,8 +1017,8 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
 // with element strides (*_sb, *_ss, *_sh) and unit stride on d; out:
 // contiguous [b, s, h, d] of the same type; lse: null, or [b, h, s]
 // float32 for each row's log-sum-exp (natural log); all on the device of
-// ``stream``. d is 16, 32, 64 or 128 (the wrapper pads any other d up to
-// one of these). The 16-bit types also need every base pointer 16-byte
+// ``stream``. d is 16, 32, 64, 128 or 256 (the wrapper pads any other d up
+// to one of these). The 16-bit types also need every base pointer 16-byte
 // aligned and every stride a multiple of 8. scale_log2e = sm_scale *
 // log2(e). Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a head dim, type or grid the kernels do not

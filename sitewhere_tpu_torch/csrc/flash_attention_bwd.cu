@@ -18,14 +18,15 @@
 //   dQ_i    = scale sum_j dS_ij k_j
 //
 // * bfloat16 and float16 at every head dim (D = 32 on the transformer's
-//   path, D = 128 on the d_model=256, heads=2 model's): one pass over the
+//   path, D = 128 on the d_model=256, heads=2 model's, D = 256 on the
+//   d_model=256, heads=1 model's): one pass over the
 //   (query, key) pairs, FA3's backward for Hopper, in three launches on the
 //   caller's stream (four in float16, below): a prep pass (delta; lse in
 //   base 2; the turn counters zeroed), the main kernel
 //   (flash_bwd_wgmma_kernel<T, D>) and a pass that scales the float32 dQ
 //   and rounds it to the input type. A block of the main kernel owns
-//   (batch, head, 128 keys) and walks the 64-row query tiles; its K and V
-//   tiles stay in shared memory.
+//   (batch, head, 128 keys; 64 at D = 256) and walks the 64-row query
+//   tiles; its K and V tiles stay in shared memory.
 //   - Warp-specialised: warpgroups 0 and 1 (64 keys each) compute; in
 //     warpgroup 2 one warp issues the TMA loads (cp.async.bulk.tensor of
 //     the Q and dO tiles through 4-d tensor maps that describe the strided
@@ -52,6 +53,13 @@
 //     (256 bytes) is wider than the largest swizzle, so every tile is two
 //     64-column d-boxes of 128-byte swizzle (hopper_common.cuh), and the
 //     compute warpgroups split dQ by columns (bwd_compute_d128).
+//   - At D = 256 (four d-boxes) a block owns 64 keys, which both compute
+//     warpgroups take, each 128 columns of dK, dV and dQ; each computes
+//     S^T and dP^T whole for itself, and a tile's dQ goes out through the
+//     Q and dO tiles of its stage, which the writer frees
+//     (bwd_compute_d256): [64 keys, 256] of dK and dV is 256 registers a
+//     thread for one warpgroup, and a dQ staging buffer beside the
+//     two-stage ring would pass the 227 KB a block may take.
 //   - dQ, deterministic: warpgroup 0 stores its dQ_tile in shared memory
 //     (two buffers, one a tile in turn) and warpgroup 1 adds its own; the
 //     writer warp hands the sum to a bulk copy into a float32 [B H, S, D]
@@ -95,14 +103,15 @@
 // * float32: CUDA cores, float32 products (tensor cores would mean TF32,
 //   about 3 decimal digits), two kernels after the prep pass: one thread
 //   per key (dK/dV) or per query (dQ) with its own row and accumulators in
-//   registers, the other side's tiles of 32 rows in shared memory. At
-//   D = 64 the dK/dV thread holds 4 x 64 floats and spills, at D = 128 far
-//   more; it is not on the transformer's path.
+//   registers, the other side's tiles of 32 rows in shared memory (at
+//   D = 256 eight threads a row, 32 columns each, and tiles of 16 rows:
+//   F32BwdTile). At D = 64 the dK/dV thread holds 4 x 64 floats and
+//   spills, at D = 128 far more; it is not on the transformer's path.
 //
 // q, k and v are read in place through (batch, row, head) strides with unit
 // stride on D (the strided views of one fused qkv product); o and dO are
 // contiguous [B, S, H, D]; dq, dk and dv are written contiguous. Any S;
-// head dims 16, 32, 64 and 128. The 16-bit types need 16-byte aligned base
+// head dims 16, 32, 64, 128 and 256. The 16-bit types need 16-byte aligned base
 // pointers and strides that are a multiple of 8 elements (TMA takes
 // 16-byte strides).
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
@@ -115,7 +124,9 @@
 // a live pair (2.05 ms at 16 per SM per clock) and moves about 0.55 GB
 // (0.16 ms) plus the float32 dQ accumulator's traffic through L2. At
 // [8, 16384, 2, 128] the products take the same 2.78 ms and the
-// exponentials a quarter of it (0.51 ms): the tensor cores set the pace.
+// exponentials a quarter of it (0.51 ms): the tensor cores set the pace;
+// at [8, 16384, 1, 256] the same 2.78 ms of products, of which the D = 256
+// kernel issues 7/5 (S^T and dP^T in both warpgroups).
 // float16's range costs a few instructions a pair more (the row maxima
 // and the scaled packs) and one pass over v.
 
@@ -327,26 +338,26 @@ __device__ __forceinline__ void store_ds(uint32_t tile, int row0, int g, int t, 
 }
 
 // dK (times scale) and dV of the thread's keys key + 8 half, half = 0, 1
-// (its rows of the accumulators) into the contiguous [B, S, H, D] outputs
-// (float16: 2^-e of each row's RowScale off)
-template <typename T, int D>
+// (its rows of the accumulators, N columns from col0) into the contiguous
+// [B, S, H, D] outputs (float16: 2^-e of each row's RowScale off)
+template <typename T, int D, int N = D>
 __device__ __forceinline__ void store_dkdv(T* __restrict__ dk, T* __restrict__ dv,
-                                           const float (&dk_acc)[D / 2],
-                                           const float (&dv_acc)[D / 2],
+                                           const float (&dk_acc)[N / 2],
+                                           const float (&dv_acc)[N / 2],
                                            const RowScale& p_scale, const RowScale& s_scale,
                                            int key, int t, int b, int s, int h, int hd,
-                                           float scale) {
+                                           float scale, int col0 = 0) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     if (key + 8 * half >= s) continue;
-    const int64_t row = ((static_cast<int64_t>(b) * s + key + 8 * half) * h + hd) * D;
+    const int64_t row = ((static_cast<int64_t>(b) * s + key + 8 * half) * h + hd) * D + col0;
     float ks = scale, vs = 1.0f;
     if constexpr (std::is_same_v<T, __half>) {
       ks = scale * s_scale.down(half);
       vs = p_scale.down(half);
     }
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < N / 8; ++i) {
       const int c = 8 * i + 2 * t, e = 4 * i + 2 * half;
       *reinterpret_cast<uint32_t*>(dk + row + c) = pack2<T>(dk_acc[e] * ks, dk_acc[e + 1] * ks);
       if constexpr (std::is_same_v<T, __half>)
@@ -396,8 +407,40 @@ __device__ __forceinline__ void tile_operands(const float (&sacc)[32], const flo
 
 // ---------------------------------------------------------------- float32
 
-constexpr int kF32Threads = 128;  // keys (dK/dV) or query rows (dQ) a block
-constexpr int kF32Tile = 32;      // rows of the other side a shared tile
+constexpr int kF32Threads = 128;  // threads a block
+
+// The float32 kernels' tiling at head dim D: up to D = 128 one thread a key
+// (dK/dV) or a query (dQ) with its own row and accumulators in registers,
+// the other side's tiles of 32 rows in shared memory; past 128 a row's D
+// columns are split among kSplit adjacent threads (its float4 chunks part,
+// part + kSplit, ...), each dot product summed across them by warp
+// shuffles, and the shared tiles hold 16 rows: a dK/dV thread keeps 4 x 32
+// registers of rows and sums, and the static tiles stay at 32 KB
+template <int D>
+struct F32BwdTile {
+  static constexpr int kSplit = D > 128 ? 8 : 1;       // threads a row
+  static constexpr int kCols = D / kSplit;             // columns a thread
+  static constexpr int kRows = kF32Threads / kSplit;   // keys or queries a block
+  static constexpr int kTile = D > 128 ? 16 : 32;      // rows of the other side a tile
+  static_assert(kCols % 4 == 0, "a thread's columns are float4 chunks");
+  static_assert(2 * kTile * D * 4 <= 48 * 1024, "past 48 KB of static shared memory");
+  // column c of a thread's kCols: its float4 chunk c / 4 is the row's
+  // chunk (c / 4) kSplit + part
+  static __device__ __forceinline__ int col(int c, int part) {
+    return 4 * ((c / 4) * kSplit + part) + c % 4;
+  }
+  // the lanes of the thread's row, which agree on every branch and sum each
+  // dot product among themselves
+  static __device__ __forceinline__ unsigned lanes() {
+    return kSplit == 1 ? 0xffffffffu
+                       : ((1u << kSplit) - 1) << ((threadIdx.x & 31) & ~(kSplit - 1));
+  }
+  static __device__ __forceinline__ float row_sum(float x, unsigned lanes) {
+#pragma unroll
+    for (int o = 1; o < kSplit; o <<= 1) x += __shfl_xor_sync(lanes, x, o);
+    return x;
+  }
+};
 
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
@@ -411,28 +454,32 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                           int s, int h, int num_bh, Strides qs, Strides ks,
                           Strides vs, float scale_log2e, float scale,
                           int causal) {
-  __shared__ __align__(16) float q_tile[kF32Tile][D];
-  __shared__ __align__(16) float do_tile[kF32Tile][D];
-  __shared__ float lse_tile[kF32Tile], delta_tile[kF32Tile];
+  using Tile = F32BwdTile<D>;
+  constexpr int kCols = Tile::kCols, kTile = Tile::kTile, kSplit = Tile::kSplit;
+  __shared__ __align__(16) float q_tile[kTile][D];
+  __shared__ __align__(16) float do_tile[kTile][D];
+  __shared__ float lse_tile[kTile], delta_tile[kTile];
 
   const int bh = blockIdx.x % num_bh;
   const int kt = blockIdx.x / num_bh;  // the first key tiles have most work
   const int b = bh / h;
   const int hd = bh - b * h;
-  const int key0 = kt * kF32Threads;
-  const int key = key0 + threadIdx.x;
+  const int key0 = kt * Tile::kRows;
+  const int key = key0 + threadIdx.x / kSplit;
+  const int part = threadIdx.x % kSplit;
+  const unsigned lanes = Tile::lanes();
   const bool live_key = key < s;
 
-  float kr[D], vr[D], dkr[D], dvr[D];
+  float kr[kCols], vr[kCols], dkr[kCols], dvr[kCols];
 #pragma unroll
-  for (int c = 0; c < D; ++c) kr[c] = vr[c] = dkr[c] = dvr[c] = 0.0f;
+  for (int c = 0; c < kCols; ++c) kr[c] = vr[c] = dkr[c] = dvr[c] = 0.0f;
   if (live_key) {
     const float* kp = k + b * ks.b + static_cast<int64_t>(key) * ks.s + hd * ks.h;
     const float* vp = v + b * vs.b + static_cast<int64_t>(key) * vs.s + hd * vs.h;
 #pragma unroll
-    for (int c = 0; c < D; ++c) {
-      kr[c] = kp[c] * scale_log2e;
-      vr[c] = vp[c];
+    for (int c = 0; c < kCols; ++c) {
+      kr[c] = kp[Tile::col(c, part)] * scale_log2e;
+      vr[c] = vp[Tile::col(c, part)];
     }
   }
   const float* qb = q + b * qs.b + hd * qs.h;
@@ -441,11 +488,11 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
   const float* eb = delta + static_cast<int64_t>(bh) * s;
 
   // queries before the block's first key see none of its keys
-  const int q_begin = causal ? (key0 / kF32Tile) * kF32Tile : 0;
-  for (int q0 = q_begin; q0 < s; q0 += kF32Tile) {
-    const int tile = min(kF32Tile, s - q0);
+  const int q_begin = causal ? (key0 / kTile) * kTile : 0;
+  for (int q0 = q_begin; q0 < s; q0 += kTile) {
+    const int tile = min(kTile, s - q0);
     __syncthreads();  // the previous tile is no longer read
-    for (int e = threadIdx.x; e < kF32Tile * D; e += kF32Threads) {
+    for (int e = threadIdx.x; e < kTile * D; e += kF32Threads) {
       const int r = e / D, c = e - (e / D) * D;
       float qx = 0.0f, dx = 0.0f;
       if (r < tile) {
@@ -456,7 +503,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
       q_tile[r][c] = qx;
       do_tile[r][c] = dx;
     }
-    if (threadIdx.x < kF32Tile) {
+    if (threadIdx.x < kTile) {
       const bool ok = static_cast<int>(threadIdx.x) < tile;
       lse_tile[threadIdx.x] = ok ? lb[q0 + threadIdx.x] : 0.0f;
       delta_tile[threadIdx.x] = ok ? eb[q0 + threadIdx.x] : 0.0f;
@@ -469,8 +516,8 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
       const float4* dr = reinterpret_cast<const float4*>(do_tile[i]);
       float sc = 0.0f, dp = 0.0f;
 #pragma unroll
-      for (int c = 0; c < D / 4; ++c) {
-        const float4 qq = qr[c], dd = dr[c];
+      for (int c = 0; c < kCols / 4; ++c) {
+        const float4 qq = qr[c * kSplit + part], dd = dr[c * kSplit + part];
         sc = fmaf(qq.x, kr[4 * c], sc);
         sc = fmaf(qq.y, kr[4 * c + 1], sc);
         sc = fmaf(qq.z, kr[4 * c + 2], sc);
@@ -480,11 +527,13 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
         dp = fmaf(dd.z, vr[4 * c + 2], dp);
         dp = fmaf(dd.w, vr[4 * c + 3], dp);
       }
+      sc = Tile::row_sum(sc, lanes);
+      dp = Tile::row_sum(dp, lanes);
       const float p = exp2f(sc - lse_tile[i]);
       const float ds = p * (dp - delta_tile[i]);
 #pragma unroll
-      for (int c = 0; c < D / 4; ++c) {
-        const float4 qq = qr[c], dd = dr[c];
+      for (int c = 0; c < kCols / 4; ++c) {
+        const float4 qq = qr[c * kSplit + part], dd = dr[c * kSplit + part];
         dvr[4 * c] = fmaf(p, dd.x, dvr[4 * c]);
         dvr[4 * c + 1] = fmaf(p, dd.y, dvr[4 * c + 1]);
         dvr[4 * c + 2] = fmaf(p, dd.z, dvr[4 * c + 2]);
@@ -499,9 +548,9 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
   if (!live_key) return;
   const int64_t off = ((static_cast<int64_t>(b) * s + key) * h + hd) * D;
 #pragma unroll
-  for (int c = 0; c < D; ++c) {
-    dk[off + c] = dkr[c] * scale;
-    dv[off + c] = dvr[c];
+  for (int c = 0; c < kCols; ++c) {
+    dk[off + Tile::col(c, part)] = dkr[c] * scale;
+    dv[off + Tile::col(c, part)] = dvr[c];
   }
 }
 
@@ -516,27 +565,31 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         float* __restrict__ dq, int s, int h, int num_q_tiles,
                         int num_bh, Strides qs, Strides ks, Strides vs,
                         float scale_log2e, float scale, int causal) {
-  __shared__ __align__(16) float k_tile[kF32Tile][D];
-  __shared__ __align__(16) float v_tile[kF32Tile][D];
+  using Tile = F32BwdTile<D>;
+  constexpr int kCols = Tile::kCols, kTile = Tile::kTile, kSplit = Tile::kSplit;
+  __shared__ __align__(16) float k_tile[kTile][D];
+  __shared__ __align__(16) float v_tile[kTile][D];
 
   const int bh = blockIdx.x % num_bh;
   const int qt = num_q_tiles - 1 - blockIdx.x / num_bh;  // most work first
   const int b = bh / h;
   const int hd = bh - b * h;
-  const int row = qt * kF32Threads + threadIdx.x;
+  const int row = qt * Tile::kRows + threadIdx.x / kSplit;
+  const int part = threadIdx.x % kSplit;
+  const unsigned lanes = Tile::lanes();
   const bool live_row = row < s;
 
-  float qr[D], dr[D], dqr[D];
+  float qr[kCols], dr[kCols], dqr[kCols];
   float l2 = 0.0f, dl = 0.0f;
 #pragma unroll
-  for (int c = 0; c < D; ++c) qr[c] = dr[c] = dqr[c] = 0.0f;
+  for (int c = 0; c < kCols; ++c) qr[c] = dr[c] = dqr[c] = 0.0f;
   if (live_row) {
     const float* qp = q + b * qs.b + static_cast<int64_t>(row) * qs.s + hd * qs.h;
     const float* dp = dout + ((static_cast<int64_t>(b) * s + row) * h + hd) * D;
 #pragma unroll
-    for (int c = 0; c < D; ++c) {
-      qr[c] = qp[c] * scale_log2e;
-      dr[c] = dp[c];
+    for (int c = 0; c < kCols; ++c) {
+      qr[c] = qp[Tile::col(c, part)] * scale_log2e;
+      dr[c] = dp[Tile::col(c, part)];
     }
     l2 = lse2[static_cast<int64_t>(bh) * s + row];
     dl = delta[static_cast<int64_t>(bh) * s + row];
@@ -545,11 +598,11 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   const float* vb = v + b * vs.b + hd * vs.h;
 
   // keys past the block's last row are masked for every row of it
-  const int kv_end = causal ? min(s, (qt + 1) * kF32Threads) : s;
-  for (int k0 = 0; k0 < kv_end; k0 += kF32Tile) {
-    const int tile = min(kF32Tile, kv_end - k0);
+  const int kv_end = causal ? min(s, (qt + 1) * Tile::kRows) : s;
+  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+    const int tile = min(kTile, kv_end - k0);
     __syncthreads();  // the previous tile is no longer read
-    for (int e = threadIdx.x; e < kF32Tile * D; e += kF32Threads) {
+    for (int e = threadIdx.x; e < kTile * D; e += kF32Threads) {
       const int r = e / D, c = e - (e / D) * D;
       float kx = 0.0f, vx = 0.0f;
       if (r < tile) {
@@ -568,8 +621,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
       const float4* vr = reinterpret_cast<const float4*>(v_tile[j]);
       float sc = 0.0f, dp = 0.0f;
 #pragma unroll
-      for (int c = 0; c < D / 4; ++c) {
-        const float4 kk = kr[c], vv = vr[c];
+      for (int c = 0; c < kCols / 4; ++c) {
+        const float4 kk = kr[c * kSplit + part], vv = vr[c * kSplit + part];
         sc = fmaf(qr[4 * c], kk.x, sc);
         sc = fmaf(qr[4 * c + 1], kk.y, sc);
         sc = fmaf(qr[4 * c + 2], kk.z, sc);
@@ -579,10 +632,12 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
         dp = fmaf(dr[4 * c + 2], vv.z, dp);
         dp = fmaf(dr[4 * c + 3], vv.w, dp);
       }
+      sc = Tile::row_sum(sc, lanes);
+      dp = Tile::row_sum(dp, lanes);
       const float ds = exp2f(sc - l2) * (dp - dl);
 #pragma unroll
-      for (int c = 0; c < D / 4; ++c) {
-        const float4 kk = kr[c];
+      for (int c = 0; c < kCols / 4; ++c) {
+        const float4 kk = kr[c * kSplit + part];
         dqr[4 * c] = fmaf(ds, kk.x, dqr[4 * c]);
         dqr[4 * c + 1] = fmaf(ds, kk.y, dqr[4 * c + 1]);
         dqr[4 * c + 2] = fmaf(ds, kk.z, dqr[4 * c + 2]);
@@ -593,13 +648,12 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   if (!live_row) return;
   float* out = dq + ((static_cast<int64_t>(b) * s + row) * h + hd) * D;
 #pragma unroll
-  for (int c = 0; c < D; ++c) out[c] = dqr[c] * scale;
+  for (int c = 0; c < kCols; ++c) out[Tile::col(c, part)] = dqr[c] * scale;
 }
 
 // ------------------------------------------------ bfloat16 and float16
 
 constexpr int kBM = 64;         // query rows a tile
-constexpr int kBN = 128;        // keys a block: two compute warpgroups of 64
 constexpr int kStages = 2;      // Q / dO ring depth
 constexpr int kThreads = 384;   // compute warpgroups 0, 1; loader/writer 2
 constexpr int kComputeRegs = 232;
@@ -607,12 +661,16 @@ constexpr int kLoaderRegs = 40;
 
 template <typename T, int D>
 struct BwdSmem {  // byte offsets from a 1024-byte aligned base
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "D must be 16, 32, 64 or 128");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "D must be 16, 32, 64, 128 or 256");
+  // keys a block: two compute warpgroups of 64 up to D = 128; at D = 256
+  // both warpgroups take the same 64 keys (bwd_compute_d256)
+  static constexpr int kBN = D == 256 ? 64 : 128;
   // per-row values a query tile brings: lse2 and delta, and float16's
   // dQ scale
   static constexpr int kRowArrays = std::is_same_v<T, __half> ? 3 : 2;
   // a tile is kBoxes d-boxes of kBoxCols columns, one after the other
-  // (hopper_common.cuh): one box up to D = 64, two at D = 128
+  // (hopper_common.cuh): one box up to D = 64, two at D = 128, four at 256
   static constexpr int kBoxCols = D < 64 ? D : 64;
   static constexpr int kBoxes = D / kBoxCols;
   static constexpr int kRowB = 2 * kBoxCols;      // a box row; = its swizzle
@@ -623,14 +681,17 @@ struct BwdSmem {  // byte offsets from a 1024-byte aligned base
   static constexpr int kV = kK + kBN * 2 * D;     // V [kBoxes][kBN][kBoxCols]
   static constexpr int kQ = kV + kBN * 2 * D;     // Q [kStages][kBoxes][kBM][kBoxCols]
   static constexpr int kDO = kQ + kStages * kTileB;
-  // dS^T [128 keys][64 queries] of T, a buffer; two at D = 128, where
-  // each warpgroup's dQ product reads both warpgroups' rows
-  static constexpr int kDSBufs = D == 128 ? 2 : 1;
-  static constexpr int kDSBuf = 2 * 64 * 128;
+  // dS^T [kBN keys][64 queries] of T, a buffer; two at D = 128, where
+  // each warpgroup's dQ product reads both warpgroups' rows, and at D =
+  // 256, one a warpgroup (each computes the same dS^T)
+  static constexpr int kDSBufs = D >= 128 ? 2 : 1;
+  static constexpr int kDSBuf = 2 * 64 * kBN;
   static constexpr int kDS = kDO + kStages * kTileB;
-  static constexpr int kDQ = kDS + kDSBufs * kDSBuf;  // dQ [2][kBM * D] float
+  // dQ [2][kBM * D] float; none at D = 256, where a tile's dQ goes out
+  // through the Q and dO tiles of its stage (bwd_compute_d256)
+  static constexpr int kDQ = kDS + kDSBufs * kDSBuf;
   // [kStages][lse2, delta (, dq_scale)][kBM]
-  static constexpr int kRows = kDQ + 2 * kBM * D * 4;
+  static constexpr int kRows = kDQ + (D == 256 ? 0 : 2 * kBM * D * 4);
   static constexpr int kBar = kRows + kStages * kRowArrays * kBM * 4;
   // mbarriers: full[kStages], empty[kStages], kv, then two each of
   // dq_half, dq_full, dq_empty, turn, done, passed
@@ -813,6 +874,168 @@ __device__ __forceinline__ void bwd_compute_d128(
                      hd, scale);
 }
 
+// One compute warpgroup's walk over the query tiles at D = 256. Both
+// warpgroups take the block's 64 keys; warpgroup wg owns columns 128 wg ..
+// 128 wg + 127 of dK, dV and dQ. What differs from D = 128:
+// * each warpgroup computes S^T = K Q^T and dP^T = V dO^T whole ([64 keys,
+//   64 queries], 16 k16 steps over the four d-boxes): the two compute the
+//   same values (P^T, dS^T and float16's RowScale exponents alike), so
+//   nothing of them is exchanged, at the cost of those two products twice
+//   (seven products a pair where D <= 128 takes five);
+// * dV and dK [64 keys, 128 columns] (64 registers each) against d-boxes
+//   2 wg and 2 wg + 1 of dO and Q (MN-major);
+// * dQ_tile's columns 128 wg .. = dS K over the block's 64 keys, from the
+//   warpgroup's own copy of dS^T and d-boxes 2 wg, 2 wg + 1 of K (64
+//   registers), issued once the dV and dK products are done: their A
+//   fragments and all three accumulators would not fit in 232 registers;
+// * shared memory holds K and V (64 KB), the two-stage Q/dO ring (128 KB)
+//   and the dS^T copies (16 KB), and no dQ staging: once both warpgroups
+//   are done with a tile (a 256-thread barrier), warpgroup 0 writes its
+//   dQ columns over the stage's Q tile and warpgroup 1 over its dO tile
+//   (32 KB each), and the writer warp, which bulk-adds both, frees the
+//   stage for the loader once they are read.
+template <typename T>
+__device__ __forceinline__ void bwd_compute_d256(
+    const uint32_t base, uint8_t* const sm, const int wg, const int lane, const int m_first,
+    const int m_tiles, const int key0, const int b, const int hd, const int s, const int h,
+    const float scale_log2e, const float scale, const int causal, const uint32_t bar_full,
+    const uint32_t bar_kv, const uint32_t bar_dq_full, T* __restrict__ dk, T* __restrict__ dv) {
+  using L = BwdSmem<T, 256>;
+  constexpr int kSbo = 8 * L::kRowB;  // 8 rows of a box
+  const int wt = threadIdx.x & 127;   // thread of the warpgroup
+  const int w4 = wt >> 5;             // warp of the warpgroup
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t k_tile = base + L::kK;
+  const uint32_t v_tile = base + L::kV;
+  const uint32_t ds_tile = base + L::kDS + wg * L::kDSBuf;
+
+  float dv_acc[64], dk_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dv_acc[i] = dk_acc[i] = 0.0f;
+  RowScale p_scale, s_scale;  // float16 only
+
+  mbar_spin(bar_kv, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int m = m_first; m < m_tiles; ++m) {
+    mbar_spin(bar_full + 8 * stage, phase);
+    const uint32_t q_tile = base + L::kQ + stage * L::kTileB;
+    const uint32_t do_tile = base + L::kDO + stage * L::kTileB;
+    const float* lse_s =
+        reinterpret_cast<const float*>(sm + L::kRows) + stage * L::kRowArrays * kBM;
+    const float* del_s = lse_s + kBM;
+    const float* dqs_s = lse_s + 2 * kBM;  // float16 only
+
+    // S^T = K Q^T and dP^T = V dO^T: [64 keys, 64 queries], K-major
+    float sacc[32], pacc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+      Wgmma<64>::ss<0, 0, T>(sacc, smem_desc(L::k_step(k_tile, kk, L::kKVBox), 16, kSbo, 1),
+                             smem_desc(L::k_step(q_tile, kk, L::kTileBox), 16, kSbo, 1), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+      Wgmma<64>::ss<0, 0, T>(pacc, smem_desc(L::k_step(v_tile, kk, L::kKVBox), 16, kSbo, 1),
+                             smem_desc(L::k_step(do_tile, kk, L::kTileBox), 16, kSbo, 1), kk);
+    wgmma_commit();
+
+    // P^T = exp2(S^T scale log2e - lse2), masked on the diagonal and past
+    // the last key (overlaps the dP^T product)
+    wgmma_wait<1>();
+    fence_regs(sacc);
+    const int q0 = m * kBM;
+    const bool edge = (causal && q0 <= key0) || key0 + 64 > s;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float p = exp2_approx(fmaf(sacc[4 * j + r], scale_log2e, -((r & 1) ? l2.y : l2.x)));
+        if (edge) {
+          const int key = key0 + 16 * w4 + g + 8 * (r >> 1);
+          const int query = q0 + 8 * j + 2 * t + (r & 1);
+          if (key >= s || (causal && key > query)) p = 0.0f;
+        }
+        sacc[4 * j + r] = p;
+      }
+    }
+    // dS^T = P^T (dP^T - delta)
+    wgmma_wait<0>();
+    fence_regs(pacc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl = *reinterpret_cast<const float2*>(del_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pacc[4 * j + r] = sacc[4 * j + r] * (pacc[4 * j + r] - ((r & 1) ? dl.y : dl.x));
+    }
+    // P^T and dS^T as A fragments, dS^T to the warpgroup's own buffer
+    uint32_t pa[4][4], sa[4][4];
+    tile_operands<T>(sacc, pacc, dv_acc, dk_acc, p_scale, s_scale, dqs_s, ds_tile, 16 * w4, g,
+                     t, pa, sa);
+    fence_async_shared();
+
+    // dV += P^T dO, dK += dS^T Q on the warpgroup's 128 columns (dO and Q
+    // MN-major across d-boxes 2 wg and 2 wg + 1)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<128>::rs<1, T>(dv_acc, pa[kk],
+                           smem_desc(do_tile + 2 * wg * L::kTileBox + kk * 16 * L::kRowB,
+                                     L::kTileBox, kSbo, 1),
+                           1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<128>::rs<1, T>(dk_acc, sa[kk],
+                           smem_desc(q_tile + 2 * wg * L::kTileBox + kk * 16 * L::kRowB,
+                                     L::kTileBox, kSbo, 1),
+                           1);
+    wgmma_commit();
+    named_sync(2 + wg, 128);  // every warp's dS^T rows are in shared memory
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(pa);
+    fence_regs(sa);
+
+    // the warpgroup's columns of dQ_tile = dS K (dS^T and K MN-major)
+    float dq[64];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<128>::ss<1, 1, T>(dq, smem_desc(ds_tile + kk * 16 * 128, 16, 1024, 1),
+                              smem_desc(k_tile + 2 * wg * L::kKVBox + kk * 16 * L::kRowB,
+                                        L::kKVBox, kSbo, 1),
+                              kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+
+    // both warpgroups are done with the stage's Q and dO: warpgroup wg's
+    // columns of dQ over its Q (wg 0) or dO (wg 1) tile, float4 (i, wt) at
+    // i 128 + wt holding rows 16 w4 + g (+ 8), columns 128 wg + 8 i + 2 t
+    // (+ 1): the tile's accumulator is the two halves one after the other
+    named_sync(1, 256);
+    float4* const dq_buf =
+        reinterpret_cast<float4*>(sm + (wg == 0 ? L::kQ : L::kDO) + stage * L::kTileB);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      dq_buf[i * 128 + wt] = make_float4(dq[4 * i], dq[4 * i + 1], dq[4 * i + 2], dq[4 * i + 3]);
+    fence_async_shared();
+    named_sync(2 + wg, 128);
+    if (wt == 0) mbar_arrive(bar_dq_full + 8 * stage);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // dK (times scale) and dV of the block's 64 keys, the warpgroup's columns
+  store_dkdv<T, 256, 128>(dk, dv, dk_acc, dv_acc, p_scale, s_scale, key0 + 16 * w4 + g, t, b, s,
+                          h, hd, scale, 128 * wg);
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -849,7 +1072,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int nb = blockIdx.x / num_bh;  // key block; the first have most work
   const int b = bh / h;
   const int hd = bh - b * h;
-  const int key0 = nb * kBN;
+  const int key0 = nb * L::kBN;
   const int m_first = causal ? key0 / kBM : 0;  // earlier queries see none of its keys
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2;
@@ -858,13 +1081,15 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int st = 0; st < kStages; ++st) {
       mbar_init(bar_full + 8 * st, 1);
-      mbar_init(bar_empty + 8 * st, 8);  // lane 0 of each compute warp
+      // lane 0 of each compute warp; at D = 256 the writer, once it has read
+      // the tile's dQ out of the stage
+      mbar_init(bar_empty + 8 * st, D == 256 ? 1 : 8);
     }
     mbar_init(bar_kv, 1);
 #pragma unroll
     for (int slot = 0; slot < 2; ++slot) {
       mbar_init(bar_dq_half + 8 * slot, 1);
-      mbar_init(bar_dq_full + 8 * slot, D == 128 ? 2 : 1);
+      mbar_init(bar_dq_full + 8 * slot, D >= 128 ? 2 : 1);
       mbar_init(bar_dq_empty + 8 * slot, 1);
       mbar_init(bar_turn + 8 * slot, 1);
       mbar_init(bar_done + 8 * slot, 1);
@@ -877,9 +1102,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoaderRegs));
     if (warp == 8 && lane == 0) {  // ------------------------------ loader
-      mbar_expect_tx(bar_kv, 2 * kBN * 2 * D);
+      mbar_expect_tx(bar_kv, 2 * L::kBN * 2 * D);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
+      for (int half = 0; half < L::kBN / kBM; ++half) {
 #pragma unroll
         for (int box = 0; box < L::kBoxes; ++box) {
           const uint32_t off = box * L::kKVBox + half * kBM * kRowB;
@@ -913,19 +1138,29 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
     } else if (warp == 9 && lane == 0) {  // --------------------- dQ writer
+      // (slot i & 1 is also the stage of the i-th tile: kStages is 2)
       for (int m = m_first, i = 0; m < m_tiles; ++m, ++i) {
         float* dst = dq_acc + (static_cast<int64_t>(bh) * m_tiles + m) * kBM * D;
-        const uint32_t buf = base + L::kDQ + (i & 1) * kBM * D * 4;
         mbar_wait(bar_dq_full + 8 * (i & 1), (i >> 1) & 1);
         mbar_wait(bar_turn + 8 * (i & 1), (i >> 1) & 1);  // earlier key blocks added
         asm volatile("fence.proxy.async.global;\n" ::: "memory");
-        if (nb == 0)  // the first contributor to every query tile
-          bulk_store(dst, buf, kBM * D * 4);
-        else
-          bulk_reduce_add(dst, buf, kBM * D * 4);
+        // at D = 256 the two halves of the tile lie over its stage's Q and
+        // dO tiles, elsewhere the whole tile in dQ buffer i & 1
+        constexpr int kParts = D == 256 ? 2 : 1;
+#pragma unroll
+        for (int part = 0; part < kParts; ++part) {
+          const uint32_t buf = D == 256 ? base + (part == 0 ? L::kQ : L::kDO) + (i & 1) * L::kTileB
+                                        : base + L::kDQ + (i & 1) * kBM * D * 4;
+          float* const to = dst + part * (kBM * D / kParts);
+          if (nb == 0)  // the first contributor to every query tile
+            bulk_store(to, buf, kBM * D * 4 / kParts);
+          else
+            bulk_reduce_add(to, buf, kBM * D * 4 / kParts);
+        }
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-        mbar_arrive(bar_dq_empty + 8 * (i & 1));  // the buffer may be written again
+        // the buffer may be written again (at D = 256: the stage loaded again)
+        mbar_arrive((D == 256 ? bar_empty : bar_dq_empty) + 8 * (i & 1));
         asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
         asm volatile("fence.proxy.async.global;\n" ::: "memory");
         mbar_arrive(bar_done + 8 * (i & 1));  // the add is complete
@@ -958,6 +1193,10 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     bwd_compute_d128<T>(base, sm, wg, lane, m_first, m_tiles, key0, b, hd, s, h, scale_log2e,
                         scale, causal, bar_full, bar_empty, bar_kv, bar_dq_full, bar_dq_empty,
                         dk, dv);
+  } else if constexpr (D == 256) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kComputeRegs));
+    bwd_compute_d256<T>(base, sm, wg, lane, m_first, m_tiles, key0, b, hd, s, h, scale_log2e,
+                        scale, causal, bar_full, bar_kv, bar_dq_full, dk, dv);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kComputeRegs));
     const int wt = threadIdx.x & 127;  // thread of the warpgroup
@@ -1154,7 +1393,7 @@ struct Args {
 
 // the wgmma kernel takes both 16-bit types at every instantiated head
 // dim; dtype 0 float32, 1 bfloat16, 2 float16
-bool takes_wgmma(int dtype, int d) { return (dtype == 1 || dtype == 2) && d <= 128; }
+bool takes_wgmma(int dtype, int d) { return (dtype == 1 || dtype == 2) && d <= 256; }
 
 // scratch layout (bytes): delta and lse2 [num_bh][pitch] float32 each;
 // float16 only: dq_scale [num_bh][pitch] float32; the wgmma kernel only:
@@ -1225,6 +1464,7 @@ cudaError_t launch_wgmma(const Args& a) {
       !tensor_map<T>(&tm_v, a.v, a.b, a.s, a.h, D, a.vs, kBM) ||
       !tensor_map<T>(&tm_do, a.dout, a.b, a.s, a.h, D, os, kBM))
     return cudaErrorInvalidValue;
+  constexpr int kBN = BwdSmem<T, D>::kBN;  // keys a block
   const int64_t n_blocks = (static_cast<int64_t>(a.s) + kBN - 1) / kBN;
   if (n_blocks * a.num_bh > INT32_MAX) return cudaErrorInvalidValue;
   const int smem = BwdSmem<T, D>::kBytes + 1024;  // + the 1024-byte alignment
@@ -1258,7 +1498,8 @@ cudaError_t launch_f32(const Args& a) {
   const char* base = static_cast<const char*>(a.scratch);
   const float* delta = reinterpret_cast<const float*>(base + sc.delta);
   const float* lse2 = reinterpret_cast<const float*>(base + sc.lse2);
-  const int64_t num_tiles = (static_cast<int64_t>(a.s) + kF32Threads - 1) / kF32Threads;
+  constexpr int kRows = F32BwdTile<D>::kRows;  // keys or queries a block
+  const int64_t num_tiles = (static_cast<int64_t>(a.s) + kRows - 1) / kRows;
   if (num_tiles * a.num_bh > INT32_MAX) return cudaErrorInvalidValue;
   const unsigned blocks = static_cast<unsigned>(num_tiles * a.num_bh);
   const float scale_log2e = a.scale * kLog2e;
@@ -1301,6 +1542,8 @@ cudaError_t dispatch(int d, int dtype, const Args& a) {
       return dispatch_d<64>(dtype, a);
     case 128:
       return dispatch_d<128>(dtype, a);
+    case 256:
+      return dispatch_d<256>(dtype, a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1323,7 +1566,7 @@ extern "C" int64_t swtpu_flash_attention_bwd_scratch_bytes(int b, int s, int h, 
 // log); dq, dk, dv: contiguous [b, s, h, d] of that type, written whole;
 // scratch: swtpu_flash_attention_bwd_scratch_bytes(b, s, h, d, dtype)
 // bytes, 16-byte aligned, contents ignored; all on the device of
-// ``stream``. d is 16, 32, 64 or 128; the 16-bit types also need every
+// ``stream``. d is 16, 32, 64, 128 or 256; the 16-bit types also need every
 // base pointer 16-byte aligned and every stride a multiple of 8. sm_scale
 // is the forward's scale (any sign). Returns the first cudaGetLastError()
 // that is not cudaSuccess after each launch (three; four in float16)

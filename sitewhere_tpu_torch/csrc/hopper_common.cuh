@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the flash-attention kernels on wgmma
-// and TMA (flash_attention.cu, the forward at D = 64 and 128; flash_attention_bwd.cu,
+// and TMA (flash_attention.cu, the forward at D = 64, 128 and 256; flash_attention_bwd.cu,
 // the backward; both in bf16 and fp16): mbarriers, TMA and bulk copies, the
 // turn counters' acquire / release, named barriers, the wgmma wrappers and
 // shared-memory matrix descriptors, and the host-side tensor maps of a
@@ -12,10 +12,11 @@
 // bytes and the box is swizzled by its row width (the tensor map's
 // CU_TENSOR_MAP_SWIZZLE_* and the descriptor's layout type agree). At
 // D = 128 a row is 256 bytes, wider than the largest swizzle, so a tile is
-// two boxes of 64 columns (the "d-boxes"), one after the other: a K-major
-// operand steps to the second box after 4 of its 8 k16 steps, and an
-// MN-major operand spans both through the descriptor's leading byte offset
-// (the stride from one 64-column swizzle atom to the next).
+// two boxes of 64 columns (the "d-boxes"), one after the other (four at
+// D = 256): a K-major operand steps to the next box after every 4 of its
+// k16 steps, and an MN-major operand spans two boxes through the
+// descriptor's leading byte offset (the stride from one 64-column swizzle
+// atom to the next; a product of N = 128 columns starts at box 0 or 2).
 
 #pragma once
 

@@ -24,31 +24,34 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
     P, rounded to bf16, is the A operand of the P·V product without a
     trip through shared memory. The products leave the CUDA cores; what
     is left there is the softmax around one exponential per pair.
-  * bfloat16 and float16 at D = 64 and 128 (any D from 33 up, padded):
-    FA3's forward on Hopper's ``wgmma`` and TMA, warp-specialised. A
-    block owns 128 query rows (two compute warpgroups of 64); one thread
-    brings Q once and K and V tiles of 128 keys through TMA into mbarrier
-    rings of their own; S = Q K^T and O += P V are ``wgmma`` products, P
-    (in the input type) the register A operand of the second. Each
-    warpgroup issues the P V product of one tile right behind the S of the
-    next and takes that S's softmax while the product runs, and the two
-    warpgroups issue their products in turns, so the exponentials run
-    under the tensor cores' work: at D = 64 the two cost about the same
-    (1.11 and 1.03 ms at [8, 16384, 4, 64] causal), at D = 128 the
-    products bind.
+  * bfloat16 and float16 at D = 64, 128 and 256 (any D from 33 up,
+    padded): FA3's forward on Hopper's ``wgmma`` and TMA,
+    warp-specialised. A block owns 128 query rows (two compute warpgroups
+    of 64; three at D = 64); one thread brings Q once and K and V tiles of
+    128 keys (64 at D = 256, where Q alone takes 64 KB of shared memory)
+    through TMA into mbarrier rings of their own; S = Q K^T and O += P V
+    are ``wgmma`` products, P (in the input type) the register A operand
+    of the second. Each warpgroup issues the P V product of one tile right
+    behind the S of the next and takes that S's softmax while the product
+    runs, and the two warpgroups issue their products in turns, so the
+    exponentials run under the tensor cores' work: at D = 64 the two cost
+    about the same (1.11 and 1.03 ms at [8, 16384, 4, 64] causal), at
+    D = 128 and 256 the products bind.
   * float16 at D = 16 and 32: the ``mma.sync`` kernel with float16
     fragments and the float16 ``mma.sync``.
-  * float32 design: one thread per query row with float32 products on the
-    CUDA cores (tensor cores would mean TF32, too coarse for the float32
-    tolerance); not on the transformer's path.
+  * float32 design: one thread per query row (four at D = 256, each with
+    64 of its columns) with float32 products on the CUDA cores (tensor
+    cores would mean TF32, too coarse for the float32 tolerance); not on
+    the transformer's path.
   * Both read q, k and v in place through their (batch, row, head)
     strides, so the strided views of one fused qkv product need no copies,
     and write a contiguous [B, S, H, D] output. Any S; head dims 16, 32,
-    64 and 128 (``HEAD_DIMS``). Any other D up to 128 runs zero-padded to
-    the next of them (:func:`padded_head_dim`; a copy of q, k and v, the
-    output sliced back), as the TPU kernel pads D to a multiple of 128: the
-    zero lanes add nothing to q.k, and the scale stays the true D's. A D
-    past 128 and a type outside ``DTYPES`` (float64) are refused. The
+    64, 128 and 256 (``HEAD_DIMS``). Any other D up to 256 runs
+    zero-padded to the next of them (:func:`padded_head_dim`; a copy of q,
+    k and v, the output sliced back; D = 129 to 255 at 256), as the TPU
+    kernel pads D to a multiple of 128: the zero lanes add nothing to q.k,
+    and the scale stays the true D's. A D past 256 (the TPU kernel takes
+    any D) and a type outside ``DTYPES`` (float64) are refused. The
     16-bit types need 16-byte aligned base pointers and strides that are a
     multiple of 8 elements (the ``cp.async`` copies are 16 bytes).
   * The forward can also write each row's log-sum-exp (``lse`` [B, H, S]
@@ -61,7 +64,10 @@ and dO tiles through TMA into an mbarrier ring, warp-specialised), dQ
 summed in float32 across key blocks in a fixed order (a turn counter per
 query tile), so a gradient is bitwise the same from run to run. At D = 128
 each tile is two 64-column boxes of 128-byte swizzle, and each compute
-warpgroup takes 64 of dQ's columns over the block's 128 keys. float16's 5
+warpgroup takes 64 of dQ's columns over the block's 128 keys. At D = 256
+(four boxes) a block owns 64 keys and each warpgroup 128 of the columns of
+dK, dV and dQ, computing the scores and dP of the block whole for itself;
+a tile's dQ leaves through its own Q and dO tiles. float16's 5
 exponent bits would lose a long row's small entries of P and dS, so the
 float16 kernel scales them by powers of two: a key's rows of P^T and dS^T
 (the dV and dK operands) by a running per-row scale, and a query's row of
@@ -92,7 +98,7 @@ BWD_KERNEL = "flash_attention_bwd"
 # the head dims the kernels are instantiated at; any other D up to the last
 # is padded with zero lanes to the next one (as the TPU kernel pads D to a
 # multiple of 128), a larger D is refused
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 # the kernels' types, in the order of the type code they are handed
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -194,6 +200,23 @@ def f16_dq_scale_exponents(o: torch.Tensor, do: torch.Tensor,
     return e.to(torch.int32).transpose(1, 2).contiguous()
 
 
+def gradient_row_errors(got: torch.Tensor, ref: torch.Tensor, which: str, *,
+                        causal: bool, step: float = 0.0) -> tuple:
+    """Each row (one position of one head) of a gradient ``got`` against
+    ``ref``: its largest absolute error over the head dim less ``step``
+    (at least 0), its largest |ref| element, and whether its exact
+    gradient is 0 (every dq and dk row at S = 1, and dq's row 0 under a
+    causal mask: one key, so P = 1 and o = v), each [B, S, H]. ``which``
+    is "dq", "dk" or "dv"."""
+    err = ((got.float() - ref.float()).abs().amax(-1) - step).clamp_min(0.0)
+    zero = torch.zeros_like(err, dtype=torch.bool)
+    if which in ("dq", "dk") and got.shape[1] == 1:
+        zero[:] = True
+    elif which == "dq" and causal:
+        zero[:, 0] = True
+    return err, ref.float().abs().amax(-1), zero
+
+
 def gradient_row_shares(got: torch.Tensor, ref: torch.Tensor, which: str, *,
                         causal: bool, atol: float, step: float = 0.0) -> torch.Tensor:
     """How far each row (one position of one head) of a gradient ``got``
@@ -202,19 +225,14 @@ def gradient_row_shares(got: torch.Tensor, ref: torch.Tensor, which: str, *,
     both are 0, inf where only ``ref`` is). ``which`` is "dq", "dk" or
     "dv". ``atol`` comes off the error only on the rows whose exact
     gradient is 0, where float32 rounding of dP - delta is all that is
-    left: every dq and dk row at S = 1, and dq's row 0 under a causal mask
-    (one key, so P = 1 and o = v). ``step`` comes off every row's error:
+    left (``gradient_row_errors``). ``step`` comes off every row's error:
     the gradient type's smallest step (float16's subnormal 2^-24), by
     which two roundings of nearly the same value can differ in a row that
     lies below the type's normal range. A share of the whole tensor's
     largest element would not do: a causal gradient falls off along S,
     and a wrong tail of small rows would pass it."""
-    err = ((got.float() - ref.float()).abs().amax(-1) - step).clamp_min(0.0)
-    top = ref.float().abs().amax(-1)
-    if which in ("dq", "dk") and got.shape[1] == 1:
-        err = (err - atol).clamp_min(0.0)
-    elif which == "dq" and causal:
-        err[:, 0] = (err[:, 0] - atol).clamp_min(0.0)
+    err, top, zero = gradient_row_errors(got, ref, which, causal=causal, step=step)
+    err = torch.where(zero, (err - atol).clamp_min(0.0), err)
     return torch.where(top > 0, err / top, torch.where(err > 0, math.inf, 0.0))
 
 

@@ -133,8 +133,9 @@ def test_masked_scores_are_minus_1e30_as_in_jax():
 def forward_block_k(d: int) -> int:
     """The key tile of the 16-bit forward kernel that runs head dim ``d``
     (padded as ``padded_head_dim`` pads it): 64 on the mma.sync kernel at D
-    = 16 and 32, 128 on the wgmma kernel at D = 64 and 128."""
-    return 128 if tatt.padded_head_dim(d) >= 64 else 64
+    = 16 and 32, 128 on the wgmma kernel at D = 64 and 128, 64 on it at
+    D = 256."""
+    return 128 if tatt.padded_head_dim(d) in (64, 128) else 64
 
 
 def emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -143,7 +144,8 @@ def emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         ) -> torch.Tensor:
     """The arithmetic of the bf16 tensor-core kernel, on the CPU: key tiles
     of ``block_k`` (64 for the mma.sync kernel at D = 16 and 32, 128 for the
-    wgmma kernel at D = 64 and 128: ``forward_block_k``); float32 scores (exact products of bf16 values summed in
+    wgmma kernel at D = 64 and 128, 64 for it at D = 256:
+    ``forward_block_k``); float32 scores (exact products of bf16 values summed in
     float32) scaled inside the exp2 argument, p = exp2(s·c − m·c) with c =
     sm_scale·log2(e) made positive (a negative c as |c| on -q, a zero c as
     the smallest normal float); the running max starting at -1e30; masked
@@ -258,22 +260,31 @@ def test_wgmma_forward_arithmetic_at_d64_holds_to_jax(case):
     dtype, s, causal, sm_scale = case
     d = 48 if sm_scale == "d48" else 64
     scale = 1.0 / math.sqrt(d) if sm_scale == "d48" else sm_scale
+    _wgmma_forward_arithmetic_holds_to_jax(dtype, (2, s, 2, d), causal, scale, 90 + s + d,
+                                           dp=64, block_k=128)
+
+
+def _wgmma_forward_arithmetic_holds_to_jax(dtype, shape, causal, scale, seed, *, dp, block_k):
+    """The wgmma forward's emulated arithmetic (D padded to ``dp``, key
+    tiles of ``block_k``) on ``shape`` against JAX's oracle and the Pallas
+    kernel in interpret mode within the card's limit, and float16's
+    bf16-rounded control past it (causal, past one key, a nonzero scale)."""
+    s, d = shape[1], shape[-1]
     jdt, tdt = {"bfloat16": (jnp.bfloat16, torch.bfloat16),
                 "float16": (jnp.float16, torch.float16)}[dtype]
-    arrays = _qkv((2, s, 2, d), seed=90 + s + d)
+    arrays = _qkv(shape, seed=seed)
     jq, jk, jv = (jnp.asarray(a, jdt) for a in arrays)
     tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in arrays)
-    dp = tatt.padded_head_dim(d)
-    assert dp == 64 and forward_block_k(d) == 128
+    assert tatt.padded_head_dim(d) == dp and forward_block_k(d) == block_k
 
     def emulate(low):
         out = emulate_bf16_kernel(*(tatt.pad_head_dim(t, dp) for t in (tq, tk, tv)),
-                                  causal=causal, sm_scale=scale, block_k=128, low=low)
+                                  causal=causal, sm_scale=scale, block_k=block_k, low=low)
         assert out.dtype == tdt and not out[..., d:].any()
         return out[..., :d]
 
     got = emulate(tdt)
-    assert got.shape == (2, s, 2, d) and bool(torch.isfinite(got.float()).all())
+    assert got.shape == shape and bool(torch.isfinite(got.float()).all())
     tol = FLASH_TOL_BF16 if tdt == torch.bfloat16 else FLASH_TOL_F16
     oracle = jatt.mha_reference(jq, jk, jv, causal=causal, sm_scale=scale)
     np.testing.assert_allclose(_np(got), _np(oracle), **tol)
@@ -363,14 +374,15 @@ def test_kernel_source_is_plain_c_for_sm90a():
 
 
 @pytest.mark.parametrize("d, dp", [(1, 16), (8, 16), (16, 16), (17, 32), (48, 64),
-                                   (64, 64), (100, 128), (128, 128)])
+                                   (64, 64), (100, 128), (128, 128), (129, 256),
+                                   (192, 256), (256, 256)])
 def test_padded_head_dim_is_the_next_instantiated_one(d, dp):
     assert tatt.padded_head_dim(d) == dp
 
 
 def test_head_dims_past_the_largest_are_refused_with_the_limit():
-    with pytest.raises(ValueError, match="up to 128"):
-        tatt.padded_head_dim(129)
+    with pytest.raises(ValueError, match="up to 256"):
+        tatt.padded_head_dim(257)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -439,6 +451,17 @@ GPU_CASES = [  # (B, S, H, D, dtype)
     (3, 1, 4, 64, torch.float16),
     (2, 65, 4, 64, torch.bfloat16),
     (2, 1000, 4, 64, torch.bfloat16),
+    # D = 256 (its 64-key tiles: S = 1, one key past a tile, ragged) and
+    # D = 192 padded to it, in each type
+    (3, 1, 2, 256, torch.bfloat16),
+    (2, 65, 2, 256, torch.bfloat16),
+    (2, 777, 1, 256, torch.bfloat16),
+    (2, 333, 2, 192, torch.bfloat16),
+    (2, 65, 2, 256, torch.float16),
+    (2, 1000, 1, 256, torch.float16),
+    (2, 333, 2, 192, torch.float16),
+    (2, 300, 2, 256, torch.float32),
+    (2, 129, 2, 192, torch.float32),
 ]
 
 
@@ -508,8 +531,8 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     q = torch.zeros((2, 8, 4, 32), device="cuda")
     with pytest.raises(TypeError):
         tatt.flash_attention(q.double(), q.double(), q.double())
-    big = torch.zeros((2, 8, 4, 256), device="cuda")
-    with pytest.raises(ValueError, match="up to 128"):
+    big = torch.zeros((2, 8, 4, 257), device="cuda")
+    with pytest.raises(ValueError, match="up to 256"):
         tatt.flash_attention(big, big, big)
 
 
@@ -658,7 +681,8 @@ def emulate_bf16_backward(q, k, v, o, do, lse, *, causal: bool,
     64-row query tiles. dQ: each key block of 128 keys sums its two
     64-key parts (one a compute warpgroup) in float32 (at D = 128 one part
     of 128 keys, ``key_part=128``: a warpgroup's columns of dQ over the
-    whole block in one product), and the blocks' sums
+    whole block in one product; at D = 256 blocks of 64 keys in one part,
+    ``key_block=key_part=64``), and the blocks' sums
     are added in float32 in key-block order; dq, dk and dv are rounded to
     q's type once. ``low`` is the type P and dS are rounded to: float16
     for the float16 kernel (``round_rows``: each key's row of P^T and dS^T
@@ -755,8 +779,19 @@ def test_bf16_wgmma_backward_arithmetic_at_d128_holds_to_jax_grad(s, causal, sm_
     same bf16 values (measured <= 6.9e-3). The output gradient's delta is
     taken from the float32 output on both sides, so what is measured is the
     kernel's own rounding."""
+    _bf16_backward_arithmetic_holds_to_jax_grad((2, s, 2, 128), causal, sm_scale, 90 + s,
+                                                key_block=128, key_part=128)
+
+
+def _bf16_backward_arithmetic_holds_to_jax_grad(shape, causal, sm_scale, seed, *, key_block,
+                                                key_part):
+    """The bf16 wgmma backward's emulated arithmetic (64-row query tiles,
+    key blocks of ``key_block`` whose dQ sums parts of ``key_part``) on
+    ``shape`` against ``jax.vjp`` of JAX's oracle on the same bf16 values,
+    every row within GRAD_TOL_BF16, delta from the float32 output on both
+    sides; at a zero scale dq and dk are exactly 0 on both."""
     arrays = [np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
-              for a in _qkv((2, s, 2, 128), seed=90 + s) + _qkv((2, s, 2, 128), seed=91 + s)[:1]]
+              for a in _qkv(shape, seed=seed) + _qkv(shape, seed=seed + 1)[:1]]
     jq, jk, jv, jdo = (jnp.asarray(a) for a in arrays)
     out, vjp = jax.vjp(lambda q, k, v: jatt.mha_reference(q, k, v, causal=causal,
                                                         sm_scale=sm_scale), jq, jk, jv)
@@ -765,9 +800,9 @@ def test_bf16_wgmma_backward_arithmetic_at_d128_holds_to_jax_grad(s, causal, sm_
     o = torch.from_numpy(np.array(out))
     lse = tatt.lse_reference(tq.float(), tk.float(), causal=causal, sm_scale=sm_scale)
     got = emulate_bf16_backward(tq, tk, tv, o, tdo, lse, causal=causal, sm_scale=sm_scale,
-                                q_tile=64, key_block=128, key_part=128)
+                                q_tile=64, key_block=key_block, key_part=key_part)
     for name, g, r in zip("qkv", got, ref):
-        assert g.dtype == torch.bfloat16 and g.shape == (2, s, 2, 128)
+        assert g.dtype == torch.bfloat16 and g.shape == shape
         assert bool(torch.isfinite(g.float()).all())
         if sm_scale == 0.0 and name != "v":
             assert not g.float().any() and not r.any()
@@ -844,12 +879,14 @@ def test_f16_backward_arithmetic_fits_the_tolerance(case):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("s", [1, 63, 65, 200])
 def test_f16_one_pass_backward_arithmetic_fits_the_tolerance(s, d, causal):
     """The float16 arithmetic of the one-pass kernel
     (``flash_bwd_wgmma_kernel<__half, D>``): 64-row query tiles, 128-key
-    blocks whose dQ sums two 64-key parts (one part of 128 at D = 128), a
+    blocks whose dQ sums two 64-key parts (one part of 128 at D = 128; at
+    D = 256 blocks of 64 keys in one part, both compute warpgroups taking
+    the same RowScale exponents, since they compute the same P^T and dS^T), a
     key's rows of P^T and dS^T scaled by its RowScale for dV and dK, a
     query's row of dS by the fixed 2^e_i of ``f16_dq_scale_exponents`` for
     dQ. Every row stays within GRAD_TOL_F16 of the plain backward after
@@ -859,10 +896,12 @@ def test_f16_one_pass_backward_arithmetic_fits_the_tolerance(s, d, causal):
     round there)."""
     q, k, v, o, do, lse = _f16_case(s, d, causal, None)
     plain = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=causal)
-    key_part = 128 if d > 64 else 64
+    key_block = 64 if d == 256 else 128
+    key_part = 128 if d == 128 else 64
     got = emulate_bf16_backward(q, k, v, o, do, lse, causal=causal, low=torch.float16,
-                                key_part=key_part)
-    control = emulate_bf16_backward(q, k, v, o, do, lse, causal=causal, key_part=key_part)
+                                key_block=key_block, key_part=key_part)
+    control = emulate_bf16_backward(q, k, v, o, do, lse, causal=causal, key_block=key_block,
+                                    key_part=key_part)
     for name, g, c, p in zip("qkv", got, control, plain):
         assert g.dtype == torch.float16 and g.shape == q.shape
         assert bool(torch.isfinite(g.float()).all())
@@ -904,7 +943,7 @@ def _check_dq_scale(q, k, v, o, do, lse, causal) -> None:
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("s, d", [(1, 32), (63, 16), (200, 64), (300, 128)])
+@pytest.mark.parametrize("s, d", [(1, 32), (63, 16), (200, 64), (300, 128), (300, 256)])
 def test_f16_dq_scale_exponents_bound_ds(s, d, causal):
     """``f16_dq_scale_exponents`` (the prep pass's rule) against a float32
     computation of max_j |dS_ij| on the float16 cases' inputs."""
@@ -1013,6 +1052,102 @@ def test_row_shares_take_atol_only_on_exact_zero_rows():
         (1, 2, 1, 4)), "dv", causal=True, atol=GRAD_ATOL).min()) == math.inf
 
 
+@pytest.mark.parametrize("which,causal,s", [("dq", True, 5), ("dq", False, 5), ("dk", True, 5),
+                                            ("dv", True, 5), ("dq", False, 1), ("dk", True, 1)])
+def test_row_errors_are_the_shares_before_the_division(which, causal, s):
+    """``gradient_row_errors`` gives each row's absolute error (the step
+    off), its largest |ref| element and the rows whose exact gradient is 0;
+    the shares are the one over the other, GRAD_ATOL off those rows only
+    (exact: every value below is a power of two or a small integer)."""
+    gen = torch.Generator().manual_seed(3)
+    ref = torch.randint(-8, 9, (2, s, 3, 4), generator=gen).float()
+    got = ref + torch.randint(-2, 3, ref.shape, generator=gen).float() * 2.0 ** -10
+    err, top, zero = tatt.gradient_row_errors(got, ref, which, causal=causal, step=2.0 ** -12)
+    assert err.shape == top.shape == zero.shape == (2, s, 3)
+    assert torch.equal(err, ((got - ref).abs().amax(-1) - 2.0 ** -12).clamp_min(0.0))
+    assert torch.equal(top, ref.abs().amax(-1))
+    want = torch.zeros_like(zero)
+    if which in ("dq", "dk") and s == 1:
+        want[:] = True
+    elif which == "dq" and causal:
+        want[:, 0] = True
+    assert torch.equal(zero, want)
+    shares = tatt.gradient_row_shares(got, ref, which, causal=causal, atol=GRAD_ATOL,
+                                      step=2.0 ** -12)
+    e = torch.where(zero, (err - GRAD_ATOL).clamp_min(0.0), err)
+    assert torch.equal(shares, torch.where(top > 0, e / top,
+                                           torch.where(e > 0, math.inf, 0.0)))
+
+
+@pytest.mark.parametrize("causal,sm_scale", [(True, None), (False, -0.3), (True, 0.0)])
+def test_c6_yardstick_is_the_exact_attention_in_float64(causal, sm_scale):
+    """``chip_smoke.float64_reference``, the yardstick of the card's C6
+    checks, in float64: its output is softmax attention's, and its
+    gradients are the plain backward's formula; from the float64 output
+    and lse they are autograd's gradient of float64 softmax attention (to
+    1e-12 of the largest element), and from the float32 plain forward they
+    lie within 1e-5 of each float32 plain gradient's largest element."""
+    import chip_smoke as cs
+
+    q, k, v, do = (torch.from_numpy(a) for a in _qkv((2, 37, 3, 16), seed=7) + [
+        np.random.default_rng(8).standard_normal((2, 37, 3, 16)).astype(np.float32)])
+    q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+    do64 = do.double()
+    scale = 1.0 / 4.0 if sm_scale is None else sm_scale
+    s = torch.einsum("bqhd,bkhd->bhqk", q64, k64) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(37, 37, dtype=torch.bool).triu(1), -math.inf)
+    o64 = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v64)
+    want = torch.autograd.grad(o64, (q64, k64, v64), do64)
+    got_o, _, got, _ = cs.float64_reference(q64.detach(), k64.detach(), v64.detach(),
+                                            o64.detach(), do64, torch.logsumexp(s, -1).detach(),
+                                            causal, sm_scale)
+    assert float((got_o - o64.detach()).abs().max()) <= 1e-12
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        assert float((g - w).abs().max()) <= 1e-12 * max(float(w.abs().max()), 1.0)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    o = tatt.mha_reference(qf, kf, vf, causal=causal, sm_scale=sm_scale)
+    lse = tatt.lse_reference(qf, kf, causal=causal, sm_scale=sm_scale)
+    plain = tatt.mha_backward_reference(qf, kf, vf, o, dof, lse, causal=causal,
+                                        sm_scale=sm_scale)
+    for g, p in zip(cs.float64_reference(qf, kf, vf, o, dof, lse, causal, sm_scale)[2], plain):
+        assert float((g - p.double()).abs().max()) <= 1e-5 * max(float(p.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_c6_float32_bound_frees_only_saturated_rows(dtype):
+    """float32's first-order error bound (``chip_smoke.float64_reference``)
+    at GRAD_ARITH_MARGIN times frees no gradient row and no output element
+    from the type's limit at the default scale (D = 256, S = 333), frees
+    dq rows at sm_scale -0.3, and there covers the plain float32 version's
+    own error on every row past the type's limit (those rows read at most
+    0.62 of the bound here)."""
+    import chip_smoke as cs
+
+    gen = torch.Generator().manual_seed(1)
+    freed = {}
+    for scale in (None, -0.3):
+        q, k, v = cs.fused_qkv(2, 333, 2, 256, dtype, "cpu", gen)
+        do = torch.randn(q.shape, generator=gen).to(dtype)
+        o = tatt.mha_reference(q, k, v, causal=True, sm_scale=scale)
+        lse = tatt.lse_reference(q, k, causal=True, sm_scale=scale)
+        o64, o_bound, exact, bounds = cs.float64_reference(q, k, v, o, do, lse, True, scale)
+        tol = cs.FLASH_TOL[dtype]
+        freed[scale] = [int((cs.GRAD_ARITH_MARGIN * o_bound > tol * (1 + o64.abs())).sum())]
+        plain = tatt.mha_backward_reference(q.float(), k.float(), v.float(), o.float(),
+                                            do.float(), lse, causal=True, sm_scale=scale)
+        for t, p, x, b in zip("qkv", plain, exact, bounds):
+            err, top, zero = tatt.gradient_row_errors(p, x, f"d{t}", causal=True)
+            floor = cs.GRAD_TOL[dtype] * top + cs.GRAD_ATOL * zero
+            bound = cs.GRAD_ARITH_MARGIN * b.amax(-1).float()
+            freed[scale].append(int((bound > floor).sum()))
+            past = err > floor
+            assert bool((err[past] <= bound[past]).all()), (scale, t, int(past.sum()))
+    assert freed[None] == [0, 0, 0, 0]
+    assert freed[-0.3][1] > 0 and freed[-0.3][3] == 0
+
+
 def test_cpu_backward_takes_plain_version_and_counts_no_launch():
     before = (tatt.flash_attention.launches, tatt.flash_attention_backward.launches)
     q, k, v, o, do, lse = _bf16_case(33, 16, 50, True)
@@ -1096,7 +1231,7 @@ def test_backward_kernel_source_is_plain_c_for_sm90a():
     # left), and no atomic add decides an order (the bitwise check is on
     # the card: test_cuda_backward_kernel_is_bitwise_deterministic)
     assert "wgmma.mma_async" in src and "cp.async.bulk.tensor" in src
-    assert ("bool takes_wgmma(int dtype, int d) { return (dtype == 1 || dtype == 2) && d <= 128; }"
+    assert ("bool takes_wgmma(int dtype, int d) { return (dtype == 1 || dtype == 2) && d <= 256; }"
             in src)
     assert "mma_bf16(" not in src and "CU_TENSOR_MAP_DATA_TYPE_FLOAT16" in src
     assert "mma_16816" not in (cuda_build.CSRC / "flash_attention_bwd.cu").read_text()
@@ -1167,6 +1302,18 @@ BWD_GPU_CASES = [  # (B, S, H, D, dtype)
     (2, 300, 4, 8, torch.float16),
     (2, 333, 4, 48, torch.float16),
     (2, 777, 2, 128, torch.float16),
+    # D = 256 (64-key blocks, each compute warpgroup 128 of the columns)
+    # and D = 192 padded to it, in each type; the 16-bit ones also in the
+    # bitwise check below
+    (3, 1, 2, 256, torch.bfloat16),
+    (2, 65, 2, 256, torch.bfloat16),
+    (2, 777, 1, 256, torch.bfloat16),
+    (2, 333, 2, 192, torch.bfloat16),
+    (1, 2048, 1, 256, torch.float16),
+    (2, 65, 2, 256, torch.float16),
+    (2, 333, 2, 192, torch.float16),
+    (2, 300, 2, 256, torch.float32),
+    (2, 129, 2, 192, torch.float32),
 ]
 
 
@@ -1241,12 +1388,12 @@ def test_cuda_backward_kernel_takes_any_sign_of_scale(sm_scale, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_cuda_f16_takes_the_one_pass_backward(d):
     """float16 runs the one-pass wgmma/TMA backward at every head dim
     (``flash_bwd_wgmma_kernel<__half, D>``, after its norm and prep passes)
-    and, at D = 64 and 128, the wgmma/TMA forward, by the profiler's kernel names;
-    no mma.sync backward kernel runs."""
+    and, at D = 64, 128 and 256, the wgmma/TMA forward, by the profiler's kernel
+    names; no mma.sync backward kernel runs."""
     _cuda_or_skip()
     from torch.profiler import ProfilerActivity, profile
 
@@ -1316,6 +1463,160 @@ def test_cuda_backward_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         tatt.flash_attention_backward(q.double(), q.double(), q.double(), q.double(),
                                       q.double(), lse)
-    big = torch.zeros((2, 8, 4, 256), device="cuda")
-    with pytest.raises(ValueError, match="up to 128"):
+    big = torch.zeros((2, 8, 4, 257), device="cuda")
+    with pytest.raises(ValueError, match="up to 256"):
         tatt.flash_attention_backward(big, big, big, big, big, lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [192, 256])
+def test_cuda_head_dims_past_128_take_the_d256_kernels(d, dtype):
+    """A head dim from 129 to 256 runs the wgmma/TMA forward and the
+    one-pass backward at D = 256 (``flash_attention_wgmma_kernel<T, 256>``,
+    ``flash_bwd_wgmma_kernel<T, 256>``) by the profiler's kernel names,
+    through autograd as the trainer takes them."""
+    _cuda_or_skip()
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    qkv = torch.randn((1, 300, 3, 2, d), device="cuda", generator=gen).to(dtype)
+    qkv.requires_grad_(True)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tatt.flash_attention(q, k, v, causal=True).float().square().sum().backward()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    t = "__half" if dtype == torch.float16 else "__nv_bfloat16"
+    for kernel in ("flash_attention_wgmma_kernel", "flash_bwd_wgmma_kernel"):
+        ran = [n for n in names if kernel in n]
+        assert ran and all(t in n and "256" in n for n in ran), (kernel, names)
+    assert bool(torch.isfinite(qkv.grad.float()).all()) and bool(qkv.grad.any())
+
+
+# ------------------------------------------------- head dims past 128
+#
+# D = 129 to 256 runs on the card at D = 256 (zero-padded up to it, as the
+# TPU kernel pads 192 to 256). Tolerances: the plain versions against JAX
+# as above (float16 one float16 ulp, ``rtol = 2**-10``: both sides compute
+# in float32 and round once); the plain float16 backward against
+# ``jax.vjp`` 2e-3 of each gradient's largest element (both round the
+# gradients to float16 once, and the plain backward takes delta from the
+# float16-rounded output where JAX's softmax transpose uses the float32
+# one; measured <= 5.9e-4 at D = 192 and 256, S = 200); the kernels'
+# emulated arithmetic to the card's limits (FLASH_TOL_*, GRAD_TOL_*).
+F16 = dict(rtol=2**-10, atol=1e-6)
+GRAD_F16_VS_JAX = 2e-3
+WIDE_DTYPES = {"float32": (jnp.float32, torch.float32, F32, GRAD_F32),
+               "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16, GRAD_BF16_VS_JAX),
+               "float16": (jnp.float16, torch.float16, F16, GRAD_F16_VS_JAX)}
+
+
+@pytest.mark.parametrize("dtype", list(WIDE_DTYPES))
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [192, 256])
+def test_plain_version_past_head_dim_128_matches_jax_and_pallas(d, causal, dtype):
+    """The plain forward and its lse at D = 192 and 256 against JAX's oracle
+    and the Pallas kernel in interpret mode (which pads 192 to 256 itself),
+    and against ``jax.nn.logsumexp`` of JAX's scaled, masked float32
+    scores (LSE_TOL)."""
+    jdt, tdt, tol, _ = WIDE_DTYPES[dtype]
+    arrays = _qkv((1, 256, 2, d), seed=30 + d)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in arrays)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in arrays)
+    out, lse = tatt.flash_attention_forward(tq, tk, tv, causal=causal)
+    assert out.dtype == tdt and out.shape == (1, 256, 2, d) and lse.shape == (1, 2, 256)
+    np.testing.assert_allclose(_np(out), _np(jatt.mha_reference(jq, jk, jv, causal=causal)),
+                               **tol)
+    np.testing.assert_allclose(
+        _np(out), _np(jatt.flash_attention(jq, jk, jv, causal=causal, force_pallas=True)), **tol)
+    sc = jnp.einsum("bqhd,bkhd->bhqk", jq.astype(jnp.float32), jk.astype(jnp.float32)) * d ** -0.5
+    if causal:
+        sc = jnp.where(jnp.tril(jnp.ones((256, 256), bool)), sc, jatt._NEG_INF)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(sc, axis=-1)), **LSE_TOL)
+
+
+@pytest.mark.parametrize("dtype", list(WIDE_DTYPES))
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [192, 256])
+def test_plain_backward_past_head_dim_128_matches_jax_vjp(d, causal, dtype):
+    """The plain backward (from the forward's output and lse, as the kernel
+    pair runs) and autograd of the plain attention at D = 192 and 256
+    against ``jax.vjp`` of JAX's oracle, each gradient within its type's
+    share of its largest element."""
+    jdt, tdt, _, tol = WIDE_DTYPES[dtype]
+    arrays = _qkv((1, 200, 2, d), seed=40 + d) + _qkv((1, 200, 2, d), seed=41 + d)[:1]
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in arrays)
+    _, vjp = jax.vjp(lambda q, k, v: jatt.mha_reference(q, k, v, causal=causal), jq, jk, jv)
+    ref = [np.asarray(g.astype(jnp.float32)) for g in vjp(jdo)]
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in arrays)
+    o, lse = tatt.flash_attention_forward(tq, tk, tv, causal=causal)
+    plain = tatt.flash_attention_backward(tq, tk, tv, o, tdo, lse, causal=causal)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    auto = torch.autograd.grad(tatt.flash_attention(*leaves, causal=causal), leaves, tdo)
+    for name, p, a, r in zip("qkv", plain, auto, ref):
+        assert p.dtype == tdt and a.dtype == tdt and p.shape == (1, 200, 2, d)
+        assert_close_of_max(p, r, tol, f"plain d{name}")
+        assert_close_of_max(a, r, tol, f"autograd d{name}")
+
+
+WGMMA_D256_CASES = [(dtype, s, causal, sm_scale)
+                    for dtype in ("bfloat16", "float16") for s in (1, 65, 300)
+                    for causal in (False, True) for sm_scale in (None, 0.0, -0.3)]
+
+
+@pytest.mark.parametrize("case", WGMMA_D256_CASES + [("bfloat16", 300, True, "d192"),
+                                                      ("float16", 300, True, "d192"),
+                                                      ("bfloat16", 65, False, "d192"),
+                                                      ("float16", 65, False, "d192")])
+def test_wgmma_forward_arithmetic_at_d256_holds_to_jax(case):
+    """The D = 256 forward (``flash_attention_wgmma_kernel<T, 256>``) in bf16
+    and float16: 64-key tiles (``forward_block_k``), a negative scale as its
+    magnitude on -q, a zero one as the smallest normal float, P rounded to
+    the input type before P·V; the two P·V products of 128 columns each
+    change no element's order of sums. ``sm_scale`` "d192" is the
+    d_model=384, heads=2 model's D = 192, zero-padded to 256 at the true
+    scale and sliced back, as the wrapper runs it. It stays within the
+    card's limit of JAX's oracle and of the Pallas kernel in interpret
+    mode (bf16 8e-3, float16 1e-3), and float16's bf16-rounded control
+    fails under a causal mask past one key at a nonzero scale."""
+    dtype, s, causal, sm_scale = case
+    d = 192 if sm_scale == "d192" else 256
+    scale = 1.0 / math.sqrt(d) if sm_scale == "d192" else sm_scale
+    _wgmma_forward_arithmetic_holds_to_jax(dtype, (1, s, 2, d), causal, scale, 95 + s + d,
+                                           dp=256, block_k=64)
+
+
+@pytest.mark.parametrize("sm_scale", [None, 0.0, -0.3])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1, 65, 300])
+def test_bf16_wgmma_backward_arithmetic_at_d256_holds_to_jax_grad(s, causal, sm_scale):
+    """The D = 256 backward (``flash_bwd_wgmma_kernel<bf16, 256>``): 64-row
+    query tiles, 64-key blocks whose dQ sums the block's 64 keys in one
+    product (each compute warpgroup 128 of the columns: ``key_block`` =
+    ``key_part`` = 64), dQ added over the blocks in their order, P and dS
+    rounded to bf16. Every row of dq, dk and dv stays within GRAD_TOL_BF16
+    of ``jax.vjp`` of JAX's oracle on the same bf16 values, delta taken
+    from the float32 output on both sides."""
+    _bf16_backward_arithmetic_holds_to_jax_grad((1, s, 2, 256), causal, sm_scale, 96 + s,
+                                                key_block=64, key_part=64)
+
+
+def test_both_kernel_sources_instantiate_head_dim_256():
+    """The forward and the backward each dispatch D = 256 (a case of their
+    head-dim switch) to layouts sized for it: the wgmma forward's 64-key
+    tiles, the backward's 64-key blocks with their own compute path."""
+    from sitewhere_tpu_torch import cuda_build
+
+    fwd = (cuda_build.CSRC / "flash_attention.cu").read_text()
+    bwd = (cuda_build.CSRC / "flash_attention_bwd.cu").read_text()
+    for src in (fwd, bwd):
+        assert "case 256:" in src and "<T, 256>" in src
+    assert 'static_assert(D == 64 || D == 128 || D == 256, "the wgmma forward takes' in fwd
+    assert "static constexpr int kBN = D == 256 ? 64 : 128;" in fwd
+    assert "D == 16 || D == 32 || D == 64 || D == 128 || D == 256" in bwd
+    assert "static constexpr int kBN = D == 256 ? 64 : 128;" in bwd
+    assert "bwd_compute_d256<T>(" in bwd and "struct F32BwdTile" in bwd
+    assert "struct F32Tile" in fwd
+    assert tatt.HEAD_DIMS[-1] == 256

@@ -41,12 +41,12 @@ ROUTES = {
 }
 
 
-def _pair(jdt, tdt, seed=0, b=2, s=96):
+def _pair(jdt, tdt, seed=0, b=2, s=96, size=SIZE):
     x = np.random.default_rng(seed).standard_normal(
-        (b, s, SIZE["sensors"])).astype(np.float32)
-    jcfg = jtf.TransformerConfig(**SIZE, dtype=jdt)
+        (b, s, size["sensors"])).astype(np.float32)
+    jcfg = jtf.TransformerConfig(**size, dtype=jdt)
     params = jax.device_get(jtf.init_params(jax.random.key(seed), jcfg))
-    tmodel = ttf.TelemetryTransformer(ttf.TransformerConfig(**SIZE, dtype=tdt),
+    tmodel = ttf.TelemetryTransformer(ttf.TransformerConfig(**size, dtype=tdt),
                                       device="cpu")
     tmodel.load_state_dict(transformer_params_from_jax(params))
     return x, jcfg, params, tmodel
@@ -79,6 +79,31 @@ def test_scores_match_jax_bfloat16(route):
                               attention_fn=ROUTES[route])
     got = ttf.forecast_scores(tmodel, torch.from_numpy(x))
     assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **BF16)
+
+
+# head dims past 128, which the card runs at D = 256: the d_model=256,
+# heads=1 model (D = 256) and d_model=384, heads=2 (D = 192, padded there)
+WIDE_HEADS = {"d256": dict(d_model=256, heads=1), "d192": dict(d_model=384, heads=2)}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("width", list(WIDE_HEADS))
+def test_scores_past_head_dim_128_match_jax_float32(width, route):
+    size = dict(SIZE, **WIDE_HEADS[width])
+    x, jcfg, params, tmodel = _pair(jnp.float32, torch.float32, seed=5, s=64, size=size)
+    ref = jtf.forecast_scores(params, jnp.asarray(x), jcfg, attention_fn=ROUTES[route])
+    got = ttf.forecast_scores(tmodel, torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == (2,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32)
+
+
+@pytest.mark.parametrize("width", list(WIDE_HEADS))
+def test_scores_past_head_dim_128_match_jax_bfloat16(width):
+    size = dict(SIZE, **WIDE_HEADS[width])
+    x, jcfg, params, tmodel = _pair(jnp.bfloat16, torch.bfloat16, seed=6, s=64, size=size)
+    ref = jtf.forecast_scores(params, jnp.asarray(x), jcfg)
+    got = ttf.forecast_scores(tmodel, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **BF16)
 
 

@@ -52,12 +52,12 @@ TRAIN_GRAD_TOL_BF16 = 2e-2
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def _pair(dtype="float32", seed=0, b=2, s=48):
+def _pair(dtype="float32", seed=0, b=2, s=48, size=SIZE):
     jdt, tdt = DTYPES[dtype]
-    x = np.random.default_rng(seed).standard_normal((b, s, SIZE["sensors"])).astype(np.float32)
-    jcfg = jtf.TransformerConfig(**SIZE, dtype=jdt)
+    x = np.random.default_rng(seed).standard_normal((b, s, size["sensors"])).astype(np.float32)
+    jcfg = jtf.TransformerConfig(**size, dtype=jdt)
     params = jax.device_get(jtf.init_params(jax.random.key(seed), jcfg))
-    tmodel = ttf.TelemetryTransformer(ttf.TransformerConfig(**SIZE, dtype=tdt), device="cpu")
+    tmodel = ttf.TelemetryTransformer(ttf.TransformerConfig(**size, dtype=tdt), device="cpu")
     tmodel.load_state_dict(convert.transformer_params_from_jax(params))
     return x, jcfg, params, tmodel
 
@@ -68,14 +68,13 @@ def _of_max(got, ref, tol, what):
     assert err <= tol * scale, f"{what}: max abs err {err} > {tol} of {scale}"
 
 
-def _params_close(tmodel, jparams, tol, what, steps, lr=1e-3):
+def _params_close(tmodel, jparams, tol, what, steps, lr=1e-3, d=SIZE["d_model"]):
     """Every parameter within ``tol`` of JAX's, except the key bias (the
     middle third of each ``qkv.bias``): softmax is invariant to a shift of
     every score of a row, so its exact gradient is 0 and each side's Adam
     step is its own rounding noise over itself, +-lr. It is held to that
     bound on both sides instead (zero init; weight decay ~1e-7)."""
     ref = convert.transformer_params_from_jax(jax.device_get(jparams))
-    d = SIZE["d_model"]
     for name, p in tmodel.named_parameters():
         got, want = p.detach().numpy(), ref[name].numpy()
         if name.endswith("qkv.bias"):
@@ -125,6 +124,36 @@ def test_k_steps_match_jax(name):
         loss = step(torch.from_numpy(x))
         np.testing.assert_allclose(loss.item(), float(jloss), **F32, err_msg=f"step {i}")
     _params_close(tmodel, params, STEPS_TOL, name, steps=5)
+
+
+# head dims past 128 (the card runs them at D = 256): d_model=256, heads=1
+# (D = 256) and d_model=384, heads=2 (D = 192)
+WIDE_HEADS = {"d256": dict(d_model=256, heads=1), "d192": dict(d_model=384, heads=2)}
+WIDE_SGD_LR = 0.1
+
+
+@pytest.mark.parametrize("width", list(WIDE_HEADS))
+def test_k_steps_past_head_dim_128_match_jax(width):
+    """3 ``make_train_step`` steps at a head dim past 128 with plain SGD
+    (``optax.sgd`` and ``torch.optim.SGD``, lr 0.1): losses at F32 and
+    parameters within STEPS_TOL of JAX's. SGD carries the gradients'
+    agreement into the parameters as it is; Adam (``test_k_steps_match_jax``
+    at SIZE) normalizes each element's update, and at these widths it turns
+    the float32 rounding of a few near-zero gradient elements of
+    ``qkv.weight`` into whole updates on either side (measured: 6 of
+    442,368 elements past STEPS_TOL after 3 AdamW steps at d192)."""
+    size = dict(SIZE, **WIDE_HEADS[width])
+    x, jcfg, params, tmodel = _pair(seed=7, size=size)
+    tx = optax.sgd(WIDE_SGD_LR)
+    jstep = jax.jit(jtf.make_train_step(jcfg, tx))
+    jstate = tx.init(params)
+    step = ttf.make_train_step(tmodel, torch.optim.SGD(tmodel.parameters(), lr=WIDE_SGD_LR))
+    for i in range(3):
+        params, jstate, jloss = jstep(params, jstate, jnp.asarray(x))
+        loss = step(torch.from_numpy(x))
+        np.testing.assert_allclose(loss.item(), float(jloss), **F32, err_msg=f"step {i}")
+    _params_close(tmodel, params, STEPS_TOL, width, steps=3, lr=WIDE_SGD_LR,
+                  d=size["d_model"])
 
 
 @pytest.mark.parametrize("name", list(OPTIMIZERS))
