@@ -10,8 +10,10 @@ Phases, each printed as one JSON line:
 2. kernel  — one record per kernel (window_features; flash_attention;
              flash_attention_backward; flash_attention_c6, the attention
              at the head dims and the type of fault C6: D = 8, 48, 100
-             zero-padded, D = 128, float16 at D = 8, 32, 48, 128, and
+             zero-padded, D = 128, float16 at D = 8, 32, 48, 128,
              past 128: D = 256 and 192 (padded to it) in all three types,
+             and past 256 (the wide kernels): D = 300 (padded to 384),
+             384, 512 and 1024 in all three types,
              the forward, its lse and the backward row by row against the
              plain versions (cases up to S = 1000 against float64, each
              element and row within its type's limit or 1.5 times
@@ -19,8 +21,10 @@ Phases, each printed as one JSON line:
              saturated softmax only), then both timed against
              SDPA at [8, 16384, 2, 128] bf16 and float16 (the wgmma/TMA
              kernels), at [8, 16384, 8, 32] float16, at [8, 16384, 1, 256]
-             in both 16-bit types and, in bf16, at [8, 16384, 16, 16] and
-             [8, 16384, 4, 64], with their floors and ptxas's registers
+             and [8, 16384, 1, 512] in both 16-bit types (which SDPA
+             backend ran recorded) and, in bf16, at [8, 16384, 16, 16] and
+             [8, 16384, 4, 64], float32 at [2, 4096, 1, 256] and
+             [2, 4096, 1, 512], with their floors and ptxas's registers
              and spills;
              flash_attention_backward's record also checks the
              forward's log-sum-exp and that two calls give the same bits,
@@ -1109,12 +1113,17 @@ C6_MAIN_HEADS = {"main_d64_bf16": (4, 64, torch.bfloat16),
                  # the d_model=256, heads=1 model's width (D = 256, 64-key
                  # tiles and blocks) in both 16-bit types
                  "main_d256_bf16": (1, 256, torch.bfloat16),
-                 "main_d256_f16": (1, 256, torch.float16)}
+                 "main_d256_f16": (1, 256, torch.float16),
+                 # the d_model=512, heads=1 model's width (D = 512, the wide
+                 # kernels: chunks of 256 columns forward, 128 backward)
+                 "main_d512_bf16": (1, 512, torch.bfloat16),
+                 "main_d512_f16": (1, 512, torch.float16)}
 # timed only, there: the default model's width at D = 16 in bf16
 C6_TIMED_HEADS = {"d16_bf16": (16, 16, torch.bfloat16)}
-# timed only, at a shape of their own: float32 at D = 256 (the CUDA-core
-# kernels, off the transformer's path) on 2 windows of 4096 steps
-C6_TIMED_SHAPES = {"d256_f32": ((2, 4096, 1, 256), torch.float32)}
+# timed only, at a shape of their own: float32 at D = 256 and 512 (the
+# CUDA-core kernels, off the transformer's path) on 2 windows of 4096 steps
+C6_TIMED_SHAPES = {"d256_f32": ((2, 4096, 1, 256), torch.float32),
+                   "d512_f32": ((2, 4096, 1, 512), torch.float32)}
 
 
 def _c6_cases(device, gen) -> dict:
@@ -1160,11 +1169,26 @@ def _c6_cases(device, gen) -> dict:
             for causal in (True, False):
                 cases[f"d256_{tag}_s{n}_{'causal' if causal else 'full'}"] = (
                     fused_qkv(2, n, 1 if n == 1000 else 2, 256, dt, device, gen), causal, None)
+    # past 256, the wide kernels: D = 384, 512 and 1024 (chunks of 128, 256
+    # and 256 columns forward) and D = 300 (padded to 384) in all three
+    # types: S = 1, 65 (one key past a tile) and 333 (ragged), causal and
+    # full, both signs of scale that need care, in the 16-bit types also
+    # S = 1000
+    for dt, tag in ((bf16, "bf16"), (f16, "f16"), (f32, "f32")):
+        for d in (300, 384, 512, 1024):
+            for n in (1, 65, 333) + ((1000,) if dt != f32 else ()):
+                for causal in (True, False):
+                    cases[f"d{d}_{tag}_s{n}_{'causal' if causal else 'full'}"] = (
+                        fused_qkv(2 if n < 1000 else 1, n, 1, d, dt, device, gen), causal, None)
+            cases[f"d{d}_{tag}_scale-0.3"] = (fused_qkv(2, 333, 1, d, dt, device, gen), True, -0.3)
+            cases[f"d{d}_{tag}_scale0"] = (fused_qkv(2, 333, 1, d, dt, device, gen), False, 0.0)
     # the padded head dims, D = 64 in both 16-bit types and D = 192 and 256
     # at the shapes transformer_c6 runs them at
     for name, cfg_name in (("d8_bf16", "d8"), ("d48_bf16", "d48"), ("d64_bf16", "d64"),
                            ("d64_f16", "f16_d64"), ("d256_bf16", "d256"), ("d192_bf16", "d192"),
-                           ("d256_f16", "f16_d256")):
+                           ("d256_f16", "f16_d256"), ("d512_bf16", "d512"),
+                           ("d384_bf16", "d384"), ("d320_bf16", "d320"),
+                           ("d512_f16", "f16_d512")):
         cfg = TF_C6_CONFIGS[cfg_name]
         cases[f"tf_{name}"] = (fused_qkv(*TF_C6_SHAPE, cfg.heads, cfg.d_model // cfg.heads,
                                          cfg.dtype, device, gen), True, None)
@@ -1207,10 +1231,45 @@ def _allclose_share(got, ref) -> float:
     return ((g - r).abs() / (1 + r.abs())).max().item()
 
 
+def _sdpa_backend(fn) -> dict:
+    """Which SDPA backend ``fn`` (one SDPA call, forward or forward and
+    backward) runs: the backends that accept its inputs when only that one
+    is allowed (``takes``; SDPA's flash backend stops at head dim 256), and
+    the names of the kernels one profiled call launched, whose kind
+    ("flash", "efficient", "cudnn" or "math") is the backend that ran
+    (None if the profiler saw no kernel)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    takes = {}
+    for name, backend in (("flash", "FLASH_ATTENTION"), ("efficient", "EFFICIENT_ATTENTION"),
+                          ("cudnn", "CUDNN_ATTENTION")):
+        if not hasattr(SDPBackend, backend):   # a backend this PyTorch does not have
+            continue
+        try:
+            with sdpa_kernel([getattr(SDPBackend, backend)]):
+                fn()
+            takes[name] = True
+        except RuntimeError:
+            takes[name] = False
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    low = " ".join(names).lower()
+    kind = (None if not names else "flash" if "flash" in low
+            else "efficient" if "fmha" in low or "efficient" in low
+            else "cudnn" if "cudnn" in low else "math")
+    return {"kind": kind, "takes": takes, "kernels": names[:12]}
+
+
 def _c6_timings(q, k, v, do, causal: bool, device, reps: int) -> dict:
     """Forward and backward of the kernels at one shape against SDPA
-    (forward; forward+backward minus forward), the plain versions one
-    window at a time, and the floors."""
+    (forward; forward+backward minus forward; which SDPA backend ran), the
+    plain versions one window at a time, and the floors."""
     o, lse = fa.flash_attention_forward(q, k, v, causal=causal)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     dot = do.transpose(1, 2)
@@ -1235,6 +1294,10 @@ def _c6_timings(q, k, v, do, causal: bool, device, reps: int) -> dict:
            "plain_ms": time_ms(lambda: plain_backward_per_window(q, k, v, o, do, lse, causal),
                                device, reps=2, warmup=1)}
     bwd["library_ms"] = bwd["sdpa_fwd_bwd_ms"] - bwd["sdpa_fwd_ms"]
+    if device.type == "cuda":
+        with torch.no_grad():
+            fwd["sdpa_backend"] = _sdpa_backend(sdpa_fwd)
+        bwd["sdpa_backend"] = _sdpa_backend(sdpa_fwd_bwd)
     b, s, h, d = q.shape
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     for t, floors, ops in ((fwd, flash_floors_ms(b, s, h, d, causal, q.dtype), 4),
@@ -1438,7 +1501,7 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
                                prefix="flash_attention"),
              **ptxas_resources(cuda_build.build_info.get(fa.BWD_KERNEL, {}).get("ptxas", ""))}
     ptxas = {k: v for k, v in ptxas.items() if "f16" in k.replace("bf16", "") or "128>" in k
-             or "256>" in k or "wgmma" in k}
+             or "256>" in k or "wgmma" in k or "wide" in k}
     # each type's worst output error and gradient row, and float16's control
     by_dtype = {}
     for name, e in errs.items():
@@ -7649,17 +7712,24 @@ TF_C6_CONFIGS = {"d128": TransformerConfig(d_model=256, heads=2),
                  # head dims past 128: D = 256, and 192 padded to it
                  "d256": TransformerConfig(d_model=256, heads=1),
                  "d192": TransformerConfig(d_model=384, heads=2),
-                 "f16_d256": TransformerConfig(d_model=256, heads=1, dtype=torch.float16)}
+                 "f16_d256": TransformerConfig(d_model=256, heads=1, dtype=torch.float16),
+                 # head dims past 256 (the wide kernels): D = 512 and 384,
+                 # 320 padded to 384; float16 at 512
+                 "d512": TransformerConfig(d_model=512, heads=1),
+                 "d384": TransformerConfig(d_model=384, heads=1),
+                 "d320": TransformerConfig(d_model=640, heads=2),
+                 "f16_d512": TransformerConfig(d_model=512, heads=1, dtype=torch.float16)}
 TF_C6_SHAPE = (2, 4096)
-# the full-width legs of transformer_c6: the head-dim-128, 64 and 256
+# the full-width legs of transformer_c6: the head-dim-128, 64, 256 and 512
 # models on the transformer phase's 8 windows of 16384 steps
 TF_C6_FULL = (("d128", (TF_WINDOWS, TF_STEPS)), ("d64", (TF_WINDOWS, TF_STEPS)),
-              ("d256", (TF_WINDOWS, TF_STEPS)))
+              ("d256", (TF_WINDOWS, TF_STEPS)), ("d512", (TF_WINDOWS, TF_STEPS)))
 # the attention kernels a config must take on the card, by profiler name:
 # (kernel, its type argument, its head dim or None); and the names none may
 # take. Both 16-bit types run the one-pass wgmma/TMA backward at every D
 # and the wgmma/TMA forward at D = 64, 128 and 256 (the mma.sync forward at
-# 16 and 32); none may run the mma.sync backward pair
+# 16 and 32), and past 256 the wide forward (by its column chunk) and the
+# wide backward; none may run the mma.sync backward pair
 _MMA_BWD = ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel")
 TF_C6_TAKES = {
     "d128": (("flash_attention_wgmma_kernel", "__nv_bfloat16", 128),
@@ -7680,10 +7750,21 @@ TF_C6_TAKES = {
              ("flash_bwd_wgmma_kernel", "__nv_bfloat16", 256)),
     "f16_d256": (("flash_attention_wgmma_kernel", "__half", 256),
                  ("flash_bwd_wgmma_kernel", "__half", 256)),
+    "d512": (("flash_attention_wide_kernel", "__nv_bfloat16", 256),
+             ("flash_bwd_wide_kernel", "__nv_bfloat16", None)),
+    "d384": (("flash_attention_wide_kernel", "__nv_bfloat16", 128),
+             ("flash_bwd_wide_kernel", "__nv_bfloat16", None)),
+    "d320": (("flash_attention_wide_kernel", "__nv_bfloat16", 128),
+             ("flash_bwd_wide_kernel", "__nv_bfloat16", None)),
+    "f16_d512": (("flash_attention_wide_kernel", "__half", 256),
+                 ("flash_bwd_wide_kernel", "__half", None)),
 }
 TF_C6_NOT = {"f16": _MMA_BWD} | {name: ("flash_attention_bf16_kernel", *_MMA_BWD)
                                  for name in ("d128", "d48", "d64", "f16_d64", "f16_d128",
-                                              "d256", "d192", "f16_d256")}
+                                              "d256", "d192", "f16_d256")} | {
+    name: ("flash_attention_bf16_kernel", "flash_attention_wgmma_kernel",
+           "flash_bwd_wgmma_kernel", *_MMA_BWD)
+    for name in ("d512", "d384", "d320", "f16_d512")}
 
 
 def _kernel_name(key: str) -> str | None:
@@ -7944,11 +8025,18 @@ def main(argv=None) -> int:
         timing[name]["at_head_dim_256_bf16"] = c6["timings"]["main_d256_bf16"][part]
         timing[name]["float16_at_head_dim_256"] = c6["timings"]["main_d256_f16"][part]
         timing[name]["float32_at_head_dim_256"] = c6["timings"]["d256_f32"][part]
+        timing[name]["at_head_dim_512_bf16"] = c6["timings"]["main_d512_bf16"][part]
+        timing[name]["float16_at_head_dim_512"] = c6["timings"]["main_d512_f16"][part]
+        timing[name]["float32_at_head_dim_512"] = c6["timings"]["d512_f32"][part]
     timing["flash_attention_backward"]["c6_errors_by_dtype"] = c6["by_dtype"]
     timing["flash_attention_backward"]["ptxas_wgmma_f16"] = {
         k: v for k, v in c6["ptxas"].items() if k.startswith("flash_bwd")}
     timing["flash_attention"]["ptxas_wgmma_f16"] = {
         k: v for k, v in c6["ptxas"].items() if k.startswith("flash_attention")}
+    for name, prefix in (("flash_attention", "flash_attention"),
+                         ("flash_attention_backward", "flash_bwd")):
+        timing[name]["ptxas_wide"] = {k: v for k, v in c6["ptxas"].items()
+                                      if k.startswith(prefix) and "wide" in k}
     timed("entry", phase_entry, device, log, fails)
     launches, slice_step_ms, slice_eng = timed("slice", phase_slice, device, log, fails,
                                                args.seed, SLICE_BATCHES, profile=args.profile)

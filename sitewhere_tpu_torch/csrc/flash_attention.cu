@@ -53,18 +53,27 @@
 //   P V mma (the m16n8 accumulator layout is the m16n8k16 A layout), with V
 //   fragments from ldmatrix.x4.trans: P never goes through shared memory.
 //   The output goes out through shared memory as 16-byte stores.
+// * bfloat16 and float16 at D > 256 (any multiple of 128): the same
+//   wgmma/TMA design split over column chunks of O (the wide kernel,
+//   flash_attention_wide_kernel<T, DC> below; the note there): a grid axis
+//   over chunks of DC = 256 columns (128 where D is not a multiple of 256),
+//   S reduced over the whole D in 64-column boxes streamed with each key
+//   tile, so any D runs in the D = 256 kernel's registers and shared memory.
 // * float32: one thread per query row on the CUDA cores (at D = 256 four
 //   threads a row, 64 columns each), float32 products, K/V tiles of 32 keys
 //   (16 at D = 256) in shared memory. Tensor cores would mean TF32 (about 3
 //   decimal digits), which the float32 contract (1e-5) does not allow. Not
-//   on the transformer's path.
+//   on the transformer's path. Past D = 256 the same column split as the
+//   wide kernel (flash_attention_f32_wide_kernel): eight threads a row,
+//   chunks of 128 columns.
 //
 // q, k and v are read in place through base pointers and (batch, row, head)
 // strides with unit stride on D, so the three strided views of one fused
 // [B, S, 3, H, D] qkv product are read as they lie; the 16-bit path needs each
 // row 16-byte aligned (the wrapper checks). The output is written contiguous
-// [B, S, H, D]. Head dims 16, 32, 64, 128 and 256; the wrapper pads any
-// other D up to 256 with zero lanes (ops/attention.py:padded_head_dim).
+// [B, S, H, D]. Head dims 16, 32, 64, 128 and 256 and every multiple of
+// 128 past 256; the wrapper pads any other D with zero lanes to the next
+// of them (ops/attention.py:padded_head_dim).
 //
 // Semantics kept from the TPU kernel and its oracle (mha_reference):
 //   * causal: key tiles wholly above a block's rows are never loaded, a
@@ -228,6 +237,92 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   float* op = out + ((static_cast<int64_t>(b) * s + row) * h + hd) * D;
 #pragma unroll
   for (int c = 0; c < kCols; ++c) op[4 * ((c / 4) * kSplit + part) + c % 4] = acc[c] / denom;
+}
+
+// float32 at D > 256: a block owns kF32WideRows query rows and one chunk of
+// kF32Chunk columns of the output (a grid axis), eight adjacent threads a
+// row (flash_common.cuh has the tiling). Each tile of kF32WideRows keys:
+// the scores are reduced over the whole D in pieces of kF32Chunk columns
+// (K's piece through shared memory, the thread's q piece from global
+// memory), each dot summed across the row's threads once all pieces are
+// in; then the chunk's columns of V come through shared memory for acc +=
+// p v. So q, the accumulator and the scores stay at 16 registers each at
+// any D; S and its exponentials are computed once a chunk (D / 128 times)
+__global__ void __launch_bounds__(kF32WideThreads)
+flash_attention_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, float* __restrict__ out,
+                                float* __restrict__ lse, int s, int h, int d, int num_q_tiles,
+                                int num_bh, int n_chunks, Strides qs, Strides ks, Strides vs,
+                                float scale_log2e, int causal) {
+  __shared__ __align__(16) float tile[kF32WideRows][kF32Chunk];
+
+  const int chunk = blockIdx.x % n_chunks;
+  const int rest = blockIdx.x / n_chunks;
+  const int bh = rest % num_bh;
+  const int qt = num_q_tiles - 1 - rest / num_bh;  // most causal work first
+  const int b = bh / h;
+  const int hd = bh - b * h;
+  const int row = qt * kF32WideRows + threadIdx.x / kF32WideSplit;
+  const int part = threadIdx.x % kF32WideSplit;
+  const bool live_row = row < s;
+  const unsigned row_lanes = 0xffu << ((threadIdx.x & 31) & ~(kF32WideSplit - 1));
+
+  const float* kb = k + b * ks.b + hd * ks.h;
+  const float* vb = v + b * vs.b + hd * vs.h;
+  const float* qp = q + b * qs.b + static_cast<int64_t>(live_row ? row : 0) * qs.s + hd * qs.h;
+  const int n_pieces = d / kF32Chunk;
+
+  float acc[kF32WideCols];
+#pragma unroll
+  for (int c = 0; c < kF32WideCols; ++c) acc[c] = 0.0f;
+  float m = kNegInf, l = 0.0f;
+
+  const int kv_end = causal ? min(s, (qt + 1) * kF32WideRows) : s;
+  for (int k0 = 0; k0 < kv_end; k0 += kF32WideRows) {
+    const int n_tile = min(kF32WideRows, kv_end - k0);
+    float sc[kF32WideRows];
+#pragma unroll
+    for (int j = 0; j < kF32WideRows; ++j) sc[j] = 0.0f;
+    for (int pc = 0; pc < n_pieces; ++pc) {
+      f32_wide_load(tile, nullptr, kb, ks.s, nullptr, 0, k0, n_tile, pc * kF32Chunk);
+      float qr[kF32WideCols];
+      f32_wide_row(qp + pc * kF32Chunk, part, live_row, scale_log2e, qr);
+#pragma unroll
+      for (int j = 0; j < kF32WideRows; ++j) sc[j] = f32_wide_dot(qr, tile[j], part, sc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kF32WideRows; ++j)
+#pragma unroll
+      for (int o = 1; o < kF32WideSplit; o <<= 1) sc[j] += __shfl_xor_sync(row_lanes, sc[j], o);
+    f32_wide_load(tile, nullptr, vb, vs.s, nullptr, 0, k0, n_tile, chunk * kF32Chunk);
+    const int n = causal ? min(n_tile, row + 1 - k0) : n_tile;  // live keys
+    if (!live_row || n <= 0) continue;
+    float tile_max = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kF32WideRows; ++j)
+      if (j < n) tile_max = fmaxf(tile_max, sc[j]);
+    const float m_new = fmaxf(m, tile_max);
+    const float alpha = exp2f(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int c = 0; c < kF32WideCols; ++c) acc[c] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kF32WideRows; ++j) {
+      const float pj = j < n ? exp2f(sc[j] - m_new) : 0.0f;
+      l += pj;
+      f32_wide_axpy(pj, tile[j], part, acc);
+    }
+    m = m_new;
+  }
+
+  if (!live_row) return;
+  // m and the scores are in log2 units (q carries scale * log2(e))
+  if (lse != nullptr && chunk == 0 && part == 0)
+    lse[static_cast<int64_t>(bh) * s + row] = l == 0.0f ? INFINITY : (m + log2f(l)) * kLn2;
+  const float denom = l == 0.0f ? 1.0f : l;  // acc is 0 too when l == 0
+  float* op = out + ((static_cast<int64_t>(b) * s + row) * h + hd) * d + chunk * kF32Chunk;
+#pragma unroll
+  for (int c = 0; c < kF32WideCols; ++c) op[f32_wide_col(c, part)] = acc[c] / denom;
 }
 
 // ------------------------------------------------------- bfloat16 / fp16
@@ -949,6 +1044,310 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// ----------------------- bfloat16 and float16 at D > 256: column chunks
+
+// The wide kernel: FA3's forward past D = 256, where one warpgroup's O for
+// 64 rows (D / 2 float32 registers a thread: 192 at D = 384, 256 at 512)
+// and a resident Q (256 D bytes for 128 rows: 128 KB at D = 512) no longer
+// fit beside S and P. A grid axis splits O by columns: a block owns (batch,
+// head, 128 query rows, one chunk of DC columns of the output), DC = 256
+// where D is a multiple of 256, else 128. Its two compute warpgroups (64
+// rows each) run, per key tile of kBN = 64 keys,
+// * S_j = Q K_j^T reduced over the whole D: the loader brings each
+//   64-column d-box of both warpgroups' Q rows and of K_j into one stage of
+//   a ring (kSKStages stages of 24 KB), and a warpgroup issues the box's 4
+//   k16 steps as soon as it lands, freeing the box before once its
+//   products are done; boxes in column order, so the sum's order is fixed;
+// * the online softmax of S_j (fwd_max and fwd_exp, as the D <= 256 kernel),
+//   a negative scale taken by negating S (exact: each product of -q and k
+//   is the negated product, and sums of negated terms round to the
+//   negated sum), a zero one as the smallest normal float;
+// * O_c += P_j V_j[:, chunk] with P (in T) as the register A operand, V's
+//   chunk (DC / 64 boxes) through a ring of its own, kOParts products of
+//   N = 128 columns, as the D = 256 kernel takes its two.
+// One serial chain a tile (no overlap of the softmax with the products): a
+// simple kernel first. So O (DC / 2 registers), S (32) and P (16) take the
+// D = 256 kernel's registers at any D, and shared memory stays under
+// 227 KB (208 KB at DC = 256). Only chunk 0's blocks write lse. S and its
+// exponentials are computed once a chunk: the products a pair are D / DC
+// times S's and once P V's, (D / DC + 1) / 2 times the one-pass products
+// (1.5 at D = 512, 2 at D = 384, 2.5 at D = 1024). Q comes from L2 once a
+// key tile (the bytes bound it before the products at this design; a
+// later kernel may keep Q resident where it fits). The output is stored
+// from the registers, 4 bytes a thread a column pair.
+template <int DC>
+struct WideSmem {
+  static_assert(DC == 128 || DC == 256, "the wide forward takes chunks of 128 or 256 columns");
+  static constexpr int kWGs = 2;                     // compute warpgroups
+  static constexpr int kBM = 64 * kWGs;              // query rows a block
+  static constexpr int kBN = 64;                     // keys a tile
+  static constexpr int kON = 128;                    // columns a P V product
+  static constexpr int kOParts = DC / kON;
+  static constexpr int kThreads = 128 * (kWGs + 1);
+  static constexpr int kComputeRegs = 232;
+  static constexpr int kProducerRegs = 40;
+  static_assert(128 * (kWGs * kComputeRegs + kProducerRegs) <= 65536, "past the register file");
+  static constexpr int kMaskTiles = (kBM + kBN - 1) / kBN;
+  static constexpr int kRowB = 128;                  // a d-box row: 64 elements
+  static constexpr int kBox = 64 * kRowB;            // a d-box of 64 rows or keys
+  static constexpr int kSKStages = 6;                // ring of (Q boxes, K box) stages
+  static constexpr int kVStages = 2;                 // ring of V chunk tiles
+  static constexpr int kSKStage = (kWGs + 1) * kBox; // [Q box wg 0][Q box wg 1][K box]
+  static constexpr int kVTile = DC / 64 * kBox;      // V's chunk [DC / 64][kBN][64]
+  static constexpr int kSK = 0;
+  static constexpr int kV = kSK + kSKStages * kSKStage;
+  // sk full, sk empty [kSKStages] each, v full, v empty [kVStages] each
+  static constexpr int kBar = kV + kVStages * kVTile;
+  static constexpr int kBytes = kBar + (2 * kSKStages + 2 * kVStages) * 8;
+  static_assert(kBytes + 1024 <= 232448, "past the 227 KB a block may take");
+};
+
+template <typename T, int DC>
+__global__ void __launch_bounds__(WideSmem<DC>::kThreads, 1)
+flash_attention_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            T* __restrict__ out, float* __restrict__ lse, int s, int h, int d,
+                            int num_q_tiles, int num_bh, int n_chunks, float scale_log2e,
+                            int q_neg, int causal) {
+  using L = WideSmem<DC>;
+  constexpr int kWGs = L::kWGs, kBM = L::kBM, kBN = L::kBN;
+  constexpr int kSKS = L::kSKStages, kVS = L::kVStages, kON = L::kON, kOParts = L::kOParts;
+  constexpr int kSbo = 8 * L::kRowB;  // 8 rows of a d-box
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sk_full = base + L::kBar;
+  const uint32_t sk_empty = sk_full + 8 * kSKS;
+  const uint32_t v_full = sk_empty + 8 * kSKS;
+  const uint32_t v_empty = v_full + 8 * kVS;
+
+  const int chunk = blockIdx.x % n_chunks;  // the chunks of a query tile run together
+  const int rest = blockIdx.x / n_chunks;
+  const int bh = rest % num_bh;
+  const int qt = num_q_tiles - 1 - rest / num_bh;  // most causal work first
+  const int b = bh / h;
+  const int hd = bh - b * h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const int n_boxes = d / 64;
+  // keys past the block's last row are masked for every row of it
+  const int kv_len = causal ? min(s, (qt + 1) * kBM) : s;
+  const int n_tiles = (kv_len + kBN - 1) / kBN;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < kSKS; ++st) {
+      mbar_init(sk_full + 8 * st, 1);
+      mbar_init(sk_empty + 8 * st, 4 * kWGs);  // lane 0 of each compute warp
+    }
+#pragma unroll
+    for (int st = 0; st < kVS; ++st) {
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(v_empty + 8 * st, 4 * kWGs);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kWGs) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::kProducerRegs));
+    if (warp == 4 * kWGs && lane == 0) {  // ----------------------------- loader
+      int it = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        for (int e = 0; e < n_boxes; ++e, ++it) {
+          const int st = it % kSKS;
+          const uint32_t stage = base + L::kSK + st * L::kSKStage;
+          mbar_wait(sk_empty + 8 * st, ((it / kSKS) & 1) ^ 1);
+          mbar_expect_tx(sk_full + 8 * st, L::kSKStage);
+#pragma unroll
+          for (int w = 0; w < kWGs; ++w)
+            tma_load_4d(stage + w * L::kBox, &tm_q, sk_full + 8 * st, 64 * e, hd,
+                        qt * kBM + 64 * w, b);
+          tma_load_4d(stage + kWGs * L::kBox, &tm_k, sk_full + 8 * st, 64 * e, hd, j * kBN, b);
+        }
+        const int vst = j % kVS;
+        mbar_wait(v_empty + 8 * vst, ((j / kVS) & 1) ^ 1);
+        mbar_expect_tx(v_full + 8 * vst, L::kVTile);
+#pragma unroll
+        for (int c = 0; c < DC / 64; ++c)
+          tma_load_4d(base + L::kV + vst * L::kVTile + c * L::kBox, &tm_v, v_full + 8 * vst,
+                      chunk * DC + 64 * c, hd, j * kBN, b);
+      }
+      // the compute warpgroups wait without the watchdog: it fires here if
+      // a load never lands
+      for (int i = max(0, it - kSKS); i < it; ++i)
+        mbar_wait(sk_full + 8 * (i % kSKS), (i / kSKS) & 1);
+      for (int j = max(0, n_tiles - kVS); j < n_tiles; ++j)
+        mbar_wait(v_full + 8 * (j % kVS), (j / kVS) & 1);
+    }
+  } else {  // ------------------------------------------ compute warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kComputeRegs));
+    const int wt = threadIdx.x & 127;  // thread of the warpgroup
+    const int w4 = wt >> 5;            // warp of the warpgroup
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = qt * kBM + 64 * wg;  // the warpgroup's first query row
+    const int warp_row = row0 + 16 * w4;  // the warp's first query row
+
+    float o[kOParts][kON / 2];
+#pragma unroll
+    for (int p = 0; p < kOParts; ++p)
+#pragma unroll
+      for (int i = 0; i < kON / 2; ++i) o[p][i] = 0.0f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, alpha[2], mc[2];
+    float sc[kBN / 2];         // S_j, then P_j in float32
+    uint32_t pa[kBN / 16][4];  // P_j as the A fragments of the P V product
+
+    auto release = [&](uint32_t bar) {  // this warp has read the stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    int it = 0;  // the (Q, K) box stages taken so far
+    auto step = [&](int j, auto masked) {
+      // S_j over the d-boxes in order, each box's stage freed once the
+      // next box's products are issued and its own are done; the first
+      // box's products start the sum (a constant flag, so no accumulator
+      // is read before it is written)
+      auto issue_box = [&](auto first) {
+        const int st = it % kSKS;
+        const uint32_t stage = base + L::kSK + st * L::kSKStage;
+        mbar_spin(sk_full + 8 * st, (it / kSKS) & 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<kBN>::template ss<0, 0, T>(
+              sc, smem_desc(stage + wg * L::kBox + kk * 32, 16, kSbo, 1),
+              smem_desc(stage + kWGs * L::kBox + kk * 32, 16, kSbo, 1),
+              decltype(first)::value ? kk : 1);
+        wgmma_commit();
+        ++it;
+      };
+      wgmma_fence();
+      issue_box(std::true_type{});
+      for (int e = 1; e < n_boxes; ++e) {
+        issue_box(std::false_type{});
+        wgmma_wait<1>();
+        release(sk_empty + 8 * ((it - 2) % kSKS));
+      }
+      wgmma_wait<0>();
+      fence_regs(sc);
+      release(sk_empty + 8 * ((it - 1) % kSKS));
+      if (q_neg) {
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) sc[i] = -sc[i];
+      }
+      fwd_max<decltype(masked)::value>(sc, m, alpha, mc, j * kBN, warp_row, g, t, s, causal,
+                                       scale_log2e);
+      fwd_exp(sc, l, alpha, mc, scale_log2e);
+#pragma unroll
+      for (int p = 0; p < kOParts; ++p)
+#pragma unroll
+        for (int i = 0; i < kON / 8; ++i) {
+          o[p][4 * i] *= alpha[0];
+          o[p][4 * i + 1] *= alpha[0];
+          o[p][4 * i + 2] *= alpha[1];
+          o[p][4 * i + 3] *= alpha[1];
+        }
+      pack_a<T>(sc, pa);
+      // O_c += P_j V_j[:, chunk]: V MN-major across the chunk's d-boxes
+      const int vst = j % kVS;
+      const uint32_t v_tile = base + L::kV + vst * L::kVTile;
+      mbar_spin(v_full + 8 * vst, (j / kVS) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < kOParts; ++p)
+          Wgmma<kON>::template rs<1, T>(
+              o[p], pa[kk],
+              smem_desc(v_tile + p * (kON / 64) * L::kBox + kk * 16 * L::kRowB, L::kBox, kSbo,
+                        1),
+              1);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < kOParts; ++p) fence_regs(o[p]);
+      fence_regs(pa);
+      release(v_empty + 8 * vst);
+    };
+    const int first_masked = max(0, n_tiles - L::kMaskTiles);
+    for (int j = 0; j < first_masked; ++j) step(j, std::false_type{});
+    for (int j = first_masked; j < n_tiles; ++j) step(j, std::true_type{});
+
+    // out = O / l, the chunk's columns of the warpgroup's rows inside S
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const float inv = 1.0f / (lr == 0.0f ? 1.0f : lr);  // o is 0 too
+      const int row = warp_row + g + 8 * r;
+      if (row >= s) continue;
+      if (lse != nullptr && chunk == 0 && t == 0)
+        lse[static_cast<int64_t>(bh) * s + row] =
+            lr == 0.0f ? INFINITY : (m[r] * scale_log2e + log2f(lr)) * kLn2;
+      T* op = out + ((static_cast<int64_t>(b) * s + row) * h + hd) * d + chunk * DC;
+#pragma unroll
+      for (int i = 0; i < DC / 8; ++i) {
+        const float* x = o[i / (kON / 8)] + 4 * (i % (kON / 8)) + 2 * r;
+        *reinterpret_cast<uint32_t*>(op + 8 * i + 2 * t) = pack2<T>(x[0] * inv, x[1] * inv);
+      }
+    }
+  }
+}
+
+// the wide kernel for T (bf16 or fp16) at a head dim d past 256, a
+// multiple of DC
+template <typename T, int DC>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int b, int s, int h, int d, int num_bh, Strides qs, Strides ks,
+                        Strides vs, float scale_log2e, int causal, cudaStream_t stream) {
+  using L = WideSmem<DC>;
+  const int64_t num_q_tiles = (static_cast<int64_t>(s) + L::kBM - 1) / L::kBM;
+  const int n_chunks = d / DC;
+  if (num_q_tiles * num_bh * n_chunks > INT32_MAX) return cudaErrorInvalidValue;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!tensor_map<T>(&tm_q, q, b, s, h, d, qs, 64) ||
+      !tensor_map<T>(&tm_k, k, b, s, h, d, ks, L::kBN) ||
+      !tensor_map<T>(&tm_v, v, b, s, h, d, vs, L::kBN))
+    return cudaErrorInvalidValue;
+  const int smem = L::kBytes + 1024;  // + the 1024-byte alignment
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wide_kernel<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // the kernel's scale must be > 0 (as the mma.sync kernel's)
+  const float c = scale_log2e == 0.0f ? FLT_MIN : fabsf(scale_log2e);
+  flash_attention_wide_kernel<T, DC>
+      <<<static_cast<unsigned>(num_q_tiles * num_bh * n_chunks), L::kThreads, smem, stream>>>(
+          tm_q, tm_k, tm_v, static_cast<T*>(out), lse, s, h, d, static_cast<int>(num_q_tiles),
+          num_bh, n_chunks, c, scale_log2e < 0.0f ? 1 : 0, causal);
+  return cudaGetLastError();
+}
+
+// a head dim past 256: the wide kernels (bf16 and fp16 by chunks of 256
+// columns where d is a multiple of 256, else 128; float32 on the CUDA cores)
+template <typename T>
+cudaError_t launch_wide_d(const void* q, const void* k, const void* v, void* out, float* lse,
+                          int b, int s, int h, int d, int num_bh, Strides qs, Strides ks,
+                          Strides vs, float scale_log2e, int causal, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    if (d % 256 == 0)
+      return launch_wide<T, 256>(q, k, v, out, lse, b, s, h, d, num_bh, qs, ks, vs, scale_log2e,
+                                 causal, stream);
+    return launch_wide<T, 128>(q, k, v, out, lse, b, s, h, d, num_bh, qs, ks, vs, scale_log2e,
+                               causal, stream);
+  } else {
+    const int64_t num_q_tiles = (static_cast<int64_t>(s) + kF32WideRows - 1) / kF32WideRows;
+    const int n_chunks = d / kF32Chunk;
+    if (num_q_tiles * num_bh * n_chunks > INT32_MAX) return cudaErrorInvalidValue;
+    flash_attention_f32_wide_kernel<<<static_cast<unsigned>(num_q_tiles * num_bh * n_chunks),
+                                      kF32WideThreads, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(out), lse, s, h, d, static_cast<int>(num_q_tiles), num_bh, n_chunks,
+        qs, ks, vs, scale_log2e, causal);
+    return cudaGetLastError();
+  }
+}
+
 // ------------------------------------------------------------------ launch
 
 template <typename T, int D>
@@ -1006,7 +1405,10 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
     case 256:
       return launch<T, 256>(q, k, v, out, lse, b, s, h, num_bh, qs, ks, vs,
                             scale_log2e, causal, stream);
-    default:
+    default:  // past 256: any multiple of 128
+      if (d > 256 && d % 128 == 0)
+        return launch_wide_d<T>(q, k, v, out, lse, b, s, h, d, num_bh, qs, ks, vs, scale_log2e,
+                                causal, stream);
       return cudaErrorInvalidValue;
   }
 }
@@ -1017,8 +1419,8 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
 // with element strides (*_sb, *_ss, *_sh) and unit stride on d; out:
 // contiguous [b, s, h, d] of the same type; lse: null, or [b, h, s]
 // float32 for each row's log-sum-exp (natural log); all on the device of
-// ``stream``. d is 16, 32, 64, 128 or 256 (the wrapper pads any other d up
-// to one of these). The 16-bit types also need every base pointer 16-byte
+// ``stream``. d is 16, 32, 64, 128 or 256 or a multiple of 128 past 256
+// (the wrapper pads any other d up to one of these). The 16-bit types also need every base pointer 16-byte
 // aligned and every stride a multiple of 8. scale_log2e = sm_scale *
 // log2(e). Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a head dim, type or grid the kernels do not

@@ -75,6 +75,12 @@
 //     head), so earlier key blocks are dispatched first, and they have
 //     the most query tiles under a causal mask). A wait that outlasts ~10
 //     s traps instead of hanging the card.
+//   - Past D = 256 (any multiple of 128) the wide kernel
+//     (flash_bwd_wide_kernel<T>, the note there) splits dK, dV and dQ into
+//     chunks of 128 columns, a grid axis: a block owns 128 keys and one
+//     chunk, streams the 64-column d-boxes of Q, K, dO and V to reduce S^T
+//     and dP^T over the whole D each query tile, and keeps D = 128's
+//     registers and dQ split at any D; the dQ turn counters run per chunk.
 // * float16 keeps 5 exponent bits: an entry of P or dS below 2^-14 is
 //   subnormal and one below 2^-24 is lost, where bfloat16 keeps float32's
 //   range. So each of the three products that take float16 operands scales
@@ -106,12 +112,15 @@
 //   registers, the other side's tiles of 32 rows in shared memory (at
 //   D = 256 eight threads a row, 32 columns each, and tiles of 16 rows:
 //   F32BwdTile). At D = 64 the dK/dV thread holds 4 x 64 floats and
-//   spills, at D = 128 far more; it is not on the transformer's path.
+//   spills, at D = 128 far more; it is not on the transformer's path. Past
+//   D = 256 the same pair split by chunks of 128 columns (eight threads a
+//   row, S and dP reduced over the whole D in pieces; *_f32_wide_kernel).
 //
 // q, k and v are read in place through (batch, row, head) strides with unit
 // stride on D (the strided views of one fused qkv product); o and dO are
 // contiguous [B, S, H, D]; dq, dk and dv are written contiguous. Any S;
-// head dims 16, 32, 64, 128 and 256. The 16-bit types need 16-byte aligned base
+// head dims 16, 32, 64, 128 and 256 and every multiple of 128 past 256.
+// The 16-bit types need 16-byte aligned base
 // pointers and strides that are a multiple of 8 elements (TMA takes
 // 16-byte strides).
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
@@ -155,11 +164,13 @@ __device__ __forceinline__ float dq_scale_factor(float bound) {
 }
 
 // float16 only: v_norms[bh][part] = the largest ||v_j|| over rows j of
-// part (kVRows rows) of each (batch, head); one block a (bh, part)
+// part (kVRows rows) of each (batch, head); one block a (bh, part). D = 0
+// takes the head dim d at run time (the wide kernel's)
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_vnorm_kernel(const __half* __restrict__ v, Strides vs, int s, int h, int n_parts,
-                       float* __restrict__ v_norms) {
+                       float* __restrict__ v_norms, int d) {
+  const int dd = D > 0 ? D : d;
   const int bh = blockIdx.x / n_parts;
   const int part = blockIdx.x - bh * n_parts;
   const int b = bh / h;
@@ -171,7 +182,7 @@ flash_bwd_vnorm_kernel(const __half* __restrict__ v, Strides vs, int s, int h, i
     const uint4* row = reinterpret_cast<const uint4*>(vb + static_cast<int64_t>(r) * vs.s);
     float n2 = 0.0f;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
+    for (int c = 0; c < dd / 8; ++c) {
       const uint4 x = __ldg(row + c);
       const __half2* hx = reinterpret_cast<const __half2*>(&x);
 #pragma unroll
@@ -199,7 +210,9 @@ flash_bwd_vnorm_kernel(const __half* __restrict__ v, Strides vs, int s, int h, i
 // the padded rows i in [s, pitch) of every bh (lse2 = +inf, so P = 0
 // there; delta = 0) and n_turns turn counters set to 0. float16 also
 // writes dq_scale[bh][i] = 2^e_i from ||dO_i||, ||O_i|| and the largest of
-// the bh's n_parts v_norms (1 on the padded rows).
+// the bh's n_parts v_norms (1 on the padded rows). D = 0 takes the head
+// dim d at run time (the wide kernel's): delta and the norms run over the
+// whole of it.
 template <typename T, int D>
 __global__ void flash_bwd_prep_kernel(const T* __restrict__ o,
                                       const T* __restrict__ dout,
@@ -210,8 +223,9 @@ __global__ void flash_bwd_prep_kernel(const T* __restrict__ o,
                                       const float* __restrict__ v_norms, int n_parts,
                                       int* __restrict__ turns, int64_t rows,
                                       int s, int h, int pitch,
-                                      int64_t pad_rows, int64_t n_turns) {
+                                      int64_t pad_rows, int64_t n_turns, int d) {
   constexpr bool kHalf = std::is_same_v<T, __half>;
+  const int dd = D > 0 ? D : d;
   int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= rows) {
     r -= rows;
@@ -226,11 +240,11 @@ __global__ void flash_bwd_prep_kernel(const T* __restrict__ o,
     }
     return;
   }
-  const T* op = o + r * D;
-  const T* dp = dout + r * D;
+  const T* op = o + r * dd;
+  const T* dp = dout + r * dd;
   float acc = 0.0f, dn2 = 0.0f, on2 = 0.0f;
 #pragma unroll
-  for (int c = 0; c < D; ++c) {
+  for (int c = 0; c < dd; ++c) {
     const float x = to_float(op[c]), y = to_float(dp[c]);
     acc = fmaf(x, y, acc);
     if constexpr (kHalf) {
@@ -339,18 +353,18 @@ __device__ __forceinline__ void store_ds(uint32_t tile, int row0, int g, int t, 
 
 // dK (times scale) and dV of the thread's keys key + 8 half, half = 0, 1
 // (its rows of the accumulators, N columns from col0) into the contiguous
-// [B, S, H, D] outputs (float16: 2^-e of each row's RowScale off)
-template <typename T, int D, int N = D>
+// [B, S, H, d] outputs (float16: 2^-e of each row's RowScale off)
+template <typename T, int N>
 __device__ __forceinline__ void store_dkdv(T* __restrict__ dk, T* __restrict__ dv,
                                            const float (&dk_acc)[N / 2],
                                            const float (&dv_acc)[N / 2],
                                            const RowScale& p_scale, const RowScale& s_scale,
                                            int key, int t, int b, int s, int h, int hd,
-                                           float scale, int col0 = 0) {
+                                           float scale, int d, int col0 = 0) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     if (key + 8 * half >= s) continue;
-    const int64_t row = ((static_cast<int64_t>(b) * s + key + 8 * half) * h + hd) * D + col0;
+    const int64_t row = ((static_cast<int64_t>(b) * s + key + 8 * half) * h + hd) * d + col0;
     float ks = scale, vs = 1.0f;
     if constexpr (std::is_same_v<T, __half>) {
       ks = scale * s_scale.down(half);
@@ -651,6 +665,180 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   for (int c = 0; c < kCols; ++c) out[Tile::col(c, part)] = dqr[c] * scale;
 }
 
+// float32 at D > 256: the same two kernels split by columns as the wide
+// wgmma kernel is. A block owns kF32WideRows keys (dK/dV) or queries (dQ)
+// and one chunk of kF32Chunk columns of its gradients (a grid axis), eight
+// adjacent threads a row with 16 columns each (float4 chunks part, part +
+// 8, ...). Each tile of kF32WideRows rows of the other side: S and dP are
+// reduced over the whole D in pieces of kF32Chunk columns (the other
+// side's piece through shared memory, the thread's own row's piece from
+// global memory), each dot summed across the row's threads once all
+// pieces are in; then the chunk's columns of the other side come through
+// shared memory for the gradient's sums (flash_common.cuh has the
+// tiling). Registers stay at 16 a row's vector at any D; S and dP are
+// computed once a chunk
+__global__ void __launch_bounds__(kF32WideThreads)
+flash_bwd_dkdv_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ dout,
+                               const float* __restrict__ lse2, const float* __restrict__ delta,
+                               float* __restrict__ dk, float* __restrict__ dv, int s, int h,
+                               int d, int num_bh, int n_chunks, Strides qs, Strides ks,
+                               Strides vs, float scale_log2e, float scale, int causal) {
+  __shared__ __align__(16) float q_tile[kF32WideRows][kF32Chunk];
+  __shared__ __align__(16) float do_tile[kF32WideRows][kF32Chunk];
+  __shared__ float lse_tile[kF32WideRows], delta_tile[kF32WideRows];
+
+  const int chunk = blockIdx.x % n_chunks;
+  const int rest = blockIdx.x / n_chunks;
+  const int bh = rest % num_bh;
+  const int kt = rest / num_bh;  // the first key tiles have most work
+  const int b = bh / h;
+  const int hd = bh - b * h;
+  const int key0 = kt * kF32WideRows;
+  const int key = key0 + threadIdx.x / kF32WideSplit;
+  const int part = threadIdx.x % kF32WideSplit;
+  const unsigned lanes = 0xffu << ((threadIdx.x & 31) & ~(kF32WideSplit - 1));
+  const bool live_key = key < s;
+  const int n_pieces = d / kF32Chunk;
+
+  const float* kp = k + b * ks.b + static_cast<int64_t>(live_key ? key : 0) * ks.s + hd * ks.h;
+  const float* vp = v + b * vs.b + static_cast<int64_t>(live_key ? key : 0) * vs.s + hd * vs.h;
+  const float* qb = q + b * qs.b + hd * qs.h;
+  const float* db = dout + (static_cast<int64_t>(b) * s * h + hd) * d;
+  const float* lb = lse2 + static_cast<int64_t>(bh) * s;
+  const float* eb = delta + static_cast<int64_t>(bh) * s;
+
+  float dkr[kF32WideCols], dvr[kF32WideCols];
+#pragma unroll
+  for (int c = 0; c < kF32WideCols; ++c) dkr[c] = dvr[c] = 0.0f;
+
+  // queries before the block's first key see none of its keys
+  const int q_begin = causal ? key0 : 0;
+  for (int q0 = q_begin; q0 < s; q0 += kF32WideRows) {
+    const int tile = min(kF32WideRows, s - q0);
+    float sc[kF32WideRows], dp[kF32WideRows];
+#pragma unroll
+    for (int i = 0; i < kF32WideRows; ++i) sc[i] = dp[i] = 0.0f;
+    for (int pc = 0; pc < n_pieces; ++pc) {
+      f32_wide_load(q_tile, do_tile, qb, qs.s, db, static_cast<int64_t>(h) * d, q0, tile,
+                    pc * kF32Chunk);
+      if (pc == 0 && threadIdx.x < kF32WideRows) {
+        const bool ok = static_cast<int>(threadIdx.x) < tile;
+        lse_tile[threadIdx.x] = ok ? lb[q0 + threadIdx.x] : 0.0f;
+        delta_tile[threadIdx.x] = ok ? eb[q0 + threadIdx.x] : 0.0f;
+      }
+      float kr[kF32WideCols], vr[kF32WideCols];
+      f32_wide_row(kp + pc * kF32Chunk, part, live_key, scale_log2e, kr);
+      f32_wide_row(vp + pc * kF32Chunk, part, live_key, 1.0f, vr);
+#pragma unroll
+      for (int i = 0; i < kF32WideRows; ++i) {
+        sc[i] = f32_wide_dot(kr, q_tile[i], part, sc[i]);
+        dp[i] = f32_wide_dot(vr, do_tile[i], part, dp[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kF32WideRows; ++i)
+#pragma unroll
+      for (int o = 1; o < kF32WideSplit; o <<= 1) {
+        sc[i] += __shfl_xor_sync(lanes, sc[i], o);
+        dp[i] += __shfl_xor_sync(lanes, dp[i], o);
+      }
+    // the chunk's columns of the tile's q and dO rows
+    f32_wide_load(q_tile, do_tile, qb, qs.s, db, static_cast<int64_t>(h) * d, q0, tile,
+                  chunk * kF32Chunk);
+    if (!live_key) continue;
+#pragma unroll
+    for (int i = 0; i < kF32WideRows; ++i) {
+      if (i >= tile || (causal && q0 + i < key)) continue;  // masked: P = 0
+      const float p = exp2f(sc[i] - lse_tile[i]);
+      const float ds = p * (dp[i] - delta_tile[i]);
+      f32_wide_axpy(p, do_tile[i], part, dvr);
+      f32_wide_axpy(ds, q_tile[i], part, dkr);
+    }
+  }
+  if (!live_key) return;
+  const int64_t off = ((static_cast<int64_t>(b) * s + key) * h + hd) * d + chunk * kF32Chunk;
+#pragma unroll
+  for (int c = 0; c < kF32WideCols; ++c) {
+    dk[off + f32_wide_col(c, part)] = dkr[c] * scale;
+    dv[off + f32_wide_col(c, part)] = dvr[c];
+  }
+}
+
+__global__ void __launch_bounds__(kF32WideThreads)
+flash_bwd_dq_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse2, const float* __restrict__ delta,
+                             float* __restrict__ dq, int s, int h, int d, int num_q_tiles,
+                             int num_bh, int n_chunks, Strides qs, Strides ks, Strides vs,
+                             float scale_log2e, float scale, int causal) {
+  __shared__ __align__(16) float k_tile[kF32WideRows][kF32Chunk];
+  __shared__ __align__(16) float v_tile[kF32WideRows][kF32Chunk];
+
+  const int chunk = blockIdx.x % n_chunks;
+  const int rest = blockIdx.x / n_chunks;
+  const int bh = rest % num_bh;
+  const int qt = num_q_tiles - 1 - rest / num_bh;  // most work first
+  const int b = bh / h;
+  const int hd = bh - b * h;
+  const int row = qt * kF32WideRows + threadIdx.x / kF32WideSplit;
+  const int part = threadIdx.x % kF32WideSplit;
+  const unsigned lanes = 0xffu << ((threadIdx.x & 31) & ~(kF32WideSplit - 1));
+  const bool live_row = row < s;
+  const int n_pieces = d / kF32Chunk;
+
+  const float* qp = q + b * qs.b + static_cast<int64_t>(live_row ? row : 0) * qs.s + hd * qs.h;
+  const float* dp_row = dout + ((static_cast<int64_t>(b) * s + (live_row ? row : 0)) * h + hd) * d;
+  const float* kb = k + b * ks.b + hd * ks.h;
+  const float* vb = v + b * vs.b + hd * vs.h;
+  const float l2 = live_row ? lse2[static_cast<int64_t>(bh) * s + row] : 0.0f;
+  const float dl = live_row ? delta[static_cast<int64_t>(bh) * s + row] : 0.0f;
+
+  float dqr[kF32WideCols];
+#pragma unroll
+  for (int c = 0; c < kF32WideCols; ++c) dqr[c] = 0.0f;
+
+  // keys past the block's last row are masked for every row of it
+  const int kv_end = causal ? min(s, (qt + 1) * kF32WideRows) : s;
+  for (int k0 = 0; k0 < kv_end; k0 += kF32WideRows) {
+    const int tile = min(kF32WideRows, kv_end - k0);
+    float sc[kF32WideRows], dp[kF32WideRows];
+#pragma unroll
+    for (int j = 0; j < kF32WideRows; ++j) sc[j] = dp[j] = 0.0f;
+    for (int pc = 0; pc < n_pieces; ++pc) {
+      f32_wide_load(k_tile, v_tile, kb, ks.s, vb, vs.s, k0, tile, pc * kF32Chunk);
+      float qr[kF32WideCols], dr[kF32WideCols];
+      f32_wide_row(qp + pc * kF32Chunk, part, live_row, scale_log2e, qr);
+      f32_wide_row(dp_row + pc * kF32Chunk, part, live_row, 1.0f, dr);
+#pragma unroll
+      for (int j = 0; j < kF32WideRows; ++j) {
+        sc[j] = f32_wide_dot(qr, k_tile[j], part, sc[j]);
+        dp[j] = f32_wide_dot(dr, v_tile[j], part, dp[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kF32WideRows; ++j)
+#pragma unroll
+      for (int o = 1; o < kF32WideSplit; o <<= 1) {
+        sc[j] += __shfl_xor_sync(lanes, sc[j], o);
+        dp[j] += __shfl_xor_sync(lanes, dp[j], o);
+      }
+    // the chunk's columns of the tile's keys
+    f32_wide_load(k_tile, nullptr, kb, ks.s, nullptr, 0, k0, tile, chunk * kF32Chunk);
+    if (!live_row) continue;
+    const int n = causal ? min(tile, row + 1 - k0) : tile;  // live keys
+#pragma unroll
+    for (int j = 0; j < kF32WideRows; ++j) {
+      if (j >= n) continue;
+      f32_wide_axpy(exp2f(sc[j] - l2) * (dp[j] - dl), k_tile[j], part, dqr);
+    }
+  }
+  if (!live_row) return;
+  float* out = dq + ((static_cast<int64_t>(b) * s + row) * h + hd) * d + chunk * kF32Chunk;
+#pragma unroll
+  for (int c = 0; c < kF32WideCols; ++c) out[f32_wide_col(c, part)] = dqr[c] * scale;
+}
+
 // ------------------------------------------------ bfloat16 and float16
 
 constexpr int kBM = 64;         // query rows a tile
@@ -871,7 +1059,7 @@ __device__ __forceinline__ void bwd_compute_d128(
 
   // dK (times scale) and dV of the warpgroup's 64 keys
   store_dkdv<T, 128>(dk, dv, dk_acc, dv_acc, p_scale, s_scale, kw0 + 16 * w4 + g, t, b, s, h,
-                     hd, scale);
+                     hd, scale, 128);
 }
 
 // One compute warpgroup's walk over the query tiles at D = 256. Both
@@ -1032,8 +1220,8 @@ __device__ __forceinline__ void bwd_compute_d256(
   }
 
   // dK (times scale) and dV of the block's 64 keys, the warpgroup's columns
-  store_dkdv<T, 256, 128>(dk, dv, dk_acc, dv_acc, p_scale, s_scale, key0 + 16 * w4 + g, t, b, s,
-                          h, hd, scale, 128 * wg);
+  store_dkdv<T, 128>(dk, dv, dk_acc, dv_acc, p_scale, s_scale, key0 + 16 * w4 + g, t, b, s, h,
+                     hd, scale, 256, 128 * wg);
 }
 
 template <typename T, int D>
@@ -1338,23 +1526,413 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // dK (times scale) and dV of the warpgroup's 64 keys
     store_dkdv<T, D>(dk, dv, dk_acc, dv_acc, p_scale, s_scale, kw0 + 16 * w4 + g, t, b, s, h,
-                     hd, scale);
+                     hd, scale, D);
+  }
+}
+
+// ------------------------- bfloat16 and float16 at D > 256: column chunks
+
+// The wide kernel (flash_bwd_wide_kernel<T>): the one-pass backward past
+// D = 256, where K and V of a block's keys (256 D bytes for 64 keys: 128
+// KB at D = 512) and a Q/dO ring no longer fit in shared memory and dK and
+// dV over the whole D no longer fit in registers. bwd_compute_d256's split
+// of the columns is carried into a grid axis: a block owns (batch, head,
+// 128 keys, one chunk of kDC = 128 columns of dK, dV and dQ), warpgroup wg
+// keys kw0 = key0 + 64 wg .. kw0 + 63, as bwd_compute_d128 splits them.
+// Per 64-row query tile each warpgroup
+// * reduces S^T = K Q^T and dP^T = V dO^T over the whole D: the loader
+//   streams, for each 64-column d-box e in column order, a stage (Q_e, K_e)
+//   and a stage (dO_e, V_e) of the block's 128 keys through ring A (4
+//   stages of 24 KB), and the warpgroup issues each stage's 4 k16 steps
+//   (its own 64 keys' rows of K_e or V_e) as it lands, freeing the box
+//   before once its products are done (so K and V, re-read from L2 each
+//   query tile, never stay whole in shared memory);
+// * takes P^T, dS^T and float16's scales as at every D (tile_operands;
+//   each row's lse2, delta and dq_scale come with the tile's chunk in ring
+//   B), since S^T and dP^T are the whole sums, so every chunk computes the
+//   same P^T, dS^T and RowScale exponents;
+// * dV_c += P^T dO_c and dK_c += dS^T Q_c ([64 keys, 128], 64 registers
+//   each) against the chunk's Q_c and dO_c (two d-boxes each, ring B:
+//   two stages of 32 KB);
+// * dQ_c = dS K_c split by columns as at D = 128: warpgroup wg takes 64 of
+//   the chunk's columns over the block's 128 keys from both warpgroups'
+//   dS^T rows (a 256-thread barrier) and d-box wg of K_c, which stays in
+//   shared memory (32 KB); once both warpgroups are done with the stage, a
+//   tile's dQ_c goes out over the stage's Q_c (warpgroup 0) and dO_c (1)
+//   tiles as at D = 256, and the writer bulk-adds it into the float32
+//   accumulator in key-block order, with a turn counter per (batch, head,
+//   query tile, chunk), then frees the stage.
+// So the registers are bwd_compute_d128's and shared memory 210 KB at any
+// D; the products a pair are 2 D / kDC times S^T's and dP^T's and once the
+// three others', (2 D / 128 + 3) / 5 times the one-pass products (1.8 at
+// D = 384, 2.2 at 512, 3.8 at 1024). A gradient is bitwise the same from
+// run to run, as at every D: each sum in one fixed order.
+struct WideBwdSmem {  // byte offsets from a 1024-byte aligned base
+  static constexpr int kBN = 128;                  // keys a block
+  static constexpr int kDC = 128;                  // columns a chunk
+  static constexpr int kRowB = 128;                // a d-box row: 64 elements
+  static constexpr int kQBox = kBM * kRowB;        // 64 query rows of a d-box: 8 KB
+  static constexpr int kKBox = kBN * kRowB;        // the block's keys of a d-box: 16 KB
+  static constexpr int kAStages = 4;               // ring A: (Q_e, K_e) or (dO_e, V_e)
+  static constexpr int kAStage = kQBox + kKBox;
+  static constexpr int kCTile = 2 * kQBox;         // Q_c or dO_c: the chunk's two d-boxes
+  static constexpr int kKC = 0;                    // K_c [2][kBN][64]
+  static constexpr int kA = kKC + 2 * kKBox;       // ring A [kAStages][query box][key box]
+  static constexpr int kB = kA + kAStages * kAStage;  // ring B [kStages][Q_c, dO_c]
+  static constexpr int kDS = kB + kStages * 2 * kCTile;  // dS^T [kBN keys][64 queries] of T
+  static constexpr int kRows = kDS + kBN * kBM * 2;  // [kStages][lse2, delta, dq_scale][kBM]
+  // mbarriers: a full, a empty [kAStages]; b full, b empty [kStages]; kv;
+  // dq_full, turn, done, passed [2] each
+  static constexpr int kBar = kRows + kStages * 3 * kBM * 4;
+  static constexpr int kBytes = kBar + (2 * kAStages + 2 * kStages + 1 + 8) * 8;
+  static_assert(kBytes + 1024 <= 232448, "past the 227 KB a block may take");
+};
+
+// One compute warpgroup's walk over the query tiles in the wide kernel
+// (the note above)
+template <typename T>
+__device__ __forceinline__ void bwd_compute_wide(
+    const uint32_t base, uint8_t* const sm, const int wg, const int lane, const int m_first,
+    const int m_tiles, const int key0, const int chunk, const int n_boxes, const int b,
+    const int hd, const int s, const int h, const int d, const float scale_log2e,
+    const float scale, const int causal, const uint32_t a_full, const uint32_t a_empty,
+    const uint32_t b_full, const uint32_t bar_kv, const uint32_t bar_dq_full,
+    T* __restrict__ dk, T* __restrict__ dv) {
+  using L = WideBwdSmem;
+  constexpr int kSbo = 8 * L::kRowB;  // 8 rows of a box
+  const int wt = threadIdx.x & 127;   // thread of the warpgroup
+  const int w4 = wt >> 5;             // warp of the warpgroup
+  const int g = lane >> 2, t = lane & 3;
+  const int kw0 = key0 + 64 * wg;     // the warpgroup's first key
+  const uint32_t ds_tile = base + L::kDS;
+  const uint32_t k_box = base + L::kKC + wg * L::kKBox;  // all keys, d-box wg of K_c
+
+  float dv_acc[64], dk_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dv_acc[i] = dk_acc[i] = 0.0f;
+  RowScale p_scale, s_scale;  // float16 only
+
+  auto release = [&](int a) {  // this warp has read ring A's stage of item a
+    __syncwarp();
+    if (lane == 0) mbar_arrive(a_empty + 8 * (a % L::kAStages));
+  };
+  mbar_spin(bar_kv, 0);
+  int stage = 0, a = 0;
+  uint32_t phase = 0;
+  for (int m = m_first; m < m_tiles; ++m) {
+    // S^T = K Q^T and dP^T = V dO^T over the d-boxes in order: [64 keys, 64
+    // queries], K-major; each box's stages freed once the next box's
+    // products are issued and its own are done
+    float sacc[32], pacc[32];
+    // box e's two stages: S^T's (Q_e, K_e), then dP^T's (dO_e, V_e); the
+    // first box's products start the sums (kFirst: a constant flag, so no
+    // accumulator is read before it is written)
+    auto issue_box = [&](auto first) {
+#pragma unroll
+      for (int which = 0; which < 2; ++which, ++a) {
+        const int st = a % L::kAStages;
+        const uint32_t x = base + L::kA + st * L::kAStage;  // Q_e or dO_e
+        const uint32_t y = x + L::kQBox + wg * kBM * L::kRowB;  // the warpgroup's rows of K_e or V_e
+        mbar_spin(a_full + 8 * st, (a / L::kAStages) & 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da = smem_desc(y + 32 * kk, 16, kSbo, 1);
+          const uint64_t db = smem_desc(x + 32 * kk, 16, kSbo, 1);
+          const int acc = decltype(first)::value ? kk : 1;
+          if (which == 0)
+            Wgmma<64>::ss<0, 0, T>(sacc, da, db, acc);
+          else
+            Wgmma<64>::ss<0, 0, T>(pacc, da, db, acc);
+        }
+        wgmma_commit();
+      }
+    };
+    wgmma_fence();
+    issue_box(std::true_type{});
+    for (int e = 1; e < n_boxes; ++e) {
+      issue_box(std::false_type{});
+      wgmma_wait<2>();
+      release(a - 4);
+      release(a - 3);
+    }
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    fence_regs(pacc);
+    release(a - 2);
+    release(a - 1);
+
+    mbar_spin(b_full + 8 * stage, phase);
+    const uint32_t q_tile = base + L::kB + stage * 2 * L::kCTile;
+    const uint32_t do_tile = q_tile + L::kCTile;
+    const float* lse_s = reinterpret_cast<const float*>(sm + L::kRows) + stage * 3 * kBM;
+    const float* del_s = lse_s + kBM;
+    const float* dqs_s = lse_s + 2 * kBM;  // float16 only
+
+    // P^T = exp2(S^T scale log2e - lse2), masked on the diagonal and past
+    // the last key
+    const int q0 = m * kBM;
+    const bool edge = (causal && q0 <= kw0) || kw0 + 64 > s;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float p = exp2_approx(fmaf(sacc[4 * j + r], scale_log2e, -((r & 1) ? l2.y : l2.x)));
+        if (edge) {
+          const int key = kw0 + 16 * w4 + g + 8 * (r >> 1);
+          const int query = q0 + 8 * j + 2 * t + (r & 1);
+          if (key >= s || (causal && key > query)) p = 0.0f;
+        }
+        sacc[4 * j + r] = p;
+      }
+    }
+    // dS^T = P^T (dP^T - delta)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl = *reinterpret_cast<const float2*>(del_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pacc[4 * j + r] = sacc[4 * j + r] * (pacc[4 * j + r] - ((r & 1) ? dl.y : dl.x));
+    }
+    // P^T and dS^T as A fragments, dS^T rows of this warpgroup's keys to
+    // shared memory
+    uint32_t pa[4][4], sa[4][4];
+    tile_operands<T>(sacc, pacc, dv_acc, dk_acc, p_scale, s_scale, dqs_s, ds_tile,
+                     64 * wg + 16 * w4, g, t, pa, sa);
+    fence_async_shared();
+
+    // dV_c += P^T dO_c, dK_c += dS^T Q_c (dO_c and Q_c MN-major across their
+    // two d-boxes), then, once both warpgroups' dS^T rows are in shared
+    // memory, this warpgroup's columns of dQ_c = dS K_c
+    float dq[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<128>::rs<1, T>(dv_acc, pa[kk],
+                           smem_desc(do_tile + kk * 16 * L::kRowB, L::kQBox, kSbo, 1), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<128>::rs<1, T>(dk_acc, sa[kk],
+                           smem_desc(q_tile + kk * 16 * L::kRowB, L::kQBox, kSbo, 1), 1);
+    named_sync(1, 256);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      Wgmma<64>::ss<1, 1, T>(dq, smem_desc(ds_tile + kk * 16 * 128, 16, 1024, 1),
+                             smem_desc(k_box + kk * 16 * L::kRowB, 16, kSbo, 1), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(dq);
+    fence_regs(pa);
+    fence_regs(sa);
+
+    // both warpgroups are done with the stage's Q_c, dO_c and with dS^T:
+    // warpgroup wg's columns of dQ_c over its Q_c (wg 0) or dO_c (wg 1)
+    // tile, float4 (i, wt) at i 128 + wt holding rows 16 w4 + g (+ 8),
+    // columns 128 chunk + 64 wg + 8 i + 2 t (+ 1)
+    named_sync(4, 256);
+    float4* const dq_buf = reinterpret_cast<float4*>(sm + L::kB + stage * 2 * L::kCTile +
+                                                     wg * L::kCTile);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      dq_buf[i * 128 + wt] = make_float4(dq[4 * i], dq[4 * i + 1], dq[4 * i + 2], dq[4 * i + 3]);
+    fence_async_shared();
+    named_sync(2 + wg, 128);
+    if (wt == 0) mbar_arrive(bar_dq_full + 8 * stage);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // dK (times scale) and dV of the warpgroup's 64 keys, the chunk's columns
+  store_dkdv<T, 128>(dk, dv, dk_acc, dv_acc, p_scale, s_scale, kw0 + 16 * w4 + g, t, b, s, h,
+                     hd, scale, d, chunk * L::kDC);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const float* __restrict__ lse2,      // [bh][m_tiles kBM]
+                      const float* __restrict__ delta,     // [bh][m_tiles kBM]
+                      const float* __restrict__ dq_scale,  // float16: [bh][m_tiles kBM]
+                      float* __restrict__ dq_acc,          // [bh][m_tiles][kBM d]
+                      int* __restrict__ turns,             // [bh][m_tiles][n_chunks]
+                      T* __restrict__ dk, T* __restrict__ dv, int s, int h, int d, int num_bh,
+                      int n_chunks, int m_tiles, float scale_log2e, float scale, int causal) {
+  using L = WideBwdSmem;
+  constexpr bool kHalf = std::is_same_v<T, __half>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  const uint32_t a_full = base + L::kBar;
+  const uint32_t a_empty = a_full + 8 * L::kAStages;
+  const uint32_t b_full = a_empty + 8 * L::kAStages;
+  const uint32_t b_empty = b_full + 8 * kStages;
+  const uint32_t bar_kv = b_empty + 8 * kStages;
+  // [2] each, slot i & 1 (the ring B stage) for the i-th query tile
+  const uint32_t bar_dq_full = bar_kv + 8;        // warpgroups -> writer
+  const uint32_t bar_turn = bar_dq_full + 16;     // watcher -> writer
+  const uint32_t bar_done = bar_turn + 16;        // writer -> passer
+  const uint32_t bar_passed = bar_done + 16;      // passer -> watcher
+
+  // key block outermost, so earlier key blocks are dispatched first
+  const int per_block = n_chunks * num_bh;
+  const int nb = blockIdx.x / per_block;
+  const int chunk = (blockIdx.x % per_block) / num_bh;
+  const int bh = blockIdx.x % num_bh;
+  const int b = bh / h;
+  const int hd = bh - b * h;
+  const int key0 = nb * L::kBN;
+  const int m_first = causal ? key0 / kBM : 0;  // earlier queries see none of its keys
+  const int n_boxes = d / 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < L::kAStages; ++st) {
+      mbar_init(a_full + 8 * st, 1);
+      mbar_init(a_empty + 8 * st, 8);  // lane 0 of each compute warp
+    }
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(b_full + 8 * st, 1);
+      mbar_init(b_empty + 8 * st, 1);  // the writer, once it has read dQ_c out
+    }
+    mbar_init(bar_kv, 1);
+#pragma unroll
+    for (int slot = 0; slot < 2; ++slot) {
+      mbar_init(bar_dq_full + 8 * slot, 2);
+      mbar_init(bar_turn + 8 * slot, 1);
+      mbar_init(bar_done + 8 * slot, 1);
+      mbar_init(bar_passed + 8 * slot, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoaderRegs));
+    if (warp == 8 && lane == 0) {  // ------------------------------ loader
+      mbar_expect_tx(bar_kv, 2 * L::kKBox);
+#pragma unroll
+      for (int box = 0; box < 2; ++box)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          tma_load_4d(base + L::kKC + box * L::kKBox + half * kBM * L::kRowB, &tm_k, bar_kv,
+                      chunk * L::kDC + 64 * box, hd, key0 + half * kBM, b);
+      const int64_t row_base = static_cast<int64_t>(bh) * m_tiles * kBM;
+      const uint32_t row_bytes = (kHalf ? 3 : 2) * kBM * 4;
+      int stage = 0, a = 0;
+      uint32_t phase = 0;
+      for (int m = m_first; m < m_tiles; ++m) {
+        for (int e = 0; e < n_boxes; ++e) {
+#pragma unroll
+          for (int which = 0; which < 2; ++which, ++a) {
+            const int st = a % L::kAStages;
+            const uint32_t full = a_full + 8 * st;
+            const uint32_t x = base + L::kA + st * L::kAStage;
+            mbar_wait(a_empty + 8 * st, ((a / L::kAStages) & 1) ^ 1);
+            mbar_expect_tx(full, L::kAStage);
+            tma_load_4d(x, which == 0 ? &tm_q : &tm_do, full, 64 * e, hd, m * kBM, b);
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+              tma_load_4d(x + L::kQBox + half * kBM * L::kRowB, which == 0 ? &tm_k : &tm_v, full,
+                          64 * e, hd, key0 + half * kBM, b);
+          }
+        }
+        mbar_wait(b_empty + 8 * stage, phase ^ 1);
+        const uint32_t full = b_full + 8 * stage;
+        mbar_expect_tx(full, 2 * L::kCTile + row_bytes);
+        const uint32_t c_tile = base + L::kB + stage * 2 * L::kCTile;
+#pragma unroll
+        for (int box = 0; box < 2; ++box) {
+          tma_load_4d(c_tile + box * L::kQBox, &tm_q, full, chunk * L::kDC + 64 * box, hd,
+                      m * kBM, b);
+          tma_load_4d(c_tile + L::kCTile + box * L::kQBox, &tm_do, full,
+                      chunk * L::kDC + 64 * box, hd, m * kBM, b);
+        }
+        const uint32_t rows = base + L::kRows + stage * 3 * kBM * 4;
+        bulk_load(rows, lse2 + row_base + m * kBM, kBM * 4, full);
+        bulk_load(rows + kBM * 4, delta + row_base + m * kBM, kBM * 4, full);
+        if constexpr (kHalf)
+          bulk_load(rows + 2 * kBM * 4, dq_scale + row_base + m * kBM, kBM * 4, full);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    } else if (warp == 9 && lane == 0) {  // --------------------- dQ writer
+      // (slot i & 1 is also the ring B stage of the i-th tile: kStages is 2)
+      for (int m = m_first, i = 0; m < m_tiles; ++m, ++i) {
+        float* dst = dq_acc + (static_cast<int64_t>(bh) * m_tiles + m) * kBM * d +
+                     chunk * kBM * L::kDC;
+        mbar_wait(bar_dq_full + 8 * (i & 1), (i >> 1) & 1);
+        mbar_wait(bar_turn + 8 * (i & 1), (i >> 1) & 1);  // earlier key blocks added
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+#pragma unroll
+        for (int part = 0; part < 2; ++part) {
+          const uint32_t buf = base + L::kB + (i & 1) * 2 * L::kCTile + part * L::kCTile;
+          float* const to = dst + part * (kBM * L::kDC / 2);
+          if (nb == 0)  // the first contributor to every query tile
+            bulk_store(to, buf, L::kCTile);
+          else
+            bulk_reduce_add(to, buf, L::kCTile);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        mbar_arrive(b_empty + 8 * (i & 1));  // the stage may be loaded again
+        asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        mbar_arrive(bar_done + 8 * (i & 1));  // the add is complete
+      }
+    } else if (warp == 10 && lane == 0) {  // -------------- turn watcher
+      for (int m = m_first, i = 0; m < m_tiles; ++m, ++i) {
+        if (i >= 2) mbar_wait(bar_passed + 8 * (i & 1), ((i - 2) >> 1) & 1);
+        if (nb > 0) {
+          const int* turn = turns + (static_cast<int64_t>(bh) * m_tiles + m) * n_chunks + chunk;
+          const long long t0 = clock64();
+          while (load_acquire(turn) != nb)
+            if (clock64() - t0 > kWatchdogClocks) __trap();
+        }
+        mbar_arrive(bar_turn + 8 * (i & 1));
+      }
+    } else if (warp == 11 && lane == 0) {  // ----------- turn passer
+      for (int m = m_first, i = 0; m < m_tiles; ++m, ++i) {
+        mbar_wait(bar_done + 8 * (i & 1), (i >> 1) & 1);
+        add_release(turns + (static_cast<int64_t>(bh) * m_tiles + m) * n_chunks + chunk, 1);
+        mbar_arrive(bar_passed + 8 * (i & 1));
+      }
+    }
+  } else {  // ------------------------------------------ compute warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kComputeRegs));
+    bwd_compute_wide<T>(base, sm, wg, lane, m_first, m_tiles, key0, chunk, n_boxes, b, hd, s, h,
+                        d, scale_log2e, scale, causal, a_full, a_empty, b_full, bar_kv,
+                        bar_dq_full, dk, dv);
   }
 }
 
 // dq = scale dq_acc in T: one thread a float4 (i, wt) of a tile's
 // accumulator, which holds rows 16 w + g and + 8, columns 8 i + 2 t, + 1
 // (wt = 32 w + 4 g + t, the compute thread that wrote it); float16 takes
-// each row's 2^e_i (dq_scale, [bh][m_tiles kBM]) off first
+// each row's 2^e_i (dq_scale, [bh][m_tiles kBM]) off first. D = 0 takes the
+// head dim d at run time (the wide kernel's)
 template <typename T, int D>
 __global__ void flash_bwd_dq_kernel(const float4* __restrict__ dq_acc,
                                     const float* __restrict__ dq_scale, T* __restrict__ dq,
-                                    int s, int h, int m_tiles, int64_t total, float scale) {
+                                    int s, int h, int m_tiles, int64_t total, float scale, int d) {
+  const int dd = D > 0 ? D : d;
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= total) return;
   const int wt = static_cast<int>(e % 128);
-  const int i = static_cast<int>((e / 128) % (D / 8));
-  const int64_t tile = e / (128 * (D / 8));
+  const int i = static_cast<int>((e / 128) % (dd / 8));
+  const int64_t tile = e / (128 * (dd / 8));
   const int m = static_cast<int>(tile % m_tiles);
   const int64_t bh = tile / m_tiles;
   const int64_t b = bh / h, hd = bh % h;
@@ -1370,10 +1948,10 @@ __global__ void flash_bwd_dq_kernel(const float4* __restrict__ dq_acc,
     x = make_float4(x.x * d0, x.y * d0, x.z * d1, x.w * d1);
   }
   if (row < s)
-    *reinterpret_cast<uint32_t*>(dq + ((b * s + row) * h + hd) * D + c) =
+    *reinterpret_cast<uint32_t*>(dq + ((b * s + row) * h + hd) * dd + c) =
         pack2<T>(x.x * scale, x.y * scale);
   if (row + 8 < s)
-    *reinterpret_cast<uint32_t*>(dq + ((b * s + row + 8) * h + hd) * D + c) =
+    *reinterpret_cast<uint32_t*>(dq + ((b * s + row + 8) * h + hd) * dd + c) =
         pack2<T>(x.z * scale, x.w * scale);
 }
 
@@ -1389,18 +1967,24 @@ struct Args {
   float scale;
   int causal;
   cudaStream_t stream;
+  int d;  // the head dim (the template's at D <= 256)
 };
 
-// the wgmma kernel takes both 16-bit types at every instantiated head
-// dim; dtype 0 float32, 1 bfloat16, 2 float16
-bool takes_wgmma(int dtype, int d) { return (dtype == 1 || dtype == 2) && d <= 256; }
+// a head dim past 256 that the wide kernels take: any multiple of 128
+bool wide(int d) { return d > 256 && d % 128 == 0; }
+
+// the wgmma kernels (flash_bwd_wgmma_kernel up to 256, flash_bwd_wide_kernel
+// past it) take both 16-bit types at every head dim; dtype 0 float32, 1
+// bfloat16, 2 float16
+bool takes_wgmma(int dtype, int d) { return (dtype == 1 || dtype == 2) && (d <= 256 || wide(d)); }
 
 // scratch layout (bytes): delta and lse2 [num_bh][pitch] float32 each;
 // float16 only: dq_scale [num_bh][pitch] float32; the wgmma kernel only:
 // the dQ accumulator [num_bh][pitch][D] float32 and the turn counters
-// [num_bh][pitch / kBM] int32; float16 only: v_norms [num_bh][n_parts]
+// [num_bh][pitch / kBM] int32 (past D = 256 one a chunk of 128 columns:
+// [num_bh][pitch / kBM][D / 128]); float16 only: v_norms [num_bh][n_parts]
 // float32. pitch is S for the float32 kernels and S rounded up to kBM for
-// the wgmma kernel.
+// the wgmma kernels.
 struct Scratch {
   int64_t pitch, m_tiles, n_turns, n_parts, delta, lse2, dq_scale, dq_acc, turns, v_norms,
       bytes;
@@ -1408,7 +1992,7 @@ struct Scratch {
     const bool wgmma = takes_wgmma(dtype, static_cast<int>(d)), f16 = dtype == 2;
     m_tiles = (s + kBM - 1) / kBM;
     pitch = wgmma ? m_tiles * kBM : s;
-    n_turns = wgmma ? num_bh * m_tiles : 0;
+    n_turns = wgmma ? num_bh * m_tiles * (wide(static_cast<int>(d)) ? d / 128 : 1) : 0;
     n_parts = f16 ? (s + kVRows - 1) / kVRows : 0;
     const int64_t rows = num_bh * pitch * 4;
     delta = 0;
@@ -1434,7 +2018,37 @@ cudaError_t launch_prep(const Args& a, const Scratch& sc) {
       reinterpret_cast<float*>(base + sc.dq_scale),
       reinterpret_cast<const float*>(base + sc.v_norms), static_cast<int>(sc.n_parts),
       reinterpret_cast<int*>(base + sc.turns), rows, a.s, a.h, static_cast<int>(sc.pitch),
-      pad_rows, sc.n_turns);
+      pad_rows, sc.n_turns, a.d);
+  return cudaGetLastError();
+}
+
+// the 16-bit kernels' first launches: float16's norm pass (the largest
+// norm of v's rows, a part of each bh), then the prep pass (D = 0: a.d at
+// run time)
+template <typename T, int D>
+cudaError_t launch_prologue(const Args& a, const Scratch& sc) {
+  if constexpr (std::is_same_v<T, __half>) {
+    const int64_t blocks = sc.n_parts * a.num_bh;
+    if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+    flash_bwd_vnorm_kernel<D><<<static_cast<unsigned>(blocks), 256, 0, a.stream>>>(
+        static_cast<const __half*>(a.v), a.vs, a.s, a.h, static_cast<int>(sc.n_parts),
+        reinterpret_cast<float*>(static_cast<char*>(a.scratch) + sc.v_norms), a.d);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return launch_prep<T, D>(a, sc);
+}
+
+// the dQ pass: scale (float16: 2^-e_i) and round the float32 accumulator
+template <typename T, int D>
+cudaError_t launch_dq(const Args& a, const Scratch& sc) {
+  const char* base = static_cast<const char*>(a.scratch);
+  const int64_t total = static_cast<int64_t>(a.num_bh) * sc.m_tiles * (a.d / 8) * 128;
+  if ((total + 255) / 256 > INT32_MAX) return cudaErrorInvalidValue;
+  flash_bwd_dq_kernel<T, D><<<static_cast<unsigned>((total + 255) / 256), 256, 0, a.stream>>>(
+      reinterpret_cast<const float4*>(base + sc.dq_acc),
+      reinterpret_cast<const float*>(base + sc.dq_scale), static_cast<T*>(a.dq), a.s, a.h,
+      static_cast<int>(sc.m_tiles), total, a.scale, a.d);
   return cudaGetLastError();
 }
 
@@ -1443,17 +2057,7 @@ cudaError_t launch_wgmma(const Args& a) {
   constexpr bool kHalf = std::is_same_v<T, __half>;
   const Scratch sc(a.num_bh, a.s, D, kHalf ? 2 : 1);
   char* base = static_cast<char*>(a.scratch);
-  cudaError_t err;
-  if constexpr (kHalf) {  // the largest norm of v's rows, a part of each bh
-    const int64_t blocks = sc.n_parts * a.num_bh;
-    if (blocks > INT32_MAX) return cudaErrorInvalidValue;
-    flash_bwd_vnorm_kernel<D><<<static_cast<unsigned>(blocks), 256, 0, a.stream>>>(
-        static_cast<const __half*>(a.v), a.vs, a.s, a.h, static_cast<int>(sc.n_parts),
-        reinterpret_cast<float*>(base + sc.v_norms));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  err = launch_prep<T, D>(a, sc);
+  cudaError_t err = launch_prologue<T, D>(a, sc);
   if (err != cudaSuccess) return err;
 
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
@@ -1481,12 +2085,75 @@ cudaError_t launch_wgmma(const Args& a) {
       a.s, a.h, a.num_bh, static_cast<int>(sc.m_tiles), a.scale * kLog2e, a.scale, a.causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  return launch_dq<T, D>(a, sc);
+}
 
-  const int64_t total = static_cast<int64_t>(a.num_bh) * sc.m_tiles * (D / 8) * 128;
-  if ((total + 255) / 256 > INT32_MAX) return cudaErrorInvalidValue;
-  flash_bwd_dq_kernel<T, D><<<static_cast<unsigned>((total + 255) / 256), 256, 0, a.stream>>>(
-      reinterpret_cast<const float4*>(dq_acc), dq_scale, static_cast<T*>(a.dq), a.s, a.h,
-      static_cast<int>(sc.m_tiles), total, a.scale);
+// the wide kernel for T (bf16 or fp16) at a head dim a.d past 256, a
+// multiple of 128: the norm and prep passes over the whole D, the main
+// kernel over (key block, chunk, bh), the dQ pass
+template <typename T>
+cudaError_t launch_wide(const Args& a) {
+  using L = WideBwdSmem;
+  constexpr bool kHalf = std::is_same_v<T, __half>;
+  const Scratch sc(a.num_bh, a.s, a.d, kHalf ? 2 : 1);
+  char* base = static_cast<char*>(a.scratch);
+  cudaError_t err = launch_prologue<T, 0>(a, sc);
+  if (err != cudaSuccess) return err;
+
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  const int64_t bsh = static_cast<int64_t>(a.s) * a.h * a.d;
+  const Strides os{bsh, static_cast<int64_t>(a.h) * a.d, a.d};
+  if (!tensor_map<T>(&tm_q, a.q, a.b, a.s, a.h, a.d, a.qs, kBM) ||
+      !tensor_map<T>(&tm_k, a.k, a.b, a.s, a.h, a.d, a.ks, kBM) ||
+      !tensor_map<T>(&tm_v, a.v, a.b, a.s, a.h, a.d, a.vs, kBM) ||
+      !tensor_map<T>(&tm_do, a.dout, a.b, a.s, a.h, a.d, os, kBM))
+    return cudaErrorInvalidValue;
+  const int n_chunks = a.d / L::kDC;
+  const int64_t n_blocks = (static_cast<int64_t>(a.s) + L::kBN - 1) / L::kBN;
+  if (n_blocks * a.num_bh * n_chunks > INT32_MAX) return cudaErrorInvalidValue;
+  const int smem = L::kBytes + 1024;  // + the 1024-byte alignment
+  err = cudaFuncSetAttribute(flash_bwd_wide_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_wide_kernel<T><<<static_cast<unsigned>(n_blocks * a.num_bh * n_chunks), kThreads,
+                             smem, a.stream>>>(
+      tm_q, tm_k, tm_v, tm_do, reinterpret_cast<const float*>(base + sc.lse2),
+      reinterpret_cast<const float*>(base + sc.delta),
+      reinterpret_cast<const float*>(base + sc.dq_scale),
+      reinterpret_cast<float*>(base + sc.dq_acc), reinterpret_cast<int*>(base + sc.turns),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.s, a.h, a.d, a.num_bh, n_chunks,
+      static_cast<int>(sc.m_tiles), a.scale * kLog2e, a.scale, a.causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_dq<T, 0>(a, sc);
+}
+
+// float32 past D = 256: the prep pass over the whole D, then the two
+// CUDA-core kernels split by chunks of 128 columns
+cudaError_t launch_f32_wide(const Args& a) {
+  const Scratch sc(a.num_bh, a.s, a.d, 0);
+  cudaError_t err = launch_prep<float, 0>(a, sc);
+  if (err != cudaSuccess) return err;
+  const char* base = static_cast<const char*>(a.scratch);
+  const float* delta = reinterpret_cast<const float*>(base + sc.delta);
+  const float* lse2 = reinterpret_cast<const float*>(base + sc.lse2);
+  const int n_chunks = a.d / kF32Chunk;
+  const int64_t num_tiles = (static_cast<int64_t>(a.s) + kF32WideRows - 1) / kF32WideRows;
+  if (num_tiles * a.num_bh * n_chunks > INT32_MAX) return cudaErrorInvalidValue;
+  const unsigned blocks = static_cast<unsigned>(num_tiles * a.num_bh * n_chunks);
+  const float scale_log2e = a.scale * kLog2e;
+  flash_bwd_dkdv_f32_wide_kernel<<<blocks, kF32WideThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse2, delta,
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.s, a.h, a.d, a.num_bh, n_chunks,
+      a.qs, a.ks, a.vs, scale_log2e, a.scale, a.causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_f32_wide_kernel<<<blocks, kF32WideThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse2, delta,
+      static_cast<float*>(a.dq), a.s, a.h, a.d, static_cast<int>(num_tiles), a.num_bh, n_chunks,
+      a.qs, a.ks, a.vs, scale_log2e, a.scale, a.causal);
   return cudaGetLastError();
 }
 
@@ -1544,8 +2211,18 @@ cudaError_t dispatch(int d, int dtype, const Args& a) {
       return dispatch_d<128>(dtype, a);
     case 256:
       return dispatch_d<256>(dtype, a);
-    default:
-      return cudaErrorInvalidValue;
+    default:  // past 256: any multiple of 128, in each type
+      if (!wide(d)) return cudaErrorInvalidValue;
+      switch (dtype) {
+        case 0:
+          return launch_f32_wide(a);
+        case 1:
+          return launch_wide<__nv_bfloat16>(a);
+        case 2:
+          return launch_wide<__half>(a);
+        default:
+          return cudaErrorInvalidValue;
+      }
   }
 }
 
@@ -1566,7 +2243,8 @@ extern "C" int64_t swtpu_flash_attention_bwd_scratch_bytes(int b, int s, int h, 
 // log); dq, dk, dv: contiguous [b, s, h, d] of that type, written whole;
 // scratch: swtpu_flash_attention_bwd_scratch_bytes(b, s, h, d, dtype)
 // bytes, 16-byte aligned, contents ignored; all on the device of
-// ``stream``. d is 16, 32, 64, 128 or 256; the 16-bit types also need every
+// ``stream``. d is 16, 32, 64, 128 or 256 or a multiple of 128 past 256;
+// the 16-bit types also need every
 // base pointer 16-byte aligned and every stride a multiple of 8. sm_scale
 // is the forward's scale (any sign). Returns the first cudaGetLastError()
 // that is not cudaSuccess after each launch (three; four in float16)
@@ -1585,6 +2263,6 @@ extern "C" int swtpu_flash_attention_bwd(
   Args a{q, k, v, o, dout, lse, dq, dk, dv, scratch, b, s, h,
          static_cast<int>(num_bh), Strides{q_sb, q_ss, q_sh},
          Strides{k_sb, k_ss, k_sh}, Strides{v_sb, v_ss, v_sh}, sm_scale,
-         causal, static_cast<cudaStream_t>(stream)};
+         causal, static_cast<cudaStream_t>(stream), d};
   return static_cast<int>(dispatch(d, dtype, a));
 }

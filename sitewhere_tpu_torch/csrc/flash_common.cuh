@@ -3,7 +3,8 @@
 // the (batch, row, head) strides of a [B, S, H, D] view, the constants, the
 // shared-memory address, the exp2 and 16-bit pack helpers (both), and the
 // cp.async copies, ldmatrix and the bf16 / fp16 mma.sync m16n8k16 product
-// (the forward's mma.sync kernel).
+// (the forward's mma.sync kernel), and the float32 kernels' tiling past
+// D = 256.
 // Each .cu file includes it and builds into a library of its own
 // (cuda_build.py hashes this header with it).
 
@@ -116,6 +117,81 @@ __device__ __forceinline__ float to_float(T x) {
   } else {
     return x;
   }
+}
+
+// ------------------------------------------------ float32 past D = 256
+//
+// The float32 kernels past D = 256 (flash_attention_f32_wide_kernel,
+// flash_bwd_*_f32_wide_kernel) split a row among kF32WideSplit adjacent
+// threads and the output's columns into chunks of kF32Chunk (a grid
+// axis); a dot over the whole D is summed in pieces of kF32Chunk columns,
+// each thread's share first, across the row's threads once all pieces are
+// in.
+constexpr int kF32WideThreads = 128;                  // threads a block
+constexpr int kF32Chunk = 128;                        // columns a chunk and a piece
+constexpr int kF32WideSplit = 8;                      // threads a row
+constexpr int kF32WideCols = kF32Chunk / kF32WideSplit;  // columns a thread
+constexpr int kF32WideRows = kF32WideThreads / kF32WideSplit;  // rows a block or tile
+
+// column c of a thread's kF32WideCols: its float4 chunk c / 4 is the
+// piece's chunk (c / 4) 8 + part, so a row's threads read neighbouring 16
+// bytes of a shared row
+__device__ __forceinline__ int f32_wide_col(int c, int part) {
+  return 4 * ((c / 4) * kF32WideSplit + part) + c % 4;
+}
+
+// the thread's kF32WideCols columns of one row's piece from global memory,
+// times mul (zeros for a row past S)
+__device__ __forceinline__ void f32_wide_row(const float* p, int part, bool live, float mul,
+                                             float (&r)[kF32WideCols]) {
+#pragma unroll
+  for (int c = 0; c < kF32WideCols; ++c) r[c] = live ? p[f32_wide_col(c, part)] * mul : 0.0f;
+}
+
+// the thread's share of a dot over one piece: x (its columns) . row
+// `tile`'s float4 chunks
+__device__ __forceinline__ float f32_wide_dot(const float (&x)[kF32WideCols], const float* tile,
+                                              int part, float acc) {
+  const float4* r = reinterpret_cast<const float4*>(tile);
+#pragma unroll
+  for (int c = 0; c < kF32WideCols / 4; ++c) {
+    const float4 y = r[c * kF32WideSplit + part];
+    acc = fmaf(x[4 * c], y.x, acc);
+    acc = fmaf(x[4 * c + 1], y.y, acc);
+    acc = fmaf(x[4 * c + 2], y.z, acc);
+    acc = fmaf(x[4 * c + 3], y.w, acc);
+  }
+  return acc;
+}
+
+// acc += w (the thread's columns of row `tile`)
+__device__ __forceinline__ void f32_wide_axpy(float w, const float* tile, int part,
+                                              float (&acc)[kF32WideCols]) {
+  const float4* r = reinterpret_cast<const float4*>(tile);
+#pragma unroll
+  for (int c = 0; c < kF32WideCols / 4; ++c) {
+    const float4 y = r[c * kF32WideSplit + part];
+    acc[4 * c] = fmaf(w, y.x, acc[4 * c]);
+    acc[4 * c + 1] = fmaf(w, y.y, acc[4 * c + 1]);
+    acc[4 * c + 2] = fmaf(w, y.z, acc[4 * c + 2]);
+    acc[4 * c + 3] = fmaf(w, y.w, acc[4 * c + 3]);
+  }
+}
+
+// rows [r0, r0 + n) (zeros past n) of two [.., d] matrices, the piece of
+// columns from col0, into two shared tiles [kF32WideRows][kF32Chunk]
+__device__ __forceinline__ void f32_wide_load(float (*ta)[kF32Chunk], float (*tb)[kF32Chunk],
+                                              const float* a, int64_t as, const float* b,
+                                              int64_t bs, int r0, int n, int col0) {
+  __syncthreads();  // the previous tiles are no longer read
+  for (int e = threadIdx.x; e < kF32WideRows * kF32Chunk; e += kF32WideThreads) {
+    const int r = e / kF32Chunk, c = e % kF32Chunk;
+    const bool ok = r < n;
+    const int64_t row = r0 + r;
+    ta[r][c] = ok ? a[row * as + col0 + c] : 0.0f;
+    if (tb != nullptr) tb[r][c] = ok ? b[row * bs + col0 + c] : 0.0f;
+  }
+  __syncthreads();
 }
 
 }  // namespace

@@ -46,14 +46,23 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
   * Both read q, k and v in place through their (batch, row, head)
     strides, so the strided views of one fused qkv product need no copies,
     and write a contiguous [B, S, H, D] output. Any S; head dims 16, 32,
-    64, 128 and 256 (``HEAD_DIMS``). Any other D up to 256 runs
-    zero-padded to the next of them (:func:`padded_head_dim`; a copy of q,
-    k and v, the output sliced back; D = 129 to 255 at 256), as the TPU
-    kernel pads D to a multiple of 128: the zero lanes add nothing to q.k,
-    and the scale stays the true D's. A D past 256 (the TPU kernel takes
-    any D) and a type outside ``DTYPES`` (float64) are refused. The
-    16-bit types need 16-byte aligned base pointers and strides that are a
-    multiple of 8 elements (the ``cp.async`` copies are 16 bytes).
+    64, 128 and 256 (``HEAD_DIMS``), and every multiple of 128 past 256.
+    Any other D runs zero-padded to the next of them
+    (:func:`padded_head_dim`; a copy of q, k and v, the output sliced back;
+    D = 129 to 255 at 256, 257 to 383 at 384), as the TPU kernel pads D to
+    a multiple of 128: the zero lanes add nothing to q.k, and the scale
+    stays the true D's. There is no upper limit short of memory. A type
+    outside ``DTYPES`` (float64) is refused. The 16-bit types need 16-byte
+    aligned base pointers and strides that are a multiple of 8 elements
+    (the ``cp.async`` copies are 16 bytes).
+  * Past D = 256 (the wide kernels) a block owns one column chunk of the
+    output (256 columns where D is a multiple of 256, else 128): it
+    reduces S = Q K^T over the whole D in 64-column boxes that TMA brings
+    with each key tile, and accumulates only its chunk of O, so O, S and P
+    keep the D = 256 kernel's registers at any D. S and its exponentials
+    are computed once a chunk: (D / chunk + 1) / 2 times the one-pass
+    products (1.5 at D = 512, 2 at 384). float32 runs the same column
+    split on the CUDA cores (chunks of 128 columns, eight threads a row).
   * The forward can also write each row's log-sum-exp (``lse`` [B, H, S]
     float32, natural log), which the backward recomputes P from.
 
@@ -67,7 +76,14 @@ each tile is two 64-column boxes of 128-byte swizzle, and each compute
 warpgroup takes 64 of dQ's columns over the block's 128 keys. At D = 256
 (four boxes) a block owns 64 keys and each warpgroup 128 of the columns of
 dK, dV and dQ, computing the scores and dP of the block whole for itself;
-a tile's dQ leaves through its own Q and dO tiles. float16's 5
+a tile's dQ leaves through its own Q and dO tiles. Past D = 256 a block
+owns 128 keys (64 a compute warpgroup) and one chunk of 128 columns of
+dK, dV and dQ: S^T and dP^T are reduced over the whole D in 64-column
+boxes streamed with each query tile, then dV_c = P^T dO_c, dK_c = dS^T Q_c
+and dQ_c = dS K_c (each warpgroup 64 of dQ_c's columns over the block's
+128 keys), dQ_c summed over key blocks in their order per chunk; S^T and
+dP^T are computed once a chunk ((2 D / 128 + 3) / 5 times the one-pass
+products: 2.2 at D = 512). float16's 5
 exponent bits would lose a long row's small entries of P and dS, so the
 float16 kernel scales them by powers of two: a key's rows of P^T and dS^T
 (the dV and dK operands) by a running per-row scale, and a query's row of
@@ -96,9 +112,11 @@ import torch
 KERNEL = "flash_attention"
 BWD_KERNEL = "flash_attention_bwd"
 # the head dims the kernels are instantiated at; any other D up to the last
-# is padded with zero lanes to the next one (as the TPU kernel pads D to a
-# multiple of 128), a larger D is refused
+# is padded with zero lanes to the next one, and a D past it to the next
+# multiple of WIDE_STEP (the wide kernels take any such D), as the TPU
+# kernel pads D to a multiple of 128
 HEAD_DIMS = (16, 32, 64, 128, 256)
+WIDE_STEP = 128
 # the kernels' types, in the order of the type code they are handed
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -237,14 +255,19 @@ def gradient_row_shares(got: torch.Tensor, ref: torch.Tensor, which: str, *,
 
 
 def padded_head_dim(d: int) -> int:
-    """The instantiated head dim a head dim of ``d`` runs at: the smallest
-    of ``HEAD_DIMS`` that is at least ``d``. Raises ``ValueError`` past the
-    largest, naming the limit."""
+    """The head dim a head dim of ``d`` runs at: the smallest of
+    ``HEAD_DIMS`` that is at least ``d`` and, past the largest, the next
+    multiple of ``WIDE_STEP`` (257 to 384 at 384, 1000 at 1024)."""
     for dp in HEAD_DIMS:
         if d <= dp:
             return dp
-    raise ValueError(f"flash_attention kernel takes head dims up to {HEAD_DIMS[-1]}, "
-                     f"got {d}")
+    return -(-d // WIDE_STEP) * WIDE_STEP
+
+
+def kernel_head_dim(d: int) -> bool:
+    """Whether the kernels take head dim ``d`` as it is: one of
+    ``HEAD_DIMS``, or a multiple of ``WIDE_STEP`` past the largest."""
+    return d in HEAD_DIMS or (d > HEAD_DIMS[-1] and d % WIDE_STEP == 0)
 
 
 def pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
@@ -261,10 +284,10 @@ def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     for q, k, v; raises (``TypeError`` / ``ValueError``) on what the kernel
     does not take: a dtype outside ``DTYPES`` (float64 among them), mixed
     dtypes or devices, a rank other than 4, unequal shapes, a non-unit
-    stride on D, a head dim outside ``HEAD_DIMS`` (the callers pad to one
-    first); for the 16-bit types also a base pointer that is not 16-byte
-    aligned or a (batch, row, head) stride that is not a multiple of 8
-    elements."""
+    stride on D, a head dim the kernels do not take
+    (:func:`kernel_head_dim`; the callers pad to one first); for the 16-bit
+    types also a base pointer that is not 16-byte aligned or a (batch, row,
+    head) stride that is not a multiple of 8 elements."""
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention kernel takes float32, bfloat16 or float16 "
                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -274,8 +297,9 @@ def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     if not q.device == k.device == v.device:
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
     b, s, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dims {HEAD_DIMS}, got {d}")
+    if not kernel_head_dim(d):
+        raise ValueError(f"flash_attention kernel takes head dims {HEAD_DIMS} and "
+                         f"multiples of {WIDE_STEP} past {HEAD_DIMS[-1]}, got {d}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes unit stride on D")
     strides = [st for t in (q, k, v) for st in t.stride()[:3]]

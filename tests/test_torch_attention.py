@@ -138,9 +138,24 @@ def forward_block_k(d: int) -> int:
     return 128 if tatt.padded_head_dim(d) in (64, 128) else 64
 
 
+def box_scores(a: torch.Tensor, b: torch.Tensor, d_box: int | None) -> torch.Tensor:
+    """a @ b^T over the last dim in float32: one product, or (``d_box``)
+    the sum of the products of its d_box-column boxes taken in column
+    order, as the wide kernels reduce S over the 64-column boxes that TMA
+    brings one by one."""
+    if d_box is None:
+        return a @ b.transpose(-1, -2)
+    out = None
+    for c0 in range(0, a.shape[-1], d_box):
+        part = a[..., c0:c0 + d_box] @ b[..., c0:c0 + d_box].transpose(-1, -2)
+        out = part if out is None else out + part
+    return out
+
+
 def emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, sm_scale: float | None = None,
-                        block_k: int = 64, low: torch.dtype = torch.bfloat16
+                        block_k: int = 64, low: torch.dtype = torch.bfloat16,
+                        d_box: int | None = None, chunk: int | None = None
                         ) -> torch.Tensor:
     """The arithmetic of the bf16 tensor-core kernel, on the CPU: key tiles
     of ``block_k`` (64 for the mma.sync kernel at D = 16 and 32, 128 for the
@@ -152,7 +167,18 @@ def emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     entries p = 0; P rounded to bf16 before the P·V product, accumulated in
     float32; the normaliser summed from the float32 p; l == 0 writes 0.
     ``low`` is the type P is rounded to (float16 for the float16 kernel,
-    or bf16 under float16 inputs as a control); the output has q's type."""
+    or bf16 under float16 inputs as a control); the output has q's type.
+    The wide kernel past D = 256 (``d_box`` 64, ``chunk`` its column
+    chunk): S summed over 64-column boxes in order (``box_scores``), and
+    each chunk of O's columns computed by a pass of its own over the keys,
+    which recomputes S, its running max and P the same way each time."""
+    if chunk is not None:
+        parts = [emulate_bf16_kernel(q, k, v[..., c0:c0 + chunk], causal=causal,
+                                     sm_scale=sm_scale if sm_scale is not None
+                                     else 1.0 / math.sqrt(q.shape[-1]),
+                                     block_k=block_k, low=low, d_box=d_box)
+                 for c0 in range(0, v.shape[-1], chunk)]
+        return torch.cat(parts, dim=-1)
     b, s, h, d = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     c = scale * math.log2(math.e)
@@ -162,11 +188,11 @@ def emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))   # [B, H, S, D]
     m = torch.full((b, h, s), -1e30)
     l = torch.zeros((b, h, s))
-    acc = torch.zeros((b, h, s, d))
+    acc = torch.zeros((b, h, s, v.shape[-1]))
     rows = torch.arange(s)[:, None]
     for k0 in range(0, s, block_k):
         kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
-        sc = qf @ kt.transpose(-1, -2)
+        sc = box_scores(qf, kt, d_box)
         if causal:
             cols = torch.arange(k0, k0 + kt.shape[2])[None, :]
             sc = sc.masked_fill(cols > rows, -math.inf)
@@ -178,6 +204,13 @@ def emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = mx
     out = acc / torch.where(l == 0, 1.0, l)[..., None]
     return out.transpose(1, 2).to(q.dtype)
+
+
+def forward_chunk(d: int) -> int | None:
+    """The wide forward's column chunk at head dim ``d`` (padded): 256
+    where the padded D is a multiple of 256, else 128; None at D <= 256."""
+    dp = tatt.padded_head_dim(d)
+    return None if dp <= 256 else (256 if dp % 256 == 0 else 128)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -264,7 +297,8 @@ def test_wgmma_forward_arithmetic_at_d64_holds_to_jax(case):
                                            dp=64, block_k=128)
 
 
-def _wgmma_forward_arithmetic_holds_to_jax(dtype, shape, causal, scale, seed, *, dp, block_k):
+def _wgmma_forward_arithmetic_holds_to_jax(dtype, shape, causal, scale, seed, *, dp, block_k,
+                                           d_box=None, chunk=None):
     """The wgmma forward's emulated arithmetic (D padded to ``dp``, key
     tiles of ``block_k``) on ``shape`` against JAX's oracle and the Pallas
     kernel in interpret mode within the card's limit, and float16's
@@ -279,7 +313,8 @@ def _wgmma_forward_arithmetic_holds_to_jax(dtype, shape, causal, scale, seed, *,
 
     def emulate(low):
         out = emulate_bf16_kernel(*(tatt.pad_head_dim(t, dp) for t in (tq, tk, tv)),
-                                  causal=causal, sm_scale=scale, block_k=block_k, low=low)
+                                  causal=causal, sm_scale=scale, block_k=block_k, low=low,
+                                  d_box=d_box, chunk=chunk)
         assert out.dtype == tdt and not out[..., d:].any()
         return out[..., :d]
 
@@ -380,9 +415,18 @@ def test_padded_head_dim_is_the_next_instantiated_one(d, dp):
     assert tatt.padded_head_dim(d) == dp
 
 
-def test_head_dims_past_the_largest_are_refused_with_the_limit():
-    with pytest.raises(ValueError, match="up to 256"):
-        tatt.padded_head_dim(257)
+@pytest.mark.parametrize("d, dp", [(257, 384), (384, 384), (385, 512), (1000, 1024)])
+def test_head_dims_past_the_largest_are_refused_with_the_limit(d, dp):
+    """Past 256 a head dim runs at the next multiple of 128 (as the TPU
+    kernel pads D), with no upper limit; the kernels refuse the unpadded D
+    between two multiples, naming the rule."""
+    assert tatt.padded_head_dim(d) == dp
+    q = torch.zeros((1, 2, 1, d))
+    if d == dp:
+        assert tatt.kernel_args(q, q, q)[3] == d
+    else:
+        with pytest.raises(ValueError, match="multiples of 128 past 256"):
+            tatt.kernel_args(q, q, q)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -462,6 +506,20 @@ GPU_CASES = [  # (B, S, H, D, dtype)
     (2, 333, 2, 192, torch.float16),
     (2, 300, 2, 256, torch.float32),
     (2, 129, 2, 192, torch.float32),
+    # past D = 256 (the wide kernels: column chunks of 256 or 128, S
+    # reduced over 64-column boxes) and D = 300 padded to 384, in each type
+    (3, 1, 2, 384, torch.bfloat16),
+    (2, 65, 2, 512, torch.bfloat16),
+    (2, 333, 1, 300, torch.bfloat16),
+    (1, 777, 1, 1024, torch.bfloat16),
+    (2, 65, 1, 384, torch.float16),
+    (1, 1000, 1, 512, torch.float16),
+    (2, 333, 1, 300, torch.float16),
+    (1, 129, 1, 1024, torch.float16),
+    (2, 129, 1, 384, torch.float32),
+    (2, 300, 1, 512, torch.float32),
+    (1, 65, 1, 300, torch.float32),
+    (1, 129, 1, 1024, torch.float32),
 ]
 
 
@@ -531,9 +589,13 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     q = torch.zeros((2, 8, 4, 32), device="cuda")
     with pytest.raises(TypeError):
         tatt.flash_attention(q.double(), q.double(), q.double())
-    big = torch.zeros((2, 8, 4, 257), device="cuda")
-    with pytest.raises(ValueError, match="up to 256"):
-        tatt.flash_attention(big, big, big)
+    # a head dim past 256 is no longer refused: D = 257 runs padded to 384
+    # on the wide kernel, held to the plain version
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    wide = torch.randn((2, 70, 2, 257), device="cuda", generator=gen).bfloat16()
+    torch.testing.assert_close(tatt.flash_attention(wide, wide, wide, causal=True),
+                               tatt.mha_reference(wide, wide, wide, causal=True),
+                               **FLASH_TOL_BF16)
 
 
 # ---------------------------------------------------------------- backward
@@ -671,7 +733,7 @@ def round_rows(x: torch.Tensor, low: torch.dtype, dim: int) -> torch.Tensor:
 def emulate_bf16_backward(q, k, v, o, do, lse, *, causal: bool,
                           sm_scale: float | None = None, q_tile: int = 64,
                           key_block: int = 128, key_part: int = 64,
-                          low: torch.dtype = torch.bfloat16):
+                          low: torch.dtype = torch.bfloat16, d_box: int | None = None):
     """The arithmetic of the bf16 backward kernel, on the CPU: delta =
     rowsum(dO o) in float32 from the bf16 output; float32 scores of the
     bf16 inputs (exact products summed in float32); P = exp2(s·c − lse·log2
@@ -689,18 +751,22 @@ def emulate_bf16_backward(q, k, v, o, do, lse, *, causal: bool,
     scaled first, as ``RowScale`` does; for dQ each query's row of dS
     scaled by the fixed 2^e_i of ``tatt.f16_dq_scale_exponents``, which
     the float32 sum keeps and the end takes off), or bf16 under float16
-    inputs as a control."""
+    inputs as a control. ``d_box`` (the wide kernel past D = 256: 64):
+    the scores and dP summed over column boxes in order (``box_scores``);
+    its column chunks of dK, dV and dQ change no element's sums (each
+    chunk's blocks compute the same P and dS), so the dQ of a chunk is
+    ``key_part=128`` over 128-key blocks as at D = 128."""
     d = q.shape[-1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     c = scale * math.log2(math.e)
     qf, kf, vf, of, dof = (t.float().transpose(1, 2) for t in (q, k, v, o, do))
     s = q.shape[1]
     delta = (dof * of).sum(-1)
-    p = torch.exp2((qf @ kf.transpose(-1, -2)) * c
+    p = torch.exp2(box_scores(qf, kf, d_box) * c
                    - (lse.float() * math.log2(math.e))[..., None])
     if causal:
         p = p.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1), 0.0)
-    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    ds = p * (box_scores(dof, vf, d_box) - delta[..., None])
     pb, dsb = round_rows(p, low, -2), round_rows(ds, low, -2)
     if low == torch.float16:
         f = torch.exp2(tatt.f16_dq_scale_exponents(o, do, v).float())[..., None]
@@ -784,7 +850,7 @@ def test_bf16_wgmma_backward_arithmetic_at_d128_holds_to_jax_grad(s, causal, sm_
 
 
 def _bf16_backward_arithmetic_holds_to_jax_grad(shape, causal, sm_scale, seed, *, key_block,
-                                                key_part):
+                                                key_part, d_box=None):
     """The bf16 wgmma backward's emulated arithmetic (64-row query tiles,
     key blocks of ``key_block`` whose dQ sums parts of ``key_part``) on
     ``shape`` against ``jax.vjp`` of JAX's oracle on the same bf16 values,
@@ -800,7 +866,8 @@ def _bf16_backward_arithmetic_holds_to_jax_grad(shape, causal, sm_scale, seed, *
     o = torch.from_numpy(np.array(out))
     lse = tatt.lse_reference(tq.float(), tk.float(), causal=causal, sm_scale=sm_scale)
     got = emulate_bf16_backward(tq, tk, tv, o, tdo, lse, causal=causal, sm_scale=sm_scale,
-                                q_tile=64, key_block=key_block, key_part=key_part)
+                                q_tile=64, key_block=key_block, key_part=key_part,
+                                d_box=d_box)
     for name, g, r in zip("qkv", got, ref):
         assert g.dtype == torch.bfloat16 and g.shape == shape
         assert bool(torch.isfinite(g.float()).all())
@@ -879,7 +946,7 @@ def test_f16_backward_arithmetic_fits_the_tolerance(case):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 384, 512])
 @pytest.mark.parametrize("s", [1, 63, 65, 200])
 def test_f16_one_pass_backward_arithmetic_fits_the_tolerance(s, d, causal):
     """The float16 arithmetic of the one-pass kernel
@@ -893,15 +960,18 @@ def test_f16_one_pass_backward_arithmetic_fits_the_tolerance(s, d, causal):
     the float16 step (measured <= 1.05e-3 up to S = 4096); the same
     arithmetic rounded to bf16 fails the limit wherever anything is
     rounded (at S = 1 P is 1 and dq = dk = 0: the control has nothing to
-    round there)."""
+    round there). Past D = 256 the wide kernel's: 128-key blocks whose dQ
+    sums all 128 keys in one product per chunk, S^T and dP^T over
+    64-column boxes."""
     q, k, v, o, do, lse = _f16_case(s, d, causal, None)
     plain = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=causal)
     key_block = 64 if d == 256 else 128
-    key_part = 128 if d == 128 else 64
+    key_part = 128 if d == 128 or d > 256 else 64
+    d_box = 64 if d > 256 else None
     got = emulate_bf16_backward(q, k, v, o, do, lse, causal=causal, low=torch.float16,
-                                key_block=key_block, key_part=key_part)
+                                key_block=key_block, key_part=key_part, d_box=d_box)
     control = emulate_bf16_backward(q, k, v, o, do, lse, causal=causal, key_block=key_block,
-                                    key_part=key_part)
+                                    key_part=key_part, d_box=d_box)
     for name, g, c, p in zip("qkv", got, control, plain):
         assert g.dtype == torch.float16 and g.shape == q.shape
         assert bool(torch.isfinite(g.float()).all())
@@ -1231,8 +1301,9 @@ def test_backward_kernel_source_is_plain_c_for_sm90a():
     # left), and no atomic add decides an order (the bitwise check is on
     # the card: test_cuda_backward_kernel_is_bitwise_deterministic)
     assert "wgmma.mma_async" in src and "cp.async.bulk.tensor" in src
-    assert ("bool takes_wgmma(int dtype, int d) { return (dtype == 1 || dtype == 2) && d <= 256; }"
-            in src)
+    assert ("bool takes_wgmma(int dtype, int d) { return (dtype == 1 || dtype == 2) && "
+            "(d <= 256 || wide(d)); }" in src)
+    assert "bool wide(int d) { return d > 256 && d % 128 == 0; }" in src
     assert "mma_bf16(" not in src and "CU_TENSOR_MAP_DATA_TYPE_FLOAT16" in src
     assert "mma_16816" not in (cuda_build.CSRC / "flash_attention_bwd.cu").read_text()
     assert "atomicAdd" not in src and "red.global.add" not in src
@@ -1314,6 +1385,21 @@ BWD_GPU_CASES = [  # (B, S, H, D, dtype)
     (2, 333, 2, 192, torch.float16),
     (2, 300, 2, 256, torch.float32),
     (2, 129, 2, 192, torch.float32),
+    # past D = 256 (the wide kernels: 128-key blocks, chunks of 128
+    # columns) and D = 300 padded to 384, in each type; the 16-bit ones
+    # also in the bitwise check below
+    (3, 1, 2, 384, torch.bfloat16),
+    (2, 65, 2, 512, torch.bfloat16),
+    (2, 333, 1, 300, torch.bfloat16),
+    (1, 777, 1, 1024, torch.bfloat16),
+    (2, 65, 1, 384, torch.float16),
+    (1, 1000, 1, 512, torch.float16),
+    (2, 333, 1, 300, torch.float16),
+    (1, 129, 1, 1024, torch.float16),
+    (2, 129, 1, 384, torch.float32),
+    (2, 300, 1, 512, torch.float32),
+    (1, 65, 1, 300, torch.float32),
+    (1, 129, 1, 1024, torch.float32),
 ]
 
 
@@ -1463,9 +1549,17 @@ def test_cuda_backward_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         tatt.flash_attention_backward(q.double(), q.double(), q.double(), q.double(),
                                       q.double(), lse)
-    big = torch.zeros((2, 8, 4, 257), device="cuda")
-    with pytest.raises(ValueError, match="up to 256"):
-        tatt.flash_attention_backward(big, big, big, big, big, lse)
+    # a head dim past 256 is no longer refused: D = 257 runs padded to 384
+    # on the wide kernels, held to the plain backward
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v, do = (torch.randn((2, 70, 2, 257), device="cuda", generator=gen).bfloat16()
+                   for _ in range(4))
+    o, lse = tatt.flash_attention_forward(q, k, v, causal=True)
+    got = tatt.flash_attention_backward(q, k, v, o, do, lse, causal=True)
+    ref = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=True)
+    for name, g, r in zip("qkv", got, ref):
+        assert g.shape == (2, 70, 2, 257)
+        assert_rows_close_of_max(g, r, GRAD_TOL_BF16, f"d{name}", causal=True, atol=GRAD_ATOL)
 
 
 @pytest.mark.gpu
@@ -1495,6 +1589,37 @@ def test_cuda_head_dims_past_128_take_the_d256_kernels(d, dtype):
     assert bool(torch.isfinite(qkv.grad.float()).all()) and bool(qkv.grad.any())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [300, 384, 512])
+def test_cuda_head_dims_past_256_take_the_wide_kernels(d, dtype):
+    """A head dim past 256 runs the wide forward (column chunks of 256
+    columns where the padded D is a multiple of 256, else 128) and the wide
+    one-pass backward (``flash_attention_wide_kernel<T, DC>``,
+    ``flash_bwd_wide_kernel<T>``) by the profiler's kernel names, through
+    autograd as the trainer takes them, and neither D = 256 kernel."""
+    _cuda_or_skip()
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    qkv = torch.randn((1, 300, 3, 1, d), device="cuda", generator=gen).to(dtype)
+    qkv.requires_grad_(True)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tatt.flash_attention(q, k, v, causal=True).float().square().sum().backward()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    t = "__half" if dtype == torch.float16 else "__nv_bfloat16"
+    chunk = 256 if tatt.padded_head_dim(d) % 256 == 0 else 128
+    fwd = [n for n in names if "flash_attention_wide_kernel" in n]
+    assert fwd and all(t in n and str(chunk) in n for n in fwd), names
+    bwd = [n for n in names if "flash_bwd_wide_kernel" in n]
+    assert bwd and all(t in n for n in bwd), names
+    assert not any("wgmma_kernel" in n or "bf16_kernel" in n for n in names), names
+    assert bool(torch.isfinite(qkv.grad.float()).all()) and bool(qkv.grad.any())
+
+
 # ------------------------------------------------- head dims past 128
 #
 # D = 129 to 256 runs on the card at D = 256 (zero-padded up to it, as the
@@ -1515,10 +1640,11 @@ WIDE_DTYPES = {"float32": (jnp.float32, torch.float32, F32, GRAD_F32),
 
 @pytest.mark.parametrize("dtype", list(WIDE_DTYPES))
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("d", [192, 256, 300, 384, 512])
 def test_plain_version_past_head_dim_128_matches_jax_and_pallas(d, causal, dtype):
-    """The plain forward and its lse at D = 192 and 256 against JAX's oracle
-    and the Pallas kernel in interpret mode (which pads 192 to 256 itself),
+    """The plain forward and its lse at D = 192, 256, 300, 384 and 512
+    against JAX's oracle and the Pallas kernel in interpret mode (which
+    pads 192 to 256 and 300 to 384 itself),
     and against ``jax.nn.logsumexp`` of JAX's scaled, masked float32
     scores (LSE_TOL)."""
     jdt, tdt, tol, _ = WIDE_DTYPES[dtype]
@@ -1539,10 +1665,11 @@ def test_plain_version_past_head_dim_128_matches_jax_and_pallas(d, causal, dtype
 
 @pytest.mark.parametrize("dtype", list(WIDE_DTYPES))
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("d", [192, 256, 300, 384, 512])
 def test_plain_backward_past_head_dim_128_matches_jax_vjp(d, causal, dtype):
     """The plain backward (from the forward's output and lse, as the kernel
-    pair runs) and autograd of the plain attention at D = 192 and 256
+    pair runs) and autograd of the plain attention at D = 192, 256, 300,
+    384 and 512
     against ``jax.vjp`` of JAX's oracle, each gradient within its type's
     share of its largest element."""
     jdt, tdt, _, tol = WIDE_DTYPES[dtype]
@@ -1620,3 +1747,123 @@ def test_both_kernel_sources_instantiate_head_dim_256():
     assert "bwd_compute_d256<T>(" in bwd and "struct F32BwdTile" in bwd
     assert "struct F32Tile" in fwd
     assert tatt.HEAD_DIMS[-1] == 256
+
+
+# ------------------------------------------------- head dims past 256
+#
+# D past 256 runs on the card at the next multiple of 128 (zero-padded, as
+# the TPU kernel pads D) on the wide kernels. Their arithmetic, emulated:
+# the forward by column chunks of 256 columns (128 where the padded D is
+# not a multiple of 256; ``forward_chunk``) over 64-key tiles, S summed
+# over 64-column boxes in column order; the backward by 128-key blocks
+# whose dQ of a chunk sums the block's keys in one product, S^T and dP^T
+# over the same boxes. Held to the card's limits as past 128 above.
+WIDE_FWD_CASES = [(dtype, d, s, causal, None)
+                  for dtype in ("bfloat16", "float16") for d in (300, 384, 512)
+                  for s in (1, 65, 200) for causal in (False, True)]
+WIDE_FWD_CASES += [(dtype, 512, 200, True, -0.3) for dtype in ("bfloat16", "float16")]
+WIDE_FWD_CASES += [(dtype, 384, 65, False, 0.0) for dtype in ("bfloat16", "float16")]
+
+
+@pytest.mark.parametrize("case", WIDE_FWD_CASES)
+def test_wide_forward_arithmetic_past_d256_holds_to_jax(case):
+    """The wide forward (``flash_attention_wide_kernel<T, DC>``) in bf16 and
+    float16 at D = 300 (padded to 384: chunks of 128), 384 (chunks of 128)
+    and 512 (chunks of 256): 64-key tiles, S over 64-column boxes in
+    order, a negative scale as its magnitude on -S (the same values as on
+    -q), a zero one as the smallest normal float, P rounded to the input
+    type before each chunk's P·V. It stays within the card's limit of
+    JAX's oracle and of the Pallas kernel in interpret mode (bf16 8e-3,
+    float16 1e-3), and float16's bf16-rounded control fails under a causal
+    mask past one key at a nonzero scale."""
+    dtype, d, s, causal, scale = case
+    dp = tatt.padded_head_dim(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale   # the true D's, as the wrapper
+    assert forward_block_k(d) == 64 and forward_chunk(d) == (256 if d == 512 else 128)
+    _wgmma_forward_arithmetic_holds_to_jax(dtype, (1, s, 1, d), causal, scale, 97 + s + d,
+                                           dp=dp, block_k=64, d_box=64,
+                                           chunk=forward_chunk(d))
+
+
+@pytest.mark.parametrize("sm_scale", [None, 0.0, -0.3])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d, s", [(384, 65), (512, 200), (512, 1)])
+def test_bf16_wide_backward_arithmetic_past_d256_holds_to_jax_grad(d, s, causal, sm_scale):
+    """The wide backward (``flash_bwd_wide_kernel<bf16>``): 64-row query
+    tiles, 128-key blocks whose dQ of a chunk sums the block's 128 keys in
+    one product (each compute warpgroup 64 of the chunk's columns:
+    ``key_part`` 128), dQ added over the blocks in their order, S^T and
+    dP^T summed over 64-column boxes in order, P and dS rounded to bf16,
+    delta from the float32 output as on JAX's side. Every row of dq, dk
+    and dv stays within GRAD_TOL_BF16 of its largest element of
+    ``jax.vjp`` of JAX's oracle on the same bf16 values, or, where that is
+    larger, within GRAD_ARITH_MARGIN times float32's first-order error
+    bound of the kernel's formula on the row (``chip_smoke.float64_reference``,
+    the rule the card's C6 check holds every kernel to). The bound frees
+    rows only where softmax rows saturate: at D = 512 and sm_scale -0.3
+    (|scale q.k| ~ 7) dP - delta cancels to the rounding of its float32
+    terms, and the same formula in float32 with nothing rounded to bf16
+    misses dq rows by 7 % of the row; at the default scale it frees none."""
+    import chip_smoke as cs
+
+    shape = (1, s, 1, d)
+    seed = 98 + s + d
+    arrays = [np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+              for a in _qkv(shape, seed=seed) + _qkv(shape, seed=seed + 1)[:1]]
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in arrays)
+    out, vjp = jax.vjp(lambda q, k, v: jatt.mha_reference(q, k, v, causal=causal,
+                                                        sm_scale=sm_scale), jq, jk, jv)
+    ref = [torch.from_numpy(np.array(g)) for g in vjp(jdo)]
+    tq, tk, tv, tdo = (torch.from_numpy(a.copy()).bfloat16() for a in arrays)
+    o = torch.from_numpy(np.array(out))
+    lse = tatt.lse_reference(tq.float(), tk.float(), causal=causal, sm_scale=sm_scale)
+    got = emulate_bf16_backward(tq, tk, tv, o, tdo, lse, causal=causal, sm_scale=sm_scale,
+                                q_tile=64, key_block=128, key_part=128, d_box=64)
+    bounds = cs.float64_reference(tq, tk, tv, o, tdo, lse, causal, sm_scale)[3]
+    for name, g, r, b in zip("qkv", got, ref, bounds):
+        assert g.dtype == torch.bfloat16 and g.shape == shape
+        assert bool(torch.isfinite(g.float()).all())
+        if sm_scale == 0.0 and name != "v":
+            assert not g.float().any() and not r.any()
+            continue
+        err, top, zero = tatt.gradient_row_errors(g, r, f"d{name}", causal=causal)
+        floor = GRAD_TOL_BF16 * top + GRAD_ATOL * zero
+        bound = cs.GRAD_ARITH_MARGIN * b.amax(-1).float()
+        if sm_scale is None:
+            assert not bool((bound > floor).any()), f"d{name}: the bound frees a row"
+        over = float((err / torch.maximum(floor, bound)).max())
+        assert over <= 1.0, f"d{name}: worst row {over} times its limit"
+
+
+def test_box_scores_are_the_product_summed_in_box_order():
+    """``box_scores`` is the float32 product summed over its boxes in
+    column order: equal to the one product within float32 rounding, and
+    bit for bit the left-to-right sum of the box products."""
+    rng = np.random.default_rng(14)
+    a, b = (torch.from_numpy(rng.standard_normal((2, 5, 512)).astype(np.float32))
+            for _ in range(2))
+    got = box_scores(a, b, 64)
+    torch.testing.assert_close(got, box_scores(a, b, None), rtol=1e-5, atol=1e-4)
+    want = a[..., :64] @ b[..., :64].transpose(-1, -2)
+    for c0 in range(64, 512, 64):
+        want = want + a[..., c0:c0 + 64] @ b[..., c0:c0 + 64].transpose(-1, -2)
+    assert torch.equal(got, want)
+
+
+def test_both_kernel_sources_take_head_dims_past_256():
+    """The forward and the backward each dispatch every multiple of 128
+    past 256 to their wide kernels (column chunks), in every type."""
+    from sitewhere_tpu_torch import cuda_build
+
+    fwd = (cuda_build.CSRC / "flash_attention.cu").read_text()
+    bwd = (cuda_build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert "if (d > 256 && d % 128 == 0)" in fwd and "launch_wide_d<T>(" in fwd
+    assert "flash_attention_wide_kernel" in fwd and "flash_attention_f32_wide_kernel" in fwd
+    assert "launch_wide<T, 256>" in fwd and "launch_wide<T, 128>" in fwd
+    assert "if (!wide(d)) return cudaErrorInvalidValue;" in bwd
+    assert "flash_bwd_wide_kernel" in bwd and "launch_f32_wide(a)" in bwd
+    assert "flash_bwd_dkdv_f32_wide_kernel" in bwd and "flash_bwd_dq_f32_wide_kernel" in bwd
+    for d in (257, 300, 384, 385, 512, 1000, 1024, 4096):
+        dp = tatt.padded_head_dim(d)
+        assert dp % tatt.WIDE_STEP == 0 and d <= dp < d + tatt.WIDE_STEP
+        assert tatt.kernel_head_dim(dp) and not tatt.kernel_head_dim(dp + 64)

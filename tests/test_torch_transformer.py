@@ -83,8 +83,10 @@ def test_scores_match_jax_bfloat16(route):
 
 
 # head dims past 128, which the card runs at D = 256: the d_model=256,
-# heads=1 model (D = 256) and d_model=384, heads=2 (D = 192, padded there)
-WIDE_HEADS = {"d256": dict(d_model=256, heads=1), "d192": dict(d_model=384, heads=2)}
+# heads=1 model (D = 256) and d_model=384, heads=2 (D = 192, padded there);
+# and past 256, on the wide kernels: d_model=384 and 512, heads=1
+WIDE_HEADS = {"d256": dict(d_model=256, heads=1), "d192": dict(d_model=384, heads=2),
+              "d384": dict(d_model=384, heads=1), "d512": dict(d_model=512, heads=1)}
 
 
 @pytest.mark.parametrize("route", list(ROUTES))

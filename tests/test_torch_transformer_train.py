@@ -127,8 +127,10 @@ def test_k_steps_match_jax(name):
 
 
 # head dims past 128 (the card runs them at D = 256): d_model=256, heads=1
-# (D = 256) and d_model=384, heads=2 (D = 192)
-WIDE_HEADS = {"d256": dict(d_model=256, heads=1), "d192": dict(d_model=384, heads=2)}
+# (D = 256) and d_model=384, heads=2 (D = 192); past 256 (the wide
+# kernels): d_model=384 and 512, heads=1
+WIDE_HEADS = {"d256": dict(d_model=256, heads=1), "d192": dict(d_model=384, heads=2),
+              "d384": dict(d_model=384, heads=1), "d512": dict(d_model=512, heads=1)}
 WIDE_SGD_LR = 0.1
 
 
