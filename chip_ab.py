@@ -8,7 +8,8 @@ the order given (parent, change, change, parent compares two commits on
 one card), builds its own kernels and gives one record:
 
 * the card (``nvidia-smi`` name and power limit) and ptxas's registers and
-  spills of the attention kernels, with any ptxas warning;
+  spills of the attention kernels (forward and backward), with any ptxas
+  warning of the forward;
 * the SHA-256 of the forward's output and lse at each HASHED case, so two
   trees can be compared bit for bit;
 * the forward and the backward at each shape of TIMED, causal, against
@@ -39,7 +40,8 @@ HERE = pathlib.Path(__file__).resolve()
 
 # name: (B, S, H, D, dtype name), all causal: the head-dim-64 shapes
 # (the default d_model at 4 heads, the d_model=384, heads=8 model's D = 48
-# padded to 64) and the rows held to run-to-run noise
+# padded to 64), the rows held to run-to-run noise, and float32 at D = 256
+# and 512 on the CUDA-core kernels (chip_smoke.C6_TIMED_SHAPES)
 TIMED = {
     "d64_bf16": (8, 16384, 4, 64, "bfloat16"),
     "d64_f16": (8, 16384, 4, 64, "float16"),
@@ -49,6 +51,8 @@ TIMED = {
     "d16_bf16": (8, 16384, 16, 16, "bfloat16"),
     "d32_bf16": (8, 16384, 8, 32, "bfloat16"),
     "d32_f16": (8, 16384, 8, 32, "float16"),
+    "d256_f32": (2, 4096, 1, 256, "float32"),
+    "d512_f32": (2, 4096, 1, 512, "float32"),
 }
 # the timed calls a shape, as chip_smoke.py's C6 phase takes
 REPS = 10
@@ -90,6 +94,7 @@ def worker(tree: pathlib.Path, shapes: list[str], sass: pathlib.Path | None = No
     text = cuda_build.build_info[fa.KERNEL]["ptxas"]
     rec = {"tree": str(tree), "card": cs.card_line(), "build_s": time.perf_counter() - t0,
            "ptxas": cs.ptxas_resources(text, prefix="flash_attention"),
+           "ptxas_bwd": cs.ptxas_resources(cuda_build.build_info[fa.BWD_KERNEL]["ptxas"]),
            "ptxas_notes": [ln.strip() for ln in text.splitlines()
                            if "arning" in ln or "C75" in ln or "serializ" in ln]}
     if sass is not None:
@@ -98,7 +103,7 @@ def worker(tree: pathlib.Path, shapes: list[str], sass: pathlib.Path | None = No
         sass.write_text(subprocess.run([str(cuobjdump), "-sass", str(lib)],
                                        capture_output=True, text=True).stdout)
     gen = torch.Generator(device=dev).manual_seed(0)
-    dtypes = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+    dtypes = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
     rec["hashes"] = {}
     for name, (b, s, h, d, t, causal, scale) in HASHED.items():
         q, k, v = cs.fused_qkv(b, s, h, d, dtypes[t], dev, torch.Generator(

@@ -1496,12 +1496,32 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
         q, k, v = fused_qkv(*shape, dt, device, gen)
         do = torch.randn(q.shape, device=device, generator=gen).to(q.dtype)
         timings[name] = _c6_timings(q, k, v, do, True, device, reps)
+        o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+        first = fa.flash_attention_backward(q, k, v, o, do, lse, causal=True)
+        again = fa.flash_attention_backward(q, k, v, o, do, lse, causal=True)
+        timings[name]["bitwise_deterministic"] = all(
+            torch.equal(x, y) for x, y in zip(first, again))
+        fails.check(timings[name]["bitwise_deterministic"],
+                    f"flash_attention_backward gives other bits on a second call at {name}")
+        del o, lse, first, again
+        if device.type == "cuda":
+            # the float32 kernels by profiler name (TF_C6_TAKES[name]),
+            # over three calls of each
+            def fwd_bwd():
+                for _ in range(3):
+                    out, lse_ = fa.flash_attention_forward(q, k, v, causal=True)
+                    fa.flash_attention_backward(q, k, v, out, do, lse_, causal=True)
+            ran = _profiled_attention(fwd_bwd)["attention_kernels"]
+            ok, bad = _takes(ran, name)
+            timings[name]["kernels"] = ran
+            fails.check(ok, f"C6 {name}: the attention kernels by profiler name miss or "
+                            f"should not run {bad}: {sorted(ran)}")
         del q, k, v, do
     ptxas = {**ptxas_resources(cuda_build.build_info.get(fa.KERNEL, {}).get("ptxas", ""),
                                prefix="flash_attention"),
              **ptxas_resources(cuda_build.build_info.get(fa.BWD_KERNEL, {}).get("ptxas", ""))}
     ptxas = {k: v for k, v in ptxas.items() if "f16" in k.replace("bf16", "") or "128>" in k
-             or "256>" in k or "wgmma" in k or "wide" in k}
+             or "256>" in k or "wgmma" in k or "wide" in k or "tiled" in k}
     # each type's worst output error and gradient row, and float16's control
     by_dtype = {}
     for name, e in errs.items():
@@ -7758,13 +7778,25 @@ TF_C6_TAKES = {
              ("flash_bwd_wide_kernel", "__nv_bfloat16", None)),
     "f16_d512": (("flash_attention_wide_kernel", "__half", 256),
                  ("flash_bwd_wide_kernel", "__half", None)),
+    # the C6 phase's float32 timed shapes (C6_TIMED_SHAPES): the
+    # register-tiled forward at D = 256 and backward pair past 256 (by
+    # chunks of 512 columns at D = 512)
+    "d256_f32": (("flash_attention_f32_tiled_kernel", "", None),
+                 ("flash_bwd_dkdv_f32_kernel", "", 256), ("flash_bwd_dq_f32_kernel", "", 256)),
+    "d512_f32": (("flash_attention_f32_wide_kernel", "", None),
+                 ("flash_bwd_dkdv_f32_tiled_kernel", "", 512),
+                 ("flash_bwd_dq_f32_tiled_kernel", "", 512)),
 }
 TF_C6_NOT = {"f16": _MMA_BWD} | {name: ("flash_attention_bf16_kernel", *_MMA_BWD)
                                  for name in ("d128", "d48", "d64", "f16_d64", "f16_d128",
                                               "d256", "d192", "f16_d256")} | {
     name: ("flash_attention_bf16_kernel", "flash_attention_wgmma_kernel",
            "flash_bwd_wgmma_kernel", *_MMA_BWD)
-    for name in ("d512", "d384", "d320", "f16_d512")}
+    for name in ("d512", "d384", "d320", "f16_d512")} | {
+    # the float32 kernels these replaced (the D = 256 instantiation of the
+    # one-row forward, the column-chunk backward pair past 256)
+    "d256_f32": ("flash_attention_f32_kernel",),
+    "d512_f32": ("flash_bwd_dkdv_f32_wide_kernel", "flash_bwd_dq_f32_wide_kernel")}
 
 
 def _kernel_name(key: str) -> str | None:

@@ -59,13 +59,17 @@
 //   over chunks of DC = 256 columns (128 where D is not a multiple of 256),
 //   S reduced over the whole D in 64-column boxes streamed with each key
 //   tile, so any D runs in the D = 256 kernel's registers and shared memory.
-// * float32: one thread per query row on the CUDA cores (at D = 256 four
-//   threads a row, 64 columns each), float32 products, K/V tiles of 32 keys
-//   (16 at D = 256) in shared memory. Tensor cores would mean TF32 (about 3
-//   decimal digits), which the float32 contract (1e-5) does not allow. Not
-//   on the transformer's path. Past D = 256 the same column split as the
-//   wide kernel (flash_attention_f32_wide_kernel): eight threads a row,
-//   chunks of 128 columns.
+// * float32: float32 FMAs on the CUDA cores, which bound it (4 D
+//   operations a live pair at 67 TFLOP/s). Tensor cores would mean TF32
+//   (about 3 decimal digits), which the float32 contract (1e-5) does not
+//   allow. Not on the transformer's path. Up to D = 128 one thread per
+//   query row, K/V tiles of 32 keys in shared memory. At D = 256 the
+//   register-tiled kernel (flash_attention_f32_tiled_kernel, the note
+//   there): 64 rows a block, a lane's 4 x 4 of S and 8 x 8 of O fed by
+//   broadcast float4 reads, K and V through a 4-slot cp.async ring. Past
+//   D = 256 the same column split as the wide kernel
+//   (flash_attention_f32_wide_kernel): eight threads a row, chunks of 128
+//   columns.
 //
 // q, k and v are read in place through base pointers and (batch, row, head)
 // strides with unit stride on D, so the three strided views of one fused
@@ -110,20 +114,13 @@ namespace {
 
 constexpr int kF32BlockQ = 128;  // threads a block
 
-// The float32 kernel's tiling at head dim D: up to D = 128 one thread a
-// query row (q and the accumulator in its registers) and K/V tiles of 32
-// keys; past 128 a row's D columns are split among kSplit adjacent threads
-// (its float4 chunks part, part + kSplit, ..., so the threads of a row read
-// neighbouring 16 bytes of a shared K or V row), each dot product summed
-// across them by warp shuffles, and K/V tiles of 16 keys, which keeps q and
-// the accumulator at 64 registers each and the static tiles at 32 KB
+// The float32 kernel's tiling at head dim D <= 128: one thread a query
+// row (q and the accumulator in its registers), K/V tiles of 32 keys
 template <int D>
 struct F32Tile {
-  static constexpr int kSplit = D > 128 ? 4 : 1;      // threads a query row
-  static constexpr int kCols = D / kSplit;            // columns a thread
-  static constexpr int kRows = kF32BlockQ / kSplit;   // query rows a block
-  static constexpr int kKeys = D > 128 ? 16 : 32;     // keys a shared tile
-  static_assert(kCols % 4 == 0, "a thread's columns are float4 chunks");
+  static constexpr int kRows = kF32BlockQ;  // query rows a block
+  static constexpr int kKeys = 32;          // keys a shared tile
+  static_assert(D <= 128, "D = 256 has a kernel of its own");
   static_assert(2 * kKeys * D * 4 <= 48 * 1024, "past 48 KB of static shared memory");
 };
 
@@ -137,7 +134,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            Strides qs, Strides ks, Strides vs,
                            float scale_log2e, int causal) {
   using Tile = F32Tile<D>;
-  constexpr int kSplit = Tile::kSplit, kCols = Tile::kCols, kKeys = Tile::kKeys;
+  constexpr int kKeys = Tile::kKeys;
   __shared__ __align__(16) float k_tile[kKeys][D];
   __shared__ __align__(16) float v_tile[kKeys][D];
 
@@ -145,24 +142,19 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   const int qt = num_q_tiles - 1 - blockIdx.x / num_bh;
   const int b = bh / h;
   const int hd = bh - b * h;
-  const int row = qt * Tile::kRows + threadIdx.x / kSplit;
-  const int part = threadIdx.x % kSplit;  // the thread's share of the row
+  const int row = qt * Tile::kRows + threadIdx.x;
   const bool live_row = row < s;
-  // the lanes of this row: they agree on every branch, and sum each dot
-  // product among themselves
-  const unsigned row_lanes = kSplit == 1 ? 0xffffffffu
-                                         : ((1u << kSplit) - 1) << ((threadIdx.x & 31) & ~(kSplit - 1));
 
   const float* kb = k + b * ks.b + hd * ks.h;
   const float* vb = v + b * vs.b + hd * vs.h;
 
-  float qr[kCols], acc[kCols];
+  float qr[D], acc[D];
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) qr[c] = acc[c] = 0.0f;
+  for (int c = 0; c < D; ++c) qr[c] = acc[c] = 0.0f;
   if (live_row) {
     const float* qp = q + b * qs.b + static_cast<int64_t>(row) * qs.s + hd * qs.h;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) qr[c] = qp[4 * ((c / 4) * kSplit + part) + c % 4] * scale_log2e;
+    for (int c = 0; c < D; ++c) qr[c] = qp[c] * scale_log2e;
   }
   float m = kNegInf, l = 0.0f;
 
@@ -194,15 +186,13 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       const float4* kr = reinterpret_cast<const float4*>(k_tile[j]);
       float dot = 0.0f;
 #pragma unroll
-      for (int c = 0; c < kCols / 4; ++c) {
-        const float4 kk = kr[c * kSplit + part];
+      for (int c = 0; c < D / 4; ++c) {
+        const float4 kk = kr[c];
         dot = fmaf(qr[4 * c], kk.x, dot);
         dot = fmaf(qr[4 * c + 1], kk.y, dot);
         dot = fmaf(qr[4 * c + 2], kk.z, dot);
         dot = fmaf(qr[4 * c + 3], kk.w, dot);
       }
-#pragma unroll
-      for (int o = 1; o < kSplit; o <<= 1) dot += __shfl_xor_sync(row_lanes, dot, o);
       p[j] = j < n ? dot : kNegInf;
       tile_max = fmaxf(tile_max, p[j]);
     }
@@ -210,15 +200,15 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     const float alpha = exp2f(m - m_new);
     l *= alpha;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[c] *= alpha;
+    for (int c = 0; c < D; ++c) acc[c] *= alpha;
 #pragma unroll
     for (int j = 0; j < kKeys; ++j) {
       const float pj = j < n ? exp2f(p[j] - m_new) : 0.0f;
       l += pj;
       const float4* vr = reinterpret_cast<const float4*>(v_tile[j]);
 #pragma unroll
-      for (int c = 0; c < kCols / 4; ++c) {
-        const float4 vv = vr[c * kSplit + part];
+      for (int c = 0; c < D / 4; ++c) {
+        const float4 vv = vr[c];
         acc[4 * c] = fmaf(pj, vv.x, acc[4 * c]);
         acc[4 * c + 1] = fmaf(pj, vv.y, acc[4 * c + 1]);
         acc[4 * c + 2] = fmaf(pj, vv.z, acc[4 * c + 2]);
@@ -230,18 +220,294 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 
   if (!live_row) return;
   // m and the scores are in log2 units (q carries scale * log2(e))
-  if (lse != nullptr && part == 0)
+  if (lse != nullptr)
     lse[static_cast<int64_t>(bh) * s + row] =
         l == 0.0f ? INFINITY : (m + log2f(l)) * kLn2;
   const float denom = l == 0.0f ? 1.0f : l;  // acc is 0 too when l == 0
   float* op = out + ((static_cast<int64_t>(b) * s + row) * h + hd) * D;
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) op[4 * ((c / 4) * kSplit + part) + c % 4] = acc[c] / denom;
+  for (int c = 0; c < D; ++c) op[c] = acc[c] / denom;
+}
+
+// float32 at D = 256 (and 129-255 padded), register-tiled on the CUDA
+// cores. Bound by its float32 FMAs (4 D operations a live pair at 67
+// TFLOP/s; the old one-row-per-4-threads kernel ran at 5 % of that, each
+// score one 64-long FMA chain plus shuffles, every shared float4 feeding
+// 4 FMAs). A block of 4 warps owns 32 query rows, 8 a warp, and walks key
+// tiles of 64 keys; Q stays in shared memory for the whole walk
+// (unscaled: each score is multiplied by scale log2(e) once, any sign or
+// zero, before its max). Each key tile comes through a ring of 4 slots of
+// dynamic shared memory filled by cp.async: K in pieces of 64 columns,
+// then V in pieces of 16 keys, so the next pieces' copies run under this
+// piece's math and one __syncthreads a piece hands a slot on. A lane
+// holds a 4 x 4 block of S (4 of its warp's rows, keys kg, kg + 16, ...),
+// summed by 64-column pieces in column order from float4 reads that each
+// feed 4 FMA chains; a row's max and sum are reduced over the 16 lanes
+// that share it; P goes through the warp's own shared tile [64 keys][8
+// rows] (a broadcast read) into O += P V, where a lane holds 8 rows x 8
+// columns of O (4 lane + c and 128 + 4 lane + c). 108.5 KB of shared
+// memory and up to 255 registers: two blocks an SM, whose work the block
+// order below shares out under a causal mask.
+namespace f32t {
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 8 * kWarps;  // query rows a block, 8 a warp
+constexpr int kKeys = 64;      // keys a tile
+constexpr int kD = 256;
+constexpr int kPiece = 64;     // columns of a K piece
+constexpr int kVKeys = 16;     // keys of a V piece
+constexpr int kQPitch = kD + 4;       // padded rows: the lanes' rows fall in other banks
+constexpr int kKPitch = kPiece + 4;
+constexpr int kKPieces = kD / kPiece, kVPieces = kKeys / kVKeys;
+constexpr int kPieces = kKPieces + kVPieces;  // ring pieces a key tile
+constexpr int kStages = 4;
+constexpr int kSlot = kKeys * kKPitch > kVKeys * kD ? kKeys * kKPitch : kVKeys * kD;
+constexpr int kQFloats = kRows * kQPitch;
+constexpr int kPFloats = kKeys * 8;   // a warp's P tile
+constexpr int kBytes = 4 * (kQFloats + kStages * kSlot + kWarps * kPFloats);
+static_assert(kBytes <= 227 * 1024, "past the shared memory a block may take");
+}  // namespace f32t
+
+__global__ void __launch_bounds__(f32t::kThreads, 8 / f32t::kWarps)
+flash_attention_f32_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, float* __restrict__ out,
+                                 float* __restrict__ lse, int s, int h, int num_q_tiles,
+                                 int num_bh, Strides qs, Strides ks, Strides vs,
+                                 float scale_log2e, int causal, int aligned, int first_wave) {
+  using namespace f32t;
+  extern __shared__ float4 smem4[];
+  float* const q_s = reinterpret_cast<float*>(smem4);
+  float* const ring = q_s + kQFloats;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* const p_s = ring + kStages * kSlot + warp * kPFloats;
+
+  // the work list runs from the most causal work down; when the whole grid
+  // is resident at once (two blocks an SM), the blocks past the first wave
+  // take it from the light end, so an SM's two blocks share out the work
+  const int x = blockIdx.x < first_wave ? blockIdx.x : gridDim.x - 1 + first_wave - blockIdx.x;
+  const int bh = x % num_bh;
+  const int qt = num_q_tiles - 1 - x / num_bh;
+  const int b = bh / h;
+  const int hd = bh - b * h;
+  const int q0 = qt * kRows;
+  const float* kb = k + b * ks.b + hd * ks.h;
+  const float* vb = v + b * vs.b + hd * vs.h;
+  // keys past the block's last row are masked for every row of it
+  const int kv_end = causal ? min(s, q0 + kRows) : s;
+  const int n_pieces = (kv_end + kKeys - 1) / kKeys * kPieces;
+
+  // piece g of the walk into its slot: K's columns or V's keys of tile g / kPieces
+  auto issue = [&](int g) {
+    float* slot = ring + (g % kStages) * kSlot;
+    const int k0 = g / kPieces * kKeys, p = g % kPieces;
+    if (p < kKPieces)
+      f32_copy_rows<kThreads, kKeys, kPiece>(slot, kKPitch, kb, ks.s, k0, kv_end, p * kPiece,
+                                             aligned);
+    else
+      f32_copy_rows<kThreads, kVKeys, kD>(slot, kD, vb, vs.s, k0 + (p - kKPieces) * kVKeys,
+                                          kv_end, 0, aligned);
+  };
+  f32_copy_rows<kThreads, kRows, kD>(q_s, kQPitch, q + b * qs.b + hd * qs.h, qs.s, q0, s, 0,
+                                     aligned);
+#pragma unroll
+  for (int g = 0; g < kStages - 1; ++g) {
+    if (g < n_pieces) issue(g);
+    cp_async_commit();
+  }
+
+  // S: rows 8 warp + 4 rg + i, keys kg + 16 j of the tile
+  const int rg = lane / 16, kg = lane % 16;
+  const float* q_rows = q_s + (8 * warp + 4 * rg) * kQPitch;
+  float sc[4][4], m[4], l[4];
+  float o[8][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = kNegInf, l[i] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) o[r][c] = 0.0f;
+
+  for (int g = 0; g < n_pieces; ++g) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // piece g is in; every thread is done with piece g - 1's slot
+    if (g + kStages - 1 < n_pieces) issue(g + kStages - 1);
+    cp_async_commit();
+    const float* slot = ring + (g % kStages) * kSlot;
+    const int k0 = g / kPieces * kKeys, p = g % kPieces;
+    if (p < kKPieces) {
+      if (p == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
+      }
+      f32_dots_4x4<kPiece>(sc, q_rows + p * kPiece, kQPitch, slot + kg * kKPitch,
+                           16 * kKPitch);
+      if (p == kKPieces - 1) {
+        // the online softmax of the tile, in log2 units
+        float alpha[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = q0 + 8 * warp + 4 * rg + i;
+          bool live[4];
+          float mx = kNegInf;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int key = k0 + kg + 16 * j;
+            live[j] = key < kv_end && (!causal || key <= row);
+            sc[i][j] *= scale_log2e;
+            if (live[j]) mx = fmaxf(mx, sc[i][j]);
+          }
+#pragma unroll
+          for (int x = 1; x < 16; x <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+          const float m_new = fmaxf(m[i], mx);
+          alpha[i] = exp2f(m[i] - m_new);
+          float sum = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            sc[i][j] = live[j] ? exp2f(sc[i][j] - m_new) : 0.0f;  // masked: p = 0
+            sum += sc[i][j];
+          }
+          l[i] = l[i] * alpha[i] + sum;
+          m[i] = m_new;
+        }
+        // P to the warp's tile (read back after the next piece's barrier)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<float4*>(p_s + (kg + 16 * j) * 8 + 4 * rg) =
+              make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {  // row r's alpha is lane 16 (r / 4)'s
+          const float a = __shfl_sync(0xffffffffu, alpha[r % 4], (r / 4) * 16);
+#pragma unroll
+          for (int c = 0; c < 8; ++c) o[r][c] *= a;
+        }
+      }
+    } else {
+      // O += P V over the piece's 16 keys, in key order
+      const float* pk = p_s + (p - kKPieces) * kVKeys * 8;
+#pragma unroll 4
+      for (int j = 0; j < kVKeys; ++j) {
+        const float4 v0 = *reinterpret_cast<const float4*>(slot + j * kD + 4 * lane);
+        const float4 v1 = *reinterpret_cast<const float4*>(slot + j * kD + 128 + 4 * lane);
+        const float4 p0 = *reinterpret_cast<const float4*>(pk + j * 8);
+        const float4 p1 = *reinterpret_cast<const float4*>(pk + j * 8 + 4);
+        const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          o[r][0] = fmaf(pr[r], v0.x, o[r][0]);
+          o[r][1] = fmaf(pr[r], v0.y, o[r][1]);
+          o[r][2] = fmaf(pr[r], v0.z, o[r][2]);
+          o[r][3] = fmaf(pr[r], v0.w, o[r][3]);
+          o[r][4] = fmaf(pr[r], v1.x, o[r][4]);
+          o[r][5] = fmaf(pr[r], v1.y, o[r][5]);
+          o[r][6] = fmaf(pr[r], v1.z, o[r][6]);
+          o[r][7] = fmaf(pr[r], v1.w, o[r][7]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // each row's sum over its 16 lanes; out = O / l, lse from (m, l)
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int x = 1; x < 16; x <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], x);
+  if (lse != nullptr && kg == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 8 * warp + 4 * rg + i;
+      if (row < s)
+        lse[static_cast<int64_t>(bh) * s + row] =
+            l[i] == 0.0f ? INFINITY : (m[i] + log2f(l[i])) * kLn2;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float lr = __shfl_sync(0xffffffffu, l[r % 4], (r / 4) * 16);
+    const int row = q0 + 8 * warp + r;
+    if (row >= s) continue;
+    const float inv = 1.0f / (lr == 0.0f ? 1.0f : lr);  // o is 0 too when l == 0
+    float* op = out + ((static_cast<int64_t>(b) * s + row) * h + hd) * kD + 4 * lane;
+    *reinterpret_cast<float4*>(op) =
+        make_float4(o[r][0] * inv, o[r][1] * inv, o[r][2] * inv, o[r][3] * inv);
+    *reinterpret_cast<float4*>(op + 128) =
+        make_float4(o[r][4] * inv, o[r][5] * inv, o[r][6] * inv, o[r][7] * inv);
+  }
+}
+
+// float32 past D = 256 (flash_attention_f32_wide_kernel): a row is split
+// among kF32WideSplit adjacent threads and the output's columns into
+// chunks of kF32Chunk (a grid axis); a dot over the whole D is summed in
+// pieces of kF32Chunk columns, each thread's share first, across the
+// row's threads once all pieces are in.
+constexpr int kF32WideThreads = 128;                  // threads a block
+constexpr int kF32Chunk = 128;                        // columns a chunk and a piece
+constexpr int kF32WideSplit = 8;                      // threads a row
+constexpr int kF32WideCols = kF32Chunk / kF32WideSplit;  // columns a thread
+constexpr int kF32WideRows = kF32WideThreads / kF32WideSplit;  // rows a block or tile
+
+// column c of a thread's kF32WideCols: its float4 chunk c / 4 is the
+// piece's chunk (c / 4) 8 + part, so a row's threads read neighbouring 16
+// bytes of a shared row
+__device__ __forceinline__ int f32_wide_col(int c, int part) {
+  return 4 * ((c / 4) * kF32WideSplit + part) + c % 4;
+}
+
+// the thread's kF32WideCols columns of one row's piece from global memory,
+// times mul (zeros for a row past S)
+__device__ __forceinline__ void f32_wide_row(const float* p, int part, bool live, float mul,
+                                             float (&r)[kF32WideCols]) {
+#pragma unroll
+  for (int c = 0; c < kF32WideCols; ++c) r[c] = live ? p[f32_wide_col(c, part)] * mul : 0.0f;
+}
+
+// the thread's share of a dot over one piece: x (its columns) . row
+// `tile`'s float4 chunks
+__device__ __forceinline__ float f32_wide_dot(const float (&x)[kF32WideCols], const float* tile,
+                                              int part, float acc) {
+  const float4* r = reinterpret_cast<const float4*>(tile);
+#pragma unroll
+  for (int c = 0; c < kF32WideCols / 4; ++c) {
+    const float4 y = r[c * kF32WideSplit + part];
+    acc = fmaf(x[4 * c], y.x, acc);
+    acc = fmaf(x[4 * c + 1], y.y, acc);
+    acc = fmaf(x[4 * c + 2], y.z, acc);
+    acc = fmaf(x[4 * c + 3], y.w, acc);
+  }
+  return acc;
+}
+
+// acc += w (the thread's columns of row `tile`)
+__device__ __forceinline__ void f32_wide_axpy(float w, const float* tile, int part,
+                                              float (&acc)[kF32WideCols]) {
+  const float4* r = reinterpret_cast<const float4*>(tile);
+#pragma unroll
+  for (int c = 0; c < kF32WideCols / 4; ++c) {
+    const float4 y = r[c * kF32WideSplit + part];
+    acc[4 * c] = fmaf(w, y.x, acc[4 * c]);
+    acc[4 * c + 1] = fmaf(w, y.y, acc[4 * c + 1]);
+    acc[4 * c + 2] = fmaf(w, y.z, acc[4 * c + 2]);
+    acc[4 * c + 3] = fmaf(w, y.w, acc[4 * c + 3]);
+  }
+}
+
+// rows [r0, r0 + n) (zeros past n) of a [.., d] matrix, the piece of
+// columns from col0, into the shared tile [kF32WideRows][kF32Chunk]
+__device__ __forceinline__ void f32_wide_load(float (*ta)[kF32Chunk], const float* a, int64_t as,
+                                              int r0, int n, int col0) {
+  __syncthreads();  // the previous tile is no longer read
+  for (int e = threadIdx.x; e < kF32WideRows * kF32Chunk; e += kF32WideThreads) {
+    const int r = e / kF32Chunk, c = e % kF32Chunk;
+    ta[r][c] = r < n ? a[(r0 + r) * as + col0 + c] : 0.0f;
+  }
+  __syncthreads();
 }
 
 // float32 at D > 256: a block owns kF32WideRows query rows and one chunk of
 // kF32Chunk columns of the output (a grid axis), eight adjacent threads a
-// row (flash_common.cuh has the tiling). Each tile of kF32WideRows keys:
+// row (the tiling above). Each tile of kF32WideRows keys:
 // the scores are reduced over the whole D in pieces of kF32Chunk columns
 // (K's piece through shared memory, the thread's q piece from global
 // memory), each dot summed across the row's threads once all pieces are
@@ -284,7 +550,7 @@ flash_attention_f32_wide_kernel(const float* __restrict__ q, const float* __rest
 #pragma unroll
     for (int j = 0; j < kF32WideRows; ++j) sc[j] = 0.0f;
     for (int pc = 0; pc < n_pieces; ++pc) {
-      f32_wide_load(tile, nullptr, kb, ks.s, nullptr, 0, k0, n_tile, pc * kF32Chunk);
+      f32_wide_load(tile, kb, ks.s, k0, n_tile, pc * kF32Chunk);
       float qr[kF32WideCols];
       f32_wide_row(qp + pc * kF32Chunk, part, live_row, scale_log2e, qr);
 #pragma unroll
@@ -294,7 +560,7 @@ flash_attention_f32_wide_kernel(const float* __restrict__ q, const float* __rest
     for (int j = 0; j < kF32WideRows; ++j)
 #pragma unroll
       for (int o = 1; o < kF32WideSplit; o <<= 1) sc[j] += __shfl_xor_sync(row_lanes, sc[j], o);
-    f32_wide_load(tile, nullptr, vb, vs.s, nullptr, 0, k0, n_tile, chunk * kF32Chunk);
+    f32_wide_load(tile, vb, vs.s, k0, n_tile, chunk * kF32Chunk);
     const int n = causal ? min(n_tile, row + 1 - k0) : n_tile;  // live keys
     if (!live_row || n <= 0) continue;
     float tile_max = kNegInf;
@@ -1350,6 +1616,31 @@ cudaError_t launch_wide_d(const void* q, const void* k, const void* v, void* out
 
 // ------------------------------------------------------------------ launch
 
+// float32 at D = 256: the register-tiled CUDA-core kernel
+cudaError_t launch_f32_tiled(const void* q, const void* k, const void* v, void* out, float* lse,
+                             int s, int h, int num_bh, Strides qs, Strides ks, Strides vs,
+                             float scale_log2e, int causal, cudaStream_t stream) {
+  const int64_t num_q_tiles = (static_cast<int64_t>(s) + f32t::kRows - 1) / f32t::kRows;
+  if (num_q_tiles * num_bh > INT32_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_f32_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f32t::kBytes);
+  if (err != cudaSuccess) return err;
+  const bool aligned = rows_aligned16({{q, qs}, {k, ks}, {v, vs}});
+  int dev = 0, n_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return cudaGetLastError();
+  const int64_t grid = num_q_tiles * num_bh;
+  const int first_wave = grid <= 2 * n_sm ? n_sm : static_cast<int>(grid);
+  flash_attention_f32_tiled_kernel<<<static_cast<unsigned>(grid), f32t::kThreads, f32t::kBytes,
+                                     stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), lse, s, h, static_cast<int>(num_q_tiles), num_bh, qs, ks, vs,
+      scale_log2e, causal, aligned ? 1 : 0, first_wave);
+  return cudaGetLastError();
+}
+
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int b, int s, int h, int num_bh, Strides qs, Strides ks,
@@ -1371,6 +1662,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
         static_cast<T*>(out), lse, s, h, static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, c,
         q_sign, causal);
     return cudaGetLastError();
+  } else if constexpr (D == 256) {
+    return launch_f32_tiled(q, k, v, out, lse, s, h, num_bh, qs, ks, vs, scale_log2e, causal,
+                            stream);
   } else {
     const int64_t num_q_tiles =
         (static_cast<int64_t>(s) + F32Tile<D>::kRows - 1) / F32Tile<D>::kRows;

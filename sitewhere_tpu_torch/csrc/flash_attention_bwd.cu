@@ -107,14 +107,22 @@
 //     error stays at one float16 step of its largest element (the CPU
 //     emulation in tests/test_torch_attention.py).
 // * float32: CUDA cores, float32 products (tensor cores would mean TF32,
-//   about 3 decimal digits), two kernels after the prep pass: one thread
-//   per key (dK/dV) or per query (dQ) with its own row and accumulators in
-//   registers, the other side's tiles of 32 rows in shared memory (at
-//   D = 256 eight threads a row, 32 columns each, and tiles of 16 rows:
-//   F32BwdTile). At D = 64 the dK/dV thread holds 4 x 64 floats and
-//   spills, at D = 128 far more; it is not on the transformer's path. Past
-//   D = 256 the same pair split by chunks of 128 columns (eight threads a
-//   row, S and dP reduced over the whole D in pieces; *_f32_wide_kernel).
+//   about 3 decimal digits), two kernels after the prep pass (dK/dV, then
+//   dQ: FA2's split, each gradient element summed by one thread; not on
+//   the transformer's path). Up to D = 256 one thread per key (dK/dV) or
+//   per query (dQ) with its own row and accumulators in registers, the
+//   other side's tiles of 32 rows in shared memory (at D = 256 eight
+//   threads a row, 32 columns each, and tiles of 16 rows: F32BwdTile). At
+//   D = 64 the dK/dV thread holds 4 x 64 floats and spills, at D = 128 far
+//   more. Past D = 256 the register-tiled pair
+//   (flash_bwd_{dkdv,dq}_f32_tiled_kernel, the note there), bound by the
+//   CUDA cores' FMAs: a lane holds 4 x 4 of S or dP and up to 128
+//   gradient floats, fed by broadcast float4 reads; the tiles come through a 3-slot
+//   cp.async ring, and the gradients are split into column chunks of C =
+//   512, 384, 256 or 128 (the widest that divides D), each recomputing S
+//   and dP in both kernels: 4 n + 3 D-long products a live pair for n =
+//   D / C (7 at D = 384 and 512, 11 at 768 and 1024), against the
+//   one-pass 5.
 //
 // q, k and v are read in place through (batch, row, head) strides with unit
 // stride on D (the strided views of one fused qkv product); o and dO are
@@ -665,178 +673,349 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   for (int c = 0; c < kCols; ++c) out[Tile::col(c, part)] = dqr[c] * scale;
 }
 
-// float32 at D > 256: the same two kernels split by columns as the wide
-// wgmma kernel is. A block owns kF32WideRows keys (dK/dV) or queries (dQ)
-// and one chunk of kF32Chunk columns of its gradients (a grid axis), eight
-// adjacent threads a row with 16 columns each (float4 chunks part, part +
-// 8, ...). Each tile of kF32WideRows rows of the other side: S and dP are
-// reduced over the whole D in pieces of kF32Chunk columns (the other
-// side's piece through shared memory, the thread's own row's piece from
-// global memory), each dot summed across the row's threads once all
-// pieces are in; then the chunk's columns of the other side come through
-// shared memory for the gradient's sums (flash_common.cuh has the
-// tiling). Registers stay at 16 a row's vector at any D; S and dP are
-// computed once a chunk
-__global__ void __launch_bounds__(kF32WideThreads)
-flash_bwd_dkdv_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                               const float* __restrict__ v, const float* __restrict__ dout,
-                               const float* __restrict__ lse2, const float* __restrict__ delta,
-                               float* __restrict__ dk, float* __restrict__ dv, int s, int h,
-                               int d, int num_bh, int n_chunks, Strides qs, Strides ks,
-                               Strides vs, float scale_log2e, float scale, int causal) {
-  __shared__ __align__(16) float q_tile[kF32WideRows][kF32Chunk];
-  __shared__ __align__(16) float do_tile[kF32WideRows][kF32Chunk];
-  __shared__ float lse_tile[kF32WideRows], delta_tile[kF32WideRows];
+// float32 past D = 256 (any multiple of 128): FA2's pair on the CUDA
+// cores, register-tiled, with a cp.async ring. Bound by the float32 FMAs
+// (5 D-long products a live pair in one pass, at 67 TFLOP/s). A block of
+// 256 threads owns 32 rows of one side (dK/dV: 32 keys; dQ: 32 queries)
+// and one chunk of C columns of its gradients (a grid axis: 512, 384, 256
+// or 128, the widest that divides D, so that a lane's share of dK and dV
+// is 128 floats at most), and walks tiles of 64 rows of the other side.
+// Each tile is a run of ring pieces:
+//   * D / 64 S-pieces: 64 columns of the block's rows and of the tile's
+//     rows of the two products' operands (K, V and Q, dO for dK/dV; Q, dO
+//     and K, V for dQ). Warps 0-3 sum X = S^T (or S), warps 4-7 Y = dP^T
+//     (or dP), by 64-column pieces in column order: a lane holds 4 x 4 of
+//     them, each float4 read feeding 4 FMA chains. After the last one,
+//     P = exp2(S scale log2(e) - lse2) (masked 0) and dP - delta go to two
+//     shared tiles [64 other rows][32 own rows], and dS = P (dP - delta)
+//     is taken in place.
+//   * the chunk's columns of the other side: dK/dV a piece of 8 to 32
+//     query rows of Q and dO (dV_c += P^T dO_c, dK_c += dS^T Q_c), dQ of
+//     16 to 64 keys of K (dQ_c += dS K_c). A warp holds 4 of the block's
+//     rows of each gradient, a lane their columns 4 (lane + 32 m), m <
+//     C / 128: the rows' P and dS are one broadcast float4 a row of the
+//     other side, and each float4 of it feeds 4 FMA chains.
+// S and dP are computed once a chunk in each kernel: 4 D / C + 3 D-long
+// products a live pair (7 at D = 384 and 512, 11 at 768 and 1024),
+// against the one-pass 5. The block's own rows come again with each
+// tile's S-pieces (from L2): resident they would take 256 D bytes, 128 KB
+// at D = 512, beside the ring. A ring of 3 slots, one __syncthreads a piece;
+// each gradient element is summed by one thread in a fixed order (no
+// atomics), so two calls give the same bits. 171 KB of shared memory and
+// up to 254 registers: one block an SM.
+namespace f32b {
+constexpr int kThreads = 256;
+constexpr int kOwn = 32;               // the block's rows
+constexpr int kOth = 64;               // the other side's rows a tile
+constexpr int kPiece = 64;             // columns of an S-piece
+constexpr int kPitch = kPiece + 4;     // padded rows: the lanes' rows fall in other banks
+constexpr int kStages = 3;
+constexpr int kSlot = (kOwn + kOth) * 2 * kPitch;  // floats a slot: an S-piece's four tiles
+constexpr int kTP = kOwn + 4;                      // pitch of the P and dS tiles
+constexpr int kTile = kOth * kTP;                  // floats of P (or dS)
+constexpr int kBytes = 4 * (kStages * kSlot + 2 * kTile);
+static_assert(kBytes <= 227 * 1024, "past the shared memory a block may take");
+}  // namespace f32b
+
+// what the two kernels share: an S-piece's four tiles in a slot, the
+// lanes' rows, the products and the softmax's gradient; own row o and
+// other row t of X and Y (S-like and dP-like) are a key and a query in the
+// order of kOwnIsKey
+struct F32Bwd {
+  static constexpr int kOwn = f32b::kOwn, kOth = f32b::kOth, kTP = f32b::kTP;
+  static constexpr int kOthG = kOth / 4;  // lanes along the other side
+  static_assert((kOwn / 16) * kOthG == 32, "4 x 4 a lane over 4 warps");
+  float* own_a;  // the slot's four S-piece tiles
+  float* own_b;
+  float* oth_a;
+  float* oth_b;
+
+  // the S-piece tiles of a slot
+  __device__ __forceinline__ explicit F32Bwd(float* slot)
+      : own_a(slot),
+        own_b(slot + kOwn * f32b::kPitch),
+        oth_a(slot + 2 * kOwn * f32b::kPitch),
+        oth_b(slot + (2 * kOwn + kOth) * f32b::kPitch) {}
+
+  // the four tiles' columns [col, col + kPiece) of rows own0.. and oth0..
+  __device__ __forceinline__ void load(const float* oa, const float* ob, int64_t osa_s,
+                                       int64_t osb_s, int own0, const float* ta,
+                                       const float* tb, int64_t tsa_s, int64_t tsb_s,
+                                       int oth0, int s, int col, bool aligned) const {
+    using namespace f32b;
+    f32_copy_rows<kThreads, kOwn, kPiece>(own_a, kPitch, oa, osa_s, own0, s, col, aligned);
+    f32_copy_rows<kThreads, kOwn, kPiece>(own_b, kPitch, ob, osb_s, own0, s, col, aligned);
+    f32_copy_rows<kThreads, kOth, kPiece>(oth_a, kPitch, ta, tsa_s, oth0, s, col, aligned);
+    f32_copy_rows<kThreads, kOth, kPiece>(oth_b, kPitch, tb, tsb_s, oth0, s, col, aligned);
+  }
+
+  // the lane's own rows (first of 4) and other rows (first of 4, kOthG apart)
+  static __device__ __forceinline__ int own_row(int warp, int lane) {
+    return (kOwn / 4) * (warp % 4) + 4 * (lane / kOthG);
+  }
+  static __device__ __forceinline__ int oth_row(int lane) { return lane % kOthG; }
+
+  // acc += this piece's products: warps 0-3 X (the a tiles), 4-7 Y (b)
+  __device__ __forceinline__ void dots(float (&acc)[4][4], int warp, int lane) const {
+    using namespace f32b;
+    const float* a = (warp < 4 ? own_a : own_b) + own_row(warp, lane) * kPitch;
+    const float* b = (warp < 4 ? oth_a : oth_b) + oth_row(lane) * kPitch;
+    f32_dots_4x4<kPiece>(acc, a, kPitch, b, kOthG * kPitch);
+  }
+
+  // the tile's P (warps 0-3, from X and lse2) and dP - delta (4-7, from Y
+  // and delta) into p_s and ds_s [kOth][kTP], then dS = P (dP - delta) in
+  // ds_s; keys[i][j] / queries: the element's key and query, stat[.]: the
+  // query's lse2 (warps 0-3) or delta (4-7)
+  template <bool kOwnIsKey>
+  static __device__ __forceinline__ void softmax_grad(const float (&acc)[4][4],
+                                                      const float (&stat)[4], float* p_s,
+                                                      float* ds_s, int own0, int oth0,
+                                                      int warp, int lane, int s, int causal,
+                                                      float scale_log2e) {
+    const int o = own_row(warp, lane), t = oth_row(lane);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float x[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = kOwnIsKey ? own0 + o + i : oth0 + t + kOthG * j;
+        const int query = kOwnIsKey ? oth0 + t + kOthG * j : own0 + o + i;
+        const float st = stat[kOwnIsKey ? j : i];
+        if (warp < 4) {
+          const bool live = key < s && query < s && (!causal || key <= query);
+          x[i] = live ? exp2f(fmaf(acc[i][j], scale_log2e, -st)) : 0.0f;  // masked: P = 0
+        } else {
+          x[i] = acc[i][j] - st;
+        }
+      }
+      *reinterpret_cast<float4*>((warp < 4 ? p_s : ds_s) + (t + kOthG * j) * kTP + o) =
+          make_float4(x[0], x[1], x[2], x[3]);
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < kOth * kTP; e += f32b::kThreads) ds_s[e] *= p_s[e];
+  }
+};
+
+// dK and dV: a block owns 32 keys and a chunk of C columns; tiles of 64
+// queries from the block's first key (causal) or 0
+template <int C>
+__global__ void __launch_bounds__(f32b::kThreads, 1)
+flash_bwd_dkdv_f32_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ dout,
+                                const float* __restrict__ lse2, const float* __restrict__ delta,
+                                float* __restrict__ dk, float* __restrict__ dv, int s, int h,
+                                int d, int num_bh, int n_chunks, Strides qs, Strides ks,
+                                Strides vs, float scale_log2e, float scale, int causal,
+                                int aligned) {
+  using namespace f32b;
+  using B = F32Bwd;
+  constexpr int kCRows = 4096 / (C == 384 ? 512 : C);  // query rows a chunk piece
+  constexpr int kG = C / 128;  // a lane's float4 columns of the chunk: 4 (lane + 32 m)
+  extern __shared__ float4 smem4[];
+  float* const ring = reinterpret_cast<float*>(smem4);
+  float* const p_s = ring + kStages * kSlot;
+  float* const ds_s = p_s + kTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   const int chunk = blockIdx.x % n_chunks;
   const int rest = blockIdx.x / n_chunks;
   const int bh = rest % num_bh;
-  const int kt = rest / num_bh;  // the first key tiles have most work
+  const int key0 = rest / num_bh * 32;  // the first key blocks have most work
   const int b = bh / h;
   const int hd = bh - b * h;
-  const int key0 = kt * kF32WideRows;
-  const int key = key0 + threadIdx.x / kF32WideSplit;
-  const int part = threadIdx.x % kF32WideSplit;
-  const unsigned lanes = 0xffu << ((threadIdx.x & 31) & ~(kF32WideSplit - 1));
-  const bool live_key = key < s;
-  const int n_pieces = d / kF32Chunk;
-
-  const float* kp = k + b * ks.b + static_cast<int64_t>(live_key ? key : 0) * ks.s + hd * ks.h;
-  const float* vp = v + b * vs.b + static_cast<int64_t>(live_key ? key : 0) * vs.s + hd * vs.h;
   const float* qb = q + b * qs.b + hd * qs.h;
-  const float* db = dout + (static_cast<int64_t>(b) * s * h + hd) * d;
+  const float* kb = k + b * ks.b + hd * ks.h;
+  const float* vb = v + b * vs.b + hd * vs.h;
+  const int64_t do_rs = static_cast<int64_t>(h) * d;  // dO's row stride
+  const float* db = dout + static_cast<int64_t>(b) * s * do_rs + static_cast<int64_t>(hd) * d;
   const float* lb = lse2 + static_cast<int64_t>(bh) * s;
   const float* eb = delta + static_cast<int64_t>(bh) * s;
 
-  float dkr[kF32WideCols], dvr[kF32WideCols];
-#pragma unroll
-  for (int c = 0; c < kF32WideCols; ++c) dkr[c] = dvr[c] = 0.0f;
-
   // queries before the block's first key see none of its keys
   const int q_begin = causal ? key0 : 0;
-  for (int q0 = q_begin; q0 < s; q0 += kF32WideRows) {
-    const int tile = min(kF32WideRows, s - q0);
-    float sc[kF32WideRows], dp[kF32WideRows];
-#pragma unroll
-    for (int i = 0; i < kF32WideRows; ++i) sc[i] = dp[i] = 0.0f;
-    for (int pc = 0; pc < n_pieces; ++pc) {
-      f32_wide_load(q_tile, do_tile, qb, qs.s, db, static_cast<int64_t>(h) * d, q0, tile,
-                    pc * kF32Chunk);
-      if (pc == 0 && threadIdx.x < kF32WideRows) {
-        const bool ok = static_cast<int>(threadIdx.x) < tile;
-        lse_tile[threadIdx.x] = ok ? lb[q0 + threadIdx.x] : 0.0f;
-        delta_tile[threadIdx.x] = ok ? eb[q0 + threadIdx.x] : 0.0f;
-      }
-      float kr[kF32WideCols], vr[kF32WideCols];
-      f32_wide_row(kp + pc * kF32Chunk, part, live_key, scale_log2e, kr);
-      f32_wide_row(vp + pc * kF32Chunk, part, live_key, 1.0f, vr);
-#pragma unroll
-      for (int i = 0; i < kF32WideRows; ++i) {
-        sc[i] = f32_wide_dot(kr, q_tile[i], part, sc[i]);
-        dp[i] = f32_wide_dot(vr, do_tile[i], part, dp[i]);
-      }
+  const int n_s = d / kPiece, n_pieces_tile = n_s + 64 / kCRows;
+  const int n_pieces = (s - q_begin + 63) / 64 * n_pieces_tile;
+  const int col0 = chunk * C;
+
+  auto issue = [&](int g) {
+    float* slot = ring + (g % kStages) * kSlot;
+    const int q0 = q_begin + g / n_pieces_tile * 64, p = g % n_pieces_tile;
+    if (p < n_s) {
+      B(slot).load(kb, vb, ks.s, vs.s, key0, qb, db, qs.s, do_rs, q0, s, p * kPiece, aligned);
+    } else {
+      const int r0 = q0 + (p - n_s) * kCRows;
+      f32_copy_rows<kThreads, kCRows, C>(slot, C, qb, qs.s, r0, s, col0, aligned);
+      f32_copy_rows<kThreads, kCRows, C>(slot + kCRows * C, C, db, do_rs, r0, s, col0, aligned);
     }
+  };
 #pragma unroll
-    for (int i = 0; i < kF32WideRows; ++i)
+  for (int g = 0; g < kStages - 1; ++g) {
+    if (g < n_pieces) issue(g);
+    cp_async_commit();
+  }
+
+  // a lane's share of dK and dV: the warp's 4 keys by its kG float4 columns
+  float acc[4][4], stat[4];
+  float dkr[4][kG][4] = {}, dvr[4][kG][4] = {};
+
+  for (int g = 0; g < n_pieces; ++g) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // piece g is in; every thread is done with piece g - 1's slot
+    if (g + kStages - 1 < n_pieces) issue(g + kStages - 1);
+    cp_async_commit();
+    float* slot = ring + (g % kStages) * kSlot;
+    const int q0 = q_begin + g / n_pieces_tile * 64, p = g % n_pieces_tile;
+    if (p < n_s) {
+      if (p == 0) {
 #pragma unroll
-      for (int o = 1; o < kF32WideSplit; o <<= 1) {
-        sc[i] += __shfl_xor_sync(lanes, sc[i], o);
-        dp[i] += __shfl_xor_sync(lanes, dp[i], o);
+        for (int j = 0; j < 4; ++j) {
+          const int query = q0 + B::oth_row(lane) + B::kOthG * j;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][j] = 0.0f;
+          // padded queries: lse2 = +inf gives P = 0
+          stat[j] = warp < 4 ? (query < s ? lb[query] : INFINITY) : (query < s ? eb[query] : 0.0f);
+        }
       }
-    // the chunk's columns of the tile's q and dO rows
-    f32_wide_load(q_tile, do_tile, qb, qs.s, db, static_cast<int64_t>(h) * d, q0, tile,
-                  chunk * kF32Chunk);
-    if (!live_key) continue;
-#pragma unroll
-    for (int i = 0; i < kF32WideRows; ++i) {
-      if (i >= tile || (causal && q0 + i < key)) continue;  // masked: P = 0
-      const float p = exp2f(sc[i] - lse_tile[i]);
-      const float ds = p * (dp[i] - delta_tile[i]);
-      f32_wide_axpy(p, do_tile[i], part, dvr);
-      f32_wide_axpy(ds, q_tile[i], part, dkr);
+      B(slot).dots(acc, warp, lane);
+      if (p == n_s - 1)
+        B::softmax_grad<true>(acc, stat, p_s, ds_s, key0, q0, warp, lane, s, causal,
+                              scale_log2e);
+    } else {
+      // dV_c += P^T dO_c, dK_c += dS^T Q_c over the piece's queries, in order
+      const int t0 = (p - n_s) * kCRows;
+      const float* dc = slot + kCRows * C;
+#pragma unroll 2
+      for (int i = 0; i < kCRows; ++i) {
+        f32_outer<kG>(dvr, p_s + (t0 + i) * kTP + 4 * warp, dc + i * C, lane);
+        f32_outer<kG>(dkr, ds_s + (t0 + i) * kTP + 4 * warp, slot + i * C, lane);
+      }
     }
   }
-  if (!live_key) return;
-  const int64_t off = ((static_cast<int64_t>(b) * s + key) * h + hd) * d + chunk * kF32Chunk;
+  cp_async_wait<0>();
+
 #pragma unroll
-  for (int c = 0; c < kF32WideCols; ++c) {
-    dk[off + f32_wide_col(c, part)] = dkr[c] * scale;
-    dv[off + f32_wide_col(c, part)] = dvr[c];
+  for (int r = 0; r < 4; ++r) {
+    const int key = key0 + 4 * warp + r;
+    if (key >= s) continue;
+    const int64_t row = ((static_cast<int64_t>(b) * s + key) * h + hd) * d + col0;
+#pragma unroll
+    for (int m = 0; m < kG; ++m) {
+      const float* x = dkr[r][m];
+      const float* y = dvr[r][m];
+      const int64_t off = row + 4 * (lane + 32 * m);
+      *reinterpret_cast<float4*>(dk + off) =
+          make_float4(x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
+      *reinterpret_cast<float4*>(dv + off) = make_float4(y[0], y[1], y[2], y[3]);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kF32WideThreads)
-flash_bwd_dq_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ dout,
-                             const float* __restrict__ lse2, const float* __restrict__ delta,
-                             float* __restrict__ dq, int s, int h, int d, int num_q_tiles,
-                             int num_bh, int n_chunks, Strides qs, Strides ks, Strides vs,
-                             float scale_log2e, float scale, int causal) {
-  __shared__ __align__(16) float k_tile[kF32WideRows][kF32Chunk];
-  __shared__ __align__(16) float v_tile[kF32WideRows][kF32Chunk];
+// dQ: a block owns 32 queries and a chunk of C columns; tiles of 64 keys
+// up to the block's last query (causal) or S
+template <int C>
+__global__ void __launch_bounds__(f32b::kThreads, 1)
+flash_bwd_dq_f32_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
+                              const float* __restrict__ lse2, const float* __restrict__ delta,
+                              float* __restrict__ dq, int s, int h, int d, int num_q_tiles,
+                              int num_bh, int n_chunks, Strides qs, Strides ks, Strides vs,
+                              float scale_log2e, float scale, int causal, int aligned) {
+  using namespace f32b;
+  using B = F32Bwd;
+  constexpr int kCKeys = 8192 / (C == 384 ? 512 : C);  // keys a chunk piece
+  constexpr int kG = C / 128;  // a lane's float4 columns of the chunk: 4 (lane + 32 m)
+  extern __shared__ float4 smem4[];
+  float* const ring = reinterpret_cast<float*>(smem4);
+  float* const p_s = ring + kStages * kSlot;
+  float* const ds_s = p_s + kTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   const int chunk = blockIdx.x % n_chunks;
   const int rest = blockIdx.x / n_chunks;
   const int bh = rest % num_bh;
-  const int qt = num_q_tiles - 1 - rest / num_bh;  // most work first
+  const int q0 = (num_q_tiles - 1 - rest / num_bh) * 32;  // most work first
   const int b = bh / h;
   const int hd = bh - b * h;
-  const int row = qt * kF32WideRows + threadIdx.x / kF32WideSplit;
-  const int part = threadIdx.x % kF32WideSplit;
-  const unsigned lanes = 0xffu << ((threadIdx.x & 31) & ~(kF32WideSplit - 1));
-  const bool live_row = row < s;
-  const int n_pieces = d / kF32Chunk;
-
-  const float* qp = q + b * qs.b + static_cast<int64_t>(live_row ? row : 0) * qs.s + hd * qs.h;
-  const float* dp_row = dout + ((static_cast<int64_t>(b) * s + (live_row ? row : 0)) * h + hd) * d;
+  const float* qb = q + b * qs.b + hd * qs.h;
   const float* kb = k + b * ks.b + hd * ks.h;
   const float* vb = v + b * vs.b + hd * vs.h;
-  const float l2 = live_row ? lse2[static_cast<int64_t>(bh) * s + row] : 0.0f;
-  const float dl = live_row ? delta[static_cast<int64_t>(bh) * s + row] : 0.0f;
+  const int64_t do_rs = static_cast<int64_t>(h) * d;  // dO's row stride
+  const float* db = dout + static_cast<int64_t>(b) * s * do_rs + static_cast<int64_t>(hd) * d;
 
-  float dqr[kF32WideCols];
-#pragma unroll
-  for (int c = 0; c < kF32WideCols; ++c) dqr[c] = 0.0f;
+  // keys past the block's last query are masked for every query of it
+  const int kv_end = causal ? min(s, q0 + 32) : s;
+  const int n_s = d / kPiece, n_pieces_tile = n_s + 64 / kCKeys;
+  const int n_pieces = (kv_end + 63) / 64 * n_pieces_tile;
+  const int col0 = chunk * C;
 
-  // keys past the block's last row are masked for every row of it
-  const int kv_end = causal ? min(s, (qt + 1) * kF32WideRows) : s;
-  for (int k0 = 0; k0 < kv_end; k0 += kF32WideRows) {
-    const int tile = min(kF32WideRows, kv_end - k0);
-    float sc[kF32WideRows], dp[kF32WideRows];
+  auto issue = [&](int g) {
+    float* slot = ring + (g % kStages) * kSlot;
+    const int k0 = g / n_pieces_tile * 64, p = g % n_pieces_tile;
+    if (p < n_s)
+      B(slot).load(qb, db, qs.s, do_rs, q0, kb, vb, ks.s, vs.s, k0, s, p * kPiece, aligned);
+    else
+      f32_copy_rows<kThreads, kCKeys, C>(slot, C, kb, ks.s, k0 + (p - n_s) * kCKeys, s, col0,
+                                         aligned);
+  };
 #pragma unroll
-    for (int j = 0; j < kF32WideRows; ++j) sc[j] = dp[j] = 0.0f;
-    for (int pc = 0; pc < n_pieces; ++pc) {
-      f32_wide_load(k_tile, v_tile, kb, ks.s, vb, vs.s, k0, tile, pc * kF32Chunk);
-      float qr[kF32WideCols], dr[kF32WideCols];
-      f32_wide_row(qp + pc * kF32Chunk, part, live_row, scale_log2e, qr);
-      f32_wide_row(dp_row + pc * kF32Chunk, part, live_row, 1.0f, dr);
+  for (int g = 0; g < kStages - 1; ++g) {
+    if (g < n_pieces) issue(g);
+    cp_async_commit();
+  }
+
+  // the lane's queries' lse2 (warps 0-3) or delta (4-7); padded queries:
+  // lse2 = +inf gives P = 0
+  float acc[4][4], stat[4];
 #pragma unroll
-      for (int j = 0; j < kF32WideRows; ++j) {
-        sc[j] = f32_wide_dot(qr, k_tile[j], part, sc[j]);
-        dp[j] = f32_wide_dot(dr, v_tile[j], part, dp[j]);
+  for (int i = 0; i < 4; ++i) {
+    const int query = q0 + B::own_row(warp, lane) + i;
+    const float* src = warp < 4 ? lse2 : delta;
+    stat[i] = query < s ? src[static_cast<int64_t>(bh) * s + query] : (warp < 4 ? INFINITY : 0.0f);
+  }
+  // a lane's share of dQ: the warp's 4 queries by its kG float4 columns
+  float dqr[4][kG][4] = {};
+
+  for (int g = 0; g < n_pieces; ++g) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // piece g is in; every thread is done with piece g - 1's slot
+    if (g + kStages - 1 < n_pieces) issue(g + kStages - 1);
+    cp_async_commit();
+    float* slot = ring + (g % kStages) * kSlot;
+    const int k0 = g / n_pieces_tile * 64, p = g % n_pieces_tile;
+    if (p < n_s) {
+      if (p == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
       }
-    }
-#pragma unroll
-    for (int j = 0; j < kF32WideRows; ++j)
-#pragma unroll
-      for (int o = 1; o < kF32WideSplit; o <<= 1) {
-        sc[j] += __shfl_xor_sync(lanes, sc[j], o);
-        dp[j] += __shfl_xor_sync(lanes, dp[j], o);
-      }
-    // the chunk's columns of the tile's keys
-    f32_wide_load(k_tile, nullptr, kb, ks.s, nullptr, 0, k0, tile, chunk * kF32Chunk);
-    if (!live_row) continue;
-    const int n = causal ? min(tile, row + 1 - k0) : tile;  // live keys
-#pragma unroll
-    for (int j = 0; j < kF32WideRows; ++j) {
-      if (j >= n) continue;
-      f32_wide_axpy(exp2f(sc[j] - l2) * (dp[j] - dl), k_tile[j], part, dqr);
+      B(slot).dots(acc, warp, lane);
+      if (p == n_s - 1)
+        B::softmax_grad<false>(acc, stat, p_s, ds_s, q0, k0, warp, lane, s, causal,
+                               scale_log2e);
+    } else {
+      // dQ_c += dS K_c over the piece's keys, in order
+      const int t0 = (p - n_s) * kCKeys;
+#pragma unroll 4
+      for (int j = 0; j < kCKeys; ++j)
+        f32_outer<kG>(dqr, ds_s + (t0 + j) * kTP + 4 * warp, slot + j * C, lane);
     }
   }
-  if (!live_row) return;
-  float* out = dq + ((static_cast<int64_t>(b) * s + row) * h + hd) * d + chunk * kF32Chunk;
+  cp_async_wait<0>();
+
 #pragma unroll
-  for (int c = 0; c < kF32WideCols; ++c) out[f32_wide_col(c, part)] = dqr[c] * scale;
+  for (int r = 0; r < 4; ++r) {
+    const int query = q0 + 4 * warp + r;
+    if (query >= s) continue;
+    const int64_t row = ((static_cast<int64_t>(b) * s + query) * h + hd) * d + col0;
+#pragma unroll
+    for (int m = 0; m < kG; ++m) {
+      const float* x = dqr[r][m];
+      *reinterpret_cast<float4*>(dq + row + 4 * (lane + 32 * m)) =
+          make_float4(x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
+    }
+  }
 }
 
 // ------------------------------------------------ bfloat16 and float16
@@ -2129,31 +2308,41 @@ cudaError_t launch_wide(const Args& a) {
 }
 
 // float32 past D = 256: the prep pass over the whole D, then the two
-// CUDA-core kernels split by chunks of 128 columns
-cudaError_t launch_f32_wide(const Args& a) {
+// register-tiled CUDA-core kernels by chunks of C columns
+template <int C>
+cudaError_t launch_f32_tiled(const Args& a) {
   const Scratch sc(a.num_bh, a.s, a.d, 0);
   cudaError_t err = launch_prep<float, 0>(a, sc);
   if (err != cudaSuccess) return err;
   const char* base = static_cast<const char*>(a.scratch);
   const float* delta = reinterpret_cast<const float*>(base + sc.delta);
   const float* lse2 = reinterpret_cast<const float*>(base + sc.lse2);
-  const int n_chunks = a.d / kF32Chunk;
-  const int64_t num_tiles = (static_cast<int64_t>(a.s) + kF32WideRows - 1) / kF32WideRows;
-  if (num_tiles * a.num_bh * n_chunks > INT32_MAX) return cudaErrorInvalidValue;
-  const unsigned blocks = static_cast<unsigned>(num_tiles * a.num_bh * n_chunks);
+  const int64_t row_blocks = (static_cast<int64_t>(a.s) + 31) / 32;  // of keys, of queries
+  if (row_blocks * a.num_bh * (a.d / 128) > INT32_MAX) return cudaErrorInvalidValue;
+  const int64_t os = static_cast<int64_t>(a.h) * a.d;  // dO, contiguous [B, S, H, D]
+  const bool aligned = rows_aligned16(
+      {{a.q, a.qs}, {a.k, a.ks}, {a.v, a.vs}, {a.dout, Strides{a.s * os, os, a.d}}});
   const float scale_log2e = a.scale * kLog2e;
-  flash_bwd_dkdv_f32_wide_kernel<<<blocks, kF32WideThreads, 0, a.stream>>>(
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_f32_tiled_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, f32b::kBytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_f32_tiled_kernel<C><<<static_cast<unsigned>(row_blocks * a.num_bh * (a.d / C)),
+                                       f32b::kThreads, f32b::kBytes, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse2, delta,
-      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.s, a.h, a.d, a.num_bh, n_chunks,
-      a.qs, a.ks, a.vs, scale_log2e, a.scale, a.causal);
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.s, a.h, a.d, a.num_bh, a.d / C,
+      a.qs, a.ks, a.vs, scale_log2e, a.scale, a.causal, aligned ? 1 : 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_f32_wide_kernel<<<blocks, kF32WideThreads, 0, a.stream>>>(
+  err = cudaFuncSetAttribute(flash_bwd_dq_f32_tiled_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, f32b::kBytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_f32_tiled_kernel<C><<<static_cast<unsigned>(row_blocks * a.num_bh * (a.d / C)),
+                                      f32b::kThreads, f32b::kBytes, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse2, delta,
-      static_cast<float*>(a.dq), a.s, a.h, a.d, static_cast<int>(num_tiles), a.num_bh, n_chunks,
-      a.qs, a.ks, a.vs, scale_log2e, a.scale, a.causal);
+      static_cast<float*>(a.dq), a.s, a.h, a.d, static_cast<int>(row_blocks), a.num_bh,
+      a.d / C, a.qs, a.ks, a.vs, scale_log2e, a.scale, a.causal, aligned ? 1 : 0);
   return cudaGetLastError();
 }
 
@@ -2214,8 +2403,11 @@ cudaError_t dispatch(int d, int dtype, const Args& a) {
     default:  // past 256: any multiple of 128, in each type
       if (!wide(d)) return cudaErrorInvalidValue;
       switch (dtype) {
-        case 0:
-          return launch_f32_wide(a);
+        case 0:  // the widest chunks that divide d
+          if (a.d % 512 == 0) return launch_f32_tiled<512>(a);
+          if (a.d % 384 == 0) return launch_f32_tiled<384>(a);
+          if (a.d % 256 == 0) return launch_f32_tiled<256>(a);
+          return launch_f32_tiled<128>(a);
         case 1:
           return launch_wide<__nv_bfloat16>(a);
         case 2:

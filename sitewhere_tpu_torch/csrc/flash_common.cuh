@@ -3,8 +3,8 @@
 // the (batch, row, head) strides of a [B, S, H, D] view, the constants, the
 // shared-memory address, the exp2 and 16-bit pack helpers (both), and the
 // cp.async copies, ldmatrix and the bf16 / fp16 mma.sync m16n8k16 product
-// (the forward's mma.sync kernel), and the float32 kernels' tiling past
-// D = 256.
+// (the forward's mma.sync kernel), and the register-tiled float32 kernels'
+// copies and products.
 // Each .cu file includes it and builds into a library of its own
 // (cuda_build.py hashes this header with it).
 
@@ -17,7 +17,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -119,79 +121,112 @@ __device__ __forceinline__ float to_float(T x) {
   }
 }
 
-// ------------------------------------------------ float32 past D = 256
+// ------------------------------------------------ float32, register-tiled
 //
-// The float32 kernels past D = 256 (flash_attention_f32_wide_kernel,
-// flash_bwd_*_f32_wide_kernel) split a row among kF32WideSplit adjacent
-// threads and the output's columns into chunks of kF32Chunk (a grid
-// axis); a dot over the whole D is summed in pieces of kF32Chunk columns,
-// each thread's share first, across the row's threads once all pieces are
-// in.
-constexpr int kF32WideThreads = 128;                  // threads a block
-constexpr int kF32Chunk = 128;                        // columns a chunk and a piece
-constexpr int kF32WideSplit = 8;                      // threads a row
-constexpr int kF32WideCols = kF32Chunk / kF32WideSplit;  // columns a thread
-constexpr int kF32WideRows = kF32WideThreads / kF32WideSplit;  // rows a block or tile
+// The float32 kernels at D = 256 forward (flash_attention_f32_tiled_kernel)
+// and past D = 256 backward (flash_bwd_*_f32_tiled_kernel) run float32
+// FMAs on the CUDA cores from shared memory: a thread keeps a small block
+// of scores (4 rows by 4 rows of the other side) and of its outputs in
+// registers, so each float4 it reads from shared memory feeds several
+// independent FMA chains, and the tiles come through a cp.async ring.
 
-// column c of a thread's kF32WideCols: its float4 chunk c / 4 is the
-// piece's chunk (c / 4) 8 + part, so a row's threads read neighbouring 16
-// bytes of a shared row
-__device__ __forceinline__ int f32_wide_col(int c, int part) {
-  return 4 * ((c / 4) * kF32WideSplit + part) + c % 4;
+// (host) whether every row of the (batch, row, head)-strided views starts
+// 16-byte aligned: the float32 kernels' cp.async copies are then 16 bytes
+inline bool rows_aligned16(std::initializer_list<std::pair<const void*, Strides>> views) {
+  for (const auto& [p, st] : views)
+    if (reinterpret_cast<uintptr_t>(p) % 16 || st.b % 4 || st.s % 4 || st.h % 4) return false;
+  return true;
 }
 
-// the thread's kF32WideCols columns of one row's piece from global memory,
-// times mul (zeros for a row past S)
-__device__ __forceinline__ void f32_wide_row(const float* p, int part, bool live, float mul,
-                                             float (&r)[kF32WideCols]) {
-#pragma unroll
-  for (int c = 0; c < kF32WideCols; ++c) r[c] = live ? p[f32_wide_col(c, part)] * mul : 0.0f;
+// 4 bytes from global to shared memory, asynchronous; zero where !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 
-// the thread's share of a dot over one piece: x (its columns) . row
-// `tile`'s float4 chunks
-__device__ __forceinline__ float f32_wide_dot(const float (&x)[kF32WideCols], const float* tile,
-                                              int part, float acc) {
-  const float4* r = reinterpret_cast<const float4*>(tile);
+// rows [r0, r0 + kRows) of a float32 matrix (row stride `stride` elements,
+// unit stride along a row), columns [c0, c0 + kCols), into shared memory at
+// dst (a row every `pitch` floats), asynchronously, by the block's
+// kThreads threads; rows at or past n are zero-filled (nothing is read
+// there). aligned: every row starts 16-byte aligned, so 16-byte copies,
+// else 4-byte ones (float32 takes any alignment)
+template <int kThreads, int kRows, int kCols>
+__device__ __forceinline__ void f32_copy_rows(float* dst, int pitch, const float* src,
+                                              int64_t stride, int r0, int n, int c0,
+                                              bool aligned) {
+  constexpr int kPerRow = kCols / 4;
+  static_assert(kRows * kPerRow % kThreads == 0, "whole copies a thread");
+  const uint32_t base = smem_addr(dst);
 #pragma unroll
-  for (int c = 0; c < kF32WideCols / 4; ++c) {
-    const float4 y = r[c * kF32WideSplit + part];
-    acc = fmaf(x[4 * c], y.x, acc);
-    acc = fmaf(x[4 * c + 1], y.y, acc);
-    acc = fmaf(x[4 * c + 2], y.z, acc);
-    acc = fmaf(x[4 * c + 3], y.w, acc);
-  }
-  return acc;
-}
-
-// acc += w (the thread's columns of row `tile`)
-__device__ __forceinline__ void f32_wide_axpy(float w, const float* tile, int part,
-                                              float (&acc)[kF32WideCols]) {
-  const float4* r = reinterpret_cast<const float4*>(tile);
+  for (int i = 0; i < kRows * kPerRow / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e / kPerRow, c = (e % kPerRow) * 4;
+    const bool ok = r0 + r < n;
+    const float* g = src + (ok ? static_cast<int64_t>(r0 + r) * stride : 0) + c0 + c;
+    const uint32_t d = base + (r * pitch + c) * 4;
+    if (aligned) {
+      cp_async16(d, g, ok);
+    } else {
 #pragma unroll
-  for (int c = 0; c < kF32WideCols / 4; ++c) {
-    const float4 y = r[c * kF32WideSplit + part];
-    acc[4 * c] = fmaf(w, y.x, acc[4 * c]);
-    acc[4 * c + 1] = fmaf(w, y.y, acc[4 * c + 1]);
-    acc[4 * c + 2] = fmaf(w, y.z, acc[4 * c + 2]);
-    acc[4 * c + 3] = fmaf(w, y.w, acc[4 * c + 3]);
+      for (int x = 0; x < 4; ++x) cp_async4(d + 4 * x, g + x, ok);
+    }
   }
 }
 
-// rows [r0, r0 + n) (zeros past n) of two [.., d] matrices, the piece of
-// columns from col0, into two shared tiles [kF32WideRows][kF32Chunk]
-__device__ __forceinline__ void f32_wide_load(float (*ta)[kF32Chunk], float (*tb)[kF32Chunk],
-                                              const float* a, int64_t as, const float* b,
-                                              int64_t bs, int r0, int n, int col0) {
-  __syncthreads();  // the previous tiles are no longer read
-  for (int e = threadIdx.x; e < kF32WideRows * kF32Chunk; e += kF32WideThreads) {
-    const int r = e / kF32Chunk, c = e % kF32Chunk;
-    const bool ok = r < n;
-    const int64_t row = r0 + r;
-    ta[r][c] = ok ? a[row * as + col0 + c] : 0.0f;
-    if (tb != nullptr) tb[r][c] = ok ? b[row * bs + col0 + c] : 0.0f;
+// acc[i][j] += a_i . b_j over kCols columns: a_i the shared row a + i
+// a_step, b_j the shared row b + j b_step, read a float4 at a time: 8
+// float4 reads feed 64 FMAs in 16 independent chains. Each chain starts at 0 and
+// runs over the columns in order, then adds to acc: a dot over a long D
+// taken a piece of kCols at a time rounds like a sum of kCols terms plus
+// one of D / kCols, not one of D terms
+template <int kCols>
+__device__ __forceinline__ void f32_dots_4x4(float (&acc)[4][4], const float* a, int a_step,
+                                             const float* b, int b_step) {
+  float part[4][4] = {};
+#pragma unroll 4
+  for (int c = 0; c < kCols; c += 4) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(a + i * a_step + c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y[j] = *reinterpret_cast<const float4*>(b + j * b_step + c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        part[i][j] = fmaf(x[i].x, y[j].x, part[i][j]);
+        part[i][j] = fmaf(x[i].y, y[j].y, part[i][j]);
+        part[i][j] = fmaf(x[i].z, y[j].z, part[i][j]);
+        part[i][j] = fmaf(x[i].w, y[j].w, part[i][j]);
+      }
   }
-  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+}
+
+// acc[r][m][c] += w[r] x_m[c]: 4 weights (w, a float4 in shared memory
+// at the same address across a warp: one broadcast read) by kG float4s
+// x_m of a shared row, x + 4 (lane + 32 m) (a warp's read of each is 512
+// contiguous bytes)
+template <int kG>
+__device__ __forceinline__ void f32_outer(float (&acc)[4][kG][4], const float* w, const float* x,
+                                          int lane) {
+  const float4 ww = *reinterpret_cast<const float4*>(w);
+  const float wr[4] = {ww.x, ww.y, ww.z, ww.w};
+#pragma unroll
+  for (int m = 0; m < kG; ++m) {
+    const float4 xx = *reinterpret_cast<const float4*>(x + 4 * (lane + 32 * m));
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float (&a)[4] = acc[r][m];
+      a[0] = fmaf(wr[r], xx.x, a[0]);
+      a[1] = fmaf(wr[r], xx.y, a[1]);
+      a[2] = fmaf(wr[r], xx.z, a[2]);
+      a[3] = fmaf(wr[r], xx.w, a[3]);
+    }
+  }
 }
 
 }  // namespace

@@ -39,10 +39,15 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
     D = 128 and 256 the products bind.
   * float16 at D = 16 and 32: the ``mma.sync`` kernel with float16
     fragments and the float16 ``mma.sync``.
-  * float32 design: one thread per query row (four at D = 256, each with
-    64 of its columns) with float32 products on the CUDA cores (tensor
-    cores would mean TF32, too coarse for the float32 tolerance); not on
-    the transformer's path.
+  * float32 design: float32 FMAs on the CUDA cores, which bound it
+    (tensor cores would mean TF32, too coarse for the float32 tolerance);
+    not on the transformer's path. Up to D = 128 one thread per query row.
+    At D = 256 (any D from 129, padded) a register-tiled kernel: a block
+    owns 64 query rows with Q resident in shared memory, K and V tiles of
+    64 keys come through a 4-slot ``cp.async`` ring, and a lane holds a
+    4 x 4 block of S and an 8 x 8 block of O, so each float4 it reads
+    feeds several independent FMA chains; a row's max and sum are reduced
+    over the 16 lanes that share it.
   * Both read q, k and v in place through their (batch, row, head)
     strides, so the strided views of one fused qkv product need no copies,
     and write a contiguous [B, S, H, D] output. Any S; head dims 16, 32,
@@ -61,8 +66,9 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
     with each key tile, and accumulates only its chunk of O, so O, S and P
     keep the D = 256 kernel's registers at any D. S and its exponentials
     are computed once a chunk: (D / chunk + 1) / 2 times the one-pass
-    products (1.5 at D = 512, 2 at 384). float32 runs the same column
-    split on the CUDA cores (chunks of 128 columns, eight threads a row).
+    products (1.5 at D = 512, 2 at 384). The float32 forward runs the
+    same column split on the CUDA cores (chunks of 128 columns, eight
+    threads a row).
   * The forward can also write each row's log-sum-exp (``lse`` [B, H, S]
     float32, natural log), which the backward recomputes P from.
 
@@ -90,7 +96,13 @@ float16 kernel scales them by powers of two: a key's rows of P^T and dS^T
 dS (the dQ operand) by a power of two fixed before the kernel runs from a
 bound on |dS| (:func:`f16_dq_scale_exponents` is its plain version), so
 that the sum over key blocks stays in one unit. float32 keeps two
-CUDA-core kernels, each element summed by one thread. It replaces no
+CUDA-core kernels (dK/dV, then dQ), each element summed by one thread,
+so it too is bitwise the same from run to run; past D = 256 they are
+register-tiled (a lane holds 4 x 4 of S or dP and up to 128 gradient
+floats, tiles through a 3-slot ``cp.async`` ring) over column chunks of
+512, 384, 256 or 128 (the widest that divides D), each chunk recomputing
+S and dP: 4 D / C + 3 D-long products a pair (7 at D = 384 and 512),
+against the one-pass 5. It replaces no
 Pallas kernel: the JAX trainer
 (``sitewhere_tpu/models/transformer.py:153``) differentiates the oracle
 ``mha_reference``, and this is that gradient.

@@ -1852,7 +1852,10 @@ def test_box_scores_are_the_product_summed_in_box_order():
 
 def test_both_kernel_sources_take_head_dims_past_256():
     """The forward and the backward each dispatch every multiple of 128
-    past 256 to their wide kernels (column chunks), in every type."""
+    past 256 to their wide kernels (column chunks), in every type: float32
+    to the forward's CUDA-core wide kernel and the backward's
+    register-tiled pair (by the widest of 512, 384, 256 and 128 columns
+    that divides D), which took the old float32 pair's place."""
     from sitewhere_tpu_torch import cuda_build
 
     fwd = (cuda_build.CSRC / "flash_attention.cu").read_text()
@@ -1861,9 +1864,342 @@ def test_both_kernel_sources_take_head_dims_past_256():
     assert "flash_attention_wide_kernel" in fwd and "flash_attention_f32_wide_kernel" in fwd
     assert "launch_wide<T, 256>" in fwd and "launch_wide<T, 128>" in fwd
     assert "if (!wide(d)) return cudaErrorInvalidValue;" in bwd
-    assert "flash_bwd_wide_kernel" in bwd and "launch_f32_wide(a)" in bwd
-    assert "flash_bwd_dkdv_f32_wide_kernel" in bwd and "flash_bwd_dq_f32_wide_kernel" in bwd
+    assert "flash_bwd_wide_kernel" in bwd
+    assert all(f"launch_f32_tiled<{c}>(a)" in bwd for c in (512, 384, 256, 128))
+    assert "flash_bwd_dkdv_f32_tiled_kernel" in bwd and "flash_bwd_dq_f32_tiled_kernel" in bwd
+    # the float32 pair past 256 and the float32 forward at 256 were redesigned
+    assert "f32_wide_kernel" not in bwd and "flash_attention_f32_tiled_kernel" in fwd
     for d in (257, 300, 384, 385, 512, 1000, 1024, 4096):
         dp = tatt.padded_head_dim(d)
         assert dp % tatt.WIDE_STEP == 0 and d <= dp < d + tatt.WIDE_STEP
         assert tatt.kernel_head_dim(dp) and not tatt.kernel_head_dim(dp + 64)
+
+
+# ------------------------------------ float32, register-tiled, CUDA cores
+#
+# float32 at D = 256 (and 129 to 255, padded) forward and past D = 256
+# backward run register-tiled CUDA-core kernels
+# (``flash_attention_f32_tiled_kernel``,
+# ``flash_bwd_{dkdv,dq}_f32_tiled_kernel<C>``). Their arithmetic, emulated
+# on the CPU in the kernels' order of sums: every score and dP FMA chains
+# over 64-column pieces in column order, the pieces' sums added in order
+# (a lane's 4 x 4 micro-tile sums each element alone), delta one FMA chain
+# over D (the prep pass), the forward's online softmax over 64-key tiles (each
+# score times scale log2(e) before the max, any sign) with O += P V an FMA
+# chain over the keys in order, the backward's P = exp2(fma(S, scale
+# log2(e), -lse2)), dS = P (dP - delta), and dV, dK and dQ FMA chains over
+# the other side's rows in order, per column chunk of each kernel (each
+# chunk recomputes S and dP, which changes no element's sums). Held to JAX's oracle and
+# ``jax.vjp`` of it under the float32 limits (F32; GRAD_TOL_F32 of each
+# row's largest element), or, where that is larger, GRAD_ARITH_MARGIN
+# times float32's first-order error bound (``chip_smoke.float64_reference``,
+# the card's C6 rule): at sm_scale -0.3 softmax rows saturate.
+
+
+def fma_dots(a: torch.Tensor, b: torch.Tensor, block: int | None = 64) -> torch.Tensor:
+    """a [..., M, D] . b [..., N, D] -> [..., M, N] float32 as the tiled
+    kernels sum it: each ``block`` of columns one FMA chain from 0 in
+    column order (every step adds the exact product in float64 and rounds
+    to float32: an FMA, up to the rare case where the double rounding
+    differs), the blocks' sums added in float32 in order; ``block=None``
+    one chain over the whole D (the prep pass's delta)."""
+    a64, b64 = a.double(), b.double()
+    total = None
+    for c0 in range(0, a.shape[-1], block or a.shape[-1]):
+        acc = torch.zeros(a.shape[:-1] + (b.shape[-2],), dtype=torch.float64)
+        for c in range(c0, min(c0 + (block or a.shape[-1]), a.shape[-1])):
+            acc = acc.add_(a64[..., :, c, None] * b64[..., None, :, c]).float().double()
+        total = acc.float() if total is None else total + acc.float()
+    return total
+
+
+def fma_step(acc: torch.Tensor, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """acc + w x as one FMA a float32 element (as in ``fma_dots``)."""
+    return acc.double().add_(w.double() * x.double()).float()
+
+
+def emulate_f32_tiled_forward(q, k, v, *, causal: bool, sm_scale: float | None = None,
+                              block_k: int = 64) -> tuple:
+    """``(out, lse)`` of ``flash_attention_f32_tiled_kernel`` on the CPU
+    (float32 q, k, v [B, S, H, 256]): key tiles of ``block_k``; each score
+    summed by 64-column pieces (``fma_dots``), times c = scale log2(e) rounded to
+    float32 as the kernel is handed it; a tile's live scores' max; alpha =
+    exp2(m - m_new), P = exp2(s c - m_new) (masked 0); l = l alpha + the
+    tile's sum; O = O alpha, then O += P_j V_j an FMA a key in key order;
+    out = O / l (l = 0 writes 0, lse +inf); lse = (m + log2 l) ln 2."""
+    b, s, h, d = q.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    c = torch.tensor(scale * math.log2(math.e), dtype=torch.float32)
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))   # [B, H, S, D]
+    m = torch.full((b, h, s), -1e30)
+    l = torch.zeros((b, h, s))
+    acc = torch.zeros((b, h, s, d))
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, s, block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        sc = fma_dots(qf, kt) * c
+        live = torch.ones(s, kt.shape[2], dtype=torch.bool)
+        if causal:
+            live &= torch.arange(k0, k0 + kt.shape[2])[None, :] <= rows
+        m_new = torch.maximum(m, sc.masked_fill(~live, -1e30).amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(live, torch.exp2(sc - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None]
+        for j in range(kt.shape[2]):
+            acc = fma_step(acc, p[..., j, None], vt[:, :, j, None, :])
+        m = m_new
+    out = acc / torch.where(l == 0, 1.0, l)[..., None]
+    lse = torch.where(l == 0, math.inf, (m + torch.log2(l)) * math.log(2.0))
+    return out.transpose(1, 2).contiguous(), lse
+
+
+def emulate_f32_tiled_backward(q, k, v, o, do, lse, *, causal: bool,
+                               sm_scale: float | None = None, chunk: int = 512) -> tuple:
+    """``(dq, dk, dv)`` of the float32 backward past D = 256 (the prep pass,
+    then ``flash_bwd_dkdv_f32_tiled_kernel<chunk>`` and
+    ``flash_bwd_dq_f32_tiled_kernel<chunk>``) on the CPU: delta an FMA
+    chain over D of o dO, lse2 = lse log2(e); per column chunk of each
+    kernel, S and dP recomputed (``fma_dots``), P = exp2(fma(S, c, -lse2))
+    with c = scale log2(e) (masked 0), dS = P (dP - delta); the chunk's
+    columns of dV and dK FMA chains over the queries in order, of dQ over
+    the keys in order; dk and dq times the float32 scale at the end."""
+    b, s, h, d = q.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    c32, scale32 = (torch.tensor(x, dtype=torch.float32).double()
+                    for x in (scale * math.log2(math.e), scale))
+    qf, kf, vf, of, dof = (t.float().transpose(1, 2) for t in (q, k, v, o, do))
+    delta = fma_dots(of[..., None, :], dof[..., None, :], None)[..., 0, 0]   # [B, H, S]
+    lse2 = lse.float() * torch.tensor(math.log2(math.e), dtype=torch.float32)
+    live = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        live = live.tril()
+
+    def p_ds():
+        sc, dp = fma_dots(qf, kf), fma_dots(dof, vf)
+        p = (sc.double() * c32 - lse2.double()[..., None]).float()
+        p = torch.where(live, torch.exp2(p), 0.0)
+        return p, p * (dp - delta[..., None])
+
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    for c0 in range(0, d, chunk):
+        cols = slice(c0, c0 + chunk)
+        p, ds = p_ds()
+        for i in range(s):
+            dv[..., cols] = fma_step(dv[..., cols], p[..., i, :, None], dof[:, :, i, None, cols])
+            dk[..., cols] = fma_step(dk[..., cols], ds[..., i, :, None], qf[:, :, i, None, cols])
+    for c0 in range(0, d, chunk):
+        cols = slice(c0, c0 + chunk)
+        ds = p_ds()[1]
+        for j in range(s):
+            dq[..., cols] = fma_step(dq[..., cols], ds[..., :, j, None], kf[:, :, j, None, cols])
+    return tuple(g.transpose(1, 2).contiguous() for g in (
+        (dq.double() * scale32).float(), (dk.double() * scale32).float(), dv))
+
+
+F32_TILED_FWD_CASES = [(256, s, causal, sm_scale) for s in (1, 65, 300)
+                       for causal in (False, True) for sm_scale in (None, 0.0, -0.3)]
+F32_TILED_FWD_CASES += [(192, 300, True, None), (192, 65, False, None), (192, 300, True, -0.3)]
+
+
+@pytest.mark.parametrize("case", F32_TILED_FWD_CASES)
+def test_f32_tiled_forward_arithmetic_at_d256_holds_to_jax(case):
+    """The float32 forward at D = 256 (``flash_attention_f32_tiled_kernel``;
+    D = 192 zero-padded to it at the true D's scale, the output sliced
+    back, as the wrapper runs it): every output element within F32 of
+    JAX's oracle on the same float32 values, or within GRAD_ARITH_MARGIN
+    times float32's first-order bound where that is larger (it frees
+    elements only at sm_scale -0.3, none at the default scale); lse within
+    F32 of ``jax.nn.logsumexp`` of JAX's scaled, masked scores."""
+    import chip_smoke as cs
+
+    d, s, causal, sm_scale = case
+    arrays = _qkv((1, s, 2, d), seed=120 + s + d) + _qkv((1, s, 2, d), seed=121 + s + d)[:1]
+    jq, jk, jv = (jnp.asarray(a) for a in arrays[:3])
+    ref = np.array(jatt.mha_reference(jq, jk, jv, causal=causal, sm_scale=sm_scale))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in arrays)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    out, lse = emulate_f32_tiled_forward(*(tatt.pad_head_dim(t, 256) for t in (tq, tk, tv)),
+                                         causal=causal, sm_scale=scale)
+    out = out[..., :d]
+    assert out.dtype == torch.float32 and out.shape == (1, s, 2, d)
+    assert bool(torch.isfinite(out).all())
+    o64, o_bound = cs.float64_reference(tq, tk, tv, out, tdo, lse, causal, sm_scale)[:2]
+    floor = F32["atol"] + F32["rtol"] * torch.from_numpy(ref).abs().double()
+    limit = torch.maximum(floor, cs.GRAD_ARITH_MARGIN * o_bound)
+    if sm_scale is None:
+        assert not bool((limit > floor).any()), "the bound frees an element"
+    over = float(((out.double() - torch.from_numpy(ref).double()).abs() / limit).max())
+    assert over <= 1.0, f"worst element {over} times its limit"
+    sc = jnp.einsum("bqhd,bkhd->bhqk", jq, jk) * scale
+    if causal:
+        sc = jnp.where(jnp.tril(jnp.ones((s, s), bool)), sc, jatt._NEG_INF)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(sc, axis=-1)), **F32)
+
+
+@pytest.mark.parametrize("sm_scale", [None, 0.0, -0.3])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d, s", [(384, 300), (512, 65), (512, 1)])
+def test_f32_tiled_backward_arithmetic_past_d256_holds_to_jax_grad(d, s, causal, sm_scale):
+    """The float32 backward past D = 256 (``flash_bwd_*_f32_tiled_kernel``,
+    by chunks of 512 columns at D = 512, of 384 at 384): every row of dq,
+    dk and
+    dv within GRAD_TOL_F32 of its largest element of ``jax.vjp`` of JAX's
+    oracle on the same float32 values (GRAD_ATOL on the rows whose exact
+    gradient is 0), or within GRAD_ARITH_MARGIN times float32's
+    first-order error bound of the formula on the row where that is larger
+    (the C6 rule; at the default scale it frees no row); a zero scale
+    gives dq = dk = 0 exactly."""
+    import chip_smoke as cs
+
+    shape = (1, s, 1, d)
+    seed = 130 + s + d
+    arrays = _qkv(shape, seed=seed) + _qkv(shape, seed=seed + 1)[:1]
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in arrays)
+    out, vjp = jax.vjp(lambda q, k, v: jatt.mha_reference(q, k, v, causal=causal,
+                                                        sm_scale=sm_scale), jq, jk, jv)
+    ref = [torch.from_numpy(np.array(g)) for g in vjp(jdo)]
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in arrays)
+    o = torch.from_numpy(np.array(out))
+    lse = tatt.lse_reference(tq, tk, causal=causal, sm_scale=sm_scale)
+    chunk = next(x for x in (512, 384, 256, 128) if d % x == 0)
+    got = emulate_f32_tiled_backward(tq, tk, tv, o, tdo, lse, causal=causal,
+                                     sm_scale=sm_scale, chunk=chunk)
+    bounds = cs.float64_reference(tq, tk, tv, o, tdo, lse, causal, sm_scale)[3]
+    for name, g, r, b in zip("qkv", got, ref, bounds):
+        assert g.dtype == torch.float32 and g.shape == shape
+        assert bool(torch.isfinite(g).all())
+        if sm_scale == 0.0 and name != "v":
+            assert not g.any() and not r.any()
+            continue
+        err, top, zero = tatt.gradient_row_errors(g, r, f"d{name}", causal=causal)
+        floor = GRAD_TOL_F32 * top + GRAD_ATOL * zero
+        bound = cs.GRAD_ARITH_MARGIN * b.amax(-1).float()
+        if sm_scale is None:
+            assert not bool((bound > floor).any()), f"d{name}: the bound frees a row"
+        over = float((err / torch.maximum(floor, bound)).max())
+        assert over <= 1.0, f"d{name}: worst row {over} times its limit"
+
+
+def test_fma_dots_sums_pieces_of_fma_chains_in_column_order():
+    """``fma_dots`` sums each element in column order, one rounding to
+    float32 a step within a piece: equal to the product within float32
+    rounding, bit for bit the float32 sum where every partial sum and
+    product is exact (small integers), and rounding at every step of a
+    chain but only once where a piece's sum meets the total."""
+    rng = np.random.default_rng(15)
+    a, b = (torch.from_numpy(rng.standard_normal((2, 5, 256)).astype(np.float32))
+            for _ in range(2))
+    for block in (64, None):
+        torch.testing.assert_close(fma_dots(a, b, block), a @ b.transpose(-1, -2),
+                                   rtol=1e-5, atol=1e-5)
+    ai, bi = (torch.from_numpy(rng.integers(-8, 8, (3, 4, 128)).astype(np.float32))
+              for _ in range(2))
+    assert torch.equal(fma_dots(ai, bi), ai @ bi.transpose(-1, -2))
+    # 1 + 2^-24 rounds to 1 (ties to even): twice in one chain, once where
+    # the second piece's 2^-23 meets the first's 1
+    x = torch.tensor([1.0, 2.0 ** -24, 2.0 ** -24, 0.0])
+    assert fma_dots(x[None], torch.ones(1, 4), None)[0, 0] == 1.0
+    assert fma_dots(x[None], torch.ones(1, 4), 2)[0, 0] == 1.0
+    y = torch.tensor([1.0, 0.0, 2.0 ** -24, 2.0 ** -24])
+    assert fma_dots(y[None], torch.ones(1, 4), 2)[0, 0] == 1.0 + 2.0 ** -23
+
+
+@pytest.mark.parametrize("case", [(2, 300, 2, 256, False, None), (2, 65, 1, 192, True, -0.3)])
+def test_f32_tiled_forward_emulation_matches_the_plain_version(case):
+    """The emulated D = 256 forward and its lse against the port's plain
+    versions on the same inputs, within F32: the two differ only in the
+    order of their float32 sums."""
+    b, s, h, d, causal, sm_scale = case
+    q, k, v = (torch.from_numpy(a) for a in _qkv((b, s, h, d), seed=140 + s))
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    out, lse = emulate_f32_tiled_forward(*(tatt.pad_head_dim(t, 256) for t in (q, k, v)),
+                                         causal=causal, sm_scale=scale)
+    torch.testing.assert_close(out[..., :d], tatt.mha_reference(q, k, v, causal=causal,
+                                                              sm_scale=sm_scale), **F32)
+    torch.testing.assert_close(lse, tatt.lse_reference(q, k, causal=causal, sm_scale=sm_scale),
+                               **F32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [384, 512])
+def test_cuda_f32_tiled_backward_is_bitwise_deterministic(d, causal):
+    """The float32 backward past D = 256 sums each gradient element in one
+    thread in a fixed order (no atomics): two calls on the same inputs
+    give the same bits."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    qkv = torch.randn((1, 1000, 3, 1, d), device="cuda", generator=gen)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((1, 1000, 1, d), device="cuda", generator=gen)
+    o, lse = tatt.flash_attention_forward(q, k, v, causal=causal)
+    first = tatt.flash_attention_backward(q, k, v, o, do, lse, causal=causal)
+    second = tatt.flash_attention_backward(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    for name, x, y in zip("qkv", first, second):
+        assert torch.equal(x, y), f"d{name} differs between two calls"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [192, 256, 300, 512])
+def test_cuda_float32_past_128_takes_the_tiled_kernels(d):
+    """float32 at D = 129 to 256 runs the register-tiled forward
+    (``flash_attention_f32_tiled_kernel``) and past 256 the register-tiled
+    backward pair (``flash_bwd_{dkdv,dq}_f32_tiled_kernel<C>``, C the
+    widest of 512, 384, 256 and 128 that divides the padded D), by the
+    profiler's kernel
+    names through autograd; the D = 256 backward pair and the wide forward
+    keep their kernels."""
+    _cuda_or_skip()
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    qkv = torch.randn((1, 300, 3, 1, d), device="cuda", generator=gen).requires_grad_(True)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tatt.flash_attention(q, k, v, causal=True).square().sum().backward()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and "flash" in e.key]
+    dp = tatt.padded_head_dim(d)
+    fwd = "flash_attention_f32_tiled_kernel" if dp == 256 else "flash_attention_f32_wide_kernel"
+    assert any(fwd in n for n in names), names
+    if dp == 256:
+        want = ("flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_f32_kernel")
+        assert all(any(w in n and "256" in n for n in names) for w in want), names
+        assert not any("f32_tiled_kernel<" in n or "tiled_kernelILi" in n for n in names), names
+    else:
+        chunk = next(str(x) for x in (512, 384, 256, 128) if dp % x == 0)
+        want = ("flash_bwd_dkdv_f32_tiled_kernel", "flash_bwd_dq_f32_tiled_kernel")
+        assert all(any(w in n and chunk in n for n in names) for w in want), names
+    assert not any("flash_attention_f32_kernel" in n for n in names), names
+    assert bool(torch.isfinite(qkv.grad).all()) and bool(qkv.grad.any())
+
+
+def test_c6_profiler_check_names_the_float32_kernels():
+    """``chip_smoke.py``'s C6 phase reads the kernels that ran at its
+    float32 timed shapes from the profiler's names (demangled or mangled,
+    ``_kernel_name``) and holds them to ``TF_C6_TAKES``: the register-tiled
+    forward at D = 256 and backward pair at D = 512 pass; the kernels they
+    replaced, or a missing one, fail."""
+    import chip_smoke as cs
+
+    ns = "void (anonymous namespace)::"
+    args = "(float const*, float const*, float const*, float*, float*, int)"
+    new = {"d256_f32": [f"{ns}flash_attention_f32_tiled_kernel{args}",
+                        f"{ns}flash_bwd_dkdv_f32_kernel<256>{args}",
+                        f"{ns}flash_bwd_dq_f32_kernel<256>{args}"],
+           "d512_f32": [f"{ns}flash_attention_f32_wide_kernel{args}",
+                        "_ZN12_GLOBAL__N_131flash_bwd_dkdv_f32_tiled_kernelILi512EEEvPKfS2_",
+                        f"{ns}flash_bwd_dq_f32_tiled_kernel<512>{args}"]}
+    old = {"d256_f32": [f"{ns}flash_attention_f32_kernel<256>{args}"],
+           "d512_f32": [f"{ns}flash_bwd_dkdv_f32_wide_kernel{args}",
+                        f"{ns}flash_bwd_dq_f32_wide_kernel{args}"]}
+    for name, keys in new.items():
+        ran = [cs._kernel_name(k) for k in keys]
+        assert cs._takes(ran, name) == (True, []), (name, ran)
+        assert not cs._takes(ran[:-1], name)[0]
+        bad = cs._takes(ran + [cs._kernel_name(k) for k in old[name]], name)
+        assert not bad[0] and len(bad[1]) == len(old[name]), bad
+    assert cs._kernel_name(new["d512_f32"][1]) == "flash_bwd_dkdv_f32_tiled_kernel<512>"
