@@ -40,8 +40,10 @@ HERE = pathlib.Path(__file__).resolve()
 
 # name: (B, S, H, D, dtype name), all causal: the head-dim-64 shapes
 # (the default d_model at 4 heads, the d_model=384, heads=8 model's D = 48
-# padded to 64), the rows held to run-to-run noise, and float32 at D = 256
-# and 512 on the CUDA-core kernels (chip_smoke.C6_TIMED_SHAPES)
+# padded to 64), the rows held to run-to-run noise, float32 at D = 256
+# and 512 on the CUDA-core kernels (chip_smoke.C6_TIMED_SHAPES), and
+# float32 at D = 16, 64 and 128 (the one-thread-a-row forward and
+# backward pair) at the default d_model's width on 8 windows of 4096 steps
 TIMED = {
     "d64_bf16": (8, 16384, 4, 64, "bfloat16"),
     "d64_f16": (8, 16384, 4, 64, "float16"),
@@ -53,6 +55,9 @@ TIMED = {
     "d32_f16": (8, 16384, 8, 32, "float16"),
     "d256_f32": (2, 4096, 1, 256, "float32"),
     "d512_f32": (2, 4096, 1, 512, "float32"),
+    "d16_f32": (8, 4096, 16, 16, "float32"),
+    "d64_f32": (8, 4096, 4, 64, "float32"),
+    "d128_f32": (8, 4096, 2, 128, "float32"),
 }
 # the timed calls a shape, as chip_smoke.py's C6 phase takes
 REPS = 10

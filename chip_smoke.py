@@ -677,7 +677,7 @@ def ptxas_resources(text: str, prefix: str = "flash_bwd") -> dict:
     ``{"flash_bwd_kernel<bf16,32>": {"registers": 168, "spill_stores": 0,
     "spill_loads": 0}, ...}``; bf16 / f16 / f32 in the name where the
     kernel is templated on the type, the head dim where it is templated on
-    that."""
+    that, then a bool template argument (``<512,false>``)."""
     out, name = {}, None
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -689,10 +689,12 @@ def ptxas_resources(text: str, prefix: str = "flash_bwd") -> dict:
                 out[name] = {}
             elif k:
                 d = re.search(r"Li(\d+)E", k.group(2))
+                flag = re.search(r"Lb([01])E", k.group(2))
                 t = ("bf16" if "bfloat16" in k.group(2)
                      else "f16" if "__half" in k.group(2)
                      else "f32" if k.group(2).startswith("f") else "")
-                name = f"{k.group(1)}<{','.join(x for x in (t, d and d.group(1)) if x)}>"
+                flag = flag and ("true" if flag.group(1) == "1" else "false")
+                name = f"{k.group(1)}<{','.join(x for x in (t, d and d.group(1), flag) if x)}>"
                 out[name] = {}
             continue
         if name is None:
@@ -1521,7 +1523,7 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
                                prefix="flash_attention"),
              **ptxas_resources(cuda_build.build_info.get(fa.BWD_KERNEL, {}).get("ptxas", ""))}
     ptxas = {k: v for k, v in ptxas.items() if "f16" in k.replace("bf16", "") or "128>" in k
-             or "256>" in k or "wgmma" in k or "wide" in k or "tiled" in k}
+             or "256>" in k or "wgmma" in k or "wide" in k or "tiled" in k or "split" in k}
     # each type's worst output error and gradient row, and float16's control
     by_dtype = {}
     for name, e in errs.items():
@@ -7779,11 +7781,14 @@ TF_C6_TAKES = {
     "f16_d512": (("flash_attention_wide_kernel", "__half", 256),
                  ("flash_bwd_wide_kernel", "__half", None)),
     # the C6 phase's float32 timed shapes (C6_TIMED_SHAPES): the
-    # register-tiled forward at D = 256 and backward pair past 256 (by
-    # chunks of 512 columns at D = 512)
+    # register-tiled forward at D = 256 and, past 256, its split over two
+    # groups of warps (Q resident, one chunk of 512 columns at D = 512);
+    # the register-tiled backward pair by chunks of 256 columns at D = 256,
+    # of 512 at D = 512
     "d256_f32": (("flash_attention_f32_tiled_kernel", "", None),
-                 ("flash_bwd_dkdv_f32_kernel", "", 256), ("flash_bwd_dq_f32_kernel", "", 256)),
-    "d512_f32": (("flash_attention_f32_wide_kernel", "", None),
+                 ("flash_bwd_dkdv_f32_tiled_kernel", "", 256),
+                 ("flash_bwd_dq_f32_tiled_kernel", "", 256)),
+    "d512_f32": (("flash_attention_f32_split_kernel", "", 512),
                  ("flash_bwd_dkdv_f32_tiled_kernel", "", 512),
                  ("flash_bwd_dq_f32_tiled_kernel", "", 512)),
 }
@@ -7794,9 +7799,12 @@ TF_C6_NOT = {"f16": _MMA_BWD} | {name: ("flash_attention_bf16_kernel", *_MMA_BWD
            "flash_bwd_wgmma_kernel", *_MMA_BWD)
     for name in ("d512", "d384", "d320", "f16_d512")} | {
     # the float32 kernels these replaced (the D = 256 instantiation of the
-    # one-row forward, the column-chunk backward pair past 256)
-    "d256_f32": ("flash_attention_f32_kernel",),
-    "d512_f32": ("flash_bwd_dkdv_f32_wide_kernel", "flash_bwd_dq_f32_wide_kernel")}
+    # one-row forward, the eight-threads-a-row backward pair at D = 256,
+    # the column-chunk forward and backward pair past 256)
+    "d256_f32": ("flash_attention_f32_kernel", "flash_bwd_dkdv_f32_kernel",
+                 "flash_bwd_dq_f32_kernel"),
+    "d512_f32": ("flash_attention_f32_wide_kernel", "flash_bwd_dkdv_f32_wide_kernel",
+                 "flash_bwd_dq_f32_wide_kernel")}
 
 
 def _kernel_name(key: str) -> str | None:

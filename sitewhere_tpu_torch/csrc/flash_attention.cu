@@ -65,11 +65,14 @@
 //   allow. Not on the transformer's path. Up to D = 128 one thread per
 //   query row, K/V tiles of 32 keys in shared memory. At D = 256 the
 //   register-tiled kernel (flash_attention_f32_tiled_kernel, the note
-//   there): 64 rows a block, a lane's 4 x 4 of S and 8 x 8 of O fed by
+//   there): 32 rows a block, a lane's 4 x 4 of S and 8 x 8 of O fed by
 //   broadcast float4 reads, K and V through a 4-slot cp.async ring. Past
-//   D = 256 the same column split as the wide kernel
-//   (flash_attention_f32_wide_kernel): eight threads a row, chunks of 128
-//   columns.
+//   D = 256 the same lane tiles over two groups of 4 warps
+//   (flash_attention_f32_split_kernel<C, kStreamQ>, the note there): each
+//   group sums a partial S over half of D and holds half of O's columns,
+//   and the two partial tiles are added through shared memory, so S is
+//   summed once a key tile at D = 384 and 512 (past 512 once a chunk of
+//   512 columns of O).
 //
 // q, k and v are read in place through base pointers and (batch, row, head)
 // strides with unit stride on D, so the three strided views of one fused
@@ -437,90 +440,75 @@ flash_attention_f32_tiled_kernel(const float* __restrict__ q, const float* __res
   }
 }
 
-// float32 past D = 256 (flash_attention_f32_wide_kernel): a row is split
-// among kF32WideSplit adjacent threads and the output's columns into
-// chunks of kF32Chunk (a grid axis); a dot over the whole D is summed in
-// pieces of kF32Chunk columns, each thread's share first, across the
-// row's threads once all pieces are in.
-constexpr int kF32WideThreads = 128;                  // threads a block
-constexpr int kF32Chunk = 128;                        // columns a chunk and a piece
-constexpr int kF32WideSplit = 8;                      // threads a row
-constexpr int kF32WideCols = kF32Chunk / kF32WideSplit;  // columns a thread
-constexpr int kF32WideRows = kF32WideThreads / kF32WideSplit;  // rows a block or tile
+// float32 past D = 256 (any multiple of 128; others padded), register-tiled
+// on the CUDA cores: the D = 256 kernel's lane layout over two groups of 4
+// warps, so that S is summed once a key tile at D = 384 and 512. Bound by
+// its float32 FMAs (4 D operations a live pair at 67 TFLOP/s); the kernel it
+// replaced recomputed S for every 128-column chunk of O (2.5x the products
+// at D = 512), summed each score across 8 threads of a row by shuffles and
+// fed one FMA chain a shared float4. A block of 8 warps owns 32 query rows
+// and C columns of O (C = D at 384 and 512; past 512 a grid axis over
+// chunks of 512 columns, the last one masked where D is not a multiple of
+// 512, each chunk recomputing S: (D / 512 + 1) / 2 of the one-pass
+// products past 512, 1.5x at 1024). Group g (warps 4 g .. 4 g + 3) holds O
+// over C / 2 of the block's columns, a lane 8 rows x C / 64 columns (4 lane
+// + c, then 128 + (C / 64 - 4) lane + c of the group's), and sums a partial
+// S over its half of D (columns g D / 2 ..), by 64-column pieces in column
+// order, in the D = 256 kernel's 4 x 4 lane tiles. The two partial tiles
+// meet in shared memory and each group adds the other's to its own: the
+// same bits in both (a + b == b + a), so both run the same online softmax
+// (the exponentials twice, which the FMAs dwarf) and need no barrier of
+// their own: the partial goes out at the tile's last S-piece and comes in
+// after the next piece's barrier. Q stays resident in shared memory at
+// D = 384 and 512 (66 KB at 512); past 512 (kStreamQ) its 64-column pieces
+// come with K's. The ring: 3 slots of cp.async pieces, each S-piece both
+// groups' 64 columns of K (and Q) for the 64-key tile, then V in pieces of
+// 16 keys by the chunk's columns; one __syncthreads a piece. 199 KB of
+// shared memory at D = 512: one block an SM, launched most causal work
+// first.
+namespace f32s {
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 32;              // query rows a block, 8 a warp of a group
+constexpr int kKeys = 64;              // keys a tile
+constexpr int kPiece = 64;             // columns of a group's S-piece
+constexpr int kVKeys = 16;             // keys of a V piece
+constexpr int kKPitch = kPiece + 4;    // padded rows: the lanes' rows fall in other banks
+constexpr int kStages = 3;
+constexpr int kPFloats = kKeys * 8;    // a warp's P tile
+constexpr int kXFloats = 2 * 4 * 128 * 4;  // both groups' partial S tiles, float4 [4][128] each
+template <int C, bool kStreamQ>
+struct Layout {
+  static constexpr int kQPitch = C + 4;
+  static constexpr int kKPair = 2 * kKeys * kKPitch;             // both groups' K piece
+  static constexpr int kQPair = kStreamQ ? 2 * kRows * kKPitch : 0;
+  static constexpr int kSlot =
+      kKPair + kQPair > kVKeys * C ? kKPair + kQPair : kVKeys * C;
+  static constexpr int kQFloats = kStreamQ ? 0 : kRows * kQPitch;
+  static constexpr int kBytes = 4 * (kQFloats + kStages * kSlot + kWarps * kPFloats + kXFloats);
+  static_assert(kBytes <= 227 * 1024, "past the shared memory a block may take");
+};
+}  // namespace f32s
 
-// column c of a thread's kF32WideCols: its float4 chunk c / 4 is the
-// piece's chunk (c / 4) 8 + part, so a row's threads read neighbouring 16
-// bytes of a shared row
-__device__ __forceinline__ int f32_wide_col(int c, int part) {
-  return 4 * ((c / 4) * kF32WideSplit + part) + c % 4;
-}
-
-// the thread's kF32WideCols columns of one row's piece from global memory,
-// times mul (zeros for a row past S)
-__device__ __forceinline__ void f32_wide_row(const float* p, int part, bool live, float mul,
-                                             float (&r)[kF32WideCols]) {
-#pragma unroll
-  for (int c = 0; c < kF32WideCols; ++c) r[c] = live ? p[f32_wide_col(c, part)] * mul : 0.0f;
-}
-
-// the thread's share of a dot over one piece: x (its columns) . row
-// `tile`'s float4 chunks
-__device__ __forceinline__ float f32_wide_dot(const float (&x)[kF32WideCols], const float* tile,
-                                              int part, float acc) {
-  const float4* r = reinterpret_cast<const float4*>(tile);
-#pragma unroll
-  for (int c = 0; c < kF32WideCols / 4; ++c) {
-    const float4 y = r[c * kF32WideSplit + part];
-    acc = fmaf(x[4 * c], y.x, acc);
-    acc = fmaf(x[4 * c + 1], y.y, acc);
-    acc = fmaf(x[4 * c + 2], y.z, acc);
-    acc = fmaf(x[4 * c + 3], y.w, acc);
-  }
-  return acc;
-}
-
-// acc += w (the thread's columns of row `tile`)
-__device__ __forceinline__ void f32_wide_axpy(float w, const float* tile, int part,
-                                              float (&acc)[kF32WideCols]) {
-  const float4* r = reinterpret_cast<const float4*>(tile);
-#pragma unroll
-  for (int c = 0; c < kF32WideCols / 4; ++c) {
-    const float4 y = r[c * kF32WideSplit + part];
-    acc[4 * c] = fmaf(w, y.x, acc[4 * c]);
-    acc[4 * c + 1] = fmaf(w, y.y, acc[4 * c + 1]);
-    acc[4 * c + 2] = fmaf(w, y.z, acc[4 * c + 2]);
-    acc[4 * c + 3] = fmaf(w, y.w, acc[4 * c + 3]);
-  }
-}
-
-// rows [r0, r0 + n) (zeros past n) of a [.., d] matrix, the piece of
-// columns from col0, into the shared tile [kF32WideRows][kF32Chunk]
-__device__ __forceinline__ void f32_wide_load(float (*ta)[kF32Chunk], const float* a, int64_t as,
-                                              int r0, int n, int col0) {
-  __syncthreads();  // the previous tile is no longer read
-  for (int e = threadIdx.x; e < kF32WideRows * kF32Chunk; e += kF32WideThreads) {
-    const int r = e / kF32Chunk, c = e % kF32Chunk;
-    ta[r][c] = r < n ? a[(r0 + r) * as + col0 + c] : 0.0f;
-  }
-  __syncthreads();
-}
-
-// float32 at D > 256: a block owns kF32WideRows query rows and one chunk of
-// kF32Chunk columns of the output (a grid axis), eight adjacent threads a
-// row (the tiling above). Each tile of kF32WideRows keys:
-// the scores are reduced over the whole D in pieces of kF32Chunk columns
-// (K's piece through shared memory, the thread's q piece from global
-// memory), each dot summed across the row's threads once all pieces are
-// in; then the chunk's columns of V come through shared memory for acc +=
-// p v. So q, the accumulator and the scores stay at 16 registers each at
-// any D; S and its exponentials are computed once a chunk (D / 128 times)
-__global__ void __launch_bounds__(kF32WideThreads)
-flash_attention_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                const float* __restrict__ v, float* __restrict__ out,
-                                float* __restrict__ lse, int s, int h, int d, int num_q_tiles,
-                                int num_bh, int n_chunks, Strides qs, Strides ks, Strides vs,
-                                float scale_log2e, int causal) {
-  __shared__ __align__(16) float tile[kF32WideRows][kF32Chunk];
+template <int C, bool kStreamQ>
+__global__ void __launch_bounds__(f32s::kThreads, 1)
+flash_attention_f32_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, float* __restrict__ out,
+                                 float* __restrict__ lse, int s, int h, int d, int num_q_tiles,
+                                 int num_bh, int n_chunks, Strides qs, Strides ks, Strides vs,
+                                 float scale_log2e, int causal, int aligned) {
+  using namespace f32s;
+  using L = Layout<C, kStreamQ>;
+  constexpr int kHalf = C / 2;               // O columns a group
+  constexpr int kHi = (kHalf - 128) / 32;    // a lane's columns past the group's first 128
+  static_assert(kHi == 4 || kHi == 2, "C = 512 or 384");
+  extern __shared__ float4 smem4[];
+  float* const q_s = reinterpret_cast<float*>(smem4);
+  float* const ring = q_s + L::kQFloats;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp / 4, wq = warp % 4;   // the group, the warp's rows in it
+  float* const p_s = ring + kStages * L::kSlot + warp * kPFloats;
+  float4* const x_s = reinterpret_cast<float4*>(ring + kStages * L::kSlot + kWarps * kPFloats);
 
   const int chunk = blockIdx.x % n_chunks;
   const int rest = blockIdx.x / n_chunks;
@@ -528,67 +516,203 @@ flash_attention_f32_wide_kernel(const float* __restrict__ q, const float* __rest
   const int qt = num_q_tiles - 1 - rest / num_bh;  // most causal work first
   const int b = bh / h;
   const int hd = bh - b * h;
-  const int row = qt * kF32WideRows + threadIdx.x / kF32WideSplit;
-  const int part = threadIdx.x % kF32WideSplit;
-  const bool live_row = row < s;
-  const unsigned row_lanes = 0xffu << ((threadIdx.x & 31) & ~(kF32WideSplit - 1));
-
+  const int q0 = qt * kRows;
+  const float* qb = q + b * qs.b + hd * qs.h;
   const float* kb = k + b * ks.b + hd * ks.h;
   const float* vb = v + b * vs.b + hd * vs.h;
-  const float* qp = q + b * qs.b + static_cast<int64_t>(live_row ? row : 0) * qs.s + hd * qs.h;
-  const int n_pieces = d / kF32Chunk;
+  // keys past the block's last row are masked for every row of it
+  const int kv_end = causal ? min(s, q0 + kRows) : s;
+  const int half_d = d / 2;                  // S columns a group sums
+  const int n_s = half_d / kPiece;           // S-pieces a tile
+  const int n_tile = n_s + kKeys / kVKeys;   // ring pieces a tile
+  const int n_pieces = (kv_end + kKeys - 1) / kKeys * n_tile;
+  const int col0 = chunk * C + grp * kHalf;  // the group's first O column
 
-  float acc[kF32WideCols];
+  // piece g of the walk into its slot: both groups' columns of K (and Q),
+  // or V's keys by the chunk's columns (past D: not copied, never stored)
+  auto issue = [&](int g) {
+    float* slot = ring + (g % kStages) * L::kSlot;
+    const int k0 = g / n_tile * kKeys, p = g % n_tile;
+    if (p < n_s) {
 #pragma unroll
-  for (int c = 0; c < kF32WideCols; ++c) acc[c] = 0.0f;
-  float m = kNegInf, l = 0.0f;
-
-  const int kv_end = causal ? min(s, (qt + 1) * kF32WideRows) : s;
-  for (int k0 = 0; k0 < kv_end; k0 += kF32WideRows) {
-    const int n_tile = min(kF32WideRows, kv_end - k0);
-    float sc[kF32WideRows];
+      for (int x = 0; x < 2; ++x) {
+        const int c = x * half_d + p * kPiece;
+        f32_copy_rows<kThreads, kKeys, kPiece>(slot + x * kKeys * kKPitch, kKPitch, kb, ks.s, k0,
+                                               kv_end, c, aligned);
+        if constexpr (kStreamQ)
+          f32_copy_rows<kThreads, kRows, kPiece>(slot + L::kKPair + x * kRows * kKPitch, kKPitch,
+                                                 qb, qs.s, q0, s, c, aligned);
+      }
+    } else if constexpr (kStreamQ) {
 #pragma unroll
-    for (int j = 0; j < kF32WideRows; ++j) sc[j] = 0.0f;
-    for (int pc = 0; pc < n_pieces; ++pc) {
-      f32_wide_load(tile, kb, ks.s, k0, n_tile, pc * kF32Chunk);
-      float qr[kF32WideCols];
-      f32_wide_row(qp + pc * kF32Chunk, part, live_row, scale_log2e, qr);
-#pragma unroll
-      for (int j = 0; j < kF32WideRows; ++j) sc[j] = f32_wide_dot(qr, tile[j], part, sc[j]);
+      for (int x = 0; x < C / 128; ++x)
+        if (chunk * C + 128 * x < d)
+          f32_copy_rows<kThreads, kVKeys, 128>(slot + 128 * x, C, vb, vs.s,
+                                               k0 + (p - n_s) * kVKeys, kv_end,
+                                               chunk * C + 128 * x, aligned);
+    } else {
+      f32_copy_rows<kThreads, kVKeys, C>(slot, C, vb, vs.s, k0 + (p - n_s) * kVKeys, kv_end, 0,
+                                         aligned);
     }
+  };
+  if constexpr (!kStreamQ)
+    f32_copy_rows<kThreads, kRows, C>(q_s, L::kQPitch, qb, qs.s, q0, s, 0, aligned);
 #pragma unroll
-    for (int j = 0; j < kF32WideRows; ++j)
-#pragma unroll
-      for (int o = 1; o < kF32WideSplit; o <<= 1) sc[j] += __shfl_xor_sync(row_lanes, sc[j], o);
-    f32_wide_load(tile, vb, vs.s, k0, n_tile, chunk * kF32Chunk);
-    const int n = causal ? min(n_tile, row + 1 - k0) : n_tile;  // live keys
-    if (!live_row || n <= 0) continue;
-    float tile_max = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kF32WideRows; ++j)
-      if (j < n) tile_max = fmaxf(tile_max, sc[j]);
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = exp2f(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int c = 0; c < kF32WideCols; ++c) acc[c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kF32WideRows; ++j) {
-      const float pj = j < n ? exp2f(sc[j] - m_new) : 0.0f;
-      l += pj;
-      f32_wide_axpy(pj, tile[j], part, acc);
-    }
-    m = m_new;
+  for (int g = 0; g < kStages - 1; ++g) {
+    if (g < n_pieces) issue(g);
+    cp_async_commit();
   }
 
-  if (!live_row) return;
-  // m and the scores are in log2 units (q carries scale * log2(e))
-  if (lse != nullptr && chunk == 0 && part == 0)
-    lse[static_cast<int64_t>(bh) * s + row] = l == 0.0f ? INFINITY : (m + log2f(l)) * kLn2;
-  const float denom = l == 0.0f ? 1.0f : l;  // acc is 0 too when l == 0
-  float* op = out + ((static_cast<int64_t>(b) * s + row) * h + hd) * d + chunk * kF32Chunk;
+  // S: rows 8 wq + 4 rg + i, keys kg + 16 j of the tile
+  const int rg = lane / 16, kg = lane % 16;
+  float sc[4][4], m[4], l[4];
+  float o[8][4 + kHi];
 #pragma unroll
-  for (int c = 0; c < kF32WideCols; ++c) op[f32_wide_col(c, part)] = acc[c] / denom;
+  for (int i = 0; i < 4; ++i) m[i] = kNegInf, l[i] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 4 + kHi; ++c) o[r][c] = 0.0f;
+  // this lane's partial S tile in x_s, and its partner's in the other group
+  float4* const x_own = x_s + grp * 512 + threadIdx.x % 128;
+  const float4* const x_other = x_s + (1 - grp) * 512 + threadIdx.x % 128;
+
+  for (int g = 0; g < n_pieces; ++g) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // piece g is in; every thread is done with piece g - 1's slot
+    if (g + kStages - 1 < n_pieces) issue(g + kStages - 1);
+    cp_async_commit();
+    const float* slot = ring + (g % kStages) * L::kSlot;
+    const int k0 = g / n_tile * kKeys, p = g % n_tile;
+    if (p < n_s) {
+      if (p == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
+      }
+      const float* qa = kStreamQ ? slot + L::kKPair + (grp * kRows + 8 * wq + 4 * rg) * kKPitch
+                                 : q_s + (8 * wq + 4 * rg) * L::kQPitch + grp * half_d + p * kPiece;
+      f32_dots_4x4<kPiece>(sc, qa, kStreamQ ? kKPitch : L::kQPitch,
+                           slot + (grp * kKeys + kg) * kKPitch, 16 * kKPitch);
+      if (p == n_s - 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          x_own[i * 128] = make_float4(sc[i][0], sc[i][1], sc[i][2], sc[i][3]);
+      }
+    } else {
+      if (p == n_s) {
+        // S = the two groups' partial sums, then the online softmax of the
+        // tile in log2 units (both groups alike)
+        float alpha[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 y = x_other[i * 128];
+          sc[i][0] += y.x;
+          sc[i][1] += y.y;
+          sc[i][2] += y.z;
+          sc[i][3] += y.w;
+          const int row = q0 + 8 * wq + 4 * rg + i;
+          bool live[4];
+          float mx = kNegInf;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int key = k0 + kg + 16 * j;
+            live[j] = key < kv_end && (!causal || key <= row);
+            sc[i][j] *= scale_log2e;
+            if (live[j]) mx = fmaxf(mx, sc[i][j]);
+          }
+#pragma unroll
+          for (int x = 1; x < 16; x <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+          const float m_new = fmaxf(m[i], mx);
+          alpha[i] = exp2f(m[i] - m_new);
+          float sum = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            sc[i][j] = live[j] ? exp2f(sc[i][j] - m_new) : 0.0f;  // masked: p = 0
+            sum += sc[i][j];
+          }
+          l[i] = l[i] * alpha[i] + sum;
+          m[i] = m_new;
+        }
+        // P to the warp's own tile, read back below by the whole warp
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<float4*>(p_s + (kg + 16 * j) * 8 + 4 * rg) =
+              make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+        __syncwarp();
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {  // row r's alpha is lane 16 (r / 4)'s
+          const float a = __shfl_sync(0xffffffffu, alpha[r % 4], (r / 4) * 16);
+#pragma unroll
+          for (int c = 0; c < 4 + kHi; ++c) o[r][c] *= a;
+        }
+      }
+      // O += P V over the piece's 16 keys, in key order
+      const float* pk = p_s + (p - n_s) * kVKeys * 8;
+      const float* vr = slot + grp * kHalf;
+#pragma unroll 4
+      for (int j = 0; j < kVKeys; ++j) {
+        const float4 v0 = *reinterpret_cast<const float4*>(vr + j * C + 4 * lane);
+        float vh[kHi];
+        if constexpr (kHi == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(vr + j * C + 128 + 4 * lane);
+          vh[0] = x.x, vh[1] = x.y, vh[2] = x.z, vh[3] = x.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(vr + j * C + 128 + 2 * lane);
+          vh[0] = x.x, vh[1] = x.y;
+        }
+        const float4 p0 = *reinterpret_cast<const float4*>(pk + j * 8);
+        const float4 p1 = *reinterpret_cast<const float4*>(pk + j * 8 + 4);
+        const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          o[r][0] = fmaf(pr[r], v0.x, o[r][0]);
+          o[r][1] = fmaf(pr[r], v0.y, o[r][1]);
+          o[r][2] = fmaf(pr[r], v0.z, o[r][2]);
+          o[r][3] = fmaf(pr[r], v0.w, o[r][3]);
+#pragma unroll
+          for (int c = 0; c < kHi; ++c) o[r][4 + c] = fmaf(pr[r], vh[c], o[r][4 + c]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // each row's sum over its 16 lanes; out = O / l, lse from (m, l) (group
+  // 0 of chunk 0)
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int x = 1; x < 16; x <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], x);
+  if (lse != nullptr && chunk == 0 && grp == 0 && kg == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 8 * wq + 4 * rg + i;
+      if (row < s)
+        lse[static_cast<int64_t>(bh) * s + row] =
+            l[i] == 0.0f ? INFINITY : (m[i] + log2f(l[i])) * kLn2;
+    }
+  }
+  // the group's two column runs, each 128 columns (D is a multiple of 128)
+  const bool lo_live = col0 < d, hi_live = col0 + 128 < d;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float lr = __shfl_sync(0xffffffffu, l[r % 4], (r / 4) * 16);
+    const int row = q0 + 8 * wq + r;
+    if (row >= s) continue;
+    const float inv = 1.0f / (lr == 0.0f ? 1.0f : lr);  // o is 0 too when l == 0
+    float* op = out + ((static_cast<int64_t>(b) * s + row) * h + hd) * d + col0;
+    if (lo_live)
+      *reinterpret_cast<float4*>(op + 4 * lane) =
+          make_float4(o[r][0] * inv, o[r][1] * inv, o[r][2] * inv, o[r][3] * inv);
+    if (!hi_live) continue;
+    if constexpr (kHi == 4)
+      *reinterpret_cast<float4*>(op + 128 + 4 * lane) =
+          make_float4(o[r][4] * inv, o[r][5] * inv, o[r][6] * inv, o[r][7] * inv);
+    else
+      *reinterpret_cast<float2*>(op + 128 + 2 * lane) = make_float2(o[r][4] * inv, o[r][5] * inv);
+  }
 }
 
 // ------------------------------------------------------- bfloat16 / fp16
@@ -1589,8 +1713,32 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* out, 
   return cudaGetLastError();
 }
 
+// float32 past D = 256: the split kernel, Q resident and one chunk at
+// D = C (384, 512), else chunks of 512 columns with Q streamed
+template <int C, bool kStreamQ>
+cudaError_t launch_f32_split(const void* q, const void* k, const void* v, void* out, float* lse,
+                             int s, int h, int d, int num_bh, Strides qs, Strides ks, Strides vs,
+                             float scale_log2e, int causal, cudaStream_t stream) {
+  using L = f32s::Layout<C, kStreamQ>;
+  const int64_t num_q_tiles = (static_cast<int64_t>(s) + f32s::kRows - 1) / f32s::kRows;
+  const int n_chunks = (d + C - 1) / C;
+  if (num_q_tiles * num_bh * n_chunks > INT32_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(flash_attention_f32_split_kernel<C, kStreamQ>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               L::kBytes);
+  if (err != cudaSuccess) return err;
+  const bool aligned = rows_aligned16({{q, qs}, {k, ks}, {v, vs}});
+  flash_attention_f32_split_kernel<C, kStreamQ>
+      <<<static_cast<unsigned>(num_q_tiles * num_bh * n_chunks), f32s::kThreads, L::kBytes,
+         stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                   static_cast<const float*>(v), static_cast<float*>(out), lse, s, h, d,
+                   static_cast<int>(num_q_tiles), num_bh, n_chunks, qs, ks, vs, scale_log2e,
+                   causal, aligned ? 1 : 0);
+  return cudaGetLastError();
+}
+
 // a head dim past 256: the wide kernels (bf16 and fp16 by chunks of 256
-// columns where d is a multiple of 256, else 128; float32 on the CUDA cores)
+// columns where d is a multiple of 256, else 128; float32 the split kernel)
 template <typename T>
 cudaError_t launch_wide_d(const void* q, const void* k, const void* v, void* out, float* lse,
                           int b, int s, int h, int d, int num_bh, Strides qs, Strides ks,
@@ -1601,16 +1749,15 @@ cudaError_t launch_wide_d(const void* q, const void* k, const void* v, void* out
                                  causal, stream);
     return launch_wide<T, 128>(q, k, v, out, lse, b, s, h, d, num_bh, qs, ks, vs, scale_log2e,
                                causal, stream);
+  } else if (d == 384) {
+    return launch_f32_split<384, false>(q, k, v, out, lse, s, h, d, num_bh, qs, ks, vs,
+                                        scale_log2e, causal, stream);
+  } else if (d == 512) {
+    return launch_f32_split<512, false>(q, k, v, out, lse, s, h, d, num_bh, qs, ks, vs,
+                                        scale_log2e, causal, stream);
   } else {
-    const int64_t num_q_tiles = (static_cast<int64_t>(s) + kF32WideRows - 1) / kF32WideRows;
-    const int n_chunks = d / kF32Chunk;
-    if (num_q_tiles * num_bh * n_chunks > INT32_MAX) return cudaErrorInvalidValue;
-    flash_attention_f32_wide_kernel<<<static_cast<unsigned>(num_q_tiles * num_bh * n_chunks),
-                                      kF32WideThreads, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(out), lse, s, h, d, static_cast<int>(num_q_tiles), num_bh, n_chunks,
-        qs, ks, vs, scale_log2e, causal);
-    return cudaGetLastError();
+    return launch_f32_split<512, true>(q, k, v, out, lse, s, h, d, num_bh, qs, ks, vs,
+                                       scale_log2e, causal, stream);
   }
 }
 

@@ -109,20 +109,19 @@
 // * float32: CUDA cores, float32 products (tensor cores would mean TF32,
 //   about 3 decimal digits), two kernels after the prep pass (dK/dV, then
 //   dQ: FA2's split, each gradient element summed by one thread; not on
-//   the transformer's path). Up to D = 256 one thread per key (dK/dV) or
+//   the transformer's path). Up to D = 128 one thread per key (dK/dV) or
 //   per query (dQ) with its own row and accumulators in registers, the
-//   other side's tiles of 32 rows in shared memory (at D = 256 eight
-//   threads a row, 32 columns each, and tiles of 16 rows: F32BwdTile). At
-//   D = 64 the dK/dV thread holds 4 x 64 floats and spills, at D = 128 far
-//   more. Past D = 256 the register-tiled pair
+//   other side's tiles of 32 rows in shared memory (F32BwdTile). At D = 64
+//   the dK/dV thread holds 4 x 64 floats and spills, at D = 128 far more.
+//   At D = 256 and past it the register-tiled pair
 //   (flash_bwd_{dkdv,dq}_f32_tiled_kernel, the note there), bound by the
 //   CUDA cores' FMAs: a lane holds 4 x 4 of S or dP and up to 128
 //   gradient floats, fed by broadcast float4 reads; the tiles come through a 3-slot
 //   cp.async ring, and the gradients are split into column chunks of C =
-//   512, 384, 256 or 128 (the widest that divides D), each recomputing S
-//   and dP in both kernels: 4 n + 3 D-long products a live pair for n =
-//   D / C (7 at D = 384 and 512, 11 at 768 and 1024), against the
-//   one-pass 5.
+//   512, 384, 256 or 128 (the widest that divides D; D = 256 is one chunk),
+//   each recomputing S and dP in both kernels: 4 n + 3 D-long products a
+//   live pair for n = D / C (7 at D = 256, 384 and 512, 11 at 768 and
+//   1024), against the one-pass 5.
 //
 // q, k and v are read in place through (batch, row, head) strides with unit
 // stride on D (the strided views of one fused qkv product); o and dO are
@@ -431,37 +430,17 @@ __device__ __forceinline__ void tile_operands(const float (&sacc)[32], const flo
 
 constexpr int kF32Threads = 128;  // threads a block
 
-// The float32 kernels' tiling at head dim D: up to D = 128 one thread a key
-// (dK/dV) or a query (dQ) with its own row and accumulators in registers,
-// the other side's tiles of 32 rows in shared memory; past 128 a row's D
-// columns are split among kSplit adjacent threads (its float4 chunks part,
-// part + kSplit, ...), each dot product summed across them by warp
-// shuffles, and the shared tiles hold 16 rows: a dK/dV thread keeps 4 x 32
-// registers of rows and sums, and the static tiles stay at 32 KB
+// The float32 kernels' tiling at head dim D <= 128 (D = 256 and past it
+// take the register-tiled pair below): one thread a key (dK/dV) or a query
+// (dQ) with its own row and accumulators in registers, the other side's
+// tiles of 32 rows in shared memory
 template <int D>
 struct F32BwdTile {
-  static constexpr int kSplit = D > 128 ? 8 : 1;       // threads a row
-  static constexpr int kCols = D / kSplit;             // columns a thread
-  static constexpr int kRows = kF32Threads / kSplit;   // keys or queries a block
-  static constexpr int kTile = D > 128 ? 16 : 32;      // rows of the other side a tile
-  static_assert(kCols % 4 == 0, "a thread's columns are float4 chunks");
+  static constexpr int kRows = kF32Threads;  // keys or queries a block
+  static constexpr int kTile = 32;           // rows of the other side a tile
+  static_assert(D <= 128, "D = 256 and past it take the register-tiled pair");
+  static_assert(D % 4 == 0, "rows are float4 chunks");
   static_assert(2 * kTile * D * 4 <= 48 * 1024, "past 48 KB of static shared memory");
-  // column c of a thread's kCols: its float4 chunk c / 4 is the row's
-  // chunk (c / 4) kSplit + part
-  static __device__ __forceinline__ int col(int c, int part) {
-    return 4 * ((c / 4) * kSplit + part) + c % 4;
-  }
-  // the lanes of the thread's row, which agree on every branch and sum each
-  // dot product among themselves
-  static __device__ __forceinline__ unsigned lanes() {
-    return kSplit == 1 ? 0xffffffffu
-                       : ((1u << kSplit) - 1) << ((threadIdx.x & 31) & ~(kSplit - 1));
-  }
-  static __device__ __forceinline__ float row_sum(float x, unsigned lanes) {
-#pragma unroll
-    for (int o = 1; o < kSplit; o <<= 1) x += __shfl_xor_sync(lanes, x, o);
-    return x;
-  }
 };
 
 template <int D>
@@ -477,7 +456,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                           Strides vs, float scale_log2e, float scale,
                           int causal) {
   using Tile = F32BwdTile<D>;
-  constexpr int kCols = Tile::kCols, kTile = Tile::kTile, kSplit = Tile::kSplit;
+  constexpr int kTile = Tile::kTile;
   __shared__ __align__(16) float q_tile[kTile][D];
   __shared__ __align__(16) float do_tile[kTile][D];
   __shared__ float lse_tile[kTile], delta_tile[kTile];
@@ -487,21 +466,19 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
   const int b = bh / h;
   const int hd = bh - b * h;
   const int key0 = kt * Tile::kRows;
-  const int key = key0 + threadIdx.x / kSplit;
-  const int part = threadIdx.x % kSplit;
-  const unsigned lanes = Tile::lanes();
+  const int key = key0 + threadIdx.x;
   const bool live_key = key < s;
 
-  float kr[kCols], vr[kCols], dkr[kCols], dvr[kCols];
+  float kr[D], vr[D], dkr[D], dvr[D];
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) kr[c] = vr[c] = dkr[c] = dvr[c] = 0.0f;
+  for (int c = 0; c < D; ++c) kr[c] = vr[c] = dkr[c] = dvr[c] = 0.0f;
   if (live_key) {
     const float* kp = k + b * ks.b + static_cast<int64_t>(key) * ks.s + hd * ks.h;
     const float* vp = v + b * vs.b + static_cast<int64_t>(key) * vs.s + hd * vs.h;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      kr[c] = kp[Tile::col(c, part)] * scale_log2e;
-      vr[c] = vp[Tile::col(c, part)];
+    for (int c = 0; c < D; ++c) {
+      kr[c] = kp[c] * scale_log2e;
+      vr[c] = vp[c];
     }
   }
   const float* qb = q + b * qs.b + hd * qs.h;
@@ -538,8 +515,8 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
       const float4* dr = reinterpret_cast<const float4*>(do_tile[i]);
       float sc = 0.0f, dp = 0.0f;
 #pragma unroll
-      for (int c = 0; c < kCols / 4; ++c) {
-        const float4 qq = qr[c * kSplit + part], dd = dr[c * kSplit + part];
+      for (int c = 0; c < D / 4; ++c) {
+        const float4 qq = qr[c], dd = dr[c];
         sc = fmaf(qq.x, kr[4 * c], sc);
         sc = fmaf(qq.y, kr[4 * c + 1], sc);
         sc = fmaf(qq.z, kr[4 * c + 2], sc);
@@ -549,13 +526,11 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
         dp = fmaf(dd.z, vr[4 * c + 2], dp);
         dp = fmaf(dd.w, vr[4 * c + 3], dp);
       }
-      sc = Tile::row_sum(sc, lanes);
-      dp = Tile::row_sum(dp, lanes);
       const float p = exp2f(sc - lse_tile[i]);
       const float ds = p * (dp - delta_tile[i]);
 #pragma unroll
-      for (int c = 0; c < kCols / 4; ++c) {
-        const float4 qq = qr[c * kSplit + part], dd = dr[c * kSplit + part];
+      for (int c = 0; c < D / 4; ++c) {
+        const float4 qq = qr[c], dd = dr[c];
         dvr[4 * c] = fmaf(p, dd.x, dvr[4 * c]);
         dvr[4 * c + 1] = fmaf(p, dd.y, dvr[4 * c + 1]);
         dvr[4 * c + 2] = fmaf(p, dd.z, dvr[4 * c + 2]);
@@ -570,9 +545,9 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
   if (!live_key) return;
   const int64_t off = ((static_cast<int64_t>(b) * s + key) * h + hd) * D;
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    dk[off + Tile::col(c, part)] = dkr[c] * scale;
-    dv[off + Tile::col(c, part)] = dvr[c];
+  for (int c = 0; c < D; ++c) {
+    dk[off + c] = dkr[c] * scale;
+    dv[off + c] = dvr[c];
   }
 }
 
@@ -588,7 +563,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         int num_bh, Strides qs, Strides ks, Strides vs,
                         float scale_log2e, float scale, int causal) {
   using Tile = F32BwdTile<D>;
-  constexpr int kCols = Tile::kCols, kTile = Tile::kTile, kSplit = Tile::kSplit;
+  constexpr int kTile = Tile::kTile;
   __shared__ __align__(16) float k_tile[kTile][D];
   __shared__ __align__(16) float v_tile[kTile][D];
 
@@ -596,22 +571,20 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   const int qt = num_q_tiles - 1 - blockIdx.x / num_bh;  // most work first
   const int b = bh / h;
   const int hd = bh - b * h;
-  const int row = qt * Tile::kRows + threadIdx.x / kSplit;
-  const int part = threadIdx.x % kSplit;
-  const unsigned lanes = Tile::lanes();
+  const int row = qt * Tile::kRows + threadIdx.x;
   const bool live_row = row < s;
 
-  float qr[kCols], dr[kCols], dqr[kCols];
+  float qr[D], dr[D], dqr[D];
   float l2 = 0.0f, dl = 0.0f;
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) qr[c] = dr[c] = dqr[c] = 0.0f;
+  for (int c = 0; c < D; ++c) qr[c] = dr[c] = dqr[c] = 0.0f;
   if (live_row) {
     const float* qp = q + b * qs.b + static_cast<int64_t>(row) * qs.s + hd * qs.h;
     const float* dp = dout + ((static_cast<int64_t>(b) * s + row) * h + hd) * D;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      qr[c] = qp[Tile::col(c, part)] * scale_log2e;
-      dr[c] = dp[Tile::col(c, part)];
+    for (int c = 0; c < D; ++c) {
+      qr[c] = qp[c] * scale_log2e;
+      dr[c] = dp[c];
     }
     l2 = lse2[static_cast<int64_t>(bh) * s + row];
     dl = delta[static_cast<int64_t>(bh) * s + row];
@@ -643,8 +616,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
       const float4* vr = reinterpret_cast<const float4*>(v_tile[j]);
       float sc = 0.0f, dp = 0.0f;
 #pragma unroll
-      for (int c = 0; c < kCols / 4; ++c) {
-        const float4 kk = kr[c * kSplit + part], vv = vr[c * kSplit + part];
+      for (int c = 0; c < D / 4; ++c) {
+        const float4 kk = kr[c], vv = vr[c];
         sc = fmaf(qr[4 * c], kk.x, sc);
         sc = fmaf(qr[4 * c + 1], kk.y, sc);
         sc = fmaf(qr[4 * c + 2], kk.z, sc);
@@ -654,12 +627,10 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
         dp = fmaf(dr[4 * c + 2], vv.z, dp);
         dp = fmaf(dr[4 * c + 3], vv.w, dp);
       }
-      sc = Tile::row_sum(sc, lanes);
-      dp = Tile::row_sum(dp, lanes);
       const float ds = exp2f(sc - l2) * (dp - dl);
 #pragma unroll
-      for (int c = 0; c < kCols / 4; ++c) {
-        const float4 kk = kr[c * kSplit + part];
+      for (int c = 0; c < D / 4; ++c) {
+        const float4 kk = kr[c];
         dqr[4 * c] = fmaf(ds, kk.x, dqr[4 * c]);
         dqr[4 * c + 1] = fmaf(ds, kk.y, dqr[4 * c + 1]);
         dqr[4 * c + 2] = fmaf(ds, kk.z, dqr[4 * c + 2]);
@@ -670,16 +641,17 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   if (!live_row) return;
   float* out = dq + ((static_cast<int64_t>(b) * s + row) * h + hd) * D;
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) out[Tile::col(c, part)] = dqr[c] * scale;
+  for (int c = 0; c < D; ++c) out[c] = dqr[c] * scale;
 }
 
-// float32 past D = 256 (any multiple of 128): FA2's pair on the CUDA
-// cores, register-tiled, with a cp.async ring. Bound by the float32 FMAs
-// (5 D-long products a live pair in one pass, at 67 TFLOP/s). A block of
-// 256 threads owns 32 rows of one side (dK/dV: 32 keys; dQ: 32 queries)
-// and one chunk of C columns of its gradients (a grid axis: 512, 384, 256
-// or 128, the widest that divides D, so that a lane's share of dK and dV
-// is 128 floats at most), and walks tiles of 64 rows of the other side.
+// float32 at D = 256 (129-255 padded) and past it (any multiple of 128):
+// FA2's pair on the CUDA cores, register-tiled, with a cp.async ring. Bound
+// by the float32 FMAs (5 D-long products a live pair in one pass, at 67
+// TFLOP/s). A block of 256 threads owns 32 rows of one side (dK/dV: 32
+// keys; dQ: 32 queries) and one chunk of C columns of its gradients (a
+// grid axis: 512, 384, 256 or 128, the widest that divides D, so that a
+// lane's share of dK and dV is 128 floats at most), and walks tiles of 64
+// rows of the other side.
 // Each tile is a run of ring pieces:
 //   * D / 64 S-pieces: 64 columns of the block's rows and of the tile's
 //     rows of the two products' operands (K, V and Q, dO for dK/dV; Q, dO
@@ -696,13 +668,16 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 //     C / 128: the rows' P and dS are one broadcast float4 a row of the
 //     other side, and each float4 of it feeds 4 FMA chains.
 // S and dP are computed once a chunk in each kernel: 4 D / C + 3 D-long
-// products a live pair (7 at D = 384 and 512, 11 at 768 and 1024),
+// products a live pair (7 at D = 256, 384 and 512, 11 at 768 and 1024),
 // against the one-pass 5. The block's own rows come again with each
 // tile's S-pieces (from L2): resident they would take 256 D bytes, 128 KB
 // at D = 512, beside the ring. A ring of 3 slots, one __syncthreads a piece;
 // each gradient element is summed by one thread in a fixed order (no
 // atomics), so two calls give the same bits. 171 KB of shared memory and
-// up to 254 registers: one block an SM.
+// up to 255 registers: one block an SM. At D = 256 neither two blocks an SM
+// (S-pieces of 32 columns, 128 registers: dK/dV spilled 156 B and ran 25 %
+// slower), a 4-slot ring, own rows resident, nor 8 rows a warp in the
+// chunk phase moved its time beyond the run-to-run spread.
 namespace f32b {
 constexpr int kThreads = 256;
 constexpr int kOwn = 32;               // the block's rows
@@ -2307,8 +2282,8 @@ cudaError_t launch_wide(const Args& a) {
   return launch_dq<T, 0>(a, sc);
 }
 
-// float32 past D = 256: the prep pass over the whole D, then the two
-// register-tiled CUDA-core kernels by chunks of C columns
+// float32 at D = 256 and past it: the prep pass over the whole D, then the
+// two register-tiled CUDA-core kernels by chunks of C columns
 template <int C>
 cudaError_t launch_f32_tiled(const Args& a) {
   const Scratch sc(a.num_bh, a.s, a.d, 0);
@@ -2377,8 +2352,11 @@ cudaError_t launch_f32(const Args& a) {
 template <int D>
 cudaError_t dispatch_d(int dtype, const Args& a) {
   switch (dtype) {
-    case 0:
-      return launch_f32<D>(a);
+    case 0:  // at D = 256 the register-tiled pair, one chunk of 256 columns
+      if constexpr (D == 256)
+        return launch_f32_tiled<256>(a);
+      else
+        return launch_f32<D>(a);
     case 1:  // takes_wgmma(dtype, D) for the 16-bit types
       return launch_wgmma<__nv_bfloat16, D>(a);
     case 2:

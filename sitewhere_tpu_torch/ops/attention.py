@@ -43,11 +43,16 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
     (tensor cores would mean TF32, too coarse for the float32 tolerance);
     not on the transformer's path. Up to D = 128 one thread per query row.
     At D = 256 (any D from 129, padded) a register-tiled kernel: a block
-    owns 64 query rows with Q resident in shared memory, K and V tiles of
-    64 keys come through a 4-slot ``cp.async`` ring, and a lane holds a
-    4 x 4 block of S and an 8 x 8 block of O, so each float4 it reads
-    feeds several independent FMA chains; a row's max and sum are reduced
-    over the 16 lanes that share it.
+    of 4 warps owns 32 query rows with Q resident in shared memory, K and
+    V tiles of 64 keys come through a 4-slot ``cp.async`` ring, and a lane
+    holds a 4 x 4 block of S and an 8 x 8 block of O, so each float4 it
+    reads feeds several independent FMA chains; a row's max and sum are
+    reduced over the 16 lanes that share it. Past D = 256 the same lane
+    tiles over two groups of 4 warps: each group sums a partial S over
+    half of D and holds O over half of the columns, and the two partial
+    tiles are added through shared memory, so S is summed once a key tile
+    at D = 384 and 512 (Q resident, 66 KB at 512); past 512 a grid axis
+    over chunks of 512 columns of O, each recomputing S, Q streamed with K.
   * Both read q, k and v in place through their (batch, row, head)
     strides, so the strided views of one fused qkv product need no copies,
     and write a contiguous [B, S, H, D] output. Any S; head dims 16, 32,
@@ -66,9 +71,8 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
     with each key tile, and accumulates only its chunk of O, so O, S and P
     keep the D = 256 kernel's registers at any D. S and its exponentials
     are computed once a chunk: (D / chunk + 1) / 2 times the one-pass
-    products (1.5 at D = 512, 2 at 384). The float32 forward runs the
-    same column split on the CUDA cores (chunks of 128 columns, eight
-    threads a row).
+    products (1.5 at D = 512, 2 at 384). The float32 forward splits the
+    columns only past D = 512 (above).
   * The forward can also write each row's log-sum-exp (``lse`` [B, H, S]
     float32, natural log), which the backward recomputes P from.
 
@@ -97,12 +101,12 @@ dS (the dQ operand) by a power of two fixed before the kernel runs from a
 bound on |dS| (:func:`f16_dq_scale_exponents` is its plain version), so
 that the sum over key blocks stays in one unit. float32 keeps two
 CUDA-core kernels (dK/dV, then dQ), each element summed by one thread,
-so it too is bitwise the same from run to run; past D = 256 they are
-register-tiled (a lane holds 4 x 4 of S or dP and up to 128 gradient
-floats, tiles through a 3-slot ``cp.async`` ring) over column chunks of
-512, 384, 256 or 128 (the widest that divides D), each chunk recomputing
-S and dP: 4 D / C + 3 D-long products a pair (7 at D = 384 and 512),
-against the one-pass 5. It replaces no
+so it too is bitwise the same from run to run; at D = 256 and past it
+they are register-tiled (a lane holds 4 x 4 of S or dP and up to 128
+gradient floats, tiles through a 3-slot ``cp.async`` ring) over column
+chunks of 512, 384, 256 or 128 (the widest that divides D), each chunk
+recomputing S and dP: 4 D / C + 3 D-long products a pair (7 at D = 256,
+384 and 512), against the one-pass 5. It replaces no
 Pallas kernel: the JAX trainer
 (``sitewhere_tpu/models/transformer.py:153``) differentiates the oracle
 ``mha_reference``, and this is that gradient.

@@ -1853,22 +1853,29 @@ def test_box_scores_are_the_product_summed_in_box_order():
 def test_both_kernel_sources_take_head_dims_past_256():
     """The forward and the backward each dispatch every multiple of 128
     past 256 to their wide kernels (column chunks), in every type: float32
-    to the forward's CUDA-core wide kernel and the backward's
+    to the forward's split kernel (two groups of warps, one chunk at D =
+    384 and 512, chunks of 512 columns past it) and the backward's
     register-tiled pair (by the widest of 512, 384, 256 and 128 columns
-    that divides D), which took the old float32 pair's place."""
+    that divides D), which took the old float32 kernels' places."""
     from sitewhere_tpu_torch import cuda_build
 
     fwd = (cuda_build.CSRC / "flash_attention.cu").read_text()
     bwd = (cuda_build.CSRC / "flash_attention_bwd.cu").read_text()
     assert "if (d > 256 && d % 128 == 0)" in fwd and "launch_wide_d<T>(" in fwd
-    assert "flash_attention_wide_kernel" in fwd and "flash_attention_f32_wide_kernel" in fwd
+    assert "flash_attention_wide_kernel" in fwd and "flash_attention_f32_split_kernel" in fwd
+    assert all(f"launch_f32_split<{c}, {x}>(" in fwd
+               for c, x in ((384, "false"), (512, "false"), (512, "true")))
     assert "launch_wide<T, 256>" in fwd and "launch_wide<T, 128>" in fwd
     assert "if (!wide(d)) return cudaErrorInvalidValue;" in bwd
     assert "flash_bwd_wide_kernel" in bwd
     assert all(f"launch_f32_tiled<{c}>(a)" in bwd for c in (512, 384, 256, 128))
     assert "flash_bwd_dkdv_f32_tiled_kernel" in bwd and "flash_bwd_dq_f32_tiled_kernel" in bwd
-    # the float32 pair past 256 and the float32 forward at 256 were redesigned
+    # the float32 kernels at 256 and past it were redesigned: the old
+    # forward past 256 and its helpers, the old pair past 256 and its
+    # eight-threads-a-row D = 256 branch are gone
     assert "f32_wide_kernel" not in bwd and "flash_attention_f32_tiled_kernel" in fwd
+    assert "f32_wide" not in fwd and "kF32Wide" not in fwd
+    assert "launch_f32_tiled<256>(a);" in bwd and "kSplit" not in bwd
     for d in (257, 300, 384, 385, 512, 1000, 1024, 4096):
         dp = tatt.padded_head_dim(d)
         assert dp % tatt.WIDE_STEP == 0 and d <= dp < d + tatt.WIDE_STEP
@@ -1877,9 +1884,10 @@ def test_both_kernel_sources_take_head_dims_past_256():
 
 # ------------------------------------ float32, register-tiled, CUDA cores
 #
-# float32 at D = 256 (and 129 to 255, padded) forward and past D = 256
-# backward run register-tiled CUDA-core kernels
-# (``flash_attention_f32_tiled_kernel``,
+# float32 from D = 256 (and 129 to 255, padded) on runs register-tiled
+# CUDA-core kernels (``flash_attention_f32_tiled_kernel`` at D = 256,
+# ``flash_attention_f32_split_kernel`` past it, where two groups of warps
+# each sum a partial S over half of D and the two halves are added;
 # ``flash_bwd_{dkdv,dq}_f32_tiled_kernel<C>``). Their arithmetic, emulated
 # on the CPU in the kernels' order of sums: every score and dP FMA chains
 # over 64-column pieces in column order, the pieces' sums added in order
@@ -1919,39 +1927,61 @@ def fma_step(acc: torch.Tensor, w: torch.Tensor, x: torch.Tensor) -> torch.Tenso
 
 
 def emulate_f32_tiled_forward(q, k, v, *, causal: bool, sm_scale: float | None = None,
-                              block_k: int = 64) -> tuple:
-    """``(out, lse)`` of ``flash_attention_f32_tiled_kernel`` on the CPU
-    (float32 q, k, v [B, S, H, 256]): key tiles of ``block_k``; each score
-    summed by 64-column pieces (``fma_dots``), times c = scale log2(e) rounded to
-    float32 as the kernel is handed it; a tile's live scores' max; alpha =
-    exp2(m - m_new), P = exp2(s c - m_new) (masked 0); l = l alpha + the
-    tile's sum; O = O alpha, then O += P_j V_j an FMA a key in key order;
-    out = O / l (l = 0 writes 0, lse +inf); lse = (m + log2 l) ln 2."""
+                              block_k: int = 64, groups: int = 1,
+                              chunk: int | None = None) -> tuple:
+    """``(out, lse)`` of the float32 register-tiled forward on the CPU
+    (float32 q, k, v [B, S, H, D]): ``flash_attention_f32_tiled_kernel`` at
+    D = 256 (``groups=1``), ``flash_attention_f32_split_kernel`` past it
+    (``groups=2``: each score the sum in float32 of the first half of D's
+    columns and the second's, group 0's + group 1's, each half summed by
+    64-column pieces; ``chunk``: O's columns by chunks of that width, each
+    recomputing S and the softmax state, lse from chunk 0). Key tiles of
+    ``block_k``; each half's score summed by 64-column pieces
+    (``fma_dots``), times c = scale log2(e) rounded to float32 as the
+    kernel is handed it; a tile's live scores' max; alpha = exp2(m -
+    m_new), P = exp2(s c - m_new) (masked 0); l = l alpha + the tile's
+    sum; O = O alpha, then O += P_j V_j an FMA a key in key order; out = O
+    / l (l = 0 writes 0, lse +inf); lse = (m + log2 l) ln 2."""
     b, s, h, d = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     c = torch.tensor(scale * math.log2(math.e), dtype=torch.float32)
     qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))   # [B, H, S, D]
-    m = torch.full((b, h, s), -1e30)
-    l = torch.zeros((b, h, s))
-    acc = torch.zeros((b, h, s, d))
+    half = d // groups
     rows = torch.arange(s)[:, None]
-    for k0 in range(0, s, block_k):
-        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
-        sc = fma_dots(qf, kt) * c
-        live = torch.ones(s, kt.shape[2], dtype=torch.bool)
-        if causal:
-            live &= torch.arange(k0, k0 + kt.shape[2])[None, :] <= rows
-        m_new = torch.maximum(m, sc.masked_fill(~live, -1e30).amax(-1))
-        alpha = torch.exp2(m - m_new)
-        p = torch.where(live, torch.exp2(sc - m_new[..., None]), 0.0)
-        l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None]
-        for j in range(kt.shape[2]):
-            acc = fma_step(acc, p[..., j, None], vt[:, :, j, None, :])
-        m = m_new
-    out = acc / torch.where(l == 0, 1.0, l)[..., None]
-    lse = torch.where(l == 0, math.inf, (m + torch.log2(l)) * math.log(2.0))
-    return out.transpose(1, 2).contiguous(), lse
+    outs, lse = [], None
+    for c0 in range(0, d, chunk or d):
+        cols = slice(c0, c0 + (chunk or d))
+        m = torch.full((b, h, s), -1e30)
+        l = torch.zeros((b, h, s))
+        acc = torch.zeros((b, h, s, vf[..., cols].shape[-1]))
+        for k0 in range(0, s, block_k):
+            kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k, cols]
+            sc = fma_dots(qf[..., :half], kt[..., :half])
+            for g in range(1, groups):
+                sc = sc + fma_dots(qf[..., g * half:(g + 1) * half], kt[..., g * half:(g + 1) * half])
+            sc = sc * c
+            live = torch.ones(s, kt.shape[2], dtype=torch.bool)
+            if causal:
+                live &= torch.arange(k0, k0 + kt.shape[2])[None, :] <= rows
+            m_new = torch.maximum(m, sc.masked_fill(~live, -1e30).amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(live, torch.exp2(sc - m_new[..., None]), 0.0)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None]
+            for j in range(kt.shape[2]):
+                acc = fma_step(acc, p[..., j, None], vt[:, :, j, None, :])
+            m = m_new
+        outs.append(acc / torch.where(l == 0, 1.0, l)[..., None])
+        if lse is None:
+            lse = torch.where(l == 0, math.inf, (m + torch.log2(l)) * math.log(2.0))
+    return torch.cat(outs, -1).transpose(1, 2).contiguous(), lse
+
+
+def f32_forward_layout(dp: int) -> dict:
+    """How the float32 forward runs a padded head dim ``dp`` >= 256, as
+    ``emulate_f32_tiled_forward``'s arguments: one group at 256, two past
+    it, O by chunks of 512 columns past 512."""
+    return dict(groups=1 if dp == 256 else 2, chunk=512 if dp > 512 else None)
 
 
 def emulate_f32_tiled_backward(q, k, v, o, do, lse, *, causal: bool,
@@ -2011,16 +2041,42 @@ def test_f32_tiled_forward_arithmetic_at_d256_holds_to_jax(case):
     times float32's first-order bound where that is larger (it frees
     elements only at sm_scale -0.3, none at the default scale); lse within
     F32 of ``jax.nn.logsumexp`` of JAX's scaled, masked scores."""
+    _f32_forward_arithmetic_holds_to_jax(*case, seed=120)
+
+
+# past D = 256 (``flash_attention_f32_split_kernel``): D = 384 (two groups
+# of 192 columns) and 512 (of 256), D = 300 padded to 384, and D = 1024 by
+# chunks of 512 columns of O, each recomputing S
+F32_SPLIT_FWD_CASES = [(d, s, causal, sm_scale) for d, s in ((384, 300), (512, 1), (512, 65))
+                       for causal in (False, True) for sm_scale in (None, 0.0, -0.3)]
+F32_SPLIT_FWD_CASES += [(300, 300, True, None), (300, 65, False, -0.3),
+                        (1024, 65, True, None), (1024, 65, False, -0.3)]
+
+
+@pytest.mark.parametrize("case", F32_SPLIT_FWD_CASES)
+def test_f32_split_forward_arithmetic_past_d256_holds_to_jax(case):
+    """The float32 forward past D = 256 (``flash_attention_f32_split_kernel``:
+    each score the sum of two groups' partial dots over the halves of D,
+    each by 64-column pieces; past 512 by chunks of 512 columns, each
+    recomputing S; D = 300 zero-padded to 384 at the true D's scale):
+    every output element within F32 of JAX's oracle, or within
+    GRAD_ARITH_MARGIN times float32's first-order bound where that is
+    larger (none freed at the default scale); lse within F32 of
+    ``jax.nn.logsumexp``."""
+    _f32_forward_arithmetic_holds_to_jax(*case, seed=150)
+
+
+def _f32_forward_arithmetic_holds_to_jax(d, s, causal, sm_scale, *, seed):
     import chip_smoke as cs
 
-    d, s, causal, sm_scale = case
-    arrays = _qkv((1, s, 2, d), seed=120 + s + d) + _qkv((1, s, 2, d), seed=121 + s + d)[:1]
+    arrays = _qkv((1, s, 2, d), seed=seed + s + d) + _qkv((1, s, 2, d), seed=seed + 1 + s + d)[:1]
     jq, jk, jv = (jnp.asarray(a) for a in arrays[:3])
     ref = np.array(jatt.mha_reference(jq, jk, jv, causal=causal, sm_scale=sm_scale))
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in arrays)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    out, lse = emulate_f32_tiled_forward(*(tatt.pad_head_dim(t, 256) for t in (tq, tk, tv)),
-                                         causal=causal, sm_scale=scale)
+    dp = tatt.padded_head_dim(d)
+    out, lse = emulate_f32_tiled_forward(*(tatt.pad_head_dim(t, dp) for t in (tq, tk, tv)),
+                                         causal=causal, sm_scale=scale, **f32_forward_layout(dp))
     out = out[..., :d]
     assert out.dtype == torch.float32 and out.shape == (1, s, 2, d)
     assert bool(torch.isfinite(out).all())
@@ -2050,10 +2106,25 @@ def test_f32_tiled_backward_arithmetic_past_d256_holds_to_jax_grad(d, s, causal,
     first-order error bound of the formula on the row where that is larger
     (the C6 rule; at the default scale it frees no row); a zero scale
     gives dq = dk = 0 exactly."""
+    _f32_tiled_backward_holds_to_jax_grad(d, s, causal, sm_scale, seed=130)
+
+
+@pytest.mark.parametrize("sm_scale", [None, 0.0, -0.3])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d, s", [(256, 300), (256, 65), (256, 1), (192, 65)])
+def test_f32_tiled_backward_arithmetic_at_d256_holds_to_jax_grad(d, s, causal, sm_scale):
+    """The float32 backward at D = 256 (the same register-tiled pair, one
+    chunk of 256 columns; D = 192 zero-padded to 256 at the true D's
+    scale, the gradients sliced back): held to ``jax.vjp`` of JAX's oracle
+    by the rule above."""
+    _f32_tiled_backward_holds_to_jax_grad(d, s, causal, sm_scale, seed=160)
+
+
+def _f32_tiled_backward_holds_to_jax_grad(d, s, causal, sm_scale, *, seed):
     import chip_smoke as cs
 
     shape = (1, s, 1, d)
-    seed = 130 + s + d
+    seed += s + d
     arrays = _qkv(shape, seed=seed) + _qkv(shape, seed=seed + 1)[:1]
     jq, jk, jv, jdo = (jnp.asarray(a) for a in arrays)
     out, vjp = jax.vjp(lambda q, k, v: jatt.mha_reference(q, k, v, causal=causal,
@@ -2062,9 +2133,12 @@ def test_f32_tiled_backward_arithmetic_past_d256_holds_to_jax_grad(d, s, causal,
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in arrays)
     o = torch.from_numpy(np.array(out))
     lse = tatt.lse_reference(tq, tk, causal=causal, sm_scale=sm_scale)
-    chunk = next(x for x in (512, 384, 256, 128) if d % x == 0)
-    got = emulate_f32_tiled_backward(tq, tk, tv, o, tdo, lse, causal=causal,
-                                     sm_scale=sm_scale, chunk=chunk)
+    dp = tatt.padded_head_dim(d)
+    chunk = next(x for x in (512, 384, 256, 128) if dp % x == 0)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    got = emulate_f32_tiled_backward(*(tatt.pad_head_dim(t, dp) for t in (tq, tk, tv, o, tdo)),
+                                     lse, causal=causal, sm_scale=scale, chunk=chunk)
+    got = [g[..., :d] for g in got]
     bounds = cs.float64_reference(tq, tk, tv, o, tdo, lse, causal, sm_scale)[3]
     for name, g, r, b in zip("qkv", got, ref, bounds):
         assert g.dtype == torch.float32 and g.shape == shape
@@ -2105,16 +2179,20 @@ def test_fma_dots_sums_pieces_of_fma_chains_in_column_order():
     assert fma_dots(y[None], torch.ones(1, 4), 2)[0, 0] == 1.0 + 2.0 ** -23
 
 
-@pytest.mark.parametrize("case", [(2, 300, 2, 256, False, None), (2, 65, 1, 192, True, -0.3)])
+@pytest.mark.parametrize("case", [(2, 300, 2, 256, False, None), (2, 65, 1, 192, True, -0.3),
+                                  (2, 200, 2, 512, False, None), (1, 65, 1, 300, True, -0.3),
+                                  (1, 65, 1, 1024, True, None)])
 def test_f32_tiled_forward_emulation_matches_the_plain_version(case):
-    """The emulated D = 256 forward and its lse against the port's plain
-    versions on the same inputs, within F32: the two differ only in the
-    order of their float32 sums."""
+    """The emulated float32 forward (at D = 256, and past it the split
+    kernel's, by chunks of 512 columns at D = 1024) and its lse against
+    the port's plain versions on the same inputs, within F32: the two
+    differ only in the order of their float32 sums."""
     b, s, h, d, causal, sm_scale = case
     q, k, v = (torch.from_numpy(a) for a in _qkv((b, s, h, d), seed=140 + s))
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    out, lse = emulate_f32_tiled_forward(*(tatt.pad_head_dim(t, 256) for t in (q, k, v)),
-                                         causal=causal, sm_scale=scale)
+    dp = tatt.padded_head_dim(d)
+    out, lse = emulate_f32_tiled_forward(*(tatt.pad_head_dim(t, dp) for t in (q, k, v)),
+                                         causal=causal, sm_scale=scale, **f32_forward_layout(dp))
     torch.testing.assert_close(out[..., :d], tatt.mha_reference(q, k, v, causal=causal,
                                                               sm_scale=sm_scale), **F32)
     torch.testing.assert_close(lse, tatt.lse_reference(q, k, causal=causal, sm_scale=sm_scale),
@@ -2123,11 +2201,11 @@ def test_f32_tiled_forward_emulation_matches_the_plain_version(case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("d", [256, 384, 512])
 def test_cuda_f32_tiled_backward_is_bitwise_deterministic(d, causal):
-    """The float32 backward past D = 256 sums each gradient element in one
-    thread in a fixed order (no atomics): two calls on the same inputs
-    give the same bits."""
+    """The float32 backward at D = 256 and past it sums each gradient
+    element in one thread in a fixed order (no atomics): two calls on the
+    same inputs give the same bits."""
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(11)
     qkv = torch.randn((1, 1000, 3, 1, d), device="cuda", generator=gen)
@@ -2142,15 +2220,17 @@ def test_cuda_f32_tiled_backward_is_bitwise_deterministic(d, causal):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [192, 256, 300, 512])
+@pytest.mark.parametrize("d", [192, 256, 300, 512, 1024])
 def test_cuda_float32_past_128_takes_the_tiled_kernels(d):
     """float32 at D = 129 to 256 runs the register-tiled forward
-    (``flash_attention_f32_tiled_kernel``) and past 256 the register-tiled
+    (``flash_attention_f32_tiled_kernel``) and past 256 its split over two
+    groups of warps (``flash_attention_f32_split_kernel<C, kStreamQ>``:
+    C = 384 or 512 with Q resident at D = 384 and 512, chunks of 512
+    columns with Q streamed past 512); from D = 129 on the register-tiled
     backward pair (``flash_bwd_{dkdv,dq}_f32_tiled_kernel<C>``, C the
     widest of 512, 384, 256 and 128 that divides the padded D), by the
-    profiler's kernel
-    names through autograd; the D = 256 backward pair and the wide forward
-    keep their kernels."""
+    profiler's kernel names through autograd; none of the kernels they
+    replaced runs."""
     _cuda_or_skip()
     from torch.profiler import ProfilerActivity, profile
 
@@ -2163,17 +2243,17 @@ def test_cuda_float32_past_128_takes_the_tiled_kernels(d):
     names = [e.key for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA and "flash" in e.key]
     dp = tatt.padded_head_dim(d)
-    fwd = "flash_attention_f32_tiled_kernel" if dp == 256 else "flash_attention_f32_wide_kernel"
-    assert any(fwd in n for n in names), names
     if dp == 256:
-        want = ("flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_f32_kernel")
-        assert all(any(w in n and "256" in n for n in names) for w in want), names
-        assert not any("f32_tiled_kernel<" in n or "tiled_kernelILi" in n for n in names), names
+        assert any("flash_attention_f32_tiled_kernel" in n for n in names), names
     else:
-        chunk = next(str(x) for x in (512, 384, 256, 128) if dp % x == 0)
-        want = ("flash_bwd_dkdv_f32_tiled_kernel", "flash_bwd_dq_f32_tiled_kernel")
-        assert all(any(w in n and chunk in n for n in names) for w in want), names
-    assert not any("flash_attention_f32_kernel" in n for n in names), names
+        split = "384" if dp == 384 else "512"
+        assert any("flash_attention_f32_split_kernel" in n and split in n for n in names), names
+    chunk = next(str(x) for x in (512, 384, 256, 128) if dp % x == 0)
+    want = ("flash_bwd_dkdv_f32_tiled_kernel", "flash_bwd_dq_f32_tiled_kernel")
+    assert all(any(w in n and chunk in n for n in names) for w in want), names
+    for old in ("flash_attention_f32_kernel", "flash_attention_f32_wide_kernel",
+                "flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_f32_kernel"):
+        assert not any(old in n for n in names), (old, names)
     assert bool(torch.isfinite(qkv.grad).all()) and bool(qkv.grad.any())
 
 
@@ -2181,20 +2261,24 @@ def test_c6_profiler_check_names_the_float32_kernels():
     """``chip_smoke.py``'s C6 phase reads the kernels that ran at its
     float32 timed shapes from the profiler's names (demangled or mangled,
     ``_kernel_name``) and holds them to ``TF_C6_TAKES``: the register-tiled
-    forward at D = 256 and backward pair at D = 512 pass; the kernels they
-    replaced, or a missing one, fail."""
+    forward at D = 256, the split forward at D = 512 and the register-tiled
+    backward pair at both (by chunks of 256 and 512 columns) pass; the
+    kernels they replaced, or a missing one, fail."""
     import chip_smoke as cs
 
     ns = "void (anonymous namespace)::"
     args = "(float const*, float const*, float const*, float*, float*, int)"
     new = {"d256_f32": [f"{ns}flash_attention_f32_tiled_kernel{args}",
+                        f"{ns}flash_bwd_dkdv_f32_tiled_kernel<256>{args}",
+                        f"{ns}flash_bwd_dq_f32_tiled_kernel<256>{args}"],
+           "d512_f32": [f"{ns}flash_attention_f32_split_kernel<512, false>{args}",
+                        "_ZN12_GLOBAL__N_131flash_bwd_dkdv_f32_tiled_kernelILi512EEEvPKfS2_",
+                        f"{ns}flash_bwd_dq_f32_tiled_kernel<512>{args}"]}
+    old = {"d256_f32": [f"{ns}flash_attention_f32_kernel<256>{args}",
                         f"{ns}flash_bwd_dkdv_f32_kernel<256>{args}",
                         f"{ns}flash_bwd_dq_f32_kernel<256>{args}"],
            "d512_f32": [f"{ns}flash_attention_f32_wide_kernel{args}",
-                        "_ZN12_GLOBAL__N_131flash_bwd_dkdv_f32_tiled_kernelILi512EEEvPKfS2_",
-                        f"{ns}flash_bwd_dq_f32_tiled_kernel<512>{args}"]}
-    old = {"d256_f32": [f"{ns}flash_attention_f32_kernel<256>{args}"],
-           "d512_f32": [f"{ns}flash_bwd_dkdv_f32_wide_kernel{args}",
+                        f"{ns}flash_bwd_dkdv_f32_wide_kernel{args}",
                         f"{ns}flash_bwd_dq_f32_wide_kernel{args}"]}
     for name, keys in new.items():
         ran = [cs._kernel_name(k) for k in keys]
