@@ -42,8 +42,9 @@ HERE = pathlib.Path(__file__).resolve()
 # (the default d_model at 4 heads, the d_model=384, heads=8 model's D = 48
 # padded to 64), the rows held to run-to-run noise, float32 at D = 256
 # and 512 on the CUDA-core kernels (chip_smoke.C6_TIMED_SHAPES), and
-# float32 at D = 16, 64 and 128 (the one-thread-a-row forward and
-# backward pair) at the default d_model's width on 8 windows of 4096 steps
+# float32 at D = 16 and 64 (the one-thread-a-row forward and backward pair)
+# and 128 (the register-tiled forward and the one-pass backward) at the
+# default d_model's width on 8 windows of 4096 steps
 TIMED = {
     "d64_bf16": (8, 16384, 4, 64, "bfloat16"),
     "d64_f16": (8, 16384, 4, 64, "float16"),
@@ -61,7 +62,9 @@ TIMED = {
 }
 # the timed calls a shape, as chip_smoke.py's C6 phase takes
 REPS = 10
-# name: (B, S, H, D, dtype name, causal, sm_scale)
+# name: (B, S, H, D, dtype name, causal, sm_scale): both 16-bit types at
+# D = 32 and 128, and float32 at D = 256 and 512 (the register-tiled
+# forward and its split past 256)
 HASHED = {
     f"d{d}_{t}_{name}": (b, s, h, d, t, c, x)
     for d in (32, 128) for t in ("bfloat16", "float16")
@@ -70,6 +73,11 @@ HASHED = {
                                   "s1_causal": (2, 1, 2, True, None),
                                   "scale-0.3": (2, 333, 2, True, -0.3),
                                   "main": (8, 16384, 2, True, None)}.items()
+} | {
+    f"d{d}_float32_{name}": (b, s, h, d, "float32", c, x)
+    for d in (256, 512)
+    for name, (b, s, h, c, x) in {"s1000_causal": (2, 1000, 2, True, None),
+                                  "scale-0.3": (2, 333, 2, True, -0.3)}.items()
 }
 
 

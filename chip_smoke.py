@@ -13,7 +13,9 @@ Phases, each printed as one JSON line:
              zero-padded, D = 128, float16 at D = 8, 32, 48, 128,
              past 128: D = 256 and 192 (padded to it) in all three types,
              and past 256 (the wide kernels): D = 300 (padded to 384),
-             384, 512 and 1024 in all three types,
+             384, 512 and 1024 in all three types, float32 at D = 128 and
+             256 on rows that are not 16-byte aligned (last, from a
+             generator of their own),
              the forward, its lse and the backward row by row against the
              plain versions (cases up to S = 1000 against float64, each
              element and row within its type's limit or 1.5 times
@@ -23,9 +25,11 @@ Phases, each printed as one JSON line:
              kernels), at [8, 16384, 8, 32] float16, at [8, 16384, 1, 256]
              and [8, 16384, 1, 512] in both 16-bit types (which SDPA
              backend ran recorded) and, in bf16, at [8, 16384, 16, 16] and
-             [8, 16384, 4, 64], float32 at [2, 4096, 1, 256] and
-             [2, 4096, 1, 512], with their floors and ptxas's registers
-             and spills;
+             [8, 16384, 4, 64], float32 at [8, 4096, 2, 128],
+             [2, 4096, 1, 256] and [2, 4096, 1, 512] (each also held to
+             the plain versions, run twice for the backward's bits and
+             profiled for the kernels' names), with their floors and
+             ptxas's registers and spills;
              flash_attention_backward's record also checks the
              forward's log-sum-exp and that two calls give the same bits,
              and gives ptxas's registers and spills, the kernel's time over
@@ -132,21 +136,26 @@ Phases, each printed as one JSON line:
              dims 128, 8, 48, 64, and 32, 64 and 128 in float16) and those
              past head dim 128 (``d_model=256, heads=1`` in bf16 and
              float16, ``d_model=384, heads=2``: D = 256, and 192 padded to
-             it) on [2, 4096] windows:
+             it), past 256 (``d_model=512, heads=1`` and the others of
+             ``TF_C6_CONFIGS``) and the head-dim-128 model in float32
+             (``d_model=256, heads=2, dtype=torch.float32``: the
+             register-tiled forward and the one-pass CUDA-core backward) on
+             [2, 4096] windows:
              ``forecast_scores`` and one ``make_train_step`` step each,
              every layer's attention and its gradient through the kernels
              (launch counts reset just before and read just after), the
-             first window within TF_SCORE_RTOL of the plain attention; the
-             float16 ones profiled once more, the attention kernels by
+             first window within TF_SCORE_RTOL of the plain attention (a
+             float32 config's parameter gradients there within GRAD_TOL of
+             their norms); the float16 ones profiled once more, the attention kernels by
              name (the one-pass wgmma/TMA backward, at D = 64, 128 and 256
              the wgmma/TMA forward, no mma.sync backward). Then
-             the head-dim-128, 64 and 256 models at full width (8 windows of 16384
-             steps): one timed ``forecast_scores`` call and one timed train
-             step (launch counts reset before the one and read after the
+             the head-dim-128, 64, 256 and 512 models and the float32
+             head-dim-128 one at full width (8 windows of 16384 steps): one
+             timed ``forecast_scores`` call and one timed train step
+             (launch counts reset before the one and read after the
              other), and one profiled call of each: the busy share and the
-             attention kernels that ran, which must be the wgmma/TMA
-             forward and one-pass backward and none of the mma.sync
-             kernels.
+             attention kernels that ran, which must be those of
+             ``TF_C6_TAKES`` and none of ``TF_C6_NOT``.
 8. read    — the read side and the whole fused step at the slice's width:
              64 geofence zones of 16 vertices and the bench's CEP rule set
              installed, 24 slice batches (channel 0 rewritten by the bench's
@@ -715,6 +724,14 @@ def fused_qkv(b: int, s: int, h: int, d: int, dtype, device, gen):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
+def misaligned_qkv(b: int, s: int, h: int, d: int, device, gen):
+    """float32 q, k, v as contiguous views of one flat tensor whose base
+    lies one float past a 16-byte boundary: rows the float32 kernels copy
+    4 bytes at a time."""
+    flat = torch.randn(3 * b * s * h * d + 1, device=device, generator=gen)
+    return flat[1:].view(3, b, s, h, d).unbind(0)
+
+
 PLAIN_HEADS = 8     # heads the plain versions take at once, one window at a time
 
 
@@ -900,6 +917,7 @@ def plain_backward_per_window(q, k, v, o, do, lse, causal: bool,
 # 32 MB); longer ones to the plain version
 COND_MAX_S = 1000
 F32_UNIT = 2.0 ** -24       # float32's unit roundoff
+F32_TINY = torch.finfo(torch.float32).tiny
 
 
 def float64_reference(q, k, v, o, do, lse, causal: bool,
@@ -1122,9 +1140,11 @@ C6_MAIN_HEADS = {"main_d64_bf16": (4, 64, torch.bfloat16),
                  "main_d512_f16": (1, 512, torch.float16)}
 # timed only, there: the default model's width at D = 16 in bf16
 C6_TIMED_HEADS = {"d16_bf16": (16, 16, torch.bfloat16)}
-# timed only, at a shape of their own: float32 at D = 256 and 512 (the
-# CUDA-core kernels, off the transformer's path) on 2 windows of 4096 steps
-C6_TIMED_SHAPES = {"d256_f32": ((2, 4096, 1, 256), torch.float32),
+# timed only, at a shape of their own: float32 at D = 128 (the
+# d_model=256, heads=2 model's width on 8 windows of 4096 steps), 256 and
+# 512 (on 2 windows of 4096) on the CUDA-core kernels
+C6_TIMED_SHAPES = {"d128_f32": ((8, 4096, 2, 128), torch.float32),
+                   "d256_f32": ((2, 4096, 1, 256), torch.float32),
                    "d512_f32": ((2, 4096, 1, 512), torch.float32)}
 
 
@@ -1314,13 +1334,41 @@ def _c6_timings(q, k, v, do, causal: bool, device, reps: int) -> dict:
     return {"forward": fwd, "backward": bwd}
 
 
+def _held_to_plain(q, k, v, o, lse, do, grads, fails, what: str) -> dict:
+    """A causal forward's output ``o`` and ``lse`` and its gradients
+    ``grads`` against the plain versions one window at a time: each output
+    element within FLASH_TOL (rtol = atol), the lse within LSE_TOL, each
+    gradient row within GRAD_TOL of the row's largest element (GRAD_ATOL
+    off on the rows whose exact gradient is 0). Returns the readings."""
+    ref_o = plain_per_window(q, k, v, True)
+    e = {"out_over_limit": _allclose_share(o, ref_o) / FLASH_TOL[q.dtype]}
+    del ref_o
+    ref_lse = lse_per_window(q, k, True)
+    e["lse"] = (lse - ref_lse).abs().max().item()
+    fails.check(e["out_over_limit"] <= 1.0 and bool(torch.isfinite(o.float()).all())
+                and torch.allclose(lse, ref_lse, rtol=LSE_TOL, atol=LSE_TOL),
+                f"flash_attention disagrees on {what} {tuple(q.shape)} {q.dtype}: "
+                f"{e['out_over_limit']} times the output's limit, lse err {e['lse']}")
+    ref = plain_backward_per_window(q, k, v, o, do, lse, True)
+    for t, g, r in zip("qkv", grads, ref):
+        e[f"d{t}_row_share"] = fa.gradient_row_shares(g, r, f"d{t}", causal=True,
+                                                      atol=GRAD_ATOL).max().item()
+        fails.check(bool(torch.isfinite(g.float()).all())
+                    and e[f"d{t}_row_share"] <= GRAD_TOL[q.dtype],
+                    f"flash_attention_backward d{t} disagrees on {what} {tuple(q.shape)} "
+                    f"{q.dtype}: worst row err {e[f'd{t}_row_share']} of the row against "
+                    f"{GRAD_TOL[q.dtype]}")
+    return e
+
+
 def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN,
                           reps: int = 10) -> dict:
     """The attention at every head dim and in float16 (fault C6): the
     forward, its ``lse`` and the backward against their plain versions at
     D = 8, 48 and 100 (zero-padded to 16, 64 and 128), D = 128 (its own
     instantiations) in bf16 and float32, float16 at D = 8, 32, 48, 64 and
-    128, causal and not, S = 1 and a ragged S, contiguous inputs, a negative
+    128, causal and not, S = 1 and a ragged S, contiguous inputs, float32
+    at D = 128 and 256 on rows that are not 16-byte aligned, a negative
     and a zero scale (at D = 64 in both 16-bit types, with S = 1, 65 and
     777 and 1000), D = 256 and 192 (padded to it) in all three types with
     S = 333, both signs of scale and, at 256, S = 1, 65 and 1000, and
@@ -1342,8 +1390,9 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
     and D = 256 in both types (``C6_MAIN_HEADS``). Then times the
     forward and the backward against SDPA, causal, at each main shape from
     the checked tensors, at the default model's width with D = 16
-    (``C6_TIMED_HEADS``) and float32 at D = 256 on [2, 4096]
-    (``C6_TIMED_SHAPES``), with the floors, and ptxas's registers and
+    (``C6_TIMED_HEADS``) and float32 at D = 128, 256 and 512
+    (``C6_TIMED_SHAPES``: these also held to the plain versions, two
+    backward calls bit for bit), with the floors, and ptxas's registers and
     spills of every wgmma and float16 kernel and of each kernel at
     D = 128 and 256."""
     gen = torch.Generator(device=device).manual_seed(5)
@@ -1353,10 +1402,22 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
     cases["main_f16"] = (fused_qkv(*f16_main, torch.float16, device, gen), True, None)
     for name, (h, d, dt) in C6_MAIN_HEADS.items():
         cases[name] = (fused_qkv(main[0], main[1], h, d, dt, device, gen), True, None)
+    # float32 at D = 128 and 256 on rows that are not 16-byte aligned (the
+    # register-tiled forward's and backward's 4-byte copies): inputs and dO
+    # from a generator of their own, so that every other case draws what it
+    # drew without them
+    gen_m = torch.Generator(device=device).manual_seed(15)
+    misaligned = {}
+    for d, causals in ((128, (True, False)), (256, (True,))):
+        for causal in causals:
+            misaligned[f"d{d}_f32_misaligned_{'causal' if causal else 'full'}"] = (
+                misaligned_qkv(2, 333, 2, d, device, gen_m), causal, None)
+    cases |= misaligned
     errs, launches = {}, {"flash_attention": 0, "flash_attention_backward": 0}
     saved = {}
     for name, ((q, k, v), causal, scale) in cases.items():
-        do = torch.randn(q.shape, device=device, generator=gen).to(q.dtype)
+        do = torch.randn(q.shape, device=device,
+                         generator=gen_m if name in misaligned else gen).to(q.dtype)
         f0, b0 = fa.flash_attention.launches, fa.flash_attention_backward.launches
         got = fa.flash_attention(q, k, v, causal=causal, sm_scale=scale)
         o, lse = fa.flash_attention_forward(q, k, v, causal=causal, sm_scale=scale)
@@ -1505,7 +1566,11 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
             torch.equal(x, y) for x, y in zip(first, again))
         fails.check(timings[name]["bitwise_deterministic"],
                     f"flash_attention_backward gives other bits on a second call at {name}")
-        del o, lse, first, again
+        # the outputs, lse and gradients at this shape against the plain
+        # versions on the same inputs, as the C6 cases past COND_MAX_S are
+        timings[name]["errors"] = e = _held_to_plain(q, k, v, o, lse, do, first, fails,
+                                                     f"C6 {name}")
+        del o, lse, first, again, e
         if device.type == "cuda":
             # the float32 kernels by profiler name (TF_C6_TAKES[name]),
             # over three calls of each
@@ -1523,7 +1588,8 @@ def phase_kernel_flash_c6(device, log, fails, main=C6_MAIN, f16_main=C6_F16_MAIN
                                prefix="flash_attention"),
              **ptxas_resources(cuda_build.build_info.get(fa.BWD_KERNEL, {}).get("ptxas", ""))}
     ptxas = {k: v for k, v in ptxas.items() if "f16" in k.replace("bf16", "") or "128>" in k
-             or "256>" in k or "wgmma" in k or "wide" in k or "tiled" in k or "split" in k}
+             or "256>" in k or "wgmma" in k or "wide" in k or "tiled" in k or "split" in k
+             or "onepass" in k}
     # each type's worst output error and gradient row, and float16's control
     by_dtype = {}
     for name, e in errs.items():
@@ -6617,7 +6683,8 @@ async def _servers_analytics(inst, gw, spec, t) -> dict:
     """The analytics routes twice: timed, then under torch.profiler (the
     window_features kernel by name; a window whose first kernel is the
     only one can come back without device records, so the window spans all
-    three routes). The timed pass's scores are held against the plain
+    three routes, and a capture with no device record at all is taken
+    again, up to three times). The timed pass's scores are held against the plain
     window_features on the same windows through the same model, taken
     before the profiled pass's train route steps the model on."""
     svc = inst.analytics
@@ -6632,12 +6699,8 @@ async def _servers_analytics(inst, gw, spec, t) -> dict:
             plain = _plain_scores(svc.model, data, wins.filled, svc.min_fill).float().cpu()
     names = []
     if torch.device(inst.engine.device).type == "cuda":
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _, prof in _profiler_captures():
             await _analytics_routes(gw, spec, None)
-            torch.cuda.synchronize()
         names = sorted({e.key for e in prof.key_averages()
                         if "window_features" in e.key})
     launches = wf.window_features.launches
@@ -7740,12 +7803,16 @@ TF_C6_CONFIGS = {"d128": TransformerConfig(d_model=256, heads=2),
                  "d512": TransformerConfig(d_model=512, heads=1),
                  "d384": TransformerConfig(d_model=384, heads=1),
                  "d320": TransformerConfig(d_model=640, heads=2),
-                 "f16_d512": TransformerConfig(d_model=512, heads=1, dtype=torch.float16)}
+                 "f16_d512": TransformerConfig(d_model=512, heads=1, dtype=torch.float16),
+                 # the head-dim-128 model in float32 (the CUDA-core kernels)
+                 "f32_d128": TransformerConfig(d_model=256, heads=2, dtype=torch.float32)}
 TF_C6_SHAPE = (2, 4096)
 # the full-width legs of transformer_c6: the head-dim-128, 64, 256 and 512
-# models on the transformer phase's 8 windows of 16384 steps
+# models and the float32 head-dim-128 one on the transformer phase's 8
+# windows of 16384 steps
 TF_C6_FULL = (("d128", (TF_WINDOWS, TF_STEPS)), ("d64", (TF_WINDOWS, TF_STEPS)),
-              ("d256", (TF_WINDOWS, TF_STEPS)), ("d512", (TF_WINDOWS, TF_STEPS)))
+              ("d256", (TF_WINDOWS, TF_STEPS)), ("d512", (TF_WINDOWS, TF_STEPS)),
+              ("f32_d128", (TF_WINDOWS, TF_STEPS)))
 # the attention kernels a config must take on the card, by profiler name:
 # (kernel, its type argument, its head dim or None); and the names none may
 # take. Both 16-bit types run the one-pass wgmma/TMA backward at every D
@@ -7780,12 +7847,15 @@ TF_C6_TAKES = {
              ("flash_bwd_wide_kernel", "__nv_bfloat16", None)),
     "f16_d512": (("flash_attention_wide_kernel", "__half", 256),
                  ("flash_bwd_wide_kernel", "__half", None)),
-    # the C6 phase's float32 timed shapes (C6_TIMED_SHAPES): the
-    # register-tiled forward at D = 256 and, past 256, its split over two
-    # groups of warps (Q resident, one chunk of 512 columns at D = 512);
-    # the register-tiled backward pair by chunks of 256 columns at D = 256,
-    # of 512 at D = 512
-    "d256_f32": (("flash_attention_f32_tiled_kernel", "", None),
+    # the C6 phase's float32 timed shapes (C6_TIMED_SHAPES) and the
+    # float32 model: the register-tiled forward at D = 128 and 256 and, past
+    # 256, its split over two groups of warps (Q resident, one chunk of 512
+    # columns at D = 512); the one-pass backward at D = 128, the
+    # register-tiled backward pair by chunks of 256 columns at D = 256, of
+    # 512 at D = 512
+    **{name: (("flash_attention_f32_tiled_kernel", "", 128),
+              ("flash_bwd_f32_onepass_kernel", "", None)) for name in ("d128_f32", "f32_d128")},
+    "d256_f32": (("flash_attention_f32_tiled_kernel", "", 256),
                  ("flash_bwd_dkdv_f32_tiled_kernel", "", 256),
                  ("flash_bwd_dq_f32_tiled_kernel", "", 256)),
     "d512_f32": (("flash_attention_f32_split_kernel", "", 512),
@@ -7798,9 +7868,13 @@ TF_C6_NOT = {"f16": _MMA_BWD} | {name: ("flash_attention_bf16_kernel", *_MMA_BWD
     name: ("flash_attention_bf16_kernel", "flash_attention_wgmma_kernel",
            "flash_bwd_wgmma_kernel", *_MMA_BWD)
     for name in ("d512", "d384", "d320", "f16_d512")} | {
-    # the float32 kernels these replaced (the D = 256 instantiation of the
-    # one-row forward, the eight-threads-a-row backward pair at D = 256,
-    # the column-chunk forward and backward pair past 256)
+    # the float32 kernels these replaced (the D = 128 and 256
+    # instantiations of the one-row forward, the one-thread-a-row backward
+    # pair at D = 128, the eight-threads-a-row one at 256, the column-chunk
+    # forward and backward pair past 256)
+    **{name: ("flash_attention_f32_kernel", "flash_bwd_dkdv_f32_kernel",
+              "flash_bwd_dq_f32_kernel", "flash_bwd_dkdv_f32_tiled_kernel",
+              "flash_bwd_dq_f32_tiled_kernel") for name in ("d128_f32", "f32_d128")},
     "d256_f32": ("flash_attention_f32_kernel", "flash_bwd_dkdv_f32_kernel",
                  "flash_bwd_dq_f32_kernel"),
     "d512_f32": ("flash_attention_f32_wide_kernel", "flash_bwd_dkdv_f32_wide_kernel",
@@ -7824,15 +7898,32 @@ def _kernel_name(key: str) -> str | None:
     return f"{base}<{', '.join(x for x in (t, d and d.group(1)) if x)}>"
 
 
-def _profiled_attention(fn) -> dict:
+def _profiler_captures(attempts: int = 3):
+    """torch.profiler captures of one call each, the call being the body of
+    the caller's loop over the (capture number, profiler) pairs yielded. On
+    the card's machine the profiler now and then hands back a capture with
+    no device event at all (no kernel of any kind); such a capture says
+    nothing of which kernels ran, so the call is captured again, up to
+    ``attempts`` times."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    for capture in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            yield capture, prof
+            torch.cuda.synchronize()
+        if _device_time(prof)[1] > 0:
+            return
+
+
+def _profiled_attention(fn, attempts: int = 3) -> dict:
     """torch.profiler over one call of ``fn``: wall ms, device ms, the
     device's busy share, and each attention kernel that ran (by its name
     in the source with its template arguments, e.g.
-    ``flash_bwd_wgmma_kernel<__half, 32>``) with its calls and device ms."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    ``flash_bwd_wgmma_kernel<__half, 32>``) with its calls and device ms.
+    A capture with no device event is taken again (``_profiler_captures``;
+    ``captures`` counts them)."""
+    for capture, prof in _profiler_captures(attempts):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -7847,7 +7938,8 @@ def _profiled_attention(fn) -> dict:
             k["calls"] += e.count
             k["device_ms"] += e.self_device_time_total / 1e3
     return {"profiled_wall_ms": wall_ms, "device_ms": busy_ms,
-            "device_busy_share": busy_ms / wall_ms, "attention_kernels": kernels}
+            "device_busy_share": busy_ms / wall_ms, "attention_kernels": kernels,
+            "captures": capture}
 
 
 def _takes(ran, name: str) -> tuple[bool, list]:
@@ -7918,6 +8010,15 @@ def _c6_full_width(device, fails, seed: int, name: str, cfg: TransformerConfig,
     return rec
 
 
+def _param_grads(model: TelemetryTransformer, x: torch.Tensor, **kw) -> list:
+    """The gradient of ``loss_fn`` on ``x`` for each parameter of ``model``
+    (``kw`` goes to the forward), leaving no ``.grad`` behind."""
+    from sitewhere_tpu_torch.models.transformer import loss_fn
+
+    params = list(model.parameters())
+    return list(torch.autograd.grad(loss_fn(model, x, **kw), params))
+
+
 def phase_transformer_c6(device, log, fails, seed: int, configs=None,
                          shape=TF_C6_SHAPE, full=TF_C6_FULL) -> dict:
     """``forecast_scores`` and one ``make_train_step`` step (AdamW) at each
@@ -7926,7 +8027,9 @@ def phase_transformer_c6(device, log, fails, seed: int, configs=None,
     reset just before and read just after: layers each), scores finite and
     the first window's within TF_SCORE_RTOL of the same model with the
     plain attention, the loss finite and every parameter finite after the
-    step; for the configs of ``TF_C6_TAKES`` one profiled scoring call and
+    step; for a float32 config each parameter's gradient on the first
+    window within GRAD_TOL (a share of its norm) of the plain attention's;
+    for the configs of ``TF_C6_TAKES`` one profiled scoring call and
     train step more, whose attention kernels by profiler name must be those
     of ``TF_C6_TAKES`` (the one-pass wgmma/TMA backward, at D = 64 and 128
     the wgmma/TMA forward) and none of ``TF_C6_NOT``. Then ``full`` ((config
@@ -7982,6 +8085,20 @@ def phase_transformer_c6(device, log, fails, seed: int, configs=None,
         fails.check(rec["score_rel_err_vs_plain"] <= TF_SCORE_RTOL,
                     f"transformer C6 {name}: kernel score {again[0].item()} vs plain "
                     f"{plain[0].item()}")
+        if cfg.dtype == torch.float32:
+            # a float32 model's gradient on the first window through the
+            # kernels and through the plain attention: each parameter's
+            # within GRAD_TOL of its norm
+            kern = _param_grads(model, x[:1])
+            ref = _param_grads(model, x[:1], attention_fn=functools.partial(
+                fa.mha_reference, causal=True))
+            rec["grad_rel_err_vs_plain"] = max(
+                ((g - r).norm() / r.norm().clamp_min(F32_TINY)).item()
+                for g, r in zip(kern, ref))
+            fails.check(rec["grad_rel_err_vs_plain"] <= GRAD_TOL[torch.float32],
+                        f"transformer C6 {name}: a parameter's gradient through the kernels "
+                        f"lies {rec['grad_rel_err_vs_plain']} of its norm from the plain one")
+            del kern, ref
         if name in TF_C6_TAKES and device.type == "cuda":
             ran = set(_profiled_attention(lambda: forecast_scores(model, x))["attention_kernels"])
             ran |= set(_profiled_attention(lambda: step(x))["attention_kernels"])
@@ -8064,6 +8181,7 @@ def main(argv=None) -> int:
         timing[name]["at_head_dim_48_bf16"] = c6["timings"]["main_d48_bf16"][part]
         timing[name]["at_head_dim_256_bf16"] = c6["timings"]["main_d256_bf16"][part]
         timing[name]["float16_at_head_dim_256"] = c6["timings"]["main_d256_f16"][part]
+        timing[name]["float32_at_head_dim_128"] = c6["timings"]["d128_f32"][part]
         timing[name]["float32_at_head_dim_256"] = c6["timings"]["d256_f32"][part]
         timing[name]["at_head_dim_512_bf16"] = c6["timings"]["main_d512_bf16"][part]
         timing[name]["float16_at_head_dim_512"] = c6["timings"]["main_d512_f16"][part]

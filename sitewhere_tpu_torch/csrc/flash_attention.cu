@@ -62,11 +62,12 @@
 // * float32: float32 FMAs on the CUDA cores, which bound it (4 D
 //   operations a live pair at 67 TFLOP/s). Tensor cores would mean TF32
 //   (about 3 decimal digits), which the float32 contract (1e-5) does not
-//   allow. Not on the transformer's path. Up to D = 128 one thread per
-//   query row, K/V tiles of 32 keys in shared memory. At D = 256 the
-//   register-tiled kernel (flash_attention_f32_tiled_kernel, the note
-//   there): 32 rows a block, a lane's 4 x 4 of S and 8 x 8 of O fed by
-//   broadcast float4 reads, K and V through a 4-slot cp.async ring. Past
+//   allow. Not on the transformer's path. Up to D = 64 one thread per
+//   query row, K/V tiles of 32 keys in shared memory. At D = 128 and 256
+//   the register-tiled kernel (flash_attention_f32_tiled_kernel<D>, the
+//   note there): at D = 256 32 rows a block and a lane's 4 x 4 of S, at
+//   D = 128 64 rows a block and a lane's 4 x 8 of S, fed by broadcast
+//   float4 reads, K and V through a cp.async ring. Past
 //   D = 256 the same lane tiles over two groups of 4 warps
 //   (flash_attention_f32_split_kernel<C, kStreamQ>, the note there): each
 //   group sums a partial S over half of D and holds half of O's columns,
@@ -117,13 +118,13 @@ namespace {
 
 constexpr int kF32BlockQ = 128;  // threads a block
 
-// The float32 kernel's tiling at head dim D <= 128: one thread a query
+// The float32 kernel's tiling at head dim D <= 64: one thread a query
 // row (q and the accumulator in its registers), K/V tiles of 32 keys
 template <int D>
 struct F32Tile {
   static constexpr int kRows = kF32BlockQ;  // query rows a block
   static constexpr int kKeys = 32;          // keys a shared tile
-  static_assert(D <= 128, "D = 256 has a kernel of its own");
+  static_assert(D <= 64, "D = 128 and 256 have the register-tiled kernel");
   static_assert(2 * kKeys * D * 4 <= 48 * 1024, "past 48 KB of static shared memory");
 };
 
@@ -232,61 +233,82 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   for (int c = 0; c < D; ++c) op[c] = acc[c] / denom;
 }
 
-// float32 at D = 256 (and 129-255 padded), register-tiled on the CUDA
-// cores. Bound by its float32 FMAs (4 D operations a live pair at 67
-// TFLOP/s; the old one-row-per-4-threads kernel ran at 5 % of that, each
-// score one 64-long FMA chain plus shuffles, every shared float4 feeding
-// 4 FMAs). A block of 4 warps owns 32 query rows, 8 a warp, and walks key
-// tiles of 64 keys; Q stays in shared memory for the whole walk
-// (unscaled: each score is multiplied by scale log2(e) once, any sign or
-// zero, before its max). Each key tile comes through a ring of 4 slots of
-// dynamic shared memory filled by cp.async: K in pieces of 64 columns,
-// then V in pieces of 16 keys, so the next pieces' copies run under this
-// piece's math and one __syncthreads a piece hands a slot on. A lane
-// holds a 4 x 4 block of S (4 of its warp's rows, keys kg, kg + 16, ...),
-// summed by 64-column pieces in column order from float4 reads that each
-// feed 4 FMA chains; a row's max and sum are reduced over the 16 lanes
-// that share it; P goes through the warp's own shared tile [64 keys][8
-// rows] (a broadcast read) into O += P V, where a lane holds 8 rows x 8
-// columns of O (4 lane + c and 128 + 4 lane + c). 108.5 KB of shared
-// memory and up to 255 registers: two blocks an SM, whose work the block
-// order below shares out under a causal mask.
-namespace f32t {
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 8 * kWarps;  // query rows a block, 8 a warp
-constexpr int kKeys = 64;      // keys a tile
-constexpr int kD = 256;
-constexpr int kPiece = 64;     // columns of a K piece
-constexpr int kVKeys = 16;     // keys of a V piece
-constexpr int kQPitch = kD + 4;       // padded rows: the lanes' rows fall in other banks
-constexpr int kKPitch = kPiece + 4;
-constexpr int kKPieces = kD / kPiece, kVPieces = kKeys / kVKeys;
-constexpr int kPieces = kKPieces + kVPieces;  // ring pieces a key tile
-constexpr int kStages = 4;
-constexpr int kSlot = kKeys * kKPitch > kVKeys * kD ? kKeys * kKPitch : kVKeys * kD;
-constexpr int kQFloats = kRows * kQPitch;
-constexpr int kPFloats = kKeys * 8;   // a warp's P tile
-constexpr int kBytes = 4 * (kQFloats + kStages * kSlot + kWarps * kPFloats);
-static_assert(kBytes <= 227 * 1024, "past the shared memory a block may take");
-}  // namespace f32t
+// float32 at D = 256 (129-255 padded) and D = 128 (65-127 padded),
+// register-tiled on the CUDA cores. Bound by its float32 FMAs (4 D
+// operations a live pair at 67 TFLOP/s; the one-row-per-thread kernel it
+// replaced at D = 128 ran at 16 % of that, q and the accumulator 256
+// registers of a thread, spilled, each score one 128-long FMA chain and
+// every shared float4 feeding one row). A block of 4 warps owns kRW query
+// rows a warp (8 at D = 256, 16 at 128) and walks key tiles of 64 keys; Q
+// stays in shared memory for the whole walk (unscaled: each score is
+// multiplied by scale log2(e) once, any sign or zero, before its max).
+// Each key tile comes through a ring of dynamic shared memory filled by
+// cp.async: K in pieces of 64 columns, then V in pieces of 4096 / D keys (a
+// slot holds either), so the next pieces' copies run under this piece's
+// math and one __syncthreads a piece hands a slot on. A lane holds 4 of its
+// warp's rows by kKJ keys of S (keys kg, kg + kKG, ...: 4 x 4 at D = 256,
+// 4 x 8 at 128), summed by 64-column pieces in column order from float4
+// reads that each feed 4 or 8 FMA chains; a row's max and sum are reduced
+// over the kKG lanes that share it; P goes through the warp's own shared
+// tile [64 keys][kRW rows] (broadcast reads) into O += P V, where a lane
+// holds kRW rows x D / 32 columns of O (128 m + 4 lane + c). At D = 256 a
+// 4-slot ring, 108.5 KB of shared memory and up to 255 registers: two
+// blocks an SM. At D = 128 O is 64 registers a lane at 16 rows a warp
+// (twice the FMAs a shared read of the 8-row layout: 2.19 against 2.01-2.05
+// ms at [8, 4096, 2, 128] on an H100), a slot 17 KB, a 2-slot ring (84.6
+// KB): two blocks an SM. The block order below shares out the work under a
+// causal mask.
+template <int D>
+struct F32T {
+  static_assert(D == 128 || D == 256, "the register-tiled forward's head dims");
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRW = D == 256 ? 8 : 16;  // query rows a warp
+  static constexpr int kRows = kRW * kWarps;     // query rows a block
+  static constexpr int kKG = 128 / kRW;          // lanes along a tile's keys: 16 or 8
+  static constexpr int kKeys = 64;          // keys a tile
+  static constexpr int kPiece = 64;         // columns of a K piece
+  static constexpr int kVKeys = 4096 / D;   // keys of a V piece
+  static constexpr int kQPitch = D + 4;     // padded rows: the lanes' rows fall in other banks
+  static constexpr int kKPitch = kPiece + 4;
+  static constexpr int kKPieces = D / kPiece, kVPieces = kKeys / kVKeys;
+  static constexpr int kPieces = kKPieces + kVPieces;  // ring pieces a key tile
+  static constexpr int kStages = D == 256 ? 4 : 2;
+  static constexpr int kBlocksPerSM = 2;
+  static constexpr int kSlot = kKeys * kKPitch > kVKeys * D ? kKeys * kKPitch : kVKeys * D;
+  static constexpr int kQFloats = kRows * kQPitch;
+  static constexpr int kPFloats = kKeys * kRW;  // a warp's P tile
+  static constexpr int kCols = D / 32;        // a lane's columns of O
+  static constexpr int kBytes = 4 * (kQFloats + kStages * kSlot + kWarps * kPFloats);
+  static_assert(kBytes <= 227 * 1024, "past the shared memory a block may take");
+};
 
-__global__ void __launch_bounds__(f32t::kThreads, 8 / f32t::kWarps)
+template <int D>
+__global__ void __launch_bounds__(F32T<D>::kThreads, F32T<D>::kBlocksPerSM)
 flash_attention_f32_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                  const float* __restrict__ v, float* __restrict__ out,
                                  float* __restrict__ lse, int s, int h, int num_q_tiles,
                                  int num_bh, Strides qs, Strides ks, Strides vs,
                                  float scale_log2e, int causal, int aligned, int first_wave) {
-  using namespace f32t;
+  using L = F32T<D>;
+  constexpr int kThreads = L::kThreads, kRows = L::kRows, kKeys = L::kKeys;
+  constexpr int kPiece = L::kPiece, kVKeys = L::kVKeys, kStages = L::kStages;
+  constexpr int kQPitch = L::kQPitch, kKPitch = L::kKPitch, kSlot = L::kSlot;
+  constexpr int kKPieces = L::kKPieces, kPieces = L::kPieces, kG = L::kCols / 4;
+  constexpr int kRW = L::kRW, kKG = L::kKG, kKJ = kKeys / kKG;
+  // a lane's 4 rows of S, rg its group: rows 4 rg + i at 8 a warp, rg + 4 i
+  // at 16 (the 4 groups' rows of one read then fall in other banks)
+  constexpr int kGStep = kRW == 16 ? 1 : 4, kIStep = kRW == 16 ? 4 : 1;
   extern __shared__ float4 smem4[];
   float* const q_s = reinterpret_cast<float*>(smem4);
-  float* const ring = q_s + kQFloats;
+  float* const ring = q_s + L::kQFloats;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* const p_s = ring + kStages * kSlot + warp * kPFloats;
+  float* const p_s = ring + kStages * kSlot + warp * L::kPFloats;
 
   // the work list runs from the most causal work down; when the whole grid
-  // is resident at once (two blocks an SM), the blocks past the first wave
-  // take it from the light end, so an SM's two blocks share out the work
+  // is resident at once (kBlocksPerSM blocks an SM), the blocks past the
+  // first wave take it from the light end, so an SM's blocks share out the
+  // work
   const int x = blockIdx.x < first_wave ? blockIdx.x : gridDim.x - 1 + first_wave - blockIdx.x;
   const int bh = x % num_bh;
   const int qt = num_q_tiles - 1 - x / num_bh;
@@ -307,28 +329,29 @@ flash_attention_f32_tiled_kernel(const float* __restrict__ q, const float* __res
       f32_copy_rows<kThreads, kKeys, kPiece>(slot, kKPitch, kb, ks.s, k0, kv_end, p * kPiece,
                                              aligned);
     else
-      f32_copy_rows<kThreads, kVKeys, kD>(slot, kD, vb, vs.s, k0 + (p - kKPieces) * kVKeys,
-                                          kv_end, 0, aligned);
+      f32_copy_rows<kThreads, kVKeys, D>(slot, D, vb, vs.s, k0 + (p - kKPieces) * kVKeys,
+                                         kv_end, 0, aligned);
   };
-  f32_copy_rows<kThreads, kRows, kD>(q_s, kQPitch, q + b * qs.b + hd * qs.h, qs.s, q0, s, 0,
-                                     aligned);
+  f32_copy_rows<kThreads, kRows, D>(q_s, kQPitch, q + b * qs.b + hd * qs.h, qs.s, q0, s, 0,
+                                    aligned);
 #pragma unroll
   for (int g = 0; g < kStages - 1; ++g) {
     if (g < n_pieces) issue(g);
     cp_async_commit();
   }
 
-  // S: rows 8 warp + 4 rg + i, keys kg + 16 j of the tile
-  const int rg = lane / 16, kg = lane % 16;
-  const float* q_rows = q_s + (8 * warp + 4 * rg) * kQPitch;
-  float sc[4][4], m[4], l[4];
-  float o[8][8];
+  // S: rows kRW warp + kGStep rg + kIStep i, keys kg + kKG j of the tile;
+  // P's tile and O take them in the order 4 rg + i
+  const int rg = lane / kKG, kg = lane % kKG;
+  const float* q_rows = q_s + (kRW * warp + kGStep * rg) * kQPitch;
+  float sc[4][kKJ], m[4], l[4];
+  float o[kRW][L::kCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i) m[i] = kNegInf, l[i] = 0.0f;
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+  for (int r = 0; r < kRW; ++r)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) o[r][c] = 0.0f;
+    for (int c = 0; c < L::kCols; ++c) o[r][c] = 0.0f;
 
   for (int g = 0; g < n_pieces; ++g) {
     cp_async_wait<kStages - 2>();
@@ -342,32 +365,32 @@ flash_attention_f32_tiled_kernel(const float* __restrict__ q, const float* __res
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
+          for (int j = 0; j < kKJ; ++j) sc[i][j] = 0.0f;
       }
-      f32_dots_4x4<kPiece>(sc, q_rows + p * kPiece, kQPitch, slot + kg * kKPitch,
-                           16 * kKPitch);
+      f32_dots<4, kKJ, kPiece>(sc, q_rows + p * kPiece, kIStep * kQPitch, slot + kg * kKPitch,
+                               kKG * kKPitch);
       if (p == kKPieces - 1) {
         // the online softmax of the tile, in log2 units
         float alpha[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int row = q0 + 8 * warp + 4 * rg + i;
-          bool live[4];
+          const int row = q0 + kRW * warp + kGStep * rg + kIStep * i;
+          bool live[kKJ];
           float mx = kNegInf;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int key = k0 + kg + 16 * j;
+          for (int j = 0; j < kKJ; ++j) {
+            const int key = k0 + kg + kKG * j;
             live[j] = key < kv_end && (!causal || key <= row);
             sc[i][j] *= scale_log2e;
             if (live[j]) mx = fmaxf(mx, sc[i][j]);
           }
 #pragma unroll
-          for (int x = 1; x < 16; x <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+          for (int x = 1; x < kKG; x <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
           const float m_new = fmaxf(m[i], mx);
           alpha[i] = exp2f(m[i] - m_new);
           float sum = 0.0f;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < kKJ; ++j) {
             sc[i][j] = live[j] ? exp2f(sc[i][j] - m_new) : 0.0f;  // masked: p = 0
             sum += sc[i][j];
           }
@@ -376,67 +399,71 @@ flash_attention_f32_tiled_kernel(const float* __restrict__ q, const float* __res
         }
         // P to the warp's tile (read back after the next piece's barrier)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          *reinterpret_cast<float4*>(p_s + (kg + 16 * j) * 8 + 4 * rg) =
+        for (int j = 0; j < kKJ; ++j)
+          *reinterpret_cast<float4*>(p_s + (kg + kKG * j) * kRW + 4 * rg) =
               make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
 #pragma unroll
-        for (int r = 0; r < 8; ++r) {  // row r's alpha is lane 16 (r / 4)'s
-          const float a = __shfl_sync(0xffffffffu, alpha[r % 4], (r / 4) * 16);
+        for (int r = 0; r < kRW; ++r) {  // row r's alpha is lane kKG (r / 4)'s
+          const float a = __shfl_sync(0xffffffffu, alpha[r % 4], (r / 4) * kKG);
 #pragma unroll
-          for (int c = 0; c < 8; ++c) o[r][c] *= a;
+          for (int c = 0; c < L::kCols; ++c) o[r][c] *= a;
         }
       }
     } else {
-      // O += P V over the piece's 16 keys, in key order
-      const float* pk = p_s + (p - kKPieces) * kVKeys * 8;
+      // O += P V over the piece's keys, in key order
+      const float* pk = p_s + (p - kKPieces) * kVKeys * kRW;
 #pragma unroll 4
       for (int j = 0; j < kVKeys; ++j) {
-        const float4 v0 = *reinterpret_cast<const float4*>(slot + j * kD + 4 * lane);
-        const float4 v1 = *reinterpret_cast<const float4*>(slot + j * kD + 128 + 4 * lane);
-        const float4 p0 = *reinterpret_cast<const float4*>(pk + j * 8);
-        const float4 p1 = *reinterpret_cast<const float4*>(pk + j * 8 + 4);
-        const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+        float4 vv[kG];
 #pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          o[r][0] = fmaf(pr[r], v0.x, o[r][0]);
-          o[r][1] = fmaf(pr[r], v0.y, o[r][1]);
-          o[r][2] = fmaf(pr[r], v0.z, o[r][2]);
-          o[r][3] = fmaf(pr[r], v0.w, o[r][3]);
-          o[r][4] = fmaf(pr[r], v1.x, o[r][4]);
-          o[r][5] = fmaf(pr[r], v1.y, o[r][5]);
-          o[r][6] = fmaf(pr[r], v1.z, o[r][6]);
-          o[r][7] = fmaf(pr[r], v1.w, o[r][7]);
+        for (int m = 0; m < kG; ++m)
+          vv[m] = *reinterpret_cast<const float4*>(slot + j * D + 128 * m + 4 * lane);
+        float pr[kRW];
+#pragma unroll
+        for (int x = 0; x < kRW / 4; ++x) {
+          const float4 px = *reinterpret_cast<const float4*>(pk + j * kRW + 4 * x);
+          pr[4 * x] = px.x, pr[4 * x + 1] = px.y, pr[4 * x + 2] = px.z, pr[4 * x + 3] = px.w;
         }
+#pragma unroll
+        for (int r = 0; r < kRW; ++r)
+#pragma unroll
+          for (int m = 0; m < kG; ++m) {
+            o[r][4 * m] = fmaf(pr[r], vv[m].x, o[r][4 * m]);
+            o[r][4 * m + 1] = fmaf(pr[r], vv[m].y, o[r][4 * m + 1]);
+            o[r][4 * m + 2] = fmaf(pr[r], vv[m].z, o[r][4 * m + 2]);
+            o[r][4 * m + 3] = fmaf(pr[r], vv[m].w, o[r][4 * m + 3]);
+          }
       }
     }
   }
   cp_async_wait<0>();
 
-  // each row's sum over its 16 lanes; out = O / l, lse from (m, l)
+  // each row's sum over its kKG lanes; out = O / l, lse from (m, l)
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int x = 1; x < 16; x <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], x);
+    for (int x = 1; x < kKG; x <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], x);
   if (lse != nullptr && kg == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 8 * warp + 4 * rg + i;
+      const int row = q0 + kRW * warp + kGStep * rg + kIStep * i;
       if (row < s)
         lse[static_cast<int64_t>(bh) * s + row] =
             l[i] == 0.0f ? INFINITY : (m[i] + log2f(l[i])) * kLn2;
     }
   }
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const float lr = __shfl_sync(0xffffffffu, l[r % 4], (r / 4) * 16);
-    const int row = q0 + 8 * warp + r;
+  for (int r = 0; r < kRW; ++r) {
+    const float lr = __shfl_sync(0xffffffffu, l[r % 4], (r / 4) * kKG);
+    const int row = q0 + kRW * warp + kGStep * (r / 4) + kIStep * (r % 4);
     if (row >= s) continue;
     const float inv = 1.0f / (lr == 0.0f ? 1.0f : lr);  // o is 0 too when l == 0
-    float* op = out + ((static_cast<int64_t>(b) * s + row) * h + hd) * kD + 4 * lane;
-    *reinterpret_cast<float4*>(op) =
-        make_float4(o[r][0] * inv, o[r][1] * inv, o[r][2] * inv, o[r][3] * inv);
-    *reinterpret_cast<float4*>(op + 128) =
-        make_float4(o[r][4] * inv, o[r][5] * inv, o[r][6] * inv, o[r][7] * inv);
+    float* op = out + ((static_cast<int64_t>(b) * s + row) * h + hd) * D + 4 * lane;
+#pragma unroll
+    for (int m = 0; m < kG; ++m)
+      *reinterpret_cast<float4*>(op + 128 * m) =
+          make_float4(o[r][4 * m] * inv, o[r][4 * m + 1] * inv, o[r][4 * m + 2] * inv,
+                      o[r][4 * m + 3] * inv);
   }
 }
 
@@ -593,8 +620,8 @@ flash_attention_f32_split_kernel(const float* __restrict__ q, const float* __res
       }
       const float* qa = kStreamQ ? slot + L::kKPair + (grp * kRows + 8 * wq + 4 * rg) * kKPitch
                                  : q_s + (8 * wq + 4 * rg) * L::kQPitch + grp * half_d + p * kPiece;
-      f32_dots_4x4<kPiece>(sc, qa, kStreamQ ? kKPitch : L::kQPitch,
-                           slot + (grp * kKeys + kg) * kKPitch, 16 * kKPitch);
+      f32_dots<4, 4, kPiece>(sc, qa, kStreamQ ? kKPitch : L::kQPitch,
+                             slot + (grp * kKeys + kg) * kKPitch, 16 * kKPitch);
       if (p == n_s - 1) {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -1763,14 +1790,16 @@ cudaError_t launch_wide_d(const void* q, const void* k, const void* v, void* out
 
 // ------------------------------------------------------------------ launch
 
-// float32 at D = 256: the register-tiled CUDA-core kernel
+// float32 at D = 128 and 256: the register-tiled CUDA-core kernel
+template <int D>
 cudaError_t launch_f32_tiled(const void* q, const void* k, const void* v, void* out, float* lse,
                              int s, int h, int num_bh, Strides qs, Strides ks, Strides vs,
                              float scale_log2e, int causal, cudaStream_t stream) {
-  const int64_t num_q_tiles = (static_cast<int64_t>(s) + f32t::kRows - 1) / f32t::kRows;
+  using L = F32T<D>;
+  const int64_t num_q_tiles = (static_cast<int64_t>(s) + L::kRows - 1) / L::kRows;
   if (num_q_tiles * num_bh > INT32_MAX) return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_f32_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f32t::kBytes);
+      flash_attention_f32_tiled_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return err;
   const bool aligned = rows_aligned16({{q, qs}, {k, ks}, {v, vs}});
   int dev = 0, n_sm = 0;
@@ -1778,15 +1807,14 @@ cudaError_t launch_f32_tiled(const void* q, const void* k, const void* v, void* 
       cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return cudaGetLastError();
   const int64_t grid = num_q_tiles * num_bh;
-  const int first_wave = grid <= 2 * n_sm ? n_sm : static_cast<int>(grid);
-  flash_attention_f32_tiled_kernel<<<static_cast<unsigned>(grid), f32t::kThreads, f32t::kBytes,
-                                     stream>>>(
+  const int first_wave = grid <= L::kBlocksPerSM * n_sm ? n_sm : static_cast<int>(grid);
+  flash_attention_f32_tiled_kernel<D><<<static_cast<unsigned>(grid), L::kThreads, L::kBytes,
+                                        stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), lse, s, h, static_cast<int>(num_q_tiles), num_bh, qs, ks, vs,
       scale_log2e, causal, aligned ? 1 : 0, first_wave);
   return cudaGetLastError();
 }
-
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
@@ -1809,9 +1837,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
         static_cast<T*>(out), lse, s, h, static_cast<int>(num_q_tiles), num_bh, qs, ks, vs, c,
         q_sign, causal);
     return cudaGetLastError();
-  } else if constexpr (D == 256) {
-    return launch_f32_tiled(q, k, v, out, lse, s, h, num_bh, qs, ks, vs, scale_log2e, causal,
-                            stream);
+  } else if constexpr (D >= 128) {
+    return launch_f32_tiled<D>(q, k, v, out, lse, s, h, num_bh, qs, ks, vs, scale_log2e, causal,
+                               stream);
   } else {
     const int64_t num_q_tiles =
         (static_cast<int64_t>(s) + F32Tile<D>::kRows - 1) / F32Tile<D>::kRows;

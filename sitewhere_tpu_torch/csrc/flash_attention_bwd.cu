@@ -107,12 +107,17 @@
 //     error stays at one float16 step of its largest element (the CPU
 //     emulation in tests/test_torch_attention.py).
 // * float32: CUDA cores, float32 products (tensor cores would mean TF32,
-//   about 3 decimal digits), two kernels after the prep pass (dK/dV, then
-//   dQ: FA2's split, each gradient element summed by one thread; not on
-//   the transformer's path). Up to D = 128 one thread per key (dK/dV) or
+//   about 3 decimal digits); not on the transformer's path. Up to D = 64
+//   two kernels after the prep pass (dK/dV, then dQ: FA2's split, each
+//   gradient element summed by one thread), one thread per key (dK/dV) or
 //   per query (dQ) with its own row and accumulators in registers, the
-//   other side's tiles of 32 rows in shared memory (F32BwdTile). At D = 64
-//   the dK/dV thread holds 4 x 64 floats and spills, at D = 128 far more.
+//   other side's tiles of 32 rows in shared memory (F32BwdTile); at D = 64
+//   the dK/dV thread holds 4 x 64 floats and spills. At D = 128 (65-127
+//   padded) one pass after the prep pass (flash_bwd_f32_onepass_kernel,
+//   the note there): a block owns 64 keys, K and V resident, and walks the
+//   64-row query tiles from the last one down; a lane holds 4 x 8 of S or
+//   dP and 64 floats of dV or dK; five products a pair, dQ summed in the
+//   dq output in key-block order by the 16-bit kernels' turn counters.
 //   At D = 256 and past it the register-tiled pair
 //   (flash_bwd_{dkdv,dq}_f32_tiled_kernel, the note there), bound by the
 //   CUDA cores' FMAs: a lane holds 4 x 4 of S or dP and up to 128
@@ -430,15 +435,15 @@ __device__ __forceinline__ void tile_operands(const float (&sacc)[32], const flo
 
 constexpr int kF32Threads = 128;  // threads a block
 
-// The float32 kernels' tiling at head dim D <= 128 (D = 256 and past it
-// take the register-tiled pair below): one thread a key (dK/dV) or a query
-// (dQ) with its own row and accumulators in registers, the other side's
-// tiles of 32 rows in shared memory
+// The float32 kernels' tiling at head dim D <= 64 (D = 128 takes the
+// one-pass kernel, D = 256 and past it the register-tiled pair below): one
+// thread a key (dK/dV) or a query (dQ) with its own row and accumulators in
+// registers, the other side's tiles of 32 rows in shared memory
 template <int D>
 struct F32BwdTile {
   static constexpr int kRows = kF32Threads;  // keys or queries a block
   static constexpr int kTile = 32;           // rows of the other side a tile
-  static_assert(D <= 128, "D = 256 and past it take the register-tiled pair");
+  static_assert(D <= 64, "D = 128 takes the one-pass kernel, 256 and past it the tiled pair");
   static_assert(D % 4 == 0, "rows are float4 chunks");
   static_assert(2 * kTile * D * 4 <= 48 * 1024, "past 48 KB of static shared memory");
 };
@@ -735,7 +740,7 @@ struct F32Bwd {
     using namespace f32b;
     const float* a = (warp < 4 ? own_a : own_b) + own_row(warp, lane) * kPitch;
     const float* b = (warp < 4 ? oth_a : oth_b) + oth_row(lane) * kPitch;
-    f32_dots_4x4<kPiece>(acc, a, kPitch, b, kOthG * kPitch);
+    f32_dots<4, 4, kPiece>(acc, a, kPitch, b, kOthG * kPitch);
   }
 
   // the tile's P (warps 0-3, from X and lse2) and dP - delta (4-7, from Y
@@ -990,6 +995,244 @@ flash_bwd_dq_f32_tiled_kernel(const float* __restrict__ q, const float* __restri
       *reinterpret_cast<float4*>(dq + row + 4 * (lane + 32 * m)) =
           make_float4(x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
     }
+  }
+}
+
+// float32 at D = 128 (65-127 padded): one pass over the (query, key) pairs
+// on the CUDA cores, register-tiled. Bound by the float32 FMAs: 5 D-long
+// products a live pair (S, dP, dV, dK, dQ) at 67 TFLOP/s. The FA2 pair it
+// replaced held a whole row and its accumulators in one thread (4 x 128
+// floats; 255 registers and 2.2-3.9 KB of spills, each FMA through local
+// memory) and computed S and dP twice (7 products a pair). A block of 8
+// warps owns 64 keys, their K and V resident in shared memory, and walks
+// the query tiles of 64 rows from the last one down (causal: to the tile of
+// its first key). Per tile, from Q and dO in shared memory:
+//   * S^T (warps 0-3) and dP^T (4-7) [64 keys][64 queries]: a lane holds
+//     4 keys (kq + 4 i of its warp's 16) by 8 queries (qg + 8 j), summed by
+//     64-column pieces in column order, each float4 read feeding 4 or 8
+//     FMA chains; then dP - delta goes to a shared tile [query][key], and
+//     the S warps take P = exp2(S scale log2(e) - lse2) (masked 0) and
+//     dS = P (dP - delta) into the tiles P and dS;
+//   * dV += P^T dO (warps 0-3) and dK += dS^T Q (4-7): a warp's 16 keys by
+//     the lane's 4 columns 4 lane + c, 64 registers of one gradient a lane,
+//     over the tile's queries in order; the weights one broadcast float4 of
+//     4 keys, each dO or Q float4 feeding 16 FMA chains;
+//   * dQ_tile = dS K: a lane 8 queries (16 (warp / 2) + 2 r + lane / 16) by
+//     4 columns (64 (warp % 2) + 4 (lane % 16) + c) over the block's keys in
+//     order, while the next tile's Q and dO come in (one buffer: its copies
+//     are issued once dV and dK have read this tile's).
+// dQ is summed over key blocks in key-block order in the float32 dq output
+// itself: a turn counter per (batch, head, query tile), zeroed by the prep
+// pass, says how many key blocks have added; key block 0 stores, each later
+// one waits for its turn, adds, and passes the turn on, and the last one
+// for the tile writes the sum times the scale. The walk from the last tile
+// down brings the key blocks that run together to a tile one add apart, not
+// one tile apart (no block waits on a later one: the grid puts key block 0
+// of every (batch, head) first). So every gradient element is summed in a
+// fixed order, the same bits from run to run. 183 KB of shared memory: one
+// block an SM.
+namespace f32o {
+constexpr int kThreads = 256;
+constexpr int kD = 128;
+constexpr int kKeys = 64;                 // keys a block
+constexpr int kQ = 64;                    // queries a tile
+constexpr int kPitch = kD + 4;            // padded rows: the lanes' rows fall in other banks
+constexpr int kTP = kKeys + 4;            // pitch of the P and dS tiles [query][key]
+constexpr int kRowsF = kKeys * kPitch;    // floats of a [64][128] tile
+constexpr int kBytes = 4 * (4 * kRowsF + 2 * kQ * kTP);  // K, V, Q, dO; P, dS
+static_assert(kKeys == kQ, "a key block a query tile: the turn counters' tiles");
+static_assert(kBytes <= 227 * 1024, "past the shared memory a block may take");
+}  // namespace f32o
+
+__global__ void __launch_bounds__(f32o::kThreads, 1)
+flash_bwd_f32_onepass_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse2, const float* __restrict__ delta,
+                             float* __restrict__ dq, float* __restrict__ dk,
+                             float* __restrict__ dv, int* __restrict__ turns, int s, int h,
+                             int num_bh, int m_tiles, Strides qs, Strides ks, Strides vs,
+                             float scale_log2e, float scale, int causal, int aligned) {
+  using namespace f32o;
+  extern __shared__ float4 smem4[];
+  float* const k_s = reinterpret_cast<float*>(smem4);
+  float* const v_s = k_s + kRowsF;
+  float* const q_s = v_s + kRowsF;
+  float* const do_s = q_s + kRowsF;
+  float* const p_s = do_s + kRowsF;
+  float* const ds_s = p_s + kQ * kTP;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  const int bh = blockIdx.x % num_bh;
+  const int nb = blockIdx.x / num_bh;  // key block; the first have most work
+  const int b = bh / h;
+  const int hd = bh - b * h;
+  const int key0 = nb * kKeys;
+  const float* qb = q + b * qs.b + hd * qs.h;
+  const float* kb = k + b * ks.b + hd * ks.h;
+  const float* vb = v + b * vs.b + hd * vs.h;
+  const int64_t do_rs = static_cast<int64_t>(h) * kD;  // dO's (and dq's) row stride
+  const float* db = dout + static_cast<int64_t>(b) * s * do_rs + static_cast<int64_t>(hd) * kD;
+  float* const dqb = dq + static_cast<int64_t>(b) * s * do_rs + static_cast<int64_t>(hd) * kD;
+  const float* lb = lse2 + static_cast<int64_t>(bh) * s;
+  const float* eb = delta + static_cast<int64_t>(bh) * s;
+  // queries before the block's first key see none of its keys
+  const int t_first = causal ? nb : 0;
+
+  auto load_tile = [&](int t) {
+    f32_copy_rows<kThreads, kQ, kD>(q_s, kPitch, qb, qs.s, t * kQ, s, 0, aligned);
+    f32_copy_rows<kThreads, kQ, kD>(do_s, kPitch, db, do_rs, t * kQ, s, 0, aligned);
+  };
+  f32_copy_rows<kThreads, kKeys, kD>(k_s, kPitch, kb, ks.s, key0, s, 0, aligned);
+  f32_copy_rows<kThreads, kKeys, kD>(v_s, kPitch, vb, vs.s, key0, s, 0, aligned);
+  load_tile(m_tiles - 1);
+  cp_async_commit();
+
+  // S and dP: warp % 4's 16 keys, the lane's keys ka + 4 i and queries qg + 8 j
+  const bool sw = warp < 4;  // S, P and dV; else dP, dS and dK
+  const int wk = warp % 4;
+  const int kq = lane / 8, qg = lane % 8;
+  const int ka = 16 * wk + kq;
+  // dQ: the lane's queries qd + 2 r, columns cd + c
+  const int qd = 16 * (warp / 2) + lane / 16, cd = 64 * (warp % 2) + 4 * (lane % 16);
+  // the warp's gradient (dV or dK): keys 16 wk + kk by columns 4 lane + c
+  float g[16][4] = {};
+
+  for (int t = m_tiles - 1; t >= t_first; --t) {
+    const int q0 = t * kQ;
+    // the lane's queries' lse2 (S warps) or delta (dP warps); padded
+    // queries: lse2 = +inf gives P = 0
+    float stat[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int query = q0 + qg + 8 * j;
+      stat[j] = sw ? (query < s ? lb[query] : INFINITY) : (query < s ? eb[query] : 0.0f);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the tile (and at the first one K and V) is in
+
+    float acc[4][8] = {};
+    {
+      const float* a = (sw ? k_s : v_s) + ka * kPitch;
+      const float* x = (sw ? q_s : do_s) + qg * kPitch;
+      f32_dots<4, 8, 64>(acc, a, 4 * kPitch, x, 8 * kPitch);
+      f32_dots<4, 8, 64>(acc, a + 64, 4 * kPitch, x + 64, 8 * kPitch);
+    }
+    if (!sw) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ds_s[(qg + 8 * j) * kTP + ka + 4 * i] = acc[i][j] - stat[j];
+    }
+    __syncthreads();
+    if (sw) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int key = key0 + ka + 4 * i, query = q0 + qg + 8 * j;
+          const bool live = key < s && query < s && (!causal || key <= query);
+          const float pv = live ? exp2f(fmaf(acc[i][j], scale_log2e, -stat[j])) : 0.0f;
+          const int e = (qg + 8 * j) * kTP + ka + 4 * i;
+          p_s[e] = pv;  // masked: P = 0
+          ds_s[e] = pv * ds_s[e];
+        }
+    }
+    __syncthreads();
+
+    // dV += P^T dO or dK += dS^T Q over the tile's queries, in order
+    {
+      const float* w = (sw ? p_s : ds_s) + 16 * wk;
+      const float* x = (sw ? do_s : q_s) + 4 * lane;
+#pragma unroll 2
+      for (int i = 0; i < kQ; ++i) {
+        const float4 xx = *reinterpret_cast<const float4*>(x + i * kPitch);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const float4 ww = *reinterpret_cast<const float4*>(w + i * kTP + 4 * m);
+          const float wr[4] = {ww.x, ww.y, ww.z, ww.w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            float (&a)[4] = g[4 * m + r];
+            a[0] = fmaf(wr[r], xx.x, a[0]);
+            a[1] = fmaf(wr[r], xx.y, a[1]);
+            a[2] = fmaf(wr[r], xx.z, a[2]);
+            a[3] = fmaf(wr[r], xx.w, a[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // Q and dO are read: the next tile's copies go in under dQ
+    if (t > t_first) load_tile(t - 1);
+    cp_async_commit();
+
+    // dQ_tile = dS K over the block's keys, in order
+    float dqr[8][4] = {};
+#pragma unroll 2
+    for (int j0 = 0; j0 < kKeys; j0 += 4) {
+      float4 kk[4], dd[8];
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        kk[x] = *reinterpret_cast<const float4*>(k_s + (j0 + x) * kPitch + cd);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        dd[r] = *reinterpret_cast<const float4*>(ds_s + (qd + 2 * r) * kTP + j0);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float kx[4] = {kk[x].x, kk[x].y, kk[x].z, kk[x].w};
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float w = x == 0 ? dd[r].x : x == 1 ? dd[r].y : x == 2 ? dd[r].z : dd[r].w;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dqr[r][c] = fmaf(w, kx[c], dqr[r][c]);
+        }
+      }
+    }
+
+    // into dq in key-block order: block 0 stores, a later one adds once
+    // the earlier ones have; the tile's last contributor scales
+    const int last = causal ? t : m_tiles - 1;
+    int* const turn = turns + static_cast<int64_t>(bh) * m_tiles + t;
+    if (nb > 0) {
+      if (threadIdx.x == 0) {
+        const long long c0 = clock64();
+        while (load_acquire(turn) != nb)
+          if (clock64() - c0 > kWatchdogClocks) __trap();
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int query = q0 + qd + 2 * r;
+      if (query >= s) continue;
+      float4* const dst = reinterpret_cast<float4*>(dqb + query * do_rs + cd);
+      float4 x = make_float4(dqr[r][0], dqr[r][1], dqr[r][2], dqr[r][3]);
+      if (nb > 0) {
+        const float4 y = __ldcg(dst);
+        x = make_float4(y.x + x.x, y.y + x.y, y.z + x.z, y.w + x.w);
+      }
+      if (nb == last) x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+      __stcg(dst, x);
+    }
+    if (nb < last) {
+      __syncthreads();  // every thread's part of the tile is written
+      if (threadIdx.x == 0) {
+        __threadfence();
+        add_release(turn, 1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // dV (warps 0-3) or dK times the scale (4-7) of the warp's 16 keys
+  float* const out = sw ? dv : dk;
+  const float f = sw ? 1.0f : scale;
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+    const int key = key0 + 16 * wk + kk;
+    if (key >= s) continue;
+    *reinterpret_cast<float4*>(out + ((static_cast<int64_t>(b) * s + key) * h + hd) * kD +
+                               4 * lane) =
+        make_float4(g[kk][0] * f, g[kk][1] * f, g[kk][2] * f, g[kk][3] * f);
   }
 }
 
@@ -2132,21 +2375,28 @@ bool wide(int d) { return d > 256 && d % 128 == 0; }
 // bfloat16, 2 float16
 bool takes_wgmma(int dtype, int d) { return (dtype == 1 || dtype == 2) && (d <= 256 || wide(d)); }
 
+// float32 at this head dim runs the one-pass kernel (launch_f32_onepass),
+// which needs the scratch's turn counters
+constexpr bool f32_onepass(int d) { return d == 128; }
+
 // scratch layout (bytes): delta and lse2 [num_bh][pitch] float32 each;
 // float16 only: dq_scale [num_bh][pitch] float32; the wgmma kernel only:
-// the dQ accumulator [num_bh][pitch][D] float32 and the turn counters
-// [num_bh][pitch / kBM] int32 (past D = 256 one a chunk of 128 columns:
-// [num_bh][pitch / kBM][D / 128]); float16 only: v_norms [num_bh][n_parts]
-// float32. pitch is S for the float32 kernels and S rounded up to kBM for
-// the wgmma kernels.
+// the dQ accumulator [num_bh][pitch][D] float32; the wgmma kernel and the
+// float32 one-pass kernel (D = 128): the turn counters [num_bh][m_tiles]
+// int32 (past D = 256 one a chunk of 128 columns: [num_bh][m_tiles][D /
+// 128]); float16 only: v_norms [num_bh][n_parts] float32. pitch is S for
+// the float32 kernels and S rounded up to kBM for the wgmma kernels;
+// m_tiles is S over kBM, rounded up.
 struct Scratch {
   int64_t pitch, m_tiles, n_turns, n_parts, delta, lse2, dq_scale, dq_acc, turns, v_norms,
       bytes;
   Scratch(int64_t num_bh, int64_t s, int64_t d, int dtype) {
     const bool wgmma = takes_wgmma(dtype, static_cast<int>(d)), f16 = dtype == 2;
+    const bool onepass = dtype == 0 && f32_onepass(static_cast<int>(d));
     m_tiles = (s + kBM - 1) / kBM;
     pitch = wgmma ? m_tiles * kBM : s;
-    n_turns = wgmma ? num_bh * m_tiles * (wide(static_cast<int>(d)) ? d / 128 : 1) : 0;
+    n_turns = wgmma ? num_bh * m_tiles * (wide(static_cast<int>(d)) ? d / 128 : 1)
+                    : onepass ? num_bh * m_tiles : 0;
     n_parts = f16 ? (s + kVRows - 1) / kVRows : 0;
     const int64_t rows = num_bh * pitch * 4;
     delta = 0;
@@ -2321,6 +2571,34 @@ cudaError_t launch_f32_tiled(const Args& a) {
   return cudaGetLastError();
 }
 
+// float32 at D = 128: the prep pass (delta, lse2, the turn counters
+// zeroed), then the one-pass kernel over (key block, bh)
+cudaError_t launch_f32_onepass(const Args& a) {
+  static_assert(f32o::kQ == kBM, "the one-pass kernel's query tiles are the scratch's");
+  const Scratch sc(a.num_bh, a.s, f32o::kD, 0);
+  cudaError_t err = launch_prep<float, f32o::kD>(a, sc);
+  if (err != cudaSuccess) return err;
+  const char* base = static_cast<const char*>(a.scratch);
+  if (sc.m_tiles * a.num_bh > INT32_MAX) return cudaErrorInvalidValue;
+  const int64_t os = static_cast<int64_t>(a.h) * f32o::kD;  // dO, contiguous [B, S, H, D]
+  const bool aligned = rows_aligned16(
+      {{a.q, a.qs}, {a.k, a.ks}, {a.v, a.vs}, {a.dout, Strides{a.s * os, os, f32o::kD}}});
+  err = cudaFuncSetAttribute(flash_bwd_f32_onepass_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, f32o::kBytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_f32_onepass_kernel<<<static_cast<unsigned>(sc.m_tiles * a.num_bh), f32o::kThreads,
+                                 f32o::kBytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      reinterpret_cast<const float*>(base + sc.lse2),
+      reinterpret_cast<const float*>(base + sc.delta), static_cast<float*>(a.dq),
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      reinterpret_cast<int*>(static_cast<char*>(a.scratch) + sc.turns), a.s, a.h, a.num_bh,
+      static_cast<int>(sc.m_tiles), a.qs, a.ks, a.vs, a.scale * kLog2e, a.scale, a.causal,
+      aligned ? 1 : 0);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_f32(const Args& a) {
   const Scratch sc(a.num_bh, a.s, D, 0);
@@ -2352,9 +2630,12 @@ cudaError_t launch_f32(const Args& a) {
 template <int D>
 cudaError_t dispatch_d(int dtype, const Args& a) {
   switch (dtype) {
-    case 0:  // at D = 256 the register-tiled pair, one chunk of 256 columns
+    case 0:  // at D = 128 the one-pass kernel, at 256 the register-tiled
+             // pair (one chunk of 256 columns), below 128 the one-thread-a-row pair
       if constexpr (D == 256)
         return launch_f32_tiled<256>(a);
+      else if constexpr (f32_onepass(D))
+        return launch_f32_onepass(a);
       else
         return launch_f32<D>(a);
     case 1:  // takes_wgmma(dtype, D) for the 16-bit types

@@ -123,12 +123,13 @@ __device__ __forceinline__ float to_float(T x) {
 
 // ------------------------------------------------ float32, register-tiled
 //
-// The float32 kernels at D = 256 forward (flash_attention_f32_tiled_kernel)
-// and past D = 256 backward (flash_bwd_*_f32_tiled_kernel) run float32
-// FMAs on the CUDA cores from shared memory: a thread keeps a small block
-// of scores (4 rows by 4 rows of the other side) and of its outputs in
-// registers, so each float4 it reads from shared memory feeds several
-// independent FMA chains, and the tiles come through a cp.async ring.
+// The float32 kernels from D = 128 on (the forward's
+// flash_attention_f32_tiled_kernel and split kernel; the backward's one-pass
+// kernel at D = 128 and flash_bwd_*_f32_tiled_kernel from 256 on) run
+// float32 FMAs on the CUDA cores from shared memory: a thread keeps a small
+// block of scores (4 rows by 4 or 8 rows of the other side) and of its
+// outputs in registers, so each float4 it reads from shared memory feeds
+// several independent FMA chains, and the tiles come through cp.async.
 
 // (host) whether every row of the (batch, row, head)-strided views starts
 // 16-byte aligned: the float32 kernels' cp.async copies are then 16 bytes
@@ -173,27 +174,27 @@ __device__ __forceinline__ void f32_copy_rows(float* dst, int pitch, const float
   }
 }
 
-// acc[i][j] += a_i . b_j over kCols columns: a_i the shared row a + i
-// a_step, b_j the shared row b + j b_step, read a float4 at a time: 8
-// float4 reads feed 64 FMAs in 16 independent chains. Each chain starts at 0 and
-// runs over the columns in order, then adds to acc: a dot over a long D
-// taken a piece of kCols at a time rounds like a sum of kCols terms plus
-// one of D / kCols, not one of D terms
-template <int kCols>
-__device__ __forceinline__ void f32_dots_4x4(float (&acc)[4][4], const float* a, int a_step,
-                                             const float* b, int b_step) {
-  float part[4][4] = {};
+// acc[i][j] += a_i . b_j over kCols columns (i < kI, j < kJ): a_i the
+// shared row a + i a_step, b_j the shared row b + j b_step, read a float4
+// at a time: kI + kJ float4 reads feed 4 kI kJ FMAs in kI kJ independent
+// chains. Each chain starts at 0 and runs over the columns in order, then
+// adds to acc: a dot over a long D taken a piece of kCols at a time rounds
+// like a sum of kCols terms plus one of D / kCols, not one of D terms
+template <int kI, int kJ, int kCols>
+__device__ __forceinline__ void f32_dots(float (&acc)[kI][kJ], const float* a, int a_step,
+                                         const float* b, int b_step) {
+  float part[kI][kJ] = {};
 #pragma unroll 4
   for (int c = 0; c < kCols; c += 4) {
-    float4 x[4], y[4];
+    float4 x[kI], y[kJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(a + i * a_step + c);
+    for (int i = 0; i < kI; ++i) x[i] = *reinterpret_cast<const float4*>(a + i * a_step + c);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = *reinterpret_cast<const float4*>(b + j * b_step + c);
+    for (int j = 0; j < kJ; ++j) y[j] = *reinterpret_cast<const float4*>(b + j * b_step + c);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         part[i][j] = fmaf(x[i].x, y[j].x, part[i][j]);
         part[i][j] = fmaf(x[i].y, y[j].y, part[i][j]);
         part[i][j] = fmaf(x[i].z, y[j].z, part[i][j]);
@@ -201,9 +202,9 @@ __device__ __forceinline__ void f32_dots_4x4(float (&acc)[4][4], const float* a,
       }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+    for (int j = 0; j < kJ; ++j) acc[i][j] += part[i][j];
 }
 
 // acc[r][m][c] += w[r] x_m[c]: 4 weights (w, a float4 in shared memory

@@ -41,13 +41,15 @@ replaces the TPU kernel ``sitewhere_tpu/ops/attention.py:_flash_kernel``.
     fragments and the float16 ``mma.sync``.
   * float32 design: float32 FMAs on the CUDA cores, which bound it
     (tensor cores would mean TF32, too coarse for the float32 tolerance);
-    not on the transformer's path. Up to D = 128 one thread per query row.
-    At D = 256 (any D from 129, padded) a register-tiled kernel: a block
-    of 4 warps owns 32 query rows with Q resident in shared memory, K and
-    V tiles of 64 keys come through a 4-slot ``cp.async`` ring, and a lane
-    holds a 4 x 4 block of S and an 8 x 8 block of O, so each float4 it
-    reads feeds several independent FMA chains; a row's max and sum are
-    reduced over the 16 lanes that share it. Past D = 256 the same lane
+    not on the transformer's path. Up to D = 64 one thread per query row.
+    At D = 128 and 256 (any D from 65, padded) a register-tiled kernel: a
+    block of 4 warps owns 64 query rows at D = 128 (16 a warp) and 32 at
+    256, with Q resident in shared memory; K and V tiles of 64 keys come
+    through a ``cp.async`` ring (2 slots at D = 128, 4 at 256; two blocks an
+    SM), and a lane holds 4 rows by 8 keys of S (4 by 4 at 256) and 16 rows
+    by 4 columns of O (8 by 8 at 256), so each float4 it reads feeds
+    several independent FMA chains; a row's max and sum are reduced over
+    the lanes that share it. Past D = 256 the same lane
     tiles over two groups of 4 warps: each group sums a partial S over
     half of D and holds O over half of the columns, and the two partial
     tiles are added through shared memory, so S is summed once a key tile
@@ -99,10 +101,14 @@ float16 kernel scales them by powers of two: a key's rows of P^T and dS^T
 (the dV and dK operands) by a running per-row scale, and a query's row of
 dS (the dQ operand) by a power of two fixed before the kernel runs from a
 bound on |dS| (:func:`f16_dq_scale_exponents` is its plain version), so
-that the sum over key blocks stays in one unit. float32 keeps two
-CUDA-core kernels (dK/dV, then dQ), each element summed by one thread,
-so it too is bitwise the same from run to run; at D = 256 and past it
-they are register-tiled (a lane holds 4 x 4 of S or dP and up to 128
+that the sum over key blocks stays in one unit. float32 runs on the CUDA
+cores. At D = 128 (any D from 65, padded) one pass: a block of 8 warps
+owns 64 keys (K and V resident) and walks the 64-row query tiles from the
+last one down; a lane holds 4 x 8 of S or dP and 64 floats of dV or dK,
+and dQ is summed in the float32 output in key-block order by the 16-bit
+kernels' turn counters, so it too is bitwise the same from run to run.
+Up to D = 64 two kernels (dK/dV, then dQ), each element summed by one
+thread; at D = 256 and past it the pair is register-tiled (a lane holds 4 x 4 of S or dP and up to 128
 gradient floats, tiles through a 3-slot ``cp.async`` ring) over column
 chunks of 512, 384, 256 or 128 (the widest that divides D), each chunk
 recomputing S and dP: 4 D / C + 3 D-long products a pair (7 at D = 256,
@@ -409,8 +415,9 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, sm_scale: float | None):
     size.argtypes = [ctypes.c_int] * 5
     size.restype = ctypes.c_int64
     # delta, lse2 and (the 16-bit wgmma kernel) the float32 dQ accumulator
-    # and turn counters; float16 also the dQ scales and v's row norms; the
-    # kernels initialise what they read
+    # and turn counters (float32 at D = 128: the turn counters); float16
+    # also the dQ scales and v's row norms; the kernels initialise what
+    # they read
     scratch = torch.empty(size(b, s, h, dp, args[4]), dtype=torch.uint8, device=q.device)
     fn = lib.swtpu_flash_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
@@ -504,6 +511,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # launches of the CUDA kernels since each count was last reset to 0: the
 # forward (whatever wrapper launched it) and the backward (one a call of
 # the backward's launches: prep pass, main kernel, then dQ to the 16-bit
-# type (float16 with v's row norms first), or dQ for float32)
+# type (float16 with v's row norms first); for float32 the prep pass and
+# the one-pass kernel at D = 128, else dK/dV and dQ)
 flash_attention.launches = 0
 flash_attention_backward.launches = 0

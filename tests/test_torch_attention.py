@@ -485,6 +485,11 @@ GPU_CASES = [  # (B, S, H, D, dtype)
     (2, 65, 2, 100, torch.bfloat16),
     (2, 300, 2, 128, torch.float32),
     (2, 129, 2, 48, torch.float32),
+    # float32 at D = 128 (the register-tiled forward): ragged, one row, D =
+    # 100 padded to 128
+    (1, 1000, 2, 128, torch.float32),
+    (3, 1, 2, 128, torch.float32),
+    (2, 65, 2, 100, torch.float32),
     # float16
     (2, 1000, 8, 32, torch.float16),
     (2, 300, 4, 8, torch.float16),
@@ -1362,6 +1367,11 @@ BWD_GPU_CASES = [  # (B, S, H, D, dtype)
     (2, 777, 2, 128, torch.bfloat16),
     (2, 65, 2, 100, torch.bfloat16),
     (2, 300, 2, 128, torch.float32),
+    # float32 at D = 128 (the one-pass kernel): 16 key blocks adding dQ in
+    # turn, one row, D = 100 padded to 128
+    (1, 1000, 2, 128, torch.float32),
+    (3, 1, 2, 128, torch.float32),
+    (2, 65, 2, 100, torch.float32),
     (2, 129, 2, 48, torch.float32),
     # float16 (the one-pass wgmma kernel at every head dim, its rows of P^T
     # and dS^T and of dS scaled); at S = 4096 many P and dS entries of a
@@ -1931,7 +1941,7 @@ def emulate_f32_tiled_forward(q, k, v, *, causal: bool, sm_scale: float | None =
                               chunk: int | None = None) -> tuple:
     """``(out, lse)`` of the float32 register-tiled forward on the CPU
     (float32 q, k, v [B, S, H, D]): ``flash_attention_f32_tiled_kernel`` at
-    D = 256 (``groups=1``), ``flash_attention_f32_split_kernel`` past it
+    D = 128 and 256 (``groups=1``), ``flash_attention_f32_split_kernel`` past it
     (``groups=2``: each score the sum in float32 of the first half of D's
     columns and the second's, group 0's + group 1's, each half summed by
     64-column pieces; ``chunk``: O's columns by chunks of that width, each
@@ -1978,10 +1988,10 @@ def emulate_f32_tiled_forward(q, k, v, *, causal: bool, sm_scale: float | None =
 
 
 def f32_forward_layout(dp: int) -> dict:
-    """How the float32 forward runs a padded head dim ``dp`` >= 256, as
-    ``emulate_f32_tiled_forward``'s arguments: one group at 256, two past
-    it, O by chunks of 512 columns past 512."""
-    return dict(groups=1 if dp == 256 else 2, chunk=512 if dp > 512 else None)
+    """How the float32 forward runs a padded head dim ``dp`` >= 128, as
+    ``emulate_f32_tiled_forward``'s arguments: one group at 128 and 256,
+    two past 256, O by chunks of 512 columns past 512."""
+    return dict(groups=1 if dp <= 256 else 2, chunk=512 if dp > 512 else None)
 
 
 def emulate_f32_tiled_backward(q, k, v, o, do, lse, *, causal: bool,
@@ -2027,6 +2037,47 @@ def emulate_f32_tiled_backward(q, k, v, o, do, lse, *, causal: bool,
         (dq.double() * scale32).float(), (dk.double() * scale32).float(), dv))
 
 
+def emulate_f32_onepass_backward(q, k, v, o, do, lse, *, causal: bool,
+                                 sm_scale: float | None = None, block: int = 64) -> tuple:
+    """``(dq, dk, dv)`` of the float32 one-pass backward at D = 128 (the
+    prep pass, then ``flash_bwd_f32_onepass_kernel``) on the CPU: delta an
+    FMA chain over D of o dO, lse2 = lse log2(e); S and dP by 64-column
+    pieces (``fma_dots``), P = exp2(fma(S, c, -lse2)) with c = scale
+    log2(e) (masked 0), dS = P (dP - delta); dV and dK FMA chains over the
+    queries in the order a key block walks them: query tiles of ``block``
+    rows from the last one down, each tile's rows in order; dQ by key
+    blocks of ``block`` keys, each block's part an FMA chain over its keys
+    in order from 0, the parts added in float32 in key-block order (block 0
+    first), the sum times the float32 scale; dk times the scale at the
+    end."""
+    b, s, h, d = q.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    c32, scale32 = (torch.tensor(x, dtype=torch.float32).double()
+                    for x in (scale * math.log2(math.e), scale))
+    qf, kf, vf, of, dof = (t.float().transpose(1, 2) for t in (q, k, v, o, do))
+    delta = fma_dots(of[..., None, :], dof[..., None, :], None)[..., 0, 0]   # [B, H, S]
+    lse2 = lse.float() * torch.tensor(math.log2(math.e), dtype=torch.float32)
+    live = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        live = live.tril()
+    sc, dp = fma_dots(qf, kf), fma_dots(dof, vf)
+    p = torch.where(live, torch.exp2((sc.double() * c32 - lse2.double()[..., None]).float()), 0.0)
+    ds = p * (dp - delta[..., None])
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for t0 in reversed(range(0, s, block)):
+        for i in range(t0, min(t0 + block, s)):
+            dv = fma_step(dv, p[..., i, :, None], dof[:, :, i, None, :])
+            dk = fma_step(dk, ds[..., i, :, None], qf[:, :, i, None, :])
+    dq = None
+    for k0 in range(0, s, block):
+        part = torch.zeros_like(qf)
+        for j in range(k0, min(k0 + block, s)):
+            part = fma_step(part, ds[..., :, j, None], kf[:, :, j, None, :])
+        dq = part if dq is None else dq + part
+    return tuple(g.transpose(1, 2).contiguous() for g in (
+        (dq.double() * scale32).float(), (dk.double() * scale32).float(), dv))
+
+
 F32_TILED_FWD_CASES = [(256, s, causal, sm_scale) for s in (1, 65, 300)
                        for causal in (False, True) for sm_scale in (None, 0.0, -0.3)]
 F32_TILED_FWD_CASES += [(192, 300, True, None), (192, 65, False, None), (192, 300, True, -0.3)]
@@ -2064,6 +2115,24 @@ def test_f32_split_forward_arithmetic_past_d256_holds_to_jax(case):
     larger (none freed at the default scale); lse within F32 of
     ``jax.nn.logsumexp``."""
     _f32_forward_arithmetic_holds_to_jax(*case, seed=150)
+
+
+# at D = 128 (``flash_attention_f32_tiled_kernel<128>``: 16 rows a warp, a
+# lane 4 rows by 8 keys of S and 16 rows by 4 columns of O; each element
+# summed as at D = 256), and D = 100 padded to it
+F32_D128_FWD_CASES = [(d, s, causal, sm_scale) for d in (128, 100) for s in (1, 65, 300)
+                      for causal in (False, True) for sm_scale in (None, 0.0, -0.3)]
+
+
+@pytest.mark.parametrize("case", F32_D128_FWD_CASES)
+def test_f32_tiled_forward_arithmetic_at_d128_holds_to_jax(case):
+    """The float32 forward at D = 128 (the register-tiled kernel's D = 128
+    instantiation; D = 100 zero-padded to 128 at the true D's scale, the
+    output sliced back): every output element within F32 of JAX's oracle,
+    or within GRAD_ARITH_MARGIN times float32's first-order bound where
+    that is larger (none freed at the default scale); lse within F32 of
+    ``jax.nn.logsumexp``."""
+    _f32_forward_arithmetic_holds_to_jax(*case, seed=170)
 
 
 def _f32_forward_arithmetic_holds_to_jax(d, s, causal, sm_scale, *, seed):
@@ -2120,6 +2189,19 @@ def test_f32_tiled_backward_arithmetic_at_d256_holds_to_jax_grad(d, s, causal, s
     _f32_tiled_backward_holds_to_jax_grad(d, s, causal, sm_scale, seed=160)
 
 
+@pytest.mark.parametrize("sm_scale", [None, 0.0, -0.3])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d, s", [(128, 300), (128, 65), (128, 1), (100, 300), (100, 65),
+                                  (100, 1)])
+def test_f32_onepass_backward_arithmetic_at_d128_holds_to_jax_grad(d, s, causal, sm_scale):
+    """The float32 backward at D = 128 (``flash_bwd_f32_onepass_kernel``:
+    dV and dK over the query tiles from the last one down, dQ by key
+    blocks added in key-block order; D = 100 zero-padded to 128 at the
+    true D's scale, the gradients sliced back): held to ``jax.vjp`` of
+    JAX's oracle by the rule above."""
+    _f32_tiled_backward_holds_to_jax_grad(d, s, causal, sm_scale, seed=180)
+
+
 def _f32_tiled_backward_holds_to_jax_grad(d, s, causal, sm_scale, *, seed):
     import chip_smoke as cs
 
@@ -2134,10 +2216,14 @@ def _f32_tiled_backward_holds_to_jax_grad(d, s, causal, sm_scale, *, seed):
     o = torch.from_numpy(np.array(out))
     lse = tatt.lse_reference(tq, tk, causal=causal, sm_scale=sm_scale)
     dp = tatt.padded_head_dim(d)
-    chunk = next(x for x in (512, 384, 256, 128) if dp % x == 0)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    got = emulate_f32_tiled_backward(*(tatt.pad_head_dim(t, dp) for t in (tq, tk, tv, o, tdo)),
-                                     lse, causal=causal, sm_scale=scale, chunk=chunk)
+    padded = [tatt.pad_head_dim(t, dp) for t in (tq, tk, tv, o, tdo)]
+    if dp == 128:
+        got = emulate_f32_onepass_backward(*padded, lse, causal=causal, sm_scale=scale)
+    else:
+        chunk = next(x for x in (512, 384, 256, 128) if dp % x == 0)
+        got = emulate_f32_tiled_backward(*padded, lse, causal=causal, sm_scale=scale,
+                                         chunk=chunk)
     got = [g[..., :d] for g in got]
     bounds = cs.float64_reference(tq, tk, tv, o, tdo, lse, causal, sm_scale)[3]
     for name, g, r, b in zip("qkv", got, ref, bounds):
@@ -2181,12 +2267,14 @@ def test_fma_dots_sums_pieces_of_fma_chains_in_column_order():
 
 @pytest.mark.parametrize("case", [(2, 300, 2, 256, False, None), (2, 65, 1, 192, True, -0.3),
                                   (2, 200, 2, 512, False, None), (1, 65, 1, 300, True, -0.3),
-                                  (1, 65, 1, 1024, True, None)])
+                                  (1, 65, 1, 1024, True, None), (2, 300, 2, 128, True, None),
+                                  (2, 65, 1, 100, False, -0.3)])
 def test_f32_tiled_forward_emulation_matches_the_plain_version(case):
-    """The emulated float32 forward (at D = 256, and past it the split
-    kernel's, by chunks of 512 columns at D = 1024) and its lse against
-    the port's plain versions on the same inputs, within F32: the two
-    differ only in the order of their float32 sums."""
+    """The emulated float32 forward (at D = 128 and 256, and past it the
+    split kernel's, by chunks of 512 columns at D = 1024; D = 100 padded
+    to 128) and its lse against the port's plain versions on the same
+    inputs, within F32: the two differ only in the order of their float32
+    sums."""
     b, s, h, d, causal, sm_scale = case
     q, k, v = (torch.from_numpy(a) for a in _qkv((b, s, h, d), seed=140 + s))
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
@@ -2199,13 +2287,63 @@ def test_f32_tiled_forward_emulation_matches_the_plain_version(case):
                                **F32)
 
 
+@pytest.mark.parametrize("case", [(2, 300, 2, 128, True, None), (1, 200, 1, 100, False, -0.3),
+                                  (1, 65, 2, 128, True, 0.0)])
+def test_f32_onepass_backward_emulation_matches_the_plain_version(case):
+    """The emulated float32 one-pass backward at D = 128 (D = 100 padded
+    to it) against the port's plain backward on the same inputs: every
+    row of dq, dk and dv within GRAD_TOL_F32 of its largest element (the
+    two differ only in the order of their float32 sums)."""
+    b, s, h, d, causal, sm_scale = case
+    arrays = _qkv((b, s, h, d), seed=190 + s) + _qkv((b, s, h, d), seed=191 + s)[:1]
+    q, k, v, do = (torch.from_numpy(a) for a in arrays)
+    o = tatt.mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+    lse = tatt.lse_reference(q, k, causal=causal, sm_scale=sm_scale)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    got = emulate_f32_onepass_backward(*(tatt.pad_head_dim(t, 128) for t in (q, k, v, o, do)),
+                                       lse, causal=causal, sm_scale=scale)
+    ref = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=causal, sm_scale=sm_scale)
+    for name, g, r in zip("qkv", got, ref):
+        assert_rows_close_of_max(g[..., :d], r, GRAD_TOL_F32, f"d{name}", causal=causal,
+                                 atol=GRAD_ATOL)
+
+
+def test_f32_onepass_backward_sums_in_the_kernels_orders():
+    """The one-pass emulation's orders of sums, where float32 rounding
+    tells them apart: dQ is each key block's part added in key-block order
+    (a first block's -2^30 absorbs each later block's -64 in turn, where
+    the later parts first would leave -(2^30 + 256)); dV sums the query
+    tiles from the last one down (the last tile's 2^30 absorbs each earlier
+    query's 1, where the queries in order would leave 2^30 + 256)."""
+    s, d = 256, 128
+    q, k, v, o, do = (torch.zeros((1, s, 1, d)) for _ in range(5))
+    # q = 0 and lse = 0: P = 1 on every pair; v = 0: dP = 0, so dS = -delta
+    # = -o . dO = -1
+    o[..., 0] = do[..., 0] = 1.0
+    k[0, :64, 0, 1] = 2.0 ** 24      # the first key block's keys
+    k[0, 64:, 0, 1] = 1.0
+    do[0, 192:, 0, 2] = 2.0 ** 24    # the last query tile's rows
+    do[0, :192, 0, 2] = 1.0
+    lse = torch.zeros((1, 1, s))
+    dq, dk, dv = emulate_f32_onepass_backward(q, k, v, o, do, lse, causal=False, sm_scale=1.0)
+    assert bool((dq[0, :, 0, 1] == -(2.0 ** 30)).all()), dq[0, :4, 0, 1]
+    assert bool((dv[0, :, 0, 2] == 2.0 ** 30).all()), dv[0, :4, 0, 2]
+    assert bool((dv[0, :, 0, 0] == s).all()) and not dk[..., 1:].any()
+    # the other orders round otherwise
+    parts = [torch.tensor(-(2.0 ** 30))] + [torch.tensor(-64.0)] * 3
+    assert float(parts[1] + parts[2] + parts[3] + parts[0]) == -(2.0 ** 30 + 256)
+    rows = torch.tensor(192.0) + torch.tensor(2.0 ** 30)
+    assert float(rows) == 2.0 ** 30 + 256
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [256, 384, 512])
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
 def test_cuda_f32_tiled_backward_is_bitwise_deterministic(d, causal):
-    """The float32 backward at D = 256 and past it sums each gradient
-    element in one thread in a fixed order (no atomics): two calls on the
-    same inputs give the same bits."""
+    """The float32 backward at D = 128 (dQ added over key blocks in their
+    order by turn counters), at D = 256 and past it (each gradient element
+    summed by one thread in a fixed order) uses no atomics in an order that
+    varies: two calls on the same inputs give the same bits."""
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(11)
     qkv = torch.randn((1, 1000, 3, 1, d), device="cuda", generator=gen)
@@ -2257,6 +2395,82 @@ def test_cuda_float32_past_128_takes_the_tiled_kernels(d):
     assert bool(torch.isfinite(qkv.grad).all()) and bool(qkv.grad.any())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [100, 128])
+def test_cuda_float32_at_128_takes_the_register_tiled_forward_and_one_pass_backward(d):
+    """float32 at D = 65 to 128 runs the register-tiled forward's D = 128
+    instantiation (``flash_attention_f32_tiled_kernel<128>``) and the
+    one-pass backward (``flash_bwd_f32_onepass_kernel``), by the profiler's
+    kernel names through autograd; none of the one-thread-a-row kernels
+    they replaced (``flash_attention_f32_kernel<128>``,
+    ``flash_bwd_{dkdv,dq}_f32_kernel<128>``) nor the tiled pair runs."""
+    _cuda_or_skip()
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    qkv = torch.randn((1, 300, 3, 2, d), device="cuda", generator=gen).requires_grad_(True)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tatt.flash_attention(q, k, v, causal=True).square().sum().backward()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and "flash" in e.key]
+    assert any("flash_attention_f32_tiled_kernel" in n and "128" in n for n in names), names
+    assert any("flash_bwd_f32_onepass_kernel" in n for n in names), names
+    for old in ("flash_attention_f32_kernel", "flash_bwd_dkdv_f32", "flash_bwd_dq_f32"):
+        assert not any(old in n for n in names), (old, names)
+    assert bool(torch.isfinite(qkv.grad).all()) and bool(qkv.grad.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256])
+def test_cuda_float32_register_tiled_kernels_read_misaligned_views(d):
+    """The register-tiled float32 kernels copy q, k, v (and dO) 16 bytes at
+    a time only where every row starts 16-byte aligned, else 4 bytes at a
+    time: views whose base lies one float past a 16-byte boundary give the
+    plain version's output, lse and gradients."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    b, s, h = 1, 300, 2
+    flat = torch.randn(3 * b * s * h * d + 1, device="cuda", generator=gen)
+    q, k, v = flat[1:].view(3, b, s, h, d).unbind(0)
+    assert all(t.data_ptr() % 16 for t in (q, k, v))
+    do = torch.randn((b, s, h, d), device="cuda", generator=gen)
+    o, lse = tatt.flash_attention_forward(q, k, v, causal=True)
+    got = tatt.flash_attention_backward(q, k, v, o, do, lse, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, tatt.mha_reference(q, k, v, causal=True), **F32)
+    torch.testing.assert_close(lse, tatt.lse_reference(q, k, causal=True),
+                               rtol=1e-4, atol=1e-4)
+    ref = tatt.mha_backward_reference(q, k, v, o, do, lse, causal=True)
+    for name, g, r in zip("qkv", got, ref):
+        assert_rows_close_of_max(g, r, GRAD_TOL_F32, f"d{name}", causal=True, atol=GRAD_ATOL)
+
+
+def test_float32_at_d128_takes_the_register_tiled_kernels_in_source():
+    """Both sources route float32 at D = 128 to the register-tiled designs:
+    the forward's ``launch_f32_tiled<D>`` (the kernel templated on D, a
+    lane's O columns D / 32) and the backward's one-pass kernel with its
+    turn counters in the scratch; the one-thread-a-row forward and backward
+    pair stay for D <= 64 only."""
+    from sitewhere_tpu_torch import cuda_build
+
+    fwd = (cuda_build.CSRC / "flash_attention.cu").read_text()
+    bwd = (cuda_build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert "} else if constexpr (D >= 128) {\n    return launch_f32_tiled<D>(" in fwd
+    assert 'static_assert(D == 128 || D == 256, "the register-tiled forward' in fwd
+    assert 'static_assert(D <= 64, "D = 128 and 256 have the register-tiled kernel");' in fwd
+    assert "static constexpr int kCols = D / 32;" in fwd
+    # one predicate routes D = 128 to the one-pass kernel and gives it the
+    # scratch's turn counters
+    assert "constexpr bool f32_onepass(int d) { return d == 128; }" in bwd
+    assert "else if constexpr (f32_onepass(D))\n        return launch_f32_onepass(a);" in bwd
+    assert "flash_bwd_f32_onepass_kernel<<<" in bwd
+    assert "static_assert(D <= 64, \"D = 128 takes the one-pass kernel" in bwd
+    assert "const bool onepass = dtype == 0 && f32_onepass(static_cast<int>(d));" in bwd
+    assert "launch_f32_tiled<128>(a)" in bwd   # still the chunk past 256 where 256 does not divide D
+
+
 def test_c6_profiler_check_names_the_float32_kernels():
     """``chip_smoke.py``'s C6 phase reads the kernels that ran at its
     float32 timed shapes from the profiler's names (demangled or mangled,
@@ -2268,13 +2482,20 @@ def test_c6_profiler_check_names_the_float32_kernels():
 
     ns = "void (anonymous namespace)::"
     args = "(float const*, float const*, float const*, float*, float*, int)"
-    new = {"d256_f32": [f"{ns}flash_attention_f32_tiled_kernel{args}",
+    new = {"d128_f32": [f"{ns}flash_attention_f32_tiled_kernel<128>{args}",
+                        f"{ns}flash_bwd_f32_onepass_kernel{args}"],
+           "d256_f32": [f"{ns}flash_attention_f32_tiled_kernel<256>{args}",
                         f"{ns}flash_bwd_dkdv_f32_tiled_kernel<256>{args}",
                         f"{ns}flash_bwd_dq_f32_tiled_kernel<256>{args}"],
            "d512_f32": [f"{ns}flash_attention_f32_split_kernel<512, false>{args}",
                         "_ZN12_GLOBAL__N_131flash_bwd_dkdv_f32_tiled_kernelILi512EEEvPKfS2_",
                         f"{ns}flash_bwd_dq_f32_tiled_kernel<512>{args}"]}
-    old = {"d256_f32": [f"{ns}flash_attention_f32_kernel<256>{args}",
+    old = {"d128_f32": [f"{ns}flash_attention_f32_kernel<128>{args}",
+                        f"{ns}flash_bwd_dkdv_f32_kernel<128>{args}",
+                        f"{ns}flash_bwd_dq_f32_kernel<128>{args}",
+                        f"{ns}flash_bwd_dkdv_f32_tiled_kernel<128>{args}",
+                        f"{ns}flash_bwd_dq_f32_tiled_kernel<128>{args}"],
+           "d256_f32": [f"{ns}flash_attention_f32_kernel<256>{args}",
                         f"{ns}flash_bwd_dkdv_f32_kernel<256>{args}",
                         f"{ns}flash_bwd_dq_f32_kernel<256>{args}"],
            "d512_f32": [f"{ns}flash_attention_f32_wide_kernel{args}",
